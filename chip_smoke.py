@@ -1,0 +1,472 @@
+"""Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the script on its own (exit code 1, and no
+result line):
+  1. build   - nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
+               csrc`` (all sources at once) and Triton compiles its two;
+  2. kernels - each hand-written kernel against its plain PyTorch version on
+               the card, in bf16 and fp32 (relative error to the largest
+               output below 2e-2 and 2e-5, the JAX kernel tests' bounds; the
+               two elementwise kernels in bf16 also within one bf16 rounding
+               of each output, |a-b| <= 2^-7 |b| + 1e-3), at the JAX kernel
+               tests' shapes and at the model's own shapes;
+  3. serve   - qwen3-1.7b at full width (random weights from a seeded
+               torch.Generator) serves 16 greedy requests of 16-48 new tokens
+               on 8 slots through the port's Engine: one whole-batch prefill,
+               then each freed slot refilled by a batch-1 prefill and insert;
+               every kernel's launch count, set to 0 just before, must be
+               above 0 after, and the flash launches must show all 9
+               prefills; then the launches of one prefill and one decode
+               step, and a torch.profiler breakdown of the decode step;
+  4. model   - the same model at full width cut to 2 layers, its prefill and
+               decode logits on the card against the port's CPU path;
+  5. timing  - each kernel at the model's shapes, beside its plain version,
+               the one PyTorch call that computes the same function where
+               there is one, and its bound on the card.
+
+The last lines are the ``{"kernels": [...]}`` summary, the card's name and
+power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package.
+"""
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+ARCH = "qwen3-1.7b"
+SLOTS, MAX_LEN, N_REQUESTS = 8, 1024, 16
+# new tokens per request: staggered, so that slots free in different rounds
+# and the 8 requests past the first wave go through the per-slot refill
+NEW_TOKENS = [16 + (7 * i) % 33 for i in range(N_REQUESTS)]
+
+REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
+    "silu_mul": "src/repro/kernels/gelu/kernel.py:43",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
+}
+SOURCES = {
+    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
+    "silu_mul": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
+    "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
+}
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-9)).item()
+
+
+def max_abs(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def within_one_rounding(a, b):
+    """Every element of bf16 `a` within one bf16 rounding of `b`."""
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-3).all())
+
+
+class Inputs:
+    """Normal inputs on the card from one seeded generator."""
+
+    def __init__(self, torch, seed):
+        self.torch = torch
+        self.gen = torch.Generator("cuda").manual_seed(seed)
+
+    def __call__(self, shape, dtype):
+        t = self.torch
+        return t.randn(shape, generator=self.gen, device="cuda",
+                       dtype=t.float32).to(dtype)
+
+
+def phase_build(torch):
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    seconds = _build.build(["flash_attention", "decode_attention"])
+    for name, s in seconds.items():
+        print(f"[build] {name}.cu: nvcc {s:.2f} s")
+    print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
+    from repro_torch.kernels.gelu.kernel import silu_mul_triton
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
+    x = torch.ones((4, 2048), device="cuda", dtype=torch.bfloat16)
+    for label, fn in (("rmsnorm C=2048", lambda: rmsnorm_triton(x, x[0].float())),
+                      ("rmsnorm C=128", lambda: rmsnorm_triton(x[:, :128], x[0, :128].float())),
+                      ("silu_mul", lambda: silu_mul_triton(x, x))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        print(f"[build] triton {label}: first launch incl. compile "
+              f"{time.perf_counter() - t0:.2f} s")
+
+
+def kernel_cases(torch):
+    """(kernel, label, kernel fn, plain fn, args, is_main_path) per case."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gelu.ref import silu_mul_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    rnd = Inputs(torch, 0)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for r, c, main in ((64, 256, False), (100, 512, False), (7, 1024, False),
+                           (4096, 2048, True), (4096 * 16, 128, True)):
+            cases.append(("rmsnorm", f"({r},{c})", KERNELS["rmsnorm"], rmsnorm_ref,
+                          (rnd((r, c), dt), rnd((c,), torch.float32)), main))
+        for r, c, main in ((100, 256, False), (4096, 6144, True)):
+            cases.append(("silu_mul", f"({r},{c})", KERNELS["silu_mul"], silu_mul_ref,
+                          (rnd((r, c), dt), rnd((r, c), dt)), main))
+        for b, hq, hkv, sq, sk, causal, window, cap, d, main in (
+                (2, 4, 4, 128, 128, True, 0, 0.0, 64, False),
+                (2, 8, 2, 130, 130, True, 0, 0.0, 64, False),
+                (2, 4, 1, 64, 200, False, 0, 0.0, 64, False),
+                (2, 4, 2, 128, 128, True, 32, 0.0, 64, False),
+                (2, 4, 2, 96, 96, True, 0, 30.0, 64, False),
+                (2, 4, 2, 70, 70, True, 0, 0.0, 32, False),
+                (8, 16, 8, 512, 512, True, 0, 0.0, 128, True)):
+            kw = dict(causal=causal, window=window, softcap=cap)
+            cases.append(("flash_attention",
+                          f"q({b},{hq},{sq},{d}) kv({b},{hkv},{sk},{d}) {kw}",
+                          lambda *a, kw=kw: KERNELS["flash_attention"](*a, **kw),
+                          lambda *a, kw=kw: attention_ref(*a, **kw),
+                          (rnd((b, hq, sq, d), dt), rnd((b, hkv, sk, d), dt),
+                           rnd((b, hkv, sk, d), dt)), main))
+        for b, hkv, g, t, d, main in ((3, 2, 4, 128, 64, False), (3, 1, 8, 200, 64, False),
+                                      (3, 4, 1, 64, 64, False), (SLOTS, 8, 2, MAX_LEN, 128, True)):
+            lens = [t, max(1, t // 2), max(1, t // 3)] if b == 3 else decode_lengths(b, t)
+            cases.append(("decode_attention", f"q({b},{hkv},{g},{d}) T={t} lengths={lens}",
+                          KERNELS["decode_attention"], decode_attention_ref,
+                          (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
+                           rnd((b, t, hkv, d), dt),
+                           torch.tensor(lens, dtype=torch.int32, device="cuda")), main))
+    return cases
+
+
+def decode_lengths(b, t):
+    """Mixed cache lengths of the main path: prompts of 128-512 tokens plus
+    up to 48 generated, one slot at the full cache."""
+    return [t] + [128 + (97 * i) % 417 for i in range(1, b)]
+
+
+def phase_kernels(torch):
+    errs = {}
+    for name, label, fn, plain, args, main in kernel_cases(torch):
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        dt = str(args[0].dtype).replace("torch.", "")
+        err = rel_err(got, want)
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name} {label}: {tuple(got.shape)} {got.dtype} vs plain "
+                f"{tuple(want.shape)} {want.dtype}")
+        require(err < TOL[dt], f"{name} {label} {dt}: rel_err {err:.3e} >= {TOL[dt]}")
+        if name in ("rmsnorm", "silu_mul") and dt == "bfloat16":
+            require(within_one_rounding(got, want),
+                    f"{name} {label}: an element is off by more than one bf16 rounding")
+        print(f"[kernels] {name:16s} {dt:8s} {label}: rel_err {err:.3e} "
+              f"(tol {TOL[dt]:g}) ok")
+        if main and dt == "bfloat16":
+            errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
+    return errs
+
+
+def phase_serve(torch):
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serving import Engine, Request
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{n_params} parameters, random init on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator("cpu").manual_seed(1)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    # a short warm-up serve, so the measured one excludes one-off set-up
+    Engine(cfg, model, batch_size=2, max_len=64, device="cuda").run(
+        [Request(uid=i, prompt=prompt(16), max_new_tokens=2) for i in range(3)])
+    torch.cuda.synchronize()
+
+    lens = torch.randint(128, 513, (N_REQUESTS,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=prompt(n), max_new_tokens=new)
+            for i, (n, new) in enumerate(zip(lens, NEW_TOKENS))]
+    eng = Engine(cfg, model, batch_size=SLOTS, max_len=MAX_LEN, device="cuda")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launches()
+    require(len(done) == N_REQUESTS, f"served {len(done)} of {N_REQUESTS}")
+    for r in done:
+        require(r.done and len(r.output) == r.max_new_tokens,
+                f"request {r.uid}: {len(r.output)} of {r.max_new_tokens} tokens, "
+                f"done={r.done}")
+        require(all(0 <= t < cfg.vocab_size for t in r.output),
+                f"request {r.uid}: token outside the vocabulary")
+    for name, n in counts.items():
+        require(n > 0, f"kernel {name} was not launched on the main path")
+    # one whole-batch prefill, then a batch-1 prefill per refilled slot
+    prefills = 1 + N_REQUESTS - SLOTS
+    require(counts["flash_attention"] == prefills * cfg.n_layers,
+            f"{counts['flash_attention']} flash launches, not the "
+            f"{prefills} x {cfg.n_layers} of one wave and {prefills - 1} refills")
+    st = eng.stats
+    prompt_tokens = sum(lens)
+    print(f"[serve] {N_REQUESTS} requests on {SLOTS} slots, prompts {min(lens)}-"
+          f"{max(lens)} tokens ({prompt_tokens} in all), {min(NEW_TOKENS)}-"
+          f"{max(NEW_TOKENS)} new tokens ({sum(NEW_TOKENS)} in all); one "
+          f"whole-batch prefill and {prefills - 1} per-slot refills")
+    print(f"[serve] prefill {st['prefill_s']:.4f} s, decode {st['decode_s']:.4f} s "
+          f"over {st['steps']} rounds, wall {wall:.4f} s")
+    print(f"[serve] {st['tokens_out']} tokens out: {eng.throughput():.2f} tok/s "
+          f"(engine), decode {(st['tokens_out'] - N_REQUESTS) / st['decode_s']:.2f} "
+          f"tok/s, prefill {prompt_tokens / st['prefill_s']:.2f} prompt tok/s")
+    print(f"[serve] launches on the main path: {json.dumps(counts)}")
+    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # launches of one prefill step and one decode step of the full model
+    cache = init_cache(cfg, SLOTS, MAX_LEN, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 512), generator=gen).cuda()
+    K.reset_launches()
+    model.prefill(toks, cache)
+    per_prefill = K.launches()
+    K.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    per_decode = K.launches()
+    torch.cuda.synchronize()
+    n_norm = 4 * cfg.n_layers + 1
+    require(per_prefill == {"rmsnorm": n_norm, "silu_mul": cfg.n_layers,
+                            "flash_attention": cfg.n_layers, "decode_attention": 0},
+            f"launches per prefill step {per_prefill}")
+    require(per_decode == {"rmsnorm": n_norm, "silu_mul": cfg.n_layers,
+                           "flash_attention": 0, "decode_attention": cfg.n_layers},
+            f"launches per decode step {per_decode}")
+    print(f"[serve] launches per prefill step {json.dumps(per_prefill)}, "
+          f"per decode step {json.dumps(per_decode)}")
+    profile_decode(torch, model, cache, toks[:, 0])
+    return model, counts, per_prefill, per_decode
+
+
+def profile_decode(torch, model, cache, tok, steps=5):
+    """Where a decode step's time goes: host wall time per step, device
+    time per step from a torch.profiler trace, and the kernels by device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        model.decode_step(tok, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model.decode_step(tok, cache)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model.decode_step(tok, cache)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in events) / steps
+    n_kernels = sum(e.count for e in events if e.self_device_time_total > 0) / steps
+    print(f"[profile] decode step at {tok.shape[0]} slots: wall {wall_ms:.3f} ms "
+          f"(no profiler), device busy {dev_us / 1e3:.3f} ms per step "
+          f"({dev_us / 1e3 / wall_ms * 100:.1f}% of wall), {n_kernels:.0f} device "
+          f"activities per step")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
+              f"{e.count / steps:6.1f}x  {e.key[:90]}")
+    cpu_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    for e in cpu_top:
+        print(f"[profile]   host {e.self_cpu_time_total / steps / 1e3:8.4f} ms/step "
+              f"{e.count / steps:6.1f}x  {e.key[:90]}")
+
+
+def phase_model(torch):
+    """Full width, 2 layers: the card's logits against the port's CPU path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, init_cache, init_params
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, name=ARCH + "-2l")
+    gpu = init_params(cfg, seed=1, device="cuda")
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    gen = torch.Generator("cpu").manual_seed(2)
+    B, S, steps = 2, 64, 8
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    lens = torch.tensor([S, 41], dtype=torch.int32)
+    cg = init_cache(cfg, B, 128, device="cuda")
+    cc = init_cache(cfg, B, 128, device="cpu")
+    V = cfg.vocab_size
+    lg, lc = gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu(), cpu.prefill(toks, cc, lens)
+    errs = [rel_err(lg[:, :V], lc[:, :V])]
+    agree = [(lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item()]
+    for _ in range(steps):
+        nxt = lc[:, :V].argmax(-1).int()        # teacher-force the CPU's tokens
+        lg = gpu.decode_step(nxt.cuda(), cg).cpu()
+        lc = cpu.decode_step(nxt, cc)
+        require(torch.isfinite(lg[:, :V].float()).all(), "non-finite logits on the card")
+        errs.append(rel_err(lg[:, :V], lc[:, :V]))
+        agree.append((lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item())
+    tol = 2e-2
+    print(f"[model] {cfg.name} (full width, 2 layers) card vs CPU, rel_err of "
+          f"logits: prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e} (tol {tol:g}: "
+          f"both bf16, kernels against plain versions and another GEMM order)")
+    print(f"[model] greedy token agreement over prefill + {steps} decode steps: "
+          f"{statistics.mean(agree):.4f}")
+    require(max(errs) < tol, f"card vs CPU logits rel_err {max(errs):.3e} >= {tol}")
+
+
+def time_ms(torch, fn, iters=25, warmup=3):
+    """Median device ms of `fn` over CUDA-event-timed runs. Before each run
+    the L2 cache is flushed (the model's callers find their inputs cold) and
+    the card is kept busy for ~1 ms, so that the host has enqueued all of
+    `fn` before the start event fires and its launch overhead stays out of
+    the time."""
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes, flops, rate):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_timing(torch, counts, per_prefill, per_decode, errs):
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gelu.ref import silu_mul_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    bf = torch.bfloat16
+    rnd = Inputs(torch, 3)
+    rows = []
+
+    def add(name, label, kernel, plain, library, nbytes, flops, rate, main=True):
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain)
+        lib_ms = time_ms(torch, library) if library is not None else None
+        b_ms, b_by = bound(nbytes, flops, rate)
+        lib_s = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"[timing] {name:16s} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib_s}, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms * 100:.1f}% of bound; launches per prefill step "
+              f"{per_prefill[name]}, per decode step {per_decode[name]}")
+        if main:
+            route, source = SOURCES[name]
+            rows.append({"name": name, "route": route, "source": source,
+                         "replaces": REPLACES[name], "launches": counts[name],
+                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                         "shape": label,
+                         "launches_per_prefill_step": per_prefill[name],
+                         "launches_per_decode_step": per_decode[name]})
+
+    for R, C, main in ((4096, 2048, True), (4096 * 16, 128, False)):
+        x, g = rnd((R, C), bf), rnd((C,), torch.float32)
+        gb = g.to(bf)
+        add("rmsnorm", f"x({R},{C}) bf16", lambda: KERNELS["rmsnorm"](x, g),
+            lambda: rmsnorm_ref(x, g), lambda: F.rms_norm(x, (C,), gb, 1e-6),
+            2 * R * C * 2 + C * 4, 4 * R * C, FP32_FLOPS, main)
+
+    R, C = 4096, 6144
+    a, b = rnd((R, C), bf), rnd((R, C), bf)
+    add("silu_mul", f"g,u({R},{C}) bf16", lambda: KERNELS["silu_mul"](a, b),
+        lambda: silu_mul_ref(a, b), None, 3 * R * C * 2, 5 * R * C, FP32_FLOPS)
+
+    B, Hq, Hkv, S, D = SLOTS, 16, 8, 512, 128
+    q, k, v = rnd((B, Hq, S, D), bf), rnd((B, Hkv, S, D), bf), rnd((B, Hkv, S, D), bf)
+    pairs = S * (S + 1) // 2
+    add("flash_attention", f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal bf16",
+        lambda: KERNELS["flash_attention"](q, k, v, causal=True),
+        lambda: attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D), 4 * D * B * Hq * pairs,
+        BF16_TENSOR_FLOPS)
+
+    G, T = 2, MAX_LEN
+    lens_list = decode_lengths(SLOTS, T)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    qd = rnd((SLOTS, Hkv, G, D), bf)
+    kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    q_sdpa = qd.reshape(SLOTS, Hkv * G, 1, D)
+    add("decode_attention", f"q({SLOTS},{Hkv},{G},{D}) kv({SLOTS},{T},{Hkv},{D}) "
+        f"lengths={lens_list} bf16",
+        lambda: KERNELS["decode_attention"](qd, kd, vd, lens),
+        lambda: decode_attention_ref(qd, kd, vd, lens),
+        lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
+                                               vd.transpose(1, 2), attn_mask=mask,
+                                               enable_gqa=True),
+        2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
+        4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS)
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
+                         "runs on the card")
+    import repro_torch  # noqa: F401  (fails here without the repository)
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
+    phase_build(torch)
+    errs = phase_kernels(torch)
+    _, counts, per_prefill, per_decode = phase_serve(torch)
+    phase_model(torch)
+    rows = phase_timing(torch, counts, per_prefill, per_decode, errs)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

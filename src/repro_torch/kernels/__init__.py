@@ -1,0 +1,30 @@
+"""Hand-written Hopper kernels of the port, one package per TPU kernel
+module of ``repro.kernels``: ``<name>/kernel.py`` (the kernel's wrapper, with
+its launch count), ``<name>/ref.py`` (the plain PyTorch version) and
+``<name>/ops.py`` (the public op, dispatching on the tensor's device).
+CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
+"""
+from .decode_attention.kernel import decode_attention_cuda
+from .flash_attention.kernel import flash_attention_cuda
+from .gelu.kernel import silu_mul_triton
+from .rmsnorm.kernel import rmsnorm_triton
+
+#: every kernel wrapper of the port, by kernel name
+KERNELS = {
+    "rmsnorm": rmsnorm_triton,
+    "silu_mul": silu_mul_triton,
+    "flash_attention": flash_attention_cuda,
+    "decode_attention": decode_attention_cuda,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = ["KERNELS", "launches", "reset_launches"]

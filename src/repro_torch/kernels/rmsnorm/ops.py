@@ -1,0 +1,16 @@
+"""Public RMSNorm op: the Triton kernel for a CUDA tensor, the plain version
+for a CPU tensor."""
+from __future__ import annotations
+
+import torch
+
+from ...device import runs_plain
+from .kernel import rmsnorm_triton
+from .ref import rmsnorm_ref
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x: (R, C); g: (C,)."""
+    if runs_plain(x):
+        return rmsnorm_ref(x, g, eps)
+    return rmsnorm_triton(x, g, eps)

@@ -1,0 +1,206 @@
+"""Model primitives of the port, the dense subset of ``repro.models.layers``.
+
+Conventions, as in the JAX package:
+  * parameters live in ``nn.ParameterDict``s whose keys are the JAX tree's
+    keys; ``*_init`` builds one, the matching apply function reads it;
+  * weights keep JAX's (in, out) orientation, so a projection is ``x @ w``;
+  * activations bf16, reductions and normalisers fp32.
+
+The norms, the SwiGLU gate and attention go through the kernel ops, which
+launch the Hopper kernels for CUDA tensors and run their plain versions for
+CPU tensors. Projections stay ``torch.matmul``, as the JAX package leaves
+them to XLA.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention.ops import flash_attention as _flash_op
+from ..kernels.flash_attention.ref import NEG_INF, attention_ref
+from ..kernels.gelu.ops import silu_mul
+from ..kernels.rmsnorm.ops import rmsnorm
+
+Params = nn.ParameterDict
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _init(gen: Optional[torch.Generator], shape, scale: float = 0.02,
+          device=None) -> nn.Parameter:
+    """N(0, scale^2) drawn in fp32, stored bf16 (as ``layers._init``).
+    With no generator (the meta device) only the shape is made."""
+    if gen is None:
+        return _param(torch.empty(shape, dtype=torch.bfloat16, device=device))
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return _param((x * scale).to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, any leading shape, through the kernel op."""
+    shape = x.shape
+    return rmsnorm(x.reshape(-1, shape[-1]), scale, eps=eps).reshape(shape)
+
+
+def norm_init(cfg: ModelConfig, device=None) -> Params:
+    return Params({"scale": _param(torch.ones(cfg.d_model, dtype=torch.float32,
+                                              device=device))})
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (partial-fraction aware)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(cfg: ModelConfig, device=None) -> torch.Tensor:
+    rot = int(cfg.d_head * cfg.rope_fraction) // 2 * 2
+    if rot == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=device)
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (cfg.rope_theta ** exps)
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) of shape (..., seq, 1, rot), fp32, each angle repeated for
+    the two members of its rotated pair. Built once per model step and
+    shared by every layer."""
+    inv = rope_frequencies(cfg, positions.device)
+    ang = positions[..., :, None].float() * inv           # (.., seq, rot/2)
+    ang = ang.repeat_interleave(2, dim=-1)[..., :, None, :]  # broadcast over heads
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotate the interleaved pairs (x1, x2) of the first `rot` dims of
+    x (..., seq, heads, d_head): (x1 cos - x2 sin, x2 cos + x1 sin) in fp32,
+    rounded to x's dtype; dims past `rot` pass through."""
+    cos, sin = tables
+    rot = cos.shape[-1]
+    if rot == 0:
+        return x
+    xr = x[..., :rot]
+    pairs = xr.unflatten(-1, (rot // 2, 2))
+    swapped = torch.stack((-pairs[..., 1], pairs[..., 0]), dim=-1).flatten(-2)
+    out = (xr * cos + swapped * sin).to(x.dtype)
+    return out if rot == x.shape[-1] else torch.cat([out, x[..., rot:]], dim=-1)
+
+
+def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: (..., seq)."""
+    return rotate(x, rope_tables(cfg, positions))
+
+
+# ---------------------------------------------------------------------------
+# attention in the model's (B, S, H, D) layout
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D).
+
+    The kernel op takes (B, H, S, D); the transposes are strided views, not
+    copies, and the result is a view of a (B, Sq, Hq, D) buffer."""
+    o = _flash_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=causal, window=window, softcap=logit_softcap)
+    return o.transpose(1, 2)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        logit_softcap: float = 0.0) -> torch.Tensor:
+    """Naive full-score attention in the model's layout (test oracle)."""
+    o = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      causal=causal, window=window, softcap=logit_softcap)
+    return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# attention block: GQA + qk-norm + rope + bias
+# ---------------------------------------------------------------------------
+
+def attn_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> Params:
+    d, dh = cfg.d_model, cfg.d_head
+    p = Params({
+        "wq": _init(gen, (d, cfg.n_heads * dh), device=device),
+        "wk": _init(gen, (d, cfg.n_kv_heads * dh), device=device),
+        "wv": _init(gen, (d, cfg.n_kv_heads * dh), device=device),
+        "wo": _init(gen, (cfg.n_heads * dh, d),
+                    scale=0.02 / math.sqrt(2 * cfg.n_layers), device=device),
+    })
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                        ("bv", cfg.n_kv_heads)):
+            p[name] = _param(torch.zeros(n * dh, dtype=torch.bfloat16, device=device))
+    if cfg.qk_norm:
+        p["q_norm"] = _param(torch.ones(dh, dtype=torch.float32, device=device))
+        p["k_norm"] = _param(torch.ones(dh, dtype=torch.float32, device=device))
+    return p
+
+
+def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+    """Rope'd q (B, S, Hq, dh) and k, v (B, S, Hkv, dh) for self-attention.
+    rope: ``rope_tables(cfg, positions)`` of the step (the JAX function
+    takes the positions and builds the tables in every layer)."""
+    B, S, _ = x.shape
+    dh = cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, dh)
+    k = k.reshape(B, S, cfg.n_kv_heads, dh)
+    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return rotate(q, rope), rotate(k, rope), v
+
+
+def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# gated SiLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return Params({
+        "w_up": _init(gen, (d, f), device=device),
+        "w_down": _init(gen, (f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers),
+                        device=device),
+        "w_gate": _init(gen, (d, f), device=device),
+    })
+
+
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu(x @ w_gate) * (x @ w_up) through the fused gate op, which
+    rounds once to bf16 where the JAX model rounds silu and the product
+    separately; model-level tolerances allow for that."""
+    return silu_mul(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+
+
+__all__ = ["NEG_INF", "Params", "rms_norm", "norm_init", "apply_norm",
+           "rope_frequencies", "rope_tables", "rotate", "apply_rope",
+           "flash_attention",
+           "attention_reference", "attn_init", "attn_qkv", "attn_out",
+           "mlp_init", "mlp_apply"]

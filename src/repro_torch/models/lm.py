@@ -1,0 +1,220 @@
+"""Dense decoder LM of the port, the dense path of ``repro.models.lm``.
+
+``LM`` is an ``nn.Module`` holding a ``ModuleList`` of blocks; the JAX
+package's stacked-unit scan becomes a Python loop over the blocks (dense
+configs have a one-layer unit, so the layers are the units).
+
+Public entry points, counterparts of the JAX functions of the same names:
+    init_params -> LM, LM.forward (teacher-forced logits), init_cache,
+    LM.prefill, LM.decode_step, padded_vocab
+
+The KV cache is a dict of tensors updated IN PLACE by ``prefill`` and
+``decode_step`` (the JAX functions return a new cache): ``k`` and ``v`` are
+fused (n_layers, B, T, Hkv*dh) bf16 and ``pos`` (B,) int32 holds each
+sequence's next position (continuous batching).
+
+Only dense rmsnorm/SwiGLU configs with full causal RoPE attention are
+ported; any other config raises NotImplementedError naming the field.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from ..kernels.decode_attention.ops import decode_attention
+from . import layers as L
+
+VOCAB_PAD = 256      # embeddings padded as in the JAX package
+
+# (field, test of a value the port runs) for every config field of the slice
+_SUPPORTED = (
+    ("family", lambda v: v == "dense"),
+    ("n_experts", lambda v: v == 0),
+    ("block_pattern", lambda v: not v),
+    ("cross_attention", lambda v: not v),
+    ("n_encoder_layers", lambda v: v == 0),
+    ("cross_attn_layers", lambda v: not v),
+    ("n_frontend_tokens", lambda v: v == 0),
+    ("norm", lambda v: v == "rmsnorm"),
+    ("activation", lambda v: v == "silu"),
+    ("mlp_gated", lambda v: v),
+    ("rope_fraction", lambda v: v > 0),
+    ("attn_window", lambda v: v == 0),
+    ("attn_logit_softcap", lambda v: v == 0),
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError naming the first config field the port
+    does not run yet."""
+    for field, ok in _SUPPORTED:
+        value = getattr(cfg, field)
+        if not ok(value):
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={value!r} is not ported to repro_torch "
+                f"yet (dense rmsnorm/SwiGLU decoders only)")
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+
+def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Padded vocab entries must never win: -1e30 them."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(idx >= cfg.vocab_size, -1e30)
+
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
+        super().__init__()
+        self.ln1 = L.norm_init(cfg, device)
+        self.attn = L.attn_init(cfg, gen, device)
+        self.ln2 = L.norm_init(cfg, device)
+        self.mlp = L.mlp_init(cfg, gen, device)
+
+    def mlp_residual(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+        return x + L.mlp_apply(cfg, self.mlp, L.apply_norm(cfg, self.ln2, x))
+
+
+class LM(nn.Module):
+    """The model on `device` (``cuda`` unless the caller names another).
+    With a generator its weights are drawn as ``init_params`` draws them;
+    without one they are left uninitialised, to be filled by
+    ``load_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        vpad = padded_vocab(cfg)
+        self.embed = L._init(gen, (vpad, cfg.d_model), device=device)
+        self.final_norm = L.norm_init(cfg, device)
+        if not cfg.tie_embeddings:
+            self.head = L._init(gen, (cfg.d_model, vpad), device=device)
+        self.blocks = nn.ModuleList(Block(cfg, gen, device)
+                                    for _ in range(cfg.n_layers))
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = L.apply_norm(self.cfg, self.final_norm, x)
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return _mask_pad_logits(self.cfg, x @ head)
+
+    # ------------------------------------------------------------------
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) -> logits (B, S, V_padded). (The JAX forward also
+        returns the MoE aux loss, which is 0 for the dense path.)"""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens]
+        rope = L.rope_tables(cfg, torch.arange(S, device=x.device).expand(B, S))
+        for blk in self.blocks:
+            h = L.apply_norm(cfg, blk.ln1, x)
+            q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
+            x = x + L.attn_out(blk.attn, L.flash_attention(q, k, v, causal=True))
+            x = blk.mlp_residual(cfg, x)
+        return self._logits(x)
+
+    # ------------------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor, cache: dict,
+                prompt_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Process right-padded prompts from position 0, writing their K/V
+        into ``cache`` in place. prompt_lens: (B,) true prompt lengths
+        (defaults to S). Returns the logits at each sequence's last real
+        token, (B, V_padded)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        if S > cache["k"].shape[2]:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache's "
+                             f"{cache['k'].shape[2]}")
+        if prompt_lens is None:
+            prompt_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        x = self.embed[tokens]
+        rope = L.rope_tables(cfg, torch.arange(S, device=x.device).expand(B, S))
+        for i, blk in enumerate(self.blocks):
+            h = L.apply_norm(cfg, blk.ln1, x)
+            q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
+            # pads sit after the valid tokens; decode overwrites them in turn
+            cache["k"][i, :, :S] = k.reshape(B, S, -1)
+            cache["v"][i, :, :S] = v.reshape(B, S, -1)
+            x = x + L.attn_out(blk.attn, L.flash_attention(q, k, v, causal=True))
+            x = blk.mlp_residual(cfg, x)
+        cache["pos"].copy_(prompt_lens)
+        last = (prompt_lens.long() - 1).clamp(0, S - 1)
+        x_last = x[torch.arange(B, device=x.device), last]
+        return self._logits(x_last)
+
+    # ------------------------------------------------------------------
+    def decode_step(self, token: torch.Tensor, cache: dict) -> torch.Tensor:
+        """token: (B,) -> logits (B, V_padded). Writes each sequence's K/V at
+        its position cache["pos"] (in place) and advances it."""
+        cfg = self.cfg
+        B = token.shape[0]
+        hkv, dh = cfg.n_kv_heads, cfg.d_head
+        T = cache["k"].shape[2]
+        x = self.embed[token][:, None, :]
+        pos = cache["pos"]
+        rope = L.rope_tables(cfg, pos.view(B, 1))
+        bidx = torch.arange(B, device=x.device)
+        # a write past the cache's end is dropped, as JAX's scatter drops it
+        in_range = (pos < T)[:, None]
+        wpos = pos.clamp(max=T - 1).long()
+        valid = (pos + 1).clamp(max=T).to(torch.int32)
+        for i, blk in enumerate(self.blocks):
+            h = L.apply_norm(cfg, blk.ln1, x)
+            q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[bidx, wpos] = torch.where(in_range, k.reshape(B, -1), ck[bidx, wpos])
+            cv[bidx, wpos] = torch.where(in_range, v.reshape(B, -1), cv[bidx, wpos])
+            o = _decode_attend(cfg, q, ck.view(B, T, hkv, dh),
+                               cv.view(B, T, hkv, dh), valid)
+            x = x + L.attn_out(blk.attn, o)
+            x = blk.mlp_residual(cfg, x)
+        pos += 1
+        return self._logits(x)[:, 0]
+
+
+def _decode_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
+                   cv: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention over the cache through the decode kernel op,
+    GQA-grouped (KV read once per kv-head).
+
+    q: (B, 1, Hq, dh); ck/cv: (B, T, Hkv, dh); valid_len: (B,) int32."""
+    B, _, Hq, dh = q.shape
+    Hkv = cfg.n_kv_heads
+    o = decode_attention(q.reshape(B, Hkv, Hq // Hkv, dh), ck, cv, valid_len)
+    return o.reshape(B, 1, Hq, dh)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on the
+    target device (the same shapes and scales as the JAX init, not the same
+    numbers). On the meta device only the shapes are made."""
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
+    return LM(cfg, gen, dev)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """Fused bf16 K/V of (n_layers, batch, max_len, Hkv*dh) and the
+    per-sequence positions."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads * cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+__all__ = ["LM", "Block", "init_params", "init_cache", "padded_vocab",
+           "check_supported", "VOCAB_PAD"]

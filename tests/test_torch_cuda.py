@@ -1,0 +1,185 @@
+"""The port's hand-written kernels and model on a CUDA card.
+
+Every test here is marked ``cuda`` and skips on a host without a card. The
+file imports neither JAX nor the JAX package, so it also runs where only the
+port is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX.) Each kernel is held
+against its plain PyTorch version on the same card tensors, and the model's
+kernel path against its plain path on the CPU, at the kernel tests'
+tolerances: relative error to the largest output below 2e-2 in bf16 and
+2e-5 in fp32.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels as TK
+from repro_torch import models
+from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gelu.ref import silu_mul_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.models.lm import LM
+from repro_torch.serving import Engine, Request
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 references in fp32
+    return torch.device("cuda")
+
+
+def rel_err(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-9)).item()
+
+
+def normal(seed, shape, device, dtype):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def kernel_case(name, device, dtype):
+    """(args, plain version) at small shapes with ragged edges."""
+    def t(seed, shape):
+        return normal(seed, shape, device, dtype)
+    if name == "rmsnorm":
+        return (t(0, (100, 512)), t(1, (512,)).float()), rmsnorm_ref
+    if name == "silu_mul":
+        return (t(0, (100, 256)), t(1, (100, 256))), silu_mul_ref
+    if name == "flash_attention":
+        return (t(0, (2, 8, 130, 64)), t(1, (2, 2, 130, 64)),
+                t(2, (2, 2, 130, 64))), attention_ref
+    lens = torch.tensor([200, 100, 66], dtype=torch.int32, device=device)
+    return (t(0, (3, 1, 8, 64)), t(1, (3, 200, 1, 64)), t(2, (3, 200, 1, 64)),
+            lens), decode_attention_ref
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(TK.KERNELS))
+def test_kernel_matches_plain_on_card(cuda, name, dtype):
+    args, plain = kernel_case(name, cuda, DTYPES[dtype])
+    before = TK.KERNELS[name].launches
+    got = TK.KERNELS[name](*args)
+    torch.cuda.synchronize()
+    assert TK.KERNELS[name].launches == before + 1
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_err(got, want) < TOL[dtype]
+    if name in ("rmsnorm", "silu_mul") and dtype == "bfloat16":
+        # one rounding apart at most, element by element
+        g, w = got.float(), want.float()
+        assert ((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-3).all()
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (32, 0.0), (0, 30.0)])
+def test_flash_attention_model_layout_views_on_card(cuda, window, cap):
+    """(B, S, H, D) tensors passed as transposed views, with the window and
+    softcap masks, as the model would."""
+    q = normal(0, (2, 96, 4, 128), cuda, torch.bfloat16)
+    k = normal(1, (2, 96, 2, 128), cuda, torch.bfloat16)
+    v = normal(2, (2, 96, 2, 128), cuda, torch.bfloat16)
+    got = models.layers.flash_attention(q, k, v, causal=True, window=window,
+                                        logit_softcap=cap)
+    want = models.layers.attention_reference(q, k, v, causal=True, window=window,
+                                             logit_softcap=cap)
+    assert got.shape == (2, 96, 4, 128)
+    assert rel_err(got, want) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_model_on_card_matches_cpu(cuda, arch):
+    """Forward, prefill and decode logits of the kernel path on the card
+    against the plain path on the CPU, on the same weights."""
+    cfg = smoke_config(get_config(arch))
+    cpu = models.init_params(cfg, seed=0, device="cpu")
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 12), dtype=np.int32))
+    lens = torch.tensor([12, 7, 3], dtype=torch.int32)
+    V = cfg.vocab_size
+    assert rel_err(gpu(toks.to(cuda))[..., :V], cpu(toks)[..., :V]) < TOL["bfloat16"]
+    cg = models.init_cache(cfg, 3, 32, device=cuda)
+    cc = models.init_cache(cfg, 3, 32, device="cpu")
+    lg = gpu.prefill(toks.to(cuda), cg, lens.to(cuda))
+    lc = cpu.prefill(toks, cc, lens)
+    assert rel_err(lg[:, :V], lc[:, :V]) < TOL["bfloat16"]
+    for step in range(3):
+        tok = toks[:, step]
+        lg = gpu.decode_step(tok.to(cuda), cg)
+        lc = cpu.decode_step(tok, cc)
+        assert rel_err(lg[:, :V], lc[:, :V]) < TOL["bfloat16"]
+    assert cg["pos"].tolist() == cc["pos"].tolist()
+
+
+def test_launches_per_step_on_card(cuda):
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), n_layers=3)
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    TK.reset_launches()
+    model.prefill(toks, cache)
+    assert TK.launches() == {"rmsnorm": 13, "silu_mul": 3, "flash_attention": 3,
+                             "decode_attention": 0}
+    TK.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    assert TK.launches() == {"rmsnorm": 13, "silu_mul": 3, "flash_attention": 0,
+                             "decode_attention": 3}
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """Greedy serving on the card, with staggered budgets so that freed
+    slots are refilled by per-slot prefill and insert, emits the CPU
+    engine's tokens (the smoke model at its init scale decodes with wide
+    top-2 margins)."""
+    cfg = smoke_config(get_config("qwen3-1.7b"))
+    cpu = models.init_params(cfg, seed=0, device="cpu")
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(3, 12, size=5)]
+    n_new = [3, 8, 5, 6, 4]
+
+    def serve(model, device):
+        eng = Engine(cfg, model, batch_size=2, max_len=64, device=device)
+        inserts = []
+        insert = eng._insert
+        eng._insert = lambda one, slot: (inserts.append(slot), insert(one, slot))
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=n)
+                        for i, (p, n) in enumerate(zip(prompts, n_new))])
+        assert inserts == [0, 0, 1]
+        return {r.uid: r.output for r in done}, eng.cache
+
+    # no greedy step of the CPU run is a near tie within the logit tolerance
+    for p, n in zip(prompts, n_new):
+        cache = models.init_cache(cfg, 1, 64, device="cpu")
+        lg = cpu.prefill(torch.tensor([p]), cache)
+        for _ in range(n):
+            row = lg[0, :cfg.vocab_size].float()
+            top2 = row.topk(2).values
+            assert top2[0] - top2[1] > 2 * TOL["bfloat16"] * row.abs().max()
+            lg = cpu.decode_step(row.argmax().view(1).int(), cache)
+    want, cache_cpu = serve(cpu, "cpu")
+    assert [len(want[i]) for i in range(5)] == n_new
+    got, cache_gpu = serve(gpu, cuda)
+    assert got == want
+    # the refilled slots' K/V and positions too: at this init scale the
+    # greedy stream hardly depends on its context
+    assert cache_gpu["pos"].tolist() == cache_cpu["pos"].tolist()
+    for name in ("k", "v"):
+        assert rel_err(cache_gpu[name], cache_cpu[name]) < TOL["bfloat16"]

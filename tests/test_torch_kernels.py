@@ -1,0 +1,167 @@
+"""The port's kernel modules against the JAX package's kernels.
+
+On the CPU each op of ``repro_torch.kernels`` runs its plain PyTorch
+version; it is held against the JAX op on the same numpy inputs, with the
+Pallas kernel run in interpret mode as ``tests/test_kernels.py`` runs it, at
+that file's shapes and tolerances (bf16 2e-2, fp32 2e-5 relative to the
+largest output). Block sizes are left at the JAX ops' defaults: they change
+how the interpreter walks the grid, not the function. The hand-written
+kernels themselves are held against the plain versions on the card by
+``tests/test_torch_cuda.py`` (marked ``cuda``) and by ``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro import kernels as K
+from repro.models import layers as jax_layers
+import repro_torch.kernels as TK
+from repro_torch.kernels.decode_attention import ops as t_decode
+from repro_torch.kernels.flash_attention import ops as t_flash
+from repro_torch.kernels.gelu import ops as t_gelu
+from repro_torch.kernels.gelu.ref import silu_mul_ref
+from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.models import layers as t_layers
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-9))
+
+
+def tol(name):
+    return 2e-2 if name == "bfloat16" else 2e-5
+
+
+def both(x, name):
+    """One numpy float32 array as a JAX and a torch array of `name` dtype
+    (both round float32 to bf16 to nearest even: identical bits)."""
+    jdt, tdt = DTYPES[name]
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def t2np(t):
+    return t.float().numpy()
+
+
+def normal(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+# ---------------- rmsnorm ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(64, 256), (100, 512), (7, 1024)])
+def test_rmsnorm_plain_matches_jax(r, c, dtype):
+    jx, tx = both(normal(8, (r, c)), dtype)
+    g = normal(9, (c,))
+    want = K.rmsnorm.rmsnorm(jx, jnp.asarray(g))
+    got = t_rmsnorm.rmsnorm(tx, torch.from_numpy(g))
+    assert got.dtype == tx.dtype and got.shape == (r, c)
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+# ---------------- silu_mul ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_silu_mul_plain_matches_jax(dtype):
+    jg, tg = both(normal(13, (100, 256)), dtype)
+    ju, tu = both(normal(14, (100, 256)), dtype)
+    want = K.gelu.silu_mul(jg, ju)
+    got = t_gelu.silu_mul(tg, tu)
+    assert got.dtype == tg.dtype
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+# ---------------- flash attention ----------------
+
+FLASH_CASES = [
+    (4, 4, 128, 128, True, 0, 0.0),      # MHA causal
+    (8, 2, 130, 130, True, 0, 0.0),      # GQA, non-divisible seq
+    (4, 1, 64, 200, False, 0, 0.0),      # MQA cross-attn
+    (4, 2, 128, 128, True, 32, 0.0),     # local window
+    (4, 2, 96, 96, True, 0, 30.0),       # logit softcap
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,window,cap", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(hq, hkv, sq, sk, causal, window,
+                                           cap, dtype):
+    jq, tq = both(normal(1, (2, hq, sq, 64)), dtype)
+    jk, tk = both(normal(2, (2, hkv, sk, 64)), dtype)
+    jv, tv = both(normal(3, (2, hkv, sk, 64)), dtype)
+    want = K.flash_attention.flash_attention(jq, jk, jv, causal=causal,
+                                             window=window, softcap=cap)
+    got = t_flash.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                  softcap=cap)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_model_layout_matches_jax_layers(dtype):
+    """The model-layout (B, S, H, D) entry against the JAX model's chunked
+    attention, which the JAX model calls on its prefill path."""
+    jq, tq = both(normal(0, (2, 70, 4, 32)), dtype)
+    jk, tk = both(normal(1, (2, 70, 2, 32)), dtype)
+    jv, tv = both(normal(2, (2, 70, 2, 32)), dtype)
+    want = jax_layers.flash_attention(jq, jk, jv, causal=True, chunk_q=32,
+                                      chunk_k=32)
+    got = t_layers.flash_attention(tq, tk, tv, causal=True)
+    ref = t_layers.attention_reference(tq, tk, tv, causal=True)
+    assert got.shape == (2, 70, 4, 32)
+    assert rel_err(t2np(got), want) < tol(dtype)
+    assert rel_err(t2np(ref), want) < tol(dtype)
+
+
+# ---------------- decode attention ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hkv,g,t", [(2, 4, 128), (1, 8, 200), (4, 1, 64)])
+def test_decode_attention_plain_matches_jax(hkv, g, t, dtype):
+    B = 3
+    jq, tq = both(normal(5, (B, hkv, g, 64)), dtype)
+    jk, tk = both(normal(6, (B, t, hkv, 64)), dtype)
+    jv, tv = both(normal(7, (B, t, hkv, 64)), dtype)
+    lens = np.array([t, max(1, t // 2), max(1, t // 3)], np.int32)
+    want = K.decode_attention.decode_attention(jq, jk, jv, jnp.asarray(lens))
+    got = t_decode.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+# ---------------- dispatch ----------------
+
+def test_cpu_tensors_run_plain_and_count_no_launch():
+    TK.reset_launches()
+    x = torch.from_numpy(normal(0, (4, 32)))
+    g = torch.ones(32)
+    assert torch.equal(t_rmsnorm.rmsnorm(x, g), rmsnorm_ref(x, g))
+    assert torch.equal(t_gelu.silu_mul(x, x), silu_mul_ref(x, x))
+    assert TK.launches() == {name: 0 for name in TK.KERNELS}
+
+
+@pytest.mark.parametrize("name", sorted(TK.KERNELS))
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    """A wrapper never falls back to the plain version: a tensor it cannot
+    launch on is refused before anything is built."""
+    x = torch.zeros(2, 4, 8, 32)
+    args = {"rmsnorm": (x[0, 0], torch.ones(32)),
+            "silu_mul": (x, x),
+            "flash_attention": (x, x, x),
+            "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),
+                                 torch.full((2,), 8, dtype=torch.int32))}[name]
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.KERNELS[name](*args)
+
+
+def test_ops_refuse_other_devices():
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        t_rmsnorm.rmsnorm(torch.zeros(2, 8, device="meta"), torch.ones(8))

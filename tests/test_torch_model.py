@@ -1,0 +1,175 @@
+"""The port's dense model against the JAX model on the same weights.
+
+Weights come from the JAX package's ``init_params`` and cross into the port
+through ``params_from_jax`` (bf16 bit-exact). Tokens come from numpy. The
+logits of ``forward``, ``prefill`` and ``decode_step`` are compared teacher-
+forced, on the same tokens, as relative error to the largest logit below
+2e-2: both run in bf16, which rounds at other places in the two frameworks,
+and the port's SwiGLU gate rounds ``silu(g) * u`` to bf16 once where the JAX
+model rounds ``silu(g)`` and the product separately.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import models as jax_models
+from repro.configs import ARCHS as JAX_ARCHS, ModelConfig as JaxModelConfig
+from repro.configs import smoke_config as jax_smoke
+from repro.models import layers as jax_layers
+from repro_torch import models
+from repro_torch.configs import ARCHS, ModelConfig, get_config, smoke_config
+from repro_torch.models import layers as t_layers
+from repro_torch.models.lm import LM, padded_vocab
+
+DENSE = sorted(ARCHS)
+TOL = 2e-2
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-9))
+
+
+def t2np(t):
+    return t.float().numpy()
+
+
+def port_cfg(jax_cfg):
+    return ModelConfig(**dataclasses.asdict(jax_cfg))
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def pair(request):
+    """(jax cfg, jax params, port model) on the same weights."""
+    jcfg = jax_smoke(JAX_ARCHS[request.param])
+    jparams = jax_models.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = port_cfg(jcfg)
+    model = LM(cfg, device="cpu")
+    model.load_state_dict(models.params_from_jax(
+        cfg, jax.tree.map(np.asarray, jparams)))
+    return jcfg, jparams, model
+
+
+def tokens(cfg, B=2, S=16, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S),
+                                                dtype=np.int32)
+
+
+def test_port_config_matches_jax_config():
+    for arch in DENSE:
+        assert port_cfg(JAX_ARCHS[arch]) == get_config(arch)
+        assert port_cfg(jax_smoke(JAX_ARCHS[arch])) == smoke_config(get_config(arch))
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.25])
+def test_apply_rope_matches_jax(fraction):
+    """RoPE with full and partial rotary fractions, bit for bit: the same
+    fp32 products and sums, one rounding to bf16."""
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")),
+                              rope_fraction=fraction)
+    x = np.random.default_rng(4).standard_normal((2, 9, 4, 32)).astype(np.float32)
+    pos = np.tile(np.arange(3, 12, dtype=np.int32), (2, 1))
+    want = jax_layers.apply_rope(JaxModelConfig(**dataclasses.asdict(cfg)),
+                                 jax.numpy.asarray(x, jax.numpy.bfloat16), pos)
+    got = t_layers.apply_rope(cfg, torch.from_numpy(x).to(torch.bfloat16),
+                              torch.from_numpy(pos))
+    assert np.array_equal(t2np(got), np.asarray(want, np.float32))
+
+
+def test_forward_matches_jax(pair):
+    jcfg, jparams, model = pair
+    toks = tokens(jcfg)
+    want, _ = jax.jit(lambda p, t: jax_models.forward(jcfg, p, t))(jparams, toks)
+    got = model(torch.from_numpy(toks))
+    assert got.shape == (2, 16, padded_vocab(model.cfg))
+    V = jcfg.vocab_size
+    assert rel_err(t2np(got)[..., :V], np.asarray(want, np.float32)[..., :V]) < TOL
+    # padded vocab entries never win, in either framework
+    assert (t2np(got)[..., V:] < -1e29).all()
+
+
+def test_prefill_and_decode_match_jax(pair):
+    """Right-padded prompts of different lengths, then three teacher-forced
+    decode steps, against the JAX serving path."""
+    jcfg, jparams, model = pair
+    V = jcfg.vocab_size
+    toks = tokens(jcfg, B=3, S=12, seed=1)
+    lens = np.array([12, 7, 3], np.int32)
+    jcache = jax_models.init_cache(jcfg, 3, 32)
+    jl, jcache = jax.jit(lambda p, t, c, n: jax_models.prefill(
+        jcfg, p, t, c, prompt_lens=n))(jparams, toks, jcache, lens)
+    cache = models.init_cache(model.cfg, 3, 32, device="cpu")
+    tl = model.prefill(torch.from_numpy(toks), cache, torch.from_numpy(lens))
+    assert rel_err(t2np(tl)[:, :V], np.asarray(jl, np.float32)[:, :V]) < TOL
+    assert cache["pos"].tolist() == lens.tolist()
+    jdecode = jax.jit(lambda p, t, c: jax_models.decode_step(jcfg, p, t, c))
+    step_toks = tokens(jcfg, B=3, S=3, seed=2)
+    for s in range(3):
+        jl, jcache = jdecode(jparams, step_toks[:, s], jcache)
+        tl = model.decode_step(torch.from_numpy(step_toks[:, s]), cache)
+        assert rel_err(t2np(tl)[:, :V], np.asarray(jl, np.float32)[:, :V]) < TOL
+    assert cache["pos"].tolist() == (lens + 3).tolist()
+    # the port's K/V cache holds what the JAX cache holds
+    jk = np.asarray(jcache["units"]["u0"]["k"], np.float32)   # (L, B, T, Hkv*dh)
+    assert rel_err(t2np(cache["k"]), jk) < TOL
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_decode_matches_forward(arch):
+    """Mirror of test_models_smoke.py::test_prefill_decode_matches_forward
+    on the port alone: the cached serving path agrees with teacher-forced
+    forward logits."""
+    cfg = smoke_config(get_config(arch))
+    model = models.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(tokens(cfg, B=2, S=16))
+    logits = model(toks)
+    cache = models.init_cache(cfg, 2, 32, device="cpu")
+    lg1 = model.prefill(toks[:, :-1], cache)
+    V = cfg.vocab_size
+    assert rel_err(t2np(lg1)[:, :V], t2np(logits[:, -2, :V])) < 0.05
+    lg2 = model.decode_step(toks[:, -1], cache)
+    assert rel_err(t2np(lg2)[:, :V], t2np(logits[:, -1, :V])) < 0.07
+
+
+def test_param_count_matches_config_at_full_width():
+    """qwen3-1.7b at full width, shapes only (meta device): the port's
+    parameters are the config's accounting plus the vocab padding."""
+    cfg = get_config("qwen3-1.7b")
+    model = models.init_params(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    pad = padded_vocab(cfg) - cfg.vocab_size
+    assert n - pad * cfg.d_model == cfg.param_count()
+    assert all(p.device.type == "meta" for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch,field", [
+    ("stablelm-1.6b", "norm"),
+    ("granite-moe-3b-a800m", "family"),
+    ("rwkv6-7b", "family"),
+    ("recurrentgemma-2b", "family"),
+    ("whisper-tiny", "family"),
+    ("gpt3-175b", "norm"),
+])
+def test_configs_outside_the_slice_raise(arch, field):
+    from repro.configs import get_config as jax_get_config
+    cfg = smoke_config(port_cfg(jax_get_config(arch)))
+    with pytest.raises(NotImplementedError, match=field):
+        models.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change,field", [
+    ({"n_experts": 4, "top_k": 2}, "n_experts"),
+    ({"attn_window": 64}, "attn_window"),
+    ({"attn_logit_softcap": 30.0}, "attn_logit_softcap"),
+    ({"rope_fraction": 0.0}, "rope_fraction"),
+    ({"mlp_gated": False}, "mlp_gated"),
+    ({"activation": "gelu"}, "activation"),
+])
+def test_dense_fields_outside_the_slice_raise(change, field):
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), **change)
+    with pytest.raises(NotImplementedError, match=field):
+        models.init_cache(cfg, 1, 8, device="cpu")
