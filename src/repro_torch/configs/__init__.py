@@ -1,25 +1,35 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> ModelConfig.
 
-Only the dense rmsnorm/SwiGLU configs the port runs are registered here.
+Only the dense configs the port runs are registered here: the rmsnorm/SwiGLU
+qwen family, stablelm (LayerNorm, partial RoPE) and, outside ``ARCHS`` as in
+the JAX registry, the paper's own gpt3-175b (LayerNorm, tanh-GELU MLP,
+sinusoidal positions).
 """
 from .base import ModelConfig, smoke_config
 
 from .qwen1_5_0_5b import CONFIG as _qwen15
 from .qwen2_0_5b import CONFIG as _qwen2
+from .stablelm_1_6b import CONFIG as _stablelm
 from .qwen3_1_7b import CONFIG as _qwen3
+from .gpt3_175b import CONFIG as _gpt3
 
 ARCHS = {
     "qwen1.5-0.5b": _qwen15,
     "qwen2-0.5b": _qwen2,
+    "stablelm-1.6b": _stablelm,
     "qwen3-1.7b": _qwen3,
 }
 
+# the paper's own model: selectable, but not one of the assigned archs
+EXTRA_ARCHS = {"gpt3-175b": _gpt3}
+
 
 def get_config(arch: str) -> ModelConfig:
-    cfg = ARCHS.get(arch)
+    cfg = ARCHS.get(arch) or EXTRA_ARCHS.get(arch)
     if cfg is None:
-        raise KeyError(f"unknown arch '{arch}'; have {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch '{arch}'; have "
+                       f"{sorted(ARCHS) + sorted(EXTRA_ARCHS)}")
     return cfg
 
 
-__all__ = ["ModelConfig", "ARCHS", "get_config", "smoke_config"]
+__all__ = ["ModelConfig", "ARCHS", "EXTRA_ARCHS", "get_config", "smoke_config"]

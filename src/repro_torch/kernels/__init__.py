@@ -6,12 +6,14 @@ CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 """
 from .decode_attention.kernel import decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda
-from .gelu.kernel import silu_mul_triton
-from .rmsnorm.kernel import rmsnorm_triton
+from .gelu.kernel import gelu_triton, silu_mul_triton
+from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {
     "rmsnorm": rmsnorm_triton,
+    "layernorm": layernorm_triton,
+    "gelu": gelu_triton,
     "silu_mul": silu_mul_triton,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,

@@ -5,8 +5,15 @@ from __future__ import annotations
 import torch
 
 from ...device import runs_plain
-from .kernel import silu_mul_triton
-from .ref import silu_mul_ref
+from .kernel import gelu_triton, silu_mul_triton
+from .ref import gelu_ref, silu_mul_ref
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximation GELU, computed in fp32, one rounding."""
+    if runs_plain(x):
+        return gelu_ref(x)
+    return gelu_triton(x)
 
 
 def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,12 @@
         --preset full --requests 16 --batch 8
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, from
-a seeded ``torch.Generator``. (The JAX launcher's planner report needs the
-analytical stack, which the port has no copy of yet.)
+a seeded ``torch.Generator``. ``--arch`` takes the ids of ``ARCHS`` and of
+``EXTRA_ARCHS`` (gpt3-175b), resolved through ``get_config`` as the JAX
+launcher resolves them; ``--layers`` cuts the depth (gpt3-175b's 96 layers,
+350 GB of bf16 weights, do not fit one 80 GB card; 8 layers do). (The JAX
+launcher's planner report needs the analytical stack, which the port has no
+copy of yet.)
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import argparse
 import time
 from dataclasses import replace
 
-from ..configs import ARCHS, ModelConfig, get_config, smoke_config
+from ..configs import ARCHS, EXTRA_ARCHS, ModelConfig, get_config, smoke_config
 from ..device import resolve_device
 from ..models import init_params
 from ..serving import Engine, Request, SamplingParams
@@ -36,9 +40,12 @@ def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=sorted(ARCHS) + sorted(EXTRA_ARCHS))
     ap.add_argument("--preset", choices=["tiny", "m100", "full"],
                     default="tiny")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the preset's depth to this many layers")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -50,6 +57,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = preset_config(get_config(args.arch), args.preset)
+    if args.layers is not None:
+        cfg = replace(cfg, name=f"{cfg.name}-{args.layers}l", n_layers=args.layers)
     params = init_params(cfg, seed=0, device=device)
     eng = Engine(cfg, params, batch_size=args.batch, max_len=args.max_len,
                  device=device)

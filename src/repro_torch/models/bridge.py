@@ -9,6 +9,11 @@ config:
     ``params["units"]["u0"]`` has a leading n_layers axis; dense configs have
     a one-layer unit and no remainder layers) is unstacked along axis 0 into
     ``blocks.<i>.*``;
+  * every leaf crosses under its JAX key: a LayerNorm's ``scale`` and
+    ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's ``scale``, a
+    gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain one's ``w_up``,
+    ``w_down``; ``LM.load_state_dict`` (strict) refuses a leaf too many or
+    too few;
   * weights keep JAX's (in, out) orientation: the port computes ``x @ w`` as
     the JAX model does, so nothing is transposed;
   * bfloat16 crosses bit-exactly: numpy holds it as the ``bfloat16`` dtype of
@@ -37,8 +42,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     check_supported(cfg)
     if tree.get("rem"):
         raise ValueError("a dense config's JAX tree has no remainder layers")
-    sd = {"embed": to_tensor(tree["embed"]),
-          "final_norm.scale": to_tensor(tree["final_norm"]["scale"])}
+    sd = {"embed": to_tensor(tree["embed"])}
+    for name, leaf in tree["final_norm"].items():
+        sd[f"final_norm.{name}"] = to_tensor(leaf)
     if not cfg.tie_embeddings:
         sd["head"] = to_tensor(tree["head"])
     unit = tree["units"]["u0"]

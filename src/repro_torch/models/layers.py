@@ -6,10 +6,10 @@ Conventions, as in the JAX package:
   * weights keep JAX's (in, out) orientation, so a projection is ``x @ w``;
   * activations bf16, reductions and normalisers fp32.
 
-The norms, the SwiGLU gate and attention go through the kernel ops, which
-launch the Hopper kernels for CUDA tensors and run their plain versions for
-CPU tensors. Projections stay ``torch.matmul``, as the JAX package leaves
-them to XLA.
+The norms, the MLP activations and attention go through the kernel ops,
+which launch the Hopper kernels for CUDA tensors and run their plain
+versions for CPU tensors. Projections stay ``torch.matmul``, as the JAX
+package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention as _flash_op
 from ..kernels.flash_attention.ref import NEG_INF, attention_ref
-from ..kernels.gelu.ops import silu_mul
-from ..kernels.rmsnorm.ops import rmsnorm
+from ..kernels.gelu.ops import gelu, silu_mul
+from ..kernels.rmsnorm.ops import layernorm, rmsnorm
 
 Params = nn.ParameterDict
 
@@ -52,12 +52,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return rmsnorm(x.reshape(-1, shape[-1]), scale, eps=eps).reshape(shape)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, any leading shape, through the kernel op."""
+    shape = x.shape
+    return layernorm(x.reshape(-1, shape[-1]), scale, bias, eps=eps).reshape(shape)
+
+
 def norm_init(cfg: ModelConfig, device=None) -> Params:
-    return Params({"scale": _param(torch.ones(cfg.d_model, dtype=torch.float32,
-                                              device=device))})
+    """fp32 ``scale`` (ones), and for LayerNorm an fp32 ``bias`` (zeros)."""
+    p = Params({"scale": _param(torch.ones(cfg.d_model, dtype=torch.float32,
+                                           device=device))})
+    if cfg.norm == "layernorm":
+        p["bias"] = _param(torch.zeros(cfg.d_model, dtype=torch.float32,
+                                       device=device))
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
 
 
@@ -101,6 +115,21 @@ def rotate(x: torch.Tensor, tables) -> torch.Tensor:
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """x: (..., seq, heads, d_head); positions: (..., seq)."""
     return rotate(x, rope_tables(cfg, positions))
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """fp32 sinusoidal embeddings (..., d) of integer positions (...): sin at
+    the even dims, cos at the odd ones, of ``pos / 10000^(2i/d)``. The JAX
+    ``sinusoidal_positions(seq, d, offset)`` is this at positions
+    offset..offset+seq-1, and its decode step builds the same rows at each
+    sequence's own position."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
+    ang = positions[..., None].float() / torch.pow(10000.0, dim / d)
+    out = torch.empty(positions.shape + (d,), dtype=torch.float32,
+                      device=positions.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang[..., : d // 2])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -179,28 +208,38 @@ def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# gated SiLU MLP
+# MLP: gated SiLU or plain tanh-GELU
 # ---------------------------------------------------------------------------
 
 def mlp_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> Params:
+    """``w_up`` and ``w_down``, and ``w_gate`` for a gated MLP only."""
     d, f = cfg.d_model, cfg.d_ff
-    return Params({
+    p = Params({
         "w_up": _init(gen, (d, f), device=device),
         "w_down": _init(gen, (f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers),
                         device=device),
-        "w_gate": _init(gen, (d, f), device=device),
     })
+    if cfg.mlp_gated:
+        p["w_gate"] = _init(gen, (d, f), device=device)
+    return p
 
 
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x @ w_gate) * (x @ w_up) through the fused gate op, which
-    rounds once to bf16 where the JAX model rounds silu and the product
-    separately; model-level tolerances allow for that."""
-    return silu_mul(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+    """Gated: SwiGLU ``silu(x @ w_gate) * (x @ w_up)`` through the fused gate
+    op. Plain: ``gelu(x @ w_up)`` through the tanh-GELU op (the JAX
+    ``_act`` arm of gpt3; the port runs no other plain activation). Both ops
+    compute in fp32 and round once to bf16, where the JAX model computes the
+    activation and the product on bf16 tensors; model-level tolerances allow
+    for that."""
+    if cfg.mlp_gated:
+        h = silu_mul(x @ p["w_gate"], x @ p["w_up"])
+    else:
+        h = gelu(x @ p["w_up"])
+    return h @ p["w_down"]
 
 
-__all__ = ["NEG_INF", "Params", "rms_norm", "norm_init", "apply_norm",
-           "rope_frequencies", "rope_tables", "rotate", "apply_rope",
-           "flash_attention",
+__all__ = ["NEG_INF", "Params", "rms_norm", "layer_norm", "norm_init",
+           "apply_norm", "rope_frequencies", "rope_tables", "rotate",
+           "apply_rope", "sinusoidal_positions", "flash_attention",
            "attention_reference", "attn_init", "attn_qkv", "attn_out",
            "mlp_init", "mlp_apply"]

@@ -13,8 +13,11 @@ The KV cache is a dict of tensors updated IN PLACE by ``prefill`` and
 fused (n_layers, B, T, Hkv*dh) bf16 and ``pos`` (B,) int32 holds each
 sequence's next position (continuous batching).
 
-Only dense rmsnorm/SwiGLU configs with full causal RoPE attention are
-ported; any other config raises NotImplementedError naming the field.
+Ported: dense decoders with full causal attention, RMSNorm or LayerNorm,
+a SwiGLU MLP or a plain tanh-GELU one, and full, partial (stablelm) or no
+RoPE; with no RoPE (gpt3) sinusoidal positions are added to the embeddings,
+as the JAX model adds them. Any other config raises NotImplementedError
+naming the field.
 """
 from __future__ import annotations
 
@@ -30,21 +33,21 @@ from . import layers as L
 
 VOCAB_PAD = 256      # embeddings padded as in the JAX package
 
-# (field, test of a value the port runs) for every config field of the slice
+# (field, test that the port runs the config's value of it) for every
+# config field of the ported slices
 _SUPPORTED = (
-    ("family", lambda v: v == "dense"),
-    ("n_experts", lambda v: v == 0),
-    ("block_pattern", lambda v: not v),
-    ("cross_attention", lambda v: not v),
-    ("n_encoder_layers", lambda v: v == 0),
-    ("cross_attn_layers", lambda v: not v),
-    ("n_frontend_tokens", lambda v: v == 0),
-    ("norm", lambda v: v == "rmsnorm"),
-    ("activation", lambda v: v == "silu"),
-    ("mlp_gated", lambda v: v),
-    ("rope_fraction", lambda v: v > 0),
-    ("attn_window", lambda v: v == 0),
-    ("attn_logit_softcap", lambda v: v == 0),
+    ("family", lambda c: c.family == "dense"),
+    ("n_experts", lambda c: c.n_experts == 0),
+    ("block_pattern", lambda c: not c.block_pattern),
+    ("cross_attention", lambda c: not c.cross_attention),
+    ("n_encoder_layers", lambda c: c.n_encoder_layers == 0),
+    ("cross_attn_layers", lambda c: not c.cross_attn_layers),
+    ("n_frontend_tokens", lambda c: c.n_frontend_tokens == 0),
+    ("norm", lambda c: c.norm in ("rmsnorm", "layernorm")),
+    # a gated MLP runs the SwiGLU gate kernel, a plain one the GELU kernel
+    ("activation", lambda c: c.activation == ("silu" if c.mlp_gated else "gelu")),
+    ("attn_window", lambda c: c.attn_window == 0),
+    ("attn_logit_softcap", lambda c: c.attn_logit_softcap == 0),
 )
 
 
@@ -52,11 +55,11 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first config field the port
     does not run yet."""
     for field, ok in _SUPPORTED:
-        value = getattr(cfg, field)
-        if not ok(value):
+        if not ok(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: {field}={value!r} is not ported to repro_torch "
-                f"yet (dense rmsnorm/SwiGLU decoders only)")
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
+                f"to repro_torch yet (dense decoders with full causal "
+                f"attention and a SwiGLU or a plain GELU MLP)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -72,7 +75,7 @@ def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+    """One pre-norm decoder layer: attention then MLP."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
         super().__init__()
@@ -105,6 +108,14 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
 
+    def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Token embeddings, plus the sinusoidal table at `positions` (its
+        fp32 rows rounded to bf16, then added) for a config without RoPE."""
+        x = self.embed[tokens]
+        if self.cfg.rope_fraction == 0.0:
+            x = x + L.sinusoidal_positions(positions, self.cfg.d_model).to(x.dtype)
+        return x
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.apply_norm(self.cfg, self.final_norm, x)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
@@ -116,8 +127,9 @@ class LM(nn.Module):
         returns the MoE aux loss, which is 0 for the dense path.)"""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens]
-        rope = L.rope_tables(cfg, torch.arange(S, device=x.device).expand(B, S))
+        positions = torch.arange(S, device=tokens.device)
+        x = self._embed(tokens, positions)
+        rope = L.rope_tables(cfg, positions.expand(B, S))
         for blk in self.blocks:
             h = L.apply_norm(cfg, blk.ln1, x)
             q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
@@ -139,8 +151,9 @@ class LM(nn.Module):
                              f"{cache['k'].shape[2]}")
         if prompt_lens is None:
             prompt_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-        x = self.embed[tokens]
-        rope = L.rope_tables(cfg, torch.arange(S, device=x.device).expand(B, S))
+        positions = torch.arange(S, device=tokens.device)
+        x = self._embed(tokens, positions)
+        rope = L.rope_tables(cfg, positions.expand(B, S))
         for i, blk in enumerate(self.blocks):
             h = L.apply_norm(cfg, blk.ln1, x)
             q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
@@ -162,8 +175,8 @@ class LM(nn.Module):
         B = token.shape[0]
         hkv, dh = cfg.n_kv_heads, cfg.d_head
         T = cache["k"].shape[2]
-        x = self.embed[token][:, None, :]
         pos = cache["pos"]
+        x = self._embed(token, pos)[:, None, :]
         rope = L.rope_tables(cfg, pos.view(B, 1))
         bidx = torch.arange(B, device=x.device)
         # a write past the cache's end is dropped, as JAX's scatter drops it

@@ -10,7 +10,10 @@ port is installed:
 against its plain PyTorch version on the same card tensors, and the model's
 kernel path against its plain path on the CPU, at the kernel tests'
 tolerances: relative error to the largest output below 2e-2 in bf16 and
-2e-5 in fp32.
+2e-5 in fp32. In bf16 each kernel is also held element by element: the
+Triton kernels within one bf16 rounding, the attention kernels within
+2^-6 |b| + 2^-5 of the rms of b's row (the bound ``chip_smoke.py`` derives
+in ``attention_excess``).
 """
 import dataclasses
 
@@ -20,11 +23,11 @@ import torch
 
 import repro_torch.kernels as TK
 from repro_torch import models
-from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gelu.ref import silu_mul_ref
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.models.lm import LM
 from repro_torch.serving import Engine, Request
 
@@ -47,6 +50,13 @@ def rel_err(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-9)).item()
 
 
+def attention_excess(a, b):
+    """Largest |a - b| / (2^-6 |b| + 2^-5 rms(b's row over D)); <= 1 passes."""
+    a, b = a.float().cpu(), b.float().cpu()
+    rms = b.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((a - b).abs() / (2.0 ** -6 * b.abs() + 2.0 ** -5 * rms)).max().item()
+
+
 def normal(seed, shape, device, dtype):
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     return torch.from_numpy(x).to(device, dtype)
@@ -58,6 +68,11 @@ def kernel_case(name, device, dtype):
         return normal(seed, shape, device, dtype)
     if name == "rmsnorm":
         return (t(0, (100, 512)), t(1, (512,)).float()), rmsnorm_ref
+    if name == "layernorm":
+        return (t(0, (90, 384)) * 3 + 1, t(1, (384,)).float(),
+                t(2, (384,)).float()), layernorm_ref
+    if name == "gelu":
+        return (t(0, (100, 256)) * 4,), gelu_ref
     if name == "silu_mul":
         return (t(0, (100, 256)), t(1, (100, 256))), silu_mul_ref
     if name == "flash_attention":
@@ -79,10 +94,51 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype):
     want = plain(*args)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert rel_err(got, want) < TOL[dtype]
-    if name in ("rmsnorm", "silu_mul") and dtype == "bfloat16":
+    if name in ("rmsnorm", "layernorm", "gelu", "silu_mul") and dtype == "bfloat16":
         # one rounding apart at most, element by element
         g, w = got.float(), want.float()
         assert ((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-3).all()
+    if name in ("flash_attention", "decode_attention") and dtype == "bfloat16":
+        assert attention_excess(got, want) <= 1
+
+
+# (query heads, kv-heads, d_head) of the served models
+SERVED_HEADS = {"qwen3-1.7b": (16, 8, 128), "stablelm-1.6b": (32, 32, 64),
+                "gpt3-175b": (96, 96, 128)}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_HEADS))
+def test_attention_served_head_layouts_on_card(cuda, arch):
+    """Flash (causal, 384 tokens) and decode (mixed cache lengths) attention
+    in bf16 at each served model's head layout, element by element."""
+    hq, hkv, d = SERVED_HEADS[arch]
+    q = normal(0, (2, hq, 384, d), cuda, torch.bfloat16)
+    k = normal(1, (2, hkv, 384, d), cuda, torch.bfloat16)
+    v = normal(2, (2, hkv, 384, d), cuda, torch.bfloat16)
+    got = TK.KERNELS["flash_attention"](q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert attention_excess(got, want) <= 1
+    qd = normal(3, (3, hkv, hq // hkv, d), cuda, torch.bfloat16)
+    kd = normal(4, (3, 640, hkv, d), cuda, torch.bfloat16)
+    vd = normal(5, (3, 640, hkv, d), cuda, torch.bfloat16)
+    lens = torch.tensor([640, 333, 129], dtype=torch.int32, device=cuda)
+    got = TK.KERNELS["decode_attention"](qd, kd, vd, lens)
+    want = decode_attention_ref(qd, kd, vd, lens)
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert attention_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(5, 12288), (3, 10000)])
+def test_layernorm_wide_rows_on_card(cuda, r, c, dtype):
+    """Rows wider than one chunk (gpt3's 12288, and a ragged last chunk),
+    off zero mean, against the plain version."""
+    x = normal(0, (r, c), cuda, DTYPES[dtype]) * 3 + 50
+    g, b = normal(1, (c,), cuda, torch.float32), normal(2, (c,), cuda, torch.float32)
+    got = TK.KERNELS["layernorm"](x, g, b)
+    want = layernorm_ref(x, g, b)
+    assert got.dtype == x.dtype and rel_err(got, want) < TOL[dtype]
 
 
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (32, 0.0), (0, 30.0)])
@@ -100,7 +156,7 @@ def test_flash_attention_model_layout_views_on_card(cuda, window, cap):
     assert rel_err(got, want) < TOL["bfloat16"]
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(ARCHS) + sorted(EXTRA_ARCHS))
 def test_model_on_card_matches_cpu(cuda, arch):
     """Forward, prefill and decode logits of the kernel path on the card
     against the plain path on the CPU, on the same weights."""
@@ -133,12 +189,33 @@ def test_launches_per_step_on_card(cuda):
     toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     TK.reset_launches()
     model.prefill(toks, cache)
-    assert TK.launches() == {"rmsnorm": 13, "silu_mul": 3, "flash_attention": 3,
+    assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
+                             "silu_mul": 3, "flash_attention": 3,
                              "decode_attention": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
-    assert TK.launches() == {"rmsnorm": 13, "silu_mul": 3, "flash_attention": 0,
+    assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
+                             "silu_mul": 3, "flash_attention": 0,
                              "decode_attention": 3}
+
+
+@pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
+                                       ("gpt3-175b", "gelu")])
+def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
+    """2L+1 LayerNorms and L MLP activations per step, no RMSNorm."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), n_layers=3)
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    other = ({"gelu", "silu_mul"} - {gate}).pop()
+    TK.reset_launches()
+    model.prefill(toks, cache)
+    assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
+                             "flash_attention": 3, "decode_attention": 0}
+    TK.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
+                             "flash_attention": 0, "decode_attention": 3}
 
 
 def test_engine_on_card_matches_cpu(cuda):

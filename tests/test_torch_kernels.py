@@ -20,9 +20,9 @@ import repro_torch.kernels as TK
 from repro_torch.kernels.decode_attention import ops as t_decode
 from repro_torch.kernels.flash_attention import ops as t_flash
 from repro_torch.kernels.gelu import ops as t_gelu
-from repro_torch.kernels.gelu.ref import silu_mul_ref
+from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.models import layers as t_layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -65,6 +65,46 @@ def test_rmsnorm_plain_matches_jax(r, c, dtype):
     got = t_rmsnorm.rmsnorm(tx, torch.from_numpy(g))
     assert got.dtype == tx.dtype and got.shape == (r, c)
     assert rel_err(t2np(got), want) < tol(dtype)
+
+
+# ---------------- layernorm ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(90, 384), (64, 256), (7, 1024)])
+def test_layernorm_plain_matches_jax(r, c, dtype):
+    """Rows off zero mean (the mean must come out before the variance) with
+    a gain and bias far from 1 and 0."""
+    jx, tx = both(normal(10, (r, c)) * 3.0 + 1.5, dtype)
+    g = normal(11, (c,)) * 2.0
+    b = normal(12, (c,))
+    want = K.rmsnorm.layernorm(jx, jnp.asarray(g), jnp.asarray(b))
+    got = t_rmsnorm.layernorm(tx, torch.from_numpy(g), torch.from_numpy(b))
+    assert got.dtype == tx.dtype and got.shape == (r, c)
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+# ---------------- gelu ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(90, 384), (64, 256), (7, 1024)])
+def test_gelu_plain_matches_jax(r, c, dtype):
+    jx, tx = both(normal(15, (r, c)) * 2.0, dtype)
+    want = K.gelu.gelu(jx)
+    got = t_gelu.gelu(tx)
+    assert got.dtype == tx.dtype and got.shape == (r, c)
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gelu_plain_matches_jax_where_tanh_saturates(dtype):
+    """|x| up to 20: tanh is +-1 to fp32 precision and GELU is x or 0."""
+    x = np.linspace(-20.0, 20.0, 64 * 128, dtype=np.float32).reshape(64, 128)
+    jx, tx = both(x, dtype)
+    want = np.asarray(K.gelu.gelu(jx), np.float32)
+    got = t2np(t_gelu.gelu(tx))
+    assert rel_err(got, want) < tol(dtype)
+    assert np.array_equal(got[x >= 6.0], t2np(tx)[x >= 6.0])
+    assert np.abs(got[x <= -6.0]).max() < 1e-6
 
 
 # ---------------- silu_mul ----------------
@@ -145,6 +185,8 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
     g = torch.ones(32)
     assert torch.equal(t_rmsnorm.rmsnorm(x, g), rmsnorm_ref(x, g))
     assert torch.equal(t_gelu.silu_mul(x, x), silu_mul_ref(x, x))
+    assert torch.equal(t_rmsnorm.layernorm(x, g, g), layernorm_ref(x, g, g))
+    assert torch.equal(t_gelu.gelu(x), gelu_ref(x))
     assert TK.launches() == {name: 0 for name in TK.KERNELS}
 
 
@@ -154,6 +196,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     launch on is refused before anything is built."""
     x = torch.zeros(2, 4, 8, 32)
     args = {"rmsnorm": (x[0, 0], torch.ones(32)),
+            "layernorm": (x[0, 0], torch.ones(32), torch.zeros(32)),
+            "gelu": (x,),
             "silu_mul": (x, x),
             "flash_attention": (x, x, x),
             "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),

@@ -4,9 +4,11 @@ Weights come from the JAX package's ``init_params`` and cross into the port
 through ``params_from_jax`` (bf16 bit-exact). Tokens come from numpy. The
 logits of ``forward``, ``prefill`` and ``decode_step`` are compared teacher-
 forced, on the same tokens, as relative error to the largest logit below
-2e-2: both run in bf16, which rounds at other places in the two frameworks,
-and the port's SwiGLU gate rounds ``silu(g) * u`` to bf16 once where the JAX
-model rounds ``silu(g)`` and the product separately.
+2e-2: both run in bf16, which rounds at other places in the two frameworks;
+the port's SwiGLU gate rounds ``silu(g) * u`` to bf16 once where the JAX
+model rounds ``silu(g)`` and the product separately, and its tanh-GELU
+computes in fp32 and rounds once where the JAX model computes
+``jax.nn.gelu(approximate=True)`` on a bf16 tensor.
 """
 import dataclasses
 
@@ -16,15 +18,17 @@ import pytest
 import torch
 
 from repro import models as jax_models
-from repro.configs import ARCHS as JAX_ARCHS, ModelConfig as JaxModelConfig
+from repro.configs import ModelConfig as JaxModelConfig
+from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke
 from repro.models import layers as jax_layers
 from repro_torch import models
-from repro_torch.configs import ARCHS, ModelConfig, get_config, smoke_config
+from repro_torch.configs import (ARCHS, EXTRA_ARCHS, ModelConfig, get_config,
+                                  smoke_config)
 from repro_torch.models import layers as t_layers
 from repro_torch.models.lm import LM, padded_vocab
 
-DENSE = sorted(ARCHS)
+DENSE = sorted(ARCHS) + sorted(EXTRA_ARCHS)
 TOL = 2e-2
 
 
@@ -45,7 +49,7 @@ def port_cfg(jax_cfg):
 @pytest.fixture(scope="module", params=DENSE)
 def pair(request):
     """(jax cfg, jax params, port model) on the same weights."""
-    jcfg = jax_smoke(JAX_ARCHS[request.param])
+    jcfg = jax_smoke(jax_get_config(request.param))
     jparams = jax_models.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = port_cfg(jcfg)
     model = LM(cfg, device="cpu")
@@ -61,8 +65,8 @@ def tokens(cfg, B=2, S=16, seed=0):
 
 def test_port_config_matches_jax_config():
     for arch in DENSE:
-        assert port_cfg(JAX_ARCHS[arch]) == get_config(arch)
-        assert port_cfg(jax_smoke(JAX_ARCHS[arch])) == smoke_config(get_config(arch))
+        assert port_cfg(jax_get_config(arch)) == get_config(arch)
+        assert port_cfg(jax_smoke(jax_get_config(arch))) == smoke_config(get_config(arch))
 
 
 @pytest.mark.parametrize("fraction", [1.0, 0.25])
@@ -78,6 +82,32 @@ def test_apply_rope_matches_jax(fraction):
     got = t_layers.apply_rope(cfg, torch.from_numpy(x).to(torch.bfloat16),
                               torch.from_numpy(pos))
     assert np.array_equal(t2np(got), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("offset", [0, 37])
+def test_sinusoidal_positions_match_jax(offset):
+    """The table the port adds to gpt3's embeddings, against the JAX one,
+    to fp32 rounding of sin and cos (two libraries' sin and cos)."""
+    want = np.asarray(jax_layers.sinusoidal_positions(20, 128, offset), np.float32)
+    got = t_layers.sinusoidal_positions(torch.arange(offset, offset + 20), 128)
+    assert got.dtype == torch.float32 and got.shape == (20, 128)
+    assert np.abs(t2np(got) - want).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_jax_layers(dtype):
+    """The model's LayerNorm (any leading shape) against the JAX model's."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 9, 128)) * 3 + 1).astype(np.float32)
+    g = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    jdt, tdt = {"float32": (jax.numpy.float32, torch.float32),
+                "bfloat16": (jax.numpy.bfloat16, torch.bfloat16)}[dtype]
+    want = jax_layers.layer_norm(jax.numpy.asarray(x, jdt), g, b)
+    got = t_layers.layer_norm(torch.from_numpy(x).to(tdt), torch.from_numpy(g),
+                              torch.from_numpy(b))
+    assert got.shape == (2, 9, 128) and got.dtype == tdt
+    assert rel_err(t2np(got), want) < (2e-2 if dtype == "bfloat16" else 2e-5)
 
 
 def test_forward_matches_jax(pair):
@@ -146,16 +176,32 @@ def test_param_count_matches_config_at_full_width():
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
+@pytest.mark.parametrize("arch,n_config", [("stablelm-1.6b", 1_644_365_824),
+                                            ("gpt3-175b", 175_189_561_344)])
+def test_layernorm_param_counts_at_full_size(arch, n_config):
+    """stablelm-1.6b and gpt3-175b at full size, shapes only (meta device):
+    the config's accounting, plus the vocab padding of the embedding (and of
+    the untied head), plus the final LayerNorm's bias, which the accounting
+    leaves out (it counts d_model for the final norm)."""
+    cfg = get_config(arch)
+    assert cfg.param_count() == n_config
+    model = models.init_params(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    pad = padded_vocab(cfg) - cfg.vocab_size
+    n_heads_padded = 1 if cfg.tie_embeddings else 2
+    assert n == n_config + pad * cfg.d_model * n_heads_padded + cfg.d_model
+    assert set(model.final_norm) == {"scale", "bias"}
+    assert ("w_gate" in model.blocks[0].mlp) == cfg.mlp_gated
+
+
 @pytest.mark.parametrize("arch,field", [
-    ("stablelm-1.6b", "norm"),
     ("granite-moe-3b-a800m", "family"),
     ("rwkv6-7b", "family"),
     ("recurrentgemma-2b", "family"),
     ("whisper-tiny", "family"),
-    ("gpt3-175b", "norm"),
+    ("llama-3.2-vision-11b", "family"),
 ])
 def test_configs_outside_the_slice_raise(arch, field):
-    from repro.configs import get_config as jax_get_config
     cfg = smoke_config(port_cfg(jax_get_config(arch)))
     with pytest.raises(NotImplementedError, match=field):
         models.init_params(cfg, device="cpu")
@@ -165,9 +211,10 @@ def test_configs_outside_the_slice_raise(arch, field):
     ({"n_experts": 4, "top_k": 2}, "n_experts"),
     ({"attn_window": 64}, "attn_window"),
     ({"attn_logit_softcap": 30.0}, "attn_logit_softcap"),
-    ({"rope_fraction": 0.0}, "rope_fraction"),
-    ({"mlp_gated": False}, "mlp_gated"),
-    ({"activation": "gelu"}, "activation"),
+    ({"activation": "relu"}, "activation"),
+    ({"mlp_gated": False, "activation": "relu"}, "activation"),
+    ({"norm": "layernorm", "attn_window": 128}, "attn_window"),
+    ({"norm": "scalenorm"}, "norm"),
 ])
 def test_dense_fields_outside_the_slice_raise(change, field):
     cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), **change)

@@ -109,6 +109,15 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert len(done) == 3 and all(len(r.output) == 3 for r in done)
 
 
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gpt3-175b"])
+def test_launcher_serves_the_layernorm_archs_on_cpu(arch):
+    """``--arch`` resolves through ``get_config``, gpt3-175b (outside
+    ``ARCHS``) included; ``--layers`` cuts the depth."""
+    done = serve.main(["--arch", arch, "--requests", "3", "--batch", "2",
+                       "--max-new", "3", "--layers", "1", "--device", "cpu"])
+    assert len(done) == 3 and all(len(r.output) == 3 for r in done)
+
+
 def test_engine_refuses_a_model_on_another_device():
     cfg = smoke_config(get_config("qwen3-1.7b"))
     model = models.init_params(cfg, device="meta")

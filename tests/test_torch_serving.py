@@ -20,26 +20,33 @@ import pytest
 import torch
 
 from repro import models as jax_models
-from repro.configs import ARCHS as JAX_ARCHS, smoke_config as jax_smoke
+from repro.configs import get_config as jax_get_config, smoke_config as jax_smoke
 from repro.serving import Engine as JaxEngine, Request as JaxRequest
 from repro_torch import models
 from repro_torch.configs import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.serving import engine as engine_mod
 from repro_torch.serving import (Engine, Request, SamplingParams, sample,
                                  sample_per_request)
 
 TOL = 2e-2
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke(JAX_ARCHS["qwen3-1.7b"])
+def _pair(arch):
+    """(jax cfg, jax params, port cfg, port model) of the smoke config of
+    `arch` on the same weights."""
+    jcfg = jax_smoke(jax_get_config(arch))
     jparams = jax_models.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = ModelConfig(**dataclasses.asdict(jcfg))
     model = LM(cfg, device="cpu")
     model.load_state_dict(models.params_from_jax(
         cfg, jax.tree.map(np.asarray, jparams)))
     return jcfg, jparams, cfg, model
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _pair("qwen3-1.7b")
 
 
 def rel_err(a, b):
@@ -74,7 +81,62 @@ def test_engine_greedy_matches_jax_engine(setup):
     """Five requests on two slots with staggered budgets: one wave prefill,
     then three refills by per-slot prefill and insert while the other slot
     decodes, all against the JAX engine."""
-    jcfg, jparams, cfg, model = setup
+    _engine_matches_jax_engine(*setup)
+
+
+def test_gpt3_engine_matches_jax_engine(monkeypatch):
+    """The same schedule on gpt3-175b's smoke config (LayerNorm, GELU MLP,
+    qkv bias, no RoPE), where the refilled slots decode at their own
+    positions, so the sinusoidal rows must be taken at each slot's own
+    ``pos``.
+
+    Here the sinusoidal table (amplitude 1) swamps the token embeddings
+    (scale 0.02), so a greedy stream follows the positions and its steps
+    come within the logit tolerance of a tie: free greedy tokens could part
+    on a rounding. So the port's engine is teacher-forced on the JAX
+    engine's tokens (its sampler returns them) and every row of logits it
+    sampled from, in its batched wave and refill schedule, is held against
+    the JAX model's own logits for that request and step (batch 1, teacher-
+    forced on the same tokens). A position taken from another slot or from
+    the wave moves these logits far past the tolerance."""
+    jcfg, jparams, cfg, model = _pair("gpt3-175b")
+    prompts = _prompts(5, cfg.vocab_size)
+    n_new = [3, 8, 5, 6, 4]
+    jeng = JaxEngine(jcfg, jparams, batch_size=2, max_len=64)
+    jdone = jeng.run([JaxRequest(uid=i, prompt=p, max_new_tokens=n)
+                      for i, (p, n) in enumerate(zip(prompts, n_new))])
+    want = {r.uid: r.output for r in jdone}
+
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n, sampling=SamplingParams())
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    by_sampling = {id(r.sampling): r for r in reqs}
+    rows = {}
+
+    def forced(logits, generator, sampling):
+        out = []
+        for row, sp in zip(logits, sampling):
+            r = by_sampling[id(sp)]
+            rows[r.uid, len(r.output)] = row.float().numpy()
+            out.append(want[r.uid][len(r.output)])
+        return torch.tensor(out, dtype=torch.int32)
+
+    monkeypatch.setattr(engine_mod, "sample_per_request", forced)
+    _check_engine(jeng, jdone, cfg, model, reqs, n_new)
+
+    prefill = jax.jit(lambda p, t, c: jax_models.prefill(jcfg, p, t, c))
+    decode = jax.jit(lambda p, t, c: jax_models.decode_step(jcfg, p, t, c))
+    V = cfg.vocab_size
+    for uid, prompt in enumerate(prompts):
+        cache = jax_models.init_cache(jcfg, 1, 64)
+        lg, cache = prefill(jparams, jnp.asarray([prompt]), cache)
+        for step, tok in enumerate(want[uid]):
+            jrow = np.asarray(lg[0, :V], np.float32)
+            assert rel_err(rows[uid, step][:V], jrow) < TOL, (uid, step)
+            lg, cache = decode(jparams, jnp.asarray([tok]), cache)
+    assert len(rows) == sum(n_new)
+
+
+def _engine_matches_jax_engine(jcfg, jparams, cfg, model):
     prompts = _prompts(5, cfg.vocab_size)
     n_new = [3, 8, 5, 6, 4]
     for p, n in zip(prompts, n_new):
@@ -83,12 +145,19 @@ def test_engine_greedy_matches_jax_engine(setup):
     jeng = JaxEngine(jcfg, jparams, batch_size=2, max_len=64)
     jdone = jeng.run([JaxRequest(uid=i, prompt=p, max_new_tokens=n)
                       for i, (p, n) in enumerate(zip(prompts, n_new))])
+    _check_engine(jeng, jdone, cfg, model,
+                  [Request(uid=i, prompt=p, max_new_tokens=n)
+                   for i, (p, n) in enumerate(zip(prompts, n_new))], n_new)
+
+
+def _check_engine(jeng, jdone, cfg, model, reqs, n_new):
+    """Serve `reqs` on the port's engine (two slots, so three refills) and
+    hold its tokens, counters, final K/V and positions to the JAX engine's."""
     eng = Engine(cfg, model, batch_size=2, max_len=64, device="cpu")
     inserts = []
     insert = eng._insert
     eng._insert = lambda one, slot: (inserts.append(slot), insert(one, slot))
-    done = eng.run([Request(uid=i, prompt=p, max_new_tokens=n)
-                    for i, (p, n) in enumerate(zip(prompts, n_new))])
+    done = eng.run(reqs)
     assert inserts == [0, 0, 1]
     want = {r.uid: r.output for r in jdone}
     got = {r.uid: r.output for r in done}
