@@ -14,25 +14,34 @@ result line):
                one bf16 rounding, |a-b| <= 2^-7 |b| + 1e-3, the two
                attention kernels within |a-b| <= 2^-6 |b| + 2^-5 rms(row)),
                at the JAX kernel tests' shapes and at the served models' own
-               shapes (each of the three head layouts);
-  3. serve   - three served paths, one model each, random weights from a
+               shapes (each of the three head layouts); the fp32 wkv kernel
+               to 1e-4 (output and final state), the JAX wkv tests' bound, at
+               their shapes, a ragged T, the served prefill with prompt
+               lengths and the decode step in place on a nonzero state;
+  3. serve   - four served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
-               layernorm, silu_mul, partial RoPE, d_head 64) and gpt3-175b
+               layernorm, silu_mul, partial RoPE, d_head 64), gpt3-175b
                (full width cut to 8 of 96 layers; layernorm, gelu,
-               sinusoidal positions, 96 heads). Each serves 16 greedy
+               sinusoidal positions, 96 heads) and rwkv6-7b (full width and
+               depth, attention-free; layernorm, wkv). Each serves 16 greedy
                requests of 16-48 new tokens on 8 slots through the port's
-               Engine: one whole-batch prefill, then each freed slot
-               refilled by a batch-1 prefill and insert. Every kernel's
-               launch count is set to 0 just before each serve and read
-               just after; each kernel of that model's path must be above 0
-               and the flash launches must show all 9 prefills; then the
+               Engine: one whole-batch prefill of prompts of unequal
+               lengths, then each freed slot refilled by a batch-1 prefill
+               and insert. Every kernel's launch count is set to 0 just
+               before each serve and read just after, split into the
+               prefill and the decode phase: each kernel of that model's
+               path must be above 0, and each phase must show exactly its
+               steps' launches (9 prefills: one wave, 8 refills); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
                each model and its cache are freed before the next is built;
-  4. model   - each model at full width cut in depth (qwen3 and stablelm to 2
-               layers, gpt3 to 1), its prefill and decode logits on the card
-               against the port's CPU path;
+  4. model   - each model at full width cut in depth (qwen3, stablelm and
+               rwkv6 to 2 layers, gpt3 to 1), its prefill and decode logits
+               on the card against the port's CPU path on a batch of two
+               prompts of unequal lengths; for rwkv6 also the short prompt's
+               state and token shifts after the padded wave against that
+               prompt prefilled alone on the card;
   5. timing  - each kernel at the served models' shapes, beside its plain
                version, the one PyTorch call that computes the same function
                where there is one, and its bound on the card.
@@ -56,12 +65,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# (arch, layers served or None for all): the port's three served paths
-SERVED = (("qwen3-1.7b", None), ("stablelm-1.6b", None), ("gpt3-175b", 8))
+WKV_TOL = 1e-4
+# (arch, layers served or None for all): the port's four served paths
+SERVED = (("qwen3-1.7b", None), ("stablelm-1.6b", None), ("gpt3-175b", 8),
+          ("rwkv6-7b", None))
 # (arch, layers, prompt tokens, decode steps) of the card-vs-CPU check;
 # gpt3's CPU side runs 2.4 G parameters in bf16, hence the short prompts
 MODEL_CHECKS = (("qwen3-1.7b", 2, 64, 8), ("stablelm-1.6b", 2, 64, 8),
-                ("gpt3-175b", 1, 16, 4))
+                ("gpt3-175b", 1, 16, 4), ("rwkv6-7b", 2, 64, 8))
 SLOTS, MAX_LEN, N_REQUESTS = 8, 1024, 16
 # new tokens per request: staggered, so that slots free in different rounds
 # and the 8 requests past the first wave go through the per-slot refill
@@ -74,6 +85,7 @@ REPLACES = {
     "silu_mul": "src/repro/kernels/gelu/kernel.py:43",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
+    "wkv": "src/repro/kernels/wkv/kernel.py:51",
 }
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
@@ -82,6 +94,7 @@ SOURCES = {
     "silu_mul": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
+    "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
 }
 
 
@@ -141,10 +154,13 @@ class Inputs:
 def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_attention", "decode_attention"])
+    seconds = _build.build(["flash_attention", "decode_attention", "wkv"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
+    for name in seconds:
+        for line in resource_usage(_build, name):
+            print(f"[build] {name}.cu {line}")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
@@ -164,6 +180,36 @@ def phase_build(torch):
               f"{time.perf_counter() - t0:.2f} s, "
               f"{getattr(fn.compiled, 'n_regs', 'unknown')} registers, "
               f"{getattr(fn.compiled, 'n_spills', 'unknown')} spills")
+
+
+def resource_usage(_build, name):
+    """Registers, stack, shared and local memory of each kernel in the built
+    library of csrc/<name>.cu, as cuobjdump reads them from the binary (one
+    line a kernel, names demangled by cu++filt; nothing where the toolkit
+    lacks the tools)."""
+    bin_dir = Path(_build._nvcc()).parent
+    tool, filt = bin_dir / "cuobjdump", bin_dir / "cu++filt"
+    if not tool.exists():
+        return []
+    report = subprocess.run([str(tool), "--dump-resource-usage",
+                             str(_build.library_path(name))],
+                            capture_output=True, text=True).stdout.splitlines()
+    lines, fn = [], None
+    for line in report:
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+            if filt.exists():
+                fn = subprocess.run([str(filt), fn], capture_output=True,
+                                    text=True).stdout.strip() or fn
+        elif line.startswith("REG:") and fn is not None:
+            end = fn.find(">(")        # the template's end, not its "(int)"
+            name = fn[:end + 1] if end >= 0 else fn.split("(")[0]
+            for noise in ("void ", "<unnamed>::", "(anonymous namespace)::"):
+                name = name.replace(noise, "")
+            lines.append(f"{name}: {' '.join(line.split()[:4])}")
+            fn = None
+    return lines
 
 
 def kernel_cases(torch):
@@ -231,6 +277,62 @@ def decode_lengths(b, t):
     return [t] + [128 + (97 * i) % 417 for i in range(1, b)]
 
 
+def prompt_lengths(b, t):
+    """Prompt lengths of a served wave: 128-512 tokens, the longest t."""
+    return [t] + [128 + (97 * i) % 385 for i in range(1, b)]
+
+
+def wkv_inputs(torch, rnd, B, T, H, N, with_state):
+    """r, k, v normal, w in (0.45, 0.95) as the JAX wkv tests draw them, a
+    per-head u and, with_state, a nonzero initial state; all fp32."""
+    f32 = torch.float32
+    r, k, v = rnd((B, T, H, N), f32), rnd((B, T, H, N), f32), rnd((B, T, H, N), f32)
+    w = torch.sigmoid(rnd((B, T, H, N), f32)) * 0.5 + 0.45
+    return r, k, v, w, rnd((H, N), f32), rnd((B, H, N, N), f32) if with_state else None
+
+
+def wkv_cases():
+    """(B, T, H, N, lengths or None, nonzero state0, is_main_path): the JAX
+    kernel tests' rows (u tiled over two heads) and their model-scan shape,
+    a T that is no multiple of the kernel's 32-step chunk, and the served
+    prefill (8 slots, 64 heads of 64, prompt lengths) and decode step."""
+    return [(2, 96, 2, 32, None, False, False), (2, 64, 2, 32, None, False, False),
+            (2, 100, 2, 32, None, False, False), (2, 64, 2, 16, None, True, False),
+            (3, 77, 4, 64, [77, 40, 1], True, False),
+            (SLOTS, 512, 64, 64, prompt_lengths(SLOTS, 512), False, True),
+            (SLOTS, 1, 64, 64, None, True, True)]
+
+
+def phase_wkv(torch, errs):
+    """The wkv kernel against its plain version on the card, fp32: output
+    and final state within 1e-4 of the plain version's largest, pads' outputs
+    zero; with a nonzero state it updates that state in place, as the decode
+    step does."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.wkv.ref import wkv_ref
+    rnd = Inputs(torch, 4)
+    for B, T, H, N, lens, with_state, main in wkv_cases():
+        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, B, T, H, N, with_state)
+        lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                         device="cuda")
+        want_out, want_state = wkv_ref(r, k, v, w, u, s0, lengths)
+        state_in = None if s0 is None else s0.clone()
+        out, state = KERNELS["wkv"](r, k, v, w, u, state_in, lengths, state_out=state_in)
+        torch.cuda.synchronize()
+        label = f"({B},{T},{H},{N}) lengths={lens} state0={'nonzero' if with_state else 'zero'}"
+        require(state_in is None or state is state_in, f"wkv {label}: state not in place")
+        e_out, e_state = rel_err(out, want_out), rel_err(state, want_state)
+        require(e_out < WKV_TOL and e_state < WKV_TOL, f"wkv {label}: rel_err out "
+                f"{e_out:.3e}, state {e_state:.3e} (tol {WKV_TOL:g})")
+        require(all(not out[b, n:].any() for b, n in enumerate(lens or [])),
+                f"wkv {label}: a pad step has a nonzero output")
+        print(f"[kernels] wkv              float32  {label}: rel_err out {e_out:.3e}, "
+              f"state {e_state:.3e} (tol {WKV_TOL:g}) ok")
+        if main:
+            errs["wkv"] = max(errs.get("wkv", 0.0), max_abs(out, want_out),
+                              max_abs(state, want_state))
+
+
 def phase_kernels(torch):
     errs = {}
     for name, label, fn, plain, args, main in kernel_cases(torch):
@@ -255,6 +357,7 @@ def phase_kernels(torch):
         print(f"{line} ok")
         if main and dt == "bfloat16":
             errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
+    phase_wkv(torch, errs)
     return errs
 
 
@@ -270,11 +373,14 @@ def expected_launches(cfg, prefill):
     """Launches of each kernel in one prefill or one decode step of `cfg`:
     two norms per layer and the final one (q- and k-norm per layer with
     qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation and one
-    attention per layer."""
+    attention per layer; for RWKV6, one wkv per layer and no attention."""
     from repro_torch.kernels import KERNELS
     L = cfg.n_layers
     counts = dict.fromkeys(KERNELS, 0)
     counts[cfg.norm] += 2 * L + 1
+    if cfg.attention_free:
+        counts["wkv"] = L
+        return counts
     counts["rmsnorm"] += 2 * L if cfg.qk_norm else 0
     counts["silu_mul" if cfg.mlp_gated else "gelu"] = L
     counts["flash_attention" if prefill else "decode_attention"] = L
@@ -283,8 +389,8 @@ def expected_launches(cfg, prefill):
 
 def phase_serve(torch, arch, n_layers):
     """Serve the 16-request schedule on one model; returns its launch counts
-    (serve run, one prefill step, one decode step). The model and its caches
-    are freed on return."""
+    (serve run, one prefill step, one decode step) and the first wave's
+    prompt lengths. The model and its caches are freed on return."""
     from repro_torch import kernels as K
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import Engine, Request
@@ -295,8 +401,10 @@ def phase_serve(torch, arch, n_layers):
     model = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} RWKV6 heads of {cfg.rwkv_head_dim}"
+             if cfg.attention_free else f"{cfg.n_heads} heads of {cfg.d_head}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.d_head}, {n_params} parameters "
+          f"{heads}, {n_params} parameters "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), random init on "
           f"the card in {time.perf_counter() - t0:.2f} s")
     gen = torch.Generator("cpu").manual_seed(1)
@@ -313,6 +421,18 @@ def phase_serve(torch, arch, n_layers):
     reqs = [Request(uid=i, prompt=prompt(n), max_new_tokens=new)
             for i, (n, new) in enumerate(zip(lens, NEW_TOKENS))]
     eng = Engine(cfg, model, batch_size=SLOTS, max_len=MAX_LEN, device="cuda")
+    prefill_counts = dict.fromkeys(K.KERNELS, 0)
+
+    def admit_counted(requests):
+        # through the class, not a bound method: `del eng` below frees the
+        # engine (and its cache) at once, as no other name holds it
+        before = K.launches()
+        wave = Engine.admit_wave(eng, requests)
+        for name, n in K.launches().items():
+            prefill_counts[name] += n - before[name]
+        return wave
+
+    eng.admit_wave = admit_counted
     K.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -331,12 +451,19 @@ def phase_serve(torch, arch, n_layers):
     for name in path:
         require(counts[name] > 0, f"{cfg.name}: kernel {name} of its path was "
                 "not launched in the serve run")
-    # one whole-batch prefill, then a batch-1 prefill per refilled slot
-    prefills = 1 + N_REQUESTS - SLOTS
-    require(counts["flash_attention"] == prefills * cfg.n_layers,
-            f"{counts['flash_attention']} flash launches, not the "
+    # one whole-batch prefill, then a batch-1 prefill per refilled slot; each
+    # prefill and each decode round launches exactly one step's kernels
+    prefills, st = 1 + N_REQUESTS - SLOTS, eng.stats
+    seq = "wkv" if cfg.attention_free else "flash_attention"
+    require(prefill_counts[seq] == prefills * cfg.n_layers,
+            f"{prefill_counts[seq]} {seq} launches in the prefill phase, not the "
             f"{prefills} x {cfg.n_layers} of one wave and {prefills - 1} refills")
-    st = eng.stats
+    for phase, got, n, step in (("prefill", prefill_counts, prefills, per_step[0]),
+                                ("decode", {name: c - prefill_counts[name]
+                                            for name, c in counts.items()},
+                                 st["steps"], per_step[1])):
+        require(got == {name: n * c for name, c in step.items()},
+                f"{cfg.name}: {phase} phase launches {got}, not {n} x {step}")
     prompt_tokens = sum(lens)
     print(f"[serve] {cfg.name}: {N_REQUESTS} requests on {SLOTS} slots, prompts "
           f"{min(lens)}-{max(lens)} tokens ({prompt_tokens} in all), "
@@ -348,7 +475,8 @@ def phase_serve(torch, arch, n_layers):
           f"tok/s (engine), decode {(st['tokens_out'] - N_REQUESTS) / st['decode_s']:.2f} "
           f"tok/s, prefill {prompt_tokens / st['prefill_s']:.2f} prompt tok/s")
     print(f"[serve] {cfg.name}: kernels of its path {path}, all launched; "
-          f"launches in the serve run: {json.dumps(counts)}")
+          f"launches in the serve run: {json.dumps(counts)}, of which in its "
+          f"{prefills} prefills: {json.dumps(prefill_counts)}")
     del eng
 
     # launches of one prefill step and one decode step of the served model
@@ -372,7 +500,7 @@ def phase_serve(torch, arch, n_layers):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, cache
     torch.cuda.empty_cache()
-    return counts, per_prefill, per_decode
+    return counts, per_prefill, per_decode, lens[:SLOTS]
 
 
 def profile_decode(torch, model, cache, tok, steps=5):
@@ -430,6 +558,8 @@ def phase_model(torch, arch, n_layers, S, steps):
     V = cfg.vocab_size
     t0 = time.perf_counter()
     lg, lc = gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu(), cpu.prefill(toks, cc, lens)
+    if cfg.attention_free:
+        check_wave_state(torch, cfg, gpu, toks, lens, cg, lg)
     errs = [rel_err(lg[:, :V], lc[:, :V])]
     agree = [(lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item()]
     for _ in range(steps):
@@ -450,6 +580,26 @@ def phase_model(torch, arch, n_layers, S, steps):
             f"{max(errs):.3e} >= {tol}")
     del gpu, cpu, cg, cc
     torch.cuda.empty_cache()
+
+
+def check_wave_state(torch, cfg, gpu, toks, lens, cache, logits):
+    """On the card: the short prompt's state, token shifts and logits after
+    the right-padded wave against that prompt prefilled alone (its pads must
+    stay out of its state, ROADMAP.md C4), within 2e-2."""
+    from repro_torch.models import init_cache
+    n = int(lens[1])
+    alone = init_cache(cfg, 1, n, device="cuda")
+    want = gpu.prefill(toks[1:2, :n].cuda(), alone).cpu()
+    V = cfg.vocab_size
+    errs = {"logits": rel_err(logits[1:2, :V], want[:, :V])}
+    errs.update({name: rel_err(cache[name][:, 1], alone[name][:, 0])
+                 for name in ("state", "sx_t", "sx_c")})
+    tol = 2e-2
+    print(f"[model] {cfg.name}: prompt of {n} tokens in the wave padded to "
+          f"{toks.shape[1]} against it prefilled alone on the card, rel_err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {tol:g})")
+    require(max(errs.values()) < tol, f"{cfg.name}: the padded wave's state "
+            f"departs from the prompt's own: {errs}")
 
 
 def time_ms(torch, fn, iters=25, warmup=3):
@@ -480,16 +630,18 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing(torch, counts, per_prefill, per_decode, errs):
+def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
-    ``shapes``."""
+    ``shapes``. wkv's prefill is timed at the served rwkv6 wave's prompt
+    lengths `wave_lens`."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+    from repro_torch.kernels.wkv.ref import wkv_ref
     bf = torch.bfloat16
     rnd = Inputs(torch, 3)
     rows = {}
@@ -572,6 +724,24 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs):
             2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
             4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS)
         del qd, kd, vd
+
+    # wkv: the served rwkv6 wave's prefill (data-dependent: the steps of its
+    # prompt lengths are counted, the output is written in full) and the
+    # decode step in place; 7 fp32 operations per state element and step
+    H, N = 64, 64
+    for T, with_state in ((max(wave_lens), False), (1, True)):
+        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, SLOTS, T, H, N, with_state)
+        lens_t = torch.tensor(wave_lens, dtype=torch.int32, device="cuda") \
+            if T > 1 else None
+        steps = sum(wave_lens) if T > 1 else SLOTS
+        state_bytes = SLOTS * H * N * N * 4 * (2 if with_state else 1)
+        label = (f"r,k,v,w ({SLOTS},{T},{H},{N}) fp32 "
+                 + (f"lengths={wave_lens}" if T > 1 else "state0 in place"))
+        add("wkv", label, lambda: KERNELS["wkv"](r, k, v, w, u, s0, lens_t, state_out=s0),
+            lambda: wkv_ref(r, k, v, w, u, s0, lens_t), None,
+            4 * steps * H * N * 4 + SLOTS * T * H * N * 4 + state_bytes + H * N * 4,
+            7 * steps * H * N * N, FP32_FLOPS)
+        del r, k, v, w, s0
     return [rows[name] for name in SOURCES]
 
 
@@ -588,14 +758,17 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     errs = phase_kernels(torch)
-    counts, per_prefill, per_decode = {}, {}, {}
+    counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
-        run, per_prefill[arch], per_decode[arch] = phase_serve(torch, arch, n_layers)
+        run, per_prefill[arch], per_decode[arch], wave_lens[arch] = phase_serve(
+            torch, arch, n_layers)
         counts = {name: counts.get(name, 0) + n for name, n in run.items()}
-    print(f"[serve] launches summed over the three serve runs: {json.dumps(counts)}")
+    print(f"[serve] launches summed over the {len(SERVED)} serve runs: "
+          f"{json.dumps(counts)}")
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
-    rows = phase_timing(torch, counts, per_prefill, per_decode, errs)
+    rows = phase_timing(torch, counts, per_prefill, per_decode, errs,
+                        wave_lens["rwkv6-7b"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

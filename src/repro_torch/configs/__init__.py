@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> ModelConfig.
 
-Only the dense configs the port runs are registered here: the rmsnorm/SwiGLU
-qwen family, stablelm (LayerNorm, partial RoPE) and, outside ``ARCHS`` as in
-the JAX registry, the paper's own gpt3-175b (LayerNorm, tanh-GELU MLP,
-sinusoidal positions).
+Only the configs the port runs are registered here: the rmsnorm/SwiGLU qwen
+family, stablelm (LayerNorm, partial RoPE), rwkv6-7b (attention-free RWKV6
+time and channel mix, LayerNorm) and, outside ``ARCHS`` as in the JAX
+registry, the paper's own gpt3-175b (LayerNorm, tanh-GELU MLP, sinusoidal
+positions).
 """
 from .base import ModelConfig, smoke_config
 
@@ -11,6 +12,7 @@ from .qwen1_5_0_5b import CONFIG as _qwen15
 from .qwen2_0_5b import CONFIG as _qwen2
 from .stablelm_1_6b import CONFIG as _stablelm
 from .qwen3_1_7b import CONFIG as _qwen3
+from .rwkv6_7b import CONFIG as _rwkv6
 from .gpt3_175b import CONFIG as _gpt3
 
 ARCHS = {
@@ -18,6 +20,7 @@ ARCHS = {
     "qwen2-0.5b": _qwen2,
     "stablelm-1.6b": _stablelm,
     "qwen3-1.7b": _qwen3,
+    "rwkv6-7b": _rwkv6,
 }
 
 # the paper's own model: selectable, but not one of the assigned archs

@@ -8,6 +8,7 @@ from .decode_attention.kernel import decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda
 from .gelu.kernel import gelu_triton, silu_mul_triton
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
+from .wkv.kernel import wkv_cuda
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {
@@ -17,6 +18,7 @@ KERNELS = {
     "silu_mul": silu_mul_triton,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "wkv": wkv_cuda,
 }
 
 

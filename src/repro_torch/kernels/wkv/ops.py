@@ -1,0 +1,25 @@
+"""Public WKV op: the CUDA kernel for a CUDA tensor, the plain version for a
+CPU tensor."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...device import runs_plain
+from .kernel import wkv_cuda
+from .ref import wkv_ref
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, state0: Optional[torch.Tensor] = None,
+        lengths: Optional[torch.Tensor] = None, *,
+        state_out: Optional[torch.Tensor] = None):
+    """r, k, v, w: (B, T, H, N) fp32; u: (H, N); state0: (B, H, N, N) or None
+    (zeros); lengths: (B,) int32 or None. Returns (out (B, T, H, N), final
+    state (B, H, N, N)). With ``state_out`` the final state is written into
+    it, in place, and returned; it may be ``state0`` itself."""
+    if runs_plain(r):
+        out, state = wkv_ref(r, k, v, w, u, state0, lengths)
+        return out, state if state_out is None else state_out.copy_(state)
+    return wkv_cuda(r, k, v, w, u, state0, lengths, state_out=state_out)

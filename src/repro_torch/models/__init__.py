@@ -1,7 +1,7 @@
-"""Model zoo of the port: the dense decoder of ``repro.models``."""
-from . import layers, lm
+"""Model zoo of the port: the dense decoder and RWKV6 of ``repro.models``."""
+from . import layers, lm, recurrent
 from .bridge import params_from_jax
 from .lm import LM, init_cache, init_params, padded_vocab
 
 __all__ = ["LM", "init_params", "init_cache", "padded_vocab",
-           "params_from_jax", "layers", "lm"]
+           "params_from_jax", "layers", "lm", "recurrent"]

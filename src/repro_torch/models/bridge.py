@@ -6,14 +6,17 @@ this module imports no JAX) and returns a state dict for ``LM`` of the same
 config:
 
   * the stacked-unit layout of ``repro.models.lm.init_params`` (each leaf of
-    ``params["units"]["u0"]`` has a leading n_layers axis; dense configs have
-    a one-layer unit and no remainder layers) is unstacked along axis 0 into
-    ``blocks.<i>.*``;
-  * every leaf crosses under its JAX key: a LayerNorm's ``scale`` and
-    ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's ``scale``, a
-    gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain one's ``w_up``,
-    ``w_down``; ``LM.load_state_dict`` (strict) refuses a leaf too many or
-    too few;
+    ``params["units"]["u0"]`` has a leading n_layers axis; dense and RWKV6
+    configs have a one-layer unit and no remainder layers) is unstacked along
+    axis 0 into ``blocks.<i>.<group>.<name>``, for every group of the unit:
+    ``ln1``, ``attn``, ``ln2``, ``mlp`` of a dense layer, ``ln1``, ``tmix``,
+    ``ln2``, ``cmix`` of an RWKV6 one;
+  * every leaf crosses under its JAX key and in its JAX dtype: a LayerNorm's
+    ``scale`` and ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's
+    ``scale``, a gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain
+    one's ``w_up``, ``w_down``, RWKV6's bf16 ``mu`` and weights and its fp32
+    ``w0``, decay LoRA, ``u`` and ``ln_x``; ``LM.load_state_dict`` (strict)
+    refuses a leaf too many or too few;
   * weights keep JAX's (in, out) orientation: the port computes ``x @ w`` as
     the JAX model does, so nothing is transposed;
   * bfloat16 crosses bit-exactly: numpy holds it as the ``bfloat16`` dtype of
@@ -41,7 +44,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     """State dict of ``LM(cfg)`` from the JAX tree of numpy arrays."""
     check_supported(cfg)
     if tree.get("rem"):
-        raise ValueError("a dense config's JAX tree has no remainder layers")
+        raise ValueError("a dense or RWKV6 config's JAX tree has no "
+                         "remainder layers")
     sd = {"embed": to_tensor(tree["embed"])}
     for name, leaf in tree["final_norm"].items():
         sd[f"final_norm.{name}"] = to_tensor(leaf)
@@ -49,7 +53,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
         sd["head"] = to_tensor(tree["head"])
     unit = tree["units"]["u0"]
     for i in range(cfg.n_layers):
-        for group in ("ln1", "attn", "ln2", "mlp"):
-            for name, stacked in unit[group].items():
+        for group, leaves in unit.items():
+            for name, stacked in leaves.items():
                 sd[f"blocks.{i}.{group}.{name}"] = to_tensor(stacked[i])
     return sd

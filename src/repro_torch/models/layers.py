@@ -33,13 +33,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _init(gen: Optional[torch.Generator], shape, scale: float = 0.02,
-          device=None) -> nn.Parameter:
-    """N(0, scale^2) drawn in fp32, stored bf16 (as ``layers._init``).
-    With no generator (the meta device) only the shape is made."""
+          device=None, dtype: torch.dtype = torch.bfloat16) -> nn.Parameter:
+    """N(0, scale^2) drawn in fp32, stored as `dtype`, bf16 by default (as
+    ``layers._init``). With no generator (the meta device) only the shape is
+    made."""
     if gen is None:
-        return _param(torch.empty(shape, dtype=torch.bfloat16, device=device))
+        return _param(torch.empty(shape, dtype=dtype, device=device))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return _param((x * scale).to(torch.bfloat16))
+    return _param((x * scale).to(dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,35 @@
-"""Dense decoder LM of the port, the dense path of ``repro.models.lm``.
+"""Decoder LM of the port, the dense and RWKV6 paths of ``repro.models.lm``.
 
 ``LM`` is an ``nn.Module`` holding a ``ModuleList`` of blocks; the JAX
-package's stacked-unit scan becomes a Python loop over the blocks (dense
-configs have a one-layer unit, so the layers are the units).
+package's stacked-unit scan becomes a Python loop over the blocks (dense and
+RWKV6 configs have a one-layer unit, so the layers are the units).
 
 Public entry points, counterparts of the JAX functions of the same names:
     init_params -> LM, LM.forward (teacher-forced logits), init_cache,
     LM.prefill, LM.decode_step, padded_vocab
 
-The KV cache is a dict of tensors updated IN PLACE by ``prefill`` and
-``decode_step`` (the JAX functions return a new cache): ``k`` and ``v`` are
-fused (n_layers, B, T, Hkv*dh) bf16 and ``pos`` (B,) int32 holds each
+The cache is a dict of tensors updated IN PLACE by ``prefill`` and
+``decode_step`` (the JAX functions return a new cache). Every tensor but
+``pos`` has the layer on axis 0 and the sequence (slot) on axis 1. A dense
+model's ``k`` and ``v`` are fused (n_layers, B, T, Hkv*dh) bf16; an RWKV6
+model's ``state`` is (n_layers, B, H, N, N) fp32 and its token shifts
+``sx_t`` / ``sx_c`` (n_layers, B, d) bf16. ``pos`` (B,) int32 holds each
 sequence's next position (continuous batching).
 
 Ported: dense decoders with full causal attention, RMSNorm or LayerNorm,
 a SwiGLU MLP or a plain tanh-GELU one, and full, partial (stablelm) or no
 RoPE; with no RoPE (gpt3) sinusoidal positions are added to the embeddings,
-as the JAX model adds them. Any other config raises NotImplementedError
-naming the field.
+as the JAX model adds them. And the attention-free RWKV6 (``family ==
+"ssm"``, rwkv6-7b), no positions. Any other config raises
+NotImplementedError naming the field.
+
+Right pads and the recurrent state: an RWKV6 ``prefill`` hands each
+sequence's prompt length to the wkv op, so the state after prefill is the
+state after the real tokens only, and the token shifts are taken at each
+sequence's last real token. That is the JAX model's result for each prompt
+prefilled alone; the JAX ``prefill`` of a right-padded wave runs the pads
+through the state instead (``ROADMAP.md``, C4), which the port does not
+reproduce.
 """
 from __future__ import annotations
 
@@ -30,13 +42,14 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.decode_attention.ops import decode_attention
 from . import layers as L
+from . import recurrent as R
 
 VOCAB_PAD = 256      # embeddings padded as in the JAX package
 
 # (field, test that the port runs the config's value of it) for every
 # config field of the ported slices
 _SUPPORTED = (
-    ("family", lambda c: c.family == "dense"),
+    ("family", lambda c: c.family in ("dense", "ssm")),
     ("n_experts", lambda c: c.n_experts == 0),
     ("block_pattern", lambda c: not c.block_pattern),
     ("cross_attention", lambda c: not c.cross_attention),
@@ -44,8 +57,10 @@ _SUPPORTED = (
     ("cross_attn_layers", lambda c: not c.cross_attn_layers),
     ("n_frontend_tokens", lambda c: c.n_frontend_tokens == 0),
     ("norm", lambda c: c.norm in ("rmsnorm", "layernorm")),
-    # a gated MLP runs the SwiGLU gate kernel, a plain one the GELU kernel
-    ("activation", lambda c: c.activation == ("silu" if c.mlp_gated else "gelu")),
+    # a gated MLP runs the SwiGLU gate kernel, a plain one the GELU kernel;
+    # RWKV6's channel mix is relu^2 whatever the field says
+    ("activation", lambda c: c.attention_free
+     or c.activation == ("silu" if c.mlp_gated else "gelu")),
     ("attn_window", lambda c: c.attn_window == 0),
     ("attn_logit_softcap", lambda c: c.attn_logit_softcap == 0),
 )
@@ -59,7 +74,7 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
                 f"to repro_torch yet (dense decoders with full causal "
-                f"attention and a SwiGLU or a plain GELU MLP)")
+                f"attention and a SwiGLU or a plain GELU MLP, and RWKV6)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -88,6 +103,33 @@ class Block(nn.Module):
         return x + L.mlp_apply(cfg, self.mlp, L.apply_norm(cfg, self.ln2, x))
 
 
+class RWKVBlock(nn.Module):
+    """One RWKV6 layer: LayerNorm, time mix, LayerNorm, channel mix."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
+        super().__init__()
+        self.ln1 = L.norm_init(cfg, device)
+        self.tmix = R.rwkv_tmix_init(cfg, gen, device)
+        self.ln2 = L.norm_init(cfg, device)
+        self.cmix = R.rwkv_cmix_init(cfg, gen, device)
+
+    def mix(self, cfg: ModelConfig, x: torch.Tensor, prev_t: torch.Tensor,
+            prev_c: torch.Tensor, state0: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None,
+            state_out: Optional[torch.Tensor] = None):
+        """x: (B, T, d); prev_t / prev_c: (B, d) token shifts of the time and
+        channel mix. Returns (x after the layer, the time mix's normed input,
+        the channel mix's normed input); the caller keeps rows of the last
+        two as the next token shifts. The state goes as in
+        ``rwkv_tmix_apply``."""
+        h = L.apply_norm(cfg, self.ln1, x)
+        y, _ = R.rwkv_tmix_apply(cfg, self.tmix, h, prev_t, state0, lengths,
+                                 state_out)
+        x = x + y
+        hc = L.apply_norm(cfg, self.ln2, x)
+        return x + R.rwkv_cmix_apply(self.cmix, hc, prev_c), h, hc
+
+
 class LM(nn.Module):
     """The model on `device` (``cuda`` unless the caller names another).
     With a generator its weights are drawn as ``init_params`` draws them;
@@ -105,14 +147,16 @@ class LM(nn.Module):
         self.final_norm = L.norm_init(cfg, device)
         if not cfg.tie_embeddings:
             self.head = L._init(gen, (cfg.d_model, vpad), device=device)
-        self.blocks = nn.ModuleList(Block(cfg, gen, device)
+        block = RWKVBlock if cfg.attention_free else Block
+        self.blocks = nn.ModuleList(block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
 
     def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Token embeddings, plus the sinusoidal table at `positions` (its
-        fp32 rows rounded to bf16, then added) for a config without RoPE."""
+        fp32 rows rounded to bf16, then added) for an attention config
+        without RoPE."""
         x = self.embed[tokens]
-        if self.cfg.rope_fraction == 0.0:
+        if self.cfg.rope_fraction == 0.0 and not self.cfg.attention_free:
             x = x + L.sinusoidal_positions(positions, self.cfg.d_model).to(x.dtype)
         return x
 
@@ -129,6 +173,11 @@ class LM(nn.Module):
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions)
+        if cfg.attention_free:
+            zeros = x.new_zeros((B, cfg.d_model))
+            for blk in self.blocks:
+                x = blk.mix(cfg, x, zeros, zeros)[0]
+            return self._logits(x)
         rope = L.rope_tables(cfg, positions.expand(B, S))
         for blk in self.blocks:
             h = L.apply_norm(cfg, blk.ln1, x)
@@ -141,16 +190,18 @@ class LM(nn.Module):
     def prefill(self, tokens: torch.Tensor, cache: dict,
                 prompt_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Process right-padded prompts from position 0, writing their K/V
-        into ``cache`` in place. prompt_lens: (B,) true prompt lengths
-        (defaults to S). Returns the logits at each sequence's last real
-        token, (B, V_padded)."""
+        (or their RWKV6 state and token shifts) into ``cache`` in place.
+        prompt_lens: (B,) true prompt lengths (defaults to S). Returns the
+        logits at each sequence's last real token, (B, V_padded)."""
         cfg = self.cfg
         B, S = tokens.shape
+        if prompt_lens is None:
+            prompt_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        if cfg.attention_free:
+            return self._prefill_rwkv(tokens, cache, prompt_lens)
         if S > cache["k"].shape[2]:
             raise ValueError(f"prompt of {S} tokens exceeds the cache's "
                              f"{cache['k'].shape[2]}")
-        if prompt_lens is None:
-            prompt_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions)
         rope = L.rope_tables(cfg, positions.expand(B, S))
@@ -167,12 +218,35 @@ class LM(nn.Module):
         x_last = x[torch.arange(B, device=x.device), last]
         return self._logits(x_last)
 
+    def _prefill_rwkv(self, tokens: torch.Tensor, cache: dict,
+                      prompt_lens: torch.Tensor) -> torch.Tensor:
+        """RWKV6 prefill from position 0: a zero state and zero token shifts
+        whatever the cache held. The wkv op stops each sequence's recurrence
+        at its prompt length and writes the state into the cache; the token
+        shifts are the normed inputs at each sequence's last real token."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens]
+        zeros = x.new_zeros((B, cfg.d_model))
+        bidx = torch.arange(B, device=x.device)
+        last = (prompt_lens.long() - 1).clamp(0, S - 1)
+        for i, blk in enumerate(self.blocks):
+            x, h, hc = blk.mix(cfg, x, zeros, zeros, lengths=prompt_lens,
+                               state_out=cache["state"][i])
+            cache["sx_t"][i] = h[bidx, last]
+            cache["sx_c"][i] = hc[bidx, last]
+        cache["pos"].copy_(prompt_lens)
+        return self._logits(x[bidx, last])
+
     # ------------------------------------------------------------------
     def decode_step(self, token: torch.Tensor, cache: dict) -> torch.Tensor:
         """token: (B,) -> logits (B, V_padded). Writes each sequence's K/V at
-        its position cache["pos"] (in place) and advances it."""
+        its position cache["pos"] (or advances its RWKV6 state and token
+        shifts), in place, and advances the position."""
         cfg = self.cfg
         B = token.shape[0]
+        if cfg.attention_free:
+            return self._decode_rwkv(token, cache)
         hkv, dh = cfg.n_kv_heads, cfg.d_head
         T = cache["k"].shape[2]
         pos = cache["pos"]
@@ -194,6 +268,18 @@ class LM(nn.Module):
             x = x + L.attn_out(blk.attn, o)
             x = blk.mlp_residual(cfg, x)
         pos += 1
+        return self._logits(x)[:, 0]
+
+    def _decode_rwkv(self, token: torch.Tensor, cache: dict) -> torch.Tensor:
+        """One RWKV6 step: the wkv op updates each layer's state in place."""
+        x = self.embed[token][:, None, :]
+        for i, blk in enumerate(self.blocks):
+            state = cache["state"][i]
+            x, h, hc = blk.mix(self.cfg, x, cache["sx_t"][i], cache["sx_c"][i],
+                               state0=state, state_out=state)
+            cache["sx_t"][i] = h[:, 0]
+            cache["sx_c"][i] = hc[:, 0]
+        cache["pos"] += 1
         return self._logits(x)[:, 0]
 
 
@@ -219,15 +305,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Fused bf16 K/V of (n_layers, batch, max_len, Hkv*dh) and the
-    per-sequence positions."""
+    """Fused bf16 K/V of (n_layers, batch, max_len, Hkv*dh), or for RWKV6 the
+    fp32 state (n_layers, batch, H, N, N) and the bf16 token shifts
+    (n_layers, batch, d) (no length limit), and the per-sequence
+    positions."""
     check_supported(cfg)
     dev = resolve_device(device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.attention_free:
+        N = cfg.rwkv_head_dim
+        shift = (cfg.n_layers, batch, cfg.d_model)
+        return {"state": torch.zeros((cfg.n_layers, batch, cfg.d_model // N, N, N),
+                                     dtype=torch.float32, device=dev),
+                "sx_t": torch.zeros(shift, dtype=torch.bfloat16, device=dev),
+                "sx_c": torch.zeros(shift, dtype=torch.bfloat16, device=dev),
+                "pos": pos}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads * cfg.d_head)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+            "pos": pos}
 
 
-__all__ = ["LM", "Block", "init_params", "init_cache", "padded_vocab",
+__all__ = ["LM", "Block", "RWKVBlock", "init_params", "init_cache", "padded_vocab",
            "check_supported", "VOCAB_PAD"]

@@ -1,13 +1,19 @@
 """Serving engine of the port: batched prefill + continuous-batching decode.
 
 The same slot model as ``repro.serving.engine``:
-  * the engine owns `batch_size` slots and one KV cache; slot admission,
+  * the engine owns `batch_size` slots and one cache (K/V, or an RWKV6
+    model's recurrent state and token shifts); slot admission,
     budgets and refill-on-completion live in `core.scheduler.SlotScheduler`;
   * prefill runs per admission wave (right-padded prompts, per-sequence
     prompt lengths); finished slots are refilled by a single-prompt prefill
     into a fresh batch-1 cache that is copied into the slot;
   * decode advances all live slots every step (dead slots masked), sampling
     every slot with its own request's SamplingParams.
+
+A wave's prompts need not be of one length, for recurrent models too: the
+model's prefill keeps each sequence's right pads out of its recurrent state
+(where the JAX engine's docstring promises equal-length buckets that its
+scheduler does not make).
 
 PyTorch runs eagerly, so nothing is jitted. The cache is updated in place.
 The prefill and decode times in `stats` end when the sampled tokens are read
@@ -62,10 +68,14 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _insert(self, one_cache: dict, slot: int) -> None:
-        """Copy a batch-1 cache into `slot` of the engine cache."""
-        self.cache["k"][:, slot] = one_cache["k"][:, 0]
-        self.cache["v"][:, slot] = one_cache["v"][:, 0]
-        self.cache["pos"][slot] = one_cache["pos"][0]
+        """Copy every tensor of a batch-1 cache into `slot` of the engine
+        cache: the slot is axis 0 of ``pos`` and axis 1 (after the layer)
+        of every other tensor."""
+        for name, one in one_cache.items():
+            if name == "pos":
+                self.cache[name][slot] = one[0]
+            else:
+                self.cache[name][:, slot] = one[:, 0]
 
     # ------------------------------------------------------------------
     def admit_wave(self, requests: List[Request]):

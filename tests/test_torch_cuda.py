@@ -13,7 +13,8 @@ tolerances: relative error to the largest output below 2e-2 in bf16 and
 2e-5 in fp32. In bf16 each kernel is also held element by element: the
 Triton kernels within one bf16 rounding, the attention kernels within
 2^-6 |b| + 2^-5 of the rms of b's row (the bound ``chip_smoke.py`` derives
-in ``attention_excess``).
+in ``attention_excess``). The WKV kernel takes fp32 only and is held to 1e-4,
+the JAX wkv tests' bound, since its sums run in another order.
 """
 import dataclasses
 
@@ -28,8 +29,10 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models.lm import LM
 from repro_torch.serving import Engine, Request
+from repro_torch.serving import engine as engine_mod
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -84,7 +87,7 @@ def kernel_case(name, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name", sorted(TK.KERNELS))
+@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -100,6 +103,58 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype):
         assert ((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-3).all()
     if name in ("flash_attention", "decode_attention") and dtype == "bfloat16":
         assert attention_excess(got, want) <= 1
+
+
+# (B, T, H, N, lengths or None, nonzero state0): the JAX kernel tests' rows
+# (u tiled over the heads), a T that is no multiple of the kernel's chunk,
+# the served prefill's heads with prompt lengths, and the decode step
+WKV_CASES = [(2, 96, 2, 32, None, False), (2, 100, 2, 32, None, False),
+             (3, 77, 4, 64, [77, 40, 1], True), (2, 70, 3, 16, [70, 33], True),
+             (8, 160, 64, 64, [160, 128, 33, 97, 1, 150, 64, 159], False),
+             (8, 1, 64, 64, None, True)]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv_matches_plain_on_card(cuda, case):
+    B, T, H, N, lens, with_state = case
+    r, k, v = (normal(i, (B, T, H, N), cuda, torch.float32) for i in range(3))
+    w = torch.sigmoid(normal(3, (B, T, H, N), cuda, torch.float32)) * 0.5 + 0.45
+    u = normal(4, (H, N), cuda, torch.float32)
+    s0 = normal(5, (B, H, N, N), cuda, torch.float32) if with_state else None
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                     device=cuda)
+    want_out, want_state = wkv_ref(r, k, v, w, u, s0, lengths)
+    before = TK.KERNELS["wkv"].launches
+    if with_state:     # in place, as the decode step updates its cache
+        state_in = s0.clone()
+        out, state = TK.KERNELS["wkv"](r, k, v, w, u, state_in, lengths,
+                                       state_out=state_in)
+        assert state is state_in
+    else:
+        out, state = TK.KERNELS["wkv"](r, k, v, w, u, None, lengths)
+    torch.cuda.synchronize()
+    assert TK.KERNELS["wkv"].launches == before + 1
+    assert out.shape == (B, T, H, N) and state.shape == (B, H, N, N)
+    assert rel_err(out, want_out) < 1e-4 and rel_err(state, want_state) < 1e-4
+    for b, n in enumerate(lens or []):
+        assert not out[b, n:].any()
+
+
+def test_rwkv6_launches_per_step_on_card(cuda):
+    """2L+1 LayerNorms and L wkv launches per prefill and per decode step,
+    and no attention kernel."""
+    cfg = dataclasses.replace(smoke_config(get_config("rwkv6-7b")), n_layers=3)
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    want = {name: 0 for name in TK.KERNELS}
+    want.update(layernorm=7, wkv=3)
+    TK.reset_launches()
+    model.prefill(toks, cache, torch.tensor([8, 5], dtype=torch.int32, device=cuda))
+    assert TK.launches() == want
+    TK.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    assert TK.launches() == want
 
 
 # (query heads, kv-heads, d_head) of the served models
@@ -191,12 +246,12 @@ def test_launches_per_step_on_card(cuda):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3,
-                             "decode_attention": 0}
+                             "decode_attention": 0, "wkv": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0,
-                             "decode_attention": 3}
+                             "decode_attention": 3, "wkv": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -211,11 +266,11 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     TK.reset_launches()
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 3, "decode_attention": 0}
+                             "flash_attention": 3, "decode_attention": 0, "wkv": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 0, "decode_attention": 3}
+                             "flash_attention": 0, "decode_attention": 3, "wkv": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -260,3 +315,51 @@ def test_engine_on_card_matches_cpu(cuda):
     assert cache_gpu["pos"].tolist() == cache_cpu["pos"].tolist()
     for name in ("k", "v"):
         assert rel_err(cache_gpu[name], cache_cpu[name]) < TOL["bfloat16"]
+
+
+def test_rwkv6_engine_on_card_matches_cpu(cuda, monkeypatch):
+    """rwkv6-7b's smoke model served on two slots, a wave of unequal
+    prompts and three refills, on the card and on the CPU. Its greedy steps
+    come near ties, so the card's engine is teacher-forced on the CPU
+    engine's tokens: every row of logits it sampled from against the CPU's
+    row for that request and step, and the final states, token shifts and
+    positions."""
+    cfg = smoke_config(get_config("rwkv6-7b"))
+    cpu = models.init_params(cfg, seed=0, device="cpu")
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in (9, 4, 7, 11, 3)]
+    n_new = [3, 8, 5, 6, 4]
+    sample = engine_mod.sample_per_request
+
+    def serve(model, device, want=None):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, n_new))]
+        by_sampling = {id(r.sampling): r for r in reqs}
+        rows = {}
+
+        def recorded(logits, generator, sampling):
+            got = sample(logits, generator, sampling).tolist()
+            out = []
+            for j, (row, sp) in enumerate(zip(logits, sampling)):
+                r = by_sampling[id(sp)]
+                rows[r.uid, len(r.output)] = row.float().cpu()
+                out.append(got[j] if want is None else want[r.uid][len(r.output)])
+            return torch.tensor(out, dtype=torch.int32)
+
+        monkeypatch.setattr(engine_mod, "sample_per_request", recorded)
+        eng = Engine(cfg, model, batch_size=2, max_len=64, device=device)
+        done = eng.run(reqs)
+        return {r.uid: r.output for r in done}, rows, eng.cache
+
+    want, rows_cpu, cache_cpu = serve(cpu, "cpu")
+    got, rows_gpu, cache_gpu = serve(gpu, cuda, want)
+    assert got == want and rows_gpu.keys() == rows_cpu.keys()
+    V = cfg.vocab_size
+    for key, row in rows_cpu.items():
+        assert rel_err(rows_gpu[key][:V], row[:V]) < TOL["bfloat16"], key
+    assert cache_gpu["pos"].tolist() == cache_cpu["pos"].tolist()
+    for name in ("state", "sx_t", "sx_c"):
+        assert rel_err(cache_gpu[name], cache_cpu[name]) < TOL["bfloat16"], name

@@ -4,7 +4,7 @@ On the CPU each op of ``repro_torch.kernels`` runs its plain PyTorch
 version; it is held against the JAX op on the same numpy inputs, with the
 Pallas kernel run in interpret mode as ``tests/test_kernels.py`` runs it, at
 that file's shapes and tolerances (bf16 2e-2, fp32 2e-5 relative to the
-largest output). Block sizes are left at the JAX ops' defaults: they change
+largest output; the fp32 WKV recurrence 1e-4). Block sizes are left at the JAX ops' defaults: they change
 how the interpreter walks the grid, not the function. The hand-written
 kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py`` (marked ``cuda``) and by ``chip_smoke.py``.
@@ -16,6 +16,7 @@ import torch
 
 from repro import kernels as K
 from repro.models import layers as jax_layers
+from repro.models import recurrent as jax_recurrent
 import repro_torch.kernels as TK
 from repro_torch.kernels.decode_attention import ops as t_decode
 from repro_torch.kernels.flash_attention import ops as t_flash
@@ -23,6 +24,8 @@ from repro_torch.kernels.gelu import ops as t_gelu
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.wkv import ops as t_wkv
+from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models import layers as t_layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -177,6 +180,91 @@ def test_decode_attention_plain_matches_jax(hkv, g, t, dtype):
     assert rel_err(t2np(got), want) < tol(dtype)
 
 
+# ---------------- wkv ----------------
+
+WKV_TOL = 1e-4
+
+
+def wkv_inputs(seed, shape):
+    """r, k, v normal and w in (0.45, 0.95), as the JAX kernel tests draw
+    them, fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    w = (0.5 / (1.0 + np.exp(-rng.standard_normal(shape))) + 0.45).astype(np.float32)
+    return r, k, v, w
+
+
+def rows(a):
+    """(B, T, H, N) -> the TPU kernel's (B*H, T, N)."""
+    B, T, H, N = a.shape
+    return np.ascontiguousarray(np.moveaxis(a, 2, 1).reshape(B * H, T, N))
+
+
+@pytest.mark.parametrize("t,chunk", [(96, 32), (64, 64), (100, 32)])
+def test_wkv_plain_matches_jax_kernel_and_ref(t, chunk):
+    """``tests/test_kernels.py``'s cases (4 rows of N=32, one u for every
+    row, a zero state) as B=2 x H=2 with u tiled over the heads: the plain
+    version against JAX ``wkv_ref`` and against the Pallas op in interpret
+    mode."""
+    B, H, N = 2, 2, 32
+    r, k, v, w = wkv_inputs(15, (B, t, H, N))
+    u = normal(19, (N,))
+    jargs = [jnp.asarray(rows(a)) for a in (r, k, v, w)]
+    out, state = t_wkv.wkv(*(torch.from_numpy(a) for a in (r, k, v, w)),
+                           torch.from_numpy(np.tile(u, (H, 1))))
+    assert out.shape == (B, t, H, N) and out.dtype == torch.float32
+    got_out, got_state = rows(out.numpy()), state.numpy().reshape(B * H, N, N)
+    for want_out, want_state in (K.wkv.reference(*jargs, jnp.asarray(u)),
+                                 K.wkv.wkv(*jargs, jnp.asarray(u), chunk=chunk)):
+        assert rel_err(got_out, want_out) < WKV_TOL
+        assert rel_err(got_state, want_state) < WKV_TOL
+
+
+def test_wkv_plain_matches_model_scan():
+    """A per-head u and a nonzero initial state, against the JAX model's
+    chunked ``wkv_scan``, over a T that is no multiple of its chunk."""
+    B, T, H, N = 2, 70, 3, 16
+    r, k, v, w = wkv_inputs(20, (B, T, H, N))
+    u, s0 = normal(24, (H, N)), normal(25, (B, H, N, N))
+    want_out, want_state = jax_recurrent.wkv_scan(
+        *(jnp.asarray(a) for a in (r, k, v, w)), jnp.asarray(u), jnp.asarray(s0),
+        chunk=16)
+    out, state = t_wkv.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)))
+    assert rel_err(out.numpy(), want_out) < WKV_TOL
+    assert rel_err(state.numpy(), want_state) < WKV_TOL
+
+
+def test_wkv_lengths_match_jax_on_the_unpadded_sequence():
+    """Right-padded rows with random pads: each row's output and final state
+    are JAX's on its real steps alone; the pads' outputs are zero."""
+    B, T, H, N = 3, 40, 2, 16
+    r, k, v, w = wkv_inputs(30, (B, T, H, N))
+    u, s0 = normal(31, (H, N)), normal(32, (B, H, N, N))
+    lens = [40, 23, 1]
+    out, state = t_wkv.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)),
+                           torch.tensor(lens, dtype=torch.int32))
+    for b, n in enumerate(lens):
+        want_out, want_state = jax_recurrent.wkv_scan(
+            *(jnp.asarray(a[b:b + 1, :n]) for a in (r, k, v, w)), jnp.asarray(u),
+            jnp.asarray(s0[b:b + 1]), chunk=16)
+        assert rel_err(out[b:b + 1, :n].numpy(), want_out) < WKV_TOL
+        assert rel_err(state[b:b + 1].numpy(), want_state) < WKV_TOL
+        assert not out[b, n:].any()
+
+
+def test_wkv_writes_the_state_in_place():
+    """``state_out=state0``, as the decode step passes its cache: the result
+    is written into it and equals the out-of-place result."""
+    B, T, H, N = 2, 1, 2, 16
+    args = [torch.from_numpy(a) for a in wkv_inputs(40, (B, T, H, N))]
+    u, s0 = torch.from_numpy(normal(41, (H, N))), torch.from_numpy(normal(42, (B, H, N, N)))
+    want_out, want_state = t_wkv.wkv(*args, u, s0)
+    cache = s0.clone()
+    out, state = t_wkv.wkv(*args, u, cache, state_out=cache)
+    assert state is cache
+    assert torch.equal(out, want_out) and torch.equal(cache, want_state)
+
+
 # ---------------- dispatch ----------------
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
@@ -187,6 +275,9 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
     assert torch.equal(t_gelu.silu_mul(x, x), silu_mul_ref(x, x))
     assert torch.equal(t_rmsnorm.layernorm(x, g, g), layernorm_ref(x, g, g))
     assert torch.equal(t_gelu.gelu(x), gelu_ref(x))
+    r = x.view(1, 4, 2, 16)
+    assert torch.equal(t_wkv.wkv(r, r, r, r, g.view(2, 16))[0],
+                       wkv_ref(r, r, r, r, g.view(2, 16))[0])
     assert TK.launches() == {name: 0 for name in TK.KERNELS}
 
 
@@ -201,7 +292,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "silu_mul": (x, x),
             "flash_attention": (x, x, x),
             "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),
-                                 torch.full((2,), 8, dtype=torch.int32))}[name]
+                                 torch.full((2,), 8, dtype=torch.int32)),
+            "wkv": (x, x, x, x, torch.zeros(8, 32))}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 

@@ -1,4 +1,5 @@
-"""The port's dense model against the JAX model on the same weights.
+"""The port's dense and RWKV6 models against the JAX model on the same
+weights.
 
 Weights come from the JAX package's ``init_params`` and cross into the port
 through ``params_from_jax`` (bf16 bit-exact). Tokens come from numpy. The
@@ -9,10 +10,16 @@ the port's SwiGLU gate rounds ``silu(g) * u`` to bf16 once where the JAX
 model rounds ``silu(g)`` and the product separately, and its tanh-GELU
 computes in fp32 and rounds once where the JAX model computes
 ``jax.nn.gelu(approximate=True)`` on a bf16 tensor.
+
+RWKV6's prefill of a right-padded wave keeps each prompt's pads out of its
+state, where the JAX prefill runs them through it (``ROADMAP.md``, C4); so
+the port's wave is held against JAX prefilling each prompt alone, and
+against the JAX wave only where the wave's prompts are of one length.
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,7 +35,8 @@ from repro_torch.configs import (ARCHS, EXTRA_ARCHS, ModelConfig, get_config,
 from repro_torch.models import layers as t_layers
 from repro_torch.models.lm import LM, padded_vocab
 
-DENSE = sorted(ARCHS) + sorted(EXTRA_ARCHS)
+PORTED = sorted(ARCHS) + sorted(EXTRA_ARCHS)
+DENSE = [a for a in PORTED if get_config(a).family == "dense"]
 TOL = 2e-2
 
 
@@ -46,10 +54,10 @@ def port_cfg(jax_cfg):
     return ModelConfig(**dataclasses.asdict(jax_cfg))
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def pair(request):
-    """(jax cfg, jax params, port model) on the same weights."""
-    jcfg = jax_smoke(jax_get_config(request.param))
+def _pair(arch):
+    """(jax cfg, jax params, port model) of `arch`'s smoke config on the
+    same weights."""
+    jcfg = jax_smoke(jax_get_config(arch))
     jparams = jax_models.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = port_cfg(jcfg)
     model = LM(cfg, device="cpu")
@@ -58,13 +66,23 @@ def pair(request):
     return jcfg, jparams, model
 
 
+@pytest.fixture(scope="module", params=DENSE)
+def pair(request):
+    return _pair(request.param)
+
+
+@pytest.fixture(scope="module")
+def rwkv_pair():
+    return _pair("rwkv6-7b")
+
+
 def tokens(cfg, B=2, S=16, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S),
                                                 dtype=np.int32)
 
 
 def test_port_config_matches_jax_config():
-    for arch in DENSE:
+    for arch in PORTED:
         assert port_cfg(jax_get_config(arch)) == get_config(arch)
         assert port_cfg(jax_smoke(jax_get_config(arch))) == smoke_config(get_config(arch))
 
@@ -148,7 +166,7 @@ def test_prefill_and_decode_match_jax(pair):
     assert rel_err(t2np(cache["k"]), jk) < TOL
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_decode_matches_forward(arch):
     """Mirror of test_models_smoke.py::test_prefill_decode_matches_forward
     on the port alone: the cached serving path agrees with teacher-forced
@@ -194,9 +212,123 @@ def test_layernorm_param_counts_at_full_size(arch, n_config):
     assert ("w_gate" in model.blocks[0].mlp) == cfg.mlp_gated
 
 
+def test_rwkv6_smoke_config_keeps_its_head_dim():
+    """Two heads of 64 at d=128, as in JAX; the channel mix is int(3.5 d)
+    wide, not d_ff."""
+    cfg = smoke_config(get_config("rwkv6-7b"))
+    assert (cfg.d_model, cfg.rwkv_head_dim, cfg.d_ff) == (128, 64, 256)
+    model = models.init_params(cfg, seed=0, device="cpu")
+    assert model.blocks[0].cmix["w_up"].shape == (128, 448)
+    assert model.blocks[0].tmix["u"].dtype == torch.float32
+
+
+def test_rwkv6_forward_matches_jax(rwkv_pair):
+    jcfg, jparams, model = rwkv_pair
+    toks = tokens(jcfg)
+    want, _ = jax.jit(lambda p, t: jax_models.forward(jcfg, p, t))(jparams, toks)
+    got = model(torch.from_numpy(toks))
+    V = jcfg.vocab_size
+    assert got.shape == (2, 16, padded_vocab(model.cfg))
+    assert rel_err(t2np(got)[..., :V], np.asarray(want, np.float32)[..., :V]) < TOL
+
+
+def _jax_alone(jcfg, jparams, prompt, steps):
+    """JAX prefill of one prompt alone at batch 1, then teacher-forced
+    decode steps: (logits after prefill and each step, cache after each)."""
+    prefill = jax.jit(lambda p, t, c: jax_models.prefill(jcfg, p, t, c))
+    decode = jax.jit(lambda p, t, c: jax_models.decode_step(jcfg, p, t, c))
+    lg, cache = prefill(jparams, jnp.asarray([prompt]), jax_models.init_cache(jcfg, 1, 32))
+    out = [(lg, cache)]
+    for tok in steps:
+        lg, cache = decode(jparams, jnp.asarray([tok], jnp.int32), cache)
+        out.append((lg, cache))
+    return out
+
+
+def _rwkv_cache_err(cache, b, jcache):
+    """Largest relative error of sequence b's state and token shifts against
+    a batch-1 JAX cache."""
+    unit = jcache["units"]["u0"]
+    return max(rel_err(t2np(cache[name][:, b]), np.asarray(unit[name], np.float32)[:, 0])
+               for name in ("state", "sx_t", "sx_c"))
+
+
+def test_rwkv6_padded_wave_matches_jax_per_request(rwkv_pair):
+    """A right-padded wave of prompts of 12, 7 and 3 tokens, then three
+    teacher-forced decode steps: each sequence's logits, state and token
+    shifts against JAX run on its prompt alone (C4: the pads stay out of
+    the state). The JAX wave itself leaves the short prompts' states far
+    from that, so this comparison sees a pad in the state."""
+    jcfg, jparams, model = rwkv_pair
+    V = jcfg.vocab_size
+    toks = tokens(jcfg, B=3, S=12, seed=1)
+    lens = [12, 7, 3]
+    steps = tokens(jcfg, B=3, S=3, seed=2)
+    cache = models.init_cache(model.cfg, 3, 32, device="cpu")
+    got = [model.prefill(torch.from_numpy(toks), cache,
+                         torch.tensor(lens, dtype=torch.int32))]
+    caches = [{name: t.clone() for name, t in cache.items()}]
+    for s in range(3):
+        got.append(model.decode_step(torch.from_numpy(steps[:, s]), cache))
+        caches.append({name: t.clone() for name, t in cache.items()})
+    assert cache["pos"].tolist() == [15, 10, 6]
+    for b, n in enumerate(lens):
+        for s, (jl, jc) in enumerate(_jax_alone(jcfg, jparams, toks[b, :n].tolist(),
+                                                steps[b].tolist())):
+            assert rel_err(t2np(got[s][b])[:V], np.asarray(jl, np.float32)[0, :V]) < TOL, (b, s)
+            assert _rwkv_cache_err(caches[s], b, jc) < TOL, (b, s)
+    jwave = jax_models.prefill(jcfg, jparams, toks, jax_models.init_cache(jcfg, 3, 32),
+                               prompt_lens=np.asarray(lens, np.int32))[1]
+    jstate = np.asarray(jwave["units"]["u0"]["state"])
+    assert rel_err(t2np(caches[0]["state"][:, 2]), jstate[:, 2]) > 10 * TOL
+
+
+def test_rwkv6_equal_length_wave_matches_jax_wave(rwkv_pair):
+    """Where a wave's prompts are of one length the JAX wave is right: the
+    port's wave against it, prefill and three decode steps, cache too."""
+    jcfg, jparams, model = rwkv_pair
+    V = jcfg.vocab_size
+    toks = tokens(jcfg, B=2, S=10, seed=3)
+    jl, jcache = jax.jit(lambda p, t, c: jax_models.prefill(jcfg, p, t, c))(
+        jparams, toks, jax_models.init_cache(jcfg, 2, 32))
+    cache = models.init_cache(model.cfg, 2, 32, device="cpu")
+    tl = model.prefill(torch.from_numpy(toks), cache)
+    assert rel_err(t2np(tl)[:, :V], np.asarray(jl, np.float32)[:, :V]) < TOL
+    jdecode = jax.jit(lambda p, t, c: jax_models.decode_step(jcfg, p, t, c))
+    for s in range(3):
+        tok = tokens(jcfg, B=2, S=1, seed=4 + s)[:, 0]
+        jl, jcache = jdecode(jparams, tok, jcache)
+        tl = model.decode_step(torch.from_numpy(tok), cache)
+        assert rel_err(t2np(tl)[:, :V], np.asarray(jl, np.float32)[:, :V]) < TOL
+    for name in ("state", "sx_t", "sx_c"):
+        want = np.asarray(jcache["units"]["u0"][name], np.float32)
+        assert rel_err(t2np(cache[name]), want) < TOL, name
+    assert cache["pos"].tolist() == np.asarray(jcache["pos"]).tolist()
+
+
+def test_rwkv6_param_count_at_full_size():
+    """rwkv6-7b at full size, shapes only (meta device), has exactly the
+    JAX init's parameters (``jax.eval_shape``, no memory). The config's
+    accounting says 40,628,224 more: it counts 310 d a layer too many (six
+    32 x d mixing vectors and a doubled decay LoRA, where the model has
+    eight d-vectors and one LoRA of rank 64) and d for the final LayerNorm,
+    which has a bias too (ROADMAP.md, C6)."""
+    cfg = get_config("rwkv6-7b")
+    shapes = jax.eval_shape(lambda: jax_models.init_params(
+        jax_get_config("rwkv6-7b"), jax.random.PRNGKey(0)))
+    n_jax = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
+    model = models.init_params(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == n_jax == 6_997_942_272
+    d, L = cfg.d_model, cfg.n_layers
+    assert cfg.param_count() == 7_038_570_496 == n + 310 * d * L - d
+    assert padded_vocab(cfg) == cfg.vocab_size
+    assert {p.dtype for p in model.blocks[0].tmix.values()} == {torch.bfloat16,
+                                                                torch.float32}
+
+
 @pytest.mark.parametrize("arch,field", [
     ("granite-moe-3b-a800m", "family"),
-    ("rwkv6-7b", "family"),
     ("recurrentgemma-2b", "family"),
     ("whisper-tiny", "family"),
     ("llama-3.2-vision-11b", "family"),

@@ -109,10 +109,11 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert len(done) == 3 and all(len(r.output) == 3 for r in done)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gpt3-175b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gpt3-175b", "rwkv6-7b"])
 def test_launcher_serves_the_layernorm_archs_on_cpu(arch):
     """``--arch`` resolves through ``get_config``, gpt3-175b (outside
-    ``ARCHS``) included; ``--layers`` cuts the depth."""
+    ``ARCHS``) included; ``--layers`` cuts the depth. rwkv6-7b's prompts
+    (5-11 tokens) are of unequal lengths in one wave."""
     done = serve.main(["--arch", arch, "--requests", "3", "--batch", "2",
                        "--max-new", "3", "--layers", "1", "--device", "cpu"])
     assert len(done) == 3 and all(len(r.output) == 3 for r in done)

@@ -10,6 +10,11 @@ random model stays close to an identity map and mostly repeats a token,
 which keeps the margins wide; with the layer weights scaled up the streams
 vary but near ties appear within the tolerance. Non-greedy draws cannot
 match ``jax.random``; the sampler is tested by its properties instead.
+
+RWKV6 (rwkv6-7b's smoke config) is held to the JAX engine where the first
+wave's prompts are of one length, and, on a wave of unequal prompts, to JAX
+run on each request alone at batch 1: the JAX wave runs a short prompt's
+pads through its state (``ROADMAP.md``, C4), the port's does not.
 """
 import dataclasses
 
@@ -100,15 +105,14 @@ def test_gpt3_engine_matches_jax_engine(monkeypatch):
     forced on the same tokens). A position taken from another slot or from
     the wave moves these logits far past the tolerance."""
     jcfg, jparams, cfg, model = _pair("gpt3-175b")
-    prompts = _prompts(5, cfg.vocab_size)
-    n_new = [3, 8, 5, 6, 4]
-    jeng = JaxEngine(jcfg, jparams, batch_size=2, max_len=64)
-    jdone = jeng.run([JaxRequest(uid=i, prompt=p, max_new_tokens=n)
-                      for i, (p, n) in enumerate(zip(prompts, n_new))])
-    want = {r.uid: r.output for r in jdone}
+    _forced_engine_matches_jax_engine(monkeypatch, jcfg, jparams, cfg, model,
+                                      _prompts(5, cfg.vocab_size))
 
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=n, sampling=SamplingParams())
-            for i, (p, n) in enumerate(zip(prompts, n_new))]
+
+def _teacher_force(monkeypatch, reqs, want):
+    """Make the port engine's sampler return `want`'s tokens ({uid: tokens})
+    for `reqs`; returns the dict that keeps every row of logits it sampled
+    from, by (uid, step)."""
     by_sampling = {id(r.sampling): r for r in reqs}
     rows = {}
 
@@ -121,11 +125,15 @@ def test_gpt3_engine_matches_jax_engine(monkeypatch):
         return torch.tensor(out, dtype=torch.int32)
 
     monkeypatch.setattr(engine_mod, "sample_per_request", forced)
-    _check_engine(jeng, jdone, cfg, model, reqs, n_new)
+    return rows
 
+
+def _rows_match_jax_alone(jcfg, jparams, prompts, want, rows):
+    """Every row the port's engine sampled from against the JAX model's own
+    logits for that request and step (batch 1, teacher-forced on `want`)."""
     prefill = jax.jit(lambda p, t, c: jax_models.prefill(jcfg, p, t, c))
     decode = jax.jit(lambda p, t, c: jax_models.decode_step(jcfg, p, t, c))
-    V = cfg.vocab_size
+    V = jcfg.vocab_size
     for uid, prompt in enumerate(prompts):
         cache = jax_models.init_cache(jcfg, 1, 64)
         lg, cache = prefill(jparams, jnp.asarray([prompt]), cache)
@@ -133,11 +141,29 @@ def test_gpt3_engine_matches_jax_engine(monkeypatch):
             jrow = np.asarray(lg[0, :V], np.float32)
             assert rel_err(rows[uid, step][:V], jrow) < TOL, (uid, step)
             lg, cache = decode(jparams, jnp.asarray([tok]), cache)
-    assert len(rows) == sum(n_new)
+    assert len(rows) == sum(len(t) for t in want.values())
 
 
-def _engine_matches_jax_engine(jcfg, jparams, cfg, model):
-    prompts = _prompts(5, cfg.vocab_size)
+def _forced_engine_matches_jax_engine(monkeypatch, jcfg, jparams, cfg, model,
+                                      prompts):
+    """Five requests on two slots, the port's engine teacher-forced on the
+    JAX engine's tokens: the schedule, counters and final caches against
+    the JAX engine's, every sampled row against JAX run per request."""
+    n_new = [3, 8, 5, 6, 4]
+    jeng = JaxEngine(jcfg, jparams, batch_size=2, max_len=64)
+    jdone = jeng.run([JaxRequest(uid=i, prompt=p, max_new_tokens=n)
+                      for i, (p, n) in enumerate(zip(prompts, n_new))])
+    want = {r.uid: r.output for r in jdone}
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n, sampling=SamplingParams())
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    rows = _teacher_force(monkeypatch, reqs, want)
+    _check_engine(jeng, jdone, cfg, model, reqs, n_new)
+    _rows_match_jax_alone(jcfg, jparams, prompts, want, rows)
+
+
+def _engine_matches_jax_engine(jcfg, jparams, cfg, model, prompts=None):
+    if prompts is None:
+        prompts = _prompts(5, cfg.vocab_size)
     n_new = [3, 8, 5, 6, 4]
     for p, n in zip(prompts, n_new):
         toks, margins, big = _jax_greedy_margins(jcfg, jparams, p, n)
@@ -166,14 +192,62 @@ def _check_engine(jeng, jdone, cfg, model, reqs, n_new):
     assert len({tuple(o) for o in got.values()}) == 5
     assert eng.stats["tokens_out"] == sum(n_new) == jeng.stats["tokens_out"]
     assert eng.stats["steps"] == jeng.stats["steps"]
-    # the refilled slots' K/V and positions, as the JAX engine left them
-    # (the tokens alone would not show a misplaced cache: at this init scale
-    # the model's greedy stream hardly depends on its context)
+    # the refilled slots' caches (K/V, or RWKV6's state and token shifts)
+    # and positions, as the JAX engine left them (the tokens alone would not
+    # show a misplaced cache: at this init scale the model's greedy stream
+    # hardly depends on its context)
     jcache = jeng.cache["units"]["u0"]
     assert eng.cache["pos"].tolist() == np.asarray(jeng.cache["pos"]).tolist()
-    for name in ("k", "v"):
-        want_kv = np.asarray(jcache[name], np.float32)
-        assert rel_err(eng.cache[name].float().numpy(), want_kv) < TOL
+    assert set(eng.cache) == set(jcache) | {"pos"}
+    for name, leaf in jcache.items():
+        want = np.asarray(leaf, np.float32)
+        assert rel_err(eng.cache[name].float().numpy(), want) < TOL, name
+
+
+@pytest.fixture(scope="module")
+def rwkv_setup():
+    return _pair("rwkv6-7b")
+
+
+def test_rwkv6_engine_matches_jax_engine_on_an_equal_length_wave(monkeypatch,
+                                                                 rwkv_setup):
+    """The first wave's two prompts of one length (where the JAX wave is
+    right), then three refills of other lengths, against the JAX engine:
+    the schedule, counters and the slots' final states and token shifts.
+    The smoke model's greedy steps come within the logit tolerance of a tie,
+    so, as for gpt3, the port's engine is teacher-forced on the JAX engine's
+    tokens and every row it sampled from is held against JAX's logits for
+    that request and step."""
+    jcfg, jparams, cfg, model = rwkv_setup
+    prompts = _prompts(5, cfg.vocab_size)
+    prompts[1] = prompts[1][:len(prompts[0])] + prompts[0][len(prompts[1]):]
+    assert len(prompts[0]) == len(prompts[1]) != len(prompts[2])
+    _forced_engine_matches_jax_engine(monkeypatch, jcfg, jparams, cfg, model,
+                                      prompts)
+
+
+def test_rwkv6_engine_on_an_unequal_wave_matches_jax_per_request(monkeypatch,
+                                                                 rwkv_setup):
+    """Four prompts of 3-11 tokens on four slots in one right-padded wave,
+    then decode, teacher-forced on the greedy tokens of JAX run on each
+    request alone at batch 1: every row the engine sampled from against
+    JAX's logits for that request and step. A pad run through a short
+    prompt's state (C4) moves its rows far past the tolerance."""
+    jcfg, jparams, cfg, model = rwkv_setup
+    prompts = _prompts(4, cfg.vocab_size)
+    assert len({len(p) for p in prompts}) > 1
+    n_new = [6, 4, 5, 7]
+    want = {i: _jax_greedy_margins(jcfg, jparams, p, n)[0]
+            for i, (p, n) in enumerate(zip(prompts, n_new))}
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    rows = _teacher_force(monkeypatch, reqs, want)
+    eng = Engine(cfg, model, batch_size=4, max_len=64, device="cpu")
+    done = eng.run(reqs)
+    assert {r.uid: r.output for r in done} == want
+    assert eng.stats["tokens_out"] == sum(n_new)
+    assert eng.stats["steps"] == max(n_new) - 1
+    _rows_match_jax_alone(jcfg, jparams, prompts, want, rows)
 
 
 def test_engine_greedy_matches_step_by_step(setup):
