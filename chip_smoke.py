@@ -158,8 +158,8 @@ def phase_build(torch):
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
-    for name in seconds:
-        for line in resource_usage(_build, name):
+    for name, log in _build.LOGS.items():
+        for line in resource_usage(log):
             print(f"[build] {name}.cu {line}")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
@@ -182,32 +182,17 @@ def phase_build(torch):
               f"{getattr(fn.compiled, 'n_spills', 'unknown')} spills")
 
 
-def resource_usage(_build, name):
-    """Registers, stack, shared and local memory of each kernel in the built
-    library of csrc/<name>.cu, as cuobjdump reads them from the binary (one
-    line a kernel, names demangled by cu++filt; nothing where the toolkit
-    lacks the tools)."""
-    bin_dir = Path(_build._nvcc()).parent
-    tool, filt = bin_dir / "cuobjdump", bin_dir / "cu++filt"
-    if not tool.exists():
-        return []
-    report = subprocess.run([str(tool), "--dump-resource-usage",
-                             str(_build.library_path(name))],
-                            capture_output=True, text=True).stdout.splitlines()
-    lines, fn = [], None
-    for line in report:
-        line = line.strip()
-        if line.startswith("Function "):
-            fn = line[len("Function "):].rstrip(":")
-            if filt.exists():
-                fn = subprocess.run([str(filt), fn], capture_output=True,
-                                    text=True).stdout.strip() or fn
-        elif line.startswith("REG:") and fn is not None:
-            end = fn.find(">(")        # the template's end, not its "(int)"
-            name = fn[:end + 1] if end >= 0 else fn.split("(")[0]
-            for noise in ("void ", "<unnamed>::", "(anonymous namespace)::"):
-                name = name.replace(noise, "")
-            lines.append(f"{name}: {' '.join(line.split()[:4])}")
+def resource_usage(log):
+    """ptxas's registers, barriers and memory of each kernel of a build log
+    (nvcc runs with -Xptxas -v), one line a kernel under its mangled name."""
+    lines, fn, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            spills = line.strip()
+        elif ": Used " in line and fn is not None:
+            lines.append(f"{fn}: {line.split(': ', 1)[1].strip()}; {spills}")
             fn = None
     return lines
 
@@ -297,7 +282,7 @@ def wkv_cases():
     a T that is no multiple of the kernel's 32-step chunk, and the served
     prefill (8 slots, 64 heads of 64, prompt lengths) and decode step."""
     return [(2, 96, 2, 32, None, False, False), (2, 64, 2, 32, None, False, False),
-            (2, 100, 2, 32, None, False, False), (2, 64, 2, 16, None, True, False),
+            (2, 100, 2, 32, None, False, False), (2, 64, 2, 32, None, True, False),
             (3, 77, 4, 64, [77, 40, 1], True, False),
             (SLOTS, 512, 64, 64, prompt_lengths(SLOTS, 512), False, True),
             (SLOTS, 1, 64, 64, None, True, True)]
@@ -727,7 +712,9 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
 
     # wkv: the served rwkv6 wave's prefill (data-dependent: the steps of its
     # prompt lengths are counted, the output is written in full) and the
-    # decode step in place; 7 fp32 operations per state element and step
+    # decode step in place; per step 5 fp32 operations a state element (an
+    # FMA for r.S, a multiply and an FMA for the update) and 2 N for the
+    # bonus dot r.(u*k), whose product with v_j is O(N) too
     H, N = 64, 64
     for T, with_state in ((max(wave_lens), False), (1, True)):
         r, k, v, w, u, s0 = wkv_inputs(torch, rnd, SLOTS, T, H, N, with_state)
@@ -740,7 +727,7 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
         add("wkv", label, lambda: KERNELS["wkv"](r, k, v, w, u, s0, lens_t, state_out=s0),
             lambda: wkv_ref(r, k, v, w, u, s0, lens_t), None,
             4 * steps * H * N * 4 + SLOTS * T * H * N * 4 + state_bytes + H * N * 4,
-            7 * steps * H * N * N, FP32_FLOPS)
+            5 * steps * H * N * N + 2 * steps * H * N, FP32_FLOPS)
         del r, k, v, w, s0
     return [rows[name] for name in SOURCES]
 

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LOGS: dict = {}  # name -> the compiler's output of its build in this process
 
 
 def _nvcc() -> str:
@@ -55,8 +56,9 @@ def _command(name: str, out: Path) -> list:
 def build(names) -> dict:
     """Compile every named source that has no current library, all nvcc
     processes at once. Returns {name: seconds its build took (0.0 when the
-    library was already there)}; raises with the compiler's output on a
-    failed build."""
+    library was already there)} and keeps each build's compiler output,
+    ptxas's registers and memory of each kernel included, in ``LOGS``;
+    raises with the compiler's output on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     t0 = time.perf_counter()
@@ -74,6 +76,7 @@ def build(names) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

@@ -12,24 +12,30 @@
 // and the state may start from state0.
 //
 // Bound on an H100 at the served prefill (B, T, H, N) = (8, <=512, 64, 64):
-// operations. Each step does 7 fp32 operations per state element (a
-// multiply and three fused multiply-adds), 7 N^2 in all, on the 20 N bytes
-// of its four input vectors and its output vector: 22 operations per byte at
-// N = 64, just above the 20 at which 67 TFLOP/s of fp32 and 3.35 TB/s meet;
-// the products cannot go to the tensor cores in this sequential form. At decode (T = 1) it is bytes: the 16 KiB state of each
-// (b, h) is read and written once and used for one step.
+// bytes. The step factors as
+//   out_t[j] = sum_i r_t[i] * S[i][j] + v_t[j] * sum_i r_t[i] * u[i] * k_t[i]
+// so it needs 5 fp32 operations per state element (an FMA for r.S, a
+// multiply and an FMA for the update) and 2 N for the bonus dot, 5 N^2 + 2 N
+// in all, on the 20 N bytes of its four input vectors and its output
+// vector: 16 operations per byte at N = 64, below the 20 at which 67 TFLOP/s
+// of fp32 and 3.35 TB/s meet; the products cannot go to the tensor cores in
+// this sequential form. At decode (T = 1) it is bytes too: the 16 KiB state
+// of each (b, h) is read and written once and used for one step.
 //
 // Design (simple first). The TPU kernel carries S in VMEM scratch across a
 // sequential grid axis over time chunks; Hopper's blocks run in no order, so
 // the time loop runs inside the block. One block of N threads per (h, b);
 // thread j keeps column j of S in N registers for the whole sequence. A
 // chunk of CH steps of r, k, w and v is staged in shared memory by coalesced
-// row loads (one __syncthreads pair per chunk, not per step); each step then
-// reads r, k, w and u as float4 broadcasts and v[j] from its own column.
-// The sum over i runs in four interleaved partial sums, whose order differs
-// from the reference's by fp32 rounding only. The inputs are read through
-// their (batch, time, head) strides with a unit stride along N, so the
-// model's (B, T, H, N) views need no transpose.
+// row loads; then thread s < CH computes the bonus dot of step s of the
+// chunk in four partial sums of float4 reads (rotated by 4 s words, so that
+// the threads of a quarter-warp hit distinct banks), three __syncthreads a
+// chunk in all, none per step. Each step then reads r, k and
+// w as float4 broadcasts and v[j] from its own column, and issues an FMA, a
+// multiply and an FMA per element. The sum over i runs in four interleaved
+// partial sums, whose order differs from the reference's by fp32 rounding
+// only. The inputs are read through their (batch, time, head) strides with a
+// unit stride along N, so the model's (B, T, H, N) views need no transpose.
 //
 // Decode in place: state_out may be state0 itself. Each thread reads its own
 // column of state0 into registers before the first step and writes the same
@@ -57,11 +63,13 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ u, const float* state0,
                const int* __restrict__ lengths, float* __restrict__ out, float* state_out,
                int T, int H, Strides sr, Strides sk, Strides sv, Strides sw) {
+  static_assert(N >= CH, "a thread computes each staged step's bonus dot");
   __shared__ __align__(16) float s_r[CH][N];
   __shared__ __align__(16) float s_k[CH][N];
   __shared__ __align__(16) float s_w[CH][N];
   __shared__ __align__(16) float s_v[CH][N];
   __shared__ __align__(16) float s_u[N];
+  __shared__ float s_ruk[CH];
 
   const int h = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
   const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
@@ -91,6 +99,22 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
       s_v[s][j] = vb[t * sv.t];
     }
     __syncthreads();
+    if (j < n) {  // the bonus dot of step j of the chunk
+      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+#pragma unroll
+      for (int c = 0; c < N; c += 4) {
+        const int i = (c + 4 * j) % N;
+        const float4 r4 = *reinterpret_cast<const float4*>(&s_r[j][i]);
+        const float4 k4 = *reinterpret_cast<const float4*>(&s_k[j][i]);
+        const float4 u4 = *reinterpret_cast<const float4*>(&s_u[i]);
+        d0 = fmaf(r4.x * u4.x, k4.x, d0);
+        d1 = fmaf(r4.y * u4.y, k4.y, d1);
+        d2 = fmaf(r4.z * u4.z, k4.z, d2);
+        d3 = fmaf(r4.w * u4.w, k4.w, d3);
+      }
+      s_ruk[j] = (d0 + d1) + (d2 + d3);
+    }
+    __syncthreads();
     for (int s = 0; s < n; ++s) {
       const float vj = s_v[s][j];
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
@@ -99,21 +123,16 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
         const float4 r4 = *reinterpret_cast<const float4*>(&s_r[s][i]);
         const float4 k4 = *reinterpret_cast<const float4*>(&s_k[s][i]);
         const float4 w4 = *reinterpret_cast<const float4*>(&s_w[s][i]);
-        const float4 u4 = *reinterpret_cast<const float4*>(&s_u[i]);
-        float kv = k4.x * vj;
-        a0 = fmaf(r4.x, fmaf(u4.x, kv, S[i]), a0);
-        S[i] = fmaf(S[i], w4.x, kv);
-        kv = k4.y * vj;
-        a1 = fmaf(r4.y, fmaf(u4.y, kv, S[i + 1]), a1);
-        S[i + 1] = fmaf(S[i + 1], w4.y, kv);
-        kv = k4.z * vj;
-        a2 = fmaf(r4.z, fmaf(u4.z, kv, S[i + 2]), a2);
-        S[i + 2] = fmaf(S[i + 2], w4.z, kv);
-        kv = k4.w * vj;
-        a3 = fmaf(r4.w, fmaf(u4.w, kv, S[i + 3]), a3);
-        S[i + 3] = fmaf(S[i + 3], w4.w, kv);
+        a0 = fmaf(r4.x, S[i], a0);
+        S[i] = fmaf(S[i], w4.x, k4.x * vj);
+        a1 = fmaf(r4.y, S[i + 1], a1);
+        S[i + 1] = fmaf(S[i + 1], w4.y, k4.y * vj);
+        a2 = fmaf(r4.z, S[i + 2], a2);
+        S[i + 2] = fmaf(S[i + 2], w4.z, k4.z * vj);
+        a3 = fmaf(r4.w, S[i + 3], a3);
+        S[i + 3] = fmaf(S[i + 3], w4.w, k4.w * vj);
       }
-      ob[(t0 + s) * out_t] = (a0 + a1) + (a2 + a3);
+      ob[(t0 + s) * out_t] = fmaf(vj, s_ruk[s], (a0 + a1) + (a2 + a3));
     }
   }
   for (int t = len; t < T; ++t) ob[t * out_t] = 0.f;
@@ -137,7 +156,7 @@ cudaError_t launch(cudaStream_t st, const float* r, const float* k, const float*
 // contiguous last axis; u: (H, N) fp32 contiguous; state0: (B, H, N, N) fp32
 // contiguous, or null for a zero state; lengths: (B,) int32, or null for T
 // steps everywhere; out: (B, T, H, N) fp32 contiguous; state_out: (B, H, N, N)
-// fp32 contiguous, which may be state0 (updated in place). N in {16, 32, 64}.
+// fp32 contiguous, which may be state0 (updated in place). N in {32, 64}.
 // Returns cudaGetLastError().
 extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const void* w,
                        const void* u, const void* state0, const void* lengths, void* out,
@@ -155,9 +174,6 @@ extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const void* 
   float* fso = static_cast<float*>(state_out);
   cudaError_t err;
   switch (N) {
-    case 16:
-      err = launch<16>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, B, T, H, sr, sk, sv, sw);
-      break;
     case 32:
       err = launch<32>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, B, T, H, sr, sk, sv, sw);
       break;

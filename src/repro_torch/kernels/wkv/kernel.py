@@ -18,7 +18,7 @@ import torch
 
 from .. import _build
 
-HEAD_SIZES = (16, 32, 64)
+HEAD_SIZES = (32, 64)
 
 
 @functools.cache
@@ -45,7 +45,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              lengths: Optional[torch.Tensor] = None, *,
              state_out: Optional[torch.Tensor] = None):
     """r, k, v, w: (B, T, H, N) fp32 on one CUDA device, unit stride along
-    N, N in (16, 32, 64); u: (H, N) fp32; state0, state_out: (B, H, N, N)
+    N, N in (32, 64); u: (H, N) fp32; state0, state_out: (B, H, N, N)
     fp32 contiguous or None; lengths: (B,) int32 or None. Returns
     (out (B, T, H, N) contiguous, final state)."""
     if r.dim() != 4 or any(a.shape != r.shape for a in (k, v, w)):

@@ -109,7 +109,7 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype):
 # (u tiled over the heads), a T that is no multiple of the kernel's chunk,
 # the served prefill's heads with prompt lengths, and the decode step
 WKV_CASES = [(2, 96, 2, 32, None, False), (2, 100, 2, 32, None, False),
-             (3, 77, 4, 64, [77, 40, 1], True), (2, 70, 3, 16, [70, 33], True),
+             (3, 77, 4, 64, [77, 40, 1], True), (2, 70, 3, 32, [70, 33], True),
              (8, 160, 64, 64, [160, 128, 33, 97, 1, 150, 64, 159], False),
              (8, 1, 64, 64, None, True)]
 

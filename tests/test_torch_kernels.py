@@ -223,7 +223,7 @@ def test_wkv_plain_matches_jax_kernel_and_ref(t, chunk):
 def test_wkv_plain_matches_model_scan():
     """A per-head u and a nonzero initial state, against the JAX model's
     chunked ``wkv_scan``, over a T that is no multiple of its chunk."""
-    B, T, H, N = 2, 70, 3, 16
+    B, T, H, N = 2, 70, 3, 32
     r, k, v, w = wkv_inputs(20, (B, T, H, N))
     u, s0 = normal(24, (H, N)), normal(25, (B, H, N, N))
     want_out, want_state = jax_recurrent.wkv_scan(
@@ -237,7 +237,7 @@ def test_wkv_plain_matches_model_scan():
 def test_wkv_lengths_match_jax_on_the_unpadded_sequence():
     """Right-padded rows with random pads: each row's output and final state
     are JAX's on its real steps alone; the pads' outputs are zero."""
-    B, T, H, N = 3, 40, 2, 16
+    B, T, H, N = 3, 40, 2, 32
     r, k, v, w = wkv_inputs(30, (B, T, H, N))
     u, s0 = normal(31, (H, N)), normal(32, (B, H, N, N))
     lens = [40, 23, 1]
@@ -255,7 +255,7 @@ def test_wkv_lengths_match_jax_on_the_unpadded_sequence():
 def test_wkv_writes_the_state_in_place():
     """``state_out=state0``, as the decode step passes its cache: the result
     is written into it and equals the out-of-place result."""
-    B, T, H, N = 2, 1, 2, 16
+    B, T, H, N = 2, 1, 2, 32
     args = [torch.from_numpy(a) for a in wkv_inputs(40, (B, T, H, N))]
     u, s0 = torch.from_numpy(normal(41, (H, N))), torch.from_numpy(normal(42, (B, H, N, N)))
     want_out, want_state = t_wkv.wkv(*args, u, s0)
@@ -275,9 +275,9 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
     assert torch.equal(t_gelu.silu_mul(x, x), silu_mul_ref(x, x))
     assert torch.equal(t_rmsnorm.layernorm(x, g, g), layernorm_ref(x, g, g))
     assert torch.equal(t_gelu.gelu(x), gelu_ref(x))
-    r = x.view(1, 4, 2, 16)
-    assert torch.equal(t_wkv.wkv(r, r, r, r, g.view(2, 16))[0],
-                       wkv_ref(r, r, r, r, g.view(2, 16))[0])
+    r = x.view(1, 4, 1, 32)
+    assert torch.equal(t_wkv.wkv(r, r, r, r, g.view(1, 32))[0],
+                       wkv_ref(r, r, r, r, g.view(1, 32))[0])
     assert TK.launches() == {name: 0 for name in TK.KERNELS}
 
 
