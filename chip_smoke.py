@@ -18,7 +18,23 @@ result line):
                to 1e-4 (output and final state), the JAX wkv tests' bound, at
                their shapes, a ragged T, the served prefill with prompt
                lengths and the decode step in place on a nonzero state;
-  3. serve   - four served paths, one model each, random weights from a
+  3. matmul  - the GEMM op path (``repro_torch.kernels.matmul.ops``, which no
+               served model calls): first every op against its plain version
+               at the JAX kernel tests' shapes (bf16 2e-2, fp32 and fp8 2e-5,
+               int8 1e-4 relative to the largest output, and element by
+               element, ``gemm_excess``) and the fp8 op's NaNs beyond e4m3's
+               range in exactly the plain version's places; then, with every
+               launch count set to 0, the path itself: gpt3-175b's four
+               layer GEMMs at full width (QKV 12288->36864, out 12288->12288,
+               FFN up 12288->49152, down 49152->12288) at M=8 (the decode
+               batch of 8 slots) and M=4096 (a prefill wave of 8 x 512)
+               through matmul (bf16, fp32), matmul_fp8 and matmul_int8, each
+               output held to its plain version as above, and the counts
+               read just after (3 x 8 matmul and 8 matmul_int8 launches, no
+               other kernel); the per-element check is shown to fail two
+               mutants made from the plain product (a dropped k-step, a
+               transposed tile of B);
+  4. serve   - four served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
                layernorm, silu_mul, partial RoPE, d_head 64), gpt3-175b
@@ -36,15 +52,18 @@ result line):
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
                each model and its cache are freed before the next is built;
-  4. model   - each model at full width cut in depth (qwen3, stablelm and
+  5. model   - each model at full width cut in depth (qwen3, stablelm and
                rwkv6 to 2 layers, gpt3 to 1), its prefill and decode logits
                on the card against the port's CPU path on a batch of two
                prompts of unequal lengths; for rwkv6 also the short prompt's
                state and token shifts after the padded wave against that
                prompt prefilled alone on the card;
-  5. timing  - each kernel at the served models' shapes, beside its plain
-               version, the one PyTorch call that computes the same function
-               where there is one, and its bound on the card.
+  6. timing  - each kernel at the served models' shapes (the GEMMs at the
+               matmul path's), beside its plain version, the one PyTorch call
+               that computes the same function where there is one, and its
+               bound on the card; for the bf16 GEMMs also the port's mapper's
+               predicted latency on its H100 preset and the kernel's time at
+               the tile ``mapper_blocks`` picks.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -63,6 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
+INT8_FP8_TENSOR_OPS = 1979e12  # H100 SXM dense int8 and fp8 tensor cores
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 WKV_TOL = 1e-4
@@ -86,6 +106,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
+    "matmul": "src/repro/kernels/matmul/kernel.py:37",
+    "matmul_int8": "src/repro/kernels/matmul/kernel.py:86",
 }
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
@@ -95,7 +117,17 @@ SOURCES = {
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
+    "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
+    "matmul_int8": ("cuda", "src/repro_torch/kernels/csrc/matmul_int8.cu"),
 }
+# the GEMM path: gpt3-175b's layer GEMMs at full width (name, K, N), at the
+# decode batch of 8 slots and a prefill wave of 8 x 512 rows
+GPT3_GEMMS = (("qkv", 12288, 36864), ("out", 12288, 12288), ("ffn_up", 12288, 49152),
+              ("ffn_down", 49152, 12288))
+GEMM_ROWS = (SLOTS, 8 * 512)
+GEMM_EDGES = ((128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77), (513, 129, 257))
+GEMM_MODES = ("bf16", "fp32", "fp8", "int8")
+GEMM_TOL = {"bf16": 2e-2, "fp32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
 
 
 def require(cond, msg):
@@ -154,7 +186,8 @@ class Inputs:
 def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_attention", "decode_attention", "wkv"])
+    seconds = _build.build(["flash_attention", "decode_attention", "wkv", "matmul",
+                            "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -344,6 +377,119 @@ def phase_kernels(torch):
             errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
     phase_wkv(torch, errs)
     return errs
+
+
+def gemm_excess(torch, got, want, a, b):
+    """Largest |got - want| / (r |want| + 2^-16 (|a| @ |b|)) over the
+    elements of a GEMM's output; at most 1 passes. a, b are the operands'
+    values (dequantized for int8, e4m3 for fp8), |a| @ |b| taken in fp32;
+    r = 2^-7 for a bf16 output (the two sides' roundings leave them at most
+    one bf16 ulp apart), 0 for fp32. The fp32 sums of kernel and plain
+    version differ by their order, about sqrt(K) 2^-24 of the partial sums,
+    far below 2^-16 (|a| @ |b|). A kernel that drops one k-step or uses a
+    tile of B transposed moves an element by a sum of ~16 products, ~4 at
+    unit-normal operands, against 2^-16 (|a| @ |b|) = 0.12-0.48 at K =
+    12288-49152 and one bf16 ulp of an output of ~100-400 (0.5-2), so it
+    fails where the relative error to the largest output (~4.5 sqrt(K)) may
+    not. NaNs count as agreeing here; their places are compared apart."""
+    r = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    mag = a.float().nan_to_num().abs() @ b.float().nan_to_num().abs()
+    den = (r * want.abs() + 2.0 ** -16 * mag).clamp_min(1e-30)
+    return ((got - want).abs() / den).nan_to_num(0.0).max().item()
+
+
+def gemm_case(torch, mode, a, b, tile=None):
+    """One GEMM of the op path on fp32 operands a (M,K), b (K,N): the op's
+    output (kernel on the card), the plain version's, and the operands'
+    values as the kernel multiplies them. `tile` = (bm, bk, bn) or the op's
+    default."""
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.kernels.matmul.ref import (matmul_fp8_ref, matmul_int8_ref, matmul_ref,
+                                                quantize_fp8, quantize_int8)
+    kw = {} if tile is None else dict(zip(("bm", "bk", "bn"), tile))
+    if mode in ("bf16", "fp32"):
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        a, b = a.to(dt), b.to(dt)
+        return ops.matmul(a, b, **kw), matmul_ref(a, b), a, b
+    if mode == "fp8":
+        return ops.matmul_fp8(a, b, **kw), matmul_fp8_ref(a, b), quantize_fp8(a), quantize_fp8(b)
+    (qa, sa), (qb, sb) = quantize_int8(a, 1), quantize_int8(b, 0)
+    return ops.matmul_int8(a, b, **kw), matmul_int8_ref(a, b), qa * sa, qb * sb
+
+
+def check_gemm(torch, mode, label, got, want, a, b):
+    """Shape, dtype, NaN places, relative error and per-element excess of
+    one GEMM against its plain version; returns (rel_err, excess)."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{mode} {label}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} "
+            f"{want.dtype}")
+    require(torch.equal(got.isnan(), want.isnan()), f"{mode} {label}: NaNs in other places "
+            "than the plain version's")
+    ok = ~want.isnan()
+    err = rel_err(got[ok], want[ok]) if ok.any() else 0.0
+    excess = gemm_excess(torch, got, want, a, b)
+    line = (f"[matmul] {mode:4s} {label}: rel_err {err:.3e} (tol {GEMM_TOL[mode]:g}), "
+            f"per-element excess {excess:.3f} (<= 1)")
+    require(err < GEMM_TOL[mode] and excess <= 1, f"{line}: fails")
+    print(f"{line} ok")
+    return err, excess
+
+
+def phase_matmul(torch):
+    """The GEMM op path; returns ({kernel: launches in the path run},
+    {mode: largest |kernel - plain| at the gpt3 shapes})."""
+    from repro_torch import kernels as K
+    rnd = Inputs(torch, 5)
+    for mode in GEMM_MODES:
+        for m, k, n in GEMM_EDGES:
+            a, b = rnd((m, k), torch.float32), rnd((k, n), torch.float32)
+            got, want, x, y = gemm_case(torch, mode, a, b, (128, 128, 128))
+            check_gemm(torch, mode, f"({m},{k})x({k},{n}) blocks 128/128/128", got, want, x, y)
+    # the fp8 op beyond e4m3's range: NaN where the reference's cast gives it
+    a, b = rnd((70, 96), torch.float32), rnd((96, 130), torch.float32)
+    a[3, 5], a[10, 0], a[11, 95], a[20, 20] = 500.0, float("inf"), -465.0, 464.0
+    b[7, 9], b[0, 129], b[30, 30] = float("-inf"), 1e4, -448.0
+    got, want, x, y = gemm_case(torch, "fp8", a, b)
+    check_gemm(torch, "fp8", "(70,96)x(96,130) with 500, -465, 1e4, +-inf (NaN) and 464, "
+               f"-448 (+-448), {int(want.isnan().sum())} NaNs", got, want, x, y)
+
+    expected = dict.fromkeys(K.KERNELS, 0)
+    expected.update(matmul=3 * len(GEMM_ROWS) * len(GPT3_GEMMS),
+                    matmul_int8=len(GEMM_ROWS) * len(GPT3_GEMMS))
+    errs = dict.fromkeys(GEMM_MODES, 0.0)
+    t0 = time.perf_counter()
+    K.reset_launches()
+    for M in GEMM_ROWS:
+        for name, k, n in GPT3_GEMMS:
+            a, b = rnd((M, k), torch.float32), rnd((k, n), torch.float32)
+            for mode in GEMM_MODES:
+                got, want, x, y = gemm_case(torch, mode, a, b)
+                check_gemm(torch, mode, f"gpt3-175b {name} ({M},{k})x({k},{n})", got, want, x, y)
+                errs[mode] = max(errs[mode], max_abs(got, want))
+                del got, want, x, y
+            del a, b
+    counts = K.launches()
+    require(counts == expected, f"GEMM path launches {counts}, not {expected}")
+    print(f"[matmul] path: {len(GPT3_GEMMS)} gpt3-175b GEMMs x M in {GEMM_ROWS} x "
+          f"{GEMM_MODES} through repro_torch.kernels.matmul.ops in "
+          f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
+
+    # the per-element check against two mutants of the plain bf16 product
+    M, (name, k, n) = SLOTS, GPT3_GEMMS[1]
+    a, b = rnd((M, k), torch.bfloat16), rnd((k, n), torch.bfloat16)
+    want = torch.matmul(a.float(), b.float())
+    drop = want - a[:, 4096:4112].float() @ b[4096:4112].float()
+    bt = b.clone()
+    bt[512:528, 32:48] = b[512:528, 32:48].t()
+    for label, mutant in (("one k-step of 16 dropped", drop),
+                          ("a 16x16 tile of B transposed", a.float() @ bt.float())):
+        excess = gemm_excess(torch, mutant.bfloat16(), want.bfloat16(), a, b)
+        print(f"[matmul] mutant of the bf16 {name} ({M},{k})x({k},{n}), {label}: rel_err "
+              f"{rel_err(mutant.bfloat16(), want.bfloat16()):.3e}, per-element excess "
+              f"{excess:.3f}")
+        require(excess > 1, f"the per-element GEMM check passes a mutant: {label}")
+    return counts, errs
 
 
 def served_config(arch, n_layers):
@@ -619,7 +765,8 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
     ``shapes``. wkv's prefill is timed at the served rwkv6 wave's prompt
-    lengths `wave_lens`."""
+    lengths `wave_lens`. `counts` holds each kernel's launches in its path's
+    run (the serve runs, the GEMM path for the two GEMM kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -631,17 +778,18 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     rnd = Inputs(torch, 3)
     rows = {}
 
-    def add(name, label, kernel, plain, library, nbytes, flops, rate):
-        ms = time_ms(torch, kernel)
-        plain_ms = time_ms(torch, plain)
-        lib_ms = time_ms(torch, library) if library is not None else None
+    def add(name, label, kernel, plain, library, nbytes, flops, rate, iters=25,
+            plain_iters=25, **extra):
+        ms = time_ms(torch, kernel, iters)
+        plain_ms = time_ms(torch, plain, plain_iters)
+        lib_ms = time_ms(torch, library, iters) if library is not None else None
         b_ms, b_by = bound(nbytes, flops, rate)
         lib_s = f"{lib_ms:.5f} ms" if lib_ms is not None else "none"
         print(f"[timing] {name:16s} {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
               f"library {lib_s}, bound {b_ms:.5f} ms ({b_by}), "
               f"{b_ms / ms * 100:.1f}% of bound")
         shape = {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms}
+                 "bound_by": b_by, "library_ms": lib_ms, **extra}
         if name in rows:
             rows[name]["shapes"].append(shape)
             return
@@ -729,6 +877,84 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
             4 * steps * H * N * 4 + SLOTS * T * H * N * 4 + state_bytes + H * N * 4,
             5 * steps * H * N * N + 2 * steps * H * N, FP32_FLOPS)
         del r, k, v, w, s0
+
+    # the GEMM path: gpt3-175b's layer GEMMs at M = 8 and 4096; the kernels
+    # at the op's default tile on pre-quantized operands (quantization is
+    # the op's tensor code, outside the kernel, as in the TPU op); fp32 at
+    # M = 8 and FFN up at M = 4096 only. Plain versions at M = 4096 take
+    # ~0.1 s a call, hence fewer runs there
+    from repro_torch.core.hardware import nvidia_h100
+    from repro_torch.core.mapper import matmul_perf
+    from repro_torch.kernels.matmul.kernel import select_tile
+    from repro_torch.kernels.matmul.ops import mapper_blocks
+    from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_ref, quantize_fp8,
+                                                quantize_int8)
+    f32, f8 = torch.float32, torch.float8_e4m3fn
+    one = torch.ones((), device="cuda")
+
+    def library_or_none(fn, what):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn
+        except RuntimeError as e:
+            print(f"[timing] {what}: library call refused ({str(e).splitlines()[0][:100]})")
+            return None
+
+    for M in GEMM_ROWS:
+        iters, plain_iters = (25, 25) if M == SLOTS else (10, 3)
+        for gemm, Kd, N in GPT3_GEMMS:
+            a32, b32 = rnd((M, Kd), f32), rnd((Kd, N), f32)
+            shape = f"gpt3-175b {gemm} ({M},{Kd})x({Kd},{N})"
+            ops2 = 2 * M * Kd * N
+            a, b = a32.to(bf), b32.to(bf)
+            tile = select_tile(bf, 256, 512, 256)
+            mp = matmul_perf(nvidia_h100(), M, Kd, N)
+            mtile = mapper_blocks(M, Kd, N)
+            mapper_ms = time_ms(torch, lambda: KERNELS["matmul"](
+                a, b, bm=mtile[0], bk=mtile[1], bn=mtile[2]), iters)
+            mapping = mp.mapping
+            print(f"[mapper] {shape} bf16: nvidia_h100() predicts {mp.latency * 1e3:.5f} ms "
+                  f"({mapping.bound}), subtile ({mapping.subtile_m}, {mapping.subtile_k}, "
+                  f"{mapping.subtile_n}) -> mapper_blocks {mtile}: kernel {mapper_ms:.5f} ms "
+                  f"(default tile {tile} below)")
+            add("matmul", f"{shape} bf16 tile {tile}",
+                lambda: KERNELS["matmul"](a, b, bm=tile[0], bk=tile[1], bn=tile[2]),
+                lambda: matmul_ref(a, b), lambda: torch.matmul(a, b),
+                2 * (M * Kd + Kd * N + M * N), ops2, BF16_TENSOR_FLOPS, iters, plain_iters,
+                mode="bf16", mapper_predicted_ms=mp.latency * 1e3, mapper_tile=list(mtile),
+                mapper_tile_ms=mapper_ms)
+            del a, b
+            if M == SLOTS or gemm == "ffn_up":
+                tile = select_tile(f32, 256, 512, 256)
+                add("matmul", f"{shape} fp32 tile {tile}",
+                    lambda: KERNELS["matmul"](a32, b32, bm=tile[0], bk=tile[1], bn=tile[2]),
+                    lambda: matmul_ref(a32, b32), lambda: torch.matmul(a32, b32),
+                    4 * (M * Kd + Kd * N + M * N), ops2, FP32_FLOPS, iters, plain_iters,
+                    mode="fp32")
+            a8, b8 = quantize_fp8(a32), quantize_fp8(b32).t().contiguous().t()
+            tile = select_tile(f8, 256, 512, 256)
+            add("matmul", f"{shape} e4m3 operands, fp32 out, tile {tile}",
+                lambda: KERNELS["matmul"](a8, b8, bm=tile[0], bk=tile[1], bn=tile[2],
+                                          out_dtype=f32),
+                lambda: matmul_ref(a8, b8, out_dtype=f32),
+                library_or_none(lambda: torch._scaled_mm(a8, b8, scale_a=one, scale_b=one,
+                                                         out_dtype=f32), f"{shape} fp8"),
+                M * Kd + Kd * N + 4 * M * N, ops2, INT8_FP8_TENSOR_OPS, iters, plain_iters,
+                mode="fp8")
+            del a8, b8
+            (qa, sa), (qb, sb) = quantize_int8(a32, 1), quantize_int8(b32, 0)
+            qb = qb.t().contiguous().t()
+            tile = select_tile(torch.int8, 256, 512, 256)
+            add("matmul_int8", f"{shape} int8, fp32 out, tile {tile}",
+                lambda: KERNELS["matmul_int8"](qa, qb, sa, sb, bm=tile[0], bk=tile[1],
+                                               bn=tile[2]),
+                lambda: dequant_matmul_ref(qa, qb, sa, sb),
+                library_or_none(lambda: torch._int_mm(qa, qb) * sa * sb, f"{shape} int8"),
+                M * Kd + Kd * N + 4 * (M + N) + 4 * M * N, ops2, INT8_FP8_TENSOR_OPS, iters,
+                plain_iters, mode="int8")
+            del qa, qb, a32, b32
+            torch.cuda.empty_cache()
     return [rows[name] for name in SOURCES]
 
 
@@ -745,6 +971,7 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     errs = phase_kernels(torch)
+    gemm_counts, gemm_errs = phase_matmul(torch)
     counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
         run, per_prefill[arch], per_decode[arch], wave_lens[arch] = phase_serve(
@@ -754,8 +981,19 @@ def main():
           f"{json.dumps(counts)}")
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
-    rows = phase_timing(torch, counts, per_prefill, per_decode, errs,
+    # the GEMM kernels' launches are those of their path; no model calls them
+    errs.update(matmul=max(gemm_errs[m] for m in ("bf16", "fp32", "fp8")),
+                matmul_int8=gemm_errs["int8"])
+    path_counts = {**counts, "matmul": gemm_counts["matmul"],
+                   "matmul_int8": gemm_counts["matmul_int8"]}
+    rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
                         wave_lens["rwkv6-7b"])
+    for row in rows:
+        if row["name"] in ("matmul", "matmul_int8"):
+            row["launches_in_serve_runs"] = counts[row["name"]]
+            row["max_abs_err_by_mode"] = (
+                {"int8": gemm_errs["int8"]} if row["name"] == "matmul_int8" else
+                {m: gemm_errs[m] for m in ("bf16", "fp32", "fp8")})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -7,6 +7,7 @@ CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 from .decode_attention.kernel import decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda
 from .gelu.kernel import gelu_triton, silu_mul_triton
+from .matmul.kernel import matmul_cuda, matmul_int8_cuda
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 from .wkv.kernel import wkv_cuda
 
@@ -19,6 +20,8 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
     "wkv": wkv_cuda,
+    "matmul": matmul_cuda,
+    "matmul_int8": matmul_int8_cuda,
 }
 
 

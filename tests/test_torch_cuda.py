@@ -28,6 +28,10 @@ from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+from repro_torch.kernels.matmul import ops as mm_ops
+from repro_torch.kernels.matmul.kernel import INT8_MAX_K, TILES
+from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
+                                            matmul_ref, quantize_fp8, quantize_int8)
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models.lm import LM
@@ -87,7 +91,7 @@ def kernel_case(name, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv"}))
+@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv", "matmul", "matmul_int8"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -246,12 +250,14 @@ def test_launches_per_step_on_card(cuda):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3,
-                             "decode_attention": 0, "wkv": 0}
+                             "decode_attention": 0, "wkv": 0,
+                             "matmul": 0, "matmul_int8": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0,
-                             "decode_attention": 3, "wkv": 0}
+                             "decode_attention": 3, "wkv": 0,
+                             "matmul": 0, "matmul_int8": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -266,11 +272,13 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     TK.reset_launches()
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 3, "decode_attention": 0, "wkv": 0}
+                             "flash_attention": 3, "decode_attention": 0, "wkv": 0,
+                             "matmul": 0, "matmul_int8": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 0, "decode_attention": 3, "wkv": 0}
+                             "flash_attention": 0, "decode_attention": 3, "wkv": 0,
+                             "matmul": 0, "matmul_int8": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -363,3 +371,131 @@ def test_rwkv6_engine_on_card_matches_cpu(cuda, monkeypatch):
     assert cache_gpu["pos"].tolist() == cache_cpu["pos"].tolist()
     for name in ("state", "sx_t", "sx_c"):
         assert rel_err(cache_gpu[name], cache_cpu[name]) < TOL["bfloat16"], name
+
+
+# ---------------- GEMMs ----------------
+
+# the JAX kernel tests' shapes (ragged K breaks the mma k-step and 16-byte
+# rows) and one gpt3-175b layer GEMM at full width (decode batch of 8)
+GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77),
+               (513, 129, 257), (8, 12288, 12288)]
+GEMM_TOL = {"bfloat16": 2e-2, "float32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
+
+
+def gemm_excess(got, want, a, b):
+    """Largest |got - want| / (r |want| + 2^-16 (|a| @ |b|)) over the
+    elements (a, b: the operands' values in fp32; r = 2^-7, one bf16 ulp
+    apart, for a bf16 output, else 0); <= 1 passes. Dropping a k-step of 16
+    products or transposing a 16x16 tile of b moves an element by the sum of
+    ~16 products, ~4 at unit-normal operands, against 2^-16 of ~0.64 K."""
+    r = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    mag = torch.matmul(a.float().nan_to_num().abs(), b.float().nan_to_num().abs())
+    den = (r * want.abs() + 2.0 ** -16 * mag).clamp_min(1e-30)
+    return ((got - want).abs() / den).nan_to_num(0.0).max().item()
+
+
+def gemm_case(kind, m, k, n, device):
+    """(op's kernel output, plain output, operand values) of one case."""
+    a, b = normal(m + k, (m, k), device, torch.float32), normal(n, (k, n), device, torch.float32)
+    if kind in ("bfloat16", "float32"):
+        a, b = a.to(DTYPES[kind]), b.to(DTYPES[kind])
+        return mm_ops.matmul(a, b, bm=128, bk=128, bn=128), matmul_ref(a, b), a, b
+    if kind == "fp8":
+        return (mm_ops.matmul_fp8(a, b, bm=128, bk=128, bn=128), matmul_fp8_ref(a, b),
+                quantize_fp8(a), quantize_fp8(b))
+    qa, sa = quantize_int8(a, 1)
+    qb, sb = quantize_int8(b, 0)
+    return (mm_ops.matmul_int8(a, b, bm=128, bk=128, bn=128), matmul_int8_ref(a, b),
+            qa.float() * sa, qb.float() * sb)
+
+
+@pytest.mark.parametrize("kind", sorted(GEMM_TOL))
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
+    """Each op's kernel against its plain version: relative error to the
+    largest output and element by element (``gemm_excess``)."""
+    name = "matmul_int8" if kind == "int8" else "matmul"
+    before = TK.KERNELS[name].launches
+    got, want, a, b = gemm_case(kind, m, k, n, cuda)
+    torch.cuda.synchronize()
+    assert TK.KERNELS[name].launches == before + 1
+    assert got.shape == want.shape == (m, n) and got.dtype == want.dtype
+    assert rel_err(got, want) < GEMM_TOL[kind]
+    assert gemm_excess(got, want, a, b) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn,
+                                   torch.int8], ids=str)
+def test_every_compiled_gemm_tile_on_card(cuda, dtype):
+    """Every compiled tile of each kernel at ragged shapes, element by element
+    against the plain version."""
+    for m, k, n in ((513, 129, 257), (1, 300, 77), (70, 96, 130)):
+        a = normal(1, (m, k), cuda, torch.float32)
+        b = normal(2, (k, n), cuda, torch.float32)
+        for tile in TILES[dtype]:
+            bm, bk, bn = tile
+            if dtype == torch.int8:
+                qa, sa = quantize_int8(a, 1)
+                qbt, sbt = quantize_int8(b.t().contiguous(), 1)
+                got = TK.KERNELS["matmul_int8"](qa, qbt.t(), sa, sbt.t(), bm=bm, bk=bk, bn=bn)
+                want = dequant_matmul_ref(qa, qbt.t(), sa, sbt.t())
+                x, y = qa.float() * sa, (qbt.float() * sbt).t()
+            elif dtype == torch.float8_e4m3fn:
+                x, y = quantize_fp8(a), quantize_fp8(b.t().contiguous()).t()
+                got = TK.KERNELS["matmul"](x, y, bm=bm, bk=bk, bn=bn, out_dtype=torch.float32)
+                want = matmul_ref(x, y, out_dtype=torch.float32)
+            else:
+                x, y = a.to(dtype), b.to(dtype)
+                got = TK.KERNELS["matmul"](x, y, bm=bm, bk=bk, bn=bn)
+                want = matmul_ref(x, y)
+            torch.cuda.synchronize()
+            assert gemm_excess(got, want, x, y) <= 1, (tile, m, k, n)
+
+
+def test_fp8_nan_placement_on_card(cuda):
+    """Inputs beyond e4m3's range and +-inf give NaN in exactly the plain
+    version's places (ROADMAP C1); the other outputs agree."""
+    a = normal(3, (70, 96), cuda, torch.float32)
+    b = normal(4, (96, 130), cuda, torch.float32)
+    a[3, 5], a[10, 0], a[11, 95] = 500.0, float("inf"), -465.0
+    b[7, 9], b[0, 129] = float("-inf"), 1e4
+    a[20, 20], b[30, 30] = 464.0, -448.0     # in range: rounds to +-448
+    got, want = mm_ops.matmul_fp8(a, b), matmul_fp8_ref(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any()
+    ok = ~want.isnan()
+    assert rel_err(got[ok], want[ok]) < GEMM_TOL["fp8"]
+
+
+def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
+    """No quiet fallback: fp16 operands, a tile outside the set, an int8
+    K whose int32 sums could overflow."""
+    a = torch.zeros((8, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16, fp32 or e4m3"):
+        TK.KERNELS["matmul"](a, a.t().contiguous())
+    x = torch.zeros((8, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compiled tiles"):
+        TK.KERNELS["matmul"](x, x.t().contiguous(), bm=256, bk=512, bn=256)
+    with pytest.raises(ValueError, match="compiled tiles"):
+        mm_ops.matmul(x, x.t().contiguous(), bm=8, bk=8, bn=8)
+    q = torch.zeros((1, 140000), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="int32"):
+        TK.KERNELS["matmul_int8"](q, q.t(), torch.ones((1, 1), device=cuda),
+                                  torch.ones((1, 1), device=cuda))
+
+
+def test_int8_kernel_is_exact_at_its_k_limit_on_card(cuda):
+    """At K = INT8_MAX_K the int32 sums of -128 * -128 products stay exact;
+    one more k is refused."""
+    for bm, bk, bn in TILES[torch.int8]:
+        q = torch.full((max(bm, bn), INT8_MAX_K), -128, device=cuda, dtype=torch.int8)
+        ones_m, ones_n = torch.ones((bm, 1), device=cuda), torch.ones((1, bn), device=cuda)
+        got = TK.KERNELS["matmul_int8"](q[:bm], q[:bn].t(), ones_m, ones_n, bm=bm, bk=bk,
+                                        bn=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.full_like(got, float(INT8_MAX_K * 128 * 128)))
+    q = torch.zeros((16, INT8_MAX_K + 1), device=cuda, dtype=torch.int8)
+    ones = torch.ones((16, 1), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        TK.KERNELS["matmul_int8"](q, q.t(), ones, ones.t())

@@ -293,7 +293,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "flash_attention": (x, x, x),
             "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),
                                  torch.full((2,), 8, dtype=torch.int32)),
-            "wkv": (x, x, x, x, torch.zeros(8, 32))}[name]
+            "wkv": (x, x, x, x, torch.zeros(8, 32)),
+            "matmul": (x[0, 0], x[0, 0].t()),
+            "matmul_int8": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
+                            torch.ones(4, 1), torch.ones(1, 4))}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 
