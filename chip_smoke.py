@@ -30,10 +30,17 @@ result line):
                batch of 8 slots) and M=4096 (a prefill wave of 8 x 512)
                through matmul (bf16, fp32), matmul_fp8 and matmul_int8, each
                output held to its plain version as above, and the counts
-               read just after (3 x 8 matmul and 8 matmul_int8 launches, no
-               other kernel); the per-element check is shown to fail two
-               mutants made from the plain product (a dropped k-step, a
-               transposed tile of B);
+               read just after, per path: the 16 bf16 and e4m3 GEMMs on the
+               TMA + wgmma kernel (matmul_wgmma) with one split-K reduction
+               (matmul_reduce) for each GEMM its split plan splits, the 8
+               fp32 ones on matmul.cu (none on its mma.sync path), 8
+               matmul_int8, no other kernel; the reduction bit for bit
+               against its plain version; the per-element check is shown to
+               fail two mutants made from the plain product (a dropped
+               k-step, a transposed tile of B); then the e4m3 probe: native
+               e4m3 wgmma, promoted into fp32 every 128 of K or every
+               instruction, at the same gpt3 shapes against the fp8 checks,
+               beside ``torch._scaled_mm``'s own errors;
   4. serve   - four served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
@@ -61,9 +68,11 @@ result line):
   6. timing  - each kernel at the served models' shapes (the GEMMs at the
                matmul path's), beside its plain version, the one PyTorch call
                that computes the same function where there is one, and its
-               bound on the card; for the bf16 GEMMs also the port's mapper's
-               predicted latency on its H100 preset and the kernel's time at
-               the tile ``mapper_blocks`` picks.
+               bound on the card; for the bf16 and e4m3 GEMMs also the
+               mma.sync kernel of matmul.cu on the same operands (the
+               kernel these modes ran on before the wgmma one), for bf16 the
+               port's mapper's predicted latency on its H100 preset and the
+               wgmma kernel's time at the tile ``mapper_blocks`` picks.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -107,6 +116,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
+    "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
+    "matmul_reduce": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_int8": "src/repro/kernels/matmul/kernel.py:86",
 }
 SOURCES = {
@@ -118,6 +129,8 @@ SOURCES = {
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
+    "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
+    "matmul_reduce": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_int8": ("cuda", "src/repro_torch/kernels/csrc/matmul_int8.cu"),
 }
 # the GEMM path: gpt3-175b's layer GEMMs at full width (name, K, N), at the
@@ -187,13 +200,24 @@ def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "decode_attention", "wkv", "matmul",
-                            "matmul_int8"])
+                            "matmul_sm90", "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
     for name, log in _build.LOGS.items():
         for line in resource_usage(log):
             print(f"[build] {name}.cu {line}")
+    # the wgmma kernel's shared memory is dynamic: ptxas does not see it
+    import ctypes
+    from repro_torch.kernels.matmul.kernel import E4M3_FORMS, TILES
+    smem = _build.load("matmul_sm90").matmul_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 5, ctypes.c_int
+    for mode, dtype, forms in ((0, torch.bfloat16, {"": 0}),
+                               (1, torch.float8_e4m3fn, E4M3_FORMS)):
+        for tile in TILES[dtype]:
+            for form, f in forms.items():
+                print(f"[build] matmul_sm90.cu {dtype} {form} tile {tile}: "
+                      f"{smem(mode, f, *tile)} bytes of dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
@@ -454,8 +478,16 @@ def phase_matmul(torch):
     check_gemm(torch, "fp8", "(70,96)x(96,130) with 500, -465, 1e4, +-inf (NaN) and 464, "
                f"-448 (+-448), {int(want.isnan().sum())} NaNs", got, want, x, y)
 
+    # fp32 on the SIMT kernel; every bf16 and e4m3 GEMM on the wgmma kernel,
+    # with one reduction where its split plan splits K
+    from repro_torch.kernels.matmul.kernel import select_tile, split_plan
+    splits = sum(len(split_plan(M, n, k, select_tile(dt, min(256, M), min(512, k),
+                                                     min(256, n)))) > 1
+                 for M in GEMM_ROWS for _, k, n in GPT3_GEMMS
+                 for dt in (torch.bfloat16, torch.float8_e4m3fn))
     expected = dict.fromkeys(K.KERNELS, 0)
-    expected.update(matmul=3 * len(GEMM_ROWS) * len(GPT3_GEMMS),
+    expected.update(matmul=len(GEMM_ROWS) * len(GPT3_GEMMS),
+                    matmul_wgmma=2 * len(GEMM_ROWS) * len(GPT3_GEMMS), matmul_reduce=splits,
                     matmul_int8=len(GEMM_ROWS) * len(GPT3_GEMMS))
     errs = dict.fromkeys(GEMM_MODES, 0.0)
     t0 = time.perf_counter()
@@ -474,6 +506,20 @@ def phase_matmul(torch):
     print(f"[matmul] path: {len(GPT3_GEMMS)} gpt3-175b GEMMs x M in {GEMM_ROWS} x "
           f"{GEMM_MODES} through repro_torch.kernels.matmul.ops in "
           f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
+    print(f"[matmul] paths: all {counts['matmul_wgmma']} bf16 and e4m3 GEMMs on the TMA + "
+          f"wgmma kernel ({counts['matmul_reduce']} split-K reductions), none on mma.sync; "
+          f"{counts['matmul']} fp32 on the SIMT kernel; {counts['matmul_int8']} int8")
+
+    # the split-K reduction against its plain version: the same bits
+    from repro_torch.kernels.matmul.ref import matmul_reduce_ref
+    p = rnd((6, SLOTS, 12288), torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        got = K.KERNELS["matmul_reduce"](p, torch.empty((SLOTS, 12288), device="cuda",
+                                                        dtype=dt))
+        require(torch.equal(got, matmul_reduce_ref(p, dt)),
+                f"matmul_reduce ({dt}) differs from its plain version")
+    print("[matmul] matmul_reduce (6, 8, 12288) fp32 partials -> fp32 and bf16: equal to the "
+          "plain version bit for bit")
 
     # the per-element check against two mutants of the plain bf16 product
     M, (name, k, n) = SLOTS, GPT3_GEMMS[1]
@@ -490,6 +536,48 @@ def phase_matmul(torch):
               f"{excess:.3f}")
         require(excess > 1, f"the per-element GEMM check passes a mutant: {label}")
     return counts, errs
+
+
+def phase_e4m3_probe(torch):
+    """Native e4m3 wgmma (m64n128k32) in its two promotion forms, a promotion
+    into separate fp32 registers after every 128 of K ("native/128") and
+    after every k32 instruction ("native/32"), at gpt3-175b's four GEMMs at
+    M = 8 and 4096, each held to the fp8 checks (relative error below 2e-5,
+    ``gemm_excess`` at most 1); ``_scaled_mm``'s own errors beside them for
+    reference, not a gate. Returns {form: whether it passed every shape}."""
+    from repro_torch.kernels.matmul.kernel import matmul_wgmma_cuda, select_tile
+    from repro_torch.kernels.matmul.ref import matmul_ref, quantize_fp8
+    f32, f8 = torch.float32, torch.float8_e4m3fn
+    rnd, one = Inputs(torch, 11), torch.ones((), device="cuda")
+    passed = {"native/128": True, "native/32": True}
+    for M in GEMM_ROWS:
+        for name, k, n in GPT3_GEMMS:
+            a8 = quantize_fp8(rnd((M, k), f32))
+            b8 = quantize_fp8(rnd((n, k), f32)).t()
+            want = matmul_ref(a8, b8, out_dtype=f32)
+            bm, bk, bn = select_tile(f8, min(256, M), min(512, k), min(256, n))
+            shape = f"gpt3-175b {name} ({M},{k})x({k},{n})"
+            for form in passed:
+                got = matmul_wgmma_cuda(a8, b8, bm=bm, bk=bk, bn=bn, out_dtype=f32,
+                                        e4m3_form=form)
+                err, excess = rel_err(got, want), gemm_excess(torch, got, want, a8, b8)
+                ok = err < GEMM_TOL["fp8"] and excess <= 1
+                passed[form] &= ok
+                print(f"[e4m3 probe] {form:10s} {shape}: rel_err {err:.3e} (tol 2e-05), "
+                      f"per-element excess {excess:.3f} (<= 1): {'passes' if ok else 'fails'}")
+                del got
+            try:
+                lib = torch._scaled_mm(a8, b8, scale_a=one, scale_b=one, out_dtype=f32)
+                print(f"[e4m3 probe] _scaled_mm {shape}: rel_err {rel_err(lib, want):.3e}, "
+                      f"per-element excess {gemm_excess(torch, lib, want, a8, b8):.3f} "
+                      "(reference, not a gate)")
+                del lib
+            except RuntimeError as e:
+                print(f"[e4m3 probe] _scaled_mm {shape}: refused ({str(e).splitlines()[0][:80]})")
+            del a8, b8, want
+            torch.cuda.empty_cache()
+    print(f"[e4m3 probe] passes every shape: {json.dumps(passed)}")
+    return passed
 
 
 def served_config(arch, n_layers):
@@ -879,18 +967,22 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
         del r, k, v, w, s0
 
     # the GEMM path: gpt3-175b's layer GEMMs at M = 8 and 4096; the kernels
-    # at the op's default tile on pre-quantized operands (quantization is
-    # the op's tensor code, outside the kernel, as in the TPU op); fp32 at
-    # M = 8 and FFN up at M = 4096 only. Plain versions at M = 4096 take
-    # ~0.1 s a call, hence fewer runs there
+    # at the op's tile (its default request clamped to the shape) on
+    # pre-quantized operands (quantization is the op's tensor code, outside
+    # the kernel, as in the TPU op). bf16 and e4m3 on the wgmma kernel, with
+    # the mma.sync kernel of matmul.cu (which ran these modes before the
+    # wgmma one) timed beside it at its default tile (128, 32, 128) on the
+    # same operands; fp32 at M = 8 and FFN up at M = 4096 only. Plain
+    # versions at M = 4096 take ~0.1 s a call, hence fewer runs there
     from repro_torch.core.hardware import nvidia_h100
     from repro_torch.core.mapper import matmul_perf
-    from repro_torch.kernels.matmul.kernel import select_tile
+    from repro_torch.kernels.matmul.kernel import E4M3_FORM, split_plan, select_tile
     from repro_torch.kernels.matmul.ops import mapper_blocks
-    from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_ref, quantize_fp8,
-                                                quantize_int8)
+    from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_reduce_ref,
+                                                matmul_ref, quantize_fp8, quantize_int8)
     f32, f8 = torch.float32, torch.float8_e4m3fn
     one = torch.ones((), device="cuda")
+    old_tile = (128, 32, 128)
 
     def library_or_none(fn, what):
         try:
@@ -907,45 +999,67 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
             a32, b32 = rnd((M, Kd), f32), rnd((Kd, N), f32)
             shape = f"gpt3-175b {gemm} ({M},{Kd})x({Kd},{N})"
             ops2 = 2 * M * Kd * N
+            request = (min(256, M), min(512, Kd), min(256, N))
             a, b = a32.to(bf), b32.to(bf)
-            tile = select_tile(bf, 256, 512, 256)
+            tile = select_tile(bf, *request)
+            splits = len(split_plan(M, N, Kd, tile))
             mp = matmul_perf(nvidia_h100(), M, Kd, N)
             mtile = mapper_blocks(M, Kd, N)
-            mapper_ms = time_ms(torch, lambda: KERNELS["matmul"](
+            mapper_ms = time_ms(torch, lambda: KERNELS["matmul_wgmma"](
                 a, b, bm=mtile[0], bk=mtile[1], bn=mtile[2]), iters)
             mapping = mp.mapping
             print(f"[mapper] {shape} bf16: nvidia_h100() predicts {mp.latency * 1e3:.5f} ms "
                   f"({mapping.bound}), subtile ({mapping.subtile_m}, {mapping.subtile_k}, "
                   f"{mapping.subtile_n}) -> mapper_blocks {mtile}: kernel {mapper_ms:.5f} ms "
-                  f"(default tile {tile} below)")
-            add("matmul", f"{shape} bf16 tile {tile}",
-                lambda: KERNELS["matmul"](a, b, bm=tile[0], bk=tile[1], bn=tile[2]),
+                  f"(the op's tile {tile} below)")
+            old_ms = time_ms(torch, lambda: KERNELS["matmul"](
+                a, b, bm=old_tile[0], bk=old_tile[1], bn=old_tile[2]), iters)
+            add("matmul_wgmma", f"{shape} bf16 tile {tile}, {splits} split(s) of K",
+                lambda: KERNELS["matmul_wgmma"](a, b, bm=tile[0], bk=tile[1], bn=tile[2]),
                 lambda: matmul_ref(a, b), lambda: torch.matmul(a, b),
                 2 * (M * Kd + Kd * N + M * N), ops2, BF16_TENSOR_FLOPS, iters, plain_iters,
-                mode="bf16", mapper_predicted_ms=mp.latency * 1e3, mapper_tile=list(mtile),
-                mapper_tile_ms=mapper_ms)
+                mode="bf16", mma_sync_ms=old_ms, mapper_predicted_ms=mp.latency * 1e3,
+                mapper_tile=list(mtile), mapper_tile_ms=mapper_ms)
+            add("matmul", f"{shape} bf16 on mma.sync, tile {old_tile}",
+                lambda: KERNELS["matmul"](a, b, bm=old_tile[0], bk=old_tile[1],
+                                          bn=old_tile[2]),
+                lambda: matmul_ref(a, b), lambda: torch.matmul(a, b),
+                2 * (M * Kd + Kd * N + M * N), ops2, BF16_TENSOR_FLOPS, iters, plain_iters,
+                mode="bf16")
             del a, b
             if M == SLOTS or gemm == "ffn_up":
-                tile = select_tile(f32, 256, 512, 256)
+                tile = select_tile(f32, *request)
                 add("matmul", f"{shape} fp32 tile {tile}",
                     lambda: KERNELS["matmul"](a32, b32, bm=tile[0], bk=tile[1], bn=tile[2]),
                     lambda: matmul_ref(a32, b32), lambda: torch.matmul(a32, b32),
                     4 * (M * Kd + Kd * N + M * N), ops2, FP32_FLOPS, iters, plain_iters,
                     mode="fp32")
             a8, b8 = quantize_fp8(a32), quantize_fp8(b32).t().contiguous().t()
-            tile = select_tile(f8, 256, 512, 256)
-            add("matmul", f"{shape} e4m3 operands, fp32 out, tile {tile}",
-                lambda: KERNELS["matmul"](a8, b8, bm=tile[0], bk=tile[1], bn=tile[2],
-                                          out_dtype=f32),
-                lambda: matmul_ref(a8, b8, out_dtype=f32),
-                library_or_none(lambda: torch._scaled_mm(a8, b8, scale_a=one, scale_b=one,
-                                                         out_dtype=f32), f"{shape} fp8"),
+            tile = select_tile(f8, *request)
+            splits = len(split_plan(M, N, Kd, tile))
+            old_ms = time_ms(torch, lambda: KERNELS["matmul"](
+                a8, b8, bm=old_tile[0], bk=old_tile[1], bn=old_tile[2], out_dtype=f32), iters)
+            library = library_or_none(lambda: torch._scaled_mm(a8, b8, scale_a=one, scale_b=one,
+                                                               out_dtype=f32), f"{shape} fp8")
+            add("matmul_wgmma", f"{shape} e4m3 operands ({E4M3_FORM}), fp32 out, tile {tile}, "
+                f"{splits} split(s) of K",
+                lambda: KERNELS["matmul_wgmma"](a8, b8, bm=tile[0], bk=tile[1], bn=tile[2],
+                                                out_dtype=f32),
+                lambda: matmul_ref(a8, b8, out_dtype=f32), library,
                 M * Kd + Kd * N + 4 * M * N, ops2, INT8_FP8_TENSOR_OPS, iters, plain_iters,
-                mode="fp8")
+                mode="fp8", mma_sync_ms=old_ms)
+            if M == SLOTS and gemm == "out":   # the e4m3 out GEMM's 3-way split
+                p = rnd((splits, M, N), f32)
+                add("matmul_reduce", f"{shape} e4m3 partials ({splits},{M},{N}) fp32 -> fp32",
+                    lambda: KERNELS["matmul_reduce"](p, torch.empty((M, N), device="cuda")),
+                    lambda: matmul_reduce_ref(p), lambda: torch.sum(p, 0),
+                    4 * (splits + 1) * M * N, (splits - 1) * M * N, FP32_FLOPS, iters,
+                    plain_iters)
+                del p
             del a8, b8
             (qa, sa), (qb, sb) = quantize_int8(a32, 1), quantize_int8(b32, 0)
             qb = qb.t().contiguous().t()
-            tile = select_tile(torch.int8, 256, 512, 256)
+            tile = select_tile(torch.int8, *request)
             add("matmul_int8", f"{shape} int8, fp32 out, tile {tile}",
                 lambda: KERNELS["matmul_int8"](qa, qb, sa, sb, bm=tile[0], bk=tile[1],
                                                bn=tile[2]),
@@ -972,6 +1086,7 @@ def main():
     phase_build(torch)
     errs = phase_kernels(torch)
     gemm_counts, gemm_errs = phase_matmul(torch)
+    probe = phase_e4m3_probe(torch)
     counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
         run, per_prefill[arch], per_decode[arch], wave_lens[arch] = phase_serve(
@@ -982,18 +1097,20 @@ def main():
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
     # the GEMM kernels' launches are those of their path; no model calls them
-    errs.update(matmul=max(gemm_errs[m] for m in ("bf16", "fp32", "fp8")),
-                matmul_int8=gemm_errs["int8"])
-    path_counts = {**counts, "matmul": gemm_counts["matmul"],
-                   "matmul_int8": gemm_counts["matmul_int8"]}
+    gemm_kernels = ("matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8")
+    by_mode = {"matmul": ("fp32",), "matmul_wgmma": ("bf16", "fp8"), "matmul_reduce": (),
+               "matmul_int8": ("int8",)}
+    for name in gemm_kernels:
+        errs[name] = max((gemm_errs[m] for m in by_mode[name]), default=0.0)
+    path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
                         wave_lens["rwkv6-7b"])
     for row in rows:
-        if row["name"] in ("matmul", "matmul_int8"):
+        if row["name"] in gemm_kernels:
             row["launches_in_serve_runs"] = counts[row["name"]]
-            row["max_abs_err_by_mode"] = (
-                {"int8": gemm_errs["int8"]} if row["name"] == "matmul_int8" else
-                {m: gemm_errs[m] for m in ("bf16", "fp32", "fp8")})
+            row["max_abs_err_by_mode"] = {m: gemm_errs[m] for m in by_mode[row["name"]]}
+            if row["name"] == "matmul_wgmma":
+                row["e4m3_probe_passes"] = probe
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -7,7 +7,7 @@ CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 from .decode_attention.kernel import decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda
 from .gelu.kernel import gelu_triton, silu_mul_triton
-from .matmul.kernel import matmul_cuda, matmul_int8_cuda
+from .matmul.kernel import matmul_cuda, matmul_int8_cuda, matmul_reduce_cuda, matmul_wgmma_cuda
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 from .wkv.kernel import wkv_cuda
 
@@ -21,6 +21,8 @@ KERNELS = {
     "decode_attention": decode_attention_cuda,
     "wkv": wkv_cuda,
     "matmul": matmul_cuda,
+    "matmul_wgmma": matmul_wgmma_cuda,
+    "matmul_reduce": matmul_reduce_cuda,
     "matmul_int8": matmul_int8_cuda,
 }
 

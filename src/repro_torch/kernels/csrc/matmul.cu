@@ -2,29 +2,22 @@
 // modes, always accumulating in fp32.
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas (a tiled matmul whose
-// fp32 accumulator is carried across k-blocks) and serves the e4m3 operands
-// that repro/kernels/matmul/ops.py::matmul_fp8 runs through it.
+// fp32 accumulator is carried across k-blocks) for fp32 operands, and for
+// the bf16 and e4m3 operands the TMA kernel of matmul_sm90.cu cannot take:
+// a base that is not 16-byte aligned or a row pitch that is not a multiple
+// of 16 bytes (K = 129 or 300 in bf16, N = 77, a view at an odd offset),
+// chosen before the launch by kernels/matmul/kernel.py::tma_eligible. That
+// file's note accounts for the bf16 and e4m3 GEMMs at the served widths.
 //
 //   bf16  A (M,K) and B (K,N) row-major. mma.sync m16n8k16 bf16 with fp32
 //         accumulation; operands fetched from shared memory with ldmatrix,
 //         B transposed on the way (.trans).
-//   e4m3  A (M,K) row-major, B (K,N) column-major, i.e. stored as (N,K): the
-//         layout the op writes the quantized B in (nn.Linear's weight
-//         layout). One byte per element is read from device memory, the
-//         traffic the precision model prices. ldmatrix.trans exists only for
-//         16-bit elements, so B comes K-contiguous instead of being
-//         transposed on chip. Each value is widened to fp16 as its tile is
-//         stored in shared memory (exact: e4m3's 3-bit mantissa and 2^-9..448
-//         range lie inside fp16's; NaN stays NaN) and multiplied by fp16
-//         mma.sync m16n8k16. Products of two e4m3 values are exact in fp32,
-//         so only the order of the sums differs from the plain version.
-//         Native e4m3 MMAs (m16n8k32) would issue at twice the rate, but
-//         Hopper's tensor cores keep fewer bits than IEEE fp32 when they
-//         accumulate fp8 products (about 14, DeepSeek-V3 report, 3.3.2),
-//         which the 2e-5 tolerance at K = 12288-49152 does not allow. The
-//         fp32 sums of the tensor cores are not IEEE-rounded either, so the
-//         e4m3 mode adds each 128-deep slice of K into separate fp32
-//         registers with IEEE adds (a promotion every 128 of K).
+//   e4m3  A (M,K) row-major, B (K,N) column-major, i.e. stored (N,K). One
+//         byte per element is read; each value is widened to fp16 as its
+//         tile is stored in shared memory (exact) and multiplied by fp16
+//         mma.sync m16n8k16; each 128-deep slice of K is added into separate
+//         fp32 registers (a promotion every 128 of K; see matmul_sm90.cu for
+//         why the e4m3 MMAs are not native).
 //   fp32  A (M,K) and B (K,N) row-major. IEEE fp32 FMAs on the CUDA cores,
 //         never TF32 (which keeps about 3 decimal digits and cannot meet
 //         2e-5): 256 threads, each an 8x8 / 4x4 / 2x2 register block.
@@ -34,16 +27,14 @@
 // k, one barrier per tile. Edges are masked, not padded: loads outside the
 // matrix read zero and stores outside it are skipped. A 16-byte vector load
 // serves a chunk when its operand's base and row pitch are 16-byte aligned;
-// otherwise (K = 129, K = 300, ...) each element is loaded on its own. Blocks
-// walk the output tiles in groups of 8 tile rows, so that the tiles resident
-// at one time share rows of A and columns of B in the L2.
+// otherwise each element is loaded on its own. Blocks walk the output tiles
+// in groups of 8 tile rows, so that the tiles resident at one time share
+// rows of A and columns of B in the L2.
 //
-// Bound on an H100: at decode (M = 8) every mode reads B once and is bound by
-// bytes (gpt3-175b's FFN up, 12288 x 49152 bf16: 1.2 GB, 0.36 ms at 3.35
-// TB/s); at a prefill wave (M = 4096) by operations (4.95e12 at 989 TFLOP/s
-// bf16: 5.0 ms). This kernel is the simple form: mma.sync, no cp.async, TMA
-// or wgmma, and no split of K for the decode shapes whose few output tiles
-// leave SMs idle; those are the next steps.
+// Bound on an H100: at decode (M = 8) the fp32 mode reads B once and is
+// bound by bytes (gpt3-175b's FFN up, 12288 x 49152: 2.4 GB, 0.72 ms at 3.35
+// TB/s); at a prefill wave (M = 4096) by operations (4.95e12 at 67 TFLOP/s:
+// 73.8 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -8,25 +8,23 @@ Quantization is plain tensor code outside the kernels on either device; the
 quantized B is written column-major ((N,K) in memory, nn.Linear's weight
 layout), the layout the 8-bit kernels read. Outputs are in a's dtype.
 
-``bm, bk, bn`` keep the JAX op's names and defaults. On the card they choose
-the kernel's CTA tile: a request is mapped to the largest compiled tile that
-fits inside it (``kernel.select_tile``; the JAX default 256/512/256 becomes
-128/32/128 for bf16), and one that no compiled tile fits inside raises,
-listing the set, on either device. Otherwise they change nothing of the
-function, on the CPU nothing at all, as the interpret run's blocks change
-nothing in JAX. ``mapper_blocks`` asks the port's LLMCompass mapper for the
-tile on the H100 preset.
+``bm, bk, bn`` keep the JAX op's names and defaults, and as in JAX each is
+first clamped to the GEMM's own extent (``min(bm, M)``, ...). On the card
+they then choose the kernel's CTA tile (``kernel.select_tile``: the largest
+compiled tile inside the clamped request, else the nearest one); any
+positive request runs, and a block that is not positive raises on either
+device. Otherwise they change nothing of the function, on the CPU nothing at
+all, as the interpret run's blocks change nothing in JAX. ``mapper_blocks``
+asks the port's LLMCompass mapper for the tile on the H100 preset.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from ...core.hardware import nvidia_h100
 from ...core.mapper import matmul_perf
 from ...device import runs_plain
-from .kernel import TILES, matmul_cuda, matmul_int8_cuda, select_tile
+from .kernel import TILES, gemm_cuda, matmul_int8_cuda, nearest_tile, select_tile
 from .ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref, matmul_ref,
                   quantize_fp8, quantize_int8)
 
@@ -34,25 +32,28 @@ from .ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref, matmul_re
 def mapper_blocks(m: int, k: int, n: int) -> tuple:
     """The bf16 kernel's tile for an (m, k, n) GEMM: the mapper's winning
     subtile on ``nvidia_h100()`` mapped onto the nearest compiled tile
-    (least sum of |log2| distances over bm, bk, bn; ties to the larger
-    tile), as the JAX op maps it onto the TPU's 128-aligned blocks."""
+    (``kernel.nearest_tile``), as the JAX op maps it onto the TPU's
+    128-aligned blocks."""
     mp = matmul_perf(nvidia_h100(), m, k, n).mapping
-    want = (mp.subtile_m, mp.subtile_k, mp.subtile_n)
+    return nearest_tile(TILES[torch.bfloat16], (mp.subtile_m, mp.subtile_k, mp.subtile_n))
 
-    def distance(t):
-        return (sum(abs(math.log2(x / w)) for x, w in zip(t, want)), -t[0] * t[2], -t[1])
 
-    return min(TILES[torch.bfloat16], key=distance)
+def _request(a, b, bm, bk, bn) -> tuple:
+    """(bm, bk, bn) clamped to the GEMM's extent, as the JAX op clamps its
+    blocks; a block that is not positive raises."""
+    if min(bm, bk, bn) <= 0:
+        raise ValueError(f"GEMM blocks must be positive, got (bm, bk, bn) = ({bm}, {bk}, {bn})")
+    (m, k), n = a.shape, b.shape[-1]
+    return tuple(max(1, min(x, d)) for x, d in ((bm, m), (bk, k), (bn, n)))
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 512,
            bn: int = 256) -> torch.Tensor:
     """a (M,K) @ b (K,N), bf16 or fp32, fp32 accumulation, out in a's dtype."""
-    tile = select_tile(a.dtype, bm, bk, bn)
+    request = _request(a, b, bm, bk, bn)
     if runs_plain(a):
         return matmul_ref(a, b)
-    bm, bk, bn = tile
-    return matmul_cuda(a.contiguous(), b.contiguous(), bm=bm, bk=bk, bn=bn)
+    return gemm_cuda(a.contiguous(), b.contiguous(), request)
 
 
 def _col_major(q: torch.Tensor) -> torch.Tensor:
@@ -66,7 +67,7 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 51
     amax/127), integer products, fp32 accumulation, dequantized in the
     epilogue. Approximates ``matmul(a, b)`` to quantization error (~1%) and
     matches ``ref.matmul_int8_ref`` to fp32 association error."""
-    tile = select_tile(torch.int8, bm, bk, bn)
+    tile = select_tile(torch.int8, *_request(a, b, bm, bk, bn))
     qa, sa = quantize_int8(a, axis=1)
     qb, sb = quantize_int8(b, axis=0)
     qb = _col_major(qb)
@@ -83,13 +84,12 @@ def matmul_fp8(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 512
     """fp8 GEMM: both operands rounded to e4m3 storage (NaN beyond +-464, as
     the reference casts), multiplied with fp32 accumulation, out in a's
     dtype."""
-    tile = select_tile(torch.float8_e4m3fn, bm, bk, bn)
+    request = _request(a, b, bm, bk, bn)
     a8 = quantize_fp8(a)
     b8 = _col_major(quantize_fp8(b))
     if runs_plain(a):
         return matmul_ref(a8, b8, out_dtype=a.dtype)
-    bm, bk, bn = tile
-    return matmul_cuda(a8, b8, bm=bm, bk=bk, bn=bn, out_dtype=a.dtype)
+    return gemm_cuda(a8, b8, request, out_dtype=a.dtype)
 
 
 reference = matmul_ref

@@ -24,6 +24,15 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
+def matmul_reduce_ref(p: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """The split-K reduction's function: fp32 partials p (S,M,N) added in
+    split order, p[0] + p[1] + ..., then rounded once to ``out_dtype``."""
+    out = torch.zeros(p.shape[1:], dtype=torch.float32, device=p.device)
+    for part in p:
+        out += part
+    return out.to(out_dtype)
+
+
 def quantize_int8(x: torch.Tensor, axis: int):
     """Symmetric per-vector int8 quantization along `axis` (the reduction
     axis of the GEMM): scale = max(amax, 1e-30) / 127 in fp32, q =

@@ -29,9 +29,11 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.matmul import ops as mm_ops
-from repro_torch.kernels.matmul.kernel import INT8_MAX_K, TILES
+from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, MMA_SYNC_TILES, TILES, split_plan,
+                                               tma_eligible)
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
-                                            matmul_ref, quantize_fp8, quantize_int8)
+                                            matmul_reduce_ref, matmul_ref, quantize_fp8,
+                                            quantize_int8)
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models.lm import LM
@@ -91,7 +93,8 @@ def kernel_case(name, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv", "matmul", "matmul_int8"}))
+@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv", "matmul", "matmul_wgmma", "matmul_reduce",
+                                                     "matmul_int8"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -251,13 +254,15 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3,
                              "decode_attention": 0, "wkv": 0,
-                             "matmul": 0, "matmul_int8": 0}
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "matmul_int8": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0,
                              "decode_attention": 3, "wkv": 0,
-                             "matmul": 0, "matmul_int8": 0}
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "matmul_int8": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -273,12 +278,14 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "decode_attention": 0, "wkv": 0,
-                             "matmul": 0, "matmul_int8": 0}
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "matmul_int8": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "decode_attention": 3, "wkv": 0,
-                             "matmul": 0, "matmul_int8": 0}
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "matmul_int8": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -380,6 +387,7 @@ def test_rwkv6_engine_on_card_matches_cpu(cuda, monkeypatch):
 GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77),
                (513, 129, 257), (8, 12288, 12288)]
 GEMM_TOL = {"bfloat16": 2e-2, "float32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
+WGMMA_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
 
 
 def gemm_excess(got, want, a, b):
@@ -415,11 +423,11 @@ def gemm_case(kind, m, k, n, device):
 def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
     """Each op's kernel against its plain version: relative error to the
     largest output and element by element (``gemm_excess``)."""
-    name = "matmul_int8" if kind == "int8" else "matmul"
-    before = TK.KERNELS[name].launches
+    names = ("matmul_int8",) if kind == "int8" else ("matmul", "matmul_wgmma")
+    before = sum(TK.KERNELS[name].launches for name in names)
     got, want, a, b = gemm_case(kind, m, k, n, cuda)
     torch.cuda.synchronize()
-    assert TK.KERNELS[name].launches == before + 1
+    assert sum(TK.KERNELS[name].launches for name in names) == before + 1
     assert got.shape == want.shape == (m, n) and got.dtype == want.dtype
     assert rel_err(got, want) < GEMM_TOL[kind]
     assert gemm_excess(got, want, a, b) <= 1
@@ -428,12 +436,12 @@ def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn,
                                    torch.int8], ids=str)
 def test_every_compiled_gemm_tile_on_card(cuda, dtype):
-    """Every compiled tile of each kernel at ragged shapes, element by element
-    against the plain version."""
+    """Every compiled tile of the mma.sync, SIMT and int8 kernels at ragged
+    shapes, element by element against the plain version."""
     for m, k, n in ((513, 129, 257), (1, 300, 77), (70, 96, 130)):
         a = normal(1, (m, k), cuda, torch.float32)
         b = normal(2, (k, n), cuda, torch.float32)
-        for tile in TILES[dtype]:
+        for tile in MMA_SYNC_TILES if dtype in WGMMA_DTYPES else TILES[dtype]:
             bm, bk, bn = tile
             if dtype == torch.int8:
                 qa, sa = quantize_int8(a, 1)
@@ -453,6 +461,104 @@ def test_every_compiled_gemm_tile_on_card(cuda, dtype):
             assert gemm_excess(got, want, x, y) <= 1, (tile, m, k, n)
 
 
+def wgmma_operands(dtype, m, k, n, device, seed=1):
+    """fp32 normals a (m,k), b (k,n) as the wgmma kernel's operands (e4m3:
+    b column-major)."""
+    a = normal(seed, (m, k), device, torch.float32)
+    b = normal(seed + 1, (k, n), device, torch.float32)
+    if dtype == torch.bfloat16:
+        return a.bfloat16(), b.bfloat16()
+    return quantize_fp8(a), quantize_fp8(b.t().contiguous()).t()
+
+
+@pytest.mark.parametrize("dtype", WGMMA_DTYPES, ids=str)
+@pytest.mark.parametrize("m", [1, 8, 63, 65, 200])
+def test_every_wgmma_tile_on_card(cuda, dtype, m):
+    """Every compiled tile of the TMA + wgmma kernel at M = 1, 8, 63, 65 and
+    200, with a K tail (K not a multiple of the k-tile) and an N edge, whole
+    and split, element by element against the plain version."""
+    k, n = (200, 264) if dtype == torch.bfloat16 else (208, 136)
+    x, y = wgmma_operands(dtype, m, k, n, cuda)
+    assert tma_eligible(dtype, m, k, n, x.data_ptr(), y.data_ptr())
+    out = torch.float32 if dtype == torch.float8_e4m3fn else dtype
+    want = matmul_ref(x, y, out_dtype=out)
+    for bm, bk, bn in TILES[dtype]:
+        got = TK.KERNELS["matmul_wgmma"](x, y, bm=bm, bk=bk, bn=bn, out_dtype=out)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert gemm_excess(got, want, x, y) <= 1, (bm, bk, bn, m)
+
+
+@pytest.mark.parametrize("dtype", WGMMA_DTYPES, ids=str)
+def test_wgmma_split_k_on_card(cuda, dtype):
+    """gpt3-175b's out projection at M = 8 splits K (48 or 96 output tiles):
+    the partials' reduction is launched once and counted, the result passes
+    the per-element check and is the same bits in a second run."""
+    m, k, n = 8, 12288, 12288
+    tile = TILES[dtype][0]
+    assert len(split_plan(m, n, k, tile)) > 1
+    x, y = wgmma_operands(dtype, m, k, n, cuda)
+    out = torch.float32 if dtype == torch.float8_e4m3fn else dtype
+    before = TK.launches()
+    got = TK.KERNELS["matmul_wgmma"](x, y, bm=tile[0], bk=tile[1], bn=tile[2], out_dtype=out)
+    again = TK.KERNELS["matmul_wgmma"](x, y, bm=tile[0], bk=tile[1], bn=tile[2], out_dtype=out)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert after["matmul_wgmma"] - before["matmul_wgmma"] == 2
+    assert after["matmul_reduce"] - before["matmul_reduce"] == 2
+    assert torch.equal(got, again)
+    want = matmul_ref(x, y, out_dtype=out)
+    assert rel_err(got, want) < GEMM_TOL["fp8" if out == torch.float32 else "bfloat16"]
+    assert gemm_excess(got, want, x, y) <= 1
+
+
+def test_matmul_reduce_matches_plain_on_card(cuda):
+    """The split-K reduction sums the partials in split order: the same bits
+    as the plain version, fp32 and bf16, with an odd element count."""
+    p = normal(5, (6, 9, 13), cuda, torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        c = torch.empty((9, 13), device=cuda, dtype=dt)
+        got = TK.KERNELS["matmul_reduce"](p, c)
+        torch.cuda.synchronize()
+        assert got is c and torch.equal(got, matmul_reduce_ref(p, dt))
+
+
+def test_gemm_paths_and_their_launches_on_card(cuda):
+    """The path is chosen by shape and alignment before the launch: a
+    TMA-describable bf16 or e4m3 GEMM launches the wgmma kernel only, a
+    ragged one (K = 129) the mma.sync kernel only, and an operand viewed at
+    a storage offset that breaks 16-byte alignment takes the mma.sync path
+    and agrees with the plain version; the wgmma wrapper refuses it."""
+    for op, kind in ((mm_ops.matmul, "bfloat16"), (mm_ops.matmul_fp8, "fp8")):
+        for (m, k, n), path in (((64, 256, 128), "matmul_wgmma"), ((513, 129, 257), "matmul")):
+            a = normal(3, (m, k), cuda, torch.float32)
+            b = normal(4, (k, n), cuda, torch.float32)
+            if kind == "bfloat16":
+                a, b = a.bfloat16(), b.bfloat16()
+            before = TK.launches()
+            op(a, b)
+            torch.cuda.synchronize()
+            after = TK.launches()
+            grown = {name for name in after if after[name] != before[name]}
+            tile = TILES[torch.bfloat16 if kind == "bfloat16" else torch.float8_e4m3fn][0]
+            split = path == "matmul_wgmma" and len(split_plan(m, n, k, tile)) > 1
+            assert grown == {path} | ({"matmul_reduce"} if split else set()), (kind, grown)
+    m, k, n = 64, 256, 128
+    flat = normal(6, (m * k + 1,), cuda, torch.float32).bfloat16()
+    a = flat[1:].view(m, k)                       # data_ptr 2 bytes past an aligned base
+    b = normal(7, (k, n), cuda, torch.float32).bfloat16()
+    assert a.data_ptr() % 16 == 2 and not tma_eligible(a.dtype, m, k, n, a.data_ptr(),
+                                                       b.data_ptr())
+    before = TK.launches()
+    got = mm_ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert TK.launches()["matmul"] == before["matmul"] + 1
+    assert TK.launches()["matmul_wgmma"] == before["matmul_wgmma"]
+    assert gemm_excess(got, matmul_ref(a, b), a, b) <= 1
+    with pytest.raises(ValueError, match="16-byte"):
+        TK.KERNELS["matmul_wgmma"](a, b)
+
+
 def test_fp8_nan_placement_on_card(cuda):
     """Inputs beyond e4m3's range and +-inf give NaN in exactly the plain
     version's places (ROADMAP C1); the other outputs agree."""
@@ -469,8 +575,9 @@ def test_fp8_nan_placement_on_card(cuda):
 
 
 def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
-    """No quiet fallback: fp16 operands, a tile outside the set, an int8
-    K whose int32 sums could overflow."""
+    """No quiet fallback: fp16 operands, a tile outside a kernel's set, a
+    block that is not positive, an int8 K whose int32 sums could overflow.
+    A small positive request runs at the nearest compiled tile."""
     a = torch.zeros((8, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="bf16, fp32 or e4m3"):
         TK.KERNELS["matmul"](a, a.t().contiguous())
@@ -478,7 +585,14 @@ def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
     with pytest.raises(ValueError, match="compiled tiles"):
         TK.KERNELS["matmul"](x, x.t().contiguous(), bm=256, bk=512, bn=256)
     with pytest.raises(ValueError, match="compiled tiles"):
-        mm_ops.matmul(x, x.t().contiguous(), bm=8, bk=8, bn=8)
+        TK.KERNELS["matmul_wgmma"](x, x.t().contiguous(), bm=128, bk=32, bn=128)
+    with pytest.raises(ValueError, match="positive"):
+        mm_ops.matmul(x, x.t().contiguous(), bm=0, bk=8, bn=8)
+    y = normal(8, (8, 32), cuda, torch.float32).bfloat16()
+    yt = y.t().contiguous()
+    got = mm_ops.matmul(y, yt, bm=8, bk=8, bn=8)
+    torch.cuda.synchronize()
+    assert gemm_excess(got, matmul_ref(y, yt), y, yt) <= 1
     q = torch.zeros((1, 140000), device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="int32"):
         TK.KERNELS["matmul_int8"](q, q.t(), torch.ones((1, 1), device=cuda),

@@ -295,6 +295,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
                                  torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
             "matmul": (x[0, 0], x[0, 0].t()),
+            "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
+            "matmul_reduce": (x[0], x[0, 0]),
             "matmul_int8": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
                             torch.ones(4, 1), torch.ones(1, 4))}[name]
     with pytest.raises(ValueError, match="CUDA"):

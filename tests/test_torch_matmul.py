@@ -26,7 +26,8 @@ from repro_torch.core import hardware as t_hw
 from repro_torch.core import mapper as t_mapper
 from repro_torch.kernels.matmul import ops as t_mm
 from repro_torch.kernels.matmul import ref as t_ref
-from repro_torch.kernels.matmul.kernel import TILES, select_tile
+from repro_torch.kernels.matmul.kernel import (MMA_SYNC_TILES, SMS, TILES, nearest_tile,
+                                               select_tile, split_plan, tma_eligible)
 from test_torch_cuda import gemm_excess
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -209,20 +210,143 @@ def test_gemm_check_catches_a_dropped_k_step_and_a_transposed_b_tile():
 
 # ---------------- tiles and dispatch ----------------
 
-def test_select_tile_maps_inside_the_request_or_refuses():
-    bf = torch.bfloat16
-    assert select_tile(bf, 256, 512, 256) == (128, 32, 128)    # the JAX default
-    assert select_tile(bf, 128, 128, 128) == (128, 32, 128)
-    assert select_tile(bf, 64, 64, 64) == (64, 32, 64)
+def test_select_tile_maps_every_request_to_a_compiled_tile():
+    """The largest compiled tile inside a request, else the nearest (least
+    sum of |log2| distances, ties to the larger tile); only a block that is
+    not positive raises."""
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    assert select_tile(bf, 256, 512, 256) == (128, 64, 256)    # the JAX default
+    assert select_tile(bf, 128, 128, 128) == (128, 64, 256)    # nearest: none inside
+    assert select_tile(bf, 64, 64, 64) == (64, 64, 256)
+    assert select_tile(bf, 8, 512, 256) == (64, 64, 256)       # decode: M = 8 clamps bm
+    assert select_tile(f8, 8, 512, 256) == (64, 128, 128)
+    assert select_tile(f8, 256, 512, 256) == (128, 128, 128)
     assert select_tile(torch.int8, 128, 128, 128) == (128, 64, 128)
     assert select_tile(torch.float32, 64, 64, 64) == (64, 16, 64)
+    assert select_tile(bf, 1, 128, 77, tiles=MMA_SYNC_TILES) == (16, 64, 128)
     for dtype, tiles in TILES.items():
         assert all(select_tile(dtype, *t) == t for t in tiles)
-    with pytest.raises(ValueError, match="compiled tiles are"):
-        select_tile(bf, 8, 512, 256)
+        for request in REFUSED_BEFORE:
+            assert select_tile(dtype, *request) in tiles
+    # a tie (4 + 3 + 0 against 3 + 3 + 1) goes to the larger tile
+    assert nearest_tile(((64, 64, 128), (128, 64, 256)), (8, 512, 256)) == (128, 64, 256)
+    for bad in ((0, 16, 16), (16, -1, 16), (16, 16, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            select_tile(bf, *bad)
     x = torch.zeros(4, 4)
-    with pytest.raises(ValueError, match="compiled tiles are"):
-        t_mm.matmul_int8(x, x, bm=16, bk=16, bn=16)
+    with pytest.raises(ValueError, match="positive"):
+        t_mm.matmul_int8(x, x, bm=0, bk=16, bn=16)
+
+
+#: block requests that no compiled tile fitted inside before every request
+#: was mapped to the nearest tile
+REFUSED_BEFORE = [(16, 16, 16), (32, 32, 32), (8, 512, 256), (8, 8, 8)]
+
+
+@pytest.mark.parametrize("bm,bk,bn", REFUSED_BEFORE)
+def test_small_block_requests_match_jax(bm, bk, bn):
+    """Requests the port once refused run and equal the JAX ops (interpret
+    mode) on the same numpy operands: matmul in fp32 and bf16, matmul_int8
+    and matmul_fp8, at the file's tolerances."""
+    blocks = dict(bm=bm, bk=bk, bn=bn)
+    a, b = normal(40, (40, 48)), normal(24, (48, 24))
+    for name in sorted(DTYPES):
+        (ja, ta), (jb, tb) = both(a, name), both(b, name)
+        got = t_mm.matmul(ta, tb, **blocks)
+        assert got.dtype == DTYPES[name][1]
+        assert rel_err(t2np(got), K.matmul.matmul(ja, jb, **blocks)) < \
+            (2e-2 if name == "bfloat16" else 2e-5)
+    (ja, ta), (jb, tb) = both(a), both(b)
+    assert rel_err(t2np(t_mm.matmul_int8(ta, tb, **blocks)),
+                   K.matmul.matmul_int8(ja, jb, **blocks)) < 1e-4
+    assert rel_err(t2np(t_mm.matmul_fp8(ta, tb, **blocks)),
+                   K.matmul.matmul_fp8(ja, jb, **blocks)) < 2e-5
+
+
+GPT3_GEMMS = [(12288, 36864), (12288, 12288), (12288, 49152), (49152, 12288)]
+
+
+def test_tma_eligibility_routes_shapes():
+    """The wgmma path's predicate: gpt3-175b's GEMMs (bf16 and e4m3, M = 8
+    and 4096) go to it; the JAX test shapes whose row pitches are not
+    multiples of 16 bytes (K = 129, 300 in bf16; N = 77, 50; e4m3 K = 200)
+    and operands at a base that is not 16-byte aligned go to mma.sync; fp32
+    never does."""
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    for m in (8, 4096):
+        for k, n in GPT3_GEMMS:
+            assert tma_eligible(bf, m, k, n) and tma_eligible(f8, m, k, n)
+    for m, k, n in ((513, 129, 257), (1, 300, 77), (100, 200, 50)):
+        assert not tma_eligible(bf, m, k, n) and not tma_eligible(f8, m, k, n)
+    assert tma_eligible(bf, 128, 128, 128) and tma_eligible(f8, 256, 512, 128)
+    assert tma_eligible(f8, 1, 16, 77)                       # B is stored (N,K): only K counts
+    assert not tma_eligible(torch.float32, 128, 128, 128)
+    flat = torch.zeros(64 * 64 + 8, dtype=bf)
+    a, b = flat[:4096].view(64, 64), torch.zeros((64, 64), dtype=bf)
+    assert tma_eligible(bf, 64, 64, 64, a.data_ptr(), b.data_ptr()) == \
+        (a.data_ptr() % 16 == 0)
+    for offset in range(1, 8):                               # 2-14 bytes past the base
+        view = flat[offset:offset + 4096].view(64, 64)
+        assert tma_eligible(bf, 64, 64, 64, view.data_ptr(), b.data_ptr()) == \
+            (view.data_ptr() % 16 == 0)
+    assert not tma_eligible(bf, 64, 64, 64, 8, 0) and not tma_eligible(bf, 64, 64, 64, 0, 2)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, k, n) for k, n in GPT3_GEMMS] +
+                         [(4096, k, n) for k, n in GPT3_GEMMS] +
+                         [(128, 128, 128), (8, 200, 264), (1, 208, 136), (65, 12288, 512)])
+def test_split_plan_covers_k_once_in_whole_k_tiles(m, k, n):
+    """Each split is a whole number of k-tiles but the last, which ends at K;
+    the ranges cover K once, in order; no split where the output tiles
+    already number 2 x 132 or more; else each split takes the k-tiles of K
+    shared among as many splits as bring the blocks to 2 x 132 (at most one
+    split per k-tile)."""
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        for tile in TILES[dtype]:
+            bm, bk, bn = tile
+            plan = split_plan(m, n, k, tile)
+            assert plan[0][0] == 0 and plan[-1][1] == k
+            assert all(p[1] == q[0] for p, q in zip(plan, plan[1:]))
+            assert all(k0 % bk == 0 and k0 < k1 for k0, k1 in plan)
+            assert all((k1 - k0) % bk == 0 for k0, k1 in plan[:-1])
+            per = plan[0][1] - plan[0][0]
+            assert all(k1 - k0 == per for k0, k1 in plan[:-1]) and plan[-1][1] - plan[-1][0] <= per
+            tiles, kt = -(-m // bm) * -(-n // bn), -(-k // bk)
+            if tiles >= 2 * SMS:
+                assert len(plan) == 1
+            else:
+                wanted = min(kt, -(-2 * SMS // tiles))
+                assert per == -(-kt // wanted) * bk and len(plan) == -(-kt // (per // bk))
+    assert len(split_plan(8, 12288, 12288, (64, 64, 256))) == 6
+    assert len(split_plan(4096, 49152, 12288, (128, 64, 256))) == 1
+
+
+def test_gemm_dispatch_picks_the_path_before_the_launch(monkeypatch):
+    """``gemm_cuda`` routes by ``tma_eligible`` alone, with the tile of the
+    path's own set, and never calls the other wrapper (CPU tensors, the
+    wrappers replaced by recorders)."""
+    from repro_torch.kernels.matmul import kernel as t_kernel
+    calls = []
+    for name in ("matmul_cuda", "matmul_wgmma_cuda"):
+        monkeypatch.setattr(t_kernel, name, lambda a, b, _n=name, **kw: calls.append((_n, kw)))
+    bf = torch.bfloat16
+    cases = [((64, 256, 128), bf, "matmul_wgmma_cuda", (64, 64, 256)),
+             ((513, 129, 257), bf, "matmul_cuda", (128, 32, 128)),
+             ((100, 200, 50), bf, "matmul_cuda", (64, 64, 128)),
+             ((64, 256, 128), torch.float32, "matmul_cuda", (64, 16, 64))]
+    for (m, k, n), dtype, path, tile in cases:
+        calls.clear()
+        a, b = torch.zeros((m, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
+        t_kernel.gemm_cuda(a, b, (min(256, m), min(512, k), min(256, n)))
+        assert [c[0] for c in calls] == [path]
+        kw = calls[0][1]
+        assert (kw["bm"], kw["bk"], kw["bn"]) == tile, (m, k, n, dtype)
+    calls.clear()
+    a8 = torch.zeros((8, 256), dtype=torch.float8_e4m3fn)
+    b8 = torch.zeros((512, 256), dtype=torch.float8_e4m3fn).t()
+    t_kernel.gemm_cuda(a8, b8, (8, 256, 256), out_dtype=torch.float32)
+    assert calls == [("matmul_wgmma_cuda", dict(bm=64, bk=128, bn=128,
+                                                out_dtype=torch.float32))]
 
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
