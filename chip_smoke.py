@@ -14,8 +14,12 @@ result line):
                one bf16 rounding, |a-b| <= 2^-7 |b| + 1e-3, the two
                attention kernels within |a-b| <= 2^-6 |b| + 2^-5 rms(row)),
                at the JAX kernel tests' shapes and at the served models' own
-               shapes (each of the three head layouts); the fp32 wkv kernel
-               to 1e-4 (output and final state), the JAX wkv tests' bound, at
+               shapes (each of the three head layouts); each attention case
+               on the flash kernel ``wgmma_eligible`` picks for it (the
+               TMA + wgmma one for bf16 at D = 64 and 128, contiguous or
+               the model's transposed views; mma.sync for D = 32 and a
+               sequence stride TMA cannot take; fp32 on its own); the fp32
+               wkv kernel to 1e-4 (output and final state), the JAX wkv tests' bound, at
                their shapes, a ragged T, the served prefill with prompt
                lengths and the decode step in place on a nonzero state;
   3. matmul  - the GEMM op path (``repro_torch.kernels.matmul.ops``, which no
@@ -31,12 +35,15 @@ result line):
                through matmul (bf16, fp32), matmul_fp8 and matmul_int8, each
                output held to its plain version as above, and the counts
                read just after, per path: the 16 bf16 and e4m3 GEMMs on the
-               TMA + wgmma kernel (matmul_wgmma) with one split-K reduction
+               TMA + wgmma kernel (matmul_wgmma) and the 8 int8 ones on its
+               int8 mode (matmul_int8_wgmma), with one split-K reduction
                (matmul_reduce) for each GEMM its split plan splits, the 8
-               fp32 ones on matmul.cu (none on its mma.sync path), 8
-               matmul_int8, no other kernel; the reduction bit for bit
-               against its plain version; the per-element check is shown to
-               fail two mutants made from the plain product (a dropped
+               fp32 ones on matmul.cu (none on its mma.sync path), none on
+               matmul_int8 (mma.sync), no other kernel; before that, int8 at
+               K past 131071 (131072 and 140000 on the wgmma kernel, 131073
+               on mma.sync: ROADMAP C8); the reduction bit for bit against
+               its plain version, also with the int8 scales; the
+               per-element check is shown to fail two mutants made from the plain product (a dropped
                k-step, a transposed tile of B); then the e4m3 probe: native
                e4m3 wgmma, promoted into fp32 every 128 of K or every
                instruction, at the same gpt3 shapes against the fp8 checks,
@@ -68,9 +75,10 @@ result line):
   6. timing  - each kernel at the served models' shapes (the GEMMs at the
                matmul path's), beside its plain version, the one PyTorch call
                that computes the same function where there is one, and its
-               bound on the card; for the bf16 and e4m3 GEMMs also the
-               mma.sync kernel of matmul.cu on the same operands (the
-               kernel these modes ran on before the wgmma one), for bf16 the
+               bound on the card; beside the wgmma flash kernel and the
+               wgmma GEMM modes, the mma.sync kernel each ran on before
+               (flash_attention.cu, matmul.cu, matmul_int8.cu) on the same
+               operands, for bf16 the
                port's mapper's predicted latency on its H100 preset and the
                wgmma kernel's time at the tile ``mapper_blocks`` picks.
 
@@ -113,12 +121,14 @@ REPLACES = {
     "gelu": "src/repro/kernels/gelu/kernel.py:29",
     "silu_mul": "src/repro/kernels/gelu/kernel.py:43",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention/kernel.py:71",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_reduce": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_int8": "src/repro/kernels/matmul/kernel.py:86",
+    "matmul_int8_wgmma": "src/repro/kernels/matmul/kernel.py:86",
 }
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
@@ -126,12 +136,14 @@ SOURCES = {
     "gelu": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
     "silu_mul": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_wgmma": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
     "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_reduce": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_int8": ("cuda", "src/repro_torch/kernels/csrc/matmul_int8.cu"),
+    "matmul_int8_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
 }
 # the GEMM path: gpt3-175b's layer GEMMs at full width (name, K, N), at the
 # decode batch of 8 slots and a prefill wave of 8 x 512 rows
@@ -199,25 +211,30 @@ class Inputs:
 def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_attention", "decode_attention", "wkv", "matmul",
-                            "matmul_sm90", "matmul_int8"])
+    seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention", "wkv",
+                            "matmul", "matmul_sm90", "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
     for name, log in _build.LOGS.items():
         for line in resource_usage(log):
             print(f"[build] {name}.cu {line}")
-    # the wgmma kernel's shared memory is dynamic: ptxas does not see it
+    # the wgmma kernels' shared memory is dynamic: ptxas does not see it
     import ctypes
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
     from repro_torch.kernels.matmul.kernel import E4M3_FORMS, TILES
     smem = _build.load("matmul_sm90").matmul_sm90_smem
     smem.argtypes, smem.restype = [ctypes.c_int] * 5, ctypes.c_int
     for mode, dtype, forms in ((0, torch.bfloat16, {"": 0}),
-                               (1, torch.float8_e4m3fn, E4M3_FORMS)):
+                               (1, torch.float8_e4m3fn, E4M3_FORMS), (2, torch.int8, {"": 0})):
         for tile in TILES[dtype]:
             for form, f in forms.items():
                 print(f"[build] matmul_sm90.cu {dtype} {form} tile {tile}: "
                       f"{smem(mode, f, *tile)} bytes of dynamic shared memory")
+    smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for d in WGMMA_HEAD_DIMS:
+        print(f"[build] flash_attention_sm90.cu D={d}: {smem(d)} bytes of dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
@@ -258,6 +275,7 @@ def kernel_cases(torch):
     """(kernel, label, kernel fn, plain fn, args, is_main_path) per case."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
@@ -283,23 +301,31 @@ def kernel_cases(torch):
         for r, c, main in ((100, 256, False), (4096, 6144, True)):
             cases.append(("silu_mul", f"({r},{c})", KERNELS["silu_mul"], silu_mul_ref,
                           (rnd((r, c), dt), rnd((r, c), dt)), main))
-        for b, hq, hkv, sq, sk, causal, window, cap, d, main in (
-                (2, 4, 4, 128, 128, True, 0, 0.0, 64, False),
-                (2, 8, 2, 130, 130, True, 0, 0.0, 64, False),
-                (2, 4, 1, 64, 200, False, 0, 0.0, 64, False),
-                (2, 4, 2, 128, 128, True, 32, 0.0, 64, False),
-                (2, 4, 2, 96, 96, True, 0, 30.0, 64, False),
-                (2, 4, 2, 70, 70, True, 0, 0.0, 32, False),
-                (8, 16, 8, 512, 512, True, 0, 0.0, 128, True),
-                (8, 32, 32, 512, 512, True, 0, 0.0, 64, True),
-                (8, 96, 96, 512, 512, True, 0, 0.0, 128, True)):
+        # (B, H, S, D) tensors, or (B, S, H, D) ones passed as the model
+        # passes them (transposed views), or with a sequence stride of D + 4
+        # elements; each case on the kernel wgmma_eligible picks
+        for b, hq, hkv, sq, sk, causal, window, cap, d, layout, main in (
+                (2, 4, 4, 128, 128, True, 0, 0.0, 64, "bhsd", False),
+                (2, 8, 2, 130, 130, True, 0, 0.0, 64, "bhsd", False),
+                (2, 4, 1, 64, 200, False, 0, 0.0, 64, "bhsd", False),
+                (2, 4, 2, 128, 128, True, 32, 0.0, 64, "bhsd", False),
+                (2, 4, 2, 96, 96, True, 0, 30.0, 64, "bhsd", False),
+                (2, 4, 2, 70, 70, True, 0, 0.0, 32, "bhsd", False),
+                (2, 4, 2, 300, 300, True, 48, 30.0, 128, "view", False),
+                (2, 16, 8, 384, 384, True, 0, 0.0, 128, "view", False),
+                (2, 32, 32, 384, 384, True, 0, 0.0, 64, "view", False),
+                (2, 96, 96, 384, 384, True, 0, 0.0, 128, "view", False),
+                (2, 4, 2, 130, 130, True, 0, 0.0, 64, "seq stride D+4", False),
+                (8, 16, 8, 512, 512, True, 0, 0.0, 128, "bhsd", True),
+                (8, 32, 32, 512, 512, True, 0, 0.0, 64, "bhsd", True),
+                (8, 96, 96, 512, 512, True, 0, 0.0, 128, "bhsd", True)):
             kw = dict(causal=causal, window=window, softcap=cap)
-            cases.append(("flash_attention",
-                          f"q({b},{hq},{sq},{d}) kv({b},{hkv},{sk},{d}) {kw}",
-                          lambda *a, kw=kw: KERNELS["flash_attention"](*a, **kw),
-                          lambda *a, kw=kw: attention_ref(*a, **kw),
-                          (rnd((b, hq, sq, d), dt), rnd((b, hkv, sk, d), dt),
-                           rnd((b, hkv, sk, d), dt)), main))
+            q, k, v = (attention_input(rnd, shape, dt, layout) for shape in
+                       ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+            name = "flash_attention_wgmma" if wgmma_eligible(q, k, v) else "flash_attention"
+            cases.append((name, f"q({b},{hq},{sq},{d}) kv({b},{hkv},{sk},{d}) {layout} {kw}",
+                          lambda *a, kw=kw, name=name: KERNELS[name](*a, **kw),
+                          lambda *a, kw=kw: attention_ref(*a, **kw), (q, k, v), main))
         for b, hkv, g, t, d, main in ((3, 2, 4, 128, 64, False), (3, 1, 8, 200, 64, False),
                                       (3, 4, 1, 64, 64, False), (SLOTS, 8, 2, MAX_LEN, 128, True),
                                       (SLOTS, 32, 1, MAX_LEN, 64, True),
@@ -311,6 +337,18 @@ def kernel_cases(torch):
                            rnd((b, t, hkv, d), dt),
                            torch.tensor(lens, dtype=torch.int32, device="cuda")), main))
     return cases
+
+
+def attention_input(rnd, shape, dt, layout):
+    """A (B, H, S, D) attention input: contiguous ("bhsd"), a transposed view
+    of a (B, S, H, D) tensor ("view", the model's layout), or a view of a
+    (B, H, S, D + 4) tensor (a sequence stride no TMA descriptor takes)."""
+    b, h, s, d = shape
+    if layout == "view":
+        return rnd((b, s, h, d), dt).transpose(1, 2)
+    if layout == "bhsd":
+        return rnd(shape, dt)
+    return rnd((b, h, s, d + 4), dt)[..., :d]
 
 
 def decode_lengths(b, t):
@@ -376,7 +414,9 @@ def phase_wkv(torch, errs):
 
 
 def phase_kernels(torch):
-    errs = {}
+    """Returns {kernel: largest |kernel - plain| in bf16 at its main-path
+    shapes, or at all its shapes where it has no main-path one}."""
+    errs, any_errs = {}, {}
     for name, label, fn, plain, args, main in kernel_cases(torch):
         got = fn(*args)
         want = plain(*args)
@@ -397,10 +437,11 @@ def phase_kernels(torch):
             require(excess <= 1, f"{line}: an element is off by more than "
                     "2^-6 |b| + 2^-5 rms(row)")
         print(f"{line} ok")
-        if main and dt == "bfloat16":
-            errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
+        if dt == "bfloat16":
+            into = errs if main else any_errs
+            into[name] = max(into.get(name, 0.0), max_abs(got, want))
     phase_wkv(torch, errs)
-    return errs
+    return {**any_errs, **errs}
 
 
 def gemm_excess(torch, got, want, a, b):
@@ -462,14 +503,30 @@ def check_gemm(torch, mode, label, got, want, a, b):
 
 def phase_matmul(torch):
     """The GEMM op path; returns ({kernel: launches in the path run},
-    {mode: largest |kernel - plain| at the gpt3 shapes})."""
+    {mode: largest |kernel - plain| at the gpt3 shapes}, largest |kernel -
+    plain| of the int8 mma.sync kernel, which the path does not reach)."""
     from repro_torch import kernels as K
+    from repro_torch.kernels.matmul.kernel import INT8_MAX_K
     rnd = Inputs(torch, 5)
+    int8_mma_err = 0.0
     for mode in GEMM_MODES:
         for m, k, n in GEMM_EDGES:
             a, b = rnd((m, k), torch.float32), rnd((k, n), torch.float32)
             got, want, x, y = gemm_case(torch, mode, a, b, (128, 128, 128))
             check_gemm(torch, mode, f"({m},{k})x({k},{n}) blocks 128/128/128", got, want, x, y)
+            if mode == "int8" and k % 16:   # a row pitch TMA cannot take: mma.sync
+                int8_mma_err = max(int8_mma_err, max_abs(got, want))
+    # int8 past the exact int32 sum (ROADMAP C8): chunks of at most INT8_MAX_K
+    # of K, on the wgmma kernel (K a multiple of 16) and on mma.sync
+    for m, k, n in ((64, INT8_MAX_K + 1, 200), (48, 140000, 96), (33, INT8_MAX_K + 2, 40)):
+        a, b = rnd((m, k), torch.float32), rnd((k, n), torch.float32)
+        got, want, x, y = gemm_case(torch, "int8", a, b)
+        path = "matmul_int8" if k % 16 else "matmul_int8_wgmma"
+        check_gemm(torch, "int8", f"({m},{k})x({k},{n}), K past {INT8_MAX_K}, on {path}", got,
+                   want, x, y)
+        if k % 16:
+            int8_mma_err = max(int8_mma_err, max_abs(got, want))
+        del a, b, got, want, x, y
     # the fp8 op beyond e4m3's range: NaN where the reference's cast gives it
     a, b = rnd((70, 96), torch.float32), rnd((96, 130), torch.float32)
     a[3, 5], a[10, 0], a[11, 95], a[20, 20] = 500.0, float("inf"), -465.0, 464.0
@@ -478,17 +535,18 @@ def phase_matmul(torch):
     check_gemm(torch, "fp8", "(70,96)x(96,130) with 500, -465, 1e4, +-inf (NaN) and 464, "
                f"-448 (+-448), {int(want.isnan().sum())} NaNs", got, want, x, y)
 
-    # fp32 on the SIMT kernel; every bf16 and e4m3 GEMM on the wgmma kernel,
-    # with one reduction where its split plan splits K
+    # fp32 on the SIMT kernel; every bf16, e4m3 and int8 GEMM on the wgmma
+    # kernel, with one reduction where its split plan splits K
     from repro_torch.kernels.matmul.kernel import select_tile, split_plan
     splits = sum(len(split_plan(M, n, k, select_tile(dt, min(256, M), min(512, k),
-                                                     min(256, n)))) > 1
+                                                     min(256, n)),
+                                INT8_MAX_K if dt == torch.int8 else None)) > 1
                  for M in GEMM_ROWS for _, k, n in GPT3_GEMMS
-                 for dt in (torch.bfloat16, torch.float8_e4m3fn))
+                 for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8))
     expected = dict.fromkeys(K.KERNELS, 0)
     expected.update(matmul=len(GEMM_ROWS) * len(GPT3_GEMMS),
                     matmul_wgmma=2 * len(GEMM_ROWS) * len(GPT3_GEMMS), matmul_reduce=splits,
-                    matmul_int8=len(GEMM_ROWS) * len(GPT3_GEMMS))
+                    matmul_int8_wgmma=len(GEMM_ROWS) * len(GPT3_GEMMS))
     errs = dict.fromkeys(GEMM_MODES, 0.0)
     t0 = time.perf_counter()
     K.reset_launches()
@@ -506,9 +564,10 @@ def phase_matmul(torch):
     print(f"[matmul] path: {len(GPT3_GEMMS)} gpt3-175b GEMMs x M in {GEMM_ROWS} x "
           f"{GEMM_MODES} through repro_torch.kernels.matmul.ops in "
           f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
-    print(f"[matmul] paths: all {counts['matmul_wgmma']} bf16 and e4m3 GEMMs on the TMA + "
-          f"wgmma kernel ({counts['matmul_reduce']} split-K reductions), none on mma.sync; "
-          f"{counts['matmul']} fp32 on the SIMT kernel; {counts['matmul_int8']} int8")
+    print(f"[matmul] paths: all {counts['matmul_wgmma']} bf16 and e4m3 GEMMs and all "
+          f"{counts['matmul_int8_wgmma']} int8 ones on the TMA + wgmma kernel "
+          f"({counts['matmul_reduce']} split-K reductions), none on mma.sync; "
+          f"{counts['matmul']} fp32 on the SIMT kernel")
 
     # the split-K reduction against its plain version: the same bits
     from repro_torch.kernels.matmul.ref import matmul_reduce_ref
@@ -518,8 +577,12 @@ def phase_matmul(torch):
                                                         dtype=dt))
         require(torch.equal(got, matmul_reduce_ref(p, dt)),
                 f"matmul_reduce ({dt}) differs from its plain version")
-    print("[matmul] matmul_reduce (6, 8, 12288) fp32 partials -> fp32 and bf16: equal to the "
-          "plain version bit for bit")
+    sa, sb = rnd((SLOTS, 1), torch.float32).abs(), rnd((1, 12288), torch.float32).abs()
+    got = K.KERNELS["matmul_reduce"](p, torch.empty((SLOTS, 12288), device="cuda"), sa, sb)
+    require(torch.equal(got, matmul_reduce_ref(p, torch.float32, sa, sb)),
+            "matmul_reduce with the int8 scales differs from its plain version")
+    print("[matmul] matmul_reduce (6, 8, 12288) fp32 partials -> fp32 and bf16, and with the "
+          "int8 scales: equal to the plain version bit for bit")
 
     # the per-element check against two mutants of the plain bf16 product
     M, (name, k, n) = SLOTS, GPT3_GEMMS[1]
@@ -535,7 +598,7 @@ def phase_matmul(torch):
               f"{rel_err(mutant.bfloat16(), want.bfloat16()):.3e}, per-element excess "
               f"{excess:.3f}")
         require(excess > 1, f"the per-element GEMM check passes a mutant: {label}")
-    return counts, errs
+    return counts, errs, int8_mma_err
 
 
 def phase_e4m3_probe(torch):
@@ -588,11 +651,20 @@ def served_config(arch, n_layers):
     return dataclasses.replace(cfg, n_layers=n_layers, name=f"{arch}-{n_layers}l")
 
 
+def prefill_attention(cfg):
+    """The kernel of `cfg`'s prefill attention: the TMA + wgmma one at the
+    head dims it takes (every served model's, bf16 (B, S, H, D) views), else
+    the mma.sync one."""
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
+    return "flash_attention_wgmma" if cfg.d_head in WGMMA_HEAD_DIMS else "flash_attention"
+
+
 def expected_launches(cfg, prefill):
     """Launches of each kernel in one prefill or one decode step of `cfg`:
     two norms per layer and the final one (q- and k-norm per layer with
     qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation and one
-    attention per layer; for RWKV6, one wkv per layer and no attention."""
+    attention per layer (``prefill_attention``'s kernel at prefill, none on
+    the other flash kernel); for RWKV6, one wkv per layer and no attention."""
     from repro_torch.kernels import KERNELS
     L = cfg.n_layers
     counts = dict.fromkeys(KERNELS, 0)
@@ -602,7 +674,7 @@ def expected_launches(cfg, prefill):
         return counts
     counts["rmsnorm"] += 2 * L if cfg.qk_norm else 0
     counts["silu_mul" if cfg.mlp_gated else "gelu"] = L
-    counts["flash_attention" if prefill else "decode_attention"] = L
+    counts[prefill_attention(cfg) if prefill else "decode_attention"] = L
     return counts
 
 
@@ -673,7 +745,7 @@ def phase_serve(torch, arch, n_layers):
     # one whole-batch prefill, then a batch-1 prefill per refilled slot; each
     # prefill and each decode round launches exactly one step's kernels
     prefills, st = 1 + N_REQUESTS - SLOTS, eng.stats
-    seq = "wkv" if cfg.attention_free else "flash_attention"
+    seq = "wkv" if cfg.attention_free else prefill_attention(cfg)
     require(prefill_counts[seq] == prefills * cfg.n_layers,
             f"{prefill_counts[seq]} {seq} launches in the prefill phase, not the "
             f"{prefills} x {cfg.n_layers} of one wave and {prefills - 1} refills")
@@ -919,13 +991,22 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     for Hq, Hkv, D in ((16, 8, 128), (32, 32, 64), (96, 96, 128)):
         q, k, v = rnd((B, Hq, S, D), bf), rnd((B, Hkv, S, D), bf), rnd((B, Hkv, S, D), bf)
         pairs = S * (S + 1) // 2
-        add("flash_attention", f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal bf16",
+        label = f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal bf16"
+        work = (2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D), 4 * D * B * Hq * pairs,
+                BF16_TENSOR_FLOPS)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        # the mma.sync kernel (the prefill's before the wgmma one), then the
+        # wgmma kernel with the mma.sync kernel's time beside it
+        add("flash_attention", label + " on mma.sync",
             lambda: KERNELS["flash_attention"](q, k, v, causal=True),
-            lambda: attention_ref(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D), 4 * D * B * Hq * pairs,
-            BF16_TENSOR_FLOPS)
+            lambda: attention_ref(q, k, v, causal=True), sdpa, *work)
+        add("flash_attention_wgmma", label,
+            lambda: KERNELS["flash_attention_wgmma"](q, k, v, causal=True),
+            lambda: attention_ref(q, k, v, causal=True), sdpa, *work,
+            mma_sync_ms=rows["flash_attention"]["shapes"][-1]["ms"])
         del q, k, v
 
         G = Hq // Hkv
@@ -976,7 +1057,8 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     # versions at M = 4096 take ~0.1 s a call, hence fewer runs there
     from repro_torch.core.hardware import nvidia_h100
     from repro_torch.core.mapper import matmul_perf
-    from repro_torch.kernels.matmul.kernel import E4M3_FORM, split_plan, select_tile
+    from repro_torch.kernels.matmul.kernel import (E4M3_FORM, INT8_MAX_K, INT8_MMA_SYNC_TILES,
+                                                   select_tile, split_plan)
     from repro_torch.kernels.matmul.ops import mapper_blocks
     from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_reduce_ref,
                                                 matmul_ref, quantize_fp8, quantize_int8)
@@ -1059,14 +1141,24 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
             del a8, b8
             (qa, sa), (qb, sb) = quantize_int8(a32, 1), quantize_int8(b32, 0)
             qb = qb.t().contiguous().t()
-            tile = select_tile(torch.int8, *request)
-            add("matmul_int8", f"{shape} int8, fp32 out, tile {tile}",
+            int_mm = library_or_none(lambda: torch._int_mm(qa, qb) * sa * sb, f"{shape} int8")
+            work = (M * Kd + Kd * N + 4 * (M + N) + 4 * M * N, ops2, INT8_FP8_TENSOR_OPS, iters,
+                    plain_iters)
+            # the mma.sync kernel at the tile the op ran it with before the
+            # wgmma kernel took int8, then the wgmma kernel at the op's tile
+            tile = select_tile(torch.int8, *request, tiles=INT8_MMA_SYNC_TILES)
+            add("matmul_int8", f"{shape} int8, fp32 out, on mma.sync, tile {tile}",
                 lambda: KERNELS["matmul_int8"](qa, qb, sa, sb, bm=tile[0], bk=tile[1],
                                                bn=tile[2]),
-                lambda: dequant_matmul_ref(qa, qb, sa, sb),
-                library_or_none(lambda: torch._int_mm(qa, qb) * sa * sb, f"{shape} int8"),
-                M * Kd + Kd * N + 4 * (M + N) + 4 * M * N, ops2, INT8_FP8_TENSOR_OPS, iters,
-                plain_iters, mode="int8")
+                lambda: dequant_matmul_ref(qa, qb, sa, sb), int_mm, *work, mode="int8")
+            tile = select_tile(torch.int8, *request)
+            splits = len(split_plan(M, N, Kd, tile, INT8_MAX_K))
+            add("matmul_int8_wgmma", f"{shape} int8, fp32 out, tile {tile}, {splits} split(s) "
+                "of K",
+                lambda: KERNELS["matmul_int8_wgmma"](qa, qb, sa, sb, bm=tile[0], bk=tile[1],
+                                                     bn=tile[2]),
+                lambda: dequant_matmul_ref(qa, qb, sa, sb), int_mm, *work, mode="int8",
+                mma_sync_ms=rows["matmul_int8"]["shapes"][-1]["ms"])
             del qa, qb, a32, b32
             torch.cuda.empty_cache()
     return [rows[name] for name in SOURCES]
@@ -1085,7 +1177,7 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     errs = phase_kernels(torch)
-    gemm_counts, gemm_errs = phase_matmul(torch)
+    gemm_counts, gemm_errs, int8_mma_err = phase_matmul(torch)
     probe = phase_e4m3_probe(torch)
     counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
@@ -1097,11 +1189,13 @@ def main():
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
     # the GEMM kernels' launches are those of their path; no model calls them
-    gemm_kernels = ("matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8")
+    gemm_kernels = ("matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8",
+                    "matmul_int8_wgmma")
     by_mode = {"matmul": ("fp32",), "matmul_wgmma": ("bf16", "fp8"), "matmul_reduce": (),
-               "matmul_int8": ("int8",)}
+               "matmul_int8": (), "matmul_int8_wgmma": ("int8",)}
     for name in gemm_kernels:
         errs[name] = max((gemm_errs[m] for m in by_mode[name]), default=0.0)
+    errs["matmul_int8"] = int8_mma_err   # the shapes TMA cannot take, off the path
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
                         wave_lens["rwkv6-7b"])

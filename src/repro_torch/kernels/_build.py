@@ -1,10 +1,11 @@
 """Build the CUDA C++ kernels of ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``build/kernels/`` at the repository root (listed in ``.gitignore``). The
-library's file name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. A build of one source
+Each ``csrc/<name>.cu`` exposes a plain C interface (the TMA + wgmma sources
+share ``csrc/sm90.cuh``) and is compiled on first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared`` into ``build/kernels/`` at the
+repository root (listed in ``.gitignore``). The library's file name carries
+a hash of the source, the shared headers and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. A build of one source
 takes seconds, against minutes for an extension that includes PyTorch's
 headers.
 
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of ``csrc/<name>.cu``: its name hashes the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,26 +7,35 @@
 // GEMM of symmetric per-row (A) / per-column (B) int8 quantization that the
 // precision model prices at 1-byte traffic and twice the fp16 MAC rate.
 //
+// Which shapes. Since the int8 mode of matmul_sm90.cu (TMA ring, s8 wgmma)
+// took every int8 GEMM a TMA descriptor can describe, this kernel takes
+// only the rest (kernels/matmul/kernel.py::int8_gemm_cuda decides before
+// the launch): a K that is no multiple of 16 or an operand base off 16
+// bytes. No served or benchmarked shape reaches it.
+//
 // Design. mma.sync m16n8k32 .s8.s8.s32: exact integer products summed in
-// int32 registers across all of K. The TPU kernel sums each k-block in int32
-// and the blocks in fp32; here the int32 sum of all K is exact for any int8
-// operands (-128 included) as long as K * 128^2 < 2^31 (K <= 131071, which
-// the wrapper checks; gpt3-175b's largest K is 49152), so the result is at
-// least as exact as the reference's and converts to fp32 once, in the
-// epilogue, where it is scaled by a_scale of its row and b_scale of its
-// column: (acc * a_scale) * b_scale, the TPU kernel's order, stored in fp32
-// as the TPU kernel stores it. B comes column-major, stored as (N,K) (the
-// layout the op writes the quantized B in, nn.Linear's weight layout): the
-// B fragment of an 8-bit mma is K-contiguous per column and ldmatrix has no
-// transposing form for 8-bit elements, so both operands are staged
-// K-contiguous and fetched with plain ldmatrix. Tiles go through registers
-// into a double buffer in shared memory (one barrier per k-tile); edges are
-// masked (zeros in, stores skipped), with 16-byte loads where the operand's
-// base and row pitch allow and byte loads otherwise.
+// int32 registers. An int32 sum of K products of any int8 values (-128
+// included) is exact while K * 128^2 < 2^31 (K <= 131071): the k-loop sums
+// chunks of at most that many in int32 and adds each chunk's sum, converted
+// once, into fp32 registers, in order, as the TPU kernel adds its int32
+// k-block dots in fp32; so any K runs (gpt3-175b's largest K, 49152, is one
+// chunk, converted once, in the epilogue). The store scales by a_scale of
+// its row and b_scale of its column: (acc * a_scale) * b_scale, the TPU
+// kernel's order, in fp32 as the TPU kernel stores it. B comes
+// column-major, stored as (N,K) (the layout the op writes the quantized B
+// in, nn.Linear's weight layout): the B fragment of an 8-bit mma is
+// K-contiguous per column and ldmatrix has no transposing form for 8-bit
+// elements, so both operands are staged K-contiguous and fetched with
+// plain ldmatrix. Tiles go through registers into a double buffer in shared
+// memory (one barrier per k-tile); edges are masked (zeros in, stores
+// skipped), with 16-byte loads where the operand's base and row pitch allow
+// and byte loads otherwise.
 //
 // Bound on an H100: at decode (M = 8) reading B (1 byte an element) bounds
 // it; at a prefill wave (M = 4096) the operations (1979 TOPS int8 dense).
-// mma.sync without cp.async, TMA or wgmma reaches neither; those come next.
+// Synchronous staging through registers and mma.sync reach neither (19.6 ms
+// at gpt3's FFN up, M = 4096, 12.8% of the bound); the shapes that need
+// speed take the wgmma kernel.
 
 #include <cuda_runtime.h>
 
@@ -35,6 +44,7 @@
 namespace {
 
 constexpr int GROUP_M = 8;  // tile rows per raster group
+constexpr int INT8_MAX_K = 131071;  // K * 128^2 < 2^31: an int32 sum of K products is exact
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -90,11 +100,15 @@ struct S8 {
   static constexpr int A_CH = BM * BK / 16, B_CH = BN * BK / 16;
   static constexpr int A_PT = (A_CH + THREADS - 1) / THREADS;
   static constexpr int B_PT = (B_CH + THREADS - 1) / THREADS;
+  static constexpr int CHUNK_KT = INT8_MAX_K / BK;  // k-tiles summed in int32 at a time
   static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 16 == 0, "tile");
   static_assert(BK % 32 == 0, "k tile");
 };
 
-template <int BM, int BN, int BK, int WM, int WN>
+// CHUNKED: K spans more than one chunk of INT8_MAX_K, and the chunks' sums
+// are added in fp32 registers; else the int32 sums convert once, at the
+// store (and the kernel keeps no second set of sums)
+template <int BM, int BN, int BK, int WM, int WN, bool CHUNKED>
 __global__ void __launch_bounds__(S8<BM, BN, BK, WM, WN>::THREADS)
 gemm_s8(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
         const float* __restrict__ sa, const float* __restrict__ sb, float* __restrict__ C, int M,
@@ -142,12 +156,33 @@ gemm_s8(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   };
 
   int acc[T::MI][T::NI][4];
+  float tot[CHUNKED ? T::MI : 1][CHUNKED ? T::NI : 1][4];  // chunks' sums, added in order
 #pragma unroll
   for (int mi = 0; mi < T::MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < T::NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+      for (int e = 0; e < 4; ++e) {
+        acc[mi][ni][e] = 0;
+        if constexpr (CHUNKED) tot[mi][ni][e] = 0.f;
+      }
+  auto promote = [&]() {
+    if constexpr (CHUNKED) {
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[mi][ni][e] += static_cast<float>(acc[mi][ni][e]);
+            acc[mi][ni][e] = 0;
+          }
+    }
+  };
+  auto sum = [&](int mi, int ni, int e) {
+    if constexpr (CHUNKED) return tot[mi][ni][e];
+    else return static_cast<float>(acc[mi][ni][e]);
+  };
 
   const int KT = (K + BK - 1) / BK;
   if (KT > 0) {
@@ -179,6 +214,7 @@ gemm_s8(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       }
     }
     if (kt + 1 < KT) store(cur ^ 1);
+    if (CHUNKED && ((kt + 1) % T::CHUNK_KT == 0 || kt + 1 == KT)) promote();
     __syncthreads();
   }
 
@@ -196,8 +232,7 @@ gemm_s8(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (col + e >= N) continue;
-          C[(long long)row * N + col + e] =
-              static_cast<float>(acc[mi][ni][2 * h + e]) * s_row * sb[col + e];
+          C[(long long)row * N + col + e] = sum(mi, ni, 2 * h + e) * s_row * sb[col + e];
         }
       }
     }
@@ -205,11 +240,11 @@ gemm_s8(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int BM, int BN, int BK, int WM, int WN>
+template <int BM, int BN, int BK, int WM, int WN, bool CHUNKED>
 int launch(const void* a, const void* b, const float* sa, const float* sb, float* c, int M, int N,
            int K, cudaStream_t stream) {
   using T = S8<BM, BN, BK, WM, WN>;
-  auto kernel = gemm_s8<BM, BN, BK, WM, WN>;
+  auto kernel = gemm_s8<BM, BN, BK, WM, WN, CHUNKED>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   const int vec_a = aligned16(a) && K % 16 == 0;
   const int vec_b = aligned16(b) && K % 16 == 0;
@@ -235,7 +270,9 @@ extern "C" int matmul_int8_fwd(const void* a, const void* b, const void* sa, con
   float* fc = static_cast<float*>(c);
 #define S8_TILE(BM, BK, BN, WM, WN)          \
   if (bm == BM && bk == BK && bn == BN) \
-    return launch<BM, BN, BK, WM, WN>(a, b, fa, fb, fc, M, N, K, s);
+    return K > S8<BM, BN, BK, WM, WN>::CHUNK_KT * BK                            \
+               ? launch<BM, BN, BK, WM, WN, true>(a, b, fa, fb, fc, M, N, K, s) \
+               : launch<BM, BN, BK, WM, WN, false>(a, b, fa, fb, fc, M, N, K, s);
   S8_TILE(16, 128, 128, 16, 32)
   S8_TILE(64, 64, 64, 32, 32)
   S8_TILE(64, 128, 128, 32, 32)

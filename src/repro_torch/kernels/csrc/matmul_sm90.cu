@@ -1,9 +1,12 @@
 // Tensor-core GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a): a ring of
-// shared-memory stages fed by TMA, consumed by wgmma, fp32 accumulators.
+// shared-memory stages fed by TMA, consumed by wgmma, fp32 accumulators
+// (int32 for int8).
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas (a tiled matmul whose
 // fp32 accumulator is carried across k-blocks) for bf16 operands, and the
-// e4m3 operands repro/kernels/matmul/ops.py::matmul_fp8 runs through it.
+// e4m3 operands repro/kernels/matmul/ops.py::matmul_fp8 runs through it; and
+// repro/kernels/matmul/kernel.py::matmul_int8_pallas (int8 x int8 -> int32
+// block dots summed in fp32, dequantized in the store) for int8 operands.
 //
 //   bf16  A (M,K) and B (K,N) row-major. wgmma m64n256k16 bf16, A K-major and
 //         B read MN-major through the descriptor's transpose bit (16-bit types
@@ -18,6 +21,17 @@
 //         while the next k-tile is widened into the other. Each 128-deep
 //         slice of K is added into separate fp32 registers (a promotion
 //         every 128 of K).
+//   int8  A (M,K) row-major, B stored (N,K), as e4m3 (the TMA loads the same
+//         bytes): s8 wgmma m64n256k32, both operands K-major from shared
+//         memory, exact int32 sums in registers; the store converts them to
+//         fp32 once and scales them, (sum * a_scale[row]) * b_scale[col],
+//         the TPU kernel's order. An int32 sum of K products of int8 values
+//         is exact while K <= 131071 (K * 128^2 < 2^31); the TPU kernel
+//         adds int32 k-block dots in fp32, so any K runs there. Here
+//         split_plan cuts K into splits of at most that much (as well as
+//         where the output tiles are too few); each split writes its fp32
+//         sum to the workspace and splitk_reduce adds them in order and
+//         scales the total.
 //
 // Why the e4m3 MMAs are fp16. Native e4m3 wgmma (m64n128k32) is compiled
 // too, with a promotion into fp32 registers after every 128 of K or after
@@ -53,12 +67,15 @@
 //   e4m3  (64, 128, 128) decode, 6 stages of 24 KB; (128, 128, 128) prefill,
 //         5 stages of 32 KB; both with two fp16 copies of B (64 KB) (native:
 //         8 and 6 stages, no copy).
+//   int8  (64, 128, 256) decode, 5 stages of 40 KB; (128, 128, 256) prefill,
+//         4 stages of 48 KB: bf16's stage bytes, twice its k per stage.
 //
-// What routes a GEMM here (kernels/matmul/kernel.py::tma_eligible): bf16 or
-// e4m3 operands in the layouts above, each base 16-byte aligned and each row
-// pitch a multiple of 16 bytes (a TMA descriptor needs both). Any other bf16
-// or e4m3 shape (K = 129 or 300 in bf16, N = 77, a view at an odd offset)
-// goes to the mma.sync kernel of matmul.cu, chosen before the launch.
+// What routes a GEMM here (kernels/matmul/kernel.py::tma_eligible): bf16,
+// e4m3 or int8 operands in the layouts above, each base 16-byte aligned and
+// each row pitch a multiple of 16 bytes (a TMA descriptor needs both). Any
+// other shape (K = 129 or 300 in bf16, N = 77, a view at an odd offset) goes
+// to the mma.sync kernel of matmul.cu (bf16, e4m3) or matmul_int8.cu (int8),
+// chosen before the launch.
 //
 // Bounds on an H100: at decode (M = 8) the GEMM reads B once and is bound by
 // bytes (gpt3-175b's FFN up, 12288 x 49152 bf16: 1.2 GB, 0.36 ms at 3.35
@@ -68,18 +85,24 @@
 // 256 columns), K is split (kernels/matmul/kernel.py::split_plan): each
 // split writes fp32 partials to a workspace, and splitk_reduce sums them in
 // split order, so the result is the same from run to run. At a prefill wave
-// (M = 4096) the bound is operations (4.95e12 at 989 TFLOP/s bf16: 5.0 ms).
+// (M = 4096) the bound is operations (4.95e12 at 989 TFLOP/s bf16: 5.0 ms;
+// int8 at 1979 TOPS: 2.5 ms). The s8 wgmma tile reads A and B from shared
+// memory once per 64-row consumer, as bf16 does, at twice the operations
+// per byte.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_E4M3_WIDE = 2;
+constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_E4M3_WIDE = 2, MODE_S8 = 3;
 constexpr int GROUP_M = 8;  // tile rows per raster group
+
+// the entries' mode argument: 0 bf16, 1 e4m3 (any form), 2 int8
+constexpr int api_mode(int mode) { return mode == MODE_BF16 ? 0 : mode == MODE_S8 ? 2 : 1; }
 
 template <int MODE, int CONS, int BN, int STAGES>
 struct Cfg {
@@ -94,90 +117,10 @@ struct Cfg {
   static constexpr int WIDE_BYTES = MODE == MODE_E4M3_WIDE ? 2 * 2 * BN * 128 : 0;
   static constexpr int THREADS = 128 * (CONS + 1);
   static constexpr int SMEM = 1024 + STAGES * STAGE + WIDE_BYTES + 2 * STAGES * 8;
-  static constexpr int NACC = BN / 2;  // fp32 sums per consumer thread
+  static constexpr int NACC = BN / 2;  // fp32 (s8: int32) sums per consumer thread
   static_assert(SMEM <= 232448, "shared memory");
-  static_assert(MODE == MODE_BF16 ? BN == 256 : BN == 128, "wgmma width");
+  static_assert(MODE == MODE_BF16 || MODE == MODE_S8 ? BN == 256 : BN == 128, "wgmma width");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
-// 2-D tile at element coordinates (c0 innermost, c1) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units). K-major: rows of 128 bytes of K,
-// 8-row groups 1024 bytes apart (SBO), LBO unused. MN-major: rows of 128
-// bytes of M or N, one per k, 8-k groups 1024 bytes apart (SBO), 64-wide
-// blocks of M or N LBO bytes apart.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from touching the sums, or reusing the registers an
-// in-flight wgmma reads, across a wgmma wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 #define F8(i)                                                                               \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -237,7 +180,35 @@ __device__ __forceinline__ void wgmma_e4m3_n128(float (&d)[64], uint64_t da, uin
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define R8(i)                                                                               \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// exact int8 x int8 products summed in int32, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56),
+        R8(64), R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef F8
+#undef R8
 
 // two e4m3 values (low byte first) to two fp16 values, exactly
 __device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t x) {
@@ -315,11 +286,13 @@ __device__ __forceinline__ void store2(void* C, int out_bf16, long long idx, int
 // MODE_E4M3: PROMOTE = wgmma k32 instructions per promotion into the fp32
 // totals (4: every 128 of K, 1: every instruction). C gets the tile of split
 // blockIdx.y when P is null; else the split writes fp32 to P[blockIdx.y].
+// MODE_S8: C = (float(int32 sum) * sa[row]) * sb[col]; a split writes the
+// unscaled fp32 sum to P, and the reduction scales the total.
 template <int MODE, int CONS, int BN, int STAGES, int PROMOTE>
 __global__ void __launch_bounds__(Cfg<MODE, CONS, BN, STAGES>::THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-          void* __restrict__ C, float* __restrict__ P, int M, int N, int K, int out_bf16,
-          int kt_per_split) {
+          void* __restrict__ C, float* __restrict__ P, const float* __restrict__ sa,
+          const float* __restrict__ sb, int M, int N, int K, int out_bf16, int kt_per_split) {
   using G = Cfg<MODE, CONS, BN, STAGES>;
   constexpr int BM = G::BM, BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -366,11 +339,12 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
 
   if constexpr (CONS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int c = wg - 1;  // this consumer's 64 rows of the tile
-  constexpr bool PROMOTES = MODE != MODE_BF16;
-  float acc[G::NACC];
+  constexpr bool PROMOTES = MODE == MODE_E4M3 || MODE == MODE_E4M3_WIDE;
+  using Acc = std::conditional_t<MODE == MODE_S8, int, float>;
+  Acc acc[G::NACC];
   float tot[PROMOTES ? G::NACC : 1];
 #pragma unroll
-  for (int i = 0; i < G::NACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < G::NACC; ++i) acc[i] = 0;
 #pragma unroll
   for (int i = 0; i < (PROMOTES ? G::NACC : 1); ++i) tot[i] = 0.f;
   auto promote = [&]() {
@@ -459,6 +433,15 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
           }
         }
         mbar_arrive(&empty[s]);
+      } else if constexpr (MODE == MODE_S8) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // k32 steps: 32 bytes along both operands' rows
+          wgmma_s8_n256(acc, desc(a + kk * 32, 16, 1024), desc(b + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k-tile's wgmmas are done: release its stage
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        prev = s;
       }
     }
   }
@@ -469,7 +452,7 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
   // columns 8j + 2(l%4) (+1): register 4j + 2h + e
   auto sum = [&](int i) {
     if constexpr (PROMOTES) return tot[i];
-    else return acc[i];
+    else return static_cast<float>(acc[i]);
   };
   const int warp = tid / 32, lane = tid % 32;
   const int row0 = tm * BM + c * 64 + warp * 16 + lane / 4;
@@ -483,16 +466,23 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
-      if (row < M)
-        store2(out, bf, static_cast<long long>(row) * N + col, col, N, sum(4 * j + 2 * h),
-               sum(4 * j + 2 * h + 1), pair);
+      if (row >= M) continue;
+      float v0 = sum(4 * j + 2 * h), v1 = sum(4 * j + 2 * h + 1);
+      if (MODE == MODE_S8 && P == nullptr) {  // (acc * a_scale) * b_scale
+        const float s_row = sa[row];
+        v0 = v0 * s_row * sb[col];
+        v1 = col + 1 < N ? v1 * s_row * sb[col + 1] : 0.f;
+      }
+      store2(out, bf, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
     }
   }
 }
 
-// C = sum over the splits of P[s] (M*N fp32 each), in split order
+// C = sum over the splits of P[s] (M*N fp32 each), in split order; with
+// scales, times sa[row] and then sb[col] (row-major C of N columns)
 __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C, long long MN,
-                              int splits, int out_bf16) {
+                              int splits, int out_bf16, const float* __restrict__ sa,
+                              const float* __restrict__ sb, int N) {
   const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (i >= MN) return;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -510,28 +500,12 @@ __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C,
       for (int e = 0; e < n; ++e) v[e] += P[s * MN + i + e];
   }
   for (int e = 0; e < n; ++e) {
+    if (sa != nullptr) v[e] = v[e] * sa[(i + e) / N] * sb[(i + e) % N];
     if (out_bf16)
       static_cast<__nv_bfloat16*>(C)[i + e] = __float2bfloat16(v[e]);
     else
       static_cast<float*>(C)[i + e] = v[e];
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver the runtime loaded (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) ==
-        cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a row-major (rows, cols) array of `es`-byte elements, read in boxes of
@@ -552,8 +526,8 @@ bool make_map(CUtensorMap* map, const void* base, int es, long long rows, long l
 }
 
 template <int MODE, int CONS, int BN, int STAGES, int PROMOTE>
-int launch(const void* a, const void* b, void* c, float* p, int M, int N, int K, int out_bf16,
-           int kt_per_split, int splits, cudaStream_t stream) {
+int launch(const void* a, const void* b, void* c, float* p, const float* sa, const float* sb,
+           int M, int N, int K, int out_bf16, int kt_per_split, int splits, cudaStream_t stream) {
   using G = Cfg<MODE, CONS, BN, STAGES>;
   CUtensorMap map_a, map_b;
   bool ok = make_map(&map_a, a, G::ES, M, K, G::BK, G::BM);
@@ -565,7 +539,7 @@ int launch(const void* a, const void* b, void* c, float* p, int M, int N, int K,
   auto kernel = gemm_sm90<MODE, CONS, BN, STAGES, PROMOTE>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const dim3 grid(((M + G::BM - 1) / G::BM) * ((N + BN - 1) / BN), splits);
-  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, M, N, K, out_bf16,
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, sa, sb, M, N, K, out_bf16,
                                                 kt_per_split);
   return static_cast<int>(cudaGetLastError());
 }
@@ -580,7 +554,9 @@ int launch(const void* a, const void* b, void* c, float* p, int M, int N, int K,
   TILE(MODE_E4M3, 1, 64, 128, 128, 8, 4)        \
   TILE(MODE_E4M3, 1, 128, 128, 128, 6, 4)       \
   TILE(MODE_E4M3, 2, 64, 128, 128, 8, 1)        \
-  TILE(MODE_E4M3, 2, 128, 128, 128, 6, 1)
+  TILE(MODE_E4M3, 2, 128, 128, 128, 6, 1)       \
+  TILE(MODE_S8, 0, 64, 128, 256, 5, 1)          \
+  TILE(MODE_S8, 0, 128, 128, 256, 4, 1)
 
 }  // namespace
 
@@ -597,9 +573,28 @@ extern "C" int matmul_sm90_fwd(const void* a, const void* b, void* c, float* p, 
                                int kt_per_split, int splits, int out_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
-  if (mode == (MODE_ == MODE_BF16 ? 0 : 1) && (MODE_ == MODE_BF16 || e4m3_form == FORM) && \
-      bm == BM && bk == BK && bn == BN)                                                  \
-    return launch<MODE_, BM / 64, BN, STAGES, PROMOTE>(a, b, c, p, M, N, K, out_bf16,    \
+  if (MODE_ != MODE_S8 && mode == api_mode(MODE_) &&                                     \
+      (MODE_ == MODE_BF16 || e4m3_form == FORM) && bm == BM && bk == BK && bn == BN)     \
+    return launch<MODE_, BM / 64, BN, STAGES, PROMOTE>(a, b, c, p, nullptr, nullptr, M, N, \
+                                                       K, out_bf16, kt_per_split, splits, s);
+  TILES_SM90
+#undef TILE
+  return -1;
+}
+
+// int8: a (M,K) row-major, b stored (N,K), sa (M) and sb (N) fp32, c (M,N)
+// fp32 = (a @ b) * sa[row] * sb[col]. p null: one split; else split s
+// writes its unscaled fp32 sum to p + s M N, and matmul_sm90_reduce with the
+// scales gives c. Each split must span at most 131071 of K, so that its
+// int32 sums are exact. Returns as matmul_sm90_fwd.
+extern "C" int matmul_sm90_s8_fwd(const void* a, const void* b, const float* sa,
+                                  const float* sb, float* c, float* p, int M, int N, int K,
+                                  int bm, int bk, int bn, int kt_per_split, int splits,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
+  if (MODE_ == MODE_S8 && bm == BM && bk == BK && bn == BN)                              \
+    return launch<MODE_, BM / 64, BN, STAGES, PROMOTE>(a, b, c, p, sa, sb, M, N, K, 0,     \
                                                        kt_per_split, splits, s);
   TILES_SM90
 #undef TILE
@@ -609,7 +604,8 @@ extern "C" int matmul_sm90_fwd(const void* a, const void* b, void* c, float* p, 
 // dynamic shared memory (bytes) of a compiled tile's kernel, -1 if none
 extern "C" int matmul_sm90_smem(int mode, int e4m3_form, int bm, int bk, int bn) {
 #define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
-  if (mode == (MODE_ == MODE_BF16 ? 0 : 1) && (MODE_ == MODE_BF16 || e4m3_form == FORM) && \
+  if (mode == api_mode(MODE_) && ((MODE_ != MODE_E4M3 && MODE_ != MODE_E4M3_WIDE) ||     \
+                                  e4m3_form == FORM) &&                                  \
       bm == BM && bk == BK && bn == BN)                                                  \
     return Cfg<MODE_, BM / 64, BN, STAGES>::SMEM;
   TILES_SM90
@@ -617,11 +613,14 @@ extern "C" int matmul_sm90_smem(int mode, int e4m3_form, int bm, int bk, int bn)
   return -1;
 }
 
-// c (M*N, fp32 or bf16) = the sum of `splits` fp32 partials p[s] in order
+// c (M*N, fp32 or bf16) = the sum of `splits` fp32 partials p[s] in order;
+// with scales (sa, sb not null; c row-major of N columns), times sa[row]
+// and then sb[col]
 extern "C" int matmul_sm90_reduce(const float* p, void* c, long long MN, int splits,
-                                  int out_bf16, void* stream) {
+                                  int out_bf16, const float* sa, const float* sb, int N,
+                                  void* stream) {
   const long long threads = (MN + 3) / 4;
   splitk_reduce<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(p, c, MN, splits, out_bf16);
+                  static_cast<cudaStream_t>(stream)>>>(p, c, MN, splits, out_bf16, sa, sb, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,14 +7,22 @@
   (``split_plan``) and ``matmul_reduce_cuda`` sums the fp32 partials;
 - ``matmul_cuda`` (``csrc/matmul.cu``): fp32 operands (IEEE FMAs), and the
   bf16 and e4m3 operands the TMA cannot describe (mma.sync);
-- ``matmul_int8_cuda`` (``csrc/matmul_int8.cu``).
+- ``matmul_int8_wgmma_cuda`` (``csrc/matmul_sm90.cu``, its int8 mode): int8
+  operands that a TMA descriptor can describe, s8 wgmma on the same TMA
+  ring, exact int32 sums, the scales fused into the store; K is split where
+  the output tiles are too few for the card and wherever it exceeds
+  ``INT8_MAX_K`` (``split_plan``), and ``matmul_reduce_cuda`` sums the fp32
+  partials and applies the scales;
+- ``matmul_int8_cuda`` (``csrc/matmul_int8.cu``): the int8 operands the TMA
+  cannot describe (mma.sync).
 
-``gemm_cuda`` picks between the first two by ``tma_eligible``, before the
-launch. The source files carry the kernels' design notes and their bounds on
-an H100. Each wrapper checks what its kernel takes, allocates the output and
-launches on the current stream, and counts its own launches. ``(bm, bk,
-bn)`` name the CTA tile (``bk`` in elements) and must be one of the
-kernel's compiled tiles; ``select_tile`` maps any request onto a set.
+``gemm_cuda`` picks between the bf16/e4m3 paths and ``int8_gemm_cuda``
+between the int8 ones by ``tma_eligible``, before the launch. The source
+files carry the kernels' design notes and their bounds on an H100. Each
+wrapper checks what its kernel takes, allocates the output and launches on
+the current stream, and counts its own launches. ``(bm, bk, bn)`` name the
+CTA tile (``bk`` in elements) and must be one of the kernel's compiled
+tiles; ``select_tile`` maps any request onto a set.
 """
 from __future__ import annotations
 
@@ -27,17 +35,19 @@ import torch
 from .. import _build
 
 #: compiled (bm, bk, bn) tiles of each operand dtype, bk in elements: the
-#: wgmma kernel's for bf16 and e4m3, the SIMT kernel's for fp32
+#: wgmma kernel's for bf16, e4m3 and int8, the SIMT kernel's for fp32
 TILES = {
     torch.bfloat16: ((64, 64, 256), (128, 64, 256)),
     torch.float8_e4m3fn: ((64, 128, 128), (128, 128, 128)),
     torch.float32: ((16, 32, 64), (64, 16, 64), (128, 8, 128)),
-    torch.int8: ((16, 128, 128), (64, 64, 64), (64, 128, 128), (128, 64, 128)),
+    torch.int8: ((64, 128, 256), (128, 128, 256)),
 }
 #: the mma.sync kernel's tiles, for bf16 and e4m3 operands TMA cannot describe
 MMA_SYNC_TILES = ((16, 64, 128), (64, 32, 64), (64, 64, 128), (128, 32, 128))
+#: the int8 mma.sync kernel's tiles, for int8 operands TMA cannot describe
+INT8_MMA_SYNC_TILES = ((16, 128, 128), (64, 64, 64), (64, 128, 128), (128, 64, 128))
 _MODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float32: 2}
-_WGMMA = (torch.bfloat16, torch.float8_e4m3fn)
+_WGMMA = (torch.bfloat16, torch.float8_e4m3fn, torch.int8)
 _OUT = (torch.float32, torch.bfloat16)
 #: how the wgmma kernel multiplies e4m3 operands: widened to fp16 in shared
 #: memory ("widened"), or native e4m3 wgmma with a promotion into fp32
@@ -46,7 +56,9 @@ E4M3_FORMS = {"widened": 0, "native/128": 1, "native/32": 2}
 E4M3_FORM = "widened"
 #: SMs of an H100: K is split where the output tiles number fewer than twice this
 SMS = 132
-#: K * 128^2 < 2^31: the int32 sum of K products of any int8 values is exact
+#: K * 128^2 < 2^31: the int32 sum of K products of any int8 values is
+#: exact. The int8 kernels sum at most this much of K in int32 and add such
+#: chunks in fp32, in order, as the TPU kernel adds its k-blocks
 INT8_MAX_K = (2 ** 31 - 1) // 128 ** 2
 
 
@@ -77,26 +89,29 @@ def select_tile(dtype: torch.dtype, bm: int, bk: int, bn: int, tiles=None) -> tu
 def tma_eligible(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int = 0,
                  b_ptr: int = 0) -> bool:
     """Whether the wgmma kernel takes an (m,k) @ (k,n) GEMM: bf16 (A and B
-    row-major) or e4m3 (A row-major, B stored (n,k)) operands whose bases
-    (``data_ptr()``) are 16-byte aligned and whose row pitches are multiples
-    of 16 bytes, as a TMA descriptor needs."""
+    row-major) or e4m3 or int8 (A row-major, B stored (n,k)) operands whose
+    bases (``data_ptr()``) are 16-byte aligned and whose row pitches are
+    multiples of 16 bytes, as a TMA descriptor needs."""
     if dtype not in _WGMMA:
         return False
     pitches = (2 * k, 2 * n) if dtype == torch.bfloat16 else (k, k)
     return all(x % 16 == 0 for x in (a_ptr, b_ptr, *pitches))
 
 
-def split_plan(m: int, n: int, k: int, tile) -> tuple:
+def split_plan(m: int, n: int, k: int, tile, max_k: int | None = None) -> tuple:
     """The K ranges ((k0, k1), ...) the wgmma kernel's splits of an (m,k) @
     (k,n) GEMM cover at `tile`: one range where the output tiles number at
     least 2 ``SMS``; else as many splits as bring the blocks to 2 ``SMS``
     (at most one per k-tile), each a whole number of k-tiles but the last,
-    which ends at k."""
+    which ends at k. With `max_k` (int8: ``INT8_MAX_K``) no range spans
+    more than max_k, so K is split there too where it is longer."""
     bm, bk, bn = tile
     tiles, kt = math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk)
-    if tiles >= 2 * SMS or kt <= 1:
+    least = math.ceil(kt / (max_k // bk)) if max_k and k > max_k else 1
+    if (tiles >= 2 * SMS or kt <= 1) and least == 1:
         return ((0, k),)
-    per = math.ceil(kt / min(kt, math.ceil(2 * SMS / tiles)))
+    want = min(kt, math.ceil(2 * SMS / tiles)) if tiles < 2 * SMS else 1
+    per = math.ceil(kt / max(want, least))
     return tuple((s * per * bk, min(k, (s + 1) * per * bk)) for s in range(math.ceil(kt / per)))
 
 
@@ -104,8 +119,11 @@ _ENTRIES = {
     "matmul_fwd": ("matmul", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "matmul_sm90_fwd": ("matmul_sm90",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    "matmul_sm90_s8_fwd": ("matmul_sm90",
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "matmul_sm90_reduce": ("matmul_sm90", [ctypes.c_void_p] * 2 + [ctypes.c_longlong] +
-                           [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+                           [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+                           [ctypes.c_void_p]),
     "matmul_int8_fwd": ("matmul_int8",
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
@@ -229,10 +247,13 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
 matmul_wgmma_cuda.launches = 0
 
 
-def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor | None = None,
+                       b_scale: torch.Tensor | None = None) -> torch.Tensor:
     """c (M,N) = p[0] + p[1] + ... (fp32 partials (S,M,N), summed in that
     order, so a result is the same from run to run), written in c's dtype
-    (fp32 or bf16), on one CUDA device."""
+    (fp32 or bf16), on one CUDA device. With fp32 scales a_scale (M,1) and
+    b_scale (1,N) (the int8 GEMM's), the sum is multiplied by a_scale and
+    then by b_scale, the int8 kernels' order."""
     if p.device.type != "cuda" or c.device != p.device:
         raise ValueError("matmul_reduce kernel needs p and c on one CUDA device")
     if p.dim() != 3 or p.dtype != torch.float32 or not p.is_contiguous() or \
@@ -240,8 +261,15 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"matmul_reduce kernel takes fp32 partials (S,M,N) and a contiguous "
                          f"fp32 or bf16 c (M,N), got {tuple(p.shape)} {p.dtype}, "
                          f"{tuple(c.shape)} {c.dtype}")
+    M, N = c.shape
+    scaled = a_scale is not None or b_scale is not None
+    if scaled:
+        _check_scales("matmul_reduce", a_scale, b_scale, M, N, p.device)
+        a_scale, b_scale = a_scale.contiguous(), b_scale.contiguous()
     err = _entry("matmul_sm90_reduce")(p.data_ptr(), c.data_ptr(), c.numel(), p.shape[0],
                                        int(c.dtype == torch.bfloat16),
+                                       a_scale.data_ptr() if scaled else None,
+                                       b_scale.data_ptr() if scaled else None, N,
                                        torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(err, "matmul_sm90_reduce")
     matmul_reduce_cuda.launches += 1
@@ -265,32 +293,80 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, request, out_dtype=None) -> torc
     return matmul_cuda(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
 
 
+def _check_scales(what, a_scale, b_scale, M, N, device):
+    if not all(t is not None and t.shape == shape and t.dtype == torch.float32
+               and t.device == device for t, shape in ((a_scale, (M, 1)), (b_scale, (1, N)))):
+        raise ValueError(f"{what} kernel takes fp32 scales ({M}, 1) and (1, {N}) on {device}")
+
+
+def _check_int8(what, a, b, a_scale, b_scale, tile, tiles):
+    """Checks common to the two int8 GEMM kernels."""
+    _check_shapes(what, a, b)
+    (M, K), N = a.shape, b.shape[1]
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise ValueError(f"{what} kernel takes int8 operands, got {a.dtype}, {b.dtype}")
+    _check_scales(what, a_scale, b_scale, M, N, a.device)
+    if not a.is_contiguous() or not b.t().is_contiguous():
+        raise ValueError(f"{what} kernel takes a row-major a and a column-major b")
+    if tile not in tiles:
+        raise ValueError(f"{what} kernel has no tile {tile}; the compiled tiles are "
+                         f"{list(tiles)}")
+
+
+def matmul_int8_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
+                           b_scale: torch.Tensor, *, bm: int = 128, bk: int = 128,
+                           bn: int = 256) -> torch.Tensor:
+    """C (M,N) = (a (M,K) @ b (K,N)) * a_scale (M,1) * b_scale (1,N) on the
+    int8 mode of the TMA + wgmma kernel of ``csrc/matmul_sm90.cu``: a int8
+    row-major, b int8 column-major (``b.t()`` contiguous), which
+    ``tma_eligible`` must accept (a pair it refuses raises:
+    ``int8_gemm_cuda`` sends it to ``matmul_int8_cuda``); scales fp32; tile
+    one of ``TILES[int8]``; any K. Each split of ``split_plan`` (with
+    ``INT8_MAX_K``) sums exactly in int32; where there is more than one,
+    ``matmul_reduce_cuda`` adds their fp32 sums in order and scales them.
+    Output fp32, as ``matmul_int8_pallas`` writes it."""
+    tile = (bm, bk, bn)
+    _check_int8("matmul_int8_wgmma", a, b, a_scale, b_scale, tile, TILES[torch.int8])
+    (M, K), N = a.shape, b.shape[1]
+    if not tma_eligible(torch.int8, M, K, N, a.data_ptr(), b.data_ptr()):
+        raise ValueError(f"matmul_int8_wgmma kernel takes operands with 16-byte aligned bases "
+                         f"and row pitches, got ({M},{K})x({K},{N})")
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    if M * N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    sa, sb = a_scale.contiguous(), b_scale.contiguous()
+    plan = split_plan(M, N, K, tile, max_k=INT8_MAX_K)
+    p = torch.empty((len(plan), M, N), dtype=torch.float32, device=a.device) \
+        if len(plan) > 1 else None
+    kt_per_split = math.ceil((plan[0][1] - plan[0][0]) / bk)
+    err = _entry("matmul_sm90_s8_fwd")(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), c.data_ptr(),
+        None if p is None else p.data_ptr(), M, N, K, bm, bk, bn, kt_per_split, len(plan),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _launched(err, "matmul_sm90_s8_fwd", tile)
+    matmul_int8_wgmma_cuda.launches += 1
+    if p is not None:
+        matmul_reduce_cuda(p, c, sa, sb)
+    return c
+
+
+matmul_int8_wgmma_cuda.launches = 0
+
+
 def matmul_int8_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
                      b_scale: torch.Tensor, *, bm: int = 128, bk: int = 64,
                      bn: int = 128) -> torch.Tensor:
-    """C (M,N) = (a (M,K) @ b (K,N)) * a_scale (M,1) * b_scale (1,N): a int8
-    row-major, b int8 column-major (``b.t()`` contiguous), scales fp32, on
-    one CUDA device; K at most ``INT8_MAX_K``. Output fp32, as
+    """C (M,N) = (a (M,K) @ b (K,N)) * a_scale (M,1) * b_scale (1,N) on the
+    mma.sync kernel of ``csrc/matmul_int8.cu``: a int8 row-major, b int8
+    column-major (``b.t()`` contiguous), scales fp32, on one CUDA device;
+    tile one of ``INT8_MMA_SYNC_TILES``; any K (int32 sums over chunks of at
+    most ``INT8_MAX_K``, added in fp32 in order). Output fp32, as
     ``matmul_int8_pallas`` writes it."""
-    _check_shapes("matmul_int8", a, b)
-    (M, K), N = a.shape, b.shape[1]
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise ValueError(f"matmul_int8 kernel takes int8 operands, got {a.dtype}, {b.dtype}")
-    if a_scale.shape != (M, 1) or b_scale.shape != (1, N) or \
-            a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32 or \
-            a_scale.device != a.device or b_scale.device != a.device:
-        raise ValueError(f"matmul_int8 kernel takes fp32 scales ({M}, 1) and (1, {N}) on "
-                         f"{a.device}, got {tuple(a_scale.shape)} {a_scale.dtype}, "
-                         f"{tuple(b_scale.shape)} {b_scale.dtype}")
-    if not a.is_contiguous() or not b.t().is_contiguous():
-        raise ValueError("matmul_int8 kernel takes a row-major a and a column-major b")
-    if K > INT8_MAX_K:
-        raise ValueError(f"matmul_int8 kernel sums K products in int32: K <= {INT8_MAX_K}, "
-                         f"got {K}")
     tile = (bm, bk, bn)
-    if tile not in TILES[torch.int8]:
-        raise ValueError(f"matmul_int8 kernel has no tile {tile}; the compiled tiles are "
-                         f"{list(TILES[torch.int8])}")
+    _check_int8("matmul_int8", a, b, a_scale, b_scale, tile, INT8_MMA_SYNC_TILES)
+    (M, K), N = a.shape, b.shape[1]
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M * N == 0:
         return c
@@ -306,3 +382,17 @@ def matmul_int8_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
 
 
 matmul_int8_cuda.launches = 0
+
+
+def int8_gemm_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
+                   b_scale: torch.Tensor, request) -> torch.Tensor:
+    """The int8 op's GEMM on the card: operands that ``tma_eligible`` accepts
+    go to ``matmul_int8_wgmma_cuda`` at ``select_tile``'s tile of the
+    (bm, bk, bn) `request`, others to ``matmul_int8_cuda`` at its tile of
+    ``INT8_MMA_SYNC_TILES``."""
+    (M, K), N = a.shape, b.shape[1]
+    if tma_eligible(torch.int8, M, K, N, a.data_ptr(), b.data_ptr()):
+        bm, bk, bn = select_tile(torch.int8, *request)
+        return matmul_int8_wgmma_cuda(a, b, a_scale, b_scale, bm=bm, bk=bk, bn=bn)
+    bm, bk, bn = select_tile(torch.int8, *request, tiles=INT8_MMA_SYNC_TILES)
+    return matmul_int8_cuda(a, b, a_scale, b_scale, bm=bm, bk=bk, bn=bn)

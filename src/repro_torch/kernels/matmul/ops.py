@@ -16,6 +16,13 @@ positive request runs, and a block that is not positive raises on either
 device. Otherwise they change nothing of the function, on the CPU nothing at
 all, as the interpret run's blocks change nothing in JAX. ``mapper_blocks``
 asks the port's LLMCompass mapper for the tile on the H100 preset.
+
+Shapes choose how a GEMM runs on the card, never whether: int8 takes any K
+(exact int32 sums over chunks of at most ``kernel.INT8_MAX_K``, added in
+fp32). The card refuses, with ``ValueError``, one thing the plain version
+computes on the CPU: fp16 tensors (``matmul`` takes bf16 or fp32 operands,
+``matmul_fp8`` writes a bf16 or fp32 output; ``matmul_int8`` quantizes any
+float input and computes it).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 from ...core.hardware import nvidia_h100
 from ...core.mapper import matmul_perf
 from ...device import runs_plain
-from .kernel import TILES, gemm_cuda, matmul_int8_cuda, nearest_tile, select_tile
+from .kernel import TILES, gemm_cuda, int8_gemm_cuda, nearest_tile
 from .ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref, matmul_ref,
                   quantize_fp8, quantize_int8)
 
@@ -67,15 +74,14 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 51
     amax/127), integer products, fp32 accumulation, dequantized in the
     epilogue. Approximates ``matmul(a, b)`` to quantization error (~1%) and
     matches ``ref.matmul_int8_ref`` to fp32 association error."""
-    tile = select_tile(torch.int8, *_request(a, b, bm, bk, bn))
+    request = _request(a, b, bm, bk, bn)
     qa, sa = quantize_int8(a, axis=1)
     qb, sb = quantize_int8(b, axis=0)
     qb = _col_major(qb)
     if runs_plain(a):
         out = dequant_matmul_ref(qa, qb, sa, sb)
     else:
-        bm, bk, bn = tile
-        out = matmul_int8_cuda(qa, qb, sa, sb, bm=bm, bk=bk, bn=bn)
+        out = int8_gemm_cuda(qa, qb, sa, sb, request)
     return out.to(a.dtype)
 
 

@@ -24,12 +24,17 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
-def matmul_reduce_ref(p: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+def matmul_reduce_ref(p: torch.Tensor, out_dtype=torch.float32, a_scale=None,
+                      b_scale=None) -> torch.Tensor:
     """The split-K reduction's function: fp32 partials p (S,M,N) added in
-    split order, p[0] + p[1] + ..., then rounded once to ``out_dtype``."""
+    split order, p[0] + p[1] + ..., with scales (a_scale (M,1), b_scale
+    (1,N), the int8 GEMM's) multiplied by a_scale and then by b_scale, then
+    rounded once to ``out_dtype``."""
     out = torch.zeros(p.shape[1:], dtype=torch.float32, device=p.device)
     for part in p:
         out += part
+    if a_scale is not None:
+        out = out * a_scale * b_scale
     return out.to(out_dtype)
 
 

@@ -18,7 +18,11 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """r, k, v, w: (B, T, H, N) fp32; u: (H, N); state0: (B, H, N, N) or None
     (zeros); lengths: (B,) int32 or None. Returns (out (B, T, H, N), final
     state (B, H, N, N)). With ``state_out`` the final state is written into
-    it, in place, and returned; it may be ``state0`` itself."""
+    it, in place, and returned; it may be ``state0`` itself.
+
+    The card refuses, with ``ValueError``, what the kernel does not take and
+    the plain version computes on the CPU: a head size N outside (32, 64),
+    and inputs other than fp32."""
     if runs_plain(r):
         out, state = wkv_ref(r, k, v, w, u, state0, lengths)
         return out, state if state_out is None else state_out.copy_(state)

@@ -29,12 +29,16 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.matmul import ops as mm_ops
-from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, MMA_SYNC_TILES, TILES, split_plan,
-                                               tma_eligible)
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
+from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
+                                               TILES, split_plan, tma_eligible)
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
                                             matmul_reduce_ref, matmul_ref, quantize_fp8,
                                             quantize_int8)
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models.lm import LM
 from repro_torch.serving import Engine, Request
@@ -93,8 +97,9 @@ def kernel_case(name, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {"wkv", "matmul", "matmul_wgmma", "matmul_reduce",
-                                                     "matmul_int8"}))
+@pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
+    "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
+    "flash_attention_wgmma"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -252,17 +257,17 @@ def test_launches_per_step_on_card(cuda):
     TK.reset_launches()
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
-                             "silu_mul": 3, "flash_attention": 3,
+                             "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "wkv": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
-                             "matmul_int8": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
-                             "silu_mul": 3, "flash_attention": 0,
+                             "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 3, "wkv": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
-                             "matmul_int8": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -277,15 +282,17 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     TK.reset_launches()
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 3, "decode_attention": 0, "wkv": 0,
+                             "flash_attention": 3, "flash_attention_wgmma": 0,
+                             "decode_attention": 0, "wkv": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
-                             "matmul_int8": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
-                             "flash_attention": 0, "decode_attention": 3, "wkv": 0,
+                             "flash_attention": 0, "flash_attention_wgmma": 0,
+                             "decode_attention": 3, "wkv": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
-                             "matmul_int8": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -423,7 +430,7 @@ def gemm_case(kind, m, k, n, device):
 def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
     """Each op's kernel against its plain version: relative error to the
     largest output and element by element (``gemm_excess``)."""
-    names = ("matmul_int8",) if kind == "int8" else ("matmul", "matmul_wgmma")
+    names = ("matmul_int8", "matmul_int8_wgmma") if kind == "int8" else ("matmul", "matmul_wgmma")
     before = sum(TK.KERNELS[name].launches for name in names)
     got, want, a, b = gemm_case(kind, m, k, n, cuda)
     torch.cuda.synchronize()
@@ -436,12 +443,14 @@ def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn,
                                    torch.int8], ids=str)
 def test_every_compiled_gemm_tile_on_card(cuda, dtype):
-    """Every compiled tile of the mma.sync, SIMT and int8 kernels at ragged
-    shapes, element by element against the plain version."""
+    """Every compiled tile of the mma.sync, SIMT and int8 mma.sync kernels at
+    ragged shapes, element by element against the plain version."""
+    tiles = MMA_SYNC_TILES if dtype in WGMMA_DTYPES else \
+        INT8_MMA_SYNC_TILES if dtype == torch.int8 else TILES[dtype]
     for m, k, n in ((513, 129, 257), (1, 300, 77), (70, 96, 130)):
         a = normal(1, (m, k), cuda, torch.float32)
         b = normal(2, (k, n), cuda, torch.float32)
-        for tile in MMA_SYNC_TILES if dtype in WGMMA_DTYPES else TILES[dtype]:
+        for tile in tiles:
             bm, bk, bn = tile
             if dtype == torch.int8:
                 qa, sa = quantize_int8(a, 1)
@@ -576,8 +585,9 @@ def test_fp8_nan_placement_on_card(cuda):
 
 def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
     """No quiet fallback: fp16 operands, a tile outside a kernel's set, a
-    block that is not positive, an int8 K whose int32 sums could overflow.
-    A small positive request runs at the nearest compiled tile."""
+    block that is not positive. A small positive request runs at the nearest
+    compiled tile, and an int8 K past the exact int32 sum computes the exact
+    sum (ROADMAP C8)."""
     a = torch.zeros((8, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="bf16, fp32 or e4m3"):
         TK.KERNELS["matmul"](a, a.t().contiguous())
@@ -593,23 +603,172 @@ def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
     got = mm_ops.matmul(y, yt, bm=8, bk=8, bn=8)
     torch.cuda.synchronize()
     assert gemm_excess(got, matmul_ref(y, yt), y, yt) <= 1
-    q = torch.zeros((1, 140000), device=cuda, dtype=torch.int8)
-    with pytest.raises(ValueError, match="int32"):
-        TK.KERNELS["matmul_int8"](q, q.t(), torch.ones((1, 1), device=cuda),
-                                  torch.ones((1, 1), device=cuda))
+    q = torch.full((1, 140000), -128, device=cuda, dtype=torch.int8)
+    got = TK.KERNELS["matmul_int8"](q, q.t(), torch.ones((1, 1), device=cuda),
+                                    torch.ones((1, 1), device=cuda), bm=16, bk=128, bn=128)
+    torch.cuda.synchronize()
+    assert got.item() == 140000.0 * 128 * 128
 
 
 def test_int8_kernel_is_exact_at_its_k_limit_on_card(cuda):
     """At K = INT8_MAX_K the int32 sums of -128 * -128 products stay exact;
-    one more k is refused."""
+    one more k, and more, computes the exact sum too: chunks of at most
+    INT8_MAX_K summed in int32, added in fp32 (ROADMAP C8), on every tile of
+    the mma.sync kernel and, where K is a multiple of 16, of the wgmma one."""
+    for bm, bk, bn in INT8_MMA_SYNC_TILES:
+        for k in (INT8_MAX_K, INT8_MAX_K + 1, INT8_MAX_K + 2):
+            q = torch.full((max(bm, bn), k), -128, device=cuda, dtype=torch.int8)
+            ones_m, ones_n = torch.ones((bm, 1), device=cuda), torch.ones((1, bn), device=cuda)
+            got = TK.KERNELS["matmul_int8"](q[:bm], q[:bn].t(), ones_m, ones_n, bm=bm, bk=bk,
+                                            bn=bn)
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch.full_like(got, float(k * 128 * 128))), (bm, bk, bn, k)
     for bm, bk, bn in TILES[torch.int8]:
-        q = torch.full((max(bm, bn), INT8_MAX_K), -128, device=cuda, dtype=torch.int8)
-        ones_m, ones_n = torch.ones((bm, 1), device=cuda), torch.ones((1, bn), device=cuda)
-        got = TK.KERNELS["matmul_int8"](q[:bm], q[:bn].t(), ones_m, ones_n, bm=bm, bk=bk,
-                                        bn=bn)
+        for k in (INT8_MAX_K + 1, 140000):
+            q = torch.full((max(bm, bn), k), -128, device=cuda, dtype=torch.int8)
+            ones_m, ones_n = torch.ones((bm, 1), device=cuda), torch.ones((1, bn), device=cuda)
+            got = TK.KERNELS["matmul_int8_wgmma"](q[:bm], q[:bn].t(), ones_m, ones_n, bm=bm,
+                                                  bk=bk, bn=bn)
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch.full_like(got, float(k * 128 * 128))), (bm, bk, bn, k)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, INT8_MAX_K + 1, 64), (33, 140000, 200),
+                                   (5, INT8_MAX_K + 2, 40)])
+def test_int8_past_the_int32_limit_matches_plain_on_card(cuda, m, k, n):
+    """ROADMAP C8: the int8 op at K > INT8_MAX_K on the card, normal
+    operands, against the plain version at 1e-4 and element by element; K a
+    multiple of 16 on the wgmma kernel (its split plan cuts K into chunks of
+    at most INT8_MAX_K, summed with the scales by matmul_reduce), else on the
+    mma.sync kernel."""
+    before = TK.launches()
+    got, want, a, b = gemm_case("int8", m, k, n, cuda)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    path = "matmul_int8_wgmma" if k % 16 == 0 else "matmul_int8"
+    assert after[path] == before[path] + 1
+    assert (after["matmul_reduce"] > before["matmul_reduce"]) == (path == "matmul_int8_wgmma")
+    assert rel_err(got, want) < GEMM_TOL["int8"]
+    assert gemm_excess(got, want, a, b) <= 1
+
+
+@pytest.mark.parametrize("m", [1, 8, 63, 65, 200])
+def test_every_int8_wgmma_tile_on_card(cuda, m):
+    """Every compiled tile of the int8 mode of the TMA + wgmma kernel at M =
+    1, 8, 63, 65 and 200, with a K tail and an N edge, whole and split,
+    element by element against the plain version; the split's result is the
+    same bits in a second run."""
+    k, n = 208, 264
+    a, b = normal(1, (m, k), cuda, torch.float32), normal(2, (k, n), cuda, torch.float32)
+    qa, sa = quantize_int8(a, 1)
+    qbt, sbt = quantize_int8(b.t().contiguous(), 1)
+    qb, sb = qbt.t(), sbt.t()
+    assert tma_eligible(torch.int8, m, k, n, qa.data_ptr(), qb.data_ptr())
+    want = dequant_matmul_ref(qa, qb, sa, sb)
+    for bm, bk, bn in TILES[torch.int8]:
+        got = TK.KERNELS["matmul_int8_wgmma"](qa, qb, sa, sb, bm=bm, bk=bk, bn=bn)
+        again = TK.KERNELS["matmul_int8_wgmma"](qa, qb, sa, sb, bm=bm, bk=bk, bn=bn)
         torch.cuda.synchronize()
-        assert torch.equal(got, torch.full_like(got, float(INT8_MAX_K * 128 * 128)))
-    q = torch.zeros((16, INT8_MAX_K + 1), device=cuda, dtype=torch.int8)
-    ones = torch.ones((16, 1), device=cuda)
-    with pytest.raises(ValueError, match="int32"):
-        TK.KERNELS["matmul_int8"](q, q.t(), ones, ones.t())
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got, again)
+        assert gemm_excess(got, want, qa.float() * sa, qb.float() * sb) <= 1, (bm, bk, bn, m)
+
+
+def test_matmul_reduce_applies_the_int8_scales_on_card(cuda):
+    """With scales the reduction multiplies the in-order sum by a_scale and
+    then b_scale: the plain version's bits."""
+    p = normal(5, (3, 9, 13), cuda, torch.float32)
+    sa, sb = normal(6, (9, 1), cuda, torch.float32), normal(7, (1, 13), cuda, torch.float32)
+    got = TK.KERNELS["matmul_reduce"](p, torch.empty((9, 13), device=cuda), sa, sb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, matmul_reduce_ref(p, torch.float32, sa, sb))
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_HEADS))
+def test_flash_wgmma_served_head_layouts_on_card(cuda, arch):
+    """The TMA + wgmma flash kernel at each served head layout, through the
+    model's entry with (B, S, H, D) tensors (transposed views, no copy),
+    causal over 384 tokens: one launch of it and none of the mma.sync
+    kernel, element by element against the plain version."""
+    hq, hkv, d = SERVED_HEADS[arch]
+    q = normal(0, (2, 384, hq, d), cuda, torch.bfloat16)
+    k = normal(1, (2, 384, hkv, d), cuda, torch.bfloat16)
+    v = normal(2, (2, 384, hkv, d), cuda, torch.bfloat16)
+    assert wgmma_eligible(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = TK.launches()
+    got = models.layers.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert after["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+    assert after["flash_attention"] == before["flash_attention"]
+    want = models.layers.attention_reference(q, k, v, causal=True)
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert attention_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window,cap,sq,sk", [(True, 32, 0.0, 300, 300),
+                                                     (True, 0, 30.0, 130, 130),
+                                                     (False, 0, 0.0, 70, 200),
+                                                     (False, 40, 50.0, 200, 70)])
+def test_flash_wgmma_masks_and_softcap_on_card(cuda, d, causal, window, cap, sq, sk):
+    """The TMA + wgmma flash kernel with window and softcap masks, ragged
+    query and key axes (no multiple of its 128-row tiles) and rows whose
+    keys are all masked (the non-causal window past the last key: 0),
+    element by element against the plain version."""
+    q = normal(3, (2, sq, 4, d), cuda, torch.bfloat16).transpose(1, 2)
+    k = normal(4, (2, sk, 2, d), cuda, torch.bfloat16).transpose(1, 2)
+    v = normal(5, (2, sk, 2, d), cuda, torch.bfloat16).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = TK.KERNELS["flash_attention_wgmma"](q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **kw)
+    if not causal and window:   # rows past Sk + window - 1 see no key: 0 here
+        dead = torch.arange(sq, device=cuda) > sk - 1 + window - 1
+        assert not got[:, :, dead].any()
+        got, want = got[:, :, ~dead], want[:, :, ~dead]
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert attention_excess(got, want) <= 1
+
+
+def test_flash_paths_on_card(cuda):
+    """D = 32, a sequence stride TMA cannot take and fp32 run on the mma.sync
+    / fp32 kernel through the op, one launch each, against the plain
+    version; the wgmma wrapper refuses them."""
+    x32 = normal(6, (2, 4, 70, 32), cuda, torch.bfloat16)
+    odd = normal(7, (2, 4, 70, 68), cuda, torch.bfloat16)[..., :64]
+    f32 = normal(8, (2, 4, 70, 64), cuda, torch.float32)
+    for x, tol in ((x32, TOL["bfloat16"]), (odd, TOL["bfloat16"]), (f32, TOL["float32"])):
+        assert not wgmma_eligible(x, x, x)
+        before = TK.launches()
+        got = flash_ops.flash_attention(x, x, x, causal=True)
+        torch.cuda.synchronize()
+        after = TK.launches()
+        assert after["flash_attention"] == before["flash_attention"] + 1
+        assert after["flash_attention_wgmma"] == before["flash_attention_wgmma"]
+        assert rel_err(got, attention_ref(x, x, x, causal=True)) < tol
+        with pytest.raises(ValueError):
+            TK.KERNELS["flash_attention_wgmma"](x, x, x)
+
+
+def test_card_refuses_what_no_kernel_takes(cuda):
+    """ROADMAP C9: inputs the CPU path computes and no card kernel takes
+    raise ValueError on the card (no fallback to the plain version): fp16
+    GEMM operands (``matmul``) and outputs (``matmul_fp8``), attention at
+    head dims 16 and 256 (flash and decode), wkv at head sizes 16 and 128."""
+    h = normal(9, (8, 32), cuda, torch.float16)
+    for op in (mm_ops.matmul, mm_ops.matmul_fp8):
+        with pytest.raises(ValueError):
+            op(h, h.t().contiguous())
+    for d in (16, 256):
+        q = normal(10, (1, 4, 40, d), cuda, torch.bfloat16)
+        with pytest.raises(ValueError):
+            flash_ops.flash_attention(q, q[:, :1], q[:, :1])
+        with pytest.raises(ValueError):
+            decode_ops.decode_attention(q[:, :1, :4], q[:, :1].transpose(1, 2).contiguous(),
+                                        q[:, :1].transpose(1, 2).contiguous(),
+                                        torch.tensor([40], dtype=torch.int32, device=cuda))
+    for n in (16, 128):
+        r = normal(11, (1, 8, 2, n), cuda, torch.float32)
+        with pytest.raises(ValueError):
+            wkv_ops.wkv(r, r, r, r, normal(12, (2, n), cuda, torch.float32))

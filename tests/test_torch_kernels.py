@@ -19,7 +19,9 @@ from repro.models import layers as jax_layers
 from repro.models import recurrent as jax_recurrent
 import repro_torch.kernels as TK
 from repro_torch.kernels.decode_attention import ops as t_decode
+from repro_torch.kernels.flash_attention import kernel as t_flash_kernel
 from repro_torch.kernels.flash_attention import ops as t_flash
+from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
 from repro_torch.kernels.gelu import ops as t_gelu
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
@@ -164,6 +166,81 @@ def test_flash_attention_model_layout_matches_jax_layers(dtype):
     assert rel_err(t2np(ref), want) < tol(dtype)
 
 
+# ---------------- the card's attention paths ----------------
+
+def test_flash_path_predicate_routes_shapes():
+    """``wgmma_eligible``: the model's transposed (B, S, H, D) views of the
+    three served head layouts (D = 64 and 128) and contiguous (B, H, S, D)
+    tensors go to the TMA + wgmma kernel; D = 32 or 256, a sequence stride
+    that is no multiple of 8 elements, a base off 16 bytes, fp32 and an
+    empty key axis do not."""
+    bf = torch.bfloat16
+    for hq, hkv, d in ((16, 8, 128), (32, 32, 64), (96, 96, 128), (4, 2, 64)):
+        q = torch.zeros(2, 40, hq, d, dtype=bf).transpose(1, 2)
+        k = torch.zeros(2, 33, hkv, d, dtype=bf).transpose(1, 2)
+        assert wgmma_eligible(q, k, k)
+        assert wgmma_eligible(q.contiguous(), k.contiguous(), k.contiguous())
+        assert not wgmma_eligible(q.float(), k.float(), k.float())
+    for d in (32, 256):
+        x = torch.zeros(2, 4, 40, d, dtype=bf)
+        assert not wgmma_eligible(x, x, x)
+    x = torch.zeros(2, 4, 40, 64, dtype=bf)
+    wide = torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64]          # sequence stride 68
+    assert wgmma_eligible(x, x, x) and not wgmma_eligible(wide, x, x)
+    flat = torch.zeros(x.numel() + 8, dtype=bf)
+    for offset in range(8):                                        # 0-14 bytes past the base
+        view = flat[offset:offset + x.numel()].view(x.shape)
+        assert wgmma_eligible(x, view, x) == (view.data_ptr() % 16 == 0)
+    assert not wgmma_eligible(x, x[:, :, :0], x[:, :, :0])
+    one = torch.zeros(1, 1, 5, 64, dtype=bf)                       # axes of extent 1
+    assert wgmma_eligible(one, one, one)
+
+
+def test_flash_dispatch_picks_the_path_before_the_launch(monkeypatch):
+    """``attention_cuda`` routes by ``wgmma_eligible`` alone and never calls
+    the other wrapper (CPU tensors, the wrappers replaced by recorders); the
+    op sends a CUDA-bound call there and nowhere else."""
+    calls = []
+    for name in ("flash_attention_cuda", "flash_attention_wgmma_cuda"):
+        monkeypatch.setattr(t_flash_kernel, name,
+                            lambda q, k, v, _n=name, **kw: calls.append((_n, kw)))
+    bf = torch.bfloat16
+    view = torch.zeros(2, 40, 4, 128, dtype=bf).transpose(1, 2)
+    cases = [((view, view, view), "flash_attention_wgmma_cuda"),
+             ((torch.zeros(2, 4, 40, 64, dtype=bf),) * 3, "flash_attention_wgmma_cuda"),
+             ((torch.zeros(2, 4, 40, 32, dtype=bf),) * 3, "flash_attention_cuda"),
+             ((torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64],) * 3, "flash_attention_cuda"),
+             ((torch.zeros(2, 4, 40, 64),) * 3, "flash_attention_cuda")]
+    kw = dict(causal=False, window=8, softcap=30.0)
+    for args, path in cases:
+        calls.clear()
+        t_flash_kernel.attention_cuda(*args, **kw)
+        assert calls == [(path, kw)]
+    calls.clear()
+    monkeypatch.setattr(t_flash, "runs_plain", lambda t: False)
+    t_flash.flash_attention(view, view, view, **kw)
+    assert calls == [("flash_attention_wgmma_cuda", kw)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_outside_the_kernels_head_dims_runs_plain_on_cpu(dtype):
+    """Head dims no card kernel takes (256, recurrentgemma-2b's, among them:
+    ROADMAP C9): on the CPU the flash and decode ops compute them and equal
+    the JAX ops; the card refuses them (``tests/test_torch_cuda.py``)."""
+    for d in (16, 256):
+        jq, tq = both(normal(30, (1, 4, 40, d)), dtype)
+        jk, tk = both(normal(31, (1, 1, 40, d)), dtype)
+        got = t_flash.flash_attention(tq, tk, tk, causal=True)
+        want = K.flash_attention.flash_attention(jq, jk, jk, causal=True)
+        assert got.shape == tq.shape and rel_err(t2np(got), want) < tol(dtype)
+        jq, tq = both(normal(32, (2, 1, 4, d)), dtype)
+        jk, tk = both(normal(33, (2, 50, 1, d)), dtype)
+        lens = np.array([50, 17], np.int32)
+        got = t_decode.decode_attention(tq, tk, tk, torch.from_numpy(lens))
+        want = K.decode_attention.decode_attention(jq, jk, jk, jnp.asarray(lens))
+        assert got.shape == tq.shape and rel_err(t2np(got), want) < tol(dtype)
+
+
 # ---------------- decode attention ----------------
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -218,6 +295,21 @@ def test_wkv_plain_matches_jax_kernel_and_ref(t, chunk):
                                  K.wkv.wkv(*jargs, jnp.asarray(u), chunk=chunk)):
         assert rel_err(got_out, want_out) < WKV_TOL
         assert rel_err(got_state, want_state) < WKV_TOL
+
+
+def test_wkv_head_sizes_outside_the_kernel_run_plain_on_cpu():
+    """Head sizes the card's wkv kernel refuses (N outside 32 and 64: ROADMAP
+    C9): the CPU op computes them and equals the JAX model's scan."""
+    for N in (16, 128):
+        B, T, H = 2, 20, 2
+        r, k, v, w = wkv_inputs(26, (B, T, H, N))
+        u, s0 = normal(27, (H, N)), normal(28, (B, H, N, N))
+        want_out, want_state = jax_recurrent.wkv_scan(
+            *(jnp.asarray(a) for a in (r, k, v, w)), jnp.asarray(u), jnp.asarray(s0),
+            chunk=16)
+        out, state = t_wkv.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)))
+        assert rel_err(out.numpy(), want_out) < WKV_TOL
+        assert rel_err(state.numpy(), want_state) < WKV_TOL
 
 
 def test_wkv_plain_matches_model_scan():
@@ -291,6 +383,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "gelu": (x,),
             "silu_mul": (x, x),
             "flash_attention": (x, x, x),
+            "flash_attention_wgmma": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 3,
             "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),
                                  torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
@@ -298,7 +391,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
             "matmul_reduce": (x[0], x[0, 0]),
             "matmul_int8": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
-                            torch.ones(4, 1), torch.ones(1, 4))}[name]
+                            torch.ones(4, 1), torch.ones(1, 4)),
+            "matmul_int8_wgmma": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
+                                  torch.ones(4, 1), torch.ones(1, 4))}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 

@@ -26,8 +26,9 @@ from repro_torch.core import hardware as t_hw
 from repro_torch.core import mapper as t_mapper
 from repro_torch.kernels.matmul import ops as t_mm
 from repro_torch.kernels.matmul import ref as t_ref
-from repro_torch.kernels.matmul.kernel import (MMA_SYNC_TILES, SMS, TILES, nearest_tile,
-                                               select_tile, split_plan, tma_eligible)
+from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
+                                               SMS, TILES, nearest_tile, select_tile,
+                                               split_plan, tma_eligible)
 from test_torch_cuda import gemm_excess
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -221,7 +222,9 @@ def test_select_tile_maps_every_request_to_a_compiled_tile():
     assert select_tile(bf, 8, 512, 256) == (64, 64, 256)       # decode: M = 8 clamps bm
     assert select_tile(f8, 8, 512, 256) == (64, 128, 128)
     assert select_tile(f8, 256, 512, 256) == (128, 128, 128)
-    assert select_tile(torch.int8, 128, 128, 128) == (128, 64, 128)
+    assert select_tile(torch.int8, 128, 128, 128) == (128, 128, 256)    # nearest: none inside
+    assert select_tile(torch.int8, 8, 512, 256) == (64, 128, 256)
+    assert select_tile(torch.int8, 128, 128, 128, tiles=INT8_MMA_SYNC_TILES) == (128, 64, 128)
     assert select_tile(torch.float32, 64, 64, 64) == (64, 16, 64)
     assert select_tile(bf, 1, 128, 77, tiles=MMA_SYNC_TILES) == (16, 64, 128)
     for dtype, tiles in TILES.items():
@@ -267,15 +270,17 @@ GPT3_GEMMS = [(12288, 36864), (12288, 12288), (12288, 49152), (49152, 12288)]
 
 
 def test_tma_eligibility_routes_shapes():
-    """The wgmma path's predicate: gpt3-175b's GEMMs (bf16 and e4m3, M = 8
-    and 4096) go to it; the JAX test shapes whose row pitches are not
-    multiples of 16 bytes (K = 129, 300 in bf16; N = 77, 50; e4m3 K = 200)
-    and operands at a base that is not 16-byte aligned go to mma.sync; fp32
-    never does."""
+    """The wgmma path's predicate: gpt3-175b's GEMMs (bf16, e4m3 and int8,
+    M = 8 and 4096) go to it; the JAX test shapes whose row pitches are not
+    multiples of 16 bytes (K = 129, 300 in bf16; N = 77, 50; e4m3 and int8
+    K = 200) and operands at a base that is not 16-byte aligned go to
+    mma.sync; fp32 never does."""
     bf, f8 = torch.bfloat16, torch.float8_e4m3fn
     for m in (8, 4096):
         for k, n in GPT3_GEMMS:
             assert tma_eligible(bf, m, k, n) and tma_eligible(f8, m, k, n)
+            assert tma_eligible(torch.int8, m, k, n)
+    assert not tma_eligible(torch.int8, 100, 200, 50) and tma_eligible(torch.int8, 1, 16, 77)
     for m, k, n in ((513, 129, 257), (1, 300, 77), (100, 200, 50)):
         assert not tma_eligible(bf, m, k, n) and not tma_eligible(f8, m, k, n)
     assert tma_eligible(bf, 128, 128, 128) and tma_eligible(f8, 256, 512, 128)
@@ -319,6 +324,79 @@ def test_split_plan_covers_k_once_in_whole_k_tiles(m, k, n):
                 assert per == -(-kt // wanted) * bk and len(plan) == -(-kt // (per // bk))
     assert len(split_plan(8, 12288, 12288, (64, 64, 256))) == 6
     assert len(split_plan(4096, 49152, 12288, (128, 64, 256))) == 1
+
+
+@pytest.mark.parametrize("k", [INT8_MAX_K, INT8_MAX_K + 1, 300000])
+def test_int8_split_plan_keeps_every_chunk_exact(k):
+    """With ``INT8_MAX_K`` the int8 plan covers K once, in order, in whole
+    k-tiles but the last, with no split spanning more than INT8_MAX_K (an
+    int32 sum of that many int8 products is exact), at decode and at a
+    prefill wave, on both int8 tiles; a K that fits takes one split where
+    the tiles fill the card."""
+    for m, n in ((8, 64), (8, 49152), (4096, 49152)):
+        for tile in TILES[torch.int8]:
+            bk = tile[1]
+            plan = split_plan(m, n, k, tile, max_k=INT8_MAX_K)
+            assert plan[0][0] == 0 and plan[-1][1] == k
+            assert all(p[1] == q[0] for p, q in zip(plan, plan[1:]))
+            assert all(k0 % bk == 0 and 0 < k1 - k0 <= INT8_MAX_K for k0, k1 in plan)
+            assert len(plan) >= -(-k // INT8_MAX_K)
+            if -(-m // tile[0]) * -(-n // tile[2]) >= 2 * SMS:
+                assert len(plan) == (1 if k <= INT8_MAX_K else -(-k // (INT8_MAX_K // bk * bk)))
+    assert split_plan(4096, 49152, 300000, (128, 128, 256)) == ((0, 300000),)
+
+
+def test_matmul_int8_past_the_int32_limit_matches_jax():
+    """ROADMAP C8: at K past INT8_MAX_K (small M and N) the port's int8 op on
+    the CPU equals the JAX op in interpret mode within 1e-4; the card
+    computes the same shapes (``tests/test_torch_cuda.py``)."""
+    for k in (INT8_MAX_K + 1, 140000):
+        (ja, ta), (jb, tb) = both(normal(41, (8, k))), both(normal(42, (k, 8)))
+        assert rel_err(t2np(t_mm.matmul_int8(ta, tb)), K.matmul.matmul_int8(ja, jb)) < 1e-4
+
+
+def test_int8_dispatch_picks_the_path_before_the_launch(monkeypatch):
+    """``int8_gemm_cuda`` routes by ``tma_eligible`` alone: a K that is a
+    multiple of 16 goes to the wgmma kernel at its tile, any other K (past
+    INT8_MAX_K too) and an operand base off 16 bytes to the mma.sync kernel
+    at its tile (CPU tensors, the wrappers replaced by recorders)."""
+    from repro_torch.kernels.matmul import kernel as t_kernel
+    calls = []
+    for name in ("matmul_int8_cuda", "matmul_int8_wgmma_cuda"):
+        monkeypatch.setattr(t_kernel, name,
+                            lambda a, b, sa, sb, _n=name, **kw: calls.append((_n, kw)))
+    cases = [((8, 12288, 49152), "matmul_int8_wgmma_cuda", (64, 128, 256)),
+             ((4096, 12288, 128), "matmul_int8_wgmma_cuda", (128, 128, 256)),
+             ((8, INT8_MAX_K + 1, 16), "matmul_int8_wgmma_cuda", (64, 128, 256)),
+             ((8, INT8_MAX_K + 2, 16), "matmul_int8_cuda", (16, 128, 128)),
+             ((513, 129, 257), "matmul_int8_cuda", (128, 64, 128))]
+    for (m, k, n), path, tile in cases:
+        calls.clear()
+        qa = torch.zeros((m, k), dtype=torch.int8)
+        qb = torch.zeros((n, k), dtype=torch.int8).t()
+        t_kernel.int8_gemm_cuda(qa, qb, torch.ones(m, 1), torch.ones(1, n),
+                                (min(256, m), min(512, k), min(256, n)))
+        assert calls == [(path, dict(zip(("bm", "bk", "bn"), tile)))], (m, k, n)
+    flat = torch.zeros(64 * 256 + 1, dtype=torch.int8)
+    qa = flat[1:].view(64, 256)
+    calls.clear()
+    t_kernel.int8_gemm_cuda(qa, torch.zeros((128, 256), dtype=torch.int8).t(),
+                            torch.ones(64, 1), torch.ones(1, 128), (64, 256, 128))
+    assert [c[0] for c in calls] == ["matmul_int8_cuda"]
+
+
+def test_fp16_gemms_run_plain_on_cpu():
+    """fp16 operands, which the card's GEMM kernels refuse (ROADMAP C9): on
+    the CPU ``matmul`` and ``matmul_fp8`` compute them, in fp16, and equal
+    the JAX ops."""
+    a, b = normal(43, (40, 48)), normal(44, (48, 24))
+    ja, jb = jnp.asarray(a, jnp.float16), jnp.asarray(b, jnp.float16)
+    ta, tb = torch.from_numpy(a).half(), torch.from_numpy(b).half()
+    for t_op, j_op, tol in ((t_mm.matmul, K.matmul.matmul, 2e-3),
+                            (t_mm.matmul_fp8, K.matmul.matmul_fp8, 2e-3)):
+        got = t_op(ta, tb)
+        assert got.dtype == torch.float16
+        assert rel_err(t2np(got), j_op(ja, jb)) < tol
 
 
 def test_gemm_dispatch_picks_the_path_before_the_launch(monkeypatch):
