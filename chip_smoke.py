@@ -18,7 +18,11 @@ result line):
                on the flash kernel ``wgmma_eligible`` picks for it (the
                TMA + wgmma one for bf16 at D = 64 and 128, contiguous or
                the model's transposed views; mma.sync for D = 32 and a
-               sequence stride TMA cannot take; fp32 on its own); the fp32
+               sequence stride TMA cannot take; fp32 on its own); each
+               decode case on the kernel ``chunked_eligible`` picks (the
+               chunked one for bf16 at D = 32-256, D = 256 and lengths at
+               its unit edges among them; the split one for fp32), the
+               served decode shapes on both; the fp32
                wkv kernel to 1e-4 (output and final state), the JAX wkv tests' bound, at
                their shapes, a ragged T, the served prefill with prompt
                lengths and the decode step in place on a nonzero state;
@@ -35,11 +39,12 @@ result line):
                through matmul (bf16, fp32), matmul_fp8 and matmul_int8, each
                output held to its plain version as above, and the counts
                read just after, per path: the 16 bf16 and e4m3 GEMMs on the
-               TMA + wgmma kernel (matmul_wgmma) and the 8 int8 ones on its
-               int8 mode (matmul_int8_wgmma), with one split-K reduction
-               (matmul_reduce) for each GEMM its split plan splits, the 8
-               fp32 ones on matmul.cu (none on its mma.sync path), none on
-               matmul_int8 (mma.sync), no other kernel; before that, int8 at
+               TMA + wgmma kernel (matmul_wgmma), the 8 int8 ones on its
+               int8 mode (matmul_int8_wgmma) and the 8 fp32 ones on its FFMA
+               mode (matmul_f32_tma), with one split-K reduction
+               (matmul_reduce) for each GEMM its split plan splits, none on
+               matmul.cu (SIMT, mma.sync) or matmul_int8.cu, no other
+               kernel; before that, int8 at
                K past 131071 (131072 and 140000 on the wgmma kernel, 131073
                on mma.sync: ROADMAP C8); the reduction bit for bit against
                its plain version, also with the int8 scales; the
@@ -62,7 +67,9 @@ result line):
                before each serve and read just after, split into the
                prefill and the decode phase: each kernel of that model's
                path must be above 0, and each phase must show exactly its
-               steps' launches (9 prefills: one wave, 8 refills); then the
+               steps' launches (9 prefills: one wave, 8 refills; L
+               decode_attention_chunked and 0 decode_attention a decode
+               step); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
                each model and its cache are freed before the next is built;
@@ -77,8 +84,11 @@ result line):
                that computes the same function where there is one, and its
                bound on the card; beside the wgmma flash kernel and the
                wgmma GEMM modes, the mma.sync kernel each ran on before
-               (flash_attention.cu, matmul.cu, matmul_int8.cu) on the same
-               operands, for bf16 the
+               (flash_attention.cu, matmul.cu, matmul_int8.cu), beside the
+               chunked decode kernel the split one and torch.sum over the
+               same live K and V, beside the fp32 FFMA mode the SIMT
+               kernel, each on the same operands; gelu and F.gelu in
+               alternating pairs; for bf16 the
                port's mapper's predicted latency on its H100 preset and the
                wgmma kernel's time at the tile ``mapper_blocks`` picks.
 
@@ -123,9 +133,11 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention/kernel.py:71",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
+    "decode_attention_chunked": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
+    "matmul_f32_tma": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_reduce": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_int8": "src/repro/kernels/matmul/kernel.py:86",
     "matmul_int8_wgmma": "src/repro/kernels/matmul/kernel.py:86",
@@ -138,9 +150,12 @@ SOURCES = {
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "flash_attention_wgmma": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
+    "decode_attention_chunked": ("cuda",
+                                 "src/repro_torch/kernels/csrc/decode_attention_chunked.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
     "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
+    "matmul_f32_tma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_reduce": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_int8": ("cuda", "src/repro_torch/kernels/csrc/matmul_int8.cu"),
     "matmul_int8_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
@@ -153,6 +168,7 @@ GEMM_ROWS = (SLOTS, 8 * 512)
 GEMM_EDGES = ((128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77), (513, 129, 257))
 GEMM_MODES = ("bf16", "fp32", "fp8", "int8")
 GEMM_TOL = {"bf16": 2e-2, "fp32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
+GELU_PAIRS = 6   # gelu and F.gelu timed in alternating pairs
 
 
 def require(cond, msg):
@@ -211,8 +227,9 @@ class Inputs:
 def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention", "wkv",
-                            "matmul", "matmul_sm90", "matmul_int8"])
+    seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
+                            "decode_attention_chunked", "wkv", "matmul", "matmul_sm90",
+                            "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -226,7 +243,8 @@ def phase_build(torch):
     smem = _build.load("matmul_sm90").matmul_sm90_smem
     smem.argtypes, smem.restype = [ctypes.c_int] * 5, ctypes.c_int
     for mode, dtype, forms in ((0, torch.bfloat16, {"": 0}),
-                               (1, torch.float8_e4m3fn, E4M3_FORMS), (2, torch.int8, {"": 0})):
+                               (1, torch.float8_e4m3fn, E4M3_FORMS), (2, torch.int8, {"": 0}),
+                               (3, torch.float32, {"": 0})):
         for tile in TILES[dtype]:
             for form, f in forms.items():
                 print(f"[build] matmul_sm90.cu {dtype} {form} tile {tile}: "
@@ -274,6 +292,7 @@ def resource_usage(log):
 def kernel_cases(torch):
     """(kernel, label, kernel fn, plain fn, args, is_main_path) per case."""
     from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.kernel import HEAD_DIMS, chunked_eligible
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -326,16 +345,33 @@ def kernel_cases(torch):
             cases.append((name, f"q({b},{hq},{sq},{d}) kv({b},{hkv},{sk},{d}) {layout} {kw}",
                           lambda *a, kw=kw, name=name: KERNELS[name](*a, **kw),
                           lambda *a, kw=kw: attention_ref(*a, **kw), (q, k, v), main))
-        for b, hkv, g, t, d, main in ((3, 2, 4, 128, 64, False), (3, 1, 8, 200, 64, False),
-                                      (3, 4, 1, 64, 64, False), (SLOTS, 8, 2, MAX_LEN, 128, True),
-                                      (SLOTS, 32, 1, MAX_LEN, 64, True),
-                                      (SLOTS, 96, 1, MAX_LEN, 128, True)):
-            lens = [t, max(1, t // 2), max(1, t // 3)] if b == 3 else decode_lengths(b, t)
-            cases.append(("decode_attention", f"q({b},{hkv},{g},{d}) T={t} lengths={lens}",
-                          KERNELS["decode_attention"], decode_attention_ref,
-                          (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
-                           rnd((b, t, hkv, d), dt),
-                           torch.tensor(lens, dtype=torch.int32, device="cuda")), main))
+        # (B, Hkv, G, T, D, lengths, is_main_path): the JAX kernel tests'
+        # rows, lengths at the chunked kernel's unit edges (1, UK - 1, UK,
+        # UK + 1, T) at D = 128 and 256 (bf16 only: the split kernel, which
+        # takes fp32, stops at 128), and the served shapes; each case on the
+        # kernel chunked_eligible picks for it
+        for b, hkv, g, t, d, lens, main in (
+                (3, 2, 4, 128, 64, [128, 64, 42], False),
+                (3, 1, 8, 200, 64, [200, 100, 66], False),
+                (3, 4, 1, 64, 64, [64, 32, 21], False),
+                (5, 2, 2, 197, 128, edge_lengths(128, 197), False),
+                (5, 1, 10, 101, 256, edge_lengths(256, 101), False),
+                (5, 2, 1, 101, 256, edge_lengths(256, 101), False),
+                (SLOTS, 8, 2, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
+                (SLOTS, 32, 1, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
+                (SLOTS, 96, 1, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True)):
+            if d not in HEAD_DIMS and dt != torch.bfloat16:
+                continue
+            q, k, v = (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
+                       rnd((b, t, hkv, d), dt))
+            name = "decode_attention_chunked" if chunked_eligible(q, k, v) else \
+                "decode_attention"
+            args = (q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda"))
+            label = f"q({b},{hkv},{g},{d}) T={t} lengths={lens}"
+            cases.append((name, label, KERNELS[name], decode_attention_ref, args, main))
+            if main:   # the split kernel, which the served shapes ran on before
+                cases.append(("decode_attention", label, KERNELS["decode_attention"],
+                              decode_attention_ref, args, False))
     return cases
 
 
@@ -349,6 +385,14 @@ def attention_input(rnd, shape, dt, layout):
     if layout == "bhsd":
         return rnd(shape, dt)
     return rnd((b, h, s, d + 4), dt)[..., :d]
+
+
+def edge_lengths(d, t):
+    """Cache lengths at the unit edges of the chunked decode kernel at head
+    dim d (1, UK - 1, UK, UK + 1 keys) and the full cache t."""
+    from repro_torch.kernels.decode_attention.kernel import chunk_keys
+    c = chunk_keys(d)
+    return [1, c - 1, c, c + 1, t]
 
 
 def decode_lengths(b, t):
@@ -503,19 +547,23 @@ def check_gemm(torch, mode, label, got, want, a, b):
 
 def phase_matmul(torch):
     """The GEMM op path; returns ({kernel: launches in the path run},
-    {mode: largest |kernel - plain| at the gpt3 shapes}, largest |kernel -
-    plain| of the int8 mma.sync kernel, which the path does not reach)."""
+    {mode: largest |kernel - plain| at the gpt3 shapes}, {kernel: largest
+    |kernel - plain| of matmul.cu and matmul_int8.cu, which the path does
+    not reach, at the shapes TMA cannot take})."""
     from repro_torch import kernels as K
-    from repro_torch.kernels.matmul.kernel import INT8_MAX_K
+    from repro_torch.kernels.matmul.kernel import INT8_MAX_K, tma_eligible
     rnd = Inputs(torch, 5)
-    int8_mma_err = 0.0
+    off_path = {"matmul": 0.0, "matmul_int8": 0.0}
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp8": torch.float8_e4m3fn,
+              "int8": torch.int8}
     for mode in GEMM_MODES:
         for m, k, n in GEMM_EDGES:
             a, b = rnd((m, k), torch.float32), rnd((k, n), torch.float32)
             got, want, x, y = gemm_case(torch, mode, a, b, (128, 128, 128))
             check_gemm(torch, mode, f"({m},{k})x({k},{n}) blocks 128/128/128", got, want, x, y)
-            if mode == "int8" and k % 16:   # a row pitch TMA cannot take: mma.sync
-                int8_mma_err = max(int8_mma_err, max_abs(got, want))
+            if not tma_eligible(dtypes[mode], m, k, n):   # matmul.cu or matmul_int8.cu
+                name = "matmul_int8" if mode == "int8" else "matmul"
+                off_path[name] = max(off_path[name], max_abs(got, want))
     # int8 past the exact int32 sum (ROADMAP C8): chunks of at most INT8_MAX_K
     # of K, on the wgmma kernel (K a multiple of 16) and on mma.sync
     for m, k, n in ((64, INT8_MAX_K + 1, 200), (48, 140000, 96), (33, INT8_MAX_K + 2, 40)):
@@ -525,7 +573,7 @@ def phase_matmul(torch):
         check_gemm(torch, "int8", f"({m},{k})x({k},{n}), K past {INT8_MAX_K}, on {path}", got,
                    want, x, y)
         if k % 16:
-            int8_mma_err = max(int8_mma_err, max_abs(got, want))
+            off_path["matmul_int8"] = max(off_path["matmul_int8"], max_abs(got, want))
         del a, b, got, want, x, y
     # the fp8 op beyond e4m3's range: NaN where the reference's cast gives it
     a, b = rnd((70, 96), torch.float32), rnd((96, 130), torch.float32)
@@ -535,16 +583,17 @@ def phase_matmul(torch):
     check_gemm(torch, "fp8", "(70,96)x(96,130) with 500, -465, 1e4, +-inf (NaN) and 464, "
                f"-448 (+-448), {int(want.isnan().sum())} NaNs", got, want, x, y)
 
-    # fp32 on the SIMT kernel; every bf16, e4m3 and int8 GEMM on the wgmma
-    # kernel, with one reduction where its split plan splits K
+    # every GEMM on the TMA ring kernel: bf16 and e4m3 on wgmma, int8 on its
+    # s8 mode, fp32 on its FFMA mode; one reduction where a split plan splits
+    # K; none on matmul.cu or matmul_int8.cu
     from repro_torch.kernels.matmul.kernel import select_tile, split_plan
     splits = sum(len(split_plan(M, n, k, select_tile(dt, min(256, M), min(512, k),
                                                      min(256, n)),
                                 INT8_MAX_K if dt == torch.int8 else None)) > 1
                  for M in GEMM_ROWS for _, k, n in GPT3_GEMMS
-                 for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8))
+                 for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8, torch.float32))
     expected = dict.fromkeys(K.KERNELS, 0)
-    expected.update(matmul=len(GEMM_ROWS) * len(GPT3_GEMMS),
+    expected.update(matmul_f32_tma=len(GEMM_ROWS) * len(GPT3_GEMMS),
                     matmul_wgmma=2 * len(GEMM_ROWS) * len(GPT3_GEMMS), matmul_reduce=splits,
                     matmul_int8_wgmma=len(GEMM_ROWS) * len(GPT3_GEMMS))
     errs = dict.fromkeys(GEMM_MODES, 0.0)
@@ -565,9 +614,10 @@ def phase_matmul(torch):
           f"{GEMM_MODES} through repro_torch.kernels.matmul.ops in "
           f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
     print(f"[matmul] paths: all {counts['matmul_wgmma']} bf16 and e4m3 GEMMs and all "
-          f"{counts['matmul_int8_wgmma']} int8 ones on the TMA + wgmma kernel "
-          f"({counts['matmul_reduce']} split-K reductions), none on mma.sync; "
-          f"{counts['matmul']} fp32 on the SIMT kernel")
+          f"{counts['matmul_int8_wgmma']} int8 ones on the TMA + wgmma kernel, all "
+          f"{counts['matmul_f32_tma']} fp32 ones on its FFMA mode "
+          f"({counts['matmul_reduce']} split-K reductions); {counts['matmul']} on matmul.cu "
+          f"(mma.sync, SIMT), {counts['matmul_int8']} on matmul_int8.cu")
 
     # the split-K reduction against its plain version: the same bits
     from repro_torch.kernels.matmul.ref import matmul_reduce_ref
@@ -598,7 +648,7 @@ def phase_matmul(torch):
               f"{rel_err(mutant.bfloat16(), want.bfloat16()):.3e}, per-element excess "
               f"{excess:.3f}")
         require(excess > 1, f"the per-element GEMM check passes a mutant: {label}")
-    return counts, errs, int8_mma_err
+    return counts, errs, off_path
 
 
 def phase_e4m3_probe(torch):
@@ -659,12 +709,22 @@ def prefill_attention(cfg):
     return "flash_attention_wgmma" if cfg.d_head in WGMMA_HEAD_DIMS else "flash_attention"
 
 
+def decode_attention_kernel(cfg):
+    """The kernel of `cfg`'s decode attention: the chunked one at the head
+    dims it takes (every served model's bf16 cache views), else the split
+    one."""
+    from repro_torch.kernels.decode_attention.kernel import CHUNKED_HEAD_DIMS
+    return "decode_attention_chunked" if cfg.d_head in CHUNKED_HEAD_DIMS else \
+        "decode_attention"
+
+
 def expected_launches(cfg, prefill):
     """Launches of each kernel in one prefill or one decode step of `cfg`:
     two norms per layer and the final one (q- and k-norm per layer with
     qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation and one
-    attention per layer (``prefill_attention``'s kernel at prefill, none on
-    the other flash kernel); for RWKV6, one wkv per layer and no attention."""
+    attention per layer (``prefill_attention``'s kernel at prefill and
+    ``decode_attention_kernel``'s at decode, none on the other flash or
+    decode kernel); for RWKV6, one wkv per layer and no attention."""
     from repro_torch.kernels import KERNELS
     L = cfg.n_layers
     counts = dict.fromkeys(KERNELS, 0)
@@ -674,7 +734,7 @@ def expected_launches(cfg, prefill):
         return counts
     counts["rmsnorm"] += 2 * L if cfg.qk_norm else 0
     counts["silu_mul" if cfg.mlp_gated else "gelu"] = L
-    counts[prefill_attention(cfg) if prefill else "decode_attention"] = L
+    counts[prefill_attention(cfg) if prefill else decode_attention_kernel(cfg)] = L
     return counts
 
 
@@ -977,8 +1037,15 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
 
     R, C = 4096, 49152
     x = rnd((R, C), bf)
+    # the kernel and F.gelu in alternating pairs: is the kernel slower?
+    pairs = [(time_ms(torch, lambda: KERNELS["gelu"](x)),
+              time_ms(torch, lambda: F.gelu(x, approximate="tanh"))) for _ in range(GELU_PAIRS)]
+    print(f"[timing] gelu and F.gelu in {GELU_PAIRS} alternating pairs (ms): "
+          f"{json.dumps(pairs)}; kernel slower in {sum(k > lib for k, lib in pairs)} of "
+          f"{GELU_PAIRS}, median ratio {statistics.median(k / lib for k, lib in pairs):.5f}")
     add("gelu", f"x({R},{C}) bf16", lambda: KERNELS["gelu"](x), lambda: gelu_ref(x),
-        lambda: F.gelu(x, approximate="tanh"), 2 * R * C * 2, 10 * R * C, FP32_FLOPS)
+        lambda: F.gelu(x, approximate="tanh"), 2 * R * C * 2, 10 * R * C, FP32_FLOPS,
+        paired_ms=[k for k, _ in pairs], paired_library_ms=[lib for _, lib in pairs])
     del x
 
     for C in (6144, 5632):
@@ -1016,16 +1083,30 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
         kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
         mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         q_sdpa = qd.reshape(SLOTS, Hkv * G, 1, D)
-        add("decode_attention", f"q({SLOTS},{Hkv},{G},{D}) kv({SLOTS},{T},{Hkv},{D}) "
-            f"lengths={lens_list} bf16",
+        label = (f"q({SLOTS},{Hkv},{G},{D}) kv({SLOTS},{T},{Hkv},{D}) lengths={lens_list} "
+                 "bf16")
+        work = (2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
+                4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS)
+
+        def sdpa_decode():
+            return F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
+                                                  vd.transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=True)
+
+        # the split kernel (the decode step's before the chunked one), then
+        # the chunked kernel with the split kernel's time beside it, and
+        # torch.sum over a contiguous copy of the same live K and V: what
+        # reading those bytes costs under this timing's L2 flush
+        add("decode_attention", label + " on the split kernel",
             lambda: KERNELS["decode_attention"](qd, kd, vd, lens),
-            lambda: decode_attention_ref(qd, kd, vd, lens),
-            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
-                                                   vd.transpose(1, 2), attn_mask=mask,
-                                                   enable_gqa=True),
-            2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
-            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS)
-        del qd, kd, vd
+            lambda: decode_attention_ref(qd, kd, vd, lens), sdpa_decode, *work)
+        live = torch.cat([x[b, :n] for x in (kd, vd) for b, n in enumerate(lens_list)])
+        add("decode_attention_chunked", label,
+            lambda: KERNELS["decode_attention_chunked"](qd, kd, vd, lens),
+            lambda: decode_attention_ref(qd, kd, vd, lens), sdpa_decode, *work,
+            split_kernel_ms=rows["decode_attention"]["shapes"][-1]["ms"],
+            sum_of_live_kv_ms=time_ms(torch, lambda: live.sum()))
+        del qd, kd, vd, live
 
     # wkv: the served rwkv6 wave's prefill (data-dependent: the steps of its
     # prompt lengths are counted, the output is written in full) and the
@@ -1058,7 +1139,7 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
     from repro_torch.core.hardware import nvidia_h100
     from repro_torch.core.mapper import matmul_perf
     from repro_torch.kernels.matmul.kernel import (E4M3_FORM, INT8_MAX_K, INT8_MMA_SYNC_TILES,
-                                                   select_tile, split_plan)
+                                                   SIMT_TILES, select_tile, split_plan)
     from repro_torch.kernels.matmul.ops import mapper_blocks
     from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_reduce_ref,
                                                 matmul_ref, quantize_fp8, quantize_int8)
@@ -1110,12 +1191,21 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
                 mode="bf16")
             del a, b
             if M == SLOTS or gemm == "ffn_up":
-                tile = select_tile(f32, *request)
-                add("matmul", f"{shape} fp32 tile {tile}",
+                # the SIMT kernel at the tile the op ran fp32 with before,
+                # then the TMA ring's fp32 mode at the op's tile
+                work = (4 * (M * Kd + Kd * N + M * N), ops2, FP32_FLOPS, iters, plain_iters)
+                tile = select_tile(f32, *request, tiles=SIMT_TILES)
+                add("matmul", f"{shape} fp32 on the SIMT kernel, tile {tile}",
                     lambda: KERNELS["matmul"](a32, b32, bm=tile[0], bk=tile[1], bn=tile[2]),
-                    lambda: matmul_ref(a32, b32), lambda: torch.matmul(a32, b32),
-                    4 * (M * Kd + Kd * N + M * N), ops2, FP32_FLOPS, iters, plain_iters,
+                    lambda: matmul_ref(a32, b32), lambda: torch.matmul(a32, b32), *work,
                     mode="fp32")
+                tile = select_tile(f32, *request)
+                splits = len(split_plan(M, N, Kd, tile))
+                add("matmul_f32_tma", f"{shape} fp32 tile {tile}, {splits} split(s) of K",
+                    lambda: KERNELS["matmul_f32_tma"](a32, b32, bm=tile[0], bk=tile[1],
+                                                      bn=tile[2]),
+                    lambda: matmul_ref(a32, b32), lambda: torch.matmul(a32, b32), *work,
+                    mode="fp32", simt_ms=rows["matmul"]["shapes"][-1]["ms"])
             a8, b8 = quantize_fp8(a32), quantize_fp8(b32).t().contiguous().t()
             tile = select_tile(f8, *request)
             splits = len(split_plan(M, N, Kd, tile))
@@ -1177,7 +1267,7 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     errs = phase_kernels(torch)
-    gemm_counts, gemm_errs, int8_mma_err = phase_matmul(torch)
+    gemm_counts, gemm_errs, off_path_errs = phase_matmul(torch)
     probe = phase_e4m3_probe(torch)
     counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
@@ -1189,13 +1279,13 @@ def main():
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
     # the GEMM kernels' launches are those of their path; no model calls them
-    gemm_kernels = ("matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8",
+    gemm_kernels = ("matmul", "matmul_wgmma", "matmul_f32_tma", "matmul_reduce", "matmul_int8",
                     "matmul_int8_wgmma")
-    by_mode = {"matmul": ("fp32",), "matmul_wgmma": ("bf16", "fp8"), "matmul_reduce": (),
-               "matmul_int8": (), "matmul_int8_wgmma": ("int8",)}
+    by_mode = {"matmul": (), "matmul_wgmma": ("bf16", "fp8"), "matmul_f32_tma": ("fp32",),
+               "matmul_reduce": (), "matmul_int8": (), "matmul_int8_wgmma": ("int8",)}
     for name in gemm_kernels:
         errs[name] = max((gemm_errs[m] for m in by_mode[name]), default=0.0)
-    errs["matmul_int8"] = int8_mma_err   # the shapes TMA cannot take, off the path
+    errs.update(off_path_errs)   # the shapes TMA cannot take, off the path
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
                         wave_lens["rwkv6-7b"])

@@ -4,11 +4,11 @@ its launch count), ``<name>/ref.py`` (the plain PyTorch version) and
 ``<name>/ops.py`` (the public op, dispatching on the tensor's device).
 CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 """
-from .decode_attention.kernel import decode_attention_cuda
+from .decode_attention.kernel import decode_attention_chunked_cuda, decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda, flash_attention_wgmma_cuda
 from .gelu.kernel import gelu_triton, silu_mul_triton
-from .matmul.kernel import (matmul_cuda, matmul_int8_cuda, matmul_int8_wgmma_cuda,
-                            matmul_reduce_cuda, matmul_wgmma_cuda)
+from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
+                            matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 from .wkv.kernel import wkv_cuda
 
@@ -21,9 +21,11 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "flash_attention_wgmma": flash_attention_wgmma_cuda,
     "decode_attention": decode_attention_cuda,
+    "decode_attention_chunked": decode_attention_chunked_cuda,
     "wkv": wkv_cuda,
     "matmul": matmul_cuda,
     "matmul_wgmma": matmul_wgmma_cuda,
+    "matmul_f32_tma": matmul_f32_tma_cuda,
     "matmul_reduce": matmul_reduce_cuda,
     "matmul_int8": matmul_int8_cuda,
     "matmul_int8_wgmma": matmul_int8_wgmma_cuda,

@@ -1,10 +1,11 @@
-// Tensor-core GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a): a ring of
-// shared-memory stages fed by TMA, consumed by wgmma, fp32 accumulators
-// (int32 for int8).
+// GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a): a ring of shared-memory
+// stages fed by TMA, consumed by wgmma with fp32 accumulators (int32 for
+// int8), or for fp32 operands by FFMAs on the CUDA cores.
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas (a tiled matmul whose
-// fp32 accumulator is carried across k-blocks) for bf16 operands, and the
-// e4m3 operands repro/kernels/matmul/ops.py::matmul_fp8 runs through it; and
+// fp32 accumulator is carried across k-blocks) for bf16 and fp32 operands,
+// and the e4m3 operands repro/kernels/matmul/ops.py::matmul_fp8 runs through
+// it; and
 // repro/kernels/matmul/kernel.py::matmul_int8_pallas (int8 x int8 -> int32
 // block dots summed in fp32, dequantized in the store) for int8 operands.
 //
@@ -32,6 +33,22 @@
 //         where the output tiles are too few); each split writes its fp32
 //         sum to the workspace and splitk_reduce adds them in order and
 //         scales the total.
+//   fp32  A (M,K) and B (K,N) row-major. IEEE fp32 FFMAs, never TF32 (which
+//         keeps about 3 decimal digits and cannot meet 2e-5), by the
+//         consumer warps of gemm_f32_sm90 from the same ring: A's k-tile of
+//         32 (one 128-byte row per row of A) with the 128-byte swizzle, read
+//         as a float4 of 4 k per row, conflict-free; B's 32 rows of BN
+//         unswizzled, read as float4 runs along N. One producer warp.
+//         Prefill tile (256, 32, 128): 256 consumer threads of 16 x 8 sums
+//         (rows 4 apart, columns in two float4 runs), a producer warpgroup
+//         that gives its registers to them (setmaxnreg), 4 stages of 48
+//         KB.
+//         Decode tile (8, 32, 128): M <= 8 rows (none padded beyond 8), 8
+//         k-groups of 32 threads, each summing 4 of a stage's 32 k into 8 x 4
+//         sums, the groups added in shared memory in order at the end; 4
+//         stages of 17 KB, 16 KB of B each, so that a few blocks per SM keep
+//         the B stream at the memory rate; K split by split_plan as the
+//         other modes.
 //
 // Why the e4m3 MMAs are fp16. Native e4m3 wgmma (m64n128k32) is compiled
 // too, with a promotion into fp32 registers after every 128 of K or after
@@ -69,12 +86,14 @@
 //         8 and 6 stages, no copy).
 //   int8  (64, 128, 256) decode, 5 stages of 40 KB; (128, 128, 256) prefill,
 //         4 stages of 48 KB: bf16's stage bytes, twice its k per stage.
+//   fp32  (8, 32, 128) decode, (256, 32, 128) prefill, as above.
 //
 // What routes a GEMM here (kernels/matmul/kernel.py::tma_eligible): bf16,
-// e4m3 or int8 operands in the layouts above, each base 16-byte aligned and
-// each row pitch a multiple of 16 bytes (a TMA descriptor needs both). Any
-// other shape (K = 129 or 300 in bf16, N = 77, a view at an odd offset) goes
-// to the mma.sync kernel of matmul.cu (bf16, e4m3) or matmul_int8.cu (int8),
+// e4m3, int8 or fp32 operands in the layouts above, each base 16-byte
+// aligned and each row pitch a multiple of 16 bytes (a TMA descriptor needs
+// both). Any other shape (K = 129 or 300 in bf16, N = 77, K or N not a
+// multiple of 4 in fp32, a view at an odd offset) goes to matmul.cu (bf16,
+// e4m3 on mma.sync, fp32 on its SIMT kernel) or matmul_int8.cu (int8),
 // chosen before the launch.
 //
 // Bounds on an H100: at decode (M = 8) the GEMM reads B once and is bound by
@@ -88,7 +107,11 @@
 // (M = 4096) the bound is operations (4.95e12 at 989 TFLOP/s bf16: 5.0 ms;
 // int8 at 1979 TOPS: 2.5 ms). The s8 wgmma tile reads A and B from shared
 // memory once per 64-row consumer, as bf16 does, at twice the operations
-// per byte.
+// per byte. In fp32, B is 2.4 GB at FFN up, M = 8 (0.72 ms), and a prefill
+// wave is 4.95e12 operations at 67 TFLOP/s (73.8 ms): each thread's 16 x 8
+// sums take 128 FFMAs per 6 shared-memory loads of 16 bytes (explicit
+// ld.shared: through a generic pointer they cost a third of the time), so
+// the issue of FFMAs, not shared memory, is the limit.
 
 #include <cuda_bf16.h>
 
@@ -478,6 +501,201 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: IEEE FFMAs on the CUDA cores, fed by the same TMA ring
+// ---------------------------------------------------------------------------
+
+// Tile (BM, 32, BN): a stage holds A's BM rows of 32 k (128 bytes each, the
+// 128-byte swizzle, so that the four rows a warp reads at one k land in four
+// bank groups) and B's 32 rows of BN (unswizzled: a warp reads a row's
+// contiguous floats). CONSUMERS threads in KG groups, each group summing its
+// own 32 / KG k of every stage; a thread of a group holds TM x TN sums, its
+// rows WROWS apart and its columns in float4 runs. KG > 1 (decode, where
+// M <= 8 leaves few outputs per block) adds the groups' sums in shared
+// memory, in group order, at the end.
+template <int BM, int BN, int TM, int TN, int KG, int STAGES, int WG>
+struct F32 {
+  static constexpr int BK = 32;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = BK * BN * 4;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int GROUP = (BM / TM) * (BN / TN);    // threads of a k-group
+  static constexpr int CONSUMERS = KG * GROUP;
+  // and one producer warp, or with WG a producer warpgroup that hands its
+  // registers to the consumers (setmaxnreg), for thread tiles of 128 sums
+  static constexpr int THREADS = CONSUMERS + (WG ? 128 : 32);
+  static constexpr int WROWS = BM / TM < 4 ? BM / TM : 4;  // thread rows of a warp
+  static constexpr int WCOLS = 32 / WROWS;
+  static constexpr int WX = BN / TN / WCOLS;              // warps across N
+  static constexpr int WPG = GROUP / 32;                  // warps of a k-group
+  static constexpr int KPT = BK / KG;                     // k of a stage per group
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int RED = KG > 1 ? KG * BM * BN * 4 : 0;
+  static constexpr int BODY = RING > RED ? RING : RED;
+  static constexpr int SMEM = 1024 + BODY + 2 * STAGES * 8;
+  static_assert(GROUP % 32 == 0 && KPT % 4 == 0 && TN % 4 == 0 && WX * WCOLS * TN == BN &&
+                    STAGE % 1024 == 0,
+                "fp32 tile: whole warps, float4 runs, 1024-byte aligned stages");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// 16 bytes of shared memory at a shared-space address (an explicit ld.shared:
+// a pointer rounded up through an integer has lost its address space)
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 lds64(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// C (or split blockIdx.y's fp32 partial in P) = A (M,K) @ B (K,N), fp32
+template <int BM, int BN, int TM, int TN, int KG, int STAGES, int WG>
+__global__ void __launch_bounds__(F32<BM, BN, TM, TN, KG, STAGES, WG>::THREADS, 1)
+gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              void* __restrict__ C, float* __restrict__ P, int M, int N, int K, int out_bf16,
+              int kt_per_split) {
+  using G = F32<BM, BN, TM, TN, KG, STAGES, WG>;
+  constexpr int BK = G::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BODY);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int tm, tn;
+  tile_of(blockIdx.x, (M + BM - 1) / BM, (N + BN - 1) / BN, tm, tn);
+  const int KT = (K + BK - 1) / BK;
+  const int kt0 = blockIdx.y * kt_per_split, kt1 = min(KT, kt0 + kt_per_split);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G::CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= G::CONSUMERS / 32) {  // producer
+    if constexpr (WG) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == G::CONSUMERS) {
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], G::STAGE);
+        uint8_t* a = smem + s * G::STAGE;
+        tma_load(a, &map_a, kt * BK, tm * BM, &full[s]);
+        tma_load(a + G::A_BYTES, &map_b, tn * BN, kt * BK, &full[s]);
+      }
+    }
+    return;
+  }
+  if constexpr (WG) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int kg = warp / G::WPG, wi = warp % G::WPG, wy = wi / G::WX, wx = wi % G::WX;
+  const int ly = lane / G::WCOLS, lx = lane % G::WCOLS;
+  const int r0 = wy * G::WROWS * TM + ly;      // row r0 + i WROWS of the tile, i < TM
+  const int c0 = wx * G::WCOLS * TN + lx * 4;  // columns c0 + j 4 WCOLS + (0..3), j < TN/4
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t as = smem_addr(smem + s * G::STAGE);
+    const uint32_t bs = as + G::A_BYTES + c0 * 4;
+#pragma unroll
+    for (int q = 0; q < G::KPT / 4; ++q) {
+      const int k4 = kg * G::KPT + 4 * q;  // 4 k: one float4 of each A row
+      float4 a[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int row = r0 + r * G::WROWS;
+        a[r] = lds128(as + row * 128 + (((k4 / 4) ^ (row & 7)) * 16));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j) {
+          const float4 x = lds128(bs + ((k4 + kk) * BN + j * 4 * G::WCOLS) * 4);
+          b[4 * j] = x.x;
+          b[4 * j + 1] = x.y;
+          b[4 * j + 2] = x.z;
+          b[4 * j + 3] = x.w;
+        }
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float x = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(x, b[j], acc[r][j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  void* out = P ? static_cast<void*>(P + static_cast<long long>(blockIdx.y) * M * N) : C;
+  const int bf = P ? 0 : out_bf16;
+  const bool pair = (N & 1) == 0;
+  if constexpr (KG == 1) {
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int row = tm * BM + r0 + r * G::WROWS;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j) {
+        const int col = tn * BN + c0 + j * 4 * G::WCOLS;
+        const long long idx = static_cast<long long>(row) * N + col;
+        store2(out, bf, idx, col, N, acc[r][4 * j], acc[r][4 * j + 1], pair);
+        store2(out, bf, idx + 2, col + 2, N, acc[r][4 * j + 2], acc[r][4 * j + 3], pair);
+      }
+    }
+  } else {
+    // the groups' sums through shared memory (the ring is drained: every
+    // stage the producer filled has been waited on), added in group order
+    const uint32_t red = smem_addr(smem);  // [KG][BM][BN] fp32
+    bar_sync(1, G::CONSUMERS);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j)
+        sts128(red + ((kg * BM + r0 + r * G::WROWS) * BN + c0 + j * 4 * G::WCOLS) * 4,
+               make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2],
+                           acc[r][4 * j + 3]));
+    bar_sync(1, G::CONSUMERS);
+    for (int e = 2 * threadIdx.x; e < BM * BN; e += 2 * G::CONSUMERS) {
+      const int r = e / BN, c = e % BN;
+      const int row = tm * BM + r, col = tn * BN + c;
+      float2 v = lds64(red + (r * BN + c) * 4);
+      float v0 = v.x, v1 = v.y;
+#pragma unroll
+      for (int g = 1; g < KG; ++g) {
+        v = lds64(red + ((g * BM + r) * BN + c) * 4);
+        v0 += v.x;
+        v1 += v.y;
+      }
+      if (row < M) store2(out, bf, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
+    }
+  }
+}
+
 // C = sum over the splits of P[s] (M*N fp32 each), in split order; with
 // scales, times sa[row] and then sb[col] (row-major C of N columns)
 __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C, long long MN,
@@ -508,10 +726,11 @@ __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C,
   }
 }
 
-// a row-major (rows, cols) array of `es`-byte elements, read in boxes of
-// box_cols x box_rows with the 128-byte swizzle; false if refused
-bool make_map(CUtensorMap* map, const void* base, int es, long long rows, long long cols,
-              int box_cols, int box_rows) {
+// a row-major (rows, cols) array of `es`-byte elements of type `type`, read
+// in boxes of box_cols x box_rows with the given swizzle; false if refused
+bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int es,
+              long long rows, long long cols, int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -519,10 +738,17 @@ bool make_map(CUtensorMap* map, const void* base, int es, long long rows, long l
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-            const_cast<void*>(base), dims, pitch, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(base), dims, pitch, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16, e4m3 and int8 tiles: the 128-byte swizzle the wgmma descriptors name
+bool make_map_mma(CUtensorMap* map, const void* base, int es, long long rows, long long cols,
+                  int box_cols, int box_rows) {
+  return make_map(map, base,
+                  es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, es,
+                  rows, cols, box_cols, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int MODE, int CONS, int BN, int STAGES, int PROMOTE>
@@ -530,16 +756,35 @@ int launch(const void* a, const void* b, void* c, float* p, const float* sa, con
            int M, int N, int K, int out_bf16, int kt_per_split, int splits, cudaStream_t stream) {
   using G = Cfg<MODE, CONS, BN, STAGES>;
   CUtensorMap map_a, map_b;
-  bool ok = make_map(&map_a, a, G::ES, M, K, G::BK, G::BM);
+  bool ok = make_map_mma(&map_a, a, G::ES, M, K, G::BK, G::BM);
   if constexpr (MODE == MODE_BF16)
-    ok = ok && make_map(&map_b, b, 2, K, N, 64, G::BK);  // (K,N): 64 of N by BK of K
+    ok = ok && make_map_mma(&map_b, b, 2, K, N, 64, G::BK);  // (K,N): 64 of N by BK of K
   else
-    ok = ok && make_map(&map_b, b, 1, N, K, G::BK, BN);  // (N,K): BK of K by BN of N
+    ok = ok && make_map_mma(&map_b, b, 1, N, K, G::BK, BN);  // (N,K): BK of K by BN of N
   if (!ok) return -2;
   auto kernel = gemm_sm90<MODE, CONS, BN, STAGES, PROMOTE>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const dim3 grid(((M + G::BM - 1) / G::BM) * ((N + BN - 1) / BN), splits);
   kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, sa, sb, M, N, K, out_bf16,
+                                                kt_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN, int TM, int TN, int KG, int STAGES, int WG>
+int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, int K,
+               int out_bf16, int kt_per_split, int splits, cudaStream_t stream) {
+  using G = F32<BM, BN, TM, TN, KG, STAGES, WG>;
+  CUtensorMap map_a, map_b;
+  // A (M,K): 32 of K (128 bytes, swizzled) by BM rows; B (K,N): BN of N by 32 of K
+  const bool ok = make_map(&map_a, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, G::BK, BM,
+                           CU_TENSOR_MAP_SWIZZLE_128B) &&
+                  make_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, N, BN, G::BK,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return -2;
+  auto kernel = gemm_f32_sm90<BM, BN, TM, TN, KG, STAGES, WG>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  const dim3 grid(((M + BM - 1) / BM) * ((N + BN - 1) / BN), splits);
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, M, N, K, out_bf16,
                                                 kt_per_split);
   return static_cast<int>(cudaGetLastError());
 }
@@ -557,6 +802,12 @@ int launch(const void* a, const void* b, void* c, float* p, const float* sa, con
   TILE(MODE_E4M3, 2, 128, 128, 128, 6, 1)       \
   TILE(MODE_S8, 0, 64, 128, 256, 5, 1)          \
   TILE(MODE_S8, 0, 128, 128, 256, 4, 1)
+
+// the compiled fp32 tiles: bm, bn, thread rows, thread columns, k-groups,
+// stages, producer warpgroup (bk = 32)
+#define F32_TILES_SM90              \
+  F32_TILE(8, 128, 8, 4, 8, 4, 0)   \
+  F32_TILE(256, 128, 16, 8, 1, 4, 1)
 
 }  // namespace
 
@@ -601,8 +852,29 @@ extern "C" int matmul_sm90_s8_fwd(const void* a, const void* b, const float* sa,
   return -1;
 }
 
-// dynamic shared memory (bytes) of a compiled tile's kernel, -1 if none
+// fp32: a (M,K) and b (K,N) row-major, TMA-describable (K and N multiples of
+// 4, 16-byte aligned bases); (bm, bk, bn) a compiled fp32 tile; p and splits
+// as matmul_sm90_fwd's. Returns as matmul_sm90_fwd.
+extern "C" int matmul_sm90_f32_fwd(const void* a, const void* b, void* c, float* p, int M,
+                                   int N, int K, int bm, int bk, int bn, int kt_per_split,
+                                   int splits, int out_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32_TILE(BM, BN, TM, TN, KG, STAGES, WG)                                  \
+  if (bm == BM && bk == 32 && bn == BN)                                           \
+    return launch_f32<BM, BN, TM, TN, KG, STAGES, WG>(a, b, c, p, M, N, K, out_bf16, \
+                                                      kt_per_split, splits, s);
+  F32_TILES_SM90
+#undef F32_TILE
+  return -1;
+}
+
+// dynamic shared memory (bytes) of a compiled tile's kernel, -1 if none;
+// mode 0 bf16, 1 e4m3, 2 int8, 3 fp32
 extern "C" int matmul_sm90_smem(int mode, int e4m3_form, int bm, int bk, int bn) {
+#define F32_TILE(BM, BN, TM, TN, KG, STAGES, WG) \
+  if (mode == 3 && bm == BM && bk == 32 && bn == BN) return F32<BM, BN, TM, TN, KG, STAGES, WG>::SMEM;
+  F32_TILES_SM90
+#undef F32_TILE
 #define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
   if (mode == api_mode(MODE_) && ((MODE_ != MODE_E4M3 && MODE_ != MODE_E4M3_WIDE) ||     \
                                   e4m3_form == FORM) &&                                  \

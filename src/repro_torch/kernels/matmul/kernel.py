@@ -5,8 +5,11 @@
   that a TMA descriptor can describe (``tma_eligible``), a TMA ring feeding
   wgmma; where the output tiles are too few for the card, K is split
   (``split_plan``) and ``matmul_reduce_cuda`` sums the fp32 partials;
-- ``matmul_cuda`` (``csrc/matmul.cu``): fp32 operands (IEEE FMAs), and the
-  bf16 and e4m3 operands the TMA cannot describe (mma.sync);
+- ``matmul_f32_tma_cuda`` (``csrc/matmul_sm90.cu``, its fp32 mode): fp32
+  operands that a TMA descriptor can describe, the same TMA ring feeding
+  IEEE FFMAs on the CUDA cores (never TF32), K split as for wgmma;
+- ``matmul_cuda`` (``csrc/matmul.cu``): the fp32 operands the TMA cannot
+  describe (SIMT FMAs), and the bf16 and e4m3 ones (mma.sync);
 - ``matmul_int8_wgmma_cuda`` (``csrc/matmul_sm90.cu``, its int8 mode): int8
   operands that a TMA descriptor can describe, s8 wgmma on the same TMA
   ring, exact int32 sums, the scales fused into the store; K is split where
@@ -16,7 +19,7 @@
 - ``matmul_int8_cuda`` (``csrc/matmul_int8.cu``): the int8 operands the TMA
   cannot describe (mma.sync).
 
-``gemm_cuda`` picks between the bf16/e4m3 paths and ``int8_gemm_cuda``
+``gemm_cuda`` picks between the bf16/e4m3/fp32 paths and ``int8_gemm_cuda``
 between the int8 ones by ``tma_eligible``, before the launch. The source
 files carry the kernels' design notes and their bounds on an H100. Each
 wrapper checks what its kernel takes, allocates the output and launches on
@@ -35,19 +38,21 @@ import torch
 from .. import _build
 
 #: compiled (bm, bk, bn) tiles of each operand dtype, bk in elements: the
-#: wgmma kernel's for bf16, e4m3 and int8, the SIMT kernel's for fp32
+#: TMA ring kernel's (wgmma for bf16, e4m3 and int8; FFMAs for fp32)
 TILES = {
     torch.bfloat16: ((64, 64, 256), (128, 64, 256)),
     torch.float8_e4m3fn: ((64, 128, 128), (128, 128, 128)),
-    torch.float32: ((16, 32, 64), (64, 16, 64), (128, 8, 128)),
+    torch.float32: ((8, 32, 128), (256, 32, 128)),
     torch.int8: ((64, 128, 256), (128, 128, 256)),
 }
+#: the SIMT kernel's tiles, for fp32 operands TMA cannot describe
+SIMT_TILES = ((16, 32, 64), (64, 16, 64), (128, 8, 128))
 #: the mma.sync kernel's tiles, for bf16 and e4m3 operands TMA cannot describe
 MMA_SYNC_TILES = ((16, 64, 128), (64, 32, 64), (64, 64, 128), (128, 32, 128))
 #: the int8 mma.sync kernel's tiles, for int8 operands TMA cannot describe
 INT8_MMA_SYNC_TILES = ((16, 128, 128), (64, 64, 64), (64, 128, 128), (128, 64, 128))
 _MODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float32: 2}
-_WGMMA = (torch.bfloat16, torch.float8_e4m3fn, torch.int8)
+_TMA = (torch.bfloat16, torch.float8_e4m3fn, torch.int8, torch.float32)
 _OUT = (torch.float32, torch.bfloat16)
 #: how the wgmma kernel multiplies e4m3 operands: widened to fp16 in shared
 #: memory ("widened"), or native e4m3 wgmma with a promotion into fp32
@@ -88,13 +93,14 @@ def select_tile(dtype: torch.dtype, bm: int, bk: int, bn: int, tiles=None) -> tu
 
 def tma_eligible(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int = 0,
                  b_ptr: int = 0) -> bool:
-    """Whether the wgmma kernel takes an (m,k) @ (k,n) GEMM: bf16 (A and B
-    row-major) or e4m3 or int8 (A row-major, B stored (n,k)) operands whose
-    bases (``data_ptr()``) are 16-byte aligned and whose row pitches are
-    multiples of 16 bytes, as a TMA descriptor needs."""
-    if dtype not in _WGMMA:
+    """Whether the TMA ring kernel takes an (m,k) @ (k,n) GEMM: bf16 or fp32
+    (A and B row-major) or e4m3 or int8 (A row-major, B stored (n,k))
+    operands whose bases (``data_ptr()``) are 16-byte aligned and whose row
+    pitches are multiples of 16 bytes, as a TMA descriptor needs."""
+    if dtype not in _TMA:
         return False
-    pitches = (2 * k, 2 * n) if dtype == torch.bfloat16 else (k, k)
+    es = dtype.itemsize
+    pitches = (es * k, es * n) if dtype in (torch.bfloat16, torch.float32) else (k, k)
     return all(x % 16 == 0 for x in (a_ptr, b_ptr, *pitches))
 
 
@@ -115,10 +121,22 @@ def split_plan(m: int, n: int, k: int, tile, max_k: int | None = None) -> tuple:
     return tuple((s * per * bk, min(k, (s + 1) * per * bk)) for s in range(math.ceil(kt / per)))
 
 
+def _split_workspace(M: int, N: int, K: int, tile, device, max_k: int | None = None):
+    """The TMA ring kernel's launch of ``split_plan``: (fp32 workspace of the
+    splits' partials (S,M,N), or None for one split; k-tiles per split;
+    number of splits)."""
+    plan = split_plan(M, N, K, tile, max_k)
+    p = torch.empty((len(plan), M, N), dtype=torch.float32, device=device) \
+        if len(plan) > 1 else None
+    return p, math.ceil((plan[0][1] - plan[0][0]) / tile[1]), len(plan)
+
+
 _ENTRIES = {
     "matmul_fwd": ("matmul", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "matmul_sm90_fwd": ("matmul_sm90",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    "matmul_sm90_f32_fwd": ("matmul_sm90",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "matmul_sm90_s8_fwd": ("matmul_sm90",
                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "matmul_sm90_reduce": ("matmul_sm90", [ctypes.c_void_p] * 2 + [ctypes.c_longlong] +
@@ -178,11 +196,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 32
     dtype: bf16 or fp32 with both row-major (contiguous), or e4m3
     (``torch.float8_e4m3fn``) with a row-major and b column-major (``b.t()``
     contiguous). Output in ``out_dtype`` (fp32 or bf16; a's dtype by default,
-    which e4m3 operands must override). The tile is one of ``TILES[fp32]``
+    which e4m3 operands must override). The tile is one of ``SIMT_TILES``
     for fp32, of ``MMA_SYNC_TILES`` for bf16 and e4m3."""
     out_dtype = _check_operands("matmul", a, b, out_dtype)
-    tile, tiles = (bm, bk, bn), TILES[torch.float32] if a.dtype == torch.float32 else \
-        MMA_SYNC_TILES
+    tile, tiles = (bm, bk, bn), SIMT_TILES if a.dtype == torch.float32 else MMA_SYNC_TILES
     if tile not in tiles:
         raise ValueError(f"matmul kernel has no {a.dtype} tile {tile}; the compiled "
                          f"tiles are {list(tiles)}")
@@ -215,6 +232,9 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
     (``E4M3_FORM`` by default). Where ``split_plan`` splits K, the fp32
     partials go to a workspace that ``matmul_reduce_cuda`` sums."""
     out_dtype = _check_operands("matmul_wgmma", a, b, out_dtype)
+    if a.dtype == torch.float32:
+        raise ValueError("matmul_wgmma kernel takes bf16 or e4m3 operands; fp32 runs on "
+                         "matmul_f32_tma")
     (M, K), N = a.shape, b.shape[1]
     if not tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
         raise ValueError(f"matmul_wgmma kernel takes bf16 or e4m3 operands with 16-byte "
@@ -229,13 +249,10 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
         return c
     if K == 0:
         return c.zero_()
-    plan = split_plan(M, N, K, tile)
-    p = torch.empty((len(plan), M, N), dtype=torch.float32, device=a.device) \
-        if len(plan) > 1 else None
-    kt_per_split = math.ceil((plan[0][1] - plan[0][0]) / bk)
+    p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device)
     err = _entry("matmul_sm90_fwd")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(),
-        _MODES[a.dtype], form, M, N, K, bm, bk, bn, kt_per_split, len(plan),
+        _MODES[a.dtype], form, M, N, K, bm, bk, bn, kt_per_split, splits,
         int(out_dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_sm90_fwd", tile)
     matmul_wgmma_cuda.launches += 1
@@ -245,6 +262,51 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
 
 
 matmul_wgmma_cuda.launches = 0
+
+
+def matmul_f32_tma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 32,
+                        bn: int = 128, out_dtype=None) -> torch.Tensor:
+    """C (M,N) = a (M,K) @ b (K,N), fp32 operands both row-major, IEEE fp32
+    sums (never TF32), on the fp32 mode of ``csrc/matmul_sm90.cu`` (a TMA
+    ring feeding FFMAs), on one CUDA device; ``tma_eligible`` must accept the
+    operands (a pair it refuses raises: ``gemm_cuda`` sends it to
+    ``matmul_cuda``); tile one of ``TILES[fp32]``; output fp32 (default) or
+    bf16. Where ``split_plan`` splits K, the fp32 partials go to a workspace
+    that ``matmul_reduce_cuda`` sums in order."""
+    _check_shapes("matmul_f32_tma", a, b)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"matmul_f32_tma kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _OUT:
+        raise ValueError(f"matmul_f32_tma kernel writes fp32 or bf16, not {out_dtype}")
+    if not a.is_contiguous() or not b.is_contiguous():
+        raise ValueError("matmul_f32_tma kernel takes row-major a and b")
+    (M, K), N = a.shape, b.shape[1]
+    if not tma_eligible(torch.float32, M, K, N, a.data_ptr(), b.data_ptr()):
+        raise ValueError(f"matmul_f32_tma kernel takes operands with 16-byte aligned bases "
+                         f"and row pitches, got ({M},{K})x({K},{N})")
+    tile = (bm, bk, bn)
+    if tile not in TILES[torch.float32]:
+        raise ValueError(f"matmul_f32_tma kernel has no tile {tile}; the compiled tiles are "
+                         f"{list(TILES[torch.float32])}")
+    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M * N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device)
+    err = _entry("matmul_sm90_f32_fwd")(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(), M, N, K,
+        bm, bk, bn, kt_per_split, splits, int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _launched(err, "matmul_sm90_f32_fwd", tile)
+    matmul_f32_tma_cuda.launches += 1
+    if p is not None:
+        matmul_reduce_cuda(p, c)
+    return c
+
+
+matmul_f32_tma_cuda.launches = 0
 
 
 def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor | None = None,
@@ -280,16 +342,18 @@ matmul_reduce_cuda.launches = 0
 
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, request, out_dtype=None) -> torch.Tensor:
-    """The ops' GEMM on the card: bf16 and e4m3 operands that ``tma_eligible``
-    accepts go to ``matmul_wgmma_cuda`` at ``select_tile``'s tile of the
-    (bm, bk, bn) `request`; other bf16 and e4m3 operands to ``matmul_cuda``
-    at its tile of ``MMA_SYNC_TILES``; fp32 to ``matmul_cuda``."""
+    """The ops' GEMM on the card: operands that ``tma_eligible`` accepts go to
+    the TMA ring kernel at ``select_tile``'s tile of the (bm, bk, bn)
+    `request`: bf16 and e4m3 to ``matmul_wgmma_cuda``, fp32 to
+    ``matmul_f32_tma_cuda``; other operands to ``matmul_cuda`` at its tile
+    of ``MMA_SYNC_TILES`` (bf16, e4m3) or ``SIMT_TILES`` (fp32)."""
     (M, K), N = a.shape, b.shape[1]
     if tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
         bm, bk, bn = select_tile(a.dtype, *request)
-        return matmul_wgmma_cuda(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+        kernel = matmul_f32_tma_cuda if a.dtype == torch.float32 else matmul_wgmma_cuda
+        return kernel(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     bm, bk, bn = select_tile(a.dtype, *request,
-                             tiles=MMA_SYNC_TILES if a.dtype in _WGMMA else None)
+                             tiles=SIMT_TILES if a.dtype == torch.float32 else MMA_SYNC_TILES)
     return matmul_cuda(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
 
 
@@ -337,13 +401,10 @@ def matmul_int8_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tens
     if K == 0:
         return c.zero_()
     sa, sb = a_scale.contiguous(), b_scale.contiguous()
-    plan = split_plan(M, N, K, tile, max_k=INT8_MAX_K)
-    p = torch.empty((len(plan), M, N), dtype=torch.float32, device=a.device) \
-        if len(plan) > 1 else None
-    kt_per_split = math.ceil((plan[0][1] - plan[0][0]) / bk)
+    p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device, INT8_MAX_K)
     err = _entry("matmul_sm90_s8_fwd")(
         a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), c.data_ptr(),
-        None if p is None else p.data_ptr(), M, N, K, bm, bk, bn, kt_per_split, len(plan),
+        None if p is None else p.data_ptr(), M, N, K, bm, bk, bn, kt_per_split, splits,
         torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_sm90_s8_fwd", tile)
     matmul_int8_wgmma_cuda.launches += 1

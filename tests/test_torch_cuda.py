@@ -30,10 +30,11 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.kernel import chunk_keys, chunked_eligible
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
 from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
-                                               TILES, split_plan, tma_eligible)
+                                               SIMT_TILES, TILES, split_plan, tma_eligible)
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
                                             matmul_reduce_ref, matmul_ref, quantize_fp8,
                                             quantize_int8)
@@ -99,7 +100,7 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
-    "flash_attention_wgmma"}))
+    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -258,15 +259,17 @@ def test_launches_per_step_on_card(cuda):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "wkv": 0,
-                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
+                             "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
-                             "decode_attention": 3, "wkv": 0,
-                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
+                             "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
 
 
@@ -283,15 +286,17 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "wkv": 0,
-                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
+                             "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
-                             "decode_attention": 3, "wkv": 0,
-                             "matmul": 0, "matmul_wgmma": 0, "matmul_reduce": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
+                             "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
 
 
@@ -430,7 +435,8 @@ def gemm_case(kind, m, k, n, device):
 def test_gemm_ops_match_plain_on_card(cuda, kind, m, k, n):
     """Each op's kernel against its plain version: relative error to the
     largest output and element by element (``gemm_excess``)."""
-    names = ("matmul_int8", "matmul_int8_wgmma") if kind == "int8" else ("matmul", "matmul_wgmma")
+    names = ("matmul_int8", "matmul_int8_wgmma") if kind == "int8" else \
+        ("matmul", "matmul_wgmma", "matmul_f32_tma")
     before = sum(TK.KERNELS[name].launches for name in names)
     got, want, a, b = gemm_case(kind, m, k, n, cuda)
     torch.cuda.synchronize()
@@ -446,7 +452,7 @@ def test_every_compiled_gemm_tile_on_card(cuda, dtype):
     """Every compiled tile of the mma.sync, SIMT and int8 mma.sync kernels at
     ragged shapes, element by element against the plain version."""
     tiles = MMA_SYNC_TILES if dtype in WGMMA_DTYPES else \
-        INT8_MMA_SYNC_TILES if dtype == torch.int8 else TILES[dtype]
+        INT8_MMA_SYNC_TILES if dtype == torch.int8 else SIMT_TILES
     for m, k, n in ((513, 129, 257), (1, 300, 77), (70, 96, 130)):
         a = normal(1, (m, k), cuda, torch.float32)
         b = normal(2, (k, n), cuda, torch.float32)
@@ -754,8 +760,10 @@ def test_flash_paths_on_card(cuda):
 def test_card_refuses_what_no_kernel_takes(cuda):
     """ROADMAP C9: inputs the CPU path computes and no card kernel takes
     raise ValueError on the card (no fallback to the plain version): fp16
-    GEMM operands (``matmul``) and outputs (``matmul_fp8``), attention at
-    head dims 16 and 256 (flash and decode), wkv at head sizes 16 and 128."""
+    GEMM operands (``matmul``) and outputs (``matmul_fp8``), flash attention
+    at head dims 16 and 256, decode attention at 16, wkv at head sizes 16 and
+    128. Decode attention at 256 (bf16) now runs on the chunked kernel and
+    matches its plain version."""
     h = normal(9, (8, 32), cuda, torch.float16)
     for op in (mm_ops.matmul, mm_ops.matmul_fp8):
         with pytest.raises(ValueError):
@@ -764,11 +772,188 @@ def test_card_refuses_what_no_kernel_takes(cuda):
         q = normal(10, (1, 4, 40, d), cuda, torch.bfloat16)
         with pytest.raises(ValueError):
             flash_ops.flash_attention(q, q[:, :1], q[:, :1])
-        with pytest.raises(ValueError):
-            decode_ops.decode_attention(q[:, :1, :4], q[:, :1].transpose(1, 2).contiguous(),
-                                        q[:, :1].transpose(1, 2).contiguous(),
-                                        torch.tensor([40], dtype=torch.int32, device=cuda))
+        args = (q[:, :1, :4], q[:, :1].transpose(1, 2).contiguous(),
+                q[:, :1].transpose(1, 2).contiguous(),
+                torch.tensor([40], dtype=torch.int32, device=cuda))
+        if d == 16:
+            with pytest.raises(ValueError):
+                decode_ops.decode_attention(*args)
+            continue
+        before = TK.launches()
+        got = decode_ops.decode_attention(*args)
+        torch.cuda.synchronize()
+        assert TK.launches()["decode_attention_chunked"] == before["decode_attention_chunked"] + 1
+        want = decode_attention_ref(*args)
+        assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
     for n in (16, 128):
         r = normal(11, (1, 8, 2, n), cuda, torch.float32)
         with pytest.raises(ValueError):
             wkv_ops.wkv(r, r, r, r, normal(12, (2, n), cuda, torch.float32))
+
+
+# ---------------- the chunked decode kernel ----------------
+
+def edge_lengths(d, t):
+    """Cache lengths at the unit edges of head dim d (1, UK - 1, UK, UK + 1)
+    and the full cache t."""
+    c = chunk_keys(d)
+    return [1, c - 1, c, c + 1, t]
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 10])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_chunked_decode_matches_plain_on_card(cuda, d, g):
+    """The chunked kernel against its plain version at every head dim and
+    group size, lengths at the unit edges and the full cache, with softcap
+    for groups of 2 and 10: one launch a call, relative and per element."""
+    t = 3 * chunk_keys(d) + 5
+    hkv, cap = 2, 30.0 if g in (2, 10) else 0.0
+    lens = edge_lengths(d, t)
+    q = normal(20, (len(lens), hkv, g, d), cuda, torch.bfloat16)
+    k = normal(21, (len(lens), t, hkv, d), cuda, torch.bfloat16)
+    v = normal(22, (len(lens), t, hkv, d), cuda, torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert chunked_eligible(q, k, v)
+    before = TK.launches()
+    got = TK.KERNELS["decode_attention_chunked"](q, k, v, lengths, softcap=cap)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert {n for n in after if after[n] != before[n]} == {"decode_attention_chunked"}
+    assert after["decode_attention_chunked"] == before["decode_attention_chunked"] + 1
+    want = decode_attention_ref(q, k, v, lengths, cap)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert attention_excess(got, want) <= 1
+    again = TK.KERNELS["decode_attention_chunked"](q, k, v, lengths, softcap=cap)
+    assert torch.equal(got, again)       # the merge adds the chunks in order
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_HEADS))
+def test_chunked_decode_cache_views_on_card(cuda, arch):
+    """The model's cache views (a layer of the fused (L, B, T, Hkv * D)
+    cache viewed as (B, T, Hkv, D)) at each served head layout and mixed
+    lengths, through the op: the chunked kernel, per element."""
+    hq, hkv, d = SERVED_HEADS[arch]
+    b, t = 4, 700
+    cache = normal(23, (2, 2, b, t, hkv * d), cuda, torch.bfloat16)
+    k, v = cache[0, 1].view(b, t, hkv, d), cache[1, 1].view(b, t, hkv, d)
+    q = normal(24, (b, hkv, hq // hkv, d), cuda, torch.bfloat16)
+    lengths = torch.tensor([700, 1, 333, 64], dtype=torch.int32, device=cuda)
+    before = TK.launches()
+    got = decode_ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert TK.launches()["decode_attention_chunked"] == before["decode_attention_chunked"] + 1
+    assert TK.launches()["decode_attention"] == before["decode_attention"]
+    want = decode_attention_ref(q, k, v, lengths)
+    assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
+
+
+def test_decode_op_reads_nothing_back_on_card(cuda):
+    """The decode op on CUDA tensors under sync debug mode "error": neither
+    wrapper nor kernel reads the lengths (or anything else) back to the host,
+    so a decode step can be captured in a CUDA graph."""
+    q = normal(25, (8, 8, 2, 128), cuda, torch.bfloat16)
+    k = normal(26, (8, 300, 8, 128), cuda, torch.bfloat16)
+    lengths = torch.tensor([300, 1, 64, 65, 129, 200, 2, 299], dtype=torch.int32, device=cuda)
+    decode_ops.decode_attention(q, k, k, lengths)       # builds and loads the library
+    torch.cuda.synchronize()
+    before = TK.launches()["decode_attention_chunked"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_ops.decode_attention(q, k, k, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert TK.launches()["decode_attention_chunked"] == before + 1
+    assert attention_excess(got, decode_attention_ref(q, k, k, lengths)) <= 1
+
+
+def test_decode_paths_on_card(cuda):
+    """fp32, and bf16 whose head stride no 16-byte load takes, run on the
+    split kernel through the op, one launch each, against the plain version;
+    the chunked wrapper refuses them."""
+    lengths = torch.tensor([90, 7], dtype=torch.int32, device=cuda)
+    q32 = normal(27, (2, 2, 2, 64), cuda, torch.float32)
+    k32 = normal(28, (2, 90, 2, 64), cuda, torch.float32)
+    odd = normal(29, (2, 90, 2, 68), cuda, torch.bfloat16)[..., :64]   # head stride 68
+    for q, k, tol in ((q32, k32, TOL["float32"]), (q32.bfloat16(), odd, TOL["bfloat16"])):
+        assert not chunked_eligible(q, k, k)
+        before = TK.launches()
+        got = decode_ops.decode_attention(q, k, k, lengths)
+        torch.cuda.synchronize()
+        after = TK.launches()
+        assert after["decode_attention"] == before["decode_attention"] + 1
+        assert after["decode_attention_chunked"] == before["decode_attention_chunked"]
+        assert rel_err(got, decode_attention_ref(q, k, k, lengths)) < tol
+        with pytest.raises(ValueError):
+            TK.KERNELS["decode_attention_chunked"](q, k, k, lengths)
+
+
+# ---------------- the fp32 GEMM on the TMA ring ----------------
+
+@pytest.mark.parametrize("m", [1, 8, 63, 65, 200])
+def test_every_f32_tma_tile_on_card(cuda, m):
+    """Every compiled tile of the fp32 mode at M = 1, 8, 63, 65 and 200, with
+    a K tail (K not a multiple of 32) and an N edge (N not a multiple of
+    128), relative (2e-5) and element by element (``gemm_excess``)."""
+    k, n = 300, 132
+    a = normal(30, (m, k), cuda, torch.float32)
+    b = normal(31, (k, n), cuda, torch.float32)
+    assert tma_eligible(torch.float32, m, k, n, a.data_ptr(), b.data_ptr())
+    want = matmul_ref(a, b)
+    for bm, bk, bn in TILES[torch.float32]:
+        got = TK.KERNELS["matmul_f32_tma"](a, b, bm=bm, bk=bk, bn=bn)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert rel_err(got, want) < GEMM_TOL["float32"], (bm, bk, bn, m)
+        assert gemm_excess(got, want, a, b) <= 1, (bm, bk, bn, m)
+
+
+def test_f32_tma_split_k_on_card(cuda):
+    """gpt3-175b's out projection at M = 8 splits K three ways on the decode
+    tile: one reduction a GEMM, counted; bit-identical results on two runs;
+    2e-5 and the per-element check."""
+    m, k, n = 8, 12288, 12288
+    tile = TILES[torch.float32][0]
+    assert len(split_plan(m, n, k, tile)) == 3
+    a = normal(32, (m, k), cuda, torch.float32)
+    b = normal(33, (k, n), cuda, torch.float32)
+    before = TK.launches()
+    got = TK.KERNELS["matmul_f32_tma"](a, b, bm=tile[0], bk=tile[1], bn=tile[2])
+    again = TK.KERNELS["matmul_f32_tma"](a, b, bm=tile[0], bk=tile[1], bn=tile[2])
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert after["matmul_f32_tma"] - before["matmul_f32_tma"] == 2
+    assert after["matmul_reduce"] - before["matmul_reduce"] == 2
+    assert torch.equal(got, again)
+    want = matmul_ref(a, b)
+    assert rel_err(got, want) < GEMM_TOL["float32"]
+    assert gemm_excess(got, want, a, b) <= 1
+
+
+def test_f32_gemm_paths_on_card(cuda):
+    """The fp32 op routes before the launch: K and N multiples of 4 at
+    aligned bases to the TMA ring's fp32 mode only; K = 130, N = 77 and an
+    operand 4 bytes past an aligned base to the SIMT kernel of matmul.cu
+    only, each against the plain version (a split of K adds its
+    reduction); the fp32 TMA wrapper refuses those."""
+    flat = normal(34, (64 * 256 + 1,), cuda, torch.float32)
+    cases = [(normal(35, (64, 256), cuda, torch.float32),
+              normal(36, (256, 96), cuda, torch.float32), "matmul_f32_tma"),
+             (normal(37, (33, 130), cuda, torch.float32),
+              normal(38, (130, 64), cuda, torch.float32), "matmul"),
+             (normal(39, (33, 64), cuda, torch.float32),
+              normal(40, (64, 77), cuda, torch.float32), "matmul"),
+             (flat[1:].view(64, 256), normal(41, (256, 96), cuda, torch.float32), "matmul")]
+    for a, b, path in cases:
+        before = TK.launches()
+        got = mm_ops.matmul(a, b)
+        torch.cuda.synchronize()
+        after = TK.launches()
+        grown = {n for n in after if after[n] != before[n]}
+        assert grown - {"matmul_reduce"} == {path} and after[path] == before[path] + 1
+        assert gemm_excess(got, matmul_ref(a, b), a, b) <= 1
+        if path == "matmul":
+            assert "matmul_reduce" not in grown
+            with pytest.raises(ValueError, match="16-byte"):
+                TK.KERNELS["matmul_f32_tma"](a, b)

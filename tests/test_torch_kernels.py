@@ -18,6 +18,7 @@ from repro import kernels as K
 from repro.models import layers as jax_layers
 from repro.models import recurrent as jax_recurrent
 import repro_torch.kernels as TK
+from repro_torch.kernels.decode_attention import kernel as t_decode_kernel
 from repro_torch.kernels.decode_attention import ops as t_decode
 from repro_torch.kernels.flash_attention import kernel as t_flash_kernel
 from repro_torch.kernels.flash_attention import ops as t_flash
@@ -243,18 +244,117 @@ def test_attention_outside_the_kernels_head_dims_runs_plain_on_cpu(dtype):
 
 # ---------------- decode attention ----------------
 
+def edge_lengths(d, t):
+    """Cache lengths at the chunked decode kernel's unit edges at head dim
+    d (1, UK - 1, UK, UK + 1) and the full cache t."""
+    c = t_decode_kernel.chunk_keys(d)
+    return [1, c - 1, c, c + 1, t]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("hkv,g,t", [(2, 4, 128), (1, 8, 200), (4, 1, 64)])
-def test_decode_attention_plain_matches_jax(hkv, g, t, dtype):
-    B = 3
-    jq, tq = both(normal(5, (B, hkv, g, 64)), dtype)
-    jk, tk = both(normal(6, (B, t, hkv, 64)), dtype)
-    jv, tv = both(normal(7, (B, t, hkv, 64)), dtype)
-    lens = np.array([t, max(1, t // 2), max(1, t // 3)], np.int32)
+@pytest.mark.parametrize("hkv,g,t,d,lens", [
+    (2, 4, 128, 64, None), (1, 8, 200, 64, None), (4, 1, 64, 64, None),
+    (2, 2, 197, 128, edge_lengths(128, 197)), (1, 10, 101, 256, edge_lengths(256, 101)),
+    (2, 1, 389, 64, edge_lengths(64, 389))], ids=str)
+def test_decode_attention_plain_matches_jax(hkv, g, t, d, lens, dtype):
+    """The JAX kernel tests' rows (D = 64, lengths t, t/2, t/3), and D = 128
+    and 256 and 64 with lengths at the chunked kernel's unit edges."""
+    lens = np.array(lens or [t, max(1, t // 2), max(1, t // 3)], np.int32)
+    B = len(lens)
+    jq, tq = both(normal(5, (B, hkv, g, d)), dtype)
+    jk, tk = both(normal(6, (B, t, hkv, d)), dtype)
+    jv, tv = both(normal(7, (B, t, hkv, d)), dtype)
     want = K.decode_attention.decode_attention(jq, jk, jv, jnp.asarray(lens))
     got = t_decode.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     assert got.shape == tq.shape and got.dtype == tq.dtype
     assert rel_err(t2np(got), want) < tol(dtype)
+
+
+def live_chunks(length, t, d):
+    """Units the kernel walks for a slot of `length` keys, as the source
+    computes them on the device: at least 1, the length clamped to [0, t]."""
+    return max(1, -(-min(max(length, 0), t) // t_decode_kernel.chunk_keys(d)))
+
+
+def test_decode_chunk_and_scratch_arithmetic():
+    """A unit is 4 KB of K (and of V) in bf16 (UK = 64, 32, 16, 8 keys at
+    D = 32, 64, 128, 256); a slot walks max(1, ceil(length / UK)) units, its
+    length clamped to [0, T]; the scratch holds m, l and acc[D] for
+    ``max_chunks(T, D)`` partials of every (b, kv-head, query head): sized
+    from T alone, it covers every length."""
+    assert [t_decode_kernel.chunk_keys(d) for d in (32, 64, 128, 256)] == [64, 32, 16, 8]
+    for d in t_decode_kernel.CHUNKED_HEAD_DIMS:
+        c = t_decode_kernel.chunk_keys(d)
+        assert c * d * 2 == 4096
+        t = 3 * c + 5
+        assert [live_chunks(n, t, d) for n in edge_lengths(d, t)] == [1, 1, 1, 2, 4]
+        assert live_chunks(0, t, d) == live_chunks(-3, t, d) == 1
+        assert live_chunks(t + 100, t, d) == 4
+        assert t_decode_kernel.max_chunks(t, d) == 4 and t_decode_kernel.max_chunks(0, d) == 1
+        assert all(live_chunks(n, t, d) <= t_decode_kernel.max_chunks(t, d)
+                   for n in range(-1, t + 3))
+        assert t_decode_kernel.scratch_floats(8, 2, 3, t, d) == 8 * 2 * 3 * 4 * (d + 2)
+    # the served shapes: gpt3's slot at 1024 keys (D = 128) takes 64 units
+    assert t_decode_kernel.max_chunks(1024, 128) == 64
+    assert sum(live_chunks(n, 1024, 128)
+               for n in (1024, 225, 322, 419, 516, 196, 293, 390)) == 217
+
+
+def test_decode_path_predicate_routes_shapes():
+    """``chunked_eligible``: the model's cache views (a layer of the fused
+    (L, B, T, Hkv * D) cache) at D = 32, 64, 128 and 256 go to the chunked
+    kernel; fp32, D = 16, a head stride that is no multiple of 8 elements, a
+    K or q base off 16 bytes and a q that is not contiguous do not."""
+    bf = torch.bfloat16
+    for hkv, g, d in ((8, 2, 128), (32, 1, 64), (96, 1, 128), (1, 10, 256), (2, 2, 32)):
+        cache = torch.zeros(2, 2, 3, 40, hkv * d, dtype=bf)
+        k, v = cache[0, 1].view(3, 40, hkv, d), cache[1, 1].view(3, 40, hkv, d)
+        q = torch.zeros(3, hkv, g, d, dtype=bf)
+        assert t_decode_kernel.chunked_eligible(q, k, v)
+        assert not t_decode_kernel.chunked_eligible(q.float(), k.float(), v.float())
+    x = torch.zeros(2, 30, 2, 16, dtype=bf)
+    assert not t_decode_kernel.chunked_eligible(torch.zeros(2, 2, 1, 16, dtype=bf), x, x)
+    q = torch.zeros(2, 2, 1, 64, dtype=bf)
+    k = torch.zeros(2, 30, 2, 64, dtype=bf)
+    wide = torch.zeros(2, 30, 2, 68, dtype=bf)[..., :64]           # head stride 68
+    assert t_decode_kernel.chunked_eligible(q, k, k)
+    assert not t_decode_kernel.chunked_eligible(q, wide, wide)
+    flat = torch.zeros(k.numel() + 8, dtype=bf)
+    for offset in range(8):                                        # 0-14 bytes past the base
+        view = flat[offset:offset + k.numel()].view(k.shape)
+        assert t_decode_kernel.chunked_eligible(q, view, k) == (view.data_ptr() % 16 == 0)
+        qv = flat[offset:offset + q.numel()].view(q.shape)
+        assert t_decode_kernel.chunked_eligible(qv, k, k) == (qv.data_ptr() % 16 == 0)
+    assert not t_decode_kernel.chunked_eligible(torch.zeros(2, 2, 2, 64, dtype=bf).transpose(1, 2),
+                                                k, k)
+
+
+def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
+    """``decode_cuda`` routes by ``chunked_eligible`` alone and never calls
+    the other wrapper (CPU tensors, the wrappers replaced by recorders); the
+    op sends a CUDA-bound call there and nowhere else."""
+    calls = []
+    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda"):
+        monkeypatch.setattr(t_decode_kernel, name,
+                            lambda q, k, v, lengths, _n=name, **kw: calls.append((_n, kw)))
+    bf = torch.bfloat16
+    lens = torch.full((2,), 5, dtype=torch.int32)
+    cases = [((torch.zeros(2, 2, 2, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
+              "decode_attention_chunked_cuda"),
+             ((torch.zeros(2, 1, 10, 256, dtype=bf), torch.zeros(2, 9, 1, 256, dtype=bf)),
+              "decode_attention_chunked_cuda"),
+             ((torch.zeros(2, 2, 2, 64), torch.zeros(2, 9, 2, 64)), "decode_attention_cuda"),
+             ((torch.zeros(2, 2, 2, 64, dtype=bf),
+               torch.zeros(2, 9, 2, 68, dtype=bf)[..., :64]), "decode_attention_cuda")]
+    for (q, k), path in cases:
+        calls.clear()
+        t_decode_kernel.decode_cuda(q, k, k, lens, softcap=30.0)
+        assert calls == [(path, {"softcap": 30.0})]
+    calls.clear()
+    monkeypatch.setattr(t_decode, "runs_plain", lambda t: False)
+    q, k = cases[0][0]
+    t_decode.decode_attention(q, k, k, lens)
+    assert calls == [("decode_attention_chunked_cuda", {"softcap": 0.0})]
 
 
 # ---------------- wkv ----------------
@@ -386,9 +486,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "flash_attention_wgmma": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 3,
             "decode_attention": (x, x.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous(),
                                  torch.full((2,), 8, dtype=torch.int32)),
+            "decode_attention_chunked": (x.bfloat16(), x.transpose(1, 2).contiguous().bfloat16(),
+                                         x.transpose(1, 2).contiguous().bfloat16(),
+                                         torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
             "matmul": (x[0, 0], x[0, 0].t()),
             "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
+            "matmul_f32_tma": (x[0, 0], x[0, 0].t().contiguous()),
             "matmul_reduce": (x[0], x[0, 0]),
             "matmul_int8": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
                             torch.ones(4, 1), torch.ones(1, 4)),

@@ -27,8 +27,8 @@ from repro_torch.core import mapper as t_mapper
 from repro_torch.kernels.matmul import ops as t_mm
 from repro_torch.kernels.matmul import ref as t_ref
 from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
-                                               SMS, TILES, nearest_tile, select_tile,
-                                               split_plan, tma_eligible)
+                                               SIMT_TILES, SMS, TILES, nearest_tile,
+                                               select_tile, split_plan, tma_eligible)
 from test_torch_cuda import gemm_excess
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -225,12 +225,18 @@ def test_select_tile_maps_every_request_to_a_compiled_tile():
     assert select_tile(torch.int8, 128, 128, 128) == (128, 128, 256)    # nearest: none inside
     assert select_tile(torch.int8, 8, 512, 256) == (64, 128, 256)
     assert select_tile(torch.int8, 128, 128, 128, tiles=INT8_MMA_SYNC_TILES) == (128, 64, 128)
-    assert select_tile(torch.float32, 64, 64, 64) == (64, 16, 64)
+    assert select_tile(torch.float32, 64, 64, 64, tiles=SIMT_TILES) == (64, 16, 64)
+    assert select_tile(torch.float32, 64, 64, 64) == (256, 32, 128)   # nearest: none inside
+    assert select_tile(torch.float32, 8, 512, 256) == (8, 32, 128)    # decode: M = 8
+    assert select_tile(torch.float32, 200, 512, 256) == (8, 32, 128)
+    assert select_tile(torch.float32, 256, 512, 256) == (256, 32, 128)  # the JAX default
     assert select_tile(bf, 1, 128, 77, tiles=MMA_SYNC_TILES) == (16, 64, 128)
     for dtype, tiles in TILES.items():
         assert all(select_tile(dtype, *t) == t for t in tiles)
         for request in REFUSED_BEFORE:
             assert select_tile(dtype, *request) in tiles
+    for request in REFUSED_BEFORE:
+        assert select_tile(torch.float32, *request, tiles=SIMT_TILES) in SIMT_TILES
     # a tie (4 + 3 + 0 against 3 + 3 + 1) goes to the larger tile
     assert nearest_tile(((64, 64, 128), (128, 64, 256)), (8, 512, 256)) == (128, 64, 256)
     for bad in ((0, 16, 16), (16, -1, 16), (16, 16, 0)):
@@ -270,22 +276,28 @@ GPT3_GEMMS = [(12288, 36864), (12288, 12288), (12288, 49152), (49152, 12288)]
 
 
 def test_tma_eligibility_routes_shapes():
-    """The wgmma path's predicate: gpt3-175b's GEMMs (bf16, e4m3 and int8,
-    M = 8 and 4096) go to it; the JAX test shapes whose row pitches are not
-    multiples of 16 bytes (K = 129, 300 in bf16; N = 77, 50; e4m3 and int8
-    K = 200) and operands at a base that is not 16-byte aligned go to
-    mma.sync; fp32 never does."""
+    """The TMA ring's predicate: gpt3-175b's GEMMs (bf16, e4m3, int8 and
+    fp32, M = 8 and 4096) go to it; the JAX test shapes whose row pitches
+    are not multiples of 16 bytes (K = 129, 300 in bf16; N = 77, 50; e4m3
+    and int8 K = 200; fp32 K = 129, 130, N = 77, 50) and operands at a base
+    that is not 16-byte aligned go to matmul.cu (mma.sync, SIMT) or
+    matmul_int8.cu."""
     bf, f8 = torch.bfloat16, torch.float8_e4m3fn
     for m in (8, 4096):
         for k, n in GPT3_GEMMS:
             assert tma_eligible(bf, m, k, n) and tma_eligible(f8, m, k, n)
-            assert tma_eligible(torch.int8, m, k, n)
+            assert tma_eligible(torch.int8, m, k, n) and tma_eligible(torch.float32, m, k, n)
     assert not tma_eligible(torch.int8, 100, 200, 50) and tma_eligible(torch.int8, 1, 16, 77)
     for m, k, n in ((513, 129, 257), (1, 300, 77), (100, 200, 50)):
         assert not tma_eligible(bf, m, k, n) and not tma_eligible(f8, m, k, n)
     assert tma_eligible(bf, 128, 128, 128) and tma_eligible(f8, 256, 512, 128)
     assert tma_eligible(f8, 1, 16, 77)                       # B is stored (N,K): only K counts
-    assert not tma_eligible(torch.float32, 128, 128, 128)
+    assert tma_eligible(torch.float32, 128, 128, 128) and tma_eligible(torch.float32, 1, 300, 132)
+    for m, k, n in ((513, 129, 257), (1, 300, 77), (100, 200, 50), (8, 130, 64)):
+        assert not tma_eligible(torch.float32, m, k, n)
+    f32 = torch.zeros(64 * 64 + 4)
+    assert [tma_eligible(torch.float32, 64, 64, 64, f32[o:].data_ptr(), 0) for o in range(4)] == \
+        [f32[o:].data_ptr() % 16 == 0 for o in range(4)]
     flat = torch.zeros(64 * 64 + 8, dtype=bf)
     a, b = flat[:4096].view(64, 64), torch.zeros((64, 64), dtype=bf)
     assert tma_eligible(bf, 64, 64, 64, a.data_ptr(), b.data_ptr()) == \
@@ -306,7 +318,7 @@ def test_split_plan_covers_k_once_in_whole_k_tiles(m, k, n):
     already number 2 x 132 or more; else each split takes the k-tiles of K
     shared among as many splits as bring the blocks to 2 x 132 (at most one
     split per k-tile)."""
-    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float32):
         for tile in TILES[dtype]:
             bm, bk, bn = tile
             plan = split_plan(m, n, k, tile)
@@ -324,6 +336,27 @@ def test_split_plan_covers_k_once_in_whole_k_tiles(m, k, n):
                 assert per == -(-kt // wanted) * bk and len(plan) == -(-kt // (per // bk))
     assert len(split_plan(8, 12288, 12288, (64, 64, 256))) == 6
     assert len(split_plan(4096, 49152, 12288, (128, 64, 256))) == 1
+    # fp32 at decode: out and down split 3 ways, QKV and FFN up not at all
+    assert [len(split_plan(8, n, k, (8, 32, 128))) for k, n in GPT3_GEMMS] == [1, 3, 1, 3]
+    assert len(split_plan(4096, 49152, 12288, (256, 32, 128))) == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 256), (33, 1000, 132), (1, 12288, 128)])
+def test_f32_op_matches_jax_where_k_splits(m, k, n):
+    """At shapes whose split plan splits K on the fp32 mode's tile, the op
+    (the plain version on the CPU) and the sum of the plan's K ranges taken
+    in order, as the kernel's splits and ``matmul_reduce`` add them, equal
+    the JAX op in interpret mode within 2e-5."""
+    tile = select_tile(torch.float32, min(256, m), min(512, k), min(256, n))
+    plan = split_plan(m, n, k, tile)
+    assert len(plan) > 1
+    (ja, ta), (jb, tb) = both(normal(45, (m, k))), both(normal(46, (k, n)))
+    want = K.matmul.matmul(ja, jb)
+    assert rel_err(t2np(t_mm.matmul(ta, tb)), want) < 2e-5
+    parts = torch.zeros((m, n))
+    for k0, k1 in plan:
+        parts += ta[:, k0:k1] @ tb[k0:k1]
+    assert rel_err(t2np(parts), want) < 2e-5
 
 
 @pytest.mark.parametrize("k", [INT8_MAX_K, INT8_MAX_K + 1, 300000])
@@ -401,17 +434,21 @@ def test_fp16_gemms_run_plain_on_cpu():
 
 def test_gemm_dispatch_picks_the_path_before_the_launch(monkeypatch):
     """``gemm_cuda`` routes by ``tma_eligible`` alone, with the tile of the
-    path's own set, and never calls the other wrapper (CPU tensors, the
-    wrappers replaced by recorders)."""
+    path's own set, and never calls another wrapper (CPU tensors, the
+    wrappers replaced by recorders): fp32 that TMA can describe to the FFMA
+    mode of the TMA ring, other fp32 (K = 250) to the SIMT kernel."""
     from repro_torch.kernels.matmul import kernel as t_kernel
     calls = []
-    for name in ("matmul_cuda", "matmul_wgmma_cuda"):
+    for name in ("matmul_cuda", "matmul_wgmma_cuda", "matmul_f32_tma_cuda"):
         monkeypatch.setattr(t_kernel, name, lambda a, b, _n=name, **kw: calls.append((_n, kw)))
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [((64, 256, 128), bf, "matmul_wgmma_cuda", (64, 64, 256)),
              ((513, 129, 257), bf, "matmul_cuda", (128, 32, 128)),
              ((100, 200, 50), bf, "matmul_cuda", (64, 64, 128)),
-             ((64, 256, 128), torch.float32, "matmul_cuda", (64, 16, 64))]
+             ((64, 250, 128), f32, "matmul_cuda", (64, 16, 64)),
+             ((8, 12288, 49152), f32, "matmul_f32_tma_cuda", (8, 32, 128)),
+             ((4096, 12288, 512), f32, "matmul_f32_tma_cuda", (256, 32, 128)),
+             ((64, 256, 128), f32, "matmul_f32_tma_cuda", (8, 32, 128))]
     for (m, k, n), dtype, path, tile in cases:
         calls.clear()
         a, b = torch.zeros((m, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
@@ -485,5 +522,9 @@ def test_h100_preset_reproduces_its_peaks():
                                    (4096, 49152, 12288)])
 def test_mapper_blocks_are_compiled_hopper_tiles(m, k, n):
     """Mirrors tests/test_mapper.py:113 with Hopper's tiles in place of the
-    MXU's 128 alignment."""
-    assert t_mm.mapper_blocks(m, k, n) in TILES[torch.bfloat16]
+    MXU's 128 alignment; the same blocks, as an fp32 request, map to a
+    compiled tile of the fp32 mode, and of the SIMT kernel."""
+    blocks = t_mm.mapper_blocks(m, k, n)
+    assert blocks in TILES[torch.bfloat16]
+    assert select_tile(torch.float32, *blocks) in TILES[torch.float32]
+    assert select_tile(torch.float32, *blocks, tiles=SIMT_TILES) in SIMT_TILES
