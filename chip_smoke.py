@@ -5,14 +5,16 @@
 Phases, each of which fails the script on its own (exit code 1, and no
 result line):
   1. build   - nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` (all sources at once) and Triton compiles its four
-               (registers and spills read from the compiled kernels);
+               csrc`` (all sources at once) and Triton compiles its three
+               and the GELU kernel gelu.cu replaced, which is timed beside
+               it (registers and spills read from the compiled kernels);
   2. kernels - each hand-written kernel against its plain PyTorch version on
                the card, in bf16 and fp32 (relative error to the largest
                output below 2e-2 and 2e-5, the JAX kernel tests' bounds; in
-               bf16 also element by element: the four Triton kernels within
-               one bf16 rounding, |a-b| <= 2^-7 |b| + 1e-3, the two
-               attention kernels within |a-b| <= 2^-6 |b| + 2^-5 rms(row)),
+               bf16 also element by element: the four elementwise kernels
+               (norms, gelu, silu_mul) within one bf16 rounding, |a-b| <=
+               2^-7 |b| + 1e-3, the attention kernels within |a-b| <= 2^-6
+               |b| + 2^-5 rms(row)),
                at the JAX kernel tests' shapes and at the served models' own
                shapes (each of the three head layouts); each attention case
                on the flash kernel ``wgmma_eligible`` picks for it (the
@@ -23,9 +25,14 @@ result line):
                chunked one for bf16 at D = 32-256, D = 256 and lengths at
                its unit edges among them; the split one for fp32), the
                served decode shapes on both; the fp32
-               wkv kernel to 1e-4 (output and final state), the JAX wkv tests' bound, at
-               their shapes, a ragged T, the served prefill with prompt
-               lengths and the decode step in place on a nonzero state;
+               wkv op to 1e-4 (output and final state), the JAX wkv tests'
+               bound, each case on the kernel ``chunked_eligible`` picks
+               (the chunked one for T > 1, the step-by-step one for the
+               decode step and strides the chunked one cannot copy), at
+               their shapes, T off either kernel's chunk and below 16,
+               decays with exact 0, 1e-30 and 1, the served prefill with
+               prompt lengths, a batch-1 refill of 452 tokens and the
+               decode step in place on a nonzero state;
   3. matmul  - the GEMM op path (``repro_torch.kernels.matmul.ops``, which no
                served model calls): first every op against its plain version
                at the JAX kernel tests' shapes (bf16 2e-2, fp32 and fp8 2e-5,
@@ -69,7 +76,8 @@ result line):
                path must be above 0, and each phase must show exactly its
                steps' launches (9 prefills: one wave, 8 refills; L
                decode_attention_chunked and 0 decode_attention a decode
-               step); then the
+               step; rwkv6: L wkv_chunked and 0 wkv a prefill, L wkv and 0
+               wkv_chunked a decode step); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
                each model and its cache are freed before the next is built;
@@ -87,8 +95,12 @@ result line):
                (flash_attention.cu, matmul.cu, matmul_int8.cu), beside the
                chunked decode kernel the split one and torch.sum over the
                same live K and V, beside the fp32 FFMA mode the SIMT
-               kernel, each on the same operands; gelu and F.gelu in
-               alternating pairs; for bf16 the
+               kernel, each on the same operands; gelu, F.gelu and the
+               Triton kernel gelu.cu replaced in turns at the prefill and
+               the decode shape; the chunked wkv kernel at the served
+               rwkv6 run's wave and each of its 8 refills beside the
+               step-by-step kernel and at each column split, and the decode
+               step beside ``s0.mul_(1.0)`` on its state; for bf16 the
                port's mapper's predicted latency on its H100 preset and the
                wgmma kernel's time at the tile ``mapper_blocks`` picks.
 
@@ -135,6 +147,7 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
     "decode_attention_chunked": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
+    "wkv_chunked": "src/repro/kernels/wkv/kernel.py:51",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_f32_tma": "src/repro/kernels/matmul/kernel.py:37",
@@ -145,7 +158,7 @@ REPLACES = {
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
     "layernorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
-    "gelu": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
+    "gelu": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu"),
     "silu_mul": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "flash_attention_wgmma": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
@@ -153,6 +166,7 @@ SOURCES = {
     "decode_attention_chunked": ("cuda",
                                  "src/repro_torch/kernels/csrc/decode_attention_chunked.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
+    "wkv_chunked": ("cuda", "src/repro_torch/kernels/csrc/wkv_chunked.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
     "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_f32_tma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
@@ -169,6 +183,7 @@ GEMM_EDGES = ((128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77), (5
 GEMM_MODES = ("bf16", "fp32", "fp8", "int8")
 GEMM_TOL = {"bf16": 2e-2, "fp32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
 GELU_PAIRS = 6   # gelu and F.gelu timed in alternating pairs
+ELEMENTWISE = ("rmsnorm", "layernorm", "gelu", "silu_mul")   # one bf16 rounding apart
 
 
 def require(cond, msg):
@@ -228,8 +243,8 @@ def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
-                            "decode_attention_chunked", "wkv", "matmul", "matmul_sm90",
-                            "matmul_int8"])
+                            "decode_attention_chunked", "wkv", "wkv_chunked", "gelu",
+                            "matmul", "matmul_sm90", "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -253,6 +268,13 @@ def phase_build(torch):
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     for d in WGMMA_HEAD_DIMS:
         print(f"[build] flash_attention_sm90.cu D={d}: {smem(d)} bytes of dynamic shared memory")
+    from repro_torch.kernels.wkv.kernel import COLUMN_SPLITS
+    smem = _build.load("wkv_chunked").wkv_chunked_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for n, splits in COLUMN_SPLITS.items():
+        for nc in splits:
+            print(f"[build] wkv_chunked.cu N={n} columns={nc}: {smem(n, nc)} bytes of dynamic "
+                  "shared memory")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
@@ -262,7 +284,7 @@ def phase_build(torch):
             ("rmsnorm C=128", rmsnorm_triton, (x[:, :128], w[:128])),
             ("layernorm C=2048", layernorm_triton, (x[:, :2048], w[:2048], w[:2048])),
             ("layernorm C=12288", layernorm_triton, (x, w, w)),
-            ("gelu", gelu_triton, (x,)),
+            ("gelu (the Triton kernel gelu.cu replaced, timed beside it)", gelu_triton, (x,)),
             ("silu_mul", silu_mul_triton, (x, x))):
         t0 = time.perf_counter()
         fn(*args)
@@ -312,6 +334,8 @@ def kernel_cases(torch):
                           ((rnd((r, c), torch.float32) * 3 + 1).to(dt),
                            rnd((c,), torch.float32) * 2, rnd((c,), torch.float32)), main))
         for label, x, main in (("(100,256)", rnd((100, 256), dt), False),
+                               ("(3,1001) ragged", rnd((3, 1001), dt), False),
+                               ("(8,49152)", rnd((8, 49152), dt), True),
                                ("(4096,49152)", rnd((4096, 49152), dt), True),
                                ("(256,1024) |x|<=20", torch.linspace(
                                    -20, 20, 256 * 1024, device="cuda").reshape(
@@ -406,55 +430,85 @@ def prompt_lengths(b, t):
     return [t] + [128 + (97 * i) % 385 for i in range(1, b)]
 
 
-def wkv_inputs(torch, rnd, B, T, H, N, with_state):
-    """r, k, v normal, w in (0.45, 0.95) as the JAX wkv tests draw them, a
-    per-head u and, with_state, a nonzero initial state; all fp32."""
+def wkv_inputs(torch, rnd, B, T, H, N, with_state, decays="uniform", odd=False):
+    """r, k, v normal, w in (0.45, 0.95) as the JAX wkv tests draw them
+    (decays "edge": a fifth each of exact 0, 1e-30 and exact 1 among them),
+    a per-head u and, with_state, a nonzero initial state; all fp32. odd:
+    r, k, v, w as views with a head stride of N + 1, which only the
+    step-by-step kernel takes."""
     f32 = torch.float32
-    r, k, v = rnd((B, T, H, N), f32), rnd((B, T, H, N), f32), rnd((B, T, H, N), f32)
-    w = torch.sigmoid(rnd((B, T, H, N), f32)) * 0.5 + 0.45
+    shape = (B, T, H, N + 1) if odd else (B, T, H, N)
+    r, k, v = rnd(shape, f32), rnd(shape, f32), rnd(shape, f32)
+    w = torch.sigmoid(rnd(shape, f32)) * 0.5 + 0.45
+    if decays == "edge":
+        pick = torch.randint(0, 5, shape, generator=rnd.gen, device="cuda")
+        w = torch.where(pick == 0, 0.0, torch.where(pick == 1, 1e-30, torch.where(
+            pick == 2, 1.0, w)))
+    if odd:
+        r, k, v, w = (a[..., :N] for a in (r, k, v, w))
     return r, k, v, w, rnd((H, N), f32), rnd((B, H, N, N), f32) if with_state else None
 
 
 def wkv_cases():
-    """(B, T, H, N, lengths or None, nonzero state0, is_main_path): the JAX
-    kernel tests' rows (u tiled over two heads) and their model-scan shape,
-    a T that is no multiple of the kernel's 32-step chunk, and the served
-    prefill (8 slots, 64 heads of 64, prompt lengths) and decode step."""
-    return [(2, 96, 2, 32, None, False, False), (2, 64, 2, 32, None, False, False),
-            (2, 100, 2, 32, None, False, False), (2, 64, 2, 32, None, True, False),
-            (3, 77, 4, 64, [77, 40, 1], True, False),
-            (SLOTS, 512, 64, 64, prompt_lengths(SLOTS, 512), False, True),
-            (SLOTS, 1, 64, 64, None, True, True)]
+    """(B, T, H, N, lengths or None, nonzero state0, decays, odd strides,
+    is_main_path): the JAX kernel tests' rows (u tiled over two heads) and
+    their model-scan shape, T off a multiple of either kernel's chunk (16
+    and 32 steps), T below 16, decays with exact 0, 1e-30 and 1 (ragged, a
+    length of 0), strides only the step-by-step kernel takes, the served
+    prefill (8 slots, 64 heads of 64, prompt lengths), a batch-1 refill of
+    452 tokens (the longest of the served rwkv6 run's refills) and the
+    decode step."""
+    return [(2, 96, 2, 32, None, False, "uniform", False, False),
+            (2, 64, 2, 32, None, False, "uniform", False, False),
+            (2, 100, 2, 32, None, False, "uniform", False, False),
+            (2, 64, 2, 32, None, True, "uniform", False, False),
+            (3, 77, 4, 64, [77, 40, 1], True, "uniform", False, False),
+            (2, 7, 4, 64, [7, 5], True, "uniform", False, False),
+            (3, 90, 4, 64, [90, 41, 0], True, "edge", False, False),
+            (2, 37, 2, 32, None, True, "edge", False, False),
+            (2, 50, 4, 64, [50, 19], True, "uniform", True, False),
+            (SLOTS, 512, 64, 64, prompt_lengths(SLOTS, 512), False, "uniform", False, True),
+            (1, 452, 64, 64, [452], False, "uniform", False, True),
+            (SLOTS, 1, 64, 64, None, True, "uniform", False, True)]
 
 
 def phase_wkv(torch, errs):
-    """The wkv kernel against its plain version on the card, fp32: output
-    and final state within 1e-4 of the plain version's largest, pads' outputs
-    zero; with a nonzero state it updates that state in place, as the decode
-    step does."""
-    from repro_torch.kernels import KERNELS
+    """The wkv op against its plain version on the card, fp32, each case on
+    the kernel the op picks (``chunked_eligible``: T > 1 and 16-byte copies
+    on wkv_chunked, else wkv): output and final state within 1e-4 of the
+    plain version's largest, pads' outputs zero, one launch of that kernel;
+    with a nonzero state it updates that state in place, as the decode step
+    does."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.wkv.kernel import chunked_eligible
+    from repro_torch.kernels.wkv.ops import wkv
     from repro_torch.kernels.wkv.ref import wkv_ref
     rnd = Inputs(torch, 4)
-    for B, T, H, N, lens, with_state, main in wkv_cases():
-        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, B, T, H, N, with_state)
+    for B, T, H, N, lens, with_state, decays, odd, main in wkv_cases():
+        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, B, T, H, N, with_state, decays, odd)
         lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                          device="cuda")
         want_out, want_state = wkv_ref(r, k, v, w, u, s0, lengths)
+        name = "wkv_chunked" if chunked_eligible(r, k, v, w) else "wkv"
         state_in = None if s0 is None else s0.clone()
-        out, state = KERNELS["wkv"](r, k, v, w, u, state_in, lengths, state_out=state_in)
+        before = K.launches()
+        out, state = wkv(r, k, v, w, u, state_in, lengths, state_out=state_in)
         torch.cuda.synchronize()
-        label = f"({B},{T},{H},{N}) lengths={lens} state0={'nonzero' if with_state else 'zero'}"
-        require(state_in is None or state is state_in, f"wkv {label}: state not in place")
+        label = (f"({B},{T},{H},{N}) lengths={lens} state0={'nonzero' if with_state else 'zero'}"
+                 f" decays={decays}" + (" head stride N+1" if odd else ""))
+        require(K.launches() == {**before, name: before[name] + 1},
+                f"{name} {label}: not one launch of {name} alone")
+        require(state_in is None or state is state_in, f"{name} {label}: state not in place")
         e_out, e_state = rel_err(out, want_out), rel_err(state, want_state)
-        require(e_out < WKV_TOL and e_state < WKV_TOL, f"wkv {label}: rel_err out "
+        require(e_out < WKV_TOL and e_state < WKV_TOL, f"{name} {label}: rel_err out "
                 f"{e_out:.3e}, state {e_state:.3e} (tol {WKV_TOL:g})")
         require(all(not out[b, n:].any() for b, n in enumerate(lens or [])),
-                f"wkv {label}: a pad step has a nonzero output")
-        print(f"[kernels] wkv              float32  {label}: rel_err out {e_out:.3e}, "
+                f"{name} {label}: a pad step has a nonzero output")
+        print(f"[kernels] {name:16s} float32  {label}: rel_err out {e_out:.3e}, "
               f"state {e_state:.3e} (tol {WKV_TOL:g}) ok")
         if main:
-            errs["wkv"] = max(errs.get("wkv", 0.0), max_abs(out, want_out),
-                              max_abs(state, want_state))
+            errs[name] = max(errs.get(name, 0.0), max_abs(out, want_out),
+                             max_abs(state, want_state))
 
 
 def phase_kernels(torch):
@@ -472,10 +526,10 @@ def phase_kernels(torch):
                 f"{tuple(want.shape)} {want.dtype}")
         require(err < TOL[dt], f"{name} {label} {dt}: rel_err {err:.3e} >= {TOL[dt]}")
         line = f"[kernels] {name:16s} {dt:8s} {label}: rel_err {err:.3e} (tol {TOL[dt]:g})"
-        if SOURCES[name][0] == "triton" and dt == "bfloat16":
+        if name in ELEMENTWISE and dt == "bfloat16":
             require(within_one_rounding(got, want),
                     f"{name} {label}: an element is off by more than one bf16 rounding")
-        if SOURCES[name][0] == "cuda" and dt == "bfloat16":
+        elif dt == "bfloat16":
             excess = attention_excess(got, want)
             line += f", per-element excess {excess:.3f} (<= 1)"
             require(excess <= 1, f"{line}: an element is off by more than "
@@ -724,13 +778,14 @@ def expected_launches(cfg, prefill):
     qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation and one
     attention per layer (``prefill_attention``'s kernel at prefill and
     ``decode_attention_kernel``'s at decode, none on the other flash or
-    decode kernel); for RWKV6, one wkv per layer and no attention."""
+    decode kernel); for RWKV6, one wkv_chunked per layer at prefill, one
+    wkv per layer at decode, and no attention."""
     from repro_torch.kernels import KERNELS
     L = cfg.n_layers
     counts = dict.fromkeys(KERNELS, 0)
     counts[cfg.norm] += 2 * L + 1
     if cfg.attention_free:
-        counts["wkv"] = L
+        counts["wkv_chunked" if prefill else "wkv"] = L
         return counts
     counts["rmsnorm"] += 2 * L if cfg.qk_norm else 0
     counts["silu_mul" if cfg.mlp_gated else "gelu"] = L
@@ -740,8 +795,9 @@ def expected_launches(cfg, prefill):
 
 def phase_serve(torch, arch, n_layers):
     """Serve the 16-request schedule on one model; returns its launch counts
-    (serve run, one prefill step, one decode step) and the first wave's
-    prompt lengths. The model and its caches are freed on return."""
+    (serve run, one prefill step, one decode step) and the prompt lengths
+    (the first wave's SLOTS, then the refills'). The model and its caches
+    are freed on return."""
     from repro_torch import kernels as K
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import Engine, Request
@@ -805,7 +861,7 @@ def phase_serve(torch, arch, n_layers):
     # one whole-batch prefill, then a batch-1 prefill per refilled slot; each
     # prefill and each decode round launches exactly one step's kernels
     prefills, st = 1 + N_REQUESTS - SLOTS, eng.stats
-    seq = "wkv" if cfg.attention_free else prefill_attention(cfg)
+    seq = "wkv_chunked" if cfg.attention_free else prefill_attention(cfg)
     require(prefill_counts[seq] == prefills * cfg.n_layers,
             f"{prefill_counts[seq]} {seq} launches in the prefill phase, not the "
             f"{prefills} x {cfg.n_layers} of one wave and {prefills - 1} refills")
@@ -851,7 +907,7 @@ def phase_serve(torch, arch, n_layers):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, cache
     torch.cuda.empty_cache()
-    return counts, per_prefill, per_decode, lens[:SLOTS]
+    return counts, per_prefill, per_decode, lens
 
 
 def profile_decode(torch, model, cache, tok, steps=5):
@@ -981,11 +1037,12 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
+def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
-    ``shapes``. wkv's prefill is timed at the served rwkv6 wave's prompt
-    lengths `wave_lens`. `counts` holds each kernel's launches in its path's
+    ``shapes``. wkv's prefill is timed at the served rwkv6 run's prompt
+    lengths `prompt_lens`: its wave (the first SLOTS) and each of its
+    batch-1 refills. `counts` holds each kernel's launches in its path's
     run (the serve runs, the GEMM path for the two GEMM kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
@@ -1035,18 +1092,27 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
             lambda: layernorm_ref(x, g, b), lambda: F.layer_norm(x, (C,), gb, bb, 1e-5),
             2 * R * C * 2 + 2 * C * 4, 8 * R * C, FP32_FLOPS)
 
-    R, C = 4096, 49152
-    x = rnd((R, C), bf)
-    # the kernel and F.gelu in alternating pairs: is the kernel slower?
-    pairs = [(time_ms(torch, lambda: KERNELS["gelu"](x)),
-              time_ms(torch, lambda: F.gelu(x, approximate="tanh"))) for _ in range(GELU_PAIRS)]
-    print(f"[timing] gelu and F.gelu in {GELU_PAIRS} alternating pairs (ms): "
-          f"{json.dumps(pairs)}; kernel slower in {sum(k > lib for k, lib in pairs)} of "
-          f"{GELU_PAIRS}, median ratio {statistics.median(k / lib for k, lib in pairs):.5f}")
-    add("gelu", f"x({R},{C}) bf16", lambda: KERNELS["gelu"](x), lambda: gelu_ref(x),
-        lambda: F.gelu(x, approximate="tanh"), 2 * R * C * 2, 10 * R * C, FP32_FLOPS,
-        paired_ms=[k for k, _ in pairs], paired_library_ms=[lib for _, lib in pairs])
-    del x
+    # gelu at gpt3's FFN width: the prefill wave (8 x 512 rows) and the decode
+    # step (8 slots); the kernel, F.gelu and the Triton kernel gelu.cu
+    # replaced in turn, GELU_PAIRS times: is the kernel slower than F.gelu?
+    from repro_torch.kernels.gelu.kernel import gelu_triton
+    C = 49152
+    for R in (4096, SLOTS):
+        x = rnd((R, C), bf)
+        turns = [(time_ms(torch, lambda: KERNELS["gelu"](x)),
+                  time_ms(torch, lambda: F.gelu(x, approximate="tanh")),
+                  time_ms(torch, lambda: gelu_triton(x))) for _ in range(GELU_PAIRS)]
+        ratios = [kern / lib for kern, lib, _ in turns]
+        print(f"[timing] gelu x({R},{C}): kernel, F.gelu, Triton kernel in {GELU_PAIRS} turns "
+              f"(ms): {json.dumps(turns)}; kernel slower than F.gelu in "
+              f"{sum(r > 1 for r in ratios)} of {GELU_PAIRS}, median ratio "
+              f"{statistics.median(ratios):.5f}; against the Triton kernel "
+              f"{statistics.median(kern / tri for kern, _, tri in turns):.5f}")
+        add("gelu", f"x({R},{C}) bf16", lambda: KERNELS["gelu"](x), lambda: gelu_ref(x),
+            lambda: F.gelu(x, approximate="tanh"), 2 * R * C * 2, 10 * R * C, FP32_FLOPS,
+            paired_ms=[t[0] for t in turns], paired_library_ms=[t[1] for t in turns],
+            paired_triton_ms=[t[2] for t in turns], median_ratio=statistics.median(ratios))
+        del x
 
     for C in (6144, 5632):
         a, b = rnd((4096, C), bf), rnd((4096, C), bf)
@@ -1108,25 +1174,67 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, wave_lens):
             sum_of_live_kv_ms=time_ms(torch, lambda: live.sum()))
         del qd, kd, vd, live
 
-    # wkv: the served rwkv6 wave's prefill (data-dependent: the steps of its
-    # prompt lengths are counted, the output is written in full) and the
-    # decode step in place; per step 5 fp32 operations a state element (an
-    # FMA for r.S, a multiply and an FMA for the update) and 2 N for the
-    # bonus dot r.(u*k), whose product with v_j is O(N) too
+    # wkv at the served rwkv6 run's prefills: its wave and its 8 batch-1
+    # refills (data-dependent: the steps of the prompt lengths are counted,
+    # the output is written in full), on the chunked kernel at the op's
+    # column split, beside the step-by-step kernel (which ran them before)
+    # and the chunked kernel at every column split; then the decode step in
+    # place on the step-by-step kernel, beside s0.mul_(1.0), which reads and
+    # writes the same state in place: the floor of its state traffic under
+    # this timing. Per step 5 fp32 operations a state element (an FMA for
+    # r.S, a multiply and an FMA for the update) and 2 N for the bonus dot
+    # r.(u*k), whose product with v_j is O(N) too
+    from repro_torch.kernels.wkv.kernel import COLUMN_SPLITS, chunked_eligible
     H, N = 64, 64
-    for T, with_state in ((max(wave_lens), False), (1, True)):
-        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, SLOTS, T, H, N, with_state)
-        lens_t = torch.tensor(wave_lens, dtype=torch.int32, device="cuda") \
-            if T > 1 else None
-        steps = sum(wave_lens) if T > 1 else SLOTS
-        state_bytes = SLOTS * H * N * N * 4 * (2 if with_state else 1)
-        label = (f"r,k,v,w ({SLOTS},{T},{H},{N}) fp32 "
-                 + (f"lengths={wave_lens}" if T > 1 else "state0 in place"))
-        add("wkv", label, lambda: KERNELS["wkv"](r, k, v, w, u, s0, lens_t, state_out=s0),
-            lambda: wkv_ref(r, k, v, w, u, s0, lens_t), None,
-            4 * steps * H * N * 4 + SLOTS * T * H * N * 4 + state_bytes + H * N * 4,
-            5 * steps * H * N * N + 2 * steps * H * N, FP32_FLOPS)
-        del r, k, v, w, s0
+
+    def wkv_work(lens, T, with_state):
+        steps, B = sum(lens), len(lens)
+        return (4 * steps * H * N * 4 + B * T * H * N * 4
+                + B * H * N * N * 4 * (2 if with_state else 1) + H * N * 4,
+                5 * steps * H * N * N + 2 * steps * H * N, FP32_FLOPS)
+
+    wave_lens, refill_lens = prompt_lens[:SLOTS], prompt_lens[SLOTS:]
+    refills = {"ms": 0.0, "step_kernel_ms": 0.0, "bound_ms": 0.0}
+    for i, lens in enumerate([wave_lens] + [[n] for n in refill_lens]):
+        B, T = len(lens), max(lens)
+        r, k, v, w, u, _ = wkv_inputs(torch, rnd, B, T, H, N, False)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        require(chunked_eligible(r, k, v, w), f"wkv ({B},{T}): not on the chunked kernel")
+        step_ms = time_ms(torch, lambda: KERNELS["wkv"](r, k, v, w, u, None, lens_t))
+        splits = {nc: time_ms(torch, lambda nc=nc: KERNELS["wkv_chunked"](
+            r, k, v, w, u, None, lens_t, columns=nc)) for nc in COLUMN_SPLITS[N]}
+        label = (f"r,k,v,w ({B},{T},{H},{N}) fp32 lengths={lens}, "
+                 + ("the served wave" if i == 0 else f"refill {i} of {len(refill_lens)}"))
+        work = wkv_work(lens, T, False)
+        if i <= 1 or T == max(refill_lens):   # the wave, the first and the longest refill
+            add("wkv_chunked", label, lambda: KERNELS["wkv_chunked"](r, k, v, w, u, None, lens_t),
+                lambda: wkv_ref(r, k, v, w, u, None, lens_t), None, *work,
+                step_kernel_ms=step_ms, column_split_ms=splits)
+            ms = rows["wkv_chunked"]["shapes"][-1]["ms"]
+        else:
+            ms = time_ms(torch, lambda: KERNELS["wkv_chunked"](r, k, v, w, u, None, lens_t))
+            print(f"[timing] wkv_chunked      {label}: kernel {ms:.5f} ms, step-by-step kernel "
+                  f"{step_ms:.5f} ms, bound {bound(*work)[0]:.5f} ms")
+        print(f"[timing] wkv_chunked      {label}: step-by-step kernel {step_ms:.5f} ms; "
+              f"column splits {json.dumps(splits)} ms")
+        if i > 0:
+            refills["ms"] += ms
+            refills["step_kernel_ms"] += step_ms
+            refills["bound_ms"] += bound(*work)[0]
+        del r, k, v, w
+    rows["wkv_chunked"]["refills"] = {"lengths": refill_lens, **refills}
+    print(f"[timing] wkv_chunked      the {len(refill_lens)} refills {refill_lens}, summed: "
+          f"kernel {refills['ms']:.5f} ms, step-by-step kernel {refills['step_kernel_ms']:.5f} "
+          f"ms, bound {refills['bound_ms']:.5f} ms")
+    r, k, v, w, u, s0 = wkv_inputs(torch, rnd, SLOTS, 1, H, N, True)
+    floor_ms = time_ms(torch, lambda: s0.mul_(1.0))
+    add("wkv", f"r,k,v,w ({SLOTS},1,{H},{N}) fp32 state0 in place (decode step)",
+        lambda: KERNELS["wkv"](r, k, v, w, u, s0, None, state_out=s0),
+        lambda: wkv_ref(r, k, v, w, u, s0, None), None, *wkv_work([1] * SLOTS, 1, True),
+        state_mul_floor_ms=floor_ms)
+    print(f"[timing] wkv              decode step: s0.mul_(1.0) on its ({SLOTS},{H},{N},{N}) "
+          f"state, {floor_ms:.5f} ms (the floor of its state traffic here)")
+    del r, k, v, w, s0
 
     # the GEMM path: gpt3-175b's layer GEMMs at M = 8 and 4096; the kernels
     # at the op's tile (its default request clamped to the shape) on
@@ -1269,9 +1377,9 @@ def main():
     errs = phase_kernels(torch)
     gemm_counts, gemm_errs, off_path_errs = phase_matmul(torch)
     probe = phase_e4m3_probe(torch)
-    counts, per_prefill, per_decode, wave_lens = {}, {}, {}, {}
+    counts, per_prefill, per_decode, prompt_lens = {}, {}, {}, {}
     for arch, n_layers in SERVED:
-        run, per_prefill[arch], per_decode[arch], wave_lens[arch] = phase_serve(
+        run, per_prefill[arch], per_decode[arch], prompt_lens[arch] = phase_serve(
             torch, arch, n_layers)
         counts = {name: counts.get(name, 0) + n for name, n in run.items()}
     print(f"[serve] launches summed over the {len(SERVED)} serve runs: "
@@ -1288,7 +1396,7 @@ def main():
     errs.update(off_path_errs)   # the shapes TMA cannot take, off the path
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
-                        wave_lens["rwkv6-7b"])
+                        prompt_lens["rwkv6-7b"])
     for row in rows:
         if row["name"] in gemm_kernels:
             row["launches_in_serve_runs"] = counts[row["name"]]

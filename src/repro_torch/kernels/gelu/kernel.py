@@ -1,4 +1,5 @@
-"""tanh-GELU and the SwiGLU gate ``silu(g) * u`` as Triton kernels for Hopper.
+"""tanh-GELU as a CUDA C++ kernel and the SwiGLU gate ``silu(g) * u`` as a
+Triton kernel, for Hopper.
 
 Replace ``repro/kernels/gelu/kernel.py::gelu_pallas`` and
 ``::silu_mul_pallas``, elementwise, computed in fp32 and rounded once to the
@@ -6,35 +7,40 @@ input dtype:
 
   * GELU ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))``, evaluated as
     ``x * sigmoid(2 z)`` with ``z = sqrt(2/pi) (x + 0.044715 x^3)``: the
-    same function, since ``0.5 (1 + tanh z) = sigmoid(2 z)``. It needs no
-    tanh, whose name and presence in ``triton.language`` differ between
-    Triton versions, and it does not cancel where tanh z nears -1 (x below
-    about -3): there ``1 + tanh z`` keeps only the few bits by which fp32's
-    tanh z differs from -1. It saturates cleanly: for |x| of 20,
-    sigmoid(2 z) is exactly 0 or 1 in fp32.
-  * SwiGLU ``g * sigmoid(g) * u``.
+    same function, since ``0.5 (1 + tanh z) = sigmoid(2 z)``. It does not
+    cancel where tanh z nears -1 (x below about -3): there ``1 + tanh z``
+    keeps only the few bits by which fp32's tanh z differs from -1. It
+    saturates cleanly: for |x| of 20, sigmoid(2 z) is exactly 0 or 1 in
+    fp32. ``gelu_cuda`` (``csrc/gelu.cu``, whose note gives its design) is
+    the kernel; ``gelu_triton``, the Triton kernel it replaced, stays only
+    to be timed beside it.
+  * SwiGLU ``g * sigmoid(g) * u`` (``silu_mul_triton``).
 
 Bound on an H100: bytes. GELU reads and writes each element once with about
 10 fp32 operations; the gate reads two and writes one with a few.
 
-Design: a flat pass over the contiguous elements, BLOCK elements per program
-with masked loads at the ragged end; every input is read once and the result
-written once, nothing intermediate reaches device memory. The element count
-``n`` is left to Triton's specialisation, which notes that it is a multiple
-of 16 (as every model shape is): only then is the mask ``offs < n`` known to
-be constant over 16 neighbours, so that the masked loads and stores can go
-16 bytes wide. With ``n`` exempted from it, gelu at (4096, 49152) bf16 took
-0.7133 ms against 0.2705 ms with it, and silu_mul at (4096, 6144) 0.0952
-against 0.0564 ms (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W;
-the bounds are 0.2404 and 0.0451 ms). A fused elementwise pass is where
-Triton reaches the card's memory rate with nothing to hand-tune, hence
-Triton and not CUDA C++.
+The Triton kernels: a flat pass over the contiguous elements, BLOCK elements
+per program with masked loads at the ragged end; every input is read once
+and the result written once, nothing intermediate reaches device memory.
+The element count ``n`` is left to Triton's specialisation, which notes that
+it is a multiple of 16 (as every model shape is): only then is the mask
+``offs < n`` known to be constant over 16 neighbours, so that the masked
+loads and stores can go 16 bytes wide. With ``n`` exempted from it, gelu at
+(4096, 49152) bf16 took 0.7133 ms against 0.2705 ms with it, and silu_mul at
+(4096, 6144) 0.0952 against 0.0564 ms (``chip_smoke.py`` on an NVIDIA H100
+80GB HBM3 at 700 W; the bounds are 0.2404 and 0.0451 ms). Triton reaches
+the gate's bound within 80% with nothing to hand-tune; GELU went to CUDA
+C++ because what was left to change there (the instruction mix, the cache
+hints) is what Triton hides.
 """
 
+import ctypes
 import functools
 import math
 
 import torch
+
+from .. import _build
 
 BLOCK = 4096
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -80,8 +86,36 @@ def _check_elementwise(what: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel takes contiguous tensors")
 
 
+@functools.cache
+def _gelu_entry():
+    fn = _build.load("gelu").gelu_fwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gelu_cuda(x: torch.Tensor) -> torch.Tensor:
+    """x: contiguous CUDA tensor, bf16 or fp32, any shape. One launch of
+    ``csrc/gelu.cu``."""
+    _check_elementwise("gelu", x)
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    err = _gelu_entry()(x.data_ptr(), out.data_ptr(), n, int(x.dtype == torch.bfloat16),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gelu_fwd")
+    gelu_cuda.launches += 1
+    return out
+
+
+gelu_cuda.launches = 0
+
+
 def gelu_triton(x: torch.Tensor) -> torch.Tensor:
-    """x: contiguous CUDA tensor, bf16 or fp32, any shape."""
+    """x: contiguous CUDA tensor, bf16 or fp32, any shape. The Triton kernel
+    ``gelu_cuda`` replaced, kept to be timed beside it."""
     _check_elementwise("gelu", x)
     out = torch.empty_like(x)
     n = x.numel()

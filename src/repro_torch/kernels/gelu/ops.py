@@ -1,11 +1,11 @@
-"""Public activation ops: the Triton kernel for a CUDA tensor, the plain
-version for a CPU tensor."""
+"""Public activation ops: the kernel (CUDA C++ for GELU, Triton for the gate)
+for a CUDA tensor, the plain version for a CPU tensor."""
 from __future__ import annotations
 
 import torch
 
 from ...device import runs_plain
-from .kernel import gelu_triton, silu_mul_triton
+from .kernel import gelu_cuda, silu_mul_triton
 from .ref import gelu_ref, silu_mul_ref
 
 
@@ -13,7 +13,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximation GELU, computed in fp32, one rounding."""
     if runs_plain(x):
         return gelu_ref(x)
-    return gelu_triton(x)
+    return gelu_cuda(x)
 
 
 def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

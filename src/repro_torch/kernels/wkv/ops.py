@@ -1,5 +1,6 @@
-"""Public WKV op: the CUDA kernel for a CUDA tensor, the plain version for a
-CPU tensor."""
+"""Public WKV op: a CUDA kernel for a CUDA tensor (the chunked one for a
+call of more than one step that ``kernel.chunked_eligible`` accepts, else
+the step-by-step one), the plain version for a CPU tensor."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,7 @@ from typing import Optional
 import torch
 
 from ...device import runs_plain
-from .kernel import wkv_cuda
+from . import kernel
 from .ref import wkv_ref
 
 
@@ -20,10 +21,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     state (B, H, N, N)). With ``state_out`` the final state is written into
     it, in place, and returned; it may be ``state0`` itself.
 
-    The card refuses, with ``ValueError``, what the kernel does not take and
+    The card refuses, with ``ValueError``, what the kernels do not take and
     the plain version computes on the CPU: a head size N outside (32, 64),
     and inputs other than fp32."""
     if runs_plain(r):
         out, state = wkv_ref(r, k, v, w, u, state0, lengths)
         return out, state if state_out is None else state_out.copy_(state)
-    return wkv_cuda(r, k, v, w, u, state0, lengths, state_out=state_out)
+    launch = kernel.wkv_chunked_cuda if kernel.chunked_eligible(r, k, v, w) else \
+        kernel.wkv_cuda
+    return launch(r, k, v, w, u, state0, lengths, state_out=state_out)

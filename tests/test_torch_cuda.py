@@ -100,7 +100,7 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
-    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked"}))
+    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -118,56 +118,114 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype):
         assert attention_excess(got, want) <= 1
 
 
-# (B, T, H, N, lengths or None, nonzero state0): the JAX kernel tests' rows
-# (u tiled over the heads), a T that is no multiple of the kernel's chunk,
-# the served prefill's heads with prompt lengths, and the decode step
-WKV_CASES = [(2, 96, 2, 32, None, False), (2, 100, 2, 32, None, False),
-             (3, 77, 4, 64, [77, 40, 1], True), (2, 70, 3, 32, [70, 33], True),
-             (8, 160, 64, 64, [160, 128, 33, 97, 1, 150, 64, 159], False),
-             (8, 1, 64, 64, None, True)]
+# (B, T, H, N, lengths or None, nonzero state0, decays): the JAX kernel
+# tests' rows (u tiled over the heads), a T that is no multiple of either
+# kernel's chunk, T below the chunked kernel's 16 steps, the served prefill's
+# heads with prompt lengths, a batch-1 refill (256 blocks of 16 columns),
+# decays with exact 0, 1e-30 and exact 1 among them (ragged, a length of 0),
+# and the decode step; each on the kernel the op picks (T > 1: wkv_chunked)
+WKV_CASES = [(2, 96, 2, 32, None, False, "uniform"), (2, 100, 2, 32, None, False, "uniform"),
+             (3, 77, 4, 64, [77, 40, 1], True, "uniform"),
+             (2, 70, 3, 32, [70, 33], True, "uniform"), (2, 5, 2, 64, [5, 3], True, "uniform"),
+             (8, 160, 64, 64, [160, 128, 33, 97, 1, 150, 64, 159], False, "uniform"),
+             (1, 452, 64, 64, [452], False, "uniform"),
+             (3, 90, 4, 64, [90, 41, 0], True, "edge"), (2, 37, 2, 32, None, True, "edge"),
+             (8, 1, 64, 64, None, True, "uniform")]
+
+
+def wkv_decays(seed, shape, kind, device):
+    """w in (0.45, 0.95) as the JAX wkv tests draw it; "edge": a fifth each
+    exact 0, 1e-30 and exact 1 among those."""
+    w = torch.sigmoid(normal(seed, shape, device, torch.float32)) * 0.5 + 0.45
+    if kind == "edge":
+        pick = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 5, shape)).to(device)
+        w = torch.where(pick == 0, 0.0, torch.where(pick == 1, 1e-30, torch.where(
+            pick == 2, 1.0, w)))
+    return w
 
 
 @pytest.mark.parametrize("case", WKV_CASES, ids=str)
 def test_wkv_matches_plain_on_card(cuda, case):
-    B, T, H, N, lens, with_state = case
+    """The op's kernel against the plain version, 1e-4 relative to the
+    largest output and state; pads' outputs exactly zero; a nonzero state
+    updated in place, as the decode step updates its cache."""
+    B, T, H, N, lens, with_state, kind = case
     r, k, v = (normal(i, (B, T, H, N), cuda, torch.float32) for i in range(3))
-    w = torch.sigmoid(normal(3, (B, T, H, N), cuda, torch.float32)) * 0.5 + 0.45
+    w = wkv_decays(3, (B, T, H, N), kind, cuda)
     u = normal(4, (H, N), cuda, torch.float32)
     s0 = normal(5, (B, H, N, N), cuda, torch.float32) if with_state else None
     lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                      device=cuda)
     want_out, want_state = wkv_ref(r, k, v, w, u, s0, lengths)
-    before = TK.KERNELS["wkv"].launches
-    if with_state:     # in place, as the decode step updates its cache
-        state_in = s0.clone()
-        out, state = TK.KERNELS["wkv"](r, k, v, w, u, state_in, lengths,
-                                       state_out=state_in)
-        assert state is state_in
-    else:
-        out, state = TK.KERNELS["wkv"](r, k, v, w, u, None, lengths)
+    name = "wkv_chunked" if T > 1 else "wkv"
+    before = TK.launches()
+    state_in = None if s0 is None else s0.clone()
+    out, state = wkv_ops.wkv(r, k, v, w, u, state_in, lengths, state_out=state_in)
     torch.cuda.synchronize()
-    assert TK.KERNELS["wkv"].launches == before + 1
+    assert state_in is None or state is state_in
+    after = TK.launches()
+    assert {n: after[n] - before[n] for n in ("wkv", "wkv_chunked")} == \
+        {"wkv": int(name == "wkv"), "wkv_chunked": int(name == "wkv_chunked")}
     assert out.shape == (B, T, H, N) and state.shape == (B, H, N, N)
     assert rel_err(out, want_out) < 1e-4 and rel_err(state, want_state) < 1e-4
     for b, n in enumerate(lens or []):
         assert not out[b, n:].any()
 
 
+@pytest.mark.parametrize("columns", [16, 32, 64])
+def test_wkv_chunked_column_splits_on_card(cuda, columns):
+    """Every column slice the chunked kernel compiles at N = 64 gives the
+    plain version's result (the wave's 8 slots, ragged)."""
+    B, T, H, N = 8, 40, 4, 64
+    r, k, v = (normal(i, (B, T, H, N), cuda, torch.float32) for i in range(3))
+    w = wkv_decays(3, (B, T, H, N), "uniform", cuda)
+    u, s0 = normal(4, (H, N), cuda, torch.float32), normal(5, (B, H, N, N), cuda, torch.float32)
+    lengths = torch.tensor([40, 1, 17, 16, 32, 33, 0, 39], dtype=torch.int32, device=cuda)
+    want_out, want_state = wkv_ref(r, k, v, w, u, s0, lengths)
+    out, state = TK.KERNELS["wkv_chunked"](r, k, v, w, u, s0, lengths, columns=columns)
+    assert rel_err(out, want_out) < 1e-4 and rel_err(state, want_state) < 1e-4
+
+
 def test_rwkv6_launches_per_step_on_card(cuda):
-    """2L+1 LayerNorms and L wkv launches per prefill and per decode step,
-    and no attention kernel."""
+    """2L+1 LayerNorms per prefill and per decode step, L wkv_chunked
+    launches per prefill and L wkv per decode step, and no attention
+    kernel."""
     cfg = dataclasses.replace(smoke_config(get_config("rwkv6-7b")), n_layers=3)
     model = models.init_params(cfg, seed=0, device=cuda)
     cache = models.init_cache(cfg, 2, 32, device=cuda)
     toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     want = {name: 0 for name in TK.KERNELS}
-    want.update(layernorm=7, wkv=3)
     TK.reset_launches()
     model.prefill(toks, cache, torch.tensor([8, 5], dtype=torch.int32, device=cuda))
-    assert TK.launches() == want
+    assert TK.launches() == {**want, "layernorm": 7, "wkv_chunked": 3}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
-    assert TK.launches() == want
+    assert TK.launches() == {**want, "layernorm": 7, "wkv": 3}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 49152), (4096, 49152), (3, 1001)])
+def test_gelu_served_shapes_on_card(cuda, shape, dtype):
+    """The GELU kernel at gpt3-175b's decode (8 slots) and prefill-wave
+    shapes of its FFN, and a ragged element count: one launch, each
+    element within one rounding of the plain version (bf16: 2^-7 |b| +
+    1e-3; fp32: 2e-5 relative to the largest)."""
+    x = normal(7, shape, cuda, DTYPES[dtype]) * 3
+    before = TK.KERNELS["gelu"].launches
+    got = TK.KERNELS["gelu"](x)
+    torch.cuda.synchronize()
+    assert TK.KERNELS["gelu"].launches == before + 1
+    want = gelu_ref(x)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    g, w = got.float(), want.float()
+    if dtype == "bfloat16":
+        assert ((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-3).all()
+    else:
+        assert rel_err(got, want) < TOL["float32"]
+    # a base 2 bytes off 16: the kernel's scalar loop
+    off = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)[1:1 + x.numel()].view(shape)
+    off.copy_(x)
+    assert torch.equal(TK.KERNELS["gelu"](off), got)
 
 
 # (query heads, kv-heads, d_head) of the served models
@@ -260,6 +318,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "wkv_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -268,6 +327,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "wkv_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -287,6 +347,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "wkv_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -295,6 +356,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "wkv_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}

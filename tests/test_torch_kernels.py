@@ -27,8 +27,9 @@ from repro_torch.kernels.gelu import ops as t_gelu
 from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.wkv import kernel as t_wkv_kernel
 from repro_torch.kernels.wkv import ops as t_wkv
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.ref import CHUNK, wkv_chunked_ref, wkv_ref
 from repro_torch.models import layers as t_layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -457,6 +458,118 @@ def test_wkv_writes_the_state_in_place():
     assert torch.equal(out, want_out) and torch.equal(cache, want_state)
 
 
+def decays(rng, shape, kind):
+    """w of one kind: "uniform" in (0.45, 0.95) as the JAX kernel tests draw
+    it; "served" near exp(-exp(-6)) = 0.9975, the decay the model's init
+    gives (``repro/models/recurrent.py:44``); "edge" a fifth each of exact 0,
+    1e-30, exact 1 and the rest uniform."""
+    w = 0.5 / (1.0 + np.exp(-rng.standard_normal(shape))) + 0.45
+    if kind == "served":
+        w = np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal(shape)))
+    if kind == "edge":
+        pick = rng.integers(0, 5, shape)
+        w = np.select([pick == 0, pick == 1, pick == 2], [0.0, 1e-30, 1.0], w)
+    return w.astype(np.float32)
+
+
+# (T, decays, lengths or None, nonzero state0): T below the chunk, one chunk,
+# a multiple of it, off a multiple, and T = 1; ragged lengths with a 0
+WKV_CHUNKED_CASES = [(5, "uniform", None, False), (CHUNK, "served", None, False),
+                     (3 * CHUNK, "uniform", None, False), (37, "edge", None, False),
+                     (1, "uniform", None, False), (37, "uniform", [37, 20, 0], True),
+                     (3 * CHUNK, "edge", [48, 16, 0], True), (70, "served", [70, 33, 1], True),
+                     (5, "edge", [5, 3, 0], True), (1, "edge", [1, 0, 1], True)]
+
+
+@pytest.mark.parametrize("case", WKV_CHUNKED_CASES, ids=str)
+def test_wkv_chunked_ref_matches_jax(case):
+    """The chunked kernel's arithmetic (``wkv_chunked_ref``: the same
+    log-cumsum, clamp and guarded factorization) against JAX: with a zero
+    state and no lengths, ``wkv_ref`` and the Pallas op in interpret mode
+    (one u for every head, as they take it); with a nonzero state and
+    ragged lengths, each row's real steps against the JAX model's
+    ``wkv_scan``, pads' outputs zero and a length of 0 leaving the state."""
+    T, kind, lens, with_state = case
+    B, H, N = (2, 2, 32) if lens is None else (3, 2, 64)
+    rng = np.random.default_rng(50 + T)
+    r, k, v = (rng.standard_normal((B, T, H, N)).astype(np.float32) for _ in range(3))
+    w = decays(rng, (B, T, H, N), kind)
+    if lens is None:
+        u = normal(51, (N,))
+        out, state = wkv_chunked_ref(*(torch.from_numpy(a) for a in (r, k, v, w)),
+                                     torch.from_numpy(np.tile(u, (H, 1))))
+        got_out, got_state = rows(out.numpy()), state.numpy().reshape(B * H, N, N)
+        jargs = [jnp.asarray(rows(a)) for a in (r, k, v, w)]
+        for want_out, want_state in (K.wkv.reference(*jargs, jnp.asarray(u)),
+                                     K.wkv.wkv(*jargs, jnp.asarray(u))):
+            assert rel_err(got_out, want_out) < WKV_TOL
+            assert rel_err(got_state, want_state) < WKV_TOL
+        return
+    u, s0 = normal(52, (H, N)), normal(53, (B, H, N, N))
+    out, state = wkv_chunked_ref(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)),
+                                 torch.tensor(lens, dtype=torch.int32))
+    assert out.shape == (B, T, H, N) and torch.isfinite(out).all()
+    for b, n in enumerate(lens):
+        assert not out[b, n:].any()
+        if n == 0:
+            assert torch.equal(state[b], torch.from_numpy(s0[b]))
+            continue
+        want_out, want_state = jax_recurrent.wkv_scan(
+            *(jnp.asarray(a[b:b + 1, :n]) for a in (r, k, v, w)), jnp.asarray(u),
+            jnp.asarray(s0[b:b + 1]), chunk=16)
+        assert rel_err(out[b:b + 1, :n].numpy(), want_out) < WKV_TOL
+        assert rel_err(state[b:b + 1].numpy(), want_state) < WKV_TOL
+
+
+def test_wkv_chunked_predicate_and_column_split():
+    """``chunked_eligible``: the model's (B, T, H, N) views of its fp32
+    projections at T > 1 go to the chunked kernel; T = 1 (the decode step),
+    fp32 off N in (32, 64), bf16, a stride or base off 16 bytes do not.
+    ``column_split``: the slice whose busiest SM has the least work (the
+    wave: 64 columns; a batch-1 refill on 132 SMs: 32; on 1000: 16)."""
+    x = torch.zeros(2, 9, 3 * 64)
+    r = x.view(2, 9, 3, 64)
+    assert t_wkv_kernel.chunked_eligible(r, r, r, r)
+    assert t_wkv_kernel.chunked_eligible(*(torch.zeros(1, 2, 4, 32),) * 4)
+    assert not t_wkv_kernel.chunked_eligible(*(r[:, :1],) * 4)
+    assert not t_wkv_kernel.chunked_eligible(*(torch.zeros(2, 9, 3, 16),) * 4)
+    assert not t_wkv_kernel.chunked_eligible(*(r.bfloat16(),) * 4)
+    wide = torch.zeros(2, 9, 3, 66)[..., :64]                      # head stride 66
+    assert not t_wkv_kernel.chunked_eligible(r, r, wide, r)
+    flat = torch.zeros(r.numel() + 4)
+    for offset in range(4):                                        # 0-12 bytes past the base
+        view = flat[offset:offset + r.numel()].view(r.shape)
+        assert t_wkv_kernel.chunked_eligible(r, r, r, view) == (view.data_ptr() % 16 == 0)
+    assert t_wkv_kernel.column_split(8, 64, 64, 132) == 64
+    assert t_wkv_kernel.column_split(1, 64, 64, 132) == 32
+    assert t_wkv_kernel.column_split(2, 64, 64, 132) == 64
+    assert t_wkv_kernel.column_split(1, 64, 64, 32) == 64
+    assert t_wkv_kernel.column_split(1, 64, 64, 1000) == 16
+    assert t_wkv_kernel.column_split(8, 64, 32, 132) == 32
+
+
+def test_wkv_dispatch_picks_the_kernel_by_steps(monkeypatch):
+    """The op sends a CUDA-bound call of more than one step that
+    ``chunked_eligible`` accepts to ``wkv_chunked_cuda``, the rest (the
+    decode step, a misaligned view) to ``wkv_cuda`` (CPU tensors, the
+    wrappers replaced by recorders)."""
+    calls = []
+    for name in ("wkv_cuda", "wkv_chunked_cuda"):
+        monkeypatch.setattr(t_wkv_kernel, name,
+                            lambda *a, _n=name, **kw: calls.append((_n, a[1].shape[1], kw)))
+    monkeypatch.setattr(t_wkv, "runs_plain", lambda t: False)
+    u = torch.zeros(2, 32)
+    for T, want in ((2, "wkv_chunked_cuda"), (437, "wkv_chunked_cuda"), (1, "wkv_cuda")):
+        x = torch.zeros(3, T, 2, 32)
+        calls.clear()
+        t_wkv.wkv(x, x, x, x, u, None, None, state_out=None)
+        assert calls == [(want, T, {"state_out": None})]
+    odd = torch.zeros(3 * 5 * 2 * 32 + 1)[1:].view(3, 5, 2, 32)
+    calls.clear()
+    t_wkv.wkv(odd, odd, odd, odd, u)
+    assert calls == [("wkv_cuda", 5, {"state_out": None})]
+
+
 # ---------------- dispatch ----------------
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
@@ -490,6 +603,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
                                          x.transpose(1, 2).contiguous().bfloat16(),
                                          torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
+            "wkv_chunked": (x, x, x, x, torch.zeros(8, 32)),
             "matmul": (x[0, 0], x[0, 0].t()),
             "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
             "matmul_f32_tma": (x[0, 0], x[0, 0].t().contiguous()),
