@@ -32,7 +32,22 @@ result line):
                their shapes, T off either kernel's chunk and below 16,
                decays with exact 0, 1e-30 and 1, the served prefill with
                prompt lengths, a batch-1 refill of 452 tokens and the
-               decode step in place on a nonzero state;
+               decode step in place on a nonzero state; the gated-GELU mode
+               (gelu_mul) at recurrentgemma's MLP shapes; flash attention at
+               D = 256 on the wgmma kernel (10 query heads on one kv-head,
+               windows that cut key tiles, the served wave and the ring
+               phase's prefill) and in fp32; decode attention at D = 256
+               with 10 query heads (the chunked kernel; fp32 on the split
+               one); the rglru op to 1e-4 (output and final h) at d = 2560:
+               unequal lengths with a 0, h0 nonzero, decays near 0 and near
+               1, the served wave, a batch-1 refill of 452 and the decode
+               step in place; then every input ROADMAP C9 once listed as
+               refused, through its op, on the kernel its launch count
+               names: fp16 GEMMs (and matmul_fp8 writing fp16) at 1e-3 and
+               per element, flash attention at D = 16, 48, 96 and 200
+               (zero-padded) and 256 in fp32, decode attention at 16, 200
+               and 256 in fp32, wkv at N = 16, 48 and 128; and that D above
+               256 and N above 128 are still refused;
   3. matmul  - the GEMM op path (``repro_torch.kernels.matmul.ops``, which no
                served model calls): first every op against its plain version
                at the JAX kernel tests' shapes (bf16 2e-2, fp32 and fp8 2e-5,
@@ -60,13 +75,16 @@ result line):
                e4m3 wgmma, promoted into fp32 every 128 of K or every
                instruction, at the same gpt3 shapes against the fp8 checks,
                beside ``torch._scaled_mm``'s own errors;
-  4. serve   - four served paths, one model each, random weights from a
+  4. serve   - five served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
                layernorm, silu_mul, partial RoPE, d_head 64), gpt3-175b
                (full width cut to 8 of 96 layers; layernorm, gelu,
-               sinusoidal positions, 96 heads) and rwkv6-7b (full width and
-               depth, attention-free; layernorm, wkv). Each serves 16 greedy
+               sinusoidal positions, 96 heads), rwkv6-7b (full width and
+               depth, attention-free; layernorm, wkv) and recurrentgemma-2b
+               (full width and depth, 26 layers: 18 RG-LRU layers (gelu on
+               the gate branch, rglru) and 8 local-attention layers at
+               D = 256 on one kv-head; rmsnorm, gelu_mul). Each serves 16 greedy
                requests of 16-48 new tokens on 8 slots through the port's
                Engine: one whole-batch prefill of prompts of unequal
                lengths, then each freed slot refilled by a batch-1 prefill
@@ -80,13 +98,21 @@ result line):
                wkv_chunked a decode step); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
+               for recurrentgemma-2b then the ring phase: one request of a
+               2304-token prompt, past its 2048-token window, on a budget
+               of 2560, and 40 decode steps past the ring's wrap, with
+               exactly one prefill's and 40 steps' launches;
                each model and its cache are freed before the next is built;
   5. model   - each model at full width cut in depth (qwen3, stablelm and
-               rwkv6 to 2 layers, gpt3 to 1), its prefill and decode logits
-               on the card against the port's CPU path on a batch of two
-               prompts of unequal lengths; for rwkv6 also the short prompt's
-               state and token shifts after the padded wave against that
-               prompt prefilled alone on the card;
+               rwkv6 to 2 layers, gpt3 to 1, recurrentgemma to 3: one unit),
+               its prefill and decode logits on the card against the port's
+               CPU path on a batch of two prompts of unequal lengths; for
+               rwkv6 and recurrentgemma also the short prompt's recurrent
+               state (and ring K/V) after the padded wave against that
+               prompt prefilled alone on the card; then the ring phase held
+               the same way: recurrentgemma at 3 layers, prompts of 2304 and
+               2100 tokens on a 2560 budget (a ring of 2048), 40 decode
+               steps past the wrap;
   6. timing  - each kernel at the served models' shapes (the GEMMs at the
                matmul path's), beside its plain version, the one PyTorch call
                that computes the same function where there is one, and its
@@ -97,7 +123,10 @@ result line):
                same live K and V, beside the fp32 FFMA mode the SIMT
                kernel, each on the same operands; gelu, F.gelu and the
                Triton kernel gelu.cu replaced in turns at the prefill and
-               the decode shape; the chunked wkv kernel at the served
+               the decode shape; gelu_mul beside F.gelu(g) * u; flash at
+               D = 256 (recurrentgemma's wave and its ring prefill) beside
+               SDPA; rglru at the served recurrentgemma run's wave, longest
+               refill and decode step; the chunked wkv kernel at the served
                rwkv6 run's wave and each of its 8 refills beside the
                step-by-step kernel and at each column split, and the decode
                step beside ``s0.mul_(1.0)`` on its state; for bf16 the
@@ -127,11 +156,16 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 WKV_TOL = 1e-4
 # (arch, layers served or None for all): the port's four served paths
 SERVED = (("qwen3-1.7b", None), ("stablelm-1.6b", None), ("gpt3-175b", 8),
-          ("rwkv6-7b", None))
+          ("rwkv6-7b", None), ("recurrentgemma-2b", None))
 # (arch, layers, prompt tokens, decode steps) of the card-vs-CPU check;
 # gpt3's CPU side runs 2.4 G parameters in bf16, hence the short prompts
 MODEL_CHECKS = (("qwen3-1.7b", 2, 64, 8), ("stablelm-1.6b", 2, 64, 8),
-                ("gpt3-175b", 1, 16, 4), ("rwkv6-7b", 2, 64, 8))
+                ("gpt3-175b", 1, 16, 4), ("rwkv6-7b", 2, 64, 8),
+                ("recurrentgemma-2b", 3, 64, 8))
+# the ring phase: recurrentgemma-2b past its 2048-token window, a prompt of
+# RING_PROMPT tokens on a RING_MAX_LEN budget, RING_STEPS decode steps past
+# the wrap; held against the CPU path at RING_LAYERS layers (one unit)
+RING_PROMPT, RING_MAX_LEN, RING_STEPS, RING_LAYERS = 2304, 2560, 40, 3
 SLOTS, MAX_LEN, N_REQUESTS = 8, 1024, 16
 # new tokens per request: staggered, so that slots free in different rounds
 # and the 8 requests past the first wave go through the per-slot refill
@@ -141,6 +175,7 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
     "layernorm": "src/repro/kernels/rmsnorm/kernel.py:48",
     "gelu": "src/repro/kernels/gelu/kernel.py:29",
+    "gelu_mul": "src/repro/models/layers.py:341",
     "silu_mul": "src/repro/kernels/gelu/kernel.py:43",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention/kernel.py:71",
@@ -148,6 +183,7 @@ REPLACES = {
     "decode_attention_chunked": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "wkv_chunked": "src/repro/kernels/wkv/kernel.py:51",
+    "rglru": "src/repro/models/recurrent.py:206",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_f32_tma": "src/repro/kernels/matmul/kernel.py:37",
@@ -159,6 +195,7 @@ SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
     "layernorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py"),
     "gelu": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu"),
+    "gelu_mul": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu"),
     "silu_mul": ("triton", "src/repro_torch/kernels/gelu/kernel.py"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "flash_attention_wgmma": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
@@ -167,6 +204,7 @@ SOURCES = {
                                  "src/repro_torch/kernels/csrc/decode_attention_chunked.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "wkv_chunked": ("cuda", "src/repro_torch/kernels/csrc/wkv_chunked.cu"),
+    "rglru": ("cuda", "src/repro_torch/kernels/csrc/rglru.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
     "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_f32_tma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
@@ -181,9 +219,13 @@ GPT3_GEMMS = (("qkv", 12288, 36864), ("out", 12288, 12288), ("ffn_up", 12288, 49
 GEMM_ROWS = (SLOTS, 8 * 512)
 GEMM_EDGES = ((128, 128, 128), (256, 512, 128), (100, 200, 50), (1, 300, 77), (513, 129, 257))
 GEMM_MODES = ("bf16", "fp32", "fp8", "int8")
-GEMM_TOL = {"bf16": 2e-2, "fp32": 2e-5, "fp8": 2e-5, "int8": 1e-4}
+# fp16 (operands, and matmul_fp8's output) at 1e-3, tighter than bf16's 2e-2:
+# fp16 keeps 11 bits, and kernel and plain version round the same fp32 sum
+GEMM_TOL = {"bf16": 2e-2, "fp32": 2e-5, "fp8": 2e-5, "int8": 1e-4, "fp16": 1e-3,
+            "fp8-fp16out": 1e-3}
 GELU_PAIRS = 6   # gelu and F.gelu timed in alternating pairs
-ELEMENTWISE = ("rmsnorm", "layernorm", "gelu", "silu_mul")   # one bf16 rounding apart
+ELEMENTWISE = ("rmsnorm", "layernorm", "gelu", "gelu_mul", "silu_mul")  # one bf16 rounding apart
+RGLRU_TOL = 1e-4   # fp32, the gates' exponentials in another order
 
 
 def require(cond, msg):
@@ -243,7 +285,7 @@ def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
-                            "decode_attention_chunked", "wkv", "wkv_chunked", "gelu",
+                            "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
                             "matmul", "matmul_sm90", "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
@@ -259,7 +301,7 @@ def phase_build(torch):
     smem.argtypes, smem.restype = [ctypes.c_int] * 5, ctypes.c_int
     for mode, dtype, forms in ((0, torch.bfloat16, {"": 0}),
                                (1, torch.float8_e4m3fn, E4M3_FORMS), (2, torch.int8, {"": 0}),
-                               (3, torch.float32, {"": 0})):
+                               (3, torch.float16, {"": 0}), (4, torch.float32, {"": 0})):
         for tile in TILES[dtype]:
             for form, f in forms.items():
                 print(f"[build] matmul_sm90.cu {dtype} {form} tile {tile}: "
@@ -318,7 +360,7 @@ def kernel_cases(torch):
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+    from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
     rnd = Inputs(torch, 0)
     cases = []
@@ -344,6 +386,11 @@ def kernel_cases(torch):
         for r, c, main in ((100, 256, False), (4096, 6144, True)):
             cases.append(("silu_mul", f"({r},{c})", KERNELS["silu_mul"], silu_mul_ref,
                           (rnd((r, c), dt), rnd((r, c), dt)), main))
+        # recurrentgemma's gated-GELU MLP: the decode step and the prefill wave
+        for r, c, main in ((100, 256, False), (3, 1001, False), (SLOTS, 7680, True),
+                           (4096, 7680, True)):
+            cases.append(("gelu_mul", f"({r},{c})", KERNELS["gelu_mul"], gelu_mul_ref,
+                          (rnd((r, c), dt) * 3, rnd((r, c), dt)), main))
         # (B, H, S, D) tensors, or (B, S, H, D) ones passed as the model
         # passes them (transposed views), or with a sequence stride of D + 4
         # elements; each case on the kernel wgmma_eligible picks
@@ -361,7 +408,17 @@ def kernel_cases(torch):
                 (2, 4, 2, 130, 130, True, 0, 0.0, 64, "seq stride D+4", False),
                 (8, 16, 8, 512, 512, True, 0, 0.0, 128, "bhsd", True),
                 (8, 32, 32, 512, 512, True, 0, 0.0, 64, "bhsd", True),
-                (8, 96, 96, 512, 512, True, 0, 0.0, 128, "bhsd", True)):
+                (8, 96, 96, 512, 512, True, 0, 0.0, 128, "bhsd", True),
+                # D = 256, recurrentgemma's 10 query heads on one kv-head:
+                # windows that cut key tiles (and skip those left of them),
+                # a softcap, a ragged length, the served wave (its window of
+                # 2048 past every key) and the ring phase's prefill
+                (2, 10, 1, 300, 300, True, 100, 0.0, 256, "view", False),
+                (2, 10, 1, 333, 333, True, 64, 30.0, 256, "bhsd", False),
+                (1, 4, 2, 700, 700, False, 130, 0.0, 256, "bhsd", False),
+                (2, 4, 1, 150, 150, True, 70, 0.0, 256, "seq stride D+4", False),
+                (8, 10, 1, 512, 512, True, 2048, 0.0, 256, "view", True),
+                (1, 10, 1, RING_PROMPT, RING_PROMPT, True, 2048, 0.0, 256, "view", True)):
             kw = dict(causal=causal, window=window, softcap=cap)
             q, k, v = (attention_input(rnd, shape, dt, layout) for shape in
                        ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
@@ -371,9 +428,10 @@ def kernel_cases(torch):
                           lambda *a, kw=kw: attention_ref(*a, **kw), (q, k, v), main))
         # (B, Hkv, G, T, D, lengths, is_main_path): the JAX kernel tests'
         # rows, lengths at the chunked kernel's unit edges (1, UK - 1, UK,
-        # UK + 1, T) at D = 128 and 256 (bf16 only: the split kernel, which
-        # takes fp32, stops at 128), and the served shapes; each case on the
-        # kernel chunked_eligible picks for it
+        # UK + 1, T) at D = 128 and 256 (fp32 on the split kernel's D = 256
+        # mode), and the served shapes (recurrentgemma's: 10 query heads on
+        # one kv-head, D = 256, and the ring phase's full window); each case
+        # on the kernel chunked_eligible picks for it
         for b, hkv, g, t, d, lens, main in (
                 (3, 2, 4, 128, 64, [128, 64, 42], False),
                 (3, 1, 8, 200, 64, [200, 100, 66], False),
@@ -383,7 +441,9 @@ def kernel_cases(torch):
                 (5, 2, 1, 101, 256, edge_lengths(256, 101), False),
                 (SLOTS, 8, 2, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 32, 1, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
-                (SLOTS, 96, 1, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True)):
+                (SLOTS, 96, 1, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
+                (SLOTS, 1, 10, MAX_LEN, 256, decode_lengths(SLOTS, MAX_LEN), True),
+                (1, 1, 10, 2048, 256, [2048], True)):
             if d not in HEAD_DIMS and dt != torch.bfloat16:
                 continue
             q, k, v = (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
@@ -511,6 +571,150 @@ def phase_wkv(torch, errs):
                              max_abs(state, want_state))
 
 
+def rglru_inputs(torch, rnd, B, T, d, with_h0):
+    """u and the gate bf16, the gate pre-activations fp32 (3 sigma, so that
+    sigmoid reaches near 0 and 1), lam over [-6, 12] (softplus(lam) from
+    0.0025 to 12: decays a from near 1 to near 0), h0 nonzero if asked."""
+    f32 = torch.float32
+    return (rnd((B, T, d), torch.bfloat16), rnd((B, T, d), f32) * 3, rnd((B, T, d), f32) * 3,
+            torch.linspace(-6.0, 12.0, d, device="cuda"), rnd((B, T, d), torch.bfloat16),
+            rnd((B, d), f32) if with_h0 else None)
+
+
+def rglru_cases():
+    """(B, T, lengths or None, nonzero h0, is_main_path) at recurrentgemma's
+    width: unequal lengths with a 0, h0 nonzero, T = 1 in place, the served
+    prefill wave (8 slots, prompt lengths), a batch-1 refill of 452 tokens
+    and the decode step."""
+    return [(3, 40, [40, 7, 0], True, False),
+            (2, 97, None, True, False),
+            (5, 1, [1, 0, 1, 1, 0], True, False),
+            (SLOTS, 512, prompt_lengths(SLOTS, 512), False, True),
+            (1, 452, [452], False, True),
+            (SLOTS, 1, None, True, True)]
+
+
+def phase_rglru(torch, errs):
+    """The rglru op against its plain step loop on the card, at d = 2560:
+    output (gate * h) and final h within 1e-4 of the plain version's
+    largest, one rglru launch a call, h written in place where h0 is
+    given (the decode step)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    rnd = Inputs(torch, 5)
+    for B, T, lens, with_h0, main in rglru_cases():
+        u, ga, gx, lam, gate, h0 = rglru_inputs(torch, rnd, B, T, 2560, with_h0)
+        lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                         device="cuda")
+        want_y, want_h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
+        before = K.launches()
+        y, h = rglru(u, ga, gx, lam, gate, h0, lengths, h_out=h0)
+        torch.cuda.synchronize()
+        label = f"({B},{T},2560) lengths={lens} h0={'nonzero' if with_h0 else 'zero'}"
+        require(K.launches() == {**before, "rglru": before["rglru"] + 1},
+                f"rglru {label}: not one launch of rglru alone")
+        require(h0 is None or h is h0, f"rglru {label}: h not in place")
+        e_y, e_h = rel_err(y, want_y), rel_err(h, want_h)
+        require(e_y < RGLRU_TOL and e_h < RGLRU_TOL, f"rglru {label}: rel_err y {e_y:.3e}, "
+                f"h {e_h:.3e} (tol {RGLRU_TOL:g})")
+        print(f"[kernels] rglru            float32  {label}: rel_err y {e_y:.3e}, h {e_h:.3e} "
+              f"(tol {RGLRU_TOL:g}) ok")
+        if main:
+            errs["rglru"] = max(errs.get("rglru", 0.0), max_abs(y, want_y), max_abs(h, want_h))
+
+
+def phase_c9(torch):
+    """ROADMAP C9, resolved: every input the card once refused, through its
+    op, on the kernel the op picks (its launch count shows which), against
+    the plain version: fp16 GEMM operands (the wgmma kernel's fp16 mode;
+    mma.sync where TMA cannot take the pitch) and matmul_fp8 writing fp16,
+    held as the GEMM path holds bf16 (``check_gemm``, 1e-3); flash attention
+    at D = 256 in fp32 and at D = 16, 48, 96 and 200 zero-padded to the next
+    kernel dim; decode attention at 16 (padded), 200 and 256 in fp32; wkv at
+    16 and 48 (padded) and 128 (the step-by-step kernel, T > 1 and the
+    decode step). Then the one refusal left: D above 256 (N above 128)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.wkv.ops import wkv
+    from repro_torch.kernels.wkv.ref import wkv_ref
+    rnd = Inputs(torch, 6)
+
+    def launched(op, *args, **kw):
+        before = K.launches()
+        out = op(*args, **kw)
+        torch.cuda.synchronize()
+        return out, {k: n - before[k] for k, n in K.launches().items() if n != before[k]}
+
+    f32 = torch.float32
+    for mode, (m, k, n), want in (("fp16", (300, 512, 768), "matmul_wgmma"),
+                                  ("fp16", (8, 12288, 12288), "matmul_wgmma"),
+                                  ("fp16", (100, 129, 77), "matmul"),
+                                  ("fp8-fp16out", (300, 512, 768), "matmul_wgmma"),
+                                  ("fp8-fp16out", (100, 200, 50), "matmul")):
+        a, b = rnd((m, k), f32), rnd((k, n), f32)
+        (got, plain, qa, qb), launches = launched(gemm_case, torch, mode, a, b)
+        label = f"({m},{k})x({k},{n}) on {want}"
+        require(set(launches) - {"matmul_reduce"} == {want},
+                f"C9 {mode} {label}: launches {launches}")
+        require(got.dtype == torch.float16, f"C9 {mode} {label}: output {got.dtype}")
+        check_gemm(torch, mode, label, got, plain, qa, qb)
+    cases = [(d, dt, kern) for d, dt, kern in (
+        (256, f32, "flash_attention"), (16, torch.bfloat16, "flash_attention"),
+        (48, torch.bfloat16, "flash_attention_wgmma"), (96, torch.bfloat16,
+                                                         "flash_attention_wgmma"),
+        (200, torch.bfloat16, "flash_attention_wgmma"), (200, f32, "flash_attention"))]
+    for d, dt, kern in cases:
+        q, k, v = rnd((2, 4, 150, d), dt), rnd((2, 1, 150, d), dt), rnd((2, 1, 150, d), dt)
+        got, launches = launched(flash_attention, q, k, v, causal=True, window=70)
+        want = attention_ref(q, k, v, causal=True, window=70)
+        name = str(dt).replace("torch.", "")
+        err = rel_err(got, want)
+        line = f"[c9] flash attention D={d} {name} on {kern}: rel_err {err:.3e}"
+        require(launches == {kern: 1} and got.shape == q.shape and err < TOL[name],
+                f"{line}, launches {launches}: fails")
+        if dt == torch.bfloat16:
+            line += f", per-element excess {attention_excess(got, want):.3f} (<= 1)"
+            require(attention_excess(got, want) <= 1, f"{line}: fails")
+        print(f"{line} ok")
+    lens = torch.tensor([150, 33], dtype=torch.int32, device="cuda")
+    for d, dt, kern in ((16, torch.bfloat16, "decode_attention_chunked"),
+                        (200, f32, "decode_attention"), (256, f32, "decode_attention")):
+        q, k, v = rnd((2, 1, 10, d), dt), rnd((2, 150, 1, d), dt), rnd((2, 150, 1, d), dt)
+        got, launches = launched(decode_attention, q, k, v, lens)
+        want = decode_attention_ref(q, k, v, lens)
+        name = str(dt).replace("torch.", "")
+        err = rel_err(got, want)
+        line = f"[c9] decode attention D={d} {name} on {kern}: rel_err {err:.3e}"
+        require(launches == {kern: 1} and got.shape == q.shape and err < TOL[name],
+                f"{line}, launches {launches}: fails")
+        print(f"{line} ok")
+    for N, T, kern in ((16, 33, "wkv_chunked"), (48, 33, "wkv_chunked"), (128, 33, "wkv"),
+                       (128, 1, "wkv"), (48, 1, "wkv")):
+        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, 2, T, 2, N, True)
+        want_out, want_state = wkv_ref(r, k, v, w, u, s0)
+        (out, state), launches = launched(wkv, r, k, v, w, u, s0, state_out=s0)
+        e_out, e_state = rel_err(out, want_out), rel_err(state, want_state)
+        line = (f"[c9] wkv N={N} T={T} on {kern}: rel_err out {e_out:.3e}, state "
+                f"{e_state:.3e}")
+        require(launches == {kern: 1} and state is s0 and max(e_out, e_state) < WKV_TOL,
+                f"{line}, launches {launches}: fails")
+        print(f"{line} ok")
+    x = rnd((1, 4, 40, 320), torch.bfloat16)
+    for what, fn in (("flash attention D=320", lambda: flash_attention(x, x[:, :1], x[:, :1])),
+                     ("wkv N=192", lambda: wkv(*(rnd((1, 4, 2, 192), f32),) * 4,
+                                               rnd((2, 192), f32)))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"[c9] {what}: refused on the card, as it stays ({e})")
+            continue
+        raise RuntimeError(f"C9: {what} was not refused")
+
+
 def phase_kernels(torch):
     """Returns {kernel: largest |kernel - plain| in bf16 at its main-path
     shapes, or at all its shapes where it has no main-path one}."""
@@ -539,6 +743,8 @@ def phase_kernels(torch):
             into = errs if main else any_errs
             into[name] = max(into.get(name, 0.0), max_abs(got, want))
     phase_wkv(torch, errs)
+    phase_rglru(torch, errs)
+    phase_c9(torch)
     return {**any_errs, **errs}
 
 
@@ -547,15 +753,16 @@ def gemm_excess(torch, got, want, a, b):
     elements of a GEMM's output; at most 1 passes. a, b are the operands'
     values (dequantized for int8, e4m3 for fp8), |a| @ |b| taken in fp32;
     r = 2^-7 for a bf16 output (the two sides' roundings leave them at most
-    one bf16 ulp apart), 0 for fp32. The fp32 sums of kernel and plain
-    version differ by their order, about sqrt(K) 2^-24 of the partial sums,
-    far below 2^-16 (|a| @ |b|). A kernel that drops one k-step or uses a
-    tile of B transposed moves an element by a sum of ~16 products, ~4 at
-    unit-normal operands, against 2^-16 (|a| @ |b|) = 0.12-0.48 at K =
-    12288-49152 and one bf16 ulp of an output of ~100-400 (0.5-2), so it
-    fails where the relative error to the largest output (~4.5 sqrt(K)) may
-    not. NaNs count as agreeing here; their places are compared apart."""
-    r = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    one bf16 ulp apart), 2^-10 for fp16 (one fp16 ulp), 0 for fp32. The fp32
+    sums of kernel and plain version differ by their order, about sqrt(K)
+    2^-24 of the partial sums, far below 2^-16 (|a| @ |b|). A kernel that
+    drops one k-step or uses a tile of B transposed moves an element by a sum
+    of ~16 products, ~4 at unit-normal operands, against 2^-16 (|a| @ |b|) =
+    0.12-0.48 at K = 12288-49152 and one bf16 ulp of an output of ~100-400
+    (0.5-2), so it fails where the relative error to the largest output (~4.5
+    sqrt(K)) may not. NaNs count as agreeing here; their places are compared
+    apart."""
+    r = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(got.dtype, 0.0)
     got, want = got.float(), want.float()
     mag = a.float().nan_to_num().abs() @ b.float().nan_to_num().abs()
     den = (r * want.abs() + 2.0 ** -16 * mag).clamp_min(1e-30)
@@ -571,12 +778,16 @@ def gemm_case(torch, mode, a, b, tile=None):
     from repro_torch.kernels.matmul.ref import (matmul_fp8_ref, matmul_int8_ref, matmul_ref,
                                                 quantize_fp8, quantize_int8)
     kw = {} if tile is None else dict(zip(("bm", "bk", "bn"), tile))
-    if mode in ("bf16", "fp32"):
-        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    if mode in ("bf16", "fp32", "fp16"):
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}[mode]
         a, b = a.to(dt), b.to(dt)
         return ops.matmul(a, b, **kw), matmul_ref(a, b), a, b
     if mode == "fp8":
         return ops.matmul_fp8(a, b, **kw), matmul_fp8_ref(a, b), quantize_fp8(a), quantize_fp8(b)
+    if mode == "fp8-fp16out":   # fp16 operands rounded to e4m3, the output fp16
+        a, b = a.half(), b.half()
+        return (ops.matmul_fp8(a, b, **kw), matmul_fp8_ref(a, b, out_dtype=torch.float16),
+                quantize_fp8(a), quantize_fp8(b))
     (qa, sa), (qb, sb) = quantize_int8(a, 1), quantize_int8(b, 0)
     return ops.matmul_int8(a, b, **kw), matmul_int8_ref(a, b), qa * sa, qb * sb
 
@@ -772,24 +983,38 @@ def decode_attention_kernel(cfg):
         "decode_attention"
 
 
+def mlp_kernel(cfg):
+    """The kernel of `cfg`'s MLP activation: SwiGLU, gated GELU or GELU."""
+    if not cfg.mlp_gated:
+        return "gelu"
+    return "gelu_mul" if cfg.activation == "gelu" else "silu_mul"
+
+
 def expected_launches(cfg, prefill):
     """Launches of each kernel in one prefill or one decode step of `cfg`:
-    two norms per layer and the final one (q- and k-norm per layer with
-    qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation and one
-    attention per layer (``prefill_attention``'s kernel at prefill and
+    two norms per layer and the final one (q- and k-norm per attention
+    layer with qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation
+    per layer (``mlp_kernel``'s), one attention per attention layer
+    (``prefill_attention``'s kernel at prefill and
     ``decode_attention_kernel``'s at decode, none on the other flash or
-    decode kernel); for RWKV6, one wkv_chunked per layer at prefill, one
-    wkv per layer at decode, and no attention."""
+    decode kernel), and per Griffin RG-LRU layer one gelu (its gate branch)
+    and one rglru; for RWKV6, one wkv_chunked per layer at prefill, one wkv
+    per layer at decode, and no attention."""
     from repro_torch.kernels import KERNELS
+    from repro_torch.models.lm import layer_kinds
     L = cfg.n_layers
+    kinds = layer_kinds(cfg)
+    n_attn, n_rec = kinds.count("attn"), kinds.count("rglru")
     counts = dict.fromkeys(KERNELS, 0)
     counts[cfg.norm] += 2 * L + 1
     if cfg.attention_free:
         counts["wkv_chunked" if prefill else "wkv"] = L
         return counts
-    counts["rmsnorm"] += 2 * L if cfg.qk_norm else 0
-    counts["silu_mul" if cfg.mlp_gated else "gelu"] = L
-    counts[prefill_attention(cfg) if prefill else decode_attention_kernel(cfg)] = L
+    counts["rmsnorm"] += 2 * n_attn if cfg.qk_norm else 0
+    counts[mlp_kernel(cfg)] += L
+    counts["gelu"] += n_rec
+    counts["rglru"] = n_rec
+    counts[prefill_attention(cfg) if prefill else decode_attention_kernel(cfg)] = n_attn
     return counts
 
 
@@ -862,9 +1087,9 @@ def phase_serve(torch, arch, n_layers):
     # prefill and each decode round launches exactly one step's kernels
     prefills, st = 1 + N_REQUESTS - SLOTS, eng.stats
     seq = "wkv_chunked" if cfg.attention_free else prefill_attention(cfg)
-    require(prefill_counts[seq] == prefills * cfg.n_layers,
+    require(prefill_counts[seq] == prefills * per_step[0][seq],
             f"{prefill_counts[seq]} {seq} launches in the prefill phase, not the "
-            f"{prefills} x {cfg.n_layers} of one wave and {prefills - 1} refills")
+            f"{prefills} x {per_step[0][seq]} of one wave and {prefills - 1} refills")
     for phase, got, n, step in (("prefill", prefill_counts, prefills, per_step[0]),
                                 ("decode", {name: c - prefill_counts[name]
                                             for name, c in counts.items()},
@@ -905,9 +1130,51 @@ def phase_serve(torch, arch, n_layers):
     profile_decode(torch, model, cache, toks[:, 0])
     print(f"[serve] {cfg.name}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model, cache
+    del cache
+    if cfg.attn_window:
+        phase_ring_serve(torch, cfg, model, gen)
+    del model
     torch.cuda.empty_cache()
     return counts, per_prefill, per_decode, lens
+
+
+def phase_ring_serve(torch, cfg, model, gen):
+    """A windowed model at full depth past its window: one request of
+    RING_PROMPT tokens and RING_STEPS + 1 new ones on one slot of a
+    RING_MAX_LEN budget, through the Engine: a prefill longer than the ring
+    (min(max_len, window) slots, each position in slot pos % ring) and
+    RING_STEPS decode steps past its wrap. The launches are exactly one
+    prefill step's and RING_STEPS decode steps'; the tokens lie in the
+    vocabulary."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import Engine, Request
+    eng = Engine(cfg, model, batch_size=1, max_len=RING_MAX_LEN, device="cuda")
+    ring = eng.cache["k"].shape[2]
+    require(ring == min(RING_MAX_LEN, cfg.attn_window) < RING_PROMPT,
+            f"{cfg.name}: a ring of {ring} slots for a prompt of {RING_PROMPT}")
+    req = Request(uid=0, prompt=torch.randint(0, cfg.vocab_size, (RING_PROMPT,),
+                                              generator=gen).tolist(),
+                  max_new_tokens=RING_STEPS + 1)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    eng.run([req])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre, dec = expected_launches(cfg, True), expected_launches(cfg, False)
+    want = {name: pre[name] + RING_STEPS * dec[name] for name in pre}
+    require(K.launches() == want, f"{cfg.name} ring: launches {K.launches()}, not one "
+            f"prefill's and {RING_STEPS} decode steps' {want}")
+    require(req.done and len(req.output) == RING_STEPS + 1
+            and all(0 <= t < cfg.vocab_size for t in req.output),
+            f"{cfg.name} ring: {len(req.output)} tokens, done={req.done}")
+    st = eng.stats
+    print(f"[ring] {cfg.name}: one prompt of {RING_PROMPT} tokens into a ring of {ring} "
+          f"slots (max_len {RING_MAX_LEN}, window {cfg.attn_window}), then {st['steps']} "
+          f"decode steps at positions {RING_PROMPT}-{RING_PROMPT + st['steps'] - 1}, all "
+          f"past the wrap: prefill {st['prefill_s']:.4f} s, decode {st['decode_s']:.4f} s "
+          f"({st['decode_s'] / st['steps'] * 1e3:.3f} ms a step), wall {wall:.4f} s; "
+          f"launches exact: {json.dumps({k: n for k, n in K.launches().items() if n})}")
+    del eng
 
 
 def profile_decode(torch, model, cache, tok, steps=5):
@@ -947,9 +1214,10 @@ def profile_decode(torch, model, cache, tok, steps=5):
               f"{e.count / steps:6.1f}x  {e.key[:90]}")
 
 
-def phase_model(torch, arch, n_layers, S, steps):
+def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
     """Full width, cut in depth: the card's logits against the port's CPU
-    path on the same weights, two prompts of S and S*41/64 tokens."""
+    path on the same weights, two prompts of S and `short` (S*41/64 by
+    default) tokens on a cache of T (2 S by default) tokens."""
     from repro_torch.models import LM, init_cache, init_params
     cfg = served_config(arch, n_layers)
     gpu = init_params(cfg, seed=1, device="cuda")
@@ -958,14 +1226,14 @@ def phase_model(torch, arch, n_layers, S, steps):
     gen = torch.Generator("cpu").manual_seed(2)
     B = 2
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
-    lens = torch.tensor([S, S * 41 // 64], dtype=torch.int32)
-    T = 2 * S
+    lens = torch.tensor([S, short or S * 41 // 64], dtype=torch.int32)
+    T = T or 2 * S
     cg = init_cache(cfg, B, T, device="cuda")
     cc = init_cache(cfg, B, T, device="cpu")
     V = cfg.vocab_size
     t0 = time.perf_counter()
     lg, lc = gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu(), cpu.prefill(toks, cc, lens)
-    if cfg.attention_free:
+    if cfg.attention_free or "rglru" in cfg.block_pattern:
         check_wave_state(torch, cfg, gpu, toks, lens, cg, lg)
     errs = [rel_err(lg[:, :V], lc[:, :V])]
     agree = [(lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item()]
@@ -977,8 +1245,10 @@ def phase_model(torch, arch, n_layers, S, steps):
         errs.append(rel_err(lg[:, :V], lc[:, :V]))
         agree.append((lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item())
     tol = 2e-2
+    ring = f", a ring of {cg['k'].shape[2]} slots" if cfg.attn_window else ""
     print(f"[model] {cfg.name} (full width, {n_layers} layers, batch {B}, prompts "
-          f"{lens.tolist()}) card vs CPU, rel_err of logits: prefill {errs[0]:.3e}, "
+          f"{lens.tolist()}, cache {T}{ring}) card vs CPU, rel_err of logits: prefill "
+          f"{errs[0]:.3e}, "
           f"decode max {max(errs[1:]):.3e} (tol {tol:g}: both bf16, kernels against "
           f"plain versions and another GEMM order); {time.perf_counter() - t0:.1f} s")
     print(f"[model] {cfg.name}: greedy token agreement over prefill + {steps} decode "
@@ -990,17 +1260,21 @@ def phase_model(torch, arch, n_layers, S, steps):
 
 
 def check_wave_state(torch, cfg, gpu, toks, lens, cache, logits):
-    """On the card: the short prompt's state, token shifts and logits after
-    the right-padded wave against that prompt prefilled alone (its pads must
-    stay out of its state, ROADMAP.md C4), within 2e-2."""
+    """On the card: the short prompt's recurrent state (RWKV6's state and
+    token shifts, Griffin's h and conv carry), its ring K/V (Griffin) and
+    its logits after the right-padded wave against that prompt prefilled
+    alone (its pads must stay out of its state, and its ring must hold its
+    own last keys, ROADMAP.md C4), within 2e-2. The alone cache's ring has
+    min(n, window) slots, the wave's the same first ones."""
     from repro_torch.models import init_cache
     n = int(lens[1])
     alone = init_cache(cfg, 1, n, device="cuda")
     want = gpu.prefill(toks[1:2, :n].cuda(), alone).cpu()
     V = cfg.vocab_size
     errs = {"logits": rel_err(logits[1:2, :V], want[:, :V])}
-    errs.update({name: rel_err(cache[name][:, 1], alone[name][:, 0])
-                 for name in ("state", "sx_t", "sx_c")})
+    errs.update({name: rel_err(cache[name][:, 1, :alone[name].shape[2]] if name in ("k", "v")
+                               else cache[name][:, 1], alone[name][:, 0])
+                 for name in alone if name != "pos"})
     tol = 2e-2
     print(f"[model] {cfg.name}: prompt of {n} tokens in the wave padded to "
           f"{toks.shape[1]} against it prefilled alone on the card, rel_err "
@@ -1037,18 +1311,20 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens):
+def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, griffin_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
     ``shapes``. wkv's prefill is timed at the served rwkv6 run's prompt
-    lengths `prompt_lens`: its wave (the first SLOTS) and each of its
-    batch-1 refills. `counts` holds each kernel's launches in its path's
-    run (the serve runs, the GEMM path for the two GEMM kernels)."""
+    lengths `prompt_lens`: its wave (the first SLOTS) and each of its batch-1
+    refills; rglru's at the served recurrentgemma run's `griffin_lens`: its
+    wave and its longest refill. `counts` holds each kernel's launches in its
+    path's run (the serve runs, the GEMM path for the two GEMM kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+    from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
+    from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
     from repro_torch.kernels.wkv.ref import wkv_ref
     bf = torch.bfloat16
@@ -1119,9 +1395,36 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens):
         add("silu_mul", f"g,u(4096,{C}) bf16", lambda: KERNELS["silu_mul"](a, b),
             lambda: silu_mul_ref(a, b), None, 3 * 4096 * C * 2, 5 * 4096 * C, FP32_FLOPS)
 
-    # (heads, kv-heads, d_head) of qwen3, stablelm and gpt3
+    # gated GELU at recurrentgemma's MLP width: the prefill wave and the
+    # decode step, beside F.gelu(g) * u (two PyTorch kernels)
+    for R in (4096, SLOTS):
+        a, b = rnd((R, 7680), bf) * 3, rnd((R, 7680), bf)
+        add("gelu_mul", f"g,u({R},7680) bf16", lambda: KERNELS["gelu_mul"](a, b),
+            lambda: gelu_mul_ref(a, b), lambda: F.gelu(a, approximate="tanh") * b,
+            3 * R * 7680 * 2, 11 * R * 7680, FP32_FLOPS)
+
+    # the RG-LRU scan at the served recurrentgemma run's wave and longest
+    # refill, then the decode step in place. Data-dependent: the inputs of
+    # the live steps are counted (u and the gate 2 bytes, ga and gx 4), the
+    # output y (4 bytes) in full, about 20 fp32 operations a live element
+    d = 2560
+    for label, lens, h0 in (("the served wave", griffin_lens[:SLOTS], False),
+                            ("its longest refill", [max(griffin_lens[SLOTS:])], False),
+                            ("the decode step, h in place", [1] * SLOTS, True)):
+        B, T = len(lens), max(lens)
+        u, ga, gx, lam, gate, h = rglru_inputs(torch, rnd, B, T, d, h0)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        add("rglru", f"u,ga,gx,gate ({B},{T},{d}) lengths={lens}, {label}",
+            lambda: KERNELS["rglru"](u, ga, gx, lam, gate, h, lens_t, h_out=h),
+            lambda: rglru_ref(u, ga, gx, lam, gate, h, lens_t), None,
+            12 * sum(lens) * d + 4 * B * T * d + 4 * d + 4 * B * d * (2 if h0 else 1),
+            20 * sum(lens) * d, FP32_FLOPS, plain_iters=5)
+        del u, ga, gx, gate
+
+    # (heads, kv-heads, d_head) of qwen3, stablelm, gpt3 and recurrentgemma
+    # (whose window of 2048 reaches past every key at S = 512)
     B, S, T = SLOTS, 512, MAX_LEN
-    for Hq, Hkv, D in ((16, 8, 128), (32, 32, 64), (96, 96, 128)):
+    for Hq, Hkv, D in ((16, 8, 128), (32, 32, 64), (96, 96, 128), (10, 1, 256)):
         q, k, v = rnd((B, Hq, S, D), bf), rnd((B, Hkv, S, D), bf), rnd((B, Hkv, S, D), bf)
         pairs = S * (S + 1) // 2
         label = f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal bf16"
@@ -1141,6 +1444,22 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens):
             lambda: attention_ref(q, k, v, causal=True), sdpa, *work,
             mma_sync_ms=rows["flash_attention"]["shapes"][-1]["ms"])
         del q, k, v
+
+        if D == 256:   # the ring phase's prefill: one prompt, the window cuts
+            S1, W = RING_PROMPT, 2048
+            q, k, v = rnd((1, Hq, S1, D), bf), rnd((1, Hkv, S1, D), bf), rnd((1, Hkv, S1, D), bf)
+            pos = torch.arange(S1, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+            pairs_w = int(band.sum())
+            add("flash_attention_wgmma", f"q(1,{Hq},{S1},{D}) kv(1,{Hkv},{S1},{D}) causal "
+                f"window {W} bf16 (the ring phase's prefill)",
+                lambda: KERNELS["flash_attention_wgmma"](q, k, v, causal=True, window=W),
+                lambda: attention_ref(q, k, v, causal=True, window=W),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                       enable_gqa=True),
+                2 * (2 * Hq * S1 * D + 2 * Hkv * S1 * D), 4 * D * Hq * pairs_w,
+                BF16_TENSOR_FLOPS, plain_iters=5)
+            del q, k, v, band
 
         G = Hq // Hkv
         lens_list = decode_lengths(SLOTS, T)
@@ -1386,6 +1705,10 @@ def main():
           f"{json.dumps(counts)}")
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
+    # the ring phase against the CPU path: a wave of a prompt past the window
+    # and a shorter one also past it, RING_STEPS decode steps past the wrap
+    phase_model(torch, "recurrentgemma-2b", RING_LAYERS, RING_PROMPT, RING_STEPS,
+                short=RING_PROMPT - 204, T=RING_MAX_LEN)
     # the GEMM kernels' launches are those of their path; no model calls them
     gemm_kernels = ("matmul", "matmul_wgmma", "matmul_f32_tma", "matmul_reduce", "matmul_int8",
                     "matmul_int8_wgmma")
@@ -1396,7 +1719,7 @@ def main():
     errs.update(off_path_errs)   # the shapes TMA cannot take, off the path
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
-                        prompt_lens["rwkv6-7b"])
+                        prompt_lens["rwkv6-7b"], prompt_lens["recurrentgemma-2b"])
     for row in rows:
         if row["name"] in gemm_kernels:
             row["launches_in_serve_runs"] = counts[row["name"]]

@@ -2,7 +2,8 @@
 
 Only the configs the port runs are registered here: the rmsnorm/SwiGLU qwen
 family, stablelm (LayerNorm, partial RoPE), rwkv6-7b (attention-free RWKV6
-time and channel mix, LayerNorm) and, outside ``ARCHS`` as in the JAX
+time and channel mix, LayerNorm), recurrentgemma-2b (Griffin: RG-LRU layers
+and local-attention layers, a gated-GELU MLP) and, outside ``ARCHS`` as in the JAX
 registry, the paper's own gpt3-175b (LayerNorm, tanh-GELU MLP, sinusoidal
 positions).
 """
@@ -13,6 +14,7 @@ from .qwen2_0_5b import CONFIG as _qwen2
 from .stablelm_1_6b import CONFIG as _stablelm
 from .qwen3_1_7b import CONFIG as _qwen3
 from .rwkv6_7b import CONFIG as _rwkv6
+from .recurrentgemma_2b import CONFIG as _rgemma
 from .gpt3_175b import CONFIG as _gpt3
 
 ARCHS = {
@@ -21,6 +23,7 @@ ARCHS = {
     "stablelm-1.6b": _stablelm,
     "qwen3-1.7b": _qwen3,
     "rwkv6-7b": _rwkv6,
+    "recurrentgemma-2b": _rgemma,
 }
 
 # the paper's own model: selectable, but not one of the assigned archs

@@ -6,9 +6,10 @@ CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 """
 from .decode_attention.kernel import decode_attention_chunked_cuda, decode_attention_cuda
 from .flash_attention.kernel import flash_attention_cuda, flash_attention_wgmma_cuda
-from .gelu.kernel import gelu_cuda, silu_mul_triton
+from .gelu.kernel import gelu_cuda, gelu_mul_cuda, silu_mul_triton
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
+from .rglru.kernel import rglru_cuda
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 from .wkv.kernel import wkv_chunked_cuda, wkv_cuda
 
@@ -17,6 +18,7 @@ KERNELS = {
     "rmsnorm": rmsnorm_triton,
     "layernorm": layernorm_triton,
     "gelu": gelu_cuda,
+    "gelu_mul": gelu_mul_cuda,
     "silu_mul": silu_mul_triton,
     "flash_attention": flash_attention_cuda,
     "flash_attention_wgmma": flash_attention_wgmma_cuda,
@@ -24,6 +26,7 @@ KERNELS = {
     "decode_attention_chunked": decode_attention_chunked_cuda,
     "wkv": wkv_cuda,
     "wkv_chunked": wkv_chunked_cuda,
+    "rglru": rglru_cuda,
     "matmul": matmul_cuda,
     "matmul_wgmma": matmul_wgmma_cuda,
     "matmul_f32_tma": matmul_f32_tma_cuda,

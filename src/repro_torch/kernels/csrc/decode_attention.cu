@@ -47,8 +47,10 @@ struct KV {
 };
 
 // Partial results per (b, h, g, split): m, l and acc[D], fp32. GC query heads
-// per block: 2 for groups of at most 2 heads, else 8 (larger groups take more
-// blocks); a small GC leaves registers for more resident blocks.
+// per block: 2 for groups of at most 2 heads and at D = 256 (whose 8 query
+// and 8 sum registers a head would not leave room for 8 heads), else 8
+// (larger groups take more blocks); a small GC leaves registers for more
+// resident blocks.
 template <typename T, int D, int GC>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -198,12 +200,14 @@ cudaError_t launch_d(cudaStream_t st, const void* q, const void* k, const void* 
   float* part_m = part;
   float* part_l = part + rows * n_split;
   float* part_acc = part + 2 * rows * n_split;
-  if (G <= 2)
-    decode_partial<T, D, 2><<<dim3(n_split, Hkv, B), WARPS * 32, 0, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, part_m, part_l, part_acc, Hkv, G, 1,
-        n_split, split_len, ks, vs, softcap, scale);
+  // GC = 8 is not instantiated at D = 256
+  constexpr int GC_WIDE = D == 256 ? 2 : 8;
+  if (G <= 2 || D == 256)
+    decode_partial<T, D, 2><<<dim3(n_split, Hkv * ((G + 1) / 2), B), WARPS * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, lengths, part_m, part_l, part_acc, Hkv, G,
+        (G + 1) / 2, n_split, split_len, ks, vs, softcap, scale);
   else
-    decode_partial<T, D, 8><<<dim3(n_split, Hkv * ((G + 7) / 8), B), WARPS * 32, 0, st>>>(
+    decode_partial<T, D, GC_WIDE><<<dim3(n_split, Hkv * ((G + 7) / 8), B), WARPS * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, lengths, part_m, part_l, part_acc, Hkv, G,
         (G + 7) / 8, n_split, split_len, ks, vs, softcap, scale);
   cudaError_t err = cudaGetLastError();
@@ -226,6 +230,9 @@ cudaError_t launch(int D, cudaStream_t st, const void* q, const void* k, const v
                              ks, vs, softcap, scale);
     case 128:
       return launch_d<T, 128>(st, q, k, v, lengths, part, out, B, Hkv, G, n_split,
+                              split_len, ks, vs, softcap, scale);
+    case 256:
+      return launch_d<T, 256>(st, q, k, v, lengths, part, out, B, Hkv, G, n_split,
                               split_len, ks, vs, softcap, scale);
     default:
       return cudaErrorInvalidValue;

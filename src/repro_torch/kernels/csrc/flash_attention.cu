@@ -4,7 +4,8 @@
 // for the calls the TMA + wgmma kernel (flash_attention_sm90.cu) does not
 // take (kernels/flash_attention/kernel.py::wgmma_eligible decides before the
 // launch): fp32 inputs, bf16 at D = 32, and bf16 whose bases or strides a
-// TMA descriptor cannot describe. No served prefill reaches it.
+// TMA descriptor cannot describe; D = 32, 64, 128 or 256. No served prefill
+// reaches it.
 //
 // Computes, per (batch b, query head h, query row i):
 //   s_j = softcap(q_i . k_j / sqrt(D)) over keys j of kv-head h / G that pass
@@ -31,6 +32,10 @@
 //   tolerance: 32 rows per block, four threads per row splitting D
 //   (interleaved by float4 for conflict-free shared-memory reads) and
 //   combining partial dot products with warp shuffles.
+//   D = 256: the fp32 kernel stages 16 keys a tile (32 KB of K and V, inside
+//   the 48 KB of static shared memory), and the bf16 one reads its Q
+//   fragments from shared memory at each tile instead of keeping them in 64
+//   registers a thread beside the 128 of O.
 //
 // Bound on an H100: at the model's prefill shapes the bytes (q, k, v read
 // once, o written once) take longer at 3.35 TB/s than the bf16 operations at
@@ -72,8 +77,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
           Strides os, int causal, int window, float softcap, float scale) {
   constexpr int DPT = D / TPR;  // dimensions owned by one thread
   constexpr int NV = DPT / 4;   // float4 chunks per thread
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
+  constexpr int BKT = D == 256 ? 16 : BK;  // keys per tile: 2 BKT D floats of K and V
+  __shared__ __align__(16) float Ks[BKT][D];
+  __shared__ __align__(16) float Vs[BKT][D];
 
   const int tid = threadIdx.x;
   const int row = tid / TPR, part = tid % TPR;
@@ -96,13 +102,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   int k_end = Sk;
   if (causal) k_end = min(Sk, q0 + ROWS);  // last key any row of the block sees
   int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / BKT * BKT;
 
   const float* kbase = k + b * ks.b + hk * ks.h;
   const float* vbase = v + b * vs.b + hk * vs.h;
   float m = NEG_INF, l = 0.f;
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
+  for (int kt = k_begin; kt < k_end; kt += BKT) {
+    for (int idx = tid; idx < BKT * D; idx += THREADS) {
       const int j = idx / D, d = idx % D;
       const int kp = kt + j;
       float kx = 0.f, vx = 0.f;
@@ -115,10 +121,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[BK];
+    float s[BKT];
     float mt = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BKT; ++j) {
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < NV; ++c) {
@@ -143,7 +149,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BKT; ++j) {
       const float p = s[j] > 0.5f * NEG_INF ? expf(s[j] - m_new) : 0.f;
       s[j] = p;
       psum += p;
@@ -153,7 +159,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) acc[i] *= corr;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BKT; ++j) {
 #pragma unroll
       for (int c = 0; c < NV; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][16 * c + 4 * part]);
@@ -276,10 +282,14 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   load_rows<D, TC_ROWS>(sm.q, q + b * qs.b + h * qs.h, qs.s, q0, Sq, vec);
   __syncthreads();
-  uint32_t qa[KD][4];
+  // Q's A fragments: in registers up to D = 128, read again at each tile at 256
+  constexpr bool Q_REGS = D <= 128;
+  uint32_t qa[Q_REGS ? KD : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qa[kk], &sm.q[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(qa[kk], &sm.q[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+  }
 
   float acc[ND][4];
 #pragma unroll
@@ -302,13 +312,21 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // S = Q K^T: K rows are the column-major B operand as stored
     float s[NK][4];
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qf[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+      } else {
+        ldsm_x4(qf, &sm.q[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
         uint32_t b0, b1;
         ldsm_x2<false>(b0, b1, &sm.k[j * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16(s[j], qa[kk], b0, b1);
+        mma_bf16(s[j], qf, b0, b1);
       }
     }
 
@@ -432,6 +450,7 @@ cudaError_t launch_f32(int D, dim3 grid, cudaStream_t st, const void* q, const v
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -475,6 +494,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       break;
     case 128:
       err = launch_bf16<128>(grid, st, q, k, v, o, Sq, Sk, G, qs, ks, vs, os, causal,
+                             window, softcap, scale, vec);
+      break;
+    case 256:
+      err = launch_bf16<256>(grid, st, q, k, v, o, Sq, Sk, G, qs, ks, vs, os, causal,
                              window, softcap, scale, vec);
       break;
     default:

@@ -3,9 +3,10 @@
 // and O += P V on wgmma, S, P and O in registers.
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention_pallas
-// for bf16 q, k, v at D = 64 or 128 whose strides a TMA descriptor can
+// for bf16 q, k, v at D = 64, 128 or 256 whose strides a TMA descriptor can
 // describe (kernels/flash_attention/kernel.py::wgmma_eligible); the model's
-// prefill takes this path. Computes what flash_attention.cu computes, per
+// prefill takes this path (recurrentgemma's local attention at D = 256).
+// Computes what flash_attention.cu computes, per
 // (batch b, query head h, query row i):
 //   s_j = softcap(q_i . k_j / sqrt(D)) over keys j of kv-head h / G that pass
 //         the masks (j < Sk; causal: j <= i; window: j > i - window),
@@ -28,6 +29,16 @@
 // (B, S, H, D) tensors pass as transposed views without a copy; a 128-byte
 // swizzle row holds 64 of D, so D = 128 is two boxes. The TMA fills rows
 // past Sq and Sk with zeros.
+//
+// D = 256 (recurrentgemma-2b): key tiles of 64, not 128. Q for the two
+// consumers is 64 KB and two stages of K and V of 64 x 256 are 128 KB, 192
+// KB in all; tiles of 128 keys would need 256 KB for one stage of each. The
+// O accumulator of a consumer thread is 64 x 256 / 128 = 128 fp32 registers
+// (m64n256k16 for P V), S and P 32 and 16 more, inside setmaxnreg's 240. The
+// window's tiles: a work tile loads only the key tiles some of its rows see
+// (from the tile holding key q0 - window + 1), so tiles wholly left of the
+// window are skipped, never loaded; those it loads are masked only where
+// the window's edge cuts them.
 //
 //   S = Q K^T  SS wgmma m64n128k16: Q and K both K-major (D contiguous).
 //   O += P V   RS wgmma m64nDk16: the S accumulators, exponentiated and
@@ -70,19 +81,18 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE_M = 128;  // query rows of a work tile: two consumers of 64
-constexpr int TILE_N = 128;  // keys per K or V tile
 
 template <int D>
 struct FlashCfg {
   static constexpr int BM = TILE_M;
-  static constexpr int BN = TILE_N;
+  static constexpr int BN = D == 256 ? 64 : 128;  // keys per K or V tile
   static constexpr int STAGES = D == 64 ? 4 : 2;
   static constexpr int DB = D / 64;   // 64-wide blocks of D, one 128-byte swizzle row each
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // one stage of K, or of V
   static constexpr int THREADS = 384;
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (2 + 4 * STAGES) * 8 + 8;
-  static_assert(D == 64 || D == 128, "head dim");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -93,6 +103,19 @@ struct Strides {
 #define F8(i)                                                                               \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (64 x 64 keys) (+)= Q K^T: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 // S (64 x 128 keys) (+)= Q K^T: A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
@@ -123,6 +146,29 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a, uint
       "%60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 256) += P V: P from registers, V MN-major in shared memory (four
+// 64-wide blocks of D, LBO bytes apart)
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56), F8(64), F8(72),
+        F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -159,10 +205,11 @@ struct Work {
 
 // Work tile w of nqt x B Hq: (b, h) pairs in groups of `group` (whose K and V
 // stay in the L2 while the group runs), within a group the longest query
-// tiles (the causal ones nearest the end) first
+// tiles (the causal ones nearest the end) first; key tiles of BN
+template <int BN>
 __device__ __forceinline__ Work work_of(int w, int nqt, int B, int Hq, int group, int Sk,
                                         int causal, int window) {
-  constexpr int BM = TILE_M, BN = TILE_N;
+  constexpr int BM = TILE_M;
   const int bh = B * Hq, per_group = nqt * group;
   const int g0 = w / per_group * group, rows = min(bh - g0, group), r = w % per_group;
   const int pair = g0 + r % rows;
@@ -231,7 +278,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
           mbar_arrive(q_full);
           break;
         }
-        const Work t = work_of(w, nqt, B, Hq, group, Sk, causal, window);
+        const Work t = work_of<BN>(w, nqt, B, Hq, group, Sk, causal, window);
         const int hk = t.head / G;
         mbar_expect_tx(q_full, F::Q_BYTES);
 #pragma unroll
@@ -274,8 +321,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   const float scale2 = scale * LOG2E;
   const uint32_t qa = smem_addr(qs) + c * 64 * 128;
 
-  float acc[D / 2], s[64];
-  uint32_t p[32];
+  float acc[D / 2], s[BN / 2];
+  uint32_t p[BN / 4];
   // S of the key tile at kt into probabilities relative to the new row
   // maxima m; corr = exp(old max - new max), by which l here and O before
   // the tile's P V are scaled; l: this thread's share of the row sums
@@ -283,13 +330,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
                      float(&corr)[2]) {
     if (softcap > 0.f) {  // cap; then mask where the tile cuts a mask
 #pragma unroll
-      for (int idx = 0; idx < 64; ++idx) s[idx] = cap_raw * tanhf(s[idx] * cap_in);
+      for (int idx = 0; idx < BN / 2; ++idx) s[idx] = cap_raw * tanhf(s[idx] * cap_in);
     }
     const bool masked = (causal && kt + BN - 1 > r0) ||
                         (window > 0 && kt <= r0 + 63 - window) || kt + BN > Sk;
     if (masked) {
 #pragma unroll
-      for (int idx = 0; idx < 64; ++idx) {
+      for (int idx = 0; idx < BN / 2; ++idx) {
         const int key = kt + 8 * (idx >> 2) + col + (idx & 1);
         const int row = row_lo + 8 * ((idx >> 1) & 1);
         bool live = key < Sk;
@@ -300,7 +347,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     }
     float mt[2] = {m[0], m[1]}, ms[2];
 #pragma unroll
-    for (int idx = 0; idx < 64; ++idx) mt[(idx >> 1) & 1] = fmaxf(mt[(idx >> 1) & 1], s[idx]);
+    for (int idx = 0; idx < BN / 2; ++idx) mt[(idx >> 1) & 1] = fmaxf(mt[(idx >> 1) & 1], s[idx]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
@@ -312,7 +359,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
       ms[h] = m[h] > 0.5f * NEG_INF ? m[h] * scale2 : 0.f;
     }
 #pragma unroll
-    for (int idx = 0; idx < 64; ++idx) {
+    for (int idx = 0; idx < BN / 2; ++idx) {
       const int h = (idx >> 1) & 1;
       s[idx] = ex2(fmaf(s[idx], scale2, -ms[h]));
       l[h] += s[idx];
@@ -323,7 +370,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     mbar_wait(q_full, wi & 1);
     const int w = *work;
     if (w >= total) break;
-    const Work t = work_of(w, nqt, B, Hq, group, Sk, causal, window);
+    const Work t = work_of<BN>(w, nqt, B, Hq, group, Sk, causal, window);
     const int r0 = t.q0 + 64 * c;                    // this consumer's first row
     const int row_lo = r0 + 16 * warp + lane / 4;    // this thread's rows: row_lo, row_lo + 8
 #pragma unroll
@@ -359,7 +406,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
 #pragma unroll
       for (int idx = 0; idx < D / 2; ++idx) acc[idx] *= corr[(idx >> 1) & 1];
 #pragma unroll
-      for (int q = 0; q < 32; ++q) p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+      for (int q = 0; q < BN / 4; ++q) p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
 
       mbar_wait(&v_full[st], ph);
       const uint32_t vb = smem_addr(vs + st * F::KV_BYTES);
@@ -454,7 +501,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int* counter, i
 // aligned, strides multiples of 8 elements) and a unit stride along D; Sq,
 // Sk > 0. counter: two ints, 0 before the launch and 0 again after it (the
 // kernel resets them), not shared with a launch that may run at the same
-// time. Returns -1 for a D not compiled (64, 128), -2 if a TMA descriptor is
+// time. Returns -1 for a D not compiled (64, 128, 256), -2 if a TMA descriptor is
 // refused, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                         int* counter, int B, int Hq, int Hkv, int Sq, int Sk,
@@ -472,10 +519,16 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   if (D == 128)
     return launch<128>(q, k, v, o, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
                        scale, s);
+  if (D == 256)
+    return launch<256>(q, k, v, o, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
+                       scale, s);
   return -1;
 }
 
 // dynamic shared memory (bytes) of the kernel at head dim D, -1 if none
 extern "C" int flash_attention_sm90_smem(int D) {
-  return D == 64 ? FlashCfg<64>::SMEM : D == 128 ? FlashCfg<128>::SMEM : -1;
+  return D == 64    ? FlashCfg<64>::SMEM
+         : D == 128 ? FlashCfg<128>::SMEM
+         : D == 256 ? FlashCfg<256>::SMEM
+                    : -1;
 }

@@ -1,9 +1,9 @@
-// Tiled GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a), in three input
-// modes, always accumulating in fp32.
+// Tiled GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a), in four input
+// modes, always accumulating in fp32; C is written fp32, bf16 or fp16.
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas (a tiled matmul whose
 // fp32 accumulator is carried across k-blocks) for fp32 operands, and for
-// the bf16 and e4m3 operands the TMA kernel of matmul_sm90.cu cannot take:
+// the bf16, fp16 and e4m3 operands the TMA kernel of matmul_sm90.cu cannot take:
 // a base that is not 16-byte aligned or a row pitch that is not a multiple
 // of 16 bytes (K = 129 or 300 in bf16, N = 77, a view at an odd offset),
 // chosen before the launch by kernels/matmul/kernel.py::tma_eligible. That
@@ -12,6 +12,7 @@
 //   bf16  A (M,K) and B (K,N) row-major. mma.sync m16n8k16 bf16 with fp32
 //         accumulation; operands fetched from shared memory with ldmatrix,
 //         B transposed on the way (.trans).
+//   fp16  as bf16, on fp16 mma.sync.
 //   e4m3  A (M,K) row-major, B (K,N) column-major, i.e. stored (N,K). One
 //         byte per element is read; each value is widened to fp16 as its
 //         tile is stored in shared memory (exact) and multiplied by fp16
@@ -37,13 +38,14 @@
 // 73.8 ms).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_F32 = 2;
+constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_F32 = 2, MODE_F16 = 3;
 constexpr int GROUP_M = 8;  // tile rows per raster group
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -118,7 +120,7 @@ __device__ __forceinline__ uint4 load16(const uint8_t* base, long long ld, int r
 // store a loaded chunk at dst (16-bit elements): as it is, or widened from e4m3
 template <int MODE>
 __device__ __forceinline__ void stage16(uint16_t* dst, const uint4 v) {
-  if constexpr (MODE == MODE_BF16) {
+  if constexpr (MODE == MODE_BF16 || MODE == MODE_F16) {
     *reinterpret_cast<uint4*>(dst) = v;
   } else {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -133,11 +135,20 @@ __device__ __forceinline__ void stage16(uint16_t* dst, const uint4 v) {
   }
 }
 
-// c[idx], c[idx + 1] (columns col, col + 1 of a row), fp32 or bf16, skipping
-// columns >= N; `pair` when both may be written as one aligned store
-__device__ __forceinline__ void store2(void* C, int out_bf16, long long idx, int col, int N,
+// c[idx], c[idx + 1] (columns col, col + 1 of a row), fp32 (out 0), bf16
+// (out 1) or fp16 (out 2), skipping columns >= N; `pair` when both may be
+// written as one aligned store
+__device__ __forceinline__ void store2(void* C, int out, long long idx, int col, int N,
                                        float v0, float v1, bool pair) {
-  if (out_bf16) {
+  if (out == 2) {
+    __half* c = static_cast<__half*>(C) + idx;
+    if (pair && col + 1 < N) {
+      *reinterpret_cast<__half2*>(c) = __floats2half2_rn(v0, v1);
+    } else {
+      if (col < N) c[0] = __float2half_rn(v0);
+      if (col + 1 < N) c[1] = __float2half_rn(v1);
+    }
+  } else if (out == 1) {
     __nv_bfloat16* c = static_cast<__nv_bfloat16*>(C) + idx;
     if (pair && col + 1 < N) {
       *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(v0, v1);
@@ -165,13 +176,13 @@ struct Tc {
   static constexpr int WARPS_N = BN / WN;
   static constexpr int THREADS = (BM / WM) * WARPS_N * 32;
   static constexpr int MI = WM / 16, NI = WN / 8;
-  static constexpr bool B_KN = MODE == MODE_BF16;  // B staged [BK][BN], else [BN][BK]
+  static constexpr bool B_KN = MODE != MODE_E4M3;  // B staged [BK][BN], else [BN][BK]
   static constexpr int LDA = BK + 8;               // 16-bit elements; 16-byte pad
   static constexpr int LDB = B_KN ? BN + 8 : BK + 8;
   static constexpr int A_STAGE = BM * LDA;
   static constexpr int B_STAGE = (B_KN ? BK : BN) * LDB;
   static constexpr int SMEM = 2 * (A_STAGE + B_STAGE) * 2;  // bytes
-  static constexpr int ES = MODE == MODE_BF16 ? 2 : 1;      // bytes per element in memory
+  static constexpr int ES = MODE == MODE_E4M3 ? 1 : 2;      // bytes per element in memory
   static constexpr int CE = 16 / ES;                        // elements per 16-byte chunk
   static constexpr int A_CH = BM * BK / CE, B_CH = BK * BN / CE;
   static constexpr int A_PT = (A_CH + THREADS - 1) / THREADS;
@@ -184,7 +195,7 @@ struct Tc {
 template <int MODE, int BM, int BN, int BK, int WM, int WN>
 __global__ void __launch_bounds__(Tc<MODE, BM, BN, BK, WM, WN>::THREADS)
 gemm_tc(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B, void* __restrict__ C,
-        int M, int N, int K, int out_bf16, int vec_a, int vec_b) {
+        int M, int N, int K, int out_kind, int vec_a, int vec_b) {
   using T = Tc<MODE, BM, BN, BK, WM, WN>;
   constexpr int ES = T::ES, CE = T::CE;
   extern __shared__ __align__(16) uint16_t smem[];
@@ -327,7 +338,7 @@ gemm_tc(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B, void* __re
           v0 = acc[mi][ni][2 * h];
           v1 = acc[mi][ni][2 * h + 1];
         }
-        store2(C, out_bf16, (long long)row * N + col, col, N, v0, v1, pair);
+        store2(C, out_kind, (long long)row * N + col, col, N, v0, v1, pair);
       }
 }
 
@@ -352,7 +363,7 @@ __device__ __forceinline__ float4 load4(const float* base, long long ld, int row
 template <int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__(256)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ B, void* __restrict__ C, int M,
-         int N, int K, int out_bf16, int vec_a, int vec_b) {
+         int N, int K, int out_kind, int vec_a, int vec_b) {
   constexpr int TX = BN / TN, THREADS = 256;
   static_assert((BM / TM) * TX == THREADS && TN % 2 == 0, "thread tile");
   constexpr int LDA = BM + 4, LDB = BN + 4;  // As [BK][BM] (transposed), Bs [BK][BN]
@@ -444,7 +455,7 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ B, void* __restr
 #pragma unroll
     for (int j = 0; j < TN; j += 2) {
       const int col = n0 + tx * TN + j;
-      store2(C, out_bf16, (long long)row * N + col, col, N, acc[i][j], acc[i][j + 1], pair);
+      store2(C, out_kind, (long long)row * N + col, col, N, acc[i][j], acc[i][j + 1], pair);
     }
   }
 }
@@ -452,7 +463,7 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ B, void* __restr
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int MODE, int BM, int BN, int BK, int WM, int WN>
-int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, int out_kind,
               cudaStream_t stream) {
   using T = Tc<MODE, BM, BN, BK, WM, WN>;
   auto kernel = gemm_tc<MODE, BM, BN, BK, WM, WN>;
@@ -463,36 +474,37 @@ int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, int ou
   const int blocks = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   kernel<<<blocks, T::THREADS, T::SMEM, stream>>>(static_cast<const uint8_t*>(a),
                                                   static_cast<const uint8_t*>(b), c, M, N, K,
-                                                  out_bf16, vec_a, vec_b);
+                                                  out_kind, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int BK, int TM, int TN>
-int launch_f32(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+int launch_f32(const void* a, const void* b, void* c, int M, int N, int K, int out_kind,
                cudaStream_t stream) {
   const int vec_a = aligned16(a) && K % 4 == 0;
   const int vec_b = aligned16(b) && N % 4 == 0;
   const int blocks = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   gemm_f32<BM, BN, BK, TM, TN><<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), c, M, N, K, out_bf16, vec_a,
+      static_cast<const float*>(a), static_cast<const float*>(b), c, M, N, K, out_kind, vec_a,
       vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// mode: 0 bf16, 1 e4m3 (B stored (N,K)), 2 fp32. (bm, bk, bn) must be one of
+// mode: 0 bf16, 1 e4m3 (B stored (N,K)), 2 fp32, 3 fp16; out 0 fp32, 1
+// bf16, 2 fp16. (bm, bk, bn) must be one of
 // the compiled tiles (kernels/matmul/kernel.py::TILES); returns -1 otherwise,
 // else cudaGetLastError() after the launch.
 extern "C" int matmul_fwd(const void* a, const void* b, void* c, int mode, int M, int N, int K,
-                          int bm, int bk, int bn, int out_bf16, void* stream) {
+                          int bm, int bk, int bn, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TC_TILE(MODE, BM, BK, BN, WM, WN)            \
   if (mode == MODE && bm == BM && bk == BK && bn == BN) \
-    return launch_tc<MODE, BM, BN, BK, WM, WN>(a, b, c, M, N, K, out_bf16, s);
+    return launch_tc<MODE, BM, BN, BK, WM, WN>(a, b, c, M, N, K, out_kind, s);
 #define F32_TILE(BM, BK, BN, TM, TN)                      \
   if (mode == MODE_F32 && bm == BM && bk == BK && bn == BN) \
-    return launch_f32<BM, BN, BK, TM, TN>(a, b, c, M, N, K, out_bf16, s);
+    return launch_f32<BM, BN, BK, TM, TN>(a, b, c, M, N, K, out_kind, s);
   TC_TILE(MODE_BF16, 16, 64, 128, 16, 32)
   TC_TILE(MODE_BF16, 64, 32, 64, 32, 32)
   TC_TILE(MODE_BF16, 64, 64, 128, 32, 32)
@@ -501,6 +513,10 @@ extern "C" int matmul_fwd(const void* a, const void* b, void* c, int mode, int M
   TC_TILE(MODE_E4M3, 64, 32, 64, 32, 32)
   TC_TILE(MODE_E4M3, 64, 64, 128, 32, 32)
   TC_TILE(MODE_E4M3, 128, 32, 128, 64, 32)
+  TC_TILE(MODE_F16, 16, 64, 128, 16, 32)
+  TC_TILE(MODE_F16, 64, 32, 64, 32, 32)
+  TC_TILE(MODE_F16, 64, 64, 128, 32, 32)
+  TC_TILE(MODE_F16, 128, 32, 128, 64, 32)
   F32_TILE(16, 32, 64, 2, 2)
   F32_TILE(64, 16, 64, 4, 4)
   F32_TILE(128, 8, 128, 8, 8)

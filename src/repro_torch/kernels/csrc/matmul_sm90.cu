@@ -3,7 +3,7 @@
 // int8), or for fp32 operands by FFMAs on the CUDA cores.
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas (a tiled matmul whose
-// fp32 accumulator is carried across k-blocks) for bf16 and fp32 operands,
+// fp32 accumulator is carried across k-blocks) for bf16, fp16 and fp32 operands,
 // and the e4m3 operands repro/kernels/matmul/ops.py::matmul_fp8 runs through
 // it; and
 // repro/kernels/matmul/kernel.py::matmul_int8_pallas (int8 x int8 -> int32
@@ -12,6 +12,8 @@
 //   bf16  A (M,K) and B (K,N) row-major. wgmma m64n256k16 bf16, A K-major and
 //         B read MN-major through the descriptor's transpose bit (16-bit types
 //         allow it): no transposed copy of B is made.
+//   fp16  as bf16, on fp16 wgmma (m64n256k16.f32.f16.f16): the path the e4m3
+//         mode's widened operands take, without the widening.
 //   e4m3  A (M,K) row-major, B column-major, stored (N,K): one byte per
 //         element comes from device memory, as the TMA brings it. The
 //         consumers widen each B tile to fp16 in shared memory (exact:
@@ -114,6 +116,7 @@
 // the issue of FFMAs, not shared memory, is the limit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -121,16 +124,22 @@
 
 namespace {
 
-constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_E4M3_WIDE = 2, MODE_S8 = 3;
+constexpr int MODE_BF16 = 0, MODE_E4M3 = 1, MODE_E4M3_WIDE = 2, MODE_S8 = 3, MODE_F16 = 4;
 constexpr int GROUP_M = 8;  // tile rows per raster group
 
-// the entries' mode argument: 0 bf16, 1 e4m3 (any form), 2 int8
-constexpr int api_mode(int mode) { return mode == MODE_BF16 ? 0 : mode == MODE_S8 ? 2 : 1; }
+// the entries' mode argument: 0 bf16, 1 e4m3 (any form), 2 int8, 3 fp16
+__host__ __device__ constexpr int api_mode(int mode) {
+  return mode == MODE_BF16 ? 0 : mode == MODE_S8 ? 2 : mode == MODE_F16 ? 3 : 1;
+}
+// bf16 and fp16: the same 2-byte tiles and layouts, wgmma of their own type
+__host__ __device__ constexpr bool two_byte(int mode) {
+  return mode == MODE_BF16 || mode == MODE_F16;
+}
 
 template <int MODE, int CONS, int BN, int STAGES>
 struct Cfg {
   static constexpr int BM = 64 * CONS;
-  static constexpr int ES = MODE == MODE_BF16 ? 2 : 1;  // bytes per element in memory
+  static constexpr int ES = two_byte(MODE) ? 2 : 1;  // bytes per element in memory
   static constexpr int BK = 128 / ES;                   // one 128-byte swizzle row of K
   static constexpr int A_BYTES = BM * 128;
   static constexpr int B_BYTES = BN * 128;  // bf16: BK rows of BN; e4m3: BN rows of BK
@@ -142,12 +151,36 @@ struct Cfg {
   static constexpr int SMEM = 1024 + STAGES * STAGE + WIDE_BYTES + 2 * STAGES * 8;
   static constexpr int NACC = BN / 2;  // fp32 (s8: int32) sums per consumer thread
   static_assert(SMEM <= 232448, "shared memory");
-  static_assert(MODE == MODE_BF16 || MODE == MODE_S8 ? BN == 256 : BN == 128, "wgmma width");
+  static_assert(two_byte(MODE) || MODE == MODE_S8 ? BN == 256 : BN == 128, "wgmma width");
 };
 
 #define F8(i)                                                                               \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+
+#define WGMMA_N256_OUTS                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                      \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                            \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                            \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                            \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                            \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "                            \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "                            \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                            \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "                    \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "                 \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
+
+__device__ __forceinline__ void wgmma_f16_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" WGMMA_N256_OUTS
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
+        F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db,
                                                int scale_d) {
@@ -283,11 +316,20 @@ __device__ __forceinline__ void tile_of(int bid, int tiles_m, int tiles_n, int& 
   tn = in_group / rows;
 }
 
-// c[idx], c[idx + 1] (columns col, col + 1 of a row), fp32 or bf16, skipping
-// columns >= N; `pair` when both may be written as one aligned store
-__device__ __forceinline__ void store2(void* C, int out_bf16, long long idx, int col, int N,
+// c[idx], c[idx + 1] (columns col, col + 1 of a row), fp32 (out 0), bf16
+// (out 1) or fp16 (out 2), skipping columns >= N; `pair` when both may be
+// written as one aligned store
+__device__ __forceinline__ void store2(void* C, int out, long long idx, int col, int N,
                                        float v0, float v1, bool pair) {
-  if (out_bf16) {
+  if (out == 2) {
+    __half* c = static_cast<__half*>(C) + idx;
+    if (pair && col + 1 < N) {
+      *reinterpret_cast<__half2*>(c) = __floats2half2_rn(v0, v1);
+    } else {
+      if (col < N) c[0] = __float2half_rn(v0);
+      if (col + 1 < N) c[1] = __float2half_rn(v1);
+    }
+  } else if (out == 1) {
     __nv_bfloat16* c = static_cast<__nv_bfloat16*>(C) + idx;
     if (pair && col + 1 < N) {
       *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(v0, v1);
@@ -315,7 +357,7 @@ template <int MODE, int CONS, int BN, int STAGES, int PROMOTE>
 __global__ void __launch_bounds__(Cfg<MODE, CONS, BN, STAGES>::THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
           void* __restrict__ C, float* __restrict__ P, const float* __restrict__ sa,
-          const float* __restrict__ sb, int M, int N, int K, int out_bf16, int kt_per_split) {
+          const float* __restrict__ sb, int M, int N, int K, int out_kind, int kt_per_split) {
   using G = Cfg<MODE, CONS, BN, STAGES>;
   constexpr int BM = G::BM, BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -348,7 +390,7 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
         uint8_t* a = smem + s * G::STAGE;
         uint8_t* b = a + G::A_BYTES;
         tma_load(a, &map_a, kt * BK, tm * BM, &full[s]);
-        if constexpr (MODE == MODE_BF16) {
+        if constexpr (two_byte(MODE)) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)  // 64 columns of N by 64 rows of K each
             tma_load(b + j * 64 * 128, &map_b, tn * BN + j * 64, kt * BK, &full[s]);
@@ -432,12 +474,17 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
       mbar_wait(&full[s], (i / STAGES) & 1);
       const uint32_t a = smem_addr(smem + s * G::STAGE) + c * 64 * 128;
       const uint32_t b = smem_addr(smem + s * G::STAGE + G::A_BYTES);
-      if constexpr (MODE == MODE_BF16) {
+      if constexpr (two_byte(MODE)) {
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // k16 steps: 32 bytes along A's rows, 16 rows of B
-          wgmma_bf16_n256(acc, desc(a + kk * 32, 16, 1024),
-                          desc(b + kk * 2048, 64 * 128, 1024), 1);
+        for (int kk = 0; kk < 4; ++kk) {  // k16 steps: 32 bytes along A's rows, 16 rows of B
+          if constexpr (MODE == MODE_F16)
+            wgmma_f16_n256(acc, desc(a + kk * 32, 16, 1024), desc(b + kk * 2048, 64 * 128, 1024),
+                           1);
+          else
+            wgmma_bf16_n256(acc, desc(a + kk * 32, 16, 1024),
+                            desc(b + kk * 2048, 64 * 128, 1024), 1);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous k-tile's wgmmas are done: release its stage
         if (prev >= 0) mbar_arrive(&empty[prev]);
@@ -481,7 +528,7 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
   const int row0 = tm * BM + c * 64 + warp * 16 + lane / 4;
   const bool pair = (N & 1) == 0;
   void* out = P ? static_cast<void*>(P + static_cast<long long>(blockIdx.y) * M * N) : C;
-  const int bf = P ? 0 : out_bf16;
+  const int kind = P ? 0 : out_kind;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = tn * BN + 8 * j + 2 * (lane % 4);
@@ -496,7 +543,7 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
         v0 = v0 * s_row * sb[col];
         v1 = col + 1 < N ? v1 * s_row * sb[col + 1] : 0.f;
       }
-      store2(out, bf, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
+      store2(out, kind, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
     }
   }
 }
@@ -565,7 +612,7 @@ __device__ __forceinline__ float2 lds64(uint32_t addr) {
 template <int BM, int BN, int TM, int TN, int KG, int STAGES, int WG>
 __global__ void __launch_bounds__(F32<BM, BN, TM, TN, KG, STAGES, WG>::THREADS, 1)
 gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-              void* __restrict__ C, float* __restrict__ P, int M, int N, int K, int out_bf16,
+              void* __restrict__ C, float* __restrict__ P, int M, int N, int K, int out_kind,
               int kt_per_split) {
   using G = F32<BM, BN, TM, TN, KG, STAGES, WG>;
   constexpr int BK = G::BK;
@@ -652,7 +699,7 @@ gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
   }
 
   void* out = P ? static_cast<void*>(P + static_cast<long long>(blockIdx.y) * M * N) : C;
-  const int bf = P ? 0 : out_bf16;
+  const int kind = P ? 0 : out_kind;
   const bool pair = (N & 1) == 0;
   if constexpr (KG == 1) {
 #pragma unroll
@@ -663,8 +710,8 @@ gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
       for (int j = 0; j < TN / 4; ++j) {
         const int col = tn * BN + c0 + j * 4 * G::WCOLS;
         const long long idx = static_cast<long long>(row) * N + col;
-        store2(out, bf, idx, col, N, acc[r][4 * j], acc[r][4 * j + 1], pair);
-        store2(out, bf, idx + 2, col + 2, N, acc[r][4 * j + 2], acc[r][4 * j + 3], pair);
+        store2(out, kind, idx, col, N, acc[r][4 * j], acc[r][4 * j + 1], pair);
+        store2(out, kind, idx + 2, col + 2, N, acc[r][4 * j + 2], acc[r][4 * j + 3], pair);
       }
     }
   } else {
@@ -691,7 +738,7 @@ gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
         v0 += v.x;
         v1 += v.y;
       }
-      if (row < M) store2(out, bf, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
+      if (row < M) store2(out, kind, static_cast<long long>(row) * N + col, col, N, v0, v1, pair);
     }
   }
 }
@@ -699,7 +746,7 @@ gemm_f32_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
 // C = sum over the splits of P[s] (M*N fp32 each), in split order; with
 // scales, times sa[row] and then sb[col] (row-major C of N columns)
 __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C, long long MN,
-                              int splits, int out_bf16, const float* __restrict__ sa,
+                              int splits, int out_kind, const float* __restrict__ sa,
                               const float* __restrict__ sb, int N) {
   const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (i >= MN) return;
@@ -719,7 +766,9 @@ __global__ void splitk_reduce(const float* __restrict__ P, void* __restrict__ C,
   }
   for (int e = 0; e < n; ++e) {
     if (sa != nullptr) v[e] = v[e] * sa[(i + e) / N] * sb[(i + e) % N];
-    if (out_bf16)
+    if (out_kind == 2)
+      static_cast<__half*>(C)[i + e] = __float2half_rn(v[e]);
+    else if (out_kind == 1)
       static_cast<__nv_bfloat16*>(C)[i + e] = __float2bfloat16(v[e]);
     else
       static_cast<float*>(C)[i + e] = v[e];
@@ -743,7 +792,9 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the bf16, e4m3 and int8 tiles: the 128-byte swizzle the wgmma descriptors name
+// the bf16, fp16, e4m3 and int8 tiles: the 128-byte swizzle the wgmma
+// descriptors name (a 2-byte map is described as bf16 for fp16 too: the copy
+// moves bits, and nothing out of bounds is filled with a NaN)
 bool make_map_mma(CUtensorMap* map, const void* base, int es, long long rows, long long cols,
                   int box_cols, int box_rows) {
   return make_map(map, base,
@@ -753,11 +804,11 @@ bool make_map_mma(CUtensorMap* map, const void* base, int es, long long rows, lo
 
 template <int MODE, int CONS, int BN, int STAGES, int PROMOTE>
 int launch(const void* a, const void* b, void* c, float* p, const float* sa, const float* sb,
-           int M, int N, int K, int out_bf16, int kt_per_split, int splits, cudaStream_t stream) {
+           int M, int N, int K, int out_kind, int kt_per_split, int splits, cudaStream_t stream) {
   using G = Cfg<MODE, CONS, BN, STAGES>;
   CUtensorMap map_a, map_b;
   bool ok = make_map_mma(&map_a, a, G::ES, M, K, G::BK, G::BM);
-  if constexpr (MODE == MODE_BF16)
+  if constexpr (two_byte(MODE))
     ok = ok && make_map_mma(&map_b, b, 2, K, N, 64, G::BK);  // (K,N): 64 of N by BK of K
   else
     ok = ok && make_map_mma(&map_b, b, 1, N, K, G::BK, BN);  // (N,K): BK of K by BN of N
@@ -765,14 +816,14 @@ int launch(const void* a, const void* b, void* c, float* p, const float* sa, con
   auto kernel = gemm_sm90<MODE, CONS, BN, STAGES, PROMOTE>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const dim3 grid(((M + G::BM - 1) / G::BM) * ((N + BN - 1) / BN), splits);
-  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, sa, sb, M, N, K, out_bf16,
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, sa, sb, M, N, K, out_kind,
                                                 kt_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int TM, int TN, int KG, int STAGES, int WG>
 int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, int K,
-               int out_bf16, int kt_per_split, int splits, cudaStream_t stream) {
+               int out_kind, int kt_per_split, int splits, cudaStream_t stream) {
   using G = F32<BM, BN, TM, TN, KG, STAGES, WG>;
   CUtensorMap map_a, map_b;
   // A (M,K): 32 of K (128 bytes, swizzled) by BM rows; B (K,N): BN of N by 32 of K
@@ -784,7 +835,7 @@ int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, in
   auto kernel = gemm_f32_sm90<BM, BN, TM, TN, KG, STAGES, WG>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const dim3 grid(((M + BM - 1) / BM) * ((N + BN - 1) / BN), splits);
-  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, M, N, K, out_bf16,
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(map_a, map_b, c, p, M, N, K, out_kind,
                                                 kt_per_split);
   return static_cast<int>(cudaGetLastError());
 }
@@ -794,6 +845,8 @@ int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, in
 #define TILES_SM90                              \
   TILE(MODE_BF16, 0, 64, 64, 256, 5, 1)         \
   TILE(MODE_BF16, 0, 128, 64, 256, 4, 1)        \
+  TILE(MODE_F16, 0, 64, 64, 256, 5, 1)          \
+  TILE(MODE_F16, 0, 128, 64, 256, 4, 1)         \
   TILE(MODE_E4M3_WIDE, 0, 64, 128, 128, 6, 1)   \
   TILE(MODE_E4M3_WIDE, 0, 128, 128, 128, 5, 1)  \
   TILE(MODE_E4M3, 1, 64, 128, 128, 8, 4)        \
@@ -811,7 +864,8 @@ int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, in
 
 }  // namespace
 
-// mode 0 bf16, 1 e4m3 (B stored (N,K)); e4m3_form 0 widened to fp16, 1
+// mode 0 bf16, 1 e4m3 (B stored (N,K)), 3 fp16; out_kind 0 fp32, 1 bf16, 2
+// fp16; e4m3_form 0 widened to fp16, 1
 // native with a promotion every 128 of K, 2 native with one every 32.
 // (bm, bk, bn) must be a compiled tile (kernels/matmul/kernel.py::TILES) and
 // the operands TMA-describable (kernel.py::tma_eligible). p null: C gets the
@@ -821,13 +875,13 @@ int launch_f32(const void* a, const void* b, void* c, float* p, int M, int N, in
 // cudaGetLastError() after the launch.
 extern "C" int matmul_sm90_fwd(const void* a, const void* b, void* c, float* p, int mode,
                                int e4m3_form, int M, int N, int K, int bm, int bk, int bn,
-                               int kt_per_split, int splits, int out_bf16, void* stream) {
+                               int kt_per_split, int splits, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
   if (MODE_ != MODE_S8 && mode == api_mode(MODE_) &&                                     \
-      (MODE_ == MODE_BF16 || e4m3_form == FORM) && bm == BM && bk == BK && bn == BN)     \
+      (two_byte(MODE_) || e4m3_form == FORM) && bm == BM && bk == BK && bn == BN)         \
     return launch<MODE_, BM / 64, BN, STAGES, PROMOTE>(a, b, c, p, nullptr, nullptr, M, N, \
-                                                       K, out_bf16, kt_per_split, splits, s);
+                                                       K, out_kind, kt_per_split, splits, s);
   TILES_SM90
 #undef TILE
   return -1;
@@ -857,11 +911,11 @@ extern "C" int matmul_sm90_s8_fwd(const void* a, const void* b, const float* sa,
 // as matmul_sm90_fwd's. Returns as matmul_sm90_fwd.
 extern "C" int matmul_sm90_f32_fwd(const void* a, const void* b, void* c, float* p, int M,
                                    int N, int K, int bm, int bk, int bn, int kt_per_split,
-                                   int splits, int out_bf16, void* stream) {
+                                   int splits, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F32_TILE(BM, BN, TM, TN, KG, STAGES, WG)                                  \
   if (bm == BM && bk == 32 && bn == BN)                                           \
-    return launch_f32<BM, BN, TM, TN, KG, STAGES, WG>(a, b, c, p, M, N, K, out_bf16, \
+    return launch_f32<BM, BN, TM, TN, KG, STAGES, WG>(a, b, c, p, M, N, K, out_kind, \
                                                       kt_per_split, splits, s);
   F32_TILES_SM90
 #undef F32_TILE
@@ -869,10 +923,10 @@ extern "C" int matmul_sm90_f32_fwd(const void* a, const void* b, void* c, float*
 }
 
 // dynamic shared memory (bytes) of a compiled tile's kernel, -1 if none;
-// mode 0 bf16, 1 e4m3, 2 int8, 3 fp32
+// mode 0 bf16, 1 e4m3, 2 int8, 3 fp16, 4 fp32
 extern "C" int matmul_sm90_smem(int mode, int e4m3_form, int bm, int bk, int bn) {
 #define F32_TILE(BM, BN, TM, TN, KG, STAGES, WG) \
-  if (mode == 3 && bm == BM && bk == 32 && bn == BN) return F32<BM, BN, TM, TN, KG, STAGES, WG>::SMEM;
+  if (mode == 4 && bm == BM && bk == 32 && bn == BN) return F32<BM, BN, TM, TN, KG, STAGES, WG>::SMEM;
   F32_TILES_SM90
 #undef F32_TILE
 #define TILE(MODE_, FORM, BM, BK, BN, STAGES, PROMOTE)                                  \
@@ -889,10 +943,10 @@ extern "C" int matmul_sm90_smem(int mode, int e4m3_form, int bm, int bk, int bn)
 // with scales (sa, sb not null; c row-major of N columns), times sa[row]
 // and then sb[col]
 extern "C" int matmul_sm90_reduce(const float* p, void* c, long long MN, int splits,
-                                  int out_bf16, const float* sa, const float* sb, int N,
+                                  int out_kind, const float* sa, const float* sb, int N,
                                   void* stream) {
   const long long threads = (MN + 3) / 4;
   splitk_reduce<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(p, c, MN, splits, out_bf16, sa, sb, N);
+                  static_cast<cudaStream_t>(stream)>>>(p, c, MN, splits, out_kind, sa, sb, N);
   return static_cast<int>(cudaGetLastError());
 }

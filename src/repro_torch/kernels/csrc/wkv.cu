@@ -45,12 +45,19 @@
 // Occupancy is low at the served shapes (512 blocks of 2 warps, about 4 per
 // SM); the chunked-parallel form with tensor-core products within a chunk is
 // the known next step.
+//
+// N = 128 (no served model; every call at that head size, any T, runs
+// here, since wkv_chunked.cu's layout stops at 64): a thread keeps its
+// column of 128 state values in registers, and a chunk stages 16 steps, so
+// the four staged inputs take 32 KB of the 48 KB of static shared memory.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int CH = 32;  // time steps staged in shared memory at a time
+// time steps staged in shared memory at a time: 4 CH N floats
+template <int N>
+__host__ __device__ constexpr int chunk_steps() { return N == 128 ? 16 : 32; }
 
 struct Strides {
   long long b, t, h;  // element strides of a (B, T, H, N) input; N contiguous
@@ -63,6 +70,7 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ u, const float* state0,
                const int* __restrict__ lengths, float* __restrict__ out, float* state_out,
                int T, int H, Strides sr, Strides sk, Strides sv, Strides sw) {
+  constexpr int CH = chunk_steps<N>();
   static_assert(N >= CH, "a thread computes each staged step's bonus dot");
   __shared__ __align__(16) float s_r[CH][N];
   __shared__ __align__(16) float s_k[CH][N];
@@ -156,7 +164,7 @@ cudaError_t launch(cudaStream_t st, const float* r, const float* k, const float*
 // contiguous last axis; u: (H, N) fp32 contiguous; state0: (B, H, N, N) fp32
 // contiguous, or null for a zero state; lengths: (B,) int32, or null for T
 // steps everywhere; out: (B, T, H, N) fp32 contiguous; state_out: (B, H, N, N)
-// fp32 contiguous, which may be state0 (updated in place). N in {32, 64}.
+// fp32 contiguous, which may be state0 (updated in place). N in {32, 64, 128}.
 // Returns cudaGetLastError().
 extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const void* w,
                        const void* u, const void* state0, const void* lengths, void* out,
@@ -179,6 +187,9 @@ extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const void* 
       break;
     case 64:
       err = launch<64>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, B, T, H, sr, sk, sv, sw);
+      break;
+    case 128:
+      err = launch<128>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, B, T, H, sr, sk, sv, sw);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -9,15 +9,19 @@
   takes this path;
 - ``decode_attention_cuda`` (``csrc/decode_attention.cu``): everything else
   the card computes: fp32, and bf16 whose bases or strides are off 16 bytes
-  (a split of the cache length T over blocks, then a merge kernel).
+  (a split of the cache length T over blocks, then a merge kernel), at D =
+  32, 64, 128 or 256.
 
 ``decode_cuda`` picks between the two by ``chunked_eligible``, before the
-launch. The source files carry the kernels' design notes and their bounds on
-an H100. Each wrapper checks what its kernel takes, allocates the output and
-the fp32 scratch of the partial softmax states (sized from T, never from the
-lengths, which stay on the device), launches on the current stream and
-counts its own launches. K and V come in the fused cache's (B, T, Hkv, D)
-layout with any batch, time and head strides.
+launch. A head dim between the kernels' (up to 256) runs at the next one up
+(``kernel_head_dim``): q, k and v zero-padded along D, the true D's
+``1/sqrt(D)`` passed as the scale, the output sliced back, which is exact. The
+source files carry the kernels' design notes and their bounds on an H100. Each
+wrapper checks what its kernel takes, allocates the output and the fp32
+scratch of the partial softmax states (sized from T, never from the lengths,
+which stay on the device), launches on the current stream and counts its own
+launches. K and V come in the fused cache's (B, T, Hkv, D) layout with any
+batch, time and head strides.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ import torch
 
 from .. import _build
 
-HEAD_DIMS = (32, 64, 128)
-#: head dims of the chunked kernel (256 among them)
+HEAD_DIMS = (32, 64, 128, 256)
+#: head dims of the chunked kernel
 CHUNKED_HEAD_DIMS = (32, 64, 128, 256)
 MIN_SPLIT_LEN = 64  # keys per split at the least (the split kernel)
 BLOCKS_PER_SM = 4   # split the cache length until this many blocks run
@@ -63,6 +67,15 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """The chunked kernel's n merge counters for launches on `stream`: zero
     before each launch, and reset to zero by the launch itself."""
     return torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim of ``HEAD_DIMS`` a call at D runs at: the least one at
+    or above D. Above 256 raises."""
+    for k in HEAD_DIMS:
+        if D <= k:
+            return k
+    raise ValueError(f"decode attention kernels take D up to {HEAD_DIMS[-1]}, got {D}")
 
 
 def chunk_keys(D: int) -> int:
@@ -126,12 +139,13 @@ def chunked_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                  lengths: torch.Tensor, *,
-                                  softcap: float = 0.0) -> torch.Tensor:
+                                  lengths: torch.Tensor, *, softcap: float = 0.0,
+                                  scale: float | None = None) -> torch.Tensor:
     """q: (B, Hkv, G, D); k, v: (B, T, Hkv, D); lengths: (B,) int32; bf16 on
     one CUDA device, which ``chunked_eligible`` must accept (a call it
     refuses raises: ``decode_cuda`` sends it to ``decode_attention_cuda``).
-    One launch; nothing is read back to the host. Returns (B, Hkv, G, D)."""
+    The logits are q.k times `scale` (1/sqrt(D) by default). One launch;
+    nothing is read back to the host. Returns (B, Hkv, G, D)."""
     _check("decode_attention_chunked", q, k, v, lengths, (torch.bfloat16,),
            CHUNKED_HEAD_DIMS)
     if not chunked_eligible(q, k, v):
@@ -150,7 +164,7 @@ def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
         _tickets(dev, stream, B * Hkv * G).data_ptr(), out.data_ptr(), B, T, Hkv, G, D,
         max_chunks(T, D), k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-        v.stride(2), float(softcap), 1.0 / math.sqrt(D), stream)
+        v.stride(2), float(softcap), 1.0 / math.sqrt(D) if scale is None else scale, stream)
     _build.check(err, "decode_attention_chunked_fwd")
     decode_attention_chunked_cuda.launches += 1
     return out
@@ -159,10 +173,10 @@ def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 decode_attention_chunked_cuda.launches = 0
 
 
-def n_splits(device: torch.device, B: int, Hkv: int, G: int, T: int) -> int:
+def n_splits(device: torch.device, B: int, Hkv: int, G: int, T: int, D: int = 128) -> int:
     """Splits of the cache length for the split kernel: enough blocks for
     BLOCKS_PER_SM per SM, but no split shorter than MIN_SPLIT_LEN keys."""
-    group_chunk = 2 if G <= 2 else 8        # heads per block, as in the source
+    group_chunk = 2 if G <= 2 or D == 256 else 8   # heads per block, as in the source
     blocks = B * Hkv * -(-G // group_chunk)
     index = device.index if device.index is not None else torch.cuda.current_device()
     want = -(-BLOCKS_PER_SM * _sm_count(index) // blocks)
@@ -170,11 +184,12 @@ def n_splits(device: torch.device, B: int, Hkv: int, G: int, T: int) -> int:
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lengths: torch.Tensor, *,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          lengths: torch.Tensor, *, softcap: float = 0.0,
+                          scale: float | None = None) -> torch.Tensor:
     """q: (B, Hkv, G, D) contiguous; k, v: (B, T, Hkv, D) with unit stride
     along D; lengths: (B,) int32; all on one CUDA device, q/k/v bf16 or
-    fp32, D in (32, 64, 128). Returns (B, Hkv, G, D)."""
+    fp32, D in ``HEAD_DIMS``; the logits are q.k times `scale` (1/sqrt(D) by
+    default). Returns (B, Hkv, G, D)."""
     _check("decode attention", q, k, v, lengths, (torch.bfloat16, torch.float32), HEAD_DIMS)
     B, Hkv, G, D = q.shape
     T = k.shape[1]
@@ -183,7 +198,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    n_split = n_splits(dev, B, Hkv, G, T)
+    n_split = n_splits(dev, B, Hkv, G, T, D)
     split_len = -(-T // n_split)
     part = torch.empty(B * Hkv * G * n_split * (D + 2), dtype=torch.float32,
                        device=dev)
@@ -191,7 +206,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), B, Hkv, G, D, n_split, split_len,
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        float(softcap), 1.0 / math.sqrt(D), torch.cuda.current_stream(dev).cuda_stream)
+        float(softcap), 1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_attention_fwd")
     decode_attention_cuda.launches += 1
     return out
@@ -204,7 +220,14 @@ def decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torc
                 softcap: float = 0.0) -> torch.Tensor:
     """The op's decode attention on the card: calls ``chunked_eligible``
     accepts go to ``decode_attention_chunked_cuda``, all others to
-    ``decode_attention_cuda``."""
+    ``decode_attention_cuda``; a head dim between the kernels' runs
+    zero-padded to ``kernel_head_dim`` at its own scale, the output sliced
+    back."""
+    D = q.shape[-1]
+    Dk = kernel_head_dim(D)
+    if Dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     kernel = decode_attention_chunked_cuda if chunked_eligible(q, k, v) \
         else decode_attention_cuda
-    return kernel(q, k, v, lengths, softcap=softcap)
+    o = kernel(q, k, v, lengths, softcap=softcap, scale=1.0 / math.sqrt(D))
+    return o if Dk == D else o[..., :D].contiguous()

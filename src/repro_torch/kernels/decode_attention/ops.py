@@ -15,10 +15,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hkv, G, D); k, v: (B, T, Hkv, D); lengths: (B,) int32.
 
-    The card refuses, with ``ValueError``, what no kernel takes and the
-    plain version computes on the CPU: a head dim outside (32, 64, 128,
-    256) (bf16; fp32 outside (32, 64, 128)), and dtypes other than bf16 and
-    fp32."""
+    A head dim between 32, 64, 128 and 256 runs on the card zero-padded to
+    the next of them, which is exact. The card refuses, with ``ValueError``,
+    what no kernel takes and the plain version computes on the CPU: a head
+    dim above 256, and dtypes other than bf16 and fp32."""
     if runs_plain(q):
         return decode_attention_ref(q, k, v, lengths, softcap)
     return decode_cuda(q, k, v, lengths, softcap=softcap)

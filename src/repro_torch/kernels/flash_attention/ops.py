@@ -14,12 +14,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
 
-    On the card bf16 at D = 64 or 128 with TMA-describable strides runs on
-    the TMA + wgmma kernel, every other bf16 or fp32 call at D = 32, 64 or
-    128 on the mma.sync / fp32 kernel (``kernel.attention_cuda``). The card
-    refuses, with ``ValueError``, what neither kernel takes and the plain
-    version computes on the CPU: a head dim outside (32, 64, 128) (256
-    among them), and dtypes other than bf16 and fp32."""
+    On the card bf16 at D = 64, 128 or 256 with TMA-describable strides
+    runs on the TMA + wgmma kernel, every other bf16 or fp32 call on the
+    mma.sync / fp32 kernel (``kernel.attention_cuda``); a head dim between
+    32, 64, 128 and 256 runs zero-padded to the next of them, which is
+    exact. The card refuses, with ``ValueError``, what neither kernel takes
+    and the plain version computes on the CPU: a head dim above 256, and
+    dtypes other than bf16 and fp32."""
     if runs_plain(q):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)

@@ -1,5 +1,5 @@
-"""tanh-GELU as a CUDA C++ kernel and the SwiGLU gate ``silu(g) * u`` as a
-Triton kernel, for Hopper.
+"""tanh-GELU and the gated-GELU product ``gelu(g) * u`` as a CUDA C++ kernel
+and the SwiGLU gate ``silu(g) * u`` as a Triton kernel, for Hopper.
 
 Replace ``repro/kernels/gelu/kernel.py::gelu_pallas`` and
 ``::silu_mul_pallas``, elementwise, computed in fp32 and rounded once to the
@@ -14,6 +14,10 @@ input dtype:
     fp32. ``gelu_cuda`` (``csrc/gelu.cu``, whose note gives its design) is
     the kernel; ``gelu_triton``, the Triton kernel it replaced, stays only
     to be timed beside it.
+  * gated GELU ``gelu(g) * u`` (``gelu_mul_cuda``, the gated mode of
+    ``csrc/gelu.cu``): recurrentgemma's MLP, which the JAX model computes
+    with ``jax.nn.gelu`` outside any Pallas kernel
+    (``repro/models/layers.py::mlp_apply``).
   * SwiGLU ``g * sigmoid(g) * u`` (``silu_mul_triton``).
 
 Bound on an H100: bytes. GELU reads and writes each element once with about
@@ -111,6 +115,34 @@ def gelu_cuda(x: torch.Tensor) -> torch.Tensor:
 
 
 gelu_cuda.launches = 0
+
+
+@functools.cache
+def _gelu_mul_entry():
+    fn = _build.load("gelu").gelu_mul_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gelu_mul_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """gelu(g) * u in fp32, one rounding: g, u contiguous CUDA tensors of one
+    shape and dtype (bf16 or fp32). One launch of ``csrc/gelu.cu``'s gated
+    mode."""
+    _check_elementwise("gelu_mul", g, u)
+    out = torch.empty_like(g)
+    n = g.numel()
+    if n == 0:
+        return out
+    err = _gelu_mul_entry()(g.data_ptr(), u.data_ptr(), out.data_ptr(), n,
+                            int(g.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "gelu_mul_fwd")
+    gelu_mul_cuda.launches += 1
+    return out
+
+
+gelu_mul_cuda.launches = 0
 
 
 def gelu_triton(x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,15 @@
 """Wrappers of the CUDA C++ GEMM kernels, which replace
 ``repro/kernels/matmul/kernel.py::matmul_pallas`` and ``::matmul_int8_pallas``:
 
-- ``matmul_wgmma_cuda`` (``csrc/matmul_sm90.cu``): bf16 and e4m3 operands
-  that a TMA descriptor can describe (``tma_eligible``), a TMA ring feeding
+- ``matmul_wgmma_cuda`` (``csrc/matmul_sm90.cu``): bf16, fp16 and e4m3
+  operands that a TMA descriptor can describe (``tma_eligible``), a TMA ring feeding
   wgmma; where the output tiles are too few for the card, K is split
   (``split_plan``) and ``matmul_reduce_cuda`` sums the fp32 partials;
 - ``matmul_f32_tma_cuda`` (``csrc/matmul_sm90.cu``, its fp32 mode): fp32
   operands that a TMA descriptor can describe, the same TMA ring feeding
   IEEE FFMAs on the CUDA cores (never TF32), K split as for wgmma;
 - ``matmul_cuda`` (``csrc/matmul.cu``): the fp32 operands the TMA cannot
-  describe (SIMT FMAs), and the bf16 and e4m3 ones (mma.sync);
+  describe (SIMT FMAs), and the bf16, fp16 and e4m3 ones (mma.sync);
 - ``matmul_int8_wgmma_cuda`` (``csrc/matmul_sm90.cu``, its int8 mode): int8
   operands that a TMA descriptor can describe, s8 wgmma on the same TMA
   ring, exact int32 sums, the scales fused into the store; K is split where
@@ -19,7 +19,8 @@
 - ``matmul_int8_cuda`` (``csrc/matmul_int8.cu``): the int8 operands the TMA
   cannot describe (mma.sync).
 
-``gemm_cuda`` picks between the bf16/e4m3/fp32 paths and ``int8_gemm_cuda``
+Outputs are fp32, bf16 or fp16 (``OUT_KINDS``). ``gemm_cuda`` picks between
+the bf16/fp16/e4m3/fp32 paths and ``int8_gemm_cuda``
 between the int8 ones by ``tma_eligible``, before the launch. The source
 files carry the kernels' design notes and their bounds on an H100. Each
 wrapper checks what its kernel takes, allocates the output and launches on
@@ -41,19 +42,23 @@ from .. import _build
 #: TMA ring kernel's (wgmma for bf16, e4m3 and int8; FFMAs for fp32)
 TILES = {
     torch.bfloat16: ((64, 64, 256), (128, 64, 256)),
+    torch.float16: ((64, 64, 256), (128, 64, 256)),
     torch.float8_e4m3fn: ((64, 128, 128), (128, 128, 128)),
     torch.float32: ((8, 32, 128), (256, 32, 128)),
     torch.int8: ((64, 128, 256), (128, 128, 256)),
 }
 #: the SIMT kernel's tiles, for fp32 operands TMA cannot describe
 SIMT_TILES = ((16, 32, 64), (64, 16, 64), (128, 8, 128))
-#: the mma.sync kernel's tiles, for bf16 and e4m3 operands TMA cannot describe
+#: the mma.sync kernel's tiles, for bf16, fp16 and e4m3 operands TMA cannot describe
 MMA_SYNC_TILES = ((16, 64, 128), (64, 32, 64), (64, 64, 128), (128, 32, 128))
 #: the int8 mma.sync kernel's tiles, for int8 operands TMA cannot describe
 INT8_MMA_SYNC_TILES = ((16, 128, 128), (64, 64, 64), (64, 128, 128), (128, 64, 128))
-_MODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float32: 2}
-_TMA = (torch.bfloat16, torch.float8_e4m3fn, torch.int8, torch.float32)
-_OUT = (torch.float32, torch.bfloat16)
+_MODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float32: 2, torch.float16: 3}
+_TMA = (torch.bfloat16, torch.float16, torch.float8_e4m3fn, torch.int8, torch.float32)
+#: the output dtypes, by the kernels' out_kind argument
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_OUT = tuple(OUT_KINDS)
+_ROW_MAJOR_B = (torch.bfloat16, torch.float16, torch.float32)
 #: how the wgmma kernel multiplies e4m3 operands: widened to fp16 in shared
 #: memory ("widened"), or native e4m3 wgmma with a promotion into fp32
 #: registers every 128 ("native/128") or every 32 ("native/32") of K
@@ -93,14 +98,14 @@ def select_tile(dtype: torch.dtype, bm: int, bk: int, bn: int, tiles=None) -> tu
 
 def tma_eligible(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int = 0,
                  b_ptr: int = 0) -> bool:
-    """Whether the TMA ring kernel takes an (m,k) @ (k,n) GEMM: bf16 or fp32
-    (A and B row-major) or e4m3 or int8 (A row-major, B stored (n,k))
+    """Whether the TMA ring kernel takes an (m,k) @ (k,n) GEMM: bf16, fp16 or
+    fp32 (A and B row-major) or e4m3 or int8 (A row-major, B stored (n,k))
     operands whose bases (``data_ptr()``) are 16-byte aligned and whose row
     pitches are multiples of 16 bytes, as a TMA descriptor needs."""
     if dtype not in _TMA:
         return False
     es = dtype.itemsize
-    pitches = (es * k, es * n) if dtype in (torch.bfloat16, torch.float32) else (k, k)
+    pitches = (es * k, es * n) if dtype in _ROW_MAJOR_B else (k, k)
     return all(x % 16 == 0 for x in (a_ptr, b_ptr, *pitches))
 
 
@@ -173,19 +178,19 @@ def _launched(err: int, what: str, tile) -> None:
 
 
 def _check_operands(what, a, b, out_dtype):
-    """Checks common to the two bf16/e4m3/fp32 GEMM kernels; returns the
+    """Checks common to the two bf16/fp16/e4m3/fp32 GEMM kernels; returns the
     output dtype (a's by default)."""
     _check_shapes(what, a, b)
     if a.dtype not in _MODES or b.dtype != a.dtype:
-        raise ValueError(f"{what} kernel takes bf16, fp32 or e4m3 operands of one dtype, "
-                         f"got {a.dtype}, {b.dtype}")
+        raise ValueError(f"{what} kernel takes bf16, fp16, fp32 or e4m3 operands of one "
+                         f"dtype, got {a.dtype}, {b.dtype}")
     out_dtype = out_dtype or a.dtype
     if out_dtype not in _OUT:
-        raise ValueError(f"{what} kernel writes fp32 or bf16, not {out_dtype}")
+        raise ValueError(f"{what} kernel writes fp32, bf16 or fp16, not {out_dtype}")
     b_ok = b.t().is_contiguous() if a.dtype == torch.float8_e4m3fn else b.is_contiguous()
     if not a.is_contiguous() or not b_ok:
-        raise ValueError(f"{what} kernel takes a row-major a, and b row-major (bf16, fp32) "
-                         "or column-major (e4m3)")
+        raise ValueError(f"{what} kernel takes a row-major a, and b row-major (bf16, fp16, "
+                         "fp32) or column-major (e4m3)")
     return out_dtype
 
 
@@ -193,11 +198,11 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 32
                 bn: int = 128, out_dtype=None) -> torch.Tensor:
     """C (M,N) = a (M,K) @ b (K,N) with an fp32 accumulator on the mma.sync /
     SIMT kernel of ``csrc/matmul.cu``, on one CUDA device. a and b of one
-    dtype: bf16 or fp32 with both row-major (contiguous), or e4m3
+    dtype: bf16, fp16 or fp32 with both row-major (contiguous), or e4m3
     (``torch.float8_e4m3fn``) with a row-major and b column-major (``b.t()``
-    contiguous). Output in ``out_dtype`` (fp32 or bf16; a's dtype by default,
-    which e4m3 operands must override). The tile is one of ``SIMT_TILES``
-    for fp32, of ``MMA_SYNC_TILES`` for bf16 and e4m3."""
+    contiguous). Output in ``out_dtype`` (fp32, bf16 or fp16; a's dtype by
+    default, which e4m3 operands must override). The tile is one of
+    ``SIMT_TILES`` for fp32, of ``MMA_SYNC_TILES`` for bf16, fp16 and e4m3."""
     out_dtype = _check_operands("matmul", a, b, out_dtype)
     tile, tiles = (bm, bk, bn), SIMT_TILES if a.dtype == torch.float32 else MMA_SYNC_TILES
     if tile not in tiles:
@@ -210,7 +215,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 32
     if K == 0:
         return c.zero_()
     err = _entry("matmul_fwd")(a.data_ptr(), b.data_ptr(), c.data_ptr(), _MODES[a.dtype], M, N,
-                               K, bm, bk, bn, int(out_dtype == torch.bfloat16),
+                               K, bm, bk, bn, OUT_KINDS[out_dtype],
                                torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_fwd", tile)
     matmul_cuda.launches += 1
@@ -224,8 +229,8 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
                       bn: int = 256, out_dtype=None, e4m3_form: str | None = None
                       ) -> torch.Tensor:
     """C (M,N) = a (M,K) @ b (K,N) with fp32 sums on the TMA + wgmma kernel
-    of ``csrc/matmul_sm90.cu``, on one CUDA device: bf16 operands both
-    row-major, or e4m3 with b column-major, which ``tma_eligible`` must
+    of ``csrc/matmul_sm90.cu``, on one CUDA device: bf16 or fp16 operands
+    both row-major, or e4m3 with b column-major, which ``tma_eligible`` must
     accept (a tensor it refuses raises: ``gemm_cuda`` sends it to
     ``matmul_cuda``); tile one of ``TILES[a.dtype]``; output as
     ``matmul_cuda``'s. e4m3 operands are multiplied in ``e4m3_form``
@@ -233,11 +238,11 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
     partials go to a workspace that ``matmul_reduce_cuda`` sums."""
     out_dtype = _check_operands("matmul_wgmma", a, b, out_dtype)
     if a.dtype == torch.float32:
-        raise ValueError("matmul_wgmma kernel takes bf16 or e4m3 operands; fp32 runs on "
-                         "matmul_f32_tma")
+        raise ValueError("matmul_wgmma kernel takes bf16, fp16 or e4m3 operands; fp32 runs "
+                         "on matmul_f32_tma")
     (M, K), N = a.shape, b.shape[1]
     if not tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
-        raise ValueError(f"matmul_wgmma kernel takes bf16 or e4m3 operands with 16-byte "
+        raise ValueError(f"matmul_wgmma kernel takes bf16, fp16 or e4m3 operands with 16-byte "
                          f"aligned bases and row pitches, got {a.dtype} ({M},{K})x({K},{N})")
     tile = (bm, bk, bn)
     if tile not in TILES[a.dtype]:
@@ -253,7 +258,7 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
     err = _entry("matmul_sm90_fwd")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(),
         _MODES[a.dtype], form, M, N, K, bm, bk, bn, kt_per_split, splits,
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)
+        OUT_KINDS[out_dtype], torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_sm90_fwd", tile)
     matmul_wgmma_cuda.launches += 1
     if p is not None:
@@ -270,15 +275,15 @@ def matmul_f32_tma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: 
     sums (never TF32), on the fp32 mode of ``csrc/matmul_sm90.cu`` (a TMA
     ring feeding FFMAs), on one CUDA device; ``tma_eligible`` must accept the
     operands (a pair it refuses raises: ``gemm_cuda`` sends it to
-    ``matmul_cuda``); tile one of ``TILES[fp32]``; output fp32 (default) or
-    bf16. Where ``split_plan`` splits K, the fp32 partials go to a workspace
+    ``matmul_cuda``); tile one of ``TILES[fp32]``; output fp32 (default),
+    bf16 or fp16. Where ``split_plan`` splits K, the fp32 partials go to a workspace
     that ``matmul_reduce_cuda`` sums in order."""
     _check_shapes("matmul_f32_tma", a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"matmul_f32_tma kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
     out_dtype = out_dtype or torch.float32
     if out_dtype not in _OUT:
-        raise ValueError(f"matmul_f32_tma kernel writes fp32 or bf16, not {out_dtype}")
+        raise ValueError(f"matmul_f32_tma kernel writes fp32, bf16 or fp16, not {out_dtype}")
     if not a.is_contiguous() or not b.is_contiguous():
         raise ValueError("matmul_f32_tma kernel takes row-major a and b")
     (M, K), N = a.shape, b.shape[1]
@@ -297,7 +302,7 @@ def matmul_f32_tma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: 
     p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device)
     err = _entry("matmul_sm90_f32_fwd")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(), M, N, K,
-        bm, bk, bn, kt_per_split, splits, int(out_dtype == torch.bfloat16),
+        bm, bk, bn, kt_per_split, splits, OUT_KINDS[out_dtype],
         torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_sm90_f32_fwd", tile)
     matmul_f32_tma_cuda.launches += 1
@@ -313,7 +318,7 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor |
                        b_scale: torch.Tensor | None = None) -> torch.Tensor:
     """c (M,N) = p[0] + p[1] + ... (fp32 partials (S,M,N), summed in that
     order, so a result is the same from run to run), written in c's dtype
-    (fp32 or bf16), on one CUDA device. With fp32 scales a_scale (M,1) and
+    (fp32, bf16 or fp16), on one CUDA device. With fp32 scales a_scale (M,1) and
     b_scale (1,N) (the int8 GEMM's), the sum is multiplied by a_scale and
     then by b_scale, the int8 kernels' order."""
     if p.device.type != "cuda" or c.device != p.device:
@@ -321,7 +326,7 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor |
     if p.dim() != 3 or p.dtype != torch.float32 or not p.is_contiguous() or \
             c.shape != p.shape[1:] or c.dtype not in _OUT or not c.is_contiguous():
         raise ValueError(f"matmul_reduce kernel takes fp32 partials (S,M,N) and a contiguous "
-                         f"fp32 or bf16 c (M,N), got {tuple(p.shape)} {p.dtype}, "
+                         f"fp32, bf16 or fp16 c (M,N), got {tuple(p.shape)} {p.dtype}, "
                          f"{tuple(c.shape)} {c.dtype}")
     M, N = c.shape
     scaled = a_scale is not None or b_scale is not None
@@ -329,7 +334,7 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor |
         _check_scales("matmul_reduce", a_scale, b_scale, M, N, p.device)
         a_scale, b_scale = a_scale.contiguous(), b_scale.contiguous()
     err = _entry("matmul_sm90_reduce")(p.data_ptr(), c.data_ptr(), c.numel(), p.shape[0],
-                                       int(c.dtype == torch.bfloat16),
+                                       OUT_KINDS[c.dtype],
                                        a_scale.data_ptr() if scaled else None,
                                        b_scale.data_ptr() if scaled else None, N,
                                        torch.cuda.current_stream(p.device).cuda_stream)
@@ -344,9 +349,9 @@ matmul_reduce_cuda.launches = 0
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, request, out_dtype=None) -> torch.Tensor:
     """The ops' GEMM on the card: operands that ``tma_eligible`` accepts go to
     the TMA ring kernel at ``select_tile``'s tile of the (bm, bk, bn)
-    `request`: bf16 and e4m3 to ``matmul_wgmma_cuda``, fp32 to
+    `request`: bf16, fp16 and e4m3 to ``matmul_wgmma_cuda``, fp32 to
     ``matmul_f32_tma_cuda``; other operands to ``matmul_cuda`` at its tile
-    of ``MMA_SYNC_TILES`` (bf16, e4m3) or ``SIMT_TILES`` (fp32)."""
+    of ``MMA_SYNC_TILES`` (bf16, fp16, e4m3) or ``SIMT_TILES`` (fp32)."""
     (M, K), N = a.shape, b.shape[1]
     if tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
         bm, bk, bn = select_tile(a.dtype, *request)

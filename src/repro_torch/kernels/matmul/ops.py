@@ -19,10 +19,9 @@ asks the port's LLMCompass mapper for the tile on the H100 preset.
 
 Shapes choose how a GEMM runs on the card, never whether: int8 takes any K
 (exact int32 sums over chunks of at most ``kernel.INT8_MAX_K``, added in
-fp32). The card refuses, with ``ValueError``, one thing the plain version
-computes on the CPU: fp16 tensors (``matmul`` takes bf16 or fp32 operands,
-``matmul_fp8`` writes a bf16 or fp32 output; ``matmul_int8`` quantizes any
-float input and computes it).
+fp32). ``matmul`` takes bf16, fp16 or fp32 operands and ``matmul_fp8``
+writes a bf16, fp16 or fp32 output on either device (``matmul_int8``
+quantizes any float input).
 """
 from __future__ import annotations
 
@@ -56,7 +55,8 @@ def _request(a, b, bm, bk, bn) -> tuple:
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: int = 512,
            bn: int = 256) -> torch.Tensor:
-    """a (M,K) @ b (K,N), bf16 or fp32, fp32 accumulation, out in a's dtype."""
+    """a (M,K) @ b (K,N), bf16, fp16 or fp32, fp32 accumulation, out in a's
+    dtype."""
     request = _request(a, b, bm, bk, bn)
     if runs_plain(a):
         return matmul_ref(a, b)

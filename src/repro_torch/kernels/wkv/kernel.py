@@ -9,7 +9,11 @@ Each wrapper checks what its kernel takes, allocates the output (and the final
 state unless the caller gives ``state_out``), and launches on the current
 stream. r, k, v and w come in the model's (B, T, H, N) layout with any batch,
 time and head strides; ``state_out`` may be ``state0`` itself, which the
-decode step uses to update its cache in place.
+decode step uses to update its cache in place. The step-by-step kernel takes
+N = 32, 64 and 128, the chunked one 32 and 64 (``COLUMN_SPLITS``): its
+shared-memory layout and lane groups are laid out for at most 64, so every
+call at N = 128 runs step by step. The op runs any other N up to 128 at the
+next of these, zero-padded (``kernel_head_size``).
 """
 from __future__ import annotations
 
@@ -21,7 +25,16 @@ import torch
 
 from .. import _build
 
-HEAD_SIZES = (32, 64)
+HEAD_SIZES = (32, 64, 128)
+
+
+def kernel_head_size(N: int) -> int:
+    """The head size of ``HEAD_SIZES`` a call at N runs at: the least one at
+    or above N. Above 128 raises."""
+    for k in HEAD_SIZES:
+        if N <= k:
+            return k
+    raise ValueError(f"wkv kernels take N up to {HEAD_SIZES[-1]}, got {N}")
 
 
 @functools.cache
@@ -90,7 +103,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              lengths: Optional[torch.Tensor] = None, *,
              state_out: Optional[torch.Tensor] = None):
     """r, k, v, w: (B, T, H, N) fp32 on one CUDA device, unit stride along
-    N, N in (32, 64); u: (H, N) fp32; state0, state_out: (B, H, N, N)
+    N, N in ``HEAD_SIZES``; u: (H, N) fp32; state0, state_out: (B, H, N, N)
     fp32 contiguous or None; lengths: (B,) int32 or None. Returns
     (out (B, T, H, N) contiguous, final state)."""
     u, lengths, out, state_out = _checked(r, k, v, w, u, state0, lengths, state_out)
@@ -133,11 +146,11 @@ def chunked_eligible(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor) -> bool:
     """Whether the chunked kernel takes a call: more than one step (the
     decode step, T = 1, stays on ``wkv_cuda``), r, k, v, w fp32 (B, T, H, N)
-    with N in ``HEAD_SIZES``, a unit stride along N, and 16-byte aligned
+    with N in ``COLUMN_SPLITS`` (32 or 64), a unit stride along N, and 16-byte aligned
     bases and batch, time and head strides (of an axis longer than 1) that
     are multiples of 4 elements, as its 16-byte copies need. The model's
     (B, T, H, N) views qualify."""
-    if r.dim() != 4 or r.shape[1] <= 1 or r.shape[3] not in HEAD_SIZES:
+    if r.dim() != 4 or r.shape[1] <= 1 or r.shape[3] not in COLUMN_SPLITS:
         return False
     return all(a.dtype == torch.float32 and a.shape == r.shape and a.stride(3) == 1
                and a.data_ptr() % 16 == 0

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder and RWKV6 of ``repro.models``."""
+"""Model zoo of the port: the dense decoder, RWKV6 and Griffin of
+``repro.models``."""
 from . import layers, lm, recurrent
 from .bridge import params_from_jax
 from .lm import LM, init_cache, init_params, padded_vocab

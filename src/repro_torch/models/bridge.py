@@ -5,17 +5,23 @@ already a numpy array (the caller does ``jax.tree.map(np.asarray, params)``;
 this module imports no JAX) and returns a state dict for ``LM`` of the same
 config:
 
-  * the stacked-unit layout of ``repro.models.lm.init_params`` (each leaf of
-    ``params["units"]["u0"]`` has a leading n_layers axis; dense and RWKV6
-    configs have a one-layer unit and no remainder layers) is unstacked along
-    axis 0 into ``blocks.<i>.<group>.<name>``, for every group of the unit:
-    ``ln1``, ``attn``, ``ln2``, ``mlp`` of a dense layer, ``ln1``, ``tmix``,
-    ``ln2``, ``cmix`` of an RWKV6 one;
+  * the stacked-unit layout of ``repro.models.lm.init_params`` is unstacked
+    into the port's layer order: leaf ``params["units"]["u<j>"]`` has a
+    leading n_units axis, whose entry r is layer ``r * len(unit) + j``, and
+    ``params["rem"]["r<j>"]`` is layer ``n_units * len(unit) + j`` (dense
+    and RWKV6 configs have a one-layer unit and no remainder; Griffin's unit
+    is (rglru, rglru, attn) with a remainder of two rglru layers). Each
+    lands in ``blocks.<i>.<group>.<name>``, for every group of the layer:
+    ``ln1``, ``attn``, ``ln2``, ``mlp`` of an attention layer, ``ln1``,
+    ``rec``, ``ln2``, ``mlp`` of an RG-LRU one, ``ln1``, ``tmix``, ``ln2``,
+    ``cmix`` of an RWKV6 one;
   * every leaf crosses under its JAX key and in its JAX dtype: a LayerNorm's
     ``scale`` and ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's
     ``scale``, a gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain
     one's ``w_up``, ``w_down``, RWKV6's bf16 ``mu`` and weights and its fp32
-    ``w0``, decay LoRA, ``u`` and ``ln_x``; ``LM.load_state_dict`` (strict)
+    ``w0``, decay LoRA, ``u`` and ``ln_x``, the RG-LRU block's bf16
+    ``w_gate``, ``w_in``, ``conv_w``, ``conv_b``, ``w_out`` and fp32
+    ``w_a``, ``w_x``, ``lam``; ``LM.load_state_dict`` (strict)
     refuses a leaf too many or too few;
   * weights keep JAX's (in, out) orientation: the port computes ``x @ w`` as
     the JAX model does, so nothing is transposed;
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .lm import check_supported
+from .lm import check_supported, unit_structure
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -43,17 +49,22 @@ def to_tensor(a) -> torch.Tensor:
 def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     """State dict of ``LM(cfg)`` from the JAX tree of numpy arrays."""
     check_supported(cfg)
-    if tree.get("rem"):
-        raise ValueError("a dense or RWKV6 config's JAX tree has no "
-                         "remainder layers")
+    unit, n_units, rem = unit_structure(cfg)
+    if set(tree["units"]) != {f"u{j}" for j in range(len(unit))} or \
+            set(tree.get("rem") or {}) != {f"r{j}" for j in range(len(rem))}:
+        raise ValueError(f"the JAX tree's units {sorted(tree['units'])} and remainder "
+                         f"{sorted(tree.get('rem') or {})} are not those of {cfg.name}: "
+                         f"unit {unit} x {n_units}, remainder {rem}")
     sd = {"embed": to_tensor(tree["embed"])}
     for name, leaf in tree["final_norm"].items():
         sd[f"final_norm.{name}"] = to_tensor(leaf)
     if not cfg.tie_embeddings:
         sd["head"] = to_tensor(tree["head"])
-    unit = tree["units"]["u0"]
-    for i in range(cfg.n_layers):
-        for group, leaves in unit.items():
-            for name, stacked in leaves.items():
-                sd[f"blocks.{i}.{group}.{name}"] = to_tensor(stacked[i])
+    layers = [(r * len(unit) + j, tree["units"][f"u{j}"], r)
+              for r in range(n_units) for j in range(len(unit))]
+    layers += [(n_units * len(unit) + j, tree["rem"][f"r{j}"], None) for j in range(len(rem))]
+    for i, groups, r in layers:
+        for group, leaves in groups.items():
+            for name, leaf in leaves.items():
+                sd[f"blocks.{i}.{group}.{name}"] = to_tensor(leaf if r is None else leaf[r])
     return sd

@@ -22,7 +22,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention as _flash_op
 from ..kernels.flash_attention.ref import NEG_INF, attention_ref
-from ..kernels.gelu.ops import gelu, silu_mul
+from ..kernels.gelu.ops import gelu, gelu_mul, silu_mul
 from ..kernels.rmsnorm.ops import layernorm, rmsnorm
 
 Params = nn.ParameterDict
@@ -209,7 +209,7 @@ def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MLP: gated SiLU or plain tanh-GELU
+# MLP: gated SiLU, gated tanh-GELU or plain tanh-GELU
 # ---------------------------------------------------------------------------
 
 def mlp_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> Params:
@@ -227,13 +227,15 @@ def mlp_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> P
 
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Gated: SwiGLU ``silu(x @ w_gate) * (x @ w_up)`` through the fused gate
-    op. Plain: ``gelu(x @ w_up)`` through the tanh-GELU op (the JAX
-    ``_act`` arm of gpt3; the port runs no other plain activation). Both ops
-    compute in fp32 and round once to bf16, where the JAX model computes the
-    activation and the product on bf16 tensors; model-level tolerances allow
-    for that."""
+    op, or with ``activation == "gelu"`` (recurrentgemma) the gated GELU
+    ``gelu(x @ w_gate) * (x @ w_up)`` through the gated-GELU op. Plain:
+    ``gelu(x @ w_up)`` through the tanh-GELU op (the JAX ``_act`` arm of
+    gpt3; the port runs no other plain activation). The ops compute in fp32
+    and round once to bf16, where the JAX model computes the activation and
+    the product on bf16 tensors; model-level tolerances allow for that."""
     if cfg.mlp_gated:
-        h = silu_mul(x @ p["w_gate"], x @ p["w_up"])
+        gated = gelu_mul if cfg.activation == "gelu" else silu_mul
+        h = gated(x @ p["w_gate"], x @ p["w_up"])
     else:
         h = gelu(x @ p["w_up"])
     return h @ p["w_down"]

@@ -1,8 +1,10 @@
-"""Decoder LM of the port, the dense and RWKV6 paths of ``repro.models.lm``.
+"""Decoder LM of the port, the dense, RWKV6 and Griffin paths of
+``repro.models.lm``.
 
-``LM`` is an ``nn.Module`` holding a ``ModuleList`` of blocks; the JAX
-package's stacked-unit scan becomes a Python loop over the blocks (dense and
-RWKV6 configs have a one-layer unit, so the layers are the units).
+``LM`` is an ``nn.Module`` holding a ``ModuleList`` of blocks, one per layer
+in layer order; the JAX package's stacked-unit scan becomes a Python loop
+over the blocks (``layer_kinds`` and ``unit_structure`` give the JAX
+grouping, which ``params_from_jax`` unstacks).
 
 Public entry points, counterparts of the JAX functions of the same names:
     init_params -> LM, LM.forward (teacher-forced logits), init_cache,
@@ -10,17 +12,23 @@ Public entry points, counterparts of the JAX functions of the same names:
 
 The cache is a dict of tensors updated IN PLACE by ``prefill`` and
 ``decode_step`` (the JAX functions return a new cache). Every tensor but
-``pos`` has the layer on axis 0 and the sequence (slot) on axis 1. A dense
-model's ``k`` and ``v`` are fused (n_layers, B, T, Hkv*dh) bf16; an RWKV6
-model's ``state`` is (n_layers, B, H, N, N) fp32 and its token shifts
-``sx_t`` / ``sx_c`` (n_layers, B, d) bf16. ``pos`` (B,) int32 holds each
-sequence's next position (continuous batching).
+``pos`` has a layer of one kind on axis 0 (the attention layers in order,
+or the RG-LRU layers in order) and the sequence (slot) on axis 1. The
+attention layers' ``k`` and ``v`` are fused (n_attn, B, T, Hkv*dh) bf16,
+with T = min(max_len, attn_window) for a windowed model: a ring, position p
+in slot p % T. Griffin's RG-LRU layers keep ``h`` (n_rglru, B, d) fp32 and
+the conv carry ``conv`` (n_rglru, B, W-1, d) bf16. An RWKV6 model's
+``state`` is (n_layers, B, H, N, N) fp32 and its token shifts ``sx_t`` /
+``sx_c`` (n_layers, B, d) bf16. ``pos`` (B,) int32 holds each sequence's
+next position (continuous batching).
 
-Ported: dense decoders with full causal attention, RMSNorm or LayerNorm,
-a SwiGLU MLP or a plain tanh-GELU one, and full, partial (stablelm) or no
-RoPE; with no RoPE (gpt3) sinusoidal positions are added to the embeddings,
-as the JAX model adds them. And the attention-free RWKV6 (``family ==
-"ssm"``, rwkv6-7b), no positions. Any other config raises
+Ported: dense decoders with full causal or local (windowed) attention,
+RMSNorm or LayerNorm, a SwiGLU, gated-GELU or plain tanh-GELU MLP, and
+full, partial (stablelm) or no RoPE; with no RoPE (gpt3) sinusoidal
+positions are added to the embeddings, as the JAX model adds them. The
+attention-free RWKV6 (``family == "ssm"``, rwkv6-7b), no positions. And
+Griffin (``family == "hybrid"``, recurrentgemma-2b): a ``block_pattern`` of
+RG-LRU and local-attention layers. Any other config raises
 NotImplementedError naming the field.
 
 Right pads and the recurrent state: an RWKV6 ``prefill`` hands each
@@ -29,7 +37,10 @@ state after the real tokens only, and the token shifts are taken at each
 sequence's last real token. That is the JAX model's result for each prompt
 prefilled alone; the JAX ``prefill`` of a right-padded wave runs the pads
 through the state instead (``ROADMAP.md``, C4), which the port does not
-reproduce.
+reproduce. Griffin's RG-LRU layers do the same with h and the conv carry;
+and where a prompt is longer than the window, the ring keeps each prompt's
+own last T keys, where the JAX prefill keeps the padded wave's last T
+positions, which for a shorter prompt are partly pads (C4 too).
 """
 from __future__ import annotations
 
@@ -49,19 +60,18 @@ VOCAB_PAD = 256      # embeddings padded as in the JAX package
 # (field, test that the port runs the config's value of it) for every
 # config field of the ported slices
 _SUPPORTED = (
-    ("family", lambda c: c.family in ("dense", "ssm")),
+    ("family", lambda c: c.family in ("dense", "ssm", "hybrid")),
     ("n_experts", lambda c: c.n_experts == 0),
-    ("block_pattern", lambda c: not c.block_pattern),
+    ("block_pattern", lambda c: set(c.block_pattern) <= {"rglru", "attn"}),
     ("cross_attention", lambda c: not c.cross_attention),
     ("n_encoder_layers", lambda c: c.n_encoder_layers == 0),
     ("cross_attn_layers", lambda c: not c.cross_attn_layers),
     ("n_frontend_tokens", lambda c: c.n_frontend_tokens == 0),
     ("norm", lambda c: c.norm in ("rmsnorm", "layernorm")),
-    # a gated MLP runs the SwiGLU gate kernel, a plain one the GELU kernel;
-    # RWKV6's channel mix is relu^2 whatever the field says
+    # a gated MLP runs the SwiGLU or the gated-GELU kernel, a plain one the
+    # GELU kernel; RWKV6's channel mix is relu^2 whatever the field says
     ("activation", lambda c: c.attention_free
-     or c.activation == ("silu" if c.mlp_gated else "gelu")),
-    ("attn_window", lambda c: c.attn_window == 0),
+     or c.activation in (("silu", "gelu") if c.mlp_gated else ("gelu",))),
     ("attn_logit_softcap", lambda c: c.attn_logit_softcap == 0),
 )
 
@@ -73,8 +83,34 @@ def check_supported(cfg: ModelConfig) -> None:
         if not ok(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"to repro_torch yet (dense decoders with full causal "
-                f"attention and a SwiGLU or a plain GELU MLP, and RWKV6)")
+                f"to repro_torch yet (dense decoders with full or local "
+                f"attention and a SwiGLU, gated-GELU or plain GELU MLP, "
+                f"RWKV6, and Griffin)")
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """The kind of each layer: "attn", "rglru" or "rwkv" (the JAX
+    ``layer_kinds`` of the ported families)."""
+    return [cfg.block_kind(i) for i in range(cfg.n_layers)]
+
+
+def unit_structure(cfg: ModelConfig):
+    """(unit kinds, n_units, remainder kinds): the smallest period of the
+    layer kinds, as the JAX model stacks its parameters."""
+    kinds = layer_kinds(cfg)
+    n = len(kinds)
+    for p in range(1, n + 1):
+        reps = n // p
+        if all(kinds[i] == kinds[i % p] for i in range(reps * p)):
+            return tuple(kinds[:p]), reps, tuple(kinds[reps * p:])
+    return tuple(kinds), 1, ()
+
+
+def kind_index(cfg: ModelConfig) -> list:
+    """Each layer's index among the layers of its kind: its row of the
+    cache tensors of that kind."""
+    kinds = layer_kinds(cfg)
+    return [kinds[:i].count(k) for i, k in enumerate(kinds)]
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -101,6 +137,28 @@ class Block(nn.Module):
 
     def mlp_residual(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         return x + L.mlp_apply(cfg, self.mlp, L.apply_norm(cfg, self.ln2, x))
+
+
+class RGLRUBlock(nn.Module):
+    """One Griffin recurrent layer: RMSNorm, RG-LRU block, RMSNorm, MLP."""
+
+    mlp_residual = Block.mlp_residual
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
+        super().__init__()
+        self.ln1 = L.norm_init(cfg, device)
+        self.rec = R.rglru_init(cfg, gen, device)
+        self.ln2 = L.norm_init(cfg, device)
+        self.mlp = L.mlp_init(cfg, gen, device)
+
+    def mix(self, cfg: ModelConfig, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
+            conv: Optional[torch.Tensor] = None, lengths: Optional[torch.Tensor] = None,
+            h_out: Optional[torch.Tensor] = None):
+        """x: (B, T, d). Returns (x after the layer, (h, next conv carry)),
+        the state as in ``rglru_apply``."""
+        y, state = R.rglru_apply(cfg, self.rec, L.apply_norm(cfg, self.ln1, x), h0, conv,
+                                 lengths, h_out)
+        return self.mlp_residual(cfg, x + y), state
 
 
 class RWKVBlock(nn.Module):
@@ -130,6 +188,9 @@ class RWKVBlock(nn.Module):
         return x + R.rwkv_cmix_apply(self.cmix, hc, prev_c), h, hc
 
 
+_BLOCKS = {"attn": Block, "rglru": RGLRUBlock, "rwkv": RWKVBlock}
+
+
 class LM(nn.Module):
     """The model on `device` (``cuda`` unless the caller names another).
     With a generator its weights are drawn as ``init_params`` draws them;
@@ -147,9 +208,9 @@ class LM(nn.Module):
         self.final_norm = L.norm_init(cfg, device)
         if not cfg.tie_embeddings:
             self.head = L._init(gen, (cfg.d_model, vpad), device=device)
-        block = RWKVBlock if cfg.attention_free else Block
-        self.blocks = nn.ModuleList(block(cfg, gen, device)
-                                    for _ in range(cfg.n_layers))
+        self.kinds = layer_kinds(cfg)
+        self.rows = kind_index(cfg)
+        self.blocks = nn.ModuleList(_BLOCKS[kind](cfg, gen, device) for kind in self.kinds)
 
     def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Token embeddings, plus the sinusoidal table at `positions` (its
@@ -165,10 +226,18 @@ class LM(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return _mask_pad_logits(self.cfg, x @ head)
 
+    def _attention(self, blk: Block, x: torch.Tensor, rope):
+        """(x after the layer's attention residual, its k, v) over the whole
+        sequence: causal, under the config's window."""
+        cfg = self.cfg
+        q, k, v = L.attn_qkv(cfg, blk.attn, L.apply_norm(cfg, blk.ln1, x), rope)
+        o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+        return x + L.attn_out(blk.attn, o), k, v
+
     # ------------------------------------------------------------------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, S) -> logits (B, S, V_padded). (The JAX forward also
-        returns the MoE aux loss, which is 0 for the dense path.)"""
+        returns the MoE aux loss, which is 0 for the ported paths.)"""
         cfg = self.cfg
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
@@ -179,44 +248,58 @@ class LM(nn.Module):
                 x = blk.mix(cfg, x, zeros, zeros)[0]
             return self._logits(x)
         rope = L.rope_tables(cfg, positions.expand(B, S))
-        for blk in self.blocks:
-            h = L.apply_norm(cfg, blk.ln1, x)
-            q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
-            x = x + L.attn_out(blk.attn, L.flash_attention(q, k, v, causal=True))
-            x = blk.mlp_residual(cfg, x)
+        for kind, blk in zip(self.kinds, self.blocks):
+            if kind == "rglru":
+                x = blk.mix(cfg, x)[0]
+            else:
+                x = blk.mlp_residual(cfg, self._attention(blk, x, rope)[0])
         return self._logits(x)
 
     # ------------------------------------------------------------------
     def prefill(self, tokens: torch.Tensor, cache: dict,
                 prompt_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Process right-padded prompts from position 0, writing their K/V
-        (or their RWKV6 state and token shifts) into ``cache`` in place.
-        prompt_lens: (B,) true prompt lengths (defaults to S). Returns the
-        logits at each sequence's last real token, (B, V_padded)."""
+        (and RG-LRU state and conv carry, or RWKV6 state and token shifts)
+        into ``cache`` in place. prompt_lens: (B,) true prompt lengths
+        (defaults to S). Returns the logits at each sequence's last real
+        token, (B, V_padded)."""
         cfg = self.cfg
         B, S = tokens.shape
         if prompt_lens is None:
             prompt_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
         if cfg.attention_free:
             return self._prefill_rwkv(tokens, cache, prompt_lens)
-        if S > cache["k"].shape[2]:
-            raise ValueError(f"prompt of {S} tokens exceeds the cache's "
-                             f"{cache['k'].shape[2]}")
+        T = cache["k"].shape[2] if "k" in cache else S
+        if S > T and not cfg.attn_window:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache's {T}")
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions)
         rope = L.rope_tables(cfg, positions.expand(B, S))
-        for i, blk in enumerate(self.blocks):
-            h = L.apply_norm(cfg, blk.ln1, x)
-            q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
+        bidx = torch.arange(B, device=x.device)
+        if S > T:
+            # a ring shorter than the prompts: each prompt's own last T
+            # positions (from 0 for one no longer than T), position p in
+            # slot p % T
+            src = (prompt_lens.long() - T).clamp(min=0)[:, None] + torch.arange(T, device=x.device)
+            dst = (bidx[:, None], src % T)
+        for i, (kind, blk) in enumerate(zip(self.kinds, self.blocks)):
+            j = self.rows[i]
+            if kind == "rglru":
+                x, (_, conv) = blk.mix(cfg, x, lengths=prompt_lens, h_out=cache["h"][j])
+                cache["conv"][j] = conv
+                continue
+            x, k, v = self._attention(blk, x, rope)
             # pads sit after the valid tokens; decode overwrites them in turn
-            cache["k"][i, :, :S] = k.reshape(B, S, -1)
-            cache["v"][i, :, :S] = v.reshape(B, S, -1)
-            x = x + L.attn_out(blk.attn, L.flash_attention(q, k, v, causal=True))
+            for name, t in (("k", k), ("v", v)):
+                t = t.reshape(B, S, -1)
+                if S > T:
+                    cache[name][j][dst] = t[bidx[:, None], src]
+                else:
+                    cache[name][j, :, :S] = t
             x = blk.mlp_residual(cfg, x)
         cache["pos"].copy_(prompt_lens)
         last = (prompt_lens.long() - 1).clamp(0, S - 1)
-        x_last = x[torch.arange(B, device=x.device), last]
-        return self._logits(x_last)
+        return self._logits(x[bidx, last])
 
     def _prefill_rwkv(self, tokens: torch.Tensor, cache: dict,
                       prompt_lens: torch.Tensor) -> torch.Tensor:
@@ -241,28 +324,39 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     def decode_step(self, token: torch.Tensor, cache: dict) -> torch.Tensor:
         """token: (B,) -> logits (B, V_padded). Writes each sequence's K/V at
-        its position cache["pos"] (or advances its RWKV6 state and token
-        shifts), in place, and advances the position."""
+        its position cache["pos"] (its ring slot pos % T for a windowed
+        model), advances its RG-LRU state and conv carry (or its RWKV6 state
+        and token shifts), in place, and advances the position."""
         cfg = self.cfg
         B = token.shape[0]
         if cfg.attention_free:
             return self._decode_rwkv(token, cache)
-        hkv, dh = cfg.n_kv_heads, cfg.d_head
-        T = cache["k"].shape[2]
         pos = cache["pos"]
         x = self._embed(token, pos)[:, None, :]
         rope = L.rope_tables(cfg, pos.view(B, 1))
         bidx = torch.arange(B, device=x.device)
-        # a write past the cache's end is dropped, as JAX's scatter drops it
-        in_range = (pos < T)[:, None]
-        wpos = pos.clamp(max=T - 1).long()
-        valid = (pos + 1).clamp(max=T).to(torch.int32)
-        for i, blk in enumerate(self.blocks):
+        if "k" in cache:
+            hkv, dh = cfg.n_kv_heads, cfg.d_head
+            T = cache["k"].shape[2]
+            if cfg.attn_window:
+                in_range, wpos = None, (pos % T).long()
+            else:
+                # a write past the cache's end is dropped, as JAX's scatter drops it
+                in_range, wpos = (pos < T)[:, None], pos.clamp(max=T - 1).long()
+            valid = (pos + 1).clamp(max=T).to(torch.int32)
+        for i, (kind, blk) in enumerate(zip(self.kinds, self.blocks)):
+            j = self.rows[i]
+            if kind == "rglru":
+                x, (_, conv) = blk.mix(cfg, x, cache["h"][j], cache["conv"][j],
+                                       h_out=cache["h"][j])
+                cache["conv"][j] = conv
+                continue
             h = L.apply_norm(cfg, blk.ln1, x)
             q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
-            ck, cv = cache["k"][i], cache["v"][i]
-            ck[bidx, wpos] = torch.where(in_range, k.reshape(B, -1), ck[bidx, wpos])
-            cv[bidx, wpos] = torch.where(in_range, v.reshape(B, -1), cv[bidx, wpos])
+            ck, cv = cache["k"][j], cache["v"][j]
+            for c, t in ((ck, k), (cv, v)):
+                t = t.reshape(B, -1)
+                c[bidx, wpos] = t if in_range is None else torch.where(in_range, t, c[bidx, wpos])
             o = _decode_attend(cfg, q, ck.view(B, T, hkv, dh),
                                cv.view(B, T, hkv, dh), valid)
             x = x + L.attn_out(blk.attn, o)
@@ -305,9 +399,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Fused bf16 K/V of (n_layers, batch, max_len, Hkv*dh), or for RWKV6 the
+    """Fused bf16 K/V of (n_attn, batch, T, Hkv*dh) for the attention layers
+    (T = max_len, or min(max_len, attn_window) for a windowed model: the
+    ring), the fp32 RG-LRU state (n_rglru, batch, d) and bf16 conv carry
+    (n_rglru, batch, W-1, d) of Griffin's recurrent layers, or for RWKV6 the
     fp32 state (n_layers, batch, H, N, N) and the bf16 token shifts
-    (n_layers, batch, d) (no length limit), and the per-sequence
+    (n_layers, batch, d) (no length limit); and the per-sequence
     positions."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -320,11 +417,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
                 "sx_t": torch.zeros(shift, dtype=torch.bfloat16, device=dev),
                 "sx_c": torch.zeros(shift, dtype=torch.bfloat16, device=dev),
                 "pos": pos}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads * cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "pos": pos}
+    kinds = layer_kinds(cfg)
+    cache = {}
+    if "attn" in kinds:
+        T = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+        shape = (kinds.count("attn"), batch, T, cfg.n_kv_heads * cfg.d_head)
+        cache["k"] = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    if "rglru" in kinds:
+        n, d = kinds.count("rglru"), cfg.d_model
+        cache["h"] = torch.zeros((n, batch, d), dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros((n, batch, cfg.rglru_conv_width - 1, d),
+                                    dtype=torch.bfloat16, device=dev)
+    cache["pos"] = pos
+    return cache
 
 
-__all__ = ["LM", "Block", "RWKVBlock", "init_params", "init_cache", "padded_vocab",
-           "check_supported", "VOCAB_PAD"]
+__all__ = ["LM", "Block", "RGLRUBlock", "RWKVBlock", "init_params", "init_cache",
+           "padded_vocab", "check_supported", "layer_kinds", "unit_structure", "kind_index",
+           "VOCAB_PAD"]

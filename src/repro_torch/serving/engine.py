@@ -1,8 +1,9 @@
 """Serving engine of the port: batched prefill + continuous-batching decode.
 
 The same slot model as ``repro.serving.engine``:
-  * the engine owns `batch_size` slots and one cache (K/V, or an RWKV6
-    model's recurrent state and token shifts); slot admission,
+  * the engine owns `batch_size` slots and one cache (K/V, a Griffin
+    model's ring K/V, RG-LRU state and conv carry, or an RWKV6 model's
+    recurrent state and token shifts); slot admission,
     budgets and refill-on-completion live in `core.scheduler.SlotScheduler`;
   * prefill runs per admission wave (right-padded prompts, per-sequence
     prompt lengths); finished slots are refilled by a single-prompt prefill
@@ -70,7 +71,8 @@ class Engine:
     def _insert(self, one_cache: dict, slot: int) -> None:
         """Copy every tensor of a batch-1 cache into `slot` of the engine
         cache: the slot is axis 0 of ``pos`` and axis 1 (after the layer)
-        of every other tensor."""
+        of every other tensor (K/V and their ring, RG-LRU state and conv
+        carry, RWKV6 state and token shifts alike)."""
         for name, one in one_cache.items():
             if name == "pos":
                 self.cache[name][slot] = one[0]

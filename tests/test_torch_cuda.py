@@ -27,7 +27,8 @@ from repro_torch import models
 from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
+from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.kernel import chunk_keys, chunked_eligible
@@ -89,6 +90,8 @@ def kernel_case(name, device, dtype):
         return (t(0, (100, 256)) * 4,), gelu_ref
     if name == "silu_mul":
         return (t(0, (100, 256)), t(1, (100, 256))), silu_mul_ref
+    if name == "gelu_mul":
+        return (t(0, (100, 256)) * 4, t(1, (100, 256))), gelu_mul_ref
     if name == "flash_attention":
         return (t(0, (2, 8, 130, 64)), t(1, (2, 2, 130, 64)),
                 t(2, (2, 2, 130, 64))), attention_ref
@@ -100,7 +103,8 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
-    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked"}))
+    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
+    "rglru"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -318,7 +322,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
-                             "wkv_chunked": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -327,7 +331,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
-                             "wkv_chunked": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -347,7 +351,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
-                             "wkv_chunked": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -356,7 +360,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
-                             "wkv_chunked": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -652,12 +656,12 @@ def test_fp8_nan_placement_on_card(cuda):
 
 
 def test_gemm_kernels_refuse_what_they_do_not_take_on_card(cuda):
-    """No quiet fallback: fp16 operands, a tile outside a kernel's set, a
-    block that is not positive. A small positive request runs at the nearest
-    compiled tile, and an int8 K past the exact int32 sum computes the exact
-    sum (ROADMAP C8)."""
-    a = torch.zeros((8, 32), device=cuda, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bf16, fp32 or e4m3"):
+    """No quiet fallback: fp64 operands (fp16 computes since ROADMAP C9 was
+    resolved), a tile outside a kernel's set, a block that is not positive.
+    A small positive request runs at the nearest compiled tile, and an int8
+    K past the exact int32 sum computes the exact sum (ROADMAP C8)."""
+    a = torch.zeros((8, 32), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="bf16, fp16, fp32 or e4m3"):
         TK.KERNELS["matmul"](a, a.t().contiguous())
     x = torch.zeros((8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="compiled tiles"):
@@ -819,38 +823,187 @@ def test_flash_paths_on_card(cuda):
             TK.KERNELS["flash_attention_wgmma"](x, x, x)
 
 
-def test_card_refuses_what_no_kernel_takes(cuda):
-    """ROADMAP C9: inputs the CPU path computes and no card kernel takes
-    raise ValueError on the card (no fallback to the plain version): fp16
-    GEMM operands (``matmul``) and outputs (``matmul_fp8``), flash attention
-    at head dims 16 and 256, decode attention at 16, wkv at head sizes 16 and
-    128. Decode attention at 256 (bf16) now runs on the chunked kernel and
-    matches its plain version."""
-    h = normal(9, (8, 32), cuda, torch.float16)
-    for op in (mm_ops.matmul, mm_ops.matmul_fp8):
-        with pytest.raises(ValueError):
-            op(h, h.t().contiguous())
-    for d in (16, 256):
-        q = normal(10, (1, 4, 40, d), cuda, torch.bfloat16)
-        with pytest.raises(ValueError):
-            flash_ops.flash_attention(q, q[:, :1], q[:, :1])
-        args = (q[:, :1, :4], q[:, :1].transpose(1, 2).contiguous(),
-                q[:, :1].transpose(1, 2).contiguous(),
-                torch.tensor([40], dtype=torch.int32, device=cuda))
-        if d == 16:
-            with pytest.raises(ValueError):
-                decode_ops.decode_attention(*args)
-            continue
+def test_card_computes_what_it_once_refused(cuda):
+    """ROADMAP C9, resolved: inputs the card refused compute on a hand-written
+    kernel, each through its op, with the kernel's launch count to show
+    which, against the plain version. fp16 GEMM operands on the TMA +
+    wgmma kernel's fp16 mode (and on mma.sync where TMA cannot take the
+    pitch), matmul_fp8 writing fp16; held at 1e-3 relative, tighter than
+    bf16's 2e-2 (fp16 keeps 11 bits; one rounding of the fp32 sum). Flash
+    attention at D = 256 (wgmma; fp32 on the fp32 kernel) and at 16, 48, 96
+    and 200, zero-padded to the next kernel dim; decode attention at 16, at
+    200 and 256 in fp32 (the split kernel's D = 256); wkv at 16 and 48
+    (padded) and 128 (the step-by-step kernel, also for T > 1). Only dims
+    past the kernels' (attention D = 320, wkv N = 192) still raise."""
+    def launched(op, *args, **kw):
         before = TK.launches()
-        got = decode_ops.decode_attention(*args)
+        out = op(*args, **kw)
         torch.cuda.synchronize()
-        assert TK.launches()["decode_attention_chunked"] == before["decode_attention_chunked"] + 1
-        want = decode_attention_ref(*args)
-        assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
-    for n in (16, 128):
-        r = normal(11, (1, 8, 2, n), cuda, torch.float32)
-        with pytest.raises(ValueError):
-            wkv_ops.wkv(r, r, r, r, normal(12, (2, n), cuda, torch.float32))
+        return out, {k: n - before[k] for k, n in TK.launches().items() if n != before[k]}
+
+    h = normal(9, (256, 320), cuda, torch.float16)
+    b = normal(10, (320, 192), cuda, torch.float16)
+    for (x, y), kern in (((h, b), "matmul_wgmma"), ((h[:, :129], b[:129]), "matmul")):
+        got, n = launched(mm_ops.matmul, x, y)
+        assert set(n) - {"matmul_reduce"} == {kern} and n[kern] == 1   # K may be split
+        assert got.dtype == torch.float16 and rel_err(got, matmul_ref(x, y)) < 1e-3
+    got, n = launched(mm_ops.matmul_fp8, h, b)
+    assert set(n) - {"matmul_reduce"} == {"matmul_wgmma"} and got.dtype == torch.float16
+    assert rel_err(got, matmul_fp8_ref(h, b)) < 1e-3
+    for d, dtype, kern in ((256, torch.bfloat16, "flash_attention_wgmma"),
+                           (256, torch.float32, "flash_attention"),
+                           (16, torch.bfloat16, "flash_attention"),
+                           (48, torch.bfloat16, "flash_attention_wgmma"),
+                           (96, torch.bfloat16, "flash_attention_wgmma"),
+                           (200, torch.bfloat16, "flash_attention_wgmma"),
+                           (200, torch.float32, "flash_attention")):
+        q = normal(11, (2, 4, 150, d), cuda, dtype)
+        k, v = normal(12, (2, 1, 150, d), cuda, dtype), normal(13, (2, 1, 150, d), cuda, dtype)
+        got, n = launched(flash_ops.flash_attention, q, k, v, causal=True, window=70)
+        want = attention_ref(q, k, v, causal=True, window=70)
+        assert n == {kern: 1}, (d, dtype, n)
+        assert got.shape == q.shape and rel_err(got, want) < TOL[str(dtype)[6:]]
+        if dtype == torch.bfloat16:
+            assert attention_excess(got, want) <= 1, d
+    lens = torch.tensor([150, 33], dtype=torch.int32, device=cuda)
+    for d, dtype, kern in ((16, torch.bfloat16, "decode_attention_chunked"),
+                           (200, torch.float32, "decode_attention"),
+                           (256, torch.float32, "decode_attention")):
+        q = normal(14, (2, 1, 10, d), cuda, dtype)
+        k, v = normal(15, (2, 150, 1, d), cuda, dtype), normal(16, (2, 150, 1, d), cuda, dtype)
+        got, n = launched(decode_ops.decode_attention, q, k, v, lens)
+        want = decode_attention_ref(q, k, v, lens)
+        assert n == {kern: 1}, (d, dtype, n)
+        assert got.shape == q.shape and rel_err(got, want) < TOL[str(dtype)[6:]]
+    for N, T, kern in ((16, 9, "wkv_chunked"), (48, 9, "wkv_chunked"), (128, 9, "wkv"),
+                       (128, 1, "wkv"), (48, 1, "wkv")):
+        r, k, v = (normal(17 + i, (2, T, 2, N), cuda, torch.float32) for i in range(3))
+        w = torch.sigmoid(normal(20, (2, T, 2, N), cuda, torch.float32)) * 0.5 + 0.45
+        u, s0 = normal(21, (2, N), cuda, torch.float32), normal(22, (2, 2, N, N), cuda,
+                                                                  torch.float32)
+        want_out, want_state = wkv_ref(r, k, v, w, u, s0)
+        state = s0.clone()
+        (out, got_state), n = launched(wkv_ops.wkv, r, k, v, w, u, state, state_out=state)
+        assert n == {kern: 1}, (N, T, n)
+        assert got_state is state
+        assert rel_err(out, want_out) < 1e-4 and rel_err(state, want_state) < 1e-4
+    q = normal(23, (1, 4, 40, 320), cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
+        flash_ops.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="up to 256"):
+        decode_ops.decode_attention(q[:, :1, :4], q[:, :1].transpose(1, 2).contiguous(),
+                                    q[:, :1].transpose(1, 2).contiguous(),
+                                    torch.tensor([40], dtype=torch.int32, device=cuda))
+    r = normal(24, (1, 8, 2, 192), cuda, torch.float32)
+    with pytest.raises(ValueError, match="up to 128"):
+        wkv_ops.wkv(r, r, r, r, normal(25, (2, 192), cuda, torch.float32))
+
+
+@pytest.mark.parametrize("window", [0, 100, 700])
+def test_flash_d256_on_card(cuda, window):
+    """The wgmma kernel's D = 256 mode at recurrentgemma-2b's prefill layout
+    (8 slots x 512 tokens, 10 query heads on one kv-head, the model's
+    transposed (B, S, H, D) views), causal, with windows that cut key tiles
+    (100, 700) and none: one flash_attention_wgmma launch, relative and per
+    element against the plain version."""
+    q = normal(30, (8, 512, 10, 256), cuda, torch.bfloat16).transpose(1, 2)
+    k = normal(31, (8, 512, 1, 256), cuda, torch.bfloat16).transpose(1, 2)
+    v = normal(32, (8, 512, 1, 256), cuda, torch.bfloat16).transpose(1, 2)
+    assert wgmma_eligible(q, k, v)
+    before = TK.launches()["flash_attention_wgmma"]
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert TK.launches()["flash_attention_wgmma"] == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("shape", [(8, 7680), (4096, 7680), (3, 1001)])
+def test_gelu_mul_served_shapes_on_card(cuda, shape):
+    """The gated-GELU mode at recurrentgemma-2b's decode (8 slots) and
+    prefill-wave MLP shapes and a ragged count: one gelu_mul launch, each
+    element within one bf16 rounding of the plain version."""
+    g = normal(33, shape, cuda, torch.bfloat16) * 3
+    u = normal(34, shape, cuda, torch.bfloat16)
+    before = TK.launches()["gelu_mul"]
+    got = TK.KERNELS["gelu_mul"](g, u)
+    torch.cuda.synchronize()
+    assert TK.launches()["gelu_mul"] == before + 1
+    want = gelu_mul_ref(g, u)
+    assert bool(((got.float() - want.float()).abs()
+                 <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
+
+
+def rglru_case(device, B, T, d, seed, with_h0):
+    g = torch.Generator(device).manual_seed(seed)
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+    u, gate = rnd((B, T, d)).bfloat16(), rnd((B, T, d)).bfloat16()
+    ga, gx = rnd((B, T, d), 3.0), rnd((B, T, d), 3.0)
+    lam = torch.linspace(-6.0, 12.0, d, device=device)  # decays near 1 and near 0
+    h0 = rnd((B, d)) if with_h0 else None
+    return u, ga, gx, lam, gate, h0
+
+
+@pytest.mark.parametrize("B,T,lens,with_h0", [
+    (8, 300, [300, 291, 150, 64, 17, 5, 1, 0], False),   # a wave of unequal prompts
+    (1, 452, None, False),                               # a batch-1 refill
+    (8, 1, None, True),                                  # the decode step, h in place
+    (3, 40, [40, 7, 40], True)])
+def test_rglru_on_card(cuda, B, T, lens, with_h0):
+    """The RG-LRU scan kernel against its plain step loop at recurrentgemma's
+    width (d = 2560): output and final h within 1e-4 relative (fp32, the
+    gates' exponentials in another order), one launch a call; the decode
+    step writes h in place."""
+    u, ga, gx, lam, gate, h0 = rglru_case(cuda, B, T, 2560, 35 + T, with_h0)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want_y, want_h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
+    h_out = h0.clone() if with_h0 else None
+    before = TK.launches()["rglru"]
+    y, h = TK.KERNELS["rglru"](u, ga, gx, lam, gate, h_out, lengths, h_out=h_out)
+    torch.cuda.synchronize()
+    assert TK.launches()["rglru"] == before + 1
+    assert h_out is None or h is h_out
+    assert rel_err(y, want_y) < 1e-4 and rel_err(h, want_h) < 1e-4
+
+
+@pytest.mark.parametrize("m", [8, 300, 4096])
+def test_fp16_gemm_tiles_on_card(cuda, m):
+    """fp16 operands on every compiled fp16 tile of the wgmma kernel and on
+    every mma.sync tile, written fp16 and fp32, against the plain version
+    at 1e-3 relative."""
+    a = normal(40, (m, 512), cuda, torch.float16)
+    b = normal(41, (512, 768), cuda, torch.float16)
+    want = matmul_ref(a, b, out_dtype=torch.float32)
+    for tile in TILES[torch.float16]:
+        for out in (torch.float16, torch.float32):
+            got = TK.KERNELS["matmul_wgmma"](a, b, bm=tile[0], bk=tile[1], bn=tile[2],
+                                             out_dtype=out)
+            assert got.dtype == out and rel_err(got, want) < 1e-3, (tile, out)
+    for tile in MMA_SYNC_TILES:
+        got = TK.KERNELS["matmul"](a, b, bm=tile[0], bk=tile[1], bn=tile[2])
+        assert got.dtype == torch.float16 and rel_err(got, want) < 1e-3, tile
+
+
+def test_griffin_launches_per_step_on_card(cuda):
+    """recurrentgemma's smoke model at 8 layers (two units and the
+    remainder): per prefill 2L+1 RMSNorms, L gelu_mul, one gelu and one
+    rglru per RG-LRU layer (6) and one flash attention per attention layer
+    (2, the mma.sync kernel at the smoke head dim 32); per decode step the
+    same with decode_attention_chunked in place of flash attention."""
+    cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")), n_layers=8)
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    want = {name: 0 for name in TK.KERNELS}
+    step = {**want, "rmsnorm": 17, "gelu_mul": 8, "gelu": 6, "rglru": 6}
+    TK.reset_launches()
+    model.prefill(toks, cache, torch.tensor([8, 5], dtype=torch.int32, device=cuda))
+    assert TK.launches() == {**step, "flash_attention": 2}
+    TK.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    assert TK.launches() == {**step, "decode_attention_chunked": 2}
 
 
 # ---------------- the chunked decode kernel ----------------

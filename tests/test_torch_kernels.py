@@ -9,6 +9,9 @@ how the interpreter walks the grid, not the function. The hand-written
 kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py`` (marked ``cuda``) and by ``chip_smoke.py``.
 """
+import math
+
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,7 +27,9 @@ from repro_torch.kernels.flash_attention import kernel as t_flash_kernel
 from repro_torch.kernels.flash_attention import ops as t_flash
 from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
 from repro_torch.kernels.gelu import ops as t_gelu
-from repro_torch.kernels.gelu.ref import gelu_ref, silu_mul_ref
+from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
+from repro_torch.kernels.rglru import ops as t_rglru
+from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.kernels.wkv import kernel as t_wkv_kernel
@@ -172,18 +177,18 @@ def test_flash_attention_model_layout_matches_jax_layers(dtype):
 
 def test_flash_path_predicate_routes_shapes():
     """``wgmma_eligible``: the model's transposed (B, S, H, D) views of the
-    three served head layouts (D = 64 and 128) and contiguous (B, H, S, D)
-    tensors go to the TMA + wgmma kernel; D = 32 or 256, a sequence stride
-    that is no multiple of 8 elements, a base off 16 bytes, fp32 and an
-    empty key axis do not."""
+    four served head layouts (D = 64, 128 and recurrentgemma's 256) and
+    contiguous (B, H, S, D) tensors go to the TMA + wgmma kernel; D = 32 or
+    48, a sequence stride that is no multiple of 8 elements, a base off 16
+    bytes, fp32 and an empty key axis do not."""
     bf = torch.bfloat16
-    for hq, hkv, d in ((16, 8, 128), (32, 32, 64), (96, 96, 128), (4, 2, 64)):
+    for hq, hkv, d in ((16, 8, 128), (32, 32, 64), (96, 96, 128), (4, 2, 64), (10, 1, 256)):
         q = torch.zeros(2, 40, hq, d, dtype=bf).transpose(1, 2)
         k = torch.zeros(2, 33, hkv, d, dtype=bf).transpose(1, 2)
         assert wgmma_eligible(q, k, k)
         assert wgmma_eligible(q.contiguous(), k.contiguous(), k.contiguous())
         assert not wgmma_eligible(q.float(), k.float(), k.float())
-    for d in (32, 256):
+    for d in (32, 48):
         x = torch.zeros(2, 4, 40, d, dtype=bf)
         assert not wgmma_eligible(x, x, x)
     x = torch.zeros(2, 4, 40, 64, dtype=bf)
@@ -205,31 +210,39 @@ def test_flash_dispatch_picks_the_path_before_the_launch(monkeypatch):
     calls = []
     for name in ("flash_attention_cuda", "flash_attention_wgmma_cuda"):
         monkeypatch.setattr(t_flash_kernel, name,
-                            lambda q, k, v, _n=name, **kw: calls.append((_n, kw)))
+                            lambda q, k, v, _n=name, **kw: calls.append((_n, q.shape[-1], kw))
+                            or q)
     bf = torch.bfloat16
     view = torch.zeros(2, 40, 4, 128, dtype=bf).transpose(1, 2)
-    cases = [((view, view, view), "flash_attention_wgmma_cuda"),
-             ((torch.zeros(2, 4, 40, 64, dtype=bf),) * 3, "flash_attention_wgmma_cuda"),
-             ((torch.zeros(2, 4, 40, 32, dtype=bf),) * 3, "flash_attention_cuda"),
-             ((torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64],) * 3, "flash_attention_cuda"),
-             ((torch.zeros(2, 4, 40, 64),) * 3, "flash_attention_cuda")]
+    cases = [((view, view, view), "flash_attention_wgmma_cuda", 128),
+             ((torch.zeros(2, 4, 40, 64, dtype=bf),) * 3, "flash_attention_wgmma_cuda", 64),
+             ((torch.zeros(2, 4, 40, 256, dtype=bf),) * 3, "flash_attention_wgmma_cuda", 256),
+             ((torch.zeros(2, 4, 40, 48, dtype=bf),) * 3, "flash_attention_wgmma_cuda", 64),
+             ((torch.zeros(2, 4, 40, 32, dtype=bf),) * 3, "flash_attention_cuda", 32),
+             ((torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64],) * 3, "flash_attention_cuda", 64),
+             ((torch.zeros(2, 4, 40, 64),) * 3, "flash_attention_cuda", 64),
+             ((torch.zeros(2, 4, 40, 200),) * 3, "flash_attention_cuda", 256)]
     kw = dict(causal=False, window=8, softcap=30.0)
-    for args, path in cases:
+    for args, path, dk in cases:
         calls.clear()
-        t_flash_kernel.attention_cuda(*args, **kw)
-        assert calls == [(path, kw)]
+        d = args[0].shape[-1]
+        assert t_flash_kernel.attention_cuda(*args, **kw).shape == args[0].shape
+        assert calls == [(path, dk, dict(kw, scale=1.0 / math.sqrt(d)))]
     calls.clear()
     monkeypatch.setattr(t_flash, "runs_plain", lambda t: False)
     t_flash.flash_attention(view, view, view, **kw)
-    assert calls == [("flash_attention_wgmma_cuda", kw)]
+    assert calls == [("flash_attention_wgmma_cuda", 128, dict(kw, scale=1.0 / math.sqrt(128)))]
+    with pytest.raises(ValueError, match="up to 256"):
+        t_flash_kernel.attention_cuda(*(torch.zeros(1, 1, 4, 320, dtype=bf),) * 3)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_attention_outside_the_kernels_head_dims_runs_plain_on_cpu(dtype):
-    """Head dims no card kernel takes (256, recurrentgemma-2b's, among them:
-    ROADMAP C9): on the CPU the flash and decode ops compute them and equal
-    the JAX ops; the card refuses them (``tests/test_torch_cuda.py``)."""
-    for d in (16, 256):
+    """Head dims off the kernels' 32/64/128 (16, 48 and 96, which the card
+    runs zero-padded, and 256, recurrentgemma-2b's, which it runs as it is):
+    on the CPU the flash and decode ops compute them and equal the JAX ops
+    (``test_padded_head_dims_match_jax`` runs the card's padding)."""
+    for d in (16, 48, 96, 256):
         jq, tq = both(normal(30, (1, 4, 40, d)), dtype)
         jk, tk = both(normal(31, (1, 1, 40, d)), dtype)
         got = t_flash.flash_attention(tq, tk, tk, causal=True)
@@ -334,10 +347,17 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
     """``decode_cuda`` routes by ``chunked_eligible`` alone and never calls
     the other wrapper (CPU tensors, the wrappers replaced by recorders); the
     op sends a CUDA-bound call there and nowhere else."""
-    calls = []
+    calls, seen = [], []
+
+    def recorder(name):
+        def record(q, k, v, lengths, **kw):
+            calls.append((name, kw))
+            seen[:] = [q.shape[-1]]
+            return q
+        return record
+
     for name in ("decode_attention_cuda", "decode_attention_chunked_cuda"):
-        monkeypatch.setattr(t_decode_kernel, name,
-                            lambda q, k, v, lengths, _n=name, **kw: calls.append((_n, kw)))
+        monkeypatch.setattr(t_decode_kernel, name, recorder(name))
     bf = torch.bfloat16
     lens = torch.full((2,), 5, dtype=torch.int32)
     cases = [((torch.zeros(2, 2, 2, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
@@ -350,12 +370,20 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
     for (q, k), path in cases:
         calls.clear()
         t_decode_kernel.decode_cuda(q, k, k, lens, softcap=30.0)
-        assert calls == [(path, {"softcap": 30.0})]
+        assert calls == [(path, {"softcap": 30.0, "scale": 1.0 / math.sqrt(q.shape[-1])})]
+    for q, k, dk in ((torch.zeros(2, 1, 10, 48, dtype=bf), torch.zeros(2, 9, 1, 48, dtype=bf), 64),
+                     (torch.zeros(2, 2, 2, 200), torch.zeros(2, 9, 2, 200), 256)):
+        calls.clear()
+        assert t_decode_kernel.decode_cuda(q, k, k, lens).shape == q.shape
+        path = "decode_attention_chunked_cuda" if q.dtype == bf else "decode_attention_cuda"
+        assert calls == [(path, {"softcap": 0.0, "scale": 1.0 / math.sqrt(q.shape[-1])})]
+        assert seen == [dk]
     calls.clear()
     monkeypatch.setattr(t_decode, "runs_plain", lambda t: False)
     q, k = cases[0][0]
     t_decode.decode_attention(q, k, k, lens)
-    assert calls == [("decode_attention_chunked_cuda", {"softcap": 0.0})]
+    assert calls == [("decode_attention_chunked_cuda",
+                      {"softcap": 0.0, "scale": 1.0 / math.sqrt(128)})]
 
 
 # ---------------- wkv ----------------
@@ -399,9 +427,11 @@ def test_wkv_plain_matches_jax_kernel_and_ref(t, chunk):
 
 
 def test_wkv_head_sizes_outside_the_kernel_run_plain_on_cpu():
-    """Head sizes the card's wkv kernel refuses (N outside 32 and 64: ROADMAP
-    C9): the CPU op computes them and equals the JAX model's scan."""
-    for N in (16, 128):
+    """Head sizes off the chunked kernel's 32 and 64 (16 and 48, which the
+    card runs zero-padded, and 128, which it runs step by step): the CPU op
+    computes them and equals the JAX model's scan
+    (``test_wkv_padded_head_sizes_match_jax`` runs the card's padding)."""
+    for N in (16, 48, 128):
         B, T, H = 2, 20, 2
         r, k, v, w = wkv_inputs(26, (B, T, H, N))
         u, s0 = normal(27, (H, N)), normal(28, (B, H, N, N))
@@ -570,6 +600,216 @@ def test_wkv_dispatch_picks_the_kernel_by_steps(monkeypatch):
     assert calls == [("wkv_cuda", 5, {"state_out": None})]
 
 
+# ---------------- the card's padding of head dims, run with plain kernels ----------------
+
+def _plain_at_kernel_dims(dims):
+    """Fake kernel wrappers for the padding tests: the plain attention at the
+    head dim the wrapper was handed, which must be a kernel one, with the
+    scale it was handed."""
+    def flash(q, k, v, *, causal, window, softcap, scale):
+        assert q.shape[-1] in dims
+        qs = (q.float() * (scale * math.sqrt(q.shape[-1]))).to(q.dtype)
+        return t_flash.attention_ref(qs, k, v, causal=causal, window=window, softcap=softcap)
+
+    def decode(q, k, v, lengths, *, softcap, scale):
+        assert q.shape[-1] in dims
+        qs = (q.float() * (scale * math.sqrt(q.shape[-1]))).to(q.dtype)
+        return t_decode.decode_attention_ref(qs, k, v, lengths, softcap)
+    return flash, decode
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_padded_head_dims_match_jax(dtype, monkeypatch):
+    """The card's path for head dims between the kernels' (16, 48, 96 and
+    200): zero-padded to the next kernel head dim at the true dim's scale,
+    the output sliced back, with the kernels replaced by plain versions that
+    check the dim they are handed. Equals the JAX ops at the kernel tests'
+    tolerances: the padding is exact. (In fp32 the fake kernel's q is scaled
+    exactly as the kernel scales its logits; in bf16 the scaled q is rounded
+    once more.)"""
+    flash, decode = _plain_at_kernel_dims(t_flash_kernel.HEAD_DIMS)
+    for name in ("flash_attention_cuda", "flash_attention_wgmma_cuda"):
+        monkeypatch.setattr(t_flash_kernel, name, flash)
+    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda"):
+        monkeypatch.setattr(t_decode_kernel, name, decode)
+    for d in (16, 48, 96, 200):
+        jq, tq = both(normal(40, (1, 4, 40, d)), dtype)
+        jk, tk = both(normal(41, (1, 2, 40, d)), dtype)
+        jv, tv = both(normal(42, (1, 2, 40, d)), dtype)
+        got = t_flash_kernel.attention_cuda(tq, tk, tv, causal=True, window=16)
+        want = K.flash_attention.flash_attention(jq, jk, jv, causal=True, window=16)
+        assert got.shape == tq.shape and rel_err(t2np(got), want) < tol(dtype), d
+        jq, tq = both(normal(43, (2, 1, 4, d)), dtype)
+        jk, tk = both(normal(44, (2, 50, 1, d)), dtype)
+        lens = np.array([50, 17], np.int32)
+        got = t_decode_kernel.decode_cuda(tq, tk, tk, torch.from_numpy(lens))
+        want = K.decode_attention.decode_attention(jq, jk, jk, jnp.asarray(lens))
+        assert got.shape == tq.shape and rel_err(t2np(got), want) < tol(dtype), d
+
+
+def test_wkv_padded_head_sizes_match_jax(monkeypatch):
+    """The card's path for head sizes 16 and 48: r, k, v, u zero-padded and
+    w one-padded to the next kernel size, the state's padded rows and
+    columns zero, output and state sliced back (into ``state_out`` in
+    place), with the kernels replaced by the plain version at the padded
+    size. Equals the JAX model's scan at the wkv bound: the padding is
+    exact."""
+    def plain(r, k, v, w, u, state0=None, lengths=None, *, state_out=None):
+        assert r.shape[-1] in t_wkv_kernel.HEAD_SIZES
+        out, state = wkv_ref(r, k, v, w, u, state0, lengths)
+        return out, state if state_out is None else state_out.copy_(state)
+
+    for name in ("wkv_cuda", "wkv_chunked_cuda"):
+        monkeypatch.setattr(t_wkv_kernel, name, plain)
+    monkeypatch.setattr(t_wkv, "runs_plain", lambda t: False)
+    for N in (16, 48):
+        B, T, H = 2, 20, 2
+        r, k, v, w = wkv_inputs(46, (B, T, H, N))
+        u, s0 = normal(47, (H, N)), normal(48, (B, H, N, N))
+        want_out, want_state = jax_recurrent.wkv_scan(
+            *(jnp.asarray(a) for a in (r, k, v, w)), jnp.asarray(u), jnp.asarray(s0),
+            chunk=16)
+        state = torch.from_numpy(s0.copy())
+        out, got_state = t_wkv.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u)), state,
+                                   state_out=state)
+        assert got_state is state and out.shape == (B, T, H, N)
+        assert rel_err(out.numpy(), want_out) < WKV_TOL
+        assert rel_err(state.numpy(), want_state) < WKV_TOL
+
+
+# ---------------- gated GELU ----------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gelu_mul_plain_matches_jax(dtype):
+    """gelu(g) * u against JAX's ``jax.nn.gelu(g, approximate=True) * u``
+    (the gated-GELU MLP's product): one rounding here, two in JAX's bf16."""
+    jg, tg = both(normal(50, (64, 384)) * 3, dtype)
+    ju, tu = both(normal(51, (64, 384)), dtype)
+    got = t_gelu.gelu_mul(tg, tu)
+    want = jax.nn.gelu(jg, approximate=True) * ju
+    assert got.dtype == tg.dtype and rel_err(t2np(got), want) < tol(dtype)
+    assert torch.equal(got, gelu_mul_ref(tg, tu))
+
+
+def test_gelu_mul_matches_jax_gated_mlp():
+    """recurrentgemma's MLP (smoke size, the same bf16 weights): the port's
+    ``mlp_apply`` through gelu_mul against JAX's ``mlp_apply``, at 2e-2."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config, smoke_config as jax_smoke
+    from repro_torch.configs import ModelConfig
+    jcfg = jax_smoke(jax_get_config("recurrentgemma-2b"))
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jp = jax_layers.mlp_init(jcfg, jax.random.PRNGKey(3))
+    tp = torch.nn.ParameterDict({n: torch.nn.Parameter(torch.from_numpy(
+        np.asarray(a, np.float32)).bfloat16(), requires_grad=False) for n, a in jp.items()})
+    jx, tx = both(normal(52, (2, 9, cfg.d_model)), "bfloat16")
+    want = jax_layers.mlp_apply(jcfg, jp, jx)
+    got = t_layers.mlp_apply(cfg, tp, tx)
+    assert got.dtype == torch.bfloat16 and rel_err(t2np(got), want) < 2e-2
+
+
+# ---------------- the RG-LRU scan ----------------
+
+RGLRU_TOL = 1e-4
+
+
+def rglru_pair(d=64):
+    """(JAX config, JAX params, port config, port params) of an RG-LRU block,
+    every leaf fp32 (the comparison of the algorithm)."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config, smoke_config as jax_smoke
+    from repro_torch.configs import ModelConfig
+    jcfg = dataclasses.replace(jax_smoke(jax_get_config("recurrentgemma-2b")), d_model=d)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jax_recurrent.rglru_init(jcfg, jax.random.PRNGKey(4)))
+    jp["lam"] = jnp.asarray(np.linspace(-4.0, 9.0, d, dtype=np.float32))  # decays near 1 and 0
+    tp = torch.nn.ParameterDict({n: torch.nn.Parameter(torch.from_numpy(np.array(a)),
+                                                       requires_grad=False)
+                                 for n, a in jp.items()})
+    return jcfg, jp, ModelConfig(**dataclasses.asdict(jcfg)), tp
+
+
+def test_rglru_gates_match_jax():
+    """a and b of the recurrence from the port's gates against JAX's
+    ``_rglru_gates`` on the same fp32 input, at fp32 rounding."""
+    from repro_torch.kernels.rglru.ref import rglru_gates
+    _, jp, _, tp = rglru_pair()
+    u = normal(53, (2, 7, 64))
+    ja, jb = jax_recurrent._rglru_gates(jp, jnp.asarray(u))
+    uf = torch.from_numpy(u)
+    a, b = rglru_gates(uf, uf @ tp["w_a"], uf @ tp["w_x"], tp["lam"])
+    assert rel_err(a.numpy(), ja) < 1e-5 and rel_err(b.numpy(), jb) < 1e-5
+
+
+def test_rglru_plain_matches_jax_block_with_state():
+    """The port's RG-LRU block (gelu branch, conv, gates, the rglru op's
+    plain scan) against JAX's ``rglru_apply`` in fp32 from a nonzero h0 and
+    conv carry, output, final h and carry at 1e-4; then three steps against
+    ``rglru_decode_step``, h updated in place."""
+    from repro_torch.models import recurrent as t_recurrent
+    jcfg, jp, cfg, tp = rglru_pair()
+    x, h0 = normal(54, (2, 19, 64)), normal(55, (2, 64))
+    carry = normal(56, (2, cfg.rglru_conv_width - 1, 64))
+    jy, (jh, jc) = jax_recurrent.rglru_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(h0),
+                                             jnp.asarray(carry))
+    y, (h, c) = t_recurrent.rglru_apply(cfg, tp, torch.from_numpy(x), torch.from_numpy(h0),
+                                        torch.from_numpy(carry))
+    for got, want in ((y, jy), (h, jh), (c, jc)):
+        assert rel_err(got.numpy(), want) < RGLRU_TOL
+    h, c, jh, jc = h.clone(), c, jh, jc
+    for s in range(3):
+        xs = normal(57 + s, (2, 1, 64))
+        jy, (jh, jc) = jax_recurrent.rglru_decode_step(jcfg, jp, jnp.asarray(xs), jh, jc)
+        y, (h_new, c) = t_recurrent.rglru_decode_step(cfg, tp, torch.from_numpy(xs), h, c)
+        assert h_new is h
+        for got, want in ((y, jy), (h, jh), (c, jc)):
+            assert rel_err(got.numpy(), want) < RGLRU_TOL
+
+
+def test_rglru_lengths_match_jax_on_the_unpadded_sequence():
+    """Per-sequence lengths: each sequence's output on its real steps, final
+    h and conv carry (its last W - 1 real inputs) equal JAX's block run on
+    that sequence alone, unpadded; the op's h_out is written in place."""
+    from repro_torch.models import recurrent as t_recurrent
+    jcfg, jp, cfg, tp = rglru_pair()
+    x = normal(60, (3, 17, 64))
+    lens = [17, 9, 2]
+    h_out = torch.full((3, 64), 7.0)
+    y, (h, c) = t_recurrent.rglru_apply(cfg, tp, torch.from_numpy(x),
+                                        lengths=torch.tensor(lens, dtype=torch.int32),
+                                        h_out=h_out)
+    assert h is h_out
+    for b, n in enumerate(lens):
+        jy, (jh, jc) = jax_recurrent.rglru_apply(jcfg, jp, jnp.asarray(x[b:b + 1, :n]))
+        assert rel_err(y[b:b + 1, :n].numpy(), jy) < RGLRU_TOL
+        assert rel_err(h[b:b + 1].numpy(), jh) < RGLRU_TOL
+        assert rel_err(c[b:b + 1].numpy(), jc) < RGLRU_TOL
+
+
+def test_rglru_op_plain_is_the_step_loop():
+    """The op on CPU tensors is ``rglru_ref``: bf16 u and gate, fp32 gates,
+    the wave, a batch-1 call and T = 1 from h0, equal bit for bit; the
+    output past a sequence's length is the gate times its frozen h."""
+    rng = np.random.default_rng(61)
+    B, T, d = 3, 12, 32
+    u = torch.from_numpy(rng.standard_normal((B, T, d)).astype(np.float32)).bfloat16()
+    gate = torch.from_numpy(rng.standard_normal((B, T, d)).astype(np.float32)).bfloat16()
+    ga, gx = (torch.from_numpy(rng.standard_normal((B, T, d)).astype(np.float32) * 3)
+              for _ in range(2))
+    lam = torch.from_numpy(np.linspace(-3, 8, d, dtype=np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    lens = torch.tensor([12, 5, 1], dtype=torch.int32)
+    for args in ((u, ga, gx, lam, gate, h0, lens), (u[:1], ga[:1], gx[:1], lam, gate[:1]),
+                 (u[:, :1], ga[:, :1], gx[:, :1], lam, gate[:, :1], h0)):
+        y, h = t_rglru.rglru(*args)
+        wy, wh = rglru_ref(*args)
+        assert torch.equal(y, wy) and torch.equal(h, wh)
+    y, h = t_rglru.rglru(u, ga, gx, lam, gate, h0, lens)
+    assert torch.equal(y[1, 5:], gate[1, 5:].float() * h[1])
+
+
 # ---------------- dispatch ----------------
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
@@ -594,6 +834,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     args = {"rmsnorm": (x[0, 0], torch.ones(32)),
             "layernorm": (x[0, 0], torch.ones(32), torch.zeros(32)),
             "gelu": (x,),
+            "gelu_mul": (x, x),
             "silu_mul": (x, x),
             "flash_attention": (x, x, x),
             "flash_attention_wgmma": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 3,
@@ -604,6 +845,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
                                          torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
             "wkv_chunked": (x, x, x, x, torch.zeros(8, 32)),
+            "rglru": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16()),
             "matmul": (x[0, 0], x[0, 0].t()),
             "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
             "matmul_f32_tma": (x[0, 0], x[0, 0].t().contiguous()),

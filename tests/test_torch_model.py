@@ -329,7 +329,6 @@ def test_rwkv6_param_count_at_full_size():
 
 @pytest.mark.parametrize("arch,field", [
     ("granite-moe-3b-a800m", "family"),
-    ("recurrentgemma-2b", "family"),
     ("whisper-tiny", "family"),
     ("llama-3.2-vision-11b", "family"),
 ])
@@ -341,11 +340,11 @@ def test_configs_outside_the_slice_raise(arch, field):
 
 @pytest.mark.parametrize("change,field", [
     ({"n_experts": 4, "top_k": 2}, "n_experts"),
-    ({"attn_window": 64}, "attn_window"),
+    ({"cross_attention": True}, "cross_attention"),
     ({"attn_logit_softcap": 30.0}, "attn_logit_softcap"),
     ({"activation": "relu"}, "activation"),
     ({"mlp_gated": False, "activation": "relu"}, "activation"),
-    ({"norm": "layernorm", "attn_window": 128}, "attn_window"),
+    ({"norm": "layernorm", "block_pattern": ("attn", "xattn")}, "block_pattern"),
     ({"norm": "scalenorm"}, "norm"),
 ])
 def test_dense_fields_outside_the_slice_raise(change, field):

@@ -11,10 +11,13 @@ which keeps the margins wide; with the layer weights scaled up the streams
 vary but near ties appear within the tolerance. Non-greedy draws cannot
 match ``jax.random``; the sampler is tested by its properties instead.
 
-RWKV6 (rwkv6-7b's smoke config) is held to the JAX engine where the first
-wave's prompts are of one length, and, on a wave of unequal prompts, to JAX
-run on each request alone at batch 1: the JAX wave runs a short prompt's
-pads through its state (``ROADMAP.md``, C4), the port's does not.
+RWKV6 (rwkv6-7b's smoke config) and Griffin (recurrentgemma-2b's, whose
+local window is 64 there) are held to the JAX engine where the first wave's
+prompts are of one length, and, on a wave of unequal prompts, to JAX run on
+each request alone at batch 1: the JAX wave runs a short prompt's pads
+through its recurrent state, and past the window keeps the wave's last
+positions in the ring rather than each prompt's own (``ROADMAP.md``, C4);
+the port's does neither.
 """
 import dataclasses
 
@@ -29,7 +32,7 @@ from repro.configs import get_config as jax_get_config, smoke_config as jax_smok
 from repro.serving import Engine as JaxEngine, Request as JaxRequest
 from repro_torch import models
 from repro_torch.configs import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, unit_structure
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving import (Engine, Request, SamplingParams, sample,
                                  sample_per_request)
@@ -192,16 +195,29 @@ def _check_engine(jeng, jdone, cfg, model, reqs, n_new):
     assert len({tuple(o) for o in got.values()}) == 5
     assert eng.stats["tokens_out"] == sum(n_new) == jeng.stats["tokens_out"]
     assert eng.stats["steps"] == jeng.stats["steps"]
-    # the refilled slots' caches (K/V, or RWKV6's state and token shifts)
-    # and positions, as the JAX engine left them (the tokens alone would not
-    # show a misplaced cache: at this init scale the model's greedy stream
-    # hardly depends on its context)
-    jcache = jeng.cache["units"]["u0"]
+    # the refilled slots' caches (K/V, Griffin's RG-LRU state and conv
+    # carry, or RWKV6's state and token shifts) and positions, as the JAX
+    # engine left them (the tokens alone would not show a misplaced cache:
+    # at this init scale the model's greedy stream hardly depends on its
+    # context)
+    jcache = _jax_cache_by_kind(cfg, jeng.cache)
     assert eng.cache["pos"].tolist() == np.asarray(jeng.cache["pos"]).tolist()
     assert set(eng.cache) == set(jcache) | {"pos"}
-    for name, leaf in jcache.items():
-        want = np.asarray(leaf, np.float32)
+    for name, want in jcache.items():
         assert rel_err(eng.cache[name].float().numpy(), want) < TOL, name
+
+
+def _jax_cache_by_kind(cfg, jcache):
+    """The JAX cache's stacked units and remainder in the port's layout: each
+    leaf name's per-layer entries stacked in layer order (the layers of one
+    kind), fp32 numpy."""
+    unit, n_units, rem = unit_structure(cfg)
+    per_layer = [jax.tree.map(lambda a, r=r: a[r], jcache["units"][f"u{j}"])
+                 for r in range(n_units) for j in range(len(unit))]
+    per_layer += [jcache["rem"][f"r{j}"] for j in range(len(rem))]
+    names = {name for leaves in per_layer for name in leaves}
+    return {name: np.stack([np.asarray(leaves[name], np.float32) for leaves in per_layer
+                            if name in leaves]) for name in names}
 
 
 @pytest.fixture(scope="module")
@@ -247,6 +263,73 @@ def test_rwkv6_engine_on_an_unequal_wave_matches_jax_per_request(monkeypatch,
     assert {r.uid: r.output for r in done} == want
     assert eng.stats["tokens_out"] == sum(n_new)
     assert eng.stats["steps"] == max(n_new) - 1
+    _rows_match_jax_alone(jcfg, jparams, prompts, want, rows)
+
+
+@pytest.fixture(scope="module")
+def griffin_setup():
+    return _pair("recurrentgemma-2b")
+
+
+def test_griffin_engine_matches_jax_engine_on_an_equal_length_wave(monkeypatch,
+                                                                   griffin_setup):
+    """recurrentgemma-2b's smoke config (RG-LRU and local-attention layers,
+    gated GELU): the first wave's two prompts of one length, then three
+    refills of other lengths, against the JAX engine, teacher-forced on its
+    tokens: the schedule, counters, every sampled row against JAX per
+    request, and the slots' final ring K/V, RG-LRU state and conv carry."""
+    jcfg, jparams, cfg, model = griffin_setup
+    prompts = _prompts(5, cfg.vocab_size)
+    prompts[1] = prompts[1][:len(prompts[0])] + prompts[0][len(prompts[1]):]
+    assert len(prompts[0]) == len(prompts[1]) != len(prompts[2])
+    _forced_engine_matches_jax_engine(monkeypatch, jcfg, jparams, cfg, model,
+                                      prompts)
+
+
+def test_griffin_engine_on_an_unequal_wave_matches_jax_per_request(monkeypatch,
+                                                                   griffin_setup):
+    """Four prompts of 3-11 tokens in one right-padded wave on four slots,
+    then decode, teacher-forced on JAX's greedy tokens for each request
+    alone: every row the engine sampled from against JAX's logits for that
+    request and step (the pads must stay out of h and the conv carry)."""
+    jcfg, jparams, cfg, model = griffin_setup
+    prompts = _prompts(4, cfg.vocab_size)
+    assert len({len(p) for p in prompts}) > 1
+    n_new = [6, 4, 5, 7]
+    want = {i: _jax_greedy_margins(jcfg, jparams, p, n)[0]
+            for i, (p, n) in enumerate(zip(prompts, n_new))}
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    rows = _teacher_force(monkeypatch, reqs, want)
+    eng = Engine(cfg, model, batch_size=4, max_len=64, device="cpu")
+    done = eng.run(reqs)
+    assert {r.uid: r.output for r in done} == want
+    _rows_match_jax_alone(jcfg, jparams, prompts, want, rows)
+
+
+def test_griffin_engine_serves_prompts_past_the_window(monkeypatch, griffin_setup):
+    """Prompts of 70-100 tokens, past the smoke window of 64, on two slots
+    of a 128-token budget (a ring of 64): a wave of two unequal prompts and
+    a refill, each decoding past its ring's wrap, teacher-forced on JAX's
+    greedy tokens for each request alone; every sampled row against JAX's
+    logits for that request and step. The ring must hold each prompt's own
+    last 64 keys and each refill's ring must land in its slot."""
+    jcfg, jparams, cfg, model = griffin_setup
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (100, 70, 83)]
+    n_new = [5, 9, 6]
+    want = {i: _jax_greedy_margins(jcfg, jparams, p, n)[0]
+            for i, (p, n) in enumerate(zip(prompts, n_new))}
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    rows = _teacher_force(monkeypatch, reqs, want)
+    eng = Engine(cfg, model, batch_size=2, max_len=128, device="cpu")
+    inserts = []
+    insert = eng._insert
+    eng._insert = lambda one, slot: (inserts.append(slot), insert(one, slot))
+    done = eng.run(reqs)
+    assert inserts == [0] and eng.cache["k"].shape[2] == 64
+    assert {r.uid: r.output for r in done} == want
     _rows_match_jax_alone(jcfg, jparams, prompts, want, rows)
 
 
