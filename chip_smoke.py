@@ -75,7 +75,7 @@ result line):
                e4m3 wgmma, promoted into fp32 every 128 of K or every
                instruction, at the same gpt3 shapes against the fp8 checks,
                beside ``torch._scaled_mm``'s own errors;
-  4. serve   - five served paths, one model each, random weights from a
+  4. serve   - seven served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
                layernorm, silu_mul, partial RoPE, d_head 64), gpt3-175b
@@ -84,7 +84,15 @@ result line):
                depth, attention-free; layernorm, wkv) and recurrentgemma-2b
                (full width and depth, 26 layers: 18 RG-LRU layers (gelu on
                the gate branch, rglru) and 8 local-attention layers at
-               D = 256 on one kv-head; rmsnorm, gelu_mul). Each serves 16 greedy
+               D = 256 on one kv-head; rmsnorm, gelu_mul), and two MoE
+               decoders: granite-moe-3b-a800m (full size, 3.30 G
+               parameters: 40 experts, top-8, SwiGLU experts on silu_mul,
+               24 heads of 64 on 8 kv-heads) and grok-1-314b (full width
+               cut to 4 of 64 layers, 21.3 G parameters: 8 experts, top-2,
+               gated-GELU experts on gelu_mul, 48 heads of 128 on 8, both
+               attention kernels under its logit softcap of 30); their
+               experts' products are torch.bmm and their dispatch and
+               combine plain ops, as the JAX model leaves them to XLA. Each serves 16 greedy
                requests of 16-48 new tokens on 8 slots through the port's
                Engine: one whole-batch prefill of prompts of unequal
                lengths, then each freed slot refilled by a batch-1 prefill
@@ -98,15 +106,30 @@ result line):
                wkv_chunked a decode step); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
+               for an MoE model the share of (token, choice) assignments
+               its capacity drops at layer 0, in the served wave (its pads
+               route and take capacity as in the JAX model, ROADMAP C10)
+               and in one 8-slot decode step, and one decode step run under
+               torch.cuda.set_sync_debug_mode("error"): nothing on it waits
+               for the host;
                for recurrentgemma-2b then the ring phase: one request of a
                2304-token prompt, past its 2048-token window, on a budget
                of 2560, and 40 decode steps past the ring's wrap, with
                exactly one prefill's and 40 steps' launches;
                each model and its cache are freed before the next is built;
-  5. model   - each model at full width cut in depth (qwen3, stablelm and
-               rwkv6 to 2 layers, gpt3 to 1, recurrentgemma to 3: one unit),
-               its prefill and decode logits on the card against the port's
-               CPU path on a batch of two prompts of unequal lengths; for
+  5. model   - each model at full width cut in depth (qwen3, stablelm,
+               rwkv6 and granite to 2 layers, gpt3 and grok to 1,
+               recurrentgemma to 3: one unit), its prefill and decode logits
+               on the card against the port's CPU path on a batch of two
+               prompts of unequal lengths, the card teacher-forced on the
+               CPU's greedy tokens; an MoE model's routing is recorded on
+               the CPU and replayed on the card (a top-k near-tie may flip
+               between the two and move a token by a share of its MLP
+               term), and in that run the experts the card would have
+               chosen itself are held to the CPU's: a choice may differ
+               only where the CPU's margin between the k-th and (k+1)-th
+               router logit is at most twice the largest card-CPU
+               router-logit difference of that layer's call; for
                rwkv6 and recurrentgemma also the short prompt's recurrent
                state (and ring K/V) after the padded wave against that
                prompt prefilled alone on the card; then the ring phase held
@@ -129,7 +152,19 @@ result line):
                refill and decode step; the chunked wkv kernel at the served
                rwkv6 run's wave and each of its 8 refills beside the
                step-by-step kernel and at each column split, and the decode
-               step beside ``s0.mul_(1.0)`` on its state; for bf16 the
+               step beside ``s0.mul_(1.0)`` on its state, and at N = 128
+               (wkv.cu); silu_mul beside F.silu(g) * u, also at granite's
+               expert buffer at its served wave; gelu_mul at grok's; flash
+               at both MoE models' waves on the model's transposed views
+               (grok's under its softcap, beside SDPA without it, which
+               takes none); the chunked decode kernel at their decode steps
+               (grok's softcap) beside the split one and SDPA; each of
+               these MoE shapes first held to its plain version on the
+               tensors timed, as in phase 2 (the split kernel too); the
+               whole MoE layer of granite at its decode step and its wave
+               against the bytes of its 40 experts (its own ``[timing]
+               moe_apply`` record, outside the kernels); the fp16 GEMM mode
+               beside torch.matmul in fp16; for bf16 the
                port's mapper's predicted latency on its H100 preset and the
                wgmma kernel's time at the tile ``mapper_blocks`` picks.
 
@@ -137,6 +172,7 @@ The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -154,14 +190,17 @@ INT8_FP8_TENSOR_OPS = 1979e12  # H100 SXM dense int8 and fp8 tensor cores
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 WKV_TOL = 1e-4
-# (arch, layers served or None for all): the port's four served paths
+# (arch, layers served or None for all): the port's served paths
 SERVED = (("qwen3-1.7b", None), ("stablelm-1.6b", None), ("gpt3-175b", 8),
-          ("rwkv6-7b", None), ("recurrentgemma-2b", None))
+          ("rwkv6-7b", None), ("recurrentgemma-2b", None), ("granite-moe-3b-a800m", None),
+          ("grok-1-314b", 4))
 # (arch, layers, prompt tokens, decode steps) of the card-vs-CPU check;
-# gpt3's CPU side runs 2.4 G parameters in bf16, hence the short prompts
+# gpt3's CPU side runs 2.4 G parameters in bf16 and grok's 6.5 G, hence the
+# short prompts
 MODEL_CHECKS = (("qwen3-1.7b", 2, 64, 8), ("stablelm-1.6b", 2, 64, 8),
                 ("gpt3-175b", 1, 16, 4), ("rwkv6-7b", 2, 64, 8),
-                ("recurrentgemma-2b", 3, 64, 8))
+                ("recurrentgemma-2b", 3, 64, 8), ("granite-moe-3b-a800m", 2, 64, 8),
+                ("grok-1-314b", 1, 16, 4))
 # the ring phase: recurrentgemma-2b past its 2048-token window, a prompt of
 # RING_PROMPT tokens on a RING_MAX_LEN budget, RING_STEPS decode steps past
 # the wrap; held against the CPU path at RING_LAYERS layers (one unit)
@@ -720,32 +759,39 @@ def phase_kernels(torch):
     shapes, or at all its shapes where it has no main-path one}."""
     errs, any_errs = {}, {}
     for name, label, fn, plain, args, main in kernel_cases(torch):
-        got = fn(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
         dt = str(args[0].dtype).replace("torch.", "")
-        err = rel_err(got, want)
-        require(got.shape == want.shape and got.dtype == want.dtype,
-                f"{name} {label}: {tuple(got.shape)} {got.dtype} vs plain "
-                f"{tuple(want.shape)} {want.dtype}")
-        require(err < TOL[dt], f"{name} {label} {dt}: rel_err {err:.3e} >= {TOL[dt]}")
-        line = f"[kernels] {name:16s} {dt:8s} {label}: rel_err {err:.3e} (tol {TOL[dt]:g})"
-        if name in ELEMENTWISE and dt == "bfloat16":
-            require(within_one_rounding(got, want),
-                    f"{name} {label}: an element is off by more than one bf16 rounding")
-        elif dt == "bfloat16":
-            excess = attention_excess(got, want)
-            line += f", per-element excess {excess:.3f} (<= 1)"
-            require(excess <= 1, f"{line}: an element is off by more than "
-                    "2^-6 |b| + 2^-5 rms(row)")
-        print(f"{line} ok")
+        err = hold(torch, name, label, dt, fn(*args), plain(*args))
         if dt == "bfloat16":
             into = errs if main else any_errs
-            into[name] = max(into.get(name, 0.0), max_abs(got, want))
+            into[name] = max(into.get(name, 0.0), err)
     phase_wkv(torch, errs)
     phase_rglru(torch, errs)
     phase_c9(torch)
     return {**any_errs, **errs}
+
+
+def hold(torch, name, label, dt, got, want):
+    """Holds a kernel's output `got` to its plain version's `want`: relative
+    error below TOL[dt] and, in bf16, element by element (one rounding for
+    the elementwise kernels, ``attention_excess`` for attention). Prints the
+    case's line; returns the largest |got - want|."""
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {label}: {tuple(got.shape)} {got.dtype} vs plain "
+            f"{tuple(want.shape)} {want.dtype}")
+    require(err < TOL[dt], f"{name} {label} {dt}: rel_err {err:.3e} >= {TOL[dt]}")
+    line = f"[kernels] {name:16s} {dt:8s} {label}: rel_err {err:.3e} (tol {TOL[dt]:g})"
+    if name in ELEMENTWISE and dt == "bfloat16":
+        require(within_one_rounding(got, want),
+                f"{name} {label}: an element is off by more than one bf16 rounding")
+    elif dt == "bfloat16":
+        excess = attention_excess(got, want)
+        line += f", per-element excess {excess:.3f} (<= 1)"
+        require(excess <= 1, f"{line}: an element is off by more than "
+                "2^-6 |b| + 2^-5 rms(row)")
+    print(f"{line} ok")
+    return max_abs(got, want)
 
 
 def gemm_excess(torch, got, want, a, b):
@@ -1035,8 +1081,13 @@ def phase_serve(torch, arch, n_layers):
     n_params = sum(p.numel() for p in model.parameters())
     heads = (f"{cfg.d_model // cfg.rwkv_head_dim} RWKV6 heads of {cfg.rwkv_head_dim}"
              if cfg.attention_free else f"{cfg.n_heads} heads of {cfg.d_head}")
+    if cfg.n_experts:
+        heads += (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}"
+                  + (f", logit softcap {cfg.attn_logit_softcap:g}"
+                     if cfg.attn_logit_softcap else ""))
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{heads}, {n_params} parameters "
+          f"{heads}, {n_params} parameters ({cfg.param_count()} by the config's "
+          f"accounting, without the vocab padding) "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), random init on "
           f"the card in {time.perf_counter() - t0:.2f} s")
     gen = torch.Generator("cpu").manual_seed(1)
@@ -1128,6 +1179,16 @@ def phase_serve(torch, arch, n_layers):
     print(f"[serve] {cfg.name}: launches per prefill step {json.dumps(per_prefill)}, "
           f"per decode step {json.dumps(per_decode)}")
     profile_decode(torch, model, cache, toks[:, 0])
+    if cfg.n_experts:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(toks[:, 0], cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"[serve] {cfg.name}: a decode step under torch.cuda.set_sync_debug_mode"
+              f"(\"error\") ran: nothing on it waits for the host")
+        moe_drops(torch, cfg, model, reqs[:SLOTS])
     print(f"[serve] {cfg.name}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del cache
@@ -1136,6 +1197,67 @@ def phase_serve(torch, arch, n_layers):
     del model
     torch.cuda.empty_cache()
     return counts, per_prefill, per_decode, lens
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Within the block the port's ``moe_route`` records each call's experts
+    and fp32 router logits, on the CPU, into the list yielded. With `replay`
+    (such a list) it then returns the replayed experts, call by call, gated
+    by its own probabilities at them: its records hold the experts it would
+    have chosen itself on the replayed run's inputs."""
+    from repro_torch.models import layers
+    route, records, calls = layers.moe_route, [], iter(replay or ())
+
+    def recorded(cfg, p, xt):
+        probs, gate, idx = route(cfg, p, xt)
+        records.append((idx.cpu(), (xt.float() @ p["router"]).cpu()))
+        if replay is None:
+            return probs, gate, idx
+        idx = next(calls)[0].to(xt.device)
+        gate = probs.gather(-1, idx)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    layers.moe_route = recorded
+    try:
+        yield records
+    finally:
+        layers.moe_route = route
+    require(next(calls, None) is None, "a recorded routing was not replayed in full")
+
+
+def dropped_share(torch, idx, n_experts):
+    """(share of a call's (token, choice) assignments past their expert's
+    capacity, that capacity), from the experts' counts: an expert keeps
+    min(count, capacity) of its assignments whatever their order."""
+    T, k = idx.shape
+    capacity = max(1, int(1.25 * T * k / n_experts))
+    counts = torch.bincount(idx.flatten(), minlength=n_experts)
+    return (counts - capacity).clamp(min=0).sum().item() / (T * k), capacity
+
+
+def moe_drops(torch, cfg, model, wave):
+    """The share of (token, choice) assignments dropped at capacity in
+    layer 0, in the served wave (the first SLOTS requests, right-padded as
+    the Engine pads them: every row routes and takes capacity, C10) and in
+    the 8-slot decode step after it."""
+    from repro_torch.models import init_cache
+    S = max(len(r.prompt) for r in wave)
+    toks = torch.zeros((SLOTS, S), dtype=torch.int32)
+    for i, r in enumerate(wave):
+        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    lens = torch.tensor([len(r.prompt) for r in wave], dtype=torch.int32)
+    cache = init_cache(cfg, SLOTS, MAX_LEN, device="cuda")
+    with routing() as calls:
+        logits = model.prefill(toks.cuda(), cache, lens.cuda())
+        model.decode_step(logits[:, :cfg.vocab_size].argmax(-1).int(), cache)
+    wave_share, wave_cap = dropped_share(torch, calls[0][0], cfg.n_experts)
+    step_share, step_cap = dropped_share(torch, calls[cfg.n_layers][0], cfg.n_experts)
+    print(f"[serve] {cfg.name}: layer 0 drops {wave_share:.4f} of the served wave's "
+          f"{SLOTS * S} x {cfg.top_k} assignments ({SLOTS} x {S} rows, {int(lens.sum())} of "
+          f"them prompt tokens; capacity {wave_cap} an expert) and {step_share:.4f} of "
+          f"an 8-slot decode step's {SLOTS} x {cfg.top_k} (capacity {step_cap})")
+    del cache
 
 
 def phase_ring_serve(torch, cfg, model, gen):
@@ -1217,7 +1339,13 @@ def profile_decode(torch, model, cache, tok, steps=5):
 def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
     """Full width, cut in depth: the card's logits against the port's CPU
     path on the same weights, two prompts of S and `short` (S*41/64 by
-    default) tokens on a cache of T (2 S by default) tokens."""
+    default) tokens on a cache of T (2 S by default) tokens, then `steps`
+    decode steps, each fed the CPU's greedy token. An MoE model's routing on
+    the CPU is replayed on the card, and the experts the card would have
+    chosen in each of those calls are held to the CPU's by
+    ``routing_flips``: with the routing replayed, both sides' router inputs
+    differ by the kernels' and GEMMs' roundings alone, in every layer and
+    step."""
     from repro_torch.models import LM, init_cache, init_params
     cfg = served_config(arch, n_layers)
     gpu = init_params(cfg, seed=1, device="cuda")
@@ -1228,26 +1356,32 @@ def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     lens = torch.tensor([S, short or S * 41 // 64], dtype=torch.int32)
     T = T or 2 * S
-    cg = init_cache(cfg, B, T, device="cuda")
-    cc = init_cache(cfg, B, T, device="cpu")
     V = cfg.vocab_size
     t0 = time.perf_counter()
-    lg, lc = gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu(), cpu.prefill(toks, cc, lens)
-    if cfg.attention_free or "rglru" in cfg.block_pattern:
-        check_wave_state(torch, cfg, gpu, toks, lens, cg, lg)
-    errs = [rel_err(lg[:, :V], lc[:, :V])]
-    agree = [(lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item()]
-    for _ in range(steps):
-        nxt = lc[:, :V].argmax(-1).int()        # teacher-force the CPU's tokens
-        lg = gpu.decode_step(nxt.cuda(), cg).cpu()
-        lc = cpu.decode_step(nxt, cc)
-        require(torch.isfinite(lg[:, :V].float()).all(), "non-finite logits on the card")
-        errs.append(rel_err(lg[:, :V], lc[:, :V]))
-        agree.append((lg[:, :V].argmax(-1) == lc[:, :V].argmax(-1)).float().mean().item())
+    with routing() as cpu_routing:
+        cc = init_cache(cfg, B, T, device="cpu")
+        lc = [cpu.prefill(toks, cc, lens)]
+        fed = []
+        for _ in range(steps):
+            fed.append(lc[-1][:, :V].argmax(-1).int())
+            lc.append(cpu.decode_step(fed[-1], cc))
+    with routing(replay=cpu_routing) as card_routing:
+        cg = init_cache(cfg, B, T, device="cuda")
+        lg = [gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu()]
+        if cfg.attention_free or "rglru" in cfg.block_pattern:
+            check_wave_state(torch, cfg, gpu, toks, lens, cg, lg[0])
+        lg += [gpu.decode_step(tok.cuda(), cg).cpu() for tok in fed]
+    ring = cg["k"].shape[2] if "k" in cg else None
+    require(all(torch.isfinite(x[:, :V].float()).all() for x in lg),
+            "non-finite logits on the card")
+    errs = [rel_err(g[:, :V], c[:, :V]) for g, c in zip(lg, lc)]
+    agree = [(g[:, :V].argmax(-1) == c[:, :V].argmax(-1)).float().mean().item()
+             for g, c in zip(lg, lc)]
     tol = 2e-2
-    ring = f", a ring of {cg['k'].shape[2]} slots" if cfg.attn_window else ""
+    ring = f", a ring of {ring} slots" if cfg.attn_window else ""
+    routed = ", the CPU's routing replayed" if cfg.n_experts else ""
     print(f"[model] {cfg.name} (full width, {n_layers} layers, batch {B}, prompts "
-          f"{lens.tolist()}, cache {T}{ring}) card vs CPU, rel_err of logits: prefill "
+          f"{lens.tolist()}, cache {T}{ring}{routed}) card vs CPU, rel_err of logits: prefill "
           f"{errs[0]:.3e}, "
           f"decode max {max(errs[1:]):.3e} (tol {tol:g}: both bf16, kernels against "
           f"plain versions and another GEMM order); {time.perf_counter() - t0:.1f} s")
@@ -1255,8 +1389,35 @@ def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
           f"steps: {statistics.mean(agree):.4f}")
     require(max(errs) < tol, f"{cfg.name}: card vs CPU logits rel_err "
             f"{max(errs):.3e} >= {tol}")
-    del gpu, cpu, cg, cc
+    if cfg.n_experts:
+        n, beyond, worst = routing_flips(cfg.top_k, cpu_routing, card_routing)
+        print(f"[model] {cfg.name}: the card's own choices in the replayed run against "
+              f"the CPU's, {len(card_routing)} calls ({n_layers} layers x {1 + steps} "
+              f"steps): {n} of {sum(i.numel() for i, _ in cpu_routing)} choices differ, "
+              f"{beyond} of them where the CPU's k-th margin exceeds twice the call's "
+              f"largest card-CPU router-logit difference (largest {worst:.3e})")
+        require(beyond == 0, f"{cfg.name}: {beyond} routing choices flipped beyond the margin")
+    del gpu, cpu, cc, cg
     torch.cuda.empty_cache()
+
+
+def routing_flips(k, want, got):
+    """(choices of `got` outside `want`'s top-k over all calls; those of them
+    whose token's margin in `want` between its k-th and (k+1)-th router
+    logit exceeds twice the largest |got - want| router logit of the call;
+    that largest difference over the calls). Such a margin cannot flip:
+    each of the two logits moved by at most the call's largest difference."""
+    n = beyond = 0
+    worst = 0.0
+    require(len(want) == len(got), f"{len(got)} routing calls, not {len(want)}")
+    for (wi, wl), (gi, gl) in zip(want, got):
+        differ = (gi[:, :, None] != wi[:, None, :]).all(-1).sum(-1)
+        top = wl.sort(-1, descending=True).values
+        delta = (gl - wl).abs().max().item()
+        worst = max(worst, delta)
+        n += int(differ.sum())
+        beyond += int(differ[top[:, k - 1] - top[:, k] > 2 * delta].sum())
+    return n, beyond, worst
 
 
 def check_wave_state(torch, cfg, gpu, toks, lens, cache, logits):
@@ -1311,14 +1472,17 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, griffin_lens):
+def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, griffin_lens,
+                 moe_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
     ``shapes``. wkv's prefill is timed at the served rwkv6 run's prompt
     lengths `prompt_lens`: its wave (the first SLOTS) and each of its batch-1
     refills; rglru's at the served recurrentgemma run's `griffin_lens`: its
-    wave and its longest refill. `counts` holds each kernel's launches in its
-    path's run (the serve runs, the GEMM path for the two GEMM kernels)."""
+    wave and its longest refill; the MoE models' shapes at the served wave
+    of `moe_lens` (its first SLOTS prompts, padded to the longest) and their
+    decode step. `counts` holds each kernel's launches in its path's run
+    (the serve runs, the GEMM path for the GEMM kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1332,7 +1496,10 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     rows = {}
 
     def add(name, label, kernel, plain, library, nbytes, flops, rate, iters=25,
-            plain_iters=25, **extra):
+            plain_iters=25, held=False, **extra):
+        # held: a main-path shape no kernel case covers; the kernel is held
+        # to its plain version on these tensors, and its error joins the row's
+        err = hold(torch, name, label, "bfloat16", kernel(), plain()) if held else 0.0
         ms = time_ms(torch, kernel, iters)
         plain_ms = time_ms(torch, plain, plain_iters)
         lib_ms = time_ms(torch, library, iters) if library is not None else None
@@ -1345,11 +1512,12 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
                  "bound_by": b_by, "library_ms": lib_ms, **extra}
         if name in rows:
             rows[name]["shapes"].append(shape)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
             return
         route, source = SOURCES[name]
         rows[name] = {"name": name, "route": route, "source": source,
                       "replaces": REPLACES[name], "launches": counts[name],
-                      "max_abs_err": errs[name], **shape,
+                      "max_abs_err": max(errs[name], err), **shape,
                       "launches_per_prefill_step": {a: c[name] for a, c in per_prefill.items()},
                       "launches_per_decode_step": {a: c[name] for a, c in per_decode.items()},
                       "shapes": [shape]}
@@ -1390,10 +1558,25 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
             paired_triton_ms=[t[2] for t in turns], median_ratio=statistics.median(ratios))
         del x
 
-    for C in (6144, 5632):
-        a, b = rnd((4096, C), bf), rnd((4096, C), bf)
-        add("silu_mul", f"g,u(4096,{C}) bf16", lambda: KERNELS["silu_mul"](a, b),
-            lambda: silu_mul_ref(a, b), None, 3 * 4096 * C * 2, 5 * 4096 * C, FP32_FLOPS)
+    # SwiGLU at qwen3's and stablelm's MLP width (8 x 512 rows) and at
+    # granite's expert buffer at its served wave (E x capacity rows), beside
+    # F.silu(g) * u (two PyTorch kernels); the gated GELU at grok's
+    from repro_torch.configs import get_config
+    granite, grok = get_config("granite-moe-3b-a800m"), get_config("grok-1-314b")
+    moe_S = max(moe_lens[:SLOTS])
+
+    def capacity(cfg, T):
+        return max(1, int(1.25 * T * cfg.top_k / cfg.n_experts))
+
+    E = granite.n_experts
+    R = E * capacity(granite, SLOTS * moe_S)
+    for R, C, what in ((4096, 6144, ""), (4096, 5632, ""),
+                       (R, granite.d_ff, f" (granite's {E} experts x capacity {R // E} at "
+                                         "its served wave)")):
+        a, b = rnd((R, C), bf), rnd((R, C), bf)
+        add("silu_mul", f"g,u({R},{C}) bf16{what}", lambda: KERNELS["silu_mul"](a, b),
+            lambda: silu_mul_ref(a, b), lambda: F.silu(a) * b, 3 * R * C * 2, 5 * R * C,
+            FP32_FLOPS, held=bool(what))
 
     # gated GELU at recurrentgemma's MLP width: the prefill wave and the
     # decode step, beside F.gelu(g) * u (two PyTorch kernels)
@@ -1402,6 +1585,14 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
         add("gelu_mul", f"g,u({R},7680) bf16", lambda: KERNELS["gelu_mul"](a, b),
             lambda: gelu_mul_ref(a, b), lambda: F.gelu(a, approximate="tanh") * b,
             3 * R * 7680 * 2, 11 * R * 7680, FP32_FLOPS)
+    E, C = grok.n_experts, grok.d_ff
+    R = E * capacity(grok, SLOTS * moe_S)
+    a, b = rnd((R, C), bf) * 3, rnd((R, C), bf)
+    add("gelu_mul", f"g,u({R},{C}) bf16 (grok's {E} experts x capacity {R // E} at its "
+        "served wave)", lambda: KERNELS["gelu_mul"](a, b), lambda: gelu_mul_ref(a, b),
+        lambda: F.gelu(a, approximate="tanh") * b, 3 * R * C * 2, 11 * R * C, FP32_FLOPS,
+        plain_iters=5, held=True)
+    del a, b
 
     # the RG-LRU scan at the served recurrentgemma run's wave and longest
     # refill, then the decode step in place. Data-dependent: the inputs of
@@ -1493,6 +1684,78 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
             sum_of_live_kv_ms=time_ms(torch, lambda: live.sum()))
         del qd, kd, vd, live
 
+    # the MoE models' attention, each held to its plain version here (no
+    # kernel case has these shapes): flash at their served wave on the
+    # model's transposed views (grok's under its softcap of 30; SDPA takes
+    # no softcap, so it runs without one), the chunked decode kernel at
+    # their decode step beside the split one (the same softcap) and SDPA
+    # (none)
+    for cfg in (granite, grok):
+        Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_logit_softcap
+        S, G = moe_S, cfg.n_heads // cfg.n_kv_heads
+        q, k, v = (attention_input(rnd, shape, bf, "view")
+                   for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        sdpa_note = ", the library call SDPA without it" if cap else ""
+        add("flash_attention_wgmma", f"{cfg.name}'s wave q({B},{Hq},{S},{D}) "
+            f"kv({B},{Hkv},{S},{D}) view causal softcap {cap:g} bf16{sdpa_note}",
+            lambda: KERNELS["flash_attention_wgmma"](q, k, v, causal=True, softcap=cap),
+            lambda: attention_ref(q, k, v, causal=True, softcap=cap),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D), 4 * D * B * Hq * S * (S + 1) // 2,
+            BF16_TENSOR_FLOPS, held=True)
+        del q, k, v
+        lens_list = decode_lengths(SLOTS, T)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        qd = rnd((SLOTS, Hkv, G, D), bf)
+        kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
+        mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        q_sdpa = qd.reshape(SLOTS, Hkv * G, 1, D)
+        label = (f"{cfg.name}'s decode step q({SLOTS},{Hkv},{G},{D}) "
+                 f"kv({SLOTS},{T},{Hkv},{D}) lengths={lens_list} softcap {cap:g} bf16")
+        hold(torch, "decode_attention", label, "bfloat16",
+             KERNELS["decode_attention"](qd, kd, vd, lens, softcap=cap),
+             decode_attention_ref(qd, kd, vd, lens, cap))
+        split_ms = time_ms(torch, lambda: KERNELS["decode_attention"](qd, kd, vd, lens,
+                                                                     softcap=cap))
+        add("decode_attention_chunked", label + sdpa_note,
+            lambda: KERNELS["decode_attention_chunked"](qd, kd, vd, lens, softcap=cap),
+            lambda: decode_attention_ref(qd, kd, vd, lens, cap),
+            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
+                                                   vd.transpose(1, 2), attn_mask=mask,
+                                                   enable_gqa=True),
+            2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
+            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS, held=True,
+            split_kernel_ms=split_ms)
+        print(f"[timing] decode_attention {cfg.name}'s decode step on the split kernel: "
+              f"{split_ms:.5f} ms")
+        del qd, kd, vd
+
+    # granite's whole MoE layer (router, dispatch, the 40 experts' bmm and
+    # silu_mul, combine, aux loss) at its decode step and its served wave,
+    # against the bytes of its experts and router (and of x and y) and the
+    # experts' bf16 products over every buffer row
+    from repro_torch.models import layers
+    E, d, f = granite.n_experts, granite.d_model, granite.d_ff
+    p = layers.moe_init(granite, torch.Generator("cuda").manual_seed(0), "cuda")
+    weight_bytes = 3 * E * d * f * 2 + d * E * 4
+    moe_layer = []
+    for label, rows_in in (("decode step", SLOTS), ("served wave", SLOTS * moe_S)):
+        x = rnd((1, rows_in, d), bf)
+        C = capacity(granite, rows_in)
+        ms = time_ms(torch, lambda: layers.moe_apply(granite, p, x))
+        b_ms, b_by = bound(weight_bytes + 2 * rows_in * d * 2, 2 * 3 * E * C * d * f,
+                           BF16_TENSOR_FLOPS)
+        expert_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+        moe_layer.append({"shape": f"{label}: x({rows_in},{d}), capacity {C}", "ms": ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "expert_bytes_ms": expert_ms})
+        print(f"[timing] moe_apply        granite's layer at its {label}, x({rows_in},{d}), "
+              f"{E} experts x capacity {C}: {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}); its "
+              f"experts' {weight_bytes / 1e6:.1f} MB alone {expert_ms:.5f} ms at 3.35 TB/s "
+              f"({expert_ms / ms * 100:.1f}%)")
+        del x
+    print(f"[timing] moe_apply {json.dumps(moe_layer)}")
+    del p
+
     # wkv at the served rwkv6 run's prefills: its wave and its 8 batch-1
     # refills (data-dependent: the steps of the prompt lengths are counted,
     # the output is written in full), on the chunked kernel at the op's
@@ -1506,7 +1769,7 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     from repro_torch.kernels.wkv.kernel import COLUMN_SPLITS, chunked_eligible
     H, N = 64, 64
 
-    def wkv_work(lens, T, with_state):
+    def wkv_work(lens, T, with_state, H=H, N=N):
         steps, B = sum(lens), len(lens)
         return (4 * steps * H * N * 4 + B * T * H * N * 4
                 + B * H * N * N * 4 * (2 if with_state else 1) + H * N * 4,
@@ -1554,6 +1817,14 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     print(f"[timing] wkv              decode step: s0.mul_(1.0) on its ({SLOTS},{H},{N},{N}) "
           f"state, {floor_ms:.5f} ms (the floor of its state traffic here)")
     del r, k, v, w, s0
+    # N = 128 (no model has it; ROADMAP C9) on wkv.cu at the [c9] shapes
+    for T in (33, 1):
+        r, k, v, w, u, s0 = wkv_inputs(torch, rnd, 2, T, 2, 128, True)
+        add("wkv", f"r,k,v,w (2,{T},2,128) fp32 state0 in place (C9's N = 128)",
+            lambda: KERNELS["wkv"](r, k, v, w, u, s0, None, state_out=s0),
+            lambda: wkv_ref(r, k, v, w, u, s0, None), None,
+            *wkv_work([T] * 2, T, True, H=2, N=128))
+        del r, k, v, w, s0
 
     # the GEMM path: gpt3-175b's layer GEMMs at M = 8 and 4096; the kernels
     # at the op's tile (its default request clamped to the shape) on
@@ -1678,6 +1949,16 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
                 mma_sync_ms=rows["matmul_int8"]["shapes"][-1]["ms"])
             del qa, qb, a32, b32
             torch.cuda.empty_cache()
+    # the fp16 mode (ROADMAP C9) at gpt3's out GEMM for the decode batch
+    M, Kd, N = SLOTS, 12288, 12288
+    a, b = rnd((M, Kd), torch.float16), rnd((Kd, N), torch.float16)
+    tile = select_tile(torch.float16, min(256, M), min(512, Kd), min(256, N))
+    splits = len(split_plan(M, N, Kd, tile))
+    add("matmul_wgmma", f"gpt3-175b out ({M},{Kd})x({Kd},{N}) fp16 tile {tile}, {splits} "
+        "split(s) of K (C9's fp16 mode)",
+        lambda: KERNELS["matmul_wgmma"](a, b, bm=tile[0], bk=tile[1], bn=tile[2]),
+        lambda: matmul_ref(a, b), lambda: torch.matmul(a, b), 2 * (M * Kd + Kd * N + M * N),
+        2 * M * Kd * N, BF16_TENSOR_FLOPS, mode="fp16")
     return [rows[name] for name in SOURCES]
 
 
@@ -1719,7 +2000,8 @@ def main():
     errs.update(off_path_errs)   # the shapes TMA cannot take, off the path
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
-                        prompt_lens["rwkv6-7b"], prompt_lens["recurrentgemma-2b"])
+                        prompt_lens["rwkv6-7b"], prompt_lens["recurrentgemma-2b"],
+                        prompt_lens["granite-moe-3b-a800m"])
     for row in rows:
         if row["name"] in gemm_kernels:
             row["launches_in_serve_runs"] = counts[row["name"]]

@@ -1,11 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> ModelConfig.
 
 Only the configs the port runs are registered here: the rmsnorm/SwiGLU qwen
-family, stablelm (LayerNorm, partial RoPE), rwkv6-7b (attention-free RWKV6
-time and channel mix, LayerNorm), recurrentgemma-2b (Griffin: RG-LRU layers
-and local-attention layers, a gated-GELU MLP) and, outside ``ARCHS`` as in the JAX
-registry, the paper's own gpt3-175b (LayerNorm, tanh-GELU MLP, sinusoidal
-positions).
+family, stablelm (LayerNorm, partial RoPE), the two MoE decoders
+granite-moe-3b-a800m (40 experts, top-8, SwiGLU) and grok-1-314b (8
+experts, top-2, gated GELU, attention logit softcap 30), rwkv6-7b
+(attention-free RWKV6 time and channel mix, LayerNorm), recurrentgemma-2b
+(Griffin: RG-LRU layers and local-attention layers, a gated-GELU MLP) and,
+outside ``ARCHS`` as in the JAX registry, the paper's own gpt3-175b
+(LayerNorm, tanh-GELU MLP, sinusoidal positions).
 """
 from .base import ModelConfig, smoke_config
 
@@ -13,6 +15,8 @@ from .qwen1_5_0_5b import CONFIG as _qwen15
 from .qwen2_0_5b import CONFIG as _qwen2
 from .stablelm_1_6b import CONFIG as _stablelm
 from .qwen3_1_7b import CONFIG as _qwen3
+from .granite_moe_3b_a800m import CONFIG as _granite
+from .grok_1_314b import CONFIG as _grok
 from .rwkv6_7b import CONFIG as _rwkv6
 from .recurrentgemma_2b import CONFIG as _rgemma
 from .gpt3_175b import CONFIG as _gpt3
@@ -22,6 +26,8 @@ ARCHS = {
     "qwen2-0.5b": _qwen2,
     "stablelm-1.6b": _stablelm,
     "qwen3-1.7b": _qwen3,
+    "granite-moe-3b-a800m": _granite,
+    "grok-1-314b": _grok,
     "rwkv6-7b": _rwkv6,
     "recurrentgemma-2b": _rgemma,
 }

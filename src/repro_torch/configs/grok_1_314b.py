@@ -1,0 +1,12 @@
+"""grok-1-314b [hf:xai-org/grok-1] — MoE 8 experts top-2, GQA kv=8."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b", family="moe",
+    n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8, d_head=128,
+    d_ff=32768, vocab_size=131072,
+    n_experts=8, top_k=2,
+    qkv_bias=False, mlp_gated=True, activation="gelu", norm="rmsnorm",
+    attn_logit_softcap=30.0,
+    source="hf:xai-org/grok-1; unverified",
+)

@@ -6,12 +6,18 @@
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, from
 a seeded ``torch.Generator``. ``--arch`` takes the ids of ``ARCHS`` (with
 rwkv6-7b, whose 7.0 G parameters, 14.0 GB in their bf16 and fp32 dtypes, fit
-one 80 GB card at full depth, and recurrentgemma-2b, 2.89 G parameters, 6.5 GB
-with its fp32 RG-LRU gate weights) and of ``EXTRA_ARCHS`` (gpt3-175b), resolved
-through ``get_config`` as the JAX launcher resolves them; ``--layers`` cuts
-the depth (gpt3-175b's 96 layers, 350 GB of bf16 weights, do not fit one
-80 GB card; 8 layers do). (The JAX launcher's planner report needs the
-analytical stack, which the port has no copy of yet.)
+one 80 GB card at full depth, recurrentgemma-2b, 2.89 G parameters, 6.5 GB
+with its fp32 RG-LRU gate weights, and granite-moe-3b-a800m, 3.30 G, 6.6 GB)
+and of ``EXTRA_ARCHS`` (gpt3-175b), resolved through ``get_config`` as the
+JAX launcher resolves them; ``--layers`` cuts the depth (gpt3-175b's 96
+layers, 350 GB of bf16 weights, do not fit one 80 GB card; 8 layers do;
+grok-1-314b's 64 layers, 633 GB, neither; 4 layers, 42.6 GB, do:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+        --preset full --layers 4
+
+). (The JAX launcher's planner report needs the analytical stack, which
+the port has no copy of yet.)
 """
 from __future__ import annotations
 

@@ -12,17 +12,19 @@ config:
     and RWKV6 configs have a one-layer unit and no remainder; Griffin's unit
     is (rglru, rglru, attn) with a remainder of two rglru layers). Each
     lands in ``blocks.<i>.<group>.<name>``, for every group of the layer:
-    ``ln1``, ``attn``, ``ln2``, ``mlp`` of an attention layer, ``ln1``,
-    ``rec``, ``ln2``, ``mlp`` of an RG-LRU one, ``ln1``, ``tmix``, ``ln2``,
-    ``cmix`` of an RWKV6 one;
+    ``ln1``, ``attn``, ``ln2``, ``mlp`` of an attention layer (``moe`` in
+    place of ``mlp`` in an MoE model), ``ln1``, ``rec``, ``ln2``, ``mlp`` of
+    an RG-LRU one, ``ln1``, ``tmix``, ``ln2``, ``cmix`` of an RWKV6 one;
   * every leaf crosses under its JAX key and in its JAX dtype: a LayerNorm's
     ``scale`` and ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's
     ``scale``, a gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain
-    one's ``w_up``, ``w_down``, RWKV6's bf16 ``mu`` and weights and its fp32
-    ``w0``, decay LoRA, ``u`` and ``ln_x``, the RG-LRU block's bf16
-    ``w_gate``, ``w_in``, ``conv_w``, ``conv_b``, ``w_out`` and fp32
-    ``w_a``, ``w_x``, ``lam``; ``LM.load_state_dict`` (strict)
-    refuses a leaf too many or too few;
+    one's ``w_up``, ``w_down``, the MoE layer's fp32 ``router`` (d, E) and
+    its experts' bf16 ``w_up``, ``w_gate`` (E, d, f) and ``w_down`` (E, f,
+    d), each under the stacked-unit axis like every leaf, RWKV6's bf16
+    ``mu`` and weights and its fp32 ``w0``, decay LoRA, ``u`` and ``ln_x``,
+    the RG-LRU block's bf16 ``w_gate``, ``w_in``, ``conv_w``, ``conv_b``,
+    ``w_out`` and fp32 ``w_a``, ``w_x``, ``lam``; ``LM.load_state_dict``
+    (strict) refuses a leaf too many or too few;
   * weights keep JAX's (in, out) orientation: the port computes ``x @ w`` as
     the JAX model does, so nothing is transposed;
   * bfloat16 crosses bit-exactly: numpy holds it as the ``bfloat16`` dtype of

@@ -1,4 +1,5 @@
-"""Model primitives of the port, the dense subset of ``repro.models.layers``.
+"""Model primitives of the port: ``repro.models.layers`` but the mesh-only
+expert padding and sharding of the MoE layer.
 
 Conventions, as in the JAX package:
   * parameters live in ``nn.ParameterDict``s whose keys are the JAX tree's
@@ -6,13 +7,16 @@ Conventions, as in the JAX package:
   * weights keep JAX's (in, out) orientation, so a projection is ``x @ w``;
   * activations bf16, reductions and normalisers fp32.
 
-The norms, the MLP activations and attention go through the kernel ops,
-which launch the Hopper kernels for CUDA tensors and run their plain
-versions for CPU tensors. Projections stay ``torch.matmul``, as the JAX
-package leaves them to XLA.
+The norms, the MLP activations (the experts' too) and attention go through
+the kernel ops, which launch the Hopper kernels for CUDA tensors and run
+their plain versions for CPU tensors. Projections, the router and the
+experts' products stay ``torch.matmul`` / ``torch.bmm``, and the MoE
+dispatch and combine plain tensor ops, as the JAX package leaves them to
+XLA.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -40,7 +44,7 @@ def _init(gen: Optional[torch.Generator], shape, scale: float = 0.02,
     if gen is None:
         return _param(torch.empty(shape, dtype=dtype, device=device))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return _param((x * scale).to(dtype))
+    return _param(x.mul_(scale).to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +245,95 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity and drop (Switch/GShard)
+# ---------------------------------------------------------------------------
+
+def moe_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> Params:
+    """An fp32 ``router`` (d, E) and the experts' bf16 ``w_up`` (E, d, f),
+    ``w_down`` (E, f, d) and, gated, ``w_gate`` (E, d, f)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = Params({
+        "router": _init(gen, (d, E), device=device, dtype=torch.float32),
+        "w_up": _init(gen, (E, d, f), device=device),
+        "w_down": _init(gen, (E, f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers),
+                        device=device),
+    })
+    if cfg.mlp_gated:
+        p["w_gate"] = _init(gen, (E, d, f), device=device)
+    return p
+
+
+@contextlib.contextmanager
+def _ieee_fp32():
+    """fp32 products in IEEE fp32 (no TF32) whatever the process has set:
+    the router's logits decide which experts run, as the JAX model's fp32
+    dot decides them."""
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+
+
+def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor):
+    """Routing of tokens xt (T, d): (probs (T, E) fp32, the softmax of the
+    fp32 router logits; gate (T, k) fp32, the top-k probabilities, largest
+    first, over their sum; idx (T, k) int64, their experts)."""
+    with _ieee_fp32():
+        logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              capacity_factor: float = 1.25):
+    """Top-k routed experts with a capacity and drop, as the JAX
+    ``moe_apply``: x (B, S, d) -> (y (B, S, d), the Switch aux loss).
+
+    Every (token, choice) takes the next slot of its expert's buffer of
+    ``capacity`` rows, in the flat (token, choice) order; one past the
+    capacity is dropped and adds nothing to its token. Every token of x
+    routes and takes capacity, a padded wave's pads and a decode step's idle
+    slots too (ROADMAP.md, C10). Each expert runs over its whole buffer.
+    Fixed shapes and no host sync: the dropped rows are written to one
+    overflow row past the E buffers, which is sliced off. The k outputs of a
+    token are weighted by their gates and summed in fp32, then rounded to
+    bf16 once (the JAX model rounds each term and adds them in bf16)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    probs, gate, idx = moe_route(cfg, p, xt)
+    capacity = max(1, int(capacity_factor * T * k / E))
+    flat = idx.reshape(-1)                                         # (T*k,)
+    onehot = torch.arange(E, device=x.device)[:, None] == flat     # (E, T*k)
+    # an assignment's slot: the assignments to its expert before it. The
+    # scan runs along the flat order, the contiguous axis: along the other
+    # (T*k rows of E columns) each of its E threads would walk all T*k rows
+    pos = onehot.cumsum(1, dtype=torch.int32).gather(0, flat[None])[0] - 1
+    keep = pos < capacity
+    slot = flat * capacity + pos.clamp(max=capacity - 1)
+    buf = xt.new_zeros((E * capacity + 1, d))
+    buf[torch.where(keep, slot, E * capacity)] = xt[:, None].expand(T, k, d).reshape(T * k, d)
+    hidden = buf[:-1].view(E, capacity, d)
+    up = torch.bmm(hidden, p["w_up"]).view(E * capacity, -1)
+    if cfg.mlp_gated:
+        gated = gelu_mul if cfg.activation == "gelu" else silu_mul
+        h = gated(torch.bmm(hidden, p["w_gate"]).view(E * capacity, -1), up)
+    else:
+        h = gelu(up)
+    out = torch.bmm(h.view(E, capacity, -1), p["w_down"]).view(E * capacity, d)
+    terms = out[slot].float() * torch.where(keep, gate.reshape(-1), 0.0)[:, None]
+    y = terms.view(T, k, d).sum(1).to(x.dtype)
+    aux = E * torch.sum(probs.mean(0) * onehot.sum(1) / (T * k))
+    return y.view(B, S, d), aux
+
+
 __all__ = ["NEG_INF", "Params", "rms_norm", "layer_norm", "norm_init",
            "apply_norm", "rope_frequencies", "rope_tables", "rotate",
            "apply_rope", "sinusoidal_positions", "flash_attention",
            "attention_reference", "attn_init", "attn_qkv", "attn_out",
-           "mlp_init", "mlp_apply"]
+           "mlp_init", "mlp_apply", "moe_init", "moe_route", "moe_apply"]

@@ -1,4 +1,4 @@
-"""Decoder LM of the port, the dense, RWKV6 and Griffin paths of
+"""Decoder LM of the port, the dense, MoE, RWKV6 and Griffin paths of
 ``repro.models.lm``.
 
 ``LM`` is an ``nn.Module`` holding a ``ModuleList`` of blocks, one per layer
@@ -22,14 +22,17 @@ the conv carry ``conv`` (n_rglru, B, W-1, d) bf16. An RWKV6 model's
 ``sx_c`` (n_layers, B, d) bf16. ``pos`` (B,) int32 holds each sequence's
 next position (continuous batching).
 
-Ported: dense decoders with full causal or local (windowed) attention,
-RMSNorm or LayerNorm, a SwiGLU, gated-GELU or plain tanh-GELU MLP, and
-full, partial (stablelm) or no RoPE; with no RoPE (gpt3) sinusoidal
-positions are added to the embeddings, as the JAX model adds them. The
-attention-free RWKV6 (``family == "ssm"``, rwkv6-7b), no positions. And
-Griffin (``family == "hybrid"``, recurrentgemma-2b): a ``block_pattern`` of
-RG-LRU and local-attention layers. Any other config raises
-NotImplementedError naming the field.
+Ported: dense decoders with full causal or local (windowed) attention, an
+attention logit softcap or none, RMSNorm or LayerNorm, a SwiGLU, gated-GELU
+or plain tanh-GELU MLP, and full, partial (stablelm) or no RoPE; with no
+RoPE (gpt3) sinusoidal positions are added to the embeddings, as the JAX
+model adds them. MoE decoders (``family == "moe"``, granite-moe-3b-a800m,
+grok-1-314b): each layer's MLP is ``n_experts`` such MLPs behind a top-k
+router with a capacity (``layers.moe_apply``). The attention-free RWKV6
+(``family == "ssm"``, rwkv6-7b), no positions. And Griffin (``family ==
+"hybrid"``, recurrentgemma-2b): a ``block_pattern`` of RG-LRU and
+local-attention layers. Any other config raises NotImplementedError naming
+the field.
 
 Right pads and the recurrent state: an RWKV6 ``prefill`` hands each
 sequence's prompt length to the wkv op, so the state after prefill is the
@@ -60,8 +63,7 @@ VOCAB_PAD = 256      # embeddings padded as in the JAX package
 # (field, test that the port runs the config's value of it) for every
 # config field of the ported slices
 _SUPPORTED = (
-    ("family", lambda c: c.family in ("dense", "ssm", "hybrid")),
-    ("n_experts", lambda c: c.n_experts == 0),
+    ("family", lambda c: c.family in ("dense", "moe", "ssm", "hybrid")),
     ("block_pattern", lambda c: set(c.block_pattern) <= {"rglru", "attn"}),
     ("cross_attention", lambda c: not c.cross_attention),
     ("n_encoder_layers", lambda c: c.n_encoder_layers == 0),
@@ -72,7 +74,6 @@ _SUPPORTED = (
     # GELU kernel; RWKV6's channel mix is relu^2 whatever the field says
     ("activation", lambda c: c.attention_free
      or c.activation in (("silu", "gelu") if c.mlp_gated else ("gelu",))),
-    ("attn_logit_softcap", lambda c: c.attn_logit_softcap == 0),
 )
 
 
@@ -83,7 +84,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if not ok(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"to repro_torch yet (dense decoders with full or local "
+                f"to repro_torch yet (dense and MoE decoders with full or local "
                 f"attention and a SwiGLU, gated-GELU or plain GELU MLP, "
                 f"RWKV6, and Griffin)")
 
@@ -126,17 +127,26 @@ def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention then MLP."""
+    """One pre-norm decoder layer: attention then the MLP, or the MoE layer
+    (``moe``, under the JAX key) where the config has experts."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
         super().__init__()
         self.ln1 = L.norm_init(cfg, device)
         self.attn = L.attn_init(cfg, gen, device)
         self.ln2 = L.norm_init(cfg, device)
-        self.mlp = L.mlp_init(cfg, gen, device)
+        if cfg.n_experts:
+            self.moe = L.moe_init(cfg, gen, device)
+        else:
+            self.mlp = L.mlp_init(cfg, gen, device)
 
     def mlp_residual(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-        return x + L.mlp_apply(cfg, self.mlp, L.apply_norm(cfg, self.ln2, x))
+        """x plus the MLP or MoE layer of its norm (the JAX
+        ``_mlp_or_moe``); the MoE aux loss is dropped."""
+        h = L.apply_norm(cfg, self.ln2, x)
+        if cfg.n_experts:
+            return x + L.moe_apply(cfg, self.moe, h)[0]
+        return x + L.mlp_apply(cfg, self.mlp, h)
 
 
 class RGLRUBlock(nn.Module):
@@ -231,13 +241,15 @@ class LM(nn.Module):
         sequence: causal, under the config's window."""
         cfg = self.cfg
         q, k, v = L.attn_qkv(cfg, blk.attn, L.apply_norm(cfg, blk.ln1, x), rope)
-        o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+        o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window,
+                              logit_softcap=cfg.attn_logit_softcap)
         return x + L.attn_out(blk.attn, o), k, v
 
     # ------------------------------------------------------------------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, S) -> logits (B, S, V_padded). (The JAX forward also
-        returns the MoE aux loss, which is 0 for the ported paths.)"""
+        returns the MoE layers' summed aux loss, which only its loss reads;
+        the port's layers compute it and drop it.)"""
         cfg = self.cfg
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
@@ -380,12 +392,14 @@ class LM(nn.Module):
 def _decode_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
                    cv: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
     """Single-token attention over the cache through the decode kernel op,
-    GQA-grouped (KV read once per kv-head).
+    GQA-grouped (KV read once per kv-head), under the config's logit
+    softcap.
 
     q: (B, 1, Hq, dh); ck/cv: (B, T, Hkv, dh); valid_len: (B,) int32."""
     B, _, Hq, dh = q.shape
     Hkv = cfg.n_kv_heads
-    o = decode_attention(q.reshape(B, Hkv, Hq // Hkv, dh), ck, cv, valid_len)
+    o = decode_attention(q.reshape(B, Hkv, Hq // Hkv, dh), ck, cv, valid_len,
+                         softcap=cfg.attn_logit_softcap)
     return o.reshape(B, 1, Hq, dh)
 
 

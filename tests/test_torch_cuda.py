@@ -46,6 +46,8 @@ from repro_torch.models.lm import LM
 from repro_torch.serving import Engine, Request
 from repro_torch.serving import engine as engine_mod
 
+from _torch_routing import record_routing, replay_routing
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -287,9 +289,10 @@ def test_flash_attention_model_layout_views_on_card(cuda, window, cap):
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS) + sorted(EXTRA_ARCHS))
-def test_model_on_card_matches_cpu(cuda, arch):
+def test_model_on_card_matches_cpu(cuda, monkeypatch, arch):
     """Forward, prefill and decode logits of the kernel path on the card
-    against the plain path on the CPU, on the same weights."""
+    against the plain path on the CPU, on the same weights; an MoE model's
+    routing on the CPU replayed on the card."""
     cfg = smoke_config(get_config(arch))
     cpu = models.init_params(cfg, seed=0, device="cpu")
     gpu = LM(cfg, device=cuda)
@@ -298,18 +301,89 @@ def test_model_on_card_matches_cpu(cuda, arch):
         0, cfg.vocab_size, (3, 12), dtype=np.int32))
     lens = torch.tensor([12, 7, 3], dtype=torch.int32)
     V = cfg.vocab_size
-    assert rel_err(gpu(toks.to(cuda))[..., :V], cpu(toks)[..., :V]) < TOL["bfloat16"]
-    cg = models.init_cache(cfg, 3, 32, device=cuda)
-    cc = models.init_cache(cfg, 3, 32, device="cpu")
-    lg = gpu.prefill(toks.to(cuda), cg, lens.to(cuda))
-    lc = cpu.prefill(toks, cc, lens)
-    assert rel_err(lg[:, :V], lc[:, :V]) < TOL["bfloat16"]
-    for step in range(3):
-        tok = toks[:, step]
-        lg = gpu.decode_step(tok.to(cuda), cg)
-        lc = cpu.decode_step(tok, cc)
-        assert rel_err(lg[:, :V], lc[:, :V]) < TOL["bfloat16"]
-    assert cg["pos"].tolist() == cc["pos"].tolist()
+
+    def run(model, device):
+        cache = models.init_cache(cfg, 3, 32, device=device)
+        out = [model(toks.to(device)), model.prefill(toks.to(device), cache, lens.to(device))]
+        out += [model.decode_step(toks[:, step].to(device), cache) for step in range(3)]
+        return [lg[..., :V] for lg in out], cache["pos"].tolist()
+
+    with monkeypatch.context() as m:
+        records = record_routing(m)
+        want, pos = run(cpu, "cpu")
+    assert len(records) == (5 * cfg.n_layers if cfg.n_experts else 0)
+    with monkeypatch.context() as m:
+        calls = replay_routing(m, records)
+        got, gpu_pos = run(gpu, cuda)
+        assert next(calls, None) is None
+    for g, w in zip(got, want):
+        assert rel_err(g, w) < TOL["bfloat16"]
+    assert gpu_pos == pos
+
+
+def moe_layer_case(arch, full_width, B, S, device):
+    """(cfg, MoE params on `device` from one CPU draw, x (B, S, d) bf16)."""
+    cfg = get_config(arch) if full_width else smoke_config(get_config(arch))
+    p = models.layers.moe_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = normal(1, (B, S, cfg.d_model), "cpu", torch.bfloat16)
+    return cfg, {n: w.to(device) for n, w in p.items()}, x
+
+
+@pytest.mark.parametrize("arch,full_width,B,S", [
+    ("granite-moe-3b-a800m", False, 2, 16), ("grok-1-314b", False, 2, 16),
+    ("granite-moe-3b-a800m", True, 8, 1), ("granite-moe-3b-a800m", True, 8, 64)])
+def test_moe_apply_on_card_matches_cpu(cuda, monkeypatch, arch, full_width, B, S):
+    """The MoE layer on the card against its CPU path (smoke widths, and
+    granite's full width at an 8-slot decode step and a wave): its own
+    experts those of the CPU but where the k-th and (k+1)-th probabilities
+    lie within 1e-6 (the router in IEEE fp32 on both), y within 2e-2 with
+    the CPU's routing replayed, the aux loss within 1e-5, one launch of the
+    expert activation's kernel."""
+    cfg, p, x = moe_layer_case(arch, full_width, B, S, cuda)
+    pc = {n: w.cpu() for n, w in p.items()}
+    k = cfg.top_k
+    with monkeypatch.context() as m:
+        records = record_routing(m)
+        want, want_aux = models.layers.moe_apply(cfg, pc, x)
+    probs, _, idx = models.layers.moe_route(cfg, p, x.view(B * S, -1).to(cuda))
+    cpu_probs = torch.sort(torch.softmax(records[0][1], -1), -1, descending=True).values
+    tied = cpu_probs[:, k - 1] - cpu_probs[:, k] < 1e-6
+    same = (idx.sort(-1).values.cpu() == records[0][0].sort(-1).values).all(-1)
+    assert (same | tied).all()
+    with monkeypatch.context() as m:
+        replay_routing(m, records)
+        TK.reset_launches()
+        got, aux = models.layers.moe_apply(cfg, p, x.to(cuda))
+        torch.cuda.synchronize()
+    gate = "gelu_mul" if cfg.activation == "gelu" else "silu_mul"
+    assert {n: c for n, c in TK.launches().items() if c} == {gate: 1}
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert rel_err(got, want) < TOL["bfloat16"]
+    assert abs(aux.item() - want_aux.item()) < 1e-5
+
+
+@pytest.mark.parametrize("arch,gate", [("granite-moe-3b-a800m", "silu_mul"),
+                                       ("grok-1-314b", "gelu_mul")])
+def test_moe_decode_step_on_card_syncs_nothing(cuda, arch, gate):
+    """An MoE model's decode step launches 2L+1 RMSNorms, L expert
+    activations and L decode attentions, and runs under
+    ``set_sync_debug_mode("error")``: nothing on it waits for the host."""
+    cfg = smoke_config(get_config(arch))
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    model.prefill(toks, cache)
+    model.decode_step(toks[:, 0], cache)
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(toks[:, 1], cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    L = cfg.n_layers
+    assert {n: c for n, c in TK.launches().items() if c} == {
+        "rmsnorm": 2 * L + 1, gate: L, "decode_attention_chunked": L}
 
 
 def test_launches_per_step_on_card(cuda):
@@ -1015,14 +1089,15 @@ def edge_lengths(d, t):
     return [1, c - 1, c, c + 1, t]
 
 
-@pytest.mark.parametrize("g", [1, 2, 8, 10])
+@pytest.mark.parametrize("g", [1, 2, 3, 6, 8, 10])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_chunked_decode_matches_plain_on_card(cuda, d, g):
     """The chunked kernel against its plain version at every head dim and
-    group size, lengths at the unit edges and the full cache, with softcap
-    for groups of 2 and 10: one launch a call, relative and per element."""
+    group size (granite's 3 and grok's 6 among them), lengths at the unit
+    edges and the full cache, with softcap for groups of 2, 6 and 10: one
+    launch a call, relative and per element."""
     t = 3 * chunk_keys(d) + 5
-    hkv, cap = 2, 30.0 if g in (2, 10) else 0.0
+    hkv, cap = 2, 30.0 if g in (2, 6, 10) else 0.0
     lens = edge_lengths(d, t)
     q = normal(20, (len(lens), hkv, g, d), cuda, torch.bfloat16)
     k = normal(21, (len(lens), t, hkv, d), cuda, torch.bfloat16)

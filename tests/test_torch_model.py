@@ -170,17 +170,25 @@ def test_prefill_and_decode_match_jax(pair):
 def test_prefill_decode_matches_forward(arch):
     """Mirror of test_models_smoke.py::test_prefill_decode_matches_forward
     on the port alone: the cached serving path agrees with teacher-forced
-    forward logits."""
+    forward logits. As there, an MoE model is held by its greedy tokens:
+    its experts' capacity depends on the tokens of the call (32 in forward,
+    2 at the decode step), so other assignments drop."""
     cfg = smoke_config(get_config(arch))
     model = models.init_params(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(tokens(cfg, B=2, S=16))
     logits = model(toks)
     cache = models.init_cache(cfg, 2, 32, device="cpu")
-    lg1 = model.prefill(toks[:, :-1], cache)
     V = cfg.vocab_size
-    assert rel_err(t2np(lg1)[:, :V], t2np(logits[:, -2, :V])) < 0.05
-    lg2 = model.decode_step(toks[:, -1], cache)
-    assert rel_err(t2np(lg2)[:, :V], t2np(logits[:, -1, :V])) < 0.07
+
+    def check(got, want, tol):
+        got, want = t2np(got)[:, :V], t2np(want)[:, :V]
+        if cfg.n_experts:
+            assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+        else:
+            assert rel_err(got, want) < tol
+
+    check(model.prefill(toks[:, :-1], cache), logits[:, -2], 0.05)
+    check(model.decode_step(toks[:, -1], cache), logits[:, -1], 0.07)
 
 
 def test_param_count_matches_config_at_full_width():
@@ -328,7 +336,6 @@ def test_rwkv6_param_count_at_full_size():
 
 
 @pytest.mark.parametrize("arch,field", [
-    ("granite-moe-3b-a800m", "family"),
     ("whisper-tiny", "family"),
     ("llama-3.2-vision-11b", "family"),
 ])
@@ -339,9 +346,10 @@ def test_configs_outside_the_slice_raise(arch, field):
 
 
 @pytest.mark.parametrize("change,field", [
-    ({"n_experts": 4, "top_k": 2}, "n_experts"),
+    ({"n_encoder_layers": 2}, "n_encoder_layers"),
     ({"cross_attention": True}, "cross_attention"),
-    ({"attn_logit_softcap": 30.0}, "attn_logit_softcap"),
+    ({"cross_attn_layers": (1,)}, "cross_attn_layers"),
+    ({"n_frontend_tokens": 16}, "n_frontend_tokens"),
     ({"activation": "relu"}, "activation"),
     ({"mlp_gated": False, "activation": "relu"}, "activation"),
     ({"norm": "layernorm", "block_pattern": ("attn", "xattn")}, "block_pattern"),

@@ -119,6 +119,16 @@ def test_launcher_serves_the_layernorm_archs_on_cpu(arch):
     assert len(done) == 3 and all(len(r.output) == 3 for r in done)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
+def test_launcher_serves_the_moe_archs_on_cpu(arch):
+    """The two MoE archs through ``--arch`` at the tiny preset (their smoke
+    configs: 4 experts, top-2; grok-1-314b with its softcap), a wave of
+    unequal prompts and a refill."""
+    done = serve.main(["--arch", arch, "--requests", "3", "--batch", "2",
+                       "--max-new", "3", "--device", "cpu"])
+    assert len(done) == 3 and all(len(r.output) == 3 for r in done)
+
+
 def test_engine_refuses_a_model_on_another_device():
     cfg = smoke_config(get_config("qwen3-1.7b"))
     model = models.init_params(cfg, device="meta")
