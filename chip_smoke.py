@@ -75,7 +75,7 @@ result line):
                e4m3 wgmma, promoted into fp32 every 128 of K or every
                instruction, at the same gpt3 shapes against the fp8 checks,
                beside ``torch._scaled_mm``'s own errors;
-  4. serve   - seven served paths, one model each, random weights from a
+  4. serve   - nine served paths, one model each, random weights from a
                seeded torch.Generator: qwen3-1.7b (full width and depth;
                rmsnorm, silu_mul), stablelm-1.6b (full width and depth;
                layernorm, silu_mul, partial RoPE, d_head 64), gpt3-175b
@@ -92,7 +92,20 @@ result line):
                gated-GELU experts on gelu_mul, 48 heads of 128 on 8, both
                attention kernels under its logit softcap of 30); their
                experts' products are torch.bmm and their dispatch and
-               combine plain ops, as the JAX model leaves them to XLA. Each serves 16 greedy
+               combine plain ops, as the JAX model leaves them to XLA; and
+               two cross-attending models, each request with its own
+               seeded stub frontend: llama-3.2-vision-11b (full size,
+               9.78 G parameters: 40 layers, 8 of them gated
+               cross-attention over 1601 frontend tokens, 32 heads of 128
+               on 8; rmsnorm, silu_mul) and whisper-tiny (full size: a
+               4-layer encoder over 1500 frontend tokens, 4 decoder layers
+               cross-attending to it, 6 heads of 64; layernorm, gelu, qkv
+               bias, sinusoidal positions); each cross-attention runs
+               non-causal flash at prefill, and at a decode step
+               ``attend_all_keys``: the decode op (every length the
+               frontend's) where it runs the chunked kernel (whisper,
+               G = 1), else flash on the one query (llama, G = 4). Each
+               serves 16 greedy
                requests of 16-48 new tokens on 8 slots through the port's
                Engine: one whole-batch prefill of prompts of unequal
                lengths, then each freed slot refilled by a batch-1 prefill
@@ -101,9 +114,12 @@ result line):
                prefill and the decode phase: each kernel of that model's
                path must be above 0, and each phase must show exactly its
                steps' launches (9 prefills: one wave, 8 refills; L
-               decode_attention_chunked and 0 decode_attention a decode
-               step; rwkv6: L wkv_chunked and 0 wkv a prefill, L wkv and 0
-               wkv_chunked a decode step); then the
+               launches a decode step of the decode kernel
+               ``picks_chunked`` names for the model's G and 0 of the
+               other; rwkv6: L wkv_chunked and 0 wkv a prefill, L wkv and
+               0 wkv_chunked a decode step; a cross-attending model also
+               its cross layers', and at each prefill its encoder's,
+               ``expected_launches``); then the
                launches of one prefill and one decode step, a torch.profiler
                breakdown of the decode step, and the model's peak memory;
                for an MoE model the share of (token, choice) assignments
@@ -119,10 +135,16 @@ result line):
                each model and its cache are freed before the next is built;
   5. model   - each model at full width cut in depth (qwen3, stablelm,
                rwkv6 and granite to 2 layers, gpt3 and grok to 1,
-               recurrentgemma to 3: one unit), its prefill and decode logits
+               recurrentgemma to 3 and llama-3.2-vision to 5: one unit
+               each; whisper-tiny whole; the two cross-attending ones with
+               full-length frontends, xgate 0.5, random qkv biases and
+               their cross output projection scaled up, their cross K/V
+               held too), its prefill and decode logits
                on the card against the port's CPU path on a batch of two
                prompts of unequal lengths, the card teacher-forced on the
-               CPU's greedy tokens; an MoE model's routing is recorded on
+               CPU's greedy tokens (llama's card held to an fp32 CPU run
+               instead: no further from it than the bf16 CPU path, times
+               ``FP32_FACTOR``, ``MODEL_CHECKS`` says why); an MoE model's routing is recorded on
                the CPU and replayed on the card (a top-k near-tie may flip
                between the two and move a token by a share of its MLP
                term), and in that run the experts the card would have
@@ -163,7 +185,15 @@ result line):
                tensors timed, as in phase 2 (the split kernel too); the
                whole MoE layer of granite at its decode step and its wave
                against the bytes of its 40 experts (its own ``[timing]
-               moe_apply`` record, outside the kernels); the fp16 GEMM mode
+               moe_apply`` record, outside the kernels); both decode
+               kernels at G = 2, 3, 4, 6 and 10 (the crossover that
+               ``picks_chunked`` follows, ROADMAP B17) and at llama's
+               G = 4; flash, non-causal, at llama's cross-attention and
+               whisper's encoder and cross-attention at the served wave;
+               the two candidates for a cross-attention at a decode step
+               (the decode op and flash on one query, the JAX model's
+               form; ``attend_all_keys`` picks), each of these held to its plain version on the
+               tensors timed; the fp16 GEMM mode
                beside torch.matmul in fp16; for bf16 the
                port's mapper's predicted latency on its H100 preset and the
                wgmma kernel's time at the tile ``mapper_blocks`` picks.
@@ -193,14 +223,33 @@ WKV_TOL = 1e-4
 # (arch, layers served or None for all): the port's served paths
 SERVED = (("qwen3-1.7b", None), ("stablelm-1.6b", None), ("gpt3-175b", 8),
           ("rwkv6-7b", None), ("recurrentgemma-2b", None), ("granite-moe-3b-a800m", None),
-          ("grok-1-314b", 4))
-# (arch, layers, prompt tokens, decode steps) of the card-vs-CPU check;
-# gpt3's CPU side runs 2.4 G parameters in bf16 and grok's 6.5 G, hence the
-# short prompts
+          ("grok-1-314b", 4), ("llama-3.2-vision-11b", None), ("whisper-tiny", None))
+# (arch, layers or None for all, prompt tokens, decode steps) of the
+# card-vs-CPU check; gpt3's CPU side runs 2.4 G parameters in bf16 and
+# grok's 6.5 G, hence the short prompts. llama-3.2-vision runs its whole
+# unit of 5 layers (attn, attn, attn, xattn, attn), where two bf16 paths
+# part by about the tolerance: card and CPU differ by 1.70e-2 to 2.27e-2 of
+# the largest logit over 8 prompt draws (qwen3 at 5 layers by 1.69e-2 to
+# 1.80e-2), each of them 2.04e-2 to 2.26e-2 from an fp32 run of the same
+# weights. So the models of FP32_ANCHORED hold the card to an fp32 CPU run
+# instead, in the prefill and every decode step: the card no further from
+# it than FP32_FACTOR times the bf16 CPU path is (measured 0.90 to 1.07
+# times; the cross branch moves llama's logits by 0.25, 11 times that
+# distance, so a wrong cross-attention cannot pass)
 MODEL_CHECKS = (("qwen3-1.7b", 2, 64, 8), ("stablelm-1.6b", 2, 64, 8),
                 ("gpt3-175b", 1, 16, 4), ("rwkv6-7b", 2, 64, 8),
                 ("recurrentgemma-2b", 3, 64, 8), ("granite-moe-3b-a800m", 2, 64, 8),
-                ("grok-1-314b", 1, 16, 4))
+                ("grok-1-314b", 1, 16, 4), ("llama-3.2-vision-11b", 5, 64, 8),
+                ("whisper-tiny", None, 64, 8))
+FP32_ANCHORED, FP32_FACTOR = ("llama-3.2-vision-11b",), 1.5
+# the cross-attending models' weights in the card-vs-CPU check: the init
+# sets xgate to 0 (tanh(0) = 0 wipes the vision layers' cross-attention)
+# and whisper's qkv biases to 0, which would hide a wrong cross-attention
+# (``unhide_cross_attention``)
+XGATE, BIAS_SCALE = 0.5, 0.2
+# the decode kernels at G query heads a kv-head, the crossover sweep
+# (8 kv-heads of 128, the served decode lengths)
+G_SWEEP = (2, 3, 4, 6, 10)
 # the ring phase: recurrentgemma-2b past its 2048-token window, a prompt of
 # RING_PROMPT tokens on a RING_MAX_LEN budget, RING_STEPS decode steps past
 # the wrap; held against the CPU path at RING_LAYERS layers (one unit)
@@ -395,7 +444,8 @@ def resource_usage(log):
 def kernel_cases(torch):
     """(kernel, label, kernel fn, plain fn, args, is_main_path) per case."""
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.decode_attention.kernel import HEAD_DIMS, chunked_eligible
+    from repro_torch.kernels.decode_attention.kernel import (HEAD_DIMS, chunked_eligible,
+                                                             picks_chunked)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -457,7 +507,19 @@ def kernel_cases(torch):
                 (1, 4, 2, 700, 700, False, 130, 0.0, 256, "bhsd", False),
                 (2, 4, 1, 150, 150, True, 70, 0.0, 256, "seq stride D+4", False),
                 (8, 10, 1, 512, 512, True, 2048, 0.0, 256, "view", True),
-                (1, 10, 1, RING_PROMPT, RING_PROMPT, True, 2048, 0.0, 256, "view", True)):
+                (1, 10, 1, RING_PROMPT, RING_PROMPT, True, 2048, 0.0, 256, "view", True),
+                # non-causal, Sq != Sk, Sk no multiple of a key tile (64
+                # or 128): llama-3.2-vision's cross-attention at the
+                # served wave (436 queries, 32 heads on 8, over 1601
+                # frontend keys), whisper's encoder (1500 x 1500, 6
+                # heads of 64) and its cross-attention (over 1500); one
+                # query over all keys, the flash candidate of the
+                # cross-attention at a decode step
+                (SLOTS, 32, 8, 436, 1601, False, 0, 0.0, 128, "view", True),
+                (SLOTS, 6, 6, 1500, 1500, False, 0, 0.0, 64, "view", True),
+                (SLOTS, 6, 6, 436, 1500, False, 0, 0.0, 64, "view", True),
+                (SLOTS, 32, 8, 1, 1601, False, 0, 0.0, 128, "view", False),
+                (SLOTS, 6, 6, 1, 1500, False, 0, 0.0, 64, "view", False)):
             kw = dict(causal=causal, window=window, softcap=cap)
             q, k, v = (attention_input(rnd, shape, dt, layout) for shape in
                        ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
@@ -469,8 +531,11 @@ def kernel_cases(torch):
         # rows, lengths at the chunked kernel's unit edges (1, UK - 1, UK,
         # UK + 1, T) at D = 128 and 256 (fp32 on the split kernel's D = 256
         # mode), and the served shapes (recurrentgemma's: 10 query heads on
-        # one kv-head, D = 256, and the ring phase's full window); each case
-        # on the kernel chunked_eligible picks for it
+        # one kv-head, D = 256, and the ring phase's full window; llama's
+        # self-attention, G = 4; the cross-attention at a decode step,
+        # every length the frontend's: llama's 1601 keys, whisper's 1500);
+        # each case on the kernel picks_chunked picks for it, each served
+        # shape on the other kernel too
         for b, hkv, g, t, d, lens, main in (
                 (3, 2, 4, 128, 64, [128, 64, 42], False),
                 (3, 1, 8, 200, 64, [200, 100, 66], False),
@@ -482,19 +547,23 @@ def kernel_cases(torch):
                 (SLOTS, 32, 1, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 96, 1, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 1, 10, MAX_LEN, 256, decode_lengths(SLOTS, MAX_LEN), True),
-                (1, 1, 10, 2048, 256, [2048], True)):
+                (1, 1, 10, 2048, 256, [2048], True),
+                (SLOTS, 8, 4, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
+                (SLOTS, 6, 1, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
+                (SLOTS, 8, 4, 1601, 128, [1601] * SLOTS, True),
+                (SLOTS, 6, 1, 1500, 64, [1500] * SLOTS, True)):
             if d not in HEAD_DIMS and dt != torch.bfloat16:
                 continue
             q, k, v = (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
                        rnd((b, t, hkv, d), dt))
-            name = "decode_attention_chunked" if chunked_eligible(q, k, v) else \
+            picked = "decode_attention_chunked" if picks_chunked(q, k, v) else \
                 "decode_attention"
             args = (q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda"))
             label = f"q({b},{hkv},{g},{d}) T={t} lengths={lens}"
-            cases.append((name, label, KERNELS[name], decode_attention_ref, args, main))
-            if main:   # the split kernel, which the served shapes ran on before
-                cases.append(("decode_attention", label, KERNELS["decode_attention"],
-                              decode_attention_ref, args, False))
+            for name in ("decode_attention_chunked", "decode_attention"):
+                if name == picked or (main and chunked_eligible(q, k, v)):
+                    cases.append((name, label, KERNELS[name], decode_attention_ref, args,
+                                  main and name == picked))
     return cases
 
 
@@ -720,7 +789,8 @@ def phase_c9(torch):
             require(attention_excess(got, want) <= 1, f"{line}: fails")
         print(f"{line} ok")
     lens = torch.tensor([150, 33], dtype=torch.int32, device="cuda")
-    for d, dt, kern in ((16, torch.bfloat16, "decode_attention_chunked"),
+    # 10 query heads a kv-head: the split kernel, bf16 too (G > CHUNKED_MAX_G)
+    for d, dt, kern in ((16, torch.bfloat16, "decode_attention"),
                         (200, f32, "decode_attention"), (256, f32, "decode_attention")):
         q, k, v = rnd((2, 1, 10, d), dt), rnd((2, 150, 1, d), dt), rnd((2, 150, 1, d), dt)
         got, launches = launched(decode_attention, q, k, v, lens)
@@ -1021,11 +1091,13 @@ def prefill_attention(cfg):
 
 
 def decode_attention_kernel(cfg):
-    """The kernel of `cfg`'s decode attention: the chunked one at the head
-    dims it takes (every served model's bf16 cache views), else the split
-    one."""
-    from repro_torch.kernels.decode_attention.kernel import CHUNKED_HEAD_DIMS
-    return "decode_attention_chunked" if cfg.d_head in CHUNKED_HEAD_DIMS else \
+    """The kernel of `cfg`'s decode attention, self and cross alike: the
+    chunked one at the head dims it takes (every served model's bf16 cache
+    views) and at most ``CHUNKED_MAX_G`` query heads a kv-head, else the
+    split one."""
+    from repro_torch.kernels.decode_attention.kernel import CHUNKED_HEAD_DIMS, CHUNKED_MAX_G
+    return "decode_attention_chunked" if (cfg.d_head in CHUNKED_HEAD_DIMS and
+                                          cfg.group_size <= CHUNKED_MAX_G) else \
         "decode_attention"
 
 
@@ -1038,30 +1110,58 @@ def mlp_kernel(cfg):
 
 def expected_launches(cfg, prefill):
     """Launches of each kernel in one prefill or one decode step of `cfg`:
-    two norms per layer and the final one (q- and k-norm per attention
-    layer with qk-norm are RMSNorms whatever `cfg.norm`), one MLP activation
-    per layer (``mlp_kernel``'s), one attention per attention layer
-    (``prefill_attention``'s kernel at prefill and
-    ``decode_attention_kernel``'s at decode, none on the other flash or
-    decode kernel), and per Griffin RG-LRU layer one gelu (its gate branch)
-    and one rglru; for RWKV6, one wkv_chunked per layer at prefill, one wkv
-    per layer at decode, and no attention."""
+    two norms per layer, a third (``lnx``) per encoder-decoder layer, and
+    the final one (q- and k-norm per attention layer with qk-norm are
+    RMSNorms whatever `cfg.norm`; a cross layer's k-norm runs at prefill
+    only), one MLP activation per layer (``mlp_kernel``'s), one attention
+    per self-attention layer and one per cross-attending layer
+    (``prefill_attention``'s kernel at prefill; at decode
+    ``decode_attention_kernel``'s for self-attention and
+    ``cross_decode_kernel``'s for cross-attention; none on the other flash
+    or decode kernel), and at prefill the encoder's: two norms, one MLP
+    activation and one non-causal flash attention per encoder layer, and
+    its final norm; per Griffin RG-LRU layer one gelu (its gate branch) and
+    one rglru; for RWKV6, one wkv_chunked per layer at prefill, one wkv per
+    layer at decode, and no attention."""
     from repro_torch.kernels import KERNELS
     from repro_torch.models.lm import layer_kinds
     L = cfg.n_layers
     kinds = layer_kinds(cfg)
-    n_attn, n_rec = kinds.count("attn"), kinds.count("rglru")
+    n_self = kinds.count("attn") + kinds.count("encdec")
+    n_cross = kinds.count("xattn") + kinds.count("encdec")
+    n_rec = kinds.count("rglru")
+    n_enc = cfg.n_encoder_layers if prefill else 0
     counts = dict.fromkeys(KERNELS, 0)
-    counts[cfg.norm] += 2 * L + 1
+    counts[cfg.norm] += 2 * L + 1 + kinds.count("encdec") + (2 * n_enc + 1 if n_enc else 0)
     if cfg.attention_free:
         counts["wkv_chunked" if prefill else "wkv"] = L
         return counts
-    counts["rmsnorm"] += 2 * n_attn if cfg.qk_norm else 0
-    counts[mlp_kernel(cfg)] += L
+    if cfg.qk_norm:
+        counts["rmsnorm"] += 2 * n_self + (2 if prefill else 1) * n_cross
+    counts[mlp_kernel(cfg)] += L + n_enc
     counts["gelu"] += n_rec
     counts["rglru"] = n_rec
-    counts[prefill_attention(cfg) if prefill else decode_attention_kernel(cfg)] = n_attn
+    if prefill:
+        counts[prefill_attention(cfg)] = n_self + n_cross + n_enc
+        return counts
+    counts[decode_attention_kernel(cfg)] = n_self
+    counts[cross_decode_kernel(cfg)] += n_cross
     return counts
+
+
+def cross_decode_kernel(cfg):
+    """The kernel of `cfg`'s cross-attention at a decode step (one query
+    over every cross key), as ``attend_all_keys`` routes a bf16 call at its
+    shape on the card (``LM.decode_step``): the chunked decode kernel where
+    ``all_keys_on_decode`` holds, else flash on the one query."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import all_keys_on_decode
+    q = torch.empty((1, cfg.n_kv_heads, cfg.group_size, cfg.d_head), dtype=torch.bfloat16,
+                    device="cuda")
+    k = torch.empty((1, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.d_head),
+                    dtype=torch.bfloat16, device="cuda")
+    return "decode_attention_chunked" if all_keys_on_decode(q, k, k) else \
+        prefill_attention(cfg)
 
 
 def phase_serve(torch, arch, n_layers):
@@ -1085,6 +1185,11 @@ def phase_serve(torch, arch, n_layers):
         heads += (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}"
                   + (f", logit softcap {cfg.attn_logit_softcap:g}"
                      if cfg.attn_logit_softcap else ""))
+    if cfg.n_frontend_tokens:
+        heads += (f", {cfg.n_encoder_layers} encoder layers and cross-attention in every "
+                  "decoder layer" if cfg.cross_attention else
+                  f", gated cross-attention at layers {list(cfg.cross_attn_layers)}")
+        heads += f" over a stub frontend of {cfg.n_frontend_tokens} tokens a request"
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{heads}, {n_params} parameters ({cfg.param_count()} by the config's "
           f"accounting, without the vocab padding) "
@@ -1095,13 +1200,24 @@ def phase_serve(torch, arch, n_layers):
     def prompt(n):
         return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
 
+    # a seeded stub frontend per request, for a model that cross-attends
+    # (its own generator: the prompts stay those of the other models)
+    fgen = torch.Generator("cuda").manual_seed(3)
+
+    def frontend(*batch):
+        if not cfg.n_frontend_tokens:
+            return None
+        return torch.randn(batch + (cfg.n_frontend_tokens, cfg.d_model), generator=fgen,
+                           device="cuda").to(torch.bfloat16)
+
     # a short warm-up serve, so the measured one excludes one-off set-up
     Engine(cfg, model, batch_size=2, max_len=64, device="cuda").run(
-        [Request(uid=i, prompt=prompt(16), max_new_tokens=2) for i in range(3)])
+        [Request(uid=i, prompt=prompt(16), max_new_tokens=2, frontend=frontend())
+         for i in range(3)])
     torch.cuda.synchronize()
 
     lens = torch.randint(128, 513, (N_REQUESTS,), generator=gen).tolist()
-    reqs = [Request(uid=i, prompt=prompt(n), max_new_tokens=new)
+    reqs = [Request(uid=i, prompt=prompt(n), max_new_tokens=new, frontend=frontend())
             for i, (n, new) in enumerate(zip(lens, NEW_TOKENS))]
     eng = Engine(cfg, model, batch_size=SLOTS, max_len=MAX_LEN, device="cuda")
     prefill_counts = dict.fromkeys(K.KERNELS, 0)
@@ -1166,7 +1282,7 @@ def phase_serve(torch, arch, n_layers):
     cache = init_cache(cfg, SLOTS, MAX_LEN, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (SLOTS, 512), generator=gen).cuda()
     K.reset_launches()
-    model.prefill(toks, cache)
+    model.prefill(toks, cache, frontend=frontend(SLOTS))
     per_prefill = K.launches()
     K.reset_launches()
     model.decode_step(toks[:, 0], cache)
@@ -1349,10 +1465,14 @@ def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
     from repro_torch.models import LM, init_cache, init_params
     cfg = served_config(arch, n_layers)
     gpu = init_params(cfg, seed=1, device="cuda")
-    cpu = LM(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
     gen = torch.Generator("cpu").manual_seed(2)
     B = 2
+    fe = None
+    if cfg.n_frontend_tokens:
+        unhide_cross_attention(torch, gpu)
+        fe = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=gen).bfloat16()
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     lens = torch.tensor([S, short or S * 41 // 64], dtype=torch.int32)
     T = T or 2 * S
@@ -1360,45 +1480,87 @@ def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
     t0 = time.perf_counter()
     with routing() as cpu_routing:
         cc = init_cache(cfg, B, T, device="cpu")
-        lc = [cpu.prefill(toks, cc, lens)]
+        lc = [cpu.prefill(toks, cc, lens, fe)]
         fed = []
         for _ in range(steps):
             fed.append(lc[-1][:, :V].argmax(-1).int())
             lc.append(cpu.decode_step(fed[-1], cc))
     with routing(replay=cpu_routing) as card_routing:
         cg = init_cache(cfg, B, T, device="cuda")
-        lg = [gpu.prefill(toks.cuda(), cg, lens.cuda()).cpu()]
+        lg = [gpu.prefill(toks.cuda(), cg, lens.cuda(), None if fe is None else fe.cuda()).cpu()]
         if cfg.attention_free or "rglru" in cfg.block_pattern:
             check_wave_state(torch, cfg, gpu, toks, lens, cg, lg[0])
         lg += [gpu.decode_step(tok.cuda(), cg).cpu() for tok in fed]
     ring = cg["k"].shape[2] if "k" in cg else None
     require(all(torch.isfinite(x[:, :V].float()).all() for x in lg),
             "non-finite logits on the card")
+    anchored = arch in FP32_ANCHORED
+    if anchored:
+        cpu.float()
+        c32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in init_cache(cfg, B, T, device="cpu").items()}
+        l32 = [cpu.prefill(toks, c32, lens, fe)] + [cpu.decode_step(tok, c32) for tok in fed]
+        to32 = [(rel_err(g[:, :V], f[:, :V]), rel_err(c[:, :V], f[:, :V]))
+                for g, c, f in zip(lg, lc, l32)]
+        del c32, l32
     errs = [rel_err(g[:, :V], c[:, :V]) for g, c in zip(lg, lc)]
     agree = [(g[:, :V].argmax(-1) == c[:, :V].argmax(-1)).float().mean().item()
              for g, c in zip(lg, lc)]
     tol = 2e-2
     ring = f", a ring of {ring} slots" if cfg.attn_window else ""
     routed = ", the CPU's routing replayed" if cfg.n_experts else ""
-    print(f"[model] {cfg.name} (full width, {n_layers} layers, batch {B}, prompts "
+    if fe is not None:
+        cross = max(rel_err(cg[name].cpu(), cc[name]) for name in ("xk", "xv"))
+        routed += (f", frontends of {cfg.n_frontend_tokens} tokens, xgate {XGATE:g}, random "
+                   f"qkv biases; cross K/V rel_err {cross:.3e}")
+        require(cross < 2e-2, f"{cfg.name}: card vs CPU cross K/V rel_err {cross:.3e}")
+    print(f"[model] {cfg.name} (full width, {cfg.n_layers} layers, batch {B}, prompts "
           f"{lens.tolist()}, cache {T}{ring}{routed}) card vs CPU, rel_err of logits: prefill "
           f"{errs[0]:.3e}, "
-          f"decode max {max(errs[1:]):.3e} (tol {tol:g}: both bf16, kernels against "
-          f"plain versions and another GEMM order); {time.perf_counter() - t0:.1f} s")
+          f"decode max {max(errs[1:]):.3e} ("
+          + ("held to fp32 below" if anchored else f"tol {tol:g}")
+          + ": both bf16, kernels against plain versions and another GEMM order); "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"[model] {cfg.name}: greedy token agreement over prefill + {steps} decode "
           f"steps: {statistics.mean(agree):.4f}")
-    require(max(errs) < tol, f"{cfg.name}: card vs CPU logits rel_err "
-            f"{max(errs):.3e} >= {tol}")
+    if anchored:
+        worst = max(g / c for g, c in to32)
+        print(f"[model] {cfg.name}: rel_err of logits from an fp32 CPU run of the same "
+              f"weights, card / bf16 CPU, prefill then each decode step: "
+              + ", ".join(f"{g:.3e}/{c:.3e}" for g, c in to32)
+              + f"; the card's at most {worst:.3f} times the CPU's (limit {FP32_FACTOR:g}; "
+              f"card vs CPU itself not held at this depth, MODEL_CHECKS)")
+        require(worst <= FP32_FACTOR, f"{cfg.name}: the card is {worst:.3f} times as far "
+                f"from fp32 as the bf16 CPU path, > {FP32_FACTOR:g}")
+    else:
+        require(max(errs) < tol, f"{cfg.name}: card vs CPU logits rel_err "
+                f"{max(errs):.3e} >= {tol}")
     if cfg.n_experts:
         n, beyond, worst = routing_flips(cfg.top_k, cpu_routing, card_routing)
         print(f"[model] {cfg.name}: the card's own choices in the replayed run against "
-              f"the CPU's, {len(card_routing)} calls ({n_layers} layers x {1 + steps} "
+              f"the CPU's, {len(card_routing)} calls ({cfg.n_layers} layers x {1 + steps} "
               f"steps): {n} of {sum(i.numel() for i, _ in cpu_routing)} choices differ, "
               f"{beyond} of them where the CPU's k-th margin exceeds twice the call's "
               f"largest card-CPU router-logit difference (largest {worst:.3e})")
         require(beyond == 0, f"{cfg.name}: {beyond} routing choices flipped beyond the margin")
     del gpu, cpu, cc, cg
     torch.cuda.empty_cache()
+
+
+def unhide_cross_attention(torch, model):
+    """In place: every ``xgate`` to XGATE, every qkv bias to seeded normal
+    values of scale BIAS_SCALE, and every cross-attention output projection
+    (``xattn.wo``) 8 times its init, so that the cross branch moves the
+    logits by more than their tolerance (as in ``tests/test_torch_xattn.py``)."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "xgate":
+            p.fill_(XGATE)
+        elif leaf in ("bq", "bk", "bv"):
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * BIAS_SCALE)
+        elif name.endswith("xattn.wo"):
+            p.mul_(8)
 
 
 def routing_flips(k, want, got):
@@ -1472,8 +1634,129 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
+    """The timing phase's rows of ROADMAP B17's crossover and of the
+    cross-attending models, through `add` (``phase_timing``'s, into its
+    `rows`), on inputs from `rnd`; `cross_lens` the served llama run's
+    prompt lengths (its wave: the first SLOTS)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.kernel import CHUNKED_MAX_G, picks_chunked
+    from repro_torch.kernels.decode_attention.ops import all_keys_on_decode
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf, B, T = torch.bfloat16, SLOTS, MAX_LEN
+
+    def decode_both(label, qd, kd, vd, lens_list, what=""):
+        """Both decode kernels on one decode shape, each held to the plain
+        version on these tensors: the row of the one the op picks
+        (``picks_chunked``), the other's time beside it, SDPA (a mask of
+        the live keys) as the library call. Returns (picked, its ms, the
+        other's ms)."""
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        B_, Hkv, G, D = qd.shape
+        picked = "decode_attention_chunked" if picks_chunked(qd, kd, vd) else "decode_attention"
+        other = "decode_attention" if picked == "decode_attention_chunked" else \
+            "decode_attention_chunked"
+        hold(torch, other, label, "bfloat16", KERNELS[other](qd, kd, vd, lens),
+             decode_attention_ref(qd, kd, vd, lens))
+        other_ms = time_ms(torch, lambda: KERNELS[other](qd, kd, vd, lens))
+        T_ = kd.shape[1]
+        mask = (torch.arange(T_, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        q_sdpa = qd.reshape(B_, Hkv * G, 1, D)
+        add(picked, label + what,
+            lambda: KERNELS[picked](qd, kd, vd, lens),
+            lambda: decode_attention_ref(qd, kd, vd, lens),
+            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
+                                                   vd.transpose(1, 2), attn_mask=mask,
+                                                   enable_gqa=True),
+            2 * (2 * B_ * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * B_,
+            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS, held=True,
+            other_kernel={"name": other, "ms": other_ms})
+        ms = rows[picked]["shapes"][-1]["ms"]
+        print(f"[timing] {other:16s} {label}: {other_ms:.5f} ms (the op picks {picked}, "
+              f"{ms:.5f} ms)")
+        return picked, ms, other_ms
+
+    # ROADMAP B17: the chunked and the split decode kernel at G = 2, 3, 4,
+    # 6 and 10 query heads a kv-head (8 kv-heads of 128, the served decode
+    # lengths), in one call; the op sends G <= CHUNKED_MAX_G to the chunked
+    # kernel
+    sweep = {}
+    lens_list = decode_lengths(SLOTS, T)
+    for G in G_SWEEP:
+        qd = rnd((SLOTS, 8, G, 128), bf)
+        kd, vd = rnd((SLOTS, T, 8, 128), bf), rnd((SLOTS, T, 8, 128), bf)
+        picked, ms, other_ms = decode_both(
+            f"G sweep q({SLOTS},8,{G},128) kv({SLOTS},{T},8,128) lengths={lens_list} bf16",
+            qd, kd, vd, lens_list)
+        chunked, split = (ms, other_ms) if picked == "decode_attention_chunked" else \
+            (other_ms, ms)
+        sweep[G] = {"chunked_ms": chunked, "split_ms": split, "picked": picked}
+        del qd, kd, vd
+    print(f"[timing] decode G sweep (D = 128, 8 kv-heads, T = {T}): {json.dumps(sweep)}; the "
+          f"chunked kernel is the faster at G = "
+          f"{[G for G, r in sweep.items() if r['chunked_ms'] < r['split_ms']]}, the op sends "
+          f"G <= {CHUNKED_MAX_G} to it")
+
+    # the cross-attending models, each shape held to its plain version on
+    # the tensors timed: flash, non-causal, at llama-3.2-vision's
+    # cross-attention at the served wave (over its 1601 frontend keys), and
+    # at whisper's encoder (1500 x 1500) and cross-attention (over 1500),
+    # the model's transposed views, beside SDPA; the decode kernels at
+    # llama's self-attention decode step (G = 4); then the two candidates
+    # for a cross-attention at a decode step, one query over all nf keys:
+    # the decode op (every length nf) and flash on one query (the JAX
+    # model's form), both held, beside SDPA; the model's route is the one
+    # ``attend_all_keys`` takes (``all_keys_on_decode``)
+    cross_S = max(cross_lens[:SLOTS])
+    for what, Hq, Hkv, Sq, Sk, D in (
+            ("llama-3.2-vision-11b's cross-attention at its wave", 32, 8, cross_S, 1601, 128),
+            ("whisper-tiny's encoder", 6, 6, 1500, 1500, 64),
+            ("whisper-tiny's cross-attention at the wave", 6, 6, cross_S, 1500, 64)):
+        q, k, v = (attention_input(rnd, shape, bf, "view")
+                   for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+        add("flash_attention_wgmma", f"{what} q({B},{Hq},{Sq},{D}) kv({B},{Hkv},{Sk},{D}) "
+            "view non-causal bf16",
+            lambda: KERNELS["flash_attention_wgmma"](q, k, v, causal=False),
+            lambda: attention_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+            2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D), 4 * D * B * Hq * Sq * Sk,
+            BF16_TENSOR_FLOPS, held=True)
+        del q, k, v
+    qd = rnd((SLOTS, 8, 4, 128), bf)
+    kd, vd = rnd((SLOTS, T, 8, 128), bf), rnd((SLOTS, T, 8, 128), bf)
+    decode_both(f"llama-3.2-vision-11b's decode step q({SLOTS},8,4,128) kv({SLOTS},{T},8,128) "
+                f"lengths={lens_list} bf16", qd, kd, vd, lens_list)
+    del qd, kd, vd
+    cross_decode = {}
+    for cfg_name, Hkv, G, nf, D in (("llama-3.2-vision-11b", 8, 4, 1601, 128),
+                                    ("whisper-tiny", 6, 1, 1500, 64)):
+        qd = rnd((SLOTS, Hkv, G, D), bf)
+        kd, vd = rnd((SLOTS, nf, Hkv, D), bf), rnd((SLOTS, nf, Hkv, D), bf)
+        label = (f"{cfg_name}'s cross-attention at a decode step q({SLOTS},{Hkv},{G},{D}) "
+                 f"kv({SLOTS},{nf},{Hkv},{D}) every length {nf} bf16")
+        route = "decode op" if all_keys_on_decode(qd, kd, vd) else "flash"
+        picked, ms, _ = decode_both(label, qd, kd, vd, [nf] * SLOTS, what=" (the decode op)")
+        qf, kf, vf = qd.reshape(SLOTS, Hkv * G, 1, D), kd.transpose(1, 2), vd.transpose(1, 2)
+        add("flash_attention_wgmma", f"{cfg_name}'s cross-attention at a decode step, one "
+            f"query q({SLOTS},{Hkv * G},1,{D}) kv({SLOTS},{Hkv},{nf},{D}) view non-causal bf16 "
+            "(flash on one query)",
+            lambda: KERNELS["flash_attention_wgmma"](qf, kf, vf, causal=False),
+            lambda: attention_ref(qf, kf, vf, causal=False),
+            lambda: F.scaled_dot_product_attention(qf, kf, vf, enable_gqa=True),
+            2 * (2 * SLOTS * Hkv * G * D + 2 * SLOTS * nf * Hkv * D),
+            4 * D * G * Hkv * SLOTS * nf, BF16_TENSOR_FLOPS, held=True)
+        flash_ms = rows["flash_attention_wgmma"]["shapes"][-1]["ms"]
+        cross_decode[cfg_name] = {"decode_op": picked, "decode_op_ms": ms, "flash_ms": flash_ms,
+                                  "model_route": route}
+        del qd, kd, vd, qf, kf, vf
+    print(f"[timing] cross-attention at a decode step, the decode op against flash on one "
+          f"query: {json.dumps(cross_decode)}")
+
+
 def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, griffin_lens,
-                 moe_lens):
+                 moe_lens, cross_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
     gives its row of the summary; every shape is kept in the row's
     ``shapes``. wkv's prefill is timed at the served rwkv6 run's prompt
@@ -1481,7 +1764,8 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     refills; rglru's at the served recurrentgemma run's `griffin_lens`: its
     wave and its longest refill; the MoE models' shapes at the served wave
     of `moe_lens` (its first SLOTS prompts, padded to the longest) and their
-    decode step. `counts` holds each kernel's launches in its path's run
+    decode step; the cross-attending models' at the served wave of
+    `cross_lens`. `counts` holds each kernel's launches in its path's run
     (the serve runs, the GEMM path for the GEMM kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
@@ -1729,6 +2013,8 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
         print(f"[timing] decode_attention {cfg.name}'s decode step on the split kernel: "
               f"{split_ms:.5f} ms")
         del qd, kd, vd
+
+    time_decode_and_cross(torch, add, rows, rnd, cross_lens)
 
     # granite's whole MoE layer (router, dispatch, the 40 experts' bmm and
     # silu_mul, combine, aux loss) at its decode step and its served wave,
@@ -2001,7 +2287,7 @@ def main():
     path_counts = {**counts, **{name: gemm_counts[name] for name in gemm_kernels}}
     rows = phase_timing(torch, path_counts, per_prefill, per_decode, errs,
                         prompt_lens["rwkv6-7b"], prompt_lens["recurrentgemma-2b"],
-                        prompt_lens["granite-moe-3b-a800m"])
+                        prompt_lens["granite-moe-3b-a800m"], prompt_lens["llama-3.2-vision-11b"])
     for row in rows:
         if row["name"] in gemm_kernels:
             row["launches_in_serve_runs"] = counts[row["name"]]

@@ -1,13 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> ModelConfig.
 
-Only the configs the port runs are registered here: the rmsnorm/SwiGLU qwen
+Every config of the JAX registry, each a copy: the rmsnorm/SwiGLU qwen
 family, stablelm (LayerNorm, partial RoPE), the two MoE decoders
 granite-moe-3b-a800m (40 experts, top-8, SwiGLU) and grok-1-314b (8
 experts, top-2, gated GELU, attention logit softcap 30), rwkv6-7b
-(attention-free RWKV6 time and channel mix, LayerNorm), recurrentgemma-2b
-(Griffin: RG-LRU layers and local-attention layers, a gated-GELU MLP) and,
-outside ``ARCHS`` as in the JAX registry, the paper's own gpt3-175b
-(LayerNorm, tanh-GELU MLP, sinusoidal positions).
+(attention-free RWKV6 time and channel mix, LayerNorm), whisper-tiny (an
+encoder over a stub audio frontend and a decoder that cross-attends to it
+in every layer), recurrentgemma-2b (Griffin: RG-LRU layers and
+local-attention layers, a gated-GELU MLP), llama-3.2-vision-11b (gated
+cross-attention layers over a stub image frontend in place of every 5th
+self-attention layer) and, outside ``ARCHS`` as in the JAX registry, the
+paper's own gpt3-175b (LayerNorm, tanh-GELU MLP, sinusoidal positions).
 """
 from .base import ModelConfig, smoke_config
 
@@ -18,7 +21,9 @@ from .qwen3_1_7b import CONFIG as _qwen3
 from .granite_moe_3b_a800m import CONFIG as _granite
 from .grok_1_314b import CONFIG as _grok
 from .rwkv6_7b import CONFIG as _rwkv6
+from .whisper_tiny import CONFIG as _whisper
 from .recurrentgemma_2b import CONFIG as _rgemma
+from .llama_3_2_vision_11b import CONFIG as _llamav
 from .gpt3_175b import CONFIG as _gpt3
 
 ARCHS = {
@@ -29,7 +34,9 @@ ARCHS = {
     "granite-moe-3b-a800m": _granite,
     "grok-1-314b": _grok,
     "rwkv6-7b": _rwkv6,
+    "whisper-tiny": _whisper,
     "recurrentgemma-2b": _rgemma,
+    "llama-3.2-vision-11b": _llamav,
 }
 
 # the paper's own model: selectable, but not one of the assigned archs

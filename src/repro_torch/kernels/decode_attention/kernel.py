@@ -6,14 +6,18 @@
   loads can take (``chunked_eligible``): the live keys, counted from the
   lengths on the device, cut into units and shared equally among the card's
   warps, the partials' merge in the same launch. The model's decode step
-  takes this path;
+  takes this path at G <= ``CHUNKED_MAX_G``;
 - ``decode_attention_cuda`` (``csrc/decode_attention.cu``): everything else
-  the card computes: fp32, and bf16 whose bases or strides are off 16 bytes
-  (a split of the cache length T over blocks, then a merge kernel), at D =
-  32, 64, 128 or 256.
+  the card computes: more query heads a kv-head, fp32, and bf16 whose bases
+  or strides are off 16 bytes (a split of the cache length T over blocks,
+  then a merge kernel), at D = 32, 64, 128 or 256.
 
-``decode_cuda`` picks between the two by ``chunked_eligible``, before the
-launch. A head dim between the kernels' (up to 256) runs at the next one up
+``decode_cuda`` picks between the two before the launch (``picks_chunked``):
+the chunked kernel where ``chunked_eligible`` holds and a kv-head has at most
+``CHUNKED_MAX_G`` query heads, the split kernel otherwise. The crossover was
+measured on an H100 (``chip_smoke.py``, the G sweep of its timing phase): the
+chunked kernel is the faster at G <= 2, the split one from G = 3 on. A head
+dim between the kernels' (up to 256) runs at the next one up
 (``kernel_head_dim``): q, k and v zero-padded along D, the true D's
 ``1/sqrt(D)`` passed as the scale, the output sliced back, which is exact. The
 source files carry the kernels' design notes and their bounds on an H100. Each
@@ -36,6 +40,8 @@ from .. import _build
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims of the chunked kernel
 CHUNKED_HEAD_DIMS = (32, 64, 128, 256)
+#: the most query heads per kv-head the chunked kernel takes (the crossover)
+CHUNKED_MAX_G = 2
 MIN_SPLIT_LEN = 64  # keys per split at the least (the split kernel)
 BLOCKS_PER_SM = 4   # split the cache length until this many blocks run
 
@@ -138,6 +144,13 @@ def chunked_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
                for t in (k, v))
 
 
+def picks_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``decode_cuda`` runs a call on the chunked kernel: it takes
+    the call (``chunked_eligible``) and G <= ``CHUNKED_MAX_G``, where it
+    is the faster of the two."""
+    return chunked_eligible(q, k, v) and q.shape[2] <= CHUNKED_MAX_G
+
+
 def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   lengths: torch.Tensor, *, softcap: float = 0.0,
                                   scale: float | None = None) -> torch.Tensor:
@@ -218,7 +231,7 @@ decode_attention_cuda.launches = 0
 
 def decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor, *,
                 softcap: float = 0.0) -> torch.Tensor:
-    """The op's decode attention on the card: calls ``chunked_eligible``
+    """The op's decode attention on the card: calls ``picks_chunked``
     accepts go to ``decode_attention_chunked_cuda``, all others to
     ``decode_attention_cuda``; a head dim between the kernels' runs
     zero-padded to ``kernel_head_dim`` at its own scale, the output sliced
@@ -227,7 +240,7 @@ def decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torc
     Dk = kernel_head_dim(D)
     if Dk != D:
         q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
-    kernel = decode_attention_chunked_cuda if chunked_eligible(q, k, v) \
+    kernel = decode_attention_chunked_cuda if picks_chunked(q, k, v) \
         else decode_attention_cuda
     o = kernel(q, k, v, lengths, softcap=softcap, scale=1.0 / math.sqrt(D))
     return o if Dk == D else o[..., :D].contiguous()

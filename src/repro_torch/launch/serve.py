@@ -16,14 +16,20 @@ grok-1-314b's 64 layers, 633 GB, neither; 4 layers, 42.6 GB, do:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
         --preset full --layers 4
 
-). (The JAX launcher's planner report needs the analytical stack, which
-the port has no copy of yet.)
+). whisper-tiny and llama-3.2-vision-11b (9.78 G parameters, 19.6 GB,
+full size on one card) cross-attend to a frontend, whose encoder or vision
+tower the reference stubs out: each request gets a stub frontend of
+(n_frontend_tokens, d) normal embeddings in bf16, drawn from a
+``torch.Generator`` seeded with 0. (The JAX launcher's planner report
+needs the analytical stack, which the port has no copy of yet.)
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import replace
+
+import torch
 
 from ..configs import ARCHS, EXTRA_ARCHS, ModelConfig, get_config, smoke_config
 from ..device import resolve_device
@@ -71,9 +77,13 @@ def main(argv=None):
     eng = Engine(cfg, params, batch_size=args.batch, max_len=args.max_len,
                  device=device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
+    gen = torch.Generator().manual_seed(0)
+    shape = (cfg.n_frontend_tokens, cfg.d_model)
     reqs = [Request(uid=i, prompt=[(7 * i + j) % cfg.vocab_size
                                    for j in range(5 + i % 7)],
-                    max_new_tokens=args.max_new, sampling=sampling)
+                    max_new_tokens=args.max_new, sampling=sampling,
+                    frontend=torch.randn(shape, generator=gen).to(torch.bfloat16)
+                    if cfg.n_frontend_tokens else None)
             for i in range(args.requests)]
     t0 = time.perf_counter()
     done = eng.run(reqs)

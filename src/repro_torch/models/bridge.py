@@ -13,8 +13,15 @@ config:
     is (rglru, rglru, attn) with a remainder of two rglru layers). Each
     lands in ``blocks.<i>.<group>.<name>``, for every group of the layer:
     ``ln1``, ``attn``, ``ln2``, ``mlp`` of an attention layer (``moe`` in
-    place of ``mlp`` in an MoE model), ``ln1``, ``rec``, ``ln2``, ``mlp`` of
-    an RG-LRU one, ``ln1``, ``tmix``, ``ln2``, ``cmix`` of an RWKV6 one;
+    place of ``mlp`` in an MoE model), the same and ``lnx``, ``xattn`` of an
+    encoder-decoder's decoder layer, ``ln1``, ``xattn``, ``ln2``, ``mlp`` of
+    a vision cross layer, whose ``xgate`` is a leaf of the layer itself
+    (``blocks.<i>.xgate``), ``ln1``, ``rec``, ``ln2``, ``mlp`` of an RG-LRU
+    one, ``ln1``, ``tmix``, ``ln2``, ``cmix`` of an RWKV6 one;
+  * an encoder-decoder's encoder: ``params["enc"]["layers"]`` stacked with
+    the encoder layer on axis 0, each entry landing in
+    ``enc.layers.<i>.<group>.<name>`` (``ln1``, ``attn``, ``ln2``, ``mlp``),
+    and ``params["enc"]["final_norm"]`` in ``enc.final_norm.<name>``;
   * every leaf crosses under its JAX key and in its JAX dtype: a LayerNorm's
     ``scale`` and ``bias`` (``ln1``, ``ln2``, ``final_norm``), an RMSNorm's
     ``scale``, a gated MLP's ``w_gate``, ``w_up``, ``w_down`` or a plain
@@ -65,8 +72,17 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     layers = [(r * len(unit) + j, tree["units"][f"u{j}"], r)
               for r in range(n_units) for j in range(len(unit))]
     layers += [(n_units * len(unit) + j, tree["rem"][f"r{j}"], None) for j in range(len(rem))]
-    for i, groups, r in layers:
+    layers = [(f"blocks.{i}", groups, r) for i, groups, r in layers]
+    if cfg.n_encoder_layers:
+        enc = tree["enc"]
+        layers += [(f"enc.layers.{i}", enc["layers"], i) for i in range(cfg.n_encoder_layers)]
+        sd.update({f"enc.final_norm.{name}": to_tensor(leaf)
+                   for name, leaf in enc["final_norm"].items()})
+    for prefix, groups, r in layers:
         for group, leaves in groups.items():
-            for name, leaf in leaves.items():
-                sd[f"blocks.{i}.{group}.{name}"] = to_tensor(leaf if r is None else leaf[r])
+            # a group is a dict of leaves, or a leaf of its own (xgate)
+            items = leaves.items() if isinstance(leaves, dict) else [(None, leaves)]
+            for name, leaf in items:
+                key = f"{prefix}.{group}" if name is None else f"{prefix}.{group}.{name}"
+                sd[key] = to_tensor(leaf if r is None else leaf[r])
     return sd

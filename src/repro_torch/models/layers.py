@@ -185,25 +185,38 @@ def attn_init(cfg: ModelConfig, gen: Optional[torch.Generator], device=None) -> 
     return p
 
 
-def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
-    """Rope'd q (B, S, Hq, dh) and k, v (B, S, Hkv, dh) for self-attention.
-    rope: ``rope_tables(cfg, positions)`` of the step (the JAX function
-    takes the positions and builds the tables in every layer)."""
+def attn_q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """q (B, S, Hq, dh) before RoPE: the projection, its bias and its qk-norm."""
     B, S, _ = x.shape
-    dh = cfg.d_head
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    return rms_norm(q, p["q_norm"]) if cfg.qk_norm else q
+
+
+def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope=None,
+             kv_src: Optional[torch.Tensor] = None):
+    """q (B, S, Hq, dh) and k, v (B, Sk, Hkv, dh). Self-attention: k and v
+    from x (Sk = S), q and k rotated by rope, ``rope_tables(cfg,
+    positions)`` of the step (the JAX function takes the positions and
+    builds the tables in every layer). Cross-attention: k and v from
+    `kv_src` (B, Sk, d), and no RoPE, as the JAX function applies none when
+    given a ``kv_src``; qk-norm applies either way."""
+    src = x if kv_src is None else kv_src
+    B, Sk, _ = src.shape
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, dh)
-    k = k.reshape(B, S, cfg.n_kv_heads, dh)
-    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    k = k.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    q = attn_q(cfg, p, x)
+    if kv_src is not None or rope is None:
+        return q, k, v
     return rotate(q, rope), rotate(k, rope), v
 
 

@@ -1,15 +1,23 @@
 """Serving engine of the port: batched prefill + continuous-batching decode.
 
 The same slot model as ``repro.serving.engine``:
-  * the engine owns `batch_size` slots and one cache (K/V, a Griffin
-    model's ring K/V, RG-LRU state and conv carry, or an RWKV6 model's
-    recurrent state and token shifts); slot admission,
+  * the engine owns `batch_size` slots and one cache (K/V and cross K/V, a
+    Griffin model's ring K/V, RG-LRU state and conv carry, or an RWKV6
+    model's recurrent state and token shifts); slot admission,
     budgets and refill-on-completion live in `core.scheduler.SlotScheduler`;
   * prefill runs per admission wave (right-padded prompts, per-sequence
     prompt lengths); finished slots are refilled by a single-prompt prefill
     into a fresh batch-1 cache that is copied into the slot;
   * decode advances all live slots every step (dead slots masked), sampling
     every slot with its own request's SamplingParams.
+
+A model with cross-attention takes each request's stub frontend,
+(n_frontend_tokens, d) embeddings: the wave's prefill stacks them, with
+zero rows for idle slots, and a refill passes its request's own. A slot's cross
+K/V are always its request's own, or zero where the request brings no
+frontend (an encoder-decoder refuses such a request); never another's. The
+JAX engine passes no frontend at all, so it cannot serve whisper
+(``ROADMAP.md``, C12).
 
 A wave's prompts need not be of one length, for recurrent models too: the
 model's prefill keeps each sequence's right pads out of its recurrent state
@@ -24,7 +32,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -42,6 +50,7 @@ class Request:
     max_new_tokens: int = 32
     eos_id: int = -1
     sampling: SamplingParams = field(default_factory=SamplingParams)
+    frontend: Optional[torch.Tensor] = None   # (n_frontend_tokens, d) stub embeddings
     output: List[int] = field(default_factory=list)
     done: bool = False
 
@@ -71,13 +80,36 @@ class Engine:
     def _insert(self, one_cache: dict, slot: int) -> None:
         """Copy every tensor of a batch-1 cache into `slot` of the engine
         cache: the slot is axis 0 of ``pos`` and axis 1 (after the layer)
-        of every other tensor (K/V and their ring, RG-LRU state and conv
-        carry, RWKV6 state and token shifts alike)."""
+        of every other tensor (K/V and their ring, cross K/V, RG-LRU state
+        and conv carry, RWKV6 state and token shifts alike)."""
         for name, one in one_cache.items():
             if name == "pos":
                 self.cache[name][slot] = one[0]
             else:
                 self.cache[name][:, slot] = one[:, 0]
+
+    def _frontends(self, reqs: List[Request], batch: int) -> Optional[torch.Tensor]:
+        """The requests' frontends stacked into (batch, n_frontend_tokens, d)
+        bf16, zero rows past them (idle slots) and for a request that brings
+        none (which give it zero cross K/V), or None where none brings one.
+        Raises ValueError for a frontend of another shape, and for a request
+        without one to a model with an encoder."""
+        cfg = self.cfg
+        want = (cfg.n_frontend_tokens, cfg.d_model)
+        for r in reqs:
+            if r.frontend is None and cfg.n_encoder_layers:
+                raise ValueError(f"request {r.uid} brings no frontend; {cfg.name} needs one "
+                                 f"of {want}")
+            if r.frontend is not None and tuple(r.frontend.shape) != want:
+                raise ValueError(f"request {r.uid}: frontend of {tuple(r.frontend.shape)}, "
+                                 f"{cfg.name} takes {want}")
+        if all(r.frontend is None for r in reqs):
+            return None
+        out = torch.zeros((batch,) + want, dtype=torch.bfloat16, device=self.device)
+        for i, r in enumerate(reqs):
+            if r.frontend is not None:
+                out[i] = r.frontend
+        return out
 
     # ------------------------------------------------------------------
     def admit_wave(self, requests: List[Request]):
@@ -96,7 +128,7 @@ class Engine:
                 toks[i][:len(r.prompt)] = r.prompt
                 lens[i] = max(len(r.prompt), 1)
             logits = self.params.prefill(self._tensor(toks), self.cache,
-                                         self._tensor(lens))
+                                         self._tensor(lens), self._frontends(wave, self.B))
             first = sample_per_request(logits[:len(wave)], self.generator,
                                        [r.sampling for r in wave]).tolist()
             for i, r in enumerate(wave):
@@ -106,7 +138,8 @@ class Engine:
             for slot, r in pairs:
                 one = init_cache(self.cfg, 1, self.max_len, self.device)
                 logits = self.params.prefill(self._tensor([r.prompt]), one,
-                                             self._tensor([len(r.prompt)]))
+                                             self._tensor([len(r.prompt)]),
+                                             self._frontends([r], 1))
                 self._insert(one, slot)
                 first = sample_per_request(logits[:1], self.generator,
                                            [r.sampling]).tolist()

@@ -31,7 +31,8 @@ from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
 from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.kernel import chunk_keys, chunked_eligible
+from repro_torch.kernels.decode_attention.kernel import (chunk_keys, chunked_eligible,
+                                                         picks_chunked)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
 from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
@@ -236,7 +237,8 @@ def test_gelu_served_shapes_on_card(cuda, shape, dtype):
 
 # (query heads, kv-heads, d_head) of the served models
 SERVED_HEADS = {"qwen3-1.7b": (16, 8, 128), "stablelm-1.6b": (32, 32, 64),
-                "gpt3-175b": (96, 96, 128)}
+                "gpt3-175b": (96, 96, 128), "llama-3.2-vision-11b": (32, 8, 128),
+                "whisper-tiny": (6, 6, 64)}
 
 
 @pytest.mark.parametrize("arch", sorted(SERVED_HEADS))
@@ -288,24 +290,47 @@ def test_flash_attention_model_layout_views_on_card(cuda, window, cap):
     assert rel_err(got, want) < TOL["bfloat16"]
 
 
+def unhide_cross_attention(model):
+    """In place: ``xgate`` 0.5, the qkv biases seeded normal values of 0.2,
+    the cross-attention output projections 8 times their init, so that a
+    wrong cross-attention moves the logits past the tolerance (the init's
+    zero gate and biases hide it)."""
+    gen = torch.Generator().manual_seed(4)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "xgate":
+            p.data.fill_(0.5)
+        elif leaf in ("bq", "bk", "bv"):
+            p.data.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        elif name.endswith("xattn.wo"):
+            p.data.mul_(8)
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS) + sorted(EXTRA_ARCHS))
 def test_model_on_card_matches_cpu(cuda, monkeypatch, arch):
     """Forward, prefill and decode logits of the kernel path on the card
     against the plain path on the CPU, on the same weights; an MoE model's
-    routing on the CPU replayed on the card."""
+    routing on the CPU replayed on the card; a cross-attending model with a
+    full-length frontend and its cross-attention unhidden, its cross K/V
+    held too."""
     cfg = smoke_config(get_config(arch))
     cpu = models.init_params(cfg, seed=0, device="cpu")
+    unhide_cross_attention(cpu)
     gpu = LM(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (3, 12), dtype=np.int32))
     lens = torch.tensor([12, 7, 3], dtype=torch.int32)
+    fe = normal(9, (3, cfg.n_frontend_tokens, cfg.d_model), "cpu", torch.bfloat16) \
+        if cfg.n_frontend_tokens else None
     V = cfg.vocab_size
 
     def run(model, device):
         cache = models.init_cache(cfg, 3, 32, device=device)
-        out = [model(toks.to(device)), model.prefill(toks.to(device), cache, lens.to(device))]
+        f = None if fe is None else fe.to(device)
+        out = [model(toks.to(device), f), model.prefill(toks.to(device), cache, lens.to(device), f)]
         out += [model.decode_step(toks[:, step].to(device), cache) for step in range(3)]
+        out += [cache[name] for name in ("xk", "xv") if name in cache]
         return [lg[..., :V] for lg in out], cache["pos"].tolist()
 
     with monkeypatch.context() as m:
@@ -940,7 +965,8 @@ def test_card_computes_what_it_once_refused(cuda):
         if dtype == torch.bfloat16:
             assert attention_excess(got, want) <= 1, d
     lens = torch.tensor([150, 33], dtype=torch.int32, device=cuda)
-    for d, dtype, kern in ((16, torch.bfloat16, "decode_attention_chunked"),
+    # 10 query heads a kv-head: the split kernel, in bf16 too (G > CHUNKED_MAX_G)
+    for d, dtype, kern in ((16, torch.bfloat16, "decode_attention"),
                            (200, torch.float32, "decode_attention"),
                            (256, torch.float32, "decode_attention")):
         q = normal(14, (2, 1, 10, d), cuda, dtype)
@@ -1065,7 +1091,8 @@ def test_griffin_launches_per_step_on_card(cuda):
     remainder): per prefill 2L+1 RMSNorms, L gelu_mul, one gelu and one
     rglru per RG-LRU layer (6) and one flash attention per attention layer
     (2, the mma.sync kernel at the smoke head dim 32); per decode step the
-    same with decode_attention_chunked in place of flash attention."""
+    same with the split decode kernel in place of flash attention (4 query
+    heads on one kv-head at the smoke size: G > CHUNKED_MAX_G)."""
     cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")), n_layers=8)
     model = models.init_params(cfg, seed=0, device=cuda)
     cache = models.init_cache(cfg, 2, 32, device=cuda)
@@ -1077,7 +1104,88 @@ def test_griffin_launches_per_step_on_card(cuda):
     assert TK.launches() == {**step, "flash_attention": 2}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
-    assert TK.launches() == {**step, "decode_attention_chunked": 2}
+    assert TK.launches() == {**step, "decode_attention": 2}
+
+
+@pytest.mark.parametrize("what,b,hq,hkv,sq,sk,d", [
+    ("llama-3.2-vision cross at a wave", 2, 32, 8, 300, 1601, 128),
+    ("whisper encoder", 2, 6, 6, 1500, 1500, 64),
+    ("whisper cross at a wave", 2, 6, 6, 300, 1500, 64),
+    ("llama-3.2-vision cross, one query", 3, 32, 8, 1, 1601, 128)])
+def test_flash_non_causal_cross_shapes_on_card(cuda, what, b, hq, hkv, sq, sk, d):
+    """Non-causal flash with Sq != Sk and Sk no multiple of a key tile, at
+    the cross-attending models' head layouts, through the model's entry on
+    (B, S, H, D) tensors: one launch of the wgmma kernel, per element
+    against the plain version."""
+    q = normal(30, (b, sq, hq, d), cuda, torch.bfloat16)
+    k = normal(31, (b, sk, hkv, d), cuda, torch.bfloat16)
+    v = normal(32, (b, sk, hkv, d), cuda, torch.bfloat16)
+    before = TK.launches()
+    got = models.layers.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+        {"flash_attention_wgmma": 1}
+    want = models.layers.attention_reference(q, k, v, causal=False)
+    assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1, what
+
+
+@pytest.mark.parametrize("hkv,g,nf,d,kern", [(8, 4, 1601, 128, "flash_attention_wgmma"),
+                                             (6, 1, 1500, 64, "decode_attention_chunked")])
+def test_cross_attention_at_decode_on_card(cuda, hkv, g, nf, d, kern):
+    """A decode step's cross-attention at the served shapes through
+    ``attend_all_keys`` over a layer of the cross cache (B, nf, Hkv * dh):
+    whisper's G = 1 on the decode op's chunked kernel, llama-3.2-vision's
+    G = 4 on flash over the one query, one launch, per element against the
+    decode op's plain version with every length nf; and the decode op
+    itself over the same keys (the split kernel at G = 4) against the
+    same."""
+    b = 3
+    cache = normal(33, (2, 2, b, nf, hkv * d), cuda, torch.bfloat16)
+    k, v = cache[0, 1].view(b, nf, hkv, d), cache[1, 1].view(b, nf, hkv, d)
+    q = normal(34, (b, hkv, g, d), cuda, torch.bfloat16)
+    lengths = torch.full((b,), nf, dtype=torch.int32, device=cuda)
+    want = decode_attention_ref(q, k, v, lengths)
+    for op in (decode_ops.attend_all_keys,
+               lambda q, k, v: decode_ops.decode_attention(q, k, v, lengths)):
+        before = TK.launches()
+        got = op(q, k, v)
+        torch.cuda.synchronize()
+        after = TK.launches()
+        launched = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        if op is decode_ops.attend_all_keys:
+            assert launched == {kern: 1}
+        else:
+            assert launched == {"decode_attention_chunked" if g == 1 else "decode_attention": 1}
+        assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_cross_models_launches_per_step_on_card(cuda, arch):
+    """Per prefill step of the smoke models (head dim 32: the mma.sync
+    flash kernel; G = 2: the chunked decode kernel): every norm, activation
+    and attention of the decoder's self and cross layers, and whisper's
+    encoder (2 norms, a gelu and a non-causal flash a layer, its final
+    norm); per decode step the decoder's, the cross layers' on the decode
+    kernel."""
+    cfg = smoke_config(get_config(arch))
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    fe = normal(35, (2, cfg.n_frontend_tokens, cfg.d_model), cuda, torch.bfloat16)
+    want = {name: 0 for name in TK.KERNELS}
+    if arch == "whisper-tiny":    # 2 encdec layers, 2 encoder layers
+        prefill = {"layernorm": 12, "gelu": 4, "flash_attention": 6}
+        decode = {"layernorm": 7, "gelu": 2, "decode_attention_chunked": 4}
+    else:                         # layers (attn, xattn)
+        prefill = {"rmsnorm": 5, "silu_mul": 2, "flash_attention": 2}
+        decode = {"rmsnorm": 5, "silu_mul": 2, "decode_attention_chunked": 2}
+    TK.reset_launches()
+    model.prefill(toks, cache, frontend=fe)
+    assert TK.launches() == {**want, **prefill}
+    TK.reset_launches()
+    model.decode_step(toks[:, 0], cache)
+    assert TK.launches() == {**want, **decode}
 
 
 # ---------------- the chunked decode kernel ----------------
@@ -1122,18 +1230,23 @@ def test_chunked_decode_matches_plain_on_card(cuda, d, g):
 def test_chunked_decode_cache_views_on_card(cuda, arch):
     """The model's cache views (a layer of the fused (L, B, T, Hkv * D)
     cache viewed as (B, T, Hkv, D)) at each served head layout and mixed
-    lengths, through the op: the chunked kernel, per element."""
+    lengths, through the op: the chunked kernel takes every one of them,
+    and the op runs it where G <= CHUNKED_MAX_G, the split kernel beyond
+    (llama-3.2-vision's G = 4), per element."""
     hq, hkv, d = SERVED_HEADS[arch]
     b, t = 4, 700
     cache = normal(23, (2, 2, b, t, hkv * d), cuda, torch.bfloat16)
     k, v = cache[0, 1].view(b, t, hkv, d), cache[1, 1].view(b, t, hkv, d)
     q = normal(24, (b, hkv, hq // hkv, d), cuda, torch.bfloat16)
     lengths = torch.tensor([700, 1, 333, 64], dtype=torch.int32, device=cuda)
+    assert chunked_eligible(q, k, v)
+    kern, other = ("decode_attention_chunked", "decode_attention") if picks_chunked(q, k, v) \
+        else ("decode_attention", "decode_attention_chunked")
     before = TK.launches()
     got = decode_ops.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert TK.launches()["decode_attention_chunked"] == before["decode_attention_chunked"] + 1
-    assert TK.launches()["decode_attention"] == before["decode_attention"]
+    assert TK.launches()[kern] == before[kern] + 1
+    assert TK.launches()[other] == before[other]
     want = decode_attention_ref(q, k, v, lengths)
     assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
 

@@ -344,9 +344,10 @@ def test_decode_path_predicate_routes_shapes():
 
 
 def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
-    """``decode_cuda`` routes by ``chunked_eligible`` alone and never calls
-    the other wrapper (CPU tensors, the wrappers replaced by recorders); the
-    op sends a CUDA-bound call there and nowhere else."""
+    """``decode_cuda`` routes by ``picks_chunked`` (``chunked_eligible`` and
+    G at most ``CHUNKED_MAX_G``) and never calls the other wrapper (CPU
+    tensors, the wrappers replaced by recorders); the op sends a CUDA-bound
+    call there and nowhere else."""
     calls, seen = [], []
 
     def recorder(name):
@@ -363,6 +364,10 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
     cases = [((torch.zeros(2, 2, 2, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
               "decode_attention_chunked_cuda"),
              ((torch.zeros(2, 1, 10, 256, dtype=bf), torch.zeros(2, 9, 1, 256, dtype=bf)),
+              "decode_attention_cuda"),
+             ((torch.zeros(2, 8, 4, 128, dtype=bf), torch.zeros(2, 9, 8, 128, dtype=bf)),
+              "decode_attention_cuda"),
+             ((torch.zeros(2, 6, 1, 64, dtype=bf), torch.zeros(2, 9, 6, 64, dtype=bf)),
               "decode_attention_chunked_cuda"),
              ((torch.zeros(2, 2, 2, 64), torch.zeros(2, 9, 2, 64)), "decode_attention_cuda"),
              ((torch.zeros(2, 2, 2, 64, dtype=bf),
@@ -375,7 +380,7 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
                      (torch.zeros(2, 2, 2, 200), torch.zeros(2, 9, 2, 200), 256)):
         calls.clear()
         assert t_decode_kernel.decode_cuda(q, k, k, lens).shape == q.shape
-        path = "decode_attention_chunked_cuda" if q.dtype == bf else "decode_attention_cuda"
+        path = "decode_attention_cuda"     # G = 10 and fp32 both go to the split kernel
         assert calls == [(path, {"softcap": 0.0, "scale": 1.0 / math.sqrt(q.shape[-1])})]
         assert seen == [dk]
     calls.clear()
@@ -385,6 +390,57 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
     assert calls == [("decode_attention_chunked_cuda",
                       {"softcap": 0.0, "scale": 1.0 / math.sqrt(128)})]
 
+
+
+def test_attend_all_keys_routes_chunked_calls_to_the_decode_op(monkeypatch):
+    """``attend_all_keys`` (one query over every key) sends a card call the
+    chunked decode kernel takes (``picks_chunked``: whisper-tiny's cross
+    shape, G = 1) to the decode op with every length Sk, and every other
+    (llama-3.2-vision's G = 4, fp32, a CPU call) to flash attention on the
+    one query, non-causal, over the keys' (B, Hkv, Sk, D) view (CPU
+    tensors, the two paths replaced by recorders)."""
+    calls = []
+
+    def decode(q, k, v, lengths, **kw):
+        calls.append(("decode", q.shape, k.shape, lengths.tolist(), kw))
+        return torch.zeros_like(q)
+
+    def flash(q, k, v, **kw):
+        calls.append(("flash", q.shape, k.shape, kw))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(t_decode, "decode_cuda", decode)
+    monkeypatch.setattr(t_decode, "flash_attention", flash)
+    bf = torch.bfloat16
+    whisper = (torch.zeros(2, 6, 1, 64, dtype=bf), torch.zeros(2, 15, 6, 64, dtype=bf))
+    llama = (torch.zeros(2, 8, 4, 128, dtype=bf), torch.zeros(2, 17, 8, 128, dtype=bf))
+    fp32 = (torch.zeros(2, 6, 1, 64), torch.zeros(2, 15, 6, 64))
+    t_decode.attend_all_keys(whisper[0], whisper[1], whisper[1])
+    assert not t_decode.all_keys_on_decode(whisper[0], whisper[1], whisper[1])
+    assert calls == [("flash", (2, 6, 1, 64), (2, 6, 15, 64), {"causal": False})]
+    monkeypatch.setattr(t_decode, "runs_plain", lambda t: False)
+    for (q, k), want in ((whisper, ("decode", (2, 6, 1, 64), (2, 15, 6, 64), [15, 15], {})),
+                         (llama, ("flash", (2, 32, 1, 128), (2, 8, 17, 128),
+                                  {"causal": False})),
+                         (fp32, ("flash", (2, 6, 1, 64), (2, 6, 15, 64), {"causal": False}))):
+        calls.clear()
+        assert t_decode.attend_all_keys(q, k, k).shape == q.shape
+        assert t_decode.all_keys_on_decode(q, k, k) == (want[0] == "decode")
+        assert calls == [want]
+
+
+@pytest.mark.parametrize("hkv,g,d", [(6, 1, 64), (8, 4, 128)])
+def test_attend_all_keys_is_decode_attention_over_every_key(hkv, g, d):
+    """On the CPU ``attend_all_keys`` (flash's plain version on the one
+    query) is the decode op's plain version with every length Sk, within
+    bf16's 2e-2 of the largest value."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16)
+               for s in ((3, hkv, g, d), (3, 37, hkv, d), (3, 37, hkv, d)))
+    got = t_decode.attend_all_keys(q, k, v)
+    want = t_decode.decode_attention(q, k, v, torch.full((3,), 37, dtype=torch.int32))
+    assert got.shape == want.shape
+    assert (got.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
 
 # ---------------- wkv ----------------
 

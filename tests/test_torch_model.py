@@ -176,7 +176,11 @@ def test_prefill_decode_matches_forward(arch):
     cfg = smoke_config(get_config(arch))
     model = models.init_params(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(tokens(cfg, B=2, S=16))
-    logits = model(toks)
+    fe = None    # a cross-attending model's stub frontend
+    if cfg.n_frontend_tokens:
+        fe = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    logits = model(toks, fe)
     cache = models.init_cache(cfg, 2, 32, device="cpu")
     V = cfg.vocab_size
 
@@ -187,7 +191,7 @@ def test_prefill_decode_matches_forward(arch):
         else:
             assert rel_err(got, want) < tol
 
-    check(model.prefill(toks[:, :-1], cache), logits[:, -2], 0.05)
+    check(model.prefill(toks[:, :-1], cache, frontend=fe), logits[:, -2], 0.05)
     check(model.decode_step(toks[:, -1], cache), logits[:, -1], 0.07)
 
 
@@ -335,12 +339,25 @@ def test_rwkv6_param_count_at_full_size():
                                                                 torch.float32}
 
 
-@pytest.mark.parametrize("arch,field", [
-    ("whisper-tiny", "family"),
-    ("llama-3.2-vision-11b", "family"),
+@pytest.mark.parametrize("arch,change,field", [
+    ("whisper-tiny", {"n_frontend_tokens": 0}, "cross_attention"),
+    ("whisper-tiny", {"n_encoder_layers": 0}, "cross_attention"),
+    ("whisper-tiny", {"qk_norm": True}, "cross_attention"),
+    ("llama-3.2-vision-11b", {"n_frontend_tokens": 0}, "cross_attn_layers"),
+    ("llama-3.2-vision-11b", {"n_experts": 4, "top_k": 2}, "cross_attn_layers"),
+    ("llama-3.2-vision-11b", {"qkv_bias": True}, "cross_attn_layers"),
+    ("llama-3.2-vision-11b", {"cross_attention": True}, "cross_attention"),
+    ("llama-3.2-vision-11b", {"family": "video"}, "family"),
 ])
-def test_configs_outside_the_slice_raise(arch, field):
-    cfg = smoke_config(port_cfg(jax_get_config(arch)))
+def test_configs_outside_the_slice_raise(arch, change, field):
+    """Cross-attending configs the port does not run: an encoder-decoder
+    without frontend tokens, without an encoder, or with qk-norm (the JAX
+    cached encdec arm leaves the cross q un-normed where its forward norms
+    it); vision cross layers without frontend tokens, in an MoE model
+    (the JAX xattn layer is built with a dense MLP and applied with the MoE
+    one) or with qkv biases (a request without a frontend gets zero cross
+    K/V from zero frontend rows, which biases would move); both kinds of cross-attention at once; another family."""
+    cfg = dataclasses.replace(smoke_config(port_cfg(jax_get_config(arch))), **change)
     with pytest.raises(NotImplementedError, match=field):
         models.init_params(cfg, device="cpu")
 

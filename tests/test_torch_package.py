@@ -129,6 +129,16 @@ def test_launcher_serves_the_moe_archs_on_cpu(arch):
     assert len(done) == 3 and all(len(r.output) == 3 for r in done)
 
 
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_launcher_serves_the_cross_archs_on_cpu(arch):
+    """The two cross-attending archs through ``--arch`` at the tiny preset,
+    each request with its seeded stub frontend: a wave and a refill."""
+    done = serve.main(["--arch", arch, "--requests", "3", "--batch", "2",
+                       "--max-new", "3", "--device", "cpu"])
+    assert len(done) == 3 and all(len(r.output) == 3 for r in done)
+    assert all(r.frontend.shape == (16, 128) for r in done)
+
+
 def test_engine_refuses_a_model_on_another_device():
     cfg = smoke_config(get_config("qwen3-1.7b"))
     model = models.init_params(cfg, device="meta")
