@@ -38,10 +38,13 @@ result line):
                windows that cut key tiles, the served wave and the ring
                phase's prefill) and in fp32; decode attention at D = 256
                with 10 query heads (the chunked kernel; fp32 on the split
-               one); the rglru op to 1e-4 (output and final h) at d = 2560:
-               unequal lengths with a 0, h0 nonzero, decays near 0 and near
-               1, the served wave, a batch-1 refill of 452 and the decode
-               step in place; then every input ROADMAP C9 once listed as
+               one); the rglru op to 1e-4 (output and final h) at d = 2560,
+               each case on the kernel ``picks_chunked`` names (the chunked
+               scan for T > 1, rglru.cu for the decode step), one launch of
+               it: unequal lengths with a 0, h0 nonzero, decays near 0 and
+               near 1, T off every segment and tile, the served wave, a
+               batch-1 refill of 452, the ring phase's prefill of 2304 and
+               the decode step in place; then every input ROADMAP C9 once listed as
                refused, through its op, on the kernel its launch count
                names: fp16 GEMMs (and matmul_fp8 writing fp16) at 1e-3 and
                per element, flash attention at D = 16, 48, 96 and 200
@@ -83,7 +86,8 @@ result line):
                sinusoidal positions, 96 heads), rwkv6-7b (full width and
                depth, attention-free; layernorm, wkv) and recurrentgemma-2b
                (full width and depth, 26 layers: 18 RG-LRU layers (gelu on
-               the gate branch, rglru) and 8 local-attention layers at
+               the gate branch, rglru_chunked at prefill and rglru at a
+               decode step) and 8 local-attention layers at
                D = 256 on one kv-head; rmsnorm, gelu_mul), and two MoE
                decoders: granite-moe-3b-a800m (full size, 3.30 G
                parameters: 40 experts, top-8, SwiGLU experts on silu_mul,
@@ -117,7 +121,9 @@ result line):
                launches a decode step of the decode kernel
                ``picks_chunked`` names for the model's G and 0 of the
                other; rwkv6: L wkv_chunked and 0 wkv a prefill, L wkv and
-               0 wkv_chunked a decode step; a cross-attending model also
+               0 wkv_chunked a decode step; recurrentgemma: 18 rglru_chunked
+               and 0 rglru a prefill, 18 rglru and 0 rglru_chunked a decode
+               step; a cross-attending model also
                its cross layers', and at each prefill its encoder's,
                ``expected_launches``); then the
                launches of one prefill and one decode step, a torch.profiler
@@ -170,10 +176,13 @@ result line):
                Triton kernel gelu.cu replaced in turns at the prefill and
                the decode shape; gelu_mul beside F.gelu(g) * u; flash at
                D = 256 (recurrentgemma's wave and its ring prefill) beside
-               SDPA; rglru at the served recurrentgemma run's wave, longest
-               refill and decode step; the chunked wkv kernel at the served
-               rwkv6 run's wave and each of its 8 refills beside the
-               step-by-step kernel and at each column split, and the decode
+               SDPA; rglru_chunked at the served recurrentgemma run's wave,
+               longest refill and the ring phase's prefill beside rglru.cu
+               (which ran them before) and at each segment length, and the
+               decode step on rglru.cu beside the chunked kernel; the
+               chunked wkv kernel at the served rwkv6 run's wave and each
+               of its 8 refills beside the step-by-step kernel and at each
+               column split, and the decode
                step beside ``s0.mul_(1.0)`` on its state, and at N = 128
                (wkv.cu); silu_mul beside F.silu(g) * u, also at granite's
                expert buffer at its served wave; gelu_mul at grok's; flash
@@ -272,6 +281,7 @@ REPLACES = {
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "wkv_chunked": "src/repro/kernels/wkv/kernel.py:51",
     "rglru": "src/repro/models/recurrent.py:206",
+    "rglru_chunked": "src/repro/models/recurrent.py:206",
     "matmul": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_wgmma": "src/repro/kernels/matmul/kernel.py:37",
     "matmul_f32_tma": "src/repro/kernels/matmul/kernel.py:37",
@@ -293,6 +303,7 @@ SOURCES = {
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "wkv_chunked": ("cuda", "src/repro_torch/kernels/csrc/wkv_chunked.cu"),
     "rglru": ("cuda", "src/repro_torch/kernels/csrc/rglru.cu"),
+    "rglru_chunked": ("cuda", "src/repro_torch/kernels/csrc/rglru_chunked.cu"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu"),
     "matmul_wgmma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
     "matmul_f32_tma": ("cuda", "src/repro_torch/kernels/csrc/matmul_sm90.cu"),
@@ -374,7 +385,7 @@ def phase_build(torch):
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
                             "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
-                            "matmul", "matmul_sm90", "matmul_int8"])
+                            "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -405,6 +416,12 @@ def phase_build(torch):
         for nc in splits:
             print(f"[build] wkv_chunked.cu N={n} columns={nc}: {smem(n, nc)} bytes of dynamic "
                   "shared memory")
+    from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
+    smem = _build.load("rglru_chunked").rglru_chunked_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for steps in SEGMENT_STEPS:
+        print(f"[build] rglru_chunked.cu {steps} steps a segment: {smem(steps)} bytes of "
+              "dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
     from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
@@ -691,23 +708,29 @@ def rglru_inputs(torch, rnd, B, T, d, with_h0):
 
 def rglru_cases():
     """(B, T, lengths or None, nonzero h0, is_main_path) at recurrentgemma's
-    width: unequal lengths with a 0, h0 nonzero, T = 1 in place, the served
-    prefill wave (8 slots, prompt lengths), a batch-1 refill of 452 tokens
-    and the decode step."""
+    width: unequal lengths with a 0, h0 nonzero, T = 1 in place, a T that no
+    segment or tile of the chunked kernel divides, the served prefill wave
+    (8 slots, prompt lengths), a batch-1 refill of 452 tokens, the ring
+    phase's prefill of RING_PROMPT tokens and the decode step."""
     return [(3, 40, [40, 7, 0], True, False),
             (2, 97, None, True, False),
             (5, 1, [1, 0, 1, 1, 0], True, False),
+            (2, 333, [333, 201], True, False),
             (SLOTS, 512, prompt_lengths(SLOTS, 512), False, True),
             (1, 452, [452], False, True),
+            (1, RING_PROMPT, None, False, True),
             (SLOTS, 1, None, True, True)]
 
 
 def phase_rglru(torch, errs):
-    """The rglru op against its plain step loop on the card, at d = 2560:
-    output (gate * h) and final h within 1e-4 of the plain version's
-    largest, one rglru launch a call, h written in place where h0 is
-    given (the decode step)."""
+    """The rglru op against its plain step loop on the card, at d = 2560,
+    each case on the kernel ``picks_chunked`` names (rglru_chunked for
+    T > 1, rglru for the decode step): output (gate * h) and final h within
+    1e-4 of the plain version's largest, one launch of that kernel a call
+    and of no other, h written in place where h0 is given (the decode
+    step)."""
     from repro_torch import kernels as K
+    from repro_torch.kernels.rglru.kernel import picks_chunked
     from repro_torch.kernels.rglru.ops import rglru
     from repro_torch.kernels.rglru.ref import rglru_ref
     rnd = Inputs(torch, 5)
@@ -716,20 +739,22 @@ def phase_rglru(torch, errs):
         lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                          device="cuda")
         want_y, want_h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
+        name = "rglru_chunked" if picks_chunked(u, ga, gx, gate) else "rglru"
+        require((name == "rglru_chunked") == (T > 1), f"rglru ({B},{T}): routed to {name}")
         before = K.launches()
         y, h = rglru(u, ga, gx, lam, gate, h0, lengths, h_out=h0)
         torch.cuda.synchronize()
         label = f"({B},{T},2560) lengths={lens} h0={'nonzero' if with_h0 else 'zero'}"
-        require(K.launches() == {**before, "rglru": before["rglru"] + 1},
-                f"rglru {label}: not one launch of rglru alone")
-        require(h0 is None or h is h0, f"rglru {label}: h not in place")
+        require(K.launches() == {**before, name: before[name] + 1},
+                f"{name} {label}: not one launch of {name} alone")
+        require(h0 is None or h is h0, f"{name} {label}: h not in place")
         e_y, e_h = rel_err(y, want_y), rel_err(h, want_h)
-        require(e_y < RGLRU_TOL and e_h < RGLRU_TOL, f"rglru {label}: rel_err y {e_y:.3e}, "
+        require(e_y < RGLRU_TOL and e_h < RGLRU_TOL, f"{name} {label}: rel_err y {e_y:.3e}, "
                 f"h {e_h:.3e} (tol {RGLRU_TOL:g})")
-        print(f"[kernels] rglru            float32  {label}: rel_err y {e_y:.3e}, h {e_h:.3e} "
+        print(f"[kernels] {name:16s} float32  {label}: rel_err y {e_y:.3e}, h {e_h:.3e} "
               f"(tol {RGLRU_TOL:g}) ok")
         if main:
-            errs["rglru"] = max(errs.get("rglru", 0.0), max_abs(y, want_y), max_abs(h, want_h))
+            errs[name] = max(errs.get(name, 0.0), max_abs(y, want_y), max_abs(h, want_h))
 
 
 def phase_c9(torch):
@@ -1121,8 +1146,9 @@ def expected_launches(cfg, prefill):
     or decode kernel), and at prefill the encoder's: two norms, one MLP
     activation and one non-causal flash attention per encoder layer, and
     its final norm; per Griffin RG-LRU layer one gelu (its gate branch) and
-    one rglru; for RWKV6, one wkv_chunked per layer at prefill, one wkv per
-    layer at decode, and no attention."""
+    one rglru_chunked at prefill or one rglru at decode; for RWKV6, one
+    wkv_chunked per layer at prefill, one wkv per layer at decode, and no
+    attention."""
     from repro_torch.kernels import KERNELS
     from repro_torch.models.lm import layer_kinds
     L = cfg.n_layers
@@ -1140,7 +1166,7 @@ def expected_launches(cfg, prefill):
         counts["rmsnorm"] += 2 * n_self + (2 if prefill else 1) * n_cross
     counts[mlp_kernel(cfg)] += L + n_enc
     counts["gelu"] += n_rec
-    counts["rglru"] = n_rec
+    counts["rglru_chunked" if prefill else "rglru"] = n_rec
     if prefill:
         counts[prefill_attention(cfg)] = n_self + n_cross + n_enc
         return counts
@@ -1755,6 +1781,44 @@ def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
           f"query: {json.dumps(cross_decode)}")
 
 
+def time_rglru(torch, add, rnd, griffin_lens):
+    """The timing phase's rglru rows, through `add` (``phase_timing``'s), on
+    inputs from `rnd`: the RG-LRU scan at the served recurrentgemma run's
+    wave and longest refill (`griffin_lens`: its prompt lengths) and the ring
+    phase's prefill on the kernel the op picks (the chunked one), beside
+    rglru.cu (which ran them before) and the chunked kernel at each segment
+    length; then the decode step in place on rglru.cu, beside the chunked
+    kernel. Data-dependent: the inputs of the live steps are counted (u and
+    the gate 2 bytes, ga and gx 4), the output y (4 bytes) in full, about 20
+    fp32 operations a live element."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS, picks_chunked
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    d = 2560
+    for label, lens, h0 in (("the served wave", griffin_lens[:SLOTS], False),
+                            ("its longest refill", [max(griffin_lens[SLOTS:])], False),
+                            ("the ring phase's prefill", [RING_PROMPT], False),
+                            ("the decode step, h in place", [1] * SLOTS, True)):
+        B, T = len(lens), max(lens)
+        u, ga, gx, lam, gate, h = rglru_inputs(torch, rnd, B, T, d, h0)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        name = "rglru_chunked" if picks_chunked(u, ga, gx, gate) else "rglru"
+        other = "rglru" if name == "rglru_chunked" else "rglru_chunked"
+        other_ms = time_ms(torch, lambda: KERNELS[other](u, ga, gx, lam, gate, h, lens_t,
+                                                         h_out=h))
+        steps_ms = {L: time_ms(torch, lambda L=L: KERNELS["rglru_chunked"](
+            u, ga, gx, lam, gate, h, lens_t, h_out=h, steps=L)) for L in SEGMENT_STEPS}
+        add(name, f"u,ga,gx,gate ({B},{T},{d}) lengths={lens}, {label}",
+            lambda: KERNELS[name](u, ga, gx, lam, gate, h, lens_t, h_out=h),
+            lambda: rglru_ref(u, ga, gx, lam, gate, h, lens_t), None,
+            12 * sum(lens) * d + 4 * B * T * d + 4 * d + 4 * B * d * (2 if h0 else 1),
+            20 * sum(lens) * d, FP32_FLOPS, plain_iters=5,
+            **{f"{other}_ms": other_ms, "segment_steps_ms": steps_ms})
+        print(f"[timing] {name:16s} {label}: {other} {other_ms:.5f} ms on the same inputs; "
+              f"the chunked kernel by steps a segment {json.dumps(steps_ms)} ms")
+        del u, ga, gx, gate
+
+
 def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, griffin_lens,
                  moe_lens, cross_lens):
     """Each kernel at the served shapes. The first shape timed for a kernel
@@ -1772,7 +1836,6 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
-    from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
     from repro_torch.kernels.wkv.ref import wkv_ref
     bf = torch.bfloat16
@@ -1878,23 +1941,7 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
         plain_iters=5, held=True)
     del a, b
 
-    # the RG-LRU scan at the served recurrentgemma run's wave and longest
-    # refill, then the decode step in place. Data-dependent: the inputs of
-    # the live steps are counted (u and the gate 2 bytes, ga and gx 4), the
-    # output y (4 bytes) in full, about 20 fp32 operations a live element
-    d = 2560
-    for label, lens, h0 in (("the served wave", griffin_lens[:SLOTS], False),
-                            ("its longest refill", [max(griffin_lens[SLOTS:])], False),
-                            ("the decode step, h in place", [1] * SLOTS, True)):
-        B, T = len(lens), max(lens)
-        u, ga, gx, lam, gate, h = rglru_inputs(torch, rnd, B, T, d, h0)
-        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        add("rglru", f"u,ga,gx,gate ({B},{T},{d}) lengths={lens}, {label}",
-            lambda: KERNELS["rglru"](u, ga, gx, lam, gate, h, lens_t, h_out=h),
-            lambda: rglru_ref(u, ga, gx, lam, gate, h, lens_t), None,
-            12 * sum(lens) * d + 4 * B * T * d + 4 * d + 4 * B * d * (2 if h0 else 1),
-            20 * sum(lens) * d, FP32_FLOPS, plain_iters=5)
-        del u, ga, gx, gate
+    time_rglru(torch, add, rnd, griffin_lens)
 
     # (heads, kv-heads, d_head) of qwen3, stablelm, gpt3 and recurrentgemma
     # (whose window of 2048 reaches past every key at S = 512)

@@ -9,7 +9,7 @@ from .flash_attention.kernel import flash_attention_cuda, flash_attention_wgmma_
 from .gelu.kernel import gelu_cuda, gelu_mul_cuda, silu_mul_triton
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
-from .rglru.kernel import rglru_cuda
+from .rglru.kernel import rglru_chunked_cuda, rglru_cuda
 from .rmsnorm.kernel import layernorm_triton, rmsnorm_triton
 from .wkv.kernel import wkv_chunked_cuda, wkv_cuda
 
@@ -27,6 +27,7 @@ KERNELS = {
     "wkv": wkv_cuda,
     "wkv_chunked": wkv_chunked_cuda,
     "rglru": rglru_cuda,
+    "rglru_chunked": rglru_chunked_cuda,
     "matmul": matmul_cuda,
     "matmul_wgmma": matmul_wgmma_cuda,
     "matmul_f32_tma": matmul_f32_tma_cuda,

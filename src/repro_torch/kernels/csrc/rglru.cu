@@ -32,7 +32,10 @@
 // step (about 1.05 us a step at the served wave and at a batch-1 refill
 // alike, chip_smoke.py on an H100 80GB HBM3 at 700 W). B d threads are all
 // the parallelism this form has: at the served wave 20480 threads, about
-// 155 an SM; a chunked scan over T is the known next step.
+// 155 an SM. Since then every call of more than one step runs on the
+// chunked scan over T, csrc/rglru_chunked.cu; this kernel keeps the decode
+// step (T = 1, h in place), where it is the faster of the two, and calls
+// the chunked one cannot copy (kernels/rglru/kernel.py::picks_chunked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

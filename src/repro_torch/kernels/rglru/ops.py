@@ -1,5 +1,6 @@
-"""Public RG-LRU scan op: the CUDA kernel for a CUDA tensor, the plain version
-for a CPU tensor."""
+"""Public RG-LRU scan op: a CUDA kernel for a CUDA tensor (the chunked scan
+for a call ``kernel.picks_chunked`` names, of more than one step,
+else the step-by-step one), the plain version for a CPU tensor."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,7 @@ from typing import Optional
 import torch
 
 from ...device import runs_plain
-from .kernel import rglru_cuda
+from . import kernel
 from .ref import rglru_ref
 
 
@@ -23,5 +24,8 @@ def rglru(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor, lam: torch.Tensor
     if runs_plain(u):
         y, h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
         return y, h if h_out is None else h_out.copy_(h)
-    return rglru_cuda(u.contiguous(), ga.contiguous(), gx.contiguous(), lam.contiguous(),
-                      gate.contiguous(), h0, lengths, h_out=h_out)
+    args = (u.contiguous(), ga.contiguous(), gx.contiguous(), lam.contiguous(),
+            gate.contiguous())
+    launch = kernel.rglru_chunked_cuda if kernel.picks_chunked(*args[:3], args[4]) else \
+        kernel.rglru_cuda
+    return launch(*args, h0, lengths, h_out=h_out)

@@ -28,7 +28,10 @@ from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
-from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
+from repro_torch.kernels.rglru.kernel import picks_chunked as rglru_picks_chunked
+from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.kernel import (chunk_keys, chunked_eligible,
@@ -107,7 +110,7 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
-    "rglru"}))
+    "rglru", "rglru_chunked"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -421,7 +424,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
-                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -430,7 +433,7 @@ def test_launches_per_step_on_card(cuda):
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
-                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -450,7 +453,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
-                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -459,7 +462,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
                              "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
-                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0,
+                             "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0}
@@ -1049,23 +1052,53 @@ def rglru_case(device, B, T, d, seed, with_h0):
 @pytest.mark.parametrize("B,T,lens,with_h0", [
     (8, 300, [300, 291, 150, 64, 17, 5, 1, 0], False),   # a wave of unequal prompts
     (1, 452, None, False),                               # a batch-1 refill
+    (1, 2304, None, False),                              # the ring phase's prefill
+    (3, 201, [201, 130, 0], True),                       # no chunk or tile divides T
     (8, 1, None, True),                                  # the decode step, h in place
     (3, 40, [40, 7, 40], True)])
 def test_rglru_on_card(cuda, B, T, lens, with_h0):
-    """The RG-LRU scan kernel against its plain step loop at recurrentgemma's
-    width (d = 2560): output and final h within 1e-4 relative (fp32, the
-    gates' exponentials in another order), one launch a call; the decode
-    step writes h in place."""
+    """The rglru op against its plain step loop at recurrentgemma's width
+    (d = 2560): output and final h within 1e-4 relative (fp32, the gates'
+    exponentials and the scan in another order), one launch of the kernel
+    the op picks (``rglru_chunked`` for T > 1, ``rglru`` for the decode
+    step) and of no other; h written in place where the caller gives h0."""
     u, ga, gx, lam, gate, h0 = rglru_case(cuda, B, T, 2560, 35 + T, with_h0)
     lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
     want_y, want_h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
     h_out = h0.clone() if with_h0 else None
-    before = TK.launches()["rglru"]
-    y, h = TK.KERNELS["rglru"](u, ga, gx, lam, gate, h_out, lengths, h_out=h_out)
+    name = "rglru_chunked" if T > 1 else "rglru"
+    assert rglru_picks_chunked(u, ga, gx, gate) == (T > 1)
+    before = TK.launches()
+    y, h = rglru_ops.rglru(u, ga, gx, lam, gate, h_out, lengths, h_out=h_out)
     torch.cuda.synchronize()
-    assert TK.launches()["rglru"] == before + 1
+    assert TK.launches() == {**before, name: before[name] + 1}
     assert h_out is None or h is h_out
     assert rel_err(y, want_y) < 1e-4 and rel_err(h, want_h) < 1e-4
+
+
+@pytest.mark.parametrize("steps", SEGMENT_STEPS)
+@pytest.mark.parametrize("B,T,d,lens,with_h0", [
+    (8, 436, 2560, [239, 347, 332, 238, 396, 273, 424, 436], False),  # the served wave
+    (1, 452, 2560, None, True),
+    (2, 67, 2552, [67, 0], True),                                    # a ragged channel tile
+    (2, 2, 64, None, True)])
+def test_rglru_chunked_on_card(cuda, steps, B, T, d, lens, with_h0):
+    """``rglru_chunked_cuda`` at each segment length against its own
+    arithmetic in PyTorch (``rglru_chunked_ref``) and the step loop, y and
+    the final h within 1e-4 relative; h0 updated in place."""
+    u, ga, gx, lam, gate, h0 = rglru_case(cuda, B, T, d, 70 + T, with_h0)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want_y, want_h = rglru_ref(u, ga, gx, lam, gate, h0, lengths)
+    ref_y, ref_h = rglru_chunked_ref(u, ga, gx, lam, gate, h0, lengths, chunk=steps)
+    h_out = h0.clone() if with_h0 else None
+    before = TK.launches()["rglru_chunked"]
+    y, h = TK.KERNELS["rglru_chunked"](u, ga, gx, lam, gate, h_out, lengths, h_out=h_out,
+                                       steps=steps)
+    torch.cuda.synchronize()
+    assert TK.launches()["rglru_chunked"] == before + 1
+    assert h_out is None or h is h_out
+    for got, want in ((y, ref_y), (h, ref_h), (y, want_y), (h, want_h)):
+        assert rel_err(got, want) < 1e-4
 
 
 @pytest.mark.parametrize("m", [8, 300, 4096])
@@ -1089,22 +1122,23 @@ def test_fp16_gemm_tiles_on_card(cuda, m):
 def test_griffin_launches_per_step_on_card(cuda):
     """recurrentgemma's smoke model at 8 layers (two units and the
     remainder): per prefill 2L+1 RMSNorms, L gelu_mul, one gelu and one
-    rglru per RG-LRU layer (6) and one flash attention per attention layer
-    (2, the mma.sync kernel at the smoke head dim 32); per decode step the
-    same with the split decode kernel in place of flash attention (4 query
-    heads on one kv-head at the smoke size: G > CHUNKED_MAX_G)."""
+    rglru_chunked per RG-LRU layer (6) and one flash attention per attention
+    layer (2, the mma.sync kernel at the smoke head dim 32); per decode step
+    the same with rglru in place of rglru_chunked and the split decode
+    kernel in place of flash attention (4 query heads on one kv-head at the
+    smoke size: G > CHUNKED_MAX_G)."""
     cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")), n_layers=8)
     model = models.init_params(cfg, seed=0, device=cuda)
     cache = models.init_cache(cfg, 2, 32, device=cuda)
     toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     want = {name: 0 for name in TK.KERNELS}
-    step = {**want, "rmsnorm": 17, "gelu_mul": 8, "gelu": 6, "rglru": 6}
+    step = {**want, "rmsnorm": 17, "gelu_mul": 8, "gelu": 6}
     TK.reset_launches()
     model.prefill(toks, cache, torch.tensor([8, 5], dtype=torch.int32, device=cuda))
-    assert TK.launches() == {**step, "flash_attention": 2}
+    assert TK.launches() == {**step, "rglru_chunked": 6, "flash_attention": 2}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
-    assert TK.launches() == {**step, "decode_attention": 2}
+    assert TK.launches() == {**step, "rglru": 6, "decode_attention": 2}
 
 
 @pytest.mark.parametrize("what,b,hq,hkv,sq,sk,d", [

@@ -29,7 +29,8 @@ from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
 from repro_torch.kernels.gelu import ops as t_gelu
 from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
 from repro_torch.kernels.rglru import ops as t_rglru
-from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.kernels.rglru import kernel as t_rglru_kernel
+from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref
 from repro_torch.kernels.rmsnorm import ops as t_rmsnorm
 from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
 from repro_torch.kernels.wkv import kernel as t_wkv_kernel
@@ -866,6 +867,95 @@ def test_rglru_op_plain_is_the_step_loop():
     assert torch.equal(y[1, 5:], gate[1, 5:].float() * h[1])
 
 
+def rglru_inputs(seed, B, T, d, lam=(-6.0, 12.0), with_h0=True):
+    """u and the gate bf16, ga and gx fp32 at 3 sigma, lam over `lam` (or
+    one value), h0 nonzero or None: numpy draws as torch tensors."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    lam = torch.full((d,), float(lam)) if np.isscalar(lam) else torch.linspace(*lam, d)
+    return (draw(B, T, d).bfloat16(), draw(B, T, d) * 3, draw(B, T, d) * 3, lam,
+            draw(B, T, d).bfloat16(), draw(B, d) if with_h0 else None)
+
+
+@pytest.mark.parametrize("B,T,chunk,lens,lam,with_h0", [
+    (3, 37, 8, None, (-6.0, 12.0), True),           # the chunk does not divide T
+    (2, 5, 8, None, (-6.0, 12.0), True),            # T < chunk
+    (2, 1, 8, None, (-6.0, 12.0), True),            # T = 1
+    (4, 29, 4, [29, 0, 13, 4], (-6.0, 12.0), False),  # unequal lengths, one of 0
+    (3, 40, 8, [40, 17, 0], (-6.0, 12.0), True),    # lengths and a nonzero h0
+    (2, 70, 8, None, -6.0, True),                   # decays near 1
+    (2, 70, 8, [70, 33], 12.0, True),               # near 0: a chunk's product underflows
+    (1, 130, 16, None, (-6.0, 12.0), True)])
+def test_rglru_chunked_ref_is_the_step_loop(B, T, chunk, lens, lam, with_h0):
+    """The chunked kernel's arithmetic (chunk products in log space, the
+    carry fold, the fix-up) against the step loop, y and the final h within
+    1e-5 of the largest: the same recurrence summed in another order."""
+    u, ga, gx, lam_t, gate, h0 = rglru_inputs(62 + T, B, T, 256, lam, with_h0)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    y, h = rglru_chunked_ref(u, ga, gx, lam_t, gate, h0, lengths, chunk=chunk)
+    wy, wh = rglru_ref(u, ga, gx, lam_t, gate, h0, lengths)
+    assert y.shape == wy.shape and h.shape == wh.shape
+    assert rel_err(y.numpy(), wy.numpy()) < 1e-5 and rel_err(h.numpy(), wh.numpy()) < 1e-5
+    if lam == 12.0:   # the underflow is exercised: a chunk's product is 0
+        log_a = -8 * torch.sigmoid(ga) * torch.nn.functional.softplus(lam_t)
+        assert torch.exp(log_a[:, :chunk].sum(1)).eq(0).any()
+    for b, n in enumerate(lens or []):
+        if n == 0:   # no real step: h stays h0 (or 0)
+            assert torch.equal(h[b], torch.zeros(256) if h0 is None else h0[b])
+        if n < T:   # past its length a sequence's output is the gate times its h
+            assert torch.allclose(y[b, n:], gate[b, n:].float() * h[b], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+def test_rglru_chunked_ref_matches_jax_associative_scan(chunk, monkeypatch):
+    """The port's RG-LRU block with its scan computed as the chunked kernel
+    computes it, against JAX's ``rglru_apply`` (``lax.associative_scan``,
+    h0 folded into the first step) on the same numpy inputs in fp32, at
+    full length: output, final h and conv carry at 1e-4."""
+    from repro_torch.models import recurrent as t_recurrent
+    jcfg, jp, cfg, tp = rglru_pair()
+    x, h0 = normal(63, (2, 37, 64)), normal(64, (2, 64))
+    carry = normal(65, (2, cfg.rglru_conv_width - 1, 64))
+
+    def scan(u, ga, gx, lam, gate, h0=None, lengths=None, *, h_out=None):
+        y, h = rglru_chunked_ref(u, ga, gx, lam, gate, h0, lengths, chunk=chunk)
+        return y, h if h_out is None else h_out.copy_(h)
+    monkeypatch.setattr(t_recurrent, "rglru", scan)
+    jy, (jh, jc) = jax_recurrent.rglru_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(h0),
+                                             jnp.asarray(carry))
+    y, (h, c) = t_recurrent.rglru_apply(cfg, tp, torch.from_numpy(x), torch.from_numpy(h0),
+                                        torch.from_numpy(carry))
+    for got, want in ((y, jy), (h, jh), (c, jc)):
+        assert rel_err(got.numpy(), want) < RGLRU_TOL
+
+
+def test_rglru_op_routes_prefill_to_the_chunked_kernel(monkeypatch):
+    """Without a card: the op's predicate (``kernel.picks_chunked``) sends
+    a call of T > 1 to ``rglru_chunked`` and T = 1 (the decode step) to
+    ``rglru``, as the op routes a CUDA tensor; a d that is no multiple of 8
+    and a base off 16 bytes, which the chunked kernel cannot take
+    (``kernel.chunked_eligible``), go to ``rglru`` too."""
+    called = []
+    monkeypatch.setattr(t_rglru, "runs_plain", lambda t: False)
+    for name in ("rglru_cuda", "rglru_chunked_cuda"):
+        monkeypatch.setattr(t_rglru_kernel, name,
+                            lambda *a, h_out=None, name=name: called.append(name))
+    for T, d, offset, want in ((452, 64, 0, "rglru_chunked_cuda"),
+                               (2, 64, 0, "rglru_chunked_cuda"),
+                               (1, 64, 0, "rglru_cuda"),
+                               (9, 60, 0, "rglru_cuda"),
+                               (9, 64, 1, "rglru_cuda")):
+        u, ga, gx, lam, gate, h0 = rglru_inputs(66, 2, T, d)
+        if offset:   # a view one element into its storage
+            u = torch.cat([u.flatten(), u.new_zeros(offset)])[offset:].view(u.shape)
+        assert t_rglru_kernel.picks_chunked(u, ga, gx, gate) == (want != "rglru_cuda")
+        assert t_rglru_kernel.chunked_eligible(u, ga, gx, gate) == (d % 8 == 0 and not offset)
+        t_rglru.rglru(u, ga, gx, lam, gate, h0)
+        assert called.pop() == want and not called
+
+
 # ---------------- dispatch ----------------
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
@@ -902,6 +992,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
             "wkv_chunked": (x, x, x, x, torch.zeros(8, 32)),
             "rglru": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16()),
+            "rglru_chunked": (x[0].bfloat16(), x[0], x[0], torch.zeros(32),
+                              x[0].bfloat16()),
             "matmul": (x[0, 0], x[0, 0].t()),
             "matmul_wgmma": (x[0, 0].bfloat16(), x[0, 0].t().contiguous().bfloat16()),
             "matmul_f32_tma": (x[0, 0], x[0, 0].t().contiguous()),
