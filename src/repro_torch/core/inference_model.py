@@ -1,0 +1,235 @@
+"""End-to-end LLM inference performance model (paper Sec. III-B / IV / V).
+
+prefill latency, per-token decode latency, end-to-end generation latency,
+max batch under memory capacity, and throughput — for a System + ModelConfig
++ Plan. Pipeline parallelism follows the paper's description (sequential
+stage partitions; throughput multiplies by stages once the pipeline is full,
+latency gains nothing).
+
+All entry points build symbolic IR (graph.build_model) and evaluate it with
+an Evaluator; pass a shared `evaluator` to amortize the cost model across
+calls (the planner does this across its whole plan sweep). `generate`
+evaluates the prefill graph and every decode-KV trapezoid sample on one
+Evaluator, so a GEMM shape the sample points share is searched once.
+
+The PyTorch port's copy of the JAX package's inference model, on
+`precision.DEFAULT`'s widths and the serial execution model: without the
+verifier's mode on a new Evaluator, the `policy` argument, the overlap
+schedule (and so `PerfReport.serial_latency`, always `latency` here) and
+the `fusion` and `samples` arguments of `generate` and `throughput`, which
+no caller of the port sets; `prefill` and `decode_step` take a
+`FusionPolicy`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+from ..configs.base import ModelConfig
+from .evaluator import Evaluator
+from .fusion import SERIAL, FusionPolicy, fuse
+from .hardware import System
+from .graph import LayerCost, Plan, build_model
+from .precision import DEFAULT
+from .units import Bytes, Flops, PerSecond, Seconds
+from . import interconnect as net
+
+SAMPLES = 8     # trapezoid points of `generate`'s decode integral
+
+
+@dataclass
+class PerfReport:
+    latency: Seconds
+    flops: Flops
+    bytes: Bytes
+    breakdown: Dict[str, float] = field(default_factory=dict)
+    bound: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def dominant(self) -> str:
+        return max(self.bound, key=self.bound.get) if self.bound else "n/a"
+
+
+def _report(cost: LayerCost) -> PerfReport:
+    return PerfReport(latency=cost.latency, flops=cost.flops,
+                      bytes=cost.bytes, breakdown=cost.breakdown(),
+                      bound=cost.by_bound())
+
+
+def _evaluator(system: System, evaluator: Optional[Evaluator]) -> Evaluator:
+    if evaluator is None:
+        return Evaluator(system)
+    if evaluator.system != system:
+        raise ValueError(
+            f"evaluator was built for {evaluator.system.device.name} x"
+            f"{evaluator.system.device_count} but this call targets "
+            f"{system.device.name} x{system.device_count}; memoized results "
+            f"would price the wrong hardware")
+    return evaluator
+
+
+def pp_fill(system: System, plan: Plan, tokens: int, d_model: int
+            ) -> Seconds:
+    """Pipeline fill: (pp-1) p2p activation hand-offs for the first batch,
+    at the activation width."""
+    if plan.pp <= 1:
+        return 0.0
+    return net.p2p(system, tokens * d_model
+                   * DEFAULT.activations.bytes).latency * (plan.pp - 1)
+
+
+def prefill(system: System, cfg: ModelConfig, plan: Plan, batch: int,
+            seq: int, evaluator: Optional[Evaluator] = None,
+            fusion: FusionPolicy = SERIAL) -> PerfReport:
+    ev = _evaluator(system, evaluator)
+    rep = _report(ev.evaluate(fuse(build_model(cfg, plan, batch, seq,
+                                               kv_len=seq), fusion)))
+    rep.latency += pp_fill(system, plan, batch * seq, cfg.d_model)
+    return rep
+
+
+def decode_step(system: System, cfg: ModelConfig, plan: Plan, batch: int,
+                kv_len: int, evaluator: Optional[Evaluator] = None,
+                fusion: FusionPolicy = SERIAL) -> PerfReport:
+    ev = _evaluator(system, evaluator)
+    rep = _report(ev.evaluate(fuse(build_model(cfg, plan, batch, seq=1,
+                                               kv_len=kv_len), fusion)))
+    rep.latency += pp_fill(system, plan, batch, cfg.d_model)
+    return rep
+
+
+def generate(system: System, cfg: ModelConfig, plan: Plan, batch: int,
+             in_len: int, out_len: int,
+             evaluator: Optional[Evaluator] = None) -> PerfReport:
+    """prefill + out_len decode steps; decode latency integrated over the
+    growing KV with SAMPLES trapezoid points (exact enough, hugely faster).
+    """
+    ev = _evaluator(system, evaluator)
+    pts = [in_len + round(i * (out_len - 1) / max(SAMPLES - 1, 1))
+           for i in range(SAMPLES)]
+    costs = [ev.evaluate(build_model(cfg, plan, batch, in_len,
+                                     kv_len=in_len))] + \
+        [ev.evaluate(build_model(cfg, plan, batch, seq=1, kv_len=kv))
+         for kv in pts]
+
+    pf = _report(costs[0])
+    pf_fill: Seconds = pp_fill(system, plan, batch * in_len, cfg.d_model)
+    pf.latency += pf_fill
+    dec_fill: Seconds = pp_fill(system, plan, batch, cfg.d_model)
+    lats = [c.latency + dec_fill for c in costs[1:]]
+
+    total = pf.latency
+    dec = 0.0
+    # per-sample trapezoid weights: sample i carries wts[i] of the out_len-1
+    # integrated decode steps, +1 at pts[0] for the first token
+    wts = [0.0] * SAMPLES
+    for i in range(SAMPLES - 1):
+        w = pts[i + 1] - pts[i] if i < SAMPLES - 2 \
+            else out_len - 1 - (pts[i] - in_len)
+        dec += (lats[i] + lats[i + 1]) / 2 * max(w, 0)
+        wts[i] += max(w, 0) / 2
+        wts[i + 1] += max(w, 0) / 2
+    if out_len == 1:
+        dec = 0.0
+        wts = [0.0] * SAMPLES
+    wts[0] += 1.0               # +1 first token
+    total += dec + lats[0]
+    # aggregate flops/bytes/bound over prefill + the integrated decode steps
+    # (the decode graphs carry the same weights their latencies were
+    # integrated with), so PerfReport.dominant reflects the whole generation
+    # instead of just the prefill pass
+    flops, bytes_ = pf.flops, pf.bytes
+    bound = dict(pf.bound)
+    if pf_fill > 0:
+        bound["link"] = bound.get("link", 0.0) + pf_fill
+    for w, c in zip(wts, costs[1:]):
+        if w <= 0:
+            continue
+        flops += c.flops * w
+        bytes_ += c.bytes * w
+        for k, v in c.by_bound().items():
+            bound[k] = bound.get(k, 0.0) + v * w
+        if dec_fill > 0:
+            bound["link"] = bound.get("link", 0.0) + dec_fill * w
+    rep = PerfReport(latency=total, flops=flops, bytes=bytes_,
+                     breakdown={"prefill": pf.latency,
+                                "decode": dec + lats[0]},
+                     bound=bound)
+    return rep
+
+
+# ------------------------- memory accounting ------------------------------
+
+def memory_per_device(cfg: ModelConfig, plan: Plan, batch: int,
+                      max_len: int) -> Bytes:
+    """Resident bytes per device under the planner memory model: weights,
+    the KV cache and activations at `precision.DEFAULT`'s widths; recurrent
+    state stays fp32, matching the kernels.
+    """
+    wb = DEFAULT.weights.bytes
+    kvb = DEFAULT.kv_cache.bytes
+    param_n = cfg.param_count()
+    if cfg.n_experts and plan.ep > 1:
+        # expert FFN weights are sharded ep-ways: each device in the expert
+        # group holds n_experts/ep experts (graph.build_mlp's e_local), so
+        # only 1/ep of the expert weight bytes are resident per device
+        expert_n = cfg.n_layers * cfg.n_experts * cfg.mlp_params()
+        param_n = param_n - expert_n * (plan.ep - 1) / plan.ep
+    params = param_n * wb / (plan.tp * plan.pp)
+    # KV shards at most n_kv_heads ways: past that, tp ranks hold replicas
+    # (each rank computes a distinct query-head group against a KV head that
+    # also lives elsewhere — graph.build_attention's hkv = max(1, kv//tp)).
+    # Dividing by tp would under-count the replicated copies.
+    kv_ways = min(plan.tp, cfg.n_kv_heads) if cfg.n_kv_heads else plan.tp
+    kv = batch * max_len * cfg.kv_bytes_per_token(kvb) / (kv_ways * plan.pp)
+    if cfg.attn_window:   # local attention caps the resident KV window
+        n_attn = sum(1 for i in range(cfg.n_layers)
+                     if cfg.block_kind(i) == "attn")
+        if n_attn:
+            per_layer = cfg.kv_bytes_per_token(kvb) / n_attn
+            kv = batch * min(max_len, cfg.attn_window) * per_layer * n_attn \
+                / (kv_ways * plan.pp)
+    # recurrent state (rwkv/rglru)
+    state = 0.0
+    for i in range(cfg.n_layers):
+        k = cfg.block_kind(i)
+        if k == "rwkv":
+            state += batch * cfg.d_model * cfg.rwkv_head_dim * 4
+        elif k == "rglru":
+            state += batch * cfg.d_model * 4
+    state /= (plan.tp * plan.pp)
+    act = batch * max(1, max_len if max_len < 8192 else 8192) \
+        * cfg.d_model * DEFAULT.activations.bytes * 4 / plan.tp
+    return params + kv + state + act
+
+
+def max_batch(system: System, cfg: ModelConfig, plan: Plan,
+              max_len: int) -> int:
+    """Largest batch (or serving slot count) that fits device memory."""
+    cap = system.device.memory_capacity
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if memory_per_device(cfg, plan, mid, max_len) <= cap:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def throughput(system: System, cfg: ModelConfig, plan: Plan, batch: int,
+               in_len: int, out_len: int,
+               evaluator: Optional[Evaluator] = None) -> PerSecond:
+    """Output tokens / second for the whole system (pipeline-full steady
+    state: pp stages each process different microbatches concurrently)."""
+    g = generate(system, cfg, plan, batch, in_len, out_len,
+                 evaluator=evaluator)
+    return throughput_from_generate(g, plan, batch, out_len)
+
+
+def throughput_from_generate(g: PerfReport, plan: Plan, batch: int,
+                             out_len: int) -> PerSecond:
+    """Derive steady-state throughput from an existing generate() report
+    (saves the planner a second full-model walk per plan)."""
+    toks = batch * out_len * plan.dp
+    return toks * plan.pp / g.latency if g.latency > 0 else 0.0

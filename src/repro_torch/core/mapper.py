@@ -21,14 +21,15 @@ arithmetic, and a per-row lower bound drops the rows that can neither win
 nor tie before they are priced, so the winner (tie-breaks included) is the
 dense search's.
 
-This is the PyTorch port's copy of the JAX package's numpy mapper, which
-`kernels/matmul/ops.mapper_blocks` asks for Hopper tile sizes through
-`matmul_perf`. It keeps the search, the pruning and an in-memory
-(device, shape) memo, and leaves out the JAX chunk backend, the persistent
-disk layer, the pruning switch, the counters, the device-batched entry
-point and the dense reference search: it reads and writes no cache entry
-on disk, and for each (device, shape) gives the JAX mapper's mapping and
-latency (tests/test_torch_matmul.py).
+This is the PyTorch port's copy of the JAX package's numpy mapper.
+`kernels/matmul/ops.mapper_blocks` asks it for Hopper tile sizes and the
+port's `evaluator` prices GEMMs with it, both through `matmul_perf`. It
+keeps the search, the pruning and an in-memory (device, shape) memo, and
+leaves out the JAX chunk backend, the persistent disk layer, the pruning
+switch, the counters, the device-batched entry point and the dense
+reference search: it reads and writes no cache entry on disk, and for each
+(device, shape) gives the JAX mapper's mapping and latency
+(tests/test_torch_matmul.py).
 """
 from __future__ import annotations
 

@@ -1,7 +1,18 @@
-"""Serving launcher of the port: build a model and serve requests.
+"""Serving launcher of the port: plan with the analytical model, then build
+a model and serve requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --preset full --requests 16 --batch 8
+
+The planner (the paper's performance model, ``core/planner.py``) is
+consulted first, as the JAX launcher consults it: it prints the
+predicted-latency-optimal (tp, pp, dp) plan of the arch's full config on
+``--plan-chips`` NVIDIA H100 cards (``nvidia_h100()``, the card the port
+runs on, whose predictions ``chip_smoke.py`` holds against its times), its
+predicted latency, throughput and memory a card, or the planner's error
+where no plan fits (full gpt3-175b and grok-1-314b on one card). The
+cards are joined by NVLink 4 at 900 GB/s a GPU (NVIDIA H100 Tensor Core GPU
+datasheet, SXM), as ``dgx_a100`` gives the A100's NVLink 3 600 GB/s.
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, from
 a seeded ``torch.Generator``. ``--arch`` takes the ids of ``ARCHS`` (with
@@ -20,8 +31,7 @@ grok-1-314b's 64 layers, 633 GB, neither; 4 layers, 42.6 GB, do:
 full size on one card) cross-attend to a frontend, whose encoder or vision
 tower the reference stubs out: each request gets a stub frontend of
 (n_frontend_tokens, d) normal embeddings in bf16, drawn from a
-``torch.Generator`` seeded with 0. (The JAX launcher's planner report
-needs the analytical stack, which the port has no copy of yet.)
+``torch.Generator`` seeded with 0.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ from dataclasses import replace
 import torch
 
 from ..configs import ARCHS, EXTRA_ARCHS, ModelConfig, get_config, smoke_config
+from ..core import planner
+from ..core.hardware import make_system, nvidia_h100
 from ..device import resolve_device
 from ..models import init_params
 from ..serving import Engine, Request, SamplingParams
@@ -67,10 +79,27 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--plan-chips", type=int, default=1,
+                    help="H100 cards for the planning report")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = preset_config(get_config(args.arch), args.preset)
+    full_cfg = get_config(args.arch)
+    # 1) plan on the real config with the paper's model
+    try:
+        best = planner.best_plan(make_system(nvidia_h100(), args.plan_chips, link_gbps=900.0),
+                                 full_cfg, batch=args.batch, in_len=512, out_len=args.max_new)
+        p = best.plan
+        print(f"[planner] {full_cfg.name} on {args.plan_chips}x h100: "
+              f"tp={p.tp} pp={p.pp} dp={p.dp} ep={p.ep}  "
+              f"pred latency={best.latency * 1e3:.1f}ms  "
+              f"pred throughput={best.throughput:.0f} tok/s  "
+              f"mem/chip={best.memory_per_device / 2 ** 30:.2f}GiB")
+    except ValueError as e:
+        print(f"[planner] {e}")
+
+    # 2) serve the (preset) model
+    cfg = preset_config(full_cfg, args.preset)
     if args.layers is not None:
         cfg = replace(cfg, name=f"{cfg.name}-{args.layers}l", n_layers=args.layers)
     params = init_params(cfg, seed=0, device=device)
