@@ -5,9 +5,11 @@
 Phases, each of which fails the script on its own (exit code 1, and no
 result line):
   1. build   - nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` (all sources at once) and Triton compiles its three
-               and the GELU kernel gelu.cu replaced, which is timed beside
-               it (registers and spills read from the compiled kernels);
+               csrc`` (all sources at once, flash_attention_bwd.cu among
+               them) and Triton compiles its kernels (the norms, silu_mul,
+               and the RMSNorm and SwiGLU backward ones) and the GELU
+               kernel gelu.cu replaced, which is timed beside it
+               (registers and spills read from the compiled kernels);
   2. kernels - each hand-written kernel against its plain PyTorch version on
                the card, in bf16 and fp32 (relative error to the largest
                output below 2e-2 and 2e-5, the JAX kernel tests' bounds; in
@@ -222,9 +224,42 @@ result line):
                its profiled device and wall ms, and its predicted prefill
                at the served wave's padded length against that wave's
                timed prefill, each also under the model's fused + flash
-               execution; a failure of the model fails the run.
+               execution; a failure of the model fails the run;
+  8. bwd     - the backward kernels of a train step (``BACKWARD``: flash
+               attention on CUDA, RMSNorm and the SwiGLU gate on Triton; no
+               TPU counterpart, JAX differentiates in XLA), each against its
+               plain version on the card: flash at qwen3-1.7b's (8, 16, 512,
+               128) / (8, 8, 512, 128) causal and qwen2-0.5b's 14:2 heads at
+               D = 64, lengths that cut a tile and non-causal, on the
+               model's transposed views (relative error below 2e-2); RMSNorm
+               at (4096, 2048), qk-norm's (65536, 128), an odd shape and
+               fp32 (dx within one bf16 rounding per element, dg to 2e-5 and
+               the same in a second run); SwiGLU at (4096, 6144), an odd
+               shape and fp32; then each timed at the training shape beside
+               its plain version, its bound and the backward half of one
+               PyTorch call through torch.autograd.grad (SDPA, F.rms_norm,
+               F.silu(g) * u);
+  9. train   - qwen3-1.7b at full width cut to 2 layers, batch 2 x 128: the
+               loss and every parameter's gradient of one step on the card
+               against the CPU plain path in bf16 and an fp32 CPU run, each
+               leaf no further from fp32 than 1.5 times the bf16 CPU path,
+               the loss within 2e-2; then qwen3-1.7b at full size, 8 steps
+               of AdamW on one repeated batch of 8 x 512 tokens from
+               TokenPipeline: the loss falls at every step and by 0.5 in
+               all, per step wall ms, tokens/s and model-FLOPs share, the
+               peak memory, and exactly 28 flash backward, 113 RMSNorm
+               backward and 28 SwiGLU backward launches a step (and 28, 113,
+               28 of their forwards); the run again from the same seed under
+               torch.profiler for each step's device ms;
+ 10. ckpt    - the m100 preset of qwen3-1.7b: 6 steps straight, and 3 steps,
+               an async save of step 2, a restore into a fresh model and
+               optimizer (bit for bit) and the steps after it, whose losses
+               equal the straight run's (bit for bit where the step is
+               deterministic, else within 1e-4 relative); save and restore
+               seconds and the size on disk.
 
-The last lines are the ``{"kernels": [...]}`` summary, the card's name and
+The last lines are the ``{"kernels": [...]}`` summary (the backward
+kernels' launches are the full-size train run's), the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -403,7 +438,8 @@ def phase_build(torch):
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
                             "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
-                            "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8"])
+                            "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
+                            "flash_attention_bwd"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -440,8 +476,10 @@ def phase_build(torch):
     for steps in SEGMENT_STEPS:
         print(f"[build] rglru_chunked.cu {steps} steps a segment: {smem(steps)} bytes of "
               "dynamic shared memory")
-    from repro_torch.kernels.gelu.kernel import gelu_triton, silu_mul_triton
-    from repro_torch.kernels.rmsnorm.kernel import layernorm_triton, rmsnorm_triton
+    from repro_torch.kernels.gelu.kernel import (gelu_triton, silu_mul_bwd_triton,
+                                                 silu_mul_triton)
+    from repro_torch.kernels.rmsnorm.kernel import (layernorm_triton, rmsnorm_bwd_triton,
+                                                    rmsnorm_triton)
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
     w = x[0].float()
     for label, fn, args in (
@@ -450,7 +488,9 @@ def phase_build(torch):
             ("layernorm C=2048", layernorm_triton, (x[:, :2048], w[:2048], w[:2048])),
             ("layernorm C=12288", layernorm_triton, (x, w, w)),
             ("gelu (the Triton kernel gelu.cu replaced, timed beside it)", gelu_triton, (x,)),
-            ("silu_mul", silu_mul_triton, (x, x))):
+            ("silu_mul", silu_mul_triton, (x, x)),
+            ("rmsnorm_bwd C=2048", rmsnorm_bwd_triton, (x[:, :2048], w[:2048], x[:, :2048])),
+            ("silu_mul_bwd", silu_mul_bwd_triton, (x, x, x))):
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
@@ -2507,6 +2547,372 @@ def phase_analytic(rows, models, measured):
                                       "seconds": seconds}))
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels, the train step, checkpoints
+# ---------------------------------------------------------------------------
+
+# the backward kernels of a train step: (route, source, the TPU kernel whose
+# function they differentiate; the JAX package differentiates in XLA and
+# has no backward kernel)
+BACKWARD = {
+    "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:71"),
+    "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+                    "src/repro/kernels/rmsnorm/kernel.py:32"),
+    "silu_mul_bwd": ("triton", "src/repro_torch/kernels/gelu/kernel.py",
+                     "src/repro/kernels/gelu/kernel.py:43"),
+}
+# the full-size run: one repeated batch, AdamW at a constant rate; at 1e-3
+# and 3e-4 the freshly initialised model's loss rose at step 2 (Adam's first
+# steps move every weight by about the rate), at 5e-5 it falls at each step
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "qwen3-1.7b", 8, 512, 8, 5e-5
+# the gradient check: full width, 2 layers, batch 2 x 128; per leaf the card
+# no further from an fp32 CPU run than TRAIN_FP32_FACTOR times the bf16 CPU
+# path is (the rule llama's logits follow, MODEL_CHECKS), the loss within
+# 2e-2 of the bf16 CPU path's
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_FP32_FACTOR = 2, 2, 128, 1.5
+CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 6, 2, 8, 256
+
+
+def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal):
+    """q, k, v, do as the model's transposed (B, S, H, D) views, and o from
+    the forward kernel."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    bf = torch.bfloat16
+    q, k, v, do = (rnd((B, S, h, D), bf).transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
+    return q, k, v, flash_attention(q, k, v, causal=causal), do
+
+
+def phase_bwd(torch):
+    """Each backward kernel against its plain version on the card (relative
+    error to the largest output below TOL; the RMSNorm and SwiGLU ones also
+    within one bf16 rounding per element, their dg sums to 2e-5), then
+    timed at the training shapes beside its plain version and the backward
+    half of one PyTorch call through torch.autograd.grad, with its bound.
+    Returns the rows of the ``kernels`` summary (launches filled by the
+    train phase)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.gelu.ref import silu_mul_bwd_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    bf, f32 = torch.bfloat16, torch.float32
+    rnd = Inputs(torch, 11)
+    errs = dict.fromkeys(BACKWARD, 0.0)
+
+    def held(name, label, dt, got, want, tol=None, elementwise=False):
+        torch.cuda.synchronize()
+        tol = tol or TOL[dt]
+        err = rel_err(got, want)
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name} {label}: {tuple(got.shape)} {got.dtype} vs plain "
+                f"{tuple(want.shape)} {want.dtype}")
+        require(err < tol, f"{name} {label}: rel_err {err:.3e} >= {tol:g}")
+        if elementwise:
+            require(within_one_rounding(got, want),
+                    f"{name} {label}: an element is off by more than one bf16 rounding")
+        errs[name] = max(errs[name], max_abs(got, want))
+        return f"{err:.3e}"
+
+    # (B, Hq, Hkv, S, D, causal): qwen3-1.7b's training shape, qwen2-0.5b's
+    # 14:2 heads at D 64, lengths that cut a 64-row tile, non-causal
+    for B, Hq, Hkv, S, D, causal in ((8, 16, 8, 512, 128, True), (8, 14, 2, 512, 64, True),
+                                     (2, 16, 8, 333, 128, True), (2, 14, 2, 200, 64, False),
+                                     (1, 8, 8, 130, 128, False)):
+        q, k, v, o, do = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal)
+        got = KERNELS["flash_attention_bwd"](q, k, v, o, do, causal=causal)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+        label = f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal={causal}"
+        e = [held("flash_attention_bwd", label, "bfloat16", g, w) for g, w in zip(got, want)]
+        print(f"[bwd] flash_attention_bwd {label}, model views: rel_err dq {e[0]}, dk {e[1]}, "
+              f"dv {e[2]} (tol {TOL['bfloat16']:g}) ok")
+    for R, C, dt in ((4096, 2048, bf), (65536, 128, bf), (4099, 896, bf), (1000, 2048, f32)):
+        x, g, dy = rnd((R, C), dt) * 3, rnd((C,), f32), rnd((R, C), dt)
+        dx, dg = KERNELS["rmsnorm_bwd"](x, g, dy)
+        wdx, wdg = rmsnorm_bwd_ref(x, g, dy)
+        dtn = str(dt).split(".")[1]
+        ex = held("rmsnorm_bwd", f"({R},{C})", dtn, dx, wdx, elementwise=dt == bf)
+        eg = held("rmsnorm_bwd", f"({R},{C}) dg", "float32", dg, wdg)
+        require(torch.equal(KERNELS["rmsnorm_bwd"](x, g, dy)[1], dg),
+                f"rmsnorm_bwd ({R},{C}): dg differs from run to run")
+        print(f"[bwd] rmsnorm_bwd x({R},{C}) {dtn}: rel_err dx {ex}, dg {eg} (fp32 2e-05); "
+              "dg the same in a second run ok")
+    for shape, dt in (((4096, 6144), bf), ((3, 1001), bf), ((1000, 1536), f32)):
+        g, u, dy = rnd(shape, dt) * 3, rnd(shape, dt), rnd(shape, dt)
+        got, want = KERNELS["silu_mul_bwd"](g, u, dy), silu_mul_bwd_ref(g, u, dy)
+        dtn = str(dt).split(".")[1]
+        e = [held("silu_mul_bwd", f"{shape}", dtn, a, w, elementwise=dt == bf)
+             for a, w in zip(got, want)]
+        print(f"[bwd] silu_mul_bwd {shape} {dtn}: rel_err dg {e[0]}, du {e[1]} ok")
+
+    rows = {}
+
+    def add(name, label, kernel, plain, library, nbytes, flops, rate):
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        lib_ms = time_ms(torch, library)
+        b_ms, b_by = bound(nbytes, flops, rate)
+        route, source, replaces = BACKWARD[name]
+        print(f"[timing] {name:16s} {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"library {lib_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / ms * 100:.1f}% of bound")
+        rows[name] = {"name": name, "route": route, "source": source, "replaces": replaces,
+                      "launches": 0, "max_abs_err": errs[name],
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms, "shapes": [{"shape": label}]}
+
+    def grad_of(fn, inputs, dout):
+        """The backward half of one PyTorch call: its graph built once, the
+        timed function torch.autograd.grad over it."""
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    B, Hq, Hkv, S, D = 8, 16, 8, 512, 128
+    q, k, v, o, do = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, True)
+    pairs = S * (S + 1) // 2      # the live (query, key) pairs of a causal head
+    add("flash_attention_bwd", f"qwen3-1.7b q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal, "
+        "the model's (B, S, H, D) views",
+        lambda: KERNELS["flash_attention_bwd"](q, k, v, o, do, causal=True),
+        lambda: attention_bwd_ref(q, k, v, o, do, causal=True),
+        grad_of(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                               enable_gqa=True),
+                (q, k, v), do),
+        2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D), 5 * 2 * B * Hq * pairs * D,
+        BF16_TENSOR_FLOPS)
+    R, C = TRAIN_BATCH * TRAIN_SEQ, 2048
+    x, g, dy = rnd((R, C), bf), rnd((C,), f32), rnd((R, C), bf)
+    add("rmsnorm_bwd", f"x({R},{C}) bf16", lambda: KERNELS["rmsnorm_bwd"](x, g, dy),
+        lambda: rmsnorm_bwd_ref(x, g, dy),
+        grad_of(lambda a, w: F.rms_norm(a, (C,), w, 1e-6), (x, g.to(bf)), dy),
+        3 * R * C * 2 + 2 * C * 4, 11 * R * C, FP32_FLOPS)
+    for R, C in ((TRAIN_BATCH * TRAIN_SEQ * 16, 128),):   # qk-norm over qwen3's 16 heads
+        x, g, dy = rnd((R, C), bf), rnd((C,), f32), rnd((R, C), bf)
+        ms = time_ms(torch, lambda: KERNELS["rmsnorm_bwd"](x, g, dy))
+        b_ms, b_by = bound(3 * R * C * 2 + 2 * C * 4, 11 * R * C, FP32_FLOPS)
+        print(f"[timing] rmsnorm_bwd      x({R},{C}) bf16 (qk-norm): kernel {ms:.5f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), {b_ms / ms * 100:.1f}% of bound")
+        rows["rmsnorm_bwd"]["shapes"].append({"shape": f"x({R},{C}) bf16", "ms": ms,
+                                              "bound_ms": b_ms, "bound_by": b_by})
+    R, C = TRAIN_BATCH * TRAIN_SEQ, 6144
+    g, u, dy = rnd((R, C), bf), rnd((R, C), bf), rnd((R, C), bf)
+    add("silu_mul_bwd", f"g,u({R},{C}) bf16", lambda: KERNELS["silu_mul_bwd"](g, u, dy),
+        lambda: silu_mul_bwd_ref(g, u, dy),
+        grad_of(lambda a, b: F.silu(a) * b, (g, u), dy), 5 * R * C * 2, 12 * R * C, FP32_FLOPS)
+    torch.cuda.empty_cache()
+    return [rows[name] for name in BACKWARD]
+
+
+def grads_of(torch, model, tokens, targets):
+    """(loss, {name: gradient}) of one loss_fn call."""
+    from repro_torch.models import loss_fn
+    loss, _ = loss_fn(model, tokens, targets)
+    params = dict(model.named_parameters())
+    return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def phase_train_check(torch):
+    """qwen3-1.7b at full width cut to TRAIN_CHECK_LAYERS layers: the loss
+    and every parameter's gradient of one step on the card (the three
+    backward kernels) against the CPU plain path in bf16 and an fp32 CPU
+    run of the same weights."""
+    from repro_torch.models import LM, init_params
+    cfg = served_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS)
+    gpu = init_params(cfg, seed=3, device="cuda").requires_grad_(True)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    cpu.requires_grad_(True)
+    gen = torch.Generator("cpu").manual_seed(4)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_CHECK_B, TRAIN_CHECK_S + 1), generator=gen)
+    t0 = time.perf_counter()
+    lg, gg = grads_of(torch, gpu, tok[:, :-1].cuda(), tok[:, 1:].cuda())
+    lc, gc = grads_of(torch, cpu, tok[:, :-1], tok[:, 1:])
+    l32, g32 = grads_of(torch, cpu.float(), tok[:, :-1], tok[:, 1:])
+    require(all(torch.isfinite(g).all() for g in gg.values()), "non-finite gradients on the card")
+    worst, rows = 0.0, []
+    for n, g in gg.items():
+        ref = g32[n]
+        d_card = (g.float().cpu() - ref).norm().item()
+        d_cpu = (gc[n].float() - ref).norm().item()
+        ratio = d_card / max(d_cpu, 1e-30)
+        rows.append((ratio, n, d_card / max(ref.norm().item(), 1e-30),
+                     d_cpu / max(ref.norm().item(), 1e-30)))
+        worst = max(worst, ratio)
+    rows.sort(reverse=True)
+    print(f"[train] {cfg.name} batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss card {lg.item():.6f}, "
+          f"bf16 CPU {lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
+    print(f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
+          f"Frobenius), card / bf16 CPU, the 5 leaves with the largest ratio: "
+          + ", ".join(f"{n} {c:.3e}/{p:.3e} ({r:.3f})" for r, n, c, p in rows[:5])
+          + f"; largest ratio {worst:.3f} over {len(rows)} leaves (limit "
+          f"{TRAIN_FP32_FACTOR:g})")
+    require(worst <= TRAIN_FP32_FACTOR, f"{cfg.name}: a gradient of the card is {worst:.3f} "
+            f"times as far from fp32 as the bf16 CPU path's, > {TRAIN_FP32_FACTOR:g}")
+    require(abs(lg.item() - lc.item()) < 2e-2, f"{cfg.name}: card loss {lg.item():.6f} vs CPU "
+            f"{lc.item():.6f}")
+    del gpu, cpu, gg, gc, g32
+    torch.cuda.empty_cache()
+
+
+def profile_step(torch, step_fn, top=0):
+    """Device ms of one call of `step_fn` from a torch.profiler trace (the
+    device-side events: kernels, copies, sets) and its result; prints the
+    `top` device events by time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = step_fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile]   train step {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d}x  {e.key[:90]}")
+    return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events), out
+
+
+def phase_train(torch):
+    """qwen3-1.7b at full size trained TRAIN_STEPS steps on one repeated
+    batch of TRAIN_BATCH x TRAIN_SEQ tokens from TokenPipeline: the loss
+    falls at every step and by at least 0.5 in all; per step wall ms, tokens
+    per second and the model-FLOPs share, and the exact launches of each
+    kernel per step. Then the same run again from the same seed under
+    torch.profiler, step by step: its device ms per step, and its losses
+    against the first run's. Returns each kernel's launches in the first
+    run."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.training import AdamW, constant_schedule, init_state, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamW(lr=constant_schedule(TRAIN_LR))
+    raw = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    L = cfg.n_layers
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update({"flash_attention_wgmma": L, "rmsnorm": 4 * L + 1, "silu_mul": L,
+                 "flash_attention_bwd": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L})
+    runs = []
+    for profiled in (False, True):
+        state = init_state(cfg, opt, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in state.model.parameters())
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, total = [], dict.fromkeys(K.KERNELS, 0)
+        for s in range(TRAIN_STEPS):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            if profiled:
+                dev_ms, n_events, (state, met) = profile_step(
+                    torch, lambda: step(state, batch), top=14 if s == TRAIN_STEPS - 1 else 0)
+            else:
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = K.launches()
+            require(counts == want, f"train step {s}: launches {counts}, not {want}")
+            total = {k: total[k] + counts[k] for k in total}
+            losses.append(met["loss"].item())
+            if profiled:
+                print(f"[train] profiled step {s}: loss {losses[-1]:.6f}, device {dev_ms:.3f} ms "
+                      f"in {n_events} device events (torch.profiler), wall {wall_ms:.3f} ms "
+                      f"with the profiler on")
+            else:
+                mfu = 6 * n_params * tokens / (wall_ms / 1e3) / BF16_TENSOR_FLOPS
+                print(f"[train] {cfg.name} step {s}: loss {losses[-1]:.6f}, grad_norm "
+                      f"{met['grad_norm'].item():.4f}, wall {wall_ms:.3f} ms, "
+                      f"{tokens / wall_ms * 1e3:.1f} tokens/s, model-FLOPs share "
+                      f"{mfu * 100:.2f}% (6 x {n_params} parameters x {tokens} tokens / "
+                      f"wall / 989 TFLOP/s)")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs.append(losses)
+        if not profiled:
+            launches = total
+            print(f"[train] {cfg.name} ({n_params} parameters, batch {TRAIN_BATCH} x "
+                  f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR:g}): peak device memory {peak:.2f} GiB; "
+                  f"launches per step {json.dumps({k: n for k, n in want.items() if n})}, "
+                  f"exact at every step")
+            falls = all(b < a for a, b in zip(losses, losses[1:]))
+            require(falls and losses[0] - losses[-1] >= 0.5,
+                    f"{cfg.name}: losses {losses} do not fall at every step by 0.5 in all")
+            print(f"[train] {cfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+                  f"{TRAIN_STEPS} steps, falling at every step ok")
+        del state, step
+        torch.cuda.empty_cache()
+    same = runs[0] == runs[1]
+    print(f"[train] the profiled run's losses {'equal' if same else 'differ from'} the first "
+          f"run's bit for bit" + ("" if same else f": {runs[1]}"))
+    return launches
+
+
+def phase_ckpt(torch):
+    """The m100 preset of qwen3-1.7b: CKPT_STEPS steps straight; then
+    CKPT_AT + 1 steps, an async save of step CKPT_AT, a restore into a
+    fresh model and optimizer (another seed), and the steps after it: the
+    restored state equals the saved one bit for bit, and the resumed
+    losses equal the straight run's (bit for bit where every kernel of the
+    step is deterministic, else within 1e-4 relative)."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.serve import preset_config
+    from repro_torch.training import (AdamW, cosine_schedule, init_state, load_state_tree,
+                                      make_train_step, state_tree)
+    cfg = preset_config(get_config(TRAIN_ARCH), "m100")
+    opt = AdamW(lr=cosine_schedule(1e-3, warmup=1, total=CKPT_STEPS))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, CKPT_SEQ, CKPT_BATCH, seed=1))
+    step = make_train_step(cfg, opt)
+
+    def run(state, steps):
+        losses = []
+        for s in steps:
+            b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(s).items()}
+            state, met = step(state, b)
+            losses.append(met["loss"].item())
+        return state, losses
+
+    _, straight = run(init_state(cfg, opt, seed=0, device="cuda"), range(CKPT_STEPS))
+    state, before = run(init_state(cfg, opt, seed=0, device="cuda"), range(CKPT_AT + 1))
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    ck = Checkpointer(str(d))
+    t0 = time.perf_counter()
+    tree = state_tree(state)
+    t_copy = time.perf_counter() - t0
+    ck.save(CKPT_AT, tree, extra={"data_step": CKPT_AT}, async_=True)
+    ck.wait()
+    t_save = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (d / f"step_{CKPT_AT}").iterdir())
+    fresh = init_state(cfg, opt, seed=1, device="cuda")
+    t0 = time.perf_counter()
+    restored, manifest = ck.restore(state_tree(fresh))
+    load_state_tree(fresh, restored)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    from repro_torch.checkpoint.checkpointer import flatten
+    saved, back = flatten(tree), flatten(state_tree(fresh))
+    require([k for k, _ in saved] == [k for k, _ in back]
+            and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(saved, back)),
+            "the restored state differs from the saved one")
+    _, after = run(fresh, range(CKPT_AT + 1, CKPT_STEPS))
+    resumed = before + after
+    exact = resumed == straight
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    n_params = sum(p.numel() for p in fresh.model.parameters())
+    print(f"[ckpt] {cfg.name} ({n_params} parameters, batch {CKPT_BATCH} x {CKPT_SEQ}): "
+          f"step {CKPT_AT} saved async in {t_save:.3f} s (host copy {t_copy:.3f} s on the "
+          f"caller's thread), {len(manifest['leaves'])} leaves, {size / 2 ** 20:.1f} MiB on "
+          f"disk; restored into a fresh model and optimizer in {t_restore:.3f} s, bit for bit")
+    print(f"[ckpt] losses straight {straight}; resumed {resumed}: "
+          + ("equal bit for bit" if exact else f"largest relative difference {worst:.3e}"))
+    require(exact or worst < 1e-4, f"{cfg.name}: resumed losses {resumed} vs straight "
+            f"{straight}")
+    shutil.rmtree(d, ignore_errors=True)
+    del state, fresh
+    torch.cuda.empty_cache()
+    return exact
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2554,6 +2960,15 @@ def main():
             if row["name"] == "matmul_wgmma":
                 row["e4m3_probe_passes"] = probe
     phase_analytic(rows, models, measured)
+    bwd_rows = phase_bwd(torch)
+    phase_train_check(torch)
+    train_launches = phase_train(torch)
+    for row in bwd_rows:
+        row["launches"] = train_launches[row["name"]]
+    for row in rows:
+        row["launches_in_train_run"] = train_launches[row["name"]]
+    rows += bwd_rows
+    phase_ckpt(torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -24,6 +24,11 @@ call's is a slice of its padded output). The kernels mask the ragged end of
 the key axis themselves, so nothing is padded (the TPU op's ``valid_k`` is the
 key length here). A head dim above 256 raises on the card; the op's plain
 version computes it on the CPU.
+
+``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``, whose note
+gives its design) is the backward of a train step: dq, dk, dv of causal or
+full bf16 attention at D = 64 or 128, GQA summed in the kernel, on the
+same strided views.
 """
 from __future__ import annotations
 
@@ -190,3 +195,61 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = kernel(q, k, v, causal=causal, window=window, softcap=softcap,
                scale=1.0 / math.sqrt(D))
     return o if Dk == D else o[..., :D]
+
+
+# ---------------------------------------------------------------------------
+# backward (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+#: head dims of the backward kernel
+BWD_HEAD_DIMS = (64, 128)
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """(dq, dk, dv) of attention for the output gradient `do`: q, o, do
+    (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), bf16 on one CUDA device, D in
+    ``BWD_HEAD_DIMS``, any (batch, head, seq) strides with a unit stride
+    along D; o the forward's output. Causal or full attention: a window or
+    a softcap raises ``ValueError`` (no trainable config has one). dq, dk
+    and dv keep q's and k's memory layouts. Three launches of
+    ``csrc/flash_attention_bwd.cu`` (row statistics, dk and dv, dq) on the
+    current stream; counts one launch."""
+    if window or softcap:
+        raise ValueError("flash_attention_bwd kernel takes no window or softcap "
+                         f"(window={window}, softcap={softcap})")
+    _check("flash_attention_bwd", q, k, v, (torch.bfloat16,), BWD_HEAD_DIMS)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or t.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd takes {name} of q's shape, dtype and "
+                             f"device with a unit stride along D, got {tuple(t.shape)} "
+                             f"{t.dtype} {t.device} strides {t.stride()}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = _bwd_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]), int(causal),
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -180,3 +180,55 @@ def silu_mul_triton(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 silu_mul_triton.launches = 0
 silu_mul_triton.compiled = None   # the last compiled kernel launched
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU backward
+# ---------------------------------------------------------------------------
+# No TPU kernel is replaced: ``jax.grad`` differentiates the JAX model's
+# SwiGLU in XLA. With s = sigmoid(g), in fp32 and rounded once each:
+#   dg = dy u s (1 + g (1 - s)),   du = dy g s.
+# Bound on an H100: bytes (g, u, dy read once, dg and du written once: 10
+# bytes an element in bf16). A flat pass like the forward's, BLOCK
+# elements a program with masked loads at the ragged end.
+
+
+@functools.cache
+def _bwd_kernels():
+    """Compile at first use: triton exists only where a card is."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def silu_mul_bwd(g_ptr, u_ptr, dy_ptr, dg_ptr, du_ptr, n, BLOCK: tl.constexpr):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        u = tl.load(u_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        s = tl.sigmoid(g)
+        dg = dy * u * s * (1.0 + g * (1.0 - s))
+        tl.store(dg_ptr + offs, dg.to(dg_ptr.dtype.element_ty), mask=mask)
+        tl.store(du_ptr + offs, (dy * g * s).to(du_ptr.dtype.element_ty), mask=mask)
+
+    return triton, silu_mul_bwd
+
+
+def silu_mul_bwd_triton(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
+    """(dg, du) of ``silu(g) * u`` for the output gradient dy: contiguous
+    CUDA tensors of one shape and dtype (bf16 or fp32)."""
+    _check_elementwise("silu_mul_bwd", g, u, dy)
+    dg, du = torch.empty_like(g), torch.empty_like(g)
+    n = g.numel()
+    if n == 0:
+        return dg, du
+    triton, kern = _bwd_kernels()
+    silu_mul_bwd_triton.compiled = kern[(triton.cdiv(n, BLOCK),)](
+        g, u, dy, dg, du, n, BLOCK=BLOCK, num_warps=8)
+    silu_mul_bwd_triton.launches += 1
+    return dg, du
+
+
+silu_mul_bwd_triton.launches = 0
+silu_mul_bwd_triton.compiled = None   # the last compiled kernel launched

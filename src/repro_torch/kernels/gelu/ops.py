@@ -1,13 +1,19 @@
 """Public activation ops: the kernel (CUDA C++ for GELU and gated GELU,
 Triton for the SwiGLU gate) for a CUDA tensor, the plain version for a CPU
-tensor."""
+tensor.
+
+``silu_mul`` is differentiable: where grad mode is on and g or u requires
+a gradient, it runs as ``SiluMulFn``, whose forward is the same op and
+whose backward is ``silu_mul_bwd_triton`` on the card and
+``silu_mul_bwd_ref`` on the CPU. Otherwise (serving) it calls the forward
+directly and builds no graph."""
 from __future__ import annotations
 
 import torch
 
 from ...device import runs_plain
-from .kernel import gelu_cuda, gelu_mul_cuda, silu_mul_triton
-from .ref import gelu_mul_ref, gelu_ref, silu_mul_ref
+from .kernel import gelu_cuda, gelu_mul_cuda, silu_mul_bwd_triton, silu_mul_triton
+from .ref import gelu_mul_ref, gelu_ref, silu_mul_bwd_ref, silu_mul_ref
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -17,11 +23,34 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return gelu_cuda(x)
 
 
-def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """silu(g) * u, computed in fp32, one rounding."""
+def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if runs_plain(g):
         return silu_mul_ref(g, u)
     return silu_mul_triton(g, u)
+
+
+class SiluMulFn(torch.autograd.Function):
+    """The SwiGLU gate with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        ctx.save_for_backward(g, u)
+        return _silu_mul(g, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, u = ctx.saved_tensors
+        dy = dy.contiguous()
+        if runs_plain(g):
+            return silu_mul_bwd_ref(g, u, dy)
+        return silu_mul_bwd_triton(g, u, dy)
+
+
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """silu(g) * u, computed in fp32, one rounding."""
+    if torch.is_grad_enabled() and (g.requires_grad or u.requires_grad):
+        return SiluMulFn.apply(g, u)
+    return _silu_mul(g, u)
 
 
 def gelu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

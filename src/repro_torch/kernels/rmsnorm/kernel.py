@@ -168,3 +168,122 @@ def layernorm_triton(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 layernorm_triton.launches = 0
 layernorm_triton.compiled = None   # the last compiled kernel launched
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm backward
+# ---------------------------------------------------------------------------
+# No TPU kernel is replaced: the JAX package has no backward kernel, since
+# ``jax.grad`` differentiates its jnp model in XLA. A train step on the card
+# needs one for every forward kernel it launches, and this is RMSNorm's
+# (every norm and qk-norm of the dense decoders).
+#
+# dx = (g dy - xh mean(g dy xh)) rsqrt(var + eps), xh = x rsqrt(var + eps),
+# in fp32 and rounded once to x's dtype; dg = sum over rows of dy xh, in fp32.
+#
+# Bound on an H100: bytes (x and dy read once, dx written once: 6 bytes an
+# element in bf16, a dozen fp32 operations). Design: the forward's row
+# blocks, but each program walks a run of row blocks and keeps its share
+# of dg in registers, so the column sum over all rows needs no atomics:
+# a program writes its partial dg row to a (programs, C) fp32 scratch, and
+# a second launch sums that scratch down its columns. The order of the sum
+# is fixed by the shape, so dg is the same from run to run. With at most
+# BWD_PROGRAMS_PER_SM programs an SM, the scratch is a few MB at most.
+
+BWD_PROGRAMS_PER_SM = 4
+
+
+@functools.cache
+def _bwd_kernels():
+    """Compile at first use: triton exists only where a card is."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit(do_not_specialize=["R", "rows_per_prog"])
+    def rmsnorm_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, dgp_ptr, R, C, rows_per_prog, stride_x,
+                    stride_dy, stride_dx, eps, ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        dg = tl.zeros((BLOCK_C,), dtype=tl.float32)
+        lo = pid * rows_per_prog
+        hi = tl.minimum(lo + rows_per_prog, R)
+        for start in range(lo, hi, ROWS):
+            rows = start + tl.arange(0, ROWS)
+            mask = (rows[:, None] < hi) & cmask[None, :]
+            x = tl.load(x_ptr + rows[:, None].to(tl.int64) * stride_x + cols[None, :],
+                        mask=mask, other=0.0).to(tl.float32)
+            dy = tl.load(dy_ptr + rows[:, None].to(tl.int64) * stride_dy + cols[None, :],
+                         mask=mask, other=0.0).to(tl.float32)
+            rstd = 1.0 / tl.sqrt(tl.sum(x * x, axis=1) / C + eps)
+            xh = x * rstd[:, None]
+            w = dy * g[None, :]
+            c = tl.sum(w * xh, axis=1) / C
+            dx = (w - xh * c[:, None]) * rstd[:, None]
+            tl.store(dx_ptr + rows[:, None].to(tl.int64) * stride_dx + cols[None, :],
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            dg += tl.sum(dy * xh, axis=0)
+        tl.store(dgp_ptr + pid * C + cols, dg, mask=cmask)
+
+    @triton.jit
+    def column_sum(p_ptr, o_ptr, N, C, BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr):
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+        for start in range(0, N, BLOCK_N):
+            rows = start + tl.arange(0, BLOCK_N)
+            acc += tl.sum(tl.load(p_ptr + rows[:, None] * C + cols[None, :],
+                                  mask=(rows[:, None] < N) & (cols[None, :] < C), other=0.0),
+                          axis=0)
+        tl.store(o_ptr + cols, acc.to(o_ptr.dtype.element_ty), mask=cols < C)
+
+    return triton, rmsnorm_bwd, column_sum
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_programs(R: int, C: int, sms: int):
+    """(programs, rows a program walks) of the backward at R rows of C: at
+    most BWD_PROGRAMS_PER_SM programs an SM, each a whole number of the
+    forward's row blocks."""
+    rows = launch_params(C)["ROWS"]
+    blocks = -(-R // rows)
+    per = -(-blocks // min(blocks, BWD_PROGRAMS_PER_SM * sms)) * rows
+    return -(-R // per), per
+
+
+def rmsnorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                       eps: float = 1e-6):
+    """(dx, dg) of RMSNorm for the output gradient dy: x, dy (R, C) CUDA
+    tensors of one dtype (bf16 or fp32), unit stride along C; g: (C,). dx
+    in x's dtype, dg in g's. One launch of the row kernel and one of the
+    column sum; counts one launch."""
+    _check_rows("rmsnorm_bwd", x, g)
+    _check_rows("rmsnorm_bwd", dy, g)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd takes dy of x's shape and dtype, got "
+                         f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} {x.dtype}")
+    g = g.contiguous()
+    R, C = x.shape
+    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
+    dg = torch.zeros((C,), dtype=g.dtype, device=g.device)
+    if R == 0:
+        return dx, dg
+    triton, kern, colsum = _bwd_kernels()
+    p = launch_params(C)
+    n_prog, per = bwd_programs(R, C, _sm_count(x.device.index or 0))
+    partial = torch.empty((n_prog, C), dtype=torch.float32, device=x.device)
+    rmsnorm_bwd_triton.compiled = kern[(n_prog,)](
+        x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps, **p)
+    colsum[(triton.cdiv(C, 128),)](partial, dg, n_prog, C, BLOCK_N=32, BLOCK_C=128,
+                                   num_warps=4)
+    rmsnorm_bwd_triton.launches += 1
+    return dx, dg
+
+
+rmsnorm_bwd_triton.launches = 0
+rmsnorm_bwd_triton.compiled = None   # the last compiled row kernel launched

@@ -1,19 +1,52 @@
 """Public norm ops: the Triton kernel for a CUDA tensor, the plain version
-for a CPU tensor."""
+for a CPU tensor.
+
+``rmsnorm`` is differentiable: where grad mode is on and x or g requires a
+gradient, it runs as ``RMSNormFn``, whose forward is the same op and whose
+backward is ``rmsnorm_bwd_triton`` on the card and ``rmsnorm_bwd_ref`` on
+the CPU. Otherwise (serving) it calls the forward directly and builds no
+graph."""
 from __future__ import annotations
 
 import torch
 
 from ...device import runs_plain
-from .kernel import layernorm_triton, rmsnorm_triton
-from .ref import layernorm_ref, rmsnorm_ref
+from .kernel import layernorm_triton, rmsnorm_bwd_triton, rmsnorm_triton
+from .ref import layernorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
+
+
+def _rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    if runs_plain(x):
+        return rmsnorm_ref(x, g, eps)
+    return rmsnorm_triton(x, g, eps)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm over rows with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _rmsnorm(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        if runs_plain(x):
+            dx, dg = rmsnorm_bwd_ref(x, g, dy, ctx.eps)
+        else:
+            dx, dg = rmsnorm_bwd_triton(x, g, dy, ctx.eps)
+        return dx, dg, None
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x: (R, C); g: (C,)."""
-    if runs_plain(x):
-        return rmsnorm_ref(x, g, eps)
-    return rmsnorm_triton(x, g, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or g.requires_grad):
+        return RMSNormFn.apply(x, g, eps)
+    return _rmsnorm(x, g, eps)
 
 
 def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,

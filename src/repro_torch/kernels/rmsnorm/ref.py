@@ -19,3 +19,18 @@ def layernorm_ref(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """Gradients of ``rmsnorm_ref`` at x (R, C), g (C,) for the output
+    gradient dy (R, C), as an explicit formula in fp32: with
+    ``xh = x * rsqrt(var + eps)`` and ``w = g * dy``,
+    ``dx = (w - xh * mean(w * xh)) * rsqrt(var + eps)`` rounded once to x's
+    dtype, and ``dg = sum_rows(dy * xh)`` in g's dtype."""
+    xf, dyf = x.float(), dy.float()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xh = xf * rstd
+    w = dyf * g.float()
+    dx = (w - xh * (w * xh).mean(-1, keepdim=True)) * rstd
+    return dx.to(x.dtype), (dyf * xh).sum(0).to(g.dtype)

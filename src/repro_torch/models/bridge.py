@@ -37,6 +37,16 @@ config:
   * bfloat16 crosses bit-exactly: numpy holds it as the ``bfloat16`` dtype of
     ml_dtypes, viewed here as 16-bit integers, handed to torch as int16 and
     viewed back as ``torch.bfloat16``.
+
+``params_to_jax(cfg, state_dict)`` is the inverse: it restacks the port's
+layers into the JAX tree (units on axis 0, the ``rem`` remainder, the
+encoder's layers), every leaf a numpy array under its JAX key and in its
+JAX dtype. numpy has no bfloat16 of its own (the card's host has no
+ml_dtypes), so a bf16 leaf goes out as its raw 2-byte values, numpy's void
+dtype ``V2`` (``BF16_RAW``), which is also how ``np.savez`` stores the
+JAX package's ml_dtypes bfloat16; ``to_tensor`` reads ``V2`` back as
+bf16. ``decayed_leaves`` names the parameters whose JAX leaf has
+``ndim >= 2``, the leaves the JAX AdamW decays (``ROADMAP.md`` C14).
 """
 from __future__ import annotations
 
@@ -47,10 +57,33 @@ from ..configs.base import ModelConfig
 from .lm import check_supported, unit_structure
 
 
+#: numpy's form of a bf16 array here: its raw 2-byte values
+BF16_RAW = np.dtype("V2")
+
+
+def is_bf16(a: np.ndarray) -> bool:
+    """An ml_dtypes bfloat16 array, or raw bf16 values (``BF16_RAW``)."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor as a numpy array of the same bits; bf16 as
+    ``BF16_RAW``. The copy shares no memory with `t`."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RAW)
+    return t.numpy()
+
+
 def to_tensor(a) -> torch.Tensor:
-    """A numpy array as a CPU tensor of the same dtype and bits."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
+    """A numpy array as a CPU tensor of the same dtype and bits (a tensor
+    passes through)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:     # np.ascontiguousarray would make a 0-dim array 1-dim
+        a = a.copy(order="C")
+    if is_bf16(a):
         return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
 
@@ -86,3 +119,62 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
                 key = f"{prefix}.{group}" if name is None else f"{prefix}.{group}.{name}"
                 sd[key] = to_tensor(leaf if r is None else leaf[r])
     return sd
+
+
+def _layer_prefixes(cfg: ModelConfig):
+    """(JAX place, port prefix, stacked-unit row or None) of every layer:
+    ("units", "u<j>") at row r, ("rem", "r<j>"), and ("enc", "layers") at
+    row i for an encoder layer."""
+    unit, n_units, rem = unit_structure(cfg)
+    out = [(("units", f"u{j}"), f"blocks.{r * len(unit) + j}", r)
+           for r in range(n_units) for j in range(len(unit))]
+    out += [(("rem", f"r{j}"), f"blocks.{n_units * len(unit) + j}", None)
+            for j in range(len(rem))]
+    out += [(("enc", "layers"), f"enc.layers.{i}", i) for i in range(cfg.n_encoder_layers)]
+    return out
+
+
+def params_to_jax(cfg: ModelConfig, state_dict: dict) -> dict:
+    """The JAX parameter tree of numpy arrays (bf16 as ``BF16_RAW``) from a
+    state dict of ``LM(cfg)``: the inverse of ``params_from_jax``."""
+    check_supported(cfg)
+    sd = dict(state_dict)
+    tree = {"embed": to_numpy(sd.pop("embed")),
+            "final_norm": {}, "units": {}, "rem": {}}
+    if cfg.n_encoder_layers:
+        tree["enc"] = {"layers": {}, "final_norm": {}}
+    rows = {}   # (place, JAX path of the leaf) -> {row: tensor}
+    for place, prefix, r in _layer_prefixes(cfg):
+        for key in [k for k in sd if k.startswith(prefix + ".")]:
+            path = tuple(key[len(prefix) + 1:].split("."))
+            t = sd.pop(key)
+            if r is None:
+                node = tree[place[0]].setdefault(place[1], {})
+                for part in path[:-1]:
+                    node = node.setdefault(part, {})
+                node[path[-1]] = to_numpy(t)
+            else:
+                rows.setdefault((place, path), {})[r] = t
+    for (place, path), by_row in rows.items():
+        node = tree[place[0]].setdefault(place[1], {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = to_numpy(torch.stack([by_row[r] for r in sorted(by_row)]))
+    for key in [k for k in sd if k.startswith("final_norm.")]:
+        tree["final_norm"][key.split(".", 1)[1]] = to_numpy(sd.pop(key))
+    for key in [k for k in sd if k.startswith("enc.final_norm.")]:
+        tree["enc"]["final_norm"][key.rsplit(".", 1)[1]] = to_numpy(sd.pop(key))
+    if not cfg.tie_embeddings:
+        tree["head"] = to_numpy(sd.pop("head"))
+    if sd:
+        raise ValueError(f"leaves of no JAX place: {sorted(sd)}")
+    return tree
+
+
+def decayed_leaves(cfg: ModelConfig, params: dict) -> set:
+    """The parameter names whose JAX leaf has ndim >= 2, which the JAX
+    AdamW decays (``ROADMAP.md`` C14): every leaf of a layer stacked along
+    a leading axis (a repeated unit's, an encoder layer's) whatever its own
+    shape, else a leaf of two or more dimensions."""
+    stacked = tuple(prefix + "." for _, prefix, r in _layer_prefixes(cfg) if r is not None)
+    return {n for n, p in params.items() if n.startswith(stacked) or p.dim() >= 2}

@@ -8,8 +8,13 @@ grouping, which ``params_from_jax`` unstacks). An encoder-decoder also holds
 ``enc``: its encoder's ``layers`` and ``final_norm``.
 
 Public entry points, counterparts of the JAX functions of the same names:
-    init_params -> LM, LM.forward (teacher-forced logits), init_cache,
-    LM.prefill, LM.decode_step, padded_vocab
+    init_params -> LM, LM.forward (teacher-forced logits), loss_fn,
+    init_cache, LM.prefill, LM.decode_step, padded_vocab
+
+Training: parameters are made with ``requires_grad=False``, so serving
+builds no autograd graph; a trainer calls ``model.requires_grad_(True)``
+after ``check_trainable``. The kernel ops then run as autograd Functions
+with hand-written backward kernels (RMSNorm, SwiGLU, flash attention).
 
 The cache is a dict of tensors updated IN PLACE by ``prefill`` and
 ``decode_step`` (the JAX functions return a new cache). Every tensor but
@@ -129,6 +134,40 @@ def check_supported(cfg: ModelConfig) -> None:
         if not ok(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not run by "
+                f"repro_torch: {why}")
+
+
+# (field, test that a train step on the card has a backward kernel for the
+# config's value of it, why not): the backward kernels of this slice are
+# flash attention (causal or full), RMSNorm and the SwiGLU gate
+_TRAINABLE = (
+    ("norm", lambda c: c.norm == "rmsnorm", "no LayerNorm backward kernel yet"),
+    ("activation", lambda c: c.mlp_gated and c.activation == "silu",
+     "no GELU or gated-GELU backward kernel yet (SwiGLU only)"),
+    ("attn_window", lambda c: not c.attn_window, "no windowed flash backward kernel yet"),
+    ("attn_logit_softcap", lambda c: not c.attn_logit_softcap,
+     "no softcapped flash backward kernel yet"),
+    ("n_experts", lambda c: not c.n_experts,
+     "the MoE aux loss is not threaded out of the blocks yet"),
+    ("attention_free", lambda c: not c.attention_free, "no wkv backward kernel yet"),
+    ("block_pattern", lambda c: not c.block_pattern, "no RG-LRU backward kernel yet"),
+    ("cross_attention", lambda c: not c.cross_attention and not c.n_encoder_layers,
+     "no encoder-decoder training yet"),
+    ("cross_attn_layers", lambda c: not c.cross_attn_layers and not c.n_frontend_tokens,
+     "no cross-attention training yet"),
+)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError naming the first config field whose
+    backward the port does not run. Trainable: dense decoders with RMSNorm
+    (and qk-norm), a SwiGLU MLP and causal full attention (qwen1.5-0.5b,
+    qwen2-0.5b, qwen3-1.7b)."""
+    check_supported(cfg)
+    for field, ok, why in _TRAINABLE:
+        if not ok(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not trained by "
                 f"repro_torch: {why}")
 
 
@@ -584,6 +623,26 @@ def _decode_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
     return o.reshape(B, 1, Hq, dh)
 
 
+def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, frontend: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """The JAX ``loss_fn``: masked next-token cross-entropy over fp32
+    logits plus ``z_weight`` times the mean squared log-partition and
+    ``aux_weight`` times the MoE aux loss (0 here: ``check_trainable``
+    refuses MoE configs, whose aux the blocks do not return yet). Returns
+    (total, {"ce", "z_loss", "aux", "tokens"}), each a 0-dim fp32 tensor."""
+    logits = model(tokens, frontend).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets.long()[..., None])[..., 0] - logz
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    denom = mask.sum().clamp_min(1.0)
+    ce = -(ll * mask).sum() / denom
+    zl = z_weight * (logz.square() * mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce + zl + aux_weight * aux, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on the
     target device (the same shapes and scales as the JAX init, not the same
@@ -637,5 +696,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
 
 __all__ = ["LM", "Block", "EncDecBlock", "XAttnBlock", "RGLRUBlock", "RWKVBlock",
            "init_params", "init_cache",
-           "padded_vocab", "check_supported", "layer_kinds", "unit_structure", "kind_index",
+           "padded_vocab", "check_supported", "check_trainable", "loss_fn", "layer_kinds",
+           "unit_structure", "kind_index",
            "VOCAB_PAD"]

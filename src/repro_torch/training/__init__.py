@@ -1,0 +1,10 @@
+"""Training of the port: ``repro.training`` (AdamW, schedules, the train
+step) in PyTorch."""
+from .optimizer import AdamW, AdamWState, constant_schedule, cosine_schedule
+from .train_step import (TrainState, TrainTree, compress_grads, compress_int8,
+                         decompress_int8, init_state, load_state_tree, make_train_step,
+                         state_tree)
+
+__all__ = ["AdamW", "AdamWState", "cosine_schedule", "constant_schedule",
+           "TrainState", "TrainTree", "state_tree", "load_state_tree", "make_train_step", "init_state", "compress_grads",
+           "compress_int8", "decompress_int8"]

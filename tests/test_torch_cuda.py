@@ -26,8 +26,8 @@ import repro_torch.kernels as TK
 from repro_torch import models
 from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_bwd_ref, silu_mul_ref
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
 from repro_torch.kernels.rglru.kernel import picks_chunked as rglru_picks_chunked
@@ -43,10 +43,11 @@ from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, 
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
                                             matmul_reduce_ref, matmul_ref, quantize_fp8,
                                             quantize_int8)
-from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv.ref import wkv_ref
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, loss_fn
+from repro_torch import training
 from repro_torch.serving import Engine, Request
 from repro_torch.serving import engine as engine_mod
 
@@ -110,7 +111,7 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
-    "rglru", "rglru_chunked"}))
+    "rglru", "rglru_chunked", "flash_attention_bwd", "rmsnorm_bwd", "silu_mul_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -427,7 +428,8 @@ def test_launches_per_step_on_card(cuda):
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
-                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0,
+                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -436,7 +438,8 @@ def test_launches_per_step_on_card(cuda):
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
-                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0,
+                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -456,7 +459,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
-                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0,
+                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -465,7 +469,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
-                             "matmul_int8": 0, "matmul_int8_wgmma": 0}
+                             "matmul_int8": 0, "matmul_int8_wgmma": 0,
+                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -1394,3 +1399,160 @@ def test_f32_gemm_paths_on_card(cuda):
             assert "matmul_reduce" not in grown
             with pytest.raises(ValueError, match="16-byte"):
                 TK.KERNELS["matmul_f32_tma"](a, b)
+
+
+# ---------------- backward kernels and the train step ----------------
+
+def within_one_rounding(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-3).all())
+
+
+def attention_operands(seed, B, H, S, D, layout, device):
+    """(B, H, S, D) bf16: contiguous, or a transposed view of (B, S, H, D)
+    as the model passes them."""
+    if layout == "bshd":
+        return normal(seed, (B, S, H, D), device, torch.bfloat16).transpose(1, 2)
+    return normal(seed, (B, H, S, D), device, torch.bfloat16)
+
+
+# (B, Hq, Hkv, S, D, causal, layout): qwen3-1.7b's heads (16 on 8, D 128),
+# qwen2-0.5b's (14 on 2, D 64), MHA, lengths that cut a 64-row tile, and the
+# model's transposed views
+FLASH_BWD_CASES = [(2, 16, 8, 128, 128, True, "bhsd"), (2, 14, 2, 100, 64, True, "bshd"),
+                   (1, 4, 4, 77, 64, False, "bhsd"), (2, 8, 8, 130, 128, False, "bshd"),
+                   (1, 6, 2, 33, 128, True, "bshd")]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_attention_bwd_matches_plain_on_card(cuda, case):
+    B, Hq, Hkv, S, D, causal, layout = case
+    q = attention_operands(50, B, Hq, S, D, layout, cuda)
+    k = attention_operands(51, B, Hkv, S, D, layout, cuda)
+    v = attention_operands(52, B, Hkv, S, D, layout, cuda)
+    do = attention_operands(53, B, Hq, S, D, layout, cuda)
+    o = flash_ops.flash_attention(q, k, v, causal=causal)
+    fn = TK.KERNELS["flash_attention_bwd"]
+    before = fn.launches
+    got = fn(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype and g.stride() == t.stride()
+        assert rel_err(g, w) < TOL["bfloat16"]
+
+
+def test_flash_attention_bwd_refuses_what_it_does_not_take_on_card(cuda):
+    q = normal(54, (1, 2, 16, 64), cuda, torch.bfloat16)
+    fn = TK.KERNELS["flash_attention_bwd"]
+    for kw in ({"window": 8}, {"softcap": 30.0}):
+        with pytest.raises(ValueError, match="window or softcap"):
+            fn(q, q, q, q, q, **kw)
+    for t in (normal(55, (1, 2, 16, 256), cuda, torch.bfloat16), q.float()):
+        with pytest.raises(ValueError):
+            fn(t, t, t, t, t)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(300, 2048), (1000, 128), (7, 1024), (4099, 896)])
+def test_rmsnorm_bwd_matches_plain_on_card(cuda, r, c, dtype):
+    x = normal(56, (r, c), cuda, DTYPES[dtype]) * 3
+    g = normal(57, (c,), cuda, torch.float32)
+    dy = normal(58, (r, c), cuda, DTYPES[dtype])
+    fn = TK.KERNELS["rmsnorm_bwd"]
+    before = fn.launches
+    dx, dg = fn(x, g, dy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want_dx, want_dg = rmsnorm_bwd_ref(x, g, dy)
+    assert dx.dtype == x.dtype and dg.dtype == torch.float32
+    assert rel_err(dx, want_dx) < TOL[dtype]
+    assert rel_err(dg, want_dg) < TOL["float32"]
+    if dtype == "bfloat16":
+        assert within_one_rounding(dx, want_dx)
+    again = fn(x, g, dy)[1]
+    assert torch.equal(again, dg)      # the column sum has a fixed order
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(100, 256), (1000, 1536), (3, 1001)])
+def test_silu_mul_bwd_matches_plain_on_card(cuda, shape, dtype):
+    g = normal(59, shape, cuda, DTYPES[dtype]) * 3
+    u = normal(60, shape, cuda, DTYPES[dtype])
+    dy = normal(61, shape, cuda, DTYPES[dtype])
+    fn = TK.KERNELS["silu_mul_bwd"]
+    before = fn.launches
+    got = fn(g, u, dy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for a, w in zip(got, silu_mul_bwd_ref(g, u, dy)):
+        assert a.dtype == g.dtype and rel_err(a, w) < TOL[dtype]
+        if dtype == "bfloat16":
+            assert within_one_rounding(a, w)
+
+
+def trainable_smoke():
+    """qwen3-1.7b at smoke size with the backward kernel's head dim 64."""
+    return dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), d_head=64)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The loss and every parameter's gradient of the kernel path (three
+    backward kernels) against the plain path on the CPU, on the same
+    weights; then one train step with its exact backward launches: per
+    layer one flash backward, four RMSNorm backwards (two norms, q- and
+    k-norm) and one SwiGLU backward, and one for the final norm."""
+    cfg = trainable_smoke()
+    cpu = models.init_params(cfg, seed=0, device="cpu").requires_grad_(True)
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.requires_grad_(True)
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 97), dtype=np.int32))
+    grads = []
+    for model, device in ((cpu, "cpu"), (gpu, cuda)):
+        loss, _ = loss_fn(model, tok[:, :-1].to(device), tok[:, 1:].to(device))
+        params = dict(model.named_parameters())
+        grads.append((float(loss), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))))
+    (want_loss, want), (got_loss, got) = grads
+    assert abs(got_loss - want_loss) < 2e-2
+    for n, g in got.items():
+        w = want[n].float()
+        assert g.dtype == want[n].dtype
+        assert ((g.float().cpu() - w).norm() / w.norm().clamp_min(1e-30)).item() < 2e-2, n
+    opt = training.AdamW(lr=training.constant_schedule(1e-3))
+    state = training.TrainState(gpu, opt.init(dict(gpu.named_parameters())))
+    step = training.make_train_step(cfg, opt)
+    TK.reset_launches()
+    state, met = step(state, {"tokens": tok[:, :-1].to(cuda), "targets": tok[:, 1:].to(cuda)})
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    counts = TK.launches()
+    assert {k: counts[k] for k in ("flash_attention_bwd", "rmsnorm_bwd", "silu_mul_bwd")} == \
+        {"flash_attention_bwd": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L}
+    assert counts["flash_attention_wgmma"] == L and counts["rmsnorm"] == 4 * L + 1
+    assert torch.isfinite(met["loss"]) and int(state.opt.step) == 1
+
+
+def test_serving_with_grad_enabled_builds_no_graph_on_card(cuda):
+    """Serving parameters need no gradient, so the ops call their forward
+    kernels directly: no backward launch, no graph, with grad mode on; a
+    trainable model under no_grad the same."""
+    cfg = trainable_smoke()
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with torch.enable_grad():
+        TK.reset_launches()
+        out = [model.prefill(toks, cache), model.decode_step(toks[:, 0], cache), model(toks)]
+        torch.cuda.synchronize()
+        assert all(o.grad_fn is None for o in out)
+        counts = TK.launches()
+        assert counts["flash_attention_bwd"] == counts["rmsnorm_bwd"] == \
+            counts["silu_mul_bwd"] == 0
+        assert counts["rmsnorm"] > 0 and counts["silu_mul"] > 0
+        model.requires_grad_(True)
+        with torch.no_grad():
+            assert model(toks).grad_fn is None

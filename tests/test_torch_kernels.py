@@ -1001,7 +1001,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "matmul_int8": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
                             torch.ones(4, 1), torch.ones(1, 4)),
             "matmul_int8_wgmma": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
-                                  torch.ones(4, 1), torch.ones(1, 4))}[name]
+                                  torch.ones(4, 1), torch.ones(1, 4)),
+            "flash_attention_bwd": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 5,
+            "rmsnorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
+            "silu_mul_bwd": (x, x, x)}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 
