@@ -5,7 +5,8 @@
 Phases, each of which fails the script on its own (exit code 1, and no
 result line):
   1. build   - nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` (all sources at once, flash_attention_bwd.cu among
+               csrc`` (all sources at once, the backward's
+               flash_attention_bwd_sm90.cu and flash_attention_bwd.cu among
                them) and Triton compiles its kernels (the norms, silu_mul,
                and the RMSNorm and SwiGLU backward ones) and the GELU
                kernel gelu.cu replaced, which is timed beside it
@@ -226,19 +227,28 @@ result line):
                timed prefill, each also under the model's fused + flash
                execution; a failure of the model fails the run;
   8. bwd     - the backward kernels of a train step (``BACKWARD``: flash
-               attention on CUDA, RMSNorm and the SwiGLU gate on Triton; no
-               TPU counterpart, JAX differentiates in XLA), each against its
-               plain version on the card: flash at qwen3-1.7b's (8, 16, 512,
-               128) / (8, 8, 512, 128) causal and qwen2-0.5b's 14:2 heads at
-               D = 64, lengths that cut a tile and non-causal, on the
-               model's transposed views (relative error below 2e-2); RMSNorm
-               at (4096, 2048), qk-norm's (65536, 128), an odd shape and
-               fp32 (dx within one bf16 rounding per element, dg to 2e-5 and
-               the same in a second run); SwiGLU at (4096, 6144), an odd
-               shape and fp32; then each timed at the training shape beside
-               its plain version, its bound and the backward half of one
-               PyTorch call through torch.autograd.grad (SDPA, F.rms_norm,
-               F.silu(g) * u);
+               attention on CUDA, the TMA + wgmma kernel given the forward's
+               log-sum-exp and the mma.sync one; RMSNorm and the SwiGLU gate
+               on Triton; no TPU counterpart, JAX differentiates in XLA),
+               each against its plain version on the card: flash at
+               qwen3-1.7b's (8, 16, 512, 128) / (8, 8, 512, 128) causal and
+               qwen2-0.5b's 14:2 heads at D = 64, lengths that cut a 64- and
+               a 128-row tile and non-causal, on the model's transposed views
+               (relative error below 2e-2, the same bits in a second run),
+               the forward's log-sum-exp to fp32 2e-5 and the served forward
+               (no log-sum-exp) bit for bit the same; RMSNorm at (4096,
+               2048), the q- and k-norm's (65536, 128) and (32768, 128), an
+               odd shape and fp32 (dx within one bf16 rounding per element,
+               dg to 2e-5 and the same in a second run); SwiGLU at (4096,
+               6144), an odd shape and fp32; then each timed at the training
+               shape beside its plain version, its bound and the backward
+               half of one PyTorch call through torch.autograd.grad (SDPA,
+               F.rms_norm, F.silu(g) * u): both flash kernels, and the
+               forward with and without the log-sum-exp, each launch of the
+               wgmma backward and SDPA's backward in two turns at qwen3's
+               and qwen2's shapes; the RMSNorm backward beside the design it
+               replaced, each design's row pass and column sum apart, at the
+               three norm shapes;
   9. train   - qwen3-1.7b at full width cut to 2 layers, batch 2 x 128: the
                loss and every parameter's gradient of one step on the card
                against the CPU plain path in bf16 and an fp32 CPU run, each
@@ -247,10 +257,13 @@ result line):
                of AdamW on one repeated batch of 8 x 512 tokens from
                TokenPipeline: the loss falls at every step and by 0.5 in
                all, per step wall ms, tokens/s and model-FLOPs share, the
-               peak memory, and exactly 28 flash backward, 113 RMSNorm
-               backward and 28 SwiGLU backward launches a step (and 28, 113,
-               28 of their forwards); the run again from the same seed under
-               torch.profiler for each step's device ms;
+               peak memory, and exactly 28 flash backward launches a step on
+               the wgmma kernel (flash_attention_bwd_wgmma; 0 on the
+               mma.sync one), 113 RMSNorm backward and 28 SwiGLU backward
+               (and 28, 113, 28 of their forwards); the run again from the
+               same seed under torch.profiler for each step's device ms and
+               its largest device events, every backward kernel's among
+               them;
  10. ckpt    - the m100 preset of qwen3-1.7b: 6 steps straight, and 3 steps,
                an async save of step 2, a restore into a fresh model and
                optimizer (bit for bit) and the steps after it, whose losses
@@ -439,7 +452,7 @@ def phase_build(torch):
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
                             "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
-                            "flash_attention_bwd"])
+                            "flash_attention_bwd", "flash_attention_bwd_sm90"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -463,6 +476,12 @@ def phase_build(torch):
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     for d in WGMMA_HEAD_DIMS:
         print(f"[build] flash_attention_sm90.cu D={d}: {smem(d)} bytes of dynamic shared memory")
+    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS
+    smem = _build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for d in BWD_HEAD_DIMS:
+        print(f"[build] flash_attention_bwd_sm90.cu D={d}: dq {smem(d, 0)}, dk/dv {smem(d, 1)} "
+              "bytes of dynamic shared memory")
     from repro_torch.kernels.wkv.kernel import COLUMN_SPLITS
     smem = _build.load("wkv_chunked").wkv_chunked_smem
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
@@ -2555,6 +2574,9 @@ def phase_analytic(rows, models, measured):
 # function they differentiate; the JAX package differentiates in XLA and
 # has no backward kernel)
 BACKWARD = {
+    "flash_attention_bwd_wgmma": ("cuda",
+                                  "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+                                  "src/repro/kernels/flash_attention/kernel.py:71"),
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention/kernel.py:71"),
     "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
@@ -2575,12 +2597,13 @@ CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 6, 2, 8, 256
 
 
 def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal):
-    """q, k, v, do as the model's transposed (B, S, H, D) views, and o from
-    the forward kernel."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    """q, k, v, do as the model's transposed (B, S, H, D) views, and o and
+    the rows' log-sum-exp from the forward kernel as a train step runs it."""
+    from repro_torch.kernels.flash_attention.kernel import attention_cuda
     bf = torch.bfloat16
     q, k, v, do = (rnd((B, S, h, D), bf).transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
-    return q, k, v, flash_attention(q, k, v, causal=causal), do
+    o, lse = attention_cuda(q, k, v, causal=causal, with_lse=True)
+    return q, k, v, o, do, lse
 
 
 def phase_bwd(torch):
@@ -2593,7 +2616,7 @@ def phase_bwd(torch):
     train phase)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
     from repro_torch.kernels.gelu.ref import silu_mul_bwd_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     bf, f32 = torch.bfloat16, torch.float32
@@ -2615,18 +2638,38 @@ def phase_bwd(torch):
         return f"{err:.3e}"
 
     # (B, Hq, Hkv, S, D, causal): qwen3-1.7b's training shape, qwen2-0.5b's
-    # 14:2 heads at D 64, lengths that cut a 64-row tile, non-causal
+    # 14:2 heads at D 64, lengths that cut a 64- and a 128-row tile,
+    # non-causal; both backward kernels, the wgmma one given the forward's
+    # log-sum-exp L, which is held to the plain one first
     for B, Hq, Hkv, S, D, causal in ((8, 16, 8, 512, 128, True), (8, 14, 2, 512, 64, True),
                                      (2, 16, 8, 333, 128, True), (2, 14, 2, 200, 64, False),
-                                     (1, 8, 8, 130, 128, False)):
-        q, k, v, o, do = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal)
-        got = KERNELS["flash_attention_bwd"](q, k, v, o, do, causal=causal)
-        want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+                                     (1, 8, 8, 130, 128, False), (2, 14, 2, 130, 64, True)):
+        q, k, v, o, do, lse = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal)
         label = f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal={causal}"
-        e = [held("flash_attention_bwd", label, "bfloat16", g, w) for g, w in zip(got, want)]
-        print(f"[bwd] flash_attention_bwd {label}, model views: rel_err dq {e[0]}, dk {e[1]}, "
-              f"dv {e[2]} (tol {TOL['bfloat16']:g}) ok")
-    for R, C, dt in ((4096, 2048, bf), (65536, 128, bf), (4099, 896, bf), (1000, 2048, f32)):
+        want_lse = attention_lse_ref(q, k, causal=causal)
+        e_lse = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        require(e_lse < TOL["float32"], f"forward L {label}: error {e_lse:.3e}")
+        require(torch.equal(KERNELS["flash_attention_wgmma"](q, k, v, causal=causal), o),
+                f"forward {label}: the served forward (no L) differs from the one writing L")
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+        for name, run in (("flash_attention_bwd_wgmma",
+                           lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse,
+                                                                         causal=causal)),
+                          ("flash_attention_bwd",
+                           lambda: KERNELS["flash_attention_bwd"](q, k, v, o, do,
+                                                                   causal=causal))):
+            got = run()
+            e = [held(name, label, "bfloat16", g, w) for g, w in zip(got, want)]
+            again = run()
+            require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                    f"{name} {label}: dq, dk or dv differ from run to run")
+            print(f"[bwd] {name} {label}, model views: rel_err dq {e[0]}, dk {e[1]}, "
+                  f"dv {e[2]} (tol {TOL['bfloat16']:g}), the same bits in a second run ok")
+        print(f"[bwd] flash forward {label}: L within {e_lse:.3e} of the plain one (fp32 "
+              f"{TOL['float32']:g}, relative to max(|L|, 1)); the served forward without L "
+              "gives the same output bits ok")
+    for R, C, dt in ((4096, 2048, bf), (65536, 128, bf), (32768, 128, bf), (4099, 896, bf),
+                     (1000, 2048, f32)):
         x, g, dy = rnd((R, C), dt) * 3, rnd((C,), f32), rnd((R, C), dt)
         dx, dg = KERNELS["rmsnorm_bwd"](x, g, dy)
         wdx, wdg = rmsnorm_bwd_ref(x, g, dy)
@@ -2667,32 +2710,104 @@ def phase_bwd(torch):
         out = fn(*leaves)
         return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
-    B, Hq, Hkv, S, D = 8, 16, 8, 512, 128
-    q, k, v, o, do = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, True)
-    pairs = S * (S + 1) // 2      # the live (query, key) pairs of a causal head
-    add("flash_attention_bwd", f"qwen3-1.7b q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal, "
-        "the model's (B, S, H, D) views",
-        lambda: KERNELS["flash_attention_bwd"](q, k, v, o, do, causal=True),
-        lambda: attention_bwd_ref(q, k, v, o, do, causal=True),
-        grad_of(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
-                                                               enable_gqa=True),
-                (q, k, v), do),
-        2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D), 5 * 2 * B * Hq * pairs * D,
-        BF16_TENSOR_FLOPS)
-    R, C = TRAIN_BATCH * TRAIN_SEQ, 2048
-    x, g, dy = rnd((R, C), bf), rnd((C,), f32), rnd((R, C), bf)
-    add("rmsnorm_bwd", f"x({R},{C}) bf16", lambda: KERNELS["rmsnorm_bwd"](x, g, dy),
-        lambda: rmsnorm_bwd_ref(x, g, dy),
-        grad_of(lambda a, w: F.rms_norm(a, (C,), w, 1e-6), (x, g.to(bf)), dy),
-        3 * R * C * 2 + 2 * C * 4, 11 * R * C, FP32_FLOPS)
-    for R, C in ((TRAIN_BATCH * TRAIN_SEQ * 16, 128),):   # qk-norm over qwen3's 16 heads
+    from repro_torch.kernels.flash_attention.kernel import attention_cuda
+    for arch, (B, Hq, Hkv, S, D) in (("qwen3-1.7b", (8, 16, 8, 512, 128)),
+                                     ("qwen2-0.5b", (8, 14, 2, 512, 64))):
+        q, k, v, o, do, lse = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, True)
+        pairs = S * (S + 1) // 2      # the live (query, key) pairs of a causal head
+        # q, k, v, o, dO and L read once, dq, dk, dv written once; the five
+        # products of the causal half
+        nbytes = 2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
+        flops = 5 * 2 * B * Hq * pairs * D
+        label = (f"{arch} q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) causal, the model's "
+                 "(B, S, H, D) views")
+        library = grad_of(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), (q, k, v), do)
+        if arch == "qwen3-1.7b":   # the mma.sync kernel reads no L
+            for name, kern, n in (
+                    ("flash_attention_bwd_wgmma",
+                     lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse), nbytes),
+                    ("flash_attention_bwd", lambda: KERNELS["flash_attention_bwd"](q, k, v, o, do),
+                     nbytes - 4 * B * Hq * S)):
+                add(name, label, kern, lambda: attention_bwd_ref(q, k, v, o, do, causal=True),
+                    library, n, flops, BF16_TENSOR_FLOPS)
+        # the steps apart: the forward with and without L (serving must not
+        # pay), each launch of the wgmma backward alone, in turns
+        steps = {
+            "forward served (no L)": lambda: KERNELS["flash_attention_wgmma"](q, k, v),
+            "forward writing L": lambda: attention_cuda(q, k, v, with_lse=True),
+            "wgmma bwd dq launch (delta, (L, delta) scratch, dq)":
+                lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse, phases=1),
+            "wgmma bwd dk/dv launch":
+                lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse, phases=2),
+            "wgmma bwd, both launches":
+                lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse),
+            "mma.sync bwd (flash_attention_bwd.cu)":
+                lambda: KERNELS["flash_attention_bwd"](q, k, v, o, do),
+            "SDPA backward": library}
+        times = {name: [] for name in steps}
+        for turn in range(2):
+            for name in (steps if turn == 0 else reversed(list(steps))):
+                times[name].append(time_ms(torch, steps[name]))
+        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        print(f"[timing] flash steps {label}: " + ", ".join(
+            f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
+              + f" (two turns, the second in reverse order); bound {b_ms:.5f} ms ({b_by})")
+        whole = statistics.mean(times["wgmma bwd, both launches"])
+        if arch == "qwen3-1.7b":
+            rows["flash_attention_bwd_wgmma"]["steps_ms"] = {k: v for k, v in times.items()}
+        else:
+            for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd"):
+                key = ("wgmma bwd, both launches" if name == "flash_attention_bwd_wgmma"
+                       else "mma.sync bwd (flash_attention_bwd.cu)")
+                rows[name]["shapes"].append({
+                    "shape": label, "ms": statistics.mean(times[key]),
+                    "library_ms": statistics.mean(times["SDPA backward"]), "bound_ms": b_ms,
+                    "bound_by": b_by})
+        print(f"[timing] flash_attention_bwd_wgmma {label}: {whole:.5f} ms, "
+              f"{statistics.mean(times['SDPA backward']) / whole:.3f}x SDPA's backward speed, "
+              f"{b_ms / whole * 100:.1f}% of bound")
+    # RMSNorm: the model's norms (4096, 2048), the q-norm over qwen3's 16
+    # heads (65536, 128) and the k-norm over its 8 (32768, 128); beside the
+    # design it replaced and F.rms_norm's backward, and each design's row
+    # pass and column sum apart, in two turns (the second in reverse order)
+    from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_launches,
+                                                    rmsnorm_bwd_replaced_triton)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for R, C, what in ((tokens, 2048, "norms"), (tokens * 16, 128, "q-norm"),
+                       (tokens * 8, 128, "k-norm")):
         x, g, dy = rnd((R, C), bf), rnd((C,), f32), rnd((R, C), bf)
-        ms = time_ms(torch, lambda: KERNELS["rmsnorm_bwd"](x, g, dy))
-        b_ms, b_by = bound(3 * R * C * 2 + 2 * C * 4, 11 * R * C, FP32_FLOPS)
-        print(f"[timing] rmsnorm_bwd      x({R},{C}) bf16 (qk-norm): kernel {ms:.5f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}), {b_ms / ms * 100:.1f}% of bound")
-        rows["rmsnorm_bwd"]["shapes"].append({"shape": f"x({R},{C}) bf16", "ms": ms,
-                                              "bound_ms": b_ms, "bound_by": b_by})
+        nbytes, flops = 3 * R * C * 2 + 2 * C * 4, 11 * R * C
+        library = grad_of(lambda a, w: F.rms_norm(a, (C,), w, 1e-6), (x, g.to(bf)), dy)
+        label = f"x({R},{C}) bf16 ({what})"
+        if C == 2048:
+            add("rmsnorm_bwd", label, lambda: KERNELS["rmsnorm_bwd"](x, g, dy),
+                lambda: rmsnorm_bwd_ref(x, g, dy), library, nbytes, flops, FP32_FLOPS)
+        _, _, row_new, col_new = rmsnorm_bwd_launches(x, g, dy)
+        _, _, row_old, col_old = rmsnorm_bwd_launches(x, g, dy, replaced=True)
+        row_new(), row_old()     # each column sum reads what its row pass wrote
+        steps = {"kernel": lambda: KERNELS["rmsnorm_bwd"](x, g, dy), "row pass": row_new,
+                 "column sum": col_new,
+                 "replaced design": lambda: rmsnorm_bwd_replaced_triton(x, g, dy),
+                 "its row pass": row_old, "its column sum (with the zeroing of dg)": col_old,
+                 "F.rms_norm backward": library}
+        times = {name: [] for name in steps}
+        for turn in range(2):
+            for name in (steps if turn == 0 else reversed(list(steps))):
+                times[name].append(time_ms(torch, steps[name]))
+        ms = {name: statistics.mean(t) for name, t in times.items()}
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        print(f"[timing] rmsnorm_bwd steps {label}: " + ", ".join(
+            f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}): the kernel at "
+              f"{b_ms / ms['kernel'] * 100:.1f}% of it, the replaced design at "
+              f"{b_ms / ms['replaced design'] * 100:.1f}%")
+        if C == 2048:
+            rows["rmsnorm_bwd"]["steps_ms"] = times
+        else:
+            rows["rmsnorm_bwd"]["shapes"].append({
+                "shape": label, "ms": ms["kernel"], "replaced_ms": ms["replaced design"],
+                "library_ms": ms["F.rms_norm backward"], "bound_ms": b_ms, "bound_by": b_by})
     R, C = TRAIN_BATCH * TRAIN_SEQ, 6144
     g, u, dy = rnd((R, C), bf), rnd((R, C), bf), rnd((R, C), bf)
     add("silu_mul_bwd", f"g,u({R},{C}) bf16", lambda: KERNELS["silu_mul_bwd"](g, u, dy),
@@ -2753,16 +2868,18 @@ def phase_train_check(torch):
     torch.cuda.empty_cache()
 
 
-def profile_step(torch, step_fn, top=0):
+def profile_step(torch, step_fn, top=0, pick=None):
     """Device ms of one call of `step_fn` from a torch.profiler trace (the
     device-side events: kernels, copies, sets) and its result; prints the
-    `top` device events by time."""
+    `top` device events by time, and every event whose name holds `pick`."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = step_fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    shown = ranked[:top] + [e for e in ranked[top:] if top and pick and pick in e.key]
+    for e in shown:
         print(f"[profile]   train step {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
     return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events), out
@@ -2789,7 +2906,7 @@ def phase_train(torch):
     L = cfg.n_layers
     want = dict.fromkeys(K.KERNELS, 0)
     want.update({"flash_attention_wgmma": L, "rmsnorm": 4 * L + 1, "silu_mul": L,
-                 "flash_attention_bwd": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L})
+                 "flash_attention_bwd_wgmma": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L})
     runs = []
     for profiled in (False, True):
         state = init_state(cfg, opt, seed=0, device="cuda")
@@ -2803,7 +2920,8 @@ def phase_train(torch):
             t0 = time.perf_counter()
             if profiled:
                 dev_ms, n_events, (state, met) = profile_step(
-                    torch, lambda: step(state, batch), top=14 if s == TRAIN_STEPS - 1 else 0)
+                    torch, lambda: step(state, batch), top=14 if s == TRAIN_STEPS - 1 else 0,
+                    pick="bwd")
             else:
                 state, met = step(state, batch)
                 torch.cuda.synchronize()

@@ -5,8 +5,8 @@ its launch count), ``<name>/ref.py`` (the plain PyTorch version) and
 CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 """
 from .decode_attention.kernel import decode_attention_chunked_cuda, decode_attention_cuda
-from .flash_attention.kernel import (flash_attention_bwd_cuda, flash_attention_cuda,
-                                     flash_attention_wgmma_cuda)
+from .flash_attention.kernel import (flash_attention_bwd_cuda, flash_attention_bwd_wgmma_cuda,
+                                     flash_attention_cuda, flash_attention_wgmma_cuda)
 from .gelu.kernel import gelu_cuda, gelu_mul_cuda, silu_mul_bwd_triton, silu_mul_triton
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
@@ -38,6 +38,7 @@ KERNELS = {
     # the backward kernels of a train step (no TPU counterpart: JAX
     # differentiates its model in XLA)
     "flash_attention_bwd": flash_attention_bwd_cuda,
+    "flash_attention_bwd_wgmma": flash_attention_bwd_wgmma_cuda,
     "rmsnorm_bwd": rmsnorm_bwd_triton,
     "silu_mul_bwd": silu_mul_bwd_triton,
 }

@@ -14,6 +14,14 @@
 // fp32 softmax statistics, P rounded to bf16 for the second product; a row
 // whose keys are all masked gives 0.
 //
+// Row log-sum-exp. Given an fp32 (B, Hq, Sq) buffer `lse` (a train step's
+// forward: flash_attention_bwd_sm90.cu reads it), a work tile also writes
+// L_i = log(sum_j exp(s_j)), the natural log over the scaled (and capped)
+// logits of the live keys, from the row max and sum already in registers
+// (scale * max + log(sum)); +inf for a row with no live key, so that every
+// exp(s - L) of it is 0; nothing for a row past Sq. With a null `lse` (the
+// served forward) nothing is written.
+//
 // Structure. A work tile is 128 query rows of one (b, h) and the key tiles
 // they see. Blocks are persistent, one per SM, each taking work tiles until
 // none is left (see order below): one producer warpgroup, of which one
@@ -74,7 +82,7 @@
 
 #include <algorithm>
 
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -99,104 +107,6 @@ struct FlashCfg {
 struct Strides {
   long long b, h, s;
 };
-
-#define F8(i)                                                                               \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S (64 x 64 keys) (+)= Q K^T: A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// S (64 x 128 keys) (+)= Q K^T: A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O (64 x 128) += P V: P from registers, V MN-major in shared memory
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 256) += P V: P from registers, V MN-major in shared memory (four
-// 64-wide blocks of D, LBO bytes apart)
-__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56), F8(64), F8(72),
-        F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 64) += P V
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // One work tile: 128 query rows of one (b, h) and the key tiles they see.
 struct Work {
@@ -234,8 +144,9 @@ template <int D>
 __global__ void __launch_bounds__(FlashCfg<D>::THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-               int* __restrict__ counter, Strides os, int B, int Hq, int Sq, int Sk, int G,
-               int group, int causal, int window, float softcap, float scale) {
+               float* __restrict__ lse, int* __restrict__ counter, Strides os, int B, int Hq,
+               int Sq, int Sk, int G, int group, int causal, int window, float softcap,
+               float scale) {
   using F = FlashCfg<D>;
   constexpr int BM = F::BM, BN = F::BN, STAGES = F::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -429,6 +340,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       inv[h] = 1.f / fmaxf(l[h], 1e-30f);
     }
+    if (lse != nullptr && lane % 4 == 0) {
+      float* lrow = lse + (static_cast<long long>(t.b) * Hq + t.head) * Sq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_lo + 8 * h;
+        if (row < Sq)
+          lrow[row] = l[h] > 0.f ? scale * m[h] + logf(l[h]) : __int_as_float(0x7f800000);
+      }
+    }
     __nv_bfloat16* obase = o + t.b * os.b + t.head * os.h + col;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -443,27 +363,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   }
 }
 
-// (B, H, S, D) bf16 with element strides (sb, sh, ss) and a unit stride along
-// D, as a 4-D (D, S, H, B) map read in boxes of 64 of D by `rows` rows, the
-// 128-byte swizzle; false if refused
-bool make_map(CUtensorMap* map, const void* base, int D, long long S, long long H, long long B,
-              long long sb, long long sh, long long ss, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * 2), static_cast<cuuint64_t>(sh * 2),
-                                 static_cast<cuuint64_t>(sb * 2)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int* counter, int B, int Hq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int* counter,
+           int B, int Hq,
            int Hkv, int Sq, int Sk, const long long* st, int causal, int window, float softcap,
            float scale, cudaStream_t stream) {
   using F = FlashCfg<D>;
@@ -488,7 +390,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int* counter, i
   const int group = static_cast<int>(
       std::max(1ll, std::min(static_cast<long long>(B) * Hq, (4ll << 20) / kv_bytes)));
   kernel<<<static_cast<unsigned>(std::min<long long>(total, sms)), F::THREADS, F::SMEM,
-           stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), counter,
+           stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), lse, counter,
                      Strides{st[9], st[10], st[11]}, B, Hq, Sq, Sk, Hq / Hkv, group, causal,
                      window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
@@ -499,13 +401,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int* counter, i
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), o (B, Hq, Sq, D), bf16, each with
 // its own (batch, head, seq) element strides (TMA-describable: bases 16-byte
 // aligned, strides multiples of 8 elements) and a unit stride along D; Sq,
-// Sk > 0. counter: two ints, 0 before the launch and 0 again after it (the
-// kernel resets them), not shared with a launch that may run at the same
-// time. Returns -1 for a D not compiled (64, 128, 256), -2 if a TMA descriptor is
-// refused, else cudaGetLastError() after the launch.
+// Sk > 0. lse: null, or an fp32 (B, Hq, Sq) contiguous buffer for the rows'
+// log-sum-exp (see the note). counter: two ints, 0 before the launch and 0
+// again after it (the kernel resets them), not shared with a launch that may
+// run at the same time. Returns -1 for a D not compiled (64, 128, 256), -2 if
+// a TMA descriptor is refused, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int* counter, int B, int Hq, int Hkv, int Sq, int Sk,
-                                        int D,
+                                        void* lse, int* counter, int B, int Hq, int Hkv,
+                                        int Sq, int Sk, int D,
                                         long long qsb, long long qsh, long long qss,
                                         long long ksb, long long ksh, long long kss,
                                         long long vsb, long long vsh, long long vss,
@@ -513,14 +416,15 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int window, float softcap, float scale, void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
-    return launch<64>(q, k, v, o, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
+    return launch<64>(q, k, v, o, l, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
                       scale, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
+    return launch<128>(q, k, v, o, l, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
                        scale, s);
   if (D == 256)
-    return launch<256>(q, k, v, o, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
+    return launch<256>(q, k, v, o, l, counter, B, Hq, Hkv, Sq, Sk, st, causal, window, softcap,
                        scale, s);
   return -1;
 }

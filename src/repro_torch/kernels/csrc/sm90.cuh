@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (matmul_sm90.cu, flash_attention_sm90.cu): mbarriers, TMA loads, wgmma
-// shared-memory descriptors and fences, and the host-side encoding of TMA
-// descriptors through the driver entry point the runtime loaded.
+// (matmul_sm90.cu, flash_attention_sm90.cu, flash_attention_bwd_sm90.cu):
+// mbarriers, TMA and bulk loads, wgmma shared-memory descriptors and fences,
+// and the host-side encoding of TMA descriptors through the driver entry
+// point the runtime loaded.
 #pragma once
 
 #include <cuda.h>
@@ -59,6 +60,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte aligned
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
       "r"(smem_addr(bar))
       : "memory");
 }

@@ -182,15 +182,27 @@ layernorm_triton.compiled = None   # the last compiled kernel launched
 # in fp32 and rounded once to x's dtype; dg = sum over rows of dy xh, in fp32.
 #
 # Bound on an H100: bytes (x and dy read once, dx written once: 6 bytes an
-# element in bf16, a dozen fp32 operations). Design: the forward's row
-# blocks, but each program walks a run of row blocks and keeps its share
-# of dg in registers, so the column sum over all rows needs no atomics:
-# a program writes its partial dg row to a (programs, C) fp32 scratch, and
-# a second launch sums that scratch down its columns. The order of the sum
-# is fixed by the shape, so dg is the same from run to run. With at most
-# BWD_PROGRAMS_PER_SM programs an SM, the scratch is a few MB at most.
+# element in bf16, a dozen fp32 operations). The column sum over all rows
+# needs no atomics: each program of the row pass keeps its share of dg and
+# writes it as a partial row of a (programs, C) fp32 scratch, and a second
+# launch sums the scratch down its columns in an order fixed by the shape,
+# so dg is the same from run to run.
+#
+# Design, from the two launches timed apart (``chip_smoke.py``): the row
+# pass of the design it replaced (``rmsnorm_bwd_replaced_triton``: the
+# forward's row blocks, four programs an SM, a cross-warp sum of dg's
+# partial each block) ran at ~45% of the bound, and its column sum, one
+# program per 128 columns (one program at the qk-norm's C = 128), took
+# ~26 us alone. Here the row pass has one program an SM, blocks of twice
+# the forward's rows (BWD_ROW_FACTOR), loads the next block before it
+# computes the current one (the loads in flight during the arithmetic),
+# and accumulates dg elementwise, summing over the block's rows once at the
+# end; the column sum runs one program per COLSUM_C columns, 128 partial
+# rows a step, and writes every column of dg (no zeroing launch).
 
-BWD_PROGRAMS_PER_SM = 4
+BWD_PROGRAMS_PER_SM = 1
+BWD_ROW_FACTOR = 2       # rows of a block: the forward's ROWS times this
+COLSUM_C = 16            # columns of a column-sum program
 
 
 @functools.cache
@@ -203,6 +215,45 @@ def _bwd_kernels():
     @triton.jit(do_not_specialize=["R", "rows_per_prog"])
     def rmsnorm_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, dgp_ptr, R, C, rows_per_prog, stride_x,
                     stride_dy, stride_dx, eps, ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        acc = tl.zeros((ROWS, BLOCK_C), dtype=tl.float32)
+        lo = pid * rows_per_prog
+        hi = tl.minimum(lo + rows_per_prog, R)
+        rows = lo + tl.arange(0, ROWS)
+        mask = (rows[:, None] < hi) & cmask[None, :]
+        x_next = tl.load(x_ptr + rows[:, None].to(tl.int64) * stride_x + cols[None, :],
+                         mask=mask, other=0.0)
+        dy_next = tl.load(dy_ptr + rows[:, None].to(tl.int64) * stride_dy + cols[None, :],
+                          mask=mask, other=0.0)
+        for start in range(lo, hi, ROWS):
+            rows = start + tl.arange(0, ROWS)
+            mask = (rows[:, None] < hi) & cmask[None, :]
+            x = x_next.to(tl.float32)
+            dy = dy_next.to(tl.float32)
+            # the next block's loads, in flight while this block computes
+            nxt = rows + ROWS
+            nmask = (nxt[:, None] < hi) & cmask[None, :]
+            x_next = tl.load(x_ptr + nxt[:, None].to(tl.int64) * stride_x + cols[None, :],
+                             mask=nmask, other=0.0)
+            dy_next = tl.load(dy_ptr + nxt[:, None].to(tl.int64) * stride_dy + cols[None, :],
+                              mask=nmask, other=0.0)
+            rstd = 1.0 / tl.sqrt(tl.sum(x * x, axis=1) / C + eps)
+            xh = x * rstd[:, None]
+            w = dy * g[None, :]
+            c = tl.sum(w * xh, axis=1) / C
+            dx = (w - xh * c[:, None]) * rstd[:, None]
+            tl.store(dx_ptr + rows[:, None].to(tl.int64) * stride_dx + cols[None, :],
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            acc += dy * xh
+        tl.store(dgp_ptr + pid * C + cols, tl.sum(acc, axis=0), mask=cmask)
+
+    @triton.jit(do_not_specialize=["R", "rows_per_prog"])
+    def rmsnorm_bwd_replaced(x_ptr, g_ptr, dy_ptr, dx_ptr, dgp_ptr, R, C, rows_per_prog,
+                             stride_x, stride_dy, stride_dx, eps, ROWS: tl.constexpr,
+                             BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK_C)
         cmask = cols < C
@@ -238,7 +289,7 @@ def _bwd_kernels():
                           axis=0)
         tl.store(o_ptr + cols, acc.to(o_ptr.dtype.element_ty), mask=cols < C)
 
-    return triton, rmsnorm_bwd, column_sum
+    return triton, rmsnorm_bwd, column_sum, rmsnorm_bwd_replaced
 
 
 @functools.cache
@@ -246,44 +297,85 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bwd_programs(R: int, C: int, sms: int):
-    """(programs, rows a program walks) of the backward at R rows of C: at
-    most BWD_PROGRAMS_PER_SM programs an SM, each a whole number of the
-    forward's row blocks."""
-    rows = launch_params(C)["ROWS"]
+def bwd_programs(R: int, C: int, sms: int, per_sm: int = BWD_PROGRAMS_PER_SM,
+                 row_factor: int = BWD_ROW_FACTOR):
+    """(programs, rows a program walks, rows a block) of the row pass at R
+    rows of C: at most `per_sm` programs an SM, each a whole number of
+    blocks of `row_factor` times the forward's rows."""
+    rows = launch_params(C)["ROWS"] * row_factor
     blocks = -(-R // rows)
-    per = -(-blocks // min(blocks, BWD_PROGRAMS_PER_SM * sms)) * rows
-    return -(-R // per), per
+    per = -(-blocks // min(blocks, per_sm * sms)) * rows
+    return -(-R // per), per, rows
+
+
+def _check_bwd(x, g, dy):
+    _check_rows("rmsnorm_bwd", x, g)
+    _check_rows("rmsnorm_bwd", dy, g)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd takes dy of x's shape and dtype, got "
+                         f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} {x.dtype}")
+
+
+def rmsnorm_bwd_launches(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                         eps: float = 1e-6, replaced: bool = False):
+    """(dx, dg, row pass, column sum): the outputs and the two launches that
+    fill them, as functions of no argument, not yet run (the wrapper runs
+    both; ``chip_smoke.py`` also times them apart). `replaced` gives the
+    launches of the design ``rmsnorm_bwd_triton`` replaced."""
+    _check_bwd(x, g, dy)
+    g = g.contiguous()
+    R, C = x.shape
+    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
+    dg = torch.empty((C,), dtype=g.dtype, device=g.device)
+    triton, kern, colsum, old = _bwd_kernels()
+    sms = _sm_count(x.device.index or 0)
+    p = launch_params(C)
+    if replaced:
+        n_prog, per, rows = bwd_programs(R, C, sms, per_sm=4, row_factor=1)
+        p_col = {"BLOCK_N": 32, "BLOCK_C": 128, "num_warps": 4}
+        kern, p_row = old, p
+    else:
+        n_prog, per, rows = bwd_programs(R, C, sms)
+        p_col = {"BLOCK_N": 128, "BLOCK_C": COLSUM_C, "num_warps": 8}
+        p_row = {"ROWS": rows, "BLOCK_C": p["BLOCK_C"], "num_warps": 8}
+    partial = torch.empty((n_prog, C), dtype=torch.float32, device=x.device)
+
+    def row_pass():
+        return kern[(n_prog,)](x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0),
+                               dx.stride(0), eps, **p_row)
+
+    def column_sum():
+        if replaced:
+            dg.zero_()
+        colsum[(triton.cdiv(C, p_col["BLOCK_C"]),)](partial, dg, n_prog, C, **p_col)
+    return dx, dg, row_pass, column_sum
 
 
 def rmsnorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
                        eps: float = 1e-6):
     """(dx, dg) of RMSNorm for the output gradient dy: x, dy (R, C) CUDA
     tensors of one dtype (bf16 or fp32), unit stride along C; g: (C,). dx
-    in x's dtype, dg in g's. One launch of the row kernel and one of the
+    in x's dtype, dg in g's. One launch of the row pass and one of the
     column sum; counts one launch."""
-    _check_rows("rmsnorm_bwd", x, g)
-    _check_rows("rmsnorm_bwd", dy, g)
-    if dy.shape != x.shape or dy.dtype != x.dtype:
-        raise ValueError(f"rmsnorm_bwd takes dy of x's shape and dtype, got "
-                         f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} {x.dtype}")
-    g = g.contiguous()
-    R, C = x.shape
-    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
-    dg = torch.zeros((C,), dtype=g.dtype, device=g.device)
-    if R == 0:
-        return dx, dg
-    triton, kern, colsum = _bwd_kernels()
-    p = launch_params(C)
-    n_prog, per = bwd_programs(R, C, _sm_count(x.device.index or 0))
-    partial = torch.empty((n_prog, C), dtype=torch.float32, device=x.device)
-    rmsnorm_bwd_triton.compiled = kern[(n_prog,)](
-        x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps, **p)
-    colsum[(triton.cdiv(C, 128),)](partial, dg, n_prog, C, BLOCK_N=32, BLOCK_C=128,
-                                   num_warps=4)
+    _check_bwd(x, g, dy)
+    if x.shape[0] == 0:
+        return torch.empty_like(x), torch.zeros_like(g)
+    dx, dg, row_pass, column_sum = rmsnorm_bwd_launches(x, g, dy, eps)
+    rmsnorm_bwd_triton.compiled = row_pass()
+    column_sum()
     rmsnorm_bwd_triton.launches += 1
     return dx, dg
 
 
 rmsnorm_bwd_triton.launches = 0
 rmsnorm_bwd_triton.compiled = None   # the last compiled row kernel launched
+
+
+def rmsnorm_bwd_replaced_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                                eps: float = 1e-6):
+    """``rmsnorm_bwd_triton``'s arguments and outputs, on the design it
+    replaced (its note), kept to be timed beside it; counts no launch."""
+    dx, dg, row_pass, column_sum = rmsnorm_bwd_launches(x, g, dy, eps, replaced=True)
+    row_pass()
+    column_sum()
+    return dx, dg

@@ -26,7 +26,8 @@ import repro_torch.kernels as TK
 from repro_torch import models
 from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_bwd_ref, silu_mul_ref
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
@@ -37,7 +38,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.kernel import (chunk_keys, chunked_eligible,
                                                          picks_chunked)
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.kernel import bwd_wgmma_eligible, wgmma_eligible
 from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, MMA_SYNC_TILES,
                                                SIMT_TILES, TILES, split_plan, tma_eligible)
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
@@ -111,7 +113,8 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
-    "rglru", "rglru_chunked", "flash_attention_bwd", "rmsnorm_bwd", "silu_mul_bwd"}))
+    "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
+    "rmsnorm_bwd", "silu_mul_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -429,7 +432,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
-                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -439,7 +443,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
-                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -460,7 +465,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
-                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -470,7 +476,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
-                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -1443,19 +1450,106 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda, case):
         assert rel_err(g, w) < TOL["bfloat16"]
 
 
+# the wgmma backward: FLASH_BWD_CASES and lengths that cut its 128-row
+# query tile (333, 130)
+FLASH_BWD_WGMMA_CASES = FLASH_BWD_CASES + [(2, 16, 8, 333, 128, True, "bshd"),
+                                           (2, 14, 2, 130, 64, True, "bshd"),
+                                           (1, 8, 8, 130, 128, False, "bhsd")]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_WGMMA_CASES, ids=str)
+def test_flash_attention_bwd_wgmma_matches_plain_on_card(cuda, case):
+    """The TMA + wgmma backward, given the forward's log-sum-exp, against
+    the plain version; dq, dk, dv keep q's and k's layouts and are the same
+    bits in a second run (no atomics); one launch counted, none on the
+    mma.sync backward."""
+    B, Hq, Hkv, S, D, causal, layout = case
+    q = attention_operands(50, B, Hq, S, D, layout, cuda)
+    k = attention_operands(51, B, Hkv, S, D, layout, cuda)
+    v = attention_operands(52, B, Hkv, S, D, layout, cuda)
+    do = attention_operands(53, B, Hq, S, D, layout, cuda)
+    assert bwd_wgmma_eligible(q, k, v, q, do)
+    o, lse = flash_kernel.attention_cuda(q, k, v, causal=causal, with_lse=True)
+    fn = TK.KERNELS["flash_attention_bwd_wgmma"]
+    before, old = fn.launches, TK.KERNELS["flash_attention_bwd"].launches
+    got = flash_kernel.attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and TK.KERNELS["flash_attention_bwd"].launches == old
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype and g.stride() == t.stride()
+        assert rel_err(g, w) < TOL["bfloat16"]
+    again = fn(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_flash_attention_bwd_old_route_for_strides_tma_cannot_take_on_card(cuda):
+    """Operands whose sequence stride TMA cannot describe (132 elements a
+    row of D = 128), even given a log-sum-exp, and operands TMA can take
+    but no log-sum-exp, go to the mma.sync backward, which stays right."""
+    def heads(i):
+        return 16 if i in (0, 3) else 8
+    wide = [normal(60 + i, (2, heads(i), 100, 132), cuda, torch.bfloat16)[..., :128]
+            for i in range(4)]
+    view = [attention_operands(64 + i, 2, heads(i), 100, 128, "bshd", cuda) for i in range(4)]
+    assert not wgmma_eligible(*wide[:3]) and bwd_wgmma_eligible(*view[:3], view[0], view[3])
+    for (q, k, v, do), lse in ((wide, torch.zeros(2, 16, 100, device=cuda)), (view, None)):
+        o = flash_ops.flash_attention(q, k, v, causal=True)
+        new = TK.KERNELS["flash_attention_bwd_wgmma"].launches
+        old = TK.KERNELS["flash_attention_bwd"].launches
+        got = flash_kernel.attention_bwd_cuda(q, k, v, o, do, lse, causal=True)
+        torch.cuda.synchronize()
+        assert TK.KERNELS["flash_attention_bwd"].launches == old + 1
+        assert TK.KERNELS["flash_attention_bwd_wgmma"].launches == new
+        for g, w, t in zip(got, attention_bwd_ref(q, k, v, o, do, causal=True), (q, k, v)):
+            assert g.shape == t.shape and rel_err(g, w) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("case", [(2, 16, 8, 128, 128, True, "bshd"),
+                                  (2, 14, 2, 100, 64, True, "bshd"),
+                                  (1, 4, 4, 77, 64, False, "bhsd"),
+                                  (2, 10, 1, 130, 256, True, "bshd")], ids=str)
+def test_flash_forward_lse_matches_plain_on_card(cuda, case):
+    """The wgmma forward's log-sum-exp against ``attention_lse_ref`` at fp32
+    2e-5 relative (to max(|L|, 1)); the served forward, which writes none,
+    gives the same output bits as the forward that writes it."""
+    B, Hq, Hkv, S, D, causal, layout = case
+    q = attention_operands(70, B, Hq, S, D, layout, cuda)
+    k = attention_operands(71, B, Hkv, S, D, layout, cuda)
+    v = attention_operands(72, B, Hkv, S, D, layout, cuda)
+    lse = torch.full((B, Hq, S), float("nan"), device=cuda)
+    fwd = TK.KERNELS["flash_attention_wgmma"]
+    o = fwd(q, k, v, causal=causal, lse=lse)
+    served = fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_lse_ref(q, k, causal=causal)
+    assert ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item() < TOL["float32"]
+    assert torch.equal(o, served)
+
+
 def test_flash_attention_bwd_refuses_what_it_does_not_take_on_card(cuda):
     q = normal(54, (1, 2, 16, 64), cuda, torch.bfloat16)
+    lse = torch.zeros(1, 2, 16, device=cuda)
     fn = TK.KERNELS["flash_attention_bwd"]
+    new = TK.KERNELS["flash_attention_bwd_wgmma"]
     for kw in ({"window": 8}, {"softcap": 30.0}):
         with pytest.raises(ValueError, match="window or softcap"):
             fn(q, q, q, q, q, **kw)
+        with pytest.raises(ValueError, match="window or softcap"):
+            new(q, q, q, q, q, lse, **kw)
     for t in (normal(55, (1, 2, 16, 256), cuda, torch.bfloat16), q.float()):
         with pytest.raises(ValueError):
             fn(t, t, t, t, t)
+        with pytest.raises(ValueError):
+            new(t, t, t, t, t, torch.zeros(t.shape[:3], device=cuda))
+    wide = normal(56, (1, 2, 16, 68), cuda, torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        new(wide, wide, wide, wide, wide, lse)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("r,c", [(300, 2048), (1000, 128), (7, 1024), (4099, 896)])
+@pytest.mark.parametrize("r,c", [(300, 2048), (1000, 128), (7, 1024), (4099, 896),
+                                 (65536, 128), (32768, 128)])
 def test_rmsnorm_bwd_matches_plain_on_card(cuda, r, c, dtype):
     x = normal(56, (r, c), cuda, DTYPES[dtype]) * 3
     g = normal(57, (c,), cuda, torch.float32)
@@ -1530,8 +1624,10 @@ def test_train_step_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     L = cfg.n_layers
     counts = TK.launches()
-    assert {k: counts[k] for k in ("flash_attention_bwd", "rmsnorm_bwd", "silu_mul_bwd")} == \
-        {"flash_attention_bwd": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L}
+    assert {k: counts[k] for k in ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                                   "rmsnorm_bwd", "silu_mul_bwd")} == \
+        {"flash_attention_bwd": 0, "flash_attention_bwd_wgmma": L, "rmsnorm_bwd": 4 * L + 1,
+         "silu_mul_bwd": L}
     assert counts["flash_attention_wgmma"] == L and counts["rmsnorm"] == 4 * L + 1
     assert torch.isfinite(met["loss"]) and int(state.opt.step) == 1
 
@@ -1550,8 +1646,8 @@ def test_serving_with_grad_enabled_builds_no_graph_on_card(cuda):
         torch.cuda.synchronize()
         assert all(o.grad_fn is None for o in out)
         counts = TK.launches()
-        assert counts["flash_attention_bwd"] == counts["rmsnorm_bwd"] == \
-            counts["silu_mul_bwd"] == 0
+        assert counts["flash_attention_bwd"] == counts["flash_attention_bwd_wgmma"] == \
+            counts["rmsnorm_bwd"] == counts["silu_mul_bwd"] == 0
         assert counts["rmsnorm"] > 0 and counts["silu_mul"] > 0
         model.requires_grad_(True)
         with torch.no_grad():

@@ -25,7 +25,7 @@ from repro_torch.kernels.decode_attention import kernel as t_decode_kernel
 from repro_torch.kernels.decode_attention import ops as t_decode
 from repro_torch.kernels.flash_attention import kernel as t_flash_kernel
 from repro_torch.kernels.flash_attention import ops as t_flash
-from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
+from repro_torch.kernels.flash_attention.kernel import bwd_wgmma_eligible, wgmma_eligible
 from repro_torch.kernels.gelu import ops as t_gelu
 from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
 from repro_torch.kernels.rglru import ops as t_rglru
@@ -235,6 +235,105 @@ def test_flash_dispatch_picks_the_path_before_the_launch(monkeypatch):
     assert calls == [("flash_attention_wgmma_cuda", 128, dict(kw, scale=1.0 / math.sqrt(128)))]
     with pytest.raises(ValueError, match="up to 256"):
         t_flash_kernel.attention_cuda(*(torch.zeros(1, 1, 4, 320, dtype=bf),) * 3)
+
+
+@pytest.mark.parametrize("R,C", [(4096, 2048), (65536, 128), (32768, 128), (4099, 896),
+                                 (7, 1024), (1, 128)])
+def test_rmsnorm_bwd_programs_cover_every_row_once(R, C):
+    """The RMSNorm backward's row pass split (``bwd_programs``, 132 SMs): at
+    most one program an SM, each a whole number of blocks of twice the
+    forward's rows, their runs covering the R rows exactly once; the same
+    for the replaced design's split (four an SM, the forward's rows)."""
+    from repro_torch.kernels.rmsnorm.kernel import bwd_programs, launch_params
+    for per_sm, factor in ((1, 2), (4, 1)):
+        n, per, rows = bwd_programs(R, C, 132, per_sm=per_sm, row_factor=factor)
+        assert rows == launch_params(C)["ROWS"] * factor and per % rows == 0
+        assert n <= per_sm * 132 and (n - 1) * per < R <= n * per
+
+
+@pytest.mark.parametrize("tiles,G,want", [(256, 2, 1), (64, 7, 2), (4, 7, 7), (26, 7, 4),
+                                          (16, 2, 2), (512, 1, 1), (200, 7, 1)])
+def test_bwd_head_splits(tiles, G, want):
+    """The wgmma backward's dk/dv tiles split their G query heads only where
+    the tiles leave SMs idle (qwen3-1.7b at 8 x 512: 256 tiles, none;
+    qwen2-0.5b: 64 tiles of G = 7, two), in groups of whole heads with none
+    empty (G = 7 over at most 5 blocks: 4 of 2, 2, 2, 1 heads); 132 SMs."""
+    splits = t_flash_kernel.bwd_head_splits(tiles, G, 132)
+    per = -(-G // splits)
+    assert splits == want and (splits - 1) * per < G <= splits * per
+
+
+def test_bwd_wgmma_eligible_takes_what_tma_describes():
+    """``bwd_wgmma_eligible``: the model's views at D = 64 and 128 (the
+    trained heads) with o and do alike go to the wgmma backward; D = 256
+    (no backward), fp32, and an o or do whose sequence stride or base TMA
+    cannot take do not."""
+    bf = torch.bfloat16
+    for hq, hkv, d in ((16, 8, 128), (14, 2, 64), (4, 4, 64)):
+        q = torch.zeros(2, 40, hq, d, dtype=bf).transpose(1, 2)
+        k = torch.zeros(2, 40, hkv, d, dtype=bf).transpose(1, 2)
+        assert bwd_wgmma_eligible(q, k, k, q, q)
+        assert bwd_wgmma_eligible(q, k, k, q.contiguous(), q.contiguous())
+        assert not bwd_wgmma_eligible(q.float(), k.float(), k.float(), q.float(), q.float())
+    x = torch.zeros(2, 4, 40, 256, dtype=bf)
+    assert wgmma_eligible(x, x, x) and not bwd_wgmma_eligible(x, x, x, x, x)
+    x = torch.zeros(2, 4, 40, 64, dtype=bf)
+    wide = torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64]          # sequence stride 68
+    off = torch.zeros(x.numel() + 8, dtype=bf)[1:1 + x.numel()].view(x.shape)   # 2 bytes past
+    assert not bwd_wgmma_eligible(x, x, x, wide, x) and not bwd_wgmma_eligible(x, x, x, x, wide)
+    assert not bwd_wgmma_eligible(x, x, x, off, x)
+
+
+def test_flash_bwd_dispatch_picks_the_path_before_the_launch(monkeypatch):
+    """``attention_bwd_cuda`` sends a call with the forward's log-sum-exp
+    and tensors ``bwd_wgmma_eligible`` accepts to the wgmma backward and
+    every other to the mma.sync one, never both (CPU tensors, the wrappers
+    replaced by recorders). Through the op: a forward that needs a
+    gradient asks ``attention_cuda`` for L and its backward hands L on; a
+    forward that needs none (serving) asks for no L."""
+    calls = []
+
+    def recorder(name):
+        def record(q, k, v, o, do, *rest, **kw):
+            calls.append((name, len(rest), kw))
+            return q, k, v
+        return record
+    monkeypatch.setattr(t_flash_kernel, "flash_attention_bwd_wgmma_cuda",
+                        recorder("flash_attention_bwd_wgmma_cuda"))
+    monkeypatch.setattr(t_flash_kernel, "flash_attention_bwd_cuda",
+                        recorder("flash_attention_bwd_cuda"))
+    bf = torch.bfloat16
+    view = torch.zeros(2, 40, 4, 128, dtype=bf).transpose(1, 2)
+    wide = torch.zeros(2, 4, 40, 132, dtype=bf)[..., :128]
+    lse = torch.zeros(2, 4, 40)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    for args, path in (((view,) * 5 + (lse,), "flash_attention_bwd_wgmma_cuda"),
+                       ((view,) * 5 + (None,), "flash_attention_bwd_cuda"),
+                       ((view,) * 3 + (wide, view, lse), "flash_attention_bwd_cuda"),
+                       ((wide,) * 5 + (lse,), "flash_attention_bwd_cuda")):
+        calls.clear()
+        t_flash_kernel.attention_bwd_cuda(*args, **kw)
+        assert calls == [(path, int(path.endswith("wgmma_cuda")), kw)]
+
+    fwd = []
+
+    def attention(q, k, v, **kw):
+        fwd.append(kw)
+        o = q.detach().clone()
+        return (o, lse) if kw.get("with_lse") else o
+    monkeypatch.setattr(t_flash, "attention_cuda", attention)
+    monkeypatch.setattr(t_flash, "runs_plain", lambda t: False)
+    monkeypatch.setattr(t_flash, "attention_bwd_cuda", lambda *a, **kw: calls.append(
+        ("bwd", a[5] is lse, kw)) or a[:3])
+    calls.clear()
+    q = view.detach().requires_grad_(True)
+    t_flash.flash_attention(q, view, view, causal=True).sum().backward()
+    assert fwd == [dict(kw, with_lse=True)] and calls == [("bwd", True, kw)]
+    fwd.clear()
+    with torch.no_grad():
+        t_flash.flash_attention(q, view, view, causal=True)
+    t_flash.flash_attention(view, view, view, causal=True)
+    assert fwd == [kw, kw]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -1003,6 +1102,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "matmul_int8_wgmma": (x[0, 0].to(torch.int8), x[0, 0].t().to(torch.int8),
                                   torch.ones(4, 1), torch.ones(1, 4)),
             "flash_attention_bwd": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 5,
+            "flash_attention_bwd_wgmma": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 5
+            + (torch.zeros(2, 4, 8),),
             "rmsnorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
             "silu_mul_bwd": (x, x, x)}[name]
     with pytest.raises(ValueError, match="CUDA"):

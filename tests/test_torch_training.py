@@ -29,7 +29,8 @@ from repro import training as jt
 from repro_torch import models
 from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.data import DataConfig, TokenPipeline
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.gelu.ref import silu_mul_bwd_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 from repro_torch.launch import train as train_launcher
@@ -299,11 +300,12 @@ def both(seed, shape, dtype, scale=1.0):
     return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("hq,hkv,s,d,causal,window,cap", [
+ATTENTION_BWD_CASES = [
     (4, 4, 40, 32, True, 0, 0.0), (4, 2, 33, 64, True, 0, 0.0), (6, 2, 20, 64, False, 0, 0.0),
-    (4, 1, 48, 32, True, 8, 0.0), (2, 2, 24, 32, True, 0, 5.0)])
-def test_attention_bwd_plain_matches_jax_vjp(hq, hkv, s, d, causal, window, cap, dtype):
+    (4, 1, 48, 32, True, 8, 0.0), (2, 2, 24, 32, True, 0, 5.0)]
+
+
+def check_attention_bwd_against_jax_vjp(hq, hkv, s, d, causal, window, cap, dtype, given_lse):
     jq, q = both(0, (2, hq, s, d), dtype)
     jk, k = both(1, (2, hkv, s, d), dtype)
     jv, v = both(2, (2, hkv, s, d), dtype)
@@ -311,10 +313,75 @@ def test_attention_bwd_plain_matches_jax_vjp(hq, hkv, s, d, causal, window, cap,
     kw = dict(causal=causal, window=window, softcap=cap)
     _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, **kw), jq, jk, jv)
     want = vjp(jdo)
-    got = attention_bwd_ref(q, k, v, attention_ref(q, k, v, **kw), do, **kw)
+    lse = attention_lse_ref(q, k, **kw) if given_lse else None
+    got = attention_bwd_ref(q, k, v, attention_ref(q, k, v, **kw), do, lse, **kw)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
         assert rel_max(t2np(g), jnp2np(w)) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,s,d,causal,window,cap", ATTENTION_BWD_CASES)
+def test_attention_bwd_plain_matches_jax_vjp(hq, hkv, s, d, causal, window, cap, dtype):
+    check_attention_bwd_against_jax_vjp(hq, hkv, s, d, causal, window, cap, dtype, False)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,s,d,causal,window,cap", ATTENTION_BWD_CASES)
+def test_attention_bwd_plain_given_lse_matches_jax_vjp(hq, hkv, s, d, causal, window, cap,
+                                                        dtype):
+    """The plain backward given the rows' log-sum-exp (P = exp(s - L), as
+    the wgmma backward kernel takes it from the forward) at the same cases
+    and tolerances as without it."""
+    check_attention_bwd_against_jax_vjp(hq, hkv, s, d, causal, window, cap, dtype, True)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,window,cap", [
+    (4, 2, 40, 40, True, 0, 0.0), (4, 2, 40, 40, False, 0, 0.0), (6, 2, 33, 33, True, 0, 0.0),
+    (4, 4, 20, 45, False, 0, 0.0), (4, 1, 48, 48, True, 8, 0.0), (2, 2, 24, 24, True, 0, 5.0)])
+def test_attention_lse_ref_matches_jax_logsumexp(hq, hkv, sq, sk, causal, window, cap, dtype):
+    """``attention_lse_ref`` (the rows' log-sum-exp the wgmma forward writes:
+    natural log over the scaled, capped, masked logits) against
+    ``jax.nn.logsumexp`` of the JAX reference's logits, causal, full, at a
+    ragged length (33, no multiple of a tile), more keys than queries, a
+    window and a softcap; to 2e-5 relative in fp32 (both from the same
+    rounded inputs)."""
+    jq, q = both(7, (2, hq, sq, 32), dtype)
+    jk, k = both(8, (2, hkv, sk, 32), dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    qg = jnp.asarray(jq, jnp.float32).reshape(2, hkv, hq // hkv, sq, 32)
+    s = jnp.einsum("bhgqd,bhkd->bhgqk", qg, jnp.asarray(jk, jnp.float32)) / np.sqrt(32)
+    if cap > 0:
+        s = cap * jnp.tanh(s / cap)
+    qp, kp = jnp.arange(sq)[:, None], jnp.arange(sk)[None, :]
+    mask = jnp.ones((sq, sk), bool)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= kp > qp - window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)).reshape(2, hq, sq)
+    got = attention_lse_ref(q, k, **kw)
+    assert got.dtype == torch.float32 and got.shape == (2, hq, sq)
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_attention_lse_ref_is_inf_on_a_row_with_no_live_key():
+    """Rows with no live key (causal, window 1, fewer keys than queries:
+    rows 4 and 5 would see only keys 4 and 5, which do not exist) get +inf,
+    the others their one logit; the plain backward given them adds nothing
+    from those rows."""
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(1, 2, 6, 32, generator=g), torch.randn(1, 2, 6, 32, generator=g)
+    k, v = torch.randn(1, 2, 4, 32, generator=g), torch.randn(1, 2, 4, 32, generator=g)
+    kw = dict(causal=True, window=1)
+    lse = attention_lse_ref(q, k, **kw)
+    assert (lse[..., 4:] == float("inf")).all()
+    torch.testing.assert_close(lse[..., :4], (q[..., :4, :] * k).sum(-1) / np.sqrt(32))
+    dq, dk, dv = attention_bwd_ref(q, k, v, attention_ref(q, k, v, **kw), do, lse, **kw)
+    assert torch.isfinite(dq).all() and torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    assert not dq[..., 4:, :].any()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
