@@ -8,7 +8,7 @@ result line):
                csrc`` (all sources at once, the backward's
                flash_attention_bwd_sm90.cu and flash_attention_bwd.cu among
                them) and Triton compiles its kernels (the norms, silu_mul,
-               and the RMSNorm and SwiGLU backward ones) and the GELU
+               and the RMSNorm, LayerNorm and SwiGLU backward ones) and the GELU
                kernel gelu.cu replaced, which is timed beside it
                (registers and spills read from the compiled kernels);
   2. kernels - each hand-written kernel against its plain PyTorch version on
@@ -228,8 +228,10 @@ result line):
                execution; a failure of the model fails the run;
   8. bwd     - the backward kernels of a train step (``BACKWARD``: flash
                attention on CUDA, the TMA + wgmma kernel given the forward's
-               log-sum-exp and the mma.sync one; RMSNorm and the SwiGLU gate
-               on Triton; no TPU counterpart, JAX differentiates in XLA),
+               log-sum-exp and the mma.sync one; RMSNorm, LayerNorm and the
+               SwiGLU gate on Triton; GELU and the gated GELU on CUDA, the
+               backward modes of gelu.cu; no TPU counterpart, JAX
+               differentiates in XLA),
                each against its plain version on the card: flash at
                qwen3-1.7b's (8, 16, 512, 128) / (8, 8, 512, 128) causal and
                qwen2-0.5b's 14:2 heads at D = 64, lengths that cut a 64- and
@@ -239,40 +241,57 @@ result line):
                (no log-sum-exp) bit for bit the same; RMSNorm at (4096,
                2048), the q- and k-norm's (65536, 128) and (32768, 128), an
                odd shape and fp32 (dx within one bf16 rounding per element,
-               dg to 2e-5 and the same in a second run); SwiGLU at (4096,
-               6144), an odd shape and fp32; then each timed at the training
-               shape beside its plain version, its bound and the backward
-               half of one PyTorch call through torch.autograd.grad (SDPA,
-               F.rms_norm, F.silu(g) * u): both flash kernels, and the
-               forward with and without the log-sum-exp, each launch of the
-               wgmma backward and SDPA's backward in two turns at qwen3's
-               and qwen2's shapes; the RMSNorm backward beside the design it
-               replaced, each design's row pass and column sum apart, at the
-               three norm shapes;
-  9. train   - qwen3-1.7b at full width cut to 2 layers, batch 2 x 128: the
-               loss and every parameter's gradient of one step on the card
-               against the CPU plain path in bf16 and an fp32 CPU run, each
-               leaf no further from fp32 than 1.5 times the bf16 CPU path,
-               the loss within 2e-2; then qwen3-1.7b at full size, 8 steps
-               of AdamW on one repeated batch of 8 x 512 tokens from
-               TokenPipeline: the loss falls at every step and by 0.5 in
-               all, per step wall ms, tokens/s and model-FLOPs share, the
-               peak memory, and exactly 28 flash backward launches a step on
-               the wgmma kernel (flash_attention_bwd_wgmma; 0 on the
-               mma.sync one), 113 RMSNorm backward and 28 SwiGLU backward
-               (and 28, 113, 28 of their forwards); the run again from the
-               same seed under torch.profiler for each step's device ms and
-               its largest device events, every backward kernel's among
-               them;
- 10. ckpt    - the m100 preset of qwen3-1.7b: 6 steps straight, and 3 steps,
-               an async save of step 2, a restore into a fresh model and
-               optimizer (bit for bit) and the steps after it, whose losses
-               equal the straight run's (bit for bit where the step is
-               deterministic, else within 1e-4 relative); save and restore
-               seconds and the size on disk.
-
+               dg to 2e-5 and the same in a second run); LayerNorm the same
+               way (dx, and dg and db each to 2e-5 and bit-equal in a second
+               run) at stablelm's (4096, 2048), gpt3's (4096, 12288) (in
+               chunks), whisper's decoder (4096, 384) and encoder (12000,
+               384) rows, a ragged chunked (33, 2100), an odd shape and fp32;
+               SwiGLU at (4096, 6144), an odd shape and fp32; GELU at gpt3's
+               (4096, 49152) and the gated GELU at recurrentgemma's (4096,
+               7680) and grok's expert buffer (8720, 32768), each also at an
+               odd shape and in fp32, with elements where gelu' saturates and
+               where x^3 overflows fp32 (outputs finite, within one bf16
+               rounding); then each timed at the training shapes beside its
+               plain version, its bound and the backward half of one PyTorch
+               call through torch.autograd.grad (SDPA, F.rms_norm,
+               F.layer_norm, F.silu(g) * u, F.gelu, F.gelu(g) * u): both
+               flash kernels, and the forward with and without the
+               log-sum-exp, each launch of the wgmma backward and SDPA's
+               backward in two turns at qwen3's and qwen2's shapes; the
+               RMSNorm backward beside the design it replaced, each design's
+               row pass and column sum apart, at the three norm shapes; the
+               LayerNorm backward's row pass and column sum apart at its four
+               shapes;
+  9. train   - gradient checks (``TRAIN_CHECKS``): each trained config at
+               full width cut to a few layers (qwen3-1.7b, stablelm-1.6b and
+               granite-moe-3b-a800m to 2, gpt3-175b to 1, whisper-tiny whole,
+               llama-3.2-vision-11b to its 5-layer unit): the loss and every
+               parameter's gradient of one step on the card against the CPU
+               plain path in bf16 and an fp32 CPU run, each leaf no further
+               from fp32 than 1.5 times the bf16 CPU path (a key bias, whose
+               gradient is 0 in exact arithmetic, below 0.1 of its query
+               bias's), the loss within 2e-2; cross-attending models with a
+               seeded stub frontend and their cross branch unhidden, granite
+               with the bf16 CPU run's routing replayed; then the train runs
+               (``TRAIN_RUNS``), each at full width, 8 steps of AdamW on one
+               repeated batch of 8 x 512 tokens from TokenPipeline (a seeded
+               stub frontend for whisper and llama): qwen3-1.7b,
+               stablelm-1.6b and granite-moe-3b-a800m whole, gpt3-175b at 1
+               of 96 layers, whisper-tiny whole and llama-3.2-vision-11b at
+               10 of 40 layers (depths reckoned beside ``TRAIN_RUNS``): the
+               loss falls at every step and by 0.5 in all; per step wall ms,
+               tokens/s and model-FLOPs share (6 x active parameters x
+               tokens, ``model_flops``), the peak memory, and exactly the
+               launches ``train_launches`` gives at every step (qwen3: 28
+               flash backward on the wgmma kernel, 113 RMSNorm backward, 28
+               SwiGLU backward and 28, 113, 28 of their forwards); qwen3's
+               and gpt3's runs again from the same seed with their last 2
+               steps under torch.profiler (device ms a step, the largest
+               device events), granite's run again plainly: whether each
+               second run's losses equal the first's bit for bit;
 The last lines are the ``{"kernels": [...]}`` summary (the backward
-kernels' launches are the full-size train run's), the card's name and
+kernels' launches are the sum of the full-size train runs', each run's
+apart in ``launches_by_train_run``), the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -497,8 +516,8 @@ def phase_build(torch):
               "dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import (gelu_triton, silu_mul_bwd_triton,
                                                  silu_mul_triton)
-    from repro_torch.kernels.rmsnorm.kernel import (layernorm_triton, rmsnorm_bwd_triton,
-                                                    rmsnorm_triton)
+    from repro_torch.kernels.rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton,
+                                                    rmsnorm_bwd_triton, rmsnorm_triton)
     x = torch.ones((4, 12288), device="cuda", dtype=torch.bfloat16)
     w = x[0].float()
     for label, fn, args in (
@@ -509,7 +528,10 @@ def phase_build(torch):
             ("gelu (the Triton kernel gelu.cu replaced, timed beside it)", gelu_triton, (x,)),
             ("silu_mul", silu_mul_triton, (x, x)),
             ("rmsnorm_bwd C=2048", rmsnorm_bwd_triton, (x[:, :2048], w[:2048], x[:, :2048])),
-            ("silu_mul_bwd", silu_mul_bwd_triton, (x, x, x))):
+            ("silu_mul_bwd", silu_mul_bwd_triton, (x, x, x)),
+            ("layernorm_bwd C=2048 (whole rows)", layernorm_bwd_triton,
+             (x[:, :2048], w[:2048], x[:, :2048])),
+            ("layernorm_bwd C=12288 (in chunks)", layernorm_bwd_triton, (x, w, x))):
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
@@ -1467,7 +1489,7 @@ def routing(replay=None):
 
     def recorded(cfg, p, xt):
         probs, gate, idx = route(cfg, p, xt)
-        records.append((idx.cpu(), (xt.float() @ p["router"]).cpu()))
+        records.append((idx.cpu(), (xt.float() @ p["router"]).detach().cpu()))
         if replay is None:
             return probs, gate, idx
         idx = next(calls)[0].to(xt.device)
@@ -2583,17 +2605,71 @@ BACKWARD = {
                     "src/repro/kernels/rmsnorm/kernel.py:32"),
     "silu_mul_bwd": ("triton", "src/repro_torch/kernels/gelu/kernel.py",
                      "src/repro/kernels/gelu/kernel.py:43"),
+    "layernorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+                      "src/repro/kernels/rmsnorm/kernel.py:48"),
+    "gelu_bwd": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu",
+                 "src/repro/kernels/gelu/kernel.py:29"),
+    "gelu_mul_bwd": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu",
+                     "src/repro/models/layers.py:341"),
 }
-# the full-size run: one repeated batch, AdamW at a constant rate; at 1e-3
-# and 3e-4 the freshly initialised model's loss rose at step 2 (Adam's first
-# steps move every weight by about the rate), at 5e-5 it falls at each step
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "qwen3-1.7b", 8, 512, 8, 5e-5
-# the gradient check: full width, 2 layers, batch 2 x 128; per leaf the card
-# no further from an fp32 CPU run than TRAIN_FP32_FACTOR times the bf16 CPU
-# path is (the rule llama's logits follow, MODEL_CHECKS), the loss within
-# 2e-2 of the bf16 CPU path's
-TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_FP32_FACTOR = 2, 2, 128, 1.5
-CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 6, 2, 8, 256
+# the backward checks beyond the three of PR 24: LayerNorm at stablelm's and
+# gpt3's rows (whole rows, and gpt3's in chunks), whisper's decoder and
+# encoder rows, a ragged chunked row, an odd shape and fp32; GELU at gpt3's
+# MLP, the gated GELU at recurrentgemma's MLP and grok's expert buffer
+LN_BWD_CHECKS = ((4096, 2048, "bf16"), (4096, 12288, "bf16"), (4096, 384, "bf16"),
+                 (12000, 384, "bf16"), (33, 2100, "bf16"), (4099, 896, "bf16"),
+                 (1000, 2048, "fp32"))
+GELU_BWD_CHECKS = (("gelu_bwd", (4096, 49152), "bf16"), ("gelu_bwd", (3, 1001), "bf16"),
+                   ("gelu_bwd", (1000, 1536), "fp32"), ("gelu_mul_bwd", (4096, 7680), "bf16"),
+                   ("gelu_mul_bwd", (8720, 32768), "bf16"), ("gelu_mul_bwd", (3, 1001), "bf16"),
+                   ("gelu_mul_bwd", (1000, 1536), "fp32"))
+LN_BWD_TIMED = ((4096, 2048, "stablelm-1.6b"), (4096, 12288, "gpt3-175b"),
+                (4096, 384, "whisper-tiny decoder"), (8 * 1500, 384, "whisper-tiny encoder"))
+GELU_BWD_TIMED = (("gelu_bwd", (4096, 49152), "gpt3-175b MLP"),
+                  ("gelu_mul_bwd", (4096, 7680), "recurrentgemma-2b MLP"),
+                  ("gelu_mul_bwd", (8720, 32768), "grok-1-314b expert buffer"))
+# the full-size runs: one repeated batch of TRAIN_BATCH x TRAIN_SEQ tokens,
+# TRAIN_STEPS steps of AdamW at a constant rate each. qwen3: at 1e-3 and 3e-4
+# the freshly initialised model's loss rose at step 2 (Adam's first steps
+# move every weight by about the rate), at 5e-5 it falls at each step; the
+# narrow whisper-tiny falls ~0.04 a step at 5e-5 and takes 3e-4; the
+# 10-layer llama fell from 12.56 to 0.10 in one step at 5e-5, and at 1e-5
+# reached 0.040 at step 5 and rose at step 7: it takes 2.5e-6 (H100 runs).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+# the profiled run traces its last PROFILED_STEPS steps (the profiler adds
+# ~6 s of host time to each of qwen3's steps)
+PROFILED_STEPS = 2
+# (arch, layers or None for all, rate, the second run: "profile" under
+# torch.profiler, "rerun" to see whether the losses repeat bit for bit, or
+# None). Depths, reckoned at 14 bytes a parameter after init (bf16 weight,
+# fp32 master, m and v) and 16 with the gradients, with 8 GiB of the card's
+# 79.6 GiB left free; peaks are an H100 run's:
+#   qwen3-1.7b whole: 1.72 G parameters, 24 GiB; peak 41.8 GiB;
+#   stablelm-1.6b whole: 1.64 G, 24.5 GiB; peak 35.3 GiB;
+#   granite-moe-3b-a800m whole: 3.30 G, 49 GiB with the gradients, plus ~0.6
+#     GiB of expert buffers a layer; peak 63.3 GiB;
+#   gpt3-175b 1 of 96 layers: 3.05 G (the untied embedding and head are 1.24
+#     G), 45 GiB; 2 layers would be 4.86 G and 72 GiB, which does not fit;
+#   whisper-tiny whole: 56 M; peak 5.7 GiB;
+#   llama-3.2-vision-11b 10 of 40 layers (2 of its 5-layer units, cross
+#     layers 3 and 8): 3.23 G, 48 GiB; peak 57.6 GiB, ~3 GiB more a layer, so
+#     15 layers (4.32 G, 64 GiB) would peak near 72.6 GiB, past 71.6.
+TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-5, None),
+              ("granite-moe-3b-a800m", None, 5e-5, "rerun"), ("gpt3-175b", 1, 5e-5, "profile"),
+              ("whisper-tiny", None, 3e-4, None), ("llama-3.2-vision-11b", 10, 2.5e-6, None))
+# the gradient checks: (arch, layers or None, batch, sequence), full width at
+# a cut the CPU runs in seconds; per leaf the card no further from an fp32
+# CPU run than TRAIN_FP32_FACTOR times the bf16 CPU path is (the rule
+# llama's logits follow, MODEL_CHECKS), the loss within 2e-2 of the bf16 CPU
+# path's; cross-attending models with a seeded stub frontend and their
+# cross branch unhidden (``unhide_cross_attention``), granite with the CPU's
+# routing replayed on the card and in the fp32 run
+TRAIN_CHECKS = (("qwen3-1.7b", 2, 2, 128), ("stablelm-1.6b", 2, 2, 64),
+                ("granite-moe-3b-a800m", 2, 2, 64), ("gpt3-175b", 1, 2, 16),
+                ("whisper-tiny", None, 2, 128), ("llama-3.2-vision-11b", 5, 2, 32))
+TRAIN_FP32_FACTOR = 1.5
+KEY_BIAS_LIMIT = 0.1   # the key bias's gradient over its query bias's (0 exactly)
+CKPT_ARCH, CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = "qwen3-1.7b", 6, 2, 8, 256
 
 
 def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal):
@@ -2617,8 +2693,8 @@ def phase_bwd(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
-    from repro_torch.kernels.gelu.ref import silu_mul_bwd_ref
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.gelu.ref import gelu_bwd_ref, gelu_mul_bwd_ref, silu_mul_bwd_ref
+    from repro_torch.kernels.rmsnorm.ref import layernorm_bwd_ref, rmsnorm_bwd_ref
     bf, f32 = torch.bfloat16, torch.float32
     rnd = Inputs(torch, 11)
     errs = dict.fromkeys(BACKWARD, 0.0)
@@ -2687,6 +2763,43 @@ def phase_bwd(torch):
         e = [held("silu_mul_bwd", f"{shape}", dtn, a, w, elementwise=dt == bf)
              for a, w in zip(got, want)]
         print(f"[bwd] silu_mul_bwd {shape} {dtn}: rel_err dg {e[0]}, du {e[1]} ok")
+    # LayerNorm: stablelm's and gpt3's rows (whole rows and chunks), whisper's
+    # decoder and encoder rows, a ragged chunked row, an odd shape and fp32
+    dtypes = {"bf16": bf, "fp32": f32}
+    for R, C, dtn in LN_BWD_CHECKS:
+        dt = dtypes[dtn]
+        x, g, dy = rnd((R, C), dt) * 3 + 1.5, rnd((C,), f32), rnd((R, C), dt)
+        got, want = KERNELS["layernorm_bwd"](x, g, dy), layernorm_bwd_ref(x, g, dy)
+        dtn = str(dt).split(".")[1]      # the name TOL knows
+        e = [held("layernorm_bwd", f"({R},{C}) {part}", "float32" if part != "dx" else dtn, a, w,
+                  elementwise=dt == bf and part == "dx")
+             for part, a, w in zip(("dx", "dg", "db"), got, want)]
+        again = KERNELS["layernorm_bwd"](x, g, dy)
+        require(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2]),
+                f"layernorm_bwd ({R},{C}): dg or db differ from run to run")
+        print(f"[bwd] layernorm_bwd x({R},{C}) {dtn}: rel_err dx {e[0]}, dg {e[1]}, db {e[2]} "
+              "(fp32 2e-05); dg and db the same bits in a second run ok")
+    # GELU at gpt3's MLP, the gated GELU at recurrentgemma's MLP and grok's
+    # expert buffer; elements where gelu' saturates and where x^3 overflows
+    tails = torch.tensor([-1e30, -1e4, -20.0, -9.5, 9.5, 20.0, 1e4, 1e30], device="cuda")
+    for name, shape, dtn in GELU_BWD_CHECKS:
+        dt = dtypes[dtn]
+        ins = [rnd(shape, dt) for _ in range(2 if name == "gelu_bwd" else 3)]
+        ins[0] = ins[0] * 3
+        ins[0].view(-1)[:8] = tails.to(dt)
+        got = KERNELS[name](*ins)
+        want = (gelu_bwd_ref if name == "gelu_bwd" else gelu_mul_bwd_ref)(*ins)
+        got, want = ((got,), (want,)) if name == "gelu_bwd" else (got, want)
+        dtn = str(dt).split(".")[1]
+        require(all(torch.isfinite(a).all() for a in got), f"{name} {shape}: non-finite output")
+        # the tails held element by element; the relative error over the
+        # rest, which du = dy gelu(g) at g = 1e30 would otherwise swamp
+        require(all(within_one_rounding(a.view(-1)[:8], w.view(-1)[:8])
+                    for a, w in zip(got, want)), f"{name} {shape}: a tail element is off")
+        e = [held(name, f"{shape}", dtn, a.view(-1)[8:], w.view(-1)[8:], elementwise=dt == bf)
+             for a, w in zip(got, want)]
+        print(f"[bwd] {name} {shape} {dtn}: the 8 tail elements within one bf16 rounding, "
+              "rel_err of the rest " + ", ".join(e) + " ok")
 
     rows = {}
 
@@ -2813,39 +2926,136 @@ def phase_bwd(torch):
     add("silu_mul_bwd", f"g,u({R},{C}) bf16", lambda: KERNELS["silu_mul_bwd"](g, u, dy),
         lambda: silu_mul_bwd_ref(g, u, dy),
         grad_of(lambda a, b: F.silu(a) * b, (g, u), dy), 5 * R * C * 2, 12 * R * C, FP32_FLOPS)
+    del g, u, dy
+    # LayerNorm at the trained rows of stablelm, gpt3 and whisper (decoder,
+    # and encoder over its frames), each launch apart, in two turns
+    from repro_torch.kernels.rmsnorm.kernel import LN_BWD_WHOLE_C, layernorm_bwd_launches
+    for R, C, what in LN_BWD_TIMED:
+        x, g, dy = rnd((R, C), bf) * 3 + 1.5, rnd((C,), f32), rnd((R, C), bf)
+        zero = torch.zeros((C,), dtype=bf, device="cuda")
+        nbytes, flops = 3 * R * C * 2 + 3 * C * 4, 15 * R * C
+        library = grad_of(lambda a, w, b: F.layer_norm(a, (C,), w, b, 1e-5),
+                          (x, g.to(bf), zero), dy)
+        label = f"x({R},{C}) bf16 ({what})"
+        first = "layernorm_bwd" not in rows
+        if first:
+            add("layernorm_bwd", label, lambda: KERNELS["layernorm_bwd"](x, g, dy),
+                lambda: layernorm_bwd_ref(x, g, dy), library, nbytes, flops, FP32_FLOPS)
+        _, _, _, row_pass, col_sum = layernorm_bwd_launches(x, g, dy)
+        row_pass()               # the column sum reads what the row pass wrote
+        steps = {"kernel": lambda: KERNELS["layernorm_bwd"](x, g, dy), "row pass": row_pass,
+                 "column sum": col_sum, "F.layer_norm backward": library}
+        if C > LN_BWD_WHOLE_C:   # the first design's chunks of 2048, same call
+            _, _, _, old_row, old_col = layernorm_bwd_launches(x, g, dy, chunk_c=2048)
+            steps["chunks of 2048 (first design)"] = lambda: (old_row(), old_col())
+        times = {name: [] for name in steps}
+        for turn in range(2):
+            for name in (steps if turn == 0 else reversed(list(steps))):
+                times[name].append(time_ms(torch, steps[name]))
+        ms = {name: statistics.mean(t) for name, t in times.items()}
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        print(f"[timing] layernorm_bwd steps {label}: " + ", ".join(
+            f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}): the kernel at "
+              f"{b_ms / ms['kernel'] * 100:.1f}% of it")
+        if first:
+            rows["layernorm_bwd"]["steps_ms"] = times
+        else:
+            rows["layernorm_bwd"]["shapes"].append({
+                "shape": label, "ms": ms["kernel"], "row_pass_ms": ms["row pass"],
+                "column_sum_ms": ms["column sum"], "plain_ms": time_ms(
+                    torch, lambda: layernorm_bwd_ref(x, g, dy)),
+                "library_ms": ms["F.layer_norm backward"], "bound_ms": b_ms, "bound_by": b_by,
+                **({"first_design_ms": ms["chunks of 2048 (first design)"]}
+                   if C > LN_BWD_WHOLE_C else {})})
+        del x, dy, library
+    # GELU at gpt3's MLP; the gated GELU at recurrentgemma's MLP and grok's
+    # expert buffer (no trained caller yet: ROADMAP B23, B25)
+    for name, (R, C), what in GELU_BWD_TIMED:
+        n = R * C
+        ins = [rnd((R, C), bf) * 3] + [rnd((R, C), bf) for _ in range(1 if name == "gelu_bwd"
+                                                                        else 2)]
+        if name == "gelu_bwd":
+            plain = lambda: gelu_bwd_ref(*ins)
+            library = grad_of(lambda a: F.gelu(a, approximate="tanh"), ins[:1], ins[1])
+            nbytes, flops = 3 * n * 2, 20 * n
+        else:
+            plain = lambda: gelu_mul_bwd_ref(*ins)
+            library = grad_of(lambda a, b: F.gelu(a, approximate="tanh") * b, ins[:2], ins[2])
+            nbytes, flops = 5 * n * 2, 22 * n
+        label = f"({R},{C}) bf16 ({what})"
+        if name not in rows:
+            add(name, label, lambda: KERNELS[name](*ins), plain, library, nbytes, flops,
+                FP32_FLOPS)
+        else:
+            ms, lib_ms = time_ms(torch, lambda: KERNELS[name](*ins)), time_ms(torch, library)
+            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            plain_ms = time_ms(torch, plain)
+            print(f"[timing] {name:16s} {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"library {lib_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                  f"{b_ms / ms * 100:.1f}% of bound")
+            rows[name]["shapes"].append({"shape": label, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": lib_ms, "bound_ms": b_ms,
+                                         "bound_by": b_by})
+        del ins, library
     torch.cuda.empty_cache()
     return [rows[name] for name in BACKWARD]
 
 
-def grads_of(torch, model, tokens, targets):
-    """(loss, {name: gradient}) of one loss_fn call."""
+def grads_of(torch, model, tokens, targets, frontend=None):
+    """(loss, {name: gradient}) of one loss_fn call, its GEMMs summing in
+    fp32 as a train step's do (``training.fp32_reductions``)."""
     from repro_torch.models import loss_fn
-    loss, _ = loss_fn(model, tokens, targets)
-    params = dict(model.named_parameters())
-    return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    from repro_torch.training import fp32_reductions
+    with fp32_reductions():
+        loss, _ = loss_fn(model, tokens, targets, frontend=frontend)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
 
 
-def phase_train_check(torch):
-    """qwen3-1.7b at full width cut to TRAIN_CHECK_LAYERS layers: the loss
-    and every parameter's gradient of one step on the card (the three
-    backward kernels) against the CPU plain path in bf16 and an fp32 CPU
-    run of the same weights."""
+def phase_train_check(torch, arch, n_layers, B, S):
+    """`arch` at full width cut to `n_layers` layers: the loss and every
+    parameter's gradient of one step on the card (the backward kernels)
+    against the CPU plain path in bf16 and an fp32 CPU run of the same
+    weights, on B x S tokens; with a seeded stub frontend and the cross
+    branch unhidden for a cross-attending model, the bf16 CPU run's routing
+    replayed on the card and in the fp32 run for an MoE one. A key bias's
+    gradient is 0 in exact arithmetic (the softmax ignores a shift common to
+    a row's scores), so each side's is rounding alone (about 2^-9 of the
+    key gradients it sums): it is held below KEY_BIAS_LIMIT of its layer's
+    query-bias gradient instead of by the ratio; a wrong key gradient would
+    put it near 1."""
     from repro_torch.models import LM, init_params
-    cfg = served_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS)
-    gpu = init_params(cfg, seed=3, device="cuda").requires_grad_(True)
+    cfg = served_config(arch, n_layers)
+    gpu = init_params(cfg, seed=3, device="cuda")
+    gen = torch.Generator("cpu").manual_seed(4)
+    fe = None
+    if cfg.n_frontend_tokens:
+        unhide_cross_attention(torch, gpu)
+        fe = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=gen).bfloat16()
+    gpu.requires_grad_(True)
     cpu = LM(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
     cpu.requires_grad_(True)
-    gen = torch.Generator("cpu").manual_seed(4)
-    tok = torch.randint(0, cfg.vocab_size, (TRAIN_CHECK_B, TRAIN_CHECK_S + 1), generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
     t0 = time.perf_counter()
-    lg, gg = grads_of(torch, gpu, tok[:, :-1].cuda(), tok[:, 1:].cuda())
-    lc, gc = grads_of(torch, cpu, tok[:, :-1], tok[:, 1:])
-    l32, g32 = grads_of(torch, cpu.float(), tok[:, :-1], tok[:, 1:])
+    with routing() as cpu_routing:
+        lc, gc = grads_of(torch, cpu, tok[:, :-1], tok[:, 1:], fe)
+    with routing(replay=cpu_routing):
+        lg, gg = grads_of(torch, gpu, tok[:, :-1].cuda(), tok[:, 1:].cuda(),
+                          None if fe is None else fe.cuda())
+    with routing(replay=cpu_routing):
+        l32, g32 = grads_of(torch, cpu.float(), tok[:, :-1], tok[:, 1:], fe)
     require(all(torch.isfinite(g).all() for g in gg.values()), "non-finite gradients on the card")
-    worst, rows = 0.0, []
+    worst, rows, key_bias = 0.0, [], 0.0
     for n, g in gg.items():
         ref = g32[n]
+        if n.endswith(".bk"):
+            scale = g32[n[:-1] + "q"].norm().item()
+            key_bias = max(key_bias, g.float().norm().item() / scale,
+                           gc[n].float().norm().item() / scale)
+            continue
         d_card = (g.float().cpu() - ref).norm().item()
         d_cpu = (gc[n].float() - ref).norm().item()
         ratio = d_card / max(d_cpu, 1e-30)
@@ -2853,15 +3063,21 @@ def phase_train_check(torch):
                      d_cpu / max(ref.norm().item(), 1e-30)))
         worst = max(worst, ratio)
     rows.sort(reverse=True)
-    print(f"[train] {cfg.name} batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss card {lg.item():.6f}, "
-          f"bf16 CPU {lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
+    what = (f", frontends of {cfg.n_frontend_tokens} tokens, the cross branch unhidden"
+            if fe is not None else "") + (", the CPU's routing replayed" if cfg.n_experts else "")
+    print(f"[train] {cfg.name} batch {B} x {S}{what}: loss card {lg.item():.6f}, bf16 CPU "
+          f"{lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
     print(f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
           f"Frobenius), card / bf16 CPU, the 5 leaves with the largest ratio: "
           + ", ".join(f"{n} {c:.3e}/{p:.3e} ({r:.3f})" for r, n, c, p in rows[:5])
           + f"; largest ratio {worst:.3f} over {len(rows)} leaves (limit "
-          f"{TRAIN_FP32_FACTOR:g})")
+          f"{TRAIN_FP32_FACTOR:g})" + (f"; key-bias gradients (card and bf16 CPU) at most "
+                                       f"{key_bias:.3e} of their query bias's (limit "
+                                       f"{KEY_BIAS_LIMIT:g})" if key_bias else ""))
     require(worst <= TRAIN_FP32_FACTOR, f"{cfg.name}: a gradient of the card is {worst:.3f} "
             f"times as far from fp32 as the bf16 CPU path's, > {TRAIN_FP32_FACTOR:g}")
+    require(key_bias < KEY_BIAS_LIMIT, f"{cfg.name}: a key-bias gradient {key_bias:.3e} of "
+            "its query bias's")
     require(abs(lg.item() - lc.item()) < 2e-2, f"{cfg.name}: card loss {lg.item():.6f} vs CPU "
             f"{lc.item():.6f}")
     del gpu, cpu, gg, gc, g32
@@ -2885,39 +3101,84 @@ def profile_step(torch, step_fn, top=0, pick=None):
     return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events), out
 
 
-def phase_train(torch):
-    """qwen3-1.7b at full size trained TRAIN_STEPS steps on one repeated
-    batch of TRAIN_BATCH x TRAIN_SEQ tokens from TokenPipeline: the loss
-    falls at every step and by at least 0.5 in all; per step wall ms, tokens
-    per second and the model-FLOPs share, and the exact launches of each
-    kernel per step. Then the same run again from the same seed under
-    torch.profiler, step by step: its device ms per step, and its losses
-    against the first run's. Returns each kernel's launches in the first
-    run."""
+def train_launches(cfg):
+    """The exact kernel launches of one train step of `cfg` (full attention,
+    no softcap, no RWKV6 or Griffin layer), forward and backward: flash
+    attention per self-attention, cross-attention and encoder layer (a
+    vision cross layer's in place of its self-attention), the norm per norm
+    (two a layer, an encoder-decoder's lnx, the final norms, and the
+    RMSNorm of the q- and k-norm per attention), the MLP's activation per
+    layer (an MoE layer's experts share one launch); each as often in the
+    backward."""
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    cross = L if cfg.cross_attention else 0
+    attn = L + E + cross
+    norms = 2 * (L + E) + 1 + (1 if E else 0) + cross
+    act = ("silu_mul" if cfg.activation == "silu" else "gelu_mul") if cfg.mlp_gated else "gelu"
+    want = {"flash_attention_wgmma": attn, cfg.norm: norms, act: L + E}
+    if cfg.qk_norm:
+        want["rmsnorm"] = want.get("rmsnorm", 0) + 2 * attn
+    want.update({("flash_attention_bwd_wgmma" if k == "flash_attention_wgmma" else k + "_bwd"): n
+                 for k, n in want.items()})
+    return want
+
+
+def model_flops(cfg, model, B, S):
+    """6 x parameters x tokens of one train step: an MoE layer's experts at
+    top_k / n_experts of their parameters (the active parameters); the
+    encoder's parameters and the cross layers' K and V projections against
+    the B x n_frontend_tokens frontend rows, every other parameter against
+    the B x S tokens."""
+    flops = 0.0
+    for n, p in model.named_parameters():
+        k = p.numel() * (cfg.top_k / cfg.n_experts if ".moe.w_" in n else 1)
+        frontal = n.startswith("enc.") or n.endswith(("xattn.wk", "xattn.wv", "xattn.bk",
+                                                      "xattn.bv"))
+        flops += 6 * k * B * (cfg.n_frontend_tokens if frontal else S)
+    return flops
+
+
+def phase_train(torch, arch, n_layers, lr, second):
+    """`arch` at full width (cut to `n_layers` layers where given) trained
+    TRAIN_STEPS steps on one repeated batch of TRAIN_BATCH x TRAIN_SEQ
+    tokens from TokenPipeline (a cross-attending model with a seeded stub
+    frontend): the loss falls at every step and by at least 0.5 in all; per
+    step wall ms, tokens per second and the model-FLOPs share
+    (``model_flops``), the exact launches of each kernel per step
+    (``train_launches``). Then, with `second`, the same run again from the
+    same seed, its last PROFILED_STEPS steps under torch.profiler
+    ("profile": their device ms and the largest device events of the last)
+    or plain ("rerun"), and whether its losses equal the first run's bit for
+    bit. Returns each kernel's launches in the first run."""
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import needs_frontend
     from repro_torch.training import AdamW, constant_schedule, init_state, make_train_step
-    cfg = get_config(TRAIN_ARCH)
-    opt = AdamW(lr=constant_schedule(TRAIN_LR))
+    cfg = served_config(arch, n_layers)
+    opt = AdamW(lr=constant_schedule(lr))
     raw = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    if needs_frontend(cfg):
+        gen = torch.Generator("cuda").manual_seed(5)
+        batch["frontend"] = torch.randn((TRAIN_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+                                        generator=gen, device="cuda").bfloat16()
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    L = cfg.n_layers
-    want = dict.fromkeys(K.KERNELS, 0)
-    want.update({"flash_attention_wgmma": L, "rmsnorm": 4 * L + 1, "silu_mul": L,
-                 "flash_attention_bwd_wgmma": L, "rmsnorm_bwd": 4 * L + 1, "silu_mul_bwd": L})
+    want = {**dict.fromkeys(K.KERNELS, 0), **train_launches(cfg)}
     runs = []
-    for profiled in (False, True):
+    for again in (False, True) if second else (False,):
+        t0 = time.perf_counter()
         state = init_state(cfg, opt, seed=0, device="cuda")
-        n_params = sum(p.numel() for p in state.model.parameters())
-        step = make_train_step(cfg, opt)
         torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in state.model.parameters())
+        flops = model_flops(cfg, state.model, TRAIN_BATCH, TRAIN_SEQ)
+        step = make_train_step(cfg, opt, has_frontend=needs_frontend(cfg))
         torch.cuda.reset_peak_memory_stats()
-        losses, total = [], dict.fromkeys(K.KERNELS, 0)
+        losses, total, walls = [], dict.fromkeys(K.KERNELS, 0), []
         for s in range(TRAIN_STEPS):
             K.reset_launches()
             t0 = time.perf_counter()
+            profiled = again and second == "profile" and s >= TRAIN_STEPS - PROFILED_STEPS
             if profiled:
                 dev_ms, n_events, (state, met) = profile_step(
                     torch, lambda: step(state, batch), top=14 if s == TRAIN_STEPS - 1 else 0,
@@ -2927,28 +3188,32 @@ def phase_train(torch):
                 torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             counts = K.launches()
-            require(counts == want, f"train step {s}: launches {counts}, not {want}")
+            require(counts == want, f"{cfg.name} train step {s}: launches {counts}, not {want}")
             total = {k: total[k] + counts[k] for k in total}
             losses.append(met["loss"].item())
+            walls.append(wall_ms)
             if profiled:
-                print(f"[train] profiled step {s}: loss {losses[-1]:.6f}, device {dev_ms:.3f} ms "
-                      f"in {n_events} device events (torch.profiler), wall {wall_ms:.3f} ms "
-                      f"with the profiler on")
-            else:
-                mfu = 6 * n_params * tokens / (wall_ms / 1e3) / BF16_TENSOR_FLOPS
+                print(f"[train] {cfg.name} profiled step {s}: loss {losses[-1]:.6f}, device "
+                      f"{dev_ms:.3f} ms in {n_events} device events (torch.profiler), wall "
+                      f"{wall_ms:.3f} ms with the profiler on")
+            elif not again:
                 print(f"[train] {cfg.name} step {s}: loss {losses[-1]:.6f}, grad_norm "
                       f"{met['grad_norm'].item():.4f}, wall {wall_ms:.3f} ms, "
                       f"{tokens / wall_ms * 1e3:.1f} tokens/s, model-FLOPs share "
-                      f"{mfu * 100:.2f}% (6 x {n_params} parameters x {tokens} tokens / "
-                      f"wall / 989 TFLOP/s)")
+                      f"{flops / (wall_ms / 1e3) / BF16_TENSOR_FLOPS * 100:.2f}% "
+                      f"({flops:.4e} FLOP / wall / 989 TFLOP/s)")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         runs.append(losses)
-        if not profiled:
+        if not again:
             launches = total
+            steady = statistics.median(walls[1:])
             print(f"[train] {cfg.name} ({n_params} parameters, batch {TRAIN_BATCH} x "
-                  f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR:g}): peak device memory {peak:.2f} GiB; "
-                  f"launches per step {json.dumps({k: n for k, n in want.items() if n})}, "
-                  f"exact at every step")
+                  f"{TRAIN_SEQ}, AdamW lr {lr:g}): init {t_init:.2f} s, peak device memory "
+                  f"{peak:.2f} GiB; median wall of steps 1-{TRAIN_STEPS - 1} {steady:.3f} ms, "
+                  f"{tokens / steady * 1e3:.1f} tokens/s, model-FLOPs share "
+                  f"{flops / (steady / 1e3) / BF16_TENSOR_FLOPS * 100:.2f}%; launches per "
+                  f"step {json.dumps({k: n for k, n in want.items() if n})}, exact at every "
+                  "step")
             falls = all(b < a for a, b in zip(losses, losses[1:]))
             require(falls and losses[0] - losses[-1] >= 0.5,
                     f"{cfg.name}: losses {losses} do not fall at every step by 0.5 in all")
@@ -2956,9 +3221,11 @@ def phase_train(torch):
                   f"{TRAIN_STEPS} steps, falling at every step ok")
         del state, step
         torch.cuda.empty_cache()
-    same = runs[0] == runs[1]
-    print(f"[train] the profiled run's losses {'equal' if same else 'differ from'} the first "
-          f"run's bit for bit" + ("" if same else f": {runs[1]}"))
+    if second:
+        same = runs[0] == runs[1]
+        print(f"[train] {cfg.name}: the {'profiled' if second == 'profile' else 'second'} "
+              f"run's losses {'equal' if same else 'differ from'} the first run's bit for bit"
+              + ("" if same else f": {runs[1]} against {runs[0]}"))
     return launches
 
 
@@ -2976,7 +3243,7 @@ def phase_ckpt(torch):
     from repro_torch.launch.serve import preset_config
     from repro_torch.training import (AdamW, cosine_schedule, init_state, load_state_tree,
                                       make_train_step, state_tree)
-    cfg = preset_config(get_config(TRAIN_ARCH), "m100")
+    cfg = preset_config(get_config(CKPT_ARCH), "m100")
     opt = AdamW(lr=cosine_schedule(1e-3, warmup=1, total=CKPT_STEPS))
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, CKPT_SEQ, CKPT_BATCH, seed=1))
     step = make_train_step(cfg, opt)
@@ -3040,12 +3307,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[env] {what} took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
+    lap("[build]")
     errs = phase_kernels(torch)
+    lap("the kernel checks")
     gemm_counts, gemm_errs, off_path_errs = phase_matmul(torch)
     probe = phase_e4m3_probe(torch)
+    lap("[matmul] and the e4m3 probe")
     counts, per_prefill, per_decode, prompt_lens, measured = {}, {}, {}, {}, {}
     for arch, n_layers in SERVED:
         (run, per_prefill[arch], per_decode[arch], prompt_lens[arch],
@@ -3053,12 +3330,14 @@ def main():
         counts = {name: counts.get(name, 0) + n for name, n in run.items()}
     print(f"[serve] launches summed over the {len(SERVED)} serve runs: "
           f"{json.dumps(counts)}")
+    lap("[serve]")
     for check in MODEL_CHECKS:
         phase_model(torch, *check)
     # the ring phase against the CPU path: a wave of a prompt past the window
     # and a shorter one also past it, RING_STEPS decode steps past the wrap
     phase_model(torch, "recurrentgemma-2b", RING_LAYERS, RING_PROMPT, RING_STEPS,
                 short=RING_PROMPT - 204, T=RING_MAX_LEN)
+    lap("[model]")
     # the GEMM kernels' launches are those of their path; no model calls them
     gemm_kernels = ("matmul", "matmul_wgmma", "matmul_f32_tma", "matmul_reduce", "matmul_int8",
                     "matmul_int8_wgmma")
@@ -3077,16 +3356,32 @@ def main():
             row["max_abs_err_by_mode"] = {m: gemm_errs[m] for m in by_mode[row["name"]]}
             if row["name"] == "matmul_wgmma":
                 row["e4m3_probe_passes"] = probe
+    lap("[timing]")
     phase_analytic(rows, models, measured)
+    lap("[analytic]")
     bwd_rows = phase_bwd(torch)
-    phase_train_check(torch)
-    train_launches = phase_train(torch)
+    lap("[bwd]")
+    for check in TRAIN_CHECKS:
+        phase_train_check(torch, *check)
+    lap("the [train] gradient checks")
+    by_run = {}
+    for arch, n_layers, lr, second in TRAIN_RUNS:
+        by_run[served_config(arch, n_layers).name] = phase_train(torch, arch, n_layers, lr,
+                                                                 second)
+        lap(f"the [train] run of {arch}")
+    # each train run is a path of its own: its counts were set to 0 before
+    # each step and read just after; a kernel's launches are their sum
+    trained = {name: sum(run[name] for run in by_run.values())
+               for name in next(iter(by_run.values()))}
     for row in bwd_rows:
-        row["launches"] = train_launches[row["name"]]
+        row["launches"] = trained[row["name"]]
+        row["launches_by_train_run"] = {k: run[row["name"]] for k, run in by_run.items()
+                                        if run[row["name"]]}
     for row in rows:
-        row["launches_in_train_run"] = train_launches[row["name"]]
+        row["launches_in_train_runs"] = trained[row["name"]]
     rows += bwd_rows
     phase_ckpt(torch)
+    lap("[ckpt]")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

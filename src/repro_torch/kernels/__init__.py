@@ -7,11 +7,13 @@ CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 from .decode_attention.kernel import decode_attention_chunked_cuda, decode_attention_cuda
 from .flash_attention.kernel import (flash_attention_bwd_cuda, flash_attention_bwd_wgmma_cuda,
                                      flash_attention_cuda, flash_attention_wgmma_cuda)
-from .gelu.kernel import gelu_cuda, gelu_mul_cuda, silu_mul_bwd_triton, silu_mul_triton
+from .gelu.kernel import (gelu_bwd_cuda, gelu_cuda, gelu_mul_bwd_cuda, gelu_mul_cuda,
+                          silu_mul_bwd_triton, silu_mul_triton)
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
 from .rglru.kernel import rglru_chunked_cuda, rglru_cuda
-from .rmsnorm.kernel import layernorm_triton, rmsnorm_bwd_triton, rmsnorm_triton
+from .rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton, rmsnorm_bwd_triton,
+                             rmsnorm_triton)
 from .wkv.kernel import wkv_chunked_cuda, wkv_cuda
 
 #: every kernel wrapper of the port, by kernel name
@@ -41,6 +43,9 @@ KERNELS = {
     "flash_attention_bwd_wgmma": flash_attention_bwd_wgmma_cuda,
     "rmsnorm_bwd": rmsnorm_bwd_triton,
     "silu_mul_bwd": silu_mul_bwd_triton,
+    "layernorm_bwd": layernorm_bwd_triton,
+    "gelu_bwd": gelu_bwd_cuda,
+    "gelu_mul_bwd": gelu_mul_bwd_cuda,
 }
 
 

@@ -1,5 +1,8 @@
 """tanh-GELU and the gated-GELU product ``gelu(g) * u`` as a CUDA C++ kernel
-and the SwiGLU gate ``silu(g) * u`` as a Triton kernel, for Hopper.
+and the SwiGLU gate ``silu(g) * u`` as a Triton kernel, for Hopper, and
+the backward of each (below the forwards: ``silu_mul_bwd_triton``, and
+``gelu_bwd_cuda`` and ``gelu_mul_bwd_cuda``, the backward modes of
+``csrc/gelu.cu``).
 
 Replace ``repro/kernels/gelu/kernel.py::gelu_pallas`` and
 ``::silu_mul_pallas``, elementwise, computed in fp32 and rounded once to the
@@ -232,3 +235,67 @@ def silu_mul_bwd_triton(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
 
 silu_mul_bwd_triton.launches = 0
 silu_mul_bwd_triton.compiled = None   # the last compiled kernel launched
+
+
+# ---------------------------------------------------------------------------
+# GELU and gated-GELU backward (``csrc/gelu.cu``, whose note gives the
+# formula and the design)
+# ---------------------------------------------------------------------------
+# No TPU kernel is replaced: ``jax.grad`` differentiates the JAX model's
+# tanh-GELU in XLA.
+
+
+@functools.cache
+def _gelu_bwd_entry():
+    fn = _build.load("gelu").gelu_bwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dx = dy * gelu'(x) in fp32, one rounding: x, dy contiguous CUDA
+    tensors of one shape and dtype (bf16 or fp32). One launch of
+    ``csrc/gelu.cu``'s backward."""
+    _check_elementwise("gelu_bwd", x, dy)
+    dx = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return dx
+    err = _gelu_bwd_entry()(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n,
+                            int(x.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gelu_bwd")
+    gelu_bwd_cuda.launches += 1
+    return dx
+
+
+gelu_bwd_cuda.launches = 0
+
+
+@functools.cache
+def _gelu_mul_bwd_entry():
+    fn = _build.load("gelu").gelu_mul_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gelu_mul_bwd_cuda(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
+    """(dg, du) of ``gelu(g) * u`` for the output gradient dy, each in fp32
+    with one rounding: contiguous CUDA tensors of one shape and dtype (bf16
+    or fp32). One launch of ``csrc/gelu.cu``'s gated backward."""
+    _check_elementwise("gelu_mul_bwd", g, u, dy)
+    dg, du = torch.empty_like(g), torch.empty_like(g)
+    n = g.numel()
+    if n == 0:
+        return dg, du
+    err = _gelu_mul_bwd_entry()(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(),
+                                du.data_ptr(), n, int(g.dtype == torch.bfloat16),
+                                torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "gelu_mul_bwd")
+    gelu_mul_bwd_cuda.launches += 1
+    return dg, du
+
+
+gelu_mul_bwd_cuda.launches = 0

@@ -1,4 +1,5 @@
-"""RMSNorm and LayerNorm as Triton kernels for Hopper.
+"""RMSNorm and LayerNorm as Triton kernels for Hopper, and their backward
+(below the forwards: ``rmsnorm_bwd_triton``, ``layernorm_bwd_triton``).
 
 Replace ``repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas`` and
 ``::layernorm_pallas`` over the last axis of ``x (R, C)``, fp32 statistics,
@@ -302,9 +303,14 @@ def bwd_programs(R: int, C: int, sms: int, per_sm: int = BWD_PROGRAMS_PER_SM,
     """(programs, rows a program walks, rows a block) of the row pass at R
     rows of C: at most `per_sm` programs an SM, each a whole number of
     blocks of `row_factor` times the forward's rows."""
-    rows = launch_params(C)["ROWS"] * row_factor
+    return split_rows(R, launch_params(C)["ROWS"] * row_factor, per_sm * sms)
+
+
+def split_rows(R: int, rows: int, programs: int):
+    """(programs, rows a program walks, `rows`): R rows in blocks of `rows`,
+    each program a whole number of blocks, at most `programs` programs."""
     blocks = -(-R // rows)
-    per = -(-blocks // min(blocks, per_sm * sms)) * rows
+    per = -(-blocks // min(blocks, programs)) * rows
     return -(-R // per), per, rows
 
 
@@ -379,3 +385,236 @@ def rmsnorm_bwd_replaced_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tens
     row_pass()
     column_sum()
     return dx, dg
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm backward
+# ---------------------------------------------------------------------------
+# No TPU kernel is replaced: ``jax.grad`` differentiates the JAX model's
+# LayerNorm in XLA. With xh = (x - mean) rsqrt(var + eps) (the biased
+# variance of the centred row, as the forward takes it) and w = g dy, in
+# fp32 and rounded once to x's dtype:
+#   dx = (w - mean(w) - xh mean(w xh)) rsqrt(var + eps),
+#   dg = sum over rows of dy xh,   db = sum over rows of dy   (fp32).
+#
+# Bound on an H100: bytes (x and dy read once, dx written once: 6 bytes an
+# element in bf16, about 15 fp32 operations).
+#
+# Design: PR 25's RMSNorm backward, with two column sums. The row pass runs
+# one program an SM, each walking its share of the rows in blocks, and
+# writes dx and the program's fp32 partial rows of dg and db into one
+# (programs, 2C) scratch; one column-sum launch sums the scratch down its
+# 2C columns in an order fixed by the shape, so dg and db are the same from
+# run to run. A row of up to LN_BWD_WHOLE_C columns is held whole in
+# registers, the next block loaded while the current one computes, dg and
+# db accumulated elementwise and summed over the block's rows once at the
+# end. A wider row (gpt3's C = 12288) goes in chunks of LN_BWD_CHUNK_C, as
+# the forward goes: a pass for the mean and the centred sum of squares
+# (Chan's merge), a pass for mean(w) and mean(w xh), a pass that writes dx;
+# the second and third read the rows' blocks again from L1/L2 (a block of
+# two such rows is 96 KiB of x and dy), so device memory sees each element
+# once each way. The third pass adds the block's share of dg and db to the
+# program's partial row in the scratch (98 KiB, held in L2), which only
+# that program reads and writes, behind a barrier of its threads. With one
+# program an SM and no load issued ahead, what a chunk keeps in flight sets
+# the rate: chunks of 2048 columns ran behind ``F.layer_norm``'s backward
+# at (4096, 12288), chunks of 4096 (two rows, 8 warps: 32 elements of each
+# tensor a thread) caught up with it (``chip_smoke.py`` times both); of the
+# rows, widths, warps and programs an SM tried on the card, these were the
+# fastest, and at C = 2048 whole rows beat every chunked form.
+
+LN_BWD_WHOLE_C = 2048    # a wider row goes in chunks
+LN_BWD_CHUNK_C = 4096
+LN_BWD_CHUNK_ROWS = 2
+
+
+@functools.cache
+def _ln_bwd_kernels():
+    """Compile at first use: triton exists only where a card is."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit(do_not_specialize=["R", "rows_per_prog"])
+    def layernorm_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, part_ptr, R, C, rows_per_prog, stride_x,
+                      stride_dy, stride_dx, eps, ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        acc_g = tl.zeros((ROWS, BLOCK_C), dtype=tl.float32)
+        acc_b = tl.zeros((ROWS, BLOCK_C), dtype=tl.float32)
+        lo = pid * rows_per_prog
+        hi = tl.minimum(lo + rows_per_prog, R)
+        rows = lo + tl.arange(0, ROWS)
+        mask = (rows[:, None] < hi) & cmask[None, :]
+        x_next = tl.load(x_ptr + rows[:, None].to(tl.int64) * stride_x + cols[None, :],
+                         mask=mask, other=0.0)
+        dy_next = tl.load(dy_ptr + rows[:, None].to(tl.int64) * stride_dy + cols[None, :],
+                          mask=mask, other=0.0)
+        for start in range(lo, hi, ROWS):
+            rows = start + tl.arange(0, ROWS)
+            mask = (rows[:, None] < hi) & cmask[None, :]
+            x = x_next.to(tl.float32)
+            dy = dy_next.to(tl.float32)
+            # the next block's loads, in flight while this block computes
+            nxt = rows + ROWS
+            nmask = (nxt[:, None] < hi) & cmask[None, :]
+            x_next = tl.load(x_ptr + nxt[:, None].to(tl.int64) * stride_x + cols[None, :],
+                             mask=nmask, other=0.0)
+            dy_next = tl.load(dy_ptr + nxt[:, None].to(tl.int64) * stride_dy + cols[None, :],
+                              mask=nmask, other=0.0)
+            mean = tl.sum(x, axis=1) / C
+            xc = tl.where(mask, x - mean[:, None], 0.0)
+            rstd = 1.0 / tl.sqrt(tl.sum(xc * xc, axis=1) / C + eps)
+            xh = xc * rstd[:, None]
+            w = dy * g[None, :]
+            c1 = tl.sum(w, axis=1) / C
+            c2 = tl.sum(w * xh, axis=1) / C
+            dx = (w - c1[:, None] - xh * c2[:, None]) * rstd[:, None]
+            tl.store(dx_ptr + rows[:, None].to(tl.int64) * stride_dx + cols[None, :],
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            acc_g += dy * xh
+            acc_b += dy
+        tl.store(part_ptr + pid * 2 * C + cols, tl.sum(acc_g, axis=0), mask=cmask)
+        tl.store(part_ptr + pid * 2 * C + C + cols, tl.sum(acc_b, axis=0), mask=cmask)
+
+    @triton.jit(do_not_specialize=["R", "rows_per_prog"])
+    def layernorm_bwd_chunked(x_ptr, g_ptr, dy_ptr, dx_ptr, part_ptr, R, C, rows_per_prog,
+                              stride_x, stride_dy, stride_dx, eps, ROWS: tl.constexpr,
+                              BLOCK_C: tl.constexpr, N_CHUNKS: tl.constexpr):
+        pid = tl.program_id(0)
+        lo = pid * rows_per_prog
+        hi = tl.minimum(lo + rows_per_prog, R)
+        part = part_ptr + pid * 2 * C
+        for start in range(lo, hi, ROWS):
+            rows = start + tl.arange(0, ROWS)
+            row_ok = rows[:, None] < hi
+            x_rows = x_ptr + rows[:, None].to(tl.int64) * stride_x
+            dy_rows = dy_ptr + rows[:, None].to(tl.int64) * stride_dy
+            # pass 1: each chunk's mean and centred sum of squares, merged
+            mean = tl.zeros((ROWS,), dtype=tl.float32)
+            m2 = tl.zeros((ROWS,), dtype=tl.float32)
+            for k in range(N_CHUNKS):
+                cols = k * BLOCK_C + tl.arange(0, BLOCK_C)
+                mask = row_ok & (cols[None, :] < C)
+                x = tl.load(x_rows + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+                n_k = tl.minimum(C - k * BLOCK_C, BLOCK_C).to(tl.float32)
+                mean_k = tl.sum(x, axis=1) / n_k
+                xc = tl.where(mask, x - mean_k[:, None], 0.0)
+                count = k * BLOCK_C * 1.0               # columns merged so far
+                total = count + n_k
+                delta = mean_k - mean
+                mean = mean + delta * (n_k / total)
+                m2 = m2 + tl.sum(xc * xc, axis=1) + delta * delta * (count * n_k / total)
+            rstd = 1.0 / tl.sqrt(m2 / C + eps)
+            # pass 2: mean(w) and mean(w xh)
+            c1 = tl.zeros((ROWS,), dtype=tl.float32)
+            c2 = tl.zeros((ROWS,), dtype=tl.float32)
+            for k in range(N_CHUNKS):
+                cols = k * BLOCK_C + tl.arange(0, BLOCK_C)
+                cmask = cols < C
+                mask = row_ok & cmask[None, :]
+                x = tl.load(x_rows + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+                dy = tl.load(dy_rows + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+                g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+                xh = tl.where(mask, (x - mean[:, None]) * rstd[:, None], 0.0)
+                w = dy * g[None, :]
+                c1 += tl.sum(w, axis=1)
+                c2 += tl.sum(w * xh, axis=1)
+            c1 = c1 / C
+            c2 = c2 / C
+            # pass 3: dx, and the block's share of dg and db added to the
+            # program's partial row (zero before its first block); the
+            # barrier orders the last block's stores before these loads
+            tl.debug_barrier()
+            for k in range(N_CHUNKS):
+                cols = k * BLOCK_C + tl.arange(0, BLOCK_C)
+                cmask = cols < C
+                mask = row_ok & cmask[None, :]
+                x = tl.load(x_rows + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+                dy = tl.load(dy_rows + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+                g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+                xh = tl.where(mask, (x - mean[:, None]) * rstd[:, None], 0.0)
+                w = dy * g[None, :]
+                dx = (w - c1[:, None] - xh * c2[:, None]) * rstd[:, None]
+                tl.store(dx_ptr + rows[:, None].to(tl.int64) * stride_dx + cols[None, :],
+                         dx.to(dx_ptr.dtype.element_ty), mask=mask)
+                seen = cmask & (start > lo)
+                pg = tl.load(part + cols, mask=seen, other=0.0)
+                pb = tl.load(part + C + cols, mask=seen, other=0.0)
+                tl.store(part + cols, pg + tl.sum(dy * xh, axis=0), mask=cmask)
+                tl.store(part + C + cols, pb + tl.sum(dy, axis=0), mask=cmask)
+
+    return layernorm_bwd, layernorm_bwd_chunked
+
+
+def layernorm_bwd_params(C: int, chunk_c: int = LN_BWD_CHUNK_C) -> dict:
+    """Rows of a block, block width and chunks of the LayerNorm backward's
+    row pass: whole rows of the forward's block up to LN_BWD_WHOLE_C
+    columns (N_CHUNKS 1), else LN_BWD_CHUNK_ROWS rows in chunks of
+    `chunk_c`."""
+    if C <= LN_BWD_WHOLE_C:
+        p = launch_params(C)
+        return {"ROWS": p["ROWS"], "BLOCK_C": p["BLOCK_C"], "N_CHUNKS": 1}
+    return {"ROWS": LN_BWD_CHUNK_ROWS, "BLOCK_C": chunk_c, "N_CHUNKS": -(-C // chunk_c)}
+
+
+def _check_ln_bwd(x, g, dy):
+    _check_rows("layernorm_bwd", x, g)
+    _check_rows("layernorm_bwd", dy, g)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"layernorm_bwd takes dy of x's shape and dtype, got "
+                         f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} {x.dtype}")
+
+
+def layernorm_bwd_launches(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                           eps: float = 1e-5, chunk_c: int = LN_BWD_CHUNK_C):
+    """(dx, dg, db, row pass, column sum): the outputs and the two launches
+    that fill them, as functions of no argument, not yet run (the wrapper
+    runs both; ``chip_smoke.py`` also times them apart, and a wide row at
+    the chunk width of the first design, 2048)."""
+    _check_ln_bwd(x, g, dy)
+    g = g.contiguous()
+    R, C = x.shape
+    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
+    dgb = torch.empty((2 * C,), dtype=g.dtype, device=g.device)
+    whole, chunked = _ln_bwd_kernels()
+    triton, _, colsum, _ = _bwd_kernels()
+    p = layernorm_bwd_params(C, chunk_c)
+    n_chunks = p.pop("N_CHUNKS")
+    n_prog, per, rows = split_rows(R, p["ROWS"],
+                                   BWD_PROGRAMS_PER_SM * _sm_count(x.device.index or 0))
+    partial = torch.empty((n_prog, 2 * C), dtype=torch.float32, device=x.device)
+    args = (x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps)
+
+    def row_pass():
+        if n_chunks > 1:
+            return chunked[(n_prog,)](*args, ROWS=rows, BLOCK_C=p["BLOCK_C"],
+                                      N_CHUNKS=n_chunks, num_warps=8)
+        return whole[(n_prog,)](*args, ROWS=rows, BLOCK_C=p["BLOCK_C"], num_warps=8)
+
+    def column_sum():
+        colsum[(triton.cdiv(2 * C, COLSUM_C),)](partial, dgb, n_prog, 2 * C, BLOCK_N=128,
+                                                BLOCK_C=COLSUM_C, num_warps=8)
+    return dx, dgb[:C], dgb[C:], row_pass, column_sum
+
+
+def layernorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                         eps: float = 1e-5):
+    """(dx, dg, db) of LayerNorm for the output gradient dy: x, dy (R, C)
+    CUDA tensors of one dtype (bf16 or fp32), unit stride along C; g: (C,).
+    dx in x's dtype, dg and db in g's. One launch of the row pass and one of
+    the column sum; counts one launch."""
+    _check_ln_bwd(x, g, dy)
+    if x.shape[0] == 0:
+        return torch.empty_like(x), torch.zeros_like(g), torch.zeros_like(g)
+    dx, dg, db, row_pass, column_sum = layernorm_bwd_launches(x, g, dy, eps)
+    layernorm_bwd_triton.compiled = row_pass()
+    column_sum()
+    layernorm_bwd_triton.launches += 1
+    return dx, dg, db
+
+
+layernorm_bwd_triton.launches = 0
+layernorm_bwd_triton.compiled = None   # the last compiled row kernel launched

@@ -34,3 +34,20 @@ def rmsnorm_bwd_ref(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     w = dyf * g.float()
     dx = (w - xh * (w * xh).mean(-1, keepdim=True)) * rstd
     return dx.to(x.dtype), (dyf * xh).sum(0).to(g.dtype)
+
+
+def layernorm_bwd_ref(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-5):
+    """Gradients of ``layernorm_ref`` at x (R, C), g (C,) for the output
+    gradient dy (R, C), as an explicit formula in fp32: with
+    ``xh = (x - mean) * rsqrt(var + eps)`` (the biased variance) and
+    ``w = g * dy``, ``dx = (w - mean(w) - xh * mean(w * xh)) * rsqrt(var +
+    eps)`` rounded once to x's dtype, ``dg = sum_rows(dy * xh)`` and ``db =
+    sum_rows(dy)`` in g's dtype."""
+    xf, dyf = x.float(), dy.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+    xh = xc * rstd
+    w = dyf * g.float()
+    dx = (w - w.mean(-1, keepdim=True) - xh * (w * xh).mean(-1, keepdim=True)) * rstd
+    return dx.to(x.dtype), (dyf * xh).sum(0).to(g.dtype), dyf.sum(0).to(g.dtype)

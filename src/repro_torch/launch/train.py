@@ -12,7 +12,8 @@ newest checkpoint and continues from the step after it with the same data.
 ``StepMonitor`` flags stragglers. ``--data`` and ``--model`` other than 1
 (a device mesh) wait for the distributed slice of the port (ROADMAP A12);
 configs whose backward has no kernel yet are refused by
-``check_trainable`` (frontend models among them).
+``check_trainable``. An audio or vision model gets the zero bf16 frontend
+of (batch, n_frontend_tokens, d_model) that the JAX launcher builds.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..configs import ARCHS, EXTRA_ARCHS, get_config
 from ..data import DataConfig, TokenPipeline
 from ..device import resolve_device
 from ..distributed.fault_tolerance import RestartManifest, StepMonitor
-from ..models import check_trainable
+from ..models import check_trainable, needs_frontend
 from ..training import (AdamW, cosine_schedule, init_state, load_state_tree, make_train_step,
                         state_tree)
 from .serve import preset_config
@@ -77,7 +78,8 @@ def main(argv=None):
         load_state_tree(state, tree)
         start = man.step + 1
         print(f"resumed from step {man.step}")
-    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
+    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches,
+                              has_frontend=needs_frontend(cfg))
 
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"training {cfg.name}: {n_params / 1e6:.1f}M params, device={device}, "
@@ -85,6 +87,9 @@ def main(argv=None):
     for s in range(start, args.steps):
         mon.start()
         batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(s).items()}
+        if needs_frontend(cfg):
+            batch["frontend"] = torch.zeros((args.batch, max(cfg.n_frontend_tokens, 1),
+                                             cfg.d_model), dtype=torch.bfloat16, device=device)
         state, metrics = step_fn(state, batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # the step's time is the device's

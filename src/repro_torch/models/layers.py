@@ -302,9 +302,12 @@ def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor):
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25, with_aux: bool = True):
     """Top-k routed experts with a capacity and drop, as the JAX
-    ``moe_apply``: x (B, S, d) -> (y (B, S, d), the Switch aux loss).
+    ``moe_apply``: x (B, S, d) -> (y (B, S, d), the Switch aux loss ``E *
+    sum(mean probs * routed share)``, or None where `with_aux` is False, as
+    serving calls it). The aux reaches the router only through the
+    probabilities: the routed share is a count.
 
     Every (token, choice) takes the next slot of its expert's buffer of
     ``capacity`` rows, in the flat (token, choice) order; one past the
@@ -341,6 +344,8 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = torch.bmm(h.view(E, capacity, -1), p["w_down"]).view(E * capacity, d)
     terms = out[slot].float() * torch.where(keep, gate.reshape(-1), 0.0)[:, None]
     y = terms.view(T, k, d).sum(1).to(x.dtype)
+    if not with_aux:
+        return y.view(B, S, d), None
     aux = E * torch.sum(probs.mean(0) * onehot.sum(1) / (T * k))
     return y.view(B, S, d), aux
 

@@ -14,7 +14,10 @@ Public entry points, counterparts of the JAX functions of the same names:
 Training: parameters are made with ``requires_grad=False``, so serving
 builds no autograd graph; a trainer calls ``model.requires_grad_(True)``
 after ``check_trainable``. The kernel ops then run as autograd Functions
-with hand-written backward kernels (RMSNorm, SwiGLU, flash attention).
+with hand-written backward kernels (RMSNorm, LayerNorm, SwiGLU, GELU,
+gated GELU, flash attention). ``loss_fn`` passes ``forward`` a list into
+which every MoE layer appends its Switch aux loss, as the JAX forward sums
+it; serving passes none, and the layers then compute none.
 
 The cache is a dict of tensors updated IN PLACE by ``prefill`` and
 ``decode_step`` (the JAX functions return a new cache). Every tensor but
@@ -138,37 +141,44 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # (field, test that a train step on the card has a backward kernel for the
-# config's value of it, why not): the backward kernels of this slice are
-# flash attention (causal or full), RMSNorm and the SwiGLU gate
+# config's value of it, why not, naming the ROADMAP item that adds it): the
+# backward kernels are flash attention (causal or full, self or cross),
+# RMSNorm, LayerNorm, the SwiGLU gate, GELU and the gated GELU
 _TRAINABLE = (
-    ("norm", lambda c: c.norm == "rmsnorm", "no LayerNorm backward kernel yet"),
-    ("activation", lambda c: c.mlp_gated and c.activation == "silu",
-     "no GELU or gated-GELU backward kernel yet (SwiGLU only)"),
-    ("attn_window", lambda c: not c.attn_window, "no windowed flash backward kernel yet"),
+    ("attn_window", lambda c: not c.attn_window,
+     "no windowed flash backward kernel yet (ROADMAP B23)"),
     ("attn_logit_softcap", lambda c: not c.attn_logit_softcap,
-     "no softcapped flash backward kernel yet"),
-    ("n_experts", lambda c: not c.n_experts,
-     "the MoE aux loss is not threaded out of the blocks yet"),
-    ("attention_free", lambda c: not c.attention_free, "no wkv backward kernel yet"),
-    ("block_pattern", lambda c: not c.block_pattern, "no RG-LRU backward kernel yet"),
-    ("cross_attention", lambda c: not c.cross_attention and not c.n_encoder_layers,
-     "no encoder-decoder training yet"),
-    ("cross_attn_layers", lambda c: not c.cross_attn_layers and not c.n_frontend_tokens,
-     "no cross-attention training yet"),
+     "no softcapped flash backward kernel yet (ROADMAP B23)"),
+    ("attention_free", lambda c: not c.attention_free,
+     "no wkv backward kernel yet (ROADMAP B24)"),
+    ("block_pattern", lambda c: not c.block_pattern,
+     "no RG-LRU backward kernel yet (ROADMAP B25)"),
 )
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first config field whose
-    backward the port does not run. Trainable: dense decoders with RMSNorm
-    (and qk-norm), a SwiGLU MLP and causal full attention (qwen1.5-0.5b,
-    qwen2-0.5b, qwen3-1.7b)."""
+    backward the port does not run. Trainable: every config ``LM`` runs
+    whose attention is full (causal, or non-causal in an encoder and a
+    cross layer) and unsoftcapped: RMSNorm or LayerNorm, a SwiGLU, plain
+    GELU or gated-GELU MLP or MoE layer, qkv biases, qk-norm, full, partial
+    or no RoPE, an encoder-decoder and vision cross layers over a frontend
+    (qwen1.5-0.5b, qwen2-0.5b, qwen3-1.7b, stablelm-1.6b,
+    granite-moe-3b-a800m, whisper-tiny, llama-3.2-vision-11b, gpt3-175b).
+    Refused: a window or a logit softcap (recurrentgemma-2b, grok-1-314b),
+    the attention-free RWKV6 (rwkv6-7b) and Griffin's block pattern."""
     check_supported(cfg)
     for field, ok, why in _TRAINABLE:
         if not ok(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not trained by "
                 f"repro_torch: {why}")
+
+
+def needs_frontend(cfg: ModelConfig) -> bool:
+    """Whether a train step feeds the model a frontend: the audio and
+    vision families, as the JAX ``needs_frontend`` decides."""
+    return cfg.family in ("audio", "vlm")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
@@ -233,12 +243,17 @@ class Block(nn.Module):
         else:
             self.mlp = L.mlp_init(cfg, gen, device)
 
-    def mlp_residual(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    def mlp_residual(self, cfg: ModelConfig, x: torch.Tensor,
+                     aux: Optional[list] = None) -> torch.Tensor:
         """x plus the MLP or MoE layer of its norm (the JAX
-        ``_mlp_or_moe``); the MoE aux loss is dropped."""
+        ``_mlp_or_moe``). An MoE layer appends its aux loss to `aux` where
+        one is given, and computes none where it is None (serving)."""
         h = L.apply_norm(cfg, self.ln2, x)
         if cfg.n_experts:
-            return x + L.moe_apply(cfg, self.moe, h)[0]
+            y, a = L.moe_apply(cfg, self.moe, h, with_aux=aux is not None)
+            if aux is not None:
+                aux.append(a)
+            return x + y
         return x + L.mlp_apply(cfg, self.mlp, h)
 
 
@@ -442,13 +457,14 @@ class LM(nn.Module):
         return x + (torch.tanh(blk.xgate) * y).to(x.dtype) if gated else x + y
 
     # ------------------------------------------------------------------
-    def forward(self, tokens: torch.Tensor,
-                frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+                aux: Optional[list] = None) -> torch.Tensor:
         """tokens: (B, S) -> logits (B, S, V_padded); frontend: (B,
         n_frontend_tokens, d) stub embeddings, needed by a model with a
-        cross-attending layer. (The JAX forward also returns the MoE layers'
-        summed aux loss, which only its loss reads; the port's layers
-        compute it and drop it.)"""
+        cross-attending layer. The JAX forward also returns the MoE layers'
+        summed aux loss, which only its loss reads: here each MoE layer
+        appends its own to `aux` where a list is given (``loss_fn`` sums
+        them), and computes none otherwise."""
         cfg = self.cfg
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
@@ -468,7 +484,7 @@ class LM(nn.Module):
                 x = self._attention(blk, x, rope)[0]
             if kind != "attn":
                 x = self._cross(blk, x, src)
-            x = blk.mlp_residual(cfg, x)
+            x = blk.mlp_residual(cfg, x, aux)
         return self._logits(x)
 
     # ------------------------------------------------------------------
@@ -628,10 +644,11 @@ def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
             aux_weight: float = 0.01, z_weight: float = 1e-4):
     """The JAX ``loss_fn``: masked next-token cross-entropy over fp32
     logits plus ``z_weight`` times the mean squared log-partition and
-    ``aux_weight`` times the MoE aux loss (0 here: ``check_trainable``
-    refuses MoE configs, whose aux the blocks do not return yet). Returns
-    (total, {"ce", "z_loss", "aux", "tokens"}), each a 0-dim fp32 tensor."""
-    logits = model(tokens, frontend).float()
+    ``aux_weight`` times the MoE aux loss, summed over the MoE layers in
+    layer order from 0 (0 for a model without experts). Returns (total,
+    {"ce", "z_loss", "aux", "tokens"}), each a 0-dim fp32 tensor."""
+    layer_aux = []
+    logits = model(tokens, frontend, layer_aux).float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, targets.long()[..., None])[..., 0] - logz
     if mask is None:
@@ -639,7 +656,7 @@ def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
     denom = mask.sum().clamp_min(1.0)
     ce = -(ll * mask).sum() / denom
     zl = z_weight * (logz.square() * mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    aux = sum(layer_aux, torch.zeros((), dtype=torch.float32, device=logits.device))
     return ce + zl + aux_weight * aux, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
 
 
@@ -696,6 +713,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
 
 __all__ = ["LM", "Block", "EncDecBlock", "XAttnBlock", "RGLRUBlock", "RWKVBlock",
            "init_params", "init_cache",
-           "padded_vocab", "check_supported", "check_trainable", "loss_fn", "layer_kinds",
+           "padded_vocab", "check_supported", "check_trainable", "needs_frontend", "loss_fn",
+           "layer_kinds",
            "unit_structure", "kind_index",
            "VOCAB_PAD"]

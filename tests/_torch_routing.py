@@ -24,7 +24,7 @@ def record_routing(monkeypatch):
 
     def recorded(cfg, p, xt):
         out = route(cfg, p, xt)
-        records.append((out[2].cpu(), (xt.float() @ p["router"]).cpu()))
+        records.append((out[2].cpu(), (xt.float() @ p["router"]).detach().cpu()))
         return out
 
     monkeypatch.setattr(layers, "moe_route", recorded)
@@ -43,7 +43,7 @@ def replay_routing(monkeypatch, records, own=None):
     def replayed(cfg, p, xt):
         probs, _, idx = route(cfg, p, xt)
         if own is not None:
-            own.append((idx.cpu(), (xt.float() @ p["router"]).cpu()))
+            own.append((idx.cpu(), (xt.float() @ p["router"]).detach().cpu()))
         idx = torch.as_tensor(np.array(next(calls)[0]), dtype=torch.long, device=xt.device)
         gate = probs.gather(-1, idx)
         return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx

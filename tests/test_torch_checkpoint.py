@@ -21,7 +21,7 @@ from repro import models as jax_models
 from repro import training as jt
 from repro.checkpoint import Checkpointer as JaxCheckpointer
 from repro.checkpoint.checkpointer import _flatten as jax_flatten, _path_key
-from repro.configs import ARCHS as JAX_ARCHS, get_config as jax_get_config, \
+from repro.configs import get_config as jax_get_config, \
     smoke_config as jax_smoke
 from repro_torch import training as tt
 from repro_torch.checkpoint import Checkpointer
@@ -30,9 +30,23 @@ from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.distributed import FailureInjector, RestartManifest, StepMonitor
 from repro_torch.models import init_params, params_from_jax, params_to_jax
-from repro_torch.models.bridge import to_numpy
+from repro_torch.models.bridge import to_numpy, to_tensor
 
 ARCH = "qwen2-0.5b"     # qkv biases (bf16 leaves of 2 dims when stacked)
+# the MoE leaves (an fp32 router, bf16 experts of 3 dims, 4 when stacked),
+# the LayerNorm biases, the encoder's stacked layers and the decoder's
+# cross-attention, trained with a frontend
+CROSSING = ["granite-moe-3b-a800m", "whisper-tiny"]
+
+
+def frontend_of(cfg, B, step):
+    """A seeded normal bf16 frontend (numpy) of an audio or vision config,
+    else None."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    rng = np.random.default_rng(100 + step)
+    return np.asarray(jnp.asarray(rng.standard_normal((B, cfg.n_frontend_tokens, cfg.d_model)),
+                                  jnp.bfloat16))
 
 
 def bits(a) -> np.ndarray:
@@ -41,31 +55,39 @@ def bits(a) -> np.ndarray:
     return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize])
 
 
-def jax_state(steps=1):
+def jax_state(steps=1, arch=ARCH):
     """A JAX TrainState after `steps` steps (moments nonzero)."""
-    jcfg = jax_smoke(JAX_ARCHS[ARCH])
+    jcfg = jax_smoke(jax_get_config(arch))
     opt = jt.AdamW(lr=jt.constant_schedule(1e-3))
     state = jt.init_state(jcfg, opt, jax.random.PRNGKey(0))
-    step = jax.jit(jt.make_train_step(jcfg, opt))
+    fe = frontend_of(jcfg, 2, 0)
+    step = jax.jit(jt.make_train_step(jcfg, opt, has_frontend=fe is not None))
     rng = np.random.default_rng(0)
     for _ in range(steps):
         tok = jnp.asarray(rng.integers(0, jcfg.vocab_size, (2, 17)), jnp.int32)
-        state, _ = step(state, {"tokens": tok[:, :-1], "targets": tok[:, 1:]})
+        b = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+        if fe is not None:
+            b["frontend"] = jnp.asarray(fe)
+        state, _ = step(state, b)
     return state
 
 
-def port_state(seed=0):
-    cfg = smoke_config(get_config(ARCH))
+def port_state(seed=0, arch=ARCH):
+    cfg = smoke_config(get_config(arch))
     opt = tt.AdamW(lr=tt.constant_schedule(1e-3))
     return cfg, opt, tt.init_state(cfg, opt, seed, "cpu")
 
 
 def port_steps(cfg, opt, state, steps, start=0):
-    step = tt.make_train_step(cfg, opt)
+    step = tt.make_train_step(cfg, opt, has_frontend=frontend_of(cfg, 2, 0) is not None)
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 16, 2, seed=5))
     losses = []
     for s in range(start, start + steps):
-        state, met = step(state, {k: torch.from_numpy(v) for k, v in pipe.batch_at(s).items()})
+        b = {k: torch.from_numpy(v) for k, v in pipe.batch_at(s).items()}
+        fe = frontend_of(cfg, 2, s)
+        if fe is not None:
+            b["frontend"] = to_tensor(fe)
+        state, met = step(state, b)
         losses.append(float(met["loss"]))
     return state, losses
 
@@ -74,10 +96,11 @@ def jax_leaves(tree):
     return [(_path_key(p), np.asarray(leaf)) for p, leaf in jax_flatten(tree)[0]]
 
 
-def test_jax_checkpoint_restores_into_the_port_bit_for_bit(tmp_path):
-    jstate = jax_state()
+@pytest.mark.parametrize("arch", [ARCH] + CROSSING)
+def test_jax_checkpoint_restores_into_the_port_bit_for_bit(tmp_path, arch):
+    jstate = jax_state(arch=arch)
     JaxCheckpointer(str(tmp_path)).save(1, jstate, extra={"data_step": 1})
-    cfg, opt, state = port_state(seed=3)
+    cfg, opt, state = port_state(seed=3, arch=arch)
     tree, manifest = Checkpointer(str(tmp_path)).restore(tt.state_tree(state))
     tt.load_state_tree(state, tree)
     assert manifest["step"] == 1 and manifest["extra"] == {"data_step": 1}
@@ -89,13 +112,14 @@ def test_jax_checkpoint_restores_into_the_port_bit_for_bit(tmp_path):
     assert state.model.embed.dtype == torch.bfloat16 and int(state.opt.step) == 1
 
 
-def test_port_checkpoint_restores_in_jax_bit_for_bit(tmp_path):
-    cfg, opt, state = port_state()
+@pytest.mark.parametrize("arch", [ARCH] + CROSSING)
+def test_port_checkpoint_restores_in_jax_bit_for_bit(tmp_path, arch):
+    cfg, opt, state = port_state(arch=arch)
     state, _ = port_steps(cfg, opt, state, 1)
     Checkpointer(str(tmp_path / "port")).save(1, tt.state_tree(state), extra={"data_step": 1})
-    jstate = jax_state()
+    jstate = jax_state(arch=arch)
     JaxCheckpointer(str(tmp_path / "jax")).save(1, jstate, extra={"data_step": 1})
-    restored, manifest = JaxCheckpointer(str(tmp_path / "port")).restore(jax_state(0))
+    restored, manifest = JaxCheckpointer(str(tmp_path / "port")).restore(jax_state(0, arch))
     want = flatten(tt.state_tree(state))
     got = jax_leaves(restored)
     assert [k for k, _ in got] == [k for k, _ in want]

@@ -28,7 +28,8 @@ from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
                                                      attention_ref)
-from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_bwd_ref, silu_mul_ref
+from repro_torch.kernels.gelu.ref import (gelu_bwd_ref, gelu_mul_bwd_ref, gelu_mul_ref, gelu_ref,
+                                         silu_mul_bwd_ref, silu_mul_ref)
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
 from repro_torch.kernels.rglru.kernel import picks_chunked as rglru_picks_chunked
@@ -45,10 +46,11 @@ from repro_torch.kernels.matmul.kernel import (INT8_MAX_K, INT8_MMA_SYNC_TILES, 
 from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, matmul_int8_ref,
                                             matmul_reduce_ref, matmul_ref, quantize_fp8,
                                             quantize_int8)
-from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (layernorm_bwd_ref, layernorm_ref, rmsnorm_bwd_ref,
+                                            rmsnorm_ref)
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv.ref import wkv_ref
-from repro_torch.models.lm import LM, loss_fn
+from repro_torch.models.lm import LM, loss_fn, needs_frontend
 from repro_torch import training
 from repro_torch.serving import Engine, Request
 from repro_torch.serving import engine as engine_mod
@@ -114,7 +116,7 @@ def kernel_case(name, device, dtype):
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-    "rmsnorm_bwd", "silu_mul_bwd"}))
+    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -433,7 +435,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
-                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -444,7 +447,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
-                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -466,7 +470,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
-                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -477,7 +482,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_reduce": 0,
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
-                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0}
+                             "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -1584,6 +1590,183 @@ def test_silu_mul_bwd_matches_plain_on_card(cuda, shape, dtype):
         assert a.dtype == g.dtype and rel_err(a, w) < TOL[dtype]
         if dtype == "bfloat16":
             assert within_one_rounding(a, w)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("r,c", [(300, 2048), (4096, 384), (7, 1024), (4099, 896),
+                                 (100, 12288), (33, 2100), (1, 5000)])
+def test_layernorm_bwd_matches_plain_on_card(cuda, r, c, dtype):
+    """Whole rows (C <= 2048) and chunked ones (gpt3's 12288, a ragged 2100
+    and 5000 with one row): dx within one bf16 rounding, dg and db to 2e-5
+    in fp32 and the same bits in a second run."""
+    x = normal(62, (r, c), cuda, DTYPES[dtype]) * 3 + 1.5
+    g = normal(63, (c,), cuda, torch.float32)
+    dy = normal(64, (r, c), cuda, DTYPES[dtype])
+    fn = TK.KERNELS["layernorm_bwd"]
+    before = fn.launches
+    dx, dg, db = fn(x, g, dy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want_dx, want_dg, want_db = layernorm_bwd_ref(x, g, dy)
+    assert dx.dtype == x.dtype and dg.dtype == db.dtype == torch.float32
+    assert rel_err(dx, want_dx) < TOL[dtype]
+    assert rel_err(dg, want_dg) < TOL["float32"] and rel_err(db, want_db) < TOL["float32"]
+    if dtype == "bfloat16":
+        assert within_one_rounding(dx, want_dx)
+    again = fn(x, g, dy)
+    assert torch.equal(again[1], dg) and torch.equal(again[2], db)   # fixed-order sums
+
+
+def gelu_inputs(seed, shape, device, dtype, n):
+    """n tensors of `shape`, the first with elements where gelu' saturates
+    and where x^3 overflows fp32."""
+    ts = [normal(seed + i, shape, device, dtype) for i in range(n)]
+    ts[0] = ts[0] * 3
+    tails = torch.tensor([-1e30, -1e4, -20.0, -9.5, 9.5, 20.0, 1e4, 1e30], device=device)
+    k = min(8, ts[0].numel())
+    ts[0].view(-1)[:k] = tails[:k].to(dtype)
+    return ts
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(100, 256), (1000, 1536), (3, 1001), (8, 49152)])
+def test_gelu_bwd_matches_plain_on_card(cuda, shape, dtype):
+    x, dy = gelu_inputs(65, shape, cuda, DTYPES[dtype], 2)
+    fn = TK.KERNELS["gelu_bwd"]
+    before = fn.launches
+    got = fn(x, dy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = gelu_bwd_ref(x, dy)
+    assert got.dtype == x.dtype and torch.isfinite(got).all()
+    assert rel_err(got, want) < TOL[dtype]
+    assert within_one_rounding(got.view(-1)[:8], want.view(-1)[:8])      # the tails
+    if dtype == "bfloat16":
+        assert within_one_rounding(got, want)
+    off = fn(x.view(-1)[1:], dy.view(-1)[1:])        # bases off 16 bytes: the scalar variant
+    assert rel_err(off, gelu_bwd_ref(x.view(-1)[1:], dy.view(-1)[1:])) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(100, 256), (4096, 7680), (3, 1001)])
+def test_gelu_mul_bwd_matches_plain_on_card(cuda, shape, dtype):
+    g, u, dy = gelu_inputs(68, shape, cuda, DTYPES[dtype], 3)
+    fn = TK.KERNELS["gelu_mul_bwd"]
+    before = fn.launches
+    got = fn(g, u, dy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for a, w in zip(got, gelu_mul_bwd_ref(g, u, dy)):
+        assert a.dtype == g.dtype and torch.isfinite(a).all()
+        # past the tails: du = dy gelu(g) at g = 1e30 would swamp the rest
+        assert rel_err(a.view(-1)[8:], w.view(-1)[8:]) < TOL[dtype]
+        assert within_one_rounding(a.view(-1)[:8], w.view(-1)[:8])
+        if dtype == "bfloat16":
+            assert within_one_rounding(a, w)
+
+
+def opened_smoke(arch):
+    """`arch` at smoke size with the backward kernel's head dim 64."""
+    return dataclasses.replace(smoke_config(get_config(arch)), d_head=64)
+
+
+def opened_bwd_launches(cfg):
+    """The backward launches of one train step of `cfg` (no qk-norm): a
+    flash backward per self-, cross- and encoder attention, a norm backward
+    per norm (two a layer, an encoder-decoder's lnx, the final norms) and
+    one of the MLP's activation per layer (an MoE layer's experts share
+    one)."""
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    cross = L if cfg.cross_attention else 0
+    norm = "layernorm_bwd" if cfg.norm == "layernorm" else "rmsnorm_bwd"
+    mlp = "silu_mul_bwd" if cfg.mlp_gated else "gelu_bwd"
+    return {"flash_attention_bwd_wgmma": L + E + cross,
+            norm: 2 * (L + E) + 1 + (1 if E else 0) + cross, mlp: L + E}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "stablelm-1.6b", "gpt3-175b",
+                                  "whisper-tiny", "llama-3.2-vision-11b"])
+def test_opened_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
+    """Each config this slice opens, at smoke size: the loss (aux too) and
+    every parameter's gradient of the kernel path against the plain path on
+    the CPU, on the same weights, frontend and routing (granite's recorded on
+    the CPU and replayed on the card); then one train step with exact
+    backward launches."""
+    cfg = opened_smoke(arch)
+    cpu = models.init_params(cfg, seed=0, device="cpu").requires_grad_(True)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("xgate"):
+                p.fill_(0.5)
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.requires_grad_(True)
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 97), dtype=np.int32))
+    fe = None
+    if needs_frontend(cfg):
+        fe = torch.from_numpy(rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model),
+                                                  dtype=np.float32)).bfloat16()
+    grads = []
+    records = []
+    for model, device in ((cpu, "cpu"), (gpu, cuda)):
+        with monkeypatch.context() as m:
+            if cfg.n_experts:
+                if device == "cpu":
+                    records = record_routing(m)
+                else:
+                    replay_routing(m, records)
+            loss, met = loss_fn(model, tok[:, :-1].to(device), tok[:, 1:].to(device),
+                                frontend=None if fe is None else fe.to(device))
+            params = dict(model.named_parameters())
+            grads.append((loss.item(), met["aux"].item(), dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))))
+    (want_loss, want_aux, want), (got_loss, got_aux, got) = grads
+    assert abs(got_loss - want_loss) < 2e-2 and abs(got_aux - want_aux) < 2e-2 * max(want_aux, 1)
+    assert (want_aux > 0) == bool(cfg.n_experts)
+    for n, g in got.items():
+        w = want[n].float()
+        assert g.dtype == want[n].dtype
+        if n.endswith(".bk"):       # 0 in exact arithmetic: the softmax ignores a row's shift
+            assert g.float().norm() < 2e-2 * want[n[:-1] + "q"].float().norm(), n
+            continue
+        assert ((g.float().cpu() - w).norm() / w.norm().clamp_min(1e-30)).item() < 2e-2, n
+    opt = training.AdamW(lr=training.constant_schedule(1e-3))
+    state = training.TrainState(gpu, opt.init(dict(gpu.named_parameters())))
+    step = training.make_train_step(cfg, opt, has_frontend=fe is not None)
+    batch = {"tokens": tok[:, :-1].to(cuda), "targets": tok[:, 1:].to(cuda)}
+    if fe is not None:
+        batch["frontend"] = fe.to(cuda)
+    TK.reset_launches()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    counts = TK.launches()
+    bwd = {k: n for k, n in counts.items() if k.endswith("_bwd") or k.endswith("_bwd_wgmma")}
+    assert bwd == {**dict.fromkeys(bwd, 0), **opened_bwd_launches(cfg)}
+    assert torch.isfinite(met["loss"]) and int(state.opt.step) == 1
+
+
+@pytest.mark.parametrize("arch", ["gpt3-175b", "granite-moe-3b-a800m", "whisper-tiny"])
+def test_opened_serving_with_grad_enabled_builds_no_graph_on_card(cuda, arch):
+    """LayerNorm, GELU and MoE models serve with grad mode on through their
+    forward kernels alone: no backward launch, no graph."""
+    cfg = opened_smoke(arch)
+    model = models.init_params(cfg, seed=0, device=cuda)
+    cache = models.init_cache(cfg, 2, 32, device=cuda)
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    fe = None
+    if needs_frontend(cfg):
+        fe = torch.zeros((2, cfg.n_frontend_tokens, cfg.d_model), dtype=torch.bfloat16,
+                         device=cuda)
+    with torch.enable_grad():
+        TK.reset_launches()
+        out = [model.prefill(toks, cache, frontend=fe), model.decode_step(toks[:, 0], cache),
+               model(toks, fe)]
+        torch.cuda.synchronize()
+        assert all(o.grad_fn is None for o in out)
+        counts = TK.launches()
+        assert not any(n for k, n in counts.items() if "bwd" in k)
+        assert counts["layernorm" if cfg.norm == "layernorm" else "rmsnorm"] > 0
 
 
 def trainable_smoke():

@@ -1105,7 +1105,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "flash_attention_bwd_wgmma": (torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),) * 5
             + (torch.zeros(2, 4, 8),),
             "rmsnorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
-            "silu_mul_bwd": (x, x, x)}[name]
+            "silu_mul_bwd": (x, x, x),
+            "layernorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
+            "gelu_bwd": (x, x),
+            "gelu_mul_bwd": (x, x, x)}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 

@@ -428,13 +428,18 @@ def test_ops_build_no_graph_without_grad():
 # ---------------- what trains ----------------
 
 REFUSED = {
-    "norm": dict(norm="layernorm"),
-    "activation": dict(activation="gelu"),
     "attn_window": dict(attn_window=16),
     "attn_logit_softcap": dict(attn_logit_softcap=30.0),
-    "n_experts": dict(family="moe", n_experts=4, top_k=2),
     "attention_free": dict(family="ssm"),
     "block_pattern": dict(family="hybrid", block_pattern=("rglru", "rglru", "attn")),
+}
+
+# the fields a LayerNorm, GELU and gated-GELU backward, the MoE aux loss and
+# a frontend in the train step opened
+ADMITTED = {
+    "norm": dict(norm="layernorm"),
+    "activation": dict(activation="gelu"),
+    "n_experts": dict(family="moe", n_experts=4, top_k=2),
     "cross_attention": dict(family="audio", cross_attention=True, n_encoder_layers=2,
                             n_frontend_tokens=16, qk_norm=False),
     "cross_attn_layers": dict(family="vlm", cross_attn_layers=(1,), n_frontend_tokens=16),
@@ -444,22 +449,38 @@ REFUSED = {
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_check_trainable_names_each_refused_field(field):
     cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), **REFUSED[field])
-    with pytest.raises(NotImplementedError, match=f"{field}="):
+    with pytest.raises(NotImplementedError, match=f"{field}=.*ROADMAP B2[345]"):
         check_trainable(cfg)
 
 
-def test_check_trainable_takes_exactly_the_dense_qwens():
+@pytest.mark.parametrize("field", sorted(ADMITTED))
+def test_check_trainable_admits_each_opened_field(field):
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), **ADMITTED[field])
+    check_trainable(cfg)
+
+
+# every config but those with a window or softcap (B23), RWKV6 (B24) and
+# Griffin (B25)
+TRAINS = TRAINABLE + ("stablelm-1.6b", "granite-moe-3b-a800m", "whisper-tiny",
+                      "llama-3.2-vision-11b", "gpt3-175b")
+
+
+def test_check_trainable_takes_exactly_the_opened_configs():
     for arch, cfg in {**ARCHS, **EXTRA_ARCHS}.items():
-        if arch in TRAINABLE:
+        if arch in TRAINS:
             check_trainable(cfg)
             check_trainable(smoke_config(cfg))
         else:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(NotImplementedError, match="ROADMAP B2[345]"):
                 check_trainable(cfg)
+    assert set(TRAINS) < set(ARCHS) | set(EXTRA_ARCHS)
 
 
-def test_train_launcher_runs_on_cpu(tmp_path, capsys):
-    state = train_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu", "--preset",
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-tiny"])
+def test_train_launcher_runs_on_cpu(tmp_path, capsys, arch):
+    """The launcher on the CPU: three steps, a checkpoint each; whisper-tiny
+    with the zero frontend the JAX launcher gives it."""
+    state = train_launcher.main(["--arch", arch, "--device", "cpu", "--preset",
                                  "tiny", "--steps", "3", "--batch", "2", "--seq", "16",
                                  "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
@@ -468,5 +489,5 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     assert (tmp_path / "step_2" / "manifest.json").exists()
     with pytest.raises(NotImplementedError, match="A12"):
         train_launcher.main(["--device", "cpu", "--data", "2"])
-    with pytest.raises(NotImplementedError, match="norm="):
-        train_launcher.main(["--arch", "stablelm-1.6b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="attention_free="):
+        train_launcher.main(["--arch", "rwkv6-7b", "--device", "cpu"])
