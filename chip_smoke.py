@@ -230,15 +230,29 @@ result line):
                attention on CUDA, the TMA + wgmma kernel given the forward's
                log-sum-exp and the mma.sync one; RMSNorm, LayerNorm and the
                SwiGLU gate on Triton; GELU and the gated GELU on CUDA, the
-               backward modes of gelu.cu; no TPU counterpart, JAX
-               differentiates in XLA),
+               backward modes of gelu.cu; the RG-LRU scan's, rglru_bwd.cu;
+               no TPU counterpart, JAX differentiates in XLA),
                each against its plain version on the card: flash at
                qwen3-1.7b's (8, 16, 512, 128) / (8, 8, 512, 128) causal and
                qwen2-0.5b's 14:2 heads at D = 64, lengths that cut a 64- and
                a 128-row tile and non-causal, on the model's transposed views
                (relative error below 2e-2, the same bits in a second run),
                the forward's log-sum-exp to fp32 2e-5 and the served forward
-               (no log-sum-exp) bit for bit the same; RMSNorm at (4096,
+               (no log-sum-exp) bit for bit the same; the wgmma backward
+               under a window, a softcap and at D = 256
+               (``FLASH_BWD_MODES``: recurrentgemma-2b's (8, 10, 512, 256) on
+               1 kv-head under its window of 2048 and (1, 10, 4096, 256),
+               which the window cuts, windows of 32 and 48 at D 64 and 128 on
+               odd lengths, grok-1-314b's (8, 48, 512, 128) on 8 under its
+               softcap of 30, window and softcap together, also at D = 256),
+               each with the forward's log-sum-exp to fp32 2e-5, per element
+               (``attention_excess`` at most 1) and bit-equal in a second
+               run, and the mma.sync backward under them at a sequence
+               stride of D + 4; the RG-LRU backward at (8, 512, 2560) and a
+               (2, 333, 2560) with h0 and the final state's gradient, ga at
+               -40 on a quarter of the channels (fp32 gradients to 1e-4, the
+               bf16 du and dgate within one rounding, bit-equal in a second
+               run); RMSNorm at (4096,
                2048), the q- and k-norm's (65536, 128) and (32768, 128), an
                odd shape and fp32 (dx within one bf16 rounding per element,
                dg to 2e-5 and the same in a second run); LayerNorm the same
@@ -261,30 +275,43 @@ result line):
                RMSNorm backward beside the design it replaced, each design's
                row pass and column sum apart, at the three norm shapes; the
                LayerNorm backward's row pass and column sum apart at its four
-               shapes;
+               shapes; the wgmma backward's modes at recurrentgemma's two
+               shapes and grok's, each launch apart, beside the plain version
+               and SDPA's backward (the window as a band mask, no softcap);
+               the RG-LRU backward at (8, 512, 2560) beside its plain
+               version (no PyTorch call scans);
   9. train   - gradient checks (``TRAIN_CHECKS``): each trained config at
                full width cut to a few layers (qwen3-1.7b, stablelm-1.6b and
                granite-moe-3b-a800m to 2, gpt3-175b to 1, whisper-tiny whole,
-               llama-3.2-vision-11b to its 5-layer unit): the loss and every
+               llama-3.2-vision-11b to its 5-layer unit, recurrentgemma-2b
+               to its 3-layer unit at 1 x 2304 tokens, past its window, its
+               RG-LRU decays unhidden, grok-1-314b to 1 layer with 4 of its
+               8 experts): the loss and every
                parameter's gradient of one step on the card against the CPU
                plain path in bf16 and an fp32 CPU run, each leaf no further
                from fp32 than 1.5 times the bf16 CPU path (a key bias, whose
                gradient is 0 in exact arithmetic, below 0.1 of its query
                bias's), the loss within 2e-2; cross-attending models with a
                seeded stub frontend and their cross branch unhidden, granite
-               with the bf16 CPU run's routing replayed; then the train runs
+               and grok with the bf16 CPU run's routing replayed; then the
+               train runs
                (``TRAIN_RUNS``), each at full width, 8 steps of AdamW on one
                repeated batch of 8 x 512 tokens from TokenPipeline (a seeded
                stub frontend for whisper and llama): qwen3-1.7b,
                stablelm-1.6b and granite-moe-3b-a800m whole, gpt3-175b at 1
-               of 96 layers, whisper-tiny whole and llama-3.2-vision-11b at
-               10 of 40 layers (depths reckoned beside ``TRAIN_RUNS``): the
+               of 96 layers, whisper-tiny whole, llama-3.2-vision-11b at
+               10 of 40 layers, recurrentgemma-2b whole and grok-1-314b at 1
+               of 64 layers with 4 of its 8 experts (depths reckoned beside
+               ``TRAIN_RUNS``): the
                loss falls at every step and by 0.5 in all; per step wall ms,
                tokens/s and model-FLOPs share (6 x active parameters x
                tokens, ``model_flops``), the peak memory, and exactly the
                launches ``train_launches`` gives at every step (qwen3: 28
                flash backward on the wgmma kernel, 113 RMSNorm backward, 28
-               SwiGLU backward and 28, 113, 28 of their forwards); qwen3's
+               SwiGLU backward and 28, 113, 28 of their forwards;
+               recurrentgemma: 8 flash, 18 rglru_chunked, 18 gelu, 26
+               gelu_mul and 53 rmsnorm and as many of their backward, the
+               scan's on rglru_bwd); qwen3's
                and gpt3's runs again from the same seed with their last 2
                steps under torch.profiler (device ms a step, the largest
                device events), granite's run again plainly: whether each
@@ -452,6 +479,21 @@ def attention_excess(a, b):
     return ((a - b).abs() / (2.0 ** -6 * b.abs() + 2.0 ** -5 * rms)).max().item()
 
 
+def grad_excess(a, b):
+    """``attention_excess`` for attention's gradients dq, dk, dv: the same
+    per-element bound plus 2^-7 of b's rms over the whole tensor. A
+    gradient row can be a cancellation whose exact value is 0 (dq of a
+    query that sees one key: dP = delta there), so its own rms bounds
+    nothing: the kernel's and the plain version's sums in another order
+    leave noise of the size of the terms cancelled, which the tensor's rms
+    measures. A dropped or doubled tile moves a row by a share of its rms,
+    of the tensor's size, and still fails."""
+    a, b = a.float(), b.float()
+    rms = b.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = 2.0 ** -7 * b.pow(2).mean().sqrt()
+    return ((a - b).abs() / (2.0 ** -6 * b.abs() + 2.0 ** -5 * rms + floor)).max().item()
+
+
 class Inputs:
     """Normal inputs on the card from one seeded generator."""
 
@@ -471,7 +513,7 @@ def phase_build(torch):
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
                             "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
-                            "flash_attention_bwd", "flash_attention_bwd_sm90"])
+                            "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -513,6 +555,11 @@ def phase_build(torch):
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     for steps in SEGMENT_STEPS:
         print(f"[build] rglru_chunked.cu {steps} steps a segment: {smem(steps)} bytes of "
+              "dynamic shared memory")
+    smem = _build.load("rglru_bwd").rglru_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for steps in SEGMENT_STEPS:
+        print(f"[build] rglru_bwd.cu {steps} steps a segment: {smem(steps)} bytes of "
               "dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import (gelu_triton, silu_mul_bwd_triton,
                                                  silu_mul_triton)
@@ -1198,12 +1245,16 @@ def phase_e4m3_probe(torch):
     return passed
 
 
-def served_config(arch, n_layers):
+def served_config(arch, n_layers, n_experts=None):
+    """`arch`'s full config, cut to `n_layers` layers and to `n_experts`
+    experts (the first of them, top-k kept) where given."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if n_layers is None:
-        return cfg
-    return dataclasses.replace(cfg, n_layers=n_layers, name=f"{arch}-{n_layers}l")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, name=f"{arch}-{n_layers}l")
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=n_experts, name=f"{cfg.name}-{n_experts}e")
+    return cfg
 
 
 def prefill_attention(cfg):
@@ -1709,6 +1760,17 @@ def phase_model(torch, arch, n_layers, S, steps, short=None, T=None):
         require(beyond == 0, f"{cfg.name}: {beyond} routing choices flipped beyond the margin")
     del gpu, cpu, cc, cg
     torch.cuda.empty_cache()
+
+
+def unhide_recurrence(torch, model):
+    """In place: every RG-LRU ``lam`` to seeded values in [-6, 1], so that
+    the recurrence gates a reach 0.99 and the scan carries its state (and
+    its backward its gradient) over many steps; at the init's 3.0 every a is
+    about 5e-6 (as in ``tests/test_torch_train_hybrid.py``)."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    for name, p in model.named_parameters():
+        if name.endswith("rec.lam"):
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda") * 7.0 - 6.0)
 
 
 def unhide_cross_attention(torch, model):
@@ -2611,6 +2673,8 @@ BACKWARD = {
                  "src/repro/kernels/gelu/kernel.py:29"),
     "gelu_mul_bwd": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu",
                      "src/repro/models/layers.py:341"),
+    "rglru_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+                  "src/repro/models/recurrent.py:206"),
 }
 # the backward checks beyond the three of PR 24: LayerNorm at stablelm's and
 # gpt3's rows (whole rows, and gpt3's in chunks), whisper's decoder and
@@ -2634,7 +2698,9 @@ GELU_BWD_TIMED = (("gelu_bwd", (4096, 49152), "gpt3-175b MLP"),
 # move every weight by about the rate), at 5e-5 it falls at each step; the
 # narrow whisper-tiny falls ~0.04 a step at 5e-5 and takes 3e-4; the
 # 10-layer llama fell from 12.56 to 0.10 in one step at 5e-5, and at 1e-5
-# reached 0.040 at step 5 and rose at step 7: it takes 2.5e-6 (H100 runs).
+# reached 0.040 at step 5 and rose at step 7: it takes 2.5e-6 (H100 runs);
+# recurrentgemma-2b at 5e-5 fell to 0.039 at step 2 and rose at step 3, and
+# grok-1l-4e to 0.065 at step 3 and rose after: both take 1e-5.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 # the profiled run traces its last PROFILED_STEPS steps (the profiler adds
 # ~6 s of host time to each of qwen3's steps)
@@ -2654,9 +2720,14 @@ PROFILED_STEPS = 2
 #   llama-3.2-vision-11b 10 of 40 layers (2 of its 5-layer units, cross
 #     layers 3 and 8): 3.23 G, 48 GiB; peak 57.6 GiB, ~3 GiB more a layer, so
 #     15 layers (4.32 G, 64 GiB) would peak near 72.6 GiB, past 71.6.
+#   recurrentgemma-2b whole: 2.89 G parameters, 40 GiB with the gradients;
+#   grok-1-314b 1 of 64 layers with 4 of its 8 experts (top-2 kept): 4.11 G,
+#     57 GiB with the gradients; all 8 experts would be 6.53 G, 91 GB
+#     before any activation, past the card.
 TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-5, None),
               ("granite-moe-3b-a800m", None, 5e-5, "rerun"), ("gpt3-175b", 1, 5e-5, "profile"),
-              ("whisper-tiny", None, 3e-4, None), ("llama-3.2-vision-11b", 10, 2.5e-6, None))
+              ("whisper-tiny", None, 3e-4, None), ("llama-3.2-vision-11b", 10, 2.5e-6, None),
+              ("recurrentgemma-2b", None, 1e-5, None), ("grok-1-314b", 1, 1e-5, None, 4))
 # the gradient checks: (arch, layers or None, batch, sequence), full width at
 # a cut the CPU runs in seconds; per leaf the card no further from an fp32
 # CPU run than TRAIN_FP32_FACTOR times the bf16 CPU path is (the rule
@@ -2664,22 +2735,58 @@ TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-
 # path's; cross-attending models with a seeded stub frontend and their
 # cross branch unhidden (``unhide_cross_attention``), granite with the CPU's
 # routing replayed on the card and in the fp32 run
+# (recurrentgemma at its 3-layer unit past its 2048 window, its RG-LRU
+# decays unhidden; grok at 1 layer with 4 of its 8 experts, with an extra
+# field for the experts)
 TRAIN_CHECKS = (("qwen3-1.7b", 2, 2, 128), ("stablelm-1.6b", 2, 2, 64),
                 ("granite-moe-3b-a800m", 2, 2, 64), ("gpt3-175b", 1, 2, 16),
-                ("whisper-tiny", None, 2, 128), ("llama-3.2-vision-11b", 5, 2, 32))
+                ("whisper-tiny", None, 2, 128), ("llama-3.2-vision-11b", 5, 2, 32),
+                ("recurrentgemma-2b", 3, 1, 2304), ("grok-1-314b", 1, 2, 16, 4))
 TRAIN_FP32_FACTOR = 1.5
 KEY_BIAS_LIMIT = 0.1   # the key bias's gradient over its query bias's (0 exactly)
 CKPT_ARCH, CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = "qwen3-1.7b", 6, 2, 8, 256
+# the flash backward under a window, a softcap and at D = 256: (B, Hq, Hkv,
+# S, D, window, softcap, q scale, what); q scaled where a softcap is on, so
+# that the logits (about 8) bend under it; timed where `what` is set
+FLASH_BWD_MODES = (
+    (8, 10, 1, 512, 256, 2048, 0.0, 1.0, "recurrentgemma-2b train shape (window 2048 past S)"),
+    (1, 10, 1, 4096, 256, 2048, 0.0, 1.0, "recurrentgemma-2b past its window (cuts)"),
+    (2, 8, 2, 333, 64, 32, 0.0, 1.0, None), (2, 8, 2, 301, 128, 48, 0.0, 1.0, None),
+    (1, 4, 2, 777, 64, 48, 0.0, 1.0, None), (2, 6, 2, 419, 128, 32, 0.0, 1.0, None),
+    (8, 48, 8, 512, 128, 0, 30.0, 8.0, "grok-1-314b train shape (softcap 30)"),
+    (2, 8, 2, 400, 128, 100, 20.0, 6.0, None), (1, 10, 1, 700, 256, 200, 30.0, 8.0, None))
+# the RG-LRU backward: (B, T, h0 and the final state's gradient given, what)
+RGLRU_BWD_CHECKS = ((8, 512, False, "recurrentgemma-2b train shape"), (2, 333, True, None))
 
 
-def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal):
-    """q, k, v, do as the model's transposed (B, S, H, D) views, and o and
-    the rows' log-sum-exp from the forward kernel as a train step runs it."""
+def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal, window=0, softcap=0.0,
+                     q_scale=1.0):
+    """q (times `q_scale`), k, v, do as the model's transposed (B, S, H, D)
+    views, and o and the rows' log-sum-exp from the forward kernel as a
+    train step runs it."""
     from repro_torch.kernels.flash_attention.kernel import attention_cuda
     bf = torch.bfloat16
     q, k, v, do = (rnd((B, S, h, D), bf).transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
-    o, lse = attention_cuda(q, k, v, causal=causal, with_lse=True)
+    if q_scale != 1.0:
+        q = (q * q_scale).transpose(1, 2).contiguous().transpose(1, 2)
+    o, lse = attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                            with_lse=True)
     return q, k, v, o, do, lse
+
+
+def live_pairs(S, window):
+    """The (query, key) pairs of a causal head of S rows that a window (0:
+    none) leaves live."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def band_mask(torch, S, window):
+    """The (S, S) bool mask of a causal window, True where a key is live: the
+    window as SDPA takes it."""
+    i = torch.arange(S, device="cuda")
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
 
 def phase_bwd(torch):
@@ -2694,6 +2801,7 @@ def phase_bwd(torch):
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
     from repro_torch.kernels.gelu.ref import gelu_bwd_ref, gelu_mul_bwd_ref, silu_mul_bwd_ref
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_bwd_ref, rmsnorm_bwd_ref
     bf, f32 = torch.bfloat16, torch.float32
     rnd = Inputs(torch, 11)
@@ -2744,6 +2852,79 @@ def phase_bwd(torch):
         print(f"[bwd] flash forward {label}: L within {e_lse:.3e} of the plain one (fp32 "
               f"{TOL['float32']:g}, relative to max(|L|, 1)); the served forward without L "
               "gives the same output bits ok")
+    # the modes a window, a softcap and D = 256 open (recurrentgemma-2b,
+    # grok-1-314b), on the wgmma backward; then the mma.sync one under a
+    # window and a softcap at a sequence stride TMA cannot take (D + 4)
+    for B, Hq, Hkv, S, D, window, cap, qs, _ in FLASH_BWD_MODES:
+        kw = dict(causal=True, window=window, softcap=cap)
+        q, k, v, o, do, lse = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, True, window, cap,
+                                               qs)
+        label = (f"q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) window={window} softcap={cap:g}"
+                 + (f" q x{qs:g}" if qs != 1.0 else ""))
+        want_lse = attention_lse_ref(q, k, **kw)
+        e_lse = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        require(e_lse < TOL["float32"], f"forward L {label}: error {e_lse:.3e}")
+        want = attention_bwd_ref(q, k, v, o, do, **kw)
+        run = lambda: KERNELS["flash_attention_bwd_wgmma"](q, k, v, o, do, lse, **kw)
+        got = run()
+        e = [held("flash_attention_bwd_wgmma", label, "bfloat16", g, w) for g, w in zip(got, want)]
+        excess = max(grad_excess(g, w) for g, w in zip(got, want))
+        require(excess <= 1, f"flash_attention_bwd_wgmma {label}: per-element excess {excess:.3f}")
+        again = run()
+        require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"flash_attention_bwd_wgmma {label}: dq, dk or dv differ from run to run")
+        print(f"[bwd] flash_attention_bwd_wgmma {label}, model views: rel_err dq {e[0]}, dk "
+              f"{e[1]}, dv {e[2]} (tol {TOL['bfloat16']:g}), per-element excess {excess:.3f} "
+              f"(<= 1), the same bits in a second run; forward L within {e_lse:.3e} ok")
+        del q, k, v, o, do, lse, want, got, again
+    for D, window, cap in ((64, 32, 0.0), (128, 0, 30.0), (128, 64, 20.0)):
+        q, k, v, do = (rnd((2, h, 300, D + 4), bf)[..., :D] for h in (8, 2, 2, 8))
+        q = q * 6
+        kw = dict(causal=True, window=window, softcap=cap)
+        label = f"q(2,8,300,{D}) kv(2,2,300,{D}) sequence stride {D + 4} window={window} " \
+                f"softcap={cap:g}"
+        o = KERNELS["flash_attention"](q, k, v, **kw)
+        want = attention_bwd_ref(q, k, v, o, do, **kw)
+        got = KERNELS["flash_attention_bwd"](q, k, v, o, do, **kw)
+        e = [held("flash_attention_bwd", label, "bfloat16", g, w) for g, w in zip(got, want)]
+        excess = max(grad_excess(g, w) for g, w in zip(got, want))
+        require(excess <= 1, f"flash_attention_bwd {label}: per-element excess {excess:.3f}")
+        again = KERNELS["flash_attention_bwd"](q, k, v, o, do, **kw)
+        require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"flash_attention_bwd {label}: dq, dk or dv differ from run to run")
+        print(f"[bwd] flash_attention_bwd {label}: rel_err dq {e[0]}, dk {e[1]}, dv {e[2]}, "
+              f"per-element excess {excess:.3f}, the same bits in a second run ok")
+    # the RG-LRU backward at recurrentgemma's width, ga at -40 on a quarter
+    # of the channels (the clamp holds there), from the segments' states
+    # the chunked forward wrote
+    from repro_torch.kernels.rglru.kernel import segment_steps, segments
+    for B, T, given, _ in RGLRU_BWD_CHECKS:
+        u, ga, gx, lam, gate, h0 = rglru_inputs(torch, rnd, B, T, 2560, given)
+        ga[..., :640] = -40.0
+        dy = rnd((B, T, 2560), f32)
+        dh_last = rnd((B, 2560), f32) if given else None
+        steps = segment_steps(T)
+        h_seg = torch.empty((B, segments(T, steps), 2560), device="cuda")
+        KERNELS["rglru_chunked"](u, ga, gx, lam, gate, h0, h_seg=h_seg)
+        run = lambda: KERNELS["rglru_bwd"](u, ga, gx, lam, gate, h_seg, dy, dh_last,
+                                           with_dh0=given)
+        got, want = run(), rglru_bwd_ref(u, ga, gx, lam, gate, h0, dy, dh_last)
+        # the fp32 gradients to RGLRU_TOL; the bf16 du and dgate (each side
+        # rounds its fp32 value once) within one bf16 rounding per element
+        names = ("du", "dga", "dgx", "dlam", "dgate", "dh0")
+        e = [held("rglru_bwd", f"({B},{T},2560) {n}", "bfloat16", g, w, elementwise=True)
+             if w.dtype == bf else
+             held("rglru_bwd", f"({B},{T},2560) {n}", "float32", g, w, tol=RGLRU_TOL)
+             for n, g, w in zip(names, got, want) if w is not None]
+        again = run()
+        require(all(a is None or torch.equal(a, g) for a, g in zip(again, got)),
+                f"rglru_bwd ({B},{T}): a gradient differs from run to run")
+        print(f"[bwd] rglru_bwd u,gate,ga,gx,dy ({B},{T},2560), {steps} steps a segment"
+              + (", h0 and the final state's gradient given" if given else "")
+              + ": rel_err " + ", ".join(f"{n} {x}" for n, x in zip(names, e))
+              + f" (fp32 {RGLRU_TOL:g}; the bf16 du and dgate within one bf16 rounding per "
+              "element), the same bits in a second run ok")
+        del u, ga, gx, gate, dy, h_seg, got, want, again
     for R, C, dt in ((4096, 2048, bf), (65536, 128, bf), (32768, 128, bf), (4099, 896, bf),
                      (1000, 2048, f32)):
         x, g, dy = rnd((R, C), dt) * 3, rnd((C,), f32), rnd((R, C), dt)
@@ -2805,12 +2986,13 @@ def phase_bwd(torch):
 
     def add(name, label, kernel, plain, library, nbytes, flops, rate):
         ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-        lib_ms = time_ms(torch, library)
+        lib_ms = None if library is None else time_ms(torch, library)
         b_ms, b_by = bound(nbytes, flops, rate)
         route, source, replaces = BACKWARD[name]
         print(f"[timing] {name:16s} {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"library {lib_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
-              f"{b_ms / ms * 100:.1f}% of bound")
+              f"library " + ("none (no PyTorch call computes it)" if lib_ms is None
+                             else f"{lib_ms:.5f} ms")
+              + f", bound {b_ms:.5f} ms ({b_by}), {b_ms / ms * 100:.1f}% of bound")
         rows[name] = {"name": name, "route": route, "source": source, "replaces": replaces,
                       "launches": 0, "max_abs_err": errs[name],
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2880,6 +3062,73 @@ def phase_bwd(torch):
         print(f"[timing] flash_attention_bwd_wgmma {label}: {whole:.5f} ms, "
               f"{statistics.mean(times['SDPA backward']) / whole:.3f}x SDPA's backward speed, "
               f"{b_ms / whole * 100:.1f}% of bound")
+    # the modes at recurrentgemma's and grok's train shapes: each launch
+    # apart, beside the plain version and SDPA's backward (the window as a
+    # band mask; without the softcap, which no PyTorch call takes)
+    for B, Hq, Hkv, S, D, window, cap, qs, what in FLASH_BWD_MODES:
+        if what is None:
+            continue
+        kw = dict(causal=True, window=window, softcap=cap)
+        q, k, v, o, do, lse = flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, True, window, cap,
+                                               qs)
+        nbytes = 2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
+        flops = 5 * 2 * B * Hq * live_pairs(S, window) * D
+        if window and window < S:
+            mask = band_mask(torch, S, window)
+            library = grad_of(lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=mask, enable_gqa=True), (q, k, v), do)
+            lib_note = "SDPA backward with the window as a bool band mask"
+        else:
+            library = grad_of(lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True, enable_gqa=True), (q, k, v), do)
+            lib_note = "SDPA backward, causal" + (" (no softcap: SDPA takes none)" if cap else "")
+        bwd = KERNELS["flash_attention_bwd_wgmma"]
+        steps = {"dq launch": lambda: bwd(q, k, v, o, do, lse, **kw, phases=1),
+                 "dk/dv launch": lambda: bwd(q, k, v, o, do, lse, **kw, phases=2),
+                 "both launches": lambda: bwd(q, k, v, o, do, lse, **kw),
+                 lib_note: library}
+        times = {name: [] for name in steps}
+        for turn in range(2):
+            for name in (steps if turn == 0 else reversed(list(steps))):
+                times[name].append(time_ms(torch, steps[name]))
+        ms = {name: statistics.mean(t) for name, t in times.items()}
+        plain_ms = time_ms(torch, lambda: attention_bwd_ref(q, k, v, o, do, **kw), iters=5)
+        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        label = f"{what}: q({B},{Hq},{S},{D}) kv({B},{Hkv},{S},{D}) window={window} " \
+                f"softcap={cap:g}, the model's views"
+        print(f"[timing] flash_attention_bwd_wgmma {label}: " + ", ".join(
+            f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
+              + f" (two turns, the second in reverse order); plain {plain_ms:.5f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}), {b_ms / ms['both launches'] * 100:.1f}% of it; "
+              f"{ms[lib_note] / ms['both launches']:.3f}x the library call's speed")
+        rows["flash_attention_bwd_wgmma"]["shapes"].append({
+            "shape": label, "ms": ms["both launches"], "dq_ms": ms["dq launch"],
+            "dkdv_ms": ms["dk/dv launch"], "plain_ms": plain_ms, "library_ms": ms[lib_note],
+            "library": lib_note, "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, o, do, lse, library
+    torch.cuda.empty_cache()
+    # the RG-LRU backward at recurrentgemma's train shape: both launches (the
+    # scan, dlam's batch sum) beside the plain version; no PyTorch call scans
+    from repro_torch.kernels.rglru.kernel import segment_steps, segments
+    for B, T, given, what in RGLRU_BWD_CHECKS:
+        if what is None:
+            continue
+        d = 2560
+        u, ga, gx, lam, gate, _ = rglru_inputs(torch, rnd, B, T, d, False)
+        dy = rnd((B, T, d), f32)
+        steps = segment_steps(T)
+        h_seg = torch.empty((B, segments(T, steps), d), device="cuda")
+        KERNELS["rglru_chunked"](u, ga, gx, lam, gate, h_seg=h_seg)
+        n = B * T * d
+        # u, gate (2 bytes), ga, gx, dy (4) read; du, dgate (2), dga, dgx (4)
+        # written; h_seg, lam read and dlam written once; ~40 fp32 operations
+        # an element
+        nbytes = 28 * n + 4 * h_seg.numel() + 8 * d
+        add("rglru_bwd", f"{what}: u,gate,ga,gx,dy ({B},{T},{d}), {steps} steps a segment",
+            lambda: KERNELS["rglru_bwd"](u, ga, gx, lam, gate, h_seg, dy),
+            lambda: rglru_bwd_ref(u, ga, gx, lam, gate, None, dy), None, nbytes, 40 * n,
+            FP32_FLOPS)
+        del u, ga, gx, gate, dy, h_seg
     # RMSNorm: the model's norms (4096, 2048), the q-norm over qwen3's 16
     # heads (65536, 128) and the k-norm over its 8 (32768, 128); beside the
     # design it replaced and F.rms_norm's backward, and each design's row
@@ -2970,7 +3219,7 @@ def phase_bwd(torch):
                    if C > LN_BWD_WHOLE_C else {})})
         del x, dy, library
     # GELU at gpt3's MLP; the gated GELU at recurrentgemma's MLP and grok's
-    # expert buffer (no trained caller yet: ROADMAP B23, B25)
+    # expert buffer (both trained by the train runs)
     for name, (R, C), what in GELU_BWD_TIMED:
         n = R * C
         ins = [rnd((R, C), bf) * 3] + [rnd((R, C), bf) for _ in range(1 if name == "gelu_bwd"
@@ -3014,7 +3263,7 @@ def grads_of(torch, model, tokens, targets, frontend=None):
     return loss.detach(), dict(zip(params, grads))
 
 
-def phase_train_check(torch, arch, n_layers, B, S):
+def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
     """`arch` at full width cut to `n_layers` layers: the loss and every
     parameter's gradient of one step on the card (the backward kernels)
     against the CPU plain path in bf16 and an fp32 CPU run of the same
@@ -3025,12 +3274,15 @@ def phase_train_check(torch, arch, n_layers, B, S):
     a row's scores), so each side's is rounding alone (about 2^-9 of the
     key gradients it sums): it is held below KEY_BIAS_LIMIT of its layer's
     query-bias gradient instead of by the ratio; a wrong key gradient would
-    put it near 1."""
+    put it near 1. A Griffin model's RG-LRU decays are unhidden
+    (``unhide_recurrence``)."""
     from repro_torch.models import LM, init_params
-    cfg = served_config(arch, n_layers)
+    cfg = served_config(arch, n_layers, n_experts)
     gpu = init_params(cfg, seed=3, device="cuda")
     gen = torch.Generator("cpu").manual_seed(4)
     fe = None
+    if cfg.block_pattern:
+        unhide_recurrence(torch, gpu)
     if cfg.n_frontend_tokens:
         unhide_cross_attention(torch, gpu)
         fe = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=gen).bfloat16()
@@ -3064,7 +3316,8 @@ def phase_train_check(torch, arch, n_layers, B, S):
         worst = max(worst, ratio)
     rows.sort(reverse=True)
     what = (f", frontends of {cfg.n_frontend_tokens} tokens, the cross branch unhidden"
-            if fe is not None else "") + (", the CPU's routing replayed" if cfg.n_experts else "")
+            if fe is not None else "") + (", the CPU's routing replayed" if cfg.n_experts else "") \
+        + (", the RG-LRU decays unhidden" if cfg.block_pattern else "")
     print(f"[train] {cfg.name} batch {B} x {S}{what}: loss card {lg.item():.6f}, bf16 CPU "
           f"{lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
     print(f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
@@ -3102,24 +3355,31 @@ def profile_step(torch, step_fn, top=0, pick=None):
 
 
 def train_launches(cfg):
-    """The exact kernel launches of one train step of `cfg` (full attention,
-    no softcap, no RWKV6 or Griffin layer), forward and backward: flash
-    attention per self-attention, cross-attention and encoder layer (a
-    vision cross layer's in place of its self-attention), the norm per norm
-    (two a layer, an encoder-decoder's lnx, the final norms, and the
+    """The exact kernel launches of one train step of `cfg` (no RWKV6
+    layer), forward and backward: flash attention per self-attention,
+    cross-attention and encoder layer (a vision cross layer's in place of
+    its self-attention; causal, windowed or softcapped alike), the norm per
+    norm (two a layer, an encoder-decoder's lnx, the final norms, and the
     RMSNorm of the q- and k-norm per attention), the MLP's activation per
-    layer (an MoE layer's experts share one launch); each as often in the
-    backward."""
+    layer (an MoE layer's experts share one launch), and per RG-LRU layer
+    the chunked scan and the GELU of its gate branch in place of the
+    attention; each as often in the backward (the scan's backward is
+    rglru_bwd)."""
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
-    attn = L + E + cross
+    attn = L - rec + E + cross
     norms = 2 * (L + E) + 1 + (1 if E else 0) + cross
     act = ("silu_mul" if cfg.activation == "silu" else "gelu_mul") if cfg.mlp_gated else "gelu"
     want = {"flash_attention_wgmma": attn, cfg.norm: norms, act: L + E}
     if cfg.qk_norm:
         want["rmsnorm"] = want.get("rmsnorm", 0) + 2 * attn
-    want.update({("flash_attention_bwd_wgmma" if k == "flash_attention_wgmma" else k + "_bwd"): n
-                 for k, n in want.items()})
+    if rec:
+        want["gelu"] = want.get("gelu", 0) + rec
+        want["rglru_chunked"] = rec
+    backward = {"flash_attention_wgmma": "flash_attention_bwd_wgmma",
+                "rglru_chunked": "rglru_bwd"}
+    want.update({backward.get(k, k + "_bwd"): n for k, n in want.items()})
     return want
 
 
@@ -3138,7 +3398,7 @@ def model_flops(cfg, model, B, S):
     return flops
 
 
-def phase_train(torch, arch, n_layers, lr, second):
+def phase_train(torch, arch, n_layers, lr, second, n_experts=None):
     """`arch` at full width (cut to `n_layers` layers where given) trained
     TRAIN_STEPS steps on one repeated batch of TRAIN_BATCH x TRAIN_SEQ
     tokens from TokenPipeline (a cross-attending model with a seeded stub
@@ -3154,7 +3414,7 @@ def phase_train(torch, arch, n_layers, lr, second):
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models import needs_frontend
     from repro_torch.training import AdamW, constant_schedule, init_state, make_train_step
-    cfg = served_config(arch, n_layers)
+    cfg = served_config(arch, n_layers, n_experts)
     opt = AdamW(lr=constant_schedule(lr))
     raw = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
@@ -3365,9 +3625,9 @@ def main():
         phase_train_check(torch, *check)
     lap("the [train] gradient checks")
     by_run = {}
-    for arch, n_layers, lr, second in TRAIN_RUNS:
-        by_run[served_config(arch, n_layers).name] = phase_train(torch, arch, n_layers, lr,
-                                                                 second)
+    for run in TRAIN_RUNS:
+        arch, n_layers = run[:2]
+        by_run[served_config(arch, n_layers, *run[4:]).name] = phase_train(torch, *run)
         lap(f"the [train] run of {arch}")
     # each train run is a path of its own: its counts were set to 0 before
     # each step and read just after; a kernel's launches are their sum

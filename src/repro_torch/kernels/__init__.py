@@ -11,7 +11,7 @@ from .gelu.kernel import (gelu_bwd_cuda, gelu_cuda, gelu_mul_bwd_cuda, gelu_mul_
                           silu_mul_bwd_triton, silu_mul_triton)
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
-from .rglru.kernel import rglru_chunked_cuda, rglru_cuda
+from .rglru.kernel import rglru_bwd_cuda, rglru_chunked_cuda, rglru_cuda
 from .rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton, rmsnorm_bwd_triton,
                              rmsnorm_triton)
 from .wkv.kernel import wkv_chunked_cuda, wkv_cuda
@@ -46,6 +46,7 @@ KERNELS = {
     "layernorm_bwd": layernorm_bwd_triton,
     "gelu_bwd": gelu_bwd_cuda,
     "gelu_mul_bwd": gelu_mul_bwd_cuda,
+    "rglru_bwd": rglru_bwd_cuda,
 }
 
 

@@ -1,4 +1,5 @@
-// Backward of causal or full attention, for Hopper (sm_90a).
+// Backward of causal, windowed or full attention, with or without a logit
+// softcap, for Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the JAX package has no backward kernel, since
 // jax.grad differentiates its jnp model in XLA. A train step on the card
@@ -9,14 +10,21 @@
 //
 // Computes, for q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), the forward
 // output o and its gradient dO, per (batch, query head h, kv-head h / G):
-//   P    = softmax(q k^T / sqrt(D)) under the causal mask (or none),
+//   z    = q k^T / sqrt(D), capped to cap tanh(z / cap) under a softcap (t
+//          the tanh),
+//   P    = softmax(z) over the live keys (key < Sk; causal: key <= query;
+//          window: key > query - window: flash_attention.cu's masks),
 //   dV   = sum over the G query heads of P^T dO,
-//   dP   = dO V^T,   delta_i = sum_d dO_id O_id,   dS = P * (dP - delta),
+//   dP   = dO V^T,   delta_i = sum_d dO_id O_id,
+//   dS   = P * (dP - delta), times 1 - t^2 under a softcap,
 //   dQ   = dS K / sqrt(D),   dK = sum over the G heads of dS^T Q / sqrt(D).
-// bf16 inputs and outputs, D = 64 or 128; every product on mma.sync m16n8k16
-// bf16 with fp32 accumulation, P and dS rounded to bf16 as its A operand
-// (the forward rounds P the same way). Window and softcap are refused by
-// the wrapper.
+// bf16 inputs and outputs, D = 64 or 128 (D = 256 only on the wgmma kernel,
+// flash_attention_bwd_sm90.cu: the wrapper refuses it here); every product
+// on mma.sync m16n8k16 bf16 with fp32 accumulation, P and dS rounded to bf16
+// as its A operand (the forward rounds P the same way). The window's masks
+// are per element: a key tile wholly outside a row's window is computed and
+// masked, not skipped (this kernel takes the strides TMA cannot describe,
+// which no model path gives).
 //
 // Design: the forward kernels keep no row log-sum-exp, so this file makes
 // its own and leaves the served forward untouched. Three launches, none
@@ -193,6 +201,28 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, int row
   }
 }
 
+// The masks and the softcap: whether (query, key) is live, and a scaled
+// logit z capped (t: its tanh, 0 without a softcap). CAP, whether a softcap
+// is on, is each kernel's template argument, so that its loops have no
+// branch on it.
+struct Mask {
+  int causal, window, Sq, Sk;
+  float softcap;
+  __device__ __forceinline__ bool live(int query, int key) const {
+    return key < Sk && query < Sq && (!causal || key <= query) &&
+           (window <= 0 || key > query - window);
+  }
+  template <bool CAP>
+  __device__ __forceinline__ float cap(float z, float& t) const {
+    if (!CAP) {
+      t = 0.f;
+      return z;
+    }
+    t = tanhf(z / softcap);
+    return softcap * t;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // 1. prep: L (the row log-sum-exp of the scaled logits) and delta
 // ---------------------------------------------------------------------------
@@ -203,12 +233,12 @@ struct PrepSmem {
   bf16 k[BKV][D + PADH];
 };
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 bwd_prep(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ o,
          const bf16* __restrict__ dout, float* __restrict__ lse, float* __restrict__ delta,
          int Hq, int Sq, int Sk, int G, Strides qs, Strides ks, Strides os, Strides ds,
-         int causal, float scale, int vec) {
+         Mask mask, float scale, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   PrepSmem<D>& sm = *reinterpret_cast<PrepSmem<D>*>(smem_raw);
   constexpr int NK = BKV / 8;
@@ -235,7 +265,7 @@ bwd_prep(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
   const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
   const int col = 2 * (lane % 4);
   float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
-  const int k_end = causal ? min(Sk, q0 + BR) : Sk;
+  const int k_end = mask.causal ? min(Sk, q0 + BR) : Sk;
   const bf16* kbase = k + b * ks.b + hk * ks.h;
   for (int kt = 0; kt < k_end; kt += BKV) {
     __syncthreads();  // the previous tile's K is read by every warp
@@ -250,8 +280,8 @@ bwd_prep(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
       for (int e = 0; e < 4; ++e) {
         const int r = e < 2 ? row_lo : row_hi;
         const int kp = kt + j * 8 + col + (e & 1);
-        const bool live = kp < Sk && r < Sq && (!causal || r >= kp);
-        s[j][e] = live ? s[j][e] * scale : NEG_INF;
+        float t;
+        s[j][e] = mask.live(r, kp) ? mask.cap<CAP>(s[j][e] * scale, t) : NEG_INF;
         if (e < 2)
           mt_lo = fmaxf(mt_lo, s[j][e]);
         else
@@ -307,13 +337,13 @@ struct DkdvSmem {
   float dlt[BQ];
 };
 
-template <int D, int BQ>
+template <int D, int BQ, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
          const bf16* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
          int Hq, int Sq, int Sk, int G, Strides qs, Strides ks, Strides vs, Strides ds,
-         Strides dks, Strides dvs, int causal, float scale, int vec) {
+         Strides dks, Strides dvs, Mask mask, float scale, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DkdvSmem<D, BQ>& sm = *reinterpret_cast<DkdvSmem<D, BQ>*>(smem_raw);
   constexpr int NQ = BQ / 8;
@@ -333,7 +363,7 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-  const int q_begin = causal ? k0 / BQ * BQ : 0;
+  const int q_begin = mask.causal ? k0 / BQ * BQ : 0;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const long long row_base = ((long long)b * Hq + h) * Sq;
@@ -348,8 +378,8 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
       }
       __syncthreads();
 
-      // P^T = exp(K Q^T scale - L) over the live (key, query) pairs
-      float p[NQ][4];
+      // P^T = exp(z - L) over the live (key, query) pairs; dcap: 1 - t^2
+      float p[NQ][4], dcap[NQ][4];
       rows_dot_rows<D, NQ>(p, sm.k, warp * 16, sm.q);
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
@@ -357,8 +387,10 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
         for (int e = 0; e < 4; ++e) {
           const int key = e < 2 ? key_lo : key_hi;
           const int qi = j * 8 + col + (e & 1);
-          const bool live = key < Sk && qt + qi < Sq && (!causal || qt + qi >= key);
-          p[j][e] = live ? expf(p[j][e] * scale - sm.lse[qi]) : 0.f;
+          float t;
+          const float z = mask.cap<CAP>(p[j][e] * scale, t);
+          p[j][e] = mask.live(qt + qi, key) ? expf(z - sm.lse[qi]) : 0.f;
+          dcap[j][e] = 1.f - t * t;
         }
       regs_times_rows<D, NQ>(dv_acc, p, sm.dout);  // dV += P^T dO
 
@@ -370,7 +402,7 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = j * 8 + col + (e & 1);
-          dp[j][e] = p[j][e] * (dp[j][e] - sm.dlt[qi]);
+          dp[j][e] = p[j][e] * (dp[j][e] - sm.dlt[qi]) * dcap[j][e];
         }
       regs_times_rows<D, NQ>(dk_acc, dp, sm.q);  // dK += dS^T Q
     }
@@ -391,12 +423,12 @@ struct DqSmem {
   bf16 v[BKV][D + PADH];
 };
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
        const bf16* __restrict__ dout, const float* __restrict__ lse,
        const float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Sq, int Sk, int G,
-       Strides qs, Strides ks, Strides vs, Strides ds, Strides dqs, int causal, float scale,
+       Strides qs, Strides ks, Strides vs, Strides ds, Strides dqs, Mask mask, float scale,
        int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
@@ -420,7 +452,7 @@ bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
 #pragma unroll
   for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int k_end = causal ? min(Sk, q0 + BR) : Sk;
+  const int k_end = mask.causal ? min(Sk, q0 + BR) : Sk;
   const bf16* kbase = k + b * ks.b + hk * ks.h;
   const bf16* vbase = v + b * vs.b + hk * vs.h;
   for (int kt = 0; kt < k_end; kt += BKV) {
@@ -429,7 +461,7 @@ bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
     load_rows<D, BKV>(sm.v, vbase, vs.s, kt, Sk, vec);
     __syncthreads();
 
-    float p[NK][4];
+    float p[NK][4], dcap[NK][4];
     rows_dot_rows<D, NK>(p, sm.q, warp * 16, sm.k);
 #pragma unroll
     for (int j = 0; j < NK; ++j)
@@ -437,15 +469,18 @@ bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
       for (int e = 0; e < 4; ++e) {
         const int r = e < 2 ? row_lo : row_hi;
         const int kp = kt + j * 8 + col + (e & 1);
-        const bool live = kp < Sk && r < Sq && (!causal || r >= kp);
-        p[j][e] = live ? expf(p[j][e] * scale - (e < 2 ? l_lo : l_hi)) : 0.f;
+        float t;
+        const float z = mask.cap<CAP>(p[j][e] * scale, t);
+        p[j][e] = mask.live(r, kp) ? expf(z - (e < 2 ? l_lo : l_hi)) : 0.f;
+        dcap[j][e] = 1.f - t * t;
       }
     float dp[NK][4];
     rows_dot_rows<D, NK>(dp, sm.dout, warp * 16, sm.v);
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - (e < 2 ? d_lo : d_hi));
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = p[j][e] * (dp[j][e] - (e < 2 ? d_lo : d_hi)) * dcap[j][e];
     regs_times_rows<D, NK>(acc, dp, sm.k);  // dQ += dS K
   }
   store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, row_lo, Sq, acc, scale);
@@ -457,26 +492,28 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, int BQ>
+template <int D, int BQ, bool CAP>
 cudaError_t launch(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                    const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* lse, float* delta,
                    int B, int Hq, int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                    Strides os, Strides ds, Strides dqs, Strides dks, Strides dvs, int causal,
-                   float scale, int vec) {
+                   int window, float softcap, float scale, int vec) {
   const int G = Hq / Hkv;
-  cudaError_t err = allow_smem(bwd_prep<D>, sizeof(PrepSmem<D>));
+  const Mask mask{causal, window, Sq, Sk, softcap};
+  cudaError_t err = allow_smem(bwd_prep<D, CAP>, sizeof(PrepSmem<D>));
   if (err != cudaSuccess) return err;
-  bwd_prep<D><<<dim3((Sq + BR - 1) / BR, Hq, B), THREADS, sizeof(PrepSmem<D>), st>>>(
-      q, k, o, dout, lse, delta, Hq, Sq, Sk, G, qs, ks, os, ds, causal, scale, vec);
+  bwd_prep<D, CAP><<<dim3((Sq + BR - 1) / BR, Hq, B), THREADS, sizeof(PrepSmem<D>), st>>>(
+      q, k, o, dout, lse, delta, Hq, Sq, Sk, G, qs, ks, os, ds, mask, scale, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd_dkdv<D, BQ>, sizeof(DkdvSmem<D, BQ>))) != cudaSuccess) return err;
-  bwd_dkdv<D, BQ><<<dim3((Sk + BR - 1) / BR, Hkv, B), THREADS, sizeof(DkdvSmem<D, BQ>), st>>>(
-      q, k, v, dout, lse, delta, dk, dv, Hq, Sq, Sk, G, qs, ks, vs, ds, dks, dvs, causal,
-      scale, vec);
+  if ((err = allow_smem(bwd_dkdv<D, BQ, CAP>, sizeof(DkdvSmem<D, BQ>))) != cudaSuccess)
+    return err;
+  bwd_dkdv<D, BQ, CAP><<<dim3((Sk + BR - 1) / BR, Hkv, B), THREADS, sizeof(DkdvSmem<D, BQ>), st>>>(
+      q, k, v, dout, lse, delta, dk, dv, Hq, Sq, Sk, G, qs, ks, vs, ds, dks, dvs, mask, scale,
+      vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd_dq<D>, sizeof(DqSmem<D>))) != cudaSuccess) return err;
-  bwd_dq<D><<<dim3((Sq + BR - 1) / BR, Hq, B), THREADS, sizeof(DqSmem<D>), st>>>(
-      q, k, v, dout, lse, delta, dq, Hq, Sq, Sk, G, qs, ks, vs, ds, dqs, causal, scale, vec);
+  if ((err = allow_smem(bwd_dq<D, CAP>, sizeof(DqSmem<D>))) != cudaSuccess) return err;
+  bwd_dq<D, CAP><<<dim3((Sq + BR - 1) / BR, Hq, B), THREADS, sizeof(DqSmem<D>), st>>>(
+      q, k, v, dout, lse, delta, dq, Hq, Sq, Sk, G, qs, ks, vs, ds, dqs, mask, scale, vec);
   return cudaGetLastError();
 }
 
@@ -485,8 +522,8 @@ cudaError_t launch(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v,
 // q, o, dout, dq (B, Hq, Sq, D); k, v, dk, dv (B, Hkv, Sk, D); bf16, each
 // with its own (batch, head, seq) element strides and a contiguous last
 // axis. lse and delta: (B, Hq, Sq) fp32 scratch, contiguous. D: 64 or 128.
-// Returns cudaGetLastError() of the first launch that fails, or
-// cudaErrorInvalidValue for another D.
+// window: 0 for none; softcap: 0 for none. Returns cudaGetLastError() of the
+// first launch that fails, or cudaErrorInvalidValue for another D.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
     void* dk, void* dv, void* lse, void* delta, int B, int Hq, int Hkv, int Sq, int Sk, int D,
@@ -494,7 +531,8 @@ extern "C" int flash_attention_bwd(
     long long vsb, long long vsh, long long vss, long long osb, long long osh, long long oss,
     long long dsb, long long dsh, long long dss, long long dqsb, long long dqsh,
     long long dqss, long long dksb, long long dksh, long long dkss, long long dvsb,
-    long long dvsh, long long dvss, int causal, float scale, void* stream) {
+    long long dvsh, long long dvss, int causal, int window, float softcap, float scale,
+    void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss},
       ds{dsb, dsh, dss}, dqs{dqsb, dqsh, dqss}, dks{dksb, dksh, dkss}, dvs{dvsb, dvsh, dvss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -507,17 +545,15 @@ extern "C" int flash_attention_bwd(
   bf16 *dqp = (bf16*)dq, *dkp = (bf16*)dk, *dvp = (bf16*)dv;
   float *lp = (float*)lse, *dl = (float*)delta;
   cudaError_t err;
-  switch (D) {
-    case 64:
-      err = launch<64, 64>(st, qp, kp, vp, op, dp, dqp, dkp, dvp, lp, dl, B, Hq, Hkv, Sq, Sk,
-                           qs, ks, vs, os, ds, dqs, dks, dvs, causal, scale, vec);
-      break;
-    case 128:
-      err = launch<128, 32>(st, qp, kp, vp, op, dp, dqp, dkp, dvp, lp, dl, B, Hq, Hkv, Sq, Sk,
-                            qs, ks, vs, os, ds, dqs, dks, dvs, causal, scale, vec);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+#define BWD_LAUNCH(DD, BQ, CAP)                                                              \
+  launch<DD, BQ, CAP>(st, qp, kp, vp, op, dp, dqp, dkp, dvp, lp, dl, B, Hq, Hkv, Sq, Sk, qs, \
+                      ks, vs, os, ds, dqs, dks, dvs, causal, window, softcap, scale, vec)
+  if (D == 64)
+    err = softcap > 0.f ? BWD_LAUNCH(64, 64, true) : BWD_LAUNCH(64, 64, false);
+  else if (D == 128)
+    err = softcap > 0.f ? BWD_LAUNCH(128, 32, true) : BWD_LAUNCH(128, 32, false);
+  else
+    err = cudaErrorInvalidValue;
+#undef BWD_LAUNCH
   return static_cast<int>(err);
 }

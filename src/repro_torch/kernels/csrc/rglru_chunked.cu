@@ -76,6 +76,11 @@
 // kernels/rglru/ref.py::rglru_chunked_ref is this arithmetic in PyTorch,
 // with chunk = L.
 //
+// Training: given h_seg, each thread also writes the h_in of its segment
+// there, (B, nseg, d) fp32 with nseg the tiles times SEGS: the state the
+// backward (csrc/rglru_bwd.cu) runs each segment's steps again from. One
+// store a segment (1/L of a step's bytes); serving passes none.
+//
 // Inputs: d a multiple of 8 and every base 16-byte aligned, so that each
 // row of a channel tile splits into whole 16-byte copies
 // (kernels/rglru/kernel.py::chunked_eligible).
@@ -137,7 +142,7 @@ rglru_chunked_kernel(const __nv_bfloat16* __restrict__ u, const float* __restric
                      const float* __restrict__ gx, const float* __restrict__ lam,
                      const __nv_bfloat16* __restrict__ gate, const float* h0,
                      const int* __restrict__ lengths, float* __restrict__ y, float* h_out,
-                     int T, int d) {
+                     float* __restrict__ h_seg, int T, int d) {
   using Lo = Layout<L>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y, c0 = blockIdx.x * CT;
@@ -246,6 +251,8 @@ rglru_chunked_kernel(const __nv_bfloat16* __restrict__ u, const float* __restric
       const float2 ph = summary[s2 * CT + c];
       h = fmaf(ph.x, h, ph.y);
     }
+    if (h_seg != nullptr && cv)
+      h_seg[(static_cast<long long>(b) * tiles * SEGS + tile * SEGS + s) * d + cg] = h_in;
     // the fix-up: the segment's steps again from h_in, on the a and b kept
     float* yp = y + (row0 + ts) * d + cg;
 #pragma unroll
@@ -260,14 +267,14 @@ rglru_chunked_kernel(const __nv_bfloat16* __restrict__ u, const float* __restric
 template <int L>
 cudaError_t launch(cudaStream_t stream, const __nv_bfloat16* u, const float* ga,
                    const float* gx, const float* lam, const __nv_bfloat16* gate,
-                   const float* h0, const int* lengths, float* y, float* h_out, int B, int T,
-                   int d) {
+                   const float* h0, const int* lengths, float* y, float* h_out, float* h_seg,
+                   int B, int T, int d) {
   constexpr int bytes = Layout<L>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(rglru_chunked_kernel<L>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   rglru_chunked_kernel<L><<<dim3((d + CT - 1) / CT, B), THREADS, bytes, stream>>>(
-      u, ga, gx, lam, gate, h0, lengths, y, h_out, T, d);
+      u, ga, gx, lam, gate, h0, lengths, y, h_out, h_seg, T, d);
   return cudaGetLastError();
 }
 
@@ -285,13 +292,14 @@ extern "C" int rglru_chunked_smem(int L) {
 
 // u, gate: (B, T, d) bf16; ga, gx: (B, T, d) fp32; lam: (d,) fp32; h0: (B, d)
 // fp32 or null (zeros); lengths: (B,) int32 or null (T everywhere); y:
-// (B, T, d) fp32; h_out: (B, d) fp32, which may be h0. All contiguous, d a
-// multiple of 8, u, ga, gx and gate 16-byte aligned. L: steps a segment, 4
-// or 8. Returns cudaGetLastError().
+// (B, T, d) fp32; h_out: (B, d) fp32, which may be h0; h_seg: null, or
+// (B, ceil(T / (16 L)) 16, d) fp32 for each segment's h_in. All contiguous,
+// d a multiple of 8, u, ga, gx and gate 16-byte aligned. L: steps a
+// segment, 4 or 8. Returns cudaGetLastError().
 extern "C" int rglru_chunked_fwd(const void* u, const void* ga, const void* gx,
                                  const void* lam, const void* gate, const void* h0,
-                                 const void* lengths, void* y, void* h_out, int B, int T,
-                                 int d, int L, void* stream) {
+                                 const void* lengths, void* y, void* h_out, void* h_seg,
+                                 int B, int T, int d, int L, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* fu = static_cast<const __nv_bfloat16*>(u);
   const auto* fg = static_cast<const __nv_bfloat16*>(gate);
@@ -302,9 +310,12 @@ extern "C" int rglru_chunked_fwd(const void* u, const void* ga, const void* gx,
   const auto* lens = static_cast<const int*>(lengths);
   auto* fy = static_cast<float*>(y);
   auto* fo = static_cast<float*>(h_out);
+  auto* fs = static_cast<float*>(h_seg);
   switch (L) {
-    case 4: return static_cast<int>(launch<4>(st, fu, fa, fx, fl, fg, fh, lens, fy, fo, B, T, d));
-    case 8: return static_cast<int>(launch<8>(st, fu, fa, fx, fl, fg, fh, lens, fy, fo, B, T, d));
+    case 4:
+      return static_cast<int>(launch<4>(st, fu, fa, fx, fl, fg, fh, lens, fy, fo, fs, B, T, d));
+    case 8:
+      return static_cast<int>(launch<8>(st, fu, fa, fx, fl, fg, fh, lens, fy, fo, fs, B, T, d));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,17 +25,19 @@ the key axis themselves, so nothing is padded (the TPU op's ``valid_k`` is the
 key length here). A head dim above 256 raises on the card; the op's plain
 version computes it on the CPU.
 
-The backward of a train step, dq, dk, dv of causal or full bf16 attention
-at D = 64 or 128, GQA summed in the kernel, on the same strided views, has
-two kernels (each source's note gives its design):
+The backward of a train step, dq, dk, dv of causal, windowed or full bf16
+attention with or without a logit softcap, GQA summed in the kernel, on the
+same strided views, has two kernels (each source's note gives its design):
 
 - ``flash_attention_bwd_wgmma_cuda`` (``csrc/flash_attention_bwd_sm90.cu``):
-  calls ``bwd_wgmma_eligible`` accepts, given the row log-sum-exp the
-  forward wrote (``flash_attention_wgmma_cuda(..., lse=...)``): TMA rings,
-  every product on wgmma, two launches. A train step takes this path;
+  calls ``bwd_wgmma_eligible`` accepts (D = 64, 128 or 256), given the row
+  log-sum-exp the forward wrote (``flash_attention_wgmma_cuda(...,
+  lse=...)``): TMA rings, every product on wgmma, two launches. A train
+  step takes this path;
 - ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``): the rest
-  (strides or bases TMA cannot take, or no log-sum-exp), on mma.sync in
-  three launches, the first of which makes its own row statistics.
+  (strides or bases TMA cannot take, or no log-sum-exp) at D = 64 or 128,
+  on mma.sync in three launches, the first of which makes its own row
+  statistics. D = 256 there raises (ROADMAP B28: no model path gives it).
 
 ``attention_bwd_cuda`` picks between the two by the tensors, before the
 launch.
@@ -234,12 +236,26 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # backward (csrc/flash_attention_bwd_sm90.cu, csrc/flash_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
-#: head dims of the backward kernels
-BWD_HEAD_DIMS = (64, 128)
-#: rows of the wgmma backward's work tiles (128 queries in its dq launch, 128
-#: keys in its dk/dv one); its (L log2 e, delta) scratch holds Sq rounded up
-#: to it
+#: head dims of the wgmma backward kernel
+BWD_HEAD_DIMS = (64, 128, 256)
+#: head dims of the mma.sync backward kernel (D = 256 at strides TMA cannot
+#: describe: ROADMAP B28)
+BWD_MMA_HEAD_DIMS = (64, 128)
+#: the wgmma backward's (L log2 e, delta) scratch holds Sq rounded up to it
 BWD_TILE_ROWS = 128
+
+
+def bwd_key_tile(D: int) -> int:
+    """Rows of a work tile of the wgmma backward (keys in its dk/dv launch,
+    queries in its dq one): 128, or 64 at D = 256, whose two consumers take
+    D's halves of the same rows."""
+    return 64 if D == 256 else BWD_TILE_ROWS
+
+
+def bwd_part_floats(D: int) -> int:
+    """fp32 partial sums a thread of a split dk/dv work tile writes: its
+    share of dK and of dV, D (D / 2 at D = 256, where it keeps half of D)."""
+    return D // 2 if D == 256 else D
 
 
 def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
@@ -249,11 +265,8 @@ def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} {lse.device}")
 
 
-def _check_bwd(what: str, q, k, v, o, do, window, softcap) -> None:
-    if window or softcap:
-        raise ValueError(f"{what} kernel takes no window or softcap "
-                         f"(window={window}, softcap={softcap})")
-    _check(what, q, k, v, (torch.bfloat16,), BWD_HEAD_DIMS)
+def _check_bwd(what: str, q, k, v, o, do, head_dims) -> None:
+    _check(what, q, k, v, (torch.bfloat16,), head_dims)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or t.stride(3) != 1:
@@ -273,10 +286,10 @@ def bwd_wgmma_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
 
 
 def bwd_head_splits(tiles: int, G: int, sms: int) -> int:
-    """The query-head groups a dk/dv work tile (128 keys of one batch row
-    and kv-head) of the wgmma backward splits into, a block each: 1 where
-    the `tiles` fill the `sms`, else as many as fit, at most G, each of
-    whole heads and none empty."""
+    """The query-head groups a dk/dv work tile (``bwd_key_tile`` keys of
+    one batch row and kv-head) of the wgmma backward splits into, a block
+    each: 1 where the `tiles` fill the `sms`, else as many as fit, at most
+    G, each of whole heads and none empty."""
     splits = max(1, min(G, sms // max(tiles, 1)))
     per = -(-G // splits)
     return -(-G // per)
@@ -298,7 +311,8 @@ def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def _bwd_sm90_entry():
     fn = _build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 24
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -312,14 +326,15 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     q, k, v, o, do as ``bwd_wgmma_eligible`` accepts (a call it refuses
     raises: ``attention_bwd_cuda`` sends it to ``flash_attention_bwd_cuda``)
     and `lse` the rows' log-sum-exp that ``flash_attention_wgmma_cuda`` wrote
-    in the forward, which is not recomputed. Two launches (dq with delta,
-    then dk and dv, a key tile's heads split over several blocks where the
-    tiles are few: ``bwd_head_splits``) on the current stream, no atomics
-    on the results, so the same bits from run to run; counts one launch.
-    `phases` 1 or 2 runs only the first or only the second launch (to time
-    them apart; the second reads what the first wrote in an earlier call on
-    these tensors) and counts none."""
-    _check_bwd("flash_attention_bwd_wgmma", q, k, v, o, do, window, softcap)
+    in the forward under the same mask and softcap, which is not
+    recomputed. Two launches (dq with delta, then dk and dv, a key tile's
+    heads split over several blocks where the tiles are few:
+    ``bwd_head_splits``) on the current stream, no atomics on the results,
+    so the same bits from run to run; counts one launch. `phases` 1 or 2
+    runs only the first or only the second launch (to time them apart; the
+    second reads what the first wrote in an earlier call on these tensors)
+    and counts none."""
+    _check_bwd("flash_attention_bwd_wgmma", q, k, v, o, do, BWD_HEAD_DIMS)
     if not bwd_wgmma_eligible(q, k, v, o, do):
         raise ValueError("flash_attention_bwd_wgmma kernel takes nonempty tensors with "
                          "16-byte aligned bases and strides that are multiples of 8 elements")
@@ -331,12 +346,13 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     stats = _bwd_stats(q.device, B * Hq * sq_pad) if phases != 3 else \
         torch.empty(B * Hq * sq_pad * 2, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tiles = -(-Sk // BWD_TILE_ROWS) * B * Hkv
+    tiles = -(-Sk // bwd_key_tile(D)) * B * Hkv
     splits = bwd_head_splits(tiles, Hq // Hkv, _sm_count(q.device.index or 0))
     part = done = None
     if splits > 1:
-        # fp32 dK and dV partials: D floats a thread, 256 threads a block
-        part = torch.empty(tiles * splits * 256 * D, dtype=torch.float32, device=q.device)
+        # fp32 dK and dV partials, 256 threads a block
+        part = torch.empty(tiles * splits * 256 * bwd_part_floats(D), dtype=torch.float32,
+                           device=q.device)
         done = _tile_counters(q.device, stream, tiles)
     err = _bwd_sm90_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -345,7 +361,7 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
         None if done is None else done.data_ptr(), splits, B, Hq, Hkv, Sq, Sk, D,
         *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), *o.stride()[:3],
         *_tma_strides(do), *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-        int(causal), 1.0 / math.sqrt(D), phases, stream)
+        int(causal), int(window), float(softcap), 1.0 / math.sqrt(D), phases, stream)
     if err == -2:
         raise RuntimeError("flash_attention_bwd_sm90: the CUDA driver refused a TMA descriptor")
     _build.check(err, "flash_attention_bwd_sm90")
@@ -368,7 +384,8 @@ def _bwd_stats(device: torch.device, rows: int) -> torch.Tensor:
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 24
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -378,13 +395,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of attention for the output gradient `do`: q, o, do
     (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), bf16 on one CUDA device, D in
-    ``BWD_HEAD_DIMS``, any (batch, head, seq) strides with a unit stride
-    along D; o the forward's output. Causal or full attention: a window or
-    a softcap raises ``ValueError`` (no trainable config has one). dq, dk
-    and dv keep q's and k's memory layouts. Three launches of
+    ``BWD_MMA_HEAD_DIMS`` (D = 256 raises ``ValueError``: ROADMAP B28), any
+    (batch, head, seq) strides with a unit stride along D; o the forward's
+    output; causal, windowed or full, with or without a softcap. dq, dk and
+    dv keep q's and k's memory layouts. Three launches of
     ``csrc/flash_attention_bwd.cu`` (row statistics, dk and dv, dq) on the
     current stream; counts one launch."""
-    _check_bwd("flash_attention_bwd", q, k, v, o, do, window, softcap)
+    if q.dim() == 4 and q.shape[3] == 256:
+        raise ValueError("flash_attention_bwd kernel takes D in (64, 128): D = 256 runs on "
+                         "the wgmma backward, at strides TMA can describe (ROADMAP B28)")
+    _check_bwd("flash_attention_bwd", q, k, v, o, do, BWD_MMA_HEAD_DIMS)
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -396,7 +416,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]), int(causal),
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), float(softcap), 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv

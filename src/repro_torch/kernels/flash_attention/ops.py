@@ -59,8 +59,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     exact. The card refuses, with ``ValueError``, what neither kernel takes
     and the plain version computes on the CPU: a head dim above 256, and
     dtypes other than bf16 and fp32. Its backward on the card takes bf16
-    causal or full attention at D = 64 or 128 (on the wgmma kernel where
-    the forward ran on one and the strides allow) and refuses the rest."""
+    causal, windowed or full attention with or without a softcap at D = 64,
+    128 or 256 on the wgmma kernel (where the forward ran on one and the
+    strides allow), at D = 64 or 128 on the mma.sync one, and refuses the
+    rest (D = 256 at strides TMA cannot take: ROADMAP B28)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     return _attention(q, k, v, causal, window, softcap)

@@ -1,8 +1,10 @@
 """Plain PyTorch RG-LRU scan: the gates of
 ``repro/models/recurrent.py::_rglru_gates`` and the recurrence its
 ``rglru_apply`` runs with ``lax.associative_scan``, as a loop over steps
-(``rglru_ref``, which the op runs on the CPU), and the chunked kernel's
-arithmetic (``rglru_chunked_ref``, which the tests hold to it)."""
+(``rglru_ref``, which the op runs on the CPU), the chunked kernel's
+arithmetic (``rglru_chunked_ref``, which the tests hold to it), and the
+gradient of ``rglru_ref`` as an explicit formula (``rglru_bwd_ref``, the
+plain version of ``csrc/rglru_bwd.cu``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -92,3 +94,59 @@ def rglru_chunked_ref(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor,
         return torch.zeros_like(ga), h
     hs = scan(torch.stack(h_in, dim=1))
     return gate.float() * hs.reshape(B, n * chunk, d)[:, :T], h
+
+
+def rglru_bwd_ref(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor, lam: torch.Tensor,
+                  gate: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                  dh_last: Optional[torch.Tensor] = None):
+    """Gradients (du, dga, dgx, dlam, dgate, dh0) of ``rglru_ref`` (no
+    lengths) for the output gradient `dy` (B, T, d) and the final state's
+    `dh_last` (B, d) or None, as the explicit formula in fp32 that
+    ``csrc/rglru_bwd.cu`` computes:
+
+    - dh_t = dy_t gate_t + a_{t+1} dh_{t+1}, run from the end (dh_last
+      added at the last step);
+    - d(log a)_t = dh_t h_{t-1} a_t + dh_t i u d sqrt(.)/d log a, where
+      d sqrt(max(1 - e, 1e-12))/d log a = -e / sqrt(.) with e = exp(2 log a),
+      and 0 where the clamp holds (1 - e < 1e-12), as JAX's ``maximum``
+      gives;
+    - dga = d(log a) (-8 softplus(lam)) r (1 - r), dgx = dh sqrt(.) u i (1 - i),
+      du = dh sqrt(.) i, dlam = the sum over batch and steps of
+      d(log a) (-8 r) sigmoid(lam), dgate = dy h, dh0 = a_0 dh_0.
+
+    du and dgate are rounded to u's and the gate's dtype, the rest fp32;
+    dh0 is None when h0 is."""
+    B, T, d = u.shape
+    uf, r, i = u.float(), torch.sigmoid(ga), torch.sigmoid(gx)
+    k = -RGLRU_C * F.softplus(lam)
+    log_a = k * r
+    a, e = torch.exp(log_a), torch.exp(2.0 * log_a)
+    live = (1.0 - e) > 1e-12
+    sq = torch.sqrt(torch.clamp(1.0 - e, min=1e-12))
+    b = sq * (i * uf)
+    h = torch.zeros((B, d), dtype=torch.float32, device=u.device) if h0 is None \
+        else h0.float()
+    hs = []
+    for t in range(T):
+        hs.append(h)
+        h = a[:, t] * h + b[:, t]
+    h_prev = torch.stack(hs, dim=1) if T else torch.zeros_like(ga)
+    h_all = torch.cat([h_prev[:, 1:], h[:, None]], dim=1) if T else h_prev
+    g = dy.float() * gate.float()
+    carry = torch.zeros((B, d), dtype=torch.float32, device=u.device) if dh_last is None \
+        else dh_last.float()
+    dhs = [None] * T
+    for t in reversed(range(T)):
+        dh = g[:, t] + carry
+        dhs[t] = dh
+        carry = a[:, t] * dh
+    dh = torch.stack(dhs, dim=1) if T else torch.zeros_like(ga)
+    dsq = torch.where(live, -e / sq, 0.0)
+    dlog_a = dh * h_prev * a + dh * i * uf * dsq
+    dga = dlog_a * k * r * (1.0 - r)
+    dgx = dh * sq * uf * i * (1.0 - i)
+    du = dh * sq * i
+    dlam = (dlog_a * (-RGLRU_C) * r).sum(dim=(0, 1)) * torch.sigmoid(lam)
+    dgate = dy.float() * h_all
+    dh0 = None if h0 is None else carry
+    return du.to(u.dtype), dga, dgx, dlam, dgate.to(gate.dtype), dh0

@@ -142,31 +142,26 @@ def check_supported(cfg: ModelConfig) -> None:
 
 # (field, test that a train step on the card has a backward kernel for the
 # config's value of it, why not, naming the ROADMAP item that adds it): the
-# backward kernels are flash attention (causal or full, self or cross),
-# RMSNorm, LayerNorm, the SwiGLU gate, GELU and the gated GELU
+# backward kernels are flash attention (causal or full, self or cross,
+# under a window and a logit softcap), RMSNorm, LayerNorm, the SwiGLU gate,
+# GELU, the gated GELU and the RG-LRU scan
 _TRAINABLE = (
-    ("attn_window", lambda c: not c.attn_window,
-     "no windowed flash backward kernel yet (ROADMAP B23)"),
-    ("attn_logit_softcap", lambda c: not c.attn_logit_softcap,
-     "no softcapped flash backward kernel yet (ROADMAP B23)"),
     ("attention_free", lambda c: not c.attention_free,
      "no wkv backward kernel yet (ROADMAP B24)"),
-    ("block_pattern", lambda c: not c.block_pattern,
-     "no RG-LRU backward kernel yet (ROADMAP B25)"),
 )
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first config field whose
     backward the port does not run. Trainable: every config ``LM`` runs
-    whose attention is full (causal, or non-causal in an encoder and a
-    cross layer) and unsoftcapped: RMSNorm or LayerNorm, a SwiGLU, plain
-    GELU or gated-GELU MLP or MoE layer, qkv biases, qk-norm, full, partial
-    or no RoPE, an encoder-decoder and vision cross layers over a frontend
-    (qwen1.5-0.5b, qwen2-0.5b, qwen3-1.7b, stablelm-1.6b,
-    granite-moe-3b-a800m, whisper-tiny, llama-3.2-vision-11b, gpt3-175b).
-    Refused: a window or a logit softcap (recurrentgemma-2b, grok-1-314b),
-    the attention-free RWKV6 (rwkv6-7b) and Griffin's block pattern."""
+    but the attention-free RWKV6: causal, windowed or full attention (non-
+    causal in an encoder and a cross layer) with or without a logit
+    softcap, RMSNorm or LayerNorm, a SwiGLU, plain GELU or gated-GELU MLP or
+    MoE layer, qkv biases, qk-norm, full, partial or no RoPE, an
+    encoder-decoder and vision cross layers over a frontend, and Griffin's
+    RG-LRU layers (qwen1.5-0.5b, qwen2-0.5b, qwen3-1.7b, stablelm-1.6b,
+    granite-moe-3b-a800m, grok-1-314b, recurrentgemma-2b, whisper-tiny,
+    llama-3.2-vision-11b, gpt3-175b). Refused: rwkv6-7b (ROADMAP B24)."""
     check_supported(cfg)
     for field, ok, why in _TRAINABLE:
         if not ok(cfg):

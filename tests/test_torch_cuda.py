@@ -31,9 +31,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attentio
 from repro_torch.kernels.gelu.ref import (gelu_bwd_ref, gelu_mul_bwd_ref, gelu_mul_ref, gelu_ref,
                                          silu_mul_bwd_ref, silu_mul_ref)
 from repro_torch.kernels.rglru import ops as rglru_ops
-from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS
+from repro_torch.kernels.rglru.kernel import SEGMENT_STEPS, segments as rglru_segments
 from repro_torch.kernels.rglru.kernel import picks_chunked as rglru_picks_chunked
-from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref
+from repro_torch.kernels.rglru.ref import rglru_bwd_ref, rglru_chunked_ref, rglru_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.kernel import (chunk_keys, chunked_eligible,
@@ -116,7 +116,7 @@ def kernel_case(name, device, dtype):
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd"}))
+    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd", "rglru_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -436,7 +436,7 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -448,7 +448,7 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -471,7 +471,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -483,7 +483,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -1534,16 +1534,17 @@ def test_flash_forward_lse_matches_plain_on_card(cuda, case):
 
 
 def test_flash_attention_bwd_refuses_what_it_does_not_take_on_card(cuda):
+    """What the backward kernels still refuse: D = 256 on the mma.sync one
+    (ROADMAP B28), a head dim neither has, fp32, and strides TMA cannot take
+    on the wgmma one; a window and a softcap they now take."""
     q = normal(54, (1, 2, 16, 64), cuda, torch.bfloat16)
     lse = torch.zeros(1, 2, 16, device=cuda)
     fn = TK.KERNELS["flash_attention_bwd"]
     new = TK.KERNELS["flash_attention_bwd_wgmma"]
-    for kw in ({"window": 8}, {"softcap": 30.0}):
-        with pytest.raises(ValueError, match="window or softcap"):
-            fn(q, q, q, q, q, **kw)
-        with pytest.raises(ValueError, match="window or softcap"):
-            new(q, q, q, q, q, lse, **kw)
-    for t in (normal(55, (1, 2, 16, 256), cuda, torch.bfloat16), q.float()):
+    wide256 = normal(57, (1, 2, 16, 260), cuda, torch.bfloat16)[..., :256]
+    with pytest.raises(ValueError, match="B28"):
+        fn(wide256, wide256, wide256, wide256, wide256)
+    for t in (normal(55, (1, 2, 16, 32), cuda, torch.bfloat16), q.float()):
         with pytest.raises(ValueError):
             fn(t, t, t, t, t)
         with pytest.raises(ValueError):
@@ -1551,6 +1552,69 @@ def test_flash_attention_bwd_refuses_what_it_does_not_take_on_card(cuda):
     wide = normal(56, (1, 2, 16, 68), cuda, torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         new(wide, wide, wide, wide, wide, lse)
+    for kw in ({"window": 8}, {"softcap": 30.0}):
+        fn(q, q, q, q, q, **kw)
+        new(q, q, q, q, q, lse, **kw)
+    torch.cuda.synchronize()
+
+
+# (B, Hq, Hkv, S, D, window, softcap, q scale): recurrentgemma's 10 heads on
+# 1 at D = 256, causal and under windows that cut key tiles; windows of 32
+# and 48 at D 64 and 128 on odd lengths; grok's softcap of 30 on logits of
+# about 8 (q x 8); window and softcap together, also at D = 256
+FLASH_BWD_MODE_CASES = [(1, 10, 1, 130, 256, 0, 0.0, 1.0), (2, 10, 1, 300, 256, 64, 0.0, 1.0),
+                        (1, 4, 2, 333, 64, 32, 0.0, 1.0), (1, 4, 2, 301, 128, 48, 0.0, 1.0),
+                        (2, 6, 1, 200, 128, 0, 30.0, 8.0), (1, 4, 2, 257, 128, 40, 20.0, 6.0),
+                        (1, 10, 1, 200, 256, 70, 30.0, 8.0)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_MODE_CASES, ids=str)
+def test_flash_attention_bwd_wgmma_modes_match_plain_on_card(cuda, case):
+    """The wgmma forward's L and the wgmma backward under a window, a
+    softcap and at D = 256, on the model's (B, S, H, D) views: L within
+    2e-5 of ``attention_lse_ref`` (relative to max(|L|, 1)); dq, dk, dv
+    within 2e-2 of ``attention_bwd_ref``, the same bits in a second run,
+    one launch and none on the mma.sync backward."""
+    B, Hq, Hkv, S, D, window, cap, qs = case
+    q = attention_operands(80, B, Hq, S, D, "bshd", cuda) * qs
+    k = attention_operands(81, B, Hkv, S, D, "bshd", cuda)
+    v = attention_operands(82, B, Hkv, S, D, "bshd", cuda)
+    do = attention_operands(83, B, Hq, S, D, "bshd", cuda)
+    kw = dict(causal=True, window=window, softcap=cap)
+    o, lse = flash_kernel.attention_cuda(q, k, v, **kw, with_lse=True)
+    assert bwd_wgmma_eligible(q, k, v, o, do)
+    want_lse = attention_lse_ref(q, k, **kw)
+    assert ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item() < TOL["float32"]
+    fn = TK.KERNELS["flash_attention_bwd_wgmma"]
+    before, old = fn.launches, TK.KERNELS["flash_attention_bwd"].launches
+    got = flash_kernel.attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and TK.KERNELS["flash_attention_bwd"].launches == old
+    want = attention_bwd_ref(q, k, v, o, do, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype and g.stride() == t.stride()
+        assert rel_err(g, w) < TOL["bfloat16"]
+    again = fn(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("D,window,cap", [(64, 32, 0.0), (128, 0, 30.0), (128, 24, 20.0)])
+def test_flash_attention_bwd_modes_at_strides_tma_cannot_take_on_card(cuda, D, window, cap):
+    """The mma.sync backward under a window, a softcap and both, at a
+    sequence stride of D + 4 (which TMA cannot describe): within 2e-2 of
+    the plain version, one launch on it."""
+    def wide(seed, h):
+        return normal(seed, (2, h, 150, D + 4), cuda, torch.bfloat16)[..., :D]
+    q, k, v, do = wide(90, 8) * 6, wide(91, 2), wide(92, 2), wide(93, 8)
+    kw = dict(causal=True, window=window, softcap=cap)
+    assert not wgmma_eligible(q, k, v)
+    o = flash_ops.flash_attention(q, k, v, **kw)
+    old = TK.KERNELS["flash_attention_bwd"].launches
+    got = flash_kernel.attention_bwd_cuda(q, k, v, o, do, None, **kw)
+    torch.cuda.synchronize()
+    assert TK.KERNELS["flash_attention_bwd"].launches == old + 1
+    for g, w in zip(got, attention_bwd_ref(q, k, v, o, do, **kw)):
+        assert rel_err(g, w) < TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -1665,6 +1729,67 @@ def test_gelu_mul_bwd_matches_plain_on_card(cuda, shape, dtype):
             assert within_one_rounding(a, w)
 
 
+@pytest.mark.parametrize("steps", SEGMENT_STEPS)
+@pytest.mark.parametrize("B,T,d,with_h0", [(2, 333, 256, False), (1, 1100, 64, True),
+                                           (3, 5, 2552, True), (2, 1, 64, False)])
+def test_rglru_bwd_matches_plain_on_card(cuda, steps, B, T, d, with_h0):
+    """``rglru_bwd_cuda`` from the segments' states the chunked forward
+    wrote, against ``rglru_bwd_ref``: the fp32 dga, dgx, dlam and dh0 within
+    1e-4 relative to the largest, the bf16 du and dgate within one bf16
+    rounding of each element (both sides round their fp32 value once), ga
+    at -40 on a quarter of the channels (the clamp holds there), the final
+    state's gradient given; the same bits in a second run; one launch
+    counted."""
+    u, ga, gx, lam, gate, h0 = rglru_case(cuda, B, T, d, 90 + T, with_h0)
+    ga[..., : d // 4] = -40.0
+    dy = normal(95, (B, T, d), cuda, torch.float32)
+    dh_last = normal(96, (B, d), cuda, torch.float32)
+    h_seg = torch.empty((B, rglru_segments(T, steps), d), device=cuda)
+    y, h = TK.KERNELS["rglru_chunked"](u, ga, gx, lam, gate, h0, steps=steps, h_seg=h_seg)
+    fn = TK.KERNELS["rglru_bwd"]
+    before = fn.launches
+    got = fn(u, ga, gx, lam, gate, h_seg, dy, dh_last, steps=steps, with_dh0=with_h0)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = rglru_bwd_ref(u, ga, gx, lam, gate, h0, dy, dh_last)
+    assert (got[5] is None) == (want[5] is None)
+    for name, g, w in zip(("du", "dga", "dgx", "dlam", "dgate", "dh0"), got, want):
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if w.dtype == torch.bfloat16:
+            assert within_one_rounding(g, w), name
+        else:
+            assert rel_err(g, w) < 1e-4, (name, rel_err(g, w))
+    again = fn(u, ga, gx, lam, gate, h_seg, dy, dh_last, steps=steps, with_dh0=with_h0)
+    assert all(a is None or torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_rglru_op_trains_through_its_kernels_on_card(cuda):
+    """The op with a gradient due: the forward on the chunked kernel (one
+    launch, its output the served one's bits), the backward on
+    ``rglru_bwd`` (one launch), autograd's gradients those of the plain
+    backward (fp32 at 1e-4, bf16 within one rounding)."""
+    u, ga, gx, lam, gate, h0 = rglru_case(cuda, 2, 200, 512, 7, True)
+    leaves = [t.clone().requires_grad_(True) for t in (u, ga, gx, lam, gate, h0)]
+    TK.reset_launches()
+    y, _ = rglru_ops.rglru(*leaves)
+    dy = normal(97, y.shape, cuda, torch.float32)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    counts = TK.launches()
+    assert counts["rglru_chunked"] == 1 and counts["rglru_bwd"] == 1 and counts["rglru"] == 0
+    served, _ = rglru_ops.rglru(u, ga, gx, lam, gate, h0)
+    assert torch.equal(y.detach(), served)
+    for name, g, w in zip(("du", "dga", "dgx", "dlam", "dgate", "dh0"), grads,
+                          rglru_bwd_ref(u, ga, gx, lam, gate, h0, dy)):
+        assert g.dtype == w.dtype, name
+        if w.dtype == torch.bfloat16:
+            assert within_one_rounding(g, w), name
+        else:
+            assert rel_err(g, w) < 1e-4, (name, rel_err(g, w))
+
+
 def opened_smoke(arch):
     """`arch` at smoke size with the backward kernel's head dim 64."""
     return dataclasses.replace(smoke_config(get_config(arch)), d_head=64)
@@ -1673,25 +1798,34 @@ def opened_smoke(arch):
 def opened_bwd_launches(cfg):
     """The backward launches of one train step of `cfg` (no qk-norm): a
     flash backward per self-, cross- and encoder attention, a norm backward
-    per norm (two a layer, an encoder-decoder's lnx, the final norms) and
-    one of the MLP's activation per layer (an MoE layer's experts share
-    one)."""
+    per norm (two a layer, an encoder-decoder's lnx, the final norms), one
+    of the MLP's activation per layer (an MoE layer's experts share one),
+    and per RG-LRU layer one RG-LRU backward and one GELU backward (its
+    gate branch) in place of the flash one."""
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
     norm = "layernorm_bwd" if cfg.norm == "layernorm" else "rmsnorm_bwd"
-    mlp = "silu_mul_bwd" if cfg.mlp_gated else "gelu_bwd"
-    return {"flash_attention_bwd_wgmma": L + E + cross,
+    mlp = ("silu_mul_bwd" if cfg.activation == "silu" else "gelu_mul_bwd") if cfg.mlp_gated \
+        else "gelu_bwd"
+    want = {"flash_attention_bwd_wgmma": L - rec + E + cross,
             norm: 2 * (L + E) + 1 + (1 if E else 0) + cross, mlp: L + E}
+    if rec:
+        want.update({"rglru_bwd": rec, "gelu_bwd": rec})
+    return want
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "stablelm-1.6b", "gpt3-175b",
-                                  "whisper-tiny", "llama-3.2-vision-11b"])
+                                  "whisper-tiny", "llama-3.2-vision-11b", "recurrentgemma-2b",
+                                  "grok-1-314b"])
 def test_opened_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
-    """Each config this slice opens, at smoke size: the loss (aux too) and
-    every parameter's gradient of the kernel path against the plain path on
-    the CPU, on the same weights, frontend and routing (granite's recorded on
-    the CPU and replayed on the card); then one train step with exact
-    backward launches."""
+    """Each config the LayerNorm, GELU, MoE aux, windowed and softcapped
+    flash and RG-LRU backward opened, at smoke size: the loss (aux too)
+    and every parameter's gradient of the kernel path against the plain
+    path on the CPU, on the same weights, frontend and routing (the MoE
+    models' recorded on the CPU and replayed on the card); recurrentgemma's
+    96 tokens past its smoke window of 64, grok under its softcap; then one
+    train step with exact backward launches."""
     cfg = opened_smoke(arch)
     cpu = models.init_params(cfg, seed=0, device="cpu").requires_grad_(True)
     with torch.no_grad():

@@ -264,19 +264,21 @@ def test_bwd_head_splits(tiles, G, want):
 
 
 def test_bwd_wgmma_eligible_takes_what_tma_describes():
-    """``bwd_wgmma_eligible``: the model's views at D = 64 and 128 (the
-    trained heads) with o and do alike go to the wgmma backward; D = 256
-    (no backward), fp32, and an o or do whose sequence stride or base TMA
-    cannot take do not."""
+    """``bwd_wgmma_eligible``: the model's views at D = 64, 128 and 256 (the
+    trained heads, recurrentgemma's 10 on 1 at 256) with o and do alike go
+    to the wgmma backward; fp32, a head dim it has no kernel for (32), and
+    an o or do whose sequence stride or base TMA cannot take do not."""
     bf = torch.bfloat16
-    for hq, hkv, d in ((16, 8, 128), (14, 2, 64), (4, 4, 64)):
+    for hq, hkv, d in ((16, 8, 128), (14, 2, 64), (4, 4, 64), (10, 1, 256)):
         q = torch.zeros(2, 40, hq, d, dtype=bf).transpose(1, 2)
         k = torch.zeros(2, 40, hkv, d, dtype=bf).transpose(1, 2)
         assert bwd_wgmma_eligible(q, k, k, q, q)
         assert bwd_wgmma_eligible(q, k, k, q.contiguous(), q.contiguous())
         assert not bwd_wgmma_eligible(q.float(), k.float(), k.float(), q.float(), q.float())
     x = torch.zeros(2, 4, 40, 256, dtype=bf)
-    assert wgmma_eligible(x, x, x) and not bwd_wgmma_eligible(x, x, x, x, x)
+    assert wgmma_eligible(x, x, x) and bwd_wgmma_eligible(x, x, x, x, x)
+    x = torch.zeros(2, 4, 40, 32, dtype=bf)
+    assert not bwd_wgmma_eligible(x, x, x, x, x)
     x = torch.zeros(2, 4, 40, 64, dtype=bf)
     wide = torch.zeros(2, 4, 40, 68, dtype=bf)[..., :64]          # sequence stride 68
     off = torch.zeros(x.numel() + 8, dtype=bf)[1:1 + x.numel()].view(x.shape)   # 2 bytes past
@@ -1108,7 +1110,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "silu_mul_bwd": (x, x, x),
             "layernorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
             "gelu_bwd": (x, x),
-            "gelu_mul_bwd": (x, x, x)}[name]
+            "gelu_mul_bwd": (x, x, x),
+            "rglru_bwd": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16(),
+                          torch.zeros(4, 16, 32), x[0])}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 

@@ -428,15 +428,16 @@ def test_ops_build_no_graph_without_grad():
 # ---------------- what trains ----------------
 
 REFUSED = {
-    "attn_window": dict(attn_window=16),
-    "attn_logit_softcap": dict(attn_logit_softcap=30.0),
     "attention_free": dict(family="ssm"),
-    "block_pattern": dict(family="hybrid", block_pattern=("rglru", "rglru", "attn")),
 }
 
-# the fields a LayerNorm, GELU and gated-GELU backward, the MoE aux loss and
-# a frontend in the train step opened
+# the fields a LayerNorm, GELU and gated-GELU backward, the MoE aux loss, a
+# frontend in the train step, the windowed and softcapped flash backward and
+# the RG-LRU backward opened
 ADMITTED = {
+    "attn_window": dict(attn_window=16),
+    "attn_logit_softcap": dict(attn_logit_softcap=30.0),
+    "block_pattern": dict(family="hybrid", block_pattern=("rglru", "rglru", "attn")),
     "norm": dict(norm="layernorm"),
     "activation": dict(activation="gelu"),
     "n_experts": dict(family="moe", n_experts=4, top_k=2),
@@ -449,7 +450,7 @@ ADMITTED = {
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_check_trainable_names_each_refused_field(field):
     cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), **REFUSED[field])
-    with pytest.raises(NotImplementedError, match=f"{field}=.*ROADMAP B2[345]"):
+    with pytest.raises(NotImplementedError, match=f"{field}=.*ROADMAP B24"):
         check_trainable(cfg)
 
 
@@ -459,10 +460,9 @@ def test_check_trainable_admits_each_opened_field(field):
     check_trainable(cfg)
 
 
-# every config but those with a window or softcap (B23), RWKV6 (B24) and
-# Griffin (B25)
+# every config but RWKV6 (B24)
 TRAINS = TRAINABLE + ("stablelm-1.6b", "granite-moe-3b-a800m", "whisper-tiny",
-                      "llama-3.2-vision-11b", "gpt3-175b")
+                      "llama-3.2-vision-11b", "gpt3-175b", "recurrentgemma-2b", "grok-1-314b")
 
 
 def test_check_trainable_takes_exactly_the_opened_configs():
@@ -471,15 +471,16 @@ def test_check_trainable_takes_exactly_the_opened_configs():
             check_trainable(cfg)
             check_trainable(smoke_config(cfg))
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP B2[345]"):
+            with pytest.raises(NotImplementedError, match="ROADMAP B24"):
                 check_trainable(cfg)
     assert set(TRAINS) < set(ARCHS) | set(EXTRA_ARCHS)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-tiny", "recurrentgemma-2b"])
 def test_train_launcher_runs_on_cpu(tmp_path, capsys, arch):
     """The launcher on the CPU: three steps, a checkpoint each; whisper-tiny
-    with the zero frontend the JAX launcher gives it."""
+    with the zero frontend the JAX launcher gives it; recurrentgemma through
+    its RG-LRU and windowed attention backward."""
     state = train_launcher.main(["--arch", arch, "--device", "cpu", "--preset",
                                  "tiny", "--steps", "3", "--batch", "2", "--seq", "16",
                                  "--ckpt-dir", str(tmp_path)])
