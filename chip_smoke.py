@@ -6,9 +6,10 @@ Phases, each of which fails the script on its own (exit code 1, and no
 result line):
   1. build   - nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
                csrc`` (all sources at once, the backward's
-               flash_attention_bwd_sm90.cu and flash_attention_bwd.cu among
-               them) and Triton compiles its kernels (the norms, silu_mul,
-               and the RMSNorm, LayerNorm and SwiGLU backward ones) and the GELU
+               flash_attention_bwd_sm90.cu, flash_attention_bwd.cu,
+               rglru_bwd.cu and wkv_bwd.cu among them) and Triton
+               compiles its kernels (the norms, silu_mul, and the
+               RMSNorm, LayerNorm and SwiGLU backward ones) and the GELU
                kernel gelu.cu replaced, which is timed beside it
                (registers and spills read from the compiled kernels);
   2. kernels - each hand-written kernel against its plain PyTorch version on
@@ -231,7 +232,8 @@ result line):
                log-sum-exp and the mma.sync one; RMSNorm, LayerNorm and the
                SwiGLU gate on Triton; GELU and the gated GELU on CUDA, the
                backward modes of gelu.cu; the RG-LRU scan's, rglru_bwd.cu;
-               no TPU counterpart, JAX differentiates in XLA),
+               the wkv recurrence's, wkv_bwd.cu; no TPU counterpart, JAX
+               differentiates in XLA),
                each against its plain version on the card: flash at
                qwen3-1.7b's (8, 16, 512, 128) / (8, 8, 512, 128) causal and
                qwen2-0.5b's 14:2 heads at D = 64, lengths that cut a 64- and
@@ -252,7 +254,13 @@ result line):
                (2, 333, 2560) with h0 and the final state's gradient, ga at
                -40 on a quarter of the channels (fp32 gradients to 1e-4, the
                bf16 du and dgate within one rounding, bit-equal in a second
-               run); RMSNorm at (4096,
+               run); the wkv backward at rwkv6-7b's (8, 512, 64, 64) and a
+               (1, 333, 64, 64) with state0, each with the final state's
+               gradient, decays across (0.05, 0.999), from the segments'
+               states the chunked forward wrote (``s_seg``, first held to
+               the plain states at the segments' starts and its output to
+               the served call's bits): every gradient to 1e-4 and
+               bit-equal in a second run; RMSNorm at (4096,
                2048), the q- and k-norm's (65536, 128) and (32768, 128), an
                odd shape and fp32 (dx within one bf16 rounding per element,
                dg to 2e-5 and the same in a second run); LayerNorm the same
@@ -279,14 +287,19 @@ result line):
                shapes and grok's, each launch apart, beside the plain version
                and SDPA's backward (the window as a band mask, no softcap);
                the RG-LRU backward at (8, 512, 2560) beside its plain
-               version (no PyTorch call scans);
+               version (no PyTorch call scans); the chunked wkv forward at
+               (8, 512, 64, 64) with and without ``s_seg`` in two turns
+               (serving writes none), and the wkv backward there beside its
+               plain version (no PyTorch call scans);
   9. train   - gradient checks (``TRAIN_CHECKS``): each trained config at
                full width cut to a few layers (qwen3-1.7b, stablelm-1.6b and
                granite-moe-3b-a800m to 2, gpt3-175b to 1, whisper-tiny whole,
                llama-3.2-vision-11b to its 5-layer unit, recurrentgemma-2b
                to its 3-layer unit at 1 x 2304 tokens, past its window, its
                RG-LRU decays unhidden, grok-1-314b to 1 layer with 4 of its
-               8 experts): the loss and every
+               8 experts, rwkv6-7b to 2 layers at 1 x 256 tokens, its wkv
+               decays (w0 across [-6.9, 1.1]) and bonus unhidden): the loss
+               and every
                parameter's gradient of one step on the card against the CPU
                plain path in bf16 and an fp32 CPU run, each leaf no further
                from fp32 than 1.5 times the bf16 CPU path (a key bias, whose
@@ -300,9 +313,9 @@ result line):
                stub frontend for whisper and llama): qwen3-1.7b,
                stablelm-1.6b and granite-moe-3b-a800m whole, gpt3-175b at 1
                of 96 layers, whisper-tiny whole, llama-3.2-vision-11b at
-               10 of 40 layers, recurrentgemma-2b whole and grok-1-314b at 1
-               of 64 layers with 4 of its 8 experts (depths reckoned beside
-               ``TRAIN_RUNS``): the
+               10 of 40 layers, recurrentgemma-2b whole, grok-1-314b at 1
+               of 64 layers with 4 of its 8 experts and rwkv6-7b at 15 of 32
+               layers (depths reckoned beside ``TRAIN_RUNS``): the
                loss falls at every step and by 0.5 in all; per step wall ms,
                tokens/s and model-FLOPs share (6 x active parameters x
                tokens, ``model_flops``), the peak memory, and exactly the
@@ -311,8 +324,9 @@ result line):
                SwiGLU backward and 28, 113, 28 of their forwards;
                recurrentgemma: 8 flash, 18 rglru_chunked, 18 gelu, 26
                gelu_mul and 53 rmsnorm and as many of their backward, the
-               scan's on rglru_bwd); qwen3's
-               and gpt3's runs again from the same seed with their last 2
+               scan's on rglru_bwd; rwkv6: 15 wkv_chunked and 31 layernorm,
+               the scan's backward on wkv_bwd); qwen3's, gpt3's and rwkv6's
+               runs again from the same seed with their last 2
                steps under torch.profiler (device ms a step, the largest
                device events), granite's run again plainly: whether each
                second run's losses equal the first's bit for bit;
@@ -513,7 +527,8 @@ def phase_build(torch):
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
                             "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
-                            "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd"])
+                            "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd",
+                            "wkv_bwd"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -561,6 +576,9 @@ def phase_build(torch):
     for steps in SEGMENT_STEPS:
         print(f"[build] rglru_bwd.cu {steps} steps a segment: {smem(steps)} bytes of "
               "dynamic shared memory")
+    smem = _build.load("wkv_bwd").wkv_bwd_smem
+    smem.restype = ctypes.c_int
+    print(f"[build] wkv_bwd.cu: {smem()} bytes of dynamic shared memory")
     from repro_torch.kernels.gelu.kernel import (gelu_triton, silu_mul_bwd_triton,
                                                  silu_mul_triton)
     from repro_torch.kernels.rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton,
@@ -1766,11 +1784,19 @@ def unhide_recurrence(torch, model):
     """In place: every RG-LRU ``lam`` to seeded values in [-6, 1], so that
     the recurrence gates a reach 0.99 and the scan carries its state (and
     its backward its gradient) over many steps; at the init's 3.0 every a is
-    about 5e-6 (as in ``tests/test_torch_train_hybrid.py``)."""
+    about 5e-6 (as in ``tests/test_torch_train_hybrid.py``). Every RWKV6
+    base decay ``w0`` to seeded values in [-6.9, 1.1] (decays w from about
+    0.999 to 0.05; at the init's -6 every w is about 0.9975, and a backward
+    that dropped the decays would pass) and the bonus ``u`` to seeded
+    normal values at the init's scale of 0.3."""
     gen = torch.Generator("cuda").manual_seed(6)
     for name, p in model.named_parameters():
         if name.endswith("rec.lam"):
             p.copy_(torch.rand(p.shape, generator=gen, device="cuda") * 7.0 - 6.0)
+        elif name.endswith("tmix.w0"):
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda") * 8.0 - 6.9)
+        elif name.endswith("tmix.u"):
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.3)
 
 
 def unhide_cross_attention(torch, model):
@@ -2675,6 +2701,8 @@ BACKWARD = {
                      "src/repro/models/layers.py:341"),
     "rglru_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_bwd.cu",
                   "src/repro/models/recurrent.py:206"),
+    "wkv_bwd": ("cuda", "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+                "src/repro/kernels/wkv/kernel.py:51"),
 }
 # the backward checks beyond the three of PR 24: LayerNorm at stablelm's and
 # gpt3's rows (whole rows, and gpt3's in chunks), whisper's decoder and
@@ -2724,10 +2752,16 @@ PROFILED_STEPS = 2
 #   grok-1-314b 1 of 64 layers with 4 of its 8 experts (top-2 kept): 4.11 G,
 #     57 GiB with the gradients; all 8 experts would be 6.53 G, 91 GB
 #     before any activation, past the card.
+#   rwkv6-7b 15 of 32 layers: 0.537 G of embedding and head and 0.2019 G a
+#     layer, 3.57 G; 16 layers (3.77 G) peaked at 76.30 GiB in an H100 run,
+#     past ~75, so one layer (~4 GiB with its activations) less; all 32
+#     would be 7.00 G, ~98 GB before any activation. At 1e-5 its loss
+#     fell from 11.93 to 0.10 in 8 steps, at 3e-6 to 5.97.
 TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-5, None),
               ("granite-moe-3b-a800m", None, 5e-5, "rerun"), ("gpt3-175b", 1, 5e-5, "profile"),
               ("whisper-tiny", None, 3e-4, None), ("llama-3.2-vision-11b", 10, 2.5e-6, None),
-              ("recurrentgemma-2b", None, 1e-5, None), ("grok-1-314b", 1, 1e-5, None, 4))
+              ("recurrentgemma-2b", None, 1e-5, None), ("grok-1-314b", 1, 1e-5, None, 4),
+              ("rwkv6-7b", 15, 1e-5, "profile"))
 # the gradient checks: (arch, layers or None, batch, sequence), full width at
 # a cut the CPU runs in seconds; per leaf the card no further from an fp32
 # CPU run than TRAIN_FP32_FACTOR times the bf16 CPU path is (the rule
@@ -2741,7 +2775,8 @@ TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-
 TRAIN_CHECKS = (("qwen3-1.7b", 2, 2, 128), ("stablelm-1.6b", 2, 2, 64),
                 ("granite-moe-3b-a800m", 2, 2, 64), ("gpt3-175b", 1, 2, 16),
                 ("whisper-tiny", None, 2, 128), ("llama-3.2-vision-11b", 5, 2, 32),
-                ("recurrentgemma-2b", 3, 1, 2304), ("grok-1-314b", 1, 2, 16, 4))
+                ("recurrentgemma-2b", 3, 1, 2304), ("grok-1-314b", 1, 2, 16, 4),
+                ("rwkv6-7b", 2, 1, 256))
 TRAIN_FP32_FACTOR = 1.5
 KEY_BIAS_LIMIT = 0.1   # the key bias's gradient over its query bias's (0 exactly)
 CKPT_ARCH, CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = "qwen3-1.7b", 6, 2, 8, 256
@@ -2757,6 +2792,9 @@ FLASH_BWD_MODES = (
     (2, 8, 2, 400, 128, 100, 20.0, 6.0, None), (1, 10, 1, 700, 256, 200, 30.0, 8.0, None))
 # the RG-LRU backward: (B, T, h0 and the final state's gradient given, what)
 RGLRU_BWD_CHECKS = ((8, 512, False, "recurrentgemma-2b train shape"), (2, 333, True, None))
+# the wkv backward at 64 heads of 64: (B, T, state0 given, what); the final
+# state's gradient given in each
+WKV_BWD_CHECKS = ((8, 512, False, "rwkv6-7b train shape"), (1, 333, True, None))
 
 
 def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal, window=0, softcap=0.0,
@@ -2772,6 +2810,32 @@ def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal, window=0, softcap=0.0
     o, lse = attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                             with_lse=True)
     return q, k, v, o, do, lse
+
+
+def wkv_train_inputs(torch, rnd, B, T, with_state):
+    """r, k, v, dout normal, w across (0.05, 0.999) (the init's w0 = -6
+    would put every decay near 0.9975 and hide them), u at the init's scale
+    of 0.3, state0 normal if asked and the final state's gradient normal;
+    all fp32 at 64 heads of 64."""
+    f32 = torch.float32
+    shape = (B, T, 64, 64)
+    r, k, v, dout = (rnd(shape, f32) for _ in range(4))
+    w = 0.05 + 0.949 * torch.rand(shape, generator=rnd.gen, device="cuda")
+    s0 = rnd((B, 64, 64, 64), f32) if with_state else None
+    return r, k, v, w, rnd((64, 64), f32) * 0.3, s0, dout, rnd((B, 64, 64, 64), f32)
+
+
+def wkv_segment_states(torch, r, k, v, w, s0, steps):
+    """The plain states at the start of every segment of `steps` steps,
+    (B, H, segments, N, N)."""
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N), device=r.device) if s0 is None else s0.clone()
+    out = []
+    for t in range(T):
+        if t % steps == 0:
+            out.append(S)
+        S = S * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    return torch.stack(out, 2)
 
 
 def live_pairs(S, window):
@@ -2925,6 +2989,40 @@ def phase_bwd(torch):
               + f" (fp32 {RGLRU_TOL:g}; the bf16 du and dgate within one bf16 rounding per "
               "element), the same bits in a second run ok")
         del u, ga, gx, gate, dy, h_seg, got, want, again
+    # the wkv backward at 64 heads of 64, from the segments' states the
+    # chunked forward wrote (held first to the plain states there), decays
+    # across (0.05, 0.999), u at the init's scale, the final state's gradient
+    from repro_torch.kernels.wkv.kernel import SEGMENT_STEPS, segments as wkv_segments
+    from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
+    for B, T, given, _ in WKV_BWD_CHECKS:
+        r, k, v, w, u, s0, dout, dstate = wkv_train_inputs(torch, rnd, B, T, given)
+        s_seg = torch.empty((B, 64, wkv_segments(T), 64, 64), device="cuda")
+        out, state = KERNELS["wkv_chunked"](r, k, v, w, u, s0, s_seg=s_seg)
+        served = KERNELS["wkv_chunked"](r, k, v, w, u, s0)
+        require(torch.equal(out, served[0]) and torch.equal(state, served[1]),
+                f"wkv_chunked ({B},{T}): the output with s_seg differs from the served one's")
+        e_seg = rel_err(s_seg, wkv_segment_states(torch, r, k, v, w, s0, SEGMENT_STEPS))
+        e_out = rel_err(out, wkv_ref(r, k, v, w, u, s0)[0])
+        require(e_seg < WKV_TOL and e_out < WKV_TOL, f"wkv_chunked ({B},{T}) with s_seg: "
+                f"rel_err states {e_seg:.3e}, out {e_out:.3e} (tol {WKV_TOL:g})")
+        run = lambda: KERNELS["wkv_bwd"](r, k, v, w, u, s_seg, dout, dstate, with_dstate0=given)
+        got, want = run(), wkv_bwd_ref(r, k, v, w, u, s0, dout, dstate)
+        names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+        e = [held("wkv_bwd", f"({B},{T},64,64) {n}", "float32", g, x, tol=WKV_TOL)
+             for n, g, x in zip(names, got, want) if x is not None]
+        again = run()
+        require(all(a is None or torch.equal(a, g) for a, g in zip(again, got)),
+                f"wkv_bwd ({B},{T}): a gradient differs from run to run")
+        print(f"[bwd] wkv_chunked ({B},{T},64,64) with s_seg: the states at the "
+              f"{wkv_segments(T)} segments' starts within {e_seg:.3e} of the plain ones, its "
+              f"output within {e_out:.3e} and the served call's bits (tol {WKV_TOL:g}) ok")
+        print(f"[bwd] wkv_bwd r,k,v,w,dout ({B},{T},64,64), {SEGMENT_STEPS} steps a segment, "
+              "w in (0.05, 0.999), the final state's gradient given"
+              + (", state0 given" if given else "") + ": rel_err "
+              + ", ".join(f"{n} {x}" for n, x in zip(names, e))
+              + f" (fp32 {WKV_TOL:g}), the same bits in a second run ok")
+        del r, k, v, w, dout, dstate, s_seg, got, want, again, out, state, served
+    torch.cuda.empty_cache()
     for R, C, dt in ((4096, 2048, bf), (65536, 128, bf), (32768, 128, bf), (4099, 896, bf),
                      (1000, 2048, f32)):
         x, g, dy = rnd((R, C), dt) * 3, rnd((C,), f32), rnd((R, C), dt)
@@ -3129,6 +3227,41 @@ def phase_bwd(torch):
             lambda: rglru_bwd_ref(u, ga, gx, lam, gate, None, dy), None, nbytes, 40 * n,
             FP32_FLOPS)
         del u, ga, gx, gate, dy, h_seg
+    # the wkv backward at rwkv6-7b's train shape beside its plain version (no
+    # PyTorch call scans); first the chunked forward at the served wave with
+    # and without s_seg, in two turns: serving passes none
+    for B, T, given, what in WKV_BWD_CHECKS:
+        if what is None:
+            continue
+        r, k, v, w, u, _, dout, _ = wkv_train_inputs(torch, rnd, B, T, False)
+        s_seg = torch.empty((B, 64, wkv_segments(T), 64, 64), device="cuda")
+        fwd = {"without s_seg (served)": lambda: KERNELS["wkv_chunked"](r, k, v, w, u),
+               "with s_seg (train)": lambda: KERNELS["wkv_chunked"](r, k, v, w, u,
+                                                                      s_seg=s_seg)}
+        times = {name: [] for name in fwd}
+        for turn in range(2):
+            for name in (fwd if turn == 0 else reversed(list(fwd))):
+                times[name].append(time_ms(torch, fwd[name]))
+        n = B * T * 64 * 64
+        # r, k, v, w read, out written, the final state written (fp32), and
+        # with s_seg its states
+        fwd_bytes = 20 * n + 4 * B * 64 * 64 * 64
+        print(f"[timing] wkv_chunked r,k,v,w ({B},{T},64,64) fp32 ({what}): " + ", ".join(
+            f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
+              + " (two turns, the second in reverse order); bound "
+              f"{bound(fwd_bytes, 5 * 64 * n, FP32_FLOPS)[0]:.5f} ms without s_seg, "
+              f"{bound(fwd_bytes + 4 * s_seg.numel(), 5 * 64 * n, FP32_FLOPS)[0]:.5f} with it "
+              f"(bytes); plain {time_ms(torch, lambda: wkv_ref(r, k, v, w, u), iters=5):.5f} ms")
+        # r, k, v, w, dout read and dr, dk, dv, dw written (fp32), s_seg and u
+        # read and du written once; ~10 N^2 fp32 operations a (b, t, h)
+        nbytes = 36 * n + 4 * s_seg.numel() + 8 * 64 * 64
+        add("wkv_bwd", f"{what}: r,k,v,w,dout ({B},{T},64,64) fp32, {SEGMENT_STEPS} steps a "
+            "segment", lambda: KERNELS["wkv_bwd"](r, k, v, w, u, s_seg, dout),
+            lambda: wkv_bwd_ref(r, k, v, w, u, None, dout), None, nbytes, 10 * 64 * n,
+            FP32_FLOPS)
+        rows["wkv_bwd"]["forward_ms"] = {name: statistics.mean(t) for name, t in times.items()}
+        del r, k, v, w, dout, s_seg
+    torch.cuda.empty_cache()
     # RMSNorm: the model's norms (4096, 2048), the q-norm over qwen3's 16
     # heads (65536, 128) and the k-norm over its 8 (32768, 128); beside the
     # design it replaced and F.rms_norm's backward, and each design's row
@@ -3274,14 +3407,14 @@ def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
     a row's scores), so each side's is rounding alone (about 2^-9 of the
     key gradients it sums): it is held below KEY_BIAS_LIMIT of its layer's
     query-bias gradient instead of by the ratio; a wrong key gradient would
-    put it near 1. A Griffin model's RG-LRU decays are unhidden
-    (``unhide_recurrence``)."""
+    put it near 1. A Griffin model's RG-LRU decays and RWKV6's wkv decays
+    and bonus are unhidden (``unhide_recurrence``)."""
     from repro_torch.models import LM, init_params
     cfg = served_config(arch, n_layers, n_experts)
     gpu = init_params(cfg, seed=3, device="cuda")
     gen = torch.Generator("cpu").manual_seed(4)
     fe = None
-    if cfg.block_pattern:
+    if cfg.block_pattern or cfg.attention_free:
         unhide_recurrence(torch, gpu)
     if cfg.n_frontend_tokens:
         unhide_cross_attention(torch, gpu)
@@ -3317,7 +3450,8 @@ def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
     rows.sort(reverse=True)
     what = (f", frontends of {cfg.n_frontend_tokens} tokens, the cross branch unhidden"
             if fe is not None else "") + (", the CPU's routing replayed" if cfg.n_experts else "") \
-        + (", the RG-LRU decays unhidden" if cfg.block_pattern else "")
+        + (", the RG-LRU decays unhidden" if cfg.block_pattern else "") \
+        + (", the wkv decays and bonus unhidden" if cfg.attention_free else "")
     print(f"[train] {cfg.name} batch {B} x {S}{what}: loss card {lg.item():.6f}, bf16 CPU "
           f"{lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
     print(f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
@@ -3355,17 +3489,21 @@ def profile_step(torch, step_fn, top=0, pick=None):
 
 
 def train_launches(cfg):
-    """The exact kernel launches of one train step of `cfg` (no RWKV6
-    layer), forward and backward: flash attention per self-attention,
-    cross-attention and encoder layer (a vision cross layer's in place of
-    its self-attention; causal, windowed or softcapped alike), the norm per
-    norm (two a layer, an encoder-decoder's lnx, the final norms, and the
-    RMSNorm of the q- and k-norm per attention), the MLP's activation per
-    layer (an MoE layer's experts share one launch), and per RG-LRU layer
-    the chunked scan and the GELU of its gate branch in place of the
-    attention; each as often in the backward (the scan's backward is
-    rglru_bwd)."""
+    """The exact kernel launches of one train step of `cfg`, forward and
+    backward: flash attention per self-attention, cross-attention and
+    encoder layer (a vision cross layer's in place of its self-attention;
+    causal, windowed or softcapped alike), the norm per norm (two a layer,
+    an encoder-decoder's lnx, the final norms, and the RMSNorm of the q-
+    and k-norm per attention), the MLP's activation per layer (an MoE
+    layer's experts share one launch), per RG-LRU layer the chunked scan
+    and the GELU of its gate branch in place of the attention, and for
+    RWKV6 two LayerNorms a layer, the final one and one chunked wkv a layer
+    (no attention, its channel mix's relu^2 plain ops); each as often in
+    the backward (the scans' backward kernels are rglru_bwd and wkv_bwd)."""
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    if cfg.attention_free:
+        return {"layernorm": 2 * L + 1, "layernorm_bwd": 2 * L + 1, "wkv_chunked": L,
+                "wkv_bwd": L}
     rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
     attn = L - rec + E + cross

@@ -14,7 +14,7 @@ from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
 from .rglru.kernel import rglru_bwd_cuda, rglru_chunked_cuda, rglru_cuda
 from .rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton, rmsnorm_bwd_triton,
                              rmsnorm_triton)
-from .wkv.kernel import wkv_chunked_cuda, wkv_cuda
+from .wkv.kernel import wkv_bwd_cuda, wkv_chunked_cuda, wkv_cuda
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {
@@ -47,6 +47,7 @@ KERNELS = {
     "gelu_bwd": gelu_bwd_cuda,
     "gelu_mul_bwd": gelu_mul_bwd_cuda,
     "rglru_bwd": rglru_bwd_cuda,
+    "wkv_bwd": wkv_bwd_cuda,
 }
 
 

@@ -79,6 +79,12 @@
 // Decode in place: state_out may be state0. A block reads its own slice of
 // state0 before its first step and writes the same slice of state_out after
 // its last; slices of different blocks are disjoint.
+//
+// Training: given s_seg (B, H, ceil(T / (16 seg_chunks)), N, N), the state
+// warpgroup also writes its slice of the state at the start of every
+// segment of seg_chunks chunks, from the registers it keeps anyway: the
+// states csrc/wkv_bwd.cu rebuilds each chunk's from. Serving passes none
+// (one untaken branch a chunk).
 
 #include <cuda_runtime.h>
 
@@ -382,8 +388,8 @@ wkv_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ w,
                    const float* __restrict__ u, const float* state0,
                    const int* __restrict__ lengths, float* __restrict__ out,
-                   float* state_out, int T, int H, Strides sr, Strides sk, Strides sv,
-                   Strides sw) {
+                   float* state_out, float* __restrict__ s_seg, int seg_chunks, int T, int H,
+                   Strides sr, Strides sk, Strides sv, Strides sw) {
   using Ly = Layout<N, NC>;
   constexpr int P = Ly::P, LP = Ly::LP, PC = Ly::PC, KS = Ly::KS;
   constexpr int JT = NC / 4;        // 4-column tiles of the slice
@@ -471,6 +477,14 @@ wkv_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
           *reinterpret_cast<float4*>(&op[(part * L + t0 + a) * PC + j0]) =
               make_float4(o[a][0], o[a][1], o[a][2], o[a][3]);
       } else {
+        if (s_seg != nullptr && chunk % seg_chunks == 0) {
+          const int n_seg = (n_chunks + seg_chunks - 1) / seg_chunks;
+          float* const seg = s_seg + (((long long)b * H + h) * n_seg + chunk / seg_chunks) * N * N;
+#pragma unroll
+          for (int a = 0; a < TI; ++a)
+            *reinterpret_cast<float4*>(&seg[(i0 + a) * N + col0 + j0]) =
+                make_float4(S[a][0], S[a][1], S[a][2], S[a][3]);
+        }
 #pragma unroll
         for (int a = 0; a < TI; ++a) {
           const float d = decay[i0 + a];
@@ -545,14 +559,14 @@ wkv_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
 template <int N, int NC>
 cudaError_t launch(cudaStream_t st, const float* r, const float* k, const float* v,
                    const float* w, const float* u, const float* state0, const int* lengths,
-                   float* out, float* state_out, int B, int T, int H, Strides sr, Strides sk,
-                   Strides sv, Strides sw) {
+                   float* out, float* state_out, float* s_seg, int seg_chunks, int B, int T,
+                   int H, Strides sr, Strides sk, Strides sv, Strides sw) {
   constexpr int bytes = Layout<N, NC>::FLOATS * 4;
   cudaError_t err = cudaFuncSetAttribute(wkv_chunked_kernel<N, NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   wkv_chunked_kernel<N, NC><<<dim3(H, B, N / NC), THREADS, bytes, st>>>(
-      r, k, v, w, u, state0, lengths, out, state_out, T, H, sr, sk, sv, sw);
+      r, k, v, w, u, state0, lengths, out, state_out, s_seg, seg_chunks, T, H, sr, sk, sv, sw);
   return cudaGetLastError();
 }
 
@@ -577,10 +591,14 @@ extern "C" int wkv_chunked_smem(int N, int NC) {
 // steps everywhere; out: (B, T, H, N) fp32 contiguous; state_out: (B, H, N, N)
 // fp32 contiguous, which may be state0 (updated in place). (N, NC) in
 // {(64, 16), (64, 32), (64, 64), (32, 16), (32, 32)}: NC value columns a
-// block. Returns cudaGetLastError().
+// block. s_seg: null, or with lengths null a (B, H, ceil(T / (16
+// seg_chunks)), N, N) fp32 contiguous tensor that takes the state at the
+// start of each segment of seg_chunks >= 1 chunks. Returns
+// cudaGetLastError().
 extern "C" int wkv_chunked_fwd(const void* r, const void* k, const void* v, const void* w,
                                const void* u, const void* state0, const void* lengths,
-                               void* out, void* state_out, int B, int T, int H, int N, int NC,
+                               void* out, void* state_out, void* s_seg, int seg_chunks, int B,
+                               int T, int H, int N, int NC,
                                long long srb, long long srt, long long srh, long long skb,
                                long long skt, long long skh, long long svb, long long svt,
                                long long svh, long long swb, long long swt, long long swh,
@@ -593,10 +611,13 @@ extern "C" int wkv_chunked_fwd(const void* r, const void* k, const void* v, cons
   const int* lens = static_cast<const int*>(lengths);
   float* fo = static_cast<float*>(out);
   float* fso = static_cast<float*>(state_out);
+  float* fseg = static_cast<float*>(s_seg);
+  if (fseg != nullptr && (seg_chunks < 1 || lens != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define WKV_CHUNKED_CASE(n, nc)                                                          \
   case n * 1000 + nc:                                                                    \
-    return static_cast<int>(launch<n, nc>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, B, T, \
-                                          H, sr, sk, sv, sw));
+    return static_cast<int>(launch<n, nc>(st, fr, fk, fv, fw, fu, fs, lens, fo, fso, fseg, \
+                                          seg_chunks, B, T, H, sr, sk, sv, sw));
   switch (N * 1000 + NC) {
     WKV_CHUNKED_CASE(64, 16)
     WKV_CHUNKED_CASE(64, 32)

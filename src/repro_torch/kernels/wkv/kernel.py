@@ -2,7 +2,10 @@
 ``repro/kernels/wkv/kernel.py::wkv_pallas``: ``csrc/wkv_chunked.cu``
 (``wkv_chunked_cuda``, the chunked-parallel form) for calls of more than one
 step that ``chunked_eligible`` accepts, ``csrc/wkv.cu`` (``wkv_cuda``, one
-step after another) for the decode step and the rest.
+step after another) for the decode step and the rest. ``csrc/wkv_bwd.cu``
+(``wkv_bwd_cuda``) is the backward of a train step: the chunks run from the
+end, from the segments' states the chunked forward writes when given
+``s_seg``.
 
 The source files carry the kernels' design notes and their bound on an H100.
 Each wrapper checks what its kernel takes, allocates the output (and the final
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .ref import CHUNK
 
 HEAD_SIZES = (32, 64, 128)
 
@@ -136,7 +140,7 @@ BLOCK_OVERHEAD = 32
 @functools.cache
 def _chunked_entry():
     fn = _build.load("wkv_chunked").wkv_chunked_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -171,17 +175,27 @@ def wkv_chunked_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch
                      u: torch.Tensor, state0: Optional[torch.Tensor] = None,
                      lengths: Optional[torch.Tensor] = None, *,
                      state_out: Optional[torch.Tensor] = None,
-                     columns: Optional[int] = None):
+                     columns: Optional[int] = None,
+                     s_seg: Optional[torch.Tensor] = None):
     """The contract of ``wkv_cuda`` for calls ``chunked_eligible`` accepts
     (one it refuses raises: ``ops.wkv`` sends it to ``wkv_cuda``).
     ``columns``: the value columns a block keeps, one of
-    ``COLUMN_SPLITS[N]``, or None for ``column_split``'s choice. One
-    launch; nothing is read back to the host."""
+    ``COLUMN_SPLITS[N]``, or None for ``column_split``'s choice. Given
+    ``s_seg``, a contiguous fp32 (B, H, ``segments(T)``, N, N) tensor, the
+    launch also writes there the state at the start of each segment of
+    ``SEGMENT_STEPS`` steps, which ``wkv_bwd_cuda`` takes (a train step,
+    with no lengths; serving passes none). One launch; nothing is read back
+    to the host."""
     u, lengths, out, state_out = _checked(r, k, v, w, u, state0, lengths, state_out)
     if not chunked_eligible(r, k, v, w):
         raise ValueError("wkv_chunked kernel takes T > 1 and 16-byte aligned "
                          "bases and strides (chunked_eligible)")
     B, T, H, N = r.shape
+    if s_seg is not None:
+        if lengths is not None:
+            raise ValueError("wkv_chunked kernel writes s_seg for whole sequences: no "
+                             "lengths (the backward takes none, ROADMAP B30)")
+        _check_seg(s_seg, r)
     if columns is None:
         columns = column_split(B, H, N, torch.cuda.get_device_properties(
             r.device).multi_processor_count)
@@ -193,7 +207,8 @@ def wkv_chunked_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch
     strides = [s for a in (r, k, v, w) for s in a.stride()[:3]]
     err = _chunked_entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                            u.data_ptr(), _ptr(state0), _ptr(lengths), out.data_ptr(),
-                           state_out.data_ptr(), B, T, H, N, columns, *strides,
+                           state_out.data_ptr(), _ptr(s_seg), SEGMENT_STEPS // CHUNK,
+                           B, T, H, N, columns, *strides,
                            torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv_chunked_fwd")
     wkv_chunked_cuda.launches += 1
@@ -201,3 +216,93 @@ def wkv_chunked_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch
 
 
 wkv_chunked_cuda.launches = 0
+
+
+# ---------------- the backward (csrc/wkv_bwd.cu) ----------------
+
+#: steps a segment of ``s_seg``: the backward rebuilds the states of a
+#: segment's 4 chunks in shared memory; at rwkv6-7b's train shape (8, 512,
+#: 64, 64) ``s_seg`` holds 67 MB a layer (every chunk's start would be 268)
+SEGMENT_STEPS = 64
+#: the head size of the backward kernel
+BWD_HEAD_SIZE = 64
+
+
+def segments(T: int) -> int:
+    """The segments of ``SEGMENT_STEPS`` steps in T (the rows of an
+    ``s_seg``)."""
+    return -(-T // SEGMENT_STEPS)
+
+
+def _check_seg(s_seg: torch.Tensor, r: torch.Tensor) -> None:
+    B, T, H, N = r.shape
+    want = (B, H, segments(T), N, N)
+    if s_seg.shape != want or s_seg.dtype != torch.float32 or s_seg.device != r.device \
+            or not s_seg.is_contiguous():
+        raise ValueError(f"s_seg must be a contiguous fp32 {want} tensor on {r.device}, got "
+                         f"{tuple(s_seg.shape)} {s_seg.dtype} {s_seg.device}")
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("wkv_bwd").wkv_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, s_seg: torch.Tensor, dout: torch.Tensor,
+                 dstate: Optional[torch.Tensor] = None, *, with_dstate0: bool = False):
+    """Gradients (dr, dk, dv, dw, du, dstate0) of the chunked forward on
+    ``csrc/wkv_bwd.cu``, as ``ref.wkv_bwd_ref`` computes them: r, k, v, w,
+    u as the forward took them, over whole sequences (no lengths), `s_seg`
+    the segments' states it wrote, dout the fp32 (B, T, H, N) gradient of
+    its output and `dstate` that of its final state (None: zeros). r, k,
+    v, w and dout contiguous and 16-byte aligned (strides the kernel does
+    not read raise), N = ``BWD_HEAD_SIZE`` (other head sizes raise, ROADMAP
+    B30). All fp32; dstate0 (B, H, N, N) with `with_dstate0`, else None.
+    Two launches (the chunks from the end, then du's sum over the batch in
+    a fixed order: the same bits run to run) on the current stream; counts
+    one launch."""
+    if r.dim() != 4 or r.device.type != "cuda":
+        raise ValueError(f"wkv_bwd kernel takes (B, T, H, N) CUDA tensors, got "
+                         f"{tuple(r.shape)} on {r.device}")
+    B, T, H, N = r.shape
+    if u.shape != (H, N) or u.dtype != torch.float32 or u.device != r.device:
+        raise ValueError(f"wkv_bwd kernel takes u as fp32 ({H}, {N}) on {r.device}, got "
+                         f"{tuple(u.shape)} {u.dtype} on {u.device}")
+    if N != BWD_HEAD_SIZE:
+        raise ValueError(f"wkv_bwd kernel takes N = {BWD_HEAD_SIZE}, got {N} (ROADMAP B30)")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dout", dout)):
+        if t.shape != r.shape or t.dtype != torch.float32 or t.device != r.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"wkv_bwd kernel takes {name} as a contiguous 16-byte aligned "
+                             f"fp32 {tuple(r.shape)} tensor, got {tuple(t.shape)} {t.dtype} "
+                             f"(contiguous: {t.is_contiguous()})")
+    _check_seg(s_seg, r)
+    _state_arg("dstate", dstate, (B, H, N, N), r.device)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros((H, N), dtype=torch.float32, device=r.device)
+    dstate0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device) \
+        if with_dstate0 else None
+    if B * T * H == 0:
+        if dstate0 is not None:
+            dstate0.zero_()
+            if dstate is not None:
+                dstate0.copy_(dstate)
+        return dr, dk, dv, dw, du, dstate0
+    u = u.contiguous()
+    part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    err = _bwd_entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                       u.data_ptr(), s_seg.data_ptr(), dout.data_ptr(),
+                       _ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                       dw.data_ptr(), _ptr(dstate0), part.data_ptr(), du.data_ptr(),
+                       B, T, H, N, SEGMENT_STEPS // CHUNK,
+                       torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "wkv_bwd")
+    wkv_bwd_cuda.launches += 1
+    return dr, dk, dv, dw, du, dstate0
+
+
+wkv_bwd_cuda.launches = 0

@@ -10,9 +10,8 @@ Checkpoints are written asynchronously every ``--ckpt-every`` steps and at
 the last, each with a restart manifest, so ``--resume`` restores the
 newest checkpoint and continues from the step after it with the same data.
 ``StepMonitor`` flags stragglers. ``--data`` and ``--model`` other than 1
-(a device mesh) wait for the distributed slice of the port (ROADMAP A12);
-configs whose backward has no kernel yet are refused by
-``check_trainable``. An audio or vision model gets the zero bf16 frontend
+(a device mesh) wait for the distributed slice of the port (ROADMAP A12).
+Every config of ``--arch`` trains (``check_trainable``). An audio or vision model gets the zero bf16 frontend
 of (batch, n_frontend_tokens, d_model) that the JAX launcher builds.
 """
 from __future__ import annotations

@@ -140,34 +140,17 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"repro_torch: {why}")
 
 
-# (field, test that a train step on the card has a backward kernel for the
-# config's value of it, why not, naming the ROADMAP item that adds it): the
-# backward kernels are flash attention (causal or full, self or cross,
-# under a window and a logit softcap), RMSNorm, LayerNorm, the SwiGLU gate,
-# GELU, the gated GELU and the RG-LRU scan
-_TRAINABLE = (
-    ("attention_free", lambda c: not c.attention_free,
-     "no wkv backward kernel yet (ROADMAP B24)"),
-)
-
-
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming the first config field whose
-    backward the port does not run. Trainable: every config ``LM`` runs
-    but the attention-free RWKV6: causal, windowed or full attention (non-
-    causal in an encoder and a cross layer) with or without a logit
-    softcap, RMSNorm or LayerNorm, a SwiGLU, plain GELU or gated-GELU MLP or
-    MoE layer, qkv biases, qk-norm, full, partial or no RoPE, an
-    encoder-decoder and vision cross layers over a frontend, and Griffin's
-    RG-LRU layers (qwen1.5-0.5b, qwen2-0.5b, qwen3-1.7b, stablelm-1.6b,
-    granite-moe-3b-a800m, grok-1-314b, recurrentgemma-2b, whisper-tiny,
-    llama-3.2-vision-11b, gpt3-175b). Refused: rwkv6-7b (ROADMAP B24)."""
+    """Raise NotImplementedError naming the first config field a train step
+    does not run. Every config ``LM`` runs trains (``check_supported``):
+    the backward kernels are flash attention (causal or full, self or
+    cross, under a window and a logit softcap), RMSNorm, LayerNorm, the
+    SwiGLU gate, GELU, the gated GELU, the RG-LRU scan and the WKV
+    recurrence. So all eleven configs train: qwen1.5-0.5b, qwen2-0.5b,
+    qwen3-1.7b, stablelm-1.6b, granite-moe-3b-a800m, grok-1-314b,
+    recurrentgemma-2b, whisper-tiny, llama-3.2-vision-11b, gpt3-175b and
+    rwkv6-7b."""
     check_supported(cfg)
-    for field, ok, why in _TRAINABLE:
-        if not ok(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not trained by "
-                f"repro_torch: {why}")
 
 
 def needs_frontend(cfg: ModelConfig) -> bool:

@@ -49,7 +49,8 @@ from repro_torch.kernels.matmul.ref import (dequant_matmul_ref, matmul_fp8_ref, 
 from repro_torch.kernels.rmsnorm.ref import (layernorm_bwd_ref, layernorm_ref, rmsnorm_bwd_ref,
                                             rmsnorm_ref)
 from repro_torch.kernels.wkv import ops as wkv_ops
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.kernel import segments as wkv_segments, SEGMENT_STEPS as WKV_SEG
+from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
 from repro_torch.models.lm import LM, loss_fn, needs_frontend
 from repro_torch import training
 from repro_torch.serving import Engine, Request
@@ -116,7 +117,8 @@ def kernel_case(name, device, dtype):
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd", "rglru_bwd"}))
+    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd", "rglru_bwd",
+    "wkv_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -436,7 +438,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
+                             "wkv_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -448,7 +451,8 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
+                             "wkv_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -471,7 +475,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
+                             "wkv_bwd": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -483,7 +488,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
-                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0}
+                             "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
+                             "wkv_bwd": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -1790,6 +1796,122 @@ def test_rglru_op_trains_through_its_kernels_on_card(cuda):
             assert rel_err(g, w) < 1e-4, (name, rel_err(g, w))
 
 
+# ---------------- the wkv backward ----------------
+
+def wkv_train_case(device, B, T, H, seed, with_state, edge=False):
+    """r, k, v, the output's and the final state's gradients normal; w
+    across (0.05, 0.999) (the init's w0 = -6 would put every decay near
+    0.9975 and hide them), with a fifth each of exact 0, 1e-30 and exact 1
+    where `edge`; u at the init's scale of 0.3; state0 normal if asked."""
+    N = 64
+    r, k, v, dout = (normal(seed + i, (B, T, H, N), device, torch.float32) for i in range(4))
+    w = 0.05 + 0.949 * torch.rand((B, T, H, N), generator=torch.Generator().manual_seed(seed),
+                                  dtype=torch.float32).to(device)
+    if edge:
+        pick = torch.from_numpy(np.random.default_rng(seed).integers(0, 5, w.shape)).to(device)
+        w = torch.where(pick == 0, 0.0, torch.where(pick == 1, 1e-30, torch.where(
+            pick == 2, 1.0, w)))
+    u = 0.3 * normal(seed + 4, (H, N), device, torch.float32)
+    s0 = normal(seed + 5, (B, H, N, N), device, torch.float32) if with_state else None
+    dstate = normal(seed + 6, (B, H, N, N), device, torch.float32)
+    return r, k, v, w, u, s0, dout, dstate
+
+
+def segment_states(r, k, v, w, s0):
+    """The plain states at the start of every segment of WKV_SEG steps."""
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N), device=r.device) if s0 is None else s0.clone()
+    out = []
+    for t in range(T):
+        if t % WKV_SEG == 0:
+            out.append(S)
+        S = S * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    return torch.stack(out, 2)
+
+
+@pytest.mark.parametrize("B,T,H,with_state", [(2, 200, 4, True), (1, 64, 2, False),
+                                              (3, 65, 2, True), (2, 2, 3, False)])
+def test_wkv_chunked_writes_segment_states_on_card(cuda, B, T, H, with_state):
+    """Given s_seg, the chunked forward writes each segment's starting state
+    (1e-4 of the largest, as the output), and its output and final state
+    are the bits of the served call without it; with lengths it refuses."""
+    r, k, v, w, u, s0, _, _ = wkv_train_case(cuda, B, T, H, 30 + T, with_state)
+    s_seg = torch.empty((B, H, wkv_segments(T), 64, 64), device=cuda)
+    fn = TK.KERNELS["wkv_chunked"]
+    out, state = fn(r, k, v, w, u, s0, s_seg=s_seg)
+    served_out, served_state = fn(r, k, v, w, u, s0)
+    assert torch.equal(out, served_out) and torch.equal(state, served_state)
+    assert rel_err(s_seg, segment_states(r, k, v, w, s0)) < 1e-4
+    with pytest.raises(ValueError, match="no lengths"):
+        fn(r, k, v, w, u, s0, torch.full((B,), T, dtype=torch.int32, device=cuda), s_seg=s_seg)
+
+
+@pytest.mark.parametrize("B,T,H,with_state,edge", [(2, 333, 4, True, False),
+                                                   (1, 64, 2, False, False),
+                                                   (8, 512, 8, False, False),
+                                                   (3, 90, 2, True, True),
+                                                   (2, 17, 3, True, False),
+                                                   (2, 2, 1, False, False)])
+def test_wkv_bwd_matches_plain_on_card(cuda, B, T, H, with_state, edge):
+    """``wkv_bwd_cuda`` from the segments' states the chunked forward
+    wrote, against ``wkv_bwd_ref``: every gradient within 1e-4 of the
+    largest (the wkv tolerance), the final state's gradient given, dw 0
+    where the forward clamps log w (exact 0 and 1e-30); the same bits in a
+    second run; one launch counted."""
+    r, k, v, w, u, s0, dout, dstate = wkv_train_case(cuda, B, T, H, 40 + T, with_state, edge)
+    s_seg = torch.empty((B, H, wkv_segments(T), 64, 64), device=cuda)
+    TK.KERNELS["wkv_chunked"](r, k, v, w, u, s0, s_seg=s_seg)
+    fn = TK.KERNELS["wkv_bwd"]
+    before = fn.launches
+    got = fn(r, k, v, w, u, s_seg, dout, dstate, with_dstate0=with_state)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = wkv_bwd_ref(r, k, v, w, u, s0, dout, dstate)
+    assert (got[5] is None) == (want[5] is None)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, want):
+        if x is None:
+            continue
+        assert g.shape == x.shape and g.dtype == torch.float32, name
+        assert rel_err(g, x) < 1e-4, (name, rel_err(g, x))
+    if edge:
+        assert not got[3][w <= 1e-30].any()
+    again = fn(r, k, v, w, u, s_seg, dout, dstate, with_dstate0=with_state)
+    assert all(a is None or torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_wkv_op_trains_through_its_kernels_on_card(cuda):
+    """The op with a gradient due: the forward on the chunked kernel (one
+    launch, its output the served one's bits), the backward on wkv_bwd
+    (one launch), autograd's gradients those of the plain backward at
+    1e-4; with lengths the backward raises, and so does a head size the
+    backward kernel does not take, or a bad input to it."""
+    r, k, v, w, u, s0, dout, _ = wkv_train_case(cuda, 2, 150, 4, 7, True)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    TK.reset_launches()
+    out, _ = wkv_ops.wkv(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    counts = TK.launches()
+    assert counts["wkv_chunked"] == 1 and counts["wkv_bwd"] == 1 and counts["wkv"] == 0
+    served, _ = wkv_ops.wkv(r, k, v, w, u, s0)
+    assert torch.equal(out.detach(), served)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), grads,
+                          wkv_bwd_ref(r, k, v, w, u, s0, dout)):
+        assert rel_err(g, x) < 1e-4, (name, rel_err(g, x))
+    out, _ = wkv_ops.wkv(*leaves, torch.full((2,), 150, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="no lengths"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="B30"):
+        wkv_ops.wkv(*(t[..., :32] for t in leaves[:5]))
+    s_seg = torch.empty((2, 4, wkv_segments(150), 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="B30"):
+        TK.KERNELS["wkv_bwd"](*(t[..., :32].contiguous() for t in (r, k, v, w, u)),
+                              s_seg[..., :32, :32].contiguous(), dout[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.KERNELS["wkv_bwd"](r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w, u,
+                              s_seg, dout)
+
+
 def opened_smoke(arch):
     """`arch` at smoke size with the backward kernel's head dim 64."""
     return dataclasses.replace(smoke_config(get_config(arch)), d_head=64)
@@ -1801,8 +1923,11 @@ def opened_bwd_launches(cfg):
     per norm (two a layer, an encoder-decoder's lnx, the final norms), one
     of the MLP's activation per layer (an MoE layer's experts share one),
     and per RG-LRU layer one RG-LRU backward and one GELU backward (its
-    gate branch) in place of the flash one."""
+    gate branch) in place of the flash one; RWKV6: two LayerNorm backwards
+    a layer and the final one's, and one wkv backward a layer."""
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    if cfg.attention_free:
+        return {"layernorm_bwd": 2 * L + 1, "wkv_bwd": L}
     rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
     norm = "layernorm_bwd" if cfg.norm == "layernorm" else "rmsnorm_bwd"
@@ -1817,21 +1942,26 @@ def opened_bwd_launches(cfg):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "stablelm-1.6b", "gpt3-175b",
                                   "whisper-tiny", "llama-3.2-vision-11b", "recurrentgemma-2b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "rwkv6-7b"])
 def test_opened_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
     """Each config the LayerNorm, GELU, MoE aux, windowed and softcapped
     flash and RG-LRU backward opened, at smoke size: the loss (aux too)
     and every parameter's gradient of the kernel path against the plain
     path on the CPU, on the same weights, frontend and routing (the MoE
     models' recorded on the CPU and replayed on the card); recurrentgemma's
-    96 tokens past its smoke window of 64, grok under its softcap; then one
-    train step with exact backward launches."""
+    96 tokens past its smoke window of 64, grok under its softcap, rwkv6
+    with its base decays w0 across (-6.9, 1.1) (w from about 0.999 to 0.05
+    rather than the init's 0.9975 everywhere); then one train step with
+    exact backward launches."""
     cfg = opened_smoke(arch)
     cpu = models.init_params(cfg, seed=0, device="cpu").requires_grad_(True)
+    gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
         for name, p in cpu.named_parameters():
             if name.endswith("xgate"):
                 p.fill_(0.5)
+            if name.endswith("tmix.w0"):
+                p.copy_(torch.rand(p.shape, generator=gen) * 8.0 - 6.9)
     gpu = LM(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
     gpu.requires_grad_(True)
@@ -1880,10 +2010,11 @@ def test_opened_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
     assert torch.isfinite(met["loss"]) and int(state.opt.step) == 1
 
 
-@pytest.mark.parametrize("arch", ["gpt3-175b", "granite-moe-3b-a800m", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["gpt3-175b", "granite-moe-3b-a800m", "whisper-tiny",
+                                  "rwkv6-7b"])
 def test_opened_serving_with_grad_enabled_builds_no_graph_on_card(cuda, arch):
-    """LayerNorm, GELU and MoE models serve with grad mode on through their
-    forward kernels alone: no backward launch, no graph."""
+    """LayerNorm, GELU, MoE and RWKV6 models serve with grad mode on
+    through their forward kernels alone: no backward launch, no graph."""
     cfg = opened_smoke(arch)
     model = models.init_params(cfg, seed=0, device=cuda)
     cache = models.init_cache(cfg, 2, 32, device=cuda)

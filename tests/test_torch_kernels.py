@@ -1112,7 +1112,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "gelu_bwd": (x, x),
             "gelu_mul_bwd": (x, x, x),
             "rglru_bwd": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16(),
-                          torch.zeros(4, 16, 32), x[0])}[name]
+                          torch.zeros(4, 16, 32), x[0]),
+            "wkv_bwd": (x, x, x, x, torch.zeros(8, 32), torch.zeros(2, 8, 1, 32, 32), x)}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 

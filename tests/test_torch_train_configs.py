@@ -45,10 +45,11 @@ from repro_torch import training as tt
 from _torch_routing import replay_routing, routing_flips
 
 OPENED = ["granite-moe-3b-a800m", "stablelm-1.6b", "gpt3-175b", "whisper-tiny",
-          "llama-3.2-vision-11b", "recurrentgemma-2b", "grok-1-314b"]
+          "llama-3.2-vision-11b", "recurrentgemma-2b", "grok-1-314b", "rwkv6-7b"]
 # the configs whose loss and gradients this file holds to JAX; those of
 # recurrentgemma-2b and grok-1-314b are held in test_torch_train_hybrid.py,
-# at a length their window cuts
+# at a length their window cuts, and rwkv6-7b's in test_torch_train_rwkv.py,
+# its decays unhidden
 GRADIENTS_HERE = OPENED[:5]
 XGATE = 0.5
 TOL = 2e-2
@@ -300,8 +301,9 @@ def test_gelu_mul_bwd_plain_matches_jax_vjp(dtype):
 def test_decayed_leaves_are_jax_ones(arch):
     """ROADMAP C14: the leaves the JAX AdamW decays (ndim >= 2 on its
     stacked tree): every leaf of a stacked layer, the LayerNorm biases, the
-    experts, the router, the encoder's and the cross layers' (xgate) among
-    them; not the final norm's."""
+    experts, the router, the encoder's and the cross layers' (xgate), and
+    RWKV6's 1-D w0, u and ln_x (its layers are units of one) among them;
+    not the final norm's."""
     jcfg, jparams, cfg, model = jax_case(arch)
     flags = jax.tree.map(lambda p: np.full(p.shape, p.ndim >= 2), jparams)
     want = {n for n, t in params_from_jax(cfg, flags).items() if bool(t.all())}
@@ -314,7 +316,9 @@ def test_decayed_leaves_are_jax_ones(arch):
             "whisper-tiny": ("enc.layers.0.ln1.bias", "blocks.0.xattn.wk"),
             "llama-3.2-vision-11b": ("blocks.1.xgate", "blocks.1.xattn.wq"),
             "recurrentgemma-2b": ("blocks.0.rec.lam", "blocks.0.rec.conv_b", "blocks.2.attn.wq"),
-            "grok-1-314b": ("blocks.0.moe.router", "blocks.0.moe.w_gate")}[arch]
+            "grok-1-314b": ("blocks.0.moe.router", "blocks.0.moe.w_gate"),
+            "rwkv6-7b": ("blocks.0.tmix.w0", "blocks.1.tmix.u", "blocks.0.tmix.ln_x",
+                         "blocks.1.ln1.scale", "blocks.0.ln2.bias")}[arch]
     assert set(must) <= got
 
 
