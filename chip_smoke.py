@@ -246,7 +246,9 @@ result line):
                1 kv-head under its window of 2048 and (1, 10, 4096, 256),
                which the window cuts, windows of 32 and 48 at D 64 and 128 on
                odd lengths, grok-1-314b's (8, 48, 512, 128) on 8 under its
-               softcap of 30, window and softcap together, also at D = 256),
+               softcap of 30, window and softcap together, also at D = 256,
+               and D = 256 at lengths off the 64-row tile under a softcap
+               alone and under a window alone),
                each with the forward's log-sum-exp to fp32 2e-5, per element
                (``attention_excess`` at most 1) and bit-equal in a second
                run, and the mma.sync backward under them at a sequence
@@ -254,8 +256,10 @@ result line):
                (2, 333, 2560) with h0 and the final state's gradient, ga at
                -40 on a quarter of the channels (fp32 gradients to 1e-4, the
                bf16 du and dgate within one rounding, bit-equal in a second
-               run); the wkv backward at rwkv6-7b's (8, 512, 64, 64) and a
-               (1, 333, 64, 64) with state0, each with the final state's
+               run); the wkv backward at rwkv6-7b's (8, 512, 64, 64), a
+               (1, 333, 64, 64) with state0 (64 blocks: fewer than the SMs)
+               and a (2, 90, 64, 64) with state0 (T off the chunk and the
+               segment), each with the final state's
                gradient, decays across (0.05, 0.999), from the segments'
                states the chunked forward wrote (``s_seg``, first held to
                the plain states at the segments' starts and its output to
@@ -285,12 +289,15 @@ result line):
                LayerNorm backward's row pass and column sum apart at its four
                shapes; the wgmma backward's modes at recurrentgemma's two
                shapes and grok's, each launch apart, beside the plain version
-               and SDPA's backward (the window as a band mask, no softcap);
+               and SDPA's backward (the window as a band mask, no softcap),
+               and at D = 256 the dk/dv launch's blocks (``bwd_dkdv_plan``)
+               and the query tiles of its longest;
                the RG-LRU backward at (8, 512, 2560) beside its plain
                version (no PyTorch call scans); the chunked wkv forward at
                (8, 512, 64, 64) with and without ``s_seg`` in two turns
                (serving writes none), and the wkv backward there beside its
-               plain version (no PyTorch call scans);
+               plain version (no PyTorch call scans), its two launches apart
+               (torch.profiler);
   9. train   - gradient checks (``TRAIN_CHECKS``): each trained config at
                full width cut to a few layers (qwen3-1.7b, stablelm-1.6b and
                granite-moe-3b-a800m to 2, gpt3-175b to 1, whisper-tiny whole,
@@ -325,8 +332,9 @@ result line):
                recurrentgemma: 8 flash, 18 rglru_chunked, 18 gelu, 26
                gelu_mul and 53 rmsnorm and as many of their backward, the
                scan's on rglru_bwd; rwkv6: 15 wkv_chunked and 31 layernorm,
-               the scan's backward on wkv_bwd); qwen3's, gpt3's and rwkv6's
-               runs again from the same seed with their last 2
+               the scan's backward on wkv_bwd); qwen3's, gpt3's,
+               recurrentgemma's and rwkv6's runs again from the same seed
+               with their last 2
                steps under torch.profiler (device ms a step, the largest
                device events), granite's run again plainly: whether each
                second run's losses equal the first's bit for bit;
@@ -2760,7 +2768,7 @@ PROFILED_STEPS = 2
 TRAIN_RUNS = (("qwen3-1.7b", None, 5e-5, "profile"), ("stablelm-1.6b", None, 5e-5, None),
               ("granite-moe-3b-a800m", None, 5e-5, "rerun"), ("gpt3-175b", 1, 5e-5, "profile"),
               ("whisper-tiny", None, 3e-4, None), ("llama-3.2-vision-11b", 10, 2.5e-6, None),
-              ("recurrentgemma-2b", None, 1e-5, None), ("grok-1-314b", 1, 1e-5, None, 4),
+              ("recurrentgemma-2b", None, 1e-5, "profile"), ("grok-1-314b", 1, 1e-5, None, 4),
               ("rwkv6-7b", 15, 1e-5, "profile"))
 # the gradient checks: (arch, layers or None, batch, sequence), full width at
 # a cut the CPU runs in seconds; per leaf the card no further from an fp32
@@ -2789,12 +2797,14 @@ FLASH_BWD_MODES = (
     (2, 8, 2, 333, 64, 32, 0.0, 1.0, None), (2, 8, 2, 301, 128, 48, 0.0, 1.0, None),
     (1, 4, 2, 777, 64, 48, 0.0, 1.0, None), (2, 6, 2, 419, 128, 32, 0.0, 1.0, None),
     (8, 48, 8, 512, 128, 0, 30.0, 8.0, "grok-1-314b train shape (softcap 30)"),
-    (2, 8, 2, 400, 128, 100, 20.0, 6.0, None), (1, 10, 1, 700, 256, 200, 30.0, 8.0, None))
+    (2, 8, 2, 400, 128, 100, 20.0, 6.0, None), (1, 10, 1, 700, 256, 200, 30.0, 8.0, None),
+    (2, 10, 1, 333, 256, 0, 30.0, 8.0, None), (1, 10, 1, 77, 256, 40, 0.0, 1.0, None))
 # the RG-LRU backward: (B, T, h0 and the final state's gradient given, what)
 RGLRU_BWD_CHECKS = ((8, 512, False, "recurrentgemma-2b train shape"), (2, 333, True, None))
 # the wkv backward at 64 heads of 64: (B, T, state0 given, what); the final
 # state's gradient given in each
-WKV_BWD_CHECKS = ((8, 512, False, "rwkv6-7b train shape"), (1, 333, True, None))
+WKV_BWD_CHECKS = ((8, 512, False, "rwkv6-7b train shape"), (1, 333, True, None),
+                  (2, 90, True, None))
 
 
 def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal, window=0, softcap=0.0,
@@ -3199,6 +3209,20 @@ def phase_bwd(torch):
               + f" (two turns, the second in reverse order); plain {plain_ms:.5f} ms; bound "
               f"{b_ms:.5f} ms ({b_by}), {b_ms / ms['both launches'] * 100:.1f}% of it; "
               f"{ms[lib_note] / ms['both launches']:.3f}x the library call's speed")
+        if D == 256:
+            from repro_torch.kernels.flash_attention.kernel import (bwd_dkdv_plan,
+                                                                    bwd_head_splits,
+                                                                    bwd_tile_work)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            work = bwd_tile_work(B, Hkv, S, S, Hq // Hkv, True, window)
+            plan = bwd_dkdv_plan(B, Hkv, S, S, Hq // Hkv, True, window, sms)
+            splits = bwd_head_splits(len(work), Hq // Hkv, sms)
+            print(f"[timing] flash_attention_bwd_wgmma {what}: the dk/dv launch's {len(plan)} "
+                  f"blocks over {len(work)} work tiles of 64 keys (bwd_dkdv_plan), the longest "
+                  f"walking {max((g1 - g0) * work[t] for t, g0, g1, _, _ in plan)} query tiles; "
+                  f"one split for every tile ({splits}, bwd_head_splits) would give "
+                  f"{len(work) * splits} blocks, the longest walking "
+                  f"{-(-(Hq // Hkv) // splits) * max(work)}")
         rows["flash_attention_bwd_wgmma"]["shapes"].append({
             "shape": label, "ms": ms["both launches"], "dq_ms": ms["dq launch"],
             "dkdv_ms": ms["dk/dv launch"], "plain_ms": plain_ms, "library_ms": ms[lib_note],
@@ -3260,6 +3284,18 @@ def phase_bwd(torch):
             lambda: wkv_bwd_ref(r, k, v, w, u, None, dout), None, nbytes, 10 * 64 * n,
             FP32_FLOPS)
         rows["wkv_bwd"]["forward_ms"] = {name: statistics.mean(t) for name, t in times.items()}
+        # its two launches apart: the chunks from the end, and du's sum over
+        # the batch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                KERNELS["wkv_bwd"](r, k, v, w, u, s_seg, dout)
+            torch.cuda.synchronize()
+        apart = {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages()
+                 if e.device_type != torch.autograd.DeviceType.CPU and "wkv_bwd" in e.key}
+        print(f"[timing] wkv_bwd {what}: its launches apart (torch.profiler, mean of 5, L2 not "
+              "flushed): " + ", ".join(f"{k_[:60]} {v_:.5f} ms" for k_, v_ in apart.items()))
+        rows["wkv_bwd"]["launches_apart_ms"] = apart
         del r, k, v, w, dout, s_seg
     torch.cuda.empty_cache()
     # RMSNorm: the model's norms (4096, 2048), the q-norm over qwen3's 16

@@ -67,26 +67,45 @@
 //      the stages both consumers are done with, and waits only for the one
 //      its own warpgroup reads next. One block a work tile, in the order of
 //      the longest first. Where the work tiles are fewer than half the SMs
-//      (qwen2-0.5b: 64 at 8 x 512, G = 7 on 2 kv-heads; recurrentgemma: 64
-//      at 8 x 512 on 1 kv-head), a tile's G heads are split over as many
-//      blocks as fill the card; each writes its partial dK and dV (fp32),
-//      and the last of them (a counter a tile) adds them in a fixed order
-//      and stores dk and dv, so the bits do not depend on which finished
-//      last.
+//      (qwen2-0.5b: 64 at 8 x 512, G = 7 on 2 kv-heads), a tile's G heads
+//      are split over as many blocks as fill the card (at D = 256 by each
+//      tile's own work, below); each writes its partial dK and dV (fp32),
+//      and the last of them (a counter a tile) adds them in block order and
+//      stores dk and dv, so the bits do not depend on which finished last.
 //
-// D = 256 (recurrentgemma-2b). dK and dV of 64 keys at all of D would be
-// 128 + 128 fp32 a consumer thread, and K and V of a 128-key tile 128 KB of
-// shared memory beside a ring whose (Q, dO) stage of 64 rows is another 64
-// KB. So both launches take work tiles of 64 rows (keys in dk/dv, queries
-// in dq), and their two consumers take D's two halves of the same rows:
-// each computes S and dP (S^T and dP^T) over all of D (those two products
-// are done twice) and keeps its 128 columns of dK and dV (64 + 64 fp32 a
-// thread, as at D = 128) or of dQ (64). The dq launch at 128 rows and all
-// of D (dQ 128 fp32 a thread beside S, dP and P) spilled 460 bytes under
-// the 168 registers ptxas gives a block of 384 threads. Shared memory: K
-// and V (dk/dv) or Q and dO (dq) 64 KB, two ring stages of 64 rows 128 KB.
-// recurrentgemma's 8 x 512 keys on 1 kv-head give 64 dk/dv work tiles, so
-// G = 10 splits in two: 128 blocks.
+// D = 256 (recurrentgemma-2b; redesigned). dK and dV of 64 keys at all of
+// D would be 128 + 128 fp32 a consumer thread, and K and V of a 128-key tile
+// 128 KB of shared memory beside a ring whose (Q, dO) stage of 64 rows is
+// another 64 KB. So both launches take work tiles of 64 rows (keys in
+// dk/dv, queries in dq) and their two consumers keep D's two halves of the
+// rows' dK and dV (64 + 64 fp32 a thread) or dQ (64). They split S and dP
+// (S^T and dP^T) by columns: consumer c computes the 32 keys (queries in
+// dk/dv) 32c .. 32c + 31 of the tile (SS m64n32k16 over all of D) and P and
+// dS there, and the two hand each other those as bf16 wgmma fragments (8
+// words a thread in dq, 16 in dk/dv) through a double-buffered exchange in
+// shared memory under a named barrier of both, so that each holds P and dS
+// of all 64 columns for its products of D's half. Seven products, none
+// twice (the first design computed S and dP in both consumers: eleven).
+// The dk/dv launch at recurrentgemma-2b's 8 x 512 on 1 kv-head has 64 work
+// tiles, the first key tile of a batch row seeing 8 query tiles a head and
+// the last 1; their heads split over blocks by each tile's work
+// (kernels/flash_attention/kernel.py::bwd_dkdv_plan, passed as a table of
+// blocks): 128 blocks, the longest walking 30 query tiles against 40 under
+// one split of 2 for every tile. The last block of a split tile sums the
+// fp32 partials by 16-byte loads past the L1 (scalar volatile loads, cycle
+// stamps showed, took a large share of that block's time).
+//
+// Tried at D = 256 and dropped, each timed beside this design on an H100
+// 80GB HBM3 at 700 W at q (8,10,512,256) on 1 kv-head: a dq of 128-row work
+// tiles with all of D in each of two consumers (dQ 128 fp32 a thread, 255
+// registers without a producer warpgroup) and a ring of three 32-key
+// stages: slower (many short blocks, each loading a cold 128 KB of Q and
+// dO); dk/dv issuing the next tile's S^T and dP^T before waiting for this
+// tile's dV and dK: slower, ptxas serialized its wgmma (C7518: the
+// refill's divergent branch while they ran); dq summing delta while the
+// first key tile's S and dP ran: slower, its registers over ptxas's 168;
+// P computed while dP's products ran (two commit groups), and the next dq
+// tile's rows of O loaded at the end of the current one: no faster.
 //
 // The window's tiles are skipped, never loaded, in both launches; masks are
 // computed only on the tiles the diagonal, the window's edge or Sk cuts.
@@ -104,19 +123,23 @@
 //
 // ptxas (-O3, sm_90a; chip_smoke.py's build phase prints each instance's
 // registers, spills and shared memory): dq 168 registers in every
-// instance, with no spill except under a softcap at D = 128 (40 bytes, 60
-// with a window too); dk/dv 164-226 at D = 64 and 253-255 at D = 128 and
-// 256, no spill. Shared memory: dq 134360, 199832 and 198744 bytes at D = 64, 128
-// and 256, dk/dv 135280, 199760 and 198704. A dq of
-// 256 threads that issued S and dP of the next key tile before the math of
-// the current one (two register sets) gave the same bits but ran slower:
-// ptxas serialized its wgmma (its warning C7515).
+// instance, with no spill except under a softcap at D =
+// 128 (40 bytes, 60 with a window too); dk/dv 164-226 at D = 64 and 253-255
+// at D = 128 and 256, no spill. Shared memory: dq 134360, 199832 and 215128
+// bytes at D = 64, 128 and 256, dk/dv 135280, 199760 and 231472 (D = 256:
+// the exchange buffers, 16 and 32 KB). A dq of 256 threads that issued S and
+// dP of the next key tile before the math of the current one (two register
+// sets) gave the same bits but ran slower: ptxas serialized its wgmma (its
+// warning C7515).
 //
 // Bound on an H100: at qwen3-1.7b's training shape (8, 16, 512, 128) causal
 // the bytes (q, k, v, o, dO, L read once, dq, dk, dv written once: 100.9 MB,
 // 30 us at 3.35 TB/s) take longer than the five causal-halved products at
-// 989 TFLOP/s (21.6 GFLOP, 22 us); this design does seven (eleven at D =
-// 256, where each launch computes S and dP twice).
+// 989 TFLOP/s (21.6 GFLOP, 22 us); this design does seven. At
+// recurrentgemma-2b's (8, 10, 512, 256) on 1 kv-head the bytes take 27.6
+// us; the backward takes 0.2160 ms (dq 0.0965, dk/dv 0.1274) against SDPA's
+// backward 0.2206 and the first D = 256 design's 0.3041 in the same call
+// (chip_pair.py, the mean of two turns each, on an H100 80GB HBM3 at 700 W).
 
 #include <cuda_bf16.h>
 
@@ -142,6 +165,13 @@ struct BwdCfg {
   static constexpr bool SPLIT_D = D == 256;
   static constexpr int DH = SPLIT_D ? D / 2 : D;
   static constexpr int ROWS = SPLIT_D ? 64 : 128;  // rows of a work tile
+  // SPLIT_D: columns of S and dP (S^T and dP^T) a consumer computes, the
+  // keys (queries in dk/dv) 32c .. 32c + 31 of a ring tile; else all 64
+  static constexpr int NS = SPLIT_D ? TN / 2 : TN;
+  // SPLIT_D: the bf16 fragments of dS (dq) or of P^T and dS^T (dk/dv) the
+  // two consumers hand each other, by parity: [2][consumer][16-byte words][128 threads]
+  static constexpr int DQ_XCH = SPLIT_D ? 2 * 2 * (NS / 16) * 128 * 16 : 0;
+  static constexpr int KV_XCH = 2 * DQ_XCH;
   static constexpr int STAGES = D == 64 ? 6 : D == 128 ? 4 : 2;
   static constexpr int PART = DH;                  // partial fp32 a thread: dK's and dV's
   static constexpr int TILE_BYTES = ROWS * D * 2;  // Q or dO (dq), K or V (dk/dv) of a work tile
@@ -149,10 +179,10 @@ struct BwdCfg {
   static constexpr int STAT_BYTES = TN * 8;        // one stage of (L log2 e, delta) pairs
   static constexpr int DQ_BARS = (2 + 4 * STAGES) * 8 + 8;
   static constexpr int KV_BARS = (1 + 2 * STAGES) * 8 + 8;
-  static constexpr int DQ_SMEM = 1024 + 2 * TILE_BYTES + 2 * STAGES * RING_BYTES + 2 * ROWS * 8 +
-                                 DQ_BARS;
+  static constexpr int DQ_SMEM = 1024 + 2 * TILE_BYTES + 2 * STAGES * RING_BYTES + DQ_XCH +
+                                 2 * ROWS * 8 + DQ_BARS;
   static constexpr int DKDV_SMEM = 1024 + 2 * TILE_BYTES + STAGES * (2 * RING_BYTES + STAT_BYTES) +
-                                   KV_BARS;
+                                   KV_XCH + KV_BARS;
   static_assert(D == 64 || D == 128 || D == 256, "head dim");
   static_assert(DQ_SMEM <= 232448 && DKDV_SMEM <= 232448, "shared memory");
 };
@@ -265,6 +295,42 @@ __device__ __forceinline__ float2 p_ds(float s, float dp, float lg, float dl, fl
   return make_float2(p, p * (dp - dl));
 }
 
+// S (64 x 32) (+)= A B^T: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// SPLIT_D: the 2 W words of bf16 pairs (16-byte words of fragments) of this
+// consumer's columns into its half of an exchange buffer (word j of thread
+// tid at [c][j][tid]), a barrier of both consumers, then both halves back,
+// consumer 0's first: each consumer then holds the fragments of all 64
+// columns
+template <int W>
+__device__ __forceinline__ void exchange(uint4* xch, int c, int tid, const uint32_t* mine,
+                                         uint32_t* all) {
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    xch[(c * W + j) * 128 + tid] =
+        make_uint4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
+  bar_sync(3, 256);
+#pragma unroll
+  for (int j = 0; j < 2 * W; ++j) {
+    const uint4 x = xch[j * 128 + tid];
+    all[4 * j] = x.x;
+    all[4 * j + 1] = x.y;
+    all[4 * j + 2] = x.z;
+    all[4 * j + 3] = x.w;
+  }
+}
+
 // 64 x N rows of an m64nN accumulator (thread: rows row_lo, row_lo + 8),
 // times `scale`, into bf16 rows of `base`; rows at or past n are not written
 template <int N>
@@ -305,7 +371,8 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   uint8_t* dos = qs + F::TILE_BYTES;        // [DB][QT][128 bytes]
   uint8_t* ks = dos + F::TILE_BYTES;        // [STAGES][DB][TN][128 bytes]
   uint8_t* vs = ks + STAGES * F::RING_BYTES;
-  float2* stat = reinterpret_cast<float2*>(vs + STAGES * F::RING_BYTES);  // [2][QT], by parity
+  uint4* xch = reinterpret_cast<uint4*>(vs + STAGES * F::RING_BYTES);     // SPLIT_D: dS, by parity
+  float2* stat = reinterpret_cast<float2*>(vs + STAGES * F::RING_BYTES + F::DQ_XCH);  // [2][QT]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(stat + 2 * QT);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
@@ -390,9 +457,11 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   const uint32_t qa = smem_addr(qs) + ro * 128, da = smem_addr(dos) + ro * 128;
   const float inf = __int_as_float(0x7f800000);
 
-  float acc[DH / 2], s[TN / 2], dp[TN / 2];
+  constexpr int NS = F::NS;
+  float acc[DH / 2], s[NS / 2], dp[NS / 2];
   uint32_t p[TN / 4];
   int it = 0;  // key tiles consumed so far: the ring position
+  int xi = 0;  // SPLIT_D: tiles whose dS the consumers exchanged: the buffer's parity
   for (int wi = 0;; ++wi) {
     bar_wait(q_full, wi & 1);
     const int w = *work;
@@ -403,8 +472,31 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
     const long long bh = static_cast<long long>(t.b) * Hq + t.head;
 
     // delta and L log2(e) of the consumer's rows, two threads a row (under
-    // SPLIT_D both consumers compute those of the same rows, alike)
-    {
+    // SPLIT_D rows 32c .. 32c + 31 of the tile, four threads a row)
+    if constexpr (F::SPLIT_D) {
+      const int r = 32 * c + tid / 4, quarter = tid % 4, row = t.r0 + r;
+      float sum = 0.f;
+      if (row < Sq) {
+        const bf16* orow = o + t.b * os.b + t.head * os.h + row * os.s + quarter * (D / 4);
+#pragma unroll
+        for (int ch = 0; ch < D / 32; ++ch) {  // 8-element chunks of this quarter of the row
+          const int d0 = quarter * (D / 4) + 8 * ch, cc = (d0 % 64) / 8;
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * ch);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dos + (d0 / 64) * QT * 128 + r * 128 +
+                                                           ((cc ^ (r % 8)) * 16));
+          sum += dot8(ov, dv);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (quarter == 0) {
+        const float2 st = row < Sq ? make_float2(lse[bh * Sq + row] * LOG2E, sum)
+                                   : make_float2(inf, 0.f);
+        stat[(wi & 1) * QT + r] = st;
+        stats[bh * sq_pad + row] = st;
+      }
+      bar_sync(3, 256);
+    } else {
       const int r = tid / 2, half = tid % 2, rr = ro + r, row = r0 + r;
       float sum = 0.f;
       if (row < Sq) {
@@ -423,10 +515,10 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
         const float2 st = row < Sq ? make_float2(lse[bh * Sq + row] * LOG2E, sum)
                                    : make_float2(inf, 0.f);
         stat[(wi & 1) * QT + rr] = st;
-        if (c == 0 || !F::SPLIT_D) stats[bh * sq_pad + row] = st;
+        stats[bh * sq_pad + row] = st;
       }
+      bar_sync(1 + c, 128);
     }
-    bar_sync(1 + c, 128);
     const float2 st_lo = stat[(wi & 1) * QT + ro + 16 * warp + lane / 4];
     const float2 st_hi = stat[(wi & 1) * QT + ro + 16 * warp + lane / 4 + 8];
     const float lg[2] = {st_lo.x, st_hi.x}, dl[2] = {st_lo.y, st_hi.y};
@@ -459,15 +551,18 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
       }
       const uint32_t kb = smem_addr(ks + st * F::RING_BYTES);
       const uint32_t vb = smem_addr(vs + st * F::RING_BYTES);
+      // this consumer's keys of the tile (SPLIT_D: rows 32c.. of K and V)
+      const uint32_t kn = kb + (F::SPLIT_D ? c * NS * 128 : 0);
+      const uint32_t vn = vb + (F::SPLIT_D ? c * NS * 128 : 0);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)  // k16 steps along D: 32 bytes of a 128-byte row
         wgmma_qk(s, desc(qa + kk / 4 * QT * 128 + kk % 4 * 32, 16, 1024),
-                 desc(kb + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
+                 desc(kn + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_qk(dp, desc(da + kk / 4 * QT * 128 + kk % 4 * 32, 16, 1024),
-                 desc(vb + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
+                 desc(vn + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
       wgmma_commit();
       if (prev >= 0) {  // dQ of the previous tile is done: its K stage is free
         wgmma_wait<1>();
@@ -483,18 +578,27 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
 
       const bool masked = (causal && kt + TN - 1 > r0) || kt + TN > Sk ||
                           (window > 0 && kt <= r0 + 63 - window);
+      const int kn0 = kt + (F::SPLIT_D ? c * NS : 0);  // the first key of s and dp
 #pragma unroll
-      for (int idx = 0; idx < TN / 2; ++idx) {
+      for (int idx = 0; idx < NS / 2; ++idx) {
         const int h = (idx >> 1) & 1;
         float2 pd = p_ds<CAP>(s[idx], dp[idx], lg[h], dl[h], scale2, cap);
         if (masked) {
-          const int key = kt + 8 * (idx >> 2) + col + (idx & 1);
+          const int key = kn0 + 8 * (idx >> 2) + col + (idx & 1);
           if (key >= Sk || !live(row_lo + 8 * h, key, causal, window)) pd.y = 0.f;
         }
         s[idx] = pd.y;  // dS
       }
+      if constexpr (F::SPLIT_D) {
+        uint32_t mine[NS / 4];
 #pragma unroll
-      for (int q = 0; q < TN / 4; ++q) p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+        for (int q = 0; q < NS / 4; ++q) mine[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+        exchange<NS / 16>(xch + (xi & 1) * 2 * (NS / 16) * 128, c, tid, mine, p);
+        ++xi;
+      } else {
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+      }
       // this consumer's DH columns of K: 64-wide blocks dc / 64 on
       const uint32_t kcol = kb + dc / 64 * TN * 128;
       wgmma_fence();
@@ -522,8 +626,8 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
               const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
               const float2* __restrict__ stats, int sq_pad, bf16* __restrict__ dk, Strides dks,
               bf16* __restrict__ dv, Strides dvs, float* __restrict__ part, int* __restrict__ done,
-              int splits, int B, int Hkv, int Sq, int Sk, int G, int group, int causal,
-              int window_arg, float softcap, float scale) {
+              const int* __restrict__ plan, int splits, int B, int Hkv, int Sq, int Sk, int G,
+              int group, int causal, int window_arg, float softcap, float scale) {
   const int window = WIN ? window_arg : 0;  // 0 at compile time without one
   using F = BwdCfg<D>;
   constexpr int STAGES = F::STAGES, KT = F::ROWS, DH = F::DH;
@@ -534,20 +638,31 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   uint8_t* vs = ks + F::TILE_BYTES;          // [DB][KT][128 bytes]
   uint8_t* qs = vs + F::TILE_BYTES;          // [STAGES][DB][TN][128 bytes]
   uint8_t* dos = qs + STAGES * F::RING_BYTES;
-  float2* sts = reinterpret_cast<float2*>(dos + STAGES * F::RING_BYTES);  // [STAGES][TN]
+  uint4* xch = reinterpret_cast<uint4*>(dos + STAGES * F::RING_BYTES);  // SPLIT_D: P^T, dS^T
+  float2* sts = reinterpret_cast<float2*>(dos + STAGES * F::RING_BYTES + F::KV_XCH);  // [STAGES][TN]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sts + STAGES * TN);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
   const int Hq = Hkv * G;
-  const int tile = blockIdx.x / splits, split = blockIdx.x % splits;
+  // this block's work tile, its heads [g0, g1), and the tile's blocks (the
+  // first and their count): at D = 256 from the plan (bwd_dkdv_plan in
+  // kernels/flash_attention/kernel.py), else `splits` blocks a tile
+  int tile, g0, g1, first, count;
+  if constexpr (F::SPLIT_D) {
+    const int* job = plan + 5 * blockIdx.x;
+    tile = job[0], g0 = job[1], g1 = job[2], first = job[3], count = job[4];
+  } else {
+    const int split = blockIdx.x % splits, per = (G + splits - 1) / splits;
+    tile = blockIdx.x / splits, g0 = split * per, g1 = min(G, g0 + per);
+    first = tile * splits, count = splits;
+  }
   const Tile t = tile_of(tile, (Sk + KT - 1) / KT, KT, B, Hkv, group, false);
   // the query tiles that see this tile's keys: from the diagonal (causal),
   // up to the last query the window lets see its last key
   const int q_begin = causal ? t.r0 / TN * TN : 0;
   const int q_end = window > 0 ? min(Sq, t.r0 + KT - 1 + window) : Sq;
   const int nq = q_end > q_begin ? (q_end - q_begin + TN - 1) / TN : 0;
-  const int per = (G + splits - 1) / splits, g0 = split * per;  // this block's heads
-  const int n = max(0, min(G, g0 + per) - g0) * nq;  // their query tiles, head by head
+  const int n = max(0, g1 - g0) * nq;  // this block's query tiles, head by head
 
   // Q, dO and the (L log2 e, delta) pairs of iteration i into stage i % STAGES
   auto load = [&](int i) {
@@ -591,8 +706,10 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   const int k0 = t.r0 + ko;                      // this consumer's first key
   const int key_lo = k0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
 
-  float dk_acc[DH / 2], dv_acc[DH / 2], s[TN / 2], dp[TN / 2];
+  constexpr int NS = F::NS;
+  float dk_acc[DH / 2], dv_acc[DH / 2], s[NS / 2], dp[NS / 2];
   uint32_t p[TN / 4], ds[TN / 4];
+  int xi = 0;  // SPLIT_D: tiles whose P^T and dS^T the consumers exchanged: the buffer's parity
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   int next = STAGES;  // thread 0: the next iteration whose loads are to be issued
@@ -604,25 +721,30 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     if ((!causal || qt + TN - 1 >= k0) && (window <= 0 || qt < k0 + 63 + window)) {
       const uint32_t qb = smem_addr(qs + st * F::RING_BYTES);
       const uint32_t db = smem_addr(dos + st * F::RING_BYTES);
+      // this consumer's queries of the tile (SPLIT_D: rows 32c.. of Q and dO)
+      const uint32_t qn = qb + (F::SPLIT_D ? c * NS * 128 : 0);
+      const uint32_t dn = db + (F::SPLIT_D ? c * NS * 128 : 0);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)  // k16 steps along D: 32 bytes of a 128-byte row
         wgmma_qk(s, desc(ka + kk / 4 * KT * 128 + kk % 4 * 32, 16, 1024),
-                 desc(qb + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
+                 desc(qn + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_qk(dp, desc(va + kk / 4 * KT * 128 + kk % 4 * 32, 16, 1024),
-                 desc(db + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
+                 desc(dn + kk / 4 * TN * 128 + kk % 4 * 32, 16, 1024), kk > 0);
       wgmma_commit();
+
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
 
       const float2* sp = sts + st * TN;
       const bool masked = (causal && qt < k0 + 63) || (window > 0 && qt + TN - 1 >= k0 + window);
+      const int qn0 = F::SPLIT_D ? c * NS : 0;  // the first query of s and dp in the tile
 #pragma unroll
-      for (int idx = 0; idx < TN / 2; ++idx) {
-        const int qi = 8 * (idx >> 2) + col + (idx & 1);  // this entry's query in the tile
+      for (int idx = 0; idx < NS / 2; ++idx) {
+        const int qi = qn0 + 8 * (idx >> 2) + col + (idx & 1);  // this entry's query in the tile
         const float2 ld = sp[qi];
         float2 pd = p_ds<CAP>(s[idx], dp[idx], ld.x, ld.y, scale2, cap);
         if (masked && !live(qt + qi, key_lo + 8 * ((idx >> 1) & 1), causal, window))
@@ -630,10 +752,30 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
         s[idx] = pd.x;
         dp[idx] = pd.y;  // dS^T
       }
+      if constexpr (F::SPLIT_D) {
+        // P^T's and dS^T's fragments of this consumer's queries as one run of
+        // words, both consumers' back into p and ds
+        uint32_t mine[NS / 2], all[TN / 2];
 #pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
-        ds[q] = pack_bf16(dp[2 * q], dp[2 * q + 1]);
+        for (int q = 0; q < NS / 4; ++q) {
+          mine[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+          mine[NS / 4 + q] = pack_bf16(dp[2 * q], dp[2 * q + 1]);
+        }
+        exchange<NS / 8>(xch + (xi & 1) * 2 * (NS / 8) * 128, c, tid, mine, all);
+        ++xi;
+#pragma unroll
+        for (int q = 0; q < NS / 4; ++q) {
+          p[q] = all[q];
+          ds[q] = all[NS / 4 + q];
+          p[NS / 4 + q] = all[NS / 2 + q];
+          ds[NS / 4 + q] = all[3 * NS / 4 + q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) {
+          p[q] = pack_bf16(s[2 * q], s[2 * q + 1]);
+          ds[q] = pack_bf16(dp[2 * q], dp[2 * q + 1]);
+        }
       }
       // this consumer's DH columns of dO and Q: 64-wide blocks dc / 64 on
       const uint32_t qcol = qb + dc / 64 * TN * 128, dcol = db + dc / 64 * TN * 128;
@@ -665,11 +807,11 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
       }
     }
   }
-  if (splits > 1) {
+  if (count > 1) {
     // the heads' partial sums of this tile: each block writes its own, the
-    // last to finish adds them all in split order (the same bits whichever
+    // last to finish adds them all in block order (the same bits whichever
     // block is last) and stores dk and dv
-    float* mine = part + (static_cast<long long>(tile) * splits + split) * DKDV_THREADS * F::PART;
+    float* mine = part + static_cast<long long>(blockIdx.x) * DKDV_THREADS * F::PART;
     float4* out = reinterpret_cast<float4*>(mine + threadIdx.x * F::PART);
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i) {
@@ -681,7 +823,7 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     __syncthreads();
     __shared__ int last;
     if (threadIdx.x == 0) {
-      last = atomicAdd(done + tile, 1) == splits - 1;
+      last = atomicAdd(done + tile, 1) == count - 1;
       if (last) done[tile] = 0;  // for the next launch
     }
     __syncthreads();
@@ -689,13 +831,33 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     __threadfence();
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    for (int j = 0; j < splits; ++j) {
-      const volatile float* in = part + ((static_cast<long long>(tile) * splits + j) *
-                                             DKDV_THREADS + threadIdx.x) * F::PART;
+    for (int j = 0; j < count; ++j) {
+      const float* in = part + ((static_cast<long long>(first) + j) * DKDV_THREADS +
+                                threadIdx.x) * F::PART;
+      if constexpr (F::SPLIT_D) {
+        // 16-byte loads past the L1 (another block wrote them): the scalar
+        // volatile ones took 100 K of the last block's 327 K cycles at
+        // recurrentgemma-2b's train shape
+        const float4* in4 = reinterpret_cast<const float4*>(in);
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) {
-        dk_acc[i] += in[i];
-        dv_acc[i] += in[DH / 2 + i];
+        for (int i = 0; i < DH / 8; ++i) {
+          const float4 a = __ldcg(in4 + i), b = __ldcg(in4 + DH / 8 + i);
+          dk_acc[4 * i] += a.x;
+          dk_acc[4 * i + 1] += a.y;
+          dk_acc[4 * i + 2] += a.z;
+          dk_acc[4 * i + 3] += a.w;
+          dv_acc[4 * i] += b.x;
+          dv_acc[4 * i + 1] += b.y;
+          dv_acc[4 * i + 2] += b.z;
+          dv_acc[4 * i + 3] += b.w;
+        }
+      } else {
+        const volatile float* vin = in;
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) {
+          dk_acc[i] += vin[i];
+          dv_acc[i] += vin[DH / 2 + i];
+        }
       }
     }
   }
@@ -718,7 +880,8 @@ int group_of(long long pairs, long long bytes_per_pair) {
 template <int D, bool CAP, bool WIN>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, void* dq, void* dk, void* dv, float2* stats, int* counter,
-           float* part, int* done, int splits, int B, int Hq, int Hkv, int Sq, int Sk,
+           float* part, int* done, const int* plan, int blocks, int splits, int B, int Hq,
+           int Hkv, int Sq, int Sk,
            const long long* st, int causal, int window, float softcap, float scale, int phases,
            cudaStream_t stream) {
   using F = BwdCfg<D>;
@@ -739,7 +902,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
     if ((err = allow_smem(bwd_dq_sm90<D, CAP, WIN>, F::DQ_SMEM)) != cudaSuccess) return err;
     const long long total = static_cast<long long>((Sq + F::ROWS - 1) / F::ROWS) * B * Hq;
     bwd_dq_sm90<D, CAP, WIN><<<static_cast<unsigned>(std::min<long long>(total, sms)), THREADS,
-                     F::DQ_SMEM, stream>>>(
+                               F::DQ_SMEM, stream>>>(
         mq, mdo, mk, mv, static_cast<const bf16*>(o), os, lse, stats, sq_pad,
         static_cast<bf16*>(dq), dqs, counter, B, Hq, Sq, Sk, G,
         group_of(static_cast<long long>(B) * Hq, 4ll * Sk * D / G), causal, window, softcap,
@@ -754,11 +917,12 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
         !make_map(&mdo, dout, D, Sq, Hq, B, st[12], st[13], st[14], TN))
       return -2;
     if ((err = allow_smem(bwd_dkdv_sm90<D, CAP, WIN>, F::DKDV_SMEM)) != cudaSuccess) return err;
+    if (F::SPLIT_D && plan == nullptr) return -1;
     const long long total = static_cast<long long>((Sk + F::ROWS - 1) / F::ROWS) * B * Hkv;
-    bwd_dkdv_sm90<D, CAP, WIN><<<static_cast<unsigned>(total * splits), DKDV_THREADS, F::DKDV_SMEM,
-                       stream>>>(
+    bwd_dkdv_sm90<D, CAP, WIN><<<static_cast<unsigned>(F::SPLIT_D ? blocks : total * splits),
+                                 DKDV_THREADS, F::DKDV_SMEM, stream>>>(
         mk, mv, mq, mdo, stats, sq_pad, static_cast<bf16*>(dk), dks, static_cast<bf16*>(dv),
-        dvs, part, done, splits, B, Hkv, Sq, Sk, G,
+        dvs, part, done, plan, splits, B, Hkv, Sq, Sk, G,
         group_of(static_cast<long long>(B) * Hkv, 4ll * Sq * D * G), causal, window, softcap,
         scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -775,20 +939,24 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // same causal, window and softcap. stats: fp32 scratch of (B, Hq, Sq_pad,
 // 2), Sq_pad = Sq rounded up to 128, contiguous, 16-byte aligned. counter:
 // two ints, 0 before the launch and 0 again after it (the dq launch resets
-// them), not shared with a launch that may run at the same time. splits:
-// the query-head groups a dk/dv work tile (128 keys of a (b, kv-head), 64
-// at D = 256) splits into (a block each; 1 where the work tiles fill the
-// card); with splits > 1, part: fp32 scratch of tiles x splits x 256 x
-// flash_attention_bwd_sm90_part(D), and done: one int a work tile, 0 before
-// the launch and 0 again after it. window: 0 for none; softcap: 0 for none.
-// phases: 3 runs both launches; 1 only dq (which writes stats), 2 only dk
-// and dv (which read them), for timing the two apart. Returns -1 for a D
-// not compiled (64, 128, 256), -2 if a TMA descriptor is refused, else
-// cudaGetLastError() of the first launch that fails, or 0.
+// them), not shared with a launch that may run at the same time. At D =
+// 64 and 128, splits: the query-head groups a dk/dv work tile (128 keys of
+// a (b, kv-head)) splits into (a block each; 1 where the work tiles fill
+// the card). At D = 256, plan: `blocks` x 5 ints on the device (work tile,
+// first head, end head, the tile's first block, its blocks), a block each
+// (kernels/flash_attention/kernel.py::bwd_dkdv_plan); splits unused. Where
+// a tile has more than one block, part: fp32 scratch of blocks x 256 x
+// bwd_part_floats(D) (kernel.py), and done: one int a work tile, 0 before
+// the launch and 0 again after it. window: 0 for none;
+// softcap: 0 for none. phases: 3 runs both launches; 1 only dq (which
+// writes stats), 2 only dk and dv (which read them), for timing the two
+// apart. Returns -1 for a D not compiled (64, 128, 256) or D = 256 without
+// a plan, -2 if a TMA descriptor is refused, else cudaGetLastError() of
+// the first launch that fails, or 0.
 extern "C" int flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* dq, void* dk, void* dv, void* stats, int* counter, void* part,
-    int* done, int splits, int B, int Hq,
+    int* done, const int* plan, int blocks, int splits, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, long long dsb, long long dsh, long long dss, long long dqsb,
@@ -802,9 +970,9 @@ extern "C" int flash_attention_bwd_sm90(
   const float* l = static_cast<const float*>(lse);
   float2* sp = static_cast<float2*>(stats);
   float* pp = static_cast<float*>(part);
-#define BWD_ARGS                                                                          \
-  q, k, v, o, dout, l, dq, dk, dv, sp, counter, pp, done, splits, B, Hq, Hkv, Sq, Sk, st, \
-      causal, window, softcap, scale, phases, s
+#define BWD_ARGS                                                                           \
+  q, k, v, o, dout, l, dq, dk, dv, sp, counter, pp, done, plan, blocks, splits, B, Hq, Hkv, Sq, \
+      Sk, st, causal, window, softcap, scale, phases, s
 #define BWD_LAUNCH(DD)                                                                    \
   (softcap > 0.f ? (window > 0 ? launch<DD, true, true>(BWD_ARGS)                         \
                                : launch<DD, true, false>(BWD_ARGS))                       \

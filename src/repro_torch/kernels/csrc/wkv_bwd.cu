@@ -45,26 +45,66 @@
 // the relative precision of small decays (1.6e-3 of dw at w in (0, 0.2) in
 // fp32, against 3e-7 for this form; kernels/wkv/ref.py's mirror).
 //
-// Design: one block per (b, h), 512 threads, owning the segment's chunk
-// states and D whole in shared memory (135 KB: one block an SM); every
-// sum runs in a fixed order, so the same inputs give the same bits. Per
-// chunk, between barriers: the inputs by 16-byte loads; the log decays,
-// rowsum(D S), M, sd and dvv, a thread an element; the decays' sums, a
-// thread a channel, in order; KD and RQ, then a thread per (t, i) for dr,
-// dk, dw and its channel's share of the scores A[t][q], which a butterfly
-// sums over the warp's 32 channels (t is the same across a warp, so the
-// loops over the chunk's steps run unrolled and alike); a thread per
-// (t, j) for dv; then D. du: each (b, h)'s share in a thread per channel,
-// summed over b in order by a second launch (no atomics), as a resumed
-// train step needs.
+//
+// Design (redesigned for Hopper): one block per (b, h) of 512 threads,
+// owning the segment's chunk states and D whole in shared memory (230144
+// bytes: one block an SM); every sum runs in a fixed order and no atomics,
+// so the same inputs give the same bits. The states are N x N rows whose
+// 16-byte granules are swizzled by row (granule c of row i at c ^ ((i / 4)
+// % 8)), so that a warp reads a column of granules over 16 rows as well as
+// a row without bank conflicts, and every N x N product runs on register
+// tiles: a thread owns a 4 x 4 (or 2 x 4, 4 x 2) block of the output and
+// reads each operand as 16-byte vectors once per 4-deep step (16 FFMA a
+// load, against 1 in the first design). The steps of a segment (the chunk
+// states rebuilt from its start, then its chunks from the last) run as one
+// sequence whose next step's inputs (and the next segment's start state)
+// arrive by cp.async into a second buffer while the current step computes.
+// A backward chunk takes four phases between barriers, each spread over
+// all 16 warps:
+//   1. the log decays and their sums before and after each step (a thread
+//      a channel and an eighth of the chunk, the eighths' totals exchanged
+//      by shuffles; each sum a direct one), KD, RQ and their factors; M and
+//      M^T (a warp a step, the channels' halves summed by a shuffle); sd =
+//      S do and dvv = D v (4 x 4 tiles over a quarter of the channels, the
+//      quarters summed by shuffles); rowsum(D S) (2 x 4 tiles, a 16-lane
+//      butterfly);
+//   2. every pair q < t's factors E[t][q] k_q and E[t][q] r_t (a thread a
+//      channel and two q of the same work, t from q + 1 on: 2 x 120 x 64 in
+//      shared memory, rows padded so that neighbouring pairs fall in other
+//      banks); KD^T D (2 x 4 tiles over a quarter of the channels, summed
+//      by shuffles into the thread's (step, two columns), kept in
+//      registers);
+//   3. the scores A[t][q] (a thread a quarter of a pair's channels, 16-byte
+//      loads, two shuffles) and dr, dk and dw a (step t, channel i) each
+//      from the factors, t the same across a warp (t and t + 8: the same
+//      work); the loop over q < t runs as far as t needs, each q feeding
+//      the 16 sums over the later steps from registers (a switch on t's
+//      first group of 4 later steps, taken once an item, keeps the loop
+//      free of branches);
+//   4. dv (KD^T D plus the scores times dO) and D at the chunk's start (4 x
+//      2 tiles of the rank-16 update).
+// du: each thread's share of r k M[t][t], summed over the warps in order,
+// then over b in order by a second launch (no atomics), as a resumed train
+// step needs.
+//
+// What set the design (cycle stamps by phase and warp, on an H100 80GB HBM3
+// at 700 W, at (8, 512, 64, 64)): with 256 threads the (t, i) pass as 16
+// unrolled instantiations, one a t, ran from a cold instruction cache and
+// took most of the time; run as loops over shared memory it was
+// bound by each FMA's wait for its loads; every phase ran at a low rate of
+// instructions a cycle, so the block went to 512 threads (128 registers a
+// thread, no spill) and the pass to the register sums above. Tried and
+// dropped: segments of 32 steps (2 chunks; half the rebuilding, twice the
+// s_seg): a little off the backward, less the forward's longer writes,
+// for 67 MB more a layer.
 //
 // Bound on an H100: at (8, 512, 64, 64) it reads r, k, v, w and do and
 // writes dr, dk, dv and dw (36 bytes a (b, t, h, i)) and reads s_seg: 671
 // MB, 0.20 ms at 3.35 TB/s; about 10 N^2 fp32 operations a (b, t, h), 0.16
-// ms at 67 TFLOP/s. It takes 2.82 ms there on an H100 SXM at 700 W (7.1%):
-// every product reads both operands from shared memory, about 32 K warp
-// loads a chunk over both sweeps, at one a cycle the time it takes.
-// Register tiles would cut those loads (ROADMAP B31).
+// ms at 67 TFLOP/s. It takes 1.233 ms there (16% of the bound) against
+// the first design's 2.809 in the same call (chip_pair.py, the mean of two
+// turns each, on an H100 80GB HBM3 at 700 W); ptxas: 128 registers, no
+// spill.
 
 #include <cuda_runtime.h>
 
@@ -73,25 +113,74 @@ namespace {
 constexpr int N = 64;                // head size
 constexpr int L = 16;                // steps a chunk
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_SEG_CHUNKS = 4;    // chunk states a block keeps
-constexpr int NP = N + 1;            // a state row, padded: rows i and i + 1 in other banks
 constexpr int P = N + 4;             // a row of a chunk's tile, padded to 16 bytes
-constexpr int LP = L + 1;
+constexpr int LP = L + 4;            // a row of M, M^T and the scores
+constexpr int PAIRS = L * (L - 1) / 2;  // the chunk's (t, q) pairs with q < t
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LOG2_W_MIN = -60.f * LOG2E;
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Tiles {                       // a chunk's inputs, zeros past T
+  float r[L * P], k[L * P], v[L * P], w[L * P], dout[L * P];
+};
 
 struct Smem {
-  float st[MAX_SEG_CHUNKS][N * NP];  // each chunk's starting state in the segment
-  float d[N * NP];                   // the gradient of the current chunk's final state
-  float r[L * P], k[L * P], v[L * P], w[L * P], dout[L * P];
+  float st[MAX_SEG_CHUNKS][N * N];   // each chunk's starting state in the segment (swizzled)
+  float d[N * N];                    // the gradient of the current chunk's final state (swizzled)
+  Tiles in[2];                       // this step's inputs and the next one's
   float lw[L * P];                   // log2 w, clamped; 0 past T
-  float pre[L * P], post[L * P];     // sums of lw before and after each step
+  float epre[L * P], epost[L * P], epp[L * P];  // 2^pre, 2^post, 2^(pre + post)
   float kd[L * P], rq[L * P];        // k 2^post, r 2^pre
   float sd[L * P], dvv[L * P];       // S do_t, D v_t
-  float m[L * LP];                   // do_t . v_s
-  float ah[2][L * LP];               // the scores, summed over channels 0-31 and 32-63
-  float u[N], etot[N], p0[N];        // the bonus; 2^(sum lw); rowsum(D * S)
+  float m[L * LP], mt[L * LP];       // M[t][s] = do_t . v_s, and M^T
+  float a[L * LP];                   // the scores A[t][q], q <= t
+  float xe[PAIRS * P], ye[PAIRS * P];  // E[t][q] k_q and E[t][q] r_t of pair (t, q), by channel
+  __align__(16) float u[N];          // the bonus
+  float etot[N], p0[N];              // 2^(sum lw); rowsum(D * S)
 };
+
+// the index of pair (t, q), q < t, in xe and ye
+__host__ __device__ constexpr int pair(int t, int q) { return t * (t - 1) / 2 + q; }
+
+// each pair's t and q
+struct PairTable {
+  unsigned char t[PAIRS], q[PAIRS];
+};
+
+constexpr PairTable make_pair_table() {
+  PairTable tab{};
+  for (int t = 1; t < L; ++t)
+    for (int q = 0; q < t; ++q) {
+      tab.t[pair(t, q)] = static_cast<unsigned char>(t);
+      tab.q[pair(t, q)] = static_cast<unsigned char>(q);
+    }
+  return tab;
+}
+
+__constant__ PairTable PAIR_OF = make_pair_table();
+
+// the float offset of 16-byte granule c of row `row` of a swizzled N x N state
+__device__ __forceinline__ int swz(int row, int c) {
+  return row * N + ((c ^ ((row >> 2) & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+
+__device__ __forceinline__ void st2(float* p, float2 x) { *reinterpret_cast<float2*>(p) = x; }
+
+__device__ __forceinline__ float at(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
 
 // log2 w for w in [0, 1], as csrc/wkv_chunked.cu takes it: above 15/16 by
 // log1p's series on 1 - w, else by the hardware's lg2
@@ -106,74 +195,449 @@ __device__ __forceinline__ float log2_decay(float w) {
   return d < 0.0625f ? -d * p * LOG2E : __log2f(w);
 }
 
-// rows t0 .. t0 + L - 1 of an input at `src` (element (b, 0, h, 0), `row`
-// elements a step) into a tile, `fill` past T
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row, int t0,
-                                          int T, float fill) {
-  for (int idx = threadIdx.x; idx < L * N / 4; idx += THREADS) {
-    const int s = idx / (N / 4), c4 = idx % (N / 4), t = t0 + s;
-    float4 x = make_float4(fill, fill, fill, fill);
-    if (t < T) x = __ldg(reinterpret_cast<const float4*>(src + t * row) + c4);
-    *reinterpret_cast<float4*>(dst + s * P + 4 * c4) = x;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A step of a block: chunk c of segment g, rebuilding the next chunk's
+// starting state (back 0) or taking the chunk's gradients (back 1); g < 0
+// past the last
+struct Step {
+  int g, c, back;
+};
+
+__device__ __forceinline__ int chunks_in(int g, int seg_chunks, int n_chunks) {
+  return min(seg_chunks, n_chunks - g * seg_chunks);
+}
+
+__device__ __forceinline__ Step first_step(int g, int seg_chunks, int n_chunks) {
+  return Step{g, 0, chunks_in(g, seg_chunks, n_chunks) > 1 ? 0 : 1};
+}
+
+// segment g: its chunk states rebuilt from the first, then its chunks from
+// the last; then segment g - 1
+__device__ __forceinline__ Step next_step(Step s, int seg_chunks, int n_chunks) {
+  const int nc = chunks_in(s.g, seg_chunks, n_chunks);
+  if (!s.back) return s.c + 2 < nc ? Step{s.g, s.c + 1, 0} : Step{s.g, nc - 1, 1};
+  if (s.c > 0) return Step{s.g, s.c - 1, 1};
+  return s.g > 0 ? first_step(s.g - 1, seg_chunks, n_chunks) : Step{-1, 0, 0};
+}
+
+// the slot of chunk c of segment g's starting state: a segment's first
+// slot follows the next segment's, so that its start state arrives while
+// the next segment's first chunk still reads its own
+__device__ __forceinline__ int slot(int g, int c, int n_seg) {
+  return (n_seg - 1 - g + c) % MAX_SEG_CHUNKS;
+}
+
+// a step's inputs, rows t0 .. t0 + L - 1 (zeros past T): k, v and w
+// (threads 0-255), and r and dout for a backward step (256-511); a (row,
+// 16-byte granule) a thread
+__device__ __forceinline__ void load_step(Tiles& x, const float* rb, const float* kb,
+                                          const float* vb, const float* wb, const float* ob,
+                                          long long row, int t0, int T, bool back) {
+  const int e = threadIdx.x & 255, s = e >> 4, c = e & 15, t = t0 + s;
+  const bool live = t < T;
+  const long long off = live ? t * row + 4 * c : 0;
+  const int o = s * P + 4 * c;
+  if (threadIdx.x < 256) {
+    cp_async16(x.k + o, kb + off, live);
+    cp_async16(x.v + o, vb + off, live);
+    cp_async16(x.w + o, wb + off, live);
+  } else if (back) {
+    cp_async16(x.r + o, rb + off, live);
+    cp_async16(x.dout + o, ob + off, live);
   }
 }
 
-// a (step, channel) a thread: the chunk's log decays, clamped, 0 past T
-__device__ __forceinline__ void log_decays(Smem& sm, int t0, int T) {
-  for (int e = threadIdx.x; e < L * N; e += THREADS) {
-    const int s = e / N, o = s * P + e % N;
-    sm.lw[o] = t0 + s < T ? fmaxf(log2_decay(sm.w[o]), LOG2_W_MIN) : 0.f;
-  }
+// an N x N fp32 state, row-major, into a swizzled one
+__device__ __forceinline__ void load_state(float* dst, const float* src) {
+  for (int e = threadIdx.x; e < N * N / 4; e += THREADS)
+    cp_async16(dst + swz(e >> 4, e & 15), src + 4 * e, true);
 }
 
-// threads 0 .. N - 1, a channel each: the sums of lw before and after each
-// step, in order, and 2^(their total)
-__device__ __forceinline__ void decay_sums(Smem& sm) {
-  const int i = threadIdx.x;
-  if (i >= N) return;
-  float run = 0.f;
-  for (int s = 0; s < L; ++s) {
-    sm.pre[s * P + i] = run;
-    run += sm.lw[s * P + i];
-  }
-  sm.etot[i] = exp2f(run);
-  run = 0.f;
-  for (int s = L - 1; s >= 0; --s) {
-    sm.post[s * P + i] = run;
-    run += sm.lw[s * P + i];
-  }
-}
-
-// a (step, channel) a thread: KD = k 2^post and (with_r) RQ = r 2^pre
-__device__ __forceinline__ void factors(Smem& sm, bool with_r) {
-  for (int e = threadIdx.x; e < L * N; e += THREADS) {
-    const int o = (e / N) * P + e % N;
-    sm.kd[o] = sm.k[o] * exp2f(sm.post[o]);
-    if (with_r) sm.rq[o] = sm.r[o] * exp2f(sm.pre[o]);
-  }
-}
-
-// One level of a butterfly over lanes OFF apart: each lane keeps half of
-// its 2 HALF values (the upper half where its lane bit OFF is set), summed
-// with its partner's (csrc/wkv_chunked.cu's)
-template <int HALF, int OFF>
-__device__ __forceinline__ void butterfly_level(float (&a)[L], int lane) {
-  const bool up = (lane & OFF) != 0;
+// The chunk's log decays, clamped (0 past T), and the sums of lw before
+// (pre) and after (post) each step: a thread a channel i and an eighth q of
+// the chunk (steps 2q, 2q + 1), the eighths' totals exchanged by shuffles,
+// each sum a direct one; 2^(the chunk's sum) and KD = k 2^post, and (BACK)
+// lw, 2^pre, 2^post, 2^(pre + post) and RQ = r 2^pre
+template <bool BACK>
+__device__ __forceinline__ void decays(Smem& sm, const Tiles& x, int t0, int T) {
+  const int lane = threadIdx.x & 31, i = (threadIdx.x >> 5) * 4 + (lane >> 3), q = lane & 7;
+  float lw[2];
 #pragma unroll
-  for (int q = 0; q < HALF; ++q) {
-    const float lo = a[q], hi = a[q + HALF];
-    a[q] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, OFF);
+  for (int a = 0; a < 2; ++a) {
+    const int s = 2 * q + a;
+    lw[a] = t0 + s < T ? fmaxf(log2_decay(x.w[s * P + i]), LOG2_W_MIN) : 0.f;
+  }
+  const float tot = lw[0] + lw[1];
+  float part[8];
+#pragma unroll
+  for (int qq = 0; qq < 8; ++qq) part[qq] = __shfl_sync(FULL, tot, (lane & ~7) | qq);
+  float pre = 0.f, after = 0.f, all = 0.f;
+#pragma unroll
+  for (int qq = 0; qq < 8; ++qq) {
+    if (qq < q) pre += part[qq];
+    all += part[qq];
+  }
+#pragma unroll
+  for (int qq = 7; qq >= 0; --qq)
+    if (qq > q) after += part[qq];
+  if (q == 0) sm.etot[i] = exp2f(all);
+  const float post[2] = {lw[1] + after, after};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int o = (2 * q + a) * P + i;
+    const float e_post = exp2f(post[a]);
+    sm.kd[o] = x.k[o] * e_post;
+    if (BACK) {
+      const float e_pre = exp2f(pre);
+      sm.lw[o] = lw[a];
+      sm.epre[o] = e_pre;
+      sm.epost[o] = e_post;
+      sm.epp[o] = exp2f(pre + post[a]);
+      sm.rq[o] = x.r[o] * e_pre;
+    }
+    pre += lw[a];
   }
 }
 
-// The sum of 16 values over a warp's 32 lanes: lane g and g + 16 keep the
-// sum of value g % 16 in a[0], in one order, so run to run the same bits
-__device__ __forceinline__ void warp_sum16(float (&a)[L], int lane) {
-  butterfly_level<8, 8>(a, lane);
-  butterfly_level<4, 4>(a, lane);
-  butterfly_level<2, 2>(a, lane);
-  butterfly_level<1, 1>(a, lane);
-  a[0] += __shfl_xor_sync(0xffffffffu, a[0], 16);
+// out[i][j] = etot[i] in[i][j] + sum_s X[s][i] Y[s][j] (the state's rank-L
+// update): a 4 x 2 tile a thread (rows 4 ti .., columns 2 tj ..), s in
+// order; out may be in
+__device__ __forceinline__ void rank_update(float* out, const float* in, const float* X,
+                                            const float* Y, const float* etot) {
+  const int ti = threadIdx.x >> 5, tj = threadIdx.x & 31;
+  const int col = 2 * (tj & 1);  // the pair's place in its granule
+  float2 acc[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float e = etot[4 * ti + a];
+    const float2 s = ld2(in + swz(4 * ti + a, tj >> 1) + col);
+    acc[a] = make_float2(e * s.x, e * s.y);
+  }
+#pragma unroll
+  for (int s = 0; s < L; ++s) {
+    const float4 xs = ld4(X + s * P + 4 * ti);
+    const float2 ys = ld2(Y + s * P + 2 * tj);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float xa = at(xs, a);
+      acc[a].x = fmaf(xa, ys.x, acc[a].x);
+      acc[a].y = fmaf(xa, ys.y, acc[a].y);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) st2(out + swz(4 * ti + a, tj >> 1) + col, acc[a]);
+}
+
+// M[t][s] = do_t . v_s and its transpose: a warp a t, a lane an s and half
+// of the channels, the halves summed by a shuffle
+__device__ __forceinline__ void dout_v(Smem& sm, const Tiles& x) {
+  const int t = threadIdx.x >> 5, lane = threadIdx.x & 31, s = lane & 15, h = lane >> 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int cc = 0; cc < N / 8; ++cc) {
+    const int c = (N / 8) * h + cc;
+    const float4 a = ld4(x.dout + t * P + 4 * c), b = ld4(x.v + s * P + 4 * c);
+    acc.x = fmaf(a.x, b.x, acc.x);
+    acc.y = fmaf(a.y, b.y, acc.y);
+    acc.z = fmaf(a.z, b.z, acc.z);
+    acc.w = fmaf(a.w, b.w, acc.w);
+  }
+  float m = (acc.x + acc.y) + (acc.z + acc.w);
+  m += __shfl_xor_sync(FULL, m, 16);
+  if (h == 0) {
+    sm.m[t * LP + s] = m;
+    sm.mt[s * LP + t] = m;
+  }
+}
+
+// Four 4 x 4 tiles acc[a][b] of four threads (lanes 8 and 16 apart, split
+// = lane bits 3-4), each a quarter of one sum, summed by shuffles into row
+// 2 (split >> 1) + (split & 1) of the tile, one a thread
+__device__ __forceinline__ float4 sum_quarters(float (&acc)[4][4], int split) {
+  const bool hi = (split & 2) != 0, lo = (split & 1) != 0;
+  float pair2[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float mine = hi ? acc[a + 2][b] : acc[a][b];
+      const float other = hi ? acc[a][b] : acc[a + 2][b];
+      pair2[a][b] = mine + __shfl_xor_sync(FULL, other, 16);
+    }
+  float res[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const float mine = lo ? pair2[1][b] : pair2[0][b];
+    const float other = lo ? pair2[0][b] : pair2[1][b];
+    res[b] = mine + __shfl_xor_sync(FULL, other, 8);
+  }
+  return make_float4(res[0], res[1], res[2], res[3]);
+}
+
+// sd[t][i] = sum_j S[i][j] do_t[j] (warps 0-7) and dvv[t][i] = sum_j D[i][j]
+// v_t[j] (warps 8-15): a 4 x 4 tile of (t, i) over a quarter of j a thread,
+// the quarters summed by shuffles
+__device__ __forceinline__ void state_products(Smem& sm, const Tiles& x, const float* S) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int prod = w >> 3, tt = (w >> 1) & 3, ti = 8 * (w & 1) + (lane & 7), split = lane >> 3;
+  const float* X = prod ? x.v : x.dout;
+  const float* Y = prod ? sm.d : S;
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < N / 16; ++cc) {
+    const int c = (N / 16) * split + cc;
+    float4 xa[4], yb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) xa[a] = ld4(X + (4 * tt + a) * P + 4 * c);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) yb[b] = ld4(Y + swz(4 * ti + b, c));
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float s = fmaf(xa[a].x, yb[b].x, acc[a][b]);
+        s = fmaf(xa[a].y, yb[b].y, s);
+        s = fmaf(xa[a].z, yb[b].z, s);
+        acc[a][b] = fmaf(xa[a].w, yb[b].w, s);
+      }
+  }
+  const float4 res = sum_quarters(acc, split);
+  st4((prod ? sm.dvv : sm.sd) + (4 * tt + 2 * (split >> 1) + (split & 1)) * P + 4 * ti, res);
+}
+
+// p0[i] = rowsum(D * S): 2 x 4 tiles, the row's 16 tiles summed by a
+// butterfly over 16 lanes
+__device__ __forceinline__ void row_dots(Smem& sm, const float* S) {
+  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
+  float p[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const float4 dd = ld4(sm.d + swz(2 * ti + a, tj)), ss = ld4(S + swz(2 * ti + a, tj));
+    p[a] = fmaf(dd.w, ss.w, fmaf(dd.z, ss.z, fmaf(dd.y, ss.y, dd.x * ss.x)));
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) p[a] += __shfl_xor_sync(FULL, p[a], off);
+  if (tj == 0)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) sm.p0[2 * ti + a] = p[a];
+}
+
+// KD^T D for dv: dvd[t][j] = sum_i kd[t][i] D[i][j], a 2 x 4 tile of (t, j)
+// over a quarter of i a thread (lanes 8 and 16 apart), summed by shuffles
+// into a (row, column pair) a thread: row t, columns j .. j + 1
+__device__ __forceinline__ float2 kd_d(const Smem& sm, int& t, int& j) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tt = w >> 1, tj = 8 * (w & 1) + (lane & 7), split = lane >> 3;
+  float acc[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < N / 16; ++cc) {
+    const int c = (N / 16) * split + cc;  // channels 4c .. 4c + 3
+    float4 ka[2], db[4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) ka[a] = ld4(sm.kd + (2 * tt + a) * P + 4 * c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[e] = ld4(sm.d + swz(4 * c + e, tj));
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float k = at(ka[a], e);
+        acc[a][0] = fmaf(k, db[e].x, acc[a][0]);
+        acc[a][1] = fmaf(k, db[e].y, acc[a][1]);
+        acc[a][2] = fmaf(k, db[e].z, acc[a][2]);
+        acc[a][3] = fmaf(k, db[e].w, acc[a][3]);
+      }
+  }
+  // split bit 1 keeps row a, bit 0 the column pair
+  const bool hi = (split & 2) != 0, lo = (split & 1) != 0;
+  float row[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const float mine = hi ? acc[1][b] : acc[0][b];
+    const float other = hi ? acc[0][b] : acc[1][b];
+    row[b] = mine + __shfl_xor_sync(FULL, other, 16);
+  }
+  float res[2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const float mine = lo ? row[b + 2] : row[b];
+    const float other = lo ? row[b] : row[b + 2];
+    res[b] = mine + __shfl_xor_sync(FULL, other, 8);
+  }
+  t = 2 * tt + hi;
+  j = 4 * tj + 2 * lo;
+  return make_float2(res[0], res[1]);
+}
+
+// E[t][q] = 2^(sum of lw over q < m < t) of every pair, times k_q (xe) and
+// times r_t (ye): a thread a channel and two q (a and 15 - a: the same
+// work), t from q + 1 on, the sum a direct one
+__device__ __forceinline__ void pair_factors(Smem& sm, const Tiles& x) {
+  const int i = threadIdx.x & (N - 1), a = threadIdx.x / N;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int q = n == 0 ? a : L - 1 - a;
+    const float kq = x.k[q * P + i];
+    float gap = 0.f;
+#pragma unroll 4
+    for (int t = q + 1; t < L; ++t) {
+      const float e = exp2f(gap);
+      sm.xe[pair(t, q) * P + i] = e * kq;
+      sm.ye[pair(t, q) * P + i] = e * x.r[t * P + i];
+      gap += sm.lw[t * P + i];
+    }
+  }
+}
+
+// The scores A[t][q] = sum_i r_t E[t][q] k_q (q < t) and A[t][t] = sum_i r_t
+// u k_t: a thread a quarter of the channels of a pair (or diagonal entry),
+// by 16-byte loads, the four quarters (neighbouring lanes) summed by
+// shuffles
+__device__ __forceinline__ void scores(Smem& sm, const Tiles& x) {
+  constexpr int TASKS = 4 * (PAIRS + L);
+#pragma unroll
+  for (int task = threadIdx.x; task < (TASKS + THREADS - 1) / THREADS * THREADS;
+       task += THREADS) {
+    const int p = task >> 2, c = 4 * (task & 3);  // the quarter's first granule
+    float acc = 0.f;
+    if (p < PAIRS) {
+      const float* xr = x.r + PAIR_OF.t[p] * P;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 a = ld4(xr + 4 * (c + e)), b = ld4(sm.xe + p * P + 4 * (c + e));
+        acc = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+      }
+    } else if (p < PAIRS + L) {
+      const int o = (p - PAIRS) * P;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 a = ld4(x.r + o + 4 * (c + e)), b = ld4(x.k + o + 4 * (c + e));
+        const float4 uu = ld4(sm.u + 4 * (c + e));
+        acc = fmaf(a.w * uu.w, b.w,
+                   fmaf(a.z * uu.z, b.z, fmaf(a.y * uu.y, b.y, fmaf(a.x * uu.x, b.x, acc))));
+      }
+    }
+    acc += __shfl_xor_sync(FULL, acc, 1);
+    acc += __shfl_xor_sync(FULL, acc, 2);
+    if ((task & 3) == 0) {
+      if (p < PAIRS)
+        sm.a[PAIR_OF.t[p] * LP + PAIR_OF.q[p]] = acc;
+      else if (p < PAIRS + L)
+        sm.a[(p - PAIRS) * (LP + 1)] = acc;
+    }
+  }
+}
+
+struct Grads {
+  float *dr, *dk, *dw;
+  long long base, row;
+  int t0, T;
+};
+
+// The sums over q < t of an item: acc[s] = sum_q E[t][q] k_q M[s][q] for
+// the steps s of groups G0 .. 3 of 4 (those past t and, in group G0, some
+// at or before t, unused), and drs, dw_k; q from t - 1 down
+template <int G0>
+__device__ __forceinline__ void item_sums(const Smem& sm, int t, int i, float (&acc)[L],
+                                          float& drs, float& dw_k) {
+  const float* xt = sm.xe + pair(t, 0) * P + i;  // E[t][q] k_q at xt[q P]
+#pragma unroll 2
+  for (int q = t - 1; q >= 0; --q) {
+    const float xq = xt[q * P];
+    drs = fmaf(xq, sm.m[t * LP + q], drs);
+    dw_k = fmaf(xq, sm.dvv[q * P + i], dw_k);
+#pragma unroll
+    for (int s4 = G0; s4 < L / 4; ++s4) {
+      const float4 m4 = ld4(sm.mt + q * LP + 4 * s4);  // M[s][q], s = 4 s4 ..
+      acc[4 * s4] = fmaf(xq, m4.x, acc[4 * s4]);
+      acc[4 * s4 + 1] = fmaf(xq, m4.y, acc[4 * s4 + 1]);
+      acc[4 * s4 + 2] = fmaf(xq, m4.z, acc[4 * s4 + 2]);
+      acc[4 * s4 + 3] = fmaf(xq, m4.w, acc[4 * s4 + 3]);
+    }
+  }
+}
+
+// The sums over s > t of an item, s in groups G0 .. 3 of 4 (in group G0
+// only those past t): dkd, dw_r and dw_rk
+template <int G0>
+__device__ __forceinline__ void item_later(const Smem& sm, int t, int i, const float (&acc)[L],
+                                           float& dkd, float& dw_r, float& dw_rk) {
+#pragma unroll
+  for (int s = 4 * G0; s < L; ++s)
+    if (s > t) {
+      const float ys = sm.ye[pair(s, t) * P + i];  // E[s][t] r_s
+      dkd = fmaf(ys, sm.mt[t * LP + s], dkd);
+      dw_r = fmaf(ys, sm.sd[s * P + i], dw_r);
+      dw_rk = fmaf(ys, acc[s], dw_rk);
+    }
+}
+
+// dr, dk and dw at step t of the chunk and channel i, from the pairs'
+// factors; returns the channel's share of du at this step. t is the same
+// across the warp: the loops run as far as t needs, each q feeding the
+// sums over the later steps s from registers, from the first group of 4
+// steps that holds one past t (a branch on t taken once an item)
+__device__ __forceinline__ float step_grads(const Smem& sm, const Tiles& x, int t, int i,
+                                            const Grads& g) {
+  const int o = t * P + i;
+  const float ri = x.r[o], ki = x.k[o], ui = sm.u[i];
+  float acc[L];  // acc[s] = sum_{q<t} E[t][q] k_q M[s][q], for s > t
+#pragma unroll
+  for (int s = 0; s < L; ++s) acc[s] = 0.f;
+  float drs = 0.f, dw_k = 0.f, dkd = 0.f, dw_r = 0.f, dw_rk = 0.f;
+  switch ((t + 1) / 4) {
+    case 0:
+      item_sums<0>(sm, t, i, acc, drs, dw_k);
+      item_later<0>(sm, t, i, acc, dkd, dw_r, dw_rk);
+      break;
+    case 1:
+      item_sums<1>(sm, t, i, acc, drs, dw_k);
+      item_later<1>(sm, t, i, acc, dkd, dw_r, dw_rk);
+      break;
+    case 2:
+      item_sums<2>(sm, t, i, acc, drs, dw_k);
+      item_later<2>(sm, t, i, acc, dkd, dw_r, dw_rk);
+      break;
+    default:
+      item_sums<3>(sm, t, i, acc, drs, dw_k);
+      item_later<3>(sm, t, i, acc, dkd, dw_r, dw_rk);
+  }
+  const float e_pre = sm.epre[o], e_post = sm.epost[o];
+  drs = fmaf(e_pre, sm.sd[o], drs);
+  dkd = fmaf(e_post, sm.dvv[o], dkd);
+  const float dwt = sm.epp[o] * sm.p0[i] + e_post * dw_k + e_pre * dw_r + dw_rk;
+  const float mtt = sm.m[t * LP + t];
+  if (g.t0 + t < g.T) {
+    const long long off = g.base + (g.t0 + t) * g.row + i;
+    g.dr[off] = fmaf(ui * ki, mtt, drs);
+    g.dk[off] = fmaf(ui * ri, mtt, dkd);
+    g.dw[off] = log2_decay(x.w[o]) < LOG2_W_MIN ? 0.f : dwt;
+  }
+  return ri * ki * mtt;
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -187,6 +651,7 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   extern __shared__ __align__(16) unsigned char raw[];
   Smem& sm = *reinterpret_cast<Smem*>(raw);
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const long long bh = static_cast<long long>(b) * H + h;
   const long long row = static_cast<long long>(H) * N;
   const long long base = static_cast<long long>(b) * T * row + static_cast<long long>(h) * N;
@@ -195,171 +660,82 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const float *rb = r + base, *kb = k + base, *vb = v + base, *wb = w + base,
               *ob = dout + base;
 
-  for (int e = tid; e < N * N; e += THREADS)
-    sm.d[(e / N) * NP + e % N] = dstate != nullptr ? dstate[bh * N * N + e] : 0.f;
+  for (int e = tid; e < N * N / 4; e += THREADS)
+    st4(sm.d + swz(e >> 4, e & 15),
+        dstate != nullptr ? ld4(dstate + bh * N * N + 4 * e) : make_float4(0.f, 0.f, 0.f, 0.f));
   if (tid < N) sm.u[tid] = u[h * N + tid];
-  float du_acc = 0.f;  // threads 0 .. N - 1: their channel's share of du
+  // the items of this thread: channel 32 (warp / 8) + lane at steps warp % 8
+  // and warp % 8 + 8; its share of du
+  const int ch = 32 * (warp >> 3) + lane, t_lo = warp & 7;
+  float du_acc = 0.f;
 
-  for (int g = n_seg - 1; g >= 0; --g) {
-    const int c_first = g * seg_chunks, nc = min(seg_chunks, n_chunks - c_first);
-    __syncthreads();  // the previous segment is done with the states
-    const float* seg = s_seg + (bh * n_seg + g) * N * N;
-    for (int e = tid; e < N * N; e += THREADS) sm.st[0][(e / N) * NP + e % N] = seg[e];
-    // the starting state of each later chunk of the segment
-    for (int c = 0; c + 1 < nc; ++c) {
-      const int t0 = (c_first + c) * L;
-      __syncthreads();
-      load_tile(sm.k, kb, row, t0, T, 0.f);
-      load_tile(sm.v, vb, row, t0, T, 0.f);
-      load_tile(sm.w, wb, row, t0, T, 1.f);
-      __syncthreads();
-      log_decays(sm, t0, T);
-      __syncthreads();
-      decay_sums(sm);
-      __syncthreads();
-      factors(sm, false);
-      __syncthreads();
-      for (int e = tid; e < N * N; e += THREADS) {
-        const int i = e / N, j = e % N;
-        float acc = sm.etot[i] * sm.st[c][i * NP + j];
-#pragma unroll
-        for (int s = 0; s < L; ++s) acc = fmaf(sm.kd[s * P + i], sm.v[s * P + j], acc);
-        sm.st[c + 1][i * NP + j] = acc;
-      }
-    }
-    // the segment's chunks from the last
-    for (int c = nc - 1; c >= 0; --c) {
-      const int t0 = (c_first + c) * L;
-      const float* const S = sm.st[c];
-      __syncthreads();
-      load_tile(sm.r, rb, row, t0, T, 0.f);
-      load_tile(sm.k, kb, row, t0, T, 0.f);
-      load_tile(sm.v, vb, row, t0, T, 0.f);
-      load_tile(sm.w, wb, row, t0, T, 1.f);
-      load_tile(sm.dout, ob, row, t0, T, 0.f);
-      __syncthreads();
-
-      // 1. the log decays; rowsum(D * S) (threads 0-63), M (256-511); sd
-      //    and dvv, a (step, row) each
-      log_decays(sm, t0, T);
-      if (tid < N) {
-        float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc = fmaf(sm.d[tid * NP + j], S[tid * NP + j], acc);
-        sm.p0[tid] = acc;
-      }
-      if (tid >= THREADS - L * L) {
-        const int p = tid - (THREADS - L * L), t = p / L, s = p % L;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < N; ++j) acc = fmaf(sm.dout[t * P + j], sm.v[s * P + j], acc);
-        sm.m[t * LP + s] = acc;
-      }
-      for (int item = tid; item < 2 * L * N; item += THREADS) {
-        const bool of_d = item >= L * N;
-        const int it = of_d ? item - L * N : item, t = it / N, i = it % N;
-        const float* x = of_d ? sm.v + t * P : sm.dout + t * P;
-        const float* y = (of_d ? sm.d : S) + i * NP;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < N; ++j) acc = fmaf(y[j], x[j], acc);
-        (of_d ? sm.dvv : sm.sd)[t * P + i] = acc;
-      }
-      __syncthreads();
-      decay_sums(sm);
-      __syncthreads();
-
-      // 2. KD and RQ; then dr, dk, dw and the scores' halves, a (step t,
-      //    channel i) each: t is the same across a warp, so the loops over
-      //    the chunk's steps run unrolled and alike, and a warp's 32
-      //    channels sum each score A[t][q] by a butterfly
-      factors(sm, true);
-      for (int item = tid; item < L * N; item += THREADS) {
-        const int t = item / N, i = item % N, o = t * P + i;
-        const float ri = sm.r[o], ki = sm.k[o], ui = sm.u[i];
-        float acc[L];  // acc[s] = sum_{q<t} E[t][q] k_q M[s][q], for s > t
-        float sc[L];   // this channel's share of the scores A[t][q], q <= t
-#pragma unroll
-        for (int s = 0; s < L; ++s) acc[s] = 0.f;
-        float drs = 0.f, dw_k = 0.f, gap = 0.f;
-#pragma unroll
-        for (int q = L - 1; q >= 0; --q) {
-          if (q < t) {
-            const float ek = exp2f(gap) * sm.k[q * P + i];
-            drs = fmaf(ek, sm.m[t * LP + q], drs);
-            dw_k = fmaf(ek, sm.dvv[q * P + i], dw_k);
-#pragma unroll
-            for (int s = 0; s < L; ++s)
-              if (s > t) acc[s] = fmaf(ek, sm.m[s * LP + q], acc[s]);
-            sc[q] = ri * ek;
-            gap += sm.lw[q * P + i];
-          } else {
-            sc[q] = q == t ? ri * ui * ki : 0.f;
-          }
-        }
-        float dkd = 0.f, dw_r = 0.f, dw_rk = 0.f;
-        gap = 0.f;
-#pragma unroll
-        for (int s = 0; s < L; ++s) {
-          if (s > t) {
-            const float er = exp2f(gap) * sm.r[s * P + i];
-            dkd = fmaf(er, sm.m[s * LP + t], dkd);
-            dw_r = fmaf(er, sm.sd[s * P + i], dw_r);
-            dw_rk = fmaf(er, acc[s], dw_rk);
-            gap += sm.lw[s * P + i];
-          }
-        }
-        const int lane = tid & 31;
-        warp_sum16(sc, lane);
-        if (lane < L) sm.ah[i / 32][t * LP + lane] = sc[0];
-        const float e_pre = exp2f(sm.pre[o]), e_post = exp2f(sm.post[o]);
-        drs = fmaf(e_pre, sm.sd[o], drs);
-        dkd = fmaf(e_post, sm.dvv[o], dkd);
-        const float dwt = exp2f(sm.pre[o] + sm.post[o]) * sm.p0[i] + e_post * dw_k +
-                          e_pre * dw_r + dw_rk;
-        if (t0 + t < T) {
-          const float mtt = sm.m[t * LP + t], wt = sm.w[o];
-          const long long off = (t0 + t) * row + i;
-          dr[base + off] = fmaf(ui * ki, mtt, drs);
-          dk[base + off] = fmaf(ui * ri, mtt, dkd);
-          dw[base + off] = log2_decay(wt) < LOG2_W_MIN ? 0.f : dwt;
-        }
-      }
-      __syncthreads();
-
-      // 3. dv a (step t, column j) each, with A[s][t] the sum of its two
-      //    halves; du's share
-      for (int item = tid; item < L * N; item += THREADS) {
-        const int t = item / N, j = item % N;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < N; ++i) acc = fmaf(sm.kd[t * P + i], sm.d[i * NP + j], acc);
-#pragma unroll
-        for (int s = 0; s < L; ++s)
-          if (s >= t)
-            acc = fmaf(sm.ah[0][s * LP + t] + sm.ah[1][s * LP + t], sm.dout[s * P + j], acc);
-        if (t0 + t < T) dv[base + (t0 + t) * row + j] = acc;
-      }
-      if (tid < N) {
-#pragma unroll
-        for (int t = L - 1; t >= 0; --t)
-          du_acc = fmaf(sm.r[t * P + tid] * sm.k[t * P + tid], sm.m[t * LP + t], du_acc);
-      }
-      __syncthreads();
-
-      // 4. D at the chunk's start
-      for (int e = tid; e < N * N; e += THREADS) {
-        const int i = e / N, j = e % N;
-        float acc = sm.etot[i] * sm.d[i * NP + j];
-#pragma unroll
-        for (int s = 0; s < L; ++s) acc = fmaf(sm.rq[s * P + i], sm.dout[s * P + j], acc);
-        sm.d[i * NP + j] = acc;
-      }
-    }
-  }
+  Step s = first_step(n_seg - 1, seg_chunks, n_chunks);
+  load_step(sm.in[0], rb, kb, vb, wb, ob, row, (s.g * seg_chunks + s.c) * L, T, s.back);
+  load_state(sm.st[slot(s.g, 0, n_seg)], s_seg + (bh * n_seg + s.g) * N * N);
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
+  for (int buf = 0; s.g >= 0; buf ^= 1) {
+    const Step nx = next_step(s, seg_chunks, n_chunks);
+    if (nx.g >= 0) {  // the next step's inputs, and its segment's start state
+      load_step(sm.in[buf ^ 1], rb, kb, vb, wb, ob, row, (nx.g * seg_chunks + nx.c) * L, T,
+                nx.back);
+      if (nx.g != s.g)
+        load_state(sm.st[slot(nx.g, 0, n_seg)], s_seg + (bh * n_seg + nx.g) * N * N);
+    }
+    cp_async_commit();
+    const Tiles& x = sm.in[buf];
+    const int t0 = (s.g * seg_chunks + s.c) * L;
+    if (!s.back) {  // the next chunk's starting state: S <- 2^tot S + KD^T V
+      decays<false>(sm, x, t0, T);
+      __syncthreads();
+      rank_update(sm.st[slot(s.g, s.c + 1, n_seg)], sm.st[slot(s.g, s.c, n_seg)], sm.kd, x.v,
+                  sm.etot);
+    } else {
+      const float* S = sm.st[slot(s.g, s.c, n_seg)];
+      // 1. decays, M, sd, dvv, rowsum(D * S)
+      decays<true>(sm, x, t0, T);
+      dout_v(sm, x);
+      state_products(sm, x, S);
+      row_dots(sm, S);
+      __syncthreads();
+      // 2. the pairs' factors; KD^T D
+      pair_factors(sm, x);
+      int t, j;
+      float2 acc = kd_d(sm, t, j);
+      __syncthreads();
+      // 3. the scores; dr, dk and dw
+      scores(sm, x);
+      const Grads g{dr, dk, dw, base, row, t0, T};
+      du_acc += step_grads(sm, x, t_lo, ch, g);
+      du_acc += step_grads(sm, x, t_lo + 8, ch, g);
+      __syncthreads();
+      // 4. dv_t = KD^T D + sum_{s>=t} A[s][t] do_s; D at the chunk's start
+      for (int q = t; q < L; ++q) {
+        const float a = sm.a[q * LP + t];
+        const float2 o = ld2(x.dout + q * P + j);
+        acc.x = fmaf(a, o.x, acc.x);
+        acc.y = fmaf(a, o.y, acc.y);
+      }
+      if (t0 + t < T) st2(dv + base + (t0 + t) * row + j, acc);
+      rank_update(sm.d, sm.d, sm.rq, x.dout, sm.etot);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    s = nx;
+  }
   if (dstate0 != nullptr)
-    for (int e = tid; e < N * N; e += THREADS) dstate0[bh * N * N + e] = sm.d[(e / N) * NP + e % N];
-  if (tid < N) du_part[bh * N + tid] = du_acc;
+    for (int e = tid; e < N * N / 4; e += THREADS)
+      st4(dstate0 + bh * N * N + 4 * e, ld4(sm.d + swz(e >> 4, e & 15)));
+  // du's share of this (b, h): the shares of the 8 warps of each channel
+  // summed in order
+  sm.sd[warp * 32 + lane] = du_acc;
+  __syncthreads();
+  if (tid < N) {
+    float acc = 0.f;
+    for (int q = 0; q < WARPS / 2; ++q) acc += sm.sd[((tid >> 5) * (WARPS / 2) + q) * 32 + (tid & 31)];
+    du_part[bh * N + tid] = acc;
+  }
 }
 
 // du[h, i] = sum over b, in order, of du_part[b, h, i]

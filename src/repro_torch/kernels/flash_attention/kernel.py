@@ -248,7 +248,8 @@ BWD_TILE_ROWS = 128
 def bwd_key_tile(D: int) -> int:
     """Rows of a work tile of the wgmma backward (keys in its dk/dv launch,
     queries in its dq one): 128, or 64 at D = 256, whose two consumers take
-    D's halves of the same rows."""
+    D's halves of dQ, or of dK and dV, of the same rows and split S and dP
+    by columns, handing each other their halves."""
     return 64 if D == 256 else BWD_TILE_ROWS
 
 
@@ -287,12 +288,77 @@ def bwd_wgmma_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
 
 def bwd_head_splits(tiles: int, G: int, sms: int) -> int:
     """The query-head groups a dk/dv work tile (``bwd_key_tile`` keys of
-    one batch row and kv-head) of the wgmma backward splits into, a block
-    each: 1 where the `tiles` fill the `sms`, else as many as fit, at most
-    G, each of whole heads and none empty."""
+    one batch row and kv-head) of the wgmma backward splits into at D = 64
+    and 128, a block each: 1 where the `tiles` fill the `sms`, else as many
+    as fit, at most G, each of whole heads and none empty (D = 256 splits
+    each tile by its own work: ``bwd_dkdv_plan``)."""
     splits = max(1, min(G, sms // max(tiles, 1)))
     per = -(-G // splits)
     return -(-G // per)
+
+
+def bwd_pair_group(pairs: int, G: int, Sq: int, D: int) -> int:
+    """(batch, kv-head) pairs a group of the dk/dv launch's work tiles: the
+    kernel's ``group_of``, their Q and dO within 4 MiB of the L2."""
+    return max(1, min(pairs, (4 << 20) // (4 * Sq * D * G)))
+
+
+def bwd_query_tiles(r0: int, Sq: int, causal: bool, window: int, rows: int = 64) -> int:
+    """The 64-row query tiles the dk/dv work tile of keys r0 .. r0 + rows - 1
+    walks for each of its heads (the kernel's q_begin and q_end): from the
+    diagonal if causal, up to the last query the window lets see its last
+    key."""
+    q_begin = r0 // 64 * 64 if causal else 0
+    q_end = min(Sq, r0 + rows - 1 + window) if window > 0 else Sq
+    return max(0, -(-(q_end - q_begin) // 64))
+
+
+def bwd_tile_work(B: int, Hkv: int, Sq: int, Sk: int, G: int, causal: bool,
+                  window: int) -> list:
+    """The query tiles each work tile of the D = 256 dk/dv launch (64 keys
+    of one batch row and kv-head) walks for each of its heads, the tiles in
+    the kernel's order (``tile_of``: groups of ``bwd_pair_group`` pairs,
+    within a group the key tiles from the first, the pairs fastest)."""
+    KT = 64
+    nt = -(-Sk // KT)
+    pairs = B * Hkv
+    group = bwd_pair_group(pairs, G, Sq, 256)
+    key_index = []  # the key tile of each work tile, in order
+    for g0 in range(0, pairs, group):
+        n = min(pairs - g0, group)
+        key_index += [i for i in range(nt) for _ in range(n)]
+    return [bwd_query_tiles(i * KT, Sq, causal, window, KT) for i in key_index]
+
+
+def bwd_dkdv_plan(B: int, Hkv: int, Sq: int, Sk: int, G: int, causal: bool, window: int,
+                  sms: int) -> list:
+    """The blocks of the D = 256 dk/dv launch, in launch order: (work tile,
+    first head, end head, the tile's first block, its blocks), the work
+    tiles in the kernel's order (``bwd_tile_work``). Each tile's G heads
+    split into groups of whole heads, a block each: the fewest iterations
+    (query tiles) a block that keep the blocks within the `sms`, or within
+    the tiles where those are more (no split); so a tile that sees more
+    queries splits into more blocks. recurrentgemma-2b's 8 x 512 on 1
+    kv-head, G = 10: 128 blocks, at most 30 iterations a block, against 40
+    under one split for all."""
+    work = bwd_tile_work(B, Hkv, Sq, Sk, G, causal, window)
+    most = max(max(work), 1)
+
+    def heads_a_block(limit, w):
+        return G if w == 0 else max(1, min(G, limit // w))
+
+    def blocks(limit):
+        return sum(-(-G // heads_a_block(limit, w)) for w in work)
+
+    budget = max(sms, len(work))
+    limit = next(x for x in range(most, G * most + 1) if blocks(x) <= budget)
+    plan = []
+    for tile, w in enumerate(work):
+        per = heads_a_block(limit, w)
+        count = -(-G // per)
+        first = len(plan)
+        plan += [(tile, j * per, min(G, (j + 1) * per), first, count) for j in range(count)]
+    return plan
 
 
 @functools.cache
@@ -308,9 +374,18 @@ def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 @functools.cache
+def _dkdv_plan(device: torch.device, B: int, Hkv: int, Sq: int, Sk: int, G: int,
+               causal: bool, window: int, sms: int):
+    """``bwd_dkdv_plan`` as the kernel reads it (five int32 a block, on
+    `device`), and its blocks."""
+    plan = bwd_dkdv_plan(B, Hkv, Sq, Sk, G, causal, window, sms)
+    return torch.tensor(plan, dtype=torch.int32, device=device).flatten(), len(plan)
+
+
+@functools.cache
 def _bwd_sm90_entry():
     fn = _build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 24
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 24
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -329,7 +404,8 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     in the forward under the same mask and softcap, which is not
     recomputed. Two launches (dq with delta, then dk and dv, a key tile's
     heads split over several blocks where the tiles are few:
-    ``bwd_head_splits``) on the current stream, no atomics on the results,
+    ``bwd_head_splits``, at D = 256 by each tile's work: ``bwd_dkdv_plan``)
+    on the current stream, no atomics on the results,
     so the same bits from run to run; counts one launch. `phases` 1 or 2
     runs only the first or only the second launch (to time them apart; the
     second reads what the first wrote in an earlier call on these tensors)
@@ -347,18 +423,25 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
         torch.empty(B * Hq * sq_pad * 2, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tiles = -(-Sk // bwd_key_tile(D)) * B * Hkv
-    splits = bwd_head_splits(tiles, Hq // Hkv, _sm_count(q.device.index or 0))
+    sms = _sm_count(q.device.index or 0)
+    plan, splits = None, 1
+    if D == 256:
+        plan, blocks = _dkdv_plan(q.device, B, Hkv, Sq, Sk, Hq // Hkv, causal, window, sms)
+    else:
+        splits = bwd_head_splits(tiles, Hq // Hkv, sms)
+        blocks = tiles * splits
     part = done = None
-    if splits > 1:
+    if blocks > tiles:  # a tile in more than one block
         # fp32 dK and dV partials, 256 threads a block
-        part = torch.empty(tiles * splits * 256 * bwd_part_floats(D), dtype=torch.float32,
+        part = torch.empty(blocks * 256 * bwd_part_floats(D), dtype=torch.float32,
                            device=q.device)
         done = _tile_counters(q.device, stream, tiles)
     err = _bwd_sm90_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         _work_counter(q.device, stream).data_ptr(), None if part is None else part.data_ptr(),
-        None if done is None else done.data_ptr(), splits, B, Hq, Hkv, Sq, Sk, D,
+        None if done is None else done.data_ptr(), None if plan is None else plan.data_ptr(),
+        blocks, splits, B, Hq, Hkv, Sq, Sk, D,
         *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), *o.stride()[:3],
         *_tma_strides(do), *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         int(causal), int(window), float(softcap), 1.0 / math.sqrt(D), phases, stream)

@@ -1567,11 +1567,15 @@ def test_flash_attention_bwd_refuses_what_it_does_not_take_on_card(cuda):
 # (B, Hq, Hkv, S, D, window, softcap, q scale): recurrentgemma's 10 heads on
 # 1 at D = 256, causal and under windows that cut key tiles; windows of 32
 # and 48 at D 64 and 128 on odd lengths; grok's softcap of 30 on logits of
-# about 8 (q x 8); window and softcap together, also at D = 256
+# about 8 (q x 8); window and softcap together, also at D = 256; at D = 256
+# a softcap alone and a window alone on lengths off the 64-row tile, and
+# recurrentgemma's train shape, whose dk/dv tiles split over several blocks
+# each (bwd_dkdv_plan)
 FLASH_BWD_MODE_CASES = [(1, 10, 1, 130, 256, 0, 0.0, 1.0), (2, 10, 1, 300, 256, 64, 0.0, 1.0),
                         (1, 4, 2, 333, 64, 32, 0.0, 1.0), (1, 4, 2, 301, 128, 48, 0.0, 1.0),
                         (2, 6, 1, 200, 128, 0, 30.0, 8.0), (1, 4, 2, 257, 128, 40, 20.0, 6.0),
-                        (1, 10, 1, 200, 256, 70, 30.0, 8.0)]
+                        (1, 10, 1, 200, 256, 70, 30.0, 8.0), (2, 10, 1, 333, 256, 0, 30.0, 8.0),
+                        (1, 10, 1, 77, 256, 40, 0.0, 1.0), (8, 10, 1, 512, 256, 2048, 0.0, 1.0)]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_MODE_CASES, ids=str)
@@ -1851,7 +1855,10 @@ def test_wkv_chunked_writes_segment_states_on_card(cuda, B, T, H, with_state):
                                                    (8, 512, 8, False, False),
                                                    (3, 90, 2, True, True),
                                                    (2, 17, 3, True, False),
-                                                   (2, 2, 1, False, False)])
+                                                   (2, 2, 1, False, False),
+                                                   (1, 200, 64, True, False),
+                                                   (4, 48, 33, False, False),
+                                                   (1, 129, 5, True, True)])
 def test_wkv_bwd_matches_plain_on_card(cuda, B, T, H, with_state, edge):
     """``wkv_bwd_cuda`` from the segments' states the chunked forward
     wrote, against ``wkv_bwd_ref``: every gradient within 1e-4 of the

@@ -252,15 +252,89 @@ def test_rmsnorm_bwd_programs_cover_every_row_once(R, C):
 
 
 @pytest.mark.parametrize("tiles,G,want", [(256, 2, 1), (64, 7, 2), (4, 7, 7), (26, 7, 4),
-                                          (16, 2, 2), (512, 1, 1), (200, 7, 1)])
+                                          (16, 2, 2), (512, 1, 1), (200, 7, 1), (64, 10, 2),
+                                          (8, 10, 10), (12, 10, 10), (40, 10, 3)])
 def test_bwd_head_splits(tiles, G, want):
     """The wgmma backward's dk/dv tiles split their G query heads only where
     the tiles leave SMs idle (qwen3-1.7b at 8 x 512: 256 tiles, none;
-    qwen2-0.5b: 64 tiles of G = 7, two), in groups of whole heads with none
-    empty (G = 7 over at most 5 blocks: 4 of 2, 2, 2, 1 heads); 132 SMs."""
+    qwen2-0.5b: 64 tiles of G = 7, two; recurrentgemma-2b's 64-key tiles at
+    D = 256 on its one kv-head, 64 at 8 x 512 of G = 10, two; at 1 x 512 or
+    1 x 700, every head a block), in groups of whole heads with none empty
+    (G = 7 over at most 5 blocks: 4 of 2, 2, 2, 1 heads; G = 10 over at
+    most 3: 3 of 4, 4, 2); 132 SMs."""
     splits = t_flash_kernel.bwd_head_splits(tiles, G, 132)
     per = -(-G // splits)
     assert splits == want and (splits - 1) * per < G <= splits * per
+
+
+def key_tile_of(w, nt, pairs, group):
+    """The key tile (0 .. nt - 1) of dk/dv work tile w: the CUDA tile_of in
+    csrc/flash_attention_bwd_sm90.cu (groups of `group` pairs, within a
+    group the pairs' tiles from the first, pair fastest)."""
+    per_group = nt * group
+    g0 = w // per_group * group
+    n = min(pairs - g0, group)
+    return w % per_group // n
+
+
+@pytest.mark.parametrize("B,Hkv,S,G,window,longest", [
+    (8, 1, 512, 10, 2048, 30), (8, 1, 512, 10, 0, 30), (1, 1, 4096, 10, 2048, None),
+    (1, 1, 700, 10, 200, None), (2, 1, 300, 10, 64, None), (1, 1, 77, 10, 0, None),
+    (4, 2, 1024, 5, 0, None), (64, 4, 512, 2, 0, None)])
+def test_bwd_dkdv_plan_covers_every_head_once(B, Hkv, S, G, window, longest):
+    """The blocks of the D = 256 dk/dv launch (``bwd_dkdv_plan``, 132
+    SMs): every (work tile, head) in exactly one block; a tile's blocks
+    contiguous, in head order, each naming the tile's first block and
+    their count; within max(132, tiles) blocks; the longest block (query
+    tiles walked, ``bwd_query_tiles`` a head) no longer than one split for
+    every tile (``bwd_head_splits``) would make it: recurrentgemma-2b at 8 x
+    512, with or past its window of 2048, 30 against 40."""
+    kern = t_flash_kernel
+    plan = kern.bwd_dkdv_plan(B, Hkv, S, S, G, True, window, 132)
+    nt = -(-S // 64)
+    tiles = nt * B * Hkv
+    assert len(plan) <= max(132, tiles)
+    seen = set()
+    for idx, (tile, g0, g1, first, count) in enumerate(plan):
+        assert 0 <= g0 < g1 <= G and first <= idx < first + count
+        blocks = plan[first:first + count]
+        assert all(b[0] == tile and b[3] == first and b[4] == count for b in blocks)
+        assert [b[1] for b in blocks] == sorted(b[1] for b in blocks)
+        for h in range(g0, g1):
+            assert (tile, h) not in seen
+            seen.add((tile, h))
+    assert seen == {(t, h) for t in range(tiles) for h in range(G)}
+    group = kern.bwd_pair_group(B * Hkv, G, S, 256)
+    work = [kern.bwd_query_tiles(64 * key_tile_of(w, nt, B * Hkv, group), S, True, window)
+            for w in range(tiles)]
+    assert kern.bwd_tile_work(B, Hkv, S, S, G, True, window) == work
+    most = max((g1 - g0) * work[tile] for tile, g0, g1, _, _ in plan)
+    splits = kern.bwd_head_splits(tiles, G, 132)
+    assert most <= -(-G // splits) * max(work)
+    if longest is not None:
+        assert most == longest and -(-G // splits) * max(work) == 40
+
+
+@pytest.mark.parametrize("r0,S,window,want", [(0, 512, 0, 8), (448, 512, 0, 1), (0, 512, 2048, 8),
+                                              (0, 4096, 2048, 33), (1984, 4096, 2048, 33), (2048, 4096, 2048, 32),
+                                              (4032, 4096, 2048, 1), (64, 77, 0, 1),
+                                              (0, 700, 200, 5)])
+def test_bwd_query_tiles(r0, S, window, want):
+    """The query tiles of 64 a causal dk/dv work tile of 64 keys from r0
+    walks: from its diagonal to S, or to the last query the window lets see
+    its last key."""
+    assert t_flash_kernel.bwd_query_tiles(r0, S, True, window) == want
+
+
+@pytest.mark.parametrize("D,rows,part", [(64, 128, 64), (128, 128, 128), (256, 64, 128)])
+def test_bwd_work_tile_geometry(D, rows, part):
+    """The wgmma backward's work tiles: 128 rows (keys in dk/dv, queries in
+    dq) at D = 64 and 128; 64 at D = 256, whose two consumers keep D's
+    halves of dQ, or of dK and dV, so that a split tile's fp32 partials a
+    thread are D / 2 of each."""
+    assert t_flash_kernel.bwd_key_tile(D) == rows
+    assert t_flash_kernel.bwd_part_floats(D) == part
+    assert t_flash_kernel.BWD_TILE_ROWS % rows == 0
 
 
 def test_bwd_wgmma_eligible_takes_what_tma_describes():
@@ -582,6 +656,26 @@ def test_wkv_plain_matches_jax_kernel_and_ref(t, chunk):
                                  K.wkv.wkv(*jargs, jnp.asarray(u), chunk=chunk)):
         assert rel_err(got_out, want_out) < WKV_TOL
         assert rel_err(got_state, want_state) < WKV_TOL
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 63, 64, 65, 333, 512])
+def test_wkv_segment_states_shape(T):
+    """``s_seg``, the states the chunked forward writes for the backward:
+    one at the start of each segment of ``SEGMENT_STEPS`` steps, a whole
+    number (1-4) of the backward's chunks; ``_check_seg`` takes exactly
+    (B, H, segments(T), N, N) fp32 contiguous and refuses another count of
+    segments, dtype or layout."""
+    B, H, N = 2, 3, 64
+    r = torch.zeros(B, T, H, N)
+    n = -(-T // t_wkv_kernel.SEGMENT_STEPS)
+    assert t_wkv_kernel.SEGMENT_STEPS % CHUNK == 0
+    assert 1 <= t_wkv_kernel.SEGMENT_STEPS // CHUNK <= 4
+    assert t_wkv_kernel.segments(T) == n
+    t_wkv_kernel._check_seg(torch.zeros(B, H, n, N, N), r)
+    for bad in (torch.zeros(B, H, n + 1, N, N), torch.zeros(B, H, n, N, N, dtype=torch.float64),
+                torch.zeros(B, H, n, N, N + 4)[..., :N]):
+        with pytest.raises(ValueError, match="s_seg"):
+            t_wkv_kernel._check_seg(bad, r)
 
 
 def test_wkv_head_sizes_outside_the_kernel_run_plain_on_cpu():
