@@ -25,10 +25,11 @@ result line):
                TMA + wgmma one for bf16 at D = 64 and 128, contiguous or
                the model's transposed views; mma.sync for D = 32 and a
                sequence stride TMA cannot take; fp32 on its own); each
-               decode case on the kernel ``chunked_eligible`` picks (the
-               chunked one for bf16 at D = 32-256, D = 256 and lengths at
-               its unit edges among them; the split one for fp32), the
-               served decode shapes on both; the fp32
+               decode case on the kernel ``decode_kernel`` picks (the
+               chunked one for bf16 at G = 1, the mma one for bf16 at G >=
+               2, each at D = 32-256 with lengths at its unit edges; the
+               split one for fp32), the served decode shapes on every
+               kernel that takes them; the fp32
                wkv op to 1e-4 (output and final state), the JAX wkv tests'
                bound, each case on the kernel ``chunked_eligible`` picks
                (the chunked one for T > 1, the step-by-step one for the
@@ -41,7 +42,7 @@ result line):
                D = 256 on the wgmma kernel (10 query heads on one kv-head,
                windows that cut key tiles, the served wave and the ring
                phase's prefill) and in fp32; decode attention at D = 256
-               with 10 query heads (the chunked kernel; fp32 on the split
+               with 10 query heads (the mma kernel; fp32 on the split
                one); the rglru op to 1e-4 (output and final h) at d = 2560,
                each case on the kernel ``picks_chunked`` names (the chunked
                scan for T > 1, rglru.cu for the decode step), one launch of
@@ -111,8 +112,9 @@ result line):
                bias, sinusoidal positions); each cross-attention runs
                non-causal flash at prefill, and at a decode step
                ``attend_all_keys``: the decode op (every length the
-               frontend's) where it runs the chunked kernel (whisper,
-               G = 1), else flash on the one query (llama, G = 4). Each
+               frontend's) where it runs the chunked or the mma kernel
+               (whisper's G = 1, llama's G = 4), else flash on the one
+               query. Each
                serves 16 greedy
                requests of 16-48 new tokens on 8 slots through the port's
                Engine: one whole-batch prefill of prompts of unequal
@@ -123,9 +125,10 @@ result line):
                path must be above 0, and each phase must show exactly its
                steps' launches (9 prefills: one wave, 8 refills; L
                launches a decode step of the decode kernel
-               ``picks_chunked`` names for the model's G and 0 of the
-               other; rwkv6: L wkv_chunked and 0 wkv a prefill, L wkv and
-               0 wkv_chunked a decode step; recurrentgemma: 18 rglru_chunked
+               ``decode_kernel`` names for the model's G and 0 of the
+               others, the split kernel 0 on every model; rwkv6: L
+               wkv_chunked and 0 wkv a prefill, L wkv and 0 wkv_chunked a
+               decode step; recurrentgemma: 18 rglru_chunked
                and 0 rglru a prefill, 18 rglru and 0 rglru_chunked a decode
                step; a cross-attending model also
                its cross layers', and at each prefill its encoder's,
@@ -177,8 +180,8 @@ result line):
                bound on the card; beside the wgmma flash kernel and the
                wgmma GEMM modes, the mma.sync kernel each ran on before
                (flash_attention.cu, matmul.cu, matmul_int8.cu), beside the
-               chunked decode kernel the split one and torch.sum over the
-               same live K and V, beside the fp32 FFMA mode the SIMT
+               decode kernel the op picks the others that take the shape
+               and torch.sum over the same live K and V, beside the fp32 FFMA mode the SIMT
                kernel, each on the same operands; gelu, F.gelu and the
                Triton kernel gelu.cu replaced in turns at the prefill and
                the decode shape; gelu_mul beside F.gelu(g) * u; flash at
@@ -195,15 +198,20 @@ result line):
                expert buffer at its served wave; gelu_mul at grok's; flash
                at both MoE models' waves on the model's transposed views
                (grok's under its softcap, beside SDPA without it, which
-               takes none); the chunked decode kernel at their decode steps
-               (grok's softcap) beside the split one and SDPA; each of
+               takes none); the mma decode kernel at their decode steps
+               (grok's softcap) beside the chunked and the split one and
+               SDPA; each of
                these MoE shapes first held to its plain version on the
                tensors timed, as in phase 2 (the split kernel too); the
                whole MoE layer of granite at its decode step and its wave
                against the bytes of its 40 experts (its own ``[timing]
-               moe_apply`` record, outside the kernels); both decode
-               kernels at G = 2, 3, 4, 6 and 10 (the crossover that
-               ``picks_chunked`` follows, ROADMAP B17) and at llama's
+               moe_apply`` record, outside the kernels); the three decode
+               kernels at G = 1, 2, 3, 4, 6, 10 and 16 (the crossover that
+               ``decode_kernel`` follows, ROADMAP B17), the chunked and the
+               mma kernel in alternating turns at qwen3's G = 2 and
+               stablelm's G = 1, the split kernel at recurrentgemma's
+               shape with 10 and with 2 query heads (the cost of its
+               blocks reading the same keys again), and at llama's
                G = 4; flash, non-causal, at llama's cross-attention and
                whisper's encoder and cross-attention at the served wave;
                the two candidates for a cross-attention at a decode step
@@ -392,7 +400,9 @@ FP32_ANCHORED, FP32_FACTOR = ("llama-3.2-vision-11b",), 1.5
 XGATE, BIAS_SCALE = 0.5, 0.2
 # the decode kernels at G query heads a kv-head, the crossover sweep
 # (8 kv-heads of 128, the served decode lengths)
-G_SWEEP = (2, 3, 4, 6, 10)
+G_SWEEP = (1, 2, 3, 4, 6, 10, 16)
+# the decode kernels, by the order the summary lists them in
+DECODE_KERNELS = ("decode_attention_chunked", "decode_attention_mma", "decode_attention")
 # the ring phase: recurrentgemma-2b past its 2048-token window, a prompt of
 # RING_PROMPT tokens on a RING_MAX_LEN budget, RING_STEPS decode steps past
 # the wrap; held against the CPU path at RING_LAYERS layers (one unit)
@@ -412,6 +422,7 @@ REPLACES = {
     "flash_attention_wgmma": "src/repro/kernels/flash_attention/kernel.py:71",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:61",
     "decode_attention_chunked": "src/repro/kernels/decode_attention/kernel.py:61",
+    "decode_attention_mma": "src/repro/kernels/decode_attention/kernel.py:61",
     "wkv": "src/repro/kernels/wkv/kernel.py:51",
     "wkv_chunked": "src/repro/kernels/wkv/kernel.py:51",
     "rglru": "src/repro/models/recurrent.py:206",
@@ -434,6 +445,7 @@ SOURCES = {
     "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu"),
     "decode_attention_chunked": ("cuda",
                                  "src/repro_torch/kernels/csrc/decode_attention_chunked.cu"),
+    "decode_attention_mma": ("cuda", "src/repro_torch/kernels/csrc/decode_attention_mma.cu"),
     "wkv": ("cuda", "src/repro_torch/kernels/csrc/wkv.cu"),
     "wkv_chunked": ("cuda", "src/repro_torch/kernels/csrc/wkv_chunked.cu"),
     "rglru": ("cuda", "src/repro_torch/kernels/csrc/rglru.cu"),
@@ -533,7 +545,8 @@ def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     seconds = _build.build(["flash_attention", "flash_attention_sm90", "decode_attention",
-                            "decode_attention_chunked", "wkv", "wkv_chunked", "gelu", "rglru",
+                            "decode_attention_chunked", "decode_attention_mma", "wkv",
+                            "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
                             "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd",
                             "wkv_bwd"])
@@ -587,6 +600,13 @@ def phase_build(torch):
     smem = _build.load("wkv_bwd").wkv_bwd_smem
     smem.restype = ctypes.c_int
     print(f"[build] wkv_bwd.cu: {smem()} bytes of dynamic shared memory")
+    lib = _build.load("decode_attention_mma")
+    lib.decode_attention_mma_smem.argtypes = [ctypes.c_int] * 2
+    lib.decode_attention_mma_blocks_per_sm.argtypes = [ctypes.c_int]
+    for d in (32, 64, 128, 256):
+        print(f"[build] decode_attention_mma.cu D={d}: {lib.decode_attention_mma_smem(d, SLOTS)} "
+              f"bytes of dynamic shared memory at {SLOTS} slots, "
+              f"{lib.decode_attention_mma_blocks_per_sm(d)} blocks an SM")
     from repro_torch.kernels.gelu.kernel import (gelu_triton, silu_mul_bwd_triton,
                                                  silu_mul_triton)
     from repro_torch.kernels.rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton,
@@ -634,7 +654,7 @@ def kernel_cases(torch):
     """(kernel, label, kernel fn, plain fn, args, is_main_path) per case."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.kernel import (HEAD_DIMS, chunked_eligible,
-                                                             picks_chunked)
+                                                             decode_kernel)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.kernel import wgmma_eligible
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -719,12 +739,13 @@ def kernel_cases(torch):
         # (B, Hkv, G, T, D, lengths, is_main_path): the JAX kernel tests'
         # rows, lengths at the chunked kernel's unit edges (1, UK - 1, UK,
         # UK + 1, T) at D = 128 and 256 (fp32 on the split kernel's D = 256
-        # mode), and the served shapes (recurrentgemma's: 10 query heads on
-        # one kv-head, D = 256, and the ring phase's full window; llama's
-        # self-attention, G = 4; the cross-attention at a decode step,
-        # every length the frontend's: llama's 1601 keys, whisper's 1500);
-        # each case on the kernel picks_chunked picks for it, each served
-        # shape on the other kernel too
+        # mode) and at the mma kernel's (1, 15, 16, 17, T) at G = 3, 6 and
+        # 16, and the served shapes (recurrentgemma's: 10 query heads on one
+        # kv-head, D = 256, and the ring phase's full window; granite's G =
+        # 3 at D = 64; llama's self-attention, G = 4; the cross-attention
+        # at a decode step, every length the frontend's: llama's 1601 keys,
+        # whisper's 1500); each case on the kernel decode_kernel picks for
+        # it, each served shape on the other kernels that take it too
         for b, hkv, g, t, d, lens, main in (
                 (3, 2, 4, 128, 64, [128, 64, 42], False),
                 (3, 1, 8, 200, 64, [200, 100, 66], False),
@@ -732,6 +753,10 @@ def kernel_cases(torch):
                 (5, 2, 2, 197, 128, edge_lengths(128, 197), False),
                 (5, 1, 10, 101, 256, edge_lengths(256, 101), False),
                 (5, 2, 1, 101, 256, edge_lengths(256, 101), False),
+                (5, 2, 3, 53, 64, [1, 15, 16, 17, 53], False),
+                (5, 2, 6, 53, 128, [1, 15, 16, 17, 53], False),
+                (5, 1, 16, 53, 256, [1, 15, 16, 17, 53], False),
+                (SLOTS, 8, 3, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 8, 2, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 32, 1, MAX_LEN, 64, decode_lengths(SLOTS, MAX_LEN), True),
                 (SLOTS, 96, 1, MAX_LEN, 128, decode_lengths(SLOTS, MAX_LEN), True),
@@ -745,11 +770,10 @@ def kernel_cases(torch):
                 continue
             q, k, v = (rnd((b, hkv, g, d), dt), rnd((b, t, hkv, d), dt),
                        rnd((b, t, hkv, d), dt))
-            picked = "decode_attention_chunked" if picks_chunked(q, k, v) else \
-                "decode_attention"
+            picked = decode_kernel(q, k, v)
             args = (q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda"))
             label = f"q({b},{hkv},{g},{d}) T={t} lengths={lens}"
-            for name in ("decode_attention_chunked", "decode_attention"):
+            for name in DECODE_KERNELS:
                 if name == picked or (main and chunked_eligible(q, k, v)):
                     cases.append((name, label, KERNELS[name], decode_attention_ref, args,
                                   main and name == picked))
@@ -986,8 +1010,9 @@ def phase_c9(torch):
             require(attention_excess(got, want) <= 1, f"{line}: fails")
         print(f"{line} ok")
     lens = torch.tensor([150, 33], dtype=torch.int32, device="cuda")
-    # 10 query heads a kv-head: the split kernel, bf16 too (G > CHUNKED_MAX_G)
-    for d, dt, kern in ((16, torch.bfloat16, "decode_attention"),
+    # 10 query heads a kv-head: the mma kernel in bf16 (G > CHUNKED_MAX_G),
+    # the split kernel in fp32
+    for d, dt, kern in ((16, torch.bfloat16, "decode_attention_mma"),
                         (200, f32, "decode_attention"), (256, f32, "decode_attention")):
         q, k, v = rnd((2, 1, 10, d), dt), rnd((2, 150, 1, d), dt), rnd((2, 150, 1, d), dt)
         got, launches = launched(decode_attention, q, k, v, lens)
@@ -1292,14 +1317,15 @@ def prefill_attention(cfg):
 
 
 def decode_attention_kernel(cfg):
-    """The kernel of `cfg`'s decode attention, self and cross alike: the
-    chunked one at the head dims it takes (every served model's bf16 cache
-    views) and at most ``CHUNKED_MAX_G`` query heads a kv-head, else the
-    split one."""
+    """The kernel of `cfg`'s decode attention (every served model's bf16
+    cache views take 16-byte loads): the chunked one at most
+    ``CHUNKED_MAX_G`` query heads a kv-head, the mma one above it; the
+    split one at a head dim neither takes."""
     from repro_torch.kernels.decode_attention.kernel import CHUNKED_HEAD_DIMS, CHUNKED_MAX_G
-    return "decode_attention_chunked" if (cfg.d_head in CHUNKED_HEAD_DIMS and
-                                          cfg.group_size <= CHUNKED_MAX_G) else \
-        "decode_attention"
+    if cfg.d_head not in CHUNKED_HEAD_DIMS:
+        return "decode_attention"
+    return "decode_attention_chunked" if cfg.group_size <= CHUNKED_MAX_G else \
+        "decode_attention_mma"
 
 
 def mlp_kernel(cfg):
@@ -1354,16 +1380,18 @@ def expected_launches(cfg, prefill):
 def cross_decode_kernel(cfg):
     """The kernel of `cfg`'s cross-attention at a decode step (one query
     over every cross key), as ``attend_all_keys`` routes a bf16 call at its
-    shape on the card (``LM.decode_step``): the chunked decode kernel where
-    ``all_keys_on_decode`` holds, else flash on the one query."""
+    shape on the card (``LM.decode_step``): the decode kernel
+    ``decode_kernel`` names where ``all_keys_on_decode`` holds (the chunked
+    one at whisper's G = 1, the mma one at llama-3.2-vision's G = 4), else
+    flash on the one query."""
     import torch
+    from repro_torch.kernels.decode_attention.kernel import decode_kernel
     from repro_torch.kernels.decode_attention.ops import all_keys_on_decode
     q = torch.empty((1, cfg.n_kv_heads, cfg.group_size, cfg.d_head), dtype=torch.bfloat16,
                     device="cuda")
     k = torch.empty((1, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.d_head),
                     dtype=torch.bfloat16, device="cuda")
-    return "decode_attention_chunked" if all_keys_on_decode(q, k, k) else \
-        prefill_attention(cfg)
+    return decode_kernel(q, k, k) if all_keys_on_decode(q, k, k) else prefill_attention(cfg)
 
 
 def phase_serve(torch, arch, n_layers):
@@ -1894,6 +1922,47 @@ def bound(nbytes, flops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_decode(torch, add, rows, label, qd, kd, vd, lens_list, cap=0.0, held=False,
+                kernels=DECODE_KERNELS, **extra):
+    """One decode shape through `add` (``phase_timing``'s, into its `rows`):
+    the kernel the op picks (``decode_kernel``) and each other of `kernels`
+    that takes the call, every one held to the plain version on these
+    tensors where `held`, SDPA (a mask of the live keys; it takes no
+    softcap, so it runs without one) as the library call, the bound from
+    the live keys' bytes. Each row's shape notes every kernel's time; the
+    picked one's also `extra`. Returns {kernel: ms}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.kernel import chunked_eligible, decode_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    B, Hkv, G, D = qd.shape
+    T = kd.shape[1]
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    q_sdpa = qd.reshape(B, Hkv * G, 1, D)
+    picked = decode_kernel(qd, kd, vd)
+    names = [n for n in DECODE_KERNELS if n == picked or (
+        n in kernels and (n == "decode_attention" or chunked_eligible(qd, kd, vd)))]
+    ms = {}
+    for name in names:
+        add(name, label + ("" if name == picked else f" (the op picks {picked})"),
+            lambda name=name: KERNELS[name](qd, kd, vd, lens, softcap=cap),
+            lambda: decode_attention_ref(qd, kd, vd, lens, cap),
+            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
+                                                   vd.transpose(1, 2), attn_mask=mask,
+                                                   enable_gqa=True),
+            2 * (2 * B * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * B,
+            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS, held=held,
+            **(extra if name == picked else {}))
+        ms[name] = rows[name]["shapes"][-1]["ms"]
+    for name in names:
+        rows[name]["shapes"][-1]["decode_kernels_ms"] = ms
+    sdpa = rows[picked]["shapes"][-1]["library_ms"]
+    print(f"[timing] decode {label}: " + ", ".join(f"{n} {t:.5f} ms" for n, t in ms.items())
+          + f", SDPA {sdpa:.5f} ms; the op picks {picked}")
+    return ms
+
+
 def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
     """The timing phase's rows of ROADMAP B17's crossover and of the
     cross-attending models, through `add` (``phase_timing``'s, into its
@@ -1901,63 +1970,57 @@ def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
     prompt lengths (its wave: the first SLOTS)."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.decode_attention.kernel import CHUNKED_MAX_G, picks_chunked
+    from repro_torch.kernels.decode_attention.kernel import CHUNKED_MAX_G
     from repro_torch.kernels.decode_attention.ops import all_keys_on_decode
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     bf, B, T = torch.bfloat16, SLOTS, MAX_LEN
 
-    def decode_both(label, qd, kd, vd, lens_list, what=""):
-        """Both decode kernels on one decode shape, each held to the plain
-        version on these tensors: the row of the one the op picks
-        (``picks_chunked``), the other's time beside it, SDPA (a mask of
-        the live keys) as the library call. Returns (picked, its ms, the
-        other's ms)."""
-        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
-        B_, Hkv, G, D = qd.shape
-        picked = "decode_attention_chunked" if picks_chunked(qd, kd, vd) else "decode_attention"
-        other = "decode_attention" if picked == "decode_attention_chunked" else \
-            "decode_attention_chunked"
-        hold(torch, other, label, "bfloat16", KERNELS[other](qd, kd, vd, lens),
-             decode_attention_ref(qd, kd, vd, lens))
-        other_ms = time_ms(torch, lambda: KERNELS[other](qd, kd, vd, lens))
-        T_ = kd.shape[1]
-        mask = (torch.arange(T_, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        q_sdpa = qd.reshape(B_, Hkv * G, 1, D)
-        add(picked, label + what,
-            lambda: KERNELS[picked](qd, kd, vd, lens),
-            lambda: decode_attention_ref(qd, kd, vd, lens),
-            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
-                                                   vd.transpose(1, 2), attn_mask=mask,
-                                                   enable_gqa=True),
-            2 * (2 * B_ * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * B_,
-            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS, held=True,
-            other_kernel={"name": other, "ms": other_ms})
-        ms = rows[picked]["shapes"][-1]["ms"]
-        print(f"[timing] {other:16s} {label}: {other_ms:.5f} ms (the op picks {picked}, "
-              f"{ms:.5f} ms)")
-        return picked, ms, other_ms
-
-    # ROADMAP B17: the chunked and the split decode kernel at G = 2, 3, 4,
-    # 6 and 10 query heads a kv-head (8 kv-heads of 128, the served decode
+    # ROADMAP B17: the three decode kernels at G = 1, 2, 3, 4, 6, 10 and
+    # 16 query heads a kv-head (8 kv-heads of 128, the served decode
     # lengths), in one call; the op sends G <= CHUNKED_MAX_G to the chunked
-    # kernel
+    # kernel, the rest to the mma one
     sweep = {}
     lens_list = decode_lengths(SLOTS, T)
     for G in G_SWEEP:
         qd = rnd((SLOTS, 8, G, 128), bf)
         kd, vd = rnd((SLOTS, T, 8, 128), bf), rnd((SLOTS, T, 8, 128), bf)
-        picked, ms, other_ms = decode_both(
+        sweep[G] = time_decode(
+            torch, add, rows,
             f"G sweep q({SLOTS},8,{G},128) kv({SLOTS},{T},8,128) lengths={lens_list} bf16",
-            qd, kd, vd, lens_list)
-        chunked, split = (ms, other_ms) if picked == "decode_attention_chunked" else \
-            (other_ms, ms)
-        sweep[G] = {"chunked_ms": chunked, "split_ms": split, "picked": picked}
+            qd, kd, vd, lens_list, held=True)
         del qd, kd, vd
     print(f"[timing] decode G sweep (D = 128, 8 kv-heads, T = {T}): {json.dumps(sweep)}; the "
-          f"chunked kernel is the faster at G = "
-          f"{[G for G, r in sweep.items() if r['chunked_ms'] < r['split_ms']]}, the op sends "
-          f"G <= {CHUNKED_MAX_G} to it")
+          "fastest at G = " + ", ".join(f"{G}: {min(r, key=r.get)}" for G, r in sweep.items())
+          + f"; the op sends G <= {CHUNKED_MAX_G} to the chunked kernel, the rest to the mma one")
+    # the crossover in alternating turns (chunked, mma, mma, chunked, ...) at
+    # the served decode shapes of one and two query heads a kv-head
+    for what, Hkv, G, D in (("qwen3-1.7b", 8, 2, 128), ("stablelm-1.6b", 32, 1, 64)):
+        qd = rnd((SLOTS, Hkv, G, D), bf)
+        kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        turns = {"decode_attention_chunked": [], "decode_attention_mma": []}
+        for i in range(4):
+            for name in sorted(turns, reverse=i % 2 == 1):
+                turns[name].append(time_ms(torch, lambda name=name: KERNELS[name](qd, kd, vd,
+                                                                                 lens)))
+        print(f"[timing] decode crossover in turns at {what}'s q({SLOTS},{Hkv},{G},{D}) "
+              f"kv({SLOTS},{T},{Hkv},{D}): " + "; ".join(
+                  f"{name} " + " ".join(f"{t:.5f}" for t in ts) + " ms"
+                  for name, ts in turns.items()))
+        del qd, kd, vd
+    # the split kernel's cost of reading K and V again: recurrentgemma's
+    # decode shape (one kv-head of 256, blocks of 2 query heads) with its
+    # 10 heads (5 blocks a slot over the same keys) against its first 2 (1)
+    qd = rnd((SLOTS, 1, 10, 256), bf)
+    kd, vd = rnd((SLOTS, T, 1, 256), bf), rnd((SLOTS, T, 1, 256), bf)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    q2 = qd[:, :, :2].contiguous()
+    reread = {G: time_ms(torch, lambda q=q: KERNELS["decode_attention"](q, kd, vd, lens))
+              for G, q in ((10, qd), (2, q2))}
+    print(f"[timing] decode_attention (the split kernel) at q({SLOTS},1,G,256) "
+          f"kv({SLOTS},{T},1,256), the same keys read by G / 2 blocks a slot: G = 10 "
+          f"{reread[10]:.5f} ms, G = 2 {reread[2]:.5f} ms")
+    del qd, kd, vd, q2
 
     # the cross-attending models, each shape held to its plain version on
     # the tensors timed: flash, non-causal, at llama-3.2-vision's
@@ -1986,8 +2049,9 @@ def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
         del q, k, v
     qd = rnd((SLOTS, 8, 4, 128), bf)
     kd, vd = rnd((SLOTS, T, 8, 128), bf), rnd((SLOTS, T, 8, 128), bf)
-    decode_both(f"llama-3.2-vision-11b's decode step q({SLOTS},8,4,128) kv({SLOTS},{T},8,128) "
-                f"lengths={lens_list} bf16", qd, kd, vd, lens_list)
+    time_decode(torch, add, rows, f"llama-3.2-vision-11b's decode step q({SLOTS},8,4,128) "
+                f"kv({SLOTS},{T},8,128) lengths={lens_list} bf16", qd, kd, vd, lens_list,
+                held=True)
     del qd, kd, vd
     cross_decode = {}
     for cfg_name, Hkv, G, nf, D in (("llama-3.2-vision-11b", 8, 4, 1601, 128),
@@ -1995,9 +2059,9 @@ def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
         qd = rnd((SLOTS, Hkv, G, D), bf)
         kd, vd = rnd((SLOTS, nf, Hkv, D), bf), rnd((SLOTS, nf, Hkv, D), bf)
         label = (f"{cfg_name}'s cross-attention at a decode step q({SLOTS},{Hkv},{G},{D}) "
-                 f"kv({SLOTS},{nf},{Hkv},{D}) every length {nf} bf16")
+                 f"kv({SLOTS},{nf},{Hkv},{D}) every length {nf} bf16 (the decode op)")
         route = "decode op" if all_keys_on_decode(qd, kd, vd) else "flash"
-        picked, ms, _ = decode_both(label, qd, kd, vd, [nf] * SLOTS, what=" (the decode op)")
+        ms = time_decode(torch, add, rows, label, qd, kd, vd, [nf] * SLOTS, held=True)
         qf, kf, vf = qd.reshape(SLOTS, Hkv * G, 1, D), kd.transpose(1, 2), vd.transpose(1, 2)
         add("flash_attention_wgmma", f"{cfg_name}'s cross-attention at a decode step, one "
             f"query q({SLOTS},{Hkv * G},1,{D}) kv({SLOTS},{Hkv},{nf},{D}) view non-causal bf16 "
@@ -2008,7 +2072,7 @@ def time_decode_and_cross(torch, add, rows, rnd, cross_lens):
             2 * (2 * SLOTS * Hkv * G * D + 2 * SLOTS * nf * Hkv * D),
             4 * D * G * Hkv * SLOTS * nf, BF16_TENSOR_FLOPS, held=True)
         flash_ms = rows["flash_attention_wgmma"]["shapes"][-1]["ms"]
-        cross_decode[cfg_name] = {"decode_op": picked, "decode_op_ms": ms, "flash_ms": flash_ms,
+        cross_decode[cfg_name] = {"decode_kernels_ms": ms, "flash_ms": flash_ms,
                                   "model_route": route}
         del qd, kd, vd, qf, kf, vf
     print(f"[timing] cross-attention at a decode step, the decode op against flash on one "
@@ -2070,7 +2134,6 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
     keyed by kernel and shape label, for the analytic phase."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gelu.ref import gelu_mul_ref, gelu_ref, silu_mul_ref
     from repro_torch.kernels.rmsnorm.ref import layernorm_ref, rmsnorm_ref
@@ -2225,44 +2288,27 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
                 BF16_TENSOR_FLOPS, plain_iters=5)
             del q, k, v, band
 
+        # the decode kernels at the model's decode step: the one the op
+        # picks, with torch.sum over a contiguous copy of the same live K and
+        # V (what reading those bytes costs under this timing's L2 flush),
+        # beside the chunked and the split kernel
         G = Hq // Hkv
         lens_list = decode_lengths(SLOTS, T)
-        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
         qd = rnd((SLOTS, Hkv, G, D), bf)
         kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
-        mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        q_sdpa = qd.reshape(SLOTS, Hkv * G, 1, D)
-        label = (f"q({SLOTS},{Hkv},{G},{D}) kv({SLOTS},{T},{Hkv},{D}) lengths={lens_list} "
-                 "bf16")
-        work = (2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
-                4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS)
-
-        def sdpa_decode():
-            return F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
-                                                  vd.transpose(1, 2), attn_mask=mask,
-                                                  enable_gqa=True)
-
-        # the split kernel (the decode step's before the chunked one), then
-        # the chunked kernel with the split kernel's time beside it, and
-        # torch.sum over a contiguous copy of the same live K and V: what
-        # reading those bytes costs under this timing's L2 flush
-        add("decode_attention", label + " on the split kernel",
-            lambda: KERNELS["decode_attention"](qd, kd, vd, lens),
-            lambda: decode_attention_ref(qd, kd, vd, lens), sdpa_decode, *work)
         live = torch.cat([x[b, :n] for x in (kd, vd) for b, n in enumerate(lens_list)])
-        add("decode_attention_chunked", label,
-            lambda: KERNELS["decode_attention_chunked"](qd, kd, vd, lens),
-            lambda: decode_attention_ref(qd, kd, vd, lens), sdpa_decode, *work,
-            split_kernel_ms=rows["decode_attention"]["shapes"][-1]["ms"],
-            sum_of_live_kv_ms=time_ms(torch, lambda: live.sum()))
+        time_decode(torch, add, rows, f"q({SLOTS},{Hkv},{G},{D}) kv({SLOTS},{T},{Hkv},{D}) "
+                    f"lengths={lens_list} bf16", qd, kd, vd, lens_list,
+                    kernels=("decode_attention_chunked", "decode_attention"),
+                    sum_of_live_kv_ms=time_ms(torch, lambda: live.sum()))
         del qd, kd, vd, live
 
     # the MoE models' attention, each held to its plain version here (no
     # kernel case has these shapes): flash at their served wave on the
     # model's transposed views (grok's under its softcap of 30; SDPA takes
-    # no softcap, so it runs without one), the chunked decode kernel at
-    # their decode step beside the split one (the same softcap) and SDPA
-    # (none)
+    # no softcap, so it runs without one), the decode kernels at their
+    # decode step (the mma one the op picks, the chunked and the split one
+    # beside it, all under the same softcap) and SDPA (none)
     for cfg in (granite, grok):
         Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_logit_softcap
         S, G = moe_S, cfg.n_heads // cfg.n_kv_heads
@@ -2278,29 +2324,11 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
             BF16_TENSOR_FLOPS, held=True)
         del q, k, v
         lens_list = decode_lengths(SLOTS, T)
-        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
         qd = rnd((SLOTS, Hkv, G, D), bf)
         kd, vd = rnd((SLOTS, T, Hkv, D), bf), rnd((SLOTS, T, Hkv, D), bf)
-        mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        q_sdpa = qd.reshape(SLOTS, Hkv * G, 1, D)
-        label = (f"{cfg.name}'s decode step q({SLOTS},{Hkv},{G},{D}) "
-                 f"kv({SLOTS},{T},{Hkv},{D}) lengths={lens_list} softcap {cap:g} bf16")
-        hold(torch, "decode_attention", label, "bfloat16",
-             KERNELS["decode_attention"](qd, kd, vd, lens, softcap=cap),
-             decode_attention_ref(qd, kd, vd, lens, cap))
-        split_ms = time_ms(torch, lambda: KERNELS["decode_attention"](qd, kd, vd, lens,
-                                                                     softcap=cap))
-        add("decode_attention_chunked", label + sdpa_note,
-            lambda: KERNELS["decode_attention_chunked"](qd, kd, vd, lens, softcap=cap),
-            lambda: decode_attention_ref(qd, kd, vd, lens, cap),
-            lambda: F.scaled_dot_product_attention(q_sdpa, kd.transpose(1, 2),
-                                                   vd.transpose(1, 2), attn_mask=mask,
-                                                   enable_gqa=True),
-            2 * (2 * SLOTS * Hkv * G * D + 2 * sum(lens_list) * Hkv * D) + 4 * SLOTS,
-            4 * D * G * Hkv * sum(lens_list), BF16_TENSOR_FLOPS, held=True,
-            split_kernel_ms=split_ms)
-        print(f"[timing] decode_attention {cfg.name}'s decode step on the split kernel: "
-              f"{split_ms:.5f} ms")
+        time_decode(torch, add, rows, f"{cfg.name}'s decode step q({SLOTS},{Hkv},{G},{D}) "
+                    f"kv({SLOTS},{T},{Hkv},{D}) lengths={lens_list} softcap {cap:g} bf16"
+                    f"{sdpa_note}", qd, kd, vd, lens_list, cap, held=True)
         del qd, kd, vd
 
     time_decode_and_cross(torch, add, rows, rnd, cross_lens)

@@ -4,7 +4,8 @@ its launch count), ``<name>/ref.py`` (the plain PyTorch version) and
 ``<name>/ops.py`` (the public op, dispatching on the tensor's device).
 CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
 """
-from .decode_attention.kernel import decode_attention_chunked_cuda, decode_attention_cuda
+from .decode_attention.kernel import (decode_attention_chunked_cuda, decode_attention_cuda,
+                                      decode_attention_mma_cuda)
 from .flash_attention.kernel import (flash_attention_bwd_cuda, flash_attention_bwd_wgmma_cuda,
                                      flash_attention_cuda, flash_attention_wgmma_cuda)
 from .gelu.kernel import (gelu_bwd_cuda, gelu_cuda, gelu_mul_bwd_cuda, gelu_mul_cuda,
@@ -27,6 +28,7 @@ KERNELS = {
     "flash_attention_wgmma": flash_attention_wgmma_cuda,
     "decode_attention": decode_attention_cuda,
     "decode_attention_chunked": decode_attention_chunked_cuda,
+    "decode_attention_mma": decode_attention_mma_cuda,
     "wkv": wkv_cuda,
     "wkv_chunked": wkv_chunked_cuda,
     "rglru": rglru_cuda,

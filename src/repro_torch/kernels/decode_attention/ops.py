@@ -1,14 +1,14 @@
-"""Public decode-attention ops: a CUDA kernel for a CUDA tensor (the chunked
-one where ``kernel.picks_chunked`` takes the call, else the split one), the
-plain version for a CPU tensor; and ``attend_all_keys``, one query over
-every key, which runs on the decode op or on flash attention."""
+"""Public decode-attention ops: a CUDA kernel for a CUDA tensor (the one
+``kernel.decode_kernel`` names: chunked, mma or split), the plain version
+for a CPU tensor; and ``attend_all_keys``, one query over every key, which
+runs on the decode op or on flash attention."""
 from __future__ import annotations
 
 import torch
 
 from ...device import runs_plain
 from ..flash_attention.ops import flash_attention
-from .kernel import decode_cuda, picks_chunked
+from .kernel import decode_cuda, decode_kernel
 from .ref import decode_attention_ref
 
 
@@ -28,15 +28,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def all_keys_on_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether ``attend_all_keys`` runs a call on the decode op: on the card,
-    where the decode op would run it on the chunked kernel
-    (``kernel.picks_chunked``); flash attention on the one query takes every
+    where the decode op would run it on the chunked or the mma kernel
+    (``kernel.decode_kernel``); flash attention on the one query takes every
     other call, the split decode kernel none. Measured on an H100
-    (``chip_smoke.py``'s timing phase, both forms on the same tensors): over
+    (``chip_smoke.py``'s timing phase, the forms on the same tensors): over
     whisper-tiny's 1500 cross keys at G = 1, D = 64 the chunked kernel beats
-    flash; over llama-3.2-vision's 1601 at G = 4, D = 128 flash beats the
-    split kernel, which splits the cache length and not the keys. Only
-    these two shapes were measured."""
-    return not runs_plain(q) and picks_chunked(q, k, v)
+    flash, and over llama-3.2-vision's 1601 at G = 4, D = 128 the mma kernel
+    does. Only these two shapes were measured."""
+    return not runs_plain(q) and decode_kernel(q, k, v) != "decode_attention"
 
 
 def attend_all_keys(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

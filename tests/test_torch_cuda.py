@@ -36,7 +36,8 @@ from repro_torch.kernels.rglru.kernel import picks_chunked as rglru_picks_chunke
 from repro_torch.kernels.rglru.ref import rglru_bwd_ref, rglru_chunked_ref, rglru_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.kernel import (chunk_keys, chunked_eligible,
+from repro_torch.kernels.decode_attention.kernel import (MMA_UNIT_KEYS, chunk_keys,
+                                                         chunked_eligible, decode_kernel,
                                                          picks_chunked)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -115,7 +116,8 @@ def kernel_case(name, device, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(set(TK.KERNELS) - {
     "wkv", "matmul", "matmul_wgmma", "matmul_reduce", "matmul_int8", "matmul_int8_wgmma",
-    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked", "wkv_chunked",
+    "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked",
+    "decode_attention_mma", "wkv_chunked",
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
     "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd", "rglru_bwd",
     "wkv_bwd"}))
@@ -419,7 +421,7 @@ def test_moe_decode_step_on_card_syncs_nothing(cuda, arch, gate):
         torch.cuda.set_sync_debug_mode(0)
     L = cfg.n_layers
     assert {n: c for n, c in TK.launches().items() if c} == {
-        "rmsnorm": 2 * L + 1, gate: L, "decode_attention_chunked": L}
+        "rmsnorm": 2 * L + 1, gate: L, "decode_attention_mma": L}
 
 
 def test_launches_per_step_on_card(cuda):
@@ -431,7 +433,8 @@ def test_launches_per_step_on_card(cuda):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 3, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0,
+                             "decode_attention_mma": 0, "wkv": 0,
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
@@ -444,7 +447,8 @@ def test_launches_per_step_on_card(cuda):
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
                              "silu_mul": 3, "flash_attention": 0, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0,
+                             "decode_attention_mma": 3, "wkv": 0,
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
@@ -468,7 +472,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     model.prefill(toks, cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 3, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "decode_attention_chunked": 0, "wkv": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0,
+                             "decode_attention_mma": 0, "wkv": 0,
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
@@ -481,7 +486,8 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
-                             "decode_attention": 0, "decode_attention_chunked": 3, "wkv": 0,
+                             "decode_attention": 0, "decode_attention_chunked": 0,
+                             "decode_attention_mma": 3, "wkv": 0,
                              "wkv_chunked": 0, "gelu_mul": 0, "rglru": 0, "rglru_chunked": 0,
                              "matmul": 0, "matmul_wgmma": 0, "matmul_f32_tma": 0,
                              "matmul_reduce": 0,
@@ -992,8 +998,9 @@ def test_card_computes_what_it_once_refused(cuda):
         if dtype == torch.bfloat16:
             assert attention_excess(got, want) <= 1, d
     lens = torch.tensor([150, 33], dtype=torch.int32, device=cuda)
-    # 10 query heads a kv-head: the split kernel, in bf16 too (G > CHUNKED_MAX_G)
-    for d, dtype, kern in ((16, torch.bfloat16, "decode_attention"),
+    # 10 query heads a kv-head: the mma kernel in bf16 (G > CHUNKED_MAX_G),
+    # the split kernel in fp32
+    for d, dtype, kern in ((16, torch.bfloat16, "decode_attention_mma"),
                            (200, torch.float32, "decode_attention"),
                            (256, torch.float32, "decode_attention")):
         q = normal(14, (2, 1, 10, d), cuda, dtype)
@@ -1148,9 +1155,9 @@ def test_griffin_launches_per_step_on_card(cuda):
     remainder): per prefill 2L+1 RMSNorms, L gelu_mul, one gelu and one
     rglru_chunked per RG-LRU layer (6) and one flash attention per attention
     layer (2, the mma.sync kernel at the smoke head dim 32); per decode step
-    the same with rglru in place of rglru_chunked and the split decode
-    kernel in place of flash attention (4 query heads on one kv-head at the
-    smoke size: G > CHUNKED_MAX_G)."""
+    the same with rglru in place of rglru_chunked and the mma decode kernel
+    in place of flash attention (4 query heads on one kv-head at the smoke
+    size: G > CHUNKED_MAX_G)."""
     cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")), n_layers=8)
     model = models.init_params(cfg, seed=0, device=cuda)
     cache = models.init_cache(cfg, 2, 32, device=cuda)
@@ -1162,7 +1169,7 @@ def test_griffin_launches_per_step_on_card(cuda):
     assert TK.launches() == {**step, "rglru_chunked": 6, "flash_attention": 2}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
-    assert TK.launches() == {**step, "rglru": 6, "decode_attention": 2}
+    assert TK.launches() == {**step, "rglru": 6, "decode_attention_mma": 2}
 
 
 @pytest.mark.parametrize("what,b,hq,hkv,sq,sk,d", [
@@ -1188,16 +1195,15 @@ def test_flash_non_causal_cross_shapes_on_card(cuda, what, b, hq, hkv, sq, sk, d
     assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1, what
 
 
-@pytest.mark.parametrize("hkv,g,nf,d,kern", [(8, 4, 1601, 128, "flash_attention_wgmma"),
+@pytest.mark.parametrize("hkv,g,nf,d,kern", [(8, 4, 1601, 128, "decode_attention_mma"),
                                              (6, 1, 1500, 64, "decode_attention_chunked")])
 def test_cross_attention_at_decode_on_card(cuda, hkv, g, nf, d, kern):
     """A decode step's cross-attention at the served shapes through
     ``attend_all_keys`` over a layer of the cross cache (B, nf, Hkv * dh):
     whisper's G = 1 on the decode op's chunked kernel, llama-3.2-vision's
-    G = 4 on flash over the one query, one launch, per element against the
-    decode op's plain version with every length nf; and the decode op
-    itself over the same keys (the split kernel at G = 4) against the
-    same."""
+    G = 4 on its mma kernel, one launch, per element against the decode
+    op's plain version with every length nf; and the decode op itself over
+    the same keys (the same kernel) against the same."""
     b = 3
     cache = normal(33, (2, 2, b, nf, hkv * d), cuda, torch.bfloat16)
     k, v = cache[0, 1].view(b, nf, hkv, d), cache[1, 1].view(b, nf, hkv, d)
@@ -1211,17 +1217,14 @@ def test_cross_attention_at_decode_on_card(cuda, hkv, g, nf, d, kern):
         torch.cuda.synchronize()
         after = TK.launches()
         launched = {n: after[n] - before[n] for n in after if after[n] != before[n]}
-        if op is decode_ops.attend_all_keys:
-            assert launched == {kern: 1}
-        else:
-            assert launched == {"decode_attention_chunked" if g == 1 else "decode_attention": 1}
+        assert launched == {kern: 1}
         assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
 def test_cross_models_launches_per_step_on_card(cuda, arch):
     """Per prefill step of the smoke models (head dim 32: the mma.sync
-    flash kernel; G = 2: the chunked decode kernel): every norm, activation
+    flash kernel; G = 2: the mma decode kernel): every norm, activation
     and attention of the decoder's self and cross layers, and whisper's
     encoder (2 norms, a gelu and a non-causal flash a layer, its final
     norm); per decode step the decoder's, the cross layers' on the decode
@@ -1234,10 +1237,10 @@ def test_cross_models_launches_per_step_on_card(cuda, arch):
     want = {name: 0 for name in TK.KERNELS}
     if arch == "whisper-tiny":    # 2 encdec layers, 2 encoder layers
         prefill = {"layernorm": 12, "gelu": 4, "flash_attention": 6}
-        decode = {"layernorm": 7, "gelu": 2, "decode_attention_chunked": 4}
+        decode = {"layernorm": 7, "gelu": 2, "decode_attention_mma": 4}
     else:                         # layers (attn, xattn)
         prefill = {"rmsnorm": 5, "silu_mul": 2, "flash_attention": 2}
-        decode = {"rmsnorm": 5, "silu_mul": 2, "decode_attention_chunked": 2}
+        decode = {"rmsnorm": 5, "silu_mul": 2, "decode_attention_mma": 2}
     TK.reset_launches()
     model.prefill(toks, cache, frontend=fe)
     assert TK.launches() == {**want, **prefill}
@@ -1289,8 +1292,9 @@ def test_chunked_decode_cache_views_on_card(cuda, arch):
     """The model's cache views (a layer of the fused (L, B, T, Hkv * D)
     cache viewed as (B, T, Hkv, D)) at each served head layout and mixed
     lengths, through the op: the chunked kernel takes every one of them,
-    and the op runs it where G <= CHUNKED_MAX_G, the split kernel beyond
-    (llama-3.2-vision's G = 4), per element."""
+    and the op runs it where G <= CHUNKED_MAX_G, the mma kernel beyond
+    (qwen3-1.7b's G = 2, llama-3.2-vision's G = 4), per element, and no
+    other kernel."""
     hq, hkv, d = SERVED_HEADS[arch]
     b, t = 4, 700
     cache = normal(23, (2, 2, b, t, hkv * d), cuda, torch.bfloat16)
@@ -1298,56 +1302,138 @@ def test_chunked_decode_cache_views_on_card(cuda, arch):
     q = normal(24, (b, hkv, hq // hkv, d), cuda, torch.bfloat16)
     lengths = torch.tensor([700, 1, 333, 64], dtype=torch.int32, device=cuda)
     assert chunked_eligible(q, k, v)
-    kern, other = ("decode_attention_chunked", "decode_attention") if picks_chunked(q, k, v) \
-        else ("decode_attention", "decode_attention_chunked")
+    kern = "decode_attention_chunked" if picks_chunked(q, k, v) else "decode_attention_mma"
+    assert decode_kernel(q, k, v) == kern
     before = TK.launches()
     got = decode_ops.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert TK.launches()[kern] == before[kern] + 1
-    assert TK.launches()[other] == before[other]
+    after = TK.launches()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {kern: 1}
     want = decode_attention_ref(q, k, v, lengths)
     assert rel_err(got, want) < TOL["bfloat16"] and attention_excess(got, want) <= 1
 
 
 def test_decode_op_reads_nothing_back_on_card(cuda):
-    """The decode op on CUDA tensors under sync debug mode "error": neither
-    wrapper nor kernel reads the lengths (or anything else) back to the host,
-    so a decode step can be captured in a CUDA graph."""
-    q = normal(25, (8, 8, 2, 128), cuda, torch.bfloat16)
-    k = normal(26, (8, 300, 8, 128), cuda, torch.bfloat16)
+    """The decode op on CUDA tensors under sync debug mode "error", on the
+    chunked kernel (G = 1) and on the mma kernel (G = 4, and G = 20: two
+    items of 16 heads): neither wrapper nor kernel reads the lengths (or
+    anything else) back to the host, so a decode step can be captured in a
+    CUDA graph."""
     lengths = torch.tensor([300, 1, 64, 65, 129, 200, 2, 299], dtype=torch.int32, device=cuda)
-    decode_ops.decode_attention(q, k, k, lengths)       # builds and loads the library
-    torch.cuda.synchronize()
-    before = TK.launches()["decode_attention_chunked"]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = decode_ops.decode_attention(q, k, k, lengths)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    assert TK.launches()["decode_attention_chunked"] == before + 1
-    assert attention_excess(got, decode_attention_ref(q, k, k, lengths)) <= 1
+    k = normal(26, (8, 300, 8, 128), cuda, torch.bfloat16)
+    for g, kern in ((1, "decode_attention_chunked"), (4, "decode_attention_mma"),
+                    (20, "decode_attention_mma")):
+        q = normal(25, (8, 8, g, 128), cuda, torch.bfloat16)
+        decode_ops.decode_attention(q, k, k, lengths)       # builds and loads the library
+        torch.cuda.synchronize()
+        before = TK.launches()[kern]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = decode_ops.decode_attention(q, k, k, lengths)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert TK.launches()[kern] == before + 1
+        assert attention_excess(got, decode_attention_ref(q, k, k, lengths)) <= 1
 
 
 def test_decode_paths_on_card(cuda):
     """fp32, and bf16 whose head stride no 16-byte load takes, run on the
-    split kernel through the op, one launch each, against the plain version;
-    the chunked wrapper refuses them."""
+    split kernel through the op, one launch each, against the plain version,
+    at G = 2 and at G = 4 alike; the chunked and the mma wrappers refuse
+    them."""
     lengths = torch.tensor([90, 7], dtype=torch.int32, device=cuda)
-    q32 = normal(27, (2, 2, 2, 64), cuda, torch.float32)
-    k32 = normal(28, (2, 90, 2, 64), cuda, torch.float32)
-    odd = normal(29, (2, 90, 2, 68), cuda, torch.bfloat16)[..., :64]   # head stride 68
-    for q, k, tol in ((q32, k32, TOL["float32"]), (q32.bfloat16(), odd, TOL["bfloat16"])):
-        assert not chunked_eligible(q, k, k)
-        before = TK.launches()
-        got = decode_ops.decode_attention(q, k, k, lengths)
-        torch.cuda.synchronize()
-        after = TK.launches()
-        assert after["decode_attention"] == before["decode_attention"] + 1
-        assert after["decode_attention_chunked"] == before["decode_attention_chunked"]
-        assert rel_err(got, decode_attention_ref(q, k, k, lengths)) < tol
-        with pytest.raises(ValueError):
-            TK.KERNELS["decode_attention_chunked"](q, k, k, lengths)
+    for g in (2, 4):
+        q32 = normal(27, (2, 2, g, 64), cuda, torch.float32)
+        k32 = normal(28, (2, 90, 2, 64), cuda, torch.float32)
+        odd = normal(29, (2, 90, 2, 68), cuda, torch.bfloat16)[..., :64]   # head stride 68
+        for q, k, tol in ((q32, k32, TOL["float32"]), (q32.bfloat16(), odd, TOL["bfloat16"])):
+            assert not chunked_eligible(q, k, k) and decode_kernel(q, k, k) == "decode_attention"
+            before = TK.launches()
+            got = decode_ops.decode_attention(q, k, k, lengths)
+            torch.cuda.synchronize()
+            after = TK.launches()
+            assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+                {"decode_attention": 1}
+            assert rel_err(got, decode_attention_ref(q, k, k, lengths)) < tol
+            for name in ("decode_attention_chunked", "decode_attention_mma"):
+                with pytest.raises(ValueError):
+                    TK.KERNELS[name](q, k, k, lengths)
+
+
+# ---------------- the mma decode kernel ----------------
+
+def mma_edge_lengths(t):
+    """Cache lengths 0 (the kernels write zeros), 1, at the mma kernel's unit
+    edges (15, 16, 17 keys) and the full cache t."""
+    u = MMA_UNIT_KEYS
+    return [0, 1, u - 1, u, u + 1, t]
+
+
+def hold_mma(q, k, v, lens, cap=0.0):
+    """One launch of the mma kernel against its plain version: the rows of a
+    slot at length 0 are zeros, the others relative and per element; a
+    rerun gives the same bits. Returns the output."""
+    lengths = torch.tensor(lens, dtype=torch.int32, device=q.device)
+    before = TK.launches()
+    got = TK.KERNELS["decode_attention_mma"](q, k, v, lengths, softcap=cap)
+    torch.cuda.synchronize()
+    after = TK.launches()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+        {"decode_attention_mma": 1}
+    want = decode_attention_ref(q, k, v, lengths, cap)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    live = [i for i, n in enumerate(lens) if n > 0]
+    assert all((got[i] == 0).all() for i, n in enumerate(lens) if n == 0)
+    assert rel_err(got[live], want[live]) < TOL["bfloat16"]
+    assert attention_excess(got[live], want[live]) <= 1
+    again = TK.KERNELS["decode_attention_mma"](q, k, v, lengths, softcap=cap)
+    assert torch.equal(got, again)       # the merge adds the segments in order
+    return got
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("g", [2, 3, 4, 6, 8, 10, 16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_mma_decode_matches_plain_on_card(cuda, d, g, cap):
+    """The mma kernel against its plain version at every head dim and group
+    size (qwen3's 2, granite's 3, llama-3.2-vision's 4, grok's 6 and
+    recurrentgemma's 10 among them), with and without a softcap, lengths 0,
+    1, at the unit
+    edges and the full cache: one launch a call, relative and per element,
+    the same bits in a rerun."""
+    t, hkv = 3 * MMA_UNIT_KEYS + 5, 2
+    lens = mma_edge_lengths(t)
+    q = normal(40, (len(lens), hkv, g, d), cuda, torch.bfloat16) * (4.0 if cap else 1.0)
+    k = normal(41, (len(lens), t, hkv, d), cuda, torch.bfloat16)
+    v = normal(42, (len(lens), t, hkv, d), cuda, torch.bfloat16)
+    assert chunked_eligible(q, k, v)
+    hold_mma(q, k, v, lens, cap)
+
+
+# (hq, hkv, d, softcap) of the served models that run the mma kernel
+MMA_SERVED = {"qwen3-1.7b": (16, 8, 128, 0.0), "granite-moe-3b-a800m": (24, 8, 64, 0.0),
+              "llama-3.2-vision-11b": (32, 8, 128, 0.0), "grok-1-314b": (48, 8, 128, 30.0),
+              "recurrentgemma-2b": (10, 1, 256, 0.0)}
+
+
+@pytest.mark.parametrize("arch", sorted(MMA_SERVED))
+def test_mma_decode_cache_views_on_card(cuda, arch):
+    """The served G >= 2 head layouts on the model's cache views (a layer of
+    the fused (L, B, T, Hkv * D) cache), 8 slots over T = 1024 at the
+    served mixed lengths with a slot at 0 (runs of one segment and of
+    several): the wrapper held, and the op on the same kernel, the same
+    bits."""
+    hq, hkv, d, cap = MMA_SERVED[arch]
+    b, t = 8, 1024
+    cache = normal(43, (2, 2, b, t, hkv * d), cuda, torch.bfloat16)
+    k, v = cache[0, 1].view(b, t, hkv, d), cache[1, 1].view(b, t, hkv, d)
+    q = normal(44, (b, hkv, hq // hkv, d), cuda, torch.bfloat16)
+    lens = [1024, 0, 322, 419, 516, 196, 293, 390]
+    got = hold_mma(q, k, v, lens, cap)
+    assert decode_kernel(q, k, v) == "decode_attention_mma"
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert torch.equal(decode_ops.decode_attention(q, k, v, lengths, softcap=cap), got)
 
 
 # ---------------- the fp32 GEMM on the TMA ring ----------------

@@ -441,14 +441,23 @@ def edge_lengths(d, t):
     return [1, c - 1, c, c + 1, t]
 
 
+def mma_edge_lengths(t):
+    """Cache lengths at the mma decode kernel's unit edges (1, 15, 16, 17
+    keys) and the full cache t."""
+    u = t_decode_kernel.MMA_UNIT_KEYS
+    return [1, u - 1, u, u + 1, t]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hkv,g,t,d,lens", [
     (2, 4, 128, 64, None), (1, 8, 200, 64, None), (4, 1, 64, 64, None),
     (2, 2, 197, 128, edge_lengths(128, 197)), (1, 10, 101, 256, edge_lengths(256, 101)),
-    (2, 1, 389, 64, edge_lengths(64, 389))], ids=str)
+    (2, 1, 389, 64, edge_lengths(64, 389)), (2, 16, 70, 128, mma_edge_lengths(70)),
+    (1, 16, 53, 256, mma_edge_lengths(53))], ids=str)
 def test_decode_attention_plain_matches_jax(hkv, g, t, d, lens, dtype):
     """The JAX kernel tests' rows (D = 64, lengths t, t/2, t/3), and D = 128
-    and 256 and 64 with lengths at the chunked kernel's unit edges."""
+    and 256 and 64 with lengths at the chunked kernel's unit edges, and a
+    group of 16 (one item of the mma kernel) at its unit edges."""
     lens = np.array(lens or [t, max(1, t // 2), max(1, t // 3)], np.int32)
     B = len(lens)
     jq, tq = both(normal(5, (B, hkv, g, d)), dtype)
@@ -456,6 +465,26 @@ def test_decode_attention_plain_matches_jax(hkv, g, t, d, lens, dtype):
     jv, tv = both(normal(7, (B, t, hkv, d)), dtype)
     want = K.decode_attention.decode_attention(jq, jk, jv, jnp.asarray(lens))
     got = t_decode.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    assert rel_err(t2np(got), want) < tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hkv,g,t,d,lens,cap", [
+    (2, 3, 70, 64, mma_edge_lengths(70), 30.0), (2, 6, 53, 128, mma_edge_lengths(53), 30.0),
+    (1, 3, 40, 256, mma_edge_lengths(40), 30.0), (2, 16, 70, 64, mma_edge_lengths(70), 0.0)],
+    ids=str)
+def test_decode_attention_plain_softcap_matches_jax(hkv, g, t, d, lens, cap, dtype):
+    """Granite's G = 3 and grok's G = 6 under a logit softcap of 30 (the
+    logits scaled by 4 so that the cap bends them), and G = 16, with lengths
+    at the mma kernel's unit edges (1, 15, 16, 17 and the full cache)."""
+    lens = np.array(lens, np.int32)
+    B = len(lens)
+    jq, tq = both(normal(5, (B, hkv, g, d)) * 4, dtype)
+    jk, tk = both(normal(6, (B, t, hkv, d)), dtype)
+    jv, tv = both(normal(7, (B, t, hkv, d)), dtype)
+    want = K.decode_attention.decode_attention(jq, jk, jv, jnp.asarray(lens), softcap=cap)
+    got = t_decode.decode_attention(tq, tk, tv, torch.from_numpy(lens), softcap=cap)
     assert got.shape == tq.shape and got.dtype == tq.dtype
     assert rel_err(t2np(got), want) < tol(dtype)
 
@@ -490,6 +519,34 @@ def test_decode_chunk_and_scratch_arithmetic():
                for n in (1024, 225, 322, 419, 516, 196, 293, 390)) == 217
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_decode_mma_unit_and_scratch_arithmetic(d):
+    """The mma kernel's host arithmetic against counts made another way: a
+    unit is 16 keys (the kernel's two n8 blocks of S, one k16 step of P V),
+    a slot at the full cache T has as many units as 16-key steps start in
+    [0, T) (at least 1); an item is 16 query heads; a run is cut into at
+    most as many segments (up to 32, and no more than a slot's units) as
+    keep min(G, 16) x D floats each within 20480; the scratch holds m, l and
+    D accumulators for each (b, kv-head, query head, segment)."""
+    k = t_decode_kernel
+    assert k.MMA_UNIT_KEYS == 16 and k.MMA_ROWS == 16 and k.MMA_MAX_SEGS == 32
+    for T in (0, 1, 15, 16, 17, 53, 1024, 1601, 2048):
+        assert k.mma_units(T) == (len(range(0, T, 16)) or 1)
+    for G in (1, 3, 4, 6, 10, 16, 17, 40):
+        assert k.mma_items(G) == len(range(0, G, 16))
+        rows = min(G, 16)
+        bound = max([n for n in range(1, 33) if n * rows * d <= 20480], default=1)
+        for T in (1, 53, 1024):
+            n = min(bound, len(range(0, T, 16)) or 1)
+            assert k.mma_segments(T, G, d) == n
+            assert k.mma_scratch_floats(3, 2, G, T, d) == 2 * (3 * 2 * G * n) + 3 * 2 * G * n * d
+    # the served shapes at 8 slots over T = 1024: llama-3.2-vision's and
+    # grok's G = 4, 6 at D = 128 keep 32 and 26 segments; recurrentgemma's
+    # G = 10 at D = 256 eight
+    assert k.mma_segments(1024, 4, 128) == 32 and k.mma_segments(1024, 6, 128) == 26
+    assert k.mma_segments(1024, 10, 256) == 8 and k.mma_segments(1024, 3, 64) == 32
+
+
 def test_decode_path_predicate_routes_shapes():
     """``chunked_eligible``: the model's cache views (a layer of the fused
     (L, B, T, Hkv * D) cache) at D = 32, 64, 128 and 256 go to the chunked
@@ -520,8 +577,9 @@ def test_decode_path_predicate_routes_shapes():
 
 
 def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
-    """``decode_cuda`` routes by ``picks_chunked`` (``chunked_eligible`` and
-    G at most ``CHUNKED_MAX_G``) and never calls the other wrapper (CPU
+    """``decode_cuda`` routes by ``decode_kernel`` (``chunked_eligible`` and
+    G at most ``CHUNKED_MAX_G``: the chunked kernel; above it: the mma
+    kernel; else the split one) and never calls another wrapper (CPU
     tensors, the wrappers replaced by recorders); the op sends a CUDA-bound
     call there and nowhere else."""
     calls, seen = [], []
@@ -533,16 +591,19 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
             return q
         return record
 
-    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda"):
+    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda",
+                 "decode_attention_mma_cuda"):
         monkeypatch.setattr(t_decode_kernel, name, recorder(name))
     bf = torch.bfloat16
     lens = torch.full((2,), 5, dtype=torch.int32)
-    cases = [((torch.zeros(2, 2, 2, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
+    cases = [((torch.zeros(2, 2, 1, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
               "decode_attention_chunked_cuda"),
+             ((torch.zeros(2, 2, 2, 128, dtype=bf), torch.zeros(2, 9, 2, 128, dtype=bf)),
+              "decode_attention_mma_cuda"),
              ((torch.zeros(2, 1, 10, 256, dtype=bf), torch.zeros(2, 9, 1, 256, dtype=bf)),
-              "decode_attention_cuda"),
+              "decode_attention_mma_cuda"),
              ((torch.zeros(2, 8, 4, 128, dtype=bf), torch.zeros(2, 9, 8, 128, dtype=bf)),
-              "decode_attention_cuda"),
+              "decode_attention_mma_cuda"),
              ((torch.zeros(2, 6, 1, 64, dtype=bf), torch.zeros(2, 9, 6, 64, dtype=bf)),
               "decode_attention_chunked_cuda"),
              ((torch.zeros(2, 2, 2, 64), torch.zeros(2, 9, 2, 64)), "decode_attention_cuda"),
@@ -552,11 +613,12 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
         calls.clear()
         t_decode_kernel.decode_cuda(q, k, k, lens, softcap=30.0)
         assert calls == [(path, {"softcap": 30.0, "scale": 1.0 / math.sqrt(q.shape[-1])})]
-    for q, k, dk in ((torch.zeros(2, 1, 10, 48, dtype=bf), torch.zeros(2, 9, 1, 48, dtype=bf), 64),
-                     (torch.zeros(2, 2, 2, 200), torch.zeros(2, 9, 2, 200), 256)):
-        calls.clear()
+    for q, k, dk, path in ((torch.zeros(2, 1, 10, 48, dtype=bf),
+                            torch.zeros(2, 9, 1, 48, dtype=bf), 64, "decode_attention_mma_cuda"),
+                           (torch.zeros(2, 2, 2, 200), torch.zeros(2, 9, 2, 200), 256,
+                            "decode_attention_cuda")):
+        calls.clear()          # bf16 G = 10 on the mma kernel, fp32 on the split one
         assert t_decode_kernel.decode_cuda(q, k, k, lens).shape == q.shape
-        path = "decode_attention_cuda"     # G = 10 and fp32 both go to the split kernel
         assert calls == [(path, {"softcap": 0.0, "scale": 1.0 / math.sqrt(q.shape[-1])})]
         assert seen == [dk]
     calls.clear()
@@ -568,12 +630,37 @@ def test_decode_dispatch_picks_the_path_before_the_launch(monkeypatch):
 
 
 
+@pytest.mark.parametrize("g,kind", [(g, "bf16") for g in (1, 2, 3, 4, 6, 10, 16)]
+                         + [(g, kind) for kind in ("fp32", "odd stride") for g in (2, 4, 10)])
+def test_decode_dispatch_routes_each_group(monkeypatch, g, kind):
+    """bf16 calls that 16-byte loads take go to the chunked wrapper at G <=
+    ``CHUNKED_MAX_G`` (G = 1) and to the mma wrapper above it (G = 2, 3,
+    4, 6, 10, 16); fp32 and a head stride off 16 bytes go to the split wrapper at
+    every G; ``decode_kernel`` names the same kernel, and only its wrapper
+    runs."""
+    calls = []
+    wrappers = {"decode_attention_cuda": "decode_attention",
+                "decode_attention_chunked_cuda": "decode_attention_chunked",
+                "decode_attention_mma_cuda": "decode_attention_mma"}
+    for fn, name in wrappers.items():
+        monkeypatch.setattr(t_decode_kernel, fn,
+                            lambda q, k, v, lengths, name=name, **kw: calls.append(name) or q)
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    q = torch.zeros(2, 2, g, 64, dtype=dt)
+    k = torch.zeros(2, 9, 2, 68 if kind == "odd stride" else 64, dtype=dt)[..., :64]
+    want = ("decode_attention" if kind != "bf16" else "decode_attention_chunked"
+            if g <= t_decode_kernel.CHUNKED_MAX_G else "decode_attention_mma")
+    assert t_decode_kernel.decode_kernel(q, k, k) == want
+    t_decode_kernel.decode_cuda(q, k, k, torch.full((2,), 5, dtype=torch.int32), softcap=30.0)
+    assert calls == [want]
+
+
 def test_attend_all_keys_routes_chunked_calls_to_the_decode_op(monkeypatch):
     """``attend_all_keys`` (one query over every key) sends a card call the
-    chunked decode kernel takes (``picks_chunked``: whisper-tiny's cross
-    shape, G = 1) to the decode op with every length Sk, and every other
-    (llama-3.2-vision's G = 4, fp32, a CPU call) to flash attention on the
-    one query, non-causal, over the keys' (B, Hkv, Sk, D) view (CPU
+    chunked or the mma decode kernel takes (``decode_kernel``: whisper-tiny's
+    cross shape, G = 1, and llama-3.2-vision's, G = 4) to the decode op with
+    every length Sk, and every other (fp32, a CPU call) to flash attention
+    on the one query, non-causal, over the keys' (B, Hkv, Sk, D) view (CPU
     tensors, the two paths replaced by recorders)."""
     calls = []
 
@@ -596,13 +683,35 @@ def test_attend_all_keys_routes_chunked_calls_to_the_decode_op(monkeypatch):
     assert calls == [("flash", (2, 6, 1, 64), (2, 6, 15, 64), {"causal": False})]
     monkeypatch.setattr(t_decode, "runs_plain", lambda t: False)
     for (q, k), want in ((whisper, ("decode", (2, 6, 1, 64), (2, 15, 6, 64), [15, 15], {})),
-                         (llama, ("flash", (2, 32, 1, 128), (2, 8, 17, 128),
-                                  {"causal": False})),
+                         (llama, ("decode", (2, 8, 4, 128), (2, 17, 8, 128), [17, 17], {})),
                          (fp32, ("flash", (2, 6, 1, 64), (2, 6, 15, 64), {"causal": False}))):
         calls.clear()
         assert t_decode.attend_all_keys(q, k, k).shape == q.shape
         assert t_decode.all_keys_on_decode(q, k, k) == (want[0] == "decode")
         assert calls == [want]
+
+
+@pytest.mark.parametrize("g,kind,route", [(1, "bf16", "decode"), (2, "bf16", "decode"),
+                                           (4, "bf16", "decode"), (10, "bf16", "decode"),
+                                           (4, "fp32", "flash"), (4, "odd stride", "flash"),
+                                           (1, "odd stride", "flash")])
+def test_attend_all_keys_route_by_kernel(monkeypatch, g, kind, route):
+    """On the card ``attend_all_keys`` takes the decode op wherever the
+    chunked (G = 1) or the mma kernel (G >= 2) would run the call, and flash
+    on the one query where only the split kernel would (fp32, a head stride
+    off 16 bytes): the split kernel takes no cross-attention."""
+    calls = []
+    monkeypatch.setattr(t_decode, "decode_cuda",
+                        lambda q, k, v, lengths, **kw: calls.append("decode") or q)
+    monkeypatch.setattr(t_decode, "flash_attention",
+                        lambda q, k, v, **kw: calls.append("flash") or q)
+    monkeypatch.setattr(t_decode, "runs_plain", lambda t: False)
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    q = torch.zeros(2, 2, g, 64, dtype=dt)
+    k = torch.zeros(2, 15, 2, 68 if kind == "odd stride" else 64, dtype=dt)[..., :64]
+    assert t_decode.all_keys_on_decode(q, k, k) == (route == "decode")
+    t_decode.attend_all_keys(q, k, k)
+    assert calls == [route]
 
 
 @pytest.mark.parametrize("hkv,g,d", [(6, 1, 64), (8, 4, 128)])
@@ -882,7 +991,8 @@ def test_padded_head_dims_match_jax(dtype, monkeypatch):
     flash, decode = _plain_at_kernel_dims(t_flash_kernel.HEAD_DIMS)
     for name in ("flash_attention_cuda", "flash_attention_wgmma_cuda"):
         monkeypatch.setattr(t_flash_kernel, name, flash)
-    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda"):
+    for name in ("decode_attention_cuda", "decode_attention_chunked_cuda",
+                 "decode_attention_mma_cuda"):
         monkeypatch.setattr(t_decode_kernel, name, decode)
     for d in (16, 48, 96, 200):
         jq, tq = both(normal(40, (1, 4, 40, d)), dtype)
@@ -1184,6 +1294,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "decode_attention_chunked": (x.bfloat16(), x.transpose(1, 2).contiguous().bfloat16(),
                                          x.transpose(1, 2).contiguous().bfloat16(),
                                          torch.full((2,), 8, dtype=torch.int32)),
+            "decode_attention_mma": (x.bfloat16(), x.transpose(1, 2).contiguous().bfloat16(),
+                                     x.transpose(1, 2).contiguous().bfloat16(),
+                                     torch.full((2,), 8, dtype=torch.int32)),
             "wkv": (x, x, x, x, torch.zeros(8, 32)),
             "wkv_chunked": (x, x, x, x, torch.zeros(8, 32)),
             "rglru": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16()),
