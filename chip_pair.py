@@ -21,10 +21,16 @@ inputs and time the calls), builds that tree's kernels into its own
     chunked forward's segment states;
   * the chunked wkv forward at rwkv6-7b's served wave (8, 436, 64, 64, the
     wave's prompt lengths): the time and a hash of its output and state;
-  * train steps of recurrentgemma-2b (whole) and rwkv6-7b (15 of 32 layers)
-    as ``chip_smoke.py``'s [train] phase runs them, a second run's last two
-    steps under torch.profiler: device ms a step (PART ``train``; the three
-    items above are PART ``bwd``);
+  * the LayerNorm backward (the tree's router ``rmsnorm/kernel.py::
+    layernorm_bwd`` where it has one, else its ``KERNELS["layernorm_bwd"]``)
+    at the trained rows of stablelm-1.6b (4096, 2048), gpt3-175b (4096, 12288),
+    rwkv6-7b (4096, 4096) and whisper-tiny's decoder (4096, 384) and
+    encoder (12000, 384), bf16: the time and a hash of dx, dg and db, which
+    must be the same in a tree's two turns (the trees' kernels may differ);
+  * train steps of stablelm-1.6b (whole), recurrentgemma-2b (whole) and
+    rwkv6-7b (15 of 32 layers) as ``chip_smoke.py``'s [train] phase runs
+    them, a second run's last two steps under torch.profiler: device ms a
+    step (PART ``train``; the four items above are PART ``bwd``);
   * PART ``decode``: decode attention through the tree's op (the kernel that
     tree routes the call to) at the four served shapes with more than two
     query heads a kv-head, 8 slots over a cache of 1024 at the served
@@ -36,9 +42,10 @@ inputs and time the calls), builds that tree's kernels into its own
 
 Each turn's numbers, then a summary (each number the mean of a tree's two
 turns), the card's name and power limit, and last a JSON line of it all.
-Exits 1 if a worker fails, or if the hashes of the D = 64 and 128 backward
-or of the served wave differ between the trees or from one turn to the
-next. Needs one card; the train runs take up to ~73 GiB of it.
+Exits 1 if a worker fails, if the hashes of the D = 64 and 128 backward or
+of the served wave differ between the trees or from one turn to the next,
+or if the LayerNorm backward's differ between a tree's two turns. Needs one
+card; the train runs take up to ~73 GiB of it.
 """
 import contextlib
 import hashlib
@@ -58,7 +65,11 @@ FLASH_CASES = (("recurrentgemma-2b train", 8, 10, 1, 512, 256, 2048, 0.0, 1.0),
                ("qwen2-0.5b", 8, 14, 2, 512, 64, 0, 0.0, 1.0),
                ("grok-1-314b softcap 30", 8, 48, 8, 512, 128, 0, 30.0, 8.0))
 SERVED_WAVE = (239, 347, 332, 238, 396, 273, 424, 436)   # rwkv6-7b's prompt lengths
-TRAIN = (("recurrentgemma-2b", None), ("rwkv6-7b", 15))
+TRAIN = (("stablelm-1.6b", None), ("recurrentgemma-2b", None), ("rwkv6-7b", 15))
+# (label, R, C) of the LayerNorm backward at the trained rows, bf16
+LN_BWD_ROWS = (("stablelm-1.6b", 4096, 2048), ("gpt3-175b", 4096, 12288),
+               ("rwkv6-7b", 4096, 4096), ("whisper-tiny decoder", 4096, 384),
+               ("whisper-tiny encoder", 12000, 384))
 # (label, Hkv, G, D, softcap) of the served decode shapes at G > 2
 DECODE_CASES = (("granite-moe-3b-a800m", 8, 3, 64, 0.0), ("llama-3.2-vision-11b", 8, 4, 128, 0.0),
                 ("grok-1-314b softcap 30", 8, 6, 128, 30.0), ("recurrentgemma-2b", 1, 10, 256, 0.0))
@@ -117,7 +128,8 @@ def worker(tree, out, parts):
     import chip_smoke as C      # puts its tree's src first on sys.path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res = {"tree": str(tree), "ms": {}, "hash": {}, "train_device_ms": {}, "decode_step_ms": {}}
+    res = {"tree": str(tree), "ms": {}, "hash": {}, "own_hash": {}, "train_device_ms": {},
+           "decode_step_ms": {}}
     if "decode" in parts:
         decode_part(torch, C, res)
     if "bwd" in parts:
@@ -178,6 +190,16 @@ def bwd_part(torch, C, res):
     res["ms"]["wkv_chunked rwkv6-7b served wave (8,436,64,64)"] = C.time_ms(
         torch, lambda: KERNELS["wkv_chunked"](r, k, v, w, u, s0, lens))
     del r, k, v, w
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.rmsnorm import kernel as norm_kernels
+    ln_bwd = getattr(norm_kernels, "layernorm_bwd", KERNELS["layernorm_bwd"])
+    for label, R, Cw in LN_BWD_ROWS:
+        x = rnd((R, Cw), torch.bfloat16) * 3 + 1.5
+        g, dy = rnd((Cw,), torch.float32), rnd((R, Cw), torch.bfloat16)
+        key = f"layernorm_bwd {label} ({R},{Cw})"
+        res["own_hash"][key] = digest(torch, *ln_bwd(x, g, dy))
+        res["ms"][key] = C.time_ms(torch, lambda: ln_bwd(x, g, dy))
+        del x, g, dy
     torch.cuda.empty_cache()
 
 
@@ -245,6 +267,14 @@ def main():
         summary["hash"][key] = equal
         print(f"[pair] {key}: {'the same bits in all four turns' if equal else 'BITS DIFFER'} "
               f"{hashes}")
+    summary["own_hash"] = {}
+    for key in by["this"][0]["own_hash"]:
+        hashes = {name: {r["own_hash"][key] for r in rs} for name, rs in by.items()}
+        equal = all(len(h) == 1 for h in hashes.values())
+        same &= equal
+        summary["own_hash"][key] = equal
+        print(f"[pair] {key}: {'the same bits in each tree' if equal else 'BITS DIFFER'} "
+              f"between its two turns {hashes}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)

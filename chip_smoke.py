@@ -277,9 +277,13 @@ result line):
                odd shape and fp32 (dx within one bf16 rounding per element,
                dg to 2e-5 and the same in a second run); LayerNorm the same
                way (dx, and dg and db each to 2e-5 and bit-equal in a second
-               run) at stablelm's (4096, 2048), gpt3's (4096, 12288) (in
-               chunks), whisper's decoder (4096, 384) and encoder (12000,
-               384) rows, a ragged chunked (33, 2100), an odd shape and fp32;
+               run), through ``layernorm_bwd``, which routes each shape, and
+               its launch count named: the ring kernel
+               (``csrc/layernorm_bwd.cu``) at stablelm's (4096, 2048), gpt3's
+               (4096, 12288), whisper's decoder (4096, 384) and encoder
+               (12000, 384) rows, an odd shape and fp32, the Triton kernel
+               at rwkv6's (4096, 4096) (the ring kernel held there too), a
+               ragged (33, 2100) and pitches of 2050 and 386 elements;
                SwiGLU at (4096, 6144), an odd shape and fp32; GELU at gpt3's
                (4096, 49152) and the gated GELU at recurrentgemma's (4096,
                7680) and grok's expert buffer (8720, 32768), each also at an
@@ -294,8 +298,10 @@ result line):
                backward in two turns at qwen3's and qwen2's shapes; the
                RMSNorm backward beside the design it replaced, each design's
                row pass and column sum apart, at the three norm shapes; the
-               LayerNorm backward's row pass and column sum apart at its four
-               shapes; the wgmma backward's modes at recurrentgemma's two
+               LayerNorm backward at its five rows beside its row pass alone,
+               the Triton design it replaced, F.layer_norm's backward and
+               torch.add of x and dy (the same bytes), in two turns; the
+               wgmma backward's modes at recurrentgemma's two
                shapes and grok's, each launch apart, beside the plain version
                and SDPA's backward (the window as a band mask, no softcap),
                and at D = 256 the dk/dv launch's blocks (``bwd_dkdv_plan``)
@@ -549,7 +555,7 @@ def phase_build(torch):
                             "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
                             "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd",
-                            "wkv_bwd"])
+                            "wkv_bwd", "layernorm_bwd"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -622,9 +628,10 @@ def phase_build(torch):
             ("silu_mul", silu_mul_triton, (x, x)),
             ("rmsnorm_bwd C=2048", rmsnorm_bwd_triton, (x[:, :2048], w[:2048], x[:, :2048])),
             ("silu_mul_bwd", silu_mul_bwd_triton, (x, x, x)),
-            ("layernorm_bwd C=2048 (whole rows)", layernorm_bwd_triton,
+            ("layernorm_bwd_triton C=2048 (whole rows; the route of the rows the ring "
+             "kernel does not take, and timed beside it)", layernorm_bwd_triton,
              (x[:, :2048], w[:2048], x[:, :2048])),
-            ("layernorm_bwd C=12288 (in chunks)", layernorm_bwd_triton, (x, w, x))):
+            ("layernorm_bwd_triton C=12288 (in chunks)", layernorm_bwd_triton, (x, w, x))):
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
@@ -2106,13 +2113,21 @@ def time_rglru(torch, add, rnd, griffin_lens):
                                                          h_out=h))
         steps_ms = {L: time_ms(torch, lambda L=L: KERNELS["rglru_chunked"](
             u, ga, gx, lam, gate, h, lens_t, h_out=h, steps=L)) for L in SEGMENT_STEPS}
+        floors = {}
+        if h0:   # the decode step's floors: one launch, and a pass over its state
+            one = torch.ones(1, device="cuda")
+            floors = {"launch_floor_ms": time_ms(torch, lambda: one.mul_(1.0)),
+                      "state_mul_floor_ms": time_ms(torch, lambda: h.mul_(1.0))}
+            print(f"[timing] rglru            decode step floors: one.mul_(1.0) on one element "
+                  f"{floors['launch_floor_ms']:.5f} ms (a launch), h.mul_(1.0) on its "
+                  f"({B},{d}) state {floors['state_mul_floor_ms']:.5f} ms")
         add(name, f"u,ga,gx,gate ({B},{T},{d}) lengths={lens}, {label}",
             lambda: KERNELS[name](u, ga, gx, lam, gate, h, lens_t, h_out=h),
             lambda: rglru_ref(u, ga, gx, lam, gate, h, lens_t), None,
             12 * sum(lens) * d + 4 * B * T * d + 4 * d + 4 * B * d * (2 if h0 else 1),
             20 * sum(lens) * d, FP32_FLOPS, plain_iters=5,
             model=("recurrent_scan", (T, B, d, 12.0 * d, 4 * B * T * d * 2)),
-            **{f"{other}_ms": other_ms, "segment_steps_ms": steps_ms})
+            **{f"{other}_ms": other_ms, "segment_steps_ms": steps_ms}, **floors)
         print(f"[timing] {name:16s} {label}: {other} {other_ms:.5f} ms on the same inputs; "
               f"the chunked kernel by steps a segment {json.dumps(steps_ms)} ms")
         del u, ga, gx, gate
@@ -2418,12 +2433,15 @@ def phase_timing(torch, counts, per_prefill, per_decode, errs, prompt_lens, grif
           f"ms, bound {refills['bound_ms']:.5f} ms")
     r, k, v, w, u, s0 = wkv_inputs(torch, rnd, SLOTS, 1, H, N, True)
     floor_ms = time_ms(torch, lambda: s0.mul_(1.0))
+    one = torch.ones(1, device="cuda")
+    launch_ms = time_ms(torch, lambda: one.mul_(1.0))
     add("wkv", f"r,k,v,w ({SLOTS},1,{H},{N}) fp32 state0 in place (decode step)",
         lambda: KERNELS["wkv"](r, k, v, w, u, s0, None, state_out=s0),
         lambda: wkv_ref(r, k, v, w, u, s0, None), None, *wkv_work([1] * SLOTS, 1, True),
-        state_mul_floor_ms=floor_ms, model=wkv_model(SLOTS, 1))
+        state_mul_floor_ms=floor_ms, launch_floor_ms=launch_ms, model=wkv_model(SLOTS, 1))
     print(f"[timing] wkv              decode step: s0.mul_(1.0) on its ({SLOTS},{H},{N},{N}) "
-          f"state, {floor_ms:.5f} ms (the floor of its state traffic here)")
+          f"state, {floor_ms:.5f} ms (the floor of its state traffic here); one.mul_(1.0) on "
+          f"one element {launch_ms:.5f} ms (a launch)")
     del r, k, v, w, s0
     # N = 128 (no model has it; ROADMAP C9) on wkv.cu at the [c9] shapes
     for T in (33, 1):
@@ -2729,8 +2747,10 @@ BACKWARD = {
                     "src/repro/kernels/rmsnorm/kernel.py:32"),
     "silu_mul_bwd": ("triton", "src/repro_torch/kernels/gelu/kernel.py",
                      "src/repro/kernels/gelu/kernel.py:43"),
-    "layernorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    "layernorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/layernorm_bwd.cu",
                       "src/repro/kernels/rmsnorm/kernel.py:48"),
+    "layernorm_bwd_triton": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+                             "src/repro/kernels/rmsnorm/kernel.py:48"),
     "gelu_bwd": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu",
                  "src/repro/kernels/gelu/kernel.py:29"),
     "gelu_mul_bwd": ("cuda", "src/repro_torch/kernels/csrc/gelu.cu",
@@ -2740,19 +2760,31 @@ BACKWARD = {
     "wkv_bwd": ("cuda", "src/repro_torch/kernels/csrc/wkv_bwd.cu",
                 "src/repro/kernels/wkv/kernel.py:51"),
 }
-# the backward checks beyond the three of PR 24: LayerNorm at stablelm's and
-# gpt3's rows (whole rows, and gpt3's in chunks), whisper's decoder and
-# encoder rows, a ragged chunked row, an odd shape and fp32; GELU at gpt3's
-# MLP, the gated GELU at recurrentgemma's MLP and grok's expert buffer
-LN_BWD_CHECKS = ((4096, 2048, "bf16"), (4096, 12288, "bf16"), (4096, 384, "bf16"),
-                 (12000, 384, "bf16"), (33, 2100, "bf16"), (4099, 896, "bf16"),
-                 (1000, 2048, "fp32"))
+# the backward checks beyond the three of the first train slice: LayerNorm
+# (R, C, pad: rows C + pad elements apart, dtype, the route) at stablelm's,
+# gpt3's and whisper's decoder and encoder rows, an odd shape and fp32 (the
+# ring kernel), rwkv6's rows, a ragged row and two pitches off 16 bytes (the
+# Triton kernel; at rwkv6's rows the ring kernel is held too);
+# GELU at gpt3's MLP, the gated GELU at recurrentgemma's MLP and grok's
+# expert buffer
+LN_BWD_CHECKS = ((4096, 2048, 0, "bf16", "layernorm_bwd"),
+                 (4096, 12288, 0, "bf16", "layernorm_bwd"),
+                 (4096, 4096, 0, "bf16", "layernorm_bwd_triton"),   # the ring runs slower
+                 (4096, 384, 0, "bf16", "layernorm_bwd"), (12000, 384, 0, "bf16", "layernorm_bwd"),
+                 (33, 2100, 0, "bf16", "layernorm_bwd_triton"),     # a 4200-byte row
+                 (300, 2048, 2, "bf16", "layernorm_bwd_triton"),    # a 4100-byte pitch
+                 (4096, 384, 2, "bf16", "layernorm_bwd_triton"),    # a 772-byte pitch
+                 (4099, 896, 0, "bf16", "layernorm_bwd"), (1000, 2048, 0, "fp32", "layernorm_bwd"))
 GELU_BWD_CHECKS = (("gelu_bwd", (4096, 49152), "bf16"), ("gelu_bwd", (3, 1001), "bf16"),
                    ("gelu_bwd", (1000, 1536), "fp32"), ("gelu_mul_bwd", (4096, 7680), "bf16"),
                    ("gelu_mul_bwd", (8720, 32768), "bf16"), ("gelu_mul_bwd", (3, 1001), "bf16"),
                    ("gelu_mul_bwd", (1000, 1536), "fp32"))
 LN_BWD_TIMED = ((4096, 2048, "stablelm-1.6b"), (4096, 12288, "gpt3-175b"),
-                (4096, 384, "whisper-tiny decoder"), (8 * 1500, 384, "whisper-tiny encoder"))
+                (4096, 4096, "rwkv6-7b"), (4096, 384, "whisper-tiny decoder"),
+                (8 * 1500, 384, "whisper-tiny encoder"))
+# the Triton route's row in the kernel table: rwkv6-7b's, which the router
+# sends it (one chunk of its chunked kernel a row ran faster than the ring)
+LN_BWD_TRITON_TIMED = (4096, 4096)
 GELU_BWD_TIMED = (("gelu_bwd", (4096, 49152), "gpt3-175b MLP"),
                   ("gelu_mul_bwd", (4096, 7680), "recurrentgemma-2b MLP"),
                   ("gelu_mul_bwd", (8720, 32768), "grok-1-314b expert buffer"))
@@ -3080,22 +3112,60 @@ def phase_bwd(torch):
         e = [held("silu_mul_bwd", f"{shape}", dtn, a, w, elementwise=dt == bf)
              for a, w in zip(got, want)]
         print(f"[bwd] silu_mul_bwd {shape} {dtn}: rel_err dg {e[0]}, du {e[1]} ok")
-    # LayerNorm: stablelm's and gpt3's rows (whole rows and chunks), whisper's
-    # decoder and encoder rows, a ragged chunked row, an odd shape and fp32
+    # LayerNorm through the router: the ring kernel at the model rows, an odd
+    # shape and fp32, the Triton kernel at rwkv6's rows (where it ran faster),
+    # a ragged row and rows whose pitch is off 16 bytes; the launch count of
+    # the kernel the route names moves, the other's does not. Where the ring
+    # takes rows the router sends to the Triton kernel, it is held as well.
+    from repro_torch.kernels.rmsnorm.kernel import (_ring_plan_of, layernorm_bwd,
+                                                    layernorm_bwd_route)
     dtypes = {"bf16": bf, "fp32": f32}
-    for R, C, dtn in LN_BWD_CHECKS:
+    for R, C, pad, dtn, want_route in LN_BWD_CHECKS:
         dt = dtypes[dtn]
-        x, g, dy = rnd((R, C), dt) * 3 + 1.5, rnd((C,), f32), rnd((R, C), dt)
-        got, want = KERNELS["layernorm_bwd"](x, g, dy), layernorm_bwd_ref(x, g, dy)
-        dtn = str(dt).split(".")[1]      # the name TOL knows
-        e = [held("layernorm_bwd", f"({R},{C}) {part}", "float32" if part != "dx" else dtn, a, w,
-                  elementwise=dt == bf and part == "dx")
-             for part, a, w in zip(("dx", "dg", "db"), got, want)]
-        again = KERNELS["layernorm_bwd"](x, g, dy)
-        require(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2]),
-                f"layernorm_bwd ({R},{C}): dg or db differ from run to run")
-        print(f"[bwd] layernorm_bwd x({R},{C}) {dtn}: rel_err dx {e[0]}, dg {e[1]}, db {e[2]} "
-              "(fp32 2e-05); dg and db the same bits in a second run ok")
+        x = (rnd((R, C + pad), dt) * 3 + 1.5)[:, :C]
+        g, dy = rnd((C,), f32), rnd((R, C + pad), dt)[:, :C]
+        route = layernorm_bwd_route(x, dy)
+        require(route == want_route, f"layernorm_bwd ({R},{C}) pitch {C + pad} {dtn}: routed "
+                f"to {route}, not {want_route}")
+        want = layernorm_bwd_ref(x, g, dy)
+        fns = {route: layernorm_bwd}
+        if route == "layernorm_bwd_triton" and _ring_plan_of(x, dy) is not None:
+            fns["layernorm_bwd"] = KERNELS["layernorm_bwd"]
+        for name, fn in fns.items():
+            before = {n: KERNELS[n].launches for n in ("layernorm_bwd", "layernorm_bwd_triton")}
+            got = fn(x, g, dy)
+            moved = {n: KERNELS[n].launches - c for n, c in before.items()}
+            require(moved == {n: int(n == name) for n in moved},
+                    f"layernorm_bwd ({R},{C}) {dtn}: launches {moved} for {name}")
+            tn = str(dt).split(".")[1]      # the name TOL knows
+            e = [held(name, f"({R},{C}) pitch {C + pad} {part}",
+                      "float32" if part != "dx" else tn, a, w,
+                      elementwise=dt == bf and part == "dx")
+                 for part, a, w in zip(("dx", "dg", "db"), got, want)]
+            again = fn(x, g, dy)
+            require(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2]),
+                    f"{name} ({R},{C}): dg or db differ from run to run")
+            print(f"[bwd] layernorm_bwd x({R},{C}) pitch {C + pad} {tn} on {name}"
+                  f"{' (the route)' if name == route else ' (the ring kernel, called directly)'}"
+                  f": rel_err dx {e[0]}, dg {e[1]}, db {e[2]} (fp32 2e-05); dg and db the same "
+                  "bits in a second run ok")
+    # three launches of the ring kernel back to back on one stream, of three
+    # shapes: no counter or scratch carries from one to the next
+    ins = [(rnd((R, C), bf) * 3 + 1.5, rnd((C,), f32), rnd((R, C), bf))
+           for R, C in ((4096, 2048), (33, 384), (500, 4096))]
+    outs = [KERNELS["layernorm_bwd"](*a) for a in ins]
+    for a, got in zip(ins, outs):
+        want = layernorm_bwd_ref(*a)
+        held("layernorm_bwd", f"{tuple(a[0].shape)} back to back dx", "bfloat16", got[0],
+             want[0], elementwise=True)
+        for part, i in (("dg", 1), ("db", 2)):
+            held("layernorm_bwd", f"{tuple(a[0].shape)} back to back {part}", "float32",
+                 got[i], want[i])
+    from repro_torch.kernels.rmsnorm.kernel import _counter
+    require(not _counter(ins[0][0].device, torch.cuda.current_stream().cuda_stream).any(),
+            "layernorm_bwd: the grid barrier's counters are not back at 0")
+    print("[bwd] layernorm_bwd: three shapes back to back on one stream, each held to its "
+          "plain version, the barrier's counters back at 0 ok")
     # GELU at gpt3's MLP, the gated GELU at recurrentgemma's MLP and grok's
     # expert buffer; elements where gelu' saturates and where x^3 overflows
     tails = torch.tensor([-1e30, -1e4, -20.0, -9.5, 9.5, 20.0, 1e4, 1e30], device="cuda")
@@ -3373,27 +3443,30 @@ def phase_bwd(torch):
         lambda: silu_mul_bwd_ref(g, u, dy),
         grad_of(lambda a, b: F.silu(a) * b, (g, u), dy), 5 * R * C * 2, 12 * R * C, FP32_FLOPS)
     del g, u, dy
-    # LayerNorm at the trained rows of stablelm, gpt3 and whisper (decoder,
-    # and encoder over its frames), each launch apart, in two turns
-    from repro_torch.kernels.rmsnorm.kernel import LN_BWD_WHOLE_C, layernorm_bwd_launches
+    # LayerNorm at the trained rows of stablelm, gpt3, rwkv6 and whisper
+    # (decoder, and encoder over its frames): the ring kernel, its row pass
+    # alone, the Triton design it replaced (the earlier kernel, same call;
+    # the route of rwkv6's rows), F.layer_norm's backward and an elementwise
+    # op moving the same bytes (what the L2 flush leaves of the bound), in
+    # two turns
+    from repro_torch.kernels.rmsnorm.kernel import layernorm_bwd_ring_row_pass
     for R, C, what in LN_BWD_TIMED:
         x, g, dy = rnd((R, C), bf) * 3 + 1.5, rnd((C,), f32), rnd((R, C), bf)
         zero = torch.zeros((C,), dtype=bf, device="cuda")
         nbytes, flops = 3 * R * C * 2 + 3 * C * 4, 15 * R * C
         library = grad_of(lambda a, w, b: F.layer_norm(a, (C,), w, b, 1e-5),
                           (x, g.to(bf), zero), dy)
-        label = f"x({R},{C}) bf16 ({what})"
+        label = f"x({R},{C}) bf16 ({what}; routed to {layernorm_bwd_route(x, dy)})"
         first = "layernorm_bwd" not in rows
         if first:
             add("layernorm_bwd", label, lambda: KERNELS["layernorm_bwd"](x, g, dy),
                 lambda: layernorm_bwd_ref(x, g, dy), library, nbytes, flops, FP32_FLOPS)
-        _, _, _, row_pass, col_sum = layernorm_bwd_launches(x, g, dy)
-        row_pass()               # the column sum reads what the row pass wrote
-        steps = {"kernel": lambda: KERNELS["layernorm_bwd"](x, g, dy), "row pass": row_pass,
-                 "column sum": col_sum, "F.layer_norm backward": library}
-        if C > LN_BWD_WHOLE_C:   # the first design's chunks of 2048, same call
-            _, _, _, old_row, old_col = layernorm_bwd_launches(x, g, dy, chunk_c=2048)
-            steps["chunks of 2048 (first design)"] = lambda: (old_row(), old_col())
+        steps = {"kernel": lambda: KERNELS["layernorm_bwd"](x, g, dy),
+                 "row pass alone": lambda: layernorm_bwd_ring_row_pass(x, g, dy)}
+        steps["Triton design (earlier)"] = lambda: KERNELS["layernorm_bwd_triton"](x, g, dy)
+        steps["F.layer_norm backward"] = library
+        same_bytes = torch.empty_like(x)     # reads x and dy, writes one (R, C): 6 B an element
+        steps["torch.add of x and dy (the same bytes)"] = lambda: torch.add(x, dy, out=same_bytes)
         times = {name: [] for name in steps}
         for turn in range(2):
             for name in (steps if turn == 0 else reversed(list(steps))):
@@ -3403,18 +3476,27 @@ def phase_bwd(torch):
         print(f"[timing] layernorm_bwd steps {label}: " + ", ".join(
             f"{name} {t[0]:.5f} / {t[1]:.5f} ms" for name, t in times.items())
               + f"; bound {b_ms:.5f} ms ({b_by}): the kernel at "
-              f"{b_ms / ms['kernel'] * 100:.1f}% of it")
+              f"{b_ms / ms['kernel'] * 100:.1f}% of it, "
+              f"{ms['Triton design (earlier)'] / ms['kernel']:.3f}x faster than the Triton "
+              f"design, {ms['F.layer_norm backward'] / ms['kernel']:.3f}x than F.layer_norm")
         if first:
             rows["layernorm_bwd"]["steps_ms"] = times
         else:
             rows["layernorm_bwd"]["shapes"].append({
-                "shape": label, "ms": ms["kernel"], "row_pass_ms": ms["row pass"],
-                "column_sum_ms": ms["column sum"], "plain_ms": time_ms(
+                "shape": label, "ms": ms["kernel"], "plain_ms": time_ms(
                     torch, lambda: layernorm_bwd_ref(x, g, dy)),
-                "library_ms": ms["F.layer_norm backward"], "bound_ms": b_ms, "bound_by": b_by,
-                **({"first_design_ms": ms["chunks of 2048 (first design)"]}
-                   if C > LN_BWD_WHOLE_C else {})})
+                "library_ms": ms["F.layer_norm backward"], "bound_ms": b_ms, "bound_by": b_by})
+        rows["layernorm_bwd"].setdefault("steps_ms_by_shape", {})[label] = ms
         del x, dy, library
+    # the Triton route at the trained rows the router sends it
+    R, C = LN_BWD_TRITON_TIMED
+    x, g, dy = rnd((R, C), bf) * 3 + 1.5, rnd((C,), f32), rnd((R, C), bf)
+    zero = torch.zeros((C,), dtype=bf, device="cuda")
+    add("layernorm_bwd_triton", f"x({R},{C}) bf16 (rwkv6-7b, routed to it)",
+        lambda: KERNELS["layernorm_bwd_triton"](x, g, dy), lambda: layernorm_bwd_ref(x, g, dy),
+        grad_of(lambda a, w, b: F.layer_norm(a, (C,), w, b, 1e-5), (x, g.to(bf), zero), dy),
+        3 * R * C * 2 + 3 * C * 4, 15 * R * C, FP32_FLOPS)
+    del x, dy
     # GELU at gpt3's MLP; the gated GELU at recurrentgemma's MLP and grok's
     # expert buffer (both trained by the train runs)
     for name, (R, C), what in GELU_BWD_TIMED:
@@ -3563,11 +3645,17 @@ def train_launches(cfg):
     and the GELU of its gate branch in place of the attention, and for
     RWKV6 two LayerNorms a layer, the final one and one chunked wkv a layer
     (no attention, its channel mix's relu^2 plain ops); each as often in
-    the backward (the scans' backward kernels are rglru_bwd and wkv_bwd)."""
+    the backward (the scans' backward kernels are rglru_bwd and wkv_bwd; the
+    LayerNorm backward's is the kernel the router picks for bf16 rows of
+    d_model: the ring kernel, layernorm_bwd, or at rwkv6's 4096 the Triton
+    kernel, layernorm_bwd_triton)."""
+    import torch
+    from repro_torch.kernels.rmsnorm.kernel import ring_preferred
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    ln_bwd = "layernorm_bwd" if ring_preferred(cfg.d_model, torch.bfloat16) \
+        else "layernorm_bwd_triton"
     if cfg.attention_free:
-        return {"layernorm": 2 * L + 1, "layernorm_bwd": 2 * L + 1, "wkv_chunked": L,
-                "wkv_bwd": L}
+        return {"layernorm": 2 * L + 1, ln_bwd: 2 * L + 1, "wkv_chunked": L, "wkv_bwd": L}
     rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
     attn = L - rec + E + cross
@@ -3580,7 +3668,7 @@ def train_launches(cfg):
         want["gelu"] = want.get("gelu", 0) + rec
         want["rglru_chunked"] = rec
     backward = {"flash_attention_wgmma": "flash_attention_bwd_wgmma",
-                "rglru_chunked": "rglru_bwd"}
+                "rglru_chunked": "rglru_bwd", "layernorm": ln_bwd}
     want.update({backward.get(k, k + "_bwd"): n for k, n in want.items()})
     return want
 

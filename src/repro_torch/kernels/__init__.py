@@ -13,8 +13,8 @@ from .gelu.kernel import (gelu_bwd_cuda, gelu_cuda, gelu_mul_bwd_cuda, gelu_mul_
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
                             matmul_int8_wgmma_cuda, matmul_reduce_cuda, matmul_wgmma_cuda)
 from .rglru.kernel import rglru_bwd_cuda, rglru_chunked_cuda, rglru_cuda
-from .rmsnorm.kernel import (layernorm_bwd_triton, layernorm_triton, rmsnorm_bwd_triton,
-                             rmsnorm_triton)
+from .rmsnorm.kernel import (layernorm_bwd_cuda, layernorm_bwd_triton, layernorm_triton,
+                             rmsnorm_bwd_triton, rmsnorm_triton)
 from .wkv.kernel import wkv_bwd_cuda, wkv_chunked_cuda, wkv_cuda
 
 #: every kernel wrapper of the port, by kernel name
@@ -45,7 +45,8 @@ KERNELS = {
     "flash_attention_bwd_wgmma": flash_attention_bwd_wgmma_cuda,
     "rmsnorm_bwd": rmsnorm_bwd_triton,
     "silu_mul_bwd": silu_mul_bwd_triton,
-    "layernorm_bwd": layernorm_bwd_triton,
+    "layernorm_bwd": layernorm_bwd_cuda,
+    "layernorm_bwd_triton": layernorm_bwd_triton,   # the rows the ring does not take
     "gelu_bwd": gelu_bwd_cuda,
     "gelu_mul_bwd": gelu_mul_bwd_cuda,
     "rglru_bwd": rglru_bwd_cuda,

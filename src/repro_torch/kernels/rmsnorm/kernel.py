@@ -1,5 +1,8 @@
 """RMSNorm and LayerNorm as Triton kernels for Hopper, and their backward
-(below the forwards: ``rmsnorm_bwd_triton``, ``layernorm_bwd_triton``).
+(below the forwards: ``rmsnorm_bwd_triton``; for LayerNorm the CUDA C++
+ring kernel ``layernorm_bwd_cuda`` (``csrc/layernorm_bwd.cu``), and
+``layernorm_bwd_triton`` for the rows it does not take, both behind the
+router ``layernorm_bwd``).
 
 Replace ``repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas`` and
 ``::layernorm_pallas`` over the last axis of ``x (R, C)``, fp32 statistics,
@@ -34,6 +37,7 @@ kernel here and there is no tensor-core or shared-memory design to make,
 which is why these kernels are Triton and not CUDA C++.
 """
 
+import ctypes
 import functools
 
 import torch
@@ -400,7 +404,7 @@ def rmsnorm_bwd_replaced_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tens
 # Bound on an H100: bytes (x and dy read once, dx written once: 6 bytes an
 # element in bf16, about 15 fp32 operations).
 #
-# Design: PR 25's RMSNorm backward, with two column sums. The row pass runs
+# Design: the RMSNorm backward's, with two column sums. The row pass runs
 # one program an SM, each walking its share of the rows in blocks, and
 # writes dx and the program's fp32 partial rows of dg and db into one
 # (programs, 2C) scratch; one column-sum launch sums the scratch down its
@@ -419,9 +423,11 @@ def rmsnorm_bwd_replaced_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tens
 # program an SM and no load issued ahead, what a chunk keeps in flight sets
 # the rate: chunks of 2048 columns ran behind ``F.layer_norm``'s backward
 # at (4096, 12288), chunks of 4096 (two rows, 8 warps: 32 elements of each
-# tensor a thread) caught up with it (``chip_smoke.py`` times both); of the
-# rows, widths, warps and programs an SM tried on the card, these were the
-# fastest, and at C = 2048 whole rows beat every chunked form.
+# tensor a thread) caught up with it; of the rows, widths, warps and
+# programs an SM tried on the card, these were the fastest, and at C = 2048
+# whole rows beat every chunked form. It is the route of the rows the ring
+# kernel below does not take (``layernorm_bwd_route``), and is timed beside
+# it by ``chip_smoke.py``.
 
 LN_BWD_WHOLE_C = 2048    # a wider row goes in chunks
 LN_BWD_CHUNK_C = 4096
@@ -549,15 +555,16 @@ def _ln_bwd_kernels():
     return layernorm_bwd, layernorm_bwd_chunked
 
 
-def layernorm_bwd_params(C: int, chunk_c: int = LN_BWD_CHUNK_C) -> dict:
+def layernorm_bwd_params(C: int) -> dict:
     """Rows of a block, block width and chunks of the LayerNorm backward's
     row pass: whole rows of the forward's block up to LN_BWD_WHOLE_C
     columns (N_CHUNKS 1), else LN_BWD_CHUNK_ROWS rows in chunks of
-    `chunk_c`."""
+    LN_BWD_CHUNK_C."""
     if C <= LN_BWD_WHOLE_C:
         p = launch_params(C)
         return {"ROWS": p["ROWS"], "BLOCK_C": p["BLOCK_C"], "N_CHUNKS": 1}
-    return {"ROWS": LN_BWD_CHUNK_ROWS, "BLOCK_C": chunk_c, "N_CHUNKS": -(-C // chunk_c)}
+    return {"ROWS": LN_BWD_CHUNK_ROWS, "BLOCK_C": LN_BWD_CHUNK_C,
+            "N_CHUNKS": -(-C // LN_BWD_CHUNK_C)}
 
 
 def _check_ln_bwd(x, g, dy):
@@ -568,38 +575,6 @@ def _check_ln_bwd(x, g, dy):
                          f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} {x.dtype}")
 
 
-def layernorm_bwd_launches(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
-                           eps: float = 1e-5, chunk_c: int = LN_BWD_CHUNK_C):
-    """(dx, dg, db, row pass, column sum): the outputs and the two launches
-    that fill them, as functions of no argument, not yet run (the wrapper
-    runs both; ``chip_smoke.py`` also times them apart, and a wide row at
-    the chunk width of the first design, 2048)."""
-    _check_ln_bwd(x, g, dy)
-    g = g.contiguous()
-    R, C = x.shape
-    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
-    dgb = torch.empty((2 * C,), dtype=g.dtype, device=g.device)
-    whole, chunked = _ln_bwd_kernels()
-    triton, _, colsum, _ = _bwd_kernels()
-    p = layernorm_bwd_params(C, chunk_c)
-    n_chunks = p.pop("N_CHUNKS")
-    n_prog, per, rows = split_rows(R, p["ROWS"],
-                                   BWD_PROGRAMS_PER_SM * _sm_count(x.device.index or 0))
-    partial = torch.empty((n_prog, 2 * C), dtype=torch.float32, device=x.device)
-    args = (x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps)
-
-    def row_pass():
-        if n_chunks > 1:
-            return chunked[(n_prog,)](*args, ROWS=rows, BLOCK_C=p["BLOCK_C"],
-                                      N_CHUNKS=n_chunks, num_warps=8)
-        return whole[(n_prog,)](*args, ROWS=rows, BLOCK_C=p["BLOCK_C"], num_warps=8)
-
-    def column_sum():
-        colsum[(triton.cdiv(2 * C, COLSUM_C),)](partial, dgb, n_prog, 2 * C, BLOCK_N=128,
-                                                BLOCK_C=COLSUM_C, num_warps=8)
-    return dx, dgb[:C], dgb[C:], row_pass, column_sum
-
-
 def layernorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
                          eps: float = 1e-5):
     """(dx, dg, db) of LayerNorm for the output gradient dy: x, dy (R, C)
@@ -607,14 +582,247 @@ def layernorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     dx in x's dtype, dg and db in g's. One launch of the row pass and one of
     the column sum; counts one launch."""
     _check_ln_bwd(x, g, dy)
+    return _triton_backward(x, g, dy, eps)
+
+
+def _triton_backward(x, g, dy, eps):
     if x.shape[0] == 0:
         return torch.empty_like(x), torch.zeros_like(g), torch.zeros_like(g)
-    dx, dg, db, row_pass, column_sum = layernorm_bwd_launches(x, g, dy, eps)
-    layernorm_bwd_triton.compiled = row_pass()
-    column_sum()
+    g = g.contiguous()
+    R, C = x.shape
+    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
+    dgb = torch.empty((2 * C,), dtype=g.dtype, device=g.device)
+    whole, chunked = _ln_bwd_kernels()
+    triton, _, colsum, _ = _bwd_kernels()
+    p = layernorm_bwd_params(C)
+    n_chunks = p.pop("N_CHUNKS")
+    n_prog, per, rows = split_rows(R, p["ROWS"],
+                                   BWD_PROGRAMS_PER_SM * _sm_count(x.device.index or 0))
+    partial = torch.empty((n_prog, 2 * C), dtype=torch.float32, device=x.device)
+    args = (x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps)
+    if n_chunks > 1:
+        layernorm_bwd_triton.compiled = chunked[(n_prog,)](
+            *args, ROWS=rows, BLOCK_C=p["BLOCK_C"], N_CHUNKS=n_chunks, num_warps=8)
+    else:
+        layernorm_bwd_triton.compiled = whole[(n_prog,)](*args, ROWS=rows,
+                                                         BLOCK_C=p["BLOCK_C"], num_warps=8)
+    colsum[(triton.cdiv(2 * C, COLSUM_C),)](partial, dgb, n_prog, 2 * C, BLOCK_N=128,
+                                            BLOCK_C=COLSUM_C, num_warps=8)
     layernorm_bwd_triton.launches += 1
-    return dx, dg, db
+    return dx, dgb[:C], dgb[C:]
 
 
 layernorm_bwd_triton.launches = 0
 layernorm_bwd_triton.compiled = None   # the last compiled row kernel launched
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm backward on a ring of rows (CUDA C++)
+# ---------------------------------------------------------------------------
+# ``csrc/layernorm_bwd.cu`` (its note gives the design): persistent blocks,
+# one an SM, each walking a contiguous range of rows through a ring of
+# stages in shared memory filled by bulk copies; dx from registers; dg and
+# db as one fp32 partial row a block, summed down the columns in the same
+# cooperative launch after a grid barrier, each block its stripe. It takes
+# rows whose base, pitch and width are multiples of 16 bytes and widths
+# ``ring_shape`` plans. ``layernorm_bwd`` sends any other shape to
+# ``layernorm_bwd_triton``, and so bf16 rows of one chunk of the Triton
+# design's chunked kernel (LN_BWD_WHOLE_C < C <= LN_BWD_CHUNK_C): at
+# rwkv6-7b's 4096 that kernel, its row pair loaded in one go, ran in 0.88x
+# the ring's time on an H100 (``chip_smoke.py``, ``[timing] layernorm_bwd
+# steps``), while at 384, 2048 and 12288 the ring was as fast or faster.
+
+SMEM_MAX = 232448          # shared memory a block can use on an H100 (227 KB)
+RING_FIXED_BYTES = 656     # the kernel's mbarriers and group-sum slots
+RING_CONSUMERS = 512       # consumer threads a block
+RING_VPT_MAX = {2: 3, 4: 4}   # 16-byte vectors a thread a row, by element size
+RING_BYTES = 96 * 1024     # what the ring holds, about
+RING_MIN_STAGES, RING_MAX_STAGES = 3, 8   # stages of `groups` rows in the ring
+
+
+@functools.cache
+def ring_shape(C: int, elem_bytes: int):
+    """A block's shape for rows of C elements of `elem_bytes` bytes, or None
+    where the ring kernel does not take them: ``vpt`` 16-byte vectors a
+    thread and ``tg`` threads a row (a multiple of 32; the fewest vectors
+    left idle, then the most vectors a thread), ``groups`` rows at a time,
+    ``threads`` (the groups' and the producer warp's), ``stages`` of
+    ``groups`` rows of x and dy, and ``smem`` bytes (mbarriers and sums, g
+    in fp32, and the ring, which also holds the groups' sums at the end and
+    the column sum's slices)."""
+    row = C * elem_bytes
+    if C <= 0 or row % 16 or elem_bytes not in RING_VPT_MAX:
+        return None
+    cvec = row // 16
+    best = None
+    for vpt in range(RING_VPT_MAX[elem_bytes], 0, -1):
+        tg = 32 * -(-cvec // (32 * vpt))
+        if tg <= RING_CONSUMERS and (best is None or tg * vpt - cvec < best[2]):
+            best = (vpt, tg, tg * vpt - cvec)
+    if best is None:
+        return None
+    vpt, tg, _ = best
+    groups = RING_CONSUMERS // tg
+    threads = groups * tg + 32
+    stage = groups * 2 * row
+    room = (SMEM_MAX - RING_FIXED_BYTES - 4 * C) // stage
+    stages = min(max(RING_MIN_STAGES, -(-RING_BYTES // stage)), RING_MAX_STAGES, room)
+    slices = min(64, threads // 32)
+    ring = max(stages * stage, groups * 8 * C, (slices + -(-slices // 8)) * 32 * 16)
+    smem = RING_FIXED_BYTES + 4 * C + ring
+    if stages < 2 or smem > SMEM_MAX:
+        return None
+    return {"vpt": vpt, "tg": tg, "groups": groups, "threads": threads, "stages": stages,
+            "smem": smem}
+
+
+def ring_rows(R: int, blocks: int):
+    """Block b's rows [b R // blocks, (b + 1) R // blocks), as the kernel
+    takes them."""
+    return [(b * R // blocks, (b + 1) * R // blocks) for b in range(blocks)]
+
+
+@functools.lru_cache(maxsize=64)
+def ring_plan(R: int, C: int, elem_bytes: int, sms: int):
+    """``ring_shape`` with the launch at R rows on a card of `sms` SMs:
+    ``blocks`` (one an SM, at most one a row), each block's ``rows`` and
+    the ``partial`` scratch, one fp32 row of dg and db a block; None where
+    the ring kernel does not take the rows."""
+    plan = ring_shape(C, elem_bytes)
+    if plan is None or R <= 0:
+        return None
+    blocks = min(R, sms)
+    return {**plan, "blocks": blocks, "rows": ring_rows(R, blocks), "partial": (blocks, 2 * C)}
+
+
+def ring_preferred(C: int, dtype: torch.dtype) -> bool:
+    """Whether ``layernorm_bwd`` runs 16-byte aligned rows of C elements of
+    `dtype` on the ring kernel: where ``ring_shape`` plans them, except bf16
+    rows of one chunk of the Triton design (LN_BWD_WHOLE_C < C <=
+    LN_BWD_CHUNK_C), which ran faster there."""
+    if dtype == torch.bfloat16 and LN_BWD_WHOLE_C < C <= LN_BWD_CHUNK_C:
+        return False
+    return ring_shape(C, torch.empty((), dtype=dtype).element_size()) is not None
+
+
+def _ring_aligned(x: torch.Tensor, dy: torch.Tensor) -> bool:
+    esz = x.element_size()
+    return all(t.data_ptr() % 16 == 0 and (t.stride(0) * esz) % 16 == 0 for t in (x, dy))
+
+
+def layernorm_bwd_route(x: torch.Tensor, dy: torch.Tensor) -> str:
+    """The kernel ``layernorm_bwd`` runs x and dy on: ``"layernorm_bwd"``
+    (the ring, ``csrc/layernorm_bwd.cu``) where the bases and row pitches of
+    x and dy are multiples of 16 bytes and ``ring_preferred`` holds for the
+    width, else ``"layernorm_bwd_triton"``."""
+    if _ring_aligned(x, dy) and ring_preferred(x.shape[1], x.dtype):
+        return "layernorm_bwd"
+    return "layernorm_bwd_triton"
+
+
+@functools.cache
+def _ring_lib():
+    from .. import _build
+    lib = _build.load("layernorm_bwd")
+    lib.layernorm_bwd_ring.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
+                                       + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    lib.layernorm_bwd_ring.restype = ctypes.c_int
+    return lib
+
+
+_COUNTERS: dict = {}
+
+
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid barrier's two counters on this device and stream, zeroed
+    once; every launch leaves them at 0."""
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def _ring_plan_of(x: torch.Tensor, dy: torch.Tensor):
+    """``ring_plan`` for x and dy on x's card, or None where the ring kernel
+    does not take them (bases or row pitches off 16 bytes, or no plan)."""
+    if not _ring_aligned(x, dy):
+        return None
+    return ring_plan(x.shape[0], x.shape[1], x.element_size(), _sm_count(x.device.index or 0))
+
+
+def _ring_run(x, g, dy, eps, plan, whole=True):
+    """(dx, dg, db) (dg and db in fp32) from one launch of the ring kernel
+    at `plan`, on checked inputs; with ``whole=False`` the row pass alone
+    (dx and the partial rows, no dg or db: for timing it apart). Counts no
+    launch."""
+    R, C = x.shape
+    g32 = g.to(torch.float32).contiguous()
+    if g32.data_ptr() % 16:
+        g32 = g32.clone()
+    dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
+    dgb = torch.empty((2 * C,), dtype=torch.float32, device=x.device)
+    partial = torch.empty(plan["partial"], dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    from .. import _build
+    err = _ring_lib().layernorm_bwd_ring(
+        x.data_ptr(), dy.data_ptr(), g32.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dgb.data_ptr(), _counter(x.device, stream).data_ptr(), x.stride(0), dy.stride(0), R, C,
+        int(x.dtype == torch.bfloat16), plan["vpt"], plan["tg"], plan["groups"],
+        plan["stages"], plan["blocks"], plan["smem"], int(whole), eps, stream)
+    _build.check(err, "layernorm_bwd_ring")
+    return dx, dgb[:C], dgb[C:]
+
+
+def layernorm_bwd_ring_row_pass(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                                eps: float = 1e-5) -> torch.Tensor:
+    """dx from the ring kernel's row pass alone, without the grid barrier
+    and the column sum (``chip_smoke.py`` times it apart); counts no
+    launch."""
+    _check_ln_bwd(x, g, dy)
+    plan = _ring_plan_of(x, dy)
+    if plan is None:
+        raise ValueError(f"layernorm_bwd_ring_row_pass: the ring kernel does not take "
+                         f"{tuple(x.shape)} {x.dtype} with strides {x.stride()}, {dy.stride()}")
+    return _ring_run(x, g, dy, eps, plan, whole=False)[0]
+
+
+def _ring_backward(x, g, dy, eps, plan):
+    dx, dg, db = _ring_run(x, g, dy, eps, plan)
+    layernorm_bwd_cuda.launches += 1
+    return dx, dg.to(g.dtype), db.to(g.dtype)
+
+
+def layernorm_bwd_cuda(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+                       eps: float = 1e-5):
+    """(dx, dg, db) of LayerNorm on the ring kernel (``csrc/layernorm_bwd.cu``):
+    x, dy (R, C) CUDA tensors of one dtype (bf16 or fp32), unit stride
+    along C, bases and row pitches multiples of 16 bytes, a width
+    ``ring_shape`` plans; g: (C,). dx in x's dtype, dg and db in g's. One
+    launch (the column sum inside it); counts one launch. Raises ValueError
+    for rows it does not take (``layernorm_bwd`` routes those to
+    ``layernorm_bwd_triton``)."""
+    _check_ln_bwd(x, g, dy)
+    if x.shape[0] == 0:
+        return torch.empty_like(x), torch.zeros_like(g), torch.zeros_like(g)
+    plan = _ring_plan_of(x, dy)
+    if plan is None:
+        raise ValueError("layernorm_bwd_cuda takes rows whose base, pitch and width are "
+                         f"multiples of 16 bytes and a width ring_shape plans, got "
+                         f"{tuple(x.shape)} {x.dtype} with strides {x.stride()} and "
+                         f"{dy.stride()}; layernorm_bwd routes the others to "
+                         "layernorm_bwd_triton")
+    return _ring_backward(x, g, dy, eps, plan)
+
+
+layernorm_bwd_cuda.launches = 0
+
+
+def layernorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5):
+    """(dx, dg, db) of LayerNorm on the card, on the kernel
+    ``layernorm_bwd_route`` names: the ring kernel, or the Triton kernel
+    for the rows it does not take or runs slower."""
+    _check_ln_bwd(x, g, dy)
+    plan = _ring_plan_of(x, dy) if ring_preferred(x.shape[1], x.dtype) else None
+    if plan is not None:
+        return _ring_backward(x, g, dy, eps, plan)
+    return _triton_backward(x, g, dy, eps)

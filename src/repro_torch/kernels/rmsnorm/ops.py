@@ -4,15 +4,17 @@ for a CPU tensor.
 Both are differentiable: where grad mode is on and an input requires a
 gradient, ``rmsnorm`` runs as ``RMSNormFn`` and ``layernorm`` as
 ``LayerNormFn``, whose forwards are the same ops and whose backwards are
-``rmsnorm_bwd_triton`` and ``layernorm_bwd_triton`` on the card and
-``rmsnorm_bwd_ref`` and ``layernorm_bwd_ref`` on the CPU. Otherwise
-(serving) each calls its forward directly and builds no graph."""
+``rmsnorm_bwd_triton`` and ``layernorm_bwd`` (the ring kernel of
+``csrc/layernorm_bwd.cu``, or ``layernorm_bwd_triton`` for rows it does not
+take) on the card and ``rmsnorm_bwd_ref`` and ``layernorm_bwd_ref`` on the
+CPU. Otherwise (serving) each calls its forward directly and builds no
+graph."""
 from __future__ import annotations
 
 import torch
 
 from ...device import runs_plain
-from .kernel import layernorm_bwd_triton, layernorm_triton, rmsnorm_bwd_triton, rmsnorm_triton
+from .kernel import layernorm_bwd, layernorm_triton, rmsnorm_bwd_triton, rmsnorm_triton
 from .ref import layernorm_bwd_ref, layernorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
 
 
@@ -74,7 +76,7 @@ class LayerNormFn(torch.autograd.Function):
         if runs_plain(x):
             dx, dg, db = layernorm_bwd_ref(x, g, dy, ctx.eps)
         else:
-            dx, dg, db = layernorm_bwd_triton(x, g, dy, ctx.eps)
+            dx, dg, db = layernorm_bwd(x, g, dy, ctx.eps)
         return dx, dg, db.to(ctx.b_dtype), None
 
 

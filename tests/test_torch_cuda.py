@@ -119,7 +119,8 @@ def kernel_case(name, device, dtype):
     "flash_attention_wgmma", "matmul_f32_tma", "decode_attention_chunked",
     "decode_attention_mma", "wkv_chunked",
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "gelu_bwd", "gelu_mul_bwd", "rglru_bwd",
+    "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "layernorm_bwd_triton", "gelu_bwd",
+    "gelu_mul_bwd", "rglru_bwd",
     "wkv_bwd"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
@@ -441,6 +442,7 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
                              "wkv_bwd": 0}
     TK.reset_launches()
@@ -455,6 +457,7 @@ def test_launches_per_step_on_card(cuda):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
                              "wkv_bwd": 0}
 
@@ -480,6 +483,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
                              "wkv_bwd": 0}
     TK.reset_launches()
@@ -494,6 +498,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "matmul_int8": 0, "matmul_int8_wgmma": 0,
                              "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
+                             "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
                              "wkv_bwd": 0}
 
@@ -1753,28 +1758,67 @@ def test_silu_mul_bwd_matches_plain_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("r,c", [(300, 2048), (4096, 384), (7, 1024), (4099, 896),
-                                 (100, 12288), (33, 2100), (1, 5000)])
-def test_layernorm_bwd_matches_plain_on_card(cuda, r, c, dtype):
-    """Whole rows (C <= 2048) and chunked ones (gpt3's 12288, a ragged 2100
-    and 5000 with one row): dx within one bf16 rounding, dg and db to 2e-5
-    in fp32 and the same bits in a second run."""
-    x = normal(62, (r, c), cuda, DTYPES[dtype]) * 3 + 1.5
+@pytest.mark.parametrize("r,c,pad", [(300, 2048, 0), (4096, 384, 0), (7, 1024, 0),
+                                     (4099, 896, 0), (100, 12288, 0), (33, 2100, 0),
+                                     (1, 5000, 0), (4096, 4096, 0), (4096, 12288, 0),
+                                     (300, 2048, 2), (4096, 384, 2)])
+def test_layernorm_bwd_matches_plain_on_card(cuda, r, c, pad, dtype):
+    """Through the router ``layernorm_bwd``, rows `pad` elements apart
+    beyond c: the ring kernel (``csrc/layernorm_bwd.cu``) at the model rows,
+    whole or ragged, and the Triton kernel where the ring does not take the
+    rows (2100 in bf16, a 4200-byte pitch; 12288 in fp32, wider than the
+    plan; the pitches of 2050 and 386 elements) or runs slower (4096 in
+    bf16: one Triton chunk a row); the launch count of the kernel the route
+    names moves by one and the other's not at all; dx within one bf16
+    rounding, dg and db to 2e-5 in fp32 and the same bits in a second run.
+    Where the ring takes rows the router sends to the Triton kernel, the
+    ring kernel is held the same way."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    x = (normal(62, (r, c + pad), cuda, DTYPES[dtype]) * 3 + 1.5)[:, :c]
     g = normal(63, (c,), cuda, torch.float32)
-    dy = normal(64, (r, c), cuda, DTYPES[dtype])
-    fn = TK.KERNELS["layernorm_bwd"]
-    before = fn.launches
-    dx, dg, db = fn(x, g, dy)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    dy = normal(64, (r, c + pad), cuda, DTYPES[dtype])[:, :c]
+    route = K.layernorm_bwd_route(x, dy)
+    bf16 = dtype == "bfloat16"
+    triton = pad or (c == 2100 or 2048 < c <= 4096) and bf16 or c == 12288 and not bf16
+    assert route == ("layernorm_bwd_triton" if triton else "layernorm_bwd")
     want_dx, want_dg, want_db = layernorm_bwd_ref(x, g, dy)
-    assert dx.dtype == x.dtype and dg.dtype == db.dtype == torch.float32
-    assert rel_err(dx, want_dx) < TOL[dtype]
-    assert rel_err(dg, want_dg) < TOL["float32"] and rel_err(db, want_db) < TOL["float32"]
-    if dtype == "bfloat16":
+    kernels = {route: K.layernorm_bwd}
+    if route == "layernorm_bwd_triton" and K._ring_plan_of(x, dy) is not None:
+        kernels["layernorm_bwd"] = TK.KERNELS["layernorm_bwd"]
+    for name, fn in kernels.items():
+        before = TK.launches()
+        dx, dg, db = fn(x, g, dy)
+        torch.cuda.synchronize()
+        after = TK.launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {name: 1}
+        assert dx.dtype == x.dtype and dg.dtype == db.dtype == torch.float32
+        assert rel_err(dx, want_dx) < TOL[dtype]
+        assert rel_err(dg, want_dg) < TOL["float32"] and rel_err(db, want_db) < TOL["float32"]
+        if bf16:
+            assert within_one_rounding(dx, want_dx)
+        again = fn(x, g, dy)
+        assert torch.equal(again[1], dg) and torch.equal(again[2], db)   # fixed-order sums
+
+
+def test_layernorm_bwd_back_to_back_on_card(cuda):
+    """Three launches of the ring kernel of three shapes on one stream, with
+    no synchronise between them: the grid barrier's counters and the partial
+    rows carry nothing from one launch to the next (each held to its plain
+    version), and the counters are back at 0 after."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    ins = [(normal(70 + i, (r, c), cuda, torch.bfloat16) * 3 + 1.5,
+            normal(80 + i, (c,), cuda, torch.float32), normal(90 + i, (r, c), cuda, torch.bfloat16))
+           for i, (r, c) in enumerate(((4096, 2048), (33, 384), (500, 4096)))]
+    before = TK.KERNELS["layernorm_bwd"].launches
+    outs = [TK.KERNELS["layernorm_bwd"](*a) for a in ins]
+    torch.cuda.synchronize()
+    assert TK.KERNELS["layernorm_bwd"].launches == before + 3
+    for a, (dx, dg, db) in zip(ins, outs):
+        want_dx, want_dg, want_db = layernorm_bwd_ref(*a)
         assert within_one_rounding(dx, want_dx)
-    again = fn(x, g, dy)
-    assert torch.equal(again[1], dg) and torch.equal(again[2], db)   # fixed-order sums
+        assert rel_err(dg, want_dg) < TOL["float32"] and rel_err(db, want_db) < TOL["float32"]
+    device = ins[0][0].device
+    assert not K._counter(device, torch.cuda.current_stream(device).cuda_stream).any()
 
 
 def gelu_inputs(seed, shape, device, dtype, n):
@@ -2017,13 +2061,18 @@ def opened_bwd_launches(cfg):
     of the MLP's activation per layer (an MoE layer's experts share one),
     and per RG-LRU layer one RG-LRU backward and one GELU backward (its
     gate branch) in place of the flash one; RWKV6: two LayerNorm backwards
-    a layer and the final one's, and one wkv backward a layer."""
+    a layer and the final one's, and one wkv backward a layer. The
+    LayerNorm backward runs on the kernel the router picks for bf16 rows of
+    d_model (``ring_preferred``: the ring kernel, ``layernorm_bwd``, at
+    every smoke width), the other LayerNorm kernel no time."""
+    from repro_torch.kernels.rmsnorm.kernel import ring_preferred
     L, E = cfg.n_layers, cfg.n_encoder_layers
+    ln = "layernorm_bwd" if ring_preferred(cfg.d_model, torch.bfloat16) else "layernorm_bwd_triton"
     if cfg.attention_free:
-        return {"layernorm_bwd": 2 * L + 1, "wkv_bwd": L}
+        return {ln: 2 * L + 1, "wkv_bwd": L}
     rec = sum(cfg.block_kind(i) == "rglru" for i in range(L)) if cfg.block_pattern else 0
     cross = L if cfg.cross_attention else 0
-    norm = "layernorm_bwd" if cfg.norm == "layernorm" else "rmsnorm_bwd"
+    norm = ln if cfg.norm == "layernorm" else "rmsnorm_bwd"
     mlp = ("silu_mul_bwd" if cfg.activation == "silu" else "gelu_mul_bwd") if cfg.mlp_gated \
         else "gelu_bwd"
     want = {"flash_attention_bwd_wgmma": L - rec + E + cross,
@@ -2098,7 +2147,7 @@ def test_opened_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
     state, met = step(state, batch)
     torch.cuda.synchronize()
     counts = TK.launches()
-    bwd = {k: n for k, n in counts.items() if k.endswith("_bwd") or k.endswith("_bwd_wgmma")}
+    bwd = {k: n for k, n in counts.items() if "_bwd" in k}
     assert bwd == {**dict.fromkeys(bwd, 0), **opened_bwd_launches(cfg)}
     assert torch.isfinite(met["loss"]) and int(state.opt.step) == 1
 

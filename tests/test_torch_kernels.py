@@ -251,6 +251,130 @@ def test_rmsnorm_bwd_programs_cover_every_row_once(R, C):
         assert n <= per_sm * 132 and (n - 1) * per < R <= n * per
 
 
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("R", [1, 7, 33, 4096, 4099, 12000])
+@pytest.mark.parametrize("C", [384, 896, 2048, 2100, 4096, 5000, 12288])
+def test_layernorm_bwd_ring_plan(C, R, elem):
+    """The ring kernel's plan (``ring_plan``, 132 SMs): the blocks' row
+    ranges are contiguous, cover the R rows exactly once, none empty, and
+    follow from the shape alone; the ring's stages, g, the groups' sums and
+    the column sum's slices fit in 227 KB; the partial scratch has one fp32
+    row of dg and db a block. Refused: a row that is not a whole number of
+    16-byte vectors (2100 in bf16) and a row wider than 512 threads of 4
+    vectors (12288 in fp32); those rows take the Triton kernel."""
+    from repro_torch.kernels.rmsnorm.kernel import (RING_FIXED_BYTES, RING_VPT_MAX, SMEM_MAX,
+                                                    ring_plan, ring_rows)
+    plan = ring_plan(R, C, elem, 132)
+    if (C * elem) % 16 or (elem == 4 and C == 12288):
+        assert plan is None
+        return
+    assert plan == ring_plan(R, C, elem, 132)
+    blocks, rows = plan["blocks"], plan["rows"]
+    assert blocks == min(R, 132) and rows == ring_rows(R, blocks) and len(rows) == blocks
+    assert rows[0][0] == 0 and rows[-1][1] == R
+    assert all(lo < hi for lo, hi in rows)
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert max(hi - lo for lo, hi in rows) - min(hi - lo for lo, hi in rows) <= 1
+    assert plan["partial"] == (blocks, 2 * C)
+    vpt, tg, groups = plan["vpt"], plan["tg"], plan["groups"]
+    assert 1 <= vpt <= RING_VPT_MAX[elem] and tg % 32 == 0 and tg * vpt * 16 >= C * elem
+    assert plan["threads"] == groups * tg + 32 <= 544
+    stage = groups * 2 * C * elem
+    assert 2 <= plan["stages"] <= 8 and plan["smem"] <= SMEM_MAX
+    ring = plan["smem"] - RING_FIXED_BYTES - 4 * C
+    slices = min(64, plan["threads"] // 32)
+    assert ring >= max(plan["stages"] * stage, groups * 8 * C,
+                       (slices + -(-slices // 8)) * 32 * 16)
+
+
+@pytest.mark.parametrize("C,elem,want", [(2048, 2, (2, 128, 4)), (12288, 2, (3, 512, 1)),
+                                         (4096, 2, (2, 256, 2)), (384, 2, (2, 32, 16)),
+                                         (896, 2, (2, 64, 8)), (2048, 4, (4, 128, 4))])
+def test_layernorm_bwd_ring_shape_follows_the_width(C, elem, want):
+    """(vectors a thread, threads a row, rows at a time) of 512 consumer
+    threads: stablelm-1.6b's 2048 four rows of 128 threads, gpt3-175b's
+    12288 the whole block on a row, rwkv6-7b's 4096 two rows, whisper-tiny's
+    384 a warp a row (16 rows), each row's vectors spread with none or the
+    fewest left idle."""
+    from repro_torch.kernels.rmsnorm.kernel import ring_shape
+    plan = ring_shape(C, elem)
+    assert (plan["vpt"], plan["tg"], plan["groups"]) == want
+
+
+def _aligned_rows(R, C, dtype, pad=0, offset=0):
+    """(R, C) rows of `dtype` in a buffer with rows `pad` elements apart
+    beyond C and the base `offset` elements in."""
+    buf = torch.zeros(offset + R * (C + pad), dtype=dtype)
+    return buf[offset:].view(R, C + pad)[:, :C]
+
+
+@pytest.mark.parametrize("case,want", [
+    ((4096, 2048, torch.bfloat16, 0, 0), "layernorm_bwd"),
+    ((4096, 12288, torch.bfloat16, 0, 0), "layernorm_bwd"),
+    ((4096, 4096, torch.bfloat16, 0, 0), "layernorm_bwd_triton"),  # one Triton chunk a row
+    ((64, 2056, torch.bfloat16, 0, 0), "layernorm_bwd_triton"),    # the same
+    ((64, 4104, torch.bfloat16, 0, 0), "layernorm_bwd"),           # two Triton chunks a row
+    ((4096, 4096, torch.float32, 0, 0), "layernorm_bwd"),
+    ((12000, 384, torch.bfloat16, 0, 0), "layernorm_bwd"),
+    ((300, 2048, torch.bfloat16, 4, 0), "layernorm_bwd_triton"),   # a 4104-byte pitch
+    ((4096, 384, torch.bfloat16, 4, 0), "layernorm_bwd_triton"),   # a 776-byte pitch
+    ((33, 2100, torch.bfloat16, 0, 0), "layernorm_bwd_triton"),   # 4200-byte rows
+    ((33, 2100, torch.float32, 0, 0), "layernorm_bwd"),
+    ((100, 12288, torch.float32, 0, 0), "layernorm_bwd_triton"),  # the plan refuses
+    ((8, 2048, torch.bfloat16, 4, 0), "layernorm_bwd_triton"),    # a 4104-byte pitch
+    ((8, 2048, torch.bfloat16, 8, 0), "layernorm_bwd"),           # a 4112-byte pitch
+    ((8, 2048, torch.bfloat16, 0, 4), "layernorm_bwd_triton"),    # a base 8 bytes in
+    ((8, 2048, torch.float32, 0, 4), "layernorm_bwd")])           # 16 bytes in
+def test_layernorm_bwd_route(case, want):
+    """The router sends rows to the ring kernel by pitch, base, plan and
+    width, and every other shape to the Triton kernel: rows off 16 bytes,
+    rows the plan refuses, and bf16 rows of one chunk of the Triton design
+    (2048 < C <= 4096), which ran faster there on the card; a misaligned dy
+    alone sends rows to the Triton kernel too."""
+    from repro_torch.kernels.rmsnorm.kernel import layernorm_bwd_route
+    x = _aligned_rows(*case)
+    assert layernorm_bwd_route(x, x) == want
+    R, C, dtype = case[:3]
+    if want == "layernorm_bwd":
+        assert layernorm_bwd_route(x, _aligned_rows(R, C, dtype, 0, 1)) == "layernorm_bwd_triton"
+
+
+@pytest.mark.parametrize("shape,route", [((64, 128), "cuda"), ((33, 2100), "triton"),
+                                         ((64, 4096), "triton")])
+def test_layernorm_fn_backward_goes_through_the_router(monkeypatch, shape, route):
+    """``LayerNormFn.backward`` on a tensor the kernels take calls the
+    router, which launches the ring kernel at its plan (132 SMs) or the
+    Triton one by the route; the gradients are what it returns. The
+    kernels are stood in for by the plain version here."""
+    from repro_torch.kernels.rmsnorm import kernel as t_rmsnorm_kernel
+    from repro_torch.kernels.rmsnorm.ref import layernorm_bwd_ref
+    calls = []
+
+    def recorder(name):
+        def fn(x, g, dy, eps, *plan):
+            calls.append(name)
+            if plan:
+                assert plan[0] == t_rmsnorm_kernel.ring_plan(*x.shape, x.element_size(), 132)
+            return layernorm_bwd_ref(x, g, dy, eps)
+        return fn
+    monkeypatch.setattr(t_rmsnorm_kernel, "_check_ln_bwd", lambda *a: None)
+    monkeypatch.setattr(t_rmsnorm_kernel, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(t_rmsnorm_kernel, "_ring_backward", recorder("cuda"))
+    monkeypatch.setattr(t_rmsnorm_kernel, "_triton_backward", recorder("triton"))
+    monkeypatch.setattr(t_rmsnorm, "runs_plain", lambda t: False)
+    monkeypatch.setattr(t_rmsnorm, "layernorm_triton", layernorm_ref)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=shape[1]).astype(np.float32))
+    b = torch.zeros(shape[1])
+    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    t_rmsnorm.layernorm(*leaves).backward(dy)
+    assert calls == [route]
+    for got, want in zip((t.grad for t in leaves), layernorm_bwd_ref(x, g, dy)):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("tiles,G,want", [(256, 2, 1), (64, 7, 2), (4, 7, 7), (26, 7, 4),
                                           (16, 2, 2), (512, 1, 1), (200, 7, 1), (64, 10, 2),
                                           (8, 10, 10), (12, 10, 10), (40, 10, 3)])
@@ -1316,6 +1440,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "rmsnorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
             "silu_mul_bwd": (x, x, x),
             "layernorm_bwd": (x[0, 0], torch.ones(32), x[0, 0]),
+            "layernorm_bwd_triton": (x[0, 0], torch.ones(32), x[0, 0]),
             "gelu_bwd": (x, x),
             "gelu_mul_bwd": (x, x, x),
             "rglru_bwd": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16(),
