@@ -352,6 +352,29 @@ result line):
                steps under torch.profiler (device ms a step, the largest
                device events), granite's run again plainly: whether each
                second run's losses equal the first's bit for bit;
+  10. study  - the design-space Study (``core/study.py``) with its stacked
+               mapper search's candidate tables on the card
+               (``csrc/mapper_tables.cu``): the kernel against numpy's
+               ``_tables`` and its plain version on the card, every column
+               bit for bit, on every chunk of the grid of
+               examples/design_space_exploration.py at fp16 (int64 byte
+               columns) and at int4 weights (float64 ones), the winners of
+               both searches equal; that grid cold (memo cleared, disk layer
+               off) on ``device="cpu"`` and ``"cuda"``, rows equal, with its
+               perf/$ table; the 360 cases of examples/mega_sweep.py's
+               ``build_cases(600)`` cold in four turns (numpy, card, card,
+               numpy), rows equal, each turn's wall and presolve seconds,
+               pairs, table calls and rows, and the presolve split (candidate
+               rows, lower bounds and pruning, gather, tables, winners);
+               the serving launcher's planner (``launch/serve.py::
+               plan_report`` at serve's defaults) on both, the same line,
+               timed with its memo cold and warm; then the kernel on the
+               sweep's largest chunk (CUDA events) beside its plain version,
+               the whole ``chunk_tables`` call with its copies, numpy's
+               ``_tables`` and its bound. Its launches are those of the
+               design grid's, the sweep's and the planner's card runs, each
+               run's equal to its table calls with rows on the card
+               (``mapper.table_calls_cuda``).
 The last lines are the ``{"kernels": [...]}`` summary (the backward
 kernels' launches are the sum of the full-size train runs', each run's
 apart in ``launches_by_train_run``), the card's name and
@@ -555,7 +578,7 @@ def phase_build(torch):
                             "wkv_chunked", "gelu", "rglru",
                             "rglru_chunked", "matmul", "matmul_sm90", "matmul_int8",
                             "flash_attention_bwd", "flash_attention_bwd_sm90", "rglru_bwd",
-                            "wkv_bwd", "layernorm_bwd"])
+                            "wkv_bwd", "layernorm_bwd", "mapper_tables"])
     for name, s in seconds.items():
         print(f"[build] {name}.cu: nvcc {s:.2f} s")
     print(f"[build] nvcc, all sources in parallel: {time.perf_counter() - t0:.2f} s")
@@ -2673,7 +2696,8 @@ def phase_analytic(rows, models, measured):
           f"have one (the paper: 10.4% on an A100)")
 
     system, work_system = make_system(dev, 1), make_system(work_dev, 1)
-    ev, work_ev = Evaluator(system), Evaluator(work_system)
+    # the model on numpy, as before the card could price its mapper tables
+    ev, work_ev = Evaluator(system, device="cpu"), Evaluator(work_system, device="cpu")
     flash = FusionPolicy(fuse_epilogues=True, flash_stream=True)
     e2e_rows = []
     for arch, n_layers in SERVED:
@@ -3848,12 +3872,344 @@ def phase_ckpt(torch):
     return exact
 
 
+# ---------------- [study]: the design-space Study on the card ----------------
+
+SWEEP_TARGET = 600   # examples/mega_sweep.py::build_cases(600): 360 cases
+# the jitted XLA pass of the JAX package's mapper, and its port
+TABLES_REPLACES = "src/repro/core/mapper_jax.py:60"
+TABLES_SOURCE = "src/repro_torch/kernels/csrc/mapper_tables.cu"
+STUDY_SPLIT = ("candidates", "prune", "gather", "tables", "winners", "disk")
+
+
+def design_grid():
+    """The grid of examples/design_space_exploration.py on the port: five
+    device designs on a 4-device node, gpt3-175b at 48 layers (tp 4,
+    16 x 1024 -> 1024) and qwen3-1.7b (dp 4, 16 x 2048 -> 256) on each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hardware as hw
+    from repro_torch.core.graph import Plan
+    from repro_torch.core.study import Case
+    from repro_torch.core.workload import Workload
+    gpt3_48 = dataclasses.replace(get_config("gpt3-175b"), n_layers=48)
+    qwen = get_config("qwen3-1.7b")
+    designs = {
+        "ga100 (baseline)": hw.nvidia_ga100(),
+        "latency-oriented (paper)": hw.latency_oriented(),
+        "throughput-oriented (paper)": hw.throughput_oriented(),
+        "half-HBM latency design": dataclasses.replace(
+            hw.latency_oriented(), name="half-hbm",
+            main_memory=hw.MainMemory(1.0e12, 80 * hw.GB, "HBM2e")),
+        "double-MXU ga100": dataclasses.replace(
+            hw.nvidia_ga100(), name="2xmxu",
+            core=hw.make_core(lanes=4, vec_width=32, sa_rows=32, local_kb=384)),
+    }
+    cases = []
+    for name, dev in designs.items():
+        node = hw.make_system(dev, 4, 600, "fc")
+        cases.append(Case(node, gpt3_48, Plan(tp=4), Workload(16, 1024, 1024),
+                          label=f"{name}|gpt3"))
+        cases.append(Case(node, qwen, Plan(tp=1, dp=4), Workload(16, 2048, 256),
+                          label=f"{name}|qwen"))
+    return list(designs), cases
+
+
+def sweep_grid(n_target):
+    """examples/mega_sweep.py::build_cases on the port: designs A-E x
+    qwen2-0.5b, qwen3-1.7b x two plans x batches x input and output lengths."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hardware as hw
+    from repro_torch.core.graph import Plan
+    from repro_torch.core.study import Case
+    from repro_torch.core.workload import Workload
+    systems = [hw.make_system(hw.compute_design(d), 4, 600, "fc") for d in "ABCDE"]
+    models = [get_config("qwen2-0.5b"), get_config("qwen3-1.7b")]
+    plans = [Plan(tp=1, dp=4), Plan(tp=4)]
+    fixed = len(systems) * len(models) * len(plans)
+    batches, outs = (1, 2, 4, 8, 16, 32), (16, 64, 256)
+    n_inputs = max(1, n_target // (fixed * len(batches) * len(outs)))
+    in_lens = [64 + 32 * i for i in range(n_inputs)]
+    return [Case(s, m, p, Workload(b, i, o), label=f"{s.device.name}/{m.name}/b{b}i{i}o{o}")
+            for s in systems for m in models for p in plans
+            for b in batches for i in in_lens for o in outs]
+
+
+def study_pairs(cases):
+    """The (device, GEMM shape) pairs a Study of `cases` presolves."""
+    from repro_torch.core.ir import FusedMatmulSpec, MatmulSpec
+    from repro_torch.core.study import Study
+    pairs, seen = [], set()
+    for case in cases:
+        for g in Study._graphs(case):
+            for node in g:
+                s = node.spec.gemm if isinstance(node.spec, FusedMatmulSpec) else node.spec
+                pair = (case.system.device, getattr(s, "shape", None))
+                if isinstance(s, MatmulSpec) and pair not in seen:
+                    seen.add(pair)
+                    pairs.append(pair)
+    return pairs
+
+
+@contextlib.contextmanager
+def recorded_chunks(keep):
+    """Hand every chunk the mapper prices on the card, with its tables, to
+    `keep(g, tables)` (the mapper's table call is wrapped, not replaced)."""
+    from repro_torch.core import mapper
+    real = mapper._chunk_tables
+
+    def record(g, device):
+        tables = real(g, device)
+        if device == "cuda":
+            keep(g, tables)
+        return tables
+
+    mapper._chunk_tables = record
+    try:
+        yield
+    finally:
+        mapper._chunk_tables = real
+
+
+@contextlib.contextmanager
+def counted_empty_chunks():
+    """Count the table calls on the card that have no rows, and so launch
+    nothing: yields a one-element list holding the count."""
+    empty = [0]
+
+    def count(g, tables):
+        empty[0] += g["tm"].size == 0
+
+    with recorded_chunks(count):
+        yield empty
+
+
+def check_chunk_tables(torch, chunks):
+    """Each chunk's kernel tables against the numpy tables and the plain
+    version on the card, every column as bytes. Returns max |kernel - numpy|
+    over the finite float entries (0 when the bits are equal)."""
+    import numpy as np
+    from repro_torch.core import mapper
+    from repro_torch.kernels.mapper_tables import ops as tables_ops
+    from repro_torch.kernels.mapper_tables.ref import tables_ref
+    err = 0.0
+    for i, (g, got) in enumerate(chunks):
+        want = mapper._tables(g)
+        plain = {k: v.cpu().numpy() for k, v in
+                 tables_ref(tables_ops.to_tensors(g, "cuda")).items()}
+        for k in want:
+            for name, out in (("kernel", got), ("plain version on the card", plain)):
+                require(out[k].dtype == want[k].dtype and out[k].shape == want[k].shape
+                        and out[k].tobytes() == want[k].tobytes(),
+                        f"[study] chunk {i} ({g['tm'].size} rows): the {name}'s {k} is not "
+                        "numpy's bit for bit")
+            if want[k].dtype == np.float64:
+                fin = np.isfinite(want[k])
+                if fin.any():
+                    err = max(err, float(np.max(np.abs(got[k][fin] - want[k][fin]))))
+    return err
+
+
+def run_study(cases, device):
+    """One cold Study: memo cleared, disk layer off, the verifier's default
+    mode (its warnings counted, not printed). Returns (result, wall s, the
+    registry's counters and phase spans of the run, with ``empty_chunks``:
+    the table calls on the card that had no rows and so launch nothing)."""
+    import warnings
+    from repro_torch.core import mapper, obs, result_cache
+    from repro_torch.core.study import Study
+    reg = obs.metrics()
+    mapper.clear_matmul_cache()
+    base = reg.snapshot()
+    t0 = time.perf_counter()
+    with result_cache.disabled(), warnings.catch_warnings(), counted_empty_chunks() as empty:
+        warnings.simplefilter("ignore")
+        res = Study(cases=cases, enforce_fits=False, device=device).run()
+    wall = time.perf_counter() - t0
+    delta = {k: v - base.get(k, 0.0) for k, v in reg.snapshot().items()}
+    delta["empty_chunks"] = empty[0]
+    return res, wall, delta
+
+
+def require_launches(what, device, launched, d):
+    """A cuda run launched the kernel once for each table call with rows
+    (the registry's ``mapper.table_calls_cuda``), a cpu run never."""
+    want = int(d.get("mapper.table_calls_cuda", 0)) - d["empty_chunks"]
+    require(launched == want and (device == "cpu") == (want == 0),
+            f"[study] {what} on {device} launched mapper_tables {launched} times for {want} "
+            "table calls with rows on the card")
+
+
+def study_line(label, device, res, wall, d):
+    split = ", ".join(f"{p} {d.get(f'phase.mapper.{p}.seconds', 0.0):.3f}" for p in STUDY_SPLIT)
+    print(f"[study] {label} on {device}: {len(res)} cases, wall {wall:.3f} s, presolve "
+          f"{res.stats.presolve_seconds:.3f} s ({d.get('phase.presolve.seconds', 0.0):.3f} s "
+          f"in its span), evaluate {d.get('phase.evaluate.seconds', 0.0):.3f} s, verify "
+          f"{d.get('phase.verify.seconds', 0.0):.3f} s; {int(d.get('mapper.misses', 0))} "
+          f"pairs, {int(d.get(f'mapper.table_calls_{device}', 0))} table calls (chunks and the "
+          f"pruning's seed chunks), {int(d.get('mapper.rows_evaluated', 0))} rows priced of "
+          f"{int(d.get('mapper.rows_feasible', 0))} feasible; presolve split (s): {split}")
+
+
+def phase_study(torch, smi):
+    """The design-space Study (``core/study.py``) with its stacked mapper
+    search on the card: the kernel ``csrc/mapper_tables.cu`` against numpy's
+    tables and its plain version on every chunk of the design grid (fp16,
+    int64 byte columns) and of the same grid at int4 weights (float64
+    columns), the two searches' winners equal; that grid and the 360-case
+    sweep run cold on the CPU's numpy and on the card, rows equal, each
+    run's wall time and presolve split (the sweep in four turns, numpy,
+    card, card, numpy); the kernel timed on the sweep's
+    largest chunk beside the whole table call, numpy and its bound. Returns
+    the kernel's row of the ``kernels`` line."""
+    import numpy as np
+    import repro_torch.kernels as K
+    from repro_torch.core import mapper, obs, precision, result_cache
+    from repro_torch.kernels.mapper_tables import kernel as tables_kernel
+    from repro_torch.kernels.mapper_tables import ops as tables_ops
+    from repro_torch.kernels.mapper_tables.ref import tables_ref
+    obs.metrics().set_enabled(True)        # the phase spans of the split
+    names, design = design_grid()
+    int4 = [dataclasses.replace(c, policy=precision.POLICIES["int4-weights"]) for c in design]
+
+    # the kernel against numpy and the plain version, on the grid's chunks
+    checked = []
+    with recorded_chunks(lambda g, t: checked.append((g, t))), result_cache.disabled():
+        for cases in (design, int4):
+            pairs = study_pairs(cases)
+            mapper.clear_matmul_cache()
+            on_card = mapper.matmul_perf_batch_multi(pairs, device="cuda")
+            mapper.clear_matmul_cache()
+            on_cpu = mapper.matmul_perf_batch_multi(pairs, device="cpu")
+            require(on_card == on_cpu, "[study] the card's winners differ from numpy's")
+    err = check_chunk_tables(torch, checked)
+    masks = sorted({tables_ops.pack(g)[3] for g, _ in checked})
+    print(f"[study] mapper_tables: {len(checked)} chunks of the design grid at fp16 and int4 "
+          f"weights ({sum(g['tm'].size for g, _ in checked)} rows, float masks {masks}): "
+          f"every column equals numpy's and the plain version's on the card bit for bit, "
+          f"max |err| {err}; the winners of {len(study_pairs(design)) + len(study_pairs(int4))} "
+          "pairs equal numpy's")
+    require(0 in masks and any(m for m in masks), "[study] the checks missed a byte-column type")
+
+    # the main path: the two grids cold on numpy and on the card
+    launches = 0
+    by_device = {}
+    for device in ("cpu", "cuda"):
+        K.reset_launches()
+        res, wall, d = run_study(design, device)
+        launches += K.launches()["mapper_tables"]
+        require_launches("the design grid", device, K.launches()["mapper_tables"], d)
+        by_device[device] = res
+        study_line("design grid", device, res, wall, d)
+    require(by_device["cpu"].to_rows() == by_device["cuda"].to_rows(),
+            "[study] the design grid's rows on the card differ from numpy's")
+    res = by_device["cuda"]
+    base = res.get(label=f"{names[0]}|gpt3")
+    for name in names:
+        g, q = res.get(label=f"{name}|gpt3"), res.get(label=f"{name}|qwen")
+        rel = (base.latency / g.latency) / (g.device_cost_usd / base.device_cost_usd)
+        print(f"[study] {name:28s} die {g.area_mm2:7.1f} mm2, ${g.device_cost_usd:8.1f}, gpt3 "
+              f"generate {g.latency:.4f} s, qwen {q.throughput:.1f} tok/s, perf/$ {rel:.4f} "
+              f"of the baseline's, qwen perf_per_usd {q.perf_per_dollar:.6g}")
+    sweep = sweep_grid(SWEEP_TARGET)
+    largest = {}
+
+    def keep_largest(g, tables):
+        if g["tm"].size > largest.get("rows", 0):
+            largest.update(rows=g["tm"].size, g=g)
+
+    # in turns (numpy, card, card, numpy): the first run also builds the
+    # grid's graphs, which later runs find cached
+    want = None
+    for turn, device in enumerate(("cpu", "cuda", "cuda", "cpu")):
+        K.reset_launches()
+        with recorded_chunks(keep_largest):
+            res, wall, d = run_study(sweep, device)
+        launches += K.launches()["mapper_tables"]
+        require_launches(f"the sweep's turn {turn + 1}", device, K.launches()["mapper_tables"], d)
+        study_line(f"sweep of {len(sweep)} cases, turn {turn + 1}", device, res, wall, d)
+        want = want or res.to_rows()
+        require(res.to_rows() == want,
+                f"[study] the sweep's rows on {device} (turn {turn + 1}) differ from turn 1's")
+
+    # the serving launcher's planner (``launch/serve.py::plan_report``, serve's
+    # defaults), its memo cold and then warm, on numpy and on the card
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import plan_report
+    reg = obs.metrics()
+    cfg = get_config("qwen1.5-0.5b")
+    lines, secs = {}, {}
+    for device in ("cpu", "cuda"):
+        mapper.clear_matmul_cache()
+        K.reset_launches()
+        base = reg.snapshot()
+        with counted_empty_chunks() as empty:
+            for memo in ("cold", "warm"):
+                t0 = time.perf_counter()
+                line = plan_report(cfg, 1, 4, 16, device)
+                secs[device, memo] = time.perf_counter() - t0
+                require(lines.setdefault(device, line) == line,
+                        f"[study] the planner's warm line on {device} differs from its cold one")
+        d = {k: v - base.get(k, 0.0) for k, v in reg.snapshot().items()}
+        d["empty_chunks"] = empty[0]
+        launches += K.launches()["mapper_tables"]
+        require_launches("the serving launcher's planner", device, K.launches()["mapper_tables"], d)
+    require(lines["cpu"] == lines["cuda"],
+            f"[study] the planner's line on cuda differs from cpu's: {lines['cuda']} / {lines['cpu']}")
+    print(f"[study] serve's planner ({cfg.name}, 1 card, batch 4, 16 new): {lines['cuda']}; "
+          f"the same line on both; memo cold {secs['cpu', 'cold']:.4f} s on cpu, "
+          f"{secs['cuda', 'cold']:.4f} s on cuda (library built in [build]), memo warm "
+          f"{secs['cpu', 'warm']:.4f} / {secs['cuda', 'warm']:.4f} s; {smi}")
+
+    # the kernel on the sweep's largest chunk
+    g = largest["g"]
+    n = g["tm"].size
+    buf, n, pairs, mask = tables_ops.pack(g)
+    args = tables_ops.device_args(torch.from_numpy(buf).cuda(), n, pairs, mask)
+    ms = time_ms(torch, lambda: tables_kernel.mapper_tables_cuda(*args))
+    tensors = tables_ops.to_tensors(g, "cuda")
+    plain_ms = time_ms(torch, lambda: tables_ref(tensors), iters=5)
+
+    def host_ms(fn, runs=5):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    call_ms = host_ms(lambda: tables_ops.chunk_tables(g))
+    pack_ms = host_ms(lambda: tables_ops.pack(g))
+    numpy_ms = host_ms(lambda: mapper._tables(g))
+    nbytes = n * (tables_kernel.IN_BYTES_PER_ROW + tables_kernel.OUT_BYTES_PER_ROW) \
+        + 8 * (pairs + 1 + pairs * (len(tables_kernel.PAIR_INTS) + len(tables_kernel.PAIR_FLOATS)
+                                    + len(tables_kernel.WIDTHS)))
+    b_ms, b_by = bound(nbytes, 0, 1.0)    # its int64 and float64 work has no rate in the table
+    print(f"[timing] mapper_tables     {n} rows x {pairs} pairs (the sweep's largest chunk): "
+          f"kernel {ms:.5f} ms (CUDA events), plain {plain_ms:.5f} ms, library none (no "
+          f"PyTorch call computes it), bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes), "
+          f"{b_ms / ms * 100:.1f}% of bound; the whole chunk_tables call {call_ms:.3f} ms "
+          f"(host clock: packing {pack_ms:.3f} ms, copies, kernel, unpacking) against "
+          f"numpy's _tables {numpy_ms:.3f} ms on the host; {smi}")
+    print(f"[study] mapper_tables launched {launches} times on the main path (the design "
+          "grid, the sweep and serve's planner on cuda)")
+    return {"name": "mapper_tables", "route": "cuda",
+            "source": TABLES_SOURCE, "replaces": TABLES_REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shapes": [{"shape": f"{n} rows x {pairs} pairs", "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "call_ms": call_ms, "pack_ms": pack_ms, "numpy_ms": numpy_ms}]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
                          "runs on the card")
     import repro_torch  # noqa: F401  (fails here without the repository)
+    from repro_torch.core import result_cache
+    # every mapper search and Study case here is priced cold, and nothing is
+    # written outside the checkout (the persistent layer's root is ~/.cache)
+    result_cache.configure(enabled=False)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3935,6 +4291,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    rows.append(phase_study(torch, smi))
+    lap("[study]")
     print(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

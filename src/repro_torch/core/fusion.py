@@ -24,13 +24,11 @@ subtile of residency, second-order next to the elided traffic; a dedicated
 residency-only width on MatmulShape would remove it at the cost of an 11th
 mapper axis.
 
-`FusionPolicy` is the execution-model point `inference_model.prefill` and
-`decode_step` take: which fusion rules run. The default SERIAL policy is
-the identity — bit-for-bit the seed numbers.
-
-The PyTorch port's copy of the JAX package's pass, without its named
-presets other than SERIAL, their tags, the `elided_bytes` report and the
-`overlap` (list-scheduled) execution mode.
+`FusionPolicy` is the execution-model knob threaded through
+inference_model / planner / simulator / study (a Study grid axis): which
+fusion rules run, and whether evaluation prices the dataflow schedule
+(comm/compute overlap, core/schedule.py) or the seed's serial sum. The
+default SERIAL policy is the identity — bit-for-bit the seed numbers.
 """
 from __future__ import annotations
 
@@ -45,15 +43,18 @@ from .units import Bytes, BytesPerElement, Elements
 
 @dataclass(frozen=True)
 class FusionPolicy:
-    """Execution-model point: the fusion rules.
+    """Execution-model point: fusion rules + schedule mode.
 
     fuse_epilogues — fold elementwise/norm/softmax consumers into their
         producing matmul (HBM round-trip of the intermediate elided);
     flash_stream  — stream a fused-softmax output straight into its consumer
-        GEMM's A operand (flash-attention; requires fuse_epilogues).
+        GEMM's A operand (flash-attention; requires fuse_epilogues);
+    overlap       — price graphs with the resource-timeline list scheduler
+        (comm/compute overlap) instead of the serial sum.
     """
     fuse_epilogues: bool = False
     flash_stream: bool = False
+    overlap: bool = False
 
     def __post_init__(self):
         if self.flash_stream and not self.fuse_epilogues:
@@ -65,7 +66,24 @@ class FusionPolicy:
         return self.fuse_epilogues or self.flash_stream
 
 
-SERIAL = FusionPolicy()      # seed-exact
+SERIAL = FusionPolicy()                                   # seed-exact
+FUSED = FusionPolicy(fuse_epilogues=True, flash_stream=True)
+OVERLAP = FusionPolicy(overlap=True)
+FULL = FusionPolicy(fuse_epilogues=True, flash_stream=True, overlap=True)
+
+_PRESET_TAGS = {SERIAL: "serial", FUSED: "fused", OVERLAP: "overlap",
+                FULL: "fused+overlap"}
+
+
+def fusion_tag(policy: FusionPolicy) -> str:
+    """Row label for a policy: preset name or a structural tag."""
+    tag = _PRESET_TAGS.get(policy)
+    if tag is not None:
+        return tag
+    parts = [p for p, on in [("epi", policy.fuse_epilogues),
+                             ("flash", policy.flash_stream),
+                             ("overlap", policy.overlap)] if on]
+    return "+".join(parts) if parts else "serial"
 
 
 # ---------------------------------------------------------------------------
@@ -234,3 +252,24 @@ def _in_read_bytes(spec: OpSpec) -> Bytes:
         n_in = 2 if spec.kind == "silu_mul" else spec.n_in
         return spec.n_elements * n_in * spec.bytes_elt
     raise TypeError(f"not an epilogue spec: {type(spec).__name__}")
+
+
+def elided_bytes(graph: Graph, fused: Graph) -> Bytes:
+    """Main-memory traffic the fusion rewrite removed, by spec accounting
+    (producer output writes + epilogue input reads + streamed outputs).
+
+    Each rewrite in `_fuse_once` now records its per-instance savings in
+    `FusedMatmulSpec.elided`, so this is a straight sum over the fused
+    graph — the identical numbers the attribution reports (core/obs.py)
+    surface per op, with no second derivation that could drift. `graph` is
+    kept in the signature for call-site symmetry (and so a non-fusing
+    policy trivially reports 0). The evaluator's per-kernel totals remain
+    the ground truth (the mapper may also re-tile the cheaper fused
+    shape)."""
+    del graph  # savings live on the fused specs themselves
+    total: Bytes = 0.0
+    for node in fused:
+        s = node.spec
+        if isinstance(s, FusedMatmulSpec):
+            total += node.repeat * s.elided
+    return total

@@ -13,11 +13,8 @@ deduplicate identical specs across a whole design-space sweep. Identical
 transformer layers become one node x `repeat` instead of n_layers nodes.
 
 The PyTorch port's copy of the JAX package's builders, on the port's own
-``ModelConfig``, on `precision.DEFAULT`'s widths only; it leaves out the
-eager `layer_ops` / `model_ops`, the `policy` argument of the builders,
-`build_model`'s `include_head` (the head is always built) and
-`LayerCost`'s schedule and attribution views (per resource, critical
-path).
+``ModelConfig``; it leaves out the eager `layer_ops` / `model_ops`
+(build + evaluate in one call), which no caller of the port uses.
 """
 from __future__ import annotations
 
@@ -30,7 +27,7 @@ from ..configs.base import ModelConfig
 from . import operators as ops
 from .ir import (CollectiveSpec, ElementwiseSpec, Graph, GraphBuilder,
                  MatmulSpec, NormSpec, ScanSpec, SoftmaxSpec, TrafficSpec)
-from .precision import DEFAULT
+from .precision import DEFAULT, PrecisionPolicy
 
 
 @dataclass(frozen=True)
@@ -42,18 +39,32 @@ class Plan:
     ep: int = 1          # expert parallel degree (within tp group or dp)
     sequence_parallel: bool = False   # RS+AG instead of AR (beyond-paper opt)
 
+    @property
+    def devices(self) -> int:
+        return self.tp * self.pp * self.dp
+
 
 @dataclass
 class LayerCost:
-    """Evaluated graph cost: `latency` is the seed's serial sum in node
-    order, bit-for-bit."""
+    """Evaluated graph cost. With `schedule` set (overlap-mode evaluation,
+    core/schedule.py) `latency` is the resource-timeline makespan and the
+    per-op start/end times are exposed; otherwise it is the seed's serial
+    sum in node order, bit-for-bit."""
     ops: List[ops.OpResult] = field(default_factory=list)
+    schedule: object = None         # Optional[schedule.Schedule]
 
     def add(self, r: ops.OpResult):
         self.ops.append(r)
 
     @property
     def latency(self) -> float:
+        if self.schedule is not None:
+            return self.schedule.makespan
+        return self.serial_latency
+
+    @property
+    def serial_latency(self) -> float:
+        """Serial (no-overlap) latency: the left-to-right sum."""
         return sum(o.latency for o in self.ops)
 
     @property
@@ -71,20 +82,42 @@ class LayerCost:
         return out
 
     def breakdown(self) -> dict:
-        """Additive per-name time."""
+        """Additive per-name busy time (resource occupancy, not wall-clock
+        when scheduled — see critical_breakdown for path attribution)."""
         out: dict = {}
         for o in self.ops:
             out[o.name] = out.get(o.name, 0.0) + o.latency
         return out
+
+    def by_resource(self) -> dict:
+        """Per-resource busy seconds (compute / vector / link)."""
+        if self.schedule is not None:
+            return dict(self.schedule.busy)
+        out: dict = {}
+        for o, node_res in zip(self.ops, self._resources or ()):
+            out[node_res] = out.get(node_res, 0.0) + o.latency
+        return out
+
+    _resources: tuple = ()          # set by the evaluator (spec resources)
+
+    def critical_breakdown(self) -> dict:
+        """Critical-path (not additive) attribution: which ops the scheduled
+        makespan is actually waiting on. Falls back to the additive
+        breakdown when the graph was priced serially."""
+        if self.schedule is not None:
+            return self.schedule.critical_breakdown()
+        return self.breakdown()
 
 
 # ---------------------------------------------------------------------------
 # symbolic builders
 # ---------------------------------------------------------------------------
 
-def _norm_spec(cfg: ModelConfig, rows: int, plan: Plan = None) -> NormSpec:
+def _norm_spec(cfg: ModelConfig, rows: int,
+               policy: PrecisionPolicy = DEFAULT,
+               plan: Plan = None) -> NormSpec:
     kind = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
-    ab = DEFAULT.activations.bytes
+    ab = policy.activations.bytes
     if plan is not None and plan.sequence_parallel and plan.tp > 1:
         # Megatron-style sequence parallelism: the norm (and the rest of the
         # RS..AG region) runs on the token shard, 1/tp of the rows
@@ -93,7 +126,8 @@ def _norm_spec(cfg: ModelConfig, rows: int, plan: Plan = None) -> NormSpec:
 
 
 def _add_tp_collective(g: GraphBuilder, cfg: ModelConfig, plan: Plan,
-                       tokens: int, name: str) -> None:
+                       tokens: int, name: str,
+                       policy: PrecisionPolicy = DEFAULT) -> None:
     """Per-layer activation synchronization under tensor parallelism.
 
     Chain deps are the true edges here: the collective consumes the output
@@ -101,7 +135,7 @@ def _add_tp_collective(g: GraphBuilder, cfg: ModelConfig, plan: Plan,
     node consumes the synchronized activations."""
     if plan.tp <= 1:
         return
-    ab = DEFAULT.activations.bytes
+    ab = policy.activations.bytes
     bytes_ = tokens * cfg.d_model * ab
     if plan.sequence_parallel:
         g.add(CollectiveSpec("reduce_scatter", bytes_, plan.tp, ab),
@@ -112,7 +146,8 @@ def _add_tp_collective(g: GraphBuilder, cfg: ModelConfig, plan: Plan,
 
 
 def build_attention(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
-                    kv_len: int, cross_len: int = 0, prefix: str = "") -> Graph:
+                    kv_len: int, cross_len: int = 0, prefix: str = "",
+                    policy: PrecisionPolicy = DEFAULT) -> Graph:
     """Self- (or cross-) attention block. seq = query length (1 for decode).
 
     Precision: the projections are activation x weight GEMMs; the score and
@@ -126,11 +161,11 @@ def build_attention(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
     ctx = cross_len if cross_len else kv_len
     win = cfg.attn_window
     kv_eff = min(ctx, win) if (win and not cross_len) else ctx
-    ab = DEFAULT.activations.bytes
-    w_mm, kv_mm = DEFAULT.weight_gemm(), DEFAULT.attn_gemm()
+    ab = policy.activations.bytes
+    w_mm, kv_mm = policy.weight_gemm(), policy.attn_gemm()
 
     g = GraphBuilder()
-    g.add(_norm_spec(cfg, toks, plan), prefix + "ln_attn")
+    g.add(_norm_spec(cfg, toks, policy, plan), prefix + "ln_attn")
     i_qkv = g.add(MatmulSpec(toks, d, (hq + 2 * hkv) * dh, **w_mm),
                   prefix + "qkv_proj")
     i_qk = i_qkv                   # most recent producer of the q/k tensors
@@ -143,7 +178,7 @@ def build_attention(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
     i_app = None
     if seq == 1:   # decode: append one token of KV at cache precision
         i_app = g.add(TrafficSpec(batch * 2 * hkv * dh
-                                  * DEFAULT.kv_cache.bytes),
+                                  * policy.kv_cache.bytes),
                       prefix + "kv_append", deps=(i_qk,))
     qk_deps = (i_qk,) if i_app is None else (i_qk, i_app)
     i_sc = g.add(MatmulSpec(g_ * seq, dh, kv_eff, batch=batch * hkv, **kv_mm),
@@ -156,17 +191,18 @@ def build_attention(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
                  prefix + "a_mul_v", deps=tuple(sorted({i_sm} | set(qk_deps))))
     g.add(MatmulSpec(toks, hq * dh, d, **w_mm), prefix + "o_proj",
           deps=(i_av,))
-    _add_tp_collective(g, cfg, plan, toks, prefix + "allreduce_attn")
+    _add_tp_collective(g, cfg, plan, toks, prefix + "allreduce_attn", policy)
     return g.build()
 
 
-def build_mlp(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
+def build_mlp(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
+              policy: PrecisionPolicy = DEFAULT) -> Graph:
     d = cfg.d_model
     toks = batch * seq
-    ab = DEFAULT.activations.bytes
-    w_mm = DEFAULT.weight_gemm()
+    ab = policy.activations.bytes
+    w_mm = policy.weight_gemm()
     g = GraphBuilder()
-    g.add(_norm_spec(cfg, toks, plan), "ln_mlp")
+    g.add(_norm_spec(cfg, toks, policy, plan), "ln_mlp")
 
     if cfg.n_experts:
         e_local = max(1, cfg.n_experts // plan.ep)
@@ -198,18 +234,19 @@ def build_mlp(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
             g.add(MatmulSpec(toks, d, ff, **w_mm), "w1_proj")
             g.add(ElementwiseSpec("gelu", toks * ff, bytes_elt=ab), "gelu")
         g.add(MatmulSpec(toks, ff, d, **w_mm), "w2_proj")
-    _add_tp_collective(g, cfg, plan, toks, "allreduce_mlp")
+    _add_tp_collective(g, cfg, plan, toks, "allreduce_mlp", policy)
     return g.build()
 
 
-def build_rwkv(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
+def build_rwkv(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
+               policy: PrecisionPolicy = DEFAULT) -> Graph:
     """RWKV6 time-mix + channel-mix (extension op: ScanSpec)."""
     d = cfg.d_model
     d_tp = max(1, d // plan.tp)
     dh = cfg.rwkv_head_dim
     toks = batch * seq
-    ab = DEFAULT.activations.bytes
-    w_mm = DEFAULT.weight_gemm()
+    ab = policy.activations.bytes
+    w_mm = policy.weight_gemm()
     g = GraphBuilder()
     g.add(NormSpec("layernorm", toks, d, bytes_in=ab, bytes_out=ab),
           "ln_tmix")
@@ -236,15 +273,16 @@ def build_rwkv(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
     return g.build()
 
 
-def build_rglru(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
+def build_rglru(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
+                policy: PrecisionPolicy = DEFAULT) -> Graph:
     """Griffin recurrent block: dual in-proj, short conv, RG-LRU scan."""
     d = cfg.d_model
     d_tp = max(1, d // plan.tp)
     toks = batch * seq
-    ab = DEFAULT.activations.bytes
-    w_mm = DEFAULT.weight_gemm()
+    ab = policy.activations.bytes
+    w_mm = policy.weight_gemm()
     g = GraphBuilder()
-    g.add(_norm_spec(cfg, toks, plan), "ln_rec")
+    g.add(_norm_spec(cfg, toks, policy, plan), "ln_rec")
     g.add(MatmulSpec(toks, d, 2 * d_tp, **w_mm), "rec_in_proj")
     g.add(ElementwiseSpec("generic", toks * d_tp,
                           2.0 * cfg.rglru_conv_width, bytes_elt=ab), "conv1d")
@@ -253,37 +291,39 @@ def build_rglru(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> Graph:
     g.add(ElementwiseSpec("generic", toks * d_tp, 4.0, bytes_elt=ab),
           "gate_mul")
     g.add(MatmulSpec(toks, d_tp, d, **w_mm), "rec_out_proj")
-    _add_tp_collective(g, cfg, plan, toks, "allreduce_rec")
+    _add_tp_collective(g, cfg, plan, toks, "allreduce_rec", policy)
     return g.build()
 
 
 def build_layer(cfg: ModelConfig, plan: Plan, layer: int, batch: int,
-                seq: int, kv_len: int) -> Graph:
+                seq: int, kv_len: int,
+                policy: PrecisionPolicy = DEFAULT) -> Graph:
     kind = cfg.block_kind(layer)
     if kind == "rwkv":
-        return build_rwkv(cfg, plan, batch, seq)
+        return build_rwkv(cfg, plan, batch, seq, policy)
     if kind == "rglru":
-        return build_rglru(cfg, plan, batch, seq) \
-            + build_mlp(cfg, plan, batch, seq)
-    g = build_attention(cfg, plan, batch, seq, kv_len)
+        return build_rglru(cfg, plan, batch, seq, policy) \
+            + build_mlp(cfg, plan, batch, seq, policy)
+    g = build_attention(cfg, plan, batch, seq, kv_len, policy=policy)
     if cfg.cross_attention or layer in cfg.cross_attn_layers:
         g = g + build_attention(cfg, plan, batch, seq, kv_len,
                                 cross_len=max(cfg.n_frontend_tokens, 1),
-                                prefix="x_")
-    return g + build_mlp(cfg, plan, batch, seq)
+                                prefix="x_", policy=policy)
+    return g + build_mlp(cfg, plan, batch, seq, policy)
 
 
 @functools.lru_cache(maxsize=4096)
 def build_model(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
-                kv_len: int) -> Graph:
+                kv_len: int, include_head: bool = True,
+                policy: PrecisionPolicy = DEFAULT) -> Graph:
     """Whole-model graph: distinct layer kinds built once with repeat counts.
 
     Layers of the same kind have identical cost — each kind becomes one set
     of nodes x `repeat` (this is what makes simulating GPT-3's 96 layers as
     cheap as one layer). The build is symbolic and cached: no operator model
-    runs until an Evaluator sees the graph. Every spec carries the byte
-    widths and compute rates of `precision.DEFAULT`, the implicit-fp16 seed
-    graph.
+    runs until an Evaluator sees the graph. `policy` stamps per-operand byte
+    widths + compute rates on every spec; the default
+    reproduces the implicit-fp16 seed graph exactly.
     """
     kinds: dict = {}
     for i in range(cfg.n_layers):
@@ -296,27 +336,32 @@ def build_model(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
         key = (cfg.block_kind(i),
                cfg.cross_attention or i in cfg.cross_attn_layers)
         if key not in rep_layer:
-            rep_layer[key] = build_layer(cfg, plan, i, batch, seq, kv_len)
+            rep_layer[key] = build_layer(cfg, plan, i, batch, seq, kv_len,
+                                         policy)
     g = GraphBuilder()
     for key, cnt in layers_per_stage.items():
         g.extend(rep_layer[key].scaled(cnt))
     # encoder stack (whisper): runs once per request at prefill
     if cfg.n_encoder_layers and seq > 1:
         enc_len = max(cfg.n_frontend_tokens, 1)
-        enc = build_attention(cfg, plan, batch, enc_len, enc_len) \
-            + build_mlp(cfg, plan, batch, enc_len)
+        enc = build_attention(cfg, plan, batch, enc_len, enc_len,
+                              policy=policy) \
+            + build_mlp(cfg, plan, batch, enc_len, policy)
         g.extend(enc.scaled(cfg.n_encoder_layers, prefix="enc_"))
-    toks = batch * (seq if seq > 1 else 1)
-    i_last = len(g) - 1
-    # embedding gather reads weight-precision rows. Physically it runs
-    # BEFORE layer 0 consumes its output; since the head block is
-    # appended after the folded stack (seed ordering), keep it chained
-    # rather than a free source, as the JAX graph does.
-    i_emb = g.add(TrafficSpec(toks * cfg.d_model * DEFAULT.weights.bytes),
-                  "embed")
-    head_deps = (i_emb,) if i_last < 0 else (i_last, i_emb)
-    i_ln = g.add(_norm_spec(cfg, toks), "ln_final", deps=head_deps)
-    g.add(MatmulSpec(toks, cfg.d_model,
-                     max(1, cfg.vocab_size // plan.tp),
-                     **DEFAULT.weight_gemm()), "lm_head", deps=(i_ln,))
+    if include_head:
+        toks = batch * (seq if seq > 1 else 1)
+        i_last = len(g) - 1
+        # embedding gather reads weight-precision rows. Physically it runs
+        # BEFORE layer 0 consumes its output; since the head block is
+        # appended after the folded stack (seed ordering), keep it chained
+        # rather than a free source so the scheduler never hides traffic
+        # that sits on the serial prefix of the critical path.
+        i_emb = g.add(TrafficSpec(toks * cfg.d_model * policy.weights.bytes),
+                      "embed")
+        head_deps = (i_emb,) if i_last < 0 else (i_last, i_emb)
+        i_ln = g.add(_norm_spec(cfg, toks, policy), "ln_final",
+                     deps=head_deps)
+        g.add(MatmulSpec(toks, cfg.d_model,
+                         max(1, cfg.vocab_size // plan.tp),
+                         **policy.weight_gemm()), "lm_head", deps=(i_ln,))
     return g.build()

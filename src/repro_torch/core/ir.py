@@ -6,7 +6,7 @@ point re-paid the full cost-model walk. This module splits "what computation
 happens" from "how long it takes on a device": graph.py builds a Graph of
 hashable OpSpec nodes, and evaluator.Evaluator turns a Graph (or many Graphs)
 into latencies — deduplicating identical specs, memoizing results, and
-searching each unique matmul shape once.
+batching the vectorized mapper search over unique matmul shapes.
 
 Design rules:
   * every spec is a frozen, hashable dataclass — specs ARE cache keys;
@@ -19,11 +19,14 @@ Design rules:
 Dataflow edges: a Graph is a DAG, not just an
 ordered list. Each Node carries `deps`, the indices of its producers within
 the Graph. `deps=None` means "the previous node" — so a graph built without
-explicit edges is a pure chain, recovering the pre-DAG behavior exactly;
-the fusion pass (fusion.py) reads the edges to find producer/consumer pairs.
+explicit edges is a pure chain whose scheduled latency equals the serial
+sum bit-for-bit, recovering the pre-DAG behavior exactly. Every spec kind
+occupies one of three device resources (`resource_of`): the systolic/MXU
+datapath ("compute"), the vector/SIMD units + HBM streaming ("vector"), or
+the interconnect ("link"); core/schedule.py places nodes on per-resource
+timelines to price comm/compute overlap.
 
-The PyTorch port's copy of the JAX package's IR, without `resource_of`
-(the overlap scheduler's resource tags, which the port does not copy).
+The PyTorch port's copy of the JAX package's IR, whole.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ class MatmulSpec:
     """C[M,N] = A[M,K] @ B[K,N], `batch` independent instances.
 
     Evaluated through the mapper's tiling/scheduling search (mapper.py);
-    each unique shape across a whole sweep is searched once.
+    unique shapes across a whole sweep are solved in one batched search.
 
     Per-operand byte widths: A (activations), B (weights or KV
     cache), C (output activations), and the accumulator width the partials
@@ -148,7 +151,9 @@ class FusedMatmulSpec:
     serial graph (intermediate writes + epilogue re-reads, and for
     stream_out also the consumer GEMM's activation read), accumulated by
     the fusion rewrites per instance of this node. It is the single source
-    of truth for fusion savings.
+    of truth for fusion savings: both `fusion.elided_bytes` and the
+    attribution reports (core/obs.py) sum it rather than re-deriving
+    traffic deltas.
     """
     gemm: MatmulSpec
     epilogue: Tuple["OpSpec", ...]
@@ -158,6 +163,17 @@ class FusedMatmulSpec:
 
 OpSpec = Union[MatmulSpec, SoftmaxSpec, NormSpec, ElementwiseSpec, ScanSpec,
                CollectiveSpec, TrafficSpec, FusedMatmulSpec]
+
+
+def resource_of(spec: OpSpec) -> str:
+    """The device resource a spec occupies while executing:
+    "compute" (systolic/MXU datapath), "link" (interconnect), or "vector"
+    (vector units + HBM streaming) for everything else."""
+    if isinstance(spec, (MatmulSpec, FusedMatmulSpec)):
+        return "compute"
+    if isinstance(spec, CollectiveSpec):
+        return "link"
+    return "vector"
 
 
 @dataclass(frozen=True)
@@ -174,6 +190,10 @@ class Node:
     name: str
     repeat: int = 1
     deps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def resource(self) -> str:
+        return resource_of(self.spec)
 
 
 def _shift(node: Node, offset: int) -> Node:
@@ -212,6 +232,9 @@ class Graph:
                                 n.deps)
                            for n in self.nodes))
 
+    def specs(self) -> List[OpSpec]:
+        return [n.spec for n in self.nodes]
+
     def edges(self) -> List[Tuple[int, ...]]:
         """Resolved producer edges per node: explicit `deps` where given,
         else the chain (previous node). Validates topological order."""
@@ -224,6 +247,14 @@ class Graph:
                     f"{deps}; deps must point at earlier nodes")
             out.append(deps)
         return out
+
+    def consumers(self) -> List[List[int]]:
+        """Inverse of edges(): for each node, who reads its output."""
+        cons: List[List[int]] = [[] for _ in self.nodes]
+        for i, deps in enumerate(self.edges()):
+            for d in deps:
+                cons[d].append(i)
+        return cons
 
 
 class GraphBuilder:

@@ -35,8 +35,10 @@ RMSNORM_FLOPS_PER_ELT: FlopsPerElement = 4.0    # x*x accum + x*rsqrt(ms)*g
 GELU_FLOPS_PER_ELT: FlopsPerElement = 10.0      # tanh approximation
 SILU_MUL_FLOPS_PER_ELT: FlopsPerElement = 6.0   # silu(a) * b
 
-#: cross-chunk norm partials are staged in fp32 (4 bytes per value; only
-#: priced when a row exceeds the local buffer).
+#: cross-chunk norm partials are staged in fp32 (4 bytes per value). The
+#: earlier code charged 8 bytes per fp32 value here — a units bug the
+#: dimensional-analysis annotation surfaced; fixing it halves the chunked-
+#: reduction byte penalty (only visible when a row exceeds the local buffer).
 FP32_BYTES: BytesPerElement = 4.0
 
 
@@ -48,6 +50,23 @@ class OpResult:
     main_memory_bytes: Bytes
     bound: str                      # compute | memory | overhead | link
     mapping: Optional[Mapping] = None
+
+    def __add__(self, other: "OpResult") -> "OpResult":
+        # the dominant (slower) operand decides the bound and contributes its
+        # mapping, so combined results keep their tile hints
+        dom, sub = (self, other) if self.latency >= other.latency \
+            else (other, self)
+        return OpResult(
+            name=f"{self.name}+{other.name}",
+            latency=self.latency + other.latency,
+            flops=self.flops + other.flops,
+            main_memory_bytes=self.main_memory_bytes + other.main_memory_bytes,
+            bound=dom.bound,
+            mapping=dom.mapping if dom.mapping is not None else sub.mapping,
+        )
+
+
+ZERO = OpResult("zero", 0.0, 0, 0, "overhead")
 
 
 def _finish(name: str, dev: Device, compute_t: Seconds, mem_t: Seconds,

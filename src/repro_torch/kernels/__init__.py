@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel
-module of ``repro.kernels``: ``<name>/kernel.py`` (the kernel's wrapper, with
+module of ``repro.kernels`` (and ``mapper_tables``, the analytical mapper's
+XLA pass): ``<name>/kernel.py`` (the kernel's wrapper, with
 its launch count), ``<name>/ref.py`` (the plain PyTorch version) and
 ``<name>/ops.py`` (the public op, dispatching on the tensor's device).
 CUDA C++ sources live in ``csrc/`` and are built by ``_build``.
@@ -8,6 +9,7 @@ from .decode_attention.kernel import (decode_attention_chunked_cuda, decode_atte
                                       decode_attention_mma_cuda)
 from .flash_attention.kernel import (flash_attention_bwd_cuda, flash_attention_bwd_wgmma_cuda,
                                      flash_attention_cuda, flash_attention_wgmma_cuda)
+from .mapper_tables.kernel import mapper_tables_cuda
 from .gelu.kernel import (gelu_bwd_cuda, gelu_cuda, gelu_mul_bwd_cuda, gelu_mul_cuda,
                           silu_mul_bwd_triton, silu_mul_triton)
 from .matmul.kernel import (matmul_cuda, matmul_f32_tma_cuda, matmul_int8_cuda,
@@ -51,6 +53,9 @@ KERNELS = {
     "gelu_mul_bwd": gelu_mul_bwd_cuda,
     "rglru_bwd": rglru_bwd_cuda,
     "wkv_bwd": wkv_bwd_cuda,
+    # the analytical mapper's candidate tables (a jitted XLA pass in the JAX
+    # package, repro/core/mapper_jax.py::_tables_kernel)
+    "mapper_tables": mapper_tables_cuda,
 }
 
 

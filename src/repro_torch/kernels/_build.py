@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (the TMA + wgmma sources
 share ``csrc/sm90.cuh``) and is compiled on first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared`` into ``build/kernels/`` at the
+arch=compute_90a,code=sm_90a -O3 -shared`` (and its ``EXTRA_FLAGS``) into
+``build/kernels/`` at the
 repository root (listed in ``.gitignore``). The library's file name carries
 a hash of the source, the shared headers and the flags, so an edited source
 or header is rebuilt and a stale library is never loaded. A build of one source
@@ -29,6 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags a source adds to NVCC_FLAGS: the mapper's tables must not contract
+#: a*b + c into an FMA, which numpy, whose bits they match, never does
+EXTRA_FLAGS = {"mapper_tables": ("-fmad=false",)}
 LOGS: dict = {}  # name -> the compiler's output of its build in this process
 
 
@@ -47,13 +51,15 @@ def library_path(name: str) -> Path:
     """The library of ``csrc/<name>.cu``: its name hashes the source, the
     shared headers (``csrc/*.cuh``) and the flags."""
     parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    flags = (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _command(name: str, out: Path) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def build(names) -> dict:

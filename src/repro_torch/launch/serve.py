@@ -14,7 +14,8 @@ where no plan fits (full gpt3-175b and grok-1-314b on one card). The
 cards are joined by NVLink 4 at 900 GB/s a GPU (NVIDIA H100 Tensor Core GPU
 datasheet, SXM), as ``dgx_a100`` gives the A100's NVLink 3 600 GB/s.
 
-Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, from
+Runs on ``cuda`` unless ``--device cpu`` is given; the planner prices its
+mapper tables on the same device (``plan_report``). Weights are random, from
 a seeded ``torch.Generator``. ``--arch`` takes the ids of ``ARCHS`` (with
 rwkv6-7b, whose 7.0 G parameters, 14.0 GB in their bf16 and fp32 dtypes, fit
 one 80 GB card at full depth, recurrentgemma-2b, 2.89 G parameters, 6.5 GB
@@ -64,6 +65,26 @@ def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
     return smoke_config(cfg)
 
 
+def plan_report(full_cfg: ModelConfig, plan_chips: int, batch: int, max_new: int,
+                device: str) -> str:
+    """The launcher's ``[planner]`` line: the latency-optimal plan of
+    `full_cfg` on `plan_chips` H100 cards, its mapper tables priced on
+    `device` (``"cuda"``: the kernel; ``"cpu"``: numpy; the same plan and
+    numbers either way), or the planner's error where no plan fits."""
+    try:
+        best = planner.best_plan(make_system(nvidia_h100(), plan_chips, link_gbps=900.0),
+                                 full_cfg, batch=batch, in_len=512, out_len=max_new,
+                                 device=device)
+    except ValueError as e:
+        return f"[planner] {e}"
+    p = best.plan
+    return (f"[planner] {full_cfg.name} on {plan_chips}x h100: "
+            f"tp={p.tp} pp={p.pp} dp={p.dp} ep={p.ep}  "
+            f"pred latency={best.latency * 1e3:.1f}ms  "
+            f"pred throughput={best.throughput:.0f} tok/s  "
+            f"mem/chip={best.memory_per_device / 2 ** 30:.2f}GiB")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b",
@@ -86,17 +107,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     full_cfg = get_config(args.arch)
     # 1) plan on the real config with the paper's model
-    try:
-        best = planner.best_plan(make_system(nvidia_h100(), args.plan_chips, link_gbps=900.0),
-                                 full_cfg, batch=args.batch, in_len=512, out_len=args.max_new)
-        p = best.plan
-        print(f"[planner] {full_cfg.name} on {args.plan_chips}x h100: "
-              f"tp={p.tp} pp={p.pp} dp={p.dp} ep={p.ep}  "
-              f"pred latency={best.latency * 1e3:.1f}ms  "
-              f"pred throughput={best.throughput:.0f} tok/s  "
-              f"mem/chip={best.memory_per_device / 2 ** 30:.2f}GiB")
-    except ValueError as e:
-        print(f"[planner] {e}")
+    print(plan_report(full_cfg, args.plan_chips, args.batch, args.max_new, device.type))
 
     # 2) serve the (preset) model
     cfg = preset_config(full_cfg, args.preset)

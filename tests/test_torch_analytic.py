@@ -150,7 +150,8 @@ def test_inference_model_equals_jax(arch, plan):
     cfg, jcfg = get_config(arch), jax_config(arch)
     tsys, jsys = hardware.dgx_a100(4), jax_hw.dgx_a100(4)
     tplan, jplan = graph.Plan(**plan), jax_graph.Plan(**plan)
-    tev, jev = Evaluator(tsys), JaxEvaluator(jsys, verify="off")
+    tev = Evaluator(tsys, verify="off", device="cpu")
+    jev = JaxEvaluator(jsys, verify="off")
     same_report(im.prefill(tsys, cfg, tplan, 4, 512, evaluator=tev),
                 jax_im.prefill(jsys, jcfg, jplan, 4, 512, evaluator=jev))
     same_report(im.decode_step(tsys, cfg, tplan, 8, 513, evaluator=tev),
@@ -178,7 +179,7 @@ def test_rank_plans_equal_jax(arch, n, objective):
     eight), and the same best plan or the same refusal."""
     cfg, jcfg = get_config(arch), jax_config(arch)
     tsys, jsys = hardware.dgx_a100(n), jax_hw.dgx_a100(n)
-    got = planner.rank_plans(tsys, cfg, 8, 512, 32, objective)
+    got = planner.rank_plans(tsys, cfg, 8, 512, 32, objective, device="cpu")
     want = jax_planner.rank_plans(jsys, jcfg, 8, 512, 32, objective)
     assert [dataclasses.astuple(r.plan) for r in got] == \
         [dataclasses.astuple(r.plan) for r in want]
@@ -188,12 +189,12 @@ def test_rank_plans_equal_jax(arch, n, objective):
             assert close(getattr(a, f), getattr(b, f)), (a.plan, f)
     if not any(r.fits for r in want):
         with pytest.raises(ValueError, match="does not fit") as refused:
-            planner.best_plan(tsys, cfg, 8, 512, 32, objective)
+            planner.best_plan(tsys, cfg, 8, 512, 32, objective, device="cpu")
         with pytest.raises(ValueError) as jax_refused:
             jax_planner.best_plan(jsys, jcfg, 8, 512, 32, objective)
         assert str(refused.value) == str(jax_refused.value)
         return
-    best, jbest = (planner.best_plan(tsys, cfg, 8, 512, 32, objective),
+    best, jbest = (planner.best_plan(tsys, cfg, 8, 512, 32, objective, device="cpu"),
                    jax_planner.best_plan(jsys, jcfg, 8, 512, 32, objective))
     assert dataclasses.astuple(best.plan) == dataclasses.astuple(jbest.plan)
     assert close(best.latency, jbest.latency) and close(best.throughput, jbest.throughput)
@@ -201,7 +202,8 @@ def test_rank_plans_equal_jax(arch, n, objective):
 
 def test_best_plan_refuses_what_does_not_fit_as_jax():
     with pytest.raises(ValueError) as got:
-        planner.best_plan(hardware.dgx_a100(4), get_config("grok-1-314b"), 8, 512, 32)
+        planner.best_plan(hardware.dgx_a100(4), get_config("grok-1-314b"), 8, 512, 32,
+                          device="cpu")
     with pytest.raises(ValueError) as want:
         jax_planner.best_plan(jax_hw.dgx_a100(4), jax_config("grok-1-314b"), 8, 512, 32)
     assert str(got.value) == str(want.value) == \
@@ -231,17 +233,19 @@ def test_port_reproduces_frozen_seed_numbers():
         cfg = get_config(arch)
         for tag, system, plan in sysplans:
             r = ref[f"{arch}/{tag}"]
-            pf = im.prefill(system, cfg, plan, batch=4, seq=512)
+            ev = Evaluator(system, device="cpu")
+            pf = im.prefill(system, cfg, plan, batch=4, seq=512, evaluator=ev)
             got = {"prefill": pf.latency, "prefill_flops": pf.flops,
                    "prefill_bytes": pf.bytes,
-                   "decode": im.decode_step(system, cfg, plan, batch=4, kv_len=768).latency,
-                   "generate": im.generate(system, cfg, plan, 4, 512, 64).latency}
+                   "decode": im.decode_step(system, cfg, plan, batch=4, kv_len=768,
+                                            evaluator=ev).latency,
+                   "generate": im.generate(system, cfg, plan, 4, 512, 64, evaluator=ev).latency}
             for k, v in got.items():
                 assert abs(v - r[k]) <= SEED_REL * abs(r[k]), (arch, tag, k)
     ranked = ref["rank_plans/stablelm-1.6b/tpu_v5e_16"]
     checked = 0
     for r in planner.rank_plans(hardware.tpu_v5e_pod(16), get_config("stablelm-1.6b"),
-                                8, 1024, 128):
+                                8, 1024, 128, device="cpu"):
         if not r.fits or r.plan.sequence_parallel:
             continue     # the frozen ranking predates the sequence-parallel plans
         lat, thr = ranked[f"tp{r.plan.tp}_pp{r.plan.pp}_dp{r.plan.dp}"]
@@ -258,7 +262,8 @@ def test_launcher_prints_the_planner_report_first(capsys):
     serve.main(["--device", "cpu", "--preset", "tiny", "--requests", "2", "--max-new", "2"])
     out = capsys.readouterr().out.splitlines()
     best = planner.best_plan(hardware.make_system(hardware.nvidia_h100(), 1, 900.0),
-                             get_config("qwen1.5-0.5b"), batch=4, in_len=512, out_len=2)
+                             get_config("qwen1.5-0.5b"), batch=4, in_len=512, out_len=2,
+                             device="cpu")
     assert out[0] == (f"[planner] qwen1.5-0.5b on 1x h100: tp=1 pp=1 dp=1 ep=1  "
                       f"pred latency={best.latency * 1e3:.1f}ms  "
                       f"pred throughput={best.throughput:.0f} tok/s  "

@@ -121,7 +121,7 @@ def kernel_case(name, device, dtype):
     "rglru", "rglru_chunked", "flash_attention_bwd", "flash_attention_bwd_wgmma",
     "rmsnorm_bwd", "silu_mul_bwd", "layernorm_bwd", "layernorm_bwd_triton", "gelu_bwd",
     "gelu_mul_bwd", "rglru_bwd",
-    "wkv_bwd"}))
+    "wkv_bwd", "mapper_tables"}))
 def test_kernel_matches_plain_on_card(cuda, name, dtype):
     args, plain = kernel_case(name, cuda, DTYPES[dtype])
     before = TK.KERNELS[name].launches
@@ -444,7 +444,7 @@ def test_launches_per_step_on_card(cuda):
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
                              "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
-                             "wkv_bwd": 0}
+                             "wkv_bwd": 0, "mapper_tables": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 13, "layernorm": 0, "gelu": 0,
@@ -459,7 +459,7 @@ def test_launches_per_step_on_card(cuda):
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
                              "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
-                             "wkv_bwd": 0}
+                             "wkv_bwd": 0, "mapper_tables": 0}
 
 
 @pytest.mark.parametrize("arch,gate", [("stablelm-1.6b", "silu_mul"),
@@ -485,7 +485,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
                              "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
-                             "wkv_bwd": 0}
+                             "wkv_bwd": 0, "mapper_tables": 0}
     TK.reset_launches()
     model.decode_step(toks[:, 0], cache)
     assert TK.launches() == {"rmsnorm": 0, "layernorm": 7, gate: 3, other: 0,
@@ -500,7 +500,7 @@ def test_layernorm_launches_per_step_on_card(cuda, arch, gate):
                              "rmsnorm_bwd": 0, "silu_mul_bwd": 0, "layernorm_bwd": 0,
                              "layernorm_bwd_triton": 0,
                              "gelu_bwd": 0, "gelu_mul_bwd": 0, "rglru_bwd": 0,
-                             "wkv_bwd": 0}
+                             "wkv_bwd": 0, "mapper_tables": 0}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -2242,3 +2242,114 @@ def test_serving_with_grad_enabled_builds_no_graph_on_card(cuda):
         model.requires_grad_(True)
         with torch.no_grad():
             assert model(toks).grad_fn is None
+
+
+# ---------------- the mapper's candidate tables (csrc/mapper_tables.cu) ----------------
+
+MAPPER_SHAPES = [(64, 4096, 4096, 1, 2, 2, 2, 2, False, 1.0),
+                 (1, 4096, 11008, 1, 2, 1, 2, 4, False, 2.0),
+                 (512, 128, 512, 32, 2, 2, 2, 4, True, 1.0),
+                 (4096, 12288, 49152, 1, 2, 2, 2, 2, False, 1.0),
+                 (1, 4096, 11008, 1, 2, 0.5, 2, 4, False, 2.0),
+                 (2048, 2048, 6144, 1, 0.5, 0.5, 0.5, 4, False, 4.0),
+                 (3, 5, 7, 2, 1, 0.5, 2, 0.5, False, 1.0)]
+
+
+def _mapper_chunk(devs, shapes):
+    from repro_torch.core import mapper
+    rows = [mapper._candidate_rows(d, s) for d, s in zip(devs, shapes)]
+    return mapper._gather_chunk(devs, shapes, [r[0] for r in rows], [r[1] for r in rows])
+
+
+@pytest.mark.parametrize("widths", ["int", "sub_byte"])
+@pytest.mark.parametrize("preset", ["nvidia_a100", "nvidia_h100", "google_tpu_v5e", "amd_mi210",
+                                    "designs"])
+def test_mapper_tables_match_plain_and_numpy_on_card(cuda, preset, widths):
+    """Every output column of the kernel equals the numpy tables and the
+    plain version on the card, as bytes (dtypes too)."""
+    from repro_torch.core import hardware, mapper
+    from repro_torch.kernels.mapper_tables import ops as tables_ops
+    from repro_torch.kernels.mapper_tables.ref import tables_ref
+    shapes = MAPPER_SHAPES[:4] if widths == "int" else MAPPER_SHAPES[4:]
+    if preset == "designs":      # per-row device columns
+        devs = [hardware.compute_design(c) for c in "ABCDE" for _ in shapes]
+        shapes = shapes * 5
+    else:
+        devs = [getattr(hardware, preset)()] * len(shapes)
+    g = _mapper_chunk(devs, shapes)
+    want = mapper._tables(g)
+    before = TK.launches()["mapper_tables"]
+    got = tables_ops.chunk_tables(g)
+    assert TK.launches()["mapper_tables"] == before + 1
+    plain = {k: v.cpu().numpy() for k, v in tables_ref(tables_ops.to_tensors(g, "cuda")).items()}
+    for name, out in (("kernel", got), ("plain on the card", plain)):
+        for k in want:
+            assert out[k].dtype == want[k].dtype and out[k].shape == want[k].shape, (name, k)
+            assert out[k].tobytes() == want[k].tobytes(), (name, k)
+
+
+def _study_rows(device):
+    from repro_torch.core import fusion, graph, hardware, mapper, precision, result_cache
+    from repro_torch.core.study import Study
+    from repro_torch.core.workload import Workload
+    mapper.clear_matmul_cache()
+    with result_cache.disabled():
+        return Study(systems=[hardware.dgx_a100(2), hardware.make_system(hardware.nvidia_h100(), 2)],
+                     configs=[smoke_config(get_config("qwen3-1.7b")),
+                              smoke_config(get_config("gpt3-175b"))],
+                     plans=[graph.Plan(tp=2), graph.Plan(tp=1, dp=2)],
+                     workloads={"short": Workload(2, 64, 8, samples=4)},
+                     policies={"fp16": precision.DEFAULT,
+                               "int4": precision.POLICIES["int4-weights"]},
+                     fusions={"serial": fusion.SERIAL, "overlap": fusion.OVERLAP},
+                     verify="off", device=device).run().to_rows()
+
+
+def test_cuda_study_equals_cpu_study_on_card(cuda):
+    """A Study whose stacked search prices its tables with the kernel gives
+    the numpy Study's rows, and launched the kernel to do so."""
+    TK.reset_launches()
+    got = _study_rows("cuda")
+    assert TK.launches()["mapper_tables"] > 0
+    assert got == _study_rows("cpu")
+
+
+def test_serve_plan_report_on_card_equals_cpu(cuda):
+    """The serving launcher's planner on the card (``--device cuda``) prints
+    the CPU's ``[planner]`` line, and priced its tables with the kernel."""
+    from repro_torch.core import mapper, result_cache
+    from repro_torch.launch.serve import plan_report
+    cfg = get_config("qwen1.5-0.5b")
+    with result_cache.disabled():
+        mapper.clear_matmul_cache()
+        TK.reset_launches()
+        got = plan_report(cfg, 1, 4, 16, "cuda")
+        assert TK.launches()["mapper_tables"] > 0
+        mapper.clear_matmul_cache()
+        want = plan_report(cfg, 1, 4, 16, "cpu")
+    assert got == want and "tp=1 pp=1 dp=1" in got
+
+
+def test_cuda_tables_raise_when_the_library_fails_to_load(cuda, monkeypatch):
+    """No fallback to numpy: a kernel that cannot load fails the search."""
+    from repro_torch.core import hardware, mapper, result_cache
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mapper_tables import kernel as tables_kernel, ops as tables_ops
+
+    def refuse(name):
+        raise OSError(f"cannot load lib{name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    tables_kernel._entry.cache_clear()
+    try:
+        dev = hardware.nvidia_a100()
+        g = _mapper_chunk([dev], MAPPER_SHAPES[:1])
+        with pytest.raises(OSError, match="libmapper_tables"):
+            tables_ops.chunk_tables(g)
+        mapper.clear_matmul_cache()
+        with pytest.raises(OSError, match="libmapper_tables"), result_cache.disabled():
+            mapper.matmul_perf_batch_multi([(dev, MAPPER_SHAPES[1])], device="cuda")
+    finally:
+        monkeypatch.undo()
+        tables_kernel._entry.cache_clear()
+        mapper.clear_matmul_cache()

@@ -1445,7 +1445,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "gelu_mul_bwd": (x, x, x),
             "rglru_bwd": (x[0].bfloat16(), x[0], x[0], torch.zeros(32), x[0].bfloat16(),
                           torch.zeros(4, 16, 32), x[0]),
-            "wkv_bwd": (x, x, x, x, torch.zeros(8, 32), torch.zeros(2, 8, 1, 32, 32), x)}[name]
+            "wkv_bwd": (x, x, x, x, torch.zeros(8, 32), torch.zeros(2, 8, 1, 32, 32), x),
+            "mapper_tables": (torch.ones(6, 4, dtype=torch.int64),
+                              torch.ones(4, 4, dtype=torch.bool), torch.tensor([0, 4]),
+                              torch.ones(1, 11, dtype=torch.int64),
+                              torch.ones(1, 3, dtype=torch.float64),
+                              torch.ones(1, 4, dtype=torch.int64), 0)}[name]
     with pytest.raises(ValueError, match="CUDA"):
         TK.KERNELS[name](*args)
 
