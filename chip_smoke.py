@@ -375,9 +375,24 @@ result line):
                design grid's, the sweep's and the planner's card runs, each
                run's equal to its table calls with rows on the card
                (``mapper.table_calls_cuda``).
+  11. trace  - the trace CLI (``python -m repro_torch.trace``, run in
+               process) at gpt3-175b's full width over every stage
+               (prefill, decode, generate, layer, serve) on the CLI's
+               default node (``--device a100 --devices 4``) and on the
+               card's own preset (``--device h100 --devices 4``), each run
+               cold (memo cleared) once with ``--tables-device cuda`` and
+               once with ``cpu``: every pair's trace, attribution CSV and
+               printed lines byte for byte the same, each run exit 0, its
+               launches of mapper_tables equal to its table calls with rows
+               on the card (none on cpu), the default node's event counts
+               and spans those of the JAX package's CLI (``TRACE_JAX``);
+               then ``python -m repro_torch.verify --all-configs`` and
+               ``python -m repro_torch.unitcheck --selfcheck`` as
+               subprocesses on the card's host, each exit 0.
 The last lines are the ``{"kernels": [...]}`` summary (the backward
 kernels' launches are the sum of the full-size train runs', each run's
-apart in ``launches_by_train_run``), the card's name and
+apart in ``launches_by_train_run``; mapper_tables' the sum of [study]'s
+and [trace]'s, each apart in ``launches_by_path``), the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -385,6 +400,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4029,12 +4045,12 @@ def run_study(cases, device):
     return res, wall, delta
 
 
-def require_launches(what, device, launched, d):
+def require_launches(what, device, launched, d, phase="[study]"):
     """A cuda run launched the kernel once for each table call with rows
     (the registry's ``mapper.table_calls_cuda``), a cpu run never."""
     want = int(d.get("mapper.table_calls_cuda", 0)) - d["empty_chunks"]
     require(launched == want and (device == "cpu") == (want == 0),
-            f"[study] {what} on {device} launched mapper_tables {launched} times for {want} "
+            f"{phase} {what} on {device} launched mapper_tables {launched} times for {want} "
             "table calls with rows on the card")
 
 
@@ -4193,11 +4209,116 @@ def phase_study(torch, smi):
           "grid, the sweep and serve's planner on cuda)")
     return {"name": "mapper_tables", "route": "cuda",
             "source": TABLES_SOURCE, "replaces": TABLES_REPLACES,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "launches_by_path": {"[study]": launches},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shapes": [{"shape": f"{n} rows x {pairs} pairs", "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "call_ms": call_ms, "pack_ms": pack_ms, "numpy_ms": numpy_ms}]}
+
+
+# ---------------- [trace]: the trace CLI with its tables on the card ----------------
+
+TRACE_STAGES = ("prefill", "decode", "generate", "layer", "serve")
+# (preset, devices): the CLI's default node, and the card's own preset
+TRACE_SYSTEMS = (("a100", 4), ("h100", 4))
+# python -m repro.trace --config gpt3_175b --stage <stage> (the JAX package's
+# CLI at its defaults, on the CPU): events and span, as it prints them
+TRACE_JAX = {"prefill": (32, "666544.889"), "decode": (33, "50241.216"),
+             "generate": (65, "666544.889"), "layer": (53, "6917.860"),
+             "serve": (884, "16107322.693")}
+HOST_CLIS = (("repro_torch.verify", "--all-configs"), ("repro_torch.unitcheck", "--selfcheck"))
+
+
+def run_trace(argv, out_dir):
+    """One cold run of ``repro_torch.trace.main`` writing into `out_dir`.
+    Returns (exit code, its printed lines with `out_dir` masked, {file name:
+    bytes}, wall s, the registry's counter deltas with ``empty_chunks``)."""
+    import io
+    from repro_torch import trace
+    from repro_torch.core import mapper, obs
+    out_dir.mkdir(parents=True)
+    reg = obs.metrics()
+    mapper.clear_matmul_cache()
+    base = reg.snapshot()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), counted_empty_chunks() as empty:
+        rc = trace.main(argv + ["--out", str(out_dir / "trace.json"),
+                                "--csv", str(out_dir / "ops.csv")])
+    wall = time.perf_counter() - t0
+    d = {k: v - base.get(k, 0.0) for k, v in reg.snapshot().items()}
+    d["empty_chunks"] = empty[0]
+    files = {p.name: p.read_bytes() for p in sorted(out_dir.iterdir())}
+    return rc, printed.getvalue().replace(str(out_dir), "<out>"), files, wall, d
+
+
+def phase_trace(smi):
+    """The trace CLI over every stage on both systems, its tables on the card
+    and on numpy, then the host-only CLIs. Returns mapper_tables' launches
+    on this path (the cuda runs)."""
+    import shutil
+    import repro_torch.kernels as K
+    from repro_torch.core.trace_export import total_span_us
+    work = ROOT / "build" / "trace"
+    shutil.rmtree(work, ignore_errors=True)
+    launches = 0
+    for preset, n in TRACE_SYSTEMS:
+        for stage in TRACE_STAGES:
+            argv = ["--config", "gpt3_175b", "--stage", stage, "--device", preset,
+                    "--devices", str(n)]
+            runs = {}
+            for device in ("cuda", "cpu"):
+                K.reset_launches()
+                runs[device] = run_trace(argv + ["--tables-device", device],
+                                         work / preset / stage / device)
+                launched = K.launches()["mapper_tables"]
+                rc, _, files, wall, d = runs[device]
+                require(rc == 0, f"[trace] {preset} {stage} on {device} exited {rc}")
+                require_launches(f"{preset} x{n} {stage}", device, launched, d, phase="[trace]")
+                launches += launched
+                doc = json.loads(files["trace.json"])
+                events, span = len(doc["traceEvents"]), total_span_us(doc["traceEvents"])
+                print(f"[trace] gpt3-175b {stage:8s} on {preset} x{n}, tables on {device}: "
+                      f"{events} events, span {span:.3f} us, wall {wall:.3f} s cold, "
+                      f"{int(d.get(f'mapper.table_calls_{device}', 0))} table calls, "
+                      f"{launched} launches")
+                if preset == "a100":
+                    require((events, f"{span:.3f}") == TRACE_JAX[stage],
+                            f"[trace] {stage} at the default node: {events} events, span "
+                            f"{span:.3f} us; the JAX CLI gives {TRACE_JAX[stage]}")
+            _, out, files, _, _ = runs["cuda"]
+            want = runs["cpu"]
+            require(files == want[2], f"[trace] {preset} {stage}: the trace or CSV written with "
+                    "the tables on the card differs from numpy's")
+            require(out == want[1], f"[trace] {preset} {stage}: the printed lines differ "
+                    "between the card's tables and numpy's")
+            require(("ops.csv" in files) == (stage != "serve"),
+                    f"[trace] {preset} {stage}: the attribution CSV is missing")
+    print(f"[trace] every pair of runs wrote the same trace and attribution CSV, byte for byte; "
+          f"mapper_tables launched {launches} times on this path; {smi}")
+    # the host-only CLIs, each in a process of its own whose every import
+    # ``-X importtime`` lists: none of JAX or of the JAX package
+    import importlib.util
+    jax_here = importlib.util.find_spec("jax") is not None
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for mod, flag in HOST_CLIS:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-X", "importtime", "-m", mod, flag], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        require(p.returncode == 0, f"[trace] python -m {mod} {flag} exited {p.returncode}: "
+                f"{p.stdout[-2000:]}{p.stderr[-2000:]}")
+        imported = [line.rsplit("|", 1)[1].strip() for line in p.stderr.splitlines()
+                    if line.startswith("import time:") and "|" in line][1:]   # [0]: the header
+        bad = sorted({m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "repro")})
+        require(len(imported) > 100 and not bad,
+                f"[trace] python -m {mod} {flag} imported {bad or 'no module it listed'}")
+        print(f"[trace] python -m {mod} {flag}: exit 0 in {wall:.1f} s, {len(imported)} modules "
+              f"imported, none of jax or repro (jax {'is' if jax_here else 'is not'} installed "
+              f"on this host): {p.stdout.strip().splitlines()[-1]}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -4291,8 +4412,14 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    rows.append(phase_study(torch, smi))
+    tables = phase_study(torch, smi)
+    rows.append(tables)
     lap("[study]")
+    # each path's counts were set to 0 before each run and read just after;
+    # the kernel's launches are their sum
+    tables["launches_by_path"]["[trace]"] = phase_trace(smi)
+    tables["launches"] = sum(tables["launches_by_path"].values())
+    lap("[trace]")
     print(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -11,10 +11,12 @@ ir.Graph values of hashable OpSpec nodes and never touch a Device, so one
 build can be evaluated on any hardware description — and the evaluator can
 deduplicate identical specs across a whole design-space sweep. Identical
 transformer layers become one node x `repeat` instead of n_layers nodes.
+`layer_ops` / `model_ops` remain as eager conveniences: build + evaluate.
 
-The PyTorch port's copy of the JAX package's builders, on the port's own
-``ModelConfig``; it leaves out the eager `layer_ops` / `model_ops`
-(build + evaluate in one call), which no caller of the port uses.
+The PyTorch port's copy of the JAX package's module, whole, on the port's
+own ``ModelConfig``; the eager conveniences price on the port's
+`Evaluator`, whose mapper tables run on `device` (``"cuda"``, or ``"cpu"``
+for numpy).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from ..configs.base import ModelConfig
+from .hardware import System
 from . import operators as ops
 from .ir import (CollectiveSpec, ElementwiseSpec, Graph, GraphBuilder,
                  MatmulSpec, NormSpec, ScanSpec, SoftmaxSpec, TrafficSpec)
@@ -365,3 +368,30 @@ def build_model(cfg: ModelConfig, plan: Plan, batch: int, seq: int,
                          max(1, cfg.vocab_size // plan.tp),
                          **policy.weight_gemm()), "lm_head", deps=(i_ln,))
     return g.build()
+
+
+# ---------------------------------------------------------------------------
+# eager conveniences: build + evaluate
+# ---------------------------------------------------------------------------
+
+def layer_ops(cfg: ModelConfig, system: System, plan: Plan, layer: int,
+              batch: int, seq: int, kv_len: int, evaluator=None,
+              policy: PrecisionPolicy = DEFAULT,
+              device: str = "cuda") -> LayerCost:
+    from .evaluator import Evaluator
+    ev = evaluator if evaluator is not None \
+        else Evaluator(system, device=device)
+    return ev.evaluate(build_layer(cfg, plan, layer, batch, seq, kv_len,
+                                   policy))
+
+
+def model_ops(cfg: ModelConfig, system: System, plan: Plan, batch: int,
+              seq: int, kv_len: int, include_head: bool = True,
+              evaluator=None, policy: PrecisionPolicy = DEFAULT,
+              device: str = "cuda") -> LayerCost:
+    """Whole-model cost: build the symbolic graph and evaluate it."""
+    from .evaluator import Evaluator
+    ev = evaluator if evaluator is not None \
+        else Evaluator(system, device=device)
+    return ev.evaluate(build_model(cfg, plan, batch, seq, kv_len,
+                                   include_head, policy))

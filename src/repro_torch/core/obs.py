@@ -30,7 +30,8 @@ models they observe:
     "why did case A beat case B" without re-running anything.
 
 Everything here uses *modeled* quantities (virtual time, analytic bytes);
-only phase spans read the wall clock.
+only phase spans read the wall clock. The trace exporters live in
+core/trace_export.py and consume Schedules/SimResults directly.
 
 The PyTorch port's copy of the JAX package's module, whole.
 """

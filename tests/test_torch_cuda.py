@@ -2353,3 +2353,54 @@ def test_cuda_tables_raise_when_the_library_fails_to_load(cuda, monkeypatch):
         monkeypatch.undo()
         tables_kernel._entry.cache_clear()
         mapper.clear_matmul_cache()
+
+
+# ---------------- the trace CLI and the roofline with the tables on the card ----------------
+
+def _trace_run(argv, where, monkeypatch, capsys):
+    from repro_torch.trace import main
+    where.mkdir()
+    monkeypatch.chdir(where)
+    rc = main(argv + ["--csv", "ops.csv"])
+    return rc, capsys.readouterr().out, {p.name: p.read_bytes() for p in sorted(where.iterdir())}
+
+
+@pytest.mark.parametrize("stage", ["layer", "serve"])
+def test_trace_cli_on_card_writes_the_cpu_files(cuda, stage, tmp_path, monkeypatch, capsys):
+    """``python -m repro_torch.trace`` at gpt3-175b with its tables on the card
+    writes the trace and CSV the numpy tables give, byte for byte, and
+    launched the kernel to do so."""
+    from repro_torch.core import mapper, result_cache
+    argv = ["--config", "gpt3_175b", "--stage", stage, "--device", "h100"]
+    with result_cache.disabled():
+        mapper.clear_matmul_cache()
+        TK.reset_launches()
+        got = _trace_run(argv + ["--tables-device", "cuda"], tmp_path / "cuda", monkeypatch, capsys)
+        assert TK.launches()["mapper_tables"] > 0
+        mapper.clear_matmul_cache()
+        want = _trace_run(argv + ["--tables-device", "cpu"], tmp_path / "cpu", monkeypatch, capsys)
+    assert got == want
+    assert got[0] == 0 and f"gpt3-175b_{stage}.perfetto.json" in got[2]
+
+
+def test_mapper_never_beats_the_roofline_on_card(cuda):
+    """Paper Table V with the tables on the card: no GEMM's mapped latency is
+    below its roofline's compute term, nor below 0.35 of its memory term
+    (the C-tile write-back may overlap), and the winners are numpy's."""
+    from repro_torch.core import hardware, mapper, result_cache
+    from repro_torch.core.roofline import matmul_roofline
+    shapes = [(m, k, n, 1, 2.0, 2.0, 2.0, 2.0, False, 1.0)
+              for m in (1, 16, 512, 4096) for k in (64, 12288) for n in (128, 12288)]
+    with result_cache.disabled():
+        for preset in ("a100", "h100", "tpuv5e", "design-C"):
+            dev = hardware.get_device(preset)
+            mapper.clear_matmul_cache()
+            TK.reset_launches()
+            got = mapper.matmul_perf_batch(dev, shapes, device="cuda")
+            assert TK.launches()["mapper_tables"] > 0
+            for s, r in zip(shapes, got):
+                bound = matmul_roofline(dev, *s[:3])
+                assert r.latency >= bound.compute_s * 0.999, (preset, s)
+                assert r.latency >= bound.memory_s * 0.35, (preset, s)
+            mapper.clear_matmul_cache()
+            assert got == mapper.matmul_perf_batch(dev, shapes, device="cpu"), preset

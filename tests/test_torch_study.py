@@ -9,7 +9,8 @@ layer stages; a ``stage="serve"`` case's ``SimResult`` equals the JAX
 simulator's; each preset's die area and cost are the JAX models'; a warm
 rerun from the port's disk layer and a ``workers=2`` run give the cold
 serial rows; ``verify="warn"`` raises the JAX verifier's diagnostics; and
-importing the Study loads neither JAX nor the JAX package.
+importing the Study, or the trace, verify and unitcheck CLIs, loads neither
+JAX nor the JAX package.
 
 Every comparison is exact (``==`` on floats): the port prices with the
 same numpy operations, and its mapper tables on ``device="cpu"`` are the
@@ -190,6 +191,21 @@ def test_verify_warn_gives_the_jax_diagnostics():
 
 def test_study_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch.core.study, repro_torch.core.planner; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("modules", [
+    "repro_torch.trace, repro_torch.verify, repro_torch.unitcheck",
+    "repro_torch.core.roofline, repro_torch.core.trace_export, repro_torch.core.unitcheck",
+], ids=["clis", "core"])
+def test_analytical_clis_import_neither_jax_nor_the_jax_package(modules):
+    """The trace, verify and unitcheck CLIs and the modules under them."""
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
