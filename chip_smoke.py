@@ -352,6 +352,27 @@ result line):
                steps under torch.profiler (device ms a step, the largest
                device events), granite's run again plainly: whether each
                second run's losses equal the first's bit for bit;
+               then [ckpt]: m100 saved, restored, resumed;
+  dist       - the distributed half (``phase_dist``), its ranks sharing
+               the card over gloo: the train launcher through
+               ``torch.distributed.run`` at (data, model) = (1, 2) on
+               qwen3-1.7b at full width beside the single-rank launcher's
+               ``main`` in this process (every step's loss within 2e-2
+               absolute, the loss at model 2 falling by at least half of
+               what it falls on one rank, both peaks); then a spawned
+               pair: the probe of what gloo takes on CUDA tensors, one
+               step's gradients at model 2 against the single-rank card
+               run's with each rank's launches exactly those of its local
+               config, granite-8l at data 2 routed over both ranks' rows
+               (every router call takes the whole batch; loss and aux
+               within 2e-3), ``pipeline_apply`` over pod 2 (14 of qwen3's
+               28 blocks a stage), and m100 saved at model 2 and resumed
+               at data 2 after ``remesh`` (the restored state equal to the
+               saved one bit for bit); each run's wall, its host seconds in
+               collective calls, the bytes staged through the host, and
+               each part's seconds.
+               ``python3 chip_smoke.py --only dist`` runs [build], [ckpt]
+               and this phase alone;
   10. study  - the design-space Study (``core/study.py``) with its stacked
                mapper search's candidate tables on the card
                (``csrc/mapper_tables.cu``): the kernel against numpy's
@@ -392,7 +413,8 @@ result line):
 The last lines are the ``{"kernels": [...]}`` summary (the backward
 kernels' launches are the sum of the full-size train runs', each run's
 apart in ``launches_by_train_run``; mapper_tables' the sum of [study]'s
-and [trace]'s, each apart in ``launches_by_path``), the card's name and
+and [trace]'s, each apart in ``launches_by_path``; each kernel's launches
+in [dist]'s ranks apart in ``launches_in_dist``), the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -3825,7 +3847,8 @@ def phase_ckpt(torch):
     fresh model and optimizer (another seed), and the steps after it: the
     restored state equals the saved one bit for bit, and the resumed
     losses equal the straight run's (bit for bit where every kernel of the
-    step is deterministic, else within 1e-4 relative)."""
+    step is deterministic, else within 1e-4 relative). Returns the straight
+    run's losses, which [dist] (e) holds its resumed run to."""
     import shutil
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
@@ -3885,7 +3908,599 @@ def phase_ckpt(torch):
     shutil.rmtree(d, ignore_errors=True)
     del state, fresh
     torch.cuda.empty_cache()
-    return exact
+    return straight
+
+
+# ---------------- [dist]: the distributed half on the card ----------------
+
+DIST_ARCH, DIST_STEPS, DIST_LR = "qwen3-1.7b", 3, 3e-4
+DIST_BATCH, DIST_SEQ = 8, 512          # (a): the launchers
+DIST_GRAD_BATCH, DIST_GRAD_SEQ = 1, 256  # (b): one step's gradients (and an fp32 CPU run's)
+DIST_MOE = ("granite-moe-3b-a800m", 8)  # (c): 8 of 32 layers, DIST_BATCH x DIST_SEQ rows
+DIST_PIPE_MB = 4                       # (d): DIST_BATCH x DIST_SEQ in 4 microbatches
+DIST_TOL = 2e-2                        # absolute, on a loss
+DIST_MOE_TOL = 2e-3                    # (c): absolute, on the loss and the aux
+DIST_TIMEOUT = 60                      # seconds a collective may wait before it fails
+
+
+#: the probe's collectives on CUDA tensors: those of the table of native
+#: ones (``collectives.NATIVE``), which must pass, and send/recv in a pair
+#: of processes of its own: gloo takes its device pointer for a host one,
+#: and the TCP write aborts the process (a probe of torch 2.11 on an H100)
+DIST_PROBE_SAFE = ("all_reduce sum fp32", "all_reduce sum bf16", "all_reduce max fp32",
+                   "broadcast", "all_gather")
+DIST_PROBE_UNSAFE = ("send/recv",)
+
+
+def dist_probe(torch, dist, rank, names):
+    """What this install's gloo takes on CUDA tensors: each collective of
+    `names` once, its result checked. A probe of the install, printed, not
+    a route: the port routes by ``collectives.NATIVE``, a fixed table."""
+    cuda = torch.device("cuda")
+    out = {}
+
+    def all_reduce(dt, op, want):
+        x = torch.full((4,), rank + 1.0, device=cuda, dtype=dt)
+        dist.all_reduce(x, op=op)
+        return torch.all(x == want).item()
+
+    def broadcast():
+        x = torch.full((4,), rank + 1.0, device=cuda)
+        dist.broadcast(x, src=1)
+        return torch.all(x == 2).item()
+
+    def all_gather():
+        parts = [torch.empty(4, device=cuda) for _ in range(2)]
+        dist.all_gather(parts, torch.full((4,), rank + 1.0, device=cuda))
+        return parts[0][0].item() == 1 and parts[1][0].item() == 2
+
+    def send_recv():
+        x = torch.full((4,), 7.0, device=cuda)
+        if rank == 0:
+            dist.send(x, dst=1)
+            dist.barrier()
+            return True
+        y = torch.empty(4, device=cuda)
+        dist.recv(y, src=0)
+        dist.barrier()
+        return torch.all(y == 7).item()
+
+    cases = {"all_reduce sum fp32": lambda: all_reduce(torch.float32, dist.ReduceOp.SUM, 3),
+             "all_reduce sum bf16": lambda: all_reduce(torch.bfloat16, dist.ReduceOp.SUM, 3),
+             "all_reduce max fp32": lambda: all_reduce(torch.float32, dist.ReduceOp.MAX, 2),
+             "broadcast": broadcast, "all_gather": all_gather, "send/recv": send_recv}
+    for name in names:
+        try:
+            out[name] = "ok" if cases[name]() else "wrong result"
+        except Exception as e:      # noqa: BLE001 (the probe records what failed)
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:90]}"
+    return out
+
+
+def dist_probe_worker(rank, world, store, tmp, name):
+    """One unsafe probe case in a pair of its own: its result, or nothing
+    where the process dies (the parent reads which)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=15))
+    res = dist_probe(torch, dist, rank, [name])
+    with open(Path(tmp) / f"probe_{name.replace('/', '_')}_{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def dist_probe_unsafe(tmp):
+    """Start one pair a case of DIST_PROBE_UNSAFE; returns (name, context)."""
+    import torch.multiprocessing as mp
+    return [(name, mp.start_processes(dist_probe_worker, args=(
+        2, str(tmp / f"probe_store_{i}"), str(tmp), name), nprocs=2, join=False,
+        start_method="spawn")) for i, name in enumerate(DIST_PROBE_UNSAFE)]
+
+
+def dist_probe_results(tmp, pairs):
+    """{case: result} of the unsafe probe pairs: a rank's own result, else
+    what ended it."""
+    out = {}
+    for name, ctx in pairs:
+        ended = None
+        try:
+            while not ctx.join(120):
+                pass
+        except Exception as e:      # noqa: BLE001 (a probe pair may die: that is its result)
+            ended = str(e).strip().splitlines()[-1][:120] if str(e).strip() else type(e).__name__
+        res = []
+        for r in range(2):
+            f = tmp / f"probe_{name.replace('/', '_')}_{r}.json"
+            res.append(json.load(open(f))[name] if f.exists() else None)
+        ok = res == ["ok", "ok"]
+        out[name] = "ok" if ok else f"fails: ranks {res}" + (f", {ended}" if ended else "")
+    return out
+
+
+def dist_stats(C, wall):
+    st = C.STATS
+    return {"wall_s": wall, "collective_s": st["seconds"], "calls": st["calls"],
+            "bytes": st["bytes"], "staged_bytes": st["staged_bytes"]}
+
+
+def dist_whole(torch, specs, parts):
+    """Whole leaves from the ranks' local ones along the model axis."""
+    out = {}
+    for n, spec in specs.items():
+        dims = [i for i, a in enumerate(spec) if a]
+        out[n] = parts[0][n] if not dims else torch.cat([p[n] for p in parts], dims[0])
+    return out
+
+
+def dist_worker(rank, world, store, tmp):
+    """One rank of [dist]'s spawned pair, sharing the card over gloo: the
+    probe, then (b) qwen3-1.7b's gradients at model 2, (c) granite's
+    global routing at data 2, (d) pipeline_apply over pod 2 and (e) a
+    checkpoint saved at model 2 and restored at data 2 after ``remesh``;
+    writes what it measured to ``<tmp>/rank<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.fault_tolerance import remesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import init_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import preset_config
+    from repro_torch.models import layers
+    from repro_torch.models.lm import init_params
+    from repro_torch.training import (AdamW, cosine_schedule, init_state, load_state_tree,
+                                      make_train_step, state_tree, step_grads)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    out = {"laps": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        out["laps"][what] = now - t_lap[0]
+        t_lap[0] = now
+
+    try:
+        out["probe"] = dist_probe(torch, dist, rank, DIST_PROBE_SAFE)
+        lap("probe")
+
+        # (b) gradients and launches at model 2, full width
+        cfg = get_config(DIST_ARCH)
+        mesh = make_host_mesh(1, 2)
+        t0 = time.perf_counter()
+        model = init_sharded(cfg, mesh, seed=0, device="cuda").requires_grad_(True)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH, seed=0)
+                            ).batch_at(0)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        step_grads(model, batch)                       # warm: Triton, cuBLAS
+        torch.cuda.synchronize()
+        K.reset_launches()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        loss, grads, _ = step_grads(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save({n: g.bfloat16().cpu() for n, g in grads.items()}, tmp / f"tp_b_{rank}.pt")
+        out["b"] = {"loss": float(loss), "launches": K.launches(),
+                    "local": dataclasses.asdict(model.par.local), "init_s": t_init,
+                    **dist_stats(C, wall)}
+        del model, grads
+        torch.cuda.empty_cache()
+        lap("b")
+
+        # (c) granite cut to 8 layers at data 2: the routing is global, so
+        # every call of the router takes both ranks' rows
+        cfg = served_config(*DIST_MOE)
+        mesh = make_host_mesh(2, 1)
+        model = init_sharded(cfg, mesh, seed=0, device="cuda").requires_grad_(True)
+        raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_SEQ, DIST_BATCH, seed=0)).batch_at(0)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        route, routed = layers.moe_route, []
+
+        def counted(c, p, xt):
+            routed.append(xt.shape[0])
+            return route(c, p, xt)
+
+        layers.moe_route = counted
+        K.reset_launches()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        try:
+            loss, grads, met = step_grads(model, batch)
+            torch.cuda.synchronize()
+        finally:
+            layers.moe_route = route
+        wall = time.perf_counter() - t0
+        out["c"] = {"loss": float(loss), "aux": float(met["aux"]), "launches": K.launches(),
+                    "experts": list(model.par.experts), "routed_rows": routed,
+                    **dist_stats(C, wall)}
+        del model, grads
+        torch.cuda.empty_cache()
+        lap("c")
+
+        # (d) pipeline_apply over pod 2: 14 blocks a stage, 4 microbatches
+        cfg = get_config(DIST_ARCH)
+        mesh = make_host_mesh(pod=2)
+        model = init_params(cfg, seed=0, device="cuda")
+        per = cfg.n_layers // 2
+        mine = range(mesh.index("pod") * per, (mesh.index("pod") + 1) * per)
+        for i in range(cfg.n_layers):                  # each stage keeps its own blocks
+            if i not in mine:
+                model.blocks[i] = torch.nn.Module()
+        torch.cuda.empty_cache()
+        raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_SEQ, DIST_BATCH, seed=0)).batch_at(0)
+        with torch.no_grad():
+            h = model._embed(torch.from_numpy(raw["tokens"]).cuda(),
+                             torch.arange(DIST_SEQ, device="cuda"))
+        K.reset_launches()
+        C.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline_apply(mesh, lambda m, x: m.apply_layers(x, mine), model, h, DIST_PIPE_MB)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save(y.cpu(), tmp / f"pipe_{rank}.pt")
+        out["d"] = {"launches": K.launches(), "stage": mesh.index("pod"), **dist_stats(C, wall)}
+        del model, y, h
+        torch.cuda.empty_cache()
+        lap("d")
+
+        # (e) m100: saved at model 2, restored at data 2 (remesh), resumed
+        cfg = preset_config(get_config(CKPT_ARCH), "m100")
+        opt = AdamW(lr=cosine_schedule(1e-3, warmup=1, total=CKPT_STEPS))
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, CKPT_SEQ, CKPT_BATCH, seed=1))
+        step = make_train_step(cfg, opt)
+
+        def run(state, steps):
+            losses = []
+            for s in steps:
+                b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(s).items()}
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            return state, losses
+
+        mesh = make_host_mesh(1, 2)
+        state = init_state(cfg, opt, 0, "cuda", mesh)
+        C.reset_stats()
+        t0 = time.perf_counter()
+        state, before = run(state, range(CKPT_AT + 1))
+        torch.cuda.synchronize()
+        stats = dist_stats(C, time.perf_counter() - t0)
+        ck = Checkpointer(str(tmp / "ckpt"))
+        tree = state_tree(state)
+        if rank == 0:
+            ck.save(CKPT_AT, tree)
+        dist.barrier()
+        del state
+        regrouped = remesh(model_parallel=1)
+        fresh = init_state(cfg, opt, 1, "cuda", regrouped)
+        restored, _ = ck.restore(state_tree(fresh, gather=False), mesh=regrouped, cfg=cfg)
+        load_state_tree(fresh, restored)
+        # the state restored onto the new mesh, gathered whole, against the
+        # one saved: every leaf bit for bit
+        saved, back = flatten(tree), flatten(state_tree(fresh))
+        equal = ([k for k, _ in saved] == [k for k, _ in back]
+                 and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(saved, back)))
+        del tree, saved, back
+        _, after = run(fresh, range(CKPT_AT + 1, CKPT_STEPS))
+        out["e"] = {"resumed": before + after, "mesh": dict(regrouped.shape),
+                    "restored_equal": equal, "leaves": len(flatten(restored)), **stats}
+        lap("e")
+    finally:
+        with open(tmp / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def dist_references(torch):
+    """The single-rank card runs [dist] holds its pair to, in this process:
+    (b) qwen3-1.7b's gradients of one step (kept on the card) and its
+    weights (returned, for the fp32 CPU run); (c) granite-8l's loss on the
+    same rows; (d) the 28 blocks' output."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models.lm import init_params, loss_fn
+    from repro_torch.training import step_grads
+    cfg = get_config(DIST_ARCH)
+    model = init_params(cfg, seed=0, device="cuda").requires_grad_(True)
+    raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH, seed=0)
+                        ).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    loss, grads, _ = step_grads(model, {k: v.cuda() for k, v in batch.items()})
+    refs = {"b_loss": float(loss), "b_grads": grads, "b_batch": batch,
+            "b_state": {n: p.detach().cpu() for n, p in model.state_dict().items()}}
+    model.requires_grad_(False)
+    raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_SEQ, DIST_BATCH, seed=0)).batch_at(0)
+    tokens = torch.from_numpy(raw["tokens"]).cuda()
+    with torch.no_grad():
+        h = model._embed(tokens, torch.arange(DIST_SEQ, device="cuda"))
+        refs["d_out"] = model.apply_layers(h, range(cfg.n_layers)).float().cpu()
+    del model, h
+    torch.cuda.empty_cache()
+    cfg = served_config(*DIST_MOE)
+    model = init_params(cfg, seed=0, device="cuda")
+    raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_SEQ, DIST_BATCH, seed=0)).batch_at(0)
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        loss, met = loss_fn(model, b["tokens"], b["targets"], mask=b["mask"])
+    refs["c_loss"], refs["c_aux"] = float(loss), float(met["aux"])
+    del model
+    torch.cuda.empty_cache()
+    return refs
+
+
+def dist_fp32_grads(torch, refs):
+    """(b)'s step on the CPU in fp32 from the same weights and tokens (the
+    plain path): the reference the bf16 gradients' rounding is measured
+    from, as [train]'s gradient checks measure it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.training import step_grads
+    cpu = LM(get_config(DIST_ARCH), device="cpu")
+    cpu.load_state_dict(refs["b_state"])
+    cpu = cpu.float().requires_grad_(True)
+    return step_grads(cpu, refs["b_batch"])[1]
+
+
+def launcher_losses(text):
+    import re
+    return [float(m) for m in re.findall(r"^step\s+\d+\s+loss=([\d.]+)", text, re.M)]
+
+
+def launcher_run(argv):
+    """The train launcher through ``torch.distributed.run`` on two
+    processes: (wall s, per-step losses, the output)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "repro_torch.launch.train", *argv]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"{' '.join(cmd)} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return wall, launcher_losses(r.stdout), r.stdout
+
+
+def launcher_here(torch, argv):
+    """The train launcher's ``main`` in this process, a world of one rank
+    (its kernels already built and loaded): (wall s, per-step losses, what
+    it printed)."""
+    import io
+    from repro_torch.launch.train import main as train_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    return wall, launcher_losses(buf.getvalue()), buf.getvalue()
+
+
+def phase_dist(torch, smi, straight):
+    """[dist]: the distributed half on one card, its ranks sharing it over
+    gloo (NCCL refuses two ranks on one device). (a) the train launcher
+    through ``torch.distributed.run`` at (data, model) = (1, 2) on
+    qwen3-1.7b at full width, DIST_STEPS steps of DIST_BATCH x DIST_SEQ,
+    beside the single-rank launcher's ``main`` with the same flags and seed
+    in this process: every step's loss within DIST_TOL (absolute), and the
+    loss at model 2 falling over the run by at least half of what it falls
+    on one rank; both runs' peaks. Then a spawned pair: the gloo probe of
+    CUDA collectives; (b) one step's gradients at model 2
+    against the single-rank card run's: relative Frobenius below DIST_TOL
+    over the whole leaf, or, for a leaf whose bf16 rounding alone moves it
+    further (the qk-norm scales: sums over every token and head that
+    nearly cancel), at most TRAIN_FP32_FACTOR times as far from an fp32
+    CPU run of the same step as the single-rank card run is (the rule of
+    [train]'s gradient checks); the loss within DIST_TOL; each rank's
+    launches exactly ``train_launches`` of its local config; (c)
+    granite-moe-3b-a800m cut to 8 layers at data 2, its routing global
+    (C10): every call of its router on both ranks takes the whole batch's
+    DIST_BATCH x DIST_SEQ rows, and the loss and the aux within
+    DIST_MOE_TOL (absolute) of the single-rank run's on the same rows; (d)
+    ``pipeline_apply`` over pod 2, qwen3-1.7b's 28 blocks 14 a stage,
+    DIST_BATCH x DIST_SEQ in DIST_PIPE_MB microbatches: the output within
+    DIST_TOL (relative Frobenius) of the unsplit forward's, each stage's
+    launches 14 layers x 4 microbatches of its kernels; (e) the m100 preset
+    saved at model 2 and restored at data 2 after ``remesh``: the restored
+    state, gathered, equal to the saved one bit for bit, and every loss of
+    the resumed run within DIST_TOL (absolute) of `straight`, [ckpt]'s
+    straight single-rank run. Prints each run's wall, the host seconds in
+    collective calls (from the point where the rank's queued device work
+    has drained; they hold the wait for the other rank, whose device work
+    shares the card), the bytes staged through the host
+    (``collectives.NATIVE``), and each part's seconds. No tok/s of [dist]
+    is a claim: the ranks share one card's SMs and talk through the host."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import plan
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    print(f"[dist] {smi}; the table of CUDA collectives gloo runs in place: "
+          f"{sorted(C.NATIVE[('gloo', 'cuda')])}, the rest staged through the host")
+    # (a) the entry point
+    argv = ["--arch", DIST_ARCH, "--preset", "full", "--steps", str(DIST_STEPS), "--batch",
+            str(DIST_BATCH), "--seq", str(DIST_SEQ), "--lr", str(DIST_LR), "--seed", "0",
+            "--ckpt-every", "0"]
+    tp_wall, tp_losses, tp_out = launcher_run(argv + ["--data", "1", "--model", "2"])
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    one_wall, one_losses, one_out = launcher_here(torch, argv)
+    K.reset_launches()
+    for line in tp_out.splitlines():
+        if line.startswith(("[dist]", "training", "step")):
+            print(f"[dist] (a) model 2: {line}")
+    for line in one_out.splitlines():
+        if line.startswith(("peak", "training", "step")):
+            print(f"[dist] (a) one rank: {line}")
+    require(len(tp_losses) == len(one_losses) == DIST_STEPS
+            and all(abs(a - b) <= DIST_TOL for a, b in zip(tp_losses, one_losses)),
+            f"(a) losses at model 2 {tp_losses} vs one rank {one_losses}")
+    fall_tp, fall_one = tp_losses[0] - tp_losses[-1], one_losses[0] - one_losses[-1]
+    require(fall_one > 0 and fall_tp >= fall_one / 2,
+            f"(a) the loss falls by {fall_tp} at model 2, by {fall_one} on one rank")
+    print(f"[dist] (a) {DIST_ARCH} {DIST_BATCH} x {DIST_SEQ}, {DIST_STEPS} steps: losses at "
+          f"model 2 {tp_losses}, one rank {one_losses}, within {DIST_TOL}; falling by "
+          f"{fall_tp:.4f} and {fall_one:.4f}; wall {tp_wall:.1f} s (2 ranks through "
+          f"torch.distributed.run, start, init and build included) and {one_wall:.1f} s (one "
+          f"rank, main in this process, which held {held:.2f} GiB before it)")
+    t_a = time.perf_counter() - t_phase
+
+    # the pair reads nothing of this process: the references, the fp32 CPU
+    # run and the probe of send/recv run beside it
+    tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_worker, args=(2, str(tmp / "store"), str(tmp)), nprocs=2,
+                             join=False, start_method="spawn")
+    probes = dist_probe_unsafe(tmp)
+    refs = dist_references(torch)
+    t_refs = time.perf_counter() - t0
+    g32 = dist_fp32_grads(torch, refs)
+    t_fp32 = time.perf_counter() - t0 - t_refs
+    unsafe = dist_probe_results(tmp, probes)
+    while not ctx.join(600):
+        pass
+    t_pair = time.perf_counter() - t0
+    res = [json.load(open(tmp / f"rank{r}.json")) for r in range(2)]
+    print(f"[dist] the spawned pair: {t_pair:.1f} s (rank 0's parts: "
+          f"{json.dumps({k: round(v, 1) for k, v in res[0]['laps'].items()})}, spawn, "
+          f"import and the group before them); beside it the single-rank card references "
+          f"{t_refs:.1f} s, then the fp32 CPU run of (b) {t_fp32:.1f} s")
+    print(f"[dist] gloo on CUDA tensors (probe): {json.dumps({**res[0]['probe'], **unsafe})}")
+    for op in DIST_PROBE_SAFE:
+        require(res[0]["probe"][op] == "ok" == res[1]["probe"][op],
+                f"gloo on CUDA: {op} is in the table of native collectives but failed")
+
+    def show(tag, r, what=""):
+        share = 100 * r["collective_s"] / r["wall_s"]
+        print(f"[dist] {tag} rank {r['rank']}: wall {r['wall_s'] * 1e3:.1f} ms, in collective "
+              f"calls {r['collective_s'] * 1e3:.1f} ms ({share:.1f}%, {r['calls']} calls, "
+              f"{r['bytes'] / 2 ** 20:.1f} MiB in, {r['staged_bytes'] / 2 ** 20:.1f} MiB staged "
+              f"through the host){what}")
+
+    # (b)
+    t0 = time.perf_counter()
+    cfg = get_config(DIST_ARCH)
+    for r, rr in enumerate(res):
+        rr["b"]["rank"] = r
+        local = dataclasses.replace(cfg, **{k: rr["b"]["local"][k] for k in
+                                            ("n_heads", "n_kv_heads", "d_ff")})
+        want = {**dict.fromkeys(K.KERNELS, 0), **train_launches(local)}
+        require(rr["b"]["launches"] == want,
+                f"(b) rank {r}: launches {rr['b']['launches']}, not {want}")
+        show("(b)", rr["b"], f"; loss {rr['b']['loss']:.6f} (one rank {refs['b_loss']:.6f}); "
+             f"launches {json.dumps({k: n for k, n in want.items() if n})}, exact")
+    specs = plan(cfg, Mesh.abstract((1, 2), ("data", "model"))).specs
+    tp = dist_whole(torch, specs, [torch.load(tmp / f"tp_b_{r}.pt") for r in range(2)])
+    rows, noisy, floor = [], [], []
+    for n, g1 in refs["b_grads"].items():     # on the card
+        g1, g, ref = g1.float(), tp[n].cuda().float(), g32[n].cuda().float()
+        rel = ((g - g1).norm() / g1.norm().clamp_min(1e-30)).item()
+        ratio = ((g - ref).norm() / (g1 - ref).norm().clamp_min(1e-30)).item()
+        rows.append((rel, n, ratio))
+        floor.append(((g1 - ref).norm() / ref.norm().clamp_min(1e-30)).item())
+        if rel >= DIST_TOL:
+            noisy.append((ratio, n, rel, floor[-1]))
+    rows.sort(reverse=True)
+    noisy.sort(reverse=True)
+    require(all(ratio <= TRAIN_FP32_FACTOR for ratio, *_ in noisy),
+            f"(b) gradients off: {noisy[:3]}")
+    require(abs(res[0]["b"]["loss"] - refs["b_loss"]) <= DIST_TOL, "(b) loss off")
+    print(f"[dist] (b) {DIST_ARCH} at model 2, {DIST_GRAD_BATCH} x {DIST_GRAD_SEQ}: "
+          f"{len(rows) - len(noisy)} of {len(rows)} gradients within {DIST_TOL} of the "
+          f"single-rank card run's (relative Frobenius over the whole leaf; worst "
+          f"{[(n, round(v, 5)) for v, n, _ in rows[:3]]}); the other {len(noisy)} each at most "
+          f"{TRAIN_FP32_FACTOR}x as far from the fp32 CPU run as the single-rank card run is "
+          f"(ratio, leaf, distance from one rank, one rank's from fp32: "
+          f"{[(round(a, 3), n, round(b, 4), round(c, 4)) for a, n, b, c in noisy[:4]]}); "
+          f"median over the leaves: {statistics.median(r[0] for r in rows):.4f} from the "
+          f"single-rank card run, which is itself {statistics.median(floor):.4f} from fp32 "
+          f"(at most {max(floor):.4f}); the largest ratio {max(r[2] for r in rows):.3f}")
+    del tp, g32, refs["b_grads"], refs["b_state"]
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0
+    # (c)
+    mcfg = served_config(*DIST_MOE)
+    for r, rr in enumerate(res):
+        rr["c"]["rank"] = r
+        want = {**dict.fromkeys(K.KERNELS, 0), **train_launches(mcfg)}
+        require(rr["c"]["launches"] == want, f"(c) rank {r}: launches {rr['c']['launches']}")
+        routed = rr["c"]["routed_rows"]
+        require(len(routed) >= mcfg.n_layers and set(routed) == {DIST_BATCH * DIST_SEQ},
+                f"(c) rank {r}: its router's calls took {routed} rows, not the whole "
+                f"batch's {DIST_BATCH * DIST_SEQ} each")
+        show("(c)", rr["c"], f"; experts {rr['c']['experts']}; {len(routed)} router calls of "
+             f"{routed[0]} rows")
+    c = res[0]["c"]
+    require(abs(c["loss"] - refs["c_loss"]) <= DIST_MOE_TOL
+            and abs(c["aux"] - refs["c_aux"]) <= DIST_MOE_TOL
+            and c["loss"] == res[1]["c"]["loss"],
+            f"(c) loss {c['loss']} (aux {c['aux']}) vs one rank {refs['c_loss']} "
+            f"(aux {refs['c_aux']})")
+    print(f"[dist] (c) {mcfg.name} at data 2, {DIST_BATCH} x {DIST_SEQ}, routed over both "
+          f"ranks' rows: loss {c['loss']:.6f} (aux {c['aux']:.6f}), one rank "
+          f"{refs['c_loss']:.6f} (aux {refs['c_aux']:.6f}), within {DIST_MOE_TOL}")
+    # (d)
+    per = cfg.n_layers // 2
+    for r, rr in enumerate(res):
+        rr["d"]["rank"] = r
+        want = {**dict.fromkeys(K.KERNELS, 0), "flash_attention_wgmma": per * DIST_PIPE_MB,
+                "rmsnorm": 4 * per * DIST_PIPE_MB, "silu_mul": per * DIST_PIPE_MB}
+        require(rr["d"]["launches"] == want, f"(d) stage {r}: launches {rr['d']['launches']}")
+        y = torch.load(tmp / f"pipe_{r}.pt").float()
+        rel = ((y - refs["d_out"]).norm() / refs["d_out"].norm()).item()
+        require(rel < DIST_TOL, f"(d) stage {r}: output off by {rel}")
+        show("(d)", rr["d"], f"; stage {rr['d']['stage']}, its copy of the output {rel:.2e} "
+             "from the unsplit forward (relative Frobenius)")
+    # (e)
+    e = res[0]["e"]
+    e["rank"] = 0
+    show(f"(e) steps 0-{CKPT_AT} at model 2", e)
+    require(e["restored_equal"], "(e) the state restored onto the new mesh differs from the "
+            "saved one")
+    require(len(e["resumed"]) == len(straight)
+            and all(abs(a - b) <= DIST_TOL for a, b in zip(e["resumed"], straight)),
+            f"(e) resumed {e['resumed']} vs straight {straight}")
+    print(f"[dist] (e) m100 saved at model 2 (step {CKPT_AT}), restored onto {e['mesh']} "
+          f"(remesh), its {e['leaves']} leaves gathered equal to the saved ones bit for bit, "
+          f"and resumed: losses {e['resumed']} against the straight single-rank run's of "
+          f"[ckpt] {straight}, within {DIST_TOL} (largest difference "
+          f"{max(abs(a - b) for a, b in zip(e['resumed'], straight)):.2e})")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    K.reset_launches()
+    # each rank's counts were set to 0 before each of (b)-(d) and read just
+    # after; [dist]'s launches of a kernel are their sum over ranks and runs
+    launched = {}
+    for rr in res:
+        for part in ("b", "c", "d"):
+            for name, n in rr[part]["launches"].items():
+                launched[name] = launched.get(name, 0) + n
+    print(f"[dist] launches in (b)-(d), both ranks: "
+          f"{json.dumps({k: n for k, n in launched.items() if n})}")
+    print(f"[dist] seconds: (a) {t_a:.1f}, the pair {t_pair:.1f}, (b)'s checks {t_b:.1f}, "
+          f"the phase {time.perf_counter() - t_phase:.1f}")
+    return launched
 
 
 # ---------------- [study]: the design-space Study on the card ----------------
@@ -4321,6 +4936,13 @@ def phase_trace(smi):
     return launches
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4345,6 +4967,12 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     lap("[build]")
+    if sys.argv[1:] == ["--only", "dist"]:
+        straight = phase_ckpt(torch)
+        lap("[ckpt]")
+        phase_dist(torch, card_line(), straight)
+        lap("[dist]")
+        return
     errs = phase_kernels(torch)
     lap("the kernel checks")
     gemm_counts, gemm_errs, off_path_errs = phase_matmul(torch)
@@ -4407,11 +5035,11 @@ def main():
     for row in rows:
         row["launches_in_train_runs"] = trained[row["name"]]
     rows += bwd_rows
-    phase_ckpt(torch)
+    straight = phase_ckpt(torch)
     lap("[ckpt]")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
+    dist_launches = phase_dist(torch, smi, straight)
+    lap("[dist]")
     tables = phase_study(torch, smi)
     rows.append(tables)
     lap("[study]")
@@ -4420,6 +5048,8 @@ def main():
     tables["launches_by_path"]["[trace]"] = phase_trace(smi)
     tables["launches"] = sum(tables["launches_by_path"].values())
     lap("[trace]")
+    for row in rows:
+        row["launches_in_dist"] = dist_launches.get(row["name"], 0)
     print(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -25,8 +25,13 @@ Guarantees:
     file write on a background thread (training continues); ``wait()``
     joins it and raises what the write raised;
   * keep-N: after each commit only the newest ``keep`` steps remain.
-The JAX ``restore``'s ``shardings`` (placing leaves on a new mesh) waits
-for the distributed slice of the port; leaves restore as CPU tensors.
+Meshes: a sharded run gathers its state whole before it saves
+(``training.state_tree``; rank 0 writes), so the files are a single-rank
+run's. ``restore(..., mesh=, cfg=)`` gives each rank its slices of every
+leaf, by the sharding rules of the mesh it restores onto, which need not be
+the mesh that saved (the JAX ``restore(shardings=)``): save at (data,
+model) = (1, 2), lose a rank or regroup, ``remesh``, restore, go on.
+Leaves restore as CPU tensors.
 """
 from __future__ import annotations
 
@@ -149,10 +154,13 @@ class Checkpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None, mesh=None, cfg=None):
         """template: a tree of the target structure (its leaves' values are
         ignored). Returns (the tree with CPU tensors of the checkpoint's
-        dtypes as leaves, the manifest)."""
+        dtypes as leaves, the manifest). With a `mesh` (and the model's
+        global `cfg`) the tree is a TrainState in the JAX layout and each
+        leaf is this rank's slice of it (``sharding.train_tree_spec``)."""
+        from ..distributed.sharding import shard, train_tree_spec
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -167,6 +175,8 @@ class Checkpointer:
                 if arr.dtype.kind == "V" and dtypes.get(key) != "bfloat16":
                     raise ValueError(f"{key}: raw {arr.dtype} values of dtype "
                                      f"{dtypes.get(key)!r}; only bfloat16 is stored raw")
+                if mesh is not None:
+                    arr = shard(arr, train_tree_spec(mesh, cfg, key, arr.shape), mesh)
                 leaves.append(to_tensor(arr))
         return unflatten(template, iter(leaves)), manifest
 

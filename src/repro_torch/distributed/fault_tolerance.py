@@ -1,18 +1,21 @@
 """Fault tolerance of the port: ``repro.distributed.fault_tolerance``'s
 restart manifest, straggler monitor and failure injector, copied (plain
-Python and numpy). ``remesh``, which builds a device mesh from the
-surviving devices, waits for the distributed slice of the port.
+Python and numpy), and ``remesh``, which builds the largest mesh from the
+surviving ranks with the JAX function's arithmetic.
 
-Recovery on one card: every K steps the trainer commits (checkpoint,
-RestartManifest); on failure the launcher restarts with ``--resume``,
-restores the checkpoint, and skips the data pipeline, a pure function of
-step, to ``manifest.step + 1``, with no data lost or duplicated.
+Recovery: every K steps the trainer commits (checkpoint, RestartManifest);
+on failure the launcher restarts on the surviving ranks, calls ``remesh``,
+restores the checkpoint onto the new mesh (``Checkpointer.restore`` with
+the mesh's specs gives each rank its slices), and skips the data
+pipeline, a pure function of step, to ``manifest.step + 1``, with no data
+lost or duplicated.
 StepMonitor tracks a rolling step-time distribution; steps beyond
 ``threshold_sigma`` trigger the ``on_straggler`` callback.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import asdict, dataclass
@@ -41,6 +44,28 @@ class RestartManifest:
     def load(cls, path: str) -> "RestartManifest":
         with open(path) as f:
             return cls(**json.load(f))
+
+
+def remesh_shape(n: int, model_parallel: int = 1, pods: int = 1) -> tuple:
+    """(pod, data, model) of the largest mesh over `n` ranks: model the gcd
+    of `model_parallel` and n, whole pods, the ranks past the last full
+    model group of each pod dropped (the JAX ``remesh``'s arithmetic)."""
+    model = math.gcd(model_parallel, n)
+    usable_per_pod = (n // pods // model) * model
+    return pods, usable_per_pod // model, model
+
+
+def remesh(ranks=None, model_parallel: int = 1, pods: int = 1):
+    """The largest (pod, data, model) mesh over the surviving `ranks` (the
+    world's by default), the rest dropped: elastic down-scaling. Every rank
+    of the world calls it (the mesh's groups are made collectively); a
+    dropped rank gets a mesh it is not in."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import _build
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    shape = remesh_shape(len(ranks), model_parallel, pods)
+    return _build(shape, ("pod", "data", "model"), ranks[:int(np.prod(shape))])
 
 
 class StepMonitor:

@@ -1,0 +1,530 @@
+"""Sharding rules of the port: ``repro.distributed.sharding`` on a
+``launch.mesh.Mesh``, and what it takes to run them on local shards.
+
+The rules are the JAX module's, leaf for leaf: Megatron TP (column-parallel
+up projections, row-parallel down projections), vocab-parallel embedding
+and head, experts over ``data`` (EP) and TP over their ``d_ff``, ZeRO's
+extra optimizer-state axis, batches over (pod, data), and the decode
+caches' two layouts. A spec is a tuple with one entry per leading dim: an
+axis name, a tuple of axis names, or None; shorter than the leaf's rank
+where the JAX ``PartitionSpec`` is (``()`` replicates). The JAX module's
+global ``_ACTIVE_CFG`` is the explicit ``cfg`` argument here.
+
+The rules match the JAX-layout path of a leaf ("units/u0/attn/wq"), whose
+stacked layers carry a leading unit axis. ``leaf_spec`` gives a port leaf
+(``blocks.<i>.<group>.<name>``) the JAX rule of its JAX leaf, whose shape
+it rebuilds, the leading unit axis then dropped.
+
+To run a spec the port keeps plain local tensors (no DTensor: the kernel
+ops are ctypes and Triton launches on raw pointers, which no DTensor
+dispatch rule reaches): ``shard`` cuts this rank's slice of a whole leaf,
+``gather`` rebuilds the whole leaf from the ranks' slices. ``ModelShard``
+is this rank's share of a model on a (data, model) mesh: the local config
+the layers run (heads, kv heads and ``d_ff`` over ``model``), the vocab
+rows and experts it holds, and the gradient reductions a step needs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from . import collectives as C
+
+DP_AXES = ("pod", "data")     # batch / expert / ZeRO axes
+TP_AXIS = "model"
+
+# (regex on path, candidate trailing-dim specs -- first fully-valid wins)
+_PARAM_RULES = [
+    (r"embed$", [("model", None)]),               # vocab-parallel
+    (r"head$", [(None, "model")]),
+    (r"(wq|wk|wv)$", [(None, "model")]),          # column-parallel
+    (r"(bq|bk|bv)$", [("model",)]),
+    (r"wo$", [("model", None)]),                  # row-parallel
+    (r"moe/router$", [(None, None)]),
+    # EP x TP; when n_experts doesn't divide the data axis (grok: 8 experts
+    # on 16-wide data) fall back to sharding the d_model dim over (pod,)data
+    (r"moe/w_(up|gate)$", [("data", None, "model"),
+                           (None, ("pod", "data"), "model"),
+                           (None, "data", "model"),
+                           (None, None, "model")]),
+    (r"moe/w_down$", [("data", "model", None),
+                      (None, "model", ("pod", "data")),
+                      (None, "model", "data"),
+                      (None, "model", None)]),
+    (r"mlp/w_(up|gate)$", [(None, "model")]),
+    (r"mlp/w_down$", [("model", None)]),
+    (r"(wr|wg)$", [(None, "model")]),             # rwkv head-parallel
+    (r"tmix/wo$", [("model", None)]),
+    (r"cmix/w_up$", [(None, "model")]),
+    (r"cmix/w_down$", [("model", None)]),
+    (r"(w_gate|w_in)$", [(None, "model")]),       # rglru channel-parallel
+    (r"(w_a|w_x)$", [(None, "model")]),
+    (r"rec/w_out$", [("model", None)]),
+    (r"conv_w$", [(None, "model")]),
+    (r"conv_b$", [("model",)]),
+    (r"lam$", [("model",)]),
+]
+
+SMALL_EXPERT_BYTES = 1 << 30    # <1 GiB: TP-only sharding is plenty
+
+
+def _path_str(path) -> str:
+    return path if isinstance(path, str) else "/".join(str(k) for k in path)
+
+
+def _axes(axis) -> tuple:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def _entry(axes):
+    """A spec entry of a tuple of axes, as a JAX ``PartitionSpec`` holds
+    it: None for none, the name alone for one."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _axis_ok(mesh, axis, dim: int) -> bool:
+    if axis is None:
+        return True
+    size = int(np.prod([mesh.shape[a] for a in _axes(axis)]))
+    return dim % size == 0 and dim >= size
+
+
+def _filter_axes(mesh, axis):
+    """Drop mesh axes that don't exist (e.g. 'pod' on the single-pod mesh)."""
+    if axis is None:
+        return None
+    axes = tuple(a for a in _axes(axis) if a in mesh.shape)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def param_spec(mesh, path, shape, cfg: Optional[ModelConfig] = None) -> tuple:
+    """The spec of one parameter leaf at its JAX `path` of JAX `shape`;
+    `cfg` decides whether k/v projections shard or replicate under TP."""
+    s = _path_str(path)
+    shape = tuple(shape)
+    # GQA: when n_kv_heads doesn't divide the TP axis, sharding wk/wv cuts
+    # across head boundaries -- replicate the (small) kv projections
+    if cfg is not None and re.search(r"attn/(wk|wv|bk|bv)$", s):
+        tp = mesh.shape.get(TP_AXIS, 1)
+        if cfg.n_kv_heads and cfg.n_kv_heads % tp != 0:
+            return ()
+    # small MoE expert tensors (granite: 40 x 1536 x 512) stay TP-only
+    if re.search(r"moe/w_(up|down|gate)$", s):
+        if int(np.prod(shape)) * 2 < SMALL_EXPERT_BYTES:
+            tp_dim = len(shape) - 2 if s.endswith("w_down") else len(shape) - 1
+            spec = [None] * len(shape)
+            if _axis_ok(mesh, TP_AXIS, shape[tp_dim]):
+                spec[tp_dim] = TP_AXIS
+            if _axis_ok(mesh, "data", shape[-3]) and shape[-3] > 1:
+                spec[-3] = "data"       # E over data when it divides
+            return tuple(spec)
+    for pat, candidates in _PARAM_RULES:
+        if not re.search(pat, s):
+            continue
+        for trailing in candidates:
+            nlead = len(shape) - len(trailing)
+            if nlead < 0:
+                continue
+            spec = [None] * nlead + [_filter_axes(mesh, a) for a in trailing]
+            if all(_axis_ok(mesh, a, shape[i]) for i, a in enumerate(spec)):
+                return tuple(spec)
+        # last resort: the first candidate with invalid axes dropped
+        trailing = candidates[0]
+        nlead = len(shape) - len(trailing)
+        spec = [None] * max(nlead, 0) + [_filter_axes(mesh, a)
+                                         for a in trailing][:len(shape)]
+        return tuple(a if _axis_ok(mesh, a, shape[i]) else None for i, a in enumerate(spec))
+    return ()     # replicate (norms, small vectors)
+
+
+def zero_spec(mesh, path, shape, cfg: Optional[ModelConfig] = None) -> tuple:
+    """ZeRO: the parameter's spec with one replicated dim of the optimizer
+    state further sharded over the (pod,)data axes."""
+    shape = tuple(shape)
+    base = param_spec(mesh, path, shape, cfg)
+    spec = list(base) + [None] * (len(shape) - len(base))
+    used = {ax for a in spec for ax in _axes(a) if ax}
+    free = tuple(a for a in DP_AXES if a in mesh.shape and a not in used)
+    if free:
+        for i, a in enumerate(spec):
+            if a is None and _axis_ok(mesh, free, shape[i]):
+                spec[i] = free if len(free) > 1 else free[0]
+                break
+        else:
+            for i, a in enumerate(spec):
+                if a is None and _axis_ok(mesh, free[0], shape[i]):
+                    spec[i] = free[0]
+                    break
+    return tuple(spec)
+
+
+def batch_spec(mesh, batch: int) -> tuple:
+    """Shard batch over (pod, data) when divisible; fall back gracefully."""
+    axes = [a for a in DP_AXES if a in mesh.shape]
+    full = int(np.prod([mesh.shape[a] for a in axes]))
+    if batch % full == 0:
+        return (_entry(axes),)
+    if "data" in mesh.shape and batch % mesh.shape["data"] == 0:
+        return ("data",)
+    return ()
+
+
+def _batch_axes(mesh, batch: int):
+    """Mesh axes (tuple) to shard a batch dim over, or None."""
+    axes = tuple(a for a in DP_AXES if a in mesh.shape)
+    full = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    if axes and batch % full == 0 and batch >= full:
+        return axes
+    if "data" in mesh.shape and batch % mesh.shape["data"] == 0 \
+            and batch >= mesh.shape["data"]:
+        return ("data",)
+    return None
+
+
+def data_shardings(mesh, shapes: dict) -> dict:
+    """Specs of the input arrays (tokens/targets/mask/frontend) by their
+    shapes: the leading batch dim over the DP axes."""
+    return {name: tuple([_entry(_batch_axes(mesh, shape[0]))] + [None] * (len(shape) - 1))
+            for name, shape in shapes.items()}
+
+
+def cache_spec(mesh, path, shape, batch: int, kv_mode: str = "channel") -> tuple:
+    """KV caches / recurrent state: batch over DP axes + one TP dim.
+
+    kv_mode="channel" (Megatron's layout): the fused H*dh channel dim
+    shards over model. kv_mode="sequence" (split-KV): the time dim shards
+    over model, each shard's softmax partials combined by a (B, H)
+    all-reduce."""
+    s = _path_str(path)
+    shape = tuple(shape)
+    if s.endswith("pos") or s.endswith("enc_out"):
+        ba = _batch_axes(mesh, shape[0]) if shape else None
+        return tuple([_entry(ba)] + [None] * (len(shape) - 1)) if shape else ()
+    spec = [None] * len(shape)
+    n = len(shape)
+    is_kv = s.endswith("/k") or s.endswith("/v") or s.endswith("xk") or s.endswith("xv")
+    if s.endswith("state"):
+        tp_try = [n - 3, n - 2]           # rwkv state (.., H, N, N)
+    elif is_kv and kv_mode == "sequence" and n >= 3:
+        tp_try = [n - 2]                  # time axis of (.., T, H*dh)
+    else:
+        tp_try = [n - 1]                  # fused kv channels / (.., d)
+    for i, d in enumerate(shape):
+        if d == batch:
+            spec[i] = _entry(_batch_axes(mesh, batch))
+            for j in tp_try:
+                if j > i and _axis_ok(mesh, TP_AXIS, shape[j]) and shape[j] > 1:
+                    spec[j] = TP_AXIS
+                    break
+            break
+    return tuple(spec)
+
+
+def cache_shardings(mesh, leaves: dict, batch: int, kv_mode: str = "channel",
+                    cfg: Optional[ModelConfig] = None) -> dict:
+    """Specs of cache leaves {path: shape}. kv_mode "auto" is the measured
+    policy: channel sharding where kv heads divide the model axis, else
+    sequence sharding."""
+    if kv_mode == "auto":
+        tp = mesh.shape.get(TP_AXIS, 1)
+        kvh = cfg.n_kv_heads if cfg is not None else 0
+        kv_mode = "channel" if (kvh and kvh % tp == 0) else "sequence"
+    return {p: cache_spec(mesh, p, shape, batch, kv_mode) for p, shape in leaves.items()}
+
+
+# ---------------------------------------------------------------------------
+# port leaves and the JAX layout
+# ---------------------------------------------------------------------------
+
+def jax_leaf(cfg: ModelConfig, name: str, shape) -> tuple:
+    """(JAX path, JAX shape, stacked) of the port leaf `name` of `shape`:
+    a layer of a repeated unit (or an encoder layer) gains the leading unit
+    axis of the JAX tree."""
+    from ..models.bridge import _layer_prefixes
+    from ..models.lm import unit_structure
+    for (place, sub), prefix, r in _layer_prefixes(cfg):
+        if name.startswith(prefix + "."):
+            rest = name[len(prefix) + 1:].replace(".", "/")
+            if r is None:
+                return f"{place}/{sub}/{rest}", tuple(shape), False
+            n = cfg.n_encoder_layers if place == "enc" else unit_structure(cfg)[1]
+            return f"{place}/{sub}/{rest}", (n,) + tuple(shape), True
+    return name.replace(".", "/"), tuple(shape), False
+
+
+def leaf_spec(mesh, cfg: ModelConfig, name: str, shape) -> tuple:
+    """The spec of the port leaf `name` (its own, unstacked `shape`): the
+    JAX rule of its JAX leaf, the leading unit axis dropped."""
+    path, jshape, stacked = jax_leaf(cfg, name, shape)
+    spec = param_spec(mesh, path, jshape, cfg)
+    return spec[1:] if stacked and spec else spec
+
+
+def train_tree_spec(mesh, cfg: ModelConfig, key: str, shape) -> tuple:
+    """The spec of a checkpoint leaf of a TrainState in the JAX layout
+    (``.params/...``, ``.opt/.master/...``, ``.opt/.m/...``,
+    ``.opt/.v/...``; ``.opt/.step`` replicated): the parameter's spec, the
+    optimizer state placed as its parameter (ZeRO's extra axis is A12b)."""
+    for prefix in (".params/", ".opt/.master/", ".opt/.m/", ".opt/.v/"):
+        if key.startswith(prefix):
+            return param_spec(mesh, key[len(prefix):], shape, cfg)
+    return ()
+
+
+def _spec_axes(spec) -> tuple:
+    """The mesh axes a spec shards over."""
+    return tuple(x for a in spec if a for x in _axes(a))
+
+
+def _spec_entries(spec, ndim: int):
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def shard(t, spec, mesh):
+    """This rank's slice of the whole leaf `t` (a tensor or numpy array)
+    under `spec`: along each sharded dim, the part of its axes' size at
+    this rank's index (the first axis of a tuple the major one). A view."""
+    idx = []
+    for d, a in zip(t.shape, _spec_entries(spec, t.ndim)):
+        if a is None:
+            idx.append(slice(None))
+            continue
+        n = d // mesh.axis_size(a)
+        i = mesh.index(a)
+        idx.append(slice(i * n, (i + 1) * n))
+    return t[tuple(idx)]
+
+
+def gather(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from the ranks' slices `t` under `spec` (every rank of
+    the axes takes part). A tuple of axes gathers its minor axis first."""
+    for dim, a in enumerate(_spec_entries(spec, t.ndim)):
+        if a is None:
+            continue
+        for ax in reversed(_axes(a)):
+            t = C.all_gather(t.contiguous(), mesh.group(ax), dim=dim)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# a model on local shards
+# ---------------------------------------------------------------------------
+
+#: the most elements ``ModelShard.sync_grads`` all-reduces in one call
+SYNC_BUCKET = 1 << 26
+
+_NO_TP = (("attention_free", "RWKV6's head-parallel wkv and its (wr|wg), tmix/wo"),
+          ("block_pattern", "the channel-parallel RG-LRU (rec/w_out, conv_*, lam)"),
+          ("cross_attention", "the encoder-decoder's cross-attention"),
+          ("cross_attn_layers", "the vision cross layers"))
+
+
+@dataclasses.dataclass
+class ModelShard:
+    """This rank's share of a model of `cfg` on `mesh` (a (data, model)
+    mesh, or (pod, data, model) with one pod): `local` is the config its
+    layers run (``n_heads``, ``n_kv_heads`` unless replicated, ``d_ff``
+    over model), `specs` each leaf's spec and `shapes` its whole shape,
+    `vocab` the padded-vocab rows [lo, hi) it holds, `kv_heads` (first,
+    count) of the replicated kv heads its q heads read (None where the kv
+    projections shard), `experts` (first, end) of the experts it runs over
+    the data axis, `model_partial` the leaves replicated over model whose
+    gradients each rank holds a part of (the qk-norm scales: each rank's
+    act on its own heads)."""
+    mesh: object
+    cfg: ModelConfig
+    local: ModelConfig
+    specs: dict
+    shapes: dict
+    vocab: tuple
+    kv_heads: Optional[tuple]
+    experts: tuple
+    model_partial: frozenset
+
+    @property
+    def model_group(self):
+        return self.mesh.group(TP_AXIS)
+
+    @property
+    def data_group(self):
+        return self.mesh.group("data")
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape.get("data", 1)
+
+    @property
+    def tp(self) -> bool:
+        return self.mesh.shape.get(TP_AXIS, 1) > 1
+
+    def local_rows(self, a, microbatches: int = 1):
+        """This data rank's rows of a global batch array: the batch split
+        into `microbatches` first, then each microbatch's rows over data
+        (the JAX step's ``_shard_microbatch``), flattened back."""
+        D = self.data_size
+        if a is None or D == 1:
+            return a
+        mb = a.shape[0] // microbatches
+        if mb % D:
+            raise ValueError(f"a microbatch of {mb} rows does not split over data {D}")
+        r = self.mesh.index("data")
+        part = a.reshape(microbatches, mb, *a.shape[1:])[:, r * mb // D:(r + 1) * mb // D]
+        return part.reshape(-1, *a.shape[1:])
+
+    def sync_grads(self, grads: dict) -> dict:
+        """Gradients of the whole step from this rank's: fp32, summed over
+        data for every leaf not sharded over data, and over model for the
+        `model_partial` leaves; in buckets of at most SYNC_BUCKET elements."""
+        out = {n: g.float() for n, g in grads.items()}
+        for axis, names in (("data", [n for n in out if "data" not in _spec_axes(self.specs[n])]),
+                            (TP_AXIS, [n for n in out if n in self.model_partial])):
+            group = self.mesh.group(axis)
+            if group is None:
+                continue
+            i = 0
+            while i < len(names):
+                chunk, size = [], 0
+                while i < len(names) and (not chunk or size + out[names[i]].numel() <= SYNC_BUCKET):
+                    chunk.append(names[i])
+                    size += out[names[i]].numel()
+                    i += 1
+                flat = C.all_reduce(torch.cat([out[n].reshape(-1) for n in chunk]), group)
+                for n, part in zip(chunk, flat.split([out[n].numel() for n in chunk])):
+                    out[n] = part.view_as(out[n])
+        return out
+
+    def global_sq(self, sq: dict) -> torch.Tensor:
+        """The squared norm of the whole step's gradients from this rank's
+        per-leaf squared norms (after ``sync_grads``): each leaf over its
+        replicas once, summed over the mesh."""
+        total = sum(s / (self.mesh.size // self.mesh.axis_size(_spec_axes(self.specs[n])))
+                    for n, s in sq.items())
+        for axis in self.mesh.axis_names:
+            total = C.all_reduce(total, self.mesh.group(axis))
+        return total
+
+    def gather_state(self, tensors: dict) -> dict:
+        """Whole leaves on the host from this rank's slices, keyed as
+        `tensors` (every rank of the mesh takes part)."""
+        return {n: gather(t.detach(), self.specs[n], self.mesh).cpu() for n, t in tensors.items()}
+
+
+def check_executable(cfg: ModelConfig, mesh) -> None:
+    """Raise where the port cannot run `cfg` on local shards of `mesh`:
+    NotImplementedError naming A12b for TP of the recurrent and
+    cross-attending models, ValueError naming the dim for heads, d_ff or a
+    padded vocab that the model axis does not divide, or for a pod axis
+    (pipeline stages run through ``pipeline_apply``)."""
+    from ..models.lm import padded_vocab
+    if mesh.shape.get("pod", 1) > 1:
+        raise ValueError(f"a pod axis of {mesh.shape['pod']}: pipeline stages run through "
+                         "distributed.pipeline.pipeline_apply; a train step takes a "
+                         "(data, model) mesh")
+    m = mesh.shape.get(TP_AXIS, 1)
+    if m == 1:
+        return
+    for field, what in _NO_TP:
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism of {what} ({field}) is ROADMAP A12b; "
+                "run it data-parallel (--model 1)")
+    for field, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                     ("padded vocab", padded_vocab(cfg))):
+        if n % m:
+            raise ValueError(f"{cfg.name}: {field} = {n} does not divide over model = {m}: "
+                             "local shards would split it mid-way")
+    hkv = cfg.n_kv_heads
+    if hkv % m:
+        H_loc, G = cfg.n_heads // m, cfg.n_heads // hkv
+        if H_loc % G and G % H_loc:
+            raise ValueError(f"{cfg.name}: n_heads / model = {H_loc} local q heads do not "
+                             f"fall in whole groups of G = {G} over the replicated kv heads")
+
+
+def plan(cfg: ModelConfig, mesh) -> ModelShard:
+    """This rank's ``ModelShard`` of `cfg` on `mesh`; raises as
+    ``check_executable`` does, and NotImplementedError for a rule that puts
+    a dim the layers do not split over data (grok's d_model at a data
+    axis its experts do not divide)."""
+    from ..models.lm import LM, padded_vocab
+    check_executable(cfg, mesh)
+    m, r = mesh.shape.get(TP_AXIS, 1), mesh.index(TP_AXIS)
+    meta = LM(cfg, None, "meta")
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    specs = {n: leaf_spec(mesh, cfg, n, s) for n, s in shapes.items()}
+    for n, spec in specs.items():
+        for dim, a in enumerate(spec):
+            if a is not None and a != TP_AXIS and not (".moe.w_" in n and dim == 0):
+                raise NotImplementedError(f"{cfg.name}: {n} is sharded {spec}: the port runs "
+                                          "experts over data on their expert axis only")
+    hkv, kv_heads = cfg.n_kv_heads, None
+    if m > 1 and hkv and hkv % m:
+        H_loc, G = cfg.n_heads // m, cfg.n_heads // hkv
+        first = r * H_loc // G
+        kv_heads = (first, max(H_loc // G, 1))
+    local = dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // m,
+        n_kv_heads=hkv if kv_heads or not hkv else hkv // m,
+        d_ff=cfg.d_ff // m)
+    vpad = padded_vocab(cfg)
+    vocab = (r * vpad // m, (r + 1) * vpad // m) if specs["embed"] else (0, vpad)
+    E, D = cfg.n_experts, mesh.shape.get("data", 1)
+    e_pad = -(-E // D) * D if E else 0          # the JAX _moe_pad_experts
+    i = mesh.index("data")
+    experts = (min(i * e_pad // D, E), min((i + 1) * e_pad // D, E))
+    # the qk-norm scales act on local heads: each rank's gradient is its
+    # heads' part (replicated kv heads are whole on every rank: lm.py)
+    partial = {n for n in shapes if m > 1 and (
+        n.endswith("attn.q_norm") or (n.endswith("attn.k_norm") and not kv_heads))}
+    return ModelShard(mesh, cfg, local, specs, shapes, vocab, kv_heads, experts,
+                      frozenset(partial))
+
+
+def init_sharded(cfg: ModelConfig, mesh, seed: int = 0, device=None):
+    """The model of ``models.init_params(cfg, seed, device)`` on local
+    shards: every leaf drawn whole from the same seeded generator, in the
+    same order, and cut to this rank's slice before the next is drawn, so
+    each rank's shard equals the single-rank model's slice and no rank
+    holds the whole model. Returns the ``LM`` with ``par`` set."""
+    from ..device import resolve_device
+    from ..models import layers as L
+    from ..models.lm import LM
+    par = plan(cfg, mesh)
+    dev = resolve_device(device)
+    drawn = []
+    meta = LM(cfg, L.Draws(None, lambda p: drawn.append(p) or p), "meta")
+    names = {id(p): n for n, p in meta.named_parameters()}
+    order = iter([names[id(p)] for p in drawn])
+    model = LM(cfg, L.Draws(torch.Generator(dev).manual_seed(seed), lambda p: L._param(
+        shard(p.data, par.specs[next(order)], mesh).clone())), dev)
+    return attach(model, par)
+
+
+def attach(model, par: ModelShard):
+    """Set `model` (built whole, or by ``init_sharded``) to run on `par`'s
+    shards: each leaf cut to its slice where it is whole, the layers'
+    config the local one. Returns the model."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if tuple(p.shape) == par.shapes[n] and _spec_axes(par.specs[n]):
+                p.data = shard(p.data, par.specs[n], par.mesh).clone()
+    model.cfg = par.local
+    model.par = par
+    for blk in model.blocks:
+        blk.par = par
+    return model
+
+
+__all__ = ["DP_AXES", "TP_AXIS", "SMALL_EXPERT_BYTES", "param_spec", "zero_spec", "batch_spec",
+           "data_shardings", "cache_spec", "cache_shardings", "jax_leaf", "leaf_spec",
+           "train_tree_spec", "shard", "gather", "ModelShard", "check_executable",
+           "plan", "init_sharded", "attach"]

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from ..kernels.flash_attention.ops import flash_attention as _flash_op
 from ..kernels.flash_attention.ref import NEG_INF, attention_ref
 from ..kernels.gelu.ops import gelu, gelu_mul, silu_mul
@@ -36,15 +37,30 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _init(gen: Optional[torch.Generator], shape, scale: float = 0.02,
+class Draws:
+    """What an init draws from where each leaf passes through `cut` as it
+    is made: ``distributed.sharding.init_sharded`` keeps a rank's slice
+    there. `gen` a ``torch.Generator``, or None for shapes only (the meta
+    device)."""
+
+    def __init__(self, gen: Optional[torch.Generator], cut):
+        self.gen, self.cut = gen, cut
+
+
+def _init(gen, shape, scale: float = 0.02,
           device=None, dtype: torch.dtype = torch.bfloat16) -> nn.Parameter:
     """N(0, scale^2) drawn in fp32, stored as `dtype`, bf16 by default (as
-    ``layers._init``). With no generator (the meta device) only the shape is
-    made."""
+    ``layers._init``). `gen` a ``torch.Generator``, a ``Draws``, or None:
+    no generator (the meta device) makes only the shape."""
+    cut = None
+    if isinstance(gen, Draws):
+        gen, cut = gen.gen, gen.cut
     if gen is None:
-        return _param(torch.empty(shape, dtype=dtype, device=device))
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return _param(x.mul_(scale).to(dtype))
+        p = _param(torch.empty(shape, dtype=dtype, device=device))
+    else:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        p = _param(x.mul_(scale).to(dtype))
+    return p if cut is None else cut(p)
 
 
 # ---------------------------------------------------------------------------
@@ -195,15 +211,9 @@ def attn_q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(q, p["q_norm"]) if cfg.qk_norm else q
 
 
-def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope=None,
-             kv_src: Optional[torch.Tensor] = None):
-    """q (B, S, Hq, dh) and k, v (B, Sk, Hkv, dh). Self-attention: k and v
-    from x (Sk = S), q and k rotated by rope, ``rope_tables(cfg,
-    positions)`` of the step (the JAX function takes the positions and
-    builds the tables in every layer). Cross-attention: k and v from
-    `kv_src` (B, Sk, d), and no RoPE, as the JAX function applies none when
-    given a ``kv_src``; qk-norm applies either way."""
-    src = x if kv_src is None else kv_src
+def attn_kv(cfg: ModelConfig, p: Params, src: torch.Tensor, rope=None):
+    """k, v (B, Sk, Hkv, dh) from src (B, Sk, d): the projections, their
+    biases, the k-norm, and k rotated by `rope` where given."""
     B, Sk, _ = src.shape
     k = src @ p["wk"]
     v = src @ p["wv"]
@@ -214,10 +224,21 @@ def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope=None,
     v = v.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
+    return (k if rope is None else rotate(k, rope)), v
+
+
+def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope=None,
+             kv_src: Optional[torch.Tensor] = None):
+    """q (B, S, Hq, dh) and k, v (B, Sk, Hkv, dh). Self-attention: k and v
+    from x (Sk = S), q and k rotated by rope, ``rope_tables(cfg,
+    positions)`` of the step (the JAX function takes the positions and
+    builds the tables in every layer). Cross-attention: k and v from
+    `kv_src` (B, Sk, d), and no RoPE, as the JAX function applies none when
+    given a ``kv_src``; qk-norm applies either way."""
+    self_rope = rope if kv_src is None else None
+    k, v = attn_kv(cfg, p, x if kv_src is None else kv_src, self_rope)
     q = attn_q(cfg, p, x)
-    if kv_src is not None or rope is None:
-        return q, k, v
-    return rotate(q, rope), rotate(k, rope), v
+    return (q if self_rope is None else rotate(q, self_rope)), k, v
 
 
 def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
@@ -302,7 +323,7 @@ def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor):
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              capacity_factor: float = 1.25, with_aux: bool = True):
+              capacity_factor: float = 1.25, with_aux: bool = True, par=None):
     """Top-k routed experts with a capacity and drop, as the JAX
     ``moe_apply``: x (B, S, d) -> (y (B, S, d), the Switch aux loss ``E *
     sum(mean probs * routed share)``, or None where `with_aux` is False, as
@@ -317,11 +338,24 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Fixed shapes and no host sync: the dropped rows are written to one
     overflow row past the E buffers, which is sliced off. The k outputs of a
     token are weighted by their gates and summed in fp32, then rounded to
-    bf16 once (the JAX model rounds each term and adds them in bf16)."""
+    bf16 once (the JAX model rounds each term and adds them in bf16).
+
+    On a mesh (`par`, a ``distributed.sharding.ModelShard``): the data
+    ranks' token rows are gathered first and routed together, so the
+    capacity and the drops are those of the whole batch, as the JAX layer's
+    (C10); this rank runs its experts (``par.experts``, of the expert count
+    padded to a multiple of data as the JAX ``_moe_pad_experts`` pads it;
+    the padded experts route no token) over that buffer, each expert's
+    d_ff over model between Megatron's f and g; the weighted sums are added
+    over data in fp32 and this rank's rows kept."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    xt = x.reshape(T, d)
+    data = model = None
+    e0, e1 = 0, E
+    if par is not None:
+        data, model, (e0, e1) = par.data_group, par.model_group, par.experts
+    xt = C.gather_rows(x.reshape(B * S, d), data)
+    T = xt.shape[0]
     probs, gate, idx = moe_route(cfg, p, xt)
     capacity = max(1, int(capacity_factor * T * k / E))
     flat = idx.reshape(-1)                                         # (T*k,)
@@ -331,19 +365,30 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # (T*k rows of E columns) each of its E threads would walk all T*k rows
     pos = onehot.cumsum(1, dtype=torch.int32).gather(0, flat[None])[0] - 1
     keep = pos < capacity
-    slot = flat * capacity + pos.clamp(max=capacity - 1)
-    buf = xt.new_zeros((E * capacity + 1, d))
-    buf[torch.where(keep, slot, E * capacity)] = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    hidden = buf[:-1].view(E, capacity, d)
-    up = torch.bmm(hidden, p["w_up"]).view(E * capacity, -1)
-    if cfg.mlp_gated:
-        gated = gelu_mul if cfg.activation == "gelu" else silu_mul
-        h = gated(torch.bmm(hidden, p["w_gate"]).view(E * capacity, -1), up)
+    ne = e1 - e0
+    if par is not None:
+        keep = keep & (flat >= e0) & (flat < e1)
+    if ne:
+        slot = (flat - e0).clamp(0, ne - 1) * capacity + pos.clamp(max=capacity - 1)
+        buf = xt.new_zeros((ne * capacity + 1, d))
+        buf[torch.where(keep, slot, ne * capacity)] = \
+            xt[:, None].expand(T, k, d).reshape(T * k, d)
+        hidden = C.copy_to_model(buf[:-1].view(ne, capacity, d), model)
+        w = {n: p[n][e0:e1] if p[n].shape[0] == E else p[n]
+             for n in ("w_up", "w_gate", "w_down") if n in p}
+        up = torch.bmm(hidden, w["w_up"]).view(ne * capacity, -1)
+        if cfg.mlp_gated:
+            gated = gelu_mul if cfg.activation == "gelu" else silu_mul
+            h = gated(torch.bmm(hidden, w["w_gate"]).view(ne * capacity, -1), up)
+        else:
+            h = gelu(up)
+        out = torch.bmm(h.view(ne, capacity, -1), w["w_down"]).view(ne * capacity, d)
+        out = C.reduce_from_model(out, model)
+        terms = out[slot].float() * torch.where(keep, gate.reshape(-1), 0.0)[:, None]
+        y = terms.view(T, k, d).sum(1)
     else:
-        h = gelu(up)
-    out = torch.bmm(h.view(E, capacity, -1), p["w_down"]).view(E * capacity, d)
-    terms = out[slot].float() * torch.where(keep, gate.reshape(-1), 0.0)[:, None]
-    y = terms.view(T, k, d).sum(1).to(x.dtype)
+        y = xt.new_zeros((T, d), dtype=torch.float32)
+    y = C.reduce_scatter_rows(y, data).to(x.dtype)
     if not with_aux:
         return y.view(B, S, d), None
     aux = E * torch.sum(probs.mean(0) * onehot.sum(1) / (T * k))
@@ -353,5 +398,5 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
 __all__ = ["NEG_INF", "Params", "rms_norm", "layer_norm", "norm_init",
            "apply_norm", "rope_frequencies", "rope_tables", "rotate",
            "apply_rope", "sinusoidal_positions", "flash_attention",
-           "attention_reference", "attn_init", "attn_qkv", "attn_out",
+           "attention_reference", "attn_init", "attn_q", "attn_kv", "attn_qkv", "attn_out",
            "mlp_init", "mlp_apply", "moe_init", "moe_route", "moe_apply"]

@@ -86,6 +86,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import collectives as C
 from ..kernels.decode_attention.ops import attend_all_keys, decode_attention
 from . import layers as L
 from . import recurrent as R
@@ -199,17 +200,23 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Padded vocab entries must never win: -1e30 them."""
-    if logits.shape[-1] == cfg.vocab_size:
+def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """Padded vocab entries must never win: -1e30 them. `logits` hold the
+    padded vocab's columns from `first` on (a vocab-parallel rank's), so the
+    pads are those of global index vocab_size and up."""
+    if first + logits.shape[-1] <= cfg.vocab_size:
         return logits
-    idx = torch.arange(logits.shape[-1], device=logits.device)
+    idx = first + torch.arange(logits.shape[-1], device=logits.device)
     return logits.masked_fill(idx >= cfg.vocab_size, -1e30)
 
 
 class Block(nn.Module):
     """One pre-norm decoder layer: attention then the MLP, or the MoE layer
-    (``moe``, under the JAX key) where the config has experts."""
+    (``moe``, under the JAX key) where the config has experts. ``par`` is
+    the model's ``ModelShard`` on a mesh (``distributed.sharding.attach``
+    sets it), None on one rank."""
+
+    par = None
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
         super().__init__()
@@ -228,16 +235,23 @@ class Block(nn.Module):
         one is given, and computes none where it is None (serving)."""
         h = L.apply_norm(cfg, self.ln2, x)
         if cfg.n_experts:
-            y, a = L.moe_apply(cfg, self.moe, h, with_aux=aux is not None)
+            on_mesh = {} if self.par is None else {"par": self.par}
+            y, a = L.moe_apply(cfg, self.moe, h, with_aux=aux is not None, **on_mesh)
             if aux is not None:
                 aux.append(a)
             return x + y
+        if self.par is not None and self.par.tp:
+            # column-parallel up (and gate), row-parallel down: f and g
+            g = self.par.model_group
+            return x + C.reduce_from_model(
+                L.mlp_apply(cfg, self.mlp, C.copy_to_model(h, g)), g)
         return x + L.mlp_apply(cfg, self.mlp, h)
 
 
 class RGLRUBlock(nn.Module):
     """One Griffin recurrent layer: RMSNorm, RG-LRU block, RMSNorm, MLP."""
 
+    par = None
     mlp_residual = Block.mlp_residual
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
@@ -259,6 +273,8 @@ class RGLRUBlock(nn.Module):
 
 class RWKVBlock(nn.Module):
     """One RWKV6 layer: LayerNorm, time mix, LayerNorm, channel mix."""
+
+    par = None
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
         super().__init__()
@@ -300,6 +316,7 @@ class XAttnBlock(nn.Module):
     gated by ``tanh(xgate)`` (an fp32 scalar, 0 at init as in JAX), norm,
     MLP. It has no self-attention."""
 
+    par = None
     mlp_residual = Block.mlp_residual
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device):
@@ -319,7 +336,21 @@ class LM(nn.Module):
     """The model on `device` (``cuda`` unless the caller names another).
     With a generator its weights are drawn as ``init_params`` draws them;
     without one they are left uninitialised, to be filled by
-    ``load_state_dict``."""
+    ``load_state_dict``.
+
+    On a mesh (``par``, set by ``distributed.sharding.init_sharded`` or
+    ``attach``) the model holds this rank's shards and ``cfg`` is the local
+    config. Tensor parallelism (a model axis over 1) runs Megatron's layout
+    on them: the embedding and the head vocab-parallel (each rank looks up
+    its own rows and the lookups are added over model; the logits stay
+    split over the vocab, ``loss_fn`` reduces them), q, k, v and the MLP's
+    up and gate column-parallel behind f, the attention output and the
+    MLP's down projection row-parallel before g (``distributed.
+    collectives``). Where the kv heads replicate (``par.kv_heads``) each
+    rank computes all of them and keeps those its q heads read. A train
+    step only: prefill and decode on a model axis are ROADMAP A12b."""
+
+    par = None
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
                  device=None):
@@ -345,7 +376,14 @@ class LM(nn.Module):
         """Token embeddings, plus the sinusoidal table at `positions` (its
         fp32 rows rounded to bf16, then added) for an attention config
         without RoPE."""
-        x = self.embed[tokens]
+        par = self.par
+        if par is not None and par.tp:
+            lo, hi = par.vocab
+            own = (tokens >= lo) & (tokens < hi)
+            rows = self.embed[(tokens - lo).clamp(0, hi - lo - 1)]
+            x = C.reduce_from_model(torch.where(own[..., None], rows, 0.0), par.model_group)
+        else:
+            x = self.embed[tokens]
         if self.cfg.rope_fraction == 0.0 and not self.cfg.attention_free:
             x = x + L.sinusoidal_positions(positions, self.cfg.d_model).to(x.dtype)
         return x
@@ -353,16 +391,53 @@ class LM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.apply_norm(self.cfg, self.final_norm, x)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
+        if self.par is not None and self.par.tp:
+            x = C.copy_to_model(x, self.par.model_group)
+            return _mask_pad_logits(self.cfg, x @ head, self.par.vocab[0])
         return _mask_pad_logits(self.cfg, x @ head)
 
     def _attention(self, blk: Block, x: torch.Tensor, rope):
         """(x after the layer's attention residual, its k, v) over the whole
         sequence: causal, under the config's window."""
-        cfg = self.cfg
-        q, k, v = L.attn_qkv(cfg, blk.attn, L.apply_norm(cfg, blk.ln1, x), rope)
+        cfg, par = self.cfg, self.par
+        h = L.apply_norm(cfg, blk.ln1, x)
+        tp = par is not None and par.tp
+        if tp and par.kv_heads:
+            # replicated kv heads: every rank computes all of them from its
+            # unreduced input, f after them (its backward adds the ranks'
+            # key and value gradients, so the kv projections' gradients are
+            # whole on each rank), and keeps those its q heads read
+            g = par.model_group
+            q = L.rotate(L.attn_q(cfg, blk.attn, C.copy_to_model(h, g)), rope)
+            first, n = par.kv_heads
+            k, v = (C.copy_to_model(t, g)[:, :, first:first + n]
+                    for t in L.attn_kv(cfg, blk.attn, h, rope))
+        else:
+            q, k, v = L.attn_qkv(cfg, blk.attn, C.copy_to_model(h, par.model_group)
+                                 if tp else h, rope)
         o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window,
                               logit_softcap=cfg.attn_logit_softcap)
-        return x + L.attn_out(blk.attn, o), k, v
+        y = L.attn_out(blk.attn, o)
+        return x + (C.reduce_from_model(y, par.model_group) if tp else y), k, v
+
+    def _serving(self):
+        if self.par is not None and self.par.tp:
+            raise NotImplementedError("prefill and decode on a model axis (TP decode under "
+                                      "cache_spec) are ROADMAP A12b")
+
+    def apply_layers(self, x: torch.Tensor, layers) -> torch.Tensor:
+        """x (B, S, d) through the layers of index `layers` of a decoder of
+        attention layers, from position 0 (a pipeline stage's work: the
+        blocks it holds, no embedding and no head)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        rope = L.rope_tables(cfg, torch.arange(S, device=x.device).expand(B, S))
+        for i in layers:
+            if self.kinds[i] != "attn":
+                raise NotImplementedError(f"a pipeline stage of {self.kinds[i]} layers")
+            blk = self.blocks[i]
+            x = blk.mlp_residual(cfg, self._attention(blk, x, rope)[0])
+        return x
 
     # ------------------------------------------------------------------
     def _cross_source(self, frontend: Optional[torch.Tensor], B: int,
@@ -476,6 +551,7 @@ class LM(nn.Module):
         stub embeddings (see the module's note); a zero row gives a vision
         model's sequence zero cross K/V, as no frontend does. Returns the
         logits at each sequence's last real token, (B, V_padded)."""
+        self._serving()
         cfg = self.cfg
         B, S = tokens.shape
         if prompt_lens is None:
@@ -549,6 +625,7 @@ class LM(nn.Module):
         model), advances its RG-LRU state and conv carry (or its RWKV6 state
         and token shifts), in place, and advances the position. The cross
         layers read the cross K/V that ``prefill`` wrote."""
+        self._serving()
         cfg = self.cfg
         B = token.shape[0]
         if cfg.attention_free:
@@ -617,6 +694,22 @@ def _decode_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
     return o.reshape(B, 1, Hq, dh)
 
 
+def _vocab_parallel_logz(logits: torch.Tensor, targets: torch.Tensor, par):
+    """(log-partition, target logit) of fp32 logits split over the vocab
+    (each model rank's columns [lo, hi) of the padded vocab): the max by a
+    MAX all-reduce (a shift; no gradient), the sum of exponentials by a SUM
+    all-reduce (g), the target logit from the rank that holds it (g)."""
+    lo, hi = par.vocab
+    g = par.model_group
+    with torch.no_grad():
+        m = C.all_reduce(logits.amax(-1), g, reduce="max")
+    logz = m + torch.log(C.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), g))
+    t = targets.long()
+    own = (t >= lo) & (t < hi)
+    tl = logits.gather(-1, (t - lo).clamp(0, hi - lo - 1)[..., None])[..., 0]
+    return logz, C.reduce_from_model(torch.where(own, tl, 0.0), g)
+
+
 def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
             mask: Optional[torch.Tensor] = None, frontend: Optional[torch.Tensor] = None,
             aux_weight: float = 0.01, z_weight: float = 1e-4):
@@ -624,18 +717,41 @@ def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
     logits plus ``z_weight`` times the mean squared log-partition and
     ``aux_weight`` times the MoE aux loss, summed over the MoE layers in
     layer order from 0 (0 for a model without experts). Returns (total,
-    {"ce", "z_loss", "aux", "tokens"}), each a 0-dim fp32 tensor."""
+    {"ce", "z_loss", "aux", "tokens"}), each a 0-dim fp32 tensor.
+
+    On a mesh (``model.par``) the logits split over the vocab are reduced
+    over model (``_vocab_parallel_logz``). Over a data axis of D ranks the
+    tensors are this rank's rows: the masked means divide by the whole
+    batch's token count, and the first value returned is this rank's part
+    of the loss (its rows' cross-entropy and z terms, and 1/D of the aux
+    loss, which every rank computes over the whole batch), whose gradients
+    summed over data are the whole loss's; the metrics are the whole
+    batch's, with its total loss under "loss"."""
+    par = model.par
     layer_aux = []
     logits = model(tokens, frontend, layer_aux).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, targets.long()[..., None])[..., 0] - logz
+    if par is not None and par.tp:
+        logz, tl = _vocab_parallel_logz(logits, targets, par)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(-1, targets.long()[..., None])[..., 0]
+    ll = tl - logz
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)
-    denom = mask.sum().clamp_min(1.0)
+    D = 1 if par is None else par.data_size
+    denom = mask.sum()
+    if D > 1:
+        denom = C.all_reduce(denom, par.data_group)
+    denom = denom.clamp_min(1.0)
     ce = -(ll * mask).sum() / denom
     zl = z_weight * (logz.square() * mask).sum() / denom
     aux = sum(layer_aux, torch.zeros((), dtype=torch.float32, device=logits.device))
-    return ce + zl + aux_weight * aux, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
+    if D == 1:
+        return ce + zl + aux_weight * aux, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
+    parts = C.all_reduce(torch.stack([ce, zl]).detach(), par.data_group)
+    met = {"ce": parts[0], "z_loss": parts[1], "aux": aux.detach(), "tokens": denom,
+           "loss": parts.sum() + aux_weight * aux.detach()}
+    return ce + zl + aux_weight * aux / D, met
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:

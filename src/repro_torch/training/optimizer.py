@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -49,15 +49,22 @@ class AdamW:
                           {n: torch.zeros_like(p) for n, p in master.items()})
 
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamWState, params: dict, decayed: set):
+    def update(self, grads: dict, state: AdamWState, params: dict, decayed: set,
+               global_sq: Optional[Callable[[dict], torch.Tensor]] = None):
         """grads: gradients keyed as `params` (any float dtype); decayed: the
         names of the leaves to decay. Updates the state's master copy and
         moments and `params` in place. Returns (the new state, {"grad_norm",
-        "lr"}), 0-dim fp32 tensors."""
+        "lr"}), 0-dim fp32 tensors. On a mesh the leaves are local shards and
+        `global_sq` (``ModelShard.global_sq``) makes the squared norm of the
+        whole model's gradients from each leaf's local one, so that clipping
+        is the single-rank step's."""
         names = list(state.master)
-        sq = torch.zeros((), dtype=torch.float32, device=state.step.device)
-        for n in names:
-            sq += grads[n].float().square().sum()
+        if global_sq is None:
+            sq = torch.zeros((), dtype=torch.float32, device=state.step.device)
+            for n in names:
+                sq += grads[n].float().square().sum()
+        else:
+            sq = global_sq({n: grads[n].float().square().sum() for n in names})
         gnorm = torch.sqrt(sq + 1e-20)
         scale = torch.clamp(self.clip_norm / gnorm, max=1.0)
         step = state.step + 1

@@ -14,6 +14,15 @@ each step of the JAX scan routes them. The JAX step's ``remat`` is a memory poli
 stacked units; numerically it is the same forward, and the port keeps
 every activation instead.
 
+On a mesh (the model's ``par``, a ``distributed.sharding.ModelShard``)
+every rank is handed the same global batch and keeps its data rank's rows
+as the JAX layout places them (``ModelShard.local_rows``: microbatches
+first, then each microbatch's rows over data); ``loss_fn`` divides by the
+whole batch's token count, the gradients are summed over data (and over
+model for the leaves each model rank holds a part of, ``sync_grads``) in
+fp32, and the gradient norm is the whole model's (``global_sq``). The
+leaves and the optimizer state are the rank's shards.
+
 The step's forward and backward run under ``fp32_reductions``: a bf16 GEMM
 on the card sums its products in fp32 to the end, as the JAX package's
 dots do.
@@ -30,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import init_sharded
 from ..models.bridge import decayed_leaves, params_from_jax, params_to_jax, to_numpy
 from ..models.lm import LM, check_trainable, init_params, loss_fn
 from .optimizer import AdamW, AdamWState
@@ -48,19 +58,27 @@ class TrainTree(NamedTuple):
     opt: AdamWState
 
 
-def state_tree(state: TrainState) -> TrainTree:
+def state_tree(state: TrainState, gather: bool = True) -> TrainTree:
     """A host copy of `state` in the JAX layout: parameters, master copy and
-    moments restacked by ``params_to_jax``, the step an int32 scalar."""
-    cfg, opt = state.model.cfg, state.opt
-    return TrainTree(params_to_jax(cfg, state.model.state_dict()),
-                     AdamWState(to_numpy(opt.step), *(params_to_jax(cfg, d)
+    moments restacked by ``params_to_jax``, the step an int32 scalar. On a
+    mesh every leaf is gathered whole first (every rank takes part), so a
+    sharded run writes what a single-rank run writes; with `gather` False
+    the leaves stay this rank's slices (a template for ``restore``)."""
+    model, opt = state.model, state.opt
+    par = model.par
+    cfg = model.cfg if par is None else par.cfg
+    whole = (lambda d: d) if par is None or not gather else par.gather_state
+    return TrainTree(params_to_jax(cfg, whole(model.state_dict())),
+                     AdamWState(to_numpy(opt.step), *(params_to_jax(cfg, whole(d))
                                                       for d in (opt.master, opt.m, opt.v))))
 
 
 @torch.no_grad()
 def load_state_tree(state: TrainState, tree: TrainTree) -> TrainState:
-    """Copy a restored tree (``Checkpointer.restore(state_tree(state))``)
-    into `state` in place, on the state's device; returns `state`."""
+    """Copy a restored tree (``Checkpointer.restore(state_tree(state))``,
+    on a mesh ``restore(..., mesh=, cfg=)``, which gives each rank its
+    slices) into `state` in place, on the state's device; returns
+    `state`."""
     cfg, opt = state.model.cfg, state.opt
     state.model.load_state_dict(params_from_jax(cfg, tree.params))
     for dst, src in ((opt.master, tree.opt.master), (opt.m, tree.opt.m), (opt.v, tree.opt.v)):
@@ -109,11 +127,55 @@ def fp32_reductions():
         flags.allow_bf16_reduced_precision_reduction = allowed
 
 
-def init_state(cfg: ModelConfig, opt: AdamW, seed: int = 0, device=None) -> TrainState:
-    """A model from ``init_params`` made trainable, and its optimizer state."""
+def init_state(cfg: ModelConfig, opt: AdamW, seed: int = 0, device=None,
+               mesh=None) -> TrainState:
+    """A model from ``init_params`` made trainable, and its optimizer state;
+    on a `mesh` this rank's shards of it (``sharding.init_sharded``)."""
     check_trainable(cfg)
-    model = init_params(cfg, seed, device).requires_grad_(True)
+    model = (init_params(cfg, seed, device) if mesh is None
+             else init_sharded(cfg, mesh, seed, device)).requires_grad_(True)
     return TrainState(model, opt.init(dict(model.named_parameters())))
+
+
+def step_grads(model: LM, batch: dict, microbatches: int = 1, has_frontend: bool = False):
+    """(loss, gradients keyed as the model's parameters, metrics) of one
+    step on `batch`, detached: what ``make_train_step``'s step hands the
+    optimizer. On a mesh the loss and metrics are the whole batch's and the
+    gradients this rank's leaves' for the whole step, in fp32."""
+    par = model.par
+    params = dict(model.named_parameters())
+    tokens, targets = batch["tokens"], batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    frontend = batch.get("frontend") if has_frontend else None
+    if par is not None:
+        tokens, targets, mask, frontend = (par.local_rows(a, microbatches)
+                                           for a in (tokens, targets, mask, frontend))
+    names, leaves = list(params), list(params.values())
+    with fp32_reductions():
+        if microbatches > 1:
+            acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+            total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            split = [a.reshape(microbatches, -1, *a.shape[1:]) for a in (tokens, targets, mask)]
+            fronts = [None] * microbatches if frontend is None else \
+                frontend.reshape(microbatches, -1, *frontend.shape[1:])
+            for t, tg, mk, fe in zip(*split, fronts):
+                lv, met = loss_fn(model, t, tg, mask=mk, frontend=fe)
+                for n, g in zip(names, torch.autograd.grad(lv, leaves)):
+                    acc[n] += g.float()
+                total += met.get("loss", lv).detach()
+            lv, grads, met = total / microbatches, {n: g / microbatches
+                                                    for n, g in acc.items()}, {}
+        else:
+            lv, met = loss_fn(model, tokens, targets, mask=mask, frontend=frontend)
+            grads = dict(zip(names, torch.autograd.grad(lv, leaves)))
+            # on a data axis lv is this rank's part, "loss" the whole batch's
+            lv = met.pop("loss", lv).detach()
+            met = {k: v.detach() for k, v in met.items()}
+    if par is not None:
+        grads = par.sync_grads(grads)
+    return lv, grads, met
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1,
@@ -128,40 +190,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1,
     def step(state: TrainState, batch: dict):
         model = state.model
         params = dict(model.named_parameters())
-        decayed = decayed_leaves(cfg, params)
-        tokens, targets = batch["tokens"], batch["targets"]
-        mask = batch.get("mask")
-        if mask is None:
-            mask = torch.ones_like(targets, dtype=torch.float32)
-        frontend = batch.get("frontend") if has_frontend else None
-        with fp32_reductions():
-            lv, grads, met = loss_and_grads(model, params, tokens, targets, mask, frontend)
-        new_opt, stats = opt.update(grads, state.opt, params, decayed)
+        lv, grads, met = step_grads(model, batch, microbatches, has_frontend)
+        par = model.par
+        new_opt, stats = opt.update(grads, state.opt, params, decayed_leaves(cfg, params),
+                                    None if par is None else par.global_sq)
         return TrainState(model, new_opt), {"loss": lv, **stats, **met}
-
-    def loss_and_grads(model, params, tokens, targets, mask, frontend):
-        """(loss, gradients keyed as `params`, metrics), detached."""
-        names, leaves = list(params), list(params.values())
-        if microbatches > 1:
-            acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
-            total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            split = [a.reshape(microbatches, -1, *a.shape[1:]) for a in (tokens, targets, mask)]
-            fronts = [None] * microbatches if frontend is None else \
-                frontend.reshape(microbatches, -1, *frontend.shape[1:])
-            for t, tg, mk, fe in zip(*split, fronts):
-                lv, _ = loss_fn(model, t, tg, mask=mk, frontend=fe)
-                for n, g in zip(names, torch.autograd.grad(lv, leaves)):
-                    acc[n] += g.float()
-                total += lv.detach()
-            grads = {n: g / microbatches for n, g in acc.items()}
-            return total / microbatches, grads, {}
-        lv, met = loss_fn(model, tokens, targets, mask=mask, frontend=frontend)
-        grads = dict(zip(names, torch.autograd.grad(lv, leaves)))
-        return lv.detach(), grads, {k: v.detach() for k, v in met.items()}
 
     return step
 
 
 __all__ = ["TrainState", "TrainTree", "state_tree", "load_state_tree", "init_state",
-           "make_train_step", "fp32_reductions", "compress_int8", "decompress_int8",
+           "make_train_step", "step_grads", "fp32_reductions", "compress_int8", "decompress_int8",
            "compress_grads"]

@@ -2404,3 +2404,63 @@ def test_mapper_never_beats_the_roofline_on_card(cuda):
                 assert r.latency >= bound.memory_s * 0.35, (preset, s)
             mapper.clear_matmul_cache()
             assert got == mapper.matmul_perf_batch(dev, shapes, device="cpu"), preset
+
+
+# ---------------- the distributed half: gloo ranks sharing the card ----------------
+
+def test_tensor_parallel_step_on_two_ranks_of_the_card(cuda, tmp_path):
+    """qwen3-smoke (heads of 64, the wgmma kernels' size) at (data, model) =
+    (1, 2), two spawned gloo ranks on the one card: the gathered gradients within 2e-2 (relative Frobenius) of
+    the single-rank card step's, the loss within 2e-2, and each rank's
+    launches, at its local shapes, those of the single-rank step."""
+    import _torch_dist
+    from repro_torch.training import step_grads
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), d_head=64)
+    model = models.init_params(cfg, seed=1, device="cuda").requires_grad_(True)
+    g = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
+             "mask": (torch.rand((2, 64), generator=g) > 0.2).float()}
+    case = {"cfg": cfg, "state": {n: p.detach().cpu() for n, p in model.state_dict().items()},
+            "microbatches": 1, "frontend": False, "records": None, "meshes": [(1, 2)],
+            "batch": batch}
+    torch.save({"qwen3": case}, tmp_path / "cases.pt")
+    _torch_dist.run_world(tmp_path, 2, "train_worker", str(tmp_path / "cases.pt"), [(1, 2)],
+                          str(tmp_path), "cuda", device="cuda")
+    got = torch.load(tmp_path / "qwen3_1x2.pt", weights_only=False)
+    TK.reset_launches()
+    loss, grads, _ = step_grads(model, {k: v.cuda() for k, v in batch.items()})
+    one = TK.launches()
+    assert abs(got["loss"] - float(loss)) < 2e-2
+    for n, gr in grads.items():
+        want = gr.float().cpu()
+        assert ((got["grads"][n] - want).norm() / want.norm().clamp_min(1e-30)) < 2e-2, n
+    assert got["launches"]["flash_attention_wgmma"] == one["flash_attention_wgmma"] == 2
+    assert got["launches"]["flash_attention_bwd_wgmma"] == 2
+    assert got["launches"] == one
+
+
+def test_pipeline_apply_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """pipeline_apply over pod 2 with the stages on the card (gloo's
+    send/recv staged through the host, ``collectives.NATIVE``): the tanh
+    stack within 2e-5 of the same stages on the CPU, qwen3-smoke's 4
+    blocks within 2e-2 of the unsplit CPU forward."""
+    import _torch_dist
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-1.7b")), n_layers=4, d_head=64)
+    model = models.init_params(cfg, seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn((4, 64, cfg.d_model), generator=gen).bfloat16()
+    inp = {"w": torch.randn((4, 16, 16), generator=gen) / 4, "x": torch.randn((6, 16),
+                                                                              generator=gen),
+           "n_microbatches": 2, "cfg": cfg, "state": model.state_dict(), "h": h}
+    torch.save(inp, tmp_path / "inputs.pt")
+    for dev in ("cuda", "cpu"):
+        _torch_dist.run_world(tmp_path, 2, "pipeline_worker", str(tmp_path / "inputs.pt"),
+                              str(tmp_path / f"{dev}.pt"), dev, device=dev)
+    card, host = (torch.load(tmp_path / f"{d}.pt", weights_only=False) for d in ("cuda", "cpu"))
+    with torch.no_grad():
+        want = model.apply_layers(h, range(4)).float()
+    for r in range(2):
+        assert (card[r]["tanh"] - host[r]["tanh"]).abs().max() < 2e-5
+        got = card[r]["blocks"].float()
+        assert ((got - want).norm() / want.norm()) < 2e-2, r

@@ -474,5 +474,5 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys, arch):
     assert [ln.split()[1] for ln in out.splitlines() if ln.startswith("step")] == ["0", "1", "2"]
     assert int(state.opt.step) == 3
     assert (tmp_path / "step_2" / "manifest.json").exists()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="world size is 1"):
         train_launcher.main(["--device", "cpu", "--data", "2"])
