@@ -327,7 +327,11 @@ result line):
                gradient is 0 in exact arithmetic, below 0.1 of its query
                bias's), the loss within 2e-2; cross-attending models with a
                seeded stub frontend and their cross branch unhidden, granite
-               and grok with the bf16 CPU run's routing replayed; then the
+               and grok with the bf16 CPU run's routing replayed (the seven
+               checks of models without experts take their card steps in a
+               worker process right after [build], and its CPU runs go on
+               beside the phases up to here, ``train_check_worker``;
+               ``--only train-checks``: [build] and these checks); then the
                train runs
                (``TRAIN_RUNS``), each at full width, 8 steps of AdamW on one
                repeated batch of 8 x 512 tokens from TokenPipeline (a seeded
@@ -372,7 +376,8 @@ result line):
                collective calls, the bytes staged through the host, and
                each part's seconds.
                ``python3 chip_smoke.py --only dist`` runs [build], [ckpt]
-               and this phase alone;
+               and this phase alone (``--only dryrun``: [build] and
+               [dryrun]);
   10. study  - the design-space Study (``core/study.py``) with its stacked
                mapper search's candidate tables on the card
                (``csrc/mapper_tables.cu``): the kernel against numpy's
@@ -410,6 +415,31 @@ result line):
                then ``python -m repro_torch.verify --all-configs`` and
                ``python -m repro_torch.unitcheck --selfcheck`` as
                subprocesses on the card's host, each exit 0.
+  12. dryrun - the dry run of the production meshes (``repro_torch.launch.
+               dryrun``): (a) the grid, ``--all --mesh both`` in a process
+               of its own started after [build] beside the card phases (it
+               traces on fake tensors and needs the host only), collected
+               here: ``dry-run: 18 ok, 46 failed, 16 skipped``, every
+               failure's error naming A12b or the dim the model axis does
+               not divide, every ok cell fitting 80 GB in the roofline
+               report (``launch.roofline_report``, its mapper tables on the
+               card), whose rows are printed; (b) rank 0's program of four
+               single-mesh cells (``DRYRUN_CELLS``: qwen3-1.7b train_4k,
+               prefill_32k and decode_32k, stablelm-1.6b decode_32k),
+               whose traces on fake CUDA tensors are the grid's records,
+               run on the card at full width with random weights and the
+               same recording collectives: launches by kernel, collectives (kind, count,
+               bytes) and FLOPs (aten plus the kernels' tally) exactly
+               equal, the card's peak (``max_memory_allocated`` over the
+               bytes live before the program's state was made) within
+               [0.99x, 1.05x + 256 MiB] of the trace's; the program's
+               device ms (CUDA events, median of 3) beside the report's
+               compute and memory terms; and the two kernel shapes these
+               cells first reach, flash attention with one local head over
+               32768 keys and the chunked decode kernel over a cache of
+               32768 slots, each held to its plain version and timed beside
+               it and SDPA (rows ``flash_attention_wgmma`` and
+               ``decode_attention_chunked``, ``launches_in_dryrun``).
 The last lines are the ``{"kernels": [...]}`` summary (the backward
 kernels' launches are the sum of the full-size train runs', each run's
 apart in ``launches_by_train_run``; mapper_tables' the sum of [study]'s
@@ -3604,21 +3634,11 @@ def grads_of(torch, model, tokens, targets, frontend=None):
     return loss.detach(), dict(zip(params, grads))
 
 
-def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
-    """`arch` at full width cut to `n_layers` layers: the loss and every
-    parameter's gradient of one step on the card (the backward kernels)
-    against the CPU plain path in bf16 and an fp32 CPU run of the same
-    weights, on B x S tokens; with a seeded stub frontend and the cross
-    branch unhidden for a cross-attending model, the bf16 CPU run's routing
-    replayed on the card and in the fp32 run for an MoE one. A key bias's
-    gradient is 0 in exact arithmetic (the softmax ignores a shift common to
-    a row's scores), so each side's is rounding alone (about 2^-9 of the
-    key gradients it sums): it is held below KEY_BIAS_LIMIT of its layer's
-    query-bias gradient instead of by the ratio; a wrong key gradient would
-    put it near 1. A Griffin model's RG-LRU decays and RWKV6's wkv decays
-    and bonus are unhidden (``unhide_recurrence``)."""
-    from repro_torch.models import LM, init_params
-    cfg = served_config(arch, n_layers, n_experts)
+def check_model(torch, cfg, B, S):
+    """A gradient check's model on the card (``init_params``, seed 3) with
+    its hidden branches unhidden, trainable, and its tokens (B, S + 1) and
+    stub frontend (or None) from a CPU generator (seed 4)."""
+    from repro_torch.models import init_params
     gpu = init_params(cfg, seed=3, device="cuda")
     gen = torch.Generator("cpu").manual_seed(4)
     fe = None
@@ -3628,19 +3648,39 @@ def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
         unhide_cross_attention(torch, gpu)
         fe = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=gen).bfloat16()
     gpu.requires_grad_(True)
-    cpu = LM(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
-    cpu.requires_grad_(True)
     tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
-    t0 = time.perf_counter()
-    with routing() as cpu_routing:
+    return gpu, tok, fe
+
+
+def card_grads(torch, gpu, tok, fe, replay=None):
+    """(loss, gradients) of the check's step on the card, `replay`'s routing
+    replayed where given."""
+    with routing(replay=replay):
+        return grads_of(torch, gpu, tok[:, :-1].cuda(), tok[:, 1:].cuda(),
+                        None if fe is None else fe.cuda())
+
+
+def cpu_grads(torch, cfg, state, tok, fe):
+    """(bf16 loss, gradients, routing record, fp32 loss, gradients) of the
+    check's step on the CPU plain path, from the card model's `state`: in
+    bf16, then in fp32 with the bf16 run's routing replayed."""
+    from repro_torch.models import LM
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(state)
+    cpu.requires_grad_(True)
+    with routing() as record:
         lc, gc = grads_of(torch, cpu, tok[:, :-1], tok[:, 1:], fe)
-    with routing(replay=cpu_routing):
-        lg, gg = grads_of(torch, gpu, tok[:, :-1].cuda(), tok[:, 1:].cuda(),
-                          None if fe is None else fe.cuda())
-    with routing(replay=cpu_routing):
+    with routing(replay=record):
         l32, g32 = grads_of(torch, cpu.float(), tok[:, :-1], tok[:, 1:], fe)
-    require(all(torch.isfinite(g).all() for g in gg.values()), "non-finite gradients on the card")
+    return lc, gc, record, l32, g32
+
+
+def judge_grads(cfg, B, S, fe, lg, gg, lc, gc, l32, g32, seconds):
+    """The check's printed lines and its failures (messages; none where it
+    holds): every gradient of the card no further from the fp32 CPU run
+    than ``TRAIN_FP32_FACTOR`` times the bf16 CPU run's, a key bias below
+    ``KEY_BIAS_LIMIT`` of its query bias's, the losses within 2e-2."""
+    import torch
     worst, rows, key_bias = 0.0, [], 0.0
     for n, g in gg.items():
         ref = g32[n]
@@ -3660,23 +3700,136 @@ def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
             if fe is not None else "") + (", the CPU's routing replayed" if cfg.n_experts else "") \
         + (", the RG-LRU decays unhidden" if cfg.block_pattern else "") \
         + (", the wkv decays and bonus unhidden" if cfg.attention_free else "")
-    print(f"[train] {cfg.name} batch {B} x {S}{what}: loss card {lg.item():.6f}, bf16 CPU "
-          f"{lc.item():.6f}, fp32 CPU {l32.item():.6f}; {time.perf_counter() - t0:.1f} s")
-    print(f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
-          f"Frobenius), card / bf16 CPU, the 5 leaves with the largest ratio: "
-          + ", ".join(f"{n} {c:.3e}/{p:.3e} ({r:.3f})" for r, n, c, p in rows[:5])
-          + f"; largest ratio {worst:.3f} over {len(rows)} leaves (limit "
-          f"{TRAIN_FP32_FACTOR:g})" + (f"; key-bias gradients (card and bf16 CPU) at most "
-                                       f"{key_bias:.3e} of their query bias's (limit "
-                                       f"{KEY_BIAS_LIMIT:g})" if key_bias else ""))
-    require(worst <= TRAIN_FP32_FACTOR, f"{cfg.name}: a gradient of the card is {worst:.3f} "
-            f"times as far from fp32 as the bf16 CPU path's, > {TRAIN_FP32_FACTOR:g}")
-    require(key_bias < KEY_BIAS_LIMIT, f"{cfg.name}: a key-bias gradient {key_bias:.3e} of "
-            "its query bias's")
-    require(abs(lg.item() - lc.item()) < 2e-2, f"{cfg.name}: card loss {lg.item():.6f} vs CPU "
-            f"{lc.item():.6f}")
-    del gpu, cpu, gg, gc, g32
+    lines = [
+        f"[train] {cfg.name} batch {B} x {S}{what}: loss card {lg.item():.6f}, bf16 CPU "
+        f"{lc.item():.6f}, fp32 CPU {l32.item():.6f}; {seconds:.1f} s",
+        f"[train] {cfg.name}: per-leaf gradient distance from the fp32 CPU run (relative "
+        f"Frobenius), card / bf16 CPU, the 5 leaves with the largest ratio: "
+        + ", ".join(f"{n} {c:.3e}/{p:.3e} ({r:.3f})" for r, n, c, p in rows[:5])
+        + f"; largest ratio {worst:.3f} over {len(rows)} leaves (limit "
+        f"{TRAIN_FP32_FACTOR:g})" + (f"; key-bias gradients (card and bf16 CPU) at most "
+                                     f"{key_bias:.3e} of their query bias's (limit "
+                                     f"{KEY_BIAS_LIMIT:g})" if key_bias else "")]
+    failures = []
+    if not all(torch.isfinite(g).all() for g in gg.values()):
+        failures.append(f"{cfg.name}: non-finite gradients on the card")
+    if worst > TRAIN_FP32_FACTOR:
+        failures.append(f"{cfg.name}: a gradient of the card is {worst:.3f} times as far from "
+                        f"fp32 as the bf16 CPU path's, > {TRAIN_FP32_FACTOR:g}")
+    if key_bias >= KEY_BIAS_LIMIT:
+        failures.append(f"{cfg.name}: a key-bias gradient {key_bias:.3e} of its query bias's")
+    if abs(lg.item() - lc.item()) >= 2e-2:
+        failures.append(f"{cfg.name}: card loss {lg.item():.6f} vs CPU {lc.item():.6f}")
+    return lines, failures
+
+
+def report_check(lines, failures):
+    for line in lines:
+        print(line)
+    require(not failures, "; ".join(failures))
+
+
+def phase_train_check(torch, arch, n_layers, B, S, n_experts=None):
+    """`arch` at full width cut to `n_layers` layers: the loss and every
+    parameter's gradient of one step on the card (the backward kernels)
+    against the CPU plain path in bf16 and an fp32 CPU run of the same
+    weights, on B x S tokens; with a seeded stub frontend and the cross
+    branch unhidden for a cross-attending model, the bf16 CPU run's routing
+    replayed on the card and in the fp32 run for an MoE one. A key bias's
+    gradient is 0 in exact arithmetic (the softmax ignores a shift common to
+    a row's scores), so each side's is rounding alone (about 2^-9 of the
+    key gradients it sums): it is held below KEY_BIAS_LIMIT of its layer's
+    query-bias gradient instead of by the ratio; a wrong key gradient would
+    put it near 1. A Griffin model's RG-LRU decays and RWKV6's wkv decays
+    and bonus are unhidden (``unhide_recurrence``). The checks of models
+    without experts run in ``train_check_worker`` instead."""
+    cfg = served_config(arch, n_layers, n_experts)
+    gpu, tok, fe = check_model(torch, cfg, B, S)
+    t0 = time.perf_counter()
+    lc, gc, record, l32, g32 = cpu_grads(torch, cfg, gpu.state_dict(), tok, fe)
+    lg, gg = card_grads(torch, gpu, tok, fe, replay=record)
+    report_check(*judge_grads(cfg, B, S, fe, lg, gg, lc, gc, l32, g32,
+                              time.perf_counter() - t0))
+    del gpu, gg, gc, g32
     torch.cuda.empty_cache()
+
+
+# threads of the worker's CPU runs: the rest of the host's 8 cores keep this
+# process's host work and the dry-run grid going
+TRAIN_CHECK_THREADS = 5
+
+
+def train_check_worker(conn, checks):
+    """The gradient checks of the models without experts, in a process of
+    their own: first every check's step on the card, one after another,
+    each model's weights and gradients kept on the host ("card done" is
+    sent, and the card is left to the script); then each check's CPU runs
+    and its judgement (``judge_grads``), sent as (name, lines, failures);
+    None at the end, ("error", traceback) on a fault."""
+    import traceback
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        staged = []
+        for arch, n_layers, B, S in checks:
+            cfg = served_config(arch, n_layers)
+            gpu, tok, fe = check_model(torch, cfg, B, S)
+            t0 = time.perf_counter()
+            lg, gg = card_grads(torch, gpu, tok, fe)
+            staged.append((cfg, B, S, tok, fe, {n: t.cpu() for n, t in gpu.state_dict().items()},
+                           lg.cpu(), {n: g.cpu() for n, g in gg.items()},
+                           time.perf_counter() - t0))
+            del gpu, gg
+            torch.cuda.empty_cache()
+        conn.send("card done")
+        torch.set_num_threads(TRAIN_CHECK_THREADS)
+        while staged:
+            cfg, B, S, tok, fe, state, lg, gg, seconds = staged.pop(0)
+            t0 = time.perf_counter()
+            lc, gc, _, l32, g32 = cpu_grads(torch, cfg, state, tok, fe)
+            del state
+            conn.send((cfg.name, *judge_grads(cfg, B, S, fe, lg, gg, lc, gc, l32, g32,
+                                              seconds + time.perf_counter() - t0)))
+            del gg, gc, g32
+        conn.send(None)
+    except BaseException:  # noqa: BLE001 -- the script fails on it
+        conn.send(("error", traceback.format_exc()[-3000:]))
+
+
+def start_train_checks():
+    """Spawn ``train_check_worker`` over the checks of models without
+    experts and wait for its card stage; returns (process, connection)."""
+    import atexit
+    import multiprocessing
+    from repro_torch.configs import get_config
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    checks = [c for c in TRAIN_CHECKS if len(c) == 4 and not get_config(c[0]).n_experts]
+    proc = ctx.Process(target=train_check_worker, args=(child, checks))
+    proc.start()
+    atexit.register(lambda: proc.is_alive() and proc.kill())
+    msg = conn.recv()
+    require(msg == "card done", f"[train] the checks' worker failed on the card: {msg}")
+    print(f"[train] the gradient checks of {', '.join(c[0] for c in checks)}: their steps on "
+          "the card done; their CPU runs go on beside the next phases")
+    return proc, conn
+
+
+def run_train_checks(torch, worker):
+    """The worker's checks, printed and held as they come, the process
+    joined; then the checks of the MoE models in this process (after the
+    worker's, so that the two processes' CPU runs never hold their models
+    at once)."""
+    from repro_torch.configs import get_config
+    proc, conn = worker
+    while (msg := conn.recv()) is not None:
+        require(msg[0] != "error", f"[train] the checks' worker failed: {msg[-1]}")
+        report_check(msg[1], msg[2])
+    proc.join()
+    for check in TRAIN_CHECKS:
+        if len(check) > 4 or get_config(check[0]).n_experts:
+            phase_train_check(torch, *check)
 
 
 def profile_step(torch, step_fn, top=0, pick=None):
@@ -4936,6 +5089,210 @@ def phase_trace(smi):
     return launches
 
 
+# (arch, shape) of the [dryrun] cells run on the card: rank 0 of the single
+# mesh, (data, model) = (16, 16)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("qwen3-1.7b", "decode_32k"), ("stablelm-1.6b", "decode_32k"))
+DRYRUN_GRID = "dry-run: 18 ok, 46 failed, 16 skipped"
+DRYRUN_PEAK = (0.99, 1.05, 256 << 20)   # card peak within [lo x, hi x + slack] of the trace's
+DRYRUN_TIMEOUT = 600                    # seconds the grid may still take once collected
+
+
+def start_dryrun_grid():
+    """Start the dry-run grid in a process of its own, writing its records
+    under build/dryrun and its output to build/dryrun.log. It takes one of
+    the host's cores from [build]'s end (~170 s alone on the card's host) and
+    is done before the [train] gradient checks' CPU runs take them all; at a
+    lower priority it was starved until their end. Returns
+    the process (``phase_dryrun`` collects it; the script kills it on
+    exit)."""
+    import atexit
+    import shutil
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(ROOT / "build" / "dryrun.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--mesh", "both", "--force", "--out", str(out)], cwd=ROOT, env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    proc.t0, proc.out, proc.log = time.time(), out, log
+    return proc
+
+
+def dryrun_card_cell(torch, cfg, shape):
+    """Rank 0's program of a single-mesh cell run on the card with the
+    recording collectives: (what ``dryrun.measure`` gives, the peak bytes
+    over those live before the program's state was made, device ms of
+    three more runs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    import repro_torch.kernels as K
+    from repro_torch.distributed.collectives import Recorder
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rec = Recorder()
+    mesh = Mesh.abstract(*dryrun.MESHES["single"], rank=0, recorder=rec)
+    prog = dryrun.RankProgram(cfg, shape, mesh, "cuda", seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    rec.calls.clear()
+    with FlopCounterMode(display=False) as fc:
+        prog.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    res = {"kernels": {n: c for n, c in K.launches().items() if c},
+           "cost": analysis.cost_summary(fc.get_total_flops(), K.ops()),
+           "collectives": rec.stats()}
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        prog.run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del prog
+    torch.cuda.empty_cache()
+    return res, peak, statistics.median(times)
+
+
+def dryrun_shapes(torch, rows, smi):
+    """The two kernel shapes the [dryrun] cells first reach, each held to
+    its plain version and timed beside it and SDPA; their entries join the
+    kernel rows' ``shapes``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rnd = Inputs(torch, 11)
+    bf = torch.bfloat16
+    by_name = {row["name"]: row for row in rows}
+    B, S, D = 2, 32768, 128          # qwen3-1.7b prefill_32k, rank 0: 2 rows, 1 local head
+    q, k, v = (rnd((B, 1, S, D), bf) for _ in range(3))
+    got = KERNELS["flash_attention_wgmma"](q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    err = max_abs(got, want)
+    require(attention_excess(got, want) <= 1,
+            f"[dryrun] flash at q({B},1,{S},{D}) is off its plain version ({err:.3e})")
+    del want
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(2 * (4 * B * S * D), 4 * D * B * pairs, BF16_TENSOR_FLOPS)
+    entry = {"shape": f"q,k,v({B},1,{S},{D}) causal (qwen3-1.7b prefill_32k, rank 0)",
+             "ms": time_ms(torch, lambda: KERNELS["flash_attention_wgmma"](q, k, v, causal=True),
+                           10),
+             "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3, 1),
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True), 10),
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    by_name["flash_attention_wgmma"]["shapes"].append(entry)
+    print(f"[dryrun] flash_attention_wgmma {entry['shape']}: kernel {entry['ms']:.5f} ms, "
+          f"plain {entry['plain_ms']:.5f} ms, SDPA {entry['library_ms']:.5f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}; {smi}")
+    del q, k, v, got
+    for label, B, Hkv, D in (("qwen3-1.7b decode_32k, rank 0", 8, 1, 128),
+                             ("stablelm-1.6b decode_32k, rank 0", 8, 2, 64)):
+        T = 32768
+        qd, kd, vd = rnd((B, Hkv, 1, D), bf), rnd((B, T, Hkv, D), bf), rnd((B, T, Hkv, D), bf)
+        lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        got = KERNELS["decode_attention_chunked"](qd, kd, vd, lens)
+        want = decode_attention_ref(qd, kd, vd, lens)
+        err = max_abs(got, want)
+        require(attention_excess(got, want) <= 1,
+                f"[dryrun] chunked decode over T = {T} ({label}) is off its plain version")
+        b_ms, b_by = bound(2 * (2 * B * Hkv * D + 2 * B * T * Hkv * D) + 4 * B,
+                           4 * D * Hkv * B * T, BF16_TENSOR_FLOPS)
+        q_sdpa = qd.reshape(B, Hkv, 1, D)
+        entry = {"shape": f"q({B},{Hkv},1,{D}) k,v({B},{T},{Hkv},{D}) every slot live ({label})",
+                 "ms": time_ms(torch, lambda: KERNELS["decode_attention_chunked"](
+                     qd, kd, vd, lens)),
+                 "plain_ms": time_ms(torch, lambda: decode_attention_ref(qd, kd, vd, lens), 5),
+                 "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                     q_sdpa, kd.transpose(1, 2), vd.transpose(1, 2))),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        by_name["decode_attention_chunked"]["shapes"].append(entry)
+        print(f"[dryrun] decode_attention_chunked {entry['shape']}: kernel {entry['ms']:.5f} "
+              f"ms, plain {entry['plain_ms']:.5f} ms, SDPA {entry['library_ms']:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}; {smi}")
+        del qd, kd, vd
+    torch.cuda.empty_cache()
+
+
+def collect_dryrun_grid(grid):
+    """Wait for the grid's process and check what it printed and wrote;
+    returns its records by (arch, shape, mesh)."""
+    try:
+        rc = grid.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        grid.kill()
+        require(False, f"[dryrun] the grid did not finish within {DRYRUN_TIMEOUT} s more")
+    grid.log.close()
+    # its own wall: from its start to its log's last write
+    grid.wall = (ROOT / "build" / "dryrun.log").stat().st_mtime - grid.t0
+    text = (ROOT / "build" / "dryrun.log").read_text()
+    grid.last = text.strip().splitlines()[-1] if text.strip() else ""
+    require(rc == 1 and grid.last.startswith(DRYRUN_GRID),
+            f"[dryrun] the grid exited {rc}: {text[-3000:]}")
+    recs = [json.loads(p.read_text()) for p in sorted(grid.out.glob("*.json"))]
+    bad = [r["error"] for r in recs if r.get("ok") is False and "A12b" not in r["error"]
+           and "does not divide" not in r["error"]]
+    require(not bad, f"[dryrun] failures that name neither A12b nor a dim: {bad[:3]}")
+    require(all(r["rank0_largest"] and r["traced_on"] == "fake cuda"
+                for r in recs if r.get("ok")),
+            "[dryrun] an ok cell traced off the card's program or not at its largest rank")
+    return {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+
+
+def phase_dryrun(torch, smi, grid, rows):
+    """(a) the grid collected and priced, (b) the four cells' traces (the
+    grid's records) against their runs on the card, and the new kernel
+    shapes. Returns the card runs' launches by kernel, summed."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline_report as report
+    recs = collect_dryrun_grid(grid)
+    ok = [r for r in recs.values() if r.get("ok")]
+    K.reset_launches()
+    table_rows = report.build_rows(str(grid.out))
+    require(len(table_rows) == len(ok) == 18 and all(r.fits for r in table_rows),
+            f"[dryrun] {sum(not r.fits for r in table_rows)} ok cells do not fit 80 GB")
+    print(f"[dryrun] the grid: {grid.last} in {grid.wall:.1f} s beside the card phases; every "
+          "failure names A12b or the dim; every ok cell fits 80 GB; its trace seconds "
+          + json.dumps({f"{r['arch']} {r['shape']} {r['mesh']}": r["trace_s"] for r in ok}))
+    for mesh in ("single", "multi"):
+        print(f"[dryrun] roofline on NVIDIA H100 SXM5, {mesh} mesh:")
+        print(report.markdown_table(table_rows, mesh))
+    lo, hi, slack = DRYRUN_PEAK
+    launched = {}
+    for arch, shape_name in DRYRUN_CELLS:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        traced = recs[(arch, shape_name, "single")]
+        label = f"{arch} {shape_name} single rank 0"
+        require(traced.get("ok"), f"[dryrun] {label} was refused: {traced.get('error')}")
+        card, peak, ms = dryrun_card_cell(torch, cfg, shape)
+        for key in ("kernels", "collectives", "cost"):
+            require(traced[key] == card[key], f"[dryrun] {label}: the trace's {key} "
+                    f"{json.dumps(traced[key])} differ from the card's {json.dumps(card[key])}")
+        want = traced["memory"]["total_bytes"]
+        require(lo * want <= peak <= hi * want + slack,
+                f"[dryrun] {label}: the card's peak {peak} B is off the trace's {want} B")
+        for n, c in card["kernels"].items():
+            launched[n] = launched.get(n, 0) + c
+        compute = traced["cost"]["flops"] / report.H100_PEAK_BF16
+        memory = report.simulated_hbm_bytes(arch, shape) / report.H100_HBM_BW
+        print(f"[dryrun] {label}: traced in {traced['trace_s']} s (the grid's record); launches "
+              f"{json.dumps(card['kernels'])}, collectives {json.dumps(card['collectives'])}, "
+              f"FLOPs {card['cost']['flops']:.6e} (aten {card['cost']['aten_flops']:.6e}), all "
+              f"equal to the trace's; peak: card {peak} B, trace {want} B, gap {peak - want} B "
+              f"({peak / want:.5f}x); device {ms:.3f} ms a run (median of 3) beside the "
+              f"report's compute {compute * 1e3:.3f} ms and memory {memory * 1e3:.3f} ms; {smi}")
+    dryrun_shapes(torch, rows, smi)
+    return launched
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4967,11 +5324,26 @@ def main():
           f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}")
     phase_build(torch)
     lap("[build]")
+    if sys.argv[1:] == ["--only", "dryrun"]:
+        shapes = [{"name": n, "shapes": []} for n in ("flash_attention_wgmma",
+                                                      "decode_attention_chunked")]
+        print(json.dumps({"launches_in_dryrun": phase_dryrun(torch, card_line(),
+                                                              start_dryrun_grid(), shapes)}))
+        lap("[dryrun]")
+        return
     if sys.argv[1:] == ["--only", "dist"]:
         straight = phase_ckpt(torch)
         lap("[ckpt]")
         phase_dist(torch, card_line(), straight)
         lap("[dist]")
+        return
+    only_checks = sys.argv[1:] == ["--only", "train-checks"]
+    grid = None if only_checks else start_dryrun_grid()
+    checks = start_train_checks()
+    lap("the [train] gradient checks' steps on the card")
+    if only_checks:
+        run_train_checks(torch, checks)
+        lap("the [train] gradient checks")
         return
     errs = phase_kernels(torch)
     lap("the kernel checks")
@@ -5016,8 +5388,7 @@ def main():
     lap("[analytic]")
     bwd_rows = phase_bwd(torch)
     lap("[bwd]")
-    for check in TRAIN_CHECKS:
-        phase_train_check(torch, *check)
+    run_train_checks(torch, checks)
     lap("the [train] gradient checks")
     by_run = {}
     for run in TRAIN_RUNS:
@@ -5048,8 +5419,12 @@ def main():
     tables["launches_by_path"]["[trace]"] = phase_trace(smi)
     tables["launches"] = sum(tables["launches_by_path"].values())
     lap("[trace]")
+    # each card run's counts were set to 0 before it and read just after
+    dryrun_launches = phase_dryrun(torch, smi, grid, rows)
+    lap("[dryrun]")
     for row in rows:
         row["launches_in_dist"] = dist_launches.get(row["name"], 0)
+        row["launches_in_dryrun"] = dryrun_launches.get(row["name"], 0)
     print(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -12,7 +12,7 @@ cross-attention layers over a stub image frontend in place of every 5th
 self-attention layer) and, outside ``ARCHS`` as in the JAX registry, the
 paper's own gpt3-175b (LayerNorm, tanh-GELU MLP, sinusoidal positions).
 """
-from .base import ModelConfig, smoke_config
+from .base import SHAPES, ModelConfig, ShapeConfig, shape_applicable, smoke_config
 
 from .qwen1_5_0_5b import CONFIG as _qwen15
 from .qwen2_0_5b import CONFIG as _qwen2
@@ -51,4 +51,12 @@ def get_config(arch: str) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ModelConfig", "ARCHS", "EXTRA_ARCHS", "get_config", "smoke_config"]
+def dryrun_cells():
+    """Every (arch, shape name) pair of the dry run that
+    ``shape_applicable`` admits."""
+    return [(arch, shape.name) for arch, cfg in ARCHS.items() for shape in SHAPES.values()
+            if shape_applicable(cfg, shape)]
+
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "EXTRA_ARCHS", "get_config",
+           "shape_applicable", "smoke_config", "dryrun_cells"]

@@ -1,6 +1,7 @@
 """Architecture configuration of the port.
 
-A copy of ``ModelConfig`` and ``smoke_config`` from ``repro.configs.base``
+A copy of ``ModelConfig``, ``smoke_config`` and the dry run's input shapes
+(``ShapeConfig``, ``SHAPES``, ``shape_applicable``) from ``repro.configs.base``
 with the same fields and the same parameter accounting, so that
 ``repro_torch.configs.ModelConfig(**dataclasses.asdict(cfg))`` rebuilds any
 JAX config. The port imports nothing of the JAX package and keeps this copy.
@@ -150,6 +151,36 @@ class ModelConfig:
         n_attn = sum(1 for i in range(self.n_layers)
                      if self.block_kind(i) == "attn")
         return per_layer * n_attn
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run: a train step, a prefill or a
+    decode step of `global_batch` sequences of `seq_len` tokens."""
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only for the sub-quadratic archs (SSM, and hybrid with
+    windowed attention), as the JAX package assigns it."""
+    if shape.name == "long_500k":
+        return cfg.family in ("ssm", "hybrid")
+    return True
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

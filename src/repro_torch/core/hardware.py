@@ -356,6 +356,32 @@ def tpu_v5e_pod(n: int = 256) -> System:
                   topology="torus2d")
 
 
+#: H100 SXM5 GPUs a DGX H100 node joins by NVLink 4 through its NVSwitches
+DGX_H100_NODE_GPUS = 8
+#: NVLink 4 a GPU, a direction (900 GB/s both ways, 18 links)
+NVLINK4_BYTES_PER_S = 450e9
+#: a GPU's ConnectX-7 400 Gb/s NDR InfiniBand port between nodes, a direction
+NDR_BYTES_PER_S = 50e9
+
+
+def dgx_h100_link_rate(ranks: int) -> float:
+    """Bytes a second of the slowest link a collective over `ranks`
+    consecutive GPUs crosses: NVLink 4 within a node, the NDR port where
+    the ranks span nodes."""
+    return NVLINK4_BYTES_PER_S if ranks <= DGX_H100_NODE_GPUS else NDR_BYTES_PER_S
+
+
+def dgx_h100_cluster(n: int = 256) -> System:
+    """`n` H100 SXM5 GPUs in NVIDIA DGX H100 nodes (NVIDIA DGX H100 system
+    description: 8 GPUs a node on fourth-generation NVLink through four
+    NVSwitch chips, 900 GB/s a GPU, so 450 GB/s a direction; eight
+    ConnectX-7 400 Gb/s NDR InfiniBand ports a node, one a GPU, so 50 GB/s
+    a direction between nodes). The system's link is the slowest one a
+    collective over all `n` crosses (``dgx_h100_link_rate``)."""
+    return System(device=nvidia_h100(), device_count=n,
+                  link=Link(bandwidth_bytes=dgx_h100_link_rate(n)), topology="ring")
+
+
 def make_system(device: Device, n: int, link_gbps: float = 600.0,
                 topology: str = "fc") -> System:
     return System(device=device, device_count=n,

@@ -28,6 +28,21 @@ queued before the call has drained (a ``torch.cuda.synchronize``), so
 that none of it is counted; the seconds still hold the wait for the
 slowest rank to arrive, and where ranks share one card, that rank's
 device work too.
+
+A dry run (``launch.dryrun``) traces one rank's program on a mesh with no
+process groups (``launch.mesh.Mesh.abstract(..., recorder=)``): its axes
+hold ``RecordedGroup``s, and ``run`` hands each collective to the
+``Recorder`` instead of a backend. The recorder keeps the kind under the
+JAX package's names (the op the port executes: a reduce-scatter done as an
+all-reduce is an all-reduce), the axis and the bytes as the JAX
+``analysis._instr_collective_bytes`` counts them (the result's), and
+returns a tensor of the result's shape, made as the real collective makes
+its result: a copy of the input for an all-reduce or a broadcast, zeros
+for a gather (each rank's part, then their concatenation), and the
+receive buffer zeroed for a recv. The same recorder runs the rank program
+on real tensors, on one card, with the same collectives. A mesh with
+process groups never reaches it; ``observe`` keeps a record of the
+collectives such a mesh runs, beside running them.
 """
 from __future__ import annotations
 
@@ -48,6 +63,90 @@ STATS = {"calls": 0, "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+#: the JAX package's names of the collectives the port executes
+KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "broadcast": "collective-broadcast", "send": "collective-permute",
+         "recv": "collective-permute"}
+
+
+class Recorder:
+    """The collectives of one rank program, in call order: (kind, axis,
+    bytes) each."""
+
+    def __init__(self):
+        self.calls = []
+
+    def stats(self) -> dict:
+        """{"bytes", "count", "by_kind"}: the dry-run record's collectives,
+        as the JAX ``CollectiveStats`` holds them."""
+        by_kind = {}
+        for kind, _, n in self.calls:
+            by_kind[kind] = by_kind.get(kind, 0) + n
+        return {"bytes": sum(by_kind.values()), "count": len(self.calls),
+                "by_kind": dict(sorted(by_kind.items()))}
+
+    def by_axis(self) -> dict:
+        """{axis: bytes} of the recorded collectives."""
+        out = {}
+        for _, axis, n in self.calls:
+            out[axis] = out.get(axis, 0) + n
+        return out
+
+
+class RecordedGroup:
+    """The stand-in for a process group along `axis` of an abstract mesh:
+    `size` ranks, this one at `index`, its collectives kept by `recorder`."""
+
+    def __init__(self, recorder: Recorder, axis: str, size: int, index: int):
+        self.recorder, self.axis, self.size, self.index = recorder, axis, size, index
+
+    def run(self, op: str, t: torch.Tensor, **kw) -> torch.Tensor:
+        nbytes = t.numel() * t.element_size()
+        if op in ("all_reduce", "broadcast"):
+            out = t.clone()
+        elif op == "all_gather":
+            out = torch.cat([torch.zeros_like(t, memory_format=torch.contiguous_format)
+                             for _ in range(self.size)], dim=kw.get("dim", 0))
+            nbytes *= self.size
+        elif op == "recv":
+            out = t.zero_()
+        elif op == "send":
+            out = None
+        else:
+            raise ValueError(f"no collective {op!r}")
+        self.recorder.calls.append((KINDS[op], self.axis, nbytes))
+        return out
+
+
+_OBSERVERS: list = []
+
+
+class observe:
+    """Within the block every collective that runs on a process group is
+    also recorded in `recorder` (its axis None): a real world's record, to
+    hold a traced one to."""
+
+    def __init__(self, recorder: Recorder):
+        self.recorder = recorder
+
+    def __enter__(self):
+        _OBSERVERS.append(self.recorder)
+        return self.recorder
+
+    def __exit__(self, *exc):
+        _OBSERVERS.remove(self.recorder)
+
+
+def group_size(group) -> int:
+    """The ranks of a process group or a recorded one."""
+    return group.size if isinstance(group, RecordedGroup) else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in a process group or a recorded one."""
+    return group.index if isinstance(group, RecordedGroup) else dist.get_rank(group)
+
+
 def reset_stats():
     STATS.update(calls=0, bytes=0, staged_bytes=0, seconds=0.0)
 
@@ -66,7 +165,9 @@ def run(op: str, t: torch.Tensor, group, **kw) -> torch.Tensor:
     `t`'s device: "all_reduce" (kw ``reduce``: "sum" or "max"), "broadcast"
     (kw ``src``, a global rank), "all_gather" (the ranks' tensors
     concatenated along kw ``dim``), "send" (kw ``dst``), "recv" (into `t`,
-    kw ``src``)."""
+    kw ``src``). A recorded group records it instead (``Recorder``)."""
+    if isinstance(group, RecordedGroup):
+        return group.run(op, t, **kw)
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
@@ -92,6 +193,9 @@ def run(op: str, t: torch.Tensor, group, **kw) -> torch.Tensor:
         raise ValueError(f"no collective {op!r}")
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
+    for rec in _OBSERVERS:
+        rec.calls.append((KINDS[op], None, t.numel() * t.element_size()
+                          * (dist.get_world_size(group) if op == "all_gather" else 1)))
     if via_host:
         STATS["staged_bytes"] += t.numel() * t.element_size()
         if op != "send":
@@ -125,8 +229,7 @@ def recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
 
 def _rows(t: torch.Tensor, group) -> torch.Tensor:
     """This rank's rows of `t`: the group's index-th of its equal parts."""
-    n = dist.get_world_size(group)
-    return t.chunk(n, dim=0)[dist.get_rank(group)]
+    return t.chunk(group_size(group), dim=0)[group_rank(group)]
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -192,6 +295,7 @@ def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceScatterRows.apply(x, group)
 
 
-__all__ = ["NATIVE", "STATS", "reset_stats", "staged", "run", "all_reduce", "all_gather",
+__all__ = ["NATIVE", "STATS", "KINDS", "Recorder", "RecordedGroup", "observe", "group_size",
+           "group_rank", "reset_stats", "staged", "run", "all_reduce", "all_gather",
            "broadcast", "send", "recv", "copy_to_model", "reduce_from_model", "gather_rows",
            "reduce_scatter_rows"]

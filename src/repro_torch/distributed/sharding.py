@@ -19,9 +19,21 @@ To run a spec the port keeps plain local tensors (no DTensor: the kernel
 ops are ctypes and Triton launches on raw pointers, which no DTensor
 dispatch rule reaches): ``shard`` cuts this rank's slice of a whole leaf,
 ``gather`` rebuilds the whole leaf from the ranks' slices. ``ModelShard``
-is this rank's share of a model on a (data, model) mesh: the local config
-the layers run (heads, kv heads and ``d_ff`` over ``model``), the vocab
-rows and experts it holds, and the gradient reductions a step needs.
+is this rank's share of a model on a (data, model) or (pod, data, model)
+mesh: the local config the layers run (heads, kv heads and ``d_ff`` over
+``model``), the vocab rows and experts it holds, the batch rows (over pod
+and data), ZeRO's slices of the optimizer state, and the gradient
+reductions a step needs.
+
+ZeRO (``zero_spec``): the fp32 master copy and moments of a leaf take one
+more axis, the DP axes its spec leaves free, on the first dim they divide;
+each rank updates its slice and the new bf16 values are all-gathered over
+that axis. Where the JAX rule puts that axis on the stacked unit axis of a
+layer leaf (a leaf whose other dims it does not divide, or which is
+sharded on them), the port's layer leaf takes it on the first dim of its
+own that it divides, after that dim's own axes (``zero_placement``): the
+same bytes a rank, each layer sliced alike (ROADMAP C17). The checkpoint
+layout of an optimizer state (``train_tree_spec``) is that placement.
 """
 from __future__ import annotations
 
@@ -269,14 +281,66 @@ def leaf_spec(mesh, cfg: ModelConfig, name: str, shape) -> tuple:
     return spec[1:] if stacked and spec else spec
 
 
+def _stacked(path: str) -> bool:
+    """Whether a JAX parameter path is a layer of a stacked unit (or an
+    encoder layer), whose leading axis is the unit axis."""
+    return path.startswith(("units/", "enc/layers/"))
+
+
+def zero_placement(mesh, cfg: ModelConfig, path, shape):
+    """(dim, axes) of ZeRO's extra axes on the leaf at JAX `path` of JAX
+    `shape`, the dim counted in the port's own leaf (a stacked layer leaf
+    without its unit axis); None where ``zero_spec`` adds no axis of more
+    than one rank. An axis the JAX rule puts on the unit axis goes on the
+    first dim of the layer leaf it divides: a dim with no axis first, else
+    one whose own axes and it together divide it (see the module's note)."""
+    path, shape = _path_str(path), tuple(shape)
+    p = _spec_entries(param_spec(mesh, path, shape, cfg), len(shape))
+    z = _spec_entries(zero_spec(mesh, path, shape, cfg), len(shape))
+    dims = [i for i, (a, b) in enumerate(zip(p, z)) if a != b]
+    if not dims:
+        return None
+    dim = dims[0]
+    axes = tuple(x for x in _axes(z[dim]) if x not in _axes(p[dim] or ()))
+    if mesh.axis_size(axes) == 1:
+        return None
+    lead = 1 if _stacked(path) else 0
+    if dim >= lead:
+        return dim - lead, axes
+    own, spec = shape[1:], p[1:]
+    for j in [j for j, a in enumerate(spec) if a is None] + \
+            [j for j, a in enumerate(spec) if a is not None]:
+        if _axis_ok(mesh, tuple(_axes(spec[j] or ())) + axes, own[j]):
+            return j, axes
+    return None
+
+
+def _with_zero(spec: tuple, ndim: int, placed) -> tuple:
+    """`spec` with ZeRO's axes after the own axes of their dim."""
+    if placed is None:
+        return tuple(spec)
+    dim, axes = placed
+    entries = _spec_entries(spec, ndim)
+    entries[dim] = _entry(tuple(_axes(entries[dim] or ())) + axes)
+    return tuple(entries)
+
+
 def train_tree_spec(mesh, cfg: ModelConfig, key: str, shape) -> tuple:
     """The spec of a checkpoint leaf of a TrainState in the JAX layout
     (``.params/...``, ``.opt/.master/...``, ``.opt/.m/...``,
-    ``.opt/.v/...``; ``.opt/.step`` replicated): the parameter's spec, the
-    optimizer state placed as its parameter (ZeRO's extra axis is A12b)."""
-    for prefix in (".params/", ".opt/.master/", ".opt/.m/", ".opt/.v/"):
+    ``.opt/.v/...``; ``.opt/.step`` replicated): the parameter's spec, and
+    for the optimizer state the parameter's spec with ZeRO's axes as the
+    port places them (``zero_placement``)."""
+    if key.startswith(".params/"):
+        return param_spec(mesh, key[len(".params/"):], shape, cfg)
+    for prefix in (".opt/.master/", ".opt/.m/", ".opt/.v/"):
         if key.startswith(prefix):
-            return param_spec(mesh, key[len(prefix):], shape, cfg)
+            path = key[len(prefix):]
+            spec = param_spec(mesh, path, shape, cfg)
+            placed = zero_placement(mesh, cfg, path, shape)
+            if placed is not None and _stacked(path):
+                placed = (placed[0] + 1, placed[1])
+            return _with_zero(spec, len(shape), placed)
     return ()
 
 
@@ -331,7 +395,7 @@ _NO_TP = (("attention_free", "RWKV6's head-parallel wkv and its (wr|wg), tmix/wo
 @dataclasses.dataclass
 class ModelShard:
     """This rank's share of a model of `cfg` on `mesh` (a (data, model)
-    mesh, or (pod, data, model) with one pod): `local` is the config its
+    or a (pod, data, model) mesh): `local` is the config its
     layers run (``n_heads``, ``n_kv_heads`` unless replicated, ``d_ff``
     over model), `specs` each leaf's spec and `shapes` its whole shape,
     `vocab` the padded-vocab rows [lo, hi) it holds, `kv_heads` (first,
@@ -339,7 +403,8 @@ class ModelShard:
     projections shard), `experts` (first, end) of the experts it runs over
     the data axis, `model_partial` the leaves replicated over model whose
     gradients each rank holds a part of (the qk-norm scales: each rank's
-    act on its own heads)."""
+    act on its own heads), `zero` each leaf's ZeRO placement (dim, axes) in
+    its local shard, where it has one."""
     mesh: object
     cfg: ModelConfig
     local: ModelConfig
@@ -349,6 +414,7 @@ class ModelShard:
     kv_heads: Optional[tuple]
     experts: tuple
     model_partial: frozenset
+    zero: dict = dataclasses.field(default_factory=dict)
 
     @property
     def model_group(self):
@@ -359,34 +425,84 @@ class ModelShard:
         return self.mesh.group("data")
 
     @property
+    def pod_group(self):
+        return self.mesh.group("pod")
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The axes a batch's rows split over: (pod, data), those the mesh
+        has."""
+        return tuple(a for a in DP_AXES if a in self.mesh.shape)
+
+    @property
     def data_size(self) -> int:
-        return self.mesh.shape.get("data", 1)
+        """The ranks a batch's rows split over (pod times data)."""
+        return self.mesh.axis_size(self.batch_axes)
 
     @property
     def tp(self) -> bool:
         return self.mesh.shape.get(TP_AXIS, 1) > 1
 
+    @property
+    def cache_cfg(self) -> ModelConfig:
+        """The config of this rank's decode cache: the local one, with the
+        replicated kv heads its q heads read where the kv projections
+        replicate (``kv_heads``)."""
+        if self.kv_heads is None:
+            return self.local
+        return dataclasses.replace(self.local, n_kv_heads=self.kv_heads[1])
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the batch axes (data, then pod)."""
+        for axis in reversed(self.batch_axes):
+            t = C.all_reduce(t, self.mesh.group(axis))
+        return t
+
     def local_rows(self, a, microbatches: int = 1):
-        """This data rank's rows of a global batch array: the batch split
-        into `microbatches` first, then each microbatch's rows over data
-        (the JAX step's ``_shard_microbatch``), flattened back."""
+        """This rank's rows of a global batch array: the batch split into
+        `microbatches` first, then each microbatch's rows over (pod, data),
+        pod the major axis (the JAX step's ``_shard_microbatch``), flattened
+        back."""
         D = self.data_size
         if a is None or D == 1:
             return a
         mb = a.shape[0] // microbatches
         if mb % D:
-            raise ValueError(f"a microbatch of {mb} rows does not split over data {D}")
-        r = self.mesh.index("data")
+            raise ValueError(f"a microbatch of {mb} rows does not split over "
+                             f"{'x'.join(self.batch_axes)} = {D}")
+        r = self.mesh.index(self.batch_axes)
         part = a.reshape(microbatches, mb, *a.shape[1:])[:, r * mb // D:(r + 1) * mb // D]
         return part.reshape(-1, *a.shape[1:])
 
+    def zero_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO slice of the local leaf `name` (a view; `t`
+        itself where the leaf has no ZeRO axis)."""
+        placed = self.zero.get(name)
+        if placed is None:
+            return t
+        spec = [None] * t.dim()
+        spec[placed[0]] = _entry(placed[1])
+        return shard(t, tuple(spec), self.mesh)
+
+    def zero_gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The local leaf `name` from the ranks' ZeRO slices `t` (an
+        all-gather over its ZeRO axes)."""
+        placed = self.zero.get(name)
+        if placed is None:
+            return t
+        spec = [None] * t.dim()
+        spec[placed[0]] = _entry(placed[1])
+        return gather(t, tuple(spec), self.mesh)
+
     def sync_grads(self, grads: dict) -> dict:
         """Gradients of the whole step from this rank's: fp32, summed over
-        data for every leaf not sharded over data, and over model for the
-        `model_partial` leaves; in buckets of at most SYNC_BUCKET elements."""
+        pod and over data for every leaf not sharded over that axis, and
+        over model for the `model_partial` leaves; in buckets of at most
+        SYNC_BUCKET elements."""
         out = {n: g.float() for n, g in grads.items()}
-        for axis, names in (("data", [n for n in out if "data" not in _spec_axes(self.specs[n])]),
-                            (TP_AXIS, [n for n in out if n in self.model_partial])):
+        for axis, names in [(a, [n for n in out if a not in _spec_axes(self.specs[n])])
+                            for a in reversed(self.batch_axes)] + \
+                [(TP_AXIS, [n for n in out if n in self.model_partial])]:
             group = self.mesh.group(axis)
             if group is None:
                 continue
@@ -412,23 +528,23 @@ class ModelShard:
             total = C.all_reduce(total, self.mesh.group(axis))
         return total
 
-    def gather_state(self, tensors: dict) -> dict:
+    def gather_state(self, tensors: dict, zero: bool = False) -> dict:
         """Whole leaves on the host from this rank's slices, keyed as
-        `tensors` (every rank of the mesh takes part)."""
-        return {n: gather(t.detach(), self.specs[n], self.mesh).cpu() for n, t in tensors.items()}
+        `tensors`, which are ZeRO's slices with `zero` (the optimizer
+        state); every rank of the mesh takes part."""
+        return {n: gather(t.detach(), _with_zero(self.specs[n], t.dim(), self.zero.get(n))
+                          if zero else self.specs[n], self.mesh).cpu()
+                for n, t in tensors.items()}
 
 
 def check_executable(cfg: ModelConfig, mesh) -> None:
     """Raise where the port cannot run `cfg` on local shards of `mesh`:
     NotImplementedError naming A12b for TP of the recurrent and
     cross-attending models, ValueError naming the dim for heads, d_ff or a
-    padded vocab that the model axis does not divide, or for a pod axis
-    (pipeline stages run through ``pipeline_apply``)."""
+    padded vocab that the model axis does not divide. A pod axis is a data
+    axis here (``pipeline_apply`` runs pipeline stages over it, from its
+    own caller)."""
     from ..models.lm import padded_vocab
-    if mesh.shape.get("pod", 1) > 1:
-        raise ValueError(f"a pod axis of {mesh.shape['pod']}: pipeline stages run through "
-                         "distributed.pipeline.pipeline_apply; a train step takes a "
-                         "(data, model) mesh")
     m = mesh.shape.get(TP_AXIS, 1)
     if m == 1:
         return
@@ -465,7 +581,8 @@ def plan(cfg: ModelConfig, mesh) -> ModelShard:
         for dim, a in enumerate(spec):
             if a is not None and a != TP_AXIS and not (".moe.w_" in n and dim == 0):
                 raise NotImplementedError(f"{cfg.name}: {n} is sharded {spec}: the port runs "
-                                          "experts over data on their expert axis only")
+                                          "experts over data on their expert axis only; "
+                                          "d_model over data is ROADMAP A12b")
     hkv, kv_heads = cfg.n_kv_heads, None
     if m > 1 and hkv and hkv % m:
         H_loc, G = cfg.n_heads // m, cfg.n_heads // hkv
@@ -485,8 +602,14 @@ def plan(cfg: ModelConfig, mesh) -> ModelShard:
     # heads' part (replicated kv heads are whole on every rank: lm.py)
     partial = {n for n in shapes if m > 1 and (
         n.endswith("attn.q_norm") or (n.endswith("attn.k_norm") and not kv_heads))}
+    zero = {}
+    for n, s in shapes.items():
+        path, jshape, _ = jax_leaf(cfg, n, s)
+        placed = zero_placement(mesh, cfg, path, jshape)
+        if placed is not None:
+            zero[n] = placed
     return ModelShard(mesh, cfg, local, specs, shapes, vocab, kv_heads, experts,
-                      frozenset(partial))
+                      frozenset(partial), zero)
 
 
 def init_sharded(cfg: ModelConfig, mesh, seed: int = 0, device=None):
@@ -526,5 +649,5 @@ def attach(model, par: ModelShard):
 
 __all__ = ["DP_AXES", "TP_AXIS", "SMALL_EXPERT_BYTES", "param_spec", "zero_spec", "batch_spec",
            "data_shardings", "cache_spec", "cache_shardings", "jax_leaf", "leaf_spec",
-           "train_tree_spec", "shard", "gather", "ModelShard", "check_executable",
+           "train_tree_spec", "zero_placement", "shard", "gather", "ModelShard", "check_executable",
            "plan", "init_sharded", "attach"]

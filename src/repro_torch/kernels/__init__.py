@@ -60,12 +60,20 @@ KERNELS = {
 
 
 def reset_launches() -> None:
+    """Set every wrapper's launch count and operation tally to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.ops = 0
 
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "launches", "reset_launches"]
+def ops() -> dict:
+    """The operations each wrapper's launches did since the last reset
+    (``_trace.launched``), by kernel name."""
+    return {name: getattr(fn, "ops", 0) for name, fn in KERNELS.items()}
+
+
+__all__ = ["KERNELS", "launches", "ops", "reset_launches"]

@@ -44,6 +44,8 @@ import math
 import torch
 
 from .. import _build
+from ...device import address, on_card, sm_count, traced
+from .._trace import launched
 
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims of the chunked kernel
@@ -86,16 +88,19 @@ def _entry(fn_name: str):
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """n merge counters of the chunked or the mma kernel for launches on
     `stream`: zero before each launch, and reset to zero by the launch
     itself (so the two kernels may share them)."""
     return torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def decode_ops(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Operations of a decode launch: q.k and p.v, 2 D each a (query head,
+    key) pair, over every key slot of the cache (the live lengths are data,
+    which a trace cannot read)."""
+    B, Hkv, G, D = q.shape
+    return 4 * D * G * Hkv * B * k.shape[1]
 
 
 def kernel_head_dim(D: int) -> int:
@@ -144,7 +149,7 @@ def _check(what, q, k, v, lengths, dtypes, head_dims) -> None:
         raise ValueError(f"{what} kernel takes one dtype of {dtypes}, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k, v, lengths)):
+    if not on_card(q) or any(t.device != dev for t in (k, v, lengths)):
         raise ValueError(f"{what} kernel needs q, k, v, lengths on one CUDA device")
     if not q.is_contiguous() or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what} kernel needs a contiguous q and a unit stride along D "
@@ -160,9 +165,9 @@ def chunked_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     16-byte loads need. The model's cache views qualify."""
     if any(t.dtype != torch.bfloat16 or t.dim() != 4 for t in (q, k, v)):
         return False
-    if q.shape[3] not in CHUNKED_HEAD_DIMS or not q.is_contiguous() or q.data_ptr() % 16:
+    if q.shape[3] not in CHUNKED_HEAD_DIMS or not q.is_contiguous() or address(q) % 16:
         return False
-    return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+    return all(t.stride(3) == 1 and address(t) % 16 == 0
                and all(s % 8 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)
                for t in (k, v))
 
@@ -235,6 +240,8 @@ def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         return out
     lengths = lengths.contiguous()
     part = torch.empty(scratch_floats(B, Hkv, G, T, D), dtype=torch.float32, device=dev)
+    if traced(q):
+        return launched(decode_attention_chunked_cuda, decode_ops(q, k), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry("decode_attention_chunked_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
@@ -242,7 +249,7 @@ def decode_attention_chunked_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         max_chunks(T, D), k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
         v.stride(2), float(softcap), 1.0 / math.sqrt(D) if scale is None else scale, stream)
     _build.check(err, "decode_attention_chunked_fwd")
-    decode_attention_chunked_cuda.launches += 1
+    launched(decode_attention_chunked_cuda, decode_ops(q, k))
     return out
 
 
@@ -270,6 +277,8 @@ def decode_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lengths = lengths.contiguous()
     part = torch.empty(mma_scratch_floats(B, Hkv, G, T, D), dtype=torch.float32, device=dev)
+    if traced(q):
+        return launched(decode_attention_mma_cuda, decode_ops(q, k), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry("decode_attention_mma_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
@@ -278,20 +287,20 @@ def decode_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.stride(1), v.stride(2), float(softcap),
         1.0 / math.sqrt(D) if scale is None else scale, stream)
     _build.check(err, "decode_attention_mma_fwd")
-    decode_attention_mma_cuda.launches += 1
+    launched(decode_attention_mma_cuda, decode_ops(q, k))
     return out
 
 
 decode_attention_mma_cuda.launches = 0
 
 
-def n_splits(device: torch.device, B: int, Hkv: int, G: int, T: int, D: int = 128) -> int:
-    """Splits of the cache length for the split kernel: enough blocks for
-    BLOCKS_PER_SM per SM, but no split shorter than MIN_SPLIT_LEN keys."""
+def n_splits(sms: int, B: int, Hkv: int, G: int, T: int, D: int = 128) -> int:
+    """Splits of the cache length for the split kernel on a card of `sms`
+    SMs: enough blocks for BLOCKS_PER_SM per SM, but no split shorter than
+    MIN_SPLIT_LEN keys."""
     group_chunk = 2 if G <= 2 or D == 256 else 8   # heads per block, as in the source
     blocks = B * Hkv * -(-G // group_chunk)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    want = -(-BLOCKS_PER_SM * _sm_count(index) // blocks)
+    want = -(-BLOCKS_PER_SM * sms // blocks)
     return max(1, min(want, -(-T // MIN_SPLIT_LEN)))
 
 
@@ -310,10 +319,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    n_split = n_splits(dev, B, Hkv, G, T, D)
+    n_split = n_splits(sm_count(q), B, Hkv, G, T, D)
     split_len = -(-T // n_split)
     part = torch.empty(B * Hkv * G * n_split * (D + 2), dtype=torch.float32,
                        device=dev)
+    if traced(q):
+        return launched(decode_attention_cuda, decode_ops(q, k), out)
     err = _entry("decode_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), B, Hkv, G, D, n_split, split_len,
@@ -321,7 +332,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(softcap), 1.0 / math.sqrt(D) if scale is None else scale,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_attention_fwd")
-    decode_attention_cuda.launches += 1
+    launched(decode_attention_cuda, decode_ops(q, k))
     return out
 
 

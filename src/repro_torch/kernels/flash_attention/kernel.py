@@ -51,6 +51,8 @@ import math
 import torch
 
 from .. import _build
+from ...device import address, on_card, sm_count, traced
+from .._trace import attention_pairs, launched
 
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims of the TMA + wgmma kernel
@@ -98,10 +100,24 @@ def _check(what: str, q, k, v, dtypes, head_dims) -> None:
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what} kernel takes one dtype of {dtypes}, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not on_card(q) or k.device != q.device or v.device != q.device:
         raise ValueError(f"{what} kernel needs q, k, v on one CUDA device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what} kernel needs a unit stride along D")
+
+
+def fwd_ops(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> int:
+    """Operations of a forward launch: q.k and p.v, 2 D each a scored
+    (query, key) pair of each query head."""
+    B, Hq, Sq, D = q.shape
+    return 4 * D * B * Hq * attention_pairs(Sq, k.shape[2], causal, window)
+
+
+def bwd_ops(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> int:
+    """Operations of a backward launch: five products of 2 D a scored pair
+    (q.k again, dO.v, dS.k, dS.q, P.dO) of each query head."""
+    B, Hq, Sq, D = q.shape
+    return 10 * D * B * Hq * attention_pairs(Sq, k.shape[2], causal, window)
 
 
 def _tma_strides(t: torch.Tensor) -> tuple:
@@ -121,7 +137,7 @@ def kernel_head_dim(D: int) -> int:
 
 
 def _tma_describable(t: torch.Tensor) -> bool:
-    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
+    return t.stride(3) == 1 and address(t) % 16 == 0 and \
         all(s > 0 and s % 8 == 0 for s in _tma_strides(t))
 
 
@@ -162,6 +178,9 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if lse is not None:
         _check_lse(lse, q)
     o = torch.empty_like(q)
+    ops = fwd_ops(q, k, causal, window)
+    if traced(q):
+        return launched(flash_attention_wgmma_cuda, ops, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("flash_attention_sm90_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -172,7 +191,7 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if err == -2:
         raise RuntimeError("flash_attention_sm90_fwd: the CUDA driver refused a TMA descriptor")
     _build.check(err, "flash_attention_sm90_fwd")
-    flash_attention_wgmma_cuda.launches += 1
+    launched(flash_attention_wgmma_cuda, ops)
     return o
 
 
@@ -191,6 +210,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
+    ops = fwd_ops(q, k, causal, window)
+    if traced(q):
+        return launched(flash_attention_cuda, ops, o)
     err = _entry("flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),
         B, Hq, Hkv, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -198,7 +220,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(D) if scale is None else scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
-    flash_attention_cuda.launches += 1
+    launched(flash_attention_cuda, ops)
     return o
 
 
@@ -362,11 +384,6 @@ def bwd_dkdv_plan(B: int, Hkv: int, Sq: int, Sk: int, G: int, causal: bool, wind
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """One int a dk/dv work tile for launches on `stream` that split its
     heads: zero before each launch, and reset to zero by the launch."""
@@ -421,11 +438,12 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     sq_pad = -(-Sq // BWD_TILE_ROWS) * BWD_TILE_ROWS
     stats = _bwd_stats(q.device, B * Hq * sq_pad) if phases != 3 else \
         torch.empty(B * Hq * sq_pad * 2, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     tiles = -(-Sk // bwd_key_tile(D)) * B * Hkv
-    sms = _sm_count(q.device.index or 0)
+    sms = sm_count(q)
     plan, splits = None, 1
-    if D == 256:
+    if D == 256 and traced(q):
+        blocks = len(bwd_dkdv_plan(B, Hkv, Sq, Sk, Hq // Hkv, causal, window, sms))
+    elif D == 256:
         plan, blocks = _dkdv_plan(q.device, B, Hkv, Sq, Sk, Hq // Hkv, causal, window, sms)
     else:
         splits = bwd_head_splits(tiles, Hq // Hkv, sms)
@@ -435,6 +453,11 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
         # fp32 dK and dV partials, 256 threads a block
         part = torch.empty(blocks * 256 * bwd_part_floats(D), dtype=torch.float32,
                            device=q.device)
+    ops = bwd_ops(q, k, causal, window)
+    if traced(q):
+        return launched(flash_attention_bwd_wgmma_cuda, ops, (dq, dk, dv))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if part is not None:
         done = _tile_counters(q.device, stream, tiles)
     err = _bwd_sm90_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -449,7 +472,7 @@ def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
         raise RuntimeError("flash_attention_bwd_sm90: the CUDA driver refused a TMA descriptor")
     _build.check(err, "flash_attention_bwd_sm90")
     if phases == 3:
-        flash_attention_bwd_wgmma_cuda.launches += 1
+        launched(flash_attention_bwd_wgmma_cuda, ops)
     return dq, dk, dv
 
 
@@ -495,6 +518,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    ops = bwd_ops(q, k, causal, window)
+    if traced(q):
+        return launched(flash_attention_bwd_cuda, ops, (dq, dk, dv))
     err = _bwd_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
@@ -502,7 +528,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(window), float(softcap), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd_cuda.launches += 1
+    launched(flash_attention_bwd_cuda, ops)
     return dq, dk, dv
 
 

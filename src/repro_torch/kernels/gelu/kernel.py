@@ -48,6 +48,8 @@ import math
 import torch
 
 from .. import _build
+from ...device import on_card, traced
+from .._trace import launched
 
 BLOCK = 4096
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -85,7 +87,7 @@ def _check_elementwise(what: str, *ts: torch.Tensor) -> None:
     if any(t.shape != ts[0].shape or t.dtype != ts[0].dtype for t in ts):
         raise ValueError(f"{what} takes tensors of one shape and dtype, got "
                          f"{[(tuple(t.shape), t.dtype) for t in ts]}")
-    if any(t.device.type != "cuda" or t.device != ts[0].device for t in ts):
+    if any(not on_card(t) or t.device != ts[0].device for t in ts):
         raise ValueError(f"{what} kernel needs its tensors on one CUDA device")
     if ts[0].dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} kernel takes bf16/fp32, got {ts[0].dtype}")
@@ -110,10 +112,12 @@ def gelu_cuda(x: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n == 0:
         return out
+    if traced(x):
+        return launched(gelu_cuda, 10 * n, out)
     err = _gelu_entry()(x.data_ptr(), out.data_ptr(), n, int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gelu_fwd")
-    gelu_cuda.launches += 1
+    launched(gelu_cuda, 10 * n)
     return out
 
 
@@ -137,11 +141,13 @@ def gelu_mul_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     n = g.numel()
     if n == 0:
         return out
+    if traced(g):
+        return launched(gelu_mul_cuda, 11 * n, out)
     err = _gelu_mul_entry()(g.data_ptr(), u.data_ptr(), out.data_ptr(), n,
                             int(g.dtype == torch.bfloat16),
                             torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(err, "gelu_mul_fwd")
-    gelu_mul_cuda.launches += 1
+    launched(gelu_mul_cuda, 11 * n)
     return out
 
 
@@ -156,10 +162,12 @@ def gelu_triton(x: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n == 0:
         return out
+    if traced(x):
+        return launched(gelu_triton, 10 * n, out)
     triton, kern, _ = _kernels()
     gelu_triton.compiled = kern[(triton.cdiv(n, BLOCK),)](
         x, out, n, K=_SQRT_2_OVER_PI, BLOCK=BLOCK, num_warps=8)
-    gelu_triton.launches += 1
+    launched(gelu_triton, 10 * n)
     return out
 
 
@@ -174,10 +182,12 @@ def silu_mul_triton(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     n = g.numel()
     if n == 0:
         return out
+    if traced(g):
+        return launched(silu_mul_triton, 5 * n, out)
     triton, _, kern = _kernels()
     silu_mul_triton.compiled = kern[(triton.cdiv(n, BLOCK),)](
         g, u, out, n, BLOCK=BLOCK, num_warps=8)
-    silu_mul_triton.launches += 1
+    launched(silu_mul_triton, 5 * n)
     return out
 
 
@@ -226,10 +236,12 @@ def silu_mul_bwd_triton(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
     n = g.numel()
     if n == 0:
         return dg, du
+    if traced(g):
+        return launched(silu_mul_bwd_triton, 12 * n, (dg, du))
     triton, kern = _bwd_kernels()
     silu_mul_bwd_triton.compiled = kern[(triton.cdiv(n, BLOCK),)](
         g, u, dy, dg, du, n, BLOCK=BLOCK, num_warps=8)
-    silu_mul_bwd_triton.launches += 1
+    launched(silu_mul_bwd_triton, 12 * n)
     return dg, du
 
 
@@ -262,11 +274,13 @@ def gelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n == 0:
         return dx
+    if traced(x):
+        return launched(gelu_bwd_cuda, 20 * n, dx)
     err = _gelu_bwd_entry()(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n,
                             int(x.dtype == torch.bfloat16),
                             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gelu_bwd")
-    gelu_bwd_cuda.launches += 1
+    launched(gelu_bwd_cuda, 20 * n)
     return dx
 
 
@@ -290,11 +304,13 @@ def gelu_mul_bwd_cuda(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
     n = g.numel()
     if n == 0:
         return dg, du
+    if traced(g):
+        return launched(gelu_mul_bwd_cuda, 22 * n, (dg, du))
     err = _gelu_mul_bwd_entry()(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(),
                                 du.data_ptr(), n, int(g.dtype == torch.bfloat16),
                                 torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(err, "gelu_mul_bwd")
-    gelu_mul_bwd_cuda.launches += 1
+    launched(gelu_mul_bwd_cuda, 22 * n)
     return dg, du
 
 

@@ -15,6 +15,8 @@ import functools
 import torch
 
 from .. import _build
+from ...device import address, on_card, traced
+from .._trace import launched
 
 #: bytes the kernel writes a row: totals (4 float64), tile_time (2), the step
 #: and write-back times (1 + 1), steps and the three tile counts (4 int64)
@@ -53,7 +55,7 @@ def mapper_tables_cuda(cols: torch.Tensor, p_ok: torch.Tensor, offs: torch.Tenso
     rows, pairs = cols.shape[-1], pint.shape[0]
     ts = (cols, p_ok, offs, pint, pflt, pbytes)
     dev = cols.device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
+    if not on_card(cols) or any(t.device != dev for t in ts):
         raise ValueError("mapper_tables kernel needs its tensors on one CUDA device")
     if cols.dim() != 2 or cols.shape[0] != 6 or rows < 1 or pairs < 1:
         raise ValueError(f"mapper_tables takes cols of (6, rows >= 1) and >= 1 pair, got "
@@ -67,7 +69,7 @@ def mapper_tables_cuda(cols: torch.Tensor, p_ok: torch.Tensor, offs: torch.Tenso
             raise ValueError(f"mapper_tables takes {name} as {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     if p_ok.dtype not in (torch.bool, torch.uint8) or tuple(p_ok.shape) != (rows, 4) \
-            or p_ok.data_ptr() % 4:
+            or address(p_ok) % 4:
         raise ValueError(f"mapper_tables takes p_ok as bool (rows, 4) at a 4-byte boundary, "
                          f"got {p_ok.dtype} {tuple(p_ok.shape)}")
     if not all(t.is_contiguous() for t in ts):
@@ -75,11 +77,15 @@ def mapper_tables_cuda(cols: torch.Tensor, p_ok: torch.Tensor, offs: torch.Tenso
     if not 0 <= float_mask < 16:
         raise ValueError(f"mapper_tables takes a 4-bit float mask, got {float_mask}")
     out = torch.empty(rows * OUT_BYTES_PER_ROW, dtype=torch.uint8, device=dev)
+    # its int64 and float64 work has no rate in the card's table: its bound
+    # is its bytes, and it counts no operations
+    if traced(cols):
+        return launched(mapper_tables_cuda, 0, out)
     err = _entry()(cols.data_ptr(), p_ok.data_ptr(), offs.data_ptr(), pint.data_ptr(),
                    pflt.data_ptr(), pbytes.data_ptr(), out.data_ptr(), rows, pairs,
                    float_mask, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mapper_tables")
-    mapper_tables_cuda.launches += 1
+    launched(mapper_tables_cuda, 0)
     return out
 
 

@@ -37,6 +37,8 @@ import math
 import torch
 
 from .. import _build
+from ...device import address, on_card, traced
+from .._trace import launched
 
 #: compiled (bm, bk, bn) tiles of each operand dtype, bk in elements: the
 #: TMA ring kernel's (wgmma for bf16, e4m3 and int8; FFMAs for fp32)
@@ -165,7 +167,7 @@ def _check_shapes(what, a, b):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"{what} takes a (M,K) and b (K,N), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    if a.device.type != "cuda" or b.device != a.device:
+    if not on_card(a) or b.device != a.device:
         raise ValueError(f"{what} kernel needs a and b on one CUDA device")
 
 
@@ -214,11 +216,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 32
         return c
     if K == 0:
         return c.zero_()
+    if traced(a):
+        return launched(matmul_cuda, 2 * M * N * K, c)
     err = _entry("matmul_fwd")(a.data_ptr(), b.data_ptr(), c.data_ptr(), _MODES[a.dtype], M, N,
                                K, bm, bk, bn, OUT_KINDS[out_dtype],
                                torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_fwd", tile)
-    matmul_cuda.launches += 1
+    launched(matmul_cuda, 2 * M * N * K)
     return c
 
 
@@ -241,7 +245,7 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
         raise ValueError("matmul_wgmma kernel takes bf16, fp16 or e4m3 operands; fp32 runs "
                          "on matmul_f32_tma")
     (M, K), N = a.shape, b.shape[1]
-    if not tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
+    if not tma_eligible(a.dtype, M, K, N, address(a), address(b)):
         raise ValueError(f"matmul_wgmma kernel takes bf16, fp16 or e4m3 operands with 16-byte "
                          f"aligned bases and row pitches, got {a.dtype} ({M},{K})x({K},{N})")
     tile = (bm, bk, bn)
@@ -255,12 +259,13 @@ def matmul_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: in
     if K == 0:
         return c.zero_()
     p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device)
-    err = _entry("matmul_sm90_fwd")(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(),
-        _MODES[a.dtype], form, M, N, K, bm, bk, bn, kt_per_split, splits,
-        OUT_KINDS[out_dtype], torch.cuda.current_stream(a.device).cuda_stream)
-    _launched(err, "matmul_sm90_fwd", tile)
-    matmul_wgmma_cuda.launches += 1
+    if not traced(a):
+        err = _entry("matmul_sm90_fwd")(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(),
+            _MODES[a.dtype], form, M, N, K, bm, bk, bn, kt_per_split, splits,
+            OUT_KINDS[out_dtype], torch.cuda.current_stream(a.device).cuda_stream)
+        _launched(err, "matmul_sm90_fwd", tile)
+    launched(matmul_wgmma_cuda, 2 * M * N * K)
     if p is not None:
         matmul_reduce_cuda(p, c)
     return c
@@ -287,7 +292,7 @@ def matmul_f32_tma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: 
     if not a.is_contiguous() or not b.is_contiguous():
         raise ValueError("matmul_f32_tma kernel takes row-major a and b")
     (M, K), N = a.shape, b.shape[1]
-    if not tma_eligible(torch.float32, M, K, N, a.data_ptr(), b.data_ptr()):
+    if not tma_eligible(torch.float32, M, K, N, address(a), address(b)):
         raise ValueError(f"matmul_f32_tma kernel takes operands with 16-byte aligned bases "
                          f"and row pitches, got ({M},{K})x({K},{N})")
     tile = (bm, bk, bn)
@@ -300,12 +305,13 @@ def matmul_f32_tma_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256, bk: 
     if K == 0:
         return c.zero_()
     p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device)
-    err = _entry("matmul_sm90_f32_fwd")(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(), M, N, K,
-        bm, bk, bn, kt_per_split, splits, OUT_KINDS[out_dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _launched(err, "matmul_sm90_f32_fwd", tile)
-    matmul_f32_tma_cuda.launches += 1
+    if not traced(a):
+        err = _entry("matmul_sm90_f32_fwd")(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), None if p is None else p.data_ptr(), M,
+            N, K, bm, bk, bn, kt_per_split, splits, OUT_KINDS[out_dtype],
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _launched(err, "matmul_sm90_f32_fwd", tile)
+    launched(matmul_f32_tma_cuda, 2 * M * N * K)
     if p is not None:
         matmul_reduce_cuda(p, c)
     return c
@@ -321,7 +327,7 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor |
     (fp32, bf16 or fp16), on one CUDA device. With fp32 scales a_scale (M,1) and
     b_scale (1,N) (the int8 GEMM's), the sum is multiplied by a_scale and
     then by b_scale, the int8 kernels' order."""
-    if p.device.type != "cuda" or c.device != p.device:
+    if not on_card(p) or c.device != p.device:
         raise ValueError("matmul_reduce kernel needs p and c on one CUDA device")
     if p.dim() != 3 or p.dtype != torch.float32 or not p.is_contiguous() or \
             c.shape != p.shape[1:] or c.dtype not in _OUT or not c.is_contiguous():
@@ -333,13 +339,16 @@ def matmul_reduce_cuda(p: torch.Tensor, c: torch.Tensor, a_scale: torch.Tensor |
     if scaled:
         _check_scales("matmul_reduce", a_scale, b_scale, M, N, p.device)
         a_scale, b_scale = a_scale.contiguous(), b_scale.contiguous()
+    ops = p.shape[0] * M * N
+    if traced(p):
+        return launched(matmul_reduce_cuda, ops, c)
     err = _entry("matmul_sm90_reduce")(p.data_ptr(), c.data_ptr(), c.numel(), p.shape[0],
                                        OUT_KINDS[c.dtype],
                                        a_scale.data_ptr() if scaled else None,
                                        b_scale.data_ptr() if scaled else None, N,
                                        torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(err, "matmul_sm90_reduce")
-    matmul_reduce_cuda.launches += 1
+    launched(matmul_reduce_cuda, ops)
     return c
 
 
@@ -353,7 +362,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, request, out_dtype=None) -> torc
     ``matmul_f32_tma_cuda``; other operands to ``matmul_cuda`` at its tile
     of ``MMA_SYNC_TILES`` (bf16, fp16, e4m3) or ``SIMT_TILES`` (fp32)."""
     (M, K), N = a.shape, b.shape[1]
-    if tma_eligible(a.dtype, M, K, N, a.data_ptr(), b.data_ptr()):
+    if tma_eligible(a.dtype, M, K, N, address(a), address(b)):
         bm, bk, bn = select_tile(a.dtype, *request)
         kernel = matmul_f32_tma_cuda if a.dtype == torch.float32 else matmul_wgmma_cuda
         return kernel(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
@@ -397,7 +406,7 @@ def matmul_int8_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tens
     tile = (bm, bk, bn)
     _check_int8("matmul_int8_wgmma", a, b, a_scale, b_scale, tile, TILES[torch.int8])
     (M, K), N = a.shape, b.shape[1]
-    if not tma_eligible(torch.int8, M, K, N, a.data_ptr(), b.data_ptr()):
+    if not tma_eligible(torch.int8, M, K, N, address(a), address(b)):
         raise ValueError(f"matmul_int8_wgmma kernel takes operands with 16-byte aligned bases "
                          f"and row pitches, got ({M},{K})x({K},{N})")
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
@@ -407,12 +416,13 @@ def matmul_int8_wgmma_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tens
         return c.zero_()
     sa, sb = a_scale.contiguous(), b_scale.contiguous()
     p, kt_per_split, splits = _split_workspace(M, N, K, tile, a.device, INT8_MAX_K)
-    err = _entry("matmul_sm90_s8_fwd")(
-        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), c.data_ptr(),
-        None if p is None else p.data_ptr(), M, N, K, bm, bk, bn, kt_per_split, splits,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _launched(err, "matmul_sm90_s8_fwd", tile)
-    matmul_int8_wgmma_cuda.launches += 1
+    if not traced(a):
+        err = _entry("matmul_sm90_s8_fwd")(
+            a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), c.data_ptr(),
+            None if p is None else p.data_ptr(), M, N, K, bm, bk, bn, kt_per_split, splits,
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _launched(err, "matmul_sm90_s8_fwd", tile)
+    launched(matmul_int8_wgmma_cuda, 2 * M * N * K)
     if p is not None:
         matmul_reduce_cuda(p, c, sa, sb)
     return c
@@ -439,11 +449,13 @@ def matmul_int8_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
     if K == 0:
         return c.zero_()
     sa, sb = a_scale.contiguous(), b_scale.contiguous()
+    if traced(a):
+        return launched(matmul_int8_cuda, 2 * M * N * K, c)
     err = _entry("matmul_int8_fwd")(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
                                     c.data_ptr(), M, N, K, bm, bk, bn,
                                     torch.cuda.current_stream(a.device).cuda_stream)
     _launched(err, "matmul_int8_fwd", tile)
-    matmul_int8_cuda.launches += 1
+    launched(matmul_int8_cuda, 2 * M * N * K)
     return c
 
 
@@ -457,7 +469,7 @@ def int8_gemm_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
     (bm, bk, bn) `request`, others to ``matmul_int8_cuda`` at its tile of
     ``INT8_MMA_SYNC_TILES``."""
     (M, K), N = a.shape, b.shape[1]
-    if tma_eligible(torch.int8, M, K, N, a.data_ptr(), b.data_ptr()):
+    if tma_eligible(torch.int8, M, K, N, address(a), address(b)):
         bm, bk, bn = select_tile(torch.int8, *request)
         return matmul_int8_wgmma_cuda(a, b, a_scale, b_scale, bm=bm, bk=bk, bn=bn)
     bm, bk, bn = select_tile(torch.int8, *request, tiles=INT8_MMA_SYNC_TILES)

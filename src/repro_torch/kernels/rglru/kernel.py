@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ...device import address, on_card, traced
+from .._trace import launched
 
 #: steps a segment of the chunked kernel, a tile being 16 segments
 SEGMENT_STEPS = (4, 8)
@@ -61,7 +63,7 @@ def _checked(u, ga, gx, lam, gate, h0, lengths, h_out):
     B, T, d = u.shape
     dev = u.device
     ts = [u, ga, gx, lam, gate] + [t for t in (h0, lengths, h_out) if t is not None]
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
+    if not on_card(u) or any(t.device != dev for t in ts):
         raise ValueError("rglru kernel needs its tensors on one CUDA device")
     if u.dtype != torch.bfloat16 or gate.dtype != torch.bfloat16 or \
             any(t.dtype != torch.float32 for t in (ga, gx, lam)):
@@ -96,11 +98,13 @@ def rglru_cuda(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor, lam: torch.T
     B, T, d = u.shape
     if B * d == 0:
         return y, h_out
+    if traced(u):
+        return launched(rglru_cuda, 20 * B * T * d, (y, h_out))
     err = _entry()(u.data_ptr(), ga.data_ptr(), gx.data_ptr(), lam.data_ptr(),
                    gate.data_ptr(), _ptr(h0), _ptr(lengths), y.data_ptr(), h_out.data_ptr(),
                    B, T, d, torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(err, "rglru_fwd")
-    rglru_cuda.launches += 1
+    launched(rglru_cuda, 20 * B * T * d)
     return y, h_out
 
 
@@ -117,7 +121,7 @@ def chunked_eligible(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor,
     model's tensors qualify at every width of a served config."""
     if u.dim() != 3 or u.shape[2] % 8:
         return False
-    return all(t.shape == u.shape and t.is_contiguous() and t.data_ptr() % 16 == 0
+    return all(t.shape == u.shape and t.is_contiguous() and address(t) % 16 == 0
                for t in (u, ga, gx, gate))
 
 
@@ -172,12 +176,14 @@ def rglru_chunked_cuda(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor,
         _check_seg(h_seg, u, steps)
     if B * d == 0:
         return y, h_out
+    if traced(u):
+        return launched(rglru_chunked_cuda, 20 * B * T * d, (y, h_out))
     err = _chunked_entry()(u.data_ptr(), ga.data_ptr(), gx.data_ptr(), lam.data_ptr(),
                            gate.data_ptr(), _ptr(h0), _ptr(lengths), y.data_ptr(),
                            h_out.data_ptr(), _ptr(h_seg), B, T, d, steps,
                            torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(err, "rglru_chunked_fwd")
-    rglru_chunked_cuda.launches += 1
+    launched(rglru_chunked_cuda, 20 * B * T * d)
     return y, h_out
 
 
@@ -226,7 +232,7 @@ def rglru_bwd_cuda(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor, lam: tor
         raise ValueError(f"rglru_bwd kernel takes steps in {SEGMENT_STEPS}, got {steps}")
     _check_seg(h_seg, u, steps)
     if dy.shape != u.shape or dy.dtype != torch.float32 or dy.device != u.device \
-            or not dy.is_contiguous() or dy.data_ptr() % 16:
+            or not dy.is_contiguous() or address(dy) % 16:
         raise ValueError(f"rglru_bwd kernel takes dy as a contiguous 16-byte aligned fp32 "
                          f"{tuple(u.shape)} tensor, got {tuple(dy.shape)} {dy.dtype}")
     if dh_last is not None and (dh_last.shape != (B, d) or dh_last.dtype != torch.float32
@@ -242,13 +248,15 @@ def rglru_bwd_cuda(u: torch.Tensor, ga: torch.Tensor, gx: torch.Tensor, lam: tor
             dh0.copy_(dh_last)
         return du, dga, dgx, dlam, dgate, dh0
     part = torch.empty((B, d), dtype=torch.float32, device=u.device)
+    if traced(u):
+        return launched(rglru_bwd_cuda, 40 * B * T * d, (du, dga, dgx, dlam, dgate, dh0))
     err = _bwd_entry()(u.data_ptr(), ga.data_ptr(), gx.data_ptr(), lam.data_ptr(),
                        gate.data_ptr(), h_seg.data_ptr(), dy.data_ptr(), _ptr(dh_last),
                        du.data_ptr(), dga.data_ptr(), dgx.data_ptr(), dgate.data_ptr(),
                        _ptr(dh0), part.data_ptr(), dlam.data_ptr(), B, T, d, steps,
                        torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(err, "rglru_bwd")
-    rglru_bwd_cuda.launches += 1
+    launched(rglru_bwd_cuda, 40 * B * T * d)
     return du, dga, dgx, dlam, dgate, dh0
 
 

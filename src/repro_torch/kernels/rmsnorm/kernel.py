@@ -42,6 +42,9 @@ import functools
 
 import torch
 
+from ...device import address, on_card, sm_count, traced
+from .._trace import launched
+
 
 @functools.cache
 def _kernels():
@@ -125,7 +128,7 @@ def _check_rows(what: str, x: torch.Tensor, *params: torch.Tensor) -> None:
     if x.dim() != 2 or any(p.shape != (x.shape[1],) for p in params):
         raise ValueError(f"{what} takes x (R, C) and parameters (C,), got "
                          f"{tuple(x.shape)} and {[tuple(p.shape) for p in params]}")
-    if x.device.type != "cuda" or any(p.device != x.device for p in params):
+    if not on_card(x) or any(p.device != x.device for p in params):
         raise ValueError(f"{what} kernel needs x and its parameters on one "
                          "CUDA device")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.stride(1) != 1:
@@ -142,11 +145,13 @@ def rmsnorm_triton(x: torch.Tensor, g: torch.Tensor,
     out = torch.empty((R, C), dtype=x.dtype, device=x.device)
     if R == 0:
         return out
+    if traced(x):
+        return launched(rmsnorm_triton, 4 * R * C, out)
     triton, kern, _ = _kernels()
     p = launch_params(C)
     rmsnorm_triton.compiled = kern[(triton.cdiv(R, p["ROWS"]),)](
         x, g, out, R, C, x.stride(0), out.stride(0), eps, **p)
-    rmsnorm_triton.launches += 1
+    launched(rmsnorm_triton, 4 * R * C)
     return out
 
 
@@ -163,11 +168,13 @@ def layernorm_triton(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     out = torch.empty((R, C), dtype=x.dtype, device=x.device)
     if R == 0:
         return out
+    if traced(x):
+        return launched(layernorm_triton, 8 * R * C, out)
     triton, _, kern = _kernels()
     p = layernorm_params(C)
     layernorm_triton.compiled = kern[(triton.cdiv(R, p["ROWS"]),)](
         x, g, b, out, R, C, x.stride(0), out.stride(0), eps, **p)
-    layernorm_triton.launches += 1
+    launched(layernorm_triton, 8 * R * C)
     return out
 
 
@@ -297,9 +304,8 @@ def _bwd_kernels():
     return triton, rmsnorm_bwd, column_sum, rmsnorm_bwd_replaced
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+#: the SMs of x's card (``device.sm_count``)
+_sm_count = sm_count
 
 
 def bwd_programs(R: int, C: int, sms: int, per_sm: int = BWD_PROGRAMS_PER_SM,
@@ -337,13 +343,12 @@ def rmsnorm_bwd_launches(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     R, C = x.shape
     dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
     dg = torch.empty((C,), dtype=g.dtype, device=g.device)
-    triton, kern, colsum, old = _bwd_kernels()
-    sms = _sm_count(x.device.index or 0)
+    sms = _sm_count(x)
     p = launch_params(C)
     if replaced:
         n_prog, per, rows = bwd_programs(R, C, sms, per_sm=4, row_factor=1)
         p_col = {"BLOCK_N": 32, "BLOCK_C": 128, "num_warps": 4}
-        kern, p_row = old, p
+        p_row = p
     else:
         n_prog, per, rows = bwd_programs(R, C, sms)
         p_col = {"BLOCK_N": 128, "BLOCK_C": COLSUM_C, "num_warps": 8}
@@ -351,10 +356,13 @@ def rmsnorm_bwd_launches(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     partial = torch.empty((n_prog, C), dtype=torch.float32, device=x.device)
 
     def row_pass():
-        return kern[(n_prog,)](x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0),
-                               dx.stride(0), eps, **p_row)
+        _, kern, _, old = _bwd_kernels()
+        return (old if replaced else kern)[(n_prog,)](
+            x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps,
+            **p_row)
 
     def column_sum():
+        triton, _, colsum, _ = _bwd_kernels()
         if replaced:
             dg.zero_()
         colsum[(triton.cdiv(C, p_col["BLOCK_C"]),)](partial, dg, n_prog, C, **p_col)
@@ -371,9 +379,12 @@ def rmsnorm_bwd_triton(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     if x.shape[0] == 0:
         return torch.empty_like(x), torch.zeros_like(g)
     dx, dg, row_pass, column_sum = rmsnorm_bwd_launches(x, g, dy, eps)
+    R, C = x.shape
+    if traced(x):
+        return launched(rmsnorm_bwd_triton, 11 * R * C, (dx, dg))
     rmsnorm_bwd_triton.compiled = row_pass()
     column_sum()
-    rmsnorm_bwd_triton.launches += 1
+    launched(rmsnorm_bwd_triton, 11 * R * C)
     return dx, dg
 
 
@@ -592,13 +603,14 @@ def _triton_backward(x, g, dy, eps):
     R, C = x.shape
     dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
     dgb = torch.empty((2 * C,), dtype=g.dtype, device=g.device)
-    whole, chunked = _ln_bwd_kernels()
-    triton, _, colsum, _ = _bwd_kernels()
     p = layernorm_bwd_params(C)
     n_chunks = p.pop("N_CHUNKS")
-    n_prog, per, rows = split_rows(R, p["ROWS"],
-                                   BWD_PROGRAMS_PER_SM * _sm_count(x.device.index or 0))
+    n_prog, per, rows = split_rows(R, p["ROWS"], BWD_PROGRAMS_PER_SM * _sm_count(x))
     partial = torch.empty((n_prog, 2 * C), dtype=torch.float32, device=x.device)
+    if traced(x):
+        return launched(layernorm_bwd_triton, 15 * R * C, (dx, dgb.narrow(0, 0, C), dgb.narrow(0, C, C)))
+    whole, chunked = _ln_bwd_kernels()
+    triton, _, colsum, _ = _bwd_kernels()
     args = (x, g, dy, dx, partial, R, C, per, x.stride(0), dy.stride(0), dx.stride(0), eps)
     if n_chunks > 1:
         layernorm_bwd_triton.compiled = chunked[(n_prog,)](
@@ -608,8 +620,8 @@ def _triton_backward(x, g, dy, eps):
                                                          BLOCK_C=p["BLOCK_C"], num_warps=8)
     colsum[(triton.cdiv(2 * C, COLSUM_C),)](partial, dgb, n_prog, 2 * C, BLOCK_N=128,
                                             BLOCK_C=COLSUM_C, num_warps=8)
-    layernorm_bwd_triton.launches += 1
-    return dx, dgb[:C], dgb[C:]
+    launched(layernorm_bwd_triton, 15 * R * C)
+    return dx, dgb.narrow(0, 0, C), dgb.narrow(0, C, C)
 
 
 layernorm_bwd_triton.launches = 0
@@ -707,7 +719,7 @@ def ring_preferred(C: int, dtype: torch.dtype) -> bool:
 
 def _ring_aligned(x: torch.Tensor, dy: torch.Tensor) -> bool:
     esz = x.element_size()
-    return all(t.data_ptr() % 16 == 0 and (t.stride(0) * esz) % 16 == 0 for t in (x, dy))
+    return all(address(t) % 16 == 0 and (t.stride(0) * esz) % 16 == 0 for t in (x, dy))
 
 
 def layernorm_bwd_route(x: torch.Tensor, dy: torch.Tensor) -> str:
@@ -747,7 +759,7 @@ def _ring_plan_of(x: torch.Tensor, dy: torch.Tensor):
     does not take them (bases or row pitches off 16 bytes, or no plan)."""
     if not _ring_aligned(x, dy):
         return None
-    return ring_plan(x.shape[0], x.shape[1], x.element_size(), _sm_count(x.device.index or 0))
+    return ring_plan(x.shape[0], x.shape[1], x.element_size(), _sm_count(x))
 
 
 def _ring_run(x, g, dy, eps, plan, whole=True):
@@ -757,11 +769,13 @@ def _ring_run(x, g, dy, eps, plan, whole=True):
     launch."""
     R, C = x.shape
     g32 = g.to(torch.float32).contiguous()
-    if g32.data_ptr() % 16:
+    if address(g32) % 16:
         g32 = g32.clone()
     dx = torch.empty((R, C), dtype=x.dtype, device=x.device)
     dgb = torch.empty((2 * C,), dtype=torch.float32, device=x.device)
     partial = torch.empty(plan["partial"], dtype=torch.float32, device=x.device)
+    if traced(x):
+        return dx, dgb.narrow(0, 0, C), dgb.narrow(0, C, C)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     from .. import _build
     err = _ring_lib().layernorm_bwd_ring(
@@ -770,7 +784,7 @@ def _ring_run(x, g, dy, eps, plan, whole=True):
         int(x.dtype == torch.bfloat16), plan["vpt"], plan["tg"], plan["groups"],
         plan["stages"], plan["blocks"], plan["smem"], int(whole), eps, stream)
     _build.check(err, "layernorm_bwd_ring")
-    return dx, dgb[:C], dgb[C:]
+    return dx, dgb.narrow(0, 0, C), dgb.narrow(0, C, C)
 
 
 def layernorm_bwd_ring_row_pass(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
@@ -788,7 +802,7 @@ def layernorm_bwd_ring_row_pass(x: torch.Tensor, g: torch.Tensor, dy: torch.Tens
 
 def _ring_backward(x, g, dy, eps, plan):
     dx, dg, db = _ring_run(x, g, dy, eps, plan)
-    layernorm_bwd_cuda.launches += 1
+    launched(layernorm_bwd_cuda, 15 * x.shape[0] * x.shape[1])
     return dx, dg.to(g.dtype), db.to(g.dtype)
 
 

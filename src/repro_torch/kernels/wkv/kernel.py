@@ -27,6 +27,8 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ...device import address, on_card, sm_count, traced
+from .._trace import launched
 from .ref import CHUNK
 
 HEAD_SIZES = (32, 64, 128)
@@ -68,7 +70,7 @@ def _checked(r, k, v, w, u, state0, lengths, state_out):
                          f"{[tuple(a.shape) for a in (r, k, v, w)]}")
     B, T, H, N = r.shape
     dev = r.device
-    if dev.type != "cuda" or any(a.device != dev for a in (k, v, w, u)):
+    if not on_card(r) or any(a.device != dev for a in (k, v, w, u)):
         raise ValueError("wkv kernel needs r, k, v, w, u on one CUDA device")
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv kernel takes N in {HEAD_SIZES}, got {N}")
@@ -81,8 +83,8 @@ def _checked(r, k, v, w, u, state0, lengths, state_out):
     _state_arg("state0", state0, (B, H, N, N), dev)
     _state_arg("state_out", state_out, (B, H, N, N), dev)
     if state_out is not None and state0 is not None \
-            and state_out.data_ptr() != state0.data_ptr() \
-            and abs(state_out.data_ptr() - state0.data_ptr()) < state0.numel() * 4:
+            and address(state_out) != address(state0) \
+            and abs(address(state_out) - address(state0)) < state0.numel() * 4:
         raise ValueError("wkv kernel's state_out overlaps state0 without "
                          "being it")
     if lengths is not None:
@@ -96,6 +98,14 @@ def _checked(r, k, v, w, u, state0, lengths, state_out):
     if state_out is None:
         state_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
     return u.contiguous(), lengths, out, state_out
+
+
+def wkv_ops(r: torch.Tensor) -> int:
+    """Operations of a forward launch: about 5 N a value of each (b, t, h),
+    every step of the input (the lengths are data, which a trace cannot
+    read); a backward launch does twice as many."""
+    B, T, H, N = r.shape
+    return 5 * B * T * H * N * N
 
 
 def _ptr(t):
@@ -114,13 +124,15 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     B, T, H, N = r.shape
     if B * H == 0:
         return out, state_out
+    if traced(r):
+        return launched(wkv_cuda, wkv_ops(r), (out, state_out))
     strides = [s for a in (r, k, v, w) for s in a.stride()[:3]]
     err = _entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                    u.data_ptr(), _ptr(state0), _ptr(lengths), out.data_ptr(),
                    state_out.data_ptr(), B, T, H, N, *strides,
                    torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv_fwd")
-    wkv_cuda.launches += 1
+    launched(wkv_cuda, wkv_ops(r))
     return out, state_out
 
 
@@ -157,7 +169,7 @@ def chunked_eligible(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.dim() != 4 or r.shape[1] <= 1 or r.shape[3] not in COLUMN_SPLITS:
         return False
     return all(a.dtype == torch.float32 and a.shape == r.shape and a.stride(3) == 1
-               and a.data_ptr() % 16 == 0
+               and address(a) % 16 == 0
                and all(s % 4 == 0 for n, s in zip(a.shape[:3], a.stride()[:3]) if n > 1)
                for a in (r, k, v, w))
 
@@ -197,13 +209,14 @@ def wkv_chunked_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch
                              "lengths (the backward takes none, ROADMAP B30)")
         _check_seg(s_seg, r)
     if columns is None:
-        columns = column_split(B, H, N, torch.cuda.get_device_properties(
-            r.device).multi_processor_count)
+        columns = column_split(B, H, N, sm_count(r))
     if columns not in COLUMN_SPLITS[N]:
         raise ValueError(f"wkv_chunked kernel takes columns in "
                          f"{COLUMN_SPLITS[N]} at N={N}, got {columns}")
     if B * H == 0:
         return out, state_out
+    if traced(r):
+        return launched(wkv_chunked_cuda, wkv_ops(r), (out, state_out))
     strides = [s for a in (r, k, v, w) for s in a.stride()[:3]]
     err = _chunked_entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                            u.data_ptr(), _ptr(state0), _ptr(lengths), out.data_ptr(),
@@ -211,7 +224,7 @@ def wkv_chunked_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch
                            B, T, H, N, columns, *strides,
                            torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv_chunked_fwd")
-    wkv_chunked_cuda.launches += 1
+    launched(wkv_chunked_cuda, wkv_ops(r))
     return out, state_out
 
 
@@ -265,7 +278,7 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
     Two launches (the chunks from the end, then du's sum over the batch in
     a fixed order: the same bits run to run) on the current stream; counts
     one launch."""
-    if r.dim() != 4 or r.device.type != "cuda":
+    if r.dim() != 4 or not on_card(r):
         raise ValueError(f"wkv_bwd kernel takes (B, T, H, N) CUDA tensors, got "
                          f"{tuple(r.shape)} on {r.device}")
     B, T, H, N = r.shape
@@ -276,7 +289,7 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
         raise ValueError(f"wkv_bwd kernel takes N = {BWD_HEAD_SIZE}, got {N} (ROADMAP B30)")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dout", dout)):
         if t.shape != r.shape or t.dtype != torch.float32 or t.device != r.device \
-                or not t.is_contiguous() or t.data_ptr() % 16:
+                or not t.is_contiguous() or address(t) % 16:
             raise ValueError(f"wkv_bwd kernel takes {name} as a contiguous 16-byte aligned "
                              f"fp32 {tuple(r.shape)} tensor, got {tuple(t.shape)} {t.dtype} "
                              f"(contiguous: {t.is_contiguous()})")
@@ -294,6 +307,8 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
         return dr, dk, dv, dw, du, dstate0
     u = u.contiguous()
     part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    if traced(r):
+        return launched(wkv_bwd_cuda, 2 * wkv_ops(r), (dr, dk, dv, dw, du, dstate0))
     err = _bwd_entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                        u.data_ptr(), s_seg.data_ptr(), dout.data_ptr(),
                        _ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -301,7 +316,7 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
                        B, T, H, N, SEGMENT_STEPS // CHUNK,
                        torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv_bwd")
-    wkv_bwd_cuda.launches += 1
+    launched(wkv_bwd_cuda, 2 * wkv_ops(r))
     return dr, dk, dv, dw, du, dstate0
 
 

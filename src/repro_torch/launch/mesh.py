@@ -51,13 +51,21 @@ class Mesh:
                        else None)
 
     @classmethod
-    def abstract(cls, shape: tuple, axis_names: tuple, rank: int = 0) -> "Mesh":
+    def abstract(cls, shape: tuple, axis_names: tuple, rank: int = 0,
+                 recorder=None) -> "Mesh":
         """A mesh of `shape` over ranks 0..n-1 with no process groups, seen
         from `rank`: for the sharding rules and ``shard``, which read only
-        its shape and this rank's place in it."""
+        its shape and this rank's place in it. With a `recorder`
+        (``distributed.collectives.Recorder``) each axis holds a
+        ``RecordedGroup``, and `rank`'s program runs on it alone, its
+        collectives recorded (a dry run)."""
+        from ..distributed.collectives import RecordedGroup
         m = cls(np.arange(int(np.prod(shape))).reshape(shape), axis_names)
         m.rank = rank
         m.coords = {a: int(i) for a, i in zip(m.axis_names, np.unravel_index(rank, shape))}
+        if recorder is not None:
+            m.groups = {a: RecordedGroup(recorder, a, m.shape[a], m.coords[a])
+                        for a in m.axis_names}
         return m
 
     @property

@@ -347,14 +347,18 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     padded to a multiple of data as the JAX ``_moe_pad_experts`` pads it;
     the padded experts route no token) over that buffer, each expert's
     d_ff over model between Megatron's f and g; the weighted sums are added
-    over data in fp32 and this rank's rows kept."""
+    over data in fp32 and this rank's rows kept. A pod axis is a data axis
+    for the rows: they are gathered over data, then over pod, and every pod
+    runs its data rank's experts over all of them, keeping its own pod's
+    rows before the sum over data."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    data = model = None
+    data = model = pod = None
     e0, e1 = 0, E
     if par is not None:
-        data, model, (e0, e1) = par.data_group, par.model_group, par.experts
-    xt = C.gather_rows(x.reshape(B * S, d), data)
+        data, model, pod, (e0, e1) = par.data_group, par.model_group, par.pod_group, \
+            par.experts
+    xt = C.gather_rows(C.gather_rows(x.reshape(B * S, d), data), pod)
     T = xt.shape[0]
     probs, gate, idx = moe_route(cfg, p, xt)
     capacity = max(1, int(capacity_factor * T * k / E))
@@ -388,6 +392,8 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y = terms.view(T, k, d).sum(1)
     else:
         y = xt.new_zeros((T, d), dtype=torch.float32)
+    if pod is not None:
+        y = y.chunk(C.group_size(pod))[C.group_rank(pod)]
     y = C.reduce_scatter_rows(y, data).to(x.dtype)
     if not with_aux:
         return y.view(B, S, d), None

@@ -347,8 +347,11 @@ class LM(nn.Module):
     up and gate column-parallel behind f, the attention output and the
     MLP's down projection row-parallel before g (``distributed.
     collectives``). Where the kv heads replicate (``par.kv_heads``) each
-    rank computes all of them and keeps those its q heads read. A train
-    step only: prefill and decode on a model axis are ROADMAP A12b."""
+    rank computes all of them and keeps those its q heads read. Prefill and
+    decode run the same layout on a cache of the rank's heads (``init_cache``
+    of ``par.cache_cfg``, kv mode "channel" of ``sharding.cache_spec``):
+    they return the rank's vocab columns of the logits, and
+    ``greedy_token`` picks the token over every rank's."""
 
     par = None
 
@@ -396,34 +399,41 @@ class LM(nn.Module):
             return _mask_pad_logits(self.cfg, x @ head, self.par.vocab[0])
         return _mask_pad_logits(self.cfg, x @ head)
 
-    def _attention(self, blk: Block, x: torch.Tensor, rope):
-        """(x after the layer's attention residual, its k, v) over the whole
-        sequence: causal, under the config's window."""
+    def _qkv(self, blk: Block, h: torch.Tensor, rope):
+        """q, k, v of the layer's self-attention from its normed input h:
+        this rank's heads on a model axis (q, k and v behind f)."""
         cfg, par = self.cfg, self.par
-        h = L.apply_norm(cfg, blk.ln1, x)
-        tp = par is not None and par.tp
-        if tp and par.kv_heads:
+        if par is None or not par.tp:
+            return L.attn_qkv(cfg, blk.attn, h, rope)
+        g = par.model_group
+        if par.kv_heads:
             # replicated kv heads: every rank computes all of them from its
             # unreduced input, f after them (its backward adds the ranks'
             # key and value gradients, so the kv projections' gradients are
             # whole on each rank), and keeps those its q heads read
-            g = par.model_group
             q = L.rotate(L.attn_q(cfg, blk.attn, C.copy_to_model(h, g)), rope)
             first, n = par.kv_heads
             k, v = (C.copy_to_model(t, g)[:, :, first:first + n]
                     for t in L.attn_kv(cfg, blk.attn, h, rope))
-        else:
-            q, k, v = L.attn_qkv(cfg, blk.attn, C.copy_to_model(h, par.model_group)
-                                 if tp else h, rope)
+            return q, k, v
+        return L.attn_qkv(cfg, blk.attn, C.copy_to_model(h, g), rope)
+
+    def _attn_residual(self, blk: Block, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """x plus the output projection of the attention output o (g over
+        a model axis)."""
+        y = L.attn_out(blk.attn, o)
+        par = self.par
+        return x + (C.reduce_from_model(y, par.model_group) if par is not None and par.tp
+                    else y)
+
+    def _attention(self, blk: Block, x: torch.Tensor, rope):
+        """(x after the layer's attention residual, its k, v) over the whole
+        sequence: causal, under the config's window."""
+        cfg = self.cfg
+        q, k, v = self._qkv(blk, L.apply_norm(cfg, blk.ln1, x), rope)
         o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window,
                               logit_softcap=cfg.attn_logit_softcap)
-        y = L.attn_out(blk.attn, o)
-        return x + (C.reduce_from_model(y, par.model_group) if tp else y), k, v
-
-    def _serving(self):
-        if self.par is not None and self.par.tp:
-            raise NotImplementedError("prefill and decode on a model axis (TP decode under "
-                                      "cache_spec) are ROADMAP A12b")
+        return self._attn_residual(blk, x, o), k, v
 
     def apply_layers(self, x: torch.Tensor, layers) -> torch.Tensor:
         """x (B, S, d) through the layers of index `layers` of a decoder of
@@ -550,8 +560,8 @@ class LM(nn.Module):
         prompt lengths (defaults to S); frontend: (B, n_frontend_tokens, d)
         stub embeddings (see the module's note); a zero row gives a vision
         model's sequence zero cross K/V, as no frontend does. Returns the
-        logits at each sequence's last real token, (B, V_padded)."""
-        self._serving()
+        logits at each sequence's last real token, (B, V_padded); on a
+        model axis the rank's vocab columns of them."""
         cfg = self.cfg
         B, S = tokens.shape
         if prompt_lens is None:
@@ -624,8 +634,8 @@ class LM(nn.Module):
         its position cache["pos"] (its ring slot pos % T for a windowed
         model), advances its RG-LRU state and conv carry (or its RWKV6 state
         and token shifts), in place, and advances the position. The cross
-        layers read the cross K/V that ``prefill`` wrote."""
-        self._serving()
+        layers read the cross K/V that ``prefill`` wrote. On a model axis
+        the logits are the rank's vocab columns."""
         cfg = self.cfg
         B = token.shape[0]
         if cfg.attention_free:
@@ -634,8 +644,9 @@ class LM(nn.Module):
         x = self._embed(token, pos)[:, None, :]
         rope = L.rope_tables(cfg, pos.view(B, 1))
         bidx = torch.arange(B, device=x.device)
+        ccfg = cfg if self.par is None else self.par.cache_cfg
         if "k" in cache:
-            hkv, dh = cfg.n_kv_heads, cfg.d_head
+            hkv, dh = ccfg.n_kv_heads, cfg.d_head
             T = cache["k"].shape[2]
             if cfg.attn_window:
                 in_range, wpos = None, (pos % T).long()
@@ -651,16 +662,15 @@ class LM(nn.Module):
                 cache["conv"][j] = conv
                 continue
             if kind != "xattn":
-                h = L.apply_norm(cfg, blk.ln1, x)
-                q, k, v = L.attn_qkv(cfg, blk.attn, h, rope)
+                q, k, v = self._qkv(blk, L.apply_norm(cfg, blk.ln1, x), rope)
                 ck, cv = cache["k"][j], cache["v"][j]
                 for c, t in ((ck, k), (cv, v)):
                     t = t.reshape(B, -1)
                     c[bidx, wpos] = t if in_range is None else torch.where(
                         in_range, t, c[bidx, wpos])
-                o = _decode_attend(cfg, q, ck.view(B, T, hkv, dh),
+                o = _decode_attend(ccfg, q, ck.view(B, T, hkv, dh),
                                    cv.view(B, T, hkv, dh), valid)
-                x = x + L.attn_out(blk.attn, o)
+                x = self._attn_residual(blk, x, o)
             if kind != "attn":
                 x = self._cross(blk, x, xk=cache["xk"][j], xv=cache["xv"][j], decode=True)
             x = blk.mlp_residual(cfg, x)
@@ -692,6 +702,23 @@ def _decode_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
     o = decode_attention(q.reshape(B, Hkv, Hq // Hkv, dh), ck, cv, valid_len,
                          softcap=cfg.attn_logit_softcap)
     return o.reshape(B, 1, Hq, dh)
+
+
+def greedy_token(logits: torch.Tensor, par=None) -> torch.Tensor:
+    """The greedy token of `logits` (.., V columns): the argmax; on a model
+    axis (`par`) over every rank's vocab columns, by a MAX all-reduce of the
+    rows' maxima and then the least global index that reaches it, so that a
+    tie breaks as on one rank."""
+    if par is None or not par.tp:
+        return logits.argmax(-1)
+    g = par.model_group
+    lf = logits.float()
+    m = C.all_reduce(lf.amax(-1), g, reduce="max")
+    col = torch.arange(lf.shape[-1], device=lf.device)
+    big = torch.iinfo(torch.int64).max
+    first = torch.where(lf == m[..., None], col, big).amin(-1)
+    own = torch.where(first < big, first + par.vocab[0], big)
+    return -C.all_reduce(-own, g, reduce="max")
 
 
 def _vocab_parallel_logz(logits: torch.Tensor, targets: torch.Tensor, par):
@@ -741,14 +768,14 @@ def loss_fn(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
     D = 1 if par is None else par.data_size
     denom = mask.sum()
     if D > 1:
-        denom = C.all_reduce(denom, par.data_group)
+        denom = par.batch_sum(denom)
     denom = denom.clamp_min(1.0)
     ce = -(ll * mask).sum() / denom
     zl = z_weight * (logz.square() * mask).sum() / denom
     aux = sum(layer_aux, torch.zeros((), dtype=torch.float32, device=logits.device))
     if D == 1:
         return ce + zl + aux_weight * aux, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
-    parts = C.all_reduce(torch.stack([ce, zl]).detach(), par.data_group)
+    parts = par.batch_sum(torch.stack([ce, zl]).detach())
     met = {"ce": parts[0], "z_loss": parts[1], "aux": aux.detach(), "tokens": denom,
            "loss": parts.sum() + aux_weight * aux.detach()}
     return ce + zl + aux_weight * aux / D, met
@@ -807,7 +834,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
 
 __all__ = ["LM", "Block", "EncDecBlock", "XAttnBlock", "RGLRUBlock", "RWKVBlock",
            "init_params", "init_cache",
-           "padded_vocab", "check_supported", "check_trainable", "needs_frontend", "loss_fn",
+           "padded_vocab", "greedy_token", "check_supported", "check_trainable", "needs_frontend", "loss_fn",
            "layer_kinds",
            "unit_structure", "kind_index",
            "VOCAB_PAD"]

@@ -21,7 +21,9 @@ first, then each microbatch's rows over data); ``loss_fn`` divides by the
 whole batch's token count, the gradients are summed over data (and over
 model for the leaves each model rank holds a part of, ``sync_grads``) in
 fp32, and the gradient norm is the whole model's (``global_sq``). The
-leaves and the optimizer state are the rank's shards.
+leaves are the rank's shards, and the optimizer state their ZeRO slices
+(``ModelShard.zero``: each rank updates its slice, the new values are
+all-gathered). A pod axis splits the rows with data, pod the major axis.
 
 The step's forward and backward run under ``fp32_reductions``: a bf16 GEMM
 on the card sums its products in fp32 to the end, as the JAX package's
@@ -67,9 +69,11 @@ def state_tree(state: TrainState, gather: bool = True) -> TrainTree:
     model, opt = state.model, state.opt
     par = model.par
     cfg = model.cfg if par is None else par.cfg
-    whole = (lambda d: d) if par is None or not gather else par.gather_state
+    def whole(d, zero=False):
+        return d if par is None or not gather else par.gather_state(d, zero)
+
     return TrainTree(params_to_jax(cfg, whole(model.state_dict())),
-                     AdamWState(to_numpy(opt.step), *(params_to_jax(cfg, whole(d))
+                     AdamWState(to_numpy(opt.step), *(params_to_jax(cfg, whole(d, True))
                                                       for d in (opt.master, opt.m, opt.v))))
 
 
@@ -130,18 +134,22 @@ def fp32_reductions():
 def init_state(cfg: ModelConfig, opt: AdamW, seed: int = 0, device=None,
                mesh=None) -> TrainState:
     """A model from ``init_params`` made trainable, and its optimizer state;
-    on a `mesh` this rank's shards of it (``sharding.init_sharded``)."""
+    on a `mesh` this rank's shards of it (``sharding.init_sharded``) and the
+    state's ZeRO slices."""
     check_trainable(cfg)
     model = (init_params(cfg, seed, device) if mesh is None
              else init_sharded(cfg, mesh, seed, device)).requires_grad_(True)
-    return TrainState(model, opt.init(dict(model.named_parameters())))
+    return TrainState(model, opt.init(dict(model.named_parameters()), model.par))
 
 
-def step_grads(model: LM, batch: dict, microbatches: int = 1, has_frontend: bool = False):
+def step_grads(model: LM, batch: dict, microbatches: int = 1, has_frontend: bool = False,
+               local: bool = False):
     """(loss, gradients keyed as the model's parameters, metrics) of one
     step on `batch`, detached: what ``make_train_step``'s step hands the
     optimizer. On a mesh the loss and metrics are the whole batch's and the
-    gradients this rank's leaves' for the whole step, in fp32."""
+    gradients this rank's leaves' for the whole step, in fp32; the batch is
+    the global one, or with `local` already this rank's rows
+    (``ModelShard.local_rows``)."""
     par = model.par
     params = dict(model.named_parameters())
     tokens, targets = batch["tokens"], batch["targets"]
@@ -149,7 +157,7 @@ def step_grads(model: LM, batch: dict, microbatches: int = 1, has_frontend: bool
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)
     frontend = batch.get("frontend") if has_frontend else None
-    if par is not None:
+    if par is not None and not local:
         tokens, targets, mask, frontend = (par.local_rows(a, microbatches)
                                            for a in (tokens, targets, mask, frontend))
     names, leaves = list(params), list(params.values())
@@ -193,7 +201,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1,
         lv, grads, met = step_grads(model, batch, microbatches, has_frontend)
         par = model.par
         new_opt, stats = opt.update(grads, state.opt, params, decayed_leaves(cfg, params),
-                                    None if par is None else par.global_sq)
+                                    None if par is None else par.global_sq, par)
         return TrainState(model, new_opt), {"loss": lv, **stats, **met}
 
     return step

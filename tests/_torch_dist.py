@@ -216,3 +216,115 @@ def ckpt_worker(rank, world, out_dir):
     if rank == 0:
         torch.save({"straight": straight, "resumed": before + after,
                     "mesh": dict(regrouped.shape)}, os.path.join(out_dir, "remesh.pt"))
+
+
+def rank_program_worker(rank, world, cases_path, out_dir):
+    """The dry run's rank programs (``launch.dryrun.RankProgram``) of the
+    cases of `cases_path` on a real (2, 2) mesh of this world, each run once
+    with the collectives observed, the aten FLOPs counted and the live
+    storages tracked (``dryrun.measure``); rank 0 writes what each did to
+    ``<out_dir>/program_<case>.pt``."""
+    from repro_torch.distributed.collectives import Recorder, observe
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cases = torch.load(cases_path, weights_only=False)
+    mesh = make_host_mesh(2, 2)
+    for name, (cfg, shape, microbatches) in cases.items():
+        rec = Recorder()
+        with observe(rec):
+            res = dryrun.measure(lambda: dryrun.RankProgram(cfg, shape, mesh, "cpu", microbatches,
+                                                            seed=0), rec, live=True)
+        res.pop("program")
+        res.pop("collectives_by_axis")
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, f"program_{name}.pt"))
+
+
+def serve_worker(rank, world, cases_path, out_dir):
+    """Tensor-parallel prefill and decode of every case of `cases_path` on
+    its (pod, data, model) mesh of this world: the case's prompts, its rows
+    over (pod, data), prefilled into a cache of the rank's heads, then
+    teacher-forced decode steps; the logits of every step gathered whole
+    (the vocab over model, the rows over data and pod) and the greedy tokens
+    ``greedy_token`` picks from the rank's columns. Rank 0 writes them to
+    ``<out_dir>/serve_<case>.pt``."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.lm import greedy_token, init_cache
+    cases = torch.load(cases_path, weights_only=False)
+    route = layers.moe_route
+    for name, case in cases.items():
+        pod, data, model_ = case["mesh"]
+        if pod * data * model_ != world:
+            continue
+        mesh = make_host_mesh(data, model_, pod)
+        m = sharded_model(case, mesh).requires_grad_(False)
+        par = m.par
+        if case["records"] is not None:
+            _replay(case["records"], route)
+        toks, steps = case["tokens"], case["steps"]
+        rows = par.local_rows(torch.arange(toks.shape[0]))
+        cache = init_cache(par.cache_cfg, len(rows), case["max_len"], "cpu")
+
+        def all_rows(t):
+            for axis in reversed(par.batch_axes):
+                t = C.all_gather(t, mesh.group(axis), dim=0)
+            return t
+
+        def whole(logits):
+            return all_rows(gather(logits, (None, "model"), mesh))
+
+        try:
+            logits = [m.prefill(toks[rows], cache)]
+            for s in range(steps.shape[1]):
+                logits.append(m.decode_step(steps[rows, s], cache))
+        finally:
+            layers.moe_route = route
+        greedy = [all_rows(greedy_token(lg, par)) for lg in logits]
+        logits = [whole(lg) for lg in logits]
+        if rank == 0:
+            torch.save({"logits": logits, "greedy": greedy},
+                       os.path.join(out_dir, f"serve_{name}.pt"))
+
+
+def zero_worker(rank, world, cases_path, out_dir):
+    """The train step with ZeRO's optimizer state (``AdamW.init(params,
+    par)``) for every case of `cases_path` on its (pod, data, model) mesh of
+    this world: the loss, the gradients gathered whole, the master copy after
+    one update gathered whole, and each rank's optimizer-state bytes; rank 0
+    writes them to ``<out_dir>/zero_<case>.pt``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.bridge import decayed_leaves
+    from repro_torch.training import AdamW, constant_schedule, step_grads
+    from repro_torch.models import layers
+    cases = torch.load(cases_path, weights_only=False)
+    route = layers.moe_route
+    for name, case in cases.items():
+        pod, data, model_ = case["mesh"]
+        if pod * data * model_ != world:
+            continue
+        mesh = make_host_mesh(data, model_, pod)
+        model = sharded_model(case, mesh)
+        par = model.par
+        if case["records"] is not None:
+            _replay(case["records"], route)
+        try:
+            loss, grads, met = step_grads(model, case["batch"], case["microbatches"], False)
+        finally:
+            layers.moe_route = route
+        opt = AdamW(lr=constant_schedule(1e-2), weight_decay=0.1)
+        params = dict(model.named_parameters())
+        st = opt.init(params, par)
+        state_bytes = sum(t.numel() * t.element_size() for t in st.master.values())
+        st, stats = opt.update(grads, st, params, decayed_leaves(case["cfg"], params),
+                               par.global_sq, par)
+        every = [None] * world
+        dist.all_gather_object(every, state_bytes)
+        whole = {"grads": par.gather_state(grads), "master": par.gather_state(st.master, True),
+                 "params": par.gather_state(params)}
+        if rank == 0:
+            torch.save({"loss": float(loss), "grad_norm": float(stats["grad_norm"]),
+                        "met": {k: float(v) for k, v in met.items()}, "state_bytes": every,
+                        **whole}, os.path.join(out_dir, f"zero_{name}.pt"))

@@ -9,12 +9,18 @@ stages, whose winners go to the persistent matmul cache (the port has no
 card tables ``kernels/mapper_tables/ops.py::chunk_tables``),
 ``result_cache``'s canonicalization and keying, the Study's case keying and
 serialization, the attribution it stores, and every exporter of
-``core/trace_export.py``, whose traces must be byte-identical run to run.
+``core/trace_export.py``, whose traces must be byte-identical run to run;
+and what the dry run writes into its records (``launch/analysis.py``'s
+summaries, the collective recorder's, the ZeRO placement, the largest-rank
+rule), which must be the same from run to run of a cell.
 """
 import pytest
 
 from repro_torch.core import mapper, obs, result_cache, trace_export
 from repro_torch.core.study import Study
+from repro_torch.distributed.collectives import Recorder
+from repro_torch.distributed.sharding import zero_placement
+from repro_torch.launch import analysis, dryrun
 from repro_torch.kernels.mapper_tables import ops as tables_ops
 from test_purity_lint import _violations
 
@@ -39,6 +45,13 @@ LINTED = [
     obs.Attribution.to_doc,         # feeds Study._case_to_doc
     trace_export._ts,
     *(getattr(trace_export, name) for name in trace_export.__all__),
+    analysis.cost_summary,
+    analysis.memory_summary,
+    analysis.collectives_to_graph,
+    Recorder.stats,
+    Recorder.by_axis,
+    zero_placement,
+    dryrun.rank0_largest,
 ]
 
 
