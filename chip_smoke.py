@@ -366,8 +366,11 @@ result line):
                what it falls on one rank, both peaks); then a spawned
                pair: the probe of what gloo takes on CUDA tensors, one
                step's gradients at model 2 against the single-rank card
-               run's with each rank's launches exactly those of its local
-               config, granite-8l at data 2 routed over both ranks' rows
+               run's, for qwen3-1.7b and for rwkv6-7b at full width cut to
+               2 layers (each rank 32 of its 64 wkv heads; decays, bonus,
+               group-norm gains and shift mixes unhidden; held in fp32 to
+               1e-3 a leaf, its bf16 distances printed), with each rank's
+               launches exactly those of its local config, granite-8l at data 2 routed over both ranks' rows
                (every router call takes the whole batch; loss and aux
                within 2e-3), ``pipeline_apply`` over pod 2 (14 of qwen3's
                28 blocks a stage), and m100 saved at model 2 and resumed
@@ -419,14 +422,16 @@ result line):
                dryrun``): (a) the grid, ``--all --mesh both`` in a process
                of its own started after [build] beside the card phases (it
                traces on fake tensors and needs the host only), collected
-               here: ``dry-run: 18 ok, 46 failed, 16 skipped``, every
+               here: ``dry-run: 26 ok, 38 failed, 16 skipped``, every
                failure's error naming A12b or the dim the model axis does
                not divide, every ok cell fitting 80 GB in the roofline
                report (``launch.roofline_report``, its mapper tables on the
-               card), whose rows are printed; (b) rank 0's program of four
+               card), whose rows are printed; (b) rank 0's program of six
                single-mesh cells (``DRYRUN_CELLS``: qwen3-1.7b train_4k,
-               prefill_32k and decode_32k, stablelm-1.6b decode_32k),
-               whose traces on fake CUDA tensors are the grid's records,
+               prefill_32k and decode_32k, stablelm-1.6b decode_32k,
+               rwkv6-7b train_4k on 4 of its 64 heads, and long_500k, its
+               one row replicated over data), whose traces on fake CUDA
+               tensors are the grid's records,
                run on the card at full width with random weights and the
                same recording collectives: launches by kernel, collectives (kind, count,
                bytes) and FLOPs (aten plus the kernels' tally) exactly
@@ -434,12 +439,17 @@ result line):
                bytes live before the program's state was made) within
                [0.99x, 1.05x + 256 MiB] of the trace's; the program's
                device ms (CUDA events, median of 3) beside the report's
-               compute and memory terms; and the two kernel shapes these
+               compute and memory terms; and the kernel shapes these
                cells first reach, flash attention with one local head over
                32768 keys and the chunked decode kernel over a cache of
                32768 slots, each held to its plain version and timed beside
                it and SDPA (rows ``flash_attention_wgmma`` and
-               ``decode_attention_chunked``, ``launches_in_dryrun``).
+               ``decode_attention_chunked``), and rwkv6-7b's wkv at 4 heads
+               a rank: the chunked forward with the segments' states and
+               the backward at (2, 4096), the chunked forward with lengths
+               at (2, 32768), the decode step at 8 rows and at 1, each held
+               to its plain version to WKV_TOL and timed beside it (rows
+               ``wkv_chunked``, ``wkv_bwd``, ``wkv``; ``launches_in_dryrun``).
 The last lines are the ``{"kernels": [...]}`` summary (the backward
 kernels' launches are the sum of the full-size train runs', each run's
 apart in ``launches_by_train_run``; mapper_tables' the sum of [study]'s
@@ -2974,17 +2984,17 @@ def flash_bwd_inputs(torch, rnd, B, Hq, Hkv, S, D, causal, window=0, softcap=0.0
     return q, k, v, o, do, lse
 
 
-def wkv_train_inputs(torch, rnd, B, T, with_state):
+def wkv_train_inputs(torch, rnd, B, T, with_state, H=64):
     """r, k, v, dout normal, w across (0.05, 0.999) (the init's w0 = -6
     would put every decay near 0.9975 and hide them), u at the init's scale
     of 0.3, state0 normal if asked and the final state's gradient normal;
-    all fp32 at 64 heads of 64."""
+    all fp32 at `H` heads of 64."""
     f32 = torch.float32
-    shape = (B, T, 64, 64)
+    shape = (B, T, H, 64)
     r, k, v, dout = (rnd(shape, f32) for _ in range(4))
     w = 0.05 + 0.949 * torch.rand(shape, generator=rnd.gen, device="cuda")
-    s0 = rnd((B, 64, 64, 64), f32) if with_state else None
-    return r, k, v, w, rnd((64, 64), f32) * 0.3, s0, dout, rnd((B, 64, 64, 64), f32)
+    s0 = rnd((B, H, 64, 64), f32) if with_state else None
+    return r, k, v, w, rnd((H, 64), f32) * 0.3, s0, dout, rnd((B, H, 64, 64), f32)
 
 
 def wkv_segment_states(torch, r, k, v, w, s0, steps):
@@ -4069,6 +4079,15 @@ def phase_ckpt(torch):
 DIST_ARCH, DIST_STEPS, DIST_LR = "qwen3-1.7b", 3, 3e-4
 DIST_BATCH, DIST_SEQ = 8, 512          # (a): the launchers
 DIST_GRAD_BATCH, DIST_GRAD_SEQ = 1, 256  # (b): one step's gradients (and an fp32 CPU run's)
+DIST_RWKV = ("rwkv6-7b", 2)            # (b): rwkv6-7b at full width, 2 of 32 layers
+# (b): rwkv6's TP gradients in fp32 against the single-rank fp32 card step,
+# relative Frobenius over each leaf. Its bf16 step is no gate there: over
+# three data seeds and two unhidings the TP step's bf16 gradients lay 0.93-
+# 1.66x (median over the leaves) as far from an fp32 CPU step as the
+# single-rank card step's, up to 2.35x on a leaf, by the seed alone; in fp32
+# they lay at most 3.07e-4 from one rank's (the bonus u, a sum over every
+# step; median 2.2e-5), where a wrong slice moves a leaf by its own size
+DIST_RWKV_FP32_TOL = 1e-3
 DIST_MOE = ("granite-moe-3b-a800m", 8)  # (c): 8 of 32 layers, DIST_BATCH x DIST_SEQ rows
 DIST_PIPE_MB = 4                       # (d): DIST_BATCH x DIST_SEQ in 4 microbatches
 DIST_TOL = 2e-2                        # absolute, on a loss
@@ -4188,9 +4207,33 @@ def dist_whole(torch, specs, parts):
     return out
 
 
+def dist_grad_configs():
+    """(tag, config) of (b)'s steps: qwen3-1.7b whole, and rwkv6-7b at full
+    width cut to DIST_RWKV's layers."""
+    from repro_torch.configs import get_config
+    return (("b", get_config(DIST_ARCH)), ("b_rwkv", served_config(*DIST_RWKV)))
+
+
+def unhide_rwkv(torch, model):
+    """In place, on a whole model or a model rank's shards alike (the
+    leaves are replicated over model): ``unhide_recurrence``'s decays and
+    bonus, every group-norm gain ``ln_x`` to seeded values in [0.5, 1.5]
+    and every shift mix ``mu`` in [0, 1], by row and channel. At the init's
+    ones and 0.5 a rank reading the wrong channels of ``ln_x``, or the
+    wrong row of ``mu``, would pass."""
+    unhide_recurrence(torch, model)
+    gen = torch.Generator("cuda").manual_seed(7)
+    for name, p in model.named_parameters():
+        if name.endswith("tmix.ln_x"):
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda") + 0.5)
+        elif name.endswith("mix.mu"):
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda"))
+
+
 def dist_worker(rank, world, store, tmp):
     """One rank of [dist]'s spawned pair, sharing the card over gloo: the
-    probe, then (b) qwen3-1.7b's gradients at model 2, (c) granite's
+    probe, then (b) qwen3-1.7b's and rwkv6-7b-2l's gradients at model 2,
+    (c) granite's
     global routing at data 2, (d) pipeline_apply over pod 2 and (e) a
     checkpoint saved at model 2 and restored at data 2 after ``remesh``;
     writes what it measured to ``<tmp>/rank<rank>.json``."""
@@ -4232,30 +4275,42 @@ def dist_worker(rank, world, store, tmp):
         lap("probe")
 
         # (b) gradients and launches at model 2, full width
-        cfg = get_config(DIST_ARCH)
-        mesh = make_host_mesh(1, 2)
-        t0 = time.perf_counter()
-        model = init_sharded(cfg, mesh, seed=0, device="cuda").requires_grad_(True)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH, seed=0)
-                            ).batch_at(0)
-        batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
-        step_grads(model, batch)                       # warm: Triton, cuBLAS
-        torch.cuda.synchronize()
-        K.reset_launches()
-        C.reset_stats()
-        t0 = time.perf_counter()
-        loss, grads, _ = step_grads(model, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        torch.save({n: g.bfloat16().cpu() for n, g in grads.items()}, tmp / f"tp_b_{rank}.pt")
-        out["b"] = {"loss": float(loss), "launches": K.launches(),
-                    "local": dataclasses.asdict(model.par.local), "init_s": t_init,
-                    **dist_stats(C, wall)}
-        del model, grads
-        torch.cuda.empty_cache()
-        lap("b")
+        for tag, cfg in dist_grad_configs():
+            mesh = make_host_mesh(1, 2)
+            t0 = time.perf_counter()
+            model = init_sharded(cfg, mesh, seed=0, device="cuda")
+            if cfg.attention_free:
+                unhide_rwkv(torch, model)
+            model.requires_grad_(True)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH,
+                                           seed=0)).batch_at(0)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+            step_grads(model, batch)                       # warm: Triton, cuBLAS
+            torch.cuda.synchronize()
+            K.reset_launches()
+            C.reset_stats()
+            t0 = time.perf_counter()
+            loss, grads, _ = step_grads(model, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.save({n: g.bfloat16().cpu() for n, g in grads.items()},
+                       tmp / f"tp_{tag}_{rank}.pt")
+            out[tag] = {"loss": float(loss), "launches": K.launches(),
+                        "local": dataclasses.asdict(model.par.local), "init_s": t_init,
+                        "rwkv_heads": model.par.rwkv_heads, **dist_stats(C, wall)}
+            del grads
+            if cfg.attention_free:      # the same step in fp32: the gate
+                model = model.float()
+                loss, grads, _ = step_grads(model, batch)
+                torch.save({n: g.cpu() for n, g in grads.items()},
+                           tmp / f"tp_{tag}_fp32_{rank}.pt")
+                out[tag]["loss_fp32"] = float(loss)
+                del grads
+            del model
+            torch.cuda.empty_cache()
+            lap(tag)
 
         # (c) granite cut to 8 layers at data 2: the routing is global, so
         # every call of the router takes both ranks' rows
@@ -4363,22 +4418,35 @@ def dist_worker(rank, world, store, tmp):
 
 def dist_references(torch):
     """The single-rank card runs [dist] holds its pair to, in this process:
-    (b) qwen3-1.7b's gradients of one step (kept on the card) and its
-    weights (returned, for the fp32 CPU run); (c) granite-8l's loss on the
-    same rows; (d) the 28 blocks' output."""
+    (b) the gradients of one step of each config of ``dist_grad_configs``
+    (kept on the card) and its weights (returned, for the fp32 CPU run), by
+    tag; (c) granite-8l's loss on the same rows; (d) the 28 blocks'
+    output."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models.lm import init_params, loss_fn
     from repro_torch.training import step_grads
+    refs = {}
+    for tag, cfg in dist_grad_configs():
+        model = init_params(cfg, seed=0, device="cuda")
+        if cfg.attention_free:
+            unhide_rwkv(torch, model)
+        model.requires_grad_(True)
+        raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH, seed=0)
+                            ).batch_at(0)
+        batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+        loss, grads, _ = step_grads(model, {k: v.cuda() for k, v in batch.items()})
+        refs[tag] = {"loss": float(loss), "grads": grads, "batch": batch, "cfg": cfg,
+                     "state": {n: p.detach().cpu() for n, p in model.state_dict().items()}}
+        if cfg.attention_free:
+            del grads
+            loss, grads, _ = step_grads(model.float(), {k: v.cuda() for k, v in batch.items()})
+            refs[tag].update(loss_fp32=float(loss), grads_fp32={n: g.cpu() for n, g in
+                                                                grads.items()})
+        del model, grads
+        torch.cuda.empty_cache()
     cfg = get_config(DIST_ARCH)
-    model = init_params(cfg, seed=0, device="cuda").requires_grad_(True)
-    raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_GRAD_SEQ, DIST_GRAD_BATCH, seed=0)
-                        ).batch_at(0)
-    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
-    loss, grads, _ = step_grads(model, {k: v.cuda() for k, v in batch.items()})
-    refs = {"b_loss": float(loss), "b_grads": grads, "b_batch": batch,
-            "b_state": {n: p.detach().cpu() for n, p in model.state_dict().items()}}
-    model.requires_grad_(False)
+    model = init_params(cfg, seed=0, device="cuda")
     raw = TokenPipeline(DataConfig(cfg.vocab_size, DIST_SEQ, DIST_BATCH, seed=0)).batch_at(0)
     tokens = torch.from_numpy(raw["tokens"]).cuda()
     with torch.no_grad():
@@ -4398,17 +4466,17 @@ def dist_references(torch):
     return refs
 
 
-def dist_fp32_grads(torch, refs):
-    """(b)'s step on the CPU in fp32 from the same weights and tokens (the
-    plain path): the reference the bf16 gradients' rounding is measured
-    from, as [train]'s gradient checks measure it."""
-    from repro_torch.configs import get_config
+def dist_fp32_grads(torch, ref):
+    """A (b) step on the CPU in fp32 from the same weights and tokens (the
+    plain path), `ref` one of ``dist_references``'s: the reference the bf16
+    gradients' rounding is measured from, as [train]'s gradient checks
+    measure it."""
     from repro_torch.models.lm import LM
     from repro_torch.training import step_grads
-    cpu = LM(get_config(DIST_ARCH), device="cpu")
-    cpu.load_state_dict(refs["b_state"])
+    cpu = LM(ref["cfg"], device="cpu")
+    cpu.load_state_dict(ref["state"])
     cpu = cpu.float().requires_grad_(True)
-    return step_grads(cpu, refs["b_batch"])[1]
+    return step_grads(cpu, ref["batch"])[1]
 
 
 def launcher_losses(text):
@@ -4455,8 +4523,13 @@ def phase_dist(torch, smi, straight):
     in this process: every step's loss within DIST_TOL (absolute), and the
     loss at model 2 falling over the run by at least half of what it falls
     on one rank; both runs' peaks. Then a spawned pair: the gloo probe of
-    CUDA collectives; (b) one step's gradients at model 2
-    against the single-rank card run's: relative Frobenius below DIST_TOL
+    CUDA collectives; (b) one step's gradients at model 2, of
+    qwen3-1.7b and of rwkv6-7b at full width cut to DIST_RWKV's 2 layers
+    (``unhide_rwkv``), each against its single-rank card run's (rwkv6's
+    also in fp32, every leaf within DIST_RWKV_FP32_TOL of the single-rank
+    fp32 card step's and the loss within 1e-5: its gate; its bf16
+    distances are printed, the rule below no gate there, see
+    DIST_RWKV_FP32_TOL): relative Frobenius below DIST_TOL
     over the whole leaf, or, for a leaf whose bf16 rounding alone moves it
     further (the qk-norm scales: sums over every token and head that
     nearly cancel), at most TRAIN_FP32_FACTOR times as far from an fp32
@@ -4528,7 +4601,7 @@ def phase_dist(torch, smi, straight):
     probes = dist_probe_unsafe(tmp)
     refs = dist_references(torch)
     t_refs = time.perf_counter() - t0
-    g32 = dist_fp32_grads(torch, refs)
+    g32 = {tag: dist_fp32_grads(torch, refs[tag]) for tag, _ in dist_grad_configs()}
     t_fp32 = time.perf_counter() - t0 - t_refs
     unsafe = dist_probe_results(tmp, probes)
     while not ctx.join(600):
@@ -4538,7 +4611,7 @@ def phase_dist(torch, smi, straight):
     print(f"[dist] the spawned pair: {t_pair:.1f} s (rank 0's parts: "
           f"{json.dumps({k: round(v, 1) for k, v in res[0]['laps'].items()})}, spawn, "
           f"import and the group before them); beside it the single-rank card references "
-          f"{t_refs:.1f} s, then the fp32 CPU run of (b) {t_fp32:.1f} s")
+          f"{t_refs:.1f} s, then the fp32 CPU runs of (b) {t_fp32:.1f} s")
     print(f"[dist] gloo on CUDA tensors (probe): {json.dumps({**res[0]['probe'], **unsafe})}")
     for op in DIST_PROBE_SAFE:
         require(res[0]["probe"][op] == "ok" == res[1]["probe"][op],
@@ -4553,44 +4626,67 @@ def phase_dist(torch, smi, straight):
 
     # (b)
     t0 = time.perf_counter()
-    cfg = get_config(DIST_ARCH)
-    for r, rr in enumerate(res):
-        rr["b"]["rank"] = r
-        local = dataclasses.replace(cfg, **{k: rr["b"]["local"][k] for k in
-                                            ("n_heads", "n_kv_heads", "d_ff")})
-        want = {**dict.fromkeys(K.KERNELS, 0), **train_launches(local)}
-        require(rr["b"]["launches"] == want,
-                f"(b) rank {r}: launches {rr['b']['launches']}, not {want}")
-        show("(b)", rr["b"], f"; loss {rr['b']['loss']:.6f} (one rank {refs['b_loss']:.6f}); "
-             f"launches {json.dumps({k: n for k, n in want.items() if n})}, exact")
-    specs = plan(cfg, Mesh.abstract((1, 2), ("data", "model"))).specs
-    tp = dist_whole(torch, specs, [torch.load(tmp / f"tp_b_{r}.pt") for r in range(2)])
-    rows, noisy, floor = [], [], []
-    for n, g1 in refs["b_grads"].items():     # on the card
-        g1, g, ref = g1.float(), tp[n].cuda().float(), g32[n].cuda().float()
-        rel = ((g - g1).norm() / g1.norm().clamp_min(1e-30)).item()
-        ratio = ((g - ref).norm() / (g1 - ref).norm().clamp_min(1e-30)).item()
-        rows.append((rel, n, ratio))
-        floor.append(((g1 - ref).norm() / ref.norm().clamp_min(1e-30)).item())
-        if rel >= DIST_TOL:
-            noisy.append((ratio, n, rel, floor[-1]))
-    rows.sort(reverse=True)
-    noisy.sort(reverse=True)
-    require(all(ratio <= TRAIN_FP32_FACTOR for ratio, *_ in noisy),
-            f"(b) gradients off: {noisy[:3]}")
-    require(abs(res[0]["b"]["loss"] - refs["b_loss"]) <= DIST_TOL, "(b) loss off")
-    print(f"[dist] (b) {DIST_ARCH} at model 2, {DIST_GRAD_BATCH} x {DIST_GRAD_SEQ}: "
-          f"{len(rows) - len(noisy)} of {len(rows)} gradients within {DIST_TOL} of the "
-          f"single-rank card run's (relative Frobenius over the whole leaf; worst "
-          f"{[(n, round(v, 5)) for v, n, _ in rows[:3]]}); the other {len(noisy)} each at most "
-          f"{TRAIN_FP32_FACTOR}x as far from the fp32 CPU run as the single-rank card run is "
-          f"(ratio, leaf, distance from one rank, one rank's from fp32: "
-          f"{[(round(a, 3), n, round(b, 4), round(c, 4)) for a, n, b, c in noisy[:4]]}); "
-          f"median over the leaves: {statistics.median(r[0] for r in rows):.4f} from the "
-          f"single-rank card run, which is itself {statistics.median(floor):.4f} from fp32 "
-          f"(at most {max(floor):.4f}); the largest ratio {max(r[2] for r in rows):.3f}")
-    del tp, g32, refs["b_grads"], refs["b_state"]
-    torch.cuda.empty_cache()
+    for tag, cfg in dist_grad_configs():
+        ref = refs[tag]
+        for r, rr in enumerate(res):
+            rr[tag]["rank"] = r
+            local = dataclasses.replace(cfg, **{k: rr[tag]["local"][k] for k in
+                                                ("n_heads", "n_kv_heads", "d_ff")})
+            want = {**dict.fromkeys(K.KERNELS, 0), **train_launches(local)}
+            require(rr[tag]["launches"] == want,
+                    f"(b) {cfg.name} rank {r}: launches {rr[tag]['launches']}, not {want}")
+            heads = (f"; wkv heads {rr[tag]['rwkv_heads']} (first, count)"
+                     if cfg.attention_free else "")
+            show(f"(b) {cfg.name}", rr[tag], f"; loss {rr[tag]['loss']:.6f} (one rank "
+                 f"{ref['loss']:.6f}); launches "
+                 f"{json.dumps({k: n for k, n in want.items() if n})}, exact{heads}")
+        specs = plan(cfg, Mesh.abstract((1, 2), ("data", "model"))).specs
+        tp = dist_whole(torch, specs, [torch.load(tmp / f"tp_{tag}_{r}.pt") for r in range(2)])
+        rows, noisy, floor = [], [], []
+        for n, g1 in ref["grads"].items():     # on the card
+            g1, g, f = g1.float(), tp[n].cuda().float(), g32[tag][n].cuda().float()
+            rel = ((g - g1).norm() / g1.norm().clamp_min(1e-30)).item()
+            ratio = ((g - f).norm() / (g1 - f).norm().clamp_min(1e-30)).item()
+            rows.append((rel, n, ratio))
+            floor.append(((g1 - f).norm() / f.norm().clamp_min(1e-30)).item())
+            if rel >= DIST_TOL:
+                noisy.append((ratio, n, rel, floor[-1]))
+        rows.sort(reverse=True)
+        noisy.sort(reverse=True)
+        gated = not cfg.attention_free
+        require(not gated or all(ratio <= TRAIN_FP32_FACTOR for ratio, *_ in noisy),
+                f"(b) {cfg.name} gradients off: {noisy[:3]}")
+        require(abs(res[0][tag]["loss"] - ref["loss"]) <= DIST_TOL, f"(b) {cfg.name} loss off")
+        print(f"[dist] (b) {cfg.name} at model 2, {DIST_GRAD_BATCH} x {DIST_GRAD_SEQ}, bf16"
+              + ("" if gated else " (printed, no gate: DIST_RWKV_FP32_TOL's note)") + ": "
+              f"{len(rows) - len(noisy)} of {len(rows)} gradients within {DIST_TOL} of the "
+              f"single-rank card run's (relative Frobenius over the whole leaf; worst "
+              f"{[(n, round(v, 5)) for v, n, _ in rows[:3]]}); the other {len(noisy)} "
+              + (f"each at most {TRAIN_FP32_FACTOR}x " if gated else "")
+              + "as far from the fp32 CPU run as the single-rank card run is (ratio, leaf, "
+              f"distance from one rank, one rank's from fp32: "
+              f"{[(round(a, 3), n, round(b, 4), round(c, 4)) for a, n, b, c in noisy[:4]]}); "
+              f"median over the leaves: {statistics.median(r[0] for r in rows):.4f} from the "
+              f"single-rank card run, which is itself {statistics.median(floor):.4f} from fp32 "
+              f"(at most {max(floor):.4f}); the largest ratio {max(r[2] for r in rows):.3f}")
+        if not gated:
+            tp32 = dist_whole(torch, specs, [torch.load(tmp / f"tp_{tag}_fp32_{r}.pt")
+                                             for r in range(2)])
+            rel32 = sorted((((tp32[n] - g1).norm() / g1.norm().clamp_min(1e-30)).item(), n)
+                           for n, g1 in ref["grads_fp32"].items())[::-1]
+            l32, one32 = res[0][tag]["loss_fp32"], ref["loss_fp32"]
+            require(rel32[0][0] < DIST_RWKV_FP32_TOL and abs(l32 - one32) <= 1e-5 * abs(one32),
+                    f"(b) {cfg.name} in fp32: loss {l32} vs one rank {one32}, gradients "
+                    f"{rel32[:3]} (tol {DIST_RWKV_FP32_TOL:g})")
+            print(f"[dist] (b) {cfg.name} at model 2 in fp32: loss {l32:.8f} (one rank "
+                  f"{one32:.8f}); all {len(rel32)} gradients within {DIST_RWKV_FP32_TOL:g} of "
+                  f"the single-rank fp32 card run's (relative Frobenius; worst "
+                  f"{[(n, f'{v:.3e}') for v, n in rel32[:3]]}, median "
+                  f"{statistics.median(v for v, _ in rel32):.3e})")
+            del tp32, ref["grads_fp32"]
+        del tp, ref["grads"], ref["state"]
+        g32.pop(tag)
+        torch.cuda.empty_cache()
     t_b = time.perf_counter() - t0
     # (c)
     mcfg = served_config(*DIST_MOE)
@@ -4614,7 +4710,7 @@ def phase_dist(torch, smi, straight):
           f"ranks' rows: loss {c['loss']:.6f} (aux {c['aux']:.6f}), one rank "
           f"{refs['c_loss']:.6f} (aux {refs['c_aux']:.6f}), within {DIST_MOE_TOL}")
     # (d)
-    per = cfg.n_layers // 2
+    per = get_config(DIST_ARCH).n_layers // 2
     for r, rr in enumerate(res):
         rr["d"]["rank"] = r
         want = {**dict.fromkeys(K.KERNELS, 0), "flash_attention_wgmma": per * DIST_PIPE_MB,
@@ -4646,7 +4742,7 @@ def phase_dist(torch, smi, straight):
     # after; [dist]'s launches of a kernel are their sum over ranks and runs
     launched = {}
     for rr in res:
-        for part in ("b", "c", "d"):
+        for part in ("b", "b_rwkv", "c", "d"):
             for name, n in rr[part]["launches"].items():
                 launched[name] = launched.get(name, 0) + n
     print(f"[dist] launches in (b)-(d), both ranks: "
@@ -5092,8 +5188,9 @@ def phase_trace(smi):
 # (arch, shape) of the [dryrun] cells run on the card: rank 0 of the single
 # mesh, (data, model) = (16, 16)
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
-                ("qwen3-1.7b", "decode_32k"), ("stablelm-1.6b", "decode_32k"))
-DRYRUN_GRID = "dry-run: 18 ok, 46 failed, 16 skipped"
+                ("qwen3-1.7b", "decode_32k"), ("stablelm-1.6b", "decode_32k"),
+                ("rwkv6-7b", "train_4k"), ("rwkv6-7b", "long_500k"))
+DRYRUN_GRID = "dry-run: 26 ok, 38 failed, 16 skipped"
 DRYRUN_PEAK = (0.99, 1.05, 256 << 20)   # card peak within [lo x, hi x + slack] of the trace's
 DRYRUN_TIMEOUT = 600                    # seconds the grid may still take once collected
 
@@ -5161,9 +5258,9 @@ def dryrun_card_cell(torch, cfg, shape):
 
 
 def dryrun_shapes(torch, rows, smi):
-    """The two kernel shapes the [dryrun] cells first reach, each held to
-    its plain version and timed beside it and SDPA; their entries join the
-    kernel rows' ``shapes``."""
+    """The kernel shapes the [dryrun] cells first reach, each held to its
+    plain version and timed beside it (and SDPA, for attention); their
+    entries join the kernel rows' ``shapes``."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -5219,6 +5316,95 @@ def dryrun_shapes(torch, rows, smi):
               f"{b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}; {smi}")
         del qd, kd, vd
     torch.cuda.empty_cache()
+    dryrun_wkv_shapes(torch, by_name, rnd, smi)
+
+
+def dryrun_wkv_shapes(torch, by_name, rnd, smi):
+    """rwkv6-7b's wkv shapes at model 16, 4 of its 64 heads a rank: the
+    chunked forward with the segments' states and the backward at train_4k's
+    microbatch, the chunked forward with lengths at prefill_32k's rows, and
+    the decode step at decode_32k's 8 rows and long_500k's one (in place).
+    Each output held to its plain version to WKV_TOL (relative to its
+    largest) and timed beside it; no PyTorch call scans, so no library
+    time. Bounds as [timing]'s and [bwd]'s: r, k, v, w read and the output
+    written (fp32), the states once; 5 N^2 fp32 operations a (b, t, h)
+    forward, 10 N^2 backward."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.wkv.kernel import SEGMENT_STEPS, segments
+    from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
+    H, N = 4, 64
+
+    def inputs(B, T):
+        r, k, v, w, u, _, dout, _ = wkv_train_inputs(torch, rnd, B, T, False, H)
+        return r, k, v, w, u, dout
+
+    def record(name, label, outs, plains, run, plain, nbytes, flops, plain_iters=3,
+               plain_warmup=1):
+        errs = [rel_err(g, x) for g, x in zip(outs, plains) if x is not None]
+        require(max(errs) < WKV_TOL, f"[dryrun] {name} {label}: rel_err {errs} >= {WKV_TOL:g}")
+        err = max(max_abs(g, x) for g, x in zip(outs, plains) if x is not None)
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        entry = {"shape": label, "ms": time_ms(torch, run),
+                 "plain_ms": time_ms(torch, plain, plain_iters, plain_warmup),
+                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        row = by_name[name]
+        row["shapes"].append(entry)
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+        print(f"[dryrun] {name} {label}: kernel {entry['ms']:.5f} ms, plain "
+              f"{entry['plain_ms']:.5f} ms, library none, bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / entry['ms'] * 100:.1f}% of bound, rel_err {max(errs):.3e}, max_abs_err "
+              f"{err:.3e}; {smi}")
+
+    # train_4k, rank 0: microbatches of 2 rows of 4096, the forward writing
+    # the segments' states the backward reads
+    B, T = 2, 4096
+    r, k, v, w, u, dout = inputs(B, T)
+    n = B * T * H * N
+    s_seg = torch.empty((B, H, segments(T), N, N), device="cuda")
+    out, state = KERNELS["wkv_chunked"](r, k, v, w, u, s_seg=s_seg)
+    want = wkv_ref(r, k, v, w, u)
+    seg_err = rel_err(s_seg, wkv_segment_states(torch, r, k, v, w, None, SEGMENT_STEPS))
+    require(seg_err < WKV_TOL, f"[dryrun] wkv_chunked ({B},{T},{H},{N}): the segments' states "
+            f"are off the plain ones by {seg_err:.3e}")
+    print(f"[dryrun] wkv_chunked ({B},{T},{H},{N}) with s_seg: the states at the "
+          f"{segments(T)} segments' starts within {seg_err:.3e} of the plain ones")
+    record("wkv_chunked", f"r,k,v,w ({B},{T},{H},{N}) fp32 with s_seg (rwkv6-7b train_4k, rank 0)",
+           (out, state), want, lambda: KERNELS["wkv_chunked"](r, k, v, w, u, s_seg=s_seg),
+           lambda: wkv_ref(r, k, v, w, u),
+           20 * n + 4 * B * H * N * N + 4 * s_seg.numel() + 4 * H * N, 5 * N * n)
+    got = KERNELS["wkv_bwd"](r, k, v, w, u, s_seg, dout)
+    record("wkv_bwd", f"r,k,v,w,dout ({B},{T},{H},{N}) fp32, {SEGMENT_STEPS} steps a segment "
+           "(rwkv6-7b train_4k, rank 0)", got, wkv_bwd_ref(r, k, v, w, u, None, dout),
+           lambda: KERNELS["wkv_bwd"](r, k, v, w, u, s_seg, dout),
+           lambda: wkv_bwd_ref(r, k, v, w, u, None, dout),
+           36 * n + 4 * s_seg.numel() + 8 * H * N, 10 * N * n, plain_iters=1)
+    del r, k, v, w, dout, s_seg, out, state, want, got
+    # prefill_32k, rank 0: 2 rows of 32768, through the lengths path the
+    # prefill takes
+    B, T = 2, 32768
+    r, k, v, w, u, _ = inputs(B, T)
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    n = B * T * H * N
+    record("wkv_chunked", f"r,k,v,w ({B},{T},{H},{N}) fp32 lengths={[T] * B} (rwkv6-7b "
+           "prefill_32k, rank 0)", KERNELS["wkv_chunked"](r, k, v, w, u, None, lens),
+           wkv_ref(r, k, v, w, u, None, lens),
+           lambda: KERNELS["wkv_chunked"](r, k, v, w, u, None, lens),
+           lambda: wkv_ref(r, k, v, w, u, None, lens),
+           20 * n + 4 * B * H * N * N + 4 * H * N, 5 * N * n, plain_iters=1, plain_warmup=0)
+    del r, k, v, w
+    # decode_32k's 8 rows and long_500k's one: the state updated in place
+    for B, label in ((8, "decode_32k"), (1, "long_500k")):
+        r, k, v, w, u, _ = inputs(B, 1)
+        s0 = rnd((B, H, N, N), torch.float32)
+        want = wkv_ref(r, k, v, w, u, s0)
+        kept = s0.clone()
+        got = KERNELS["wkv"](r, k, v, w, u, s0, None, state_out=s0)
+        record("wkv", f"r,k,v,w ({B},1,{H},{N}) fp32 state0 in place (rwkv6-7b {label}, rank "
+               "0)", got, want, lambda: KERNELS["wkv"](r, k, v, w, u, kept, None, state_out=kept),
+               lambda: wkv_ref(r, k, v, w, u, kept),
+               20 * B * H * N + 8 * B * H * N * N + 4 * H * N, 5 * B * H * N * N + 2 * B * H * N)
+        del r, k, v, w, s0, kept
+    torch.cuda.empty_cache()
 
 
 def collect_dryrun_grid(grid):
@@ -5247,7 +5433,7 @@ def collect_dryrun_grid(grid):
 
 
 def phase_dryrun(torch, smi, grid, rows):
-    """(a) the grid collected and priced, (b) the four cells' traces (the
+    """(a) the grid collected and priced, (b) the six cells' traces (the
     grid's records) against their runs on the card, and the new kernel
     shapes. Returns the card runs' launches by kernel, summed."""
     import repro_torch.kernels as K
@@ -5257,7 +5443,7 @@ def phase_dryrun(torch, smi, grid, rows):
     ok = [r for r in recs.values() if r.get("ok")]
     K.reset_launches()
     table_rows = report.build_rows(str(grid.out))
-    require(len(table_rows) == len(ok) == 18 and all(r.fits for r in table_rows),
+    require(len(table_rows) == len(ok) == 26 and all(r.fits for r in table_rows),
             f"[dryrun] {sum(not r.fits for r in table_rows)} ok cells do not fit 80 GB")
     print(f"[dryrun] the grid: {grid.last} in {grid.wall:.1f} s beside the card phases; every "
           "failure names A12b or the dim; every ok cell fits 80 GB; its trace seconds "
@@ -5326,7 +5512,8 @@ def main():
     lap("[build]")
     if sys.argv[1:] == ["--only", "dryrun"]:
         shapes = [{"name": n, "shapes": []} for n in ("flash_attention_wgmma",
-                                                      "decode_attention_chunked")]
+                                                      "decode_attention_chunked",
+                                                      "wkv_chunked", "wkv_bwd", "wkv")]
         print(json.dumps({"launches_in_dryrun": phase_dryrun(torch, card_line(),
                                                               start_dryrun_grid(), shapes)}))
         lap("[dryrun]")

@@ -21,9 +21,11 @@ dispatch rule reaches): ``shard`` cuts this rank's slice of a whole leaf,
 ``gather`` rebuilds the whole leaf from the ranks' slices. ``ModelShard``
 is this rank's share of a model on a (data, model) or (pod, data, model)
 mesh: the local config the layers run (heads, kv heads and ``d_ff`` over
-``model``), the vocab rows and experts it holds, the batch rows (over pod
-and data), ZeRO's slices of the optimizer state, and the gradient
-reductions a step needs.
+``model``; RWKV6's wkv heads and channel-mix width), the vocab rows and
+experts it holds, the batch rows (over pod and data, or for serving
+replicated over a DP axis that does not divide them: the JAX
+``_batch_axes`` rule), ZeRO's slices of the optimizer state, and the
+gradient reductions a step needs.
 
 ZeRO (``zero_spec``): the fp32 master copy and moments of a leaf take one
 more axis, the DP axes its spec leaves free, on the first dim they divide;
@@ -386,10 +388,16 @@ def gather(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 #: the most elements ``ModelShard.sync_grads`` all-reduces in one call
 SYNC_BUCKET = 1 << 26
 
-_NO_TP = (("attention_free", "RWKV6's head-parallel wkv and its (wr|wg), tmix/wo"),
-          ("block_pattern", "the channel-parallel RG-LRU (rec/w_out, conv_*, lam)"),
+_NO_TP = (("block_pattern", "the channel-parallel RG-LRU (rec/w_out, conv_*, lam)"),
           ("cross_attention", "the encoder-decoder's cross-attention"),
           ("cross_attn_layers", "the vision cross layers"))
+
+
+#: RWKV6 leaves replicated over model whose gradient a model rank holds a
+#: part of: those its time mix reads at its channels, the decay LoRA's
+#: first factor, and the shift mixes
+_RWKV_PARTIAL = ("tmix.mu", "tmix.w0", "tmix.w_lora_a", "tmix.w_lora_b", "tmix.u", "tmix.ln_x",
+                 "cmix.mu")
 
 
 @dataclasses.dataclass
@@ -404,7 +412,10 @@ class ModelShard:
     the data axis, `model_partial` the leaves replicated over model whose
     gradients each rank holds a part of (the qk-norm scales: each rank's
     act on its own heads), `zero` each leaf's ZeRO placement (dim, axes) in
-    its local shard, where it has one."""
+    its local shard, where it has one, `rwkv_heads` (first, count) of the
+    wkv heads an RWKV6 rank's time mix runs (None off a model axis), and
+    `rows` the axes the rows at hand split over where ``split_rows`` set
+    them to fewer than every DP axis (None: every one)."""
     mesh: object
     cfg: ModelConfig
     local: ModelConfig
@@ -415,6 +426,8 @@ class ModelShard:
     experts: tuple
     model_partial: frozenset
     zero: dict = dataclasses.field(default_factory=dict)
+    rwkv_heads: Optional[tuple] = None
+    rows: Optional[tuple] = None
 
     @property
     def model_group(self):
@@ -429,10 +442,44 @@ class ModelShard:
         return self.mesh.group("pod")
 
     @property
-    def batch_axes(self) -> tuple:
-        """The axes a batch's rows split over: (pod, data), those the mesh
-        has."""
+    def dp_axes(self) -> tuple:
+        """The DP axes of the mesh: (pod, data), those it has."""
         return tuple(a for a in DP_AXES if a in self.mesh.shape)
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The axes the rows at hand split over: every DP axis, unless
+        ``split_rows`` set fewer for a serving batch."""
+        return self.dp_axes if self.rows is None else self.rows
+
+    @property
+    def rwkv_channels(self) -> Optional[tuple]:
+        """[c0, c1) of the channels of the rank's wkv heads (None off a model
+        axis: all of them)."""
+        if self.rwkv_heads is None:
+            return None
+        first, n = self.rwkv_heads
+        N = self.cfg.rwkv_head_dim
+        return first * N, (first + n) * N
+
+    def split_rows(self, batch: int, train: bool = False) -> tuple:
+        """The axes a batch of `batch` rows splits over, by the JAX
+        ``_batch_axes`` rule: every DP axis where their size divides it;
+        ``("data",)`` alone where only data's does, the rows then replicated
+        over pod; none where neither does, every rank running every row.
+        Sets ``rows`` (``batch_axes`` gives them until the next call). A
+        train step (`train`) takes only the first: its gradients and loss
+        sum over every DP axis, and a batch that does not split raises
+        ValueError."""
+        axes = _batch_axes(self.mesh, batch) or ()
+        if train and axes != self.dp_axes:
+            raise ValueError(
+                f"a train batch of {batch} rows does not split over "
+                f"{'x'.join(self.dp_axes)} = {self.mesh.axis_size(self.dp_axes)}: the JAX "
+                "_batch_axes rule replicates its rows over the axes that do not divide it, "
+                "which the port runs for prefill and decode only (ROADMAP A12b)")
+        self.rows = None if axes == self.dp_axes else axes
+        return axes
 
     @property
     def data_size(self) -> int:
@@ -452,24 +499,32 @@ class ModelShard:
             return self.local
         return dataclasses.replace(self.local, n_kv_heads=self.kv_heads[1])
 
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """This rank's decode cache of `batch` rows: ``init_cache`` of
+        ``cache_cfg``, an RWKV6 state of the rank's heads."""
+        from ..models.lm import init_cache
+        return init_cache(self.cache_cfg, batch, max_len, device,
+                          self.rwkv_heads[1] if self.rwkv_heads else None)
+
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the batch axes (data, then pod)."""
         for axis in reversed(self.batch_axes):
             t = C.all_reduce(t, self.mesh.group(axis))
         return t
 
-    def local_rows(self, a, microbatches: int = 1):
+    def local_rows(self, a, microbatches: int = 1, train: bool = False):
         """This rank's rows of a global batch array: the batch split into
-        `microbatches` first, then each microbatch's rows over (pod, data),
-        pod the major axis (the JAX step's ``_shard_microbatch``), flattened
+        `microbatches` first, then each microbatch's rows over the axes
+        ``split_rows`` gives it (over (pod, data), pod the major axis, the
+        JAX step's ``_shard_microbatch``, for a train step), flattened
         back."""
-        D = self.data_size
-        if a is None or D == 1:
+        if a is None:
             return a
         mb = a.shape[0] // microbatches
-        if mb % D:
-            raise ValueError(f"a microbatch of {mb} rows does not split over "
-                             f"{'x'.join(self.batch_axes)} = {D}")
+        self.split_rows(mb, train)
+        D = self.data_size
+        if D == 1:
+            return a
         r = self.mesh.index(self.batch_axes)
         part = a.reshape(microbatches, mb, *a.shape[1:])[:, r * mb // D:(r + 1) * mb // D]
         return part.reshape(-1, *a.shape[1:])
@@ -539,9 +594,10 @@ class ModelShard:
 
 def check_executable(cfg: ModelConfig, mesh) -> None:
     """Raise where the port cannot run `cfg` on local shards of `mesh`:
-    NotImplementedError naming A12b for TP of the recurrent and
-    cross-attending models, ValueError naming the dim for heads, d_ff or a
-    padded vocab that the model axis does not divide. A pod axis is a data
+    NotImplementedError naming A12b for TP of Griffin and the
+    cross-attending models, ValueError naming the dim for heads, d_ff (for
+    RWKV6 its wkv heads and channel-mix width) or a padded vocab that the
+    model axis does not divide. A pod axis is a data
     axis here (``pipeline_apply`` runs pipeline stages over it, from its
     own caller)."""
     from ..models.lm import padded_vocab
@@ -553,8 +609,12 @@ def check_executable(cfg: ModelConfig, mesh) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism of {what} ({field}) is ROADMAP A12b; "
                 "run it data-parallel (--model 1)")
-    for field, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
-                     ("padded vocab", padded_vocab(cfg))):
+    if cfg.attention_free:
+        dims = (("rwkv heads d_model // rwkv_head_dim", cfg.d_model // cfg.rwkv_head_dim),
+                ("channel-mix width int(3.5 * d_model)", int(3.5 * cfg.d_model)))
+    else:
+        dims = (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff))
+    for field, n in dims + (("padded vocab", padded_vocab(cfg)),):
         if n % m:
             raise ValueError(f"{cfg.name}: {field} = {n} does not divide over model = {m}: "
                              "local shards would split it mid-way")
@@ -591,7 +651,8 @@ def plan(cfg: ModelConfig, mesh) -> ModelShard:
     local = dataclasses.replace(
         cfg, n_heads=cfg.n_heads // m,
         n_kv_heads=hkv if kv_heads or not hkv else hkv // m,
-        d_ff=cfg.d_ff // m)
+        # RWKV6's channel mix is int(3.5 d) wide whatever d_ff says
+        d_ff=cfg.d_ff if cfg.attention_free else cfg.d_ff // m)
     vpad = padded_vocab(cfg)
     vocab = (r * vpad // m, (r + 1) * vpad // m) if specs["embed"] else (0, vpad)
     E, D = cfg.n_experts, mesh.shape.get("data", 1)
@@ -599,9 +660,17 @@ def plan(cfg: ModelConfig, mesh) -> ModelShard:
     i = mesh.index("data")
     experts = (min(i * e_pad // D, E), min((i + 1) * e_pad // D, E))
     # the qk-norm scales act on local heads: each rank's gradient is its
-    # heads' part (replicated kv heads are whole on every rank: lm.py)
+    # heads' part (replicated kv heads are whole on every rank: lm.py);
+    # RWKV6's replicated time-mix leaves act on the rank's channels, and
+    # both mixes' shift mixes sit after f, ahead of its column-parallel
+    # products
     partial = {n for n in shapes if m > 1 and (
-        n.endswith("attn.q_norm") or (n.endswith("attn.k_norm") and not kv_heads))}
+        n.endswith("attn.q_norm") or (n.endswith("attn.k_norm") and not kv_heads)
+        or n.endswith(_RWKV_PARTIAL))}
+    rwkv_heads = None
+    if m > 1 and cfg.attention_free:
+        H = cfg.d_model // cfg.rwkv_head_dim
+        rwkv_heads = (r * H // m, H // m)
     zero = {}
     for n, s in shapes.items():
         path, jshape, _ = jax_leaf(cfg, n, s)
@@ -609,7 +678,7 @@ def plan(cfg: ModelConfig, mesh) -> ModelShard:
         if placed is not None:
             zero[n] = placed
     return ModelShard(mesh, cfg, local, specs, shapes, vocab, kv_heads, experts,
-                      frozenset(partial), zero)
+                      frozenset(partial), zero, rwkv_heads)
 
 
 def init_sharded(cfg: ModelConfig, mesh, seed: int = 0, device=None):

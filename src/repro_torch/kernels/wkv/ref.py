@@ -6,6 +6,20 @@ from typing import Optional
 
 import torch
 
+from ...device import traced
+
+#: the steps a plain loop runs on fake tensors (a dry run's trace of the CPU
+#: program): from its second step on, each step allocates and frees the
+#: same storages as the one before, so two hold the whole loop's peak; no
+#: step does a product a FLOP counter counts or launches a kernel
+TRACED_STEPS = 2
+
+
+def _steps(x: torch.Tensor, T: int) -> int:
+    """The steps of a loop over `T` that `x`'s program runs: all of them, or
+    ``TRACED_STEPS`` on a fake tensor."""
+    return min(T, TRACED_STEPS) if traced(x) else T
+
 
 def _working_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
@@ -25,7 +39,8 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     Steps at or past ``lengths[b]`` leave S as it is and output zeros. The
     contraction over the key channel is an elementwise product and a sum, so
     no matrix product (and no TF32) is involved. Returns out (B, T, H, N)
-    and the final state (B, H, N, N), both fp32."""
+    and the final state (B, H, N, N), both fp32. On fake tensors the loop
+    runs ``TRACED_STEPS`` steps (``_steps``)."""
     B, T, H, N = r.shape
     dt = _working_dtype(r)
     r, k, v, w, u = (a.to(dt) for a in (r, k, v, w, u))
@@ -37,7 +52,7 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     live = None
     if lengths is not None:
         live = torch.arange(T, device=r.device)[None, :] < lengths.to(r.device)[:, None]
-    for t in range(T):
+    for t in range(_steps(r, T)):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]            # (B, H, N, N)
         o = (r[:, t, :, :, None] * (S + u[:, :, None] * kv)).sum(-2)
         nxt = S * w[:, t, :, :, None] + kv
@@ -147,20 +162,26 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
     LOG_W_MIN, as in ``csrc/wkv_bwd.cu``: the chunked forward clamps log w
     there, so its output does not depend on w. Keeps every step's state:
     B H N^2 T values. Nothing on the main path calls it when a card is
-    present."""
+    present. On fake tensors each loop runs ``TRACED_STEPS`` steps
+    (``_steps``), the states it would keep allocated whole."""
     B, T, H, N = r.shape
     dt = _working_dtype(r)
     r, k, v, w, u, dout = (a.to(dt) for a in (r, k, v, w, u, dout))
     S = torch.zeros((B, H, N, N), dtype=dt, device=r.device) if state0 is None \
         else state0.to(dt).clone()
     states = []
-    for t in range(T):
+    n = _steps(r, T)
+    for t in range(n):
         states.append(S)
         S = S * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    if n < T:       # a trace: the states of the steps it skips and the last, one storage
+        rest = torch.empty((T - n, *S.shape), dtype=dt, device=r.device)
+        states += [S] + [rest[0]] * (T - n - 1)
+        S = rest[-1]
     D = torch.zeros_like(S) if dstate is None else dstate.to(dt).clone()
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     vdo = (v * dout).sum(-1, keepdim=True)                      # (B, T, H, 1)
-    for t in reversed(range(T)):
+    for t in reversed(range(T - n, T)):
         rt, kt, vt, wt, dot = (a[:, t] for a in (r, k, v, w, dout))
         dr[:, t] = (states[t] * dot[..., None, :]).sum(-1) + u * kt * vdo[:, t]
         dk[:, t] = (D * vt[..., None, :]).sum(-1) + u * rt * vdo[:, t]

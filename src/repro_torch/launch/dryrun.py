@@ -44,9 +44,9 @@ from ..configs import ARCHS, SHAPES, get_config, shape_applicable
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import card_standin
 from ..distributed.collectives import Recorder
-from ..distributed.sharding import _batch_axes, attach, init_sharded, plan
+from ..distributed.sharding import attach, init_sharded, plan
 from .. import kernels as K
-from ..models import init_cache, input_specs, needs_frontend
+from ..models import input_specs, needs_frontend
 from ..models.bridge import decayed_leaves
 from ..models.lm import LM
 from ..training import AdamW, constant_schedule, step_grads
@@ -81,7 +81,9 @@ def rank0_largest(cfg: ModelConfig, mesh) -> bool:
 class RankProgram:
     """One rank's program of a cell: its shards of the model (``plan`` on
     `mesh`), the optimizer state's ZeRO slices or the cache at its local
-    config, and its rows of the inputs, on `device`. ``run`` executes the
+    config, and its rows of the inputs (``ModelShard.split_rows``: a
+    serving batch that the DP axes do not divide is replicated over them,
+    long_500k's one row on every rank), on `device`. ``run`` executes the
     program once. Without a `seed` the weights are left as allocated (a
     trace reads none); with one they are drawn as ``init_sharded`` draws
     them, the tokens from the same seed, and a decode cache's positions set
@@ -95,10 +97,8 @@ class RankProgram:
                                       "combine (ROADMAP A12b); the port runs \"channel\"")
         self.cfg, self.shape, self.microbatches = cfg, shape, microbatches
         par = self.par = plan(cfg, mesh)
-        B, S = shape.global_batch, shape.seq_len
-        if _batch_axes(mesh, B) != par.batch_axes:
-            raise ValueError(f"a batch of {B} does not split over {par.batch_axes} "
-                             f"= {par.data_size}")
+        B = shape.global_batch
+        par.split_rows(B, train=shape.kind == "train")
         rows = B // par.data_size
         self.model = (attach(LM(cfg, None, device), par) if seed is None
                       else init_sharded(cfg, mesh, seed, device))
@@ -126,7 +126,7 @@ class RankProgram:
                                               (("master", st.master), ("m", st.m), ("v", st.v))
                                               for n, t in d.items()}}
         else:
-            self.cache = init_cache(par.cache_cfg, rows, cache_len(shape), device)
+            self.cache = par.init_cache(rows, cache_len(shape), device)
             if shape.kind == "decode" and seed is not None:
                 self.cache["pos"].fill_(shape.seq_len - 1)
             self.state = dict(self.cache)

@@ -7,6 +7,10 @@
         -m repro_torch.launch.train --arch qwen3-1.7b --preset full \
         --data 1 --model 2
 
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch rwkv6-7b --preset tiny \
+        --data 1 --model 2 --device cpu
+
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, from
 a seeded ``torch.Generator``; batches come from ``TokenPipeline``
 (synthetic, or ``--token-file``), a pure function of (seed, step).

@@ -350,11 +350,17 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     over data in fp32 and this rank's rows kept. A pod axis is a data axis
     for the rows: they are gathered over data, then over pod, and every pod
     runs its data rank's experts over all of them, keeping its own pod's
-    rows before the sum over data."""
+    rows before the sum over data. Rows replicated over a data or pod axis
+    (``ModelShard.split_rows`` of a batch that does not split) raise
+    NotImplementedError: the gather would route each row more than once."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     data = model = pod = None
     e0, e1 = 0, E
+    if par is not None and par.rows is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE layer over rows replicated over "
+            f"{[a for a in par.dp_axes if a not in par.rows]} is ROADMAP A12b")
     if par is not None:
         data, model, pod, (e0, e1) = par.data_group, par.model_group, par.pod_group, \
             par.experts

@@ -272,7 +272,11 @@ class RGLRUBlock(nn.Module):
 
 
 class RWKVBlock(nn.Module):
-    """One RWKV6 layer: LayerNorm, time mix, LayerNorm, channel mix."""
+    """One RWKV6 layer: LayerNorm, time mix, LayerNorm, channel mix. On a
+    model axis both mixes run between Megatron's f and g, as the MLP does:
+    the time mix on the rank's heads (``par.rwkv_channels``), its ``wo``
+    row-parallel; the channel mix's ``w_up`` column-, ``w_down``
+    row-parallel."""
 
     par = None
 
@@ -292,12 +296,15 @@ class RWKVBlock(nn.Module):
         the channel mix's normed input); the caller keeps rows of the last
         two as the next token shifts. The state goes as in
         ``rwkv_tmix_apply``."""
+        par = self.par
+        g, channels = (None, None) if par is None else (par.model_group, par.rwkv_channels)
         h = L.apply_norm(cfg, self.ln1, x)
-        y, _ = R.rwkv_tmix_apply(cfg, self.tmix, h, prev_t, state0, lengths,
-                                 state_out)
-        x = x + y
+        y, _ = R.rwkv_tmix_apply(cfg, self.tmix, C.copy_to_model(h, g), prev_t, state0,
+                                 lengths, state_out, channels)
+        x = x + C.reduce_from_model(y, g)
         hc = L.apply_norm(cfg, self.ln2, x)
-        return x + R.rwkv_cmix_apply(self.cmix, hc, prev_c), h, hc
+        y = R.rwkv_cmix_apply(self.cmix, C.copy_to_model(hc, g), prev_c)
+        return x + C.reduce_from_model(y, g), h, hc
 
 
 class EncDecBlock(Block):
@@ -347,9 +354,12 @@ class LM(nn.Module):
     up and gate column-parallel behind f, the attention output and the
     MLP's down projection row-parallel before g (``distributed.
     collectives``). Where the kv heads replicate (``par.kv_heads``) each
-    rank computes all of them and keeps those its q heads read. Prefill and
-    decode run the same layout on a cache of the rank's heads (``init_cache``
-    of ``par.cache_cfg``, kv mode "channel" of ``sharding.cache_spec``):
+    rank computes all of them and keeps those its q heads read. RWKV6 runs
+    its time mix on the rank's heads and its channel mix's width split, each
+    between f and g (``RWKVBlock``). Prefill and decode run the same layout
+    on a cache of the rank's heads (``ModelShard.init_cache``, kv mode
+    "channel" of ``sharding.cache_spec``), on the rows ``par.split_rows``
+    gives the batch (replicated over a data axis that does not divide it):
     they return the rank's vocab columns of the logits, and
     ``greedy_token`` picks the token over every rank's."""
 
@@ -375,10 +385,10 @@ class LM(nn.Module):
                                         for _ in range(cfg.n_encoder_layers)),
                 "final_norm": L.norm_init(cfg, device)})
 
-    def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, positions: Optional[torch.Tensor]) -> torch.Tensor:
         """Token embeddings, plus the sinusoidal table at `positions` (its
         fp32 rows rounded to bf16, then added) for an attention config
-        without RoPE."""
+        without RoPE (RWKV6 adds none: its `positions` may be None)."""
         par = self.par
         if par is not None and par.tp:
             lo, hi = par.vocab
@@ -616,7 +626,7 @@ class LM(nn.Module):
         shifts are the normed inputs at each sequence's last real token."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens]
+        x = self._embed(tokens, None)
         zeros = x.new_zeros((B, cfg.d_model))
         bidx = torch.arange(B, device=x.device)
         last = (prompt_lens.long() - 1).clamp(0, S - 1)
@@ -679,7 +689,7 @@ class LM(nn.Module):
 
     def _decode_rwkv(self, token: torch.Tensor, cache: dict) -> torch.Tensor:
         """One RWKV6 step: the wkv op updates each layer's state in place."""
-        x = self.embed[token][:, None, :]
+        x = self._embed(token, None)[:, None, :]
         for i, blk in enumerate(self.blocks):
             state = cache["state"][i]
             x, h, hc = blk.mix(self.cfg, x, cache["sx_t"][i], cache["sx_c"][i],
@@ -790,7 +800,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     return LM(cfg, gen, dev)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               rwkv_state_heads: Optional[int] = None) -> dict:
     """Fused bf16 K/V of (n_self, batch, T, Hkv*dh) for the self-attention
     layers (T = max_len, or min(max_len, attn_window) for a windowed model:
     the ring), bf16 cross K/V of (n_cross, batch, n_frontend_tokens,
@@ -798,14 +809,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     batch, d) and bf16 conv carry (n_rglru, batch, W-1, d) of Griffin's
     recurrent layers, or for RWKV6 the fp32 state (n_layers, batch, H, N, N)
     and the bf16 token shifts (n_layers, batch, d) (no length limit); and
-    the per-sequence positions."""
+    the per-sequence positions. `rwkv_state_heads` is the heads of an RWKV6
+    state where not all d // N (a model rank's, ``ModelShard.init_cache``);
+    its token shifts stay whole, as its column-parallel products read the
+    whole normed input (ROADMAP C18)."""
     check_supported(cfg)
     dev = resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.attention_free:
         N = cfg.rwkv_head_dim
+        H = rwkv_state_heads or cfg.d_model // N
         shift = (cfg.n_layers, batch, cfg.d_model)
-        return {"state": torch.zeros((cfg.n_layers, batch, cfg.d_model // N, N, N),
+        return {"state": torch.zeros((cfg.n_layers, batch, H, N, N),
                                      dtype=torch.float32, device=dev),
                 "sx_t": torch.zeros(shift, dtype=torch.bfloat16, device=dev),
                 "sx_c": torch.zeros(shift, dtype=torch.bfloat16, device=dev),

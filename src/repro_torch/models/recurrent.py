@@ -14,6 +14,15 @@ launches the Hopper kernel for CUDA tensors and runs the plain version for
 CPU tensors; it takes per-sequence lengths, so that a right-padded prompt's
 state is that of its real tokens only.
 
+Under tensor parallelism a rank's ``wr``, ``wk``, ``wv`` and ``wg`` hold a
+run of whole heads' columns and its ``wo`` their rows: the time mix then
+runs those heads alone, its heads counted from the width of the local r,
+and reads the same channels ``[c0, c1)`` of the replicated ``w0``,
+``w_lora_b``, ``u`` and ``ln_x`` (``channels``). The decay LoRA's
+``tanh(xw @ w_lora_a)`` stays whole on every rank, as JAX computes it
+whole. The output is the rank's part of the row-parallel product, summed
+over model by the caller, as is the channel mix's.
+
 The RG-LRU block keeps the JAX tree's keys and dtypes too: ``w_gate``,
 ``w_in``, ``conv_w``, ``conv_b`` and ``w_out`` bf16, the gate weights
 ``w_a``, ``w_x`` and ``lam`` fp32. Its GELU branch goes through the gelu op,
@@ -67,9 +76,12 @@ def token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def rwkv_inputs(p: Params, x: torch.Tensor, prev: torch.Tensor):
+def rwkv_inputs(p: Params, x: torch.Tensor, prev: torch.Tensor,
+                channels: Optional[tuple] = None):
     """r, k, v (bf16), the gate g (bf16) and the decay w in (0, 1) (fp32),
-    each (B, T, d)."""
+    each (B, T, d), or (B, T, c1 - c0) of the channels [c0, c1) where given
+    (a model rank's, whose r/k/v/g weights hold those columns alone)."""
+    c0, c1 = channels or (0, x.shape[-1])
     xs = token_shift(x, prev)
     xr, xk, xv, xg, xw = (x + (xs - x) * p["mu"][i] for i in range(5))
     r = xr @ p["wr"]
@@ -77,33 +89,39 @@ def rwkv_inputs(p: Params, x: torch.Tensor, prev: torch.Tensor):
     v = xv @ p["wv"]
     g = F.silu(xg @ p["wg"])
     # data-dependent decay: a LoRA on the shifted input, in fp32
-    dd = torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = torch.exp(-torch.exp(p["w0"] + dd))
+    dd = torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"].narrow(1, c0, c1 - c0)
+    w = torch.exp(-torch.exp(p["w0"].narrow(0, c0, c1 - c0) + dd))
     return r, k, v, g, w
 
 
 def rwkv_tmix_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     prev: torch.Tensor, state0: Optional[torch.Tensor] = None,
                     lengths: Optional[torch.Tensor] = None,
-                    state_out: Optional[torch.Tensor] = None):
+                    state_out: Optional[torch.Tensor] = None,
+                    channels: Optional[tuple] = None):
     """x: (B, T, d) normed input; prev: (B, d) token before x's first;
-    state0: (B, H, N, N) fp32 or None (zeros); lengths: (B,) int32 or None.
-    Returns (y (B, T, d), final state), the state written into `state_out`
-    when given (which may be `state0`: updated in place)."""
-    B, T, d = x.shape
+    state0: (B, H, N, N) fp32 or None (zeros); lengths: (B,) int32 or None;
+    channels: (c0, c1), the channels of a model rank's heads, or None for
+    all. Returns (y (B, T, d), final state), the state written into
+    `state_out` when given (which may be `state0`: updated in place); on a
+    model rank y is its part of the sum over model."""
+    B, T, _ = x.shape
     N = cfg.rwkv_head_dim
-    H = d // N
-    r, k, v, g, w = rwkv_inputs(p, x, prev)
+    r, k, v, g, w = rwkv_inputs(p, x, prev, channels)
+    c0, n = (channels or (0,))[0], r.shape[-1]
+    H = n // N
 
     def heads(a):
         return a.float().reshape(B, T, H, N)
 
-    out, state = wkv(heads(r), heads(k), heads(v), heads(w), p["u"].reshape(H, N),
-                     state0, lengths, state_out=state_out)
+    out, state = wkv(heads(r), heads(k), heads(v), heads(w),
+                     p["u"].narrow(0, c0, n).reshape(H, N), state0, lengths,
+                     state_out=state_out)
     # per-head group norm (population variance), then the gate
     mu = out.mean(-1, keepdim=True)
     var = out.var(-1, correction=0, keepdim=True)
-    out = ((out - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, T, d) * p["ln_x"]
+    out = ((out - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, T, n) \
+        * p["ln_x"].narrow(0, c0, n)
     return (out.to(x.dtype) * g) @ p["wo"], state
 
 
@@ -122,7 +140,9 @@ def rwkv_cmix_init(cfg: ModelConfig, gen: Optional[torch.Generator],
 
 def rwkv_cmix_apply(p: Params, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """x: (B, T, d) normed input; prev: (B, d). ``relu(xk @ w_up)^2 @ w_down``
-    with the shift mix ``mu[0]`` (the JAX tree keeps a second, unused row)."""
+    with the shift mix ``mu[0]`` (the JAX tree keeps a second, unused row);
+    on a model rank (column-parallel ``w_up``, row-parallel ``w_down``) its
+    part of the sum over model."""
     xs = token_shift(x, prev)
     xk = x + (xs - x) * p["mu"][0]
     return torch.relu(xk @ p["w_up"]).square() @ p["w_down"]

@@ -158,7 +158,7 @@ def step_grads(model: LM, batch: dict, microbatches: int = 1, has_frontend: bool
         mask = torch.ones_like(targets, dtype=torch.float32)
     frontend = batch.get("frontend") if has_frontend else None
     if par is not None and not local:
-        tokens, targets, mask, frontend = (par.local_rows(a, microbatches)
+        tokens, targets, mask, frontend = (par.local_rows(a, microbatches, train=True)
                                            for a in (tokens, targets, mask, frontend))
     names, leaves = list(params), list(params.values())
     with fp32_reductions():

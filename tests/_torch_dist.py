@@ -73,10 +73,13 @@ def _replay(records, route):
 
 def sharded_model(case, mesh, device="cpu"):
     """The case's model (its whole state dict, ``params_from_jax`` of the
-    JAX weights) on this rank's shards of `mesh`, trainable."""
+    JAX weights; every leaf fp32 where the case says "fp32") on this rank's
+    shards of `mesh`, trainable."""
     from repro_torch.distributed.sharding import attach, plan
     from repro_torch.models.lm import LM
     model = LM(case["cfg"], None, device)
+    if case.get("fp32"):
+        model = model.float()
     model.load_state_dict(case["state"])
     return attach(model, plan(case["cfg"], mesh)).requires_grad_(True)
 
@@ -242,17 +245,20 @@ def rank_program_worker(rank, world, cases_path, out_dir):
 
 def serve_worker(rank, world, cases_path, out_dir):
     """Tensor-parallel prefill and decode of every case of `cases_path` on
-    its (pod, data, model) mesh of this world: the case's prompts, its rows
-    over (pod, data), prefilled into a cache of the rank's heads, then
-    teacher-forced decode steps; the logits of every step gathered whole
-    (the vocab over model, the rows over data and pod) and the greedy tokens
-    ``greedy_token`` picks from the rank's columns. Rank 0 writes them to
-    ``<out_dir>/serve_<case>.pt``."""
+    its (pod, data, model) mesh of this world: the case's prompts (with its
+    prompt lengths, where it has them), its rows over the axes
+    ``ModelShard.split_rows`` gives the batch (replicated over the others),
+    prefilled into a cache of the rank's heads, then teacher-forced decode
+    steps; the logits of every step gathered whole (the vocab over model,
+    the rows over the axes they split over), the greedy tokens
+    ``greedy_token`` picks from the rank's columns, the axes the rows split
+    over and the axes of every collective that prefill and decode ran.
+    Rank 0 writes them to ``<out_dir>/serve_<case>.pt``."""
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.sharding import gather
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import layers
-    from repro_torch.models.lm import greedy_token, init_cache
+    from repro_torch.models.lm import greedy_token
     cases = torch.load(cases_path, weights_only=False)
     route = layers.moe_route
     for name, case in cases.items():
@@ -264,9 +270,15 @@ def serve_worker(rank, world, cases_path, out_dir):
         par = m.par
         if case["records"] is not None:
             _replay(case["records"], route)
-        toks, steps = case["tokens"], case["steps"]
+        toks, steps, lens = case["tokens"], case["steps"], case.get("lens")
         rows = par.local_rows(torch.arange(toks.shape[0]))
-        cache = init_cache(par.cache_cfg, len(rows), case["max_len"], "cpu")
+        cache = par.init_cache(len(rows), case["max_len"], "cpu")
+        axis_of = {id(g): a for a, g in mesh.groups.items()}
+        run, axes = C.run, set()
+
+        def recorded(op, t, group, **kw):
+            axes.add(axis_of[id(group)])
+            return run(op, t, group, **kw)
 
         def all_rows(t):
             for axis in reversed(par.batch_axes):
@@ -276,16 +288,19 @@ def serve_worker(rank, world, cases_path, out_dir):
         def whole(logits):
             return all_rows(gather(logits, (None, "model"), mesh))
 
+        C.run = recorded
         try:
-            logits = [m.prefill(toks[rows], cache)]
+            logits = [m.prefill(toks[rows], cache, None if lens is None else lens[rows])]
             for s in range(steps.shape[1]):
                 logits.append(m.decode_step(steps[rows, s], cache))
         finally:
             layers.moe_route = route
+            C.run = run
         greedy = [all_rows(greedy_token(lg, par)) for lg in logits]
         logits = [whole(lg) for lg in logits]
         if rank == 0:
-            torch.save({"logits": logits, "greedy": greedy},
+            torch.save({"logits": logits, "greedy": greedy, "batch_axes": par.batch_axes,
+                        "collective_axes": sorted(axes)},
                        os.path.join(out_dir, f"serve_{name}.pt"))
 
 

@@ -1,6 +1,7 @@
-"""The port's data-parallel train step on the models that take no tensor
-parallelism yet (ROADMAP A12b): rwkv6 (the wkv recurrence), recurrentgemma
-(the RG-LRU scan and its window), whisper-tiny (an encoder-decoder) and
+"""The port's data-parallel train step on rwkv6 (the wkv recurrence; its
+tensor parallelism is ``test_torch_dist_rwkv.py``'s) and the models that
+take no tensor parallelism yet (ROADMAP A12b): recurrentgemma (the RG-LRU
+scan and its window), whisper-tiny (an encoder-decoder) and
 llama-3.2-vision-11b (gated cross layers), each whole on every rank of a
 (data, model) = (2, 1) world of gloo CPU ranks, against the JAX package's
 single-device step on the same weights and masked batch, the frontends

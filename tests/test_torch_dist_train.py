@@ -180,18 +180,19 @@ def test_sharded_step_matches_jax_single_device(results, arch, mesh, microbatche
     check(results, arch, mesh, microbatches)
 
 
-def check(results, arch, mesh, microbatches):
-    """The port's case against the JAX reference (see the module's note)."""
+def check(results, arch, mesh, microbatches, tol=TOL):
+    """The port's case against the JAX reference (see the module's note),
+    the loss, its parts and the gradients within `tol`."""
     refs, tmp = results
     jcfg, jparams, cfg, out, _ = refs[arch]
     jloss, jmet, jgrads, _, jparts = out[microbatches - 1]
     got = torch.load(tmp / f"{arch}_mb{microbatches}_{mesh[0]}x{mesh[1]}.pt",
                      weights_only=False)
     want = grads_by_name(cfg, jgrads)
-    assert abs(got["loss"] - jloss) < TOL * max(1.0, abs(jloss))
+    assert abs(got["loss"] - jloss) < tol * max(1.0, abs(jloss))
     if jmet is not None:
         for k in ("ce", "z_loss", "aux", "tokens"):
-            assert abs(got["met"][k] - jmet[k]) < TOL * max(1.0, abs(jmet[k])), k
+            assert abs(got["met"][k] - jmet[k]) < tol * max(1.0, abs(jmet[k])), k
         assert (jmet["aux"] > 0) == bool(cfg.n_experts)
     assert set(want) == set(got["grads"])
     for n, g in got["grads"].items():
@@ -199,7 +200,7 @@ def check(results, arch, mesh, microbatches):
         if n.endswith(".bk") and not cfg.rope_fraction:
             # without RoPE 0 in exact arithmetic (test_torch_train_configs)
             scale = np.linalg.norm(want[n[:-1] + "q"])
-            assert max(np.linalg.norm(g), np.linalg.norm(want[n])) < TOL * scale, n
+            assert max(np.linalg.norm(g), np.linalg.norm(want[n])) < tol * scale, n
             continue
         if n.endswith(".xgate"):
             # a scalar, each microbatch's a sum over every token and channel
@@ -207,9 +208,9 @@ def check(results, arch, mesh, microbatches):
             # mean too: held to the mean of the microbatches' own norms (with
             # one microbatch, the plain rule)
             scale = np.mean([np.linalg.norm(grads_by_name(cfg, p)[n]) for p in jparts])
-            assert np.linalg.norm(g - want[n]) < TOL * scale, (n, g, want[n], scale)
+            assert np.linalg.norm(g - want[n]) < tol * scale, (n, g, want[n], scale)
             continue
-        assert rel_fro(g, want[n]) < TOL, (n, rel_fro(g, want[n]))
+        assert rel_fro(g, want[n]) < tol, (n, rel_fro(g, want[n]))
     # one AdamW update on the gathered gradients, in JAX: the sharded step's
     # norm, clipping and decay are the single-device step's
     jopt = jt.AdamW(lr=jt.constant_schedule(1e-2), weight_decay=0.1)

@@ -18,11 +18,18 @@ trace held to a real world of gloo ranks running the same program.
 * qwen3-1.7b ``decode_32k`` on the single mesh, traced at full width: rank
   0's parameters are the sum of its ``leaf_spec`` slices, and the trace's
   argument bytes are those, the cache's and the inputs'.
+* rwkv6-7b ``long_500k`` on the single mesh, traced at full width: its
+  one row replicated over data, rank 0's parameters the sum of its
+  ``leaf_spec`` slices, its cache 4 wkv heads' fp32 state a layer and the
+  whole token shifts. The token shifts are the model axis's size times
+  JAX's per device (ROADMAP C18), the state JAX's.
 * A refused arch records ``ok: false`` with its error.
 * Rank 0's trace on an abstract (2, 2) mesh (the CPU path, ``--device
   cpu``) records the same launches, collectives (kind, count, bytes), FLOPs
   and peak bytes as rank 0 of a real world of 4 gloo ranks running the same
-  smoke programs (train with two microbatches, prefill, decode).
+  smoke programs (train with two microbatches, prefill, decode; qwen3 and
+  rwkv6), and a batch of one decoded on rows replicated over data, with no
+  collective over data.
 """
 import json
 
@@ -302,6 +309,39 @@ def test_wrapper_traces_its_route_on_fake_tensors(monkeypatch, name, standin):
     assert (K.ops()[name] > 0) == (name != "mapper_tables")
 
 
+@pytest.mark.parametrize("case", ["fwd", "fwd-state0", "fwd-lengths", "bwd", "bwd-state0-dstate"])
+def test_plain_wkv_loop_on_fake_tensors_holds_the_whole_loops_bytes(monkeypatch, case):
+    """The plain wkv loops on fake tensors run ``TRACED_STEPS`` steps (the
+    CPU program's trace, ``--device cpu``): the storages they hold at their
+    peak and at their end, and their outputs' shapes, are those of every
+    step run."""
+    from repro_torch.kernels.wkv import ref as W
+    from repro_torch.launch.analysis import LiveBytes
+    B, T, H, N = 2, 9, 2, 4
+    state0 = "state0" in case
+
+    def run(steps):
+        monkeypatch.setattr(W, "TRACED_STEPS", steps)
+        with FakeTensorMode():
+            r, k, v, w, dout = (torch.empty((B, T, H, N)) for _ in range(5))
+            u = torch.empty((H, N))
+            s0 = torch.empty((B, H, N, N)) if state0 else None
+            entry = [a for a in (r, k, v, w, dout, u, s0) if a is not None]
+            with LiveBytes(entry) as live:
+                if case.startswith("bwd"):
+                    dstate = torch.empty((B, H, N, N)) if "dstate" in case else None
+                    out = W.wkv_bwd_ref(r, k, v, w, u, s0, dout, dstate)
+                else:
+                    lengths = torch.tensor([5, 9], dtype=torch.int32) \
+                        if "lengths" in case else None
+                    out = W.wkv_ref(r, k, v, w, u, s0, lengths)
+                held = live.held([o for o in out if o is not None])
+            return live.peak, held, _flat(out)
+
+    assert run(W.TRACED_STEPS) == run(T)
+    assert W._steps(torch.empty((B, T, H, N)), T) == T
+
+
 # ---------------------------------------------------------------------------
 # rank programs
 # ---------------------------------------------------------------------------
@@ -330,8 +370,68 @@ def test_full_width_decode_trace_holds_rank_shards():
                                   "by_kind": {"all-reduce": res["collectives"]["bytes"]}}
 
 
+def _cache_bytes_by_kind(cache: dict) -> dict:
+    return {n: int(np.prod(s)) * torch.empty((), dtype=d).element_size()
+            for n, (s, d) in cache.items()}
+
+
+def test_full_width_rwkv6_long_500k_trace_holds_rank_shards():
+    cfg = tconfigs.get_config("rwkv6-7b")
+    shape = tconfigs.SHAPES["long_500k"]
+    mesh = Mesh.abstract((16, 16), ("data", "model"))
+    want = 0
+    for name, (s, dtype) in tmodels.abstract_params(cfg).items():
+        spec = leaf_spec(mesh, cfg, name, s)
+        n = int(np.prod(s)) // int(np.prod([mesh.axis_size(a) for a in spec if a]))
+        want += n * torch.empty((), dtype=dtype).element_size()
+    with FakeTensorMode(), card_standin():
+        prog = dryrun.RankProgram(cfg, shape, mesh, "cpu")
+        params = sum(p.numel() * p.element_size() for p in prog.model.parameters())
+        cache = {n: (tuple(t.shape), t.dtype) for n, t in prog.cache.items()}
+        rest = sum(t.numel() * t.element_size() for t in [*prog.state.values(),
+                                                          *prog.inputs.values()])
+    assert params == want and prog.par.batch_axes == ()
+    L, d = cfg.n_layers, cfg.d_model
+    assert cache == {"state": ((L, 1, 4, 64, 64), torch.float32),
+                     "sx_t": ((L, 1, d), torch.bfloat16), "sx_c": ((L, 1, d), torch.bfloat16),
+                     "pos": ((1,), torch.int32)}
+    res = dryrun.trace(cfg, shape, "single")
+    assert res["memory"]["argument_size_in_bytes"] == params + rest
+    # two LayerNorms a layer and the final one, one wkv decode step a layer
+    assert res["kernels"] == {"layernorm": 2 * L + 1, "wkv": L}
+    # the embedding, then the time and the channel mix of each layer: g
+    assert res["collectives"]["count"] == 1 + 2 * L
+    assert res["collectives_by_axis"] == {"model": res["collectives"]["bytes"]}
+
+
+def test_rwkv6_token_shifts_are_model_times_jax_per_rank():
+    """rwkv6-7b decode_32k on the single mesh, rank 0 (ROADMAP C18): the
+    port keeps the token shifts whole on every model rank, where JAX's
+    ``cache_spec`` shards their d over model, so a rank's ``sx_t`` and
+    ``sx_c`` bytes are 16 times JAX's per device; its wkv state, 4 of the
+    64 heads, is JAX's per device."""
+    cfg = tconfigs.get_config("rwkv6-7b")
+    shape = tconfigs.SHAPES["decode_32k"]
+    mesh = Mesh.abstract((16, 16), ("data", "model"))
+    par = plan(cfg, mesh)
+    rows = shape.global_batch // 16
+    port = _cache_bytes_by_kind({n: (tuple(t.shape), t.dtype) for n, t in par.init_cache(
+        rows, shape.seq_len, "meta").items()})
+    jcache = jax_leaves(jmodels.abstract_cache(jconfigs.get_config("rwkv6-7b"),
+                                               shape.global_batch, shape.seq_len))
+    jax_bytes = {}
+    for path, leaf in jcache.items():
+        kind = path.split("/")[-1]
+        spec = cache_spec(mesh, path, leaf.shape, shape.global_batch, "channel")
+        ways = int(np.prod([mesh.axis_size(a) for a in spec if a]))
+        jax_bytes[kind] = jax_bytes.get(kind, 0) + leaf.size * leaf.dtype.itemsize // ways
+    assert port["state"] == jax_bytes["state"]
+    for kind in ("sx_t", "sx_c"):
+        assert port[kind] == 16 * jax_bytes[kind], kind
+
+
 @pytest.mark.parametrize("arch,shape,word", [("grok-1-314b", "decode_32k", "A12b"),
-                                             ("rwkv6-7b", "train_4k", "A12b"),
+                                             ("llama-3.2-vision-11b", "train_4k", "A12b"),
                                              ("qwen2-0.5b", "prefill_32k", "n_heads = 14")])
 def test_refused_cell_records_its_error(tmp_path, arch, shape, word):
     rec = dryrun.run_cell(arch, shape, "single", out_dir=str(tmp_path), verbose=False)
@@ -345,9 +445,16 @@ def test_rank0_is_the_largest_under_expert_padding():
 
 
 SMOKE = tconfigs.smoke_config(tconfigs.get_config("qwen3-1.7b"))
+RWKV = tconfigs.smoke_config(tconfigs.get_config("rwkv6-7b"))
 PROGRAMS = {"train": (SMOKE, ShapeConfig("smoke_train", "train", 16, 8), 2),
             "prefill": (SMOKE, ShapeConfig("smoke_prefill", "prefill", 16, 4), 1),
-            "decode": (SMOKE, ShapeConfig("smoke_decode", "decode", 32, 4), 1)}
+            "decode": (SMOKE, ShapeConfig("smoke_decode", "decode", 32, 4), 1),
+            "rwkv6_train": (RWKV, ShapeConfig("smoke_train", "train", 16, 8), 2),
+            "rwkv6_prefill": (RWKV, ShapeConfig("smoke_prefill", "prefill", 16, 4), 1),
+            "rwkv6_decode": (RWKV, ShapeConfig("smoke_decode", "decode", 32, 4), 1),
+            # one row on data 2: replicated over data
+            "decode_b1": (SMOKE, ShapeConfig("smoke_decode", "decode", 32, 1), 1),
+            "rwkv6_decode_b1": (RWKV, ShapeConfig("smoke_decode", "decode", 32, 1), 1)}
 
 
 @pytest.fixture(scope="module")
@@ -363,6 +470,8 @@ def test_trace_records_what_a_gloo_world_runs(world_programs, kind):
     cfg, shape, microbatches = PROGRAMS[kind]
     real = torch.load(world_programs / f"program_{kind}.pt", weights_only=False)
     traced = dryrun.trace(cfg, shape, ((2, 2), ("data", "model")), "cpu", microbatches)
+    if shape.global_batch == 1:
+        assert set(traced["collectives_by_axis"]) == {"model"}
     assert traced["kernels"] == real["kernels"]
     assert traced["collectives"] == real["collectives"]
     assert traced["cost"] == real["cost"]

@@ -200,14 +200,16 @@ def test_shard_and_abstract_mesh_index_in_row_major_order():
 INIT_CASES = [(a, m) for a in ("qwen2-0.5b", "qwen3-1.7b", "granite-moe-3b-a800m",
                                 "grok-1-314b", "rwkv6-7b", "whisper-tiny")
               for m in ((2, 1), (1, 2), (2, 2), (1, 4))
-              if m[1] == 1 or a not in ("rwkv6-7b", "whisper-tiny")]
+              if m[1] == 1 or (a, m[1]) not in (("whisper-tiny", 2), ("whisper-tiny", 4),
+                                                ("rwkv6-7b", 4))]
 
 
 @pytest.mark.parametrize("arch,mesh_shape", INIT_CASES)
 def test_sharded_init_is_the_single_rank_models_slice(arch, mesh_shape):
     """Every rank's shard from ``init_sharded`` equals its slice of the
     single-rank model drawn from the same seed, leaf for leaf, bit for bit
-    (rwkv6 and whisper, which take no model axis, at data 2 only)."""
+    (whisper, which takes no model axis, at data 2 only; rwkv6's two smoke
+    heads not over model 4)."""
     cfg = smoke_config(get_config(arch))
     whole = dict(init_params(cfg, seed=4, device="cpu").named_parameters())
     for rank in range(int(np.prod(mesh_shape))):
@@ -219,27 +221,55 @@ def test_sharded_init_is_the_single_rank_models_slice(arch, mesh_shape):
         assert model.cfg.n_heads == cfg.n_heads // mesh_shape[1]
 
 
-@pytest.mark.parametrize("arch,field", [("rwkv6-7b", "attention_free"),
+@pytest.mark.parametrize("arch,field", [("rwkv6-7b", None),
                                         ("recurrentgemma-2b", "block_pattern"),
                                         ("whisper-tiny", "cross_attention"),
                                         ("llama-3.2-vision-11b", "cross_attn_layers")])
 def test_tensor_parallelism_of_the_recurrent_and_cross_models_names_a12b(arch, field):
-    mesh = Mesh.abstract((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=f"\\({field}\\) is ROADMAP A12b"):
-        shd.plan(smoke_config(get_config(arch)), mesh)
-    shd.plan(smoke_config(get_config(arch)), Mesh.abstract((2, 1), ("data", "model")))
+    """Griffin and the cross-attending models refuse a model axis, naming
+    A12b. RWKV6 (`field` None) plans at model 2: rank 1 runs the second of
+    the smoke config's two wkv heads, its r/k/v/g projections'
+    columns and its wo's rows, the shift mixes and the replicated time-mix
+    leaves summed over model, and its decode cache holds that head's state
+    and the whole token shifts."""
+    cfg = smoke_config(get_config(arch))
+    mesh = Mesh.abstract((1, 2), ("data", "model"), rank=1)
+    if field is None:
+        par = shd.plan(cfg, mesh)
+        assert par.rwkv_heads == (1, 1) and par.rwkv_channels == (64, 128)
+        assert par.local.d_model == cfg.d_model and par.local.n_heads == 0
+        for n in ("wr", "wk", "wv", "wg"):
+            assert par.specs[f"blocks.0.tmix.{n}"] == (None, "model")
+        assert par.specs["blocks.0.tmix.wo"] == ("model", None)
+        assert par.specs["blocks.0.cmix.w_up"] == (None, "model")
+        assert par.specs["blocks.0.cmix.w_down"] == ("model", None)
+        assert par.model_partial == {f"blocks.{i}.{n}" for i in range(cfg.n_layers) for n in (
+            "tmix.mu", "tmix.w0", "tmix.w_lora_a", "tmix.w_lora_b", "tmix.u", "tmix.ln_x",
+            "cmix.mu")}
+        cache = par.init_cache(3, 8, "meta")
+        assert tuple(cache["state"].shape) == (cfg.n_layers, 3, 1, 64, 64)
+        assert tuple(cache["sx_t"].shape) == tuple(cache["sx_c"].shape) == (
+            cfg.n_layers, 3, cfg.d_model)
+    else:
+        with pytest.raises(NotImplementedError, match=f"\\({field}\\) is ROADMAP A12b"):
+            shd.plan(cfg, mesh)
+    shd.plan(cfg, Mesh.abstract((2, 1), ("data", "model")))
 
 
 @pytest.mark.parametrize("arch,model,dim,change", [
     ("qwen2-0.5b", 4, "n_heads", {}), ("qwen2-0.5b", 16, "n_heads", {}),
     ("qwen3-1.7b", 4, "d_ff", {"d_ff": 258}), ("qwen3-1.7b", 4, "q heads", {"n_kv_heads": 3,
-                                                                          "n_heads": 12})])
+                                                                          "n_heads": 12}),
+    ("rwkv6-7b", 16, "rwkv heads", {"d_model": 4032}),
+    ("rwkv6-7b", 4, "channel-mix width", {"d_model": 4100, "rwkv_head_dim": 1025})])
 def test_heads_that_do_not_divide_the_model_axis_raise_naming_the_dim(arch, model, dim,
                                                                       change):
     """qwen2-0.5b's 14 heads split 3.5 a rank at model 4 (JAX shards wq's
     896 channels all the same, and pays in communication); local shards
     cannot. Nor a d_ff of 258 over 4, nor 3 local q heads over groups of 4
-    around replicated kv heads."""
+    around replicated kv heads; nor RWKV6's 63 wkv heads at a d_model of
+    4032 over 16, nor a channel mix int(3.5 x 4100) = 14350 wide over 4 (its
+    4 heads of 1025 dividing it)."""
     import dataclasses
     cfg = dataclasses.replace(get_config(arch), **change)
     with pytest.raises(ValueError, match=dim):
